@@ -1,0 +1,582 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (deepspeed_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py          # from the repository root, one card
+
+Phases, each printing one JSON line before the next starts (a failing
+phase prints {"phase": ..., "ok": false, "error": ...} and the script exits
+1 without a result):
+
+1. device: the card's name and power limit (nvidia-smi), TF32 off, and the
+   build of deepspeed_tpu_torch/csrc/*.cu into build/torch_kernels/.
+2. parity: every kernel against its plain PyTorch twin on the same CUDA
+   tensors at the serving path's shapes, with the tolerances below.  Each
+   case is timed with CUDA events (median device time of 30 runs after a
+   warm-up, L2 flushed and the card kept busy while the host enqueues, so
+   the events see the device alone), beside its bound, one PyTorch library
+   call as a yardstick, and the host's cost of one launch (host_us).
+   Kernel C's cases name the kernel its launcher took (gemv, mma, tiled).
+3. serve_bf16: GPT-2 124M at full width (hidden 768, 12 layers, 12 heads,
+   vocab 50304, n_positions 256, bf16, weights from seed 0) through
+   init_inference -> forward / generate: batch 8, prompt 128, 128 new
+   tokens, greedy.  The forward's logits, and the head logits of a
+   prefill and 127 decode steps fed the reference's greedy tokens, are held
+   against the same weights run through the port on the CPU in fp32
+   (max|d| / max|ref| <= 2e-2 each), and the launch counters must show the
+   kernels ran: 12 flash and 25 * 128 = 3200 LayerNorm launches per
+   generate.
+4. serve_int8: the same with quantization_setting=1 (4 * 12 * 128 = 6144
+   dequant-matmul launches per generate), held against the CPU fp32 run on
+   the dequantized int8 weights.
+5. timing: prefill ms and decode tokens/s of both engines, timed in turns
+   (bf16, int8, int8, bf16, ...) since the host's speed drifts during a
+   run; medians with min and max.
+6. profile: the device-busy share of prefill and of a decode step of both
+   engines (torch.profiler), after the timing.
+
+Then the `kernels` line and, last, {"ok": true, "device": {...}}.  Without
+a CUDA device the script exits 1 in phase 1.
+"""
+
+import json
+import subprocess
+import sys
+import time
+import traceback
+from dataclasses import replace
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+import deepspeed_tpu_torch as dst
+from deepspeed_tpu_torch.models import GPT2Config, GPT2Model
+from deepspeed_tpu_torch.ops import (KERNELS, dispatch, launch_counts,
+                                     op_builder, reset_launch_counts)
+from deepspeed_tpu_torch.ops.flash_attention import (flash_attention_cuda,
+                                                     mha_reference)
+from deepspeed_tpu_torch.ops.normalize import (layer_norm_cuda,
+                                               layer_norm_reference)
+from deepspeed_tpu_torch.ops.quant import (dequant, dequant_matmul_reference,
+                                           fused_dequant_matmul)
+from deepspeed_tpu_torch.runtime.weight_quantizer import quantize_weight
+
+# H100 SXM, NVIDIA data sheet (dense): device memory rate and the peak
+# operation rate by operand type (bf16 on the tensor cores; fp32 on the
+# CUDA cores, TF32 being off).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+TIMED_RUNS = 30
+SPIN_CYCLES = 2_000_000  # ~1 ms of torch.cuda._sleep: longer than any enqueue
+BATCH, PROMPT, NEW_TOKENS = 8, 128, 128
+TIMING_ROUNDS = 6  # timed generates per engine, in turns
+PROFILED_TOKENS = 16  # a short generate under torch.profiler
+LOGIT_REL_TOL = 2e-2
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def run_phase(name, fn, *args):
+    t0 = time.perf_counter()
+    try:
+        result, summary = fn(*args)
+    except Exception as exc:  # report the phase, then fail the run
+        traceback.print_exc()
+        emit({"phase": name, "ok": False,
+              "error": f"{type(exc).__name__}: {exc}"})
+        sys.exit(1)
+    emit({"phase": name, "ok": True,
+          "seconds": round(time.perf_counter() - t0, 3), **summary})
+    return result
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+# --------------------------------------------------------------------- #
+# phase 1
+# --------------------------------------------------------------------- #
+def phase_device():
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    op_builder.load()
+    seconds = time.perf_counter() - t0
+    return card, {"card": card, "torch": torch.__version__,
+                  "cuda": torch.version.cuda,
+                  "kind": torch.cuda.get_device_name(0),
+                  "build_seconds": round(seconds, 3),
+                  "nvcc_seconds": op_builder.build_seconds,
+                  "sources": [s.split("deepspeed_tpu_torch/")[-1]
+                              for s in op_builder.sources()]}
+
+
+# --------------------------------------------------------------------- #
+# phase 2
+# --------------------------------------------------------------------- #
+_flush = None
+
+
+def time_ms(fn):
+    """Median device ms of one call, CUDA events, L2 flushed before each
+    run.  A spin kernel keeps the card busy while the host enqueues the
+    call, so that the events measure the device's time and not the host's
+    launch cost (host_us measures that)."""
+    global _flush
+    if _flush is None:
+        _flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(TIMED_RUNS):
+        _flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def host_us(fn, calls=200):
+    """Host µs per call when calls are enqueued back to back without a
+    synchronize: what one launch costs the CPU."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
+
+
+def timings(kernel, plain, library):
+    """Device ms of the kernel, its plain twin and the library call, and
+    the host µs of one kernel and one library launch."""
+    return {"ms": time_ms(kernel), "plain_ms": time_ms(plain),
+            "library_ms": time_ms(library), "host_us": host_us(kernel),
+            "library_host_us": host_us(library)}
+
+
+def bound_ms(nbytes, ops, dtype):
+    """Least time for the work: bytes at the memory rate vs operations at
+    the peak rate for the operand type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _within(out, ref, atol, rtol):
+    return bool(((out - ref).abs() <= atol + rtol * ref.abs()).all())
+
+
+def _dtname(dtype):
+    return str(dtype).split(".")[-1]
+
+
+def case_layer_norm(rows, dtype):
+    hidden = 768
+    g = torch.Generator(device="cuda").manual_seed(rows)
+    x = torch.randn(rows, hidden, device="cuda", generator=g).to(dtype)
+    gamma = 1.0 + 0.1 * torch.randn(hidden, device="cuda", generator=g)
+    beta = 0.1 * torch.randn(hidden, device="cuda", generator=g)
+    out = layer_norm_cuda(x, gamma, beta, 1e-5)
+    ref = layer_norm_reference(x, gamma, beta, 1e-5)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    err = (out.float() - ref.float()).abs().max().item()
+    ok = _within(out.float(), ref.float(), tol, tol)
+    g_lib, b_lib = gamma.to(dtype), beta.to(dtype)
+    nbytes = 2 * x.numel() * x.element_size() + 2 * hidden * 4
+    b_ms, b_by = bound_ms(nbytes, 8 * x.numel(), torch.float32)
+    return {
+        "case": f"[{rows},{hidden}] {_dtname(dtype)}", "ok": ok,
+        "tolerance": f"atol=rtol={tol}", "max_abs_err": err,
+        **timings(lambda: layer_norm_cuda(x, gamma, beta, 1e-5),
+                  lambda: layer_norm_reference(x, gamma, beta, 1e-5),
+                  lambda: F.layer_norm(x, (hidden,), g_lib, b_lib, 1e-5)),
+        "bound_ms": b_ms, "bound_by": b_by}
+
+
+def case_flash(b, h, s, d, causal, dtype, fused=False):
+    """fused: q, k, v are the head views of one [B, S, 3*H*D] projection,
+    split and transposed as the layer passes them (strided, not copied)."""
+    g = torch.Generator(device="cuda").manual_seed(s + causal)
+    if fused:
+        qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=g).to(dtype)
+        q, k, v = (t.view(b, s, h, d).transpose(1, 2)
+                   for t in qkv.split(h * d, dim=-1))
+    else:
+        q, k, v = (torch.randn(b, h, s, d, device="cuda",
+                               generator=g).to(dtype) for _ in range(3))
+    out, lse = flash_attention_cuda(q, k, v, causal=causal)
+    ref, ref_lse = mha_reference(q, k, v, causal=causal, return_lse=True)
+    torch.cuda.synchronize()
+    tol, lse_tol = (2e-2, 1e-3) if dtype == torch.bfloat16 else (1e-4, 1e-5)
+    err = (out.float() - ref.float()).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    ok = _within(out.float(), ref.float(), tol, tol) and lse_err <= lse_tol
+    pairs = s * (s + 1) // 2 if causal else s * s
+    nbytes = 4 * q.numel() * q.element_size() + lse.numel() * 4
+    b_ms, b_by = bound_ms(nbytes, 4 * b * h * d * pairs, dtype)
+    return {
+        "case": f"[{b},{h},{s},{d}] {'causal' if causal else 'full'} "
+                f"{_dtname(dtype)}{' fused-qkv views' if fused else ''}",
+        "ok": ok,
+        "tolerance": f"out atol=rtol={tol}, lse atol={lse_tol}",
+        "max_abs_err": err, "lse_max_abs_err": lse_err,
+        **timings(lambda: flash_attention_cuda(q, k, v, causal=causal),
+                  lambda: mha_reference(q, k, v, causal=causal,
+                                        return_lse=True),
+                  lambda: F.scaled_dot_product_attention(
+                      q, k, v, is_causal=causal)),
+        "bound_ms": b_ms, "bound_by": b_by}
+
+
+def grouped_weight(k, n, groups, seed):
+    """[k, n] weight whose scale groups differ in magnitude: the rows of
+    group g are scaled by 2 ** (g % 4), so that a kernel reading another
+    group's scale is off by a factor of 2 or more."""
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((k, n)) * 0.02
+    w *= 2.0 ** (np.arange(k) // (k // groups) % 4)[:, None]
+    return w.astype(np.float32)
+
+
+def case_dequant(m, k, n, groups, dtype):
+    w = quantize_weight(grouped_weight(k, n, groups, m + k + n + groups),
+                        groups, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(m)
+    x = torch.randn(m, k, device="cuda", generator=g).to(dtype)
+    out = fused_dequant_matmul(x, w)
+    ref = dequant_matmul_reference(x, w)
+    torch.cuda.synchronize()
+    route = DEQUANT_ROUTES[op_builder.load().ds_dequant_matmul_route(
+        x.data_ptr(), w.qweight.data_ptr(), m, k, n,
+        dispatch.kernel_dtype_code(x))]
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    err = (out.float() - ref.float()).abs().max().item()
+    rel = err / ref.float().abs().max().item()
+    dense = dequant(w, dtype)
+    nbytes = (x.numel() * x.element_size() + k * n + groups * 4
+              + m * n * x.element_size())
+    b_ms, b_by = bound_ms(nbytes, 2 * m * k * n, dtype)
+    return {
+        "case": f"M={m} [{k},{n}] groups={groups} {_dtname(dtype)}",
+        "route": route, "ok": rel <= tol, "tolerance": f"max|d|/max|ref| <= {tol}",
+        "max_abs_err": err, "rel_err": rel,
+        # library: the dense matmul on the pre-dequantized weight (reads
+        # 2x the weight bytes in bf16), the product int8 serving replaces
+        **timings(lambda: fused_dequant_matmul(x, w),
+                  lambda: dequant_matmul_reference(x, w),
+                  lambda: torch.matmul(x, dense)),
+        "bound_ms": b_ms, "bound_by": b_by}
+
+
+PARITY_CASES = {
+    "layer_norm_fwd": (case_layer_norm, [
+        (rows, dt) for rows in (1024, 8)
+        for dt in (torch.bfloat16, torch.float32)]),
+    "flash_attention_fwd": (case_flash, [
+        (8, 12, 128, 64, True, dt) for dt in (torch.bfloat16, torch.float32)]
+        + [(2, 12, 1024, 64, causal, dt) for causal in (True, False)
+           for dt in (torch.bfloat16, torch.float32)]
+        + [(2, 12, 77, 64, True, dt) for dt in (torch.bfloat16, torch.float32)]
+        # the layer's layout: strided head views of the fused projection
+        + [(8, 12, 128, 64, True, dt, True)
+           for dt in (torch.bfloat16, torch.float32)]
+        # the other head dim the kernel is built for, at a ragged length
+        + [(2, 8, 200, 128, True, dt) for dt in (torch.bfloat16, torch.float32)]),
+    "dequant_matmul": (case_dequant, [
+        (m, k, n, groups, dt) for m in (8, 1024)
+        for (k, n) in ((768, 2304), (768, 768), (768, 3072), (3072, 768))
+        for groups in (1, 8) for dt in (torch.bfloat16, torch.float32)]
+        # ragged M: one decode row, a 77-token prompt
+        + [(m, 768, 2304, 8, dt) for m in (1, 77)
+           for dt in (torch.bfloat16, torch.float32)]),
+}
+# ds_dequant_matmul_route's codes: the kernel csrc/dequant_matmul.cu takes
+DEQUANT_ROUTES = ("gemv", "mma", "tiled")
+# the case each kernel's entry of the `kernels` line reports: the shape and
+# layout the serving path runs most (LN and flash at prefill, dequant at
+# decode)
+PRIMARY = {"layer_norm_fwd": (1024, torch.bfloat16),
+           "flash_attention_fwd": (8, 12, 128, 64, True, torch.bfloat16, True),
+           "dequant_matmul": (8, 768, 3072, 1, torch.bfloat16)}
+
+
+def phase_parity():
+    results, failed = {}, []
+    for name, (fn, cases) in PARITY_CASES.items():
+        for args in cases:
+            res = fn(*args)
+            emit({"phase": "parity", "kernel": name, **res})
+            if args == PRIMARY[name]:
+                results[name] = res
+            if not res["ok"]:
+                failed.append(f"{name} {res['case']}")
+    check(not failed, f"kernels disagree with their plain twins: {failed}")
+    n_cases = sum(len(c) for _, c in PARITY_CASES.values())
+    return results, {"cases": n_cases}
+
+
+# --------------------------------------------------------------------- #
+# phases 3 and 4
+# --------------------------------------------------------------------- #
+def gpt2_124m():
+    return GPT2Config(vocab_size=50304, n_positions=256, hidden_size=768,
+                      num_layers=12, num_heads=12, bf16=True)
+
+
+def rel_err(out, ref):
+    return ((out - ref).abs().max() / ref.abs().max()).item()
+
+
+def timed(fn, *args, **kwargs):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def teacher_forced_errors(eng, ref_eng, prompt):
+    """A prefill and NEW_TOKENS - 1 decode steps (the positions a generate
+    of NEW_TOKENS decodes) on the card and on the CPU reference, both fed
+    the reference's greedy tokens: max|d| / max|ref| of each step's head
+    logits, and the share of rows whose argmax agrees."""
+    total = PROMPT + NEW_TOKENS
+    caches = eng.init_caches(BATCH, total)
+    ref_caches = ref_eng.init_caches(BATCH, total)
+    ref = ref_eng.prefill(prompt, ref_caches)
+    out = eng.prefill(prompt.cuda(), caches).cpu()
+    errs, agree = [], []
+    for pos in range(PROMPT, total):
+        errs.append(rel_err(out, ref))
+        tok = ref.argmax(-1)
+        agree.append((out.argmax(-1) == tok).float().mean().item())
+        if pos == total - 1:
+            break
+        ref = ref_eng.decode_step(tok, pos, ref_caches)
+        out = eng.decode_step(tok.cuda(), pos, caches).cpu()
+    return errs, float(np.mean(agree))
+
+
+def serve(cfg, state, prompt, quantization_setting, expected_launches):
+    """One engine on the card, held against its CPU fp32 twin on the same
+    weights (forward, then teacher-forced decode), and one counted
+    generate.  Returns the engine, its greedy tokens and the phase
+    summary."""
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ref_eng = dst.init_inference(GPT2Model(replace(cfg, bf16=False)),
+                                 model_parameters=state,
+                                 quantization_setting=quantization_setting,
+                                 device="cpu")
+    ref = ref_eng.forward(prompt)
+    eng = dst.init_inference(GPT2Model(cfg), model_parameters=state,
+                             quantization_setting=quantization_setting)
+    logits = eng.forward(prompt.cuda()).cpu()
+    check(logits.shape == (BATCH, PROMPT, cfg.vocab_size),
+          f"logits shape {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "non-finite logits")
+    err = rel_err(logits, ref)
+    check(err <= LOGIT_REL_TOL, f"logits vs CPU fp32: max|d|/max|ref| = {err}")
+    first_agree = (logits[:, -1].argmax(-1) == ref[:, -1].argmax(-1)).float()
+    del ref, logits
+
+    step_errs, step_agree = teacher_forced_errors(eng, ref_eng, prompt)
+    del ref_eng
+    worst = int(np.argmax(step_errs))
+    check(step_errs[worst] <= LOGIT_REL_TOL,
+          f"teacher-forced step {worst} (0 = prefill) head logits vs CPU "
+          f"fp32: max|d|/max|ref| = {step_errs[worst]}")
+
+    eng.generate(prompt, max_new_tokens=4)  # warm-up
+    reset_launch_counts()
+    toks = eng.generate(prompt, max_new_tokens=NEW_TOKENS)
+    counts = launch_counts()
+    check(counts == expected_launches,
+          f"launch counts {counts}, expected {expected_launches}")
+    toks = toks.cpu()
+    check(toks.shape == (BATCH, NEW_TOKENS), f"tokens {tuple(toks.shape)}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "token ids out of range")
+    summary = {
+        "logits_rel_err": err, "logits_rel_tol": LOGIT_REL_TOL,
+        "first_token_agreement_vs_cpu_fp32": first_agree.mean().item(),
+        "decode_steps_checked": len(step_errs) - 1,
+        "decode_logits_rel_err_max": step_errs[worst],
+        "decode_logits_rel_err_max_step": worst,
+        "decode_logits_rel_err_median": float(np.median(step_errs)),
+        "decode_argmax_agreement_vs_cpu_fp32": step_agree,
+        "launches": counts,
+        "peak_memory_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30}
+    return eng, toks, summary
+
+
+def _union_us(intervals):
+    """Length of the union of (start, end) intervals, in their unit."""
+    busy, reach = 0.0, float("-inf")
+    for start, end in sorted(intervals):
+        if end > reach:
+            busy += end - max(start, reach)
+            reach = end
+    return busy
+
+
+def device_profile(eng, prompt, prefill_ms, decode_step_ms):
+    """Where a generate's time goes: the device-busy time of a prefill-only
+    generate and of a PROFILED_TOKENS one under torch.profiler (CUDA
+    activity), the decode steps' device time by difference, each as a share
+    of the unprofiled wall time, and the ops with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    busy_us, ops = {}, {}
+    for new in (1, PROFILED_TOKENS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            timed(eng.generate, prompt, max_new_tokens=new)
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy_us[new] = _union_us((e.time_range.start, e.time_range.end)
+                                 for e in kernels)
+        ops = {}
+        for e in kernels:
+            ops[e.name] = ops.get(e.name, 0.0) + e.time_range.elapsed_us()
+    if not busy_us[PROFILED_TOKENS]:
+        return {"device_busy": "not measured: torch.profiler recorded no "
+                               "device activity"}
+    step_device_ms = ((busy_us[PROFILED_TOKENS] - busy_us[1]) / 1e3
+                      / (PROFILED_TOKENS - 1))
+    top = sorted(ops.items(), key=lambda kv: -kv[1])[:6]
+    return {
+        "prefill_device_ms": busy_us[1] / 1e3,
+        "prefill_device_busy_share": busy_us[1] / 1e3 / prefill_ms,
+        "decode_step_device_ms": step_device_ms,
+        "decode_device_busy_share": step_device_ms / decode_step_ms,
+        f"top_device_ms_generate_{PROFILED_TOKENS}": {
+            name[:80]: us / 1e3 for name, us in top}}
+
+
+def phase_serve_bf16(cfg, state, prompt):
+    per_gen = cfg.num_layers * 2 + 1
+    expected = {"layer_norm_fwd": per_gen * NEW_TOKENS,
+                "flash_attention_fwd": cfg.num_layers, "dequant_matmul": 0}
+    served = serve(cfg, state, prompt, None, expected)
+    return served, served[2]
+
+
+def phase_serve_int8(cfg, state, prompt, bf16_toks):
+    per_gen = cfg.num_layers * 2 + 1
+    expected = {"layer_norm_fwd": per_gen * NEW_TOKENS,
+                "flash_attention_fwd": cfg.num_layers,
+                "dequant_matmul": 4 * cfg.num_layers * NEW_TOKENS}
+    served = serve(cfg, state, prompt, 1, expected)
+    summary = served[2]
+    summary["greedy_agreement_vs_bf16"] = (served[1] == bf16_toks).float().mean().item()
+    return served, summary
+
+
+def phase_timing(prompt, served):
+    """Prefill (a generate of one token) and generate of NEW_TOKENS for each
+    engine, TIMING_ROUNDS of each, the engines in turns and the order
+    reversed every round, so that a drift of the host's speed falls on
+    both; decode is the generate minus the median prefill."""
+    names = list(served)
+    prefill = {name: [] for name in names}
+    gen = {name: [] for name in names}
+    for r in range(TIMING_ROUNDS):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            eng = served[name][0]
+            prefill[name].append(
+                timed(eng.generate, prompt, max_new_tokens=1)[1])
+            gen[name].append(
+                timed(eng.generate, prompt, max_new_tokens=NEW_TOKENS)[1])
+    out = {}
+    for name in names:
+        pre = float(np.median(prefill[name]))
+        tok_s = [BATCH * (NEW_TOKENS - 1) / (g - pre) for g in gen[name]]
+        out[name] = {
+            "prefill_ms": pre * 1e3,
+            "prefill_ms_min_max": [min(prefill[name]) * 1e3,
+                                   max(prefill[name]) * 1e3],
+            "decode_tokens_per_s": float(np.median(tok_s)),
+            "decode_tokens_per_s_min_max": [min(tok_s), max(tok_s)],
+            "decode_step_ms": (float(np.median(gen[name])) - pre) * 1e3
+                              / (NEW_TOKENS - 1),
+            "generate_tokens_per_s": BATCH * NEW_TOKENS
+                                     / float(np.median(gen[name]))}
+    return out, out
+
+
+def phase_profile(prompt, served, timing):
+    """device_profile of each served engine, once all are timed."""
+    return None, {name: device_profile(eng, prompt,
+                                       timing[name]["prefill_ms"],
+                                       timing[name]["decode_step_ms"])
+                  for name, (eng, _, _) in served.items()}
+
+
+def main():
+    card = run_phase("device", phase_device)
+    primary = run_phase("parity", phase_parity)
+
+    cfg = gpt2_124m()
+    model = GPT2Model(replace(cfg, bf16=False))
+    model.init_params(torch.Generator().manual_seed(0))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    del model
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                           generator=torch.Generator().manual_seed(1))
+    bf16 = run_phase("serve_bf16", phase_serve_bf16, cfg, state, prompt)
+    int8 = run_phase("serve_int8", phase_serve_int8, cfg, state, prompt,
+                     bf16[1])
+    served = {"serve_bf16": bf16, "serve_int8": int8}
+    timing = run_phase("timing", phase_timing, prompt, served)
+    run_phase("profile", phase_profile, prompt, served, timing)
+    bf16_counts, int8_counts = bf16[2]["launches"], int8[2]["launches"]
+    del bf16, int8, served
+
+    kernels = []
+    for kern in KERNELS:
+        res = primary[kern.name]
+        by_path = {"bf16": bf16_counts[kern.name],
+                   "int8": int8_counts[kern.name]}
+        kernels.append({
+            "name": kern.name, "route": "cuda", "source": kern.source,
+            "replaces": kern.replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "case": res["case"],
+            "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"], "library_ms": res["library_ms"],
+            "host_us": res["host_us"]})
+    print(card, flush=True)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,77 @@
+"""deepspeed_tpu_torch — the PyTorch/CUDA port of deepspeed_tpu for NVIDIA
+Hopper (H100).
+
+It mirrors the JAX package's module paths and names; every TPU (Pallas)
+kernel on a ported path is a hand-written CUDA kernel here
+(deepspeed_tpu_torch/csrc/), and what the JAX package leaves to XLA is
+plain PyTorch.  This package imports torch and numpy, never jax and
+nothing of deepspeed_tpu.
+
+Ported so far: the serving path, `init_inference` -> `InferenceEngine`
+(`forward`, `generate`) over GPT-2, with int8 weights under
+`quantization_setting`.
+"""
+
+import torch
+
+from .version import __version__
+from .utils import logger, log_dist
+
+
+_DTYPE_NAMES = {torch.float32: ("fp32", "float32"),
+                torch.bfloat16: ("bf16", "bfloat16")}
+
+
+def _is_torch_module(model) -> bool:
+    return hasattr(model, "named_parameters") and hasattr(model, "children")
+
+
+def init_inference(model, mp_size=1, checkpoint=None, dtype=None,
+                   quantization_setting=None, model_parameters=None,
+                   device=None):
+    """Create an inference engine (deepspeed_tpu.init_inference).
+
+    model: a deepspeed_tpu_torch GPT2Model.  model_parameters: its state
+    dict (e.g. from models.convert.gpt2_params_from_jax); None keeps the
+    model's own weights.  dtype: None or the model's compute dtype
+    (config.bf16 sets it; int8 weights come from quantization_setting, an
+    int group count or (mlp_extra_grouping, groups)).  device: None means
+    "cuda", which must be present; pass device="cpu" to run the plain
+    PyTorch versions of the kernels."""
+    from .inference.engine import InferenceEngine
+    from .models.gpt2 import GPT2Model
+
+    if mp_size > 1:
+        raise NotImplementedError(
+            f"mp_size={mp_size}: tensor-parallel serving over NCCL is not "
+            "ported yet (ROADMAP.md A.12, inference: tensor parallelism)")
+    if checkpoint is not None:
+        raise NotImplementedError(
+            "checkpoint=: loading a checkpoint is not ported yet (ROADMAP.md "
+            "A.12, inference: the checkpoint module); pass "
+            "model_parameters= instead")
+    if not isinstance(model, GPT2Model):
+        if _is_torch_module(model):
+            raise NotImplementedError(
+                f"{type(model).__name__}: injecting a Hugging Face / torch "
+                "module is not ported yet (ROADMAP.md A.12, inference: "
+                "module_inject); build a deepspeed_tpu_torch GPT2Model")
+        raise TypeError(f"init_inference takes a GPT2Model, got "
+                        f"{type(model).__name__}")
+    compute = model.config.dtype
+    if dtype is not None and dtype != compute and \
+            dtype not in _DTYPE_NAMES[compute]:
+        raise ValueError(
+            f"dtype={dtype!r} differs from the model's compute dtype "
+            f"{compute} (set GPT2Config.bf16); int8 weights come from "
+            "quantization_setting, not dtype")
+    if device is None:
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "init_inference: no CUDA device is available; the port runs on "
+            "the GPU and does not fall back to the CPU (pass device='cpu' "
+            "explicitly for the plain PyTorch path)")
+    return InferenceEngine(model, quantization_setting=quantization_setting,
+                           model_parameters=model_parameters, device=device)

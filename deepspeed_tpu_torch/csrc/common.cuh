@@ -1,0 +1,36 @@
+// Shared helpers of the port's CUDA kernels: the dtype codes the Python
+// wrappers pass (ops/op_builder.py DTYPE_*), bf16 <-> fp32 conversion
+// through the __nv_bfloat16 intrinsics only, and warp reductions.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+#define DS_DTYPE_FP32 0
+#define DS_DTYPE_BF16 1
+
+// ops/flash_attention.py DEFAULT_MASK_VALUE: -0.7 * float32 max.  Finite,
+// so a running max over masked scores never becomes -inf.
+#define DS_MASK_VALUE (-0.7f * 3.4028234663852886e+38f)
+
+__device__ __forceinline__ float ds_to_float(float v) { return v; }
+__device__ __forceinline__ float ds_to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T ds_from_float(float v);
+template <>
+__device__ __forceinline__ float ds_from_float<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 ds_from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+__device__ __forceinline__ float ds_warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}

@@ -1,0 +1,46 @@
+"""Weight bridge from the JAX package's GPT-2 parameter tree to the port.
+
+The JAX tree (deepspeed_tpu/models/gpt2.py GPT2Model.init_params) holds
+`wte` [V, H], `wpe` [P, H], the layer leaves stacked [L, ...] under `h`,
+`ln_f` {`w`, `b`} and, when the embeddings are untied, `lm_head` [H, V].
+Both packages keep the [in, out] weight layout (`x @ W`), so the bridge
+only copies and unstacks.  It takes numpy arrays (or anything
+`np.asarray` reads) and imports nothing of JAX.
+"""
+
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+from ..ops.transformer import DeepSpeedTransformerLayer
+from .gpt2 import GPT2Config
+
+
+def _tensor(a, shape, name):
+    arr = np.array(a, dtype=np.float32)
+    if arr.shape != tuple(shape):
+        raise ValueError(f"{name}: shape {arr.shape}, config wants "
+                         f"{tuple(shape)}")
+    return torch.from_numpy(arr)
+
+
+def gpt2_params_from_jax(tree, config: GPT2Config) -> "OrderedDict[str, torch.Tensor]":
+    """The port's GPT2Model state dict (fp32 CPU tensors) from the JAX
+    parameter tree."""
+    h, n_layers = config.hidden_size, config.num_layers
+    layer_shapes = DeepSpeedTransformerLayer.param_shapes(config.layer_config())
+    out = OrderedDict()
+    out["wte"] = _tensor(tree["wte"], (config.vocab_size, h), "wte")
+    out["wpe"] = _tensor(tree["wpe"], (config.n_positions, h), "wpe")
+    stacked = {name: _tensor(tree["h"][name], (n_layers,) + shape, f"h/{name}")
+               for name, shape in layer_shapes.items()}
+    for i in range(n_layers):
+        for name in layer_shapes:
+            out[f"h.{i}.{name}"] = stacked[name][i].clone()
+    out["ln_f.w"] = _tensor(tree["ln_f"]["w"], (h,), "ln_f/w")
+    out["ln_f.b"] = _tensor(tree["ln_f"]["b"], (h,), "ln_f/b")
+    if not config.tie_word_embeddings:
+        out["lm_head"] = _tensor(tree["lm_head"], (h, config.vocab_size),
+                                 "lm_head")
+    return out

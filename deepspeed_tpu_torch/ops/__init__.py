@@ -1,0 +1,43 @@
+"""The port's ops.  KERNELS lists every hand-written CUDA kernel: its
+wrapper (which launches it and counts the launches), its plain PyTorch
+twin, its source and the TPU kernel it replaces."""
+
+from typing import Callable, NamedTuple
+
+from .activations import bias_gelu, dropout, gelu, gelu_exact
+from .flash_attention import (DEFAULT_MASK_VALUE, flash_attention,
+                              flash_attention_cuda, mha_reference)
+from .normalize import fused_layer_norm, layer_norm_cuda, layer_norm_reference
+from .quant import (QuantizedWeight, dequant, dequant_matmul_reference,
+                    fused_dequant_matmul, matmul_maybe_int8)
+from .transformer import DeepSpeedTransformerConfig, DeepSpeedTransformerLayer
+
+
+class Kernel(NamedTuple):
+    name: str
+    wrapper: Callable   # launches the kernel; carries `.launches`
+    plain: Callable     # the plain PyTorch version of the same function
+    source: str         # path in the repository
+    replaces: str       # file:line of the TPU (Pallas) kernel's wrapper
+
+
+KERNELS = (
+    Kernel("layer_norm_fwd", layer_norm_cuda, layer_norm_reference,
+           "deepspeed_tpu_torch/csrc/layer_norm.cu",
+           "deepspeed_tpu/ops/normalize.py:67"),
+    Kernel("flash_attention_fwd", flash_attention_cuda, mha_reference,
+           "deepspeed_tpu_torch/csrc/flash_attention_fwd.cu",
+           "deepspeed_tpu/ops/flash_attention.py:456"),
+    Kernel("dequant_matmul", fused_dequant_matmul, dequant_matmul_reference,
+           "deepspeed_tpu_torch/csrc/dequant_matmul.cu",
+           "deepspeed_tpu/ops/quant.py:89"),
+)
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.wrapper.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.name: k.wrapper.launches for k in KERNELS}

@@ -1,0 +1,69 @@
+"""Kernel dispatch (counterpart of deepspeed_tpu/ops/dispatch.py).
+
+One rule, read from the tensors themselves: a CPU tensor takes the
+kernel's plain PyTorch version, a CUDA tensor takes the hand-written
+kernel (or the wrapper raises), and any other device raises.  There is no
+switch and no fallback: a kernel that cannot build or launch fails the
+call.  (The JAX package's TPU switches, DS_FORCE_XLA_OPS, DS_LN_IMPL and
+the flash AUTO_MIN_SEQ crossover, were set by v5e measurements and have no
+counterpart here.)
+"""
+
+import torch
+
+
+# The checks below run on every launch, and eager decode is bound by the
+# host (PERF.md), so they use the cheapest tensor attributes there are.
+
+def use_kernel(*tensors: torch.Tensor) -> bool:
+    """True when the tensors lie on a CUDA device (launch the kernel; the
+    wrapper's check_cuda then holds every operand to that device), False
+    when they all lie on the CPU (take the plain version)."""
+    if tensors[0].is_cuda:
+        return True
+    for t in tensors:
+        if t.device.type != "cpu":
+            raise ValueError(
+                f"no kernel or plain path for device type {t.device.type!r} "
+                f"(operands on {t.device} and {tensors[0].device}; the port "
+                "runs on 'cuda', and on 'cpu' for tests)")
+    return False
+
+
+def kernel_dtype_code(t: torch.Tensor) -> int:
+    """The dtype code of csrc/common.cuh for a kernel operand; raises for
+    a dtype the kernels do not take."""
+    from .op_builder import DTYPE_BF16, DTYPE_FP32
+    if t.dtype == torch.float32:
+        return DTYPE_FP32
+    if t.dtype == torch.bfloat16:
+        return DTYPE_BF16
+    raise TypeError(f"the CUDA kernels take bfloat16 or float32, got {t.dtype}")
+
+
+def check_cuda(name: str, *tensors: torch.Tensor) -> int:
+    """A kernel wrapper's device check: every tensor on one CUDA device,
+    the current one.  Returns that device's index."""
+    index = tensors[0].get_device()
+    for t in tensors:
+        if not t.is_cuda or t.get_device() != index:
+            raise ValueError(f"{name}: every operand must lie on one CUDA "
+                             f"device, got {t.device} and {tensors[0].device}")
+    if index != torch.cuda.current_device():
+        raise ValueError(f"{name}: operands lie on cuda:{index} but the "
+                         f"current device is cuda:{torch.cuda.current_device()}")
+    return index
+
+
+def check_contiguous(name: str, **tensors: torch.Tensor) -> None:
+    for arg, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: `{arg}` must be contiguous "
+                             f"(shape {tuple(t.shape)}, strides {t.stride()})")
+
+
+def stream_handle(index: int) -> int:
+    """The current CUDA stream of device `index`, as the int ctypes passes.
+    The raw query builds no torch.cuda.Stream object, as
+    torch.cuda.current_stream() does on every call."""
+    return torch._C._cuda_getCurrentRawStream(index)

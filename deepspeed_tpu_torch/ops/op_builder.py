@@ -1,0 +1,151 @@
+"""Builds the port's CUDA kernels (counterpart of deepspeed_tpu/ops/op_builder.py).
+
+Every `deepspeed_tpu_torch/csrc/*.cu` is compiled by `nvcc` for Hopper
+(`sm_90a`) into ONE shared library with a plain C interface, which is
+loaded with `ctypes`.  No PyTorch header is included, so a build takes
+seconds, not minutes.  The sources compile in parallel (one `nvcc` per
+file) and link into `build/torch_kernels/libds_torch_kernels-<hash>.so`,
+where the hash covers the sources and the flags: a changed source builds
+anew and an unchanged one loads the library already built.
+
+The build happens at first use, inside the process that launches a
+kernel, never at import.  A failed build raises with nvcc's stderr.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import Optional
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC"]
+LIB_NAME = "libds_torch_kernels"
+
+P = ctypes.c_void_p
+I32 = ctypes.c_int
+I64 = ctypes.c_int64
+F32 = ctypes.c_float
+
+# C signature of every exported launcher: (argtypes); each returns the
+# cudaError_t of its launch as an int.  A pointer or the stream passed
+# without c_void_p would be cut to 32 bits.
+SIGNATURES = {
+    # x, gamma, beta, out, rows, hidden, eps, dtype, stream
+    "ds_layer_norm_fwd": [P, P, P, P, I32, I32, F32, I32, P],
+    # q, k, v, out, lse, B, H, Sq, Sk, D,
+    # q/k/v/out strides (batch, head, seq), sm_scale, causal, dtype, stream
+    "ds_flash_attention_fwd": [P, P, P, P, P, I32, I32, I32, I32, I32]
+                              + [I64] * 12 + [F32, I32, I32, P],
+    # x, qweight, scale, out, M, K, N, groups, dtype, stream
+    "ds_dequant_matmul": [P, P, P, P, I32, I32, I32, I32, I32, P],
+    # x, qweight, M, K, N, dtype -> which kernel the launcher takes
+    # (0 gemv, 1 mma, 2 tiled); launches nothing
+    "ds_dequant_matmul_route": [P, P, I32, I32, I32, I32],
+}
+
+# dtype codes shared with csrc/common.cuh
+DTYPE_FP32 = 0
+DTYPE_BF16 = 1
+
+_lib: Optional[ctypes.CDLL] = None
+build_seconds: Optional[float] = None
+
+
+def sources():
+    return sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found (looked on PATH and in "
+                       f"{home}/bin): the CUDA kernels cannot be built")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _run_all(cmds):
+    """Start every command at once, wait for all, raise on the first
+    failure with its stderr."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failures = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"$ {' '.join(cmd)}\n{err}")
+    if failures:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+
+
+def build() -> str:
+    """Compile the library if this source hash has none yet; return its
+    path."""
+    global build_seconds
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    lib_path = os.path.join(BUILD_DIR, f"{LIB_NAME}-{_source_hash()}.so")
+    if os.path.exists(lib_path):
+        build_seconds = 0.0
+        return lib_path
+    t0 = time.perf_counter()
+    nvcc = _nvcc()
+    cu_files = [s for s in sources() if s.endswith(".cu")]
+    objs = []
+    cmds = []
+    for src in cu_files:
+        obj = os.path.join(BUILD_DIR, os.path.basename(src) + f".{os.getpid()}.o")
+        objs.append(obj)
+        cmds.append([nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", src, "-o", obj])
+    _run_all(cmds)
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    _run_all([[nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", tmp]])
+    os.replace(tmp, lib_path)
+    for obj in objs:
+        os.remove(obj)
+    build_seconds = time.perf_counter() - t0
+    return lib_path
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed (once per
+    process)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.ds_error_string.argtypes = [I32]
+        lib.ds_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise when a launcher reports a CUDA error (a refused launch never
+    runs, and a later synchronize would not say so)."""
+    if err != 0:
+        msg = load().ds_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed: error {err} "
+                           f"({msg})")
