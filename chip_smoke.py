@@ -10,12 +10,16 @@ phase prints {"phase": ..., "ok": false, "error": ...} and the script exits
 1. device: the card's name and power limit (nvidia-smi), TF32 off, and the
    build of deepspeed_tpu_torch/csrc/*.cu into build/torch_kernels/.
 2. parity: every kernel against its plain PyTorch twin on the same CUDA
-   tensors at the serving path's shapes, with the tolerances below.  Each
-   case is timed with CUDA events (median device time of 30 runs after a
-   warm-up, L2 flushed and the card kept busy while the host enqueues, so
-   the events see the device alone), beside its bound, one PyTorch library
-   call as a yardstick, and the host's cost of one launch (host_us).
-   Kernel C's cases name the kernel its launcher took (gemv, mma, tiled).
+   tensors at the serving and training paths' shapes, with the tolerances
+   below.  Each case is timed with CUDA events (median device time of 30
+   runs after a warm-up, L2 flushed and the card kept busy while the host
+   enqueues, so the events see the device alone), beside its bound, one
+   PyTorch library call as a yardstick, and the host's cost of one launch
+   (host_us).  Kernel C's cases name the kernel its launcher took (gemv,
+   mma, tiled).  Kernel B with dropout and kernel E are held against their
+   twins exactly mask for mask (the keep mask is a pure function of the
+   seed and the coordinates), and the mask's keep share must lie within
+   4 sigma of 230/256; kernel D must repeat bitwise.
 3. serve_bf16: GPT-2 124M at full width (hidden 768, 12 layers, 12 heads,
    vocab 50304, n_positions 256, bf16, weights from seed 0) through
    init_inference -> forward / generate: batch 8, prompt 128, 128 new
@@ -33,9 +37,28 @@ phase prints {"phase": ..., "ok": false, "error": ...} and the script exits
    run; medians with min and max.
 6. profile: the device-busy share of prefill and of a decode step of both
    engines (torch.profiler), after the timing.
+7. train_grads: GPT-2 124M at full width (n_positions 1024), batch 2 x
+   1024, dropout off, weights from seed 0, through initialize -> forward ->
+   backward on the card in bf16, held against the same weights through the
+   port on the CPU in fp32: the loss within max|d|/max|ref| <= 2e-2, every
+   parameter's grad within 5e-2 (the chip-lane tolerances of
+   tests/tpu/test_kernel_parity_tpu.py), and one step's launch counters
+   exact: LN forward 25, LN backward 25, flash forward 12, flash backward
+   12 + 12.
+8. train: bench.py::bench_gpt2's model and config exactly (batch 8 x 1024,
+   bf16, AdamW lr 6e-4 wd 0.1, ZeRO-2, dropout 0.1 inside kernel B) on the
+   fixed batch RandomState(0).randint(0, 50304, (8, 1024)), timed as
+   bench.py's _time_steps: 3 warm-up steps, then 30 forward / backward /
+   step calls on the host clock, closed by fetching the last loss.
+   tokens/s, ms per step, MFU against the H100's 989 TFLOP/s bf16 peak,
+   first and final loss (every loss finite, the final below the first),
+   peak device memory, exact launch counts per step, and one step under
+   torch.profiler: its device-busy share and the six ops with the most
+   device time.
 
-Then the `kernels` line and, last, {"ok": true, "device": {...}}.  Without
-a CUDA device the script exits 1 in phase 1.
+Then the `kernels` line (launches by path: bf16, int8, train) and, last,
+{"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
+in phase 1.
 """
 
 import json
@@ -53,9 +76,13 @@ import deepspeed_tpu_torch as dst
 from deepspeed_tpu_torch.models import GPT2Config, GPT2Model
 from deepspeed_tpu_torch.ops import (KERNELS, dispatch, launch_counts,
                                      op_builder, reset_launch_counts)
-from deepspeed_tpu_torch.ops.flash_attention import (flash_attention_cuda,
-                                                     mha_reference)
-from deepspeed_tpu_torch.ops.normalize import (layer_norm_cuda,
+from deepspeed_tpu_torch.ops.flash_attention import (
+    dropout_keep_mask, flash_attention_bwd_dkdv_cuda,
+    flash_attention_bwd_dq_cuda, flash_attention_bwd_reference,
+    flash_attention_cuda, mha_reference, quantized_threshold)
+from deepspeed_tpu_torch.ops.normalize import (layer_norm_bwd_cuda,
+                                               layer_norm_bwd_reference,
+                                               layer_norm_cuda,
                                                layer_norm_reference)
 from deepspeed_tpu_torch.ops.quant import (dequant, dequant_matmul_reference,
                                            fused_dequant_matmul)
@@ -73,6 +100,22 @@ BATCH, PROMPT, NEW_TOKENS = 8, 128, 128
 TIMING_ROUNDS = 6  # timed generates per engine, in turns
 PROFILED_TOKENS = 16  # a short generate under torch.profiler
 LOGIT_REL_TOL = 2e-2
+# training phases
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+GRADS_BATCH = 2
+LOSS_REL_TOL, GRAD_REL_TOL = 2e-2, 5e-2
+TRAIN_WARMUP, TRAIN_ITERS = 3, 30  # bench.py _time_steps
+DROPOUT = 0.1
+# bench.py::bench_gpt2's engine config (bench.py:501-509)
+BENCH_GPT2_CONFIG = {
+    "train_micro_batch_size_per_gpu": TRAIN_BATCH,
+    "gradient_accumulation_steps": 1,
+    "optimizer": {"type": "AdamW", "params": {"lr": 6e-4,
+                                              "weight_decay": 0.1}},
+    "bf16": {"enabled": True, "grads_in_compute_dtype": False},
+    "zero_optimization": {"stage": 2},
+    "steps_per_print": 10 ** 9,
+}
 
 
 class SmokeFailure(Exception):
@@ -219,39 +262,163 @@ def case_layer_norm(rows, dtype):
         "bound_ms": b_ms, "bound_by": b_by}
 
 
-def case_flash(b, h, s, d, causal, dtype, fused=False):
-    """fused: q, k, v are the head views of one [B, S, 3*H*D] projection,
-    split and transposed as the layer passes them (strided, not copied)."""
-    g = torch.Generator(device="cuda").manual_seed(s + causal)
+def attention_inputs(b, h, s, d, dtype, seed, fused):
+    """q, k, v [B, H, S, D]; fused: the head views of one [B, S, 3*H*D]
+    projection, split and transposed as the layer passes them (strided, not
+    copied)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
     if fused:
         qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=g).to(dtype)
-        q, k, v = (t.view(b, s, h, d).transpose(1, 2)
-                   for t in qkv.split(h * d, dim=-1))
-    else:
-        q, k, v = (torch.randn(b, h, s, d, device="cuda",
-                               generator=g).to(dtype) for _ in range(3))
-    out, lse = flash_attention_cuda(q, k, v, causal=causal)
-    ref, ref_lse = mha_reference(q, k, v, causal=causal, return_lse=True)
+        return [t.view(b, s, h, d).transpose(1, 2)
+                for t in qkv.split(h * d, dim=-1)]
+    return [torch.randn(b, h, s, d, device="cuda", generator=g).to(dtype)
+            for _ in range(3)]
+
+
+def _case_name(b, h, s, d, causal, dtype, fused, rate):
+    return (f"[{b},{h},{s},{d}] {'causal' if causal else 'full'} "
+            f"{_dtname(dtype)}{' fused-qkv views' if fused else ''}"
+            f"{f' dropout {rate}' if rate else ''}")
+
+
+def keep_share_check(seed, b, h, sq, sk, rate):
+    """The mask's keep share and whether it lies within 4 sigma of the
+    8-bit keep probability threshold / 256."""
+    share = dropout_keep_mask(seed, b, h, sq, sk, rate,
+                              "cuda").float().mean().item()
+    p = quantized_threshold(rate) / 256
+    n = b * h * sq * sk
+    return share, abs(share - p) <= 4 * (p * (1 - p) / n) ** 0.5
+
+
+def case_flash(b, h, s, d, causal, dtype, fused=False, rate=0.0):
+    """Kernel B against mha_reference; with rate > 0 both drop with the
+    mask of the same seed, so they must agree exactly as without."""
+    q, k, v = attention_inputs(b, h, s, d, dtype, s + causal, fused)
+    seed = torch.tensor([1234 + s], dtype=torch.int32, device="cuda")
+    kw = dict(causal=causal, dropout_rate=rate, dropout_seed=seed)
+    out, lse = flash_attention_cuda(q, k, v, **kw)
+    ref, ref_lse = mha_reference(q, k, v, return_lse=True, **kw)
     torch.cuda.synchronize()
     tol, lse_tol = (2e-2, 1e-3) if dtype == torch.bfloat16 else (1e-4, 1e-5)
     err = (out.float() - ref.float()).abs().max().item()
     lse_err = (lse - ref_lse).abs().max().item()
     ok = _within(out.float(), ref.float(), tol, tol) and lse_err <= lse_tol
+    extra = {}
+    if rate:
+        share, share_ok = keep_share_check(seed, b, h, s, s, rate)
+        ok = ok and share_ok
+        extra = {"keep_share": share, "keep_share_expected":
+                 quantized_threshold(rate) / 256}
     pairs = s * (s + 1) // 2 if causal else s * s
     nbytes = 4 * q.numel() * q.element_size() + lse.numel() * 4
     b_ms, b_by = bound_ms(nbytes, 4 * b * h * d * pairs, dtype)
     return {
-        "case": f"[{b},{h},{s},{d}] {'causal' if causal else 'full'} "
-                f"{_dtname(dtype)}{' fused-qkv views' if fused else ''}",
-        "ok": ok,
+        "case": _case_name(b, h, s, d, causal, dtype, fused, rate), "ok": ok,
         "tolerance": f"out atol=rtol={tol}, lse atol={lse_tol}",
-        "max_abs_err": err, "lse_max_abs_err": lse_err,
-        **timings(lambda: flash_attention_cuda(q, k, v, causal=causal),
-                  lambda: mha_reference(q, k, v, causal=causal,
-                                        return_lse=True),
+        "max_abs_err": err, "lse_max_abs_err": lse_err, **extra,
+        **timings(lambda: flash_attention_cuda(q, k, v, **kw),
+                  lambda: mha_reference(q, k, v, return_lse=True, **kw),
                   lambda: F.scaled_dot_product_attention(
-                      q, k, v, is_causal=causal)),
+                      q, k, v, is_causal=causal, dropout_p=rate)),
         "bound_ms": b_ms, "bound_by": b_by}
+
+
+def case_layer_norm_bwd(rows, dtype):
+    """Kernel D against layer_norm_bwd_reference; it must also repeat
+    bitwise (its dgamma / dbeta sums take a fixed order, no atomics)."""
+    hidden = 768
+    g = torch.Generator(device="cuda").manual_seed(rows + 1)
+    x = torch.randn(rows, hidden, device="cuda", generator=g).to(dtype)
+    dy = torch.randn(rows, hidden, device="cuda", generator=g).to(dtype)
+    gamma = 1.0 + 0.1 * torch.randn(hidden, device="cuda", generator=g)
+    out = layer_norm_bwd_cuda(x, gamma, dy)
+    again = layer_norm_bwd_cuda(x, gamma, dy)
+    ref = layer_norm_bwd_reference(x, gamma, dy)
+    torch.cuda.synchronize()
+    repeat = all(torch.equal(a, b) for a, b in zip(out, again))
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    err = (out[0].float() - ref[0].float()).abs().max().item()
+    sum_errs = [rel_err(a, r) for a, r in zip(out[1:], ref[1:])]
+    ok = (_within(out[0].float(), ref[0].float(), tol, tol)
+          and max(sum_errs) <= 1e-4 and repeat)
+    nbytes = 3 * x.numel() * x.element_size() + 3 * hidden * 4
+    b_ms, b_by = bound_ms(nbytes, 20 * x.numel(), torch.float32)
+    xg = x.detach().requires_grad_()
+    g_lib = gamma.to(dtype).requires_grad_()
+    b_lib = torch.zeros(hidden, device="cuda", dtype=dtype,
+                        requires_grad=True)
+    lib_out = F.layer_norm(xg, (hidden,), g_lib, b_lib, 1e-5)
+    return {
+        "case": f"[{rows},{hidden}] {_dtname(dtype)}", "ok": ok,
+        "tolerance": f"dx atol=rtol={tol}; dgamma, dbeta max|d|/max|ref| "
+                     "<= 1e-4; bitwise repeat",
+        "max_abs_err": err, "dgamma_dbeta_rel_err": sum_errs,
+        "bitwise_repeat": repeat,
+        **timings(lambda: layer_norm_bwd_cuda(x, gamma, dy),
+                  lambda: layer_norm_bwd_reference(x, gamma, dy),
+                  lambda: torch.autograd.grad(lib_out, (xg, g_lib, b_lib),
+                                              dy, retain_graph=True)),
+        "bound_ms": b_ms, "bound_by": b_by}
+
+
+def case_flash_bwd(b, h, s, d, causal, dtype, fused=False, rate=0.0):
+    """Kernel E's two launches against flash_attention_bwd_reference on the
+    forward's own out and lse, mask for mask.  Returns the case with one
+    sub-result per launch (its device ms, host µs and bound); the plain
+    twin and the library yardstick (SDPA's backward through autograd,
+    whose dropout mask differs: time only) cover dq, dk and dv together."""
+    q, k, v = attention_inputs(b, h, s, d, dtype, s + d, fused)
+    seed = torch.tensor([4321 + s], dtype=torch.int32, device="cuda")
+    kw = dict(causal=causal, dropout_rate=rate, dropout_seed=seed)
+    out, lse = flash_attention_cuda(q, k, v, **kw)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    do = torch.randn(b, s, h, d, device="cuda", generator=g).to(
+        dtype).transpose(1, 2)
+    delta = (do.float() * out.float()).sum(dim=-1)
+    dk, dv = flash_attention_bwd_dkdv_cuda(q, k, v, do, lse, delta, **kw)
+    dq = flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
+    ref = flash_attention_bwd_reference(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
+    errs = {name: rel_err(a.float(), r.float())
+            for name, a, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref)}
+    ok = max(errs.values()) <= tol
+    extra = {}
+    if rate:
+        share, share_ok = keep_share_check(seed, b, h, s, s, rate)
+        ok = ok and share_ok
+        extra = {"keep_share": share}
+    pairs = s * (s + 1) // 2 if causal else s * s
+    elt = q.element_size()
+    operand = q.numel() * elt
+    stats = 2 * lse.numel() * 4  # lse and delta
+    launches = {}
+    for name, fn, products, outs in (
+            ("flash_attention_bwd_dkdv",
+             lambda: flash_attention_bwd_dkdv_cuda(q, k, v, do, lse, delta,
+                                                   **kw), 4, 2),
+            ("flash_attention_bwd_dq",
+             lambda: flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta,
+                                                 **kw), 3, 1)):
+        b_ms, b_by = bound_ms((4 + outs) * operand + stats,
+                              products * 2 * b * h * d * pairs, dtype)
+        launches[name] = {"ms": time_ms(fn), "host_us": host_us(fn),
+                          "bound_ms": b_ms, "bound_by": b_by}
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
+                                          dropout_p=rate)
+    return {
+        "case": _case_name(b, h, s, d, causal, dtype, fused, rate), "ok": ok,
+        "tolerance": f"max|d|/max|ref| <= {tol} for dq, dk, dv",
+        "rel_err": errs, "max_abs_err": max(
+            (a.float() - r.float()).abs().max().item()
+            for a, r in zip((dq, dk, dv), ref)), **extra,
+        "plain_ms": time_ms(lambda: flash_attention_bwd_reference(
+            q, k, v, out, lse, do, **kw)),
+        "library_ms": time_ms(lambda: torch.autograd.grad(
+            sdpa, (qg, kg, vg), do, retain_graph=True)),
+        "launches": launches}
 
 
 def grouped_weight(k, n, groups, seed):
@@ -315,27 +482,54 @@ PARITY_CASES = {
         # ragged M: one decode row, a 77-token prompt
         + [(m, 768, 2304, 8, dt) for m in (1, 77)
            for dt in (torch.bfloat16, torch.float32)]),
+    "layer_norm_bwd": (case_layer_norm_bwd, [
+        (rows, dt) for rows in (TRAIN_BATCH * TRAIN_SEQ, 77, 1)
+        for dt in (torch.bfloat16, torch.float32)]),
+    # kernel B's training case: dropout inside the kernel, at the train
+    # phase's shape and layout, and a ragged fp32 one
+    "flash_attention_fwd_dropout": (case_flash, [
+        (TRAIN_BATCH, 12, TRAIN_SEQ, 64, True, torch.bfloat16, True,
+         DROPOUT),
+        (2, 4, 77, 64, True, torch.float32, False, DROPOUT)]),
+    # kernel E: the train shape with dropout off and on, a ragged fp32
+    # length and the other head dim
+    "flash_attention_bwd": (case_flash_bwd, [
+        (TRAIN_BATCH, 12, TRAIN_SEQ, 64, True, torch.bfloat16, True, rate)
+        for rate in (0.0, DROPOUT)]
+        + [(2, 4, 77, 64, True, torch.float32, False, DROPOUT),
+           (2, 8, 200, 128, True, torch.float32, False, DROPOUT)]),
 }
 # ds_dequant_matmul_route's codes: the kernel csrc/dequant_matmul.cu takes
 DEQUANT_ROUTES = ("gemv", "mma", "tiled")
 # the case each kernel's entry of the `kernels` line reports: the shape and
-# layout the serving path runs most (LN and flash at prefill, dequant at
-# decode)
+# layout its path runs most (LN forward at prefill, dequant at decode; the
+# flash forward, LN backward and flash backward at the training step)
 PRIMARY = {"layer_norm_fwd": (1024, torch.bfloat16),
-           "flash_attention_fwd": (8, 12, 128, 64, True, torch.bfloat16, True),
-           "dequant_matmul": (8, 768, 3072, 1, torch.bfloat16)}
+           "flash_attention_fwd_dropout": (TRAIN_BATCH, 12, TRAIN_SEQ, 64,
+                                           True, torch.bfloat16, True,
+                                           DROPOUT),
+           "dequant_matmul": (8, 768, 3072, 1, torch.bfloat16),
+           "layer_norm_bwd": (TRAIN_BATCH * TRAIN_SEQ, torch.bfloat16),
+           "flash_attention_bwd": (TRAIN_BATCH, 12, TRAIN_SEQ, 64, True,
+                                   torch.bfloat16, True, DROPOUT)}
+# the KERNELS entries a group of parity cases reports for
+REPORTS_FOR = {"flash_attention_fwd_dropout": ("flash_attention_fwd",),
+               "flash_attention_bwd": ("flash_attention_bwd_dkdv",
+                                       "flash_attention_bwd_dq")}
 
 
 def phase_parity():
     results, failed = {}, []
-    for name, (fn, cases) in PARITY_CASES.items():
+    for group, (fn, cases) in PARITY_CASES.items():
         for args in cases:
             res = fn(*args)
-            emit({"phase": "parity", "kernel": name, **res})
-            if args == PRIMARY[name]:
-                results[name] = res
+            emit({"phase": "parity", "kernel": group, **res})
+            if args == PRIMARY.get(group):
+                for name in REPORTS_FOR.get(group, (group,)):
+                    per_launch = res.get("launches", {}).get(name, {})
+                    results[name] = {**res, **per_launch}
             if not res["ok"]:
-                failed.append(f"{name} {res['case']}")
+                failed.append(f"{group} {res['case']}")
     check(not failed, f"kernels disagree with their plain twins: {failed}")
     n_cases = sum(len(c) for _, c in PARITY_CASES.values())
     return results, {"cases": n_cases}
@@ -479,19 +673,26 @@ def device_profile(eng, prompt, prefill_ms, decode_step_ms):
             name[:80]: us / 1e3 for name, us in top}}
 
 
+def expected_counts(**launches):
+    """Every kernel's expected launch count: the given ones, 0 for the
+    rest."""
+    return {k.name: launches.get(k.name, 0) for k in KERNELS}
+
+
 def phase_serve_bf16(cfg, state, prompt):
     per_gen = cfg.num_layers * 2 + 1
-    expected = {"layer_norm_fwd": per_gen * NEW_TOKENS,
-                "flash_attention_fwd": cfg.num_layers, "dequant_matmul": 0}
+    expected = expected_counts(layer_norm_fwd=per_gen * NEW_TOKENS,
+                               flash_attention_fwd=cfg.num_layers)
     served = serve(cfg, state, prompt, None, expected)
     return served, served[2]
 
 
 def phase_serve_int8(cfg, state, prompt, bf16_toks):
     per_gen = cfg.num_layers * 2 + 1
-    expected = {"layer_norm_fwd": per_gen * NEW_TOKENS,
-                "flash_attention_fwd": cfg.num_layers,
-                "dequant_matmul": 4 * cfg.num_layers * NEW_TOKENS}
+    expected = expected_counts(
+        layer_norm_fwd=per_gen * NEW_TOKENS,
+        flash_attention_fwd=cfg.num_layers,
+        dequant_matmul=4 * cfg.num_layers * NEW_TOKENS)
     served = serve(cfg, state, prompt, 1, expected)
     summary = served[2]
     summary["greedy_agreement_vs_bf16"] = (served[1] == bf16_toks).float().mean().item()
@@ -538,6 +739,146 @@ def phase_profile(prompt, served, timing):
                   for name, (eng, _, _) in served.items()}
 
 
+# --------------------------------------------------------------------- #
+# phases 7 and 8: training
+# --------------------------------------------------------------------- #
+def gpt2_124m_train(**overrides):
+    """bench_gpt2's model: GPT-2 124M at n_positions = S = 1024, bf16,
+    dropout 0.1 with the attention dropout inside kernel B."""
+    return replace(gpt2_124m(), n_positions=TRAIN_SEQ, **overrides)
+
+
+def step_counts(cfg):
+    """Launch counts of one training forward + backward."""
+    n_ln, n_attn = 2 * cfg.num_layers + 1, cfg.num_layers
+    return expected_counts(layer_norm_fwd=n_ln, layer_norm_bwd=n_ln,
+                           flash_attention_fwd=n_attn,
+                           flash_attention_bwd_dkdv=n_attn,
+                           flash_attention_bwd_dq=n_attn)
+
+
+def phase_train_grads(state):
+    """One loss and its parameter grads on the card (bf16, through the
+    engine) against the same weights through the port on the CPU in
+    fp32."""
+    cfg = gpt2_124m_train(embd_dropout=0.0, attn_dropout=0.0,
+                          hidden_dropout=0.0)
+    ids = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (GRADS_BATCH, TRAIN_SEQ)))
+    t0 = time.perf_counter()
+    ref_model = GPT2Model(replace(cfg, bf16=False))
+    ref_model.load_state_dict(state)
+    ref_loss = ref_model.loss(ids)
+    ref_loss.backward()
+    ref_grads = {n: p.grad for n, p in ref_model.named_parameters()}
+    cpu_seconds = time.perf_counter() - t0
+    del ref_model
+
+    engine, _, _, _ = dst.initialize(
+        model=GPT2Model(cfg), model_parameters=state,
+        config=dict(BENCH_GPT2_CONFIG,
+                    train_micro_batch_size_per_gpu=GRADS_BATCH))
+    reset_launch_counts()
+    loss = engine.forward(ids)
+    engine.backward(loss)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts == step_counts(cfg),
+          f"launch counts {counts}, expected {step_counts(cfg)}")
+    loss_err = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    check(loss_err <= LOSS_REL_TOL, f"loss vs CPU fp32: {loss_err}")
+    grad_errs = {}
+    for name, p in engine.module.named_parameters():
+        grad = p.grad.float().cpu()
+        check(bool(torch.isfinite(grad).all()), f"non-finite grad of {name}")
+        grad_errs[name] = rel_err(grad, ref_grads[name])
+    worst = max(grad_errs, key=grad_errs.get)
+    check(grad_errs[worst] <= GRAD_REL_TOL,
+          f"grad of {worst} vs CPU fp32: max|d|/max|ref| = "
+          f"{grad_errs[worst]}")
+    return None, {
+        "loss": loss.item(), "cpu_fp32_loss": ref_loss.item(),
+        "loss_rel_err": loss_err, "loss_rel_tol": LOSS_REL_TOL,
+        "grads_checked": len(grad_errs), "worst_param": worst,
+        "worst_grad_rel_err": grad_errs[worst], "grad_rel_tol": GRAD_REL_TOL,
+        "median_grad_rel_err": float(np.median(list(grad_errs.values()))),
+        "launches_per_step": counts, "cpu_reference_seconds": cpu_seconds}
+
+
+def _profile_once(fn):
+    """(wall ms, device-busy ms, {op: device ms}) of one fn() under
+    torch.profiler, synchronised on both sides."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(fn)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ops = {}
+    for e in kernels:
+        ops[e.name] = ops.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = _union_us((e.time_range.start, e.time_range.end)
+                     for e in kernels) / 1e3
+    return wall * 1e3, busy, ops
+
+
+def phase_train(state):
+    """bench_gpt2's step, timed as bench.py's _time_steps."""
+    cfg = gpt2_124m_train()
+    ids = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    engine, _, _, _ = dst.initialize(model=GPT2Model(cfg),
+                                     model_parameters=state,
+                                     config=BENCH_GPT2_CONFIG)
+
+    def step():
+        loss = engine.forward(ids)
+        engine.backward(loss)
+        engine.step()
+        return loss
+
+    reset_launch_counts()
+    losses = [step().detach() for _ in range(TRAIN_WARMUP)]
+    losses[-1].item()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_ITERS):
+        losses.append(step().detach())
+    final_loss = losses[-1].item()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    n_steps = TRAIN_WARMUP + TRAIN_ITERS
+    per_step = step_counts(cfg)
+    check(counts == {k: n_steps * v for k, v in per_step.items()},
+          f"launch counts {counts} over {n_steps} steps, expected "
+          f"{per_step} per step")
+    losses = torch.stack(losses).float().cpu()
+    check(bool(torch.isfinite(losses).all()), f"non-finite loss: {losses}")
+    check(final_loss < losses[0].item(),
+          f"loss did not fall: {losses[0].item()} -> {final_loss}")
+    tokens_per_s = TRAIN_ITERS * TRAIN_BATCH * TRAIN_SEQ / seconds
+    peak = PEAK_OPS_PER_S[torch.bfloat16]
+    wall_ms, busy_ms, ops = _profile_once(step)
+    top = sorted(ops.items(), key=lambda kv: -kv[1])[:6]
+    return counts, {
+        "tokens_per_s": tokens_per_s,
+        "ms_per_step": seconds / TRAIN_ITERS * 1e3,
+        "flops_per_token": cfg.flops_per_token(),
+        "tflops": tokens_per_s * cfg.flops_per_token() / 1e12,
+        "mfu": tokens_per_s * cfg.flops_per_token() / peak,
+        "mfu_peak": "989 TFLOP/s, H100 SXM bf16 dense (NVIDIA data sheet)",
+        "first_loss": losses[0].item(), "final_loss": final_loss,
+        "steps": n_steps, "timed_steps": TRAIN_ITERS,
+        "peak_memory_gib": (torch.cuda.max_memory_allocated() - base)
+        / 2 ** 30,
+        "launches_per_step": per_step,
+        "profiled_step_wall_ms": wall_ms, "profiled_step_device_ms": busy_ms,
+        "device_busy_share": busy_ms / wall_ms,
+        "top_device_ms_one_step": {name[:80]: ms for name, ms in top}}
+
+
 def main():
     card = run_phase("device", phase_device)
     primary = run_phase("parity", phase_parity)
@@ -556,13 +897,23 @@ def main():
     timing = run_phase("timing", phase_timing, prompt, served)
     run_phase("profile", phase_profile, prompt, served, timing)
     bf16_counts, int8_counts = bf16[2]["launches"], int8[2]["launches"]
-    del bf16, int8, served
+    del bf16, int8, served, state
+
+    train_cfg = gpt2_124m_train()
+    train_model = GPT2Model(replace(train_cfg, bf16=False))
+    train_model.init_params(torch.Generator().manual_seed(0))
+    train_state = {k: v.detach().clone()
+                   for k, v in train_model.state_dict().items()}
+    del train_model
+    run_phase("train_grads", phase_train_grads, train_state)
+    train_counts = run_phase("train", phase_train, train_state)
 
     kernels = []
     for kern in KERNELS:
         res = primary[kern.name]
         by_path = {"bf16": bf16_counts[kern.name],
-                   "int8": int8_counts[kern.name]}
+                   "int8": int8_counts[kern.name],
+                   "train": train_counts[kern.name]}
         kernels.append({
             "name": kern.name, "route": "cuda", "source": kern.source,
             "replaces": kern.replaces, "launches": sum(by_path.values()),

@@ -7,9 +7,10 @@ kernel on a ported path is a hand-written CUDA kernel here
 plain PyTorch.  This package imports torch and numpy, never jax and
 nothing of deepspeed_tpu.
 
-Ported so far: the serving path, `init_inference` -> `InferenceEngine`
-(`forward`, `generate`) over GPT-2, with int8 weights under
-`quantization_setting`.
+Ported so far: serving and single-GPU training.  `init_inference` ->
+`InferenceEngine` (`forward`, `generate`) over GPT-2, with int8 weights
+under `quantization_setting`; `initialize` -> `DeepSpeedEngine`
+(`forward`, `backward`, `step`, `train_batch`) over GPT-2 in bf16 or fp32.
 """
 
 import torch
@@ -24,6 +25,49 @@ _DTYPE_NAMES = {torch.float32: ("fp32", "float32"),
 
 def _is_torch_module(model) -> bool:
     return hasattr(model, "named_parameters") and hasattr(model, "children")
+
+
+def _resolve_device(device, entry: str) -> torch.device:
+    """None means "cuda", which must be present: the port does not fall
+    back to the CPU unless the caller asks for it."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{entry}: no CUDA device is available; the port runs on "
+            "the GPU and does not fall back to the CPU (pass device='cpu' "
+            "explicitly for the plain PyTorch path)")
+    return device
+
+
+def initialize(model=None, config=None, config_params=None, optimizer=None,
+               model_parameters=None, lr_scheduler=None, training_data=None,
+               collate_fn=None, device=None):
+    """Create a training engine (deepspeed_tpu.initialize).  Returns
+    (engine, optimizer, dataloader, lr_scheduler).
+
+    model: a deepspeed_tpu_torch GPT2Model.  config (or config_params): the
+    DeepSpeed JSON config, a dict or a path.  model_parameters: the model's
+    state dict (e.g. from models.convert.gpt2_params_from_jax); None keeps
+    the model's own weights.  optimizer: None (the config's) or a
+    runtime.optimizers.FlatOptimizer; lr_scheduler: None (the config's) or
+    an object with lr_at(step).  device: None means "cuda", which must be
+    present; pass device="cpu" to run the plain PyTorch versions of the
+    kernels.  Features not ported yet raise NotImplementedError naming
+    their ROADMAP.md item."""
+    from .config import DeepSpeedConfigError
+    from .runtime.engine import DeepSpeedEngine
+
+    cfg = config if config is not None else config_params
+    if cfg is None:
+        raise DeepSpeedConfigError("DeepSpeed requires a config (dict or path)")
+    device = _resolve_device(device, "initialize")
+    engine = DeepSpeedEngine(model=model, config=cfg, optimizer=optimizer,
+                             model_parameters=model_parameters,
+                             lr_scheduler=lr_scheduler,
+                             training_data=training_data,
+                             collate_fn=collate_fn, device=device)
+    return (engine, engine.optimizer, engine.training_dataloader,
+            engine.lr_scheduler)
 
 
 def init_inference(model, mp_size=1, checkpoint=None, dtype=None,
@@ -65,13 +109,6 @@ def init_inference(model, mp_size=1, checkpoint=None, dtype=None,
             f"dtype={dtype!r} differs from the model's compute dtype "
             f"{compute} (set GPT2Config.bf16); int8 weights come from "
             "quantization_setting, not dtype")
-    if device is None:
-        device = "cuda"
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "init_inference: no CUDA device is available; the port runs on "
-            "the GPU and does not fall back to the CPU (pass device='cpu' "
-            "explicitly for the plain PyTorch path)")
+    device = _resolve_device(device, "init_inference")
     return InferenceEngine(model, quantization_setting=quantization_setting,
                            model_parameters=model_parameters, device=device)

@@ -1,0 +1,962 @@
+"""Config key names and defaults for the deepspeed_tpu JSON config schema
+(a copy of deepspeed_tpu/constants.py).  The port keeps its own copy (ROADMAP.md A.2): the JAX package's module
+is jax-free, but importing it runs deepspeed_tpu/__init__.py, which
+imports JAX.
+
+The key schema intentionally matches the reference DeepSpeed v0.5.2 JSON
+surface (reference: deepspeed/runtime/constants.py, deepspeed/runtime/zero/
+constants.py, deepspeed/runtime/zero/offload_constants.py) so that reference
+configs load unchanged.  Values here are *names and defaults*, i.e. the public
+API contract — the implementations behind them are TPU-native.
+"""
+
+#############################################
+# Routes
+#############################################
+ROUTE_TRAIN = "train"
+ROUTE_EVAL = "eval"
+ROUTE_PREDICT = "predict"
+ROUTE_ENCODE = "encode"
+
+#############################################
+# Batch size
+#############################################
+TRAIN_BATCH_SIZE = "train_batch_size"
+TRAIN_BATCH_SIZE_DEFAULT = None
+
+TRAIN_MICRO_BATCH_SIZE_PER_GPU = "train_micro_batch_size_per_gpu"
+TRAIN_MICRO_BATCH_SIZE_PER_GPU_DEFAULT = None
+
+GRADIENT_ACCUMULATION_STEPS = "gradient_accumulation_steps"
+GRADIENT_ACCUMULATION_STEPS_DEFAULT = None
+
+#############################################
+# Optimizer / scheduler
+#############################################
+OPTIMIZER = "optimizer"
+OPTIMIZER_TYPE_DEFAULT = None
+OPTIMIZER_PARAMS = "params"
+TYPE = "type"
+LEGACY_FUSION = "legacy_fusion"
+LEGACY_FUSION_DEFAULT = False
+
+SCHEDULER = "scheduler"
+SCHEDULER_TYPE_DEFAULT = None
+SCHEDULER_PARAMS = "params"
+
+MAX_GRAD_NORM = "max_grad_norm"
+
+ZERO_ALLOW_UNTESTED_OPTIMIZER = "zero_allow_untested_optimizer"
+ZERO_ALLOW_UNTESTED_OPTIMIZER_DEFAULT = False
+
+#############################################
+# Precision
+#############################################
+FP16 = "fp16"
+FP16_ENABLED = "enabled"
+FP16_ENABLED_DEFAULT = False
+FP16_LOSS_SCALE = "loss_scale"
+FP16_LOSS_SCALE_DEFAULT = 0
+FP16_INITIAL_SCALE_POWER = "initial_scale_power"
+FP16_INITIAL_SCALE_POWER_DEFAULT = 32
+FP16_LOSS_SCALE_WINDOW = "loss_scale_window"
+FP16_LOSS_SCALE_WINDOW_DEFAULT = 1000
+FP16_HYSTERESIS = "hysteresis"
+FP16_HYSTERESIS_DEFAULT = 2
+FP16_MIN_LOSS_SCALE = "min_loss_scale"
+FP16_MIN_LOSS_SCALE_DEFAULT = 1
+FP16_MASTER_WEIGHTS_AND_GRADS = "fp16_master_weights_and_grads"
+FP16_MASTER_WEIGHTS_AND_GRADS_DEFAULT = False
+
+# TPU-native addition: bf16 is the natural TPU dtype (no loss scaling needed).
+BF16 = "bf16"
+BF16_ENABLED = "enabled"
+BF16_ENABLED_DEFAULT = False
+# Keep gradient buffers in the compute dtype (bf16) instead of fp32 —
+# the analog of the reference's fp16 gradient buffers under ZeRO stage
+# 1/2 (grads live at half width between backward and the optimizer,
+# which upcasts to fp32 at apply).  Halves grad HBM and the stage-2
+# reduce-scatter wire width; opt-in because accumulation then rounds
+# through bf16 like the reference's fp16 path.
+BF16_GRADS_IN_COMPUTE_DTYPE = "grads_in_compute_dtype"
+BF16_GRADS_IN_COMPUTE_DTYPE_DEFAULT = False
+
+AMP = "amp"
+AMP_ENABLED = "enabled"
+AMP_ENABLED_DEFAULT = False
+
+#############################################
+# Gradient handling
+#############################################
+GRADIENT_CLIPPING = "gradient_clipping"
+GRADIENT_CLIPPING_DEFAULT = 0.0
+
+SPARSE_GRADIENTS = "sparse_gradients"
+SPARSE_GRADIENTS_DEFAULT = False
+
+FP32_ALLREDUCE = "fp32_allreduce"
+FP32_ALLREDUCE_DEFAULT = False
+
+PRESCALE_GRADIENTS = "prescale_gradients"
+PRESCALE_GRADIENTS_DEFAULT = False
+
+GRADIENT_PREDIVIDE_FACTOR = "gradient_predivide_factor"
+GRADIENT_PREDIVIDE_FACTOR_DEFAULT = 1.0
+
+DISABLE_ALLGATHER = "disable_allgather"
+DISABLE_ALLGATHER_DEFAULT = False
+
+#############################################
+# Misc engine knobs
+#############################################
+STEPS_PER_PRINT = "steps_per_print"
+STEPS_PER_PRINT_DEFAULT = 10
+
+DUMP_STATE = "dump_state"
+DUMP_STATE_DEFAULT = False
+
+# Engine PRNG implementation for the default (no rng= passed) stream.
+# "rbg" is the fast TPU choice (~14 ms/step over threefry on the flagship
+# bench) but JAX documents rbg streams as NOT stable across backends or
+# JAX versions; set "threefry" for bit-reproducible default dropout/noise
+# across upgrades and CPU-vs-TPU runs.
+PRNG_IMPL = "prng_impl"
+PRNG_IMPL_DEFAULT = "rbg"
+
+VOCABULARY_SIZE = "vocabulary_size"
+VOCABULARY_SIZE_DEFAULT = None
+
+WALL_CLOCK_BREAKDOWN = "wall_clock_breakdown"
+WALL_CLOCK_BREAKDOWN_DEFAULT = False
+
+MEMORY_BREAKDOWN = "memory_breakdown"
+MEMORY_BREAKDOWN_DEFAULT = False
+
+#############################################
+# Fused whole-step train program (TPU-native addition; docs/fused_step.md)
+#
+# One jitted program per optimizer step: gradient accumulation as a
+# lax.scan over a leading microbatch axis + the optimizer/loss-scale
+# update in the same program — 1 XLA dispatch instead of 2N+1, grad
+# buffers never leave the program, and XLA's latency-hiding scheduler
+# overlaps microbatch i's grad collective with microbatch i+1's compute.
+# Off by default; host-interactive features (offload optimizer,
+# eigenvalue/MoQ, sentinel rewind or grad-norm monitoring, PLD,
+# curriculum, custom grad programs) automatically fall back to the
+# modular forward/backward/step loop.
+#############################################
+FUSED_STEP = "fused_step"
+FUSED_STEP_ENABLED = "enabled"
+FUSED_STEP_ENABLED_DEFAULT = False
+
+#############################################
+# Program Auditor (TPU-native addition; docs/program_auditor.md)
+#
+# Static jaxpr lint of the traced train-step programs at engine init /
+# in CI: host callbacks in the hot loop, donation misses, collective-
+# lockstep signature drift, fp32 upcasts on half wires, comm-budget
+# breaches, plus a runtime recompile guard.  mode "off" (default) skips
+# everything; "warn" logs findings; "error" raises ProgramAuditError on
+# error-severity findings.
+#############################################
+ANALYSIS = "analysis"
+ANALYSIS_MODE = "mode"
+ANALYSIS_MODE_DEFAULT = "off"
+ANALYSIS_MODES = ("off", "warn", "error")
+# per-step wire-byte budget in MiB (trip-count weighted); None = no lint
+ANALYSIS_COMM_BUDGET_MB = "comm_budget_mb"
+ANALYSIS_COMM_BUDGET_MB_DEFAULT = None
+# distinct step-function trace signatures tolerated before the
+# recompile guard fires
+ANALYSIS_MAX_RETRACES = "max_retraces"
+ANALYSIS_MAX_RETRACES_DEFAULT = 16
+# donation-audit floor: consumed-but-undonated args smaller than this
+# are noise, not HBM leaks
+ANALYSIS_DONATION_MIN_MB = "donation_min_mb"
+ANALYSIS_DONATION_MIN_MB_DEFAULT = 1.0
+# dtype-hazard floor: upcasts on arrays smaller than this are scalars /
+# epilogue math, not wires
+ANALYSIS_DTYPE_MIN_ELEMENTS = "dtype_min_elements"
+ANALYSIS_DTYPE_MIN_ELEMENTS_DEFAULT = 65536
+# pin the collective-lockstep signature (hex prefix ok); mismatch is an
+# error-severity finding
+ANALYSIS_EXPECTED_SIGNATURE = "expected_signature"
+ANALYSIS_EXPECTED_SIGNATURE_DEFAULT = None
+# Schedule Auditor (overlap / liveness / step-time; docs/program_auditor.md)
+#
+# static peak-HBM budget in MiB (donation-aware liveness estimate);
+# None = report only, no lint
+ANALYSIS_HBM_BUDGET_MB = "hbm_budget_mb"
+ANALYSIS_HBM_BUDGET_MB_DEFAULT = None
+# escalate serialized-collective-in-hot-loop overlap findings from
+# warning to error (the CI gate for the double-buffered prefetch work)
+ANALYSIS_REQUIRE_OVERLAP = "require_overlap"
+ANALYSIS_REQUIRE_OVERLAP_DEFAULT = False
+# a collective counts as overlapped when the flop-weighted slack between
+# issue and first consume hides at least this fraction of its wire time
+ANALYSIS_OVERLAP_MIN_HIDDEN = "overlap_min_hidden_fraction"
+ANALYSIS_OVERLAP_MIN_HIDDEN_DEFAULT = 0.5
+# hardware model for the static step-time lower bound (defaults: one
+# TPU v5e chip — bf16 peak, HBM bandwidth, per-chip ICI bandwidth).
+# These THREE names are the canonical hardware-constant vocabulary:
+# the analysis config block, the autotuner's calibration file, and the
+# cost model's report payload all key off ANALYSIS_HW_KEYS /
+# ANALYSIS_HW_DEFAULTS so a constant can never be overridden under one
+# spelling and read under another.
+ANALYSIS_HW_PEAK_TFLOPS = "hw_peak_tflops"
+ANALYSIS_HW_PEAK_TFLOPS_DEFAULT = 197.0
+ANALYSIS_HW_HBM_GBPS = "hw_hbm_gbps"
+ANALYSIS_HW_HBM_GBPS_DEFAULT = 819.0
+ANALYSIS_HW_ICI_GBPS = "hw_ici_gbps"
+ANALYSIS_HW_ICI_GBPS_DEFAULT = 90.0
+ANALYSIS_HW_KEYS = (ANALYSIS_HW_PEAK_TFLOPS, ANALYSIS_HW_HBM_GBPS,
+                    ANALYSIS_HW_ICI_GBPS)
+ANALYSIS_HW_DEFAULTS = {
+    ANALYSIS_HW_PEAK_TFLOPS: ANALYSIS_HW_PEAK_TFLOPS_DEFAULT,
+    ANALYSIS_HW_HBM_GBPS: ANALYSIS_HW_HBM_GBPS_DEFAULT,
+    ANALYSIS_HW_ICI_GBPS: ANALYSIS_HW_ICI_GBPS_DEFAULT,
+}
+# HLO-level SPMD audit (analysis/hlo_audit.py): lower each audited
+# program through XLA's SPMD partitioner (compile-only, never executed)
+# and cross-check the jaxpr wire story against what the compiler
+# actually emitted — GSPMD inserts collectives AFTER tracing, so a
+# sharding-annotation mistake can add all-gathers the jaxpr-level
+# accounting never sees ("silent resharding").
+ANALYSIS_HLO_AUDIT = "hlo_audit"
+ANALYSIS_HLO_AUDIT_DEFAULT = False
+# escalate silent-reshard + jaxpr/HLO-divergence findings from warning
+# to error (the CI posture once a config's compiled wire story is
+# pinned)
+ANALYSIS_REQUIRE_SPMD_MATCH = "require_spmd_match"
+ANALYSIS_REQUIRE_SPMD_MATCH_DEFAULT = False
+# floor below which a compiler-inserted gather-family collective is
+# waived as "below_floor" instead of flagged: GSPMD legitimately
+# inserts small gathers for indexed updates (an embedding grad's
+# scatter-add) that are wire the jaxpr never counted but not a
+# sharding mistake.  Priced into the exposed-comm lane either way.
+ANALYSIS_SPMD_RESHARD_MIN_MB = "spmd_reshard_min_mb"
+ANALYSIS_SPMD_RESHARD_MIN_MB_DEFAULT = 1.0
+# tolerated relative gap between the jaxpr-predicted wire bytes and the
+# HLO-measured bytes of the SAME traced collectives before a
+# spmd_divergence finding fires (combiner passes and degenerate-group
+# elision move a few percent)
+ANALYSIS_SPMD_MATCH_TOLERANCE = "spmd_match_tolerance"
+ANALYSIS_SPMD_MATCH_TOLERANCE_DEFAULT = 0.05
+
+#############################################
+# Config autotuner (TPU-native addition; docs/autotuner.md)
+#
+# Offline cost-model-driven search over the real config decision space
+# (mesh factorization, ZeRO stage/variant, gas/micro splits, qwZ/qgZ/
+# hpZ, fused vs modular, offload tier) — prune on hard constraints,
+# trace survivors on a simulated mesh, rank by the static step-time
+# lower bound, emit the top-K as bench-ready configs.  The block only
+# configures `python -m deepspeed_tpu.analysis tune`; it never changes
+# engine behavior.
+#############################################
+AUTOTUNING = "autotuning"
+AUTOTUNING_CHIPS = "chips"
+AUTOTUNING_CHIPS_DEFAULT = None          # required via block or --chips
+AUTOTUNING_GLOBAL_BATCH = "global_batch"
+AUTOTUNING_GLOBAL_BATCH_DEFAULT = None   # default: base config train_batch
+AUTOTUNING_TOP_K = "top_k"
+AUTOTUNING_TOP_K_DEFAULT = 3
+AUTOTUNING_HBM_BUDGET_MB = "hbm_budget_mb"
+AUTOTUNING_HBM_BUDGET_MB_DEFAULT = None  # default: analysis.hbm_budget_mb
+AUTOTUNING_MAX_CANDIDATES = "max_candidates"
+AUTOTUNING_MAX_CANDIDATES_DEFAULT = 64
+# search axes: each is the list of values the enumeration sweeps
+AUTOTUNING_MESH_MODEL = "mesh_model"
+AUTOTUNING_MESH_MODEL_DEFAULT = (1,)
+AUTOTUNING_MESH_EXPERT = "mesh_expert"
+AUTOTUNING_MESH_EXPERT_DEFAULT = (1,)
+AUTOTUNING_ZERO_STAGES = "zero_stages"
+AUTOTUNING_ZERO_STAGES_DEFAULT = (1, 2, 3)
+AUTOTUNING_STAGE3_VARIANTS = "stage3_variants"
+AUTOTUNING_STAGE3_VARIANT_RESIDENT = "resident"
+AUTOTUNING_STAGE3_VARIANT_STREAMED = "streamed"
+AUTOTUNING_STAGE3_VARIANTS_ALL = (AUTOTUNING_STAGE3_VARIANT_RESIDENT,
+                                  AUTOTUNING_STAGE3_VARIANT_STREAMED)
+AUTOTUNING_STAGE3_VARIANTS_DEFAULT = AUTOTUNING_STAGE3_VARIANTS_ALL
+AUTOTUNING_PREFETCH_MODES = "prefetch_modes"
+AUTOTUNING_PREFETCH_MODES_DEFAULT = ("carried", "off")
+AUTOTUNING_STAGE3_BUCKET_SIZES = "stage3_bucket_sizes"
+AUTOTUNING_STAGE3_BUCKET_SIZES_DEFAULT = (200_000,)
+AUTOTUNING_MICRO_BATCHES = "micro_batches"
+AUTOTUNING_MICRO_BATCHES_DEFAULT = None  # None = every divisor split
+AUTOTUNING_QWZ_BITS = "qwz_bits"
+AUTOTUNING_QWZ_BITS_DEFAULT = (0,)
+AUTOTUNING_QGZ_BITS = "qgz_bits"
+AUTOTUNING_QGZ_BITS_DEFAULT = (0,)
+AUTOTUNING_HPZ_GROUP_SIZES = "hpz_group_sizes"
+AUTOTUNING_HPZ_GROUP_SIZES_DEFAULT = (0,)
+AUTOTUNING_FUSED = "fused"
+AUTOTUNING_FUSED_DEFAULT = (False,)
+AUTOTUNING_FCM = "fused_collective_matmul"
+AUTOTUNING_FCM_DEFAULT = (False,)
+AUTOTUNING_ONEBIT = "onebit"
+AUTOTUNING_ONEBIT_DEFAULT = (False,)
+AUTOTUNING_OFFLOAD_TIERS = "offload"
+AUTOTUNING_OFFLOAD_TIER_NONE = "none"
+AUTOTUNING_OFFLOAD_TIER_CPU = "cpu"
+AUTOTUNING_OFFLOAD_TIER_NVME = "nvme"
+AUTOTUNING_OFFLOAD_TIERS_ALL = (AUTOTUNING_OFFLOAD_TIER_NONE,
+                                AUTOTUNING_OFFLOAD_TIER_CPU,
+                                AUTOTUNING_OFFLOAD_TIER_NVME)
+AUTOTUNING_OFFLOAD_TIERS_DEFAULT = (AUTOTUNING_OFFLOAD_TIER_NONE,)
+AUTOTUNING_NVME_PREFETCH_DEPTHS = "nvme_prefetch_depths"
+AUTOTUNING_NVME_PREFETCH_DEPTHS_DEFAULT = (2,)
+AUTOTUNING_OPT_PIPELINE_DEPTHS = "opt_pipeline_depths"
+AUTOTUNING_OPT_PIPELINE_DEPTHS_DEFAULT = (2,)
+# raw config overlay applied to every candidate (fixed knobs)
+AUTOTUNING_FIXED = "fixed"
+AUTOTUNING_FIXED_DEFAULT = None
+AUTOTUNING_CALIBRATION_FILE = "calibration_file"
+AUTOTUNING_CALIBRATION_FILE_DEFAULT = None
+# schema tags of the machine-readable artifacts
+AUTOTUNE_RESULTS_SCHEMA = "ds_autotune_results_v1"
+HW_CALIBRATION_SCHEMA = "ds_hw_calibration_v1"
+# NVMe swap-lane fallback bandwidth (GB/s) when no aio sweep ceiling
+# artifact exists on this host — deliberately conservative (a cheap
+# consumer NVMe read floor) so an uncalibrated search never flatters a
+# streamed config
+AUTOTUNE_NVME_FALLBACK_GBPS = 3.0
+
+#############################################
+# Runtime telemetry monitor (TPU-native addition; docs/telemetry.md)
+#
+# Structured per-step metric records (JSONL/CSV/TensorBoard writers on a
+# background thread), a Chrome/Perfetto trace-event exporter, and a
+# measured-vs-predicted reconciliation report against the Program/
+# Schedule Auditor's static model.  Off by default; all host reads are
+# batched at flush-window boundaries so the async host loop's
+# no-hot-loop-sync guarantee holds with the monitor on.
+#############################################
+MONITOR = "monitor"
+MONITOR_ENABLED = "enabled"
+MONITOR_ENABLED_DEFAULT = False
+MONITOR_OUTPUT_PATH = "output_path"
+MONITOR_OUTPUT_PATH_DEFAULT = "./monitor_logs"
+MONITOR_JOB_NAME = "job_name"
+MONITOR_JOB_NAME_DEFAULT = ""
+# writer backends; jsonl is always available (no extra deps), csv is the
+# fixed-column projection, tensorboard reuses the engine's own writer
+MONITOR_WRITERS = "writers"
+MONITOR_WRITERS_DEFAULT = ("jsonl",)
+MONITOR_WRITER_KINDS = ("jsonl", "csv", "tensorboard")
+# flush-window cadence in optimizer steps; None inherits steps_per_print
+# (the same boundary the engine's own coalesced host reads use)
+MONITOR_WRITE_INTERVAL = "write_interval"
+MONITOR_WRITE_INTERVAL_DEFAULT = None
+# Chrome/Perfetto trace-event export (trace.json in the output dir);
+# trace_steps bounds the number of optimizer steps traced
+MONITOR_TRACE = "trace"
+MONITOR_TRACE_DEFAULT = False
+MONITOR_TRACE_STEPS = "trace_steps"
+MONITOR_TRACE_STEPS_DEFAULT = 128
+# measured-vs-predicted reconciliation per flush window, with flag bands:
+# measured/predicted step time above step_time_ratio_max flags (and below
+# ~1.0 flags model_violation); measured HBM outside
+# [1/hbm_ratio_max, hbm_ratio_max] of the liveness estimate flags;
+# achieved swap read below swap_min_vs_ceiling of the aio sweep ceiling
+# flags
+MONITOR_RECONCILE = "reconcile"
+MONITOR_RECONCILE_DEFAULT = True
+MONITOR_STEP_TIME_RATIO_MAX = "step_time_ratio_max"
+MONITOR_STEP_TIME_RATIO_MAX_DEFAULT = 10.0
+MONITOR_HBM_RATIO_MAX = "hbm_ratio_max"
+MONITOR_HBM_RATIO_MAX_DEFAULT = 2.0
+MONITOR_SWAP_MIN_VS_CEILING = "swap_min_vs_ceiling"
+MONITOR_SWAP_MIN_VS_CEILING_DEFAULT = 0.25
+# ---- fleet observability (monitor/fleet.py, docs/telemetry.md) ------- #
+# fleet: every process contributes a window vector to a boundary-only
+# allgather; rank 0 emits per-host + fleet-aggregate records and every
+# host runs the straggler/divergence detection (monitor/health.py)
+MONITOR_FLEET = "fleet"
+MONITOR_FLEET_DEFAULT = False
+# heartbeat: per-host liveness files under <output_path>/heartbeat,
+# written at flush boundaries (dslaunch --watch renders them)
+MONITOR_HEARTBEAT = "heartbeat"
+MONITOR_HEARTBEAT_DEFAULT = False
+MONITOR_STRAGGLER_ZSCORE = "straggler_zscore"
+MONITOR_STRAGGLER_ZSCORE_DEFAULT = 3.0
+MONITOR_STRAGGLER_MIN_RATIO = "straggler_min_ratio"
+MONITOR_STRAGGLER_MIN_RATIO_DEFAULT = 1.15
+MONITOR_DIVERGENCE_REL_SPREAD = "divergence_rel_spread"
+MONITOR_DIVERGENCE_REL_SPREAD_DEFAULT = 1e-3
+MONITOR_HEALTH_WARMUP_WINDOWS = "health_warmup_windows"
+MONITOR_HEALTH_WARMUP_WINDOWS_DEFAULT = 2
+# Exchange deadline watchdog (monitor/fleet.py): the window allgather
+# runs under a timer; on deadline the watchdog names the hosts whose
+# heartbeats went dark and raises ExchangeTimeout (the monitor converts
+# it into the fleet_disabled diagnostic + supervisor eviction events).
+# 0 = off (the allgather may block indefinitely, as before).
+MONITOR_FLEET_EXCHANGE_DEADLINE_S = "fleet_exchange_deadline_s"
+MONITOR_FLEET_EXCHANGE_DEADLINE_S_DEFAULT = 0.0
+# ---- anomaly-triggered deep profiling (monitor/capture.py) ----------- #
+MONITOR_CAPTURE = "capture"
+MONITOR_CAPTURE_ENABLED = "enabled"
+MONITOR_CAPTURE_ENABLED_DEFAULT = False
+MONITOR_CAPTURE_STEPS = "steps"
+MONITOR_CAPTURE_STEPS_DEFAULT = 8
+MONITOR_CAPTURE_MAX_CAPTURES = "max_captures"
+MONITOR_CAPTURE_MAX_CAPTURES_DEFAULT = 2
+MONITOR_CAPTURE_COOLDOWN_STEPS = "cooldown_steps"
+MONITOR_CAPTURE_COOLDOWN_STEPS_DEFAULT = 100
+MONITOR_CAPTURE_OUTPUT_PATH = "output_path"
+MONITOR_CAPTURE_OUTPUT_PATH_DEFAULT = ""
+
+# ---- MoE routing observability (monitor/moe.py) ---------------------- #
+# Off by default; enabling it threads the RoutingStats accumulator
+# through the traced step programs (moe/sharded_moe.py) and emits one
+# `moe` record per flush window with the ExpertPopularitySnapshot —
+# ROADMAP item 6's prefetch oracle.
+MONITOR_MOE = "moe"
+MONITOR_MOE_ENABLED = "enabled"
+MONITOR_MOE_ENABLED_DEFAULT = False
+MONITOR_MOE_EWMA_ALPHA = "popularity_ewma_alpha"
+MONITOR_MOE_EWMA_ALPHA_DEFAULT = 0.2
+MONITOR_MOE_HOT_K = "hot_k"
+MONITOR_MOE_HOT_K_DEFAULT = 4
+# health rules (health.py): a near-zero expert for K consecutive
+# windows, a collapsed router entropy floor, and per-host expert-
+# parallel load imbalance vs the leave-one-out peer median
+MONITOR_MOE_DEAD_EXPERT_THRESHOLD = "dead_expert_threshold"
+MONITOR_MOE_DEAD_EXPERT_THRESHOLD_DEFAULT = 0.02
+MONITOR_MOE_DEAD_EXPERT_WINDOWS = "dead_expert_windows"
+MONITOR_MOE_DEAD_EXPERT_WINDOWS_DEFAULT = 3
+MONITOR_MOE_ENTROPY_FLOOR = "entropy_floor"
+MONITOR_MOE_ENTROPY_FLOOR_DEFAULT = 0.05
+MONITOR_MOE_COLLAPSE_WINDOWS = "collapse_windows"
+MONITOR_MOE_COLLAPSE_WINDOWS_DEFAULT = 3
+MONITOR_MOE_EP_IMBALANCE_RATIO = "ep_imbalance_ratio"
+MONITOR_MOE_EP_IMBALANCE_RATIO_DEFAULT = 1.5
+MONITOR_MOE_EP_IMBALANCE_WINDOWS = "ep_imbalance_windows"
+MONITOR_MOE_EP_IMBALANCE_WINDOWS_DEFAULT = 3
+
+#############################################
+# Tensorboard
+#############################################
+TENSORBOARD = "tensorboard"
+TENSORBOARD_ENABLED = "enabled"
+TENSORBOARD_ENABLED_DEFAULT = False
+TENSORBOARD_OUTPUT_PATH = "output_path"
+TENSORBOARD_OUTPUT_PATH_DEFAULT = ""
+TENSORBOARD_JOB_NAME = "job_name"
+TENSORBOARD_JOB_NAME_DEFAULT = "DeepSpeedJobName"
+# Summary-writer cadence: scalars are written (and the loss/LR device
+# reads forced) only every `write_interval` steps — None inherits
+# steps_per_print.  Per-step writes would force a device sync each step
+# and drain the dispatch queue.
+TENSORBOARD_WRITE_INTERVAL = "write_interval"
+TENSORBOARD_WRITE_INTERVAL_DEFAULT = None
+
+#############################################
+# ZeRO optimization
+#############################################
+ZERO_OPTIMIZATION = "zero_optimization"
+
+ZERO_OPTIMIZATION_DISABLED = 0
+ZERO_OPTIMIZATION_OPTIMIZER_STATES = 1
+ZERO_OPTIMIZATION_GRADIENTS = 2
+ZERO_OPTIMIZATION_WEIGHTS = 3
+MAX_STAGE_ZERO_OPTIMIZATION = ZERO_OPTIMIZATION_WEIGHTS
+
+ZERO_OPTIMIZATION_STAGE = "stage"
+ZERO_OPTIMIZATION_STAGE_DEFAULT = ZERO_OPTIMIZATION_DISABLED
+
+ZERO_OPTIMIZATION_ALLGATHER_PARTITIONS = "allgather_partitions"
+ZERO_OPTIMIZATION_ALLGATHER_PARTITIONS_DEFAULT = True
+
+ZERO_OPTIMIZATION_REDUCE_SCATTER = "reduce_scatter"
+ZERO_OPTIMIZATION_REDUCE_SCATTER_DEFAULT = True
+
+ZERO_OPTIMIZATION_OVERLAP_COMM = "overlap_comm"
+ZERO_OPTIMIZATION_OVERLAP_COMM_DEFAULT = None  # stage-dependent (True for 3)
+
+ZERO_OPTIMIZATION_CONTIGUOUS_GRADIENTS = "contiguous_gradients"
+ZERO_OPTIMIZATION_CONTIGUOUS_GRADIENTS_DEFAULT = None  # stage-dependent
+
+ZERO_OPTIMIZATION_REDUCE_BUCKET_SIZE = "reduce_bucket_size"
+ZERO_OPTIMIZATION_REDUCE_BUCKET_SIZE_DEFAULT = 500_000_000
+
+ZERO_OPTIMIZATION_ALLGATHER_BUCKET_SIZE = "allgather_bucket_size"
+ZERO_OPTIMIZATION_ALLGATHER_BUCKET_SIZE_DEFAULT = 500_000_000
+
+ZERO_OPTIMIZATION_CPU_OFFLOAD = "cpu_offload"
+ZERO_OPTIMIZATION_CPU_OFFLOAD_DEFAULT = False
+
+ZERO_OPTIMIZATION_CPU_OFFLOAD_PARAMS = "cpu_offload_params"
+ZERO_OPTIMIZATION_CPU_OFFLOAD_PARAMS_DEFAULT = False
+
+ZERO_OPTIMIZATION_CPU_OFFLOAD_USE_PIN_MEMORY = "cpu_offload_use_pin_memory"
+ZERO_OPTIMIZATION_CPU_OFFLOAD_USE_PIN_MEMORY_DEFAULT = False
+
+ZERO_OPTIMIZATION_OFFLOAD_PARAM = "offload_param"
+ZERO_OPTIMIZATION_OFFLOAD_PARAM_DEFAULT = None
+
+ZERO_OPTIMIZATION_OFFLOAD_OPTIMIZER = "offload_optimizer"
+ZERO_OPTIMIZATION_OFFLOAD_OPTIMIZER_DEFAULT = None
+
+ZERO_OPTIMIZATION_SUB_GROUP_SIZE = "sub_group_size"
+ZERO_OPTIMIZATION_SUB_GROUP_SIZE_DEFAULT = 1_000_000_000
+
+ZERO_OPTIMIZATION_MAX_LIVE_PARAMETERS = "stage3_max_live_parameters"
+ZERO_OPTIMIZATION_MAX_LIVE_PARAMETERS_DEFAULT = 1_000_000_000
+
+ZERO_OPTIMIZATION_MAX_REUSE_DISTANCE = "stage3_max_reuse_distance"
+ZERO_OPTIMIZATION_MAX_REUSE_DISTANCE_DEFAULT = 1_000_000_000
+
+ZERO_OPTIMIZATION_PREFETCH_BUCKET_SIZE = "stage3_prefetch_bucket_size"
+ZERO_OPTIMIZATION_PREFETCH_BUCKET_SIZE_DEFAULT = 50_000_000
+
+# Prefetch program structure for the streamed layer scan
+# (zero/stage3_streaming.py): "carried" = double-buffered scan carry,
+# gathers verified statically off the critical path in both directions;
+# "unrolled" = legacy unroll-2 body (overlap left to XLA's scheduler);
+# "off" = gather at use.  Prefetch engages in any mode only when
+# stage3_prefetch_bucket_size covers a layer group.
+ZERO_OPTIMIZATION_PREFETCH_MODE = "stage3_prefetch_mode"
+ZERO_OPTIMIZATION_PREFETCH_MODE_DEFAULT = "carried"
+ZERO_OPTIMIZATION_PREFETCH_MODES = ("carried", "unrolled", "off")
+
+ZERO_OPTIMIZATION_PARAM_PERSISTENCE_THRESHOLD = "stage3_param_persistence_threshold"
+ZERO_OPTIMIZATION_PARAM_PERSISTENCE_THRESHOLD_DEFAULT = 100_000
+
+ZERO_OPTIMIZATION_GATHER_FP16_WEIGHTS_ON_MODEL_SAVE = (
+    "stage3_gather_fp16_weights_on_model_save")
+ZERO_OPTIMIZATION_GATHER_FP16_WEIGHTS_ON_MODEL_SAVE_DEFAULT = False
+
+ZERO_OPTIMIZATION_IGNORE_UNUSED_PARAMETERS = "ignore_unused_parameters"
+ZERO_OPTIMIZATION_IGNORE_UNUSED_PARAMETERS_DEFAULT = True
+
+ZERO_OPTIMIZATION_LEGACY_STAGE1 = "legacy_stage1"
+ZERO_OPTIMIZATION_LEGACY_STAGE1_DEFAULT = False
+
+ZERO_OPTIMIZATION_ELASTIC_CHECKPOINT = "elastic_checkpoint"
+ZERO_OPTIMIZATION_ELASTIC_CHECKPOINT_DEFAULT = True
+
+# ZeRO++-style low-bandwidth collectives (arXiv:2306.10209;
+# runtime/comm/low_bandwidth.py).  Each knob is independently off by
+# default; bits are 0 (off), 4, or 8.
+ZERO_OPTIMIZATION_LOW_BANDWIDTH = "low_bandwidth"
+LOW_BANDWIDTH_QWZ_BITS = "qwz_bits"            # quantized weight all-gather
+LOW_BANDWIDTH_QWZ_BITS_DEFAULT = 0
+LOW_BANDWIDTH_QGZ_BITS = "qgz_bits"            # quantized grad reduce-scatter
+LOW_BANDWIDTH_QGZ_BITS_DEFAULT = 0
+LOW_BANDWIDTH_HPZ_GROUP_SIZE = "hpz_group_size"  # secondary-partition size
+LOW_BANDWIDTH_HPZ_GROUP_SIZE_DEFAULT = 0
+LOW_BANDWIDTH_BLOCK_SIZE = "block_size"        # quantization block elements
+LOW_BANDWIDTH_BLOCK_SIZE_DEFAULT = 256
+# T3-style fused collective-matmul (ops/collective_matmul.py,
+# docs/fused_collective_matmul.md): the qwZ/qgZ transports move per-TILE
+# (quantized shard tiles ride a ring as the producer/consumer GEMM's
+# tiles complete) instead of as one monolithic collective
+LOW_BANDWIDTH_FCM = "fused_collective_matmul"
+LOW_BANDWIDTH_FCM_DEFAULT = False
+# 1-bit optimizer wire tier (reference runtime/comm/nccl.py
+# compressed_allreduce; docs/onebit.md): after the optimizer's
+# freeze_step the data-parallel grad allreduce is removed from the grad
+# program and replaced by an error-feedback sign+scale momentum sync on
+# a packed int8 wire (comm/compressed.py wire="packed").  Requires a
+# onebit optimizer (OneBitAdam/OneBitLamb) and ZeRO stage <= 2.
+LOW_BANDWIDTH_ONEBIT = "onebit"
+LOW_BANDWIDTH_ONEBIT_DEFAULT = False
+# name-scope marker the fused collective-matmul ops trace under; the
+# Schedule Auditor's overlap classifier (analysis/overlap.py) reads it
+# off eqn name stacks to classify the per-tile transports as
+# fused/hidden — single-sourced here so the op and the analyzer can
+# never disagree on the spelling
+FCM_SCOPE = "fcm_fused"
+# name-scope marker the packed 1-bit momentum-sync transport traces
+# under (comm/compressed.py wire="packed"); collective_wire_bytes and
+# the Schedule Auditor read it off eqn name stacks for attribution —
+# single-sourced here like FCM_SCOPE
+ONEBIT_SCOPE = "onebit_packed"
+
+#############################################
+# Offload (reference: runtime/zero/offload_constants.py)
+#############################################
+OFFLOAD_CPU_DEVICE = "cpu"
+OFFLOAD_NVME_DEVICE = "nvme"
+
+OFFLOAD_PARAM = "offload_param"
+OFFLOAD_PARAM_DEVICE = "device"
+OFFLOAD_PARAM_DEVICE_DEFAULT = OFFLOAD_CPU_DEVICE
+OFFLOAD_PARAM_NVME_PATH = "nvme_path"
+OFFLOAD_PARAM_NVME_PATH_DEFAULT = None
+OFFLOAD_PARAM_BUFFER_COUNT = "buffer_count"
+OFFLOAD_PARAM_BUFFER_COUNT_DEFAULT = 5
+OFFLOAD_PARAM_BUFFER_SIZE = "buffer_size"
+OFFLOAD_PARAM_BUFFER_SIZE_DEFAULT = 100_000_000
+OFFLOAD_PARAM_MAX_IN_CPU = "max_in_cpu"
+OFFLOAD_PARAM_MAX_IN_CPU_DEFAULT = 1_000_000_000
+OFFLOAD_PARAM_PIN_MEMORY = "pin_memory"
+OFFLOAD_PARAM_PIN_MEMORY_DEFAULT = False
+# NVMe swap-in look-ahead for the streaming engine (zero/infinity.py):
+# number of pinned window buffers the step may hold in flight at once —
+# 2 = double buffer (group i computing, group i+1 reading), the carried
+# prefetch discipline of ZeRO-3 streaming one tier down; < 2
+# serializes swap-ins at use.
+# Must fit in buffer_count.
+OFFLOAD_PARAM_PREFETCH_DEPTH = "prefetch_depth"
+OFFLOAD_PARAM_PREFETCH_DEPTH_DEFAULT = 2
+
+OFFLOAD_OPTIMIZER = "offload_optimizer"
+OFFLOAD_OPTIMIZER_DEVICE = "device"
+OFFLOAD_OPTIMIZER_DEVICE_DEFAULT = OFFLOAD_CPU_DEVICE
+OFFLOAD_OPTIMIZER_NVME_PATH = "nvme_path"
+OFFLOAD_OPTIMIZER_NVME_PATH_DEFAULT = None
+OFFLOAD_OPTIMIZER_BUFFER_COUNT = "buffer_count"
+OFFLOAD_OPTIMIZER_BUFFER_COUNT_DEFAULT = 4
+OFFLOAD_OPTIMIZER_PIN_MEMORY = "pin_memory"
+OFFLOAD_OPTIMIZER_PIN_MEMORY_DEFAULT = False
+OFFLOAD_OPTIMIZER_PIPELINE_READ = "pipeline_read"
+OFFLOAD_OPTIMIZER_PIPELINE_READ_DEFAULT = False
+OFFLOAD_OPTIMIZER_PIPELINE_WRITE = "pipeline_write"
+OFFLOAD_OPTIMIZER_PIPELINE_WRITE_DEFAULT = False
+OFFLOAD_OPTIMIZER_PIPELINE = "pipeline"
+OFFLOAD_OPTIMIZER_FAST_INIT = "fast_init"
+OFFLOAD_OPTIMIZER_FAST_INIT_DEFAULT = False
+# Leaf-pipeline depth of the NVMe optimizer sweep (optimizer_swapper.py):
+# number of rotating (param, exp_avg, exp_avg_sq) buffer triples — depth D
+# overlaps leaf i's Adam with leaf i+1's read and leaf i-(D-1)'s
+# write-back.  >= 2 (the reference PipelinedOptimizerSwapper is depth 2).
+OFFLOAD_OPTIMIZER_PIPELINE_DEPTH = "pipeline_depth"
+OFFLOAD_OPTIMIZER_PIPELINE_DEPTH_DEFAULT = 2
+
+#############################################
+# Async I/O (reference: runtime/swap_tensor/constants.py)
+#############################################
+AIO = "aio"
+AIO_BLOCK_SIZE = "block_size"
+AIO_BLOCK_SIZE_DEFAULT = 1048576
+AIO_QUEUE_DEPTH = "queue_depth"
+AIO_QUEUE_DEPTH_DEFAULT = 8
+AIO_THREAD_COUNT = "thread_count"
+AIO_THREAD_COUNT_DEFAULT = 1
+AIO_SINGLE_SUBMIT = "single_submit"
+AIO_SINGLE_SUBMIT_DEFAULT = False
+AIO_OVERLAP_EVENTS = "overlap_events"
+AIO_OVERLAP_EVENTS_DEFAULT = True
+# Engine selection (this repo's addition — the reference hardwires libaio):
+#   io_uring   kernel SQ/CQ rings, runtime-probed (csrc/aio/uring_aio.cpp)
+#   batched    portable batched-submission preadv/pwritev pool
+#   threadpool the original one-syscall-per-chunk pool
+#   auto       io_uring when available, else batched
+AIO_BACKEND = "backend"
+AIO_BACKEND_AUTO = "auto"
+AIO_BACKEND_IO_URING = "io_uring"
+AIO_BACKEND_BATCHED = "batched"
+AIO_BACKEND_THREADPOOL = "threadpool"
+AIO_BACKENDS = (AIO_BACKEND_AUTO, AIO_BACKEND_IO_URING,
+                AIO_BACKEND_BATCHED, AIO_BACKEND_THREADPOOL)
+AIO_BACKEND_DEFAULT = AIO_BACKEND_AUTO
+AIO_BLOCK_SIZE_MIN = 4096  # O_DIRECT-friendly floor (engines clamp too)
+
+#############################################
+# Activation checkpointing
+#############################################
+ACTIVATION_CHECKPOINTING = "activation_checkpointing"
+ACT_CHKPT_PARTITION_ACTIVATIONS = "partition_activations"
+ACT_CHKPT_PARTITION_ACTIVATIONS_DEFAULT = False
+ACT_CHKPT_NUMBER_CHECKPOINTS = "number_checkpoints"
+ACT_CHKPT_NUMBER_CHECKPOINTS_DEFAULT = None
+ACT_CHKPT_CONTIGUOUS_MEMORY_OPTIMIZATION = "contiguous_memory_optimization"
+ACT_CHKPT_CONTIGUOUS_MEMORY_OPTIMIZATION_DEFAULT = False
+ACT_CHKPT_SYNCHRONIZE_CHECKPOINT_BOUNDARY = "synchronize_checkpoint_boundary"
+ACT_CHKPT_SYNCHRONIZE_CHECKPOINT_BOUNDARY_DEFAULT = False
+ACT_CHKPT_PROFILE = "profile"
+ACT_CHKPT_PROFILE_DEFAULT = False
+ACT_CHKPT_CPU_CHECKPOINTING = "cpu_checkpointing"
+ACT_CHKPT_CPU_CHECKPOINTING_DEFAULT = False
+
+#############################################
+# Sparse attention
+#############################################
+SPARSE_ATTENTION = "sparse_attention"
+SPARSE_DENSE_MODE = "dense"
+SPARSE_FIXED_MODE = "fixed"
+SPARSE_VARIABLE_MODE = "variable"
+SPARSE_BIGBIRD_MODE = "bigbird"
+SPARSE_BSLONGFORMER_MODE = "bslongformer"
+SPARSE_MODE = "mode"
+SPARSE_MODE_DEFAULT = SPARSE_FIXED_MODE
+SPARSE_BLOCK = "block"
+SPARSE_BLOCK_DEFAULT = 16
+SPARSE_DIFFERENT_LAYOUT_PER_HEAD = "different_layout_per_head"
+SPARSE_DIFFERENT_LAYOUT_PER_HEAD_DEFAULT = False
+SPARSE_NUM_LOCAL_BLOCKS = "num_local_blocks"
+SPARSE_NUM_LOCAL_BLOCKS_DEFAULT = 4
+SPARSE_NUM_GLOBAL_BLOCKS = "num_global_blocks"
+SPARSE_NUM_GLOBAL_BLOCKS_DEFAULT = 1
+SPARSE_ATTENTION_TYPE = "attention"
+SPARSE_ATTENTION_TYPE_DEFAULT = "bidirectional"
+SPARSE_HORIZONTAL_GLOBAL_ATTENTION = "horizontal_global_attention"
+SPARSE_HORIZONTAL_GLOBAL_ATTENTION_DEFAULT = False
+SPARSE_NUM_DIFFERENT_GLOBAL_PATTERNS = "num_different_global_patterns"
+SPARSE_NUM_DIFFERENT_GLOBAL_PATTERNS_DEFAULT = 1
+SPARSE_NUM_RANDOM_BLOCKS = "num_random_blocks"
+SPARSE_NUM_RANDOM_BLOCKS_DEFAULT = 0
+SPARSE_LOCAL_WINDOW_BLOCKS = "local_window_blocks"
+SPARSE_LOCAL_WINDOW_BLOCKS_DEFAULT = [4]
+SPARSE_GLOBAL_BLOCK_INDICES = "global_block_indices"
+SPARSE_GLOBAL_BLOCK_INDICES_DEFAULT = [0]
+SPARSE_GLOBAL_BLOCK_END_INDICES = "global_block_end_indices"
+SPARSE_GLOBAL_BLOCK_END_INDICES_DEFAULT = None
+SPARSE_NUM_SLIDING_WINDOW_BLOCKS = "num_sliding_window_blocks"
+SPARSE_NUM_SLIDING_WINDOW_BLOCKS_DEFAULT = 3
+
+#############################################
+# Flops profiler
+#############################################
+FLOPS_PROFILER = "flops_profiler"
+FLOPS_PROFILER_ENABLED = "enabled"
+FLOPS_PROFILER_ENABLED_DEFAULT = False
+FLOPS_PROFILER_PROFILE_STEP = "profile_step"
+FLOPS_PROFILER_PROFILE_STEP_DEFAULT = 1
+FLOPS_PROFILER_MODULE_DEPTH = "module_depth"
+FLOPS_PROFILER_MODULE_DEPTH_DEFAULT = -1
+FLOPS_PROFILER_TOP_MODULES = "top_modules"
+FLOPS_PROFILER_TOP_MODULES_DEFAULT = 1
+FLOPS_PROFILER_DETAILED = "detailed"
+FLOPS_PROFILER_DETAILED_DEFAULT = True
+FLOPS_PROFILER_OUTPUT_FILE = "output_file"
+FLOPS_PROFILER_OUTPUT_FILE_DEFAULT = None
+
+#############################################
+# Eigenvalue (MoQ support)
+#############################################
+EIGENVALUE = "eigenvalue"
+EIGENVALUE_ENABLED = "enabled"
+EIGENVALUE_ENABLED_DEFAULT = False
+EIGENVALUE_VERBOSE = "verbose"
+EIGENVALUE_VERBOSE_DEFAULT = False
+EIGENVALUE_MAX_ITER = "max_iter"
+EIGENVALUE_MAX_ITER_DEFAULT = 100
+EIGENVALUE_TOL = "tol"
+EIGENVALUE_TOL_DEFAULT = 1e-2
+EIGENVALUE_STABILITY = "stability"
+EIGENVALUE_STABILITY_DEFAULT = 1e-6
+EIGENVALUE_GAS_BOUNDARY_RESOLUTION = "gas_boundary_resolution"
+EIGENVALUE_GAS_BOUNDARY_RESOLUTION_DEFAULT = 1
+EIGENVALUE_LAYER_NAME = "layer_name"
+EIGENVALUE_LAYER_NAME_DEFAULT = "bert.encoder.layer"
+EIGENVALUE_LAYER_NUM = "layer_num"
+EIGENVALUE_LAYER_NUM_DEFAULT = 0
+
+#############################################
+# Progressive layer drop / curriculum
+#############################################
+PROGRESSIVE_LAYER_DROP = "progressive_layer_drop"
+PLD_ENABLED = "enabled"
+PLD_ENABLED_DEFAULT = False
+PLD_THETA = "theta"
+PLD_THETA_DEFAULT = 1.0
+PLD_GAMMA = "gamma"
+PLD_GAMMA_DEFAULT = 0.001
+
+CURRICULUM_LEARNING = "curriculum_learning"
+CURRICULUM_ENABLED = "enabled"
+CURRICULUM_ENABLED_DEFAULT = False
+
+#############################################
+# Quantize training (MoQ)
+#############################################
+QUANTIZE_TRAINING = "quantize_training"
+QUANTIZE_BITS = "quantize_bits"
+START_BITS = "start_bits"
+TARGET_BITS = "target_bits"
+QUANTIZER_KERNEL = "quantizer_kernel"
+QUANTIZE_SCHEDULE = "quantize_schedule"
+QUANTIZE_PERIOD = "quantize_period"
+SCHEDULE_OFFSET = "schedule_offset"
+QUANTIZE_GROUPS = "quantize_groups"
+FP16_MIXED_QUANTIZE = "fp16_mixed_quantize"
+QUANTIZE_CHANGE_RATIO = "quantize_change_ratio"
+FP16_MIXED_QUANTIZE_ENABLED = "enabled"
+QUANTIZE_VERBOSE = "quantize_verbose"
+QUANTIZE_ALGO = "quantize_algo"
+QUANTIZE_TYPE = "q_type"
+QUANTIZE_SYMMETRIC = "symmetric"
+QUANTIZE_ASYMMETRIC = "asymmetric"
+STOCHASTIC_ROUNDING = "stochastic"
+NEAREST_ROUNDING = "nearest"
+QUANTIZE_ROUNDING = "rounding"
+QUANTIZE_TRAINING_ENABLED = "enabled"
+QUANTIZE_TRAINING_ENABLED_DEFAULT = False
+QUANTIZE_START_BITS_DEFAULT = 16
+QUANTIZE_TARGET_BITS_DEFAULT = 8
+QUANTIZER_KERNEL_DEFAULT = False
+QUANTIZE_PERIOD_DEFAULT = 1000
+QUANTIZE_OFFSET_DEFAULT = 1000
+QUANTIZE_GROUPS_DEFAULT = 1
+QUANTIZE_TYPE_DEFAULT = 0  # symmetric
+QUANTIZE_ROUNDING_DEFAULT = 0  # nearest
+FP16_MIXED_QUANTIZE_ENABLED_DEFAULT = False
+QUANTIZE_CHANGE_RATIO_DEFAULT = 0.001
+QUANTIZE_VERBOSE_DEFAULT = False
+
+#############################################
+# Checkpoint
+#############################################
+CHECKPOINT = "checkpoint"
+CHECKPOINT_TAG_VALIDATION = "tag_validation"
+
+
+class ValidationMode:
+    WARN = "WARN"
+    IGNORE = "IGNORE"
+    FAIL = "FAIL"
+
+
+CHECKPOINT_TAG_VALIDATION_DEFAULT = ValidationMode.WARN
+CHECKPOINT_TAG_VALIDATION_MODES = [
+    ValidationMode.WARN, ValidationMode.IGNORE, ValidationMode.FAIL
+]
+
+#############################################
+# Resilience (fault tolerance; TPU-native addition — preemptible pods
+# make checkpoint durability and run-health first-class.  All off by
+# default: with the block absent the engine behaves exactly as before.)
+#############################################
+RESILIENCE = "resilience"
+RESILIENCE_ENABLED = "enabled"
+RESILIENCE_ENABLED_DEFAULT = False
+# Atomic commit protocol: write the tag dir as <tag>.tmp.<nonce>, fsync,
+# manifest with per-file size+CRC32, os.replace into place, `latest` last.
+RESILIENCE_ATOMIC_CHECKPOINTS = "atomic_checkpoints"
+RESILIENCE_ATOMIC_CHECKPOINTS_DEFAULT = True
+# Validate the manifest on load; fall back to the newest intact tag.
+RESILIENCE_VERIFY_ON_LOAD = "verify_on_load"
+RESILIENCE_VERIFY_ON_LOAD_DEFAULT = True
+# Bound on how many candidate tags the corruption fallback will scan.
+RESILIENCE_MAX_FALLBACK_TAGS = "max_fallback_tags"
+RESILIENCE_MAX_FALLBACK_TAGS_DEFAULT = 8
+# Retention/GC: keep the newest N tags (0 = no GC); tags whose trailing
+# step number is a multiple of keep_every are kept forever.  The tag
+# `latest` points to is never deleted.
+RESILIENCE_KEEP_LAST_N = "keep_last_n"
+RESILIENCE_KEEP_LAST_N_DEFAULT = 0
+RESILIENCE_KEEP_EVERY = "keep_every"
+RESILIENCE_KEEP_EVERY_DEFAULT = 0
+# Retry/backoff wrapper around checkpoint IO (transient FS errors).
+RESILIENCE_IO_RETRIES = "io_retries"
+RESILIENCE_IO_RETRIES_DEFAULT = 3
+RESILIENCE_IO_BACKOFF_SECONDS = "io_backoff_seconds"
+RESILIENCE_IO_BACKOFF_SECONDS_DEFAULT = 0.5
+# RetryPolicy extras (resilience/retry.py): seeded jitter keeps the
+# backoff sequence reproducible; the cap bounds the exponential.
+RESILIENCE_RETRY_JITTER = "retry_jitter"
+RESILIENCE_RETRY_JITTER_DEFAULT = 0.25
+RESILIENCE_RETRY_SEED = "retry_seed"
+RESILIENCE_RETRY_SEED_DEFAULT = 0
+RESILIENCE_RETRY_MAX_BACKOFF_SECONDS = "retry_max_backoff_seconds"
+RESILIENCE_RETRY_MAX_BACKOFF_SECONDS_DEFAULT = 30.0
+# Lockstep-signature re-verify on resume (resilience/reshard.py): a
+# same-topology resume must reproduce the checkpoint's saved collective
+# lockstep signature; a resharded resume re-verifies multihost
+# agreement on the new signature instead.
+RESILIENCE_VERIFY_LOCKSTEP_ON_RESUME = "verify_lockstep_on_resume"
+RESILIENCE_VERIFY_LOCKSTEP_ON_RESUME_DEFAULT = True
+
+# -- preemption sub-block ------------------------------------------- #
+RESILIENCE_PREEMPTION = "preemption"
+PREEMPTION_ENABLED = "enabled"
+PREEMPTION_ENABLED_DEFAULT = False
+PREEMPTION_SIGNALS = "signals"            # e.g. ["SIGTERM", "SIGINT"]
+PREEMPTION_SIGNALS_DEFAULT = ("SIGTERM", "SIGINT")
+PREEMPTION_EMERGENCY_TAG_PREFIX = "emergency_tag_prefix"
+PREEMPTION_EMERGENCY_TAG_PREFIX_DEFAULT = "emergency"
+PREEMPTION_SAVE_DIR = "save_dir"          # None → last save_checkpoint dir
+PREEMPTION_SAVE_DIR_DEFAULT = None
+PREEMPTION_RERAISE = "reraise"            # restore handler + re-deliver
+PREEMPTION_RERAISE_DEFAULT = True
+# Grace deadline: if no step boundary is reached within grace_s of the
+# signal, force-save the LAST COMPLETED step from a timer thread (tag
+# suffix "_forced") instead of losing the tag entirely.  0 = off.
+PREEMPTION_GRACE_S = "grace_s"
+PREEMPTION_GRACE_S_DEFAULT = 0.0
+
+# -- training-health sentinel sub-block ----------------------------- #
+RESILIENCE_SENTINEL = "sentinel"
+SENTINEL_ENABLED = "enabled"
+SENTINEL_ENABLED_DEFAULT = False
+SENTINEL_EWMA_ALPHA = "ewma_alpha"
+SENTINEL_EWMA_ALPHA_DEFAULT = 0.02
+SENTINEL_K_SIGMA = "k_sigma"
+SENTINEL_K_SIGMA_DEFAULT = 6.0
+SENTINEL_WARMUP_STEPS = "warmup_steps"
+SENTINEL_WARMUP_STEPS_DEFAULT = 20
+SENTINEL_POLICY = "policy"                # warn | skip_step | rewind
+SENTINEL_POLICY_DEFAULT = "warn"
+SENTINEL_POLICIES = ("warn", "skip_step", "rewind")
+SENTINEL_ANOMALY_BUDGET = "anomaly_budget"  # consecutive anomalies → abort
+SENTINEL_ANOMALY_BUDGET_DEFAULT = 5
+SENTINEL_MONITOR_GRAD_NORM = "monitor_grad_norm"
+SENTINEL_MONITOR_GRAD_NORM_DEFAULT = True
+
+# -- chaos sub-block (resilience/chaos.py) --------------------------- #
+# Seeded deterministic fault injection, off by default.  `faults` is a
+# list of {point, kind, at_call|at_step|after_bytes, repeat, args}
+# specs validated against the injection-point catalog at config time.
+RESILIENCE_CHAOS = "chaos"
+CHAOS_ENABLED = "enabled"
+CHAOS_ENABLED_DEFAULT = False
+CHAOS_SEED = "seed"
+CHAOS_SEED_DEFAULT = 0
+CHAOS_FAULTS = "faults"
+CHAOS_FAULTS_DEFAULT = ()
+
+#############################################
+# Elasticity (reference: deepspeed/elasticity/constants.py)
+#############################################
+ELASTICITY = "elasticity"
+ENABLED = "enabled"
+ENABLED_DEFAULT = False
+MAX_ACCEPTABLE_BATCH_SIZE = "max_train_batch_size"
+MAX_ACCEPTABLE_BATCH_SIZE_DEFAULT = 2000
+MICRO_BATCHES = "micro_batch_sizes"
+MICRO_BATCHES_DEFAULT = [2, 4, 6]
+MIN_GPUS = "min_gpus"
+MIN_GPUS_DEFAULT = 1
+MAX_GPUS = "max_gpus"
+MAX_GPUS_DEFAULT = 10000
+MIN_TIME = "min_time"
+MIN_TIME_DEFAULT = 0
+VERSION = "version"
+VERSION_DEFAULT = 0.1
+LATEST_ELASTICITY_VERSION = 0.1
+IGNORE_NON_ELASTIC_BATCH_INFO = "ignore_non_elastic_batch_info"
+IGNORE_NON_ELASTIC_BATCH_INFO_DEFAULT = False
+PREFER_LARGER_BATCH = "prefer_larger_batch"
+PREFER_LARGER_BATCH_DEFAULT = True
+
+#############################################
+# TPU-native additions (no reference analog)
+#############################################
+# Mesh shape / named axes: {"data": -1, "model": 1, "pipe": 1, "expert": 1,
+#                           "seq": 1}
+MESH = "mesh"
+MESH_DATA_AXIS = "data"
+MESH_MODEL_AXIS = "model"
+MESH_PIPE_AXIS = "pipe"
+MESH_EXPERT_AXIS = "expert"
+MESH_SEQ_AXIS = "seq"
+
+# Sequence parallelism (ring attention / Ulysses) — the modern long-context
+# layer the 2021 reference lacks (SURVEY.md §5).
+SEQUENCE_PARALLEL = "sequence_parallel"
+SEQUENCE_PARALLEL_MODE = "mode"  # "ring" | "ulysses"
+SEQUENCE_PARALLEL_MODE_DEFAULT = "ring"
+SEQUENCE_PARALLEL_SIZE = "size"
+SEQUENCE_PARALLEL_SIZE_DEFAULT = 1
+
+# Pipeline config (reference passes these via PipelineModule kwargs).
+PIPELINE = "pipeline"
+PIPELINE_STAGES = "stages"
+PIPELINE_STAGES_DEFAULT = 1
+PIPELINE_PARTITION_METHOD = "partition_method"
+PIPELINE_PARTITION_METHOD_DEFAULT = "parameters"
+PIPELINE_ACTIVATION_CHECKPOINT_INTERVAL = "activation_checkpoint_interval"
+PIPELINE_ACTIVATION_CHECKPOINT_INTERVAL_DEFAULT = 0

@@ -2,10 +2,15 @@
 // and the per-row logsumexp [B, H, S] in fp32.
 //
 // Replaces: deepspeed_tpu/ops/flash_attention.py flash_attention_pallas
-// (_fa_kernel), without its in-kernel dropout (inference runs it at 0).
-// Same numerics: scores, running max, running sum and the output
-// accumulator in fp32; masked scores take DEFAULT_MASK_VALUE; a row whose
-// sum is 0 writes zeros; lse = m + log(l + 1e-37).
+// (_fa_kernel), with its in-kernel probability dropout.  Same numerics:
+// scores, running max, running sum and the output accumulator in fp32;
+// masked scores take DEFAULT_MASK_VALUE; a row whose sum is 0 writes
+// zeros; lse = m + log(l + 1e-37).  Dropout acts on the normalized P: the
+// P.V input is masked and scaled by 256 / threshold while the running sum
+// l adds the raw P (_fa_kernel :355-364), so out = dropout(softmax) @ V.
+// The keep mask is a pure function of (seed, b, h, row, col)
+// (dropout.cuh), which the backward kernels regenerate exactly; the seed
+// is read from device memory, so drawing it needs no host round trip.
 //
 // Bound on the H100: at the serving shapes (S = 128..1024, D = 64, bf16,
 // causal) the work is ~30-130 operations per byte moved, below the ~295 at
@@ -32,6 +37,7 @@
 // the output may be written into one.
 
 #include "common.cuh"
+#include "dropout.cuh"
 
 namespace {
 
@@ -57,7 +63,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int H, int Sq, int Sk, Strides qs_,
                  Strides ks_, Strides vs_, Strides os_, float sm_scale,
-                 int causal) {
+                 int causal, const int* __restrict__ seed_ptr,
+                 int keep_threshold, float keep_scale) {
   constexpr int DP = D + 1;
   constexpr int DC = D / kTPR;  // output columns per thread
   extern __shared__ float smem[];
@@ -73,6 +80,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int qrow = q0 + r;
+  const bool drop = keep_threshold < 256;
+  const uint32_t seed = drop ? static_cast<uint32_t>(*seed_ptr) : 0u;
+  const uint32_t bh = static_cast<uint32_t>(b * H + h);
+  const uint32_t threshold = static_cast<uint32_t>(keep_threshold);
 
   const T* qb = q + b * qs_.b + h * qs_.h;
   const T* kb = k + b * ks_.b + h * ks_.h;
@@ -141,6 +152,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     lt += __shfl_xor_sync(0xffffffffu, lt, 2);
     l = l * alpha + lt;
     m = m_new;
+    if (drop) {  // after l took the raw P: only the P.V input is dropped
+      const uint4 bytes = ds_dropout_bytes(seed, bh, qrow, n0, j);
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) {
+        s[i] = ds_byte(bytes, i) < threshold ? s[i] * keep_scale : 0.f;
+      }
+    }
 
 #pragma unroll
     for (int c = 0; c < DC; ++c) acc[c] *= alpha;
@@ -171,7 +189,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
-           Strides os, float sm_scale, int causal, cudaStream_t stream) {
+           Strides os, float sm_scale, int causal, const int* seed,
+           int keep_threshold, float keep_scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -181,7 +200,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, H, Sq, Sk, qs, ks,
-      vs, os, sm_scale, causal);
+      vs, os, sm_scale, causal, seed, keep_threshold, keep_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -189,12 +208,13 @@ template <typename T>
 int launch_d(int D, const void* q, const void* k, const void* v, void* o,
              float* lse, int B, int H, int Sq, int Sk, Strides qs, Strides ks,
              Strides vs, Strides os, float sm_scale, int causal,
+             const int* seed, int keep_threshold, float keep_scale,
              cudaStream_t stream) {
   switch (D) {
     case 64:
-      return launch<T, 64>(q, k, v, o, lse, B, H, Sq, Sk, qs, ks, vs, os, sm_scale, causal, stream);
+      return launch<T, 64>(q, k, v, o, lse, B, H, Sq, Sk, qs, ks, vs, os, sm_scale, causal, seed, keep_threshold, keep_scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, lse, B, H, Sq, Sk, qs, ks, vs, os, sm_scale, causal, stream);
+      return launch<T, 128>(q, k, v, o, lse, B, H, Sq, Sk, qs, ks, vs, os, sm_scale, causal, seed, keep_threshold, keep_scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -207,19 +227,23 @@ extern "C" int ds_flash_attention_fwd(
     int H, int Sq, int Sk, int D, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
-    long long o_sh, long long o_ss, float sm_scale, int causal, int dtype,
+    long long o_sh, long long o_ss, float sm_scale, int causal,
+    const void* seed, int keep_threshold, float keep_scale, int dtype,
     void* stream) {
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
       vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  const int* sd = static_cast<const int*>(seed);
   if (dtype == DS_DTYPE_BF16) {
     return launch_d<__nv_bfloat16>(D, q, k, v, o, l, B, H, Sq, Sk, qs, ks, vs,
-                                   os, sm_scale, causal, s);
+                                   os, sm_scale, causal, sd, keep_threshold,
+                                   keep_scale, s);
   }
   if (dtype == DS_DTYPE_FP32) {
     return launch_d<float>(D, q, k, v, o, l, B, H, Sq, Sk, qs, ks, vs, os,
-                           sm_scale, causal, s);
+                           sm_scale, causal, sd, keep_threshold, keep_scale,
+                           s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

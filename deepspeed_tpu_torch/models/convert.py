@@ -1,11 +1,11 @@
-"""Weight bridge from the JAX package's GPT-2 parameter tree to the port.
+"""Weight bridge between the JAX package's GPT-2 parameter tree and the port.
 
 The JAX tree (deepspeed_tpu/models/gpt2.py GPT2Model.init_params) holds
 `wte` [V, H], `wpe` [P, H], the layer leaves stacked [L, ...] under `h`,
 `ln_f` {`w`, `b`} and, when the embeddings are untied, `lm_head` [H, V].
 Both packages keep the [in, out] weight layout (`x @ W`), so the bridge
-only copies and unstacks.  It takes numpy arrays (or anything
-`np.asarray` reads) and imports nothing of JAX.
+only copies and (un)stacks.  It takes and returns numpy arrays (or
+anything `np.asarray` reads) and imports nothing of JAX.
 """
 
 from collections import OrderedDict
@@ -44,3 +44,24 @@ def gpt2_params_from_jax(tree, config: GPT2Config) -> "OrderedDict[str, torch.Te
         out["lm_head"] = _tensor(tree["lm_head"], (h, config.vocab_size),
                                  "lm_head")
     return out
+
+
+def gpt2_params_to_jax(state, config: GPT2Config) -> dict:
+    """The JAX parameter tree (fp32 numpy arrays, layer leaves stacked
+    [L, ...]) of a port state dict or of anything with the same keys, such
+    as a dict of parameter grads: the inverse of gpt2_params_from_jax."""
+    def arr(name):
+        return np.array(state[name].detach().float().cpu().numpy(),
+                        dtype=np.float32)
+
+    layer_names = DeepSpeedTransformerLayer.param_shapes(config.layer_config())
+    tree = {
+        "wte": arr("wte"), "wpe": arr("wpe"),
+        "h": {name: np.stack([arr(f"h.{i}.{name}")
+                              for i in range(config.num_layers)])
+              for name in layer_names},
+        "ln_f": {"w": arr("ln_f.w"), "b": arr("ln_f.b")},
+    }
+    if not config.tie_word_embeddings:
+        tree["lm_head"] = arr("lm_head")
+    return tree

@@ -1,10 +1,14 @@
-"""GPT-2 (counterpart of deepspeed_tpu/models/gpt2.py), the serving forward.
+"""GPT-2 (counterpart of deepspeed_tpu/models/gpt2.py): the serving forward
+and the training loss.
 
 The parameters mirror the JAX tree: `wte` [V, H], `wpe` [P, H], the layers
 under `h.<i>.` (unrolled in a Python loop where the JAX package scans a
 stacked [L, ...] tree), `ln_f.w`/`ln_f.b`, and `lm_head` [H, V] when the
-embeddings are untied.  Training (the loss, the fused cross-entropy, layer
-streaming) comes with the training slice.
+embeddings are untied.  They are fp32 and trainable; compute runs in
+config.dtype.  `loss` (also `forward`, as the JAX model's `__call__`) is
+the next-token cross-entropy, through the chunked
+`fused_linear_cross_entropy` by default.  Activation checkpointing, PLD
+and layer streaming are not ported yet.
 """
 
 from dataclasses import dataclass
@@ -13,6 +17,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..ops.activations import dropout
+from ..ops.fused_cross_entropy import fused_linear_cross_entropy
 from ..ops.normalize import fused_layer_norm
 from ..ops.transformer import (DeepSpeedTransformerConfig,
                                DeepSpeedTransformerLayer)
@@ -32,11 +38,23 @@ class GPT2Config:
     layer_norm_eps: float = 1e-5
     initializer_range: float = 0.02
     bf16: bool = True
+    # "kernel" (probability dropout inside the flash kernel, the
+    # reference's semantics) | "ctx" (dropout on the attention output)
+    attn_dropout_impl: str = "kernel"
+    activation_checkpointing: bool = False
     tie_word_embeddings: bool = True
+    # chunked LM head + cross-entropy that never holds the [B, S, V] fp32
+    # logits (ops/fused_cross_entropy.py); None = the auto chunk
+    fused_loss: bool = True
+    fused_loss_chunk: Optional[int] = None
 
     def __post_init__(self):
         if self.intermediate_size is None:
             self.intermediate_size = 4 * self.hidden_size
+        if self.activation_checkpointing:
+            raise NotImplementedError(
+                "activation_checkpointing=True is not ported yet (ROADMAP.md "
+                "A.1b: torch.utils.checkpoint around each layer)")
 
     @property
     def dtype(self):
@@ -55,19 +73,38 @@ class GPT2Config:
             bf16=self.bf16,
             pre_layer_norm=True,
             causal=True,
+            attn_dropout_impl=self.attn_dropout_impl,
         )
+
+    def num_params(self, include_embeddings: bool = True) -> int:
+        h, i = self.hidden_size, self.intermediate_size
+        layer = 4 * h * h + 2 * h * i + 9 * h + i
+        n = self.num_layers * layer + 2 * h
+        if include_embeddings:
+            n += (self.vocab_size + self.n_positions) * h
+        return n
+
+    def flops_per_token(self) -> int:
+        """Training FLOPs per token (forward + backward ~ 6N + attention +
+        LM head), the Megatron-style count the JAX package's MFU uses: the
+        vocabulary projection is a real [*, H] x [H, V] product and counts
+        (the embedding lookup does not)."""
+        n = self.num_params(include_embeddings=False)
+        attn = 12 * self.num_layers * self.hidden_size * self.n_positions
+        head = 6 * self.hidden_size * self.vocab_size
+        return 6 * n + attn + head
 
 
 class _FinalNorm(nn.Module):
     def __init__(self, hidden: int):
         super().__init__()
-        self.w = nn.Parameter(torch.ones(hidden), requires_grad=False)
-        self.b = nn.Parameter(torch.zeros(hidden), requires_grad=False)
+        self.w = nn.Parameter(torch.ones(hidden))
+        self.b = nn.Parameter(torch.zeros(hidden))
 
 
 class GPT2Model(nn.Module):
     """Decoder-only LM over DeepSpeedTransformerLayers.  Parameters are
-    fp32 at creation (embeddings and matmul weights zero until
+    fp32 and trainable at creation (embeddings and matmul weights zero until
     init_params or load_state_dict); compute runs in config.dtype."""
 
     # parameters that stay fp32 when the inference engine casts the rest
@@ -77,17 +114,14 @@ class GPT2Model(nn.Module):
         super().__init__()
         self.config = config
         h = config.hidden_size
-        self.wte = nn.Parameter(torch.zeros(config.vocab_size, h),
-                                requires_grad=False)
-        self.wpe = nn.Parameter(torch.zeros(config.n_positions, h),
-                                requires_grad=False)
+        self.wte = nn.Parameter(torch.zeros(config.vocab_size, h))
+        self.wpe = nn.Parameter(torch.zeros(config.n_positions, h))
         layer_cfg = config.layer_config()
         self.h = nn.ModuleList(DeepSpeedTransformerLayer(layer_cfg)
                                for _ in range(config.num_layers))
         self.ln_f = _FinalNorm(h)
         if not config.tie_word_embeddings:
-            self.lm_head = nn.Parameter(torch.zeros(h, config.vocab_size),
-                                        requires_grad=False)
+            self.lm_head = nn.Parameter(torch.zeros(h, config.vocab_size))
 
     def is_ln_param(self, name: str) -> bool:
         return name in self.LN_PARAMS or \
@@ -124,21 +158,62 @@ class GPT2Model(nn.Module):
             return self.wte.to(dtype).T
         return self.lm_head.to(dtype)
 
+    def _final_hidden(self, h):
+        """Final layer norm shared by head_logits and the fused loss."""
+        return fused_layer_norm(h, self.ln_f.w, self.ln_f.b,
+                                self.config.layer_norm_eps)
+
+    @staticmethod
+    def _shift_for_next_token(h, input_ids, labels):
+        """Next-token convention: when labels is None, input_ids[:, 1:] are
+        the targets and the last hidden column is dropped (the attention
+        length stays unchanged)."""
+        if labels is None:
+            return h[:, :-1], input_ids[:, 1:]
+        return h, labels
+
     def head_logits(self, h):
         """Final LN + LM head, fp32 logits."""
-        h = fused_layer_norm(h, self.ln_f.w, self.ln_f.b,
-                             self.config.layer_norm_eps)
+        h = self._final_hidden(h)
         return (h @ self._head_matrix(h.dtype)).float()
 
-    def hidden_states(self, input_ids):
-        """input_ids [B, S] -> pre-head hidden states [B, S, H]
-        (deterministic: dropout belongs to the training slice)."""
-        h = self.embed(input_ids)
+    def hidden_states(self, input_ids, generator=None,
+                      deterministic: bool = False):
+        """input_ids [B, S] -> pre-head hidden states [B, S, H].  Dropout
+        (embedding, then each layer's) draws from `generator`, on the
+        model's device; without one the pass is deterministic, as the JAX
+        model without an rng."""
+        if generator is None:
+            deterministic = True
+        h = dropout(self.embed(input_ids), self.config.embd_dropout,
+                    generator, deterministic)
         for layer in self.h:
-            h = layer(h)
+            h = layer(h, generator=generator, deterministic=deterministic)
         return h
 
     def logits(self, input_ids):
+        """fp32 logits [B, S, V], deterministic (the serving forward)."""
         return self.head_logits(self.hidden_states(input_ids))
 
-    forward = logits
+    def loss(self, input_ids, labels=None, generator=None):
+        """Next-token cross-entropy (fp32 softmax), training mode when a
+        generator is given.  When labels is None, input_ids[:, 1:] are the
+        targets.  With config.fused_loss (default) the head projection and
+        the cross-entropy run chunked over the vocabulary and never hold
+        the [B, S, V] fp32 logits."""
+        cfg = self.config
+        ids = input_ids.long()
+        h = self.hidden_states(ids, generator, deterministic=generator is None)
+        if cfg.fused_loss:
+            h, targets = self._shift_for_next_token(self._final_hidden(h), ids,
+                                                    labels)
+            return fused_linear_cross_entropy(
+                h.reshape(-1, cfg.hidden_size), self._head_matrix(h.dtype),
+                targets.reshape(-1), cfg.fused_loss_chunk)
+        logits, targets = self._shift_for_next_token(self.head_logits(h), ids,
+                                                     labels)
+        return torch.nn.functional.cross_entropy(
+            logits.reshape(-1, cfg.vocab_size), targets.reshape(-1).long())
+
+    # the JAX model's __call__ is its loss: the engine's entry point
+    forward = loss

@@ -4,10 +4,18 @@ twin, its source and the TPU kernel it replaces."""
 
 from typing import Callable, NamedTuple
 
-from .activations import bias_gelu, dropout, gelu, gelu_exact
-from .flash_attention import (DEFAULT_MASK_VALUE, flash_attention,
+from .activations import (bias_dropout_residual, bias_gelu, dropout, gelu,
+                          gelu_exact)
+from .flash_attention import (DEFAULT_MASK_VALUE, dropout_keep_mask,
+                              flash_attention, flash_attention_bwd,
+                              flash_attention_bwd_dkdv_cuda,
+                              flash_attention_bwd_dq_cuda,
+                              flash_attention_bwd_reference,
                               flash_attention_cuda, mha_reference)
-from .normalize import fused_layer_norm, layer_norm_cuda, layer_norm_reference
+from .fused_cross_entropy import fused_linear_cross_entropy
+from .normalize import (fused_layer_norm, layer_norm_bwd_cuda,
+                        layer_norm_bwd_reference, layer_norm_cuda,
+                        layer_norm_reference)
 from .quant import (QuantizedWeight, dequant, dequant_matmul_reference,
                     fused_dequant_matmul, matmul_maybe_int8)
 from .transformer import DeepSpeedTransformerConfig, DeepSpeedTransformerLayer
@@ -31,6 +39,18 @@ KERNELS = (
     Kernel("dequant_matmul", fused_dequant_matmul, dequant_matmul_reference,
            "deepspeed_tpu_torch/csrc/dequant_matmul.cu",
            "deepspeed_tpu/ops/quant.py:89"),
+    Kernel("layer_norm_bwd", layer_norm_bwd_cuda, layer_norm_bwd_reference,
+           "deepspeed_tpu_torch/csrc/layer_norm_bwd.cu",
+           "deepspeed_tpu/ops/normalize.py:126"),
+    # kernel E: two launches, one plain twin that returns dq, dk and dv
+    Kernel("flash_attention_bwd_dkdv", flash_attention_bwd_dkdv_cuda,
+           flash_attention_bwd_reference,
+           "deepspeed_tpu_torch/csrc/flash_attention_bwd.cu",
+           "deepspeed_tpu/ops/flash_attention.py:717"),
+    Kernel("flash_attention_bwd_dq", flash_attention_bwd_dq_cuda,
+           flash_attention_bwd_reference,
+           "deepspeed_tpu_torch/csrc/flash_attention_bwd.cu",
+           "deepspeed_tpu/ops/flash_attention.py:717"),
 )
 
 

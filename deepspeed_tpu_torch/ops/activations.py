@@ -1,7 +1,8 @@
 """Elementwise transformer ops (counterpart of deepspeed_tpu/ops/activations.py).
 
 Plain PyTorch, as the JAX package leaves them to XLA fusion.  Dropout
-draws from an explicit `torch.Generator`; its masks are not JAX's.
+draws from an explicit `torch.Generator` on x's device; its masks are not
+JAX's.
 """
 
 import math
@@ -37,3 +38,9 @@ def dropout(x, rate: float, generator=None, deterministic: bool = False):
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def bias_dropout_residual(x, bias, residual, rate: float, generator=None,
+                          deterministic: bool = False):
+    """bias-add + dropout + residual-add."""
+    return dropout(x + bias, rate, generator, deterministic) + residual

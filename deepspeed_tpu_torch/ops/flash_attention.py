@@ -1,13 +1,28 @@
-"""Attention forward (counterpart of deepspeed_tpu/ops/flash_attention.py).
+"""Flash attention (counterpart of deepspeed_tpu/ops/flash_attention.py).
 
-`flash_attention` runs kernel B (csrc/flash_attention_fwd.cu, the port of
-`flash_attention_pallas` / `_fa_kernel`) on CUDA tensors and its plain twin
-`mha_reference` on CPU tensors.  With an additive `bias` it takes the plain
-path on either device, as the JAX dispatcher does.  The kernel masks its
-own ragged edge, so any sequence length runs on it: there is no
+`flash_attention` is differentiable.  On CUDA tensors its forward is
+kernel B (csrc/flash_attention_fwd.cu, the port of `flash_attention_pallas`
+/ `_fa_kernel`, with in-kernel probability dropout) and its backward kernel
+E (csrc/flash_attention_bwd.cu, the port of `flash_attention_bwd_pallas`:
+one launch for dk/dv over k-tiles, one for dq over q-tiles).  On CPU
+tensors it runs their plain twins `mha_reference` and
+`flash_attention_bwd_reference`.  With an additive `bias` it takes the
+plain path on either device, as the JAX dispatcher does.  The kernels mask
+their own ragged edge, so any sequence length runs on them: there is no
 short-sequence crossover to XLA (the JAX package's AUTO_MIN_SEQ is a v5e
-measurement).  Forward only: dropout and the backward kernels come with
-the training slice.
+measurement).
+
+Dropout.  The JAX kernel keys the TPU's PRNG by tile, which no other
+tiling can reproduce.  Here the keep decision of score (row, col) of head
+(b, h) is a pure function of those coordinates and a per-call seed
+(Philox4x32-10, csrc/dropout.cuh), so the forward, both backward launches
+and the plain twins draw the identical mask whatever their tiling, and the
+mask is regenerated in the backward rather than stored (the JAX package's
+mask-reuse mode is a TPU trade-off with no counterpart here).  The keep
+probability is quantised to 8 bits as the JAX kernel's default: a byte is
+kept below round((1 - rate) * 256), scaled by the exact inverse
+256 / threshold.  The seed is a device int32 tensor, so drawing it needs no
+host round trip.
 """
 
 import math
@@ -22,52 +37,171 @@ from .dispatch import check_cuda, kernel_dtype_code, stream_handle, use_kernel
 # Finite mask value: keeps the running max finite for fully masked rows.
 DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
-# head dims the kernel is compiled for
+# head dims the kernels are compiled for
 KERNEL_HEAD_DIMS = (64, 128)
+
+# Philox4x32-10 constants (csrc/dropout.cuh)
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_MASK32 = 0xFFFFFFFF
+
+
+def quantized_threshold(rate: float) -> int:
+    """The 8-bit keep threshold (flash_attention.py _quantized_threshold)."""
+    return max(1, min(256, round((1.0 - rate) * 256)))
+
+
+def keep_scale(rate: float) -> float:
+    """Exact inverse keep probability of the quantised threshold
+    (flash_attention.py _keep_scale)."""
+    return 256.0 / quantized_threshold(rate)
+
+
+def _mulhilo(m: int, x):
+    """(hi, lo) 32-bit halves of the 64-bit product m * x, m < 2**32 and x
+    an int64 tensor of values < 2**32.  The product is split at 16 bits so
+    that no partial product leaves int64."""
+    a = m * (x & 0xFFFF)                 # < 2**48
+    b = m * (x >> 16)                    # < 2**48
+    mid = ((b & 0xFFFF) << 16) + a       # < 2**49
+    return (b >> 16) + (mid >> 32), mid & _MASK32
+
+
+def philox4x32_10(c0, c1, c2, c3, k0, k1):
+    """Philox4x32-10 on int64 tensors (broadcast together) holding 32-bit
+    values; returns the four output words.  Bit-for-bit csrc/dropout.cuh
+    ds_philox4x32_10."""
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + _PHILOX_W[0]) & _MASK32
+        k1 = (k1 + _PHILOX_W[1]) & _MASK32
+    return c0, c1, c2, c3
+
+
+def dropout_keep_mask(seed, batch: int, heads: int, q_len: int, k_len: int,
+                      rate: float, device=None):
+    """The kernels' keep mask [batch, heads, q_len, k_len] (bool): Philox
+    keyed by (seed, b * heads + h) with counter (row, col // 64, col % 4, 0);
+    its output byte i (bits 8 * (i % 4) of word i // 4, i = 0..15) is the
+    keep byte of column 64 * (col // 64) + 4 * i + col % 4."""
+    seed = torch.as_tensor(seed, device=device).to(torch.int64).reshape(())
+    k0 = seed & _MASK32
+    n64 = -(-k_len // 64)
+    ar = dict(dtype=torch.int64, device=device)
+    bh = torch.arange(batch * heads, **ar).view(-1, 1, 1, 1)
+    row = torch.arange(q_len, **ar).view(1, -1, 1, 1)
+    c64 = torch.arange(n64, **ar).view(1, 1, -1, 1)
+    lane = torch.arange(4, **ar).view(1, 1, 1, -1)
+    words = philox4x32_10(row, c64, lane, torch.zeros((), **ar), k0, bh)
+    # byte i (0..15) of a call is bits 8 * (i % 4) of word i // 4
+    shifts = (8 * torch.arange(4, **ar)).view(1, 1, 1, 1, 4)
+    keep_bytes = torch.cat([(w.unsqueeze(-1) >> shifts) & 0xFF for w in words],
+                           dim=-1)                     # [BH, Sq, n64, 4, 16]
+    # column 64 * c + 4 * i + lane
+    keep_bytes = keep_bytes.transpose(-1, -2).reshape(
+        batch * heads, q_len, n64 * 64)[..., :k_len]
+    keep = keep_bytes < quantized_threshold(rate)
+    return keep.view(batch, heads, q_len, k_len)
+
+
+def _acc_dtype(t):
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _causal_above(q_len, k_len, device):
+    return torch.ones(q_len, k_len, dtype=torch.bool, device=device).triu(1)
 
 
 def mha_reference(q, k, v, causal: bool = False,
                   sm_scale: Optional[float] = None, bias=None,
-                  return_lse: bool = False):
+                  return_lse: bool = False, dropout_rate: float = 0.0,
+                  dropout_seed=None):
     """Plain multi-head attention: q, k, v [B, H, S, D] -> [B, H, S, D].
 
-    Scores and softmax in fp32 whatever the input dtype; the probabilities
-    are cast to v's dtype for the product with v.  return_lse adds the
-    per-row logsumexp [B, H, S] in fp32."""
+    Scores and softmax in fp32 (fp64 for fp64 inputs) whatever the input
+    dtype; the probabilities are cast to v's dtype for the product with v.
+    dropout_rate > 0 drops the normalized probabilities with the kernels'
+    own keep mask (dropout_keep_mask of dropout_seed).  return_lse adds the
+    per-row logsumexp [B, H, S], which dropout does not change."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+    acc = _acc_dtype(q)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) * sm_scale
     if bias is not None:
-        s = s + bias.float()
+        s = s + bias.to(acc)
     if causal:
-        q_len, k_len = s.shape[-2], s.shape[-1]
-        above = torch.ones(q_len, k_len, dtype=torch.bool,
-                           device=s.device).triu(1)
-        s = s.masked_fill(above, DEFAULT_MASK_VALUE)
+        s = s.masked_fill(_causal_above(s.shape[-2], s.shape[-1], s.device),
+                          DEFAULT_MASK_VALUE)
     p = torch.softmax(s, dim=-1)
+    if dropout_rate > 0.0:
+        if dropout_seed is None:
+            raise ValueError("dropout_rate > 0 requires dropout_seed")
+        b, h, q_len, k_len = p.shape
+        keep = dropout_keep_mask(dropout_seed, b, h, q_len, k_len,
+                                 dropout_rate, p.device)
+        p = torch.where(keep, p * keep_scale(dropout_rate),
+                        torch.zeros_like(p))
     out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
     if return_lse:
         return out, torch.logsumexp(s, dim=-1)
     return out
 
 
-def _seq_strides(t):
+def flash_attention_bwd_reference(q, k, v, out, lse, do, causal: bool = False,
+                                  sm_scale: Optional[float] = None,
+                                  dropout_rate: float = 0.0,
+                                  dropout_seed=None):
+    """Plain twin of kernel E: (dq, dk, dv) from the forward's out and lse,
+    FlashAttention-2 style, in fp32 (fp64 for fp64 inputs), each grad in its
+    input's dtype."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    acc = _acc_dtype(q)
+    qf, kf, vf, dof = (t.to(acc) for t in (q, k, v, do))
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * sm_scale
+    p = torch.exp(s - lse.to(acc).unsqueeze(-1))
+    if causal:
+        p = p.masked_fill(_causal_above(s.shape[-2], s.shape[-1], s.device),
+                          0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    delta = (dof * out.to(acc)).sum(dim=-1, keepdim=True)
+    p_drop = p
+    if dropout_rate > 0.0:
+        b, h, q_len, k_len = p.shape
+        keep = dropout_keep_mask(dropout_seed, b, h, q_len, k_len,
+                                 dropout_rate, p.device)
+        scale = keep_scale(dropout_rate)
+        p_drop = torch.where(keep, p * scale, torch.zeros_like(p))
+        dp = torch.where(keep, dp * scale, torch.zeros_like(dp))
+    dv = torch.einsum("bhqk,bhqd->bhkd", p_drop, dof)
+    ds = p * (dp - delta) * sm_scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _seq_strides(name, t):
     """(batch, head, seq) strides of a [B, H, S, D] tensor whose last dim
     is dense."""
     if t.stride(3) != 1:
-        raise ValueError("flash_attention_cuda: the head dim must be dense "
+        raise ValueError(f"{name}: the head dim must be dense "
                          f"(strides {t.stride()})")
     return t.stride(0), t.stride(1), t.stride(2)
 
 
-def flash_attention_cuda(q, k, v, causal: bool = False,
-                         sm_scale: Optional[float] = None):
-    """Kernel B on CUDA tensors q [B, H, Sq, D], k, v [B, H, Sk, D] (any
-    batch/head/seq strides, dense D).  Returns (out [B, H, Sq, D],
-    lse [B, H, Sq] fp32); out is laid out as [B, Sq, H, D] in memory, so
-    merging the heads back into [B, Sq, H*D] is a free view."""
-    name = "flash_attention_cuda"
-    index = check_cuda(name, q, k, v)
+def _heads_layout(b, h, s, d, like):
+    """An empty [B, H, S, D] laid out as [B, S, H, D] in memory, so that
+    merging the heads back into [B, S, H*D] is a free view."""
+    return torch.empty((b, s, h, d), dtype=like.dtype,
+                       device=like.device).transpose(1, 2)
+
+
+def _check_attention(name, q, k, v, *more):
+    """Device, dtype and shape checks shared by kernels B and E; returns
+    (device index, dtype code, B, H, Sq, Sk, D)."""
+    index = check_cuda(name, q, k, v, *more)
     code = kernel_dtype_code(q)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name}: q, k, v dtypes differ: {q.dtype}, "
@@ -77,23 +211,47 @@ def flash_attention_cuda(q, k, v, causal: bool = False,
         raise ValueError(f"{name}: bad shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     b, h, sq, d = q.shape
-    sk = k.shape[2]
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d} not compiled "
                          f"(kernel takes {KERNEL_HEAD_DIMS})")
+    return index, code, b, h, sq, k.shape[2], d
+
+
+def _dropout_args(name, rate, seed, device):
+    """(seed pointer, keep threshold, keep scale) for a launch: threshold
+    256 and a null seed when rate is 0; else the seed as a device int32."""
+    if not rate > 0.0:
+        return 0, 256, 1.0, None
+    if seed is None:
+        raise ValueError(f"{name}: dropout_rate > 0 requires dropout_seed")
+    seed_t = torch.as_tensor(seed, device=device).to(torch.int32).reshape(1)
+    return seed_t.data_ptr(), quantized_threshold(rate), keep_scale(rate), seed_t
+
+
+def flash_attention_cuda(q, k, v, causal: bool = False,
+                         sm_scale: Optional[float] = None,
+                         dropout_rate: float = 0.0, dropout_seed=None):
+    """Kernel B on CUDA tensors q [B, H, Sq, D], k, v [B, H, Sk, D] (any
+    batch/head/seq strides, dense D).  Returns (out [B, H, Sq, D],
+    lse [B, H, Sq] fp32); out is laid out as [B, Sq, H, D] in memory.
+    dropout_seed: an int or a device int32 tensor of one element."""
+    name = "flash_attention_cuda"
+    index, code, b, h, sq, sk, d = _check_attention(name, q, k, v)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    out = torch.empty((b, sq, h, d), dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
+    out = _heads_layout(b, h, sq, d, q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
+    seed_ptr, threshold, scale, _seed_t = _dropout_args(
+        name, dropout_rate, dropout_seed, q.device)
     lib = op_builder.load()
     err = lib.ds_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, h, sq, sk, d, *_seq_strides(q), *_seq_strides(k),
-        *_seq_strides(v), *_seq_strides(out), float(sm_scale), int(causal),
-        code, stream_handle(index))
+        lse.data_ptr(), b, h, sq, sk, d, *_seq_strides(name, q),
+        *_seq_strides(name, k), *_seq_strides(name, v),
+        *_seq_strides(name, out), float(sm_scale), int(causal), seed_ptr,
+        threshold, scale, code, stream_handle(index))
     op_builder.check_launch(name, err)
     flash_attention_cuda.launches += 1
     return out, lse
@@ -102,15 +260,169 @@ def flash_attention_cuda(q, k, v, causal: bool = False,
 flash_attention_cuda.launches = 0
 
 
+def _bwd_launch(name, fn, tensors, outs, shapes, causal, sm_scale,
+                dropout_rate, dropout_seed):
+    """One kernel E launch: `tensors` (q, k, v, dout) and `outs` give their
+    (batch, head, seq) strides in argument order."""
+    q, k, v, dout, lse, delta = tensors
+    index, code, b, h, sq, sk, d = shapes
+    strides = [x for t in (q, k, v, dout) + outs
+               for x in _seq_strides(name, t)]
+    seed_ptr, threshold, scale, _seed_t = _dropout_args(
+        name, dropout_rate, dropout_seed, q.device)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
+             b, h, sq, sk, d, (op_builder.I64_PTR._type_ * len(strides))(
+                 *strides), float(sm_scale), int(causal), seed_ptr,
+             threshold, scale, code, stream_handle(index))
+    op_builder.check_launch(name, err)
+
+
+def _check_stats(name, lse, delta, b, h, sq):
+    for arg, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or t.shape != (b, h, sq) \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be a contiguous fp32 "
+                             f"[{b}, {h}, {sq}], got {t.dtype} "
+                             f"{tuple(t.shape)}")
+
+
+def flash_attention_bwd_dkdv_cuda(q, k, v, dout, lse, delta,
+                                  causal: bool = False,
+                                  sm_scale: Optional[float] = None,
+                                  dropout_rate: float = 0.0,
+                                  dropout_seed=None):
+    """Kernel E's dk/dv launch (one block per k-tile) on CUDA tensors:
+    q, dout [B, H, Sq, D], k, v [B, H, Sk, D], lse and delta = rowsum(dO * O)
+    [B, H, Sq] fp32.  Returns (dk, dv), laid out as [B, Sk, H, D]."""
+    name = "flash_attention_bwd_dkdv_cuda"
+    shapes = _check_attention(name, q, k, v, dout, lse, delta)
+    _, _, b, h, sq, sk, d = shapes
+    _check_stats(name, lse, delta, b, h, sq)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    dk = _heads_layout(b, h, sk, d, k)
+    dv = _heads_layout(b, h, sk, d, v)
+    if dk.numel() == 0:
+        return dk, dv
+    _bwd_launch(name, op_builder.load().ds_flash_attention_bwd_dkdv,
+                (q, k, v, dout, lse, delta), (dk, dv), shapes, causal,
+                sm_scale, dropout_rate, dropout_seed)
+    flash_attention_bwd_dkdv_cuda.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkdv_cuda.launches = 0
+
+
+def flash_attention_bwd_dq_cuda(q, k, v, dout, lse, delta,
+                                causal: bool = False,
+                                sm_scale: Optional[float] = None,
+                                dropout_rate: float = 0.0,
+                                dropout_seed=None):
+    """Kernel E's dq launch (one block per q-tile); arguments as
+    flash_attention_bwd_dkdv_cuda.  Returns dq laid out as [B, Sq, H, D]."""
+    name = "flash_attention_bwd_dq_cuda"
+    shapes = _check_attention(name, q, k, v, dout, lse, delta)
+    _, _, b, h, sq, sk, d = shapes
+    _check_stats(name, lse, delta, b, h, sq)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    dq = _heads_layout(b, h, sq, d, q)
+    if dq.numel() == 0:
+        return dq
+    if sk == 0:
+        return dq.zero_()
+    _bwd_launch(name, op_builder.load().ds_flash_attention_bwd_dq,
+                (q, k, v, dout, lse, delta), (dq,), shapes, causal, sm_scale,
+                dropout_rate, dropout_seed)
+    flash_attention_bwd_dq_cuda.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq_cuda.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = False,
+                        sm_scale: Optional[float] = None,
+                        dropout_rate: float = 0.0, dropout_seed=None):
+    """(dq, dk, dv): kernel E's two launches on CUDA, with
+    delta = rowsum(dO * O) in plain PyTorch (the JAX package leaves it to
+    XLA); the plain twin on the CPU."""
+    if not use_kernel(q, k, v, out, lse, dout):
+        return flash_attention_bwd_reference(
+            q, k, v, out, lse, dout, causal=causal, sm_scale=sm_scale,
+            dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    delta = (dout.float() * out.float()).sum(dim=-1)
+    dk, dv = flash_attention_bwd_dkdv_cuda(
+        q, k, v, dout, lse, delta, causal=causal, sm_scale=sm_scale,
+        dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+    dq = flash_attention_bwd_dq_cuda(
+        q, k, v, dout, lse, delta, causal=causal, sm_scale=sm_scale,
+        dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Kernel B forward and kernel E backward on CUDA, the plain pair on
+    the CPU; saves out, lse and the dropout seed, from which the backward
+    regenerates the forward's keep mask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, dropout_rate, dropout_seed):
+        if use_kernel(q, k, v):
+            out, lse = flash_attention_cuda(
+                q, k, v, causal=causal, sm_scale=sm_scale,
+                dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+        else:
+            out, lse = mha_reference(
+                q, k, v, causal=causal, sm_scale=sm_scale, return_lse=True,
+                dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, sm_scale, dropout_rate, dropout_seed)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, sm_scale, dropout_rate, dropout_seed = ctx.args
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, lse, dout, causal=causal, sm_scale=sm_scale,
+            dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q, k, v, causal: bool = False,
                     sm_scale: Optional[float] = None, bias=None,
+                    dropout_rate: float = 0.0, dropout_seed=None,
                     return_lse: bool = False):
-    """Multi-head attention, q, k, v [B, H, S, D] -> [B, H, S, D]
-    (and the fp32 logsumexp [B, H, S] with return_lse).  Kernel B on CUDA,
-    the plain version on the CPU; an additive bias always takes the plain
-    path."""
-    if bias is not None or not use_kernel(q, k, v):
+    """Multi-head attention, q, k, v [B, H, S, D] -> [B, H, S, D] (and the
+    fp32 logsumexp [B, H, S] with return_lse).  Kernels B / E on CUDA, the
+    plain pair on the CPU; an additive bias always takes the plain path
+    (differentiated by autograd).  dropout_rate > 0 drops the normalized
+    probabilities with the mask of dropout_seed (an int or a device int32
+    tensor of one element)."""
+    if dropout_rate > 0.0 and dropout_seed is None:
+        raise ValueError("dropout_rate > 0 requires dropout_seed")
+    if bias is not None:
         return mha_reference(q, k, v, causal=causal, sm_scale=sm_scale,
-                             bias=bias, return_lse=return_lse)
-    out, lse = flash_attention_cuda(q, k, v, causal=causal, sm_scale=sm_scale)
+                             bias=bias, return_lse=return_lse,
+                             dropout_rate=dropout_rate,
+                             dropout_seed=dropout_seed)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        out, lse = _FlashAttention.apply(q, k, v, causal, sm_scale,
+                                         dropout_rate, dropout_seed)
+    elif use_kernel(q, k, v):
+        out, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                        sm_scale=sm_scale,
+                                        dropout_rate=dropout_rate,
+                                        dropout_seed=dropout_seed)
+    else:
+        return mha_reference(q, k, v, causal=causal, sm_scale=sm_scale,
+                             return_lse=return_lse, dropout_rate=dropout_rate,
+                             dropout_seed=dropout_seed)
     return (out, lse) if return_lse else out

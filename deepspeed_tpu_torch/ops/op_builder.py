@@ -31,6 +31,7 @@ P = ctypes.c_void_p
 I32 = ctypes.c_int
 I64 = ctypes.c_int64
 F32 = ctypes.c_float
+I64_PTR = ctypes.POINTER(ctypes.c_int64)
 
 # C signature of every exported launcher: (argtypes); each returns the
 # cudaError_t of its launch as an int.  A pointer or the stream passed
@@ -38,10 +39,23 @@ F32 = ctypes.c_float
 SIGNATURES = {
     # x, gamma, beta, out, rows, hidden, eps, dtype, stream
     "ds_layer_norm_fwd": [P, P, P, P, I32, I32, F32, I32, P],
+    # x, gamma, dy, dx, dgamma/dbeta workspaces, dgamma, dbeta, rows,
+    # hidden, eps, dtype, stream
+    "ds_layer_norm_bwd": [P] * 8 + [I32, I32, F32, I32, P],
     # q, k, v, out, lse, B, H, Sq, Sk, D,
-    # q/k/v/out strides (batch, head, seq), sm_scale, causal, dtype, stream
+    # q/k/v/out strides (batch, head, seq), sm_scale, causal,
+    # seed (device int32), keep threshold, keep scale, dtype, stream
     "ds_flash_attention_fwd": [P, P, P, P, P, I32, I32, I32, I32, I32]
-                              + [I64] * 12 + [F32, I32, I32, P],
+                              + [I64] * 12 + [F32, I32, P, I32, F32, I32, P],
+    # q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, D, the 18 strides of
+    # q/k/v/dout/dk/dv, sm_scale, causal, seed, keep threshold, keep scale,
+    # dtype, stream
+    "ds_flash_attention_bwd_dkdv": [P] * 8 + [I32] * 5
+                                   + [I64_PTR, F32, I32, P, I32, F32, I32, P],
+    # q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, D, the 15 strides of
+    # q/k/v/dout/dq, then as dkdv
+    "ds_flash_attention_bwd_dq": [P] * 7 + [I32] * 5
+                                 + [I64_PTR, F32, I32, P, I32, F32, I32, P],
     # x, qweight, scale, out, M, K, N, groups, dtype, stream
     "ds_dequant_matmul": [P, P, P, P, I32, I32, I32, I32, I32, P],
     # x, qweight, M, K, N, dtype -> which kernel the launcher takes

@@ -2,11 +2,16 @@
 
 `DeepSpeedTransformerLayer` is an `nn.Module` whose parameters carry the
 reference's names and the JAX package's [in, out] layout (`x @ W`), so a
-JAX checkpoint maps over by copying.  This slice ports the deterministic
-pre-LN forward with a dense FFN and causal or bidirectional attention:
-LN (kernel A) -> QKV matmul -> flash attention (kernel B) -> out-proj +
-residual -> LN -> bias-gelu MLP + residual.  Matmul weights may be
-replaced by int8 `QuantizedWeight`s, which route through kernel C.
+JAX checkpoint maps over by copying.  Ported: the pre-LN layer with a
+dense FFN and causal or bidirectional attention, for training and serving:
+LN (kernels A / D) -> QKV matmul -> flash attention (kernels B / E) ->
+out-proj + bias-dropout-residual -> LN -> bias-gelu MLP +
+bias-dropout-residual.  Attention dropout runs inside kernel B
+(`attn_dropout_impl="kernel"`, the reference's probability dropout) or on
+the attention output (`"ctx"`).  Parameters are fp32 and trainable; every
+use casts them to the compute dtype, so autograd returns fp32 grads.
+Matmul weights may be replaced by int8 `QuantizedWeight`s (serving), which
+route through kernel C.
 """
 
 from dataclasses import dataclass
@@ -14,7 +19,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from .activations import bias_gelu
+from .activations import bias_dropout_residual, bias_gelu, dropout
 from .flash_attention import flash_attention
 from .normalize import fused_layer_norm
 from .quant import matmul_maybe_int8
@@ -22,9 +27,10 @@ from .quant import matmul_maybe_int8
 
 @dataclass
 class DeepSpeedTransformerConfig:
-    """Model-shape fields of deepspeed_tpu's DeepSpeedTransformerConfig
-    (the TPU block sizes, attention impl and layout switches are not
-    carried over, nor fp16: the kernels take bf16 and fp32)."""
+    """Model-shape and dropout fields of deepspeed_tpu's
+    DeepSpeedTransformerConfig (the TPU block sizes, attention impl and
+    layout switches are not carried over, nor fp16: the kernels take bf16
+    and fp32)."""
     hidden_size: int = -1
     intermediate_size: int = -1
     heads: int = -1
@@ -38,6 +44,9 @@ class DeepSpeedTransformerConfig:
     causal: bool = False
     # "gelu_new"/"gelu_pytorch_tanh" = tanh approximation; "gelu" = erf
     activation: str = "gelu_new"
+    # "kernel": probability dropout inside the flash kernel (the
+    # reference's semantics); "ctx": dropout on the attention output
+    attn_dropout_impl: str = "kernel"
 
     @property
     def gelu_approximate(self) -> bool:
@@ -52,6 +61,9 @@ class DeepSpeedTransformerConfig:
     def __post_init__(self):
         if self.intermediate_size == -1 and self.hidden_size != -1:
             self.intermediate_size = 4 * self.hidden_size
+        if self.attn_dropout_impl not in ("kernel", "ctx"):
+            raise ValueError(f"attn_dropout_impl must be 'kernel' or 'ctx', "
+                             f"got {self.attn_dropout_impl!r}")
 
     @property
     def dtype(self):
@@ -75,8 +87,7 @@ class DeepSpeedTransformerLayer(nn.Module):
                 "pre-LN layer GPT-2 uses")
         self.config = config
         for name, shape in self.param_shapes(config).items():
-            self.register_parameter(
-                name, nn.Parameter(torch.zeros(shape), requires_grad=False))
+            self.register_parameter(name, nn.Parameter(torch.zeros(shape)))
         for name in ("norm_w", "attn_nw"):
             getattr(self, name).data.fill_(1.0)
 
@@ -120,29 +131,57 @@ class DeepSpeedTransformerLayer(nn.Module):
         q, k, v = qkv.split(cfg.hidden_size, dim=-1)
         return to_heads(q), to_heads(k), to_heads(v)
 
-    def attn_out_mlp(self, ctx, residual):
-        """Out-projection of ctx [B, heads, S, d] + residual, then the pre-LN
-        bias-gelu MLP + residual."""
+    def attn_out_mlp(self, ctx, residual, generator=None,
+                     deterministic: bool = True):
+        """Out-projection of ctx [B, heads, S, d] + bias-dropout-residual,
+        then the pre-LN bias-gelu MLP + bias-dropout-residual; the two
+        hidden dropouts draw from `generator` unless deterministic."""
         cfg = self.config
+        rate = cfg.hidden_dropout_ratio
         b, heads, s, d = ctx.shape
         ctx = ctx.transpose(1, 2).reshape(b, s, heads * d)
-        attn_out = matmul_maybe_int8(ctx, self.attn_ow) + \
-            self.attn_ob.to(ctx.dtype)
-        attn_out = attn_out + residual
+        attn_out = bias_dropout_residual(
+            matmul_maybe_int8(ctx, self.attn_ow), self.attn_ob.to(ctx.dtype),
+            residual, rate, generator, deterministic)
         mlp_in = fused_layer_norm(attn_out, self.attn_nw, self.attn_nb,
                                   cfg.layer_norm_eps)
         inter = bias_gelu(matmul_maybe_int8(mlp_in, self.inter_w),
                           self.inter_b.to(mlp_in.dtype),
                           approximate=cfg.gelu_approximate)
-        out = matmul_maybe_int8(inter, self.output_w) + \
-            self.output_b.to(inter.dtype)
-        return out + attn_out
+        return bias_dropout_residual(
+            matmul_maybe_int8(inter, self.output_w),
+            self.output_b.to(inter.dtype), attn_out, rate, generator,
+            deterministic)
 
-    def forward(self, x, attn_mask=None):
-        """x [B, S, H] -> [B, S, H], deterministic.  attn_mask: an additive
-        [B, 1, 1, S] or [B, 1, S, S] bias (takes the plain attention)."""
-        x = x.to(self.config.dtype)
+    def forward(self, x, attn_mask=None, generator=None,
+                deterministic: bool = False):
+        """x [B, S, H] -> [B, S, H].  attn_mask: an additive [B, 1, 1, S]
+        or [B, 1, S, S] bias (takes the plain attention).  Dropout draws
+        from `generator` (on x's device): the attention seed (or the ctx
+        mask), then the two hidden masks, three independent draws as the
+        JAX layer's split of its rng.  Without a generator the layer is
+        deterministic, and refuses to train with dropout configured."""
+        cfg = self.config
+        if generator is None:
+            if not deterministic and (cfg.attn_dropout_ratio > 0.0
+                                      or cfg.hidden_dropout_ratio > 0.0):
+                raise ValueError(
+                    "transformer layer called in training mode with dropout "
+                    "configured but no generator — pass generator= or "
+                    "deterministic=True")
+            deterministic = True
+        x = x.to(cfg.dtype)
         q, k, v = self.qkv_heads(x)
-        ctx = flash_attention(q, k, v, causal=self.config.causal,
-                              bias=attn_mask)
-        return self.attn_out_mlp(ctx, x)
+        kernel_drop = cfg.attn_dropout_impl == "kernel"
+        attn_rate = (0.0 if deterministic or not kernel_drop
+                     else cfg.attn_dropout_ratio)
+        seed = None
+        if attn_rate > 0.0:
+            seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                                 device=x.device, dtype=torch.int32)
+        ctx = flash_attention(q, k, v, causal=cfg.causal, bias=attn_mask,
+                              dropout_rate=attn_rate, dropout_seed=seed)
+        if not kernel_drop:
+            ctx = dropout(ctx, cfg.attn_dropout_ratio, generator,
+                          deterministic)
+        return self.attn_out_mlp(ctx, x, generator, deterministic)

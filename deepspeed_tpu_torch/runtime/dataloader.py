@@ -1,0 +1,93 @@
+"""Data loading (counterpart of deepspeed_tpu/runtime/dataloader.py).
+
+The loader yields numpy batches, strided over data-parallel ranks like a
+DistributedSampler; the engine moves each batch to its device.  The JAX
+package's `stack_microbatches` feeds its fused whole-step program, which
+is not ported yet (ROADMAP.md A.6).
+"""
+
+import math
+from typing import Any, Callable, Iterable, Iterator, Optional
+
+import numpy as np
+
+
+def _default_collate(samples):
+    first = samples[0]
+    if isinstance(first, (tuple, list)):
+        return type(first)(
+            _default_collate([s[i] for s in samples])
+            for i in range(len(first)))
+    if isinstance(first, dict):
+        return {k: _default_collate([s[k] for s in samples]) for k in first}
+    return np.stack([np.asarray(s) for s in samples])
+
+
+class DeepSpeedDataLoader:
+    """Batches an indexable dataset for one data-parallel rank set.
+
+    Args mirror the reference loader: dataset, batch_size (per pass through
+    this loader, i.e. micro_batch × dp_world for the global loader),
+    collate_fn, plus rank/world selection for multi-host.
+    """
+
+    def __init__(self, dataset, batch_size: int,
+                 collate_fn: Optional[Callable] = None,
+                 local_rank: int = 0, data_parallel_world_size: int = 1,
+                 data_parallel_rank: int = 0, shuffle: bool = False,
+                 seed: int = 0, drop_last: bool = True):
+        self.dataset = dataset
+        self.batch_size = int(batch_size)
+        self.collate_fn = collate_fn or _default_collate
+        self.dp_world = max(1, data_parallel_world_size)
+        self.dp_rank = data_parallel_rank
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_last = drop_last
+        self.epoch = 0
+        n = len(dataset)
+        per_rank = n // self.dp_world if drop_last else math.ceil(n / self.dp_world)
+        self.len = per_rank // self.batch_size if drop_last else math.ceil(
+            per_rank / self.batch_size)
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+
+    def __len__(self):
+        return self.len
+
+    def __iter__(self) -> Iterator[Any]:
+        n = len(self.dataset)
+        idx = np.arange(n)
+        if self.shuffle:
+            rng = np.random.RandomState(self.seed + self.epoch)
+            rng.shuffle(idx)
+        # strided rank selection, like DistributedSampler
+        idx = idx[self.dp_rank::self.dp_world]
+        usable = (len(idx) // self.batch_size) * self.batch_size \
+            if self.drop_last else len(idx)
+        for start in range(0, usable, self.batch_size):
+            chunk = idx[start:start + self.batch_size]
+            samples = [self.dataset[int(i)] for i in chunk]
+            yield self.collate_fn(samples)
+
+
+class RepeatingLoader:
+    """Wraps an iterator to restart on StopIteration
+    (reference: dataloader.py RepeatingLoader)."""
+
+    def __init__(self, loader: Iterable):
+        self.loader = loader
+        self.data_iter = iter(loader)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        try:
+            return next(self.data_iter)
+        except StopIteration:
+            if hasattr(self.loader, "set_epoch"):
+                self.loader.set_epoch(getattr(self.loader, "epoch", 0) + 1)
+            self.data_iter = iter(self.loader)
+            return next(self.data_iter)

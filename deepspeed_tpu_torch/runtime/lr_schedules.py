@@ -1,0 +1,210 @@
+"""Batch-wise LR schedules (counterpart of
+deepspeed_tpu/runtime/lr_schedules.py; reference:
+deepspeed/runtime/lr_schedules.py — LRRangeTest:301, OneCycle:408,
+WarmupLR:677, WarmupDecayLR:761).
+
+Each schedule is a pure step->lr function, written in torch ops so that the
+engine can evaluate it on the optimizer's step count where that count lives
+(a device tensor: no host round trip), wrapped in a class with the
+reference's step()/get_lr()/state_dict() surface.  A Python int step gives
+a 0-dim CPU tensor.
+"""
+
+from typing import Any, Dict, Optional
+
+import torch
+
+
+def _steps(step):
+    return torch.as_tensor(step).to(torch.float32)
+
+LR_SCHEDULE = "lr_schedule"
+LR_RANGE_TEST = "LRRangeTest"
+ONE_CYCLE = "OneCycle"
+WARMUP_LR = "WarmupLR"
+WARMUP_DECAY_LR = "WarmupDecayLR"
+VALID_LR_SCHEDULES = [LR_RANGE_TEST, ONE_CYCLE, WARMUP_LR, WARMUP_DECAY_LR]
+
+LR_RANGE_TEST_MIN_LR = "lr_range_test_min_lr"
+LR_RANGE_TEST_STEP_RATE = "lr_range_test_step_rate"
+LR_RANGE_TEST_STEP_SIZE = "lr_range_test_step_size"
+LR_RANGE_TEST_STAIRCASE = "lr_range_test_staircase"
+
+CYCLE_MIN_LR = "cycle_min_lr"
+CYCLE_MAX_LR = "cycle_max_lr"
+DECAY_LR_RATE = "decay_lr_rate"
+CYCLE_FIRST_STEP_SIZE = "cycle_first_step_size"
+CYCLE_SECOND_STEP_SIZE = "cycle_second_step_size"
+CYCLE_FIRST_STAIR_COUNT = "cycle_first_stair_count"
+CYCLE_SECOND_STAIR_COUNT = "cycle_second_stair_count"
+DECAY_STEP_SIZE = "decay_step_size"
+CYCLE_MIN_MOM = "cycle_min_mom"
+CYCLE_MAX_MOM = "cycle_max_mom"
+DECAY_MOM_RATE = "decay_mom_rate"
+
+WARMUP_MIN_LR = "warmup_min_lr"
+WARMUP_MAX_LR = "warmup_max_lr"
+WARMUP_NUM_STEPS = "warmup_num_steps"
+TOTAL_NUM_STEPS = "total_num_steps"
+
+
+class _ScheduleBase:
+    """Reference-shaped wrapper: step()/get_lr()/get_last_lr()/state_dict()."""
+
+    def __init__(self, last_batch_iteration: int = -1):
+        self.last_batch_iteration = last_batch_iteration
+        self._last_lr = None
+
+    # pure function — override
+    def lr_at(self, step):
+        raise NotImplementedError
+
+    def __call__(self, step):
+        return self.lr_at(step)
+
+    def get_lr(self):
+        return [float(self.lr_at(max(self.last_batch_iteration, 0)))]
+
+    def get_last_lr(self):
+        return self._last_lr if self._last_lr is not None else self.get_lr()
+
+    def step(self, last_batch_iteration: Optional[int] = None):
+        if last_batch_iteration is None:
+            last_batch_iteration = self.last_batch_iteration + 1
+        self.last_batch_iteration = last_batch_iteration
+        self._last_lr = self.get_lr()
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"last_batch_iteration": self.last_batch_iteration}
+
+    def load_state_dict(self, sd: Dict[str, Any]):
+        self.last_batch_iteration = sd["last_batch_iteration"]
+
+
+class LRRangeTest(_ScheduleBase):
+    """LR sweep for range tests (reference: lr_schedules.py:301)."""
+
+    def __init__(self, optimizer=None, lr_range_test_min_lr: float = 1e-3,
+                 lr_range_test_step_size: int = 2000,
+                 lr_range_test_step_rate: float = 1.0,
+                 lr_range_test_staircase: bool = False,
+                 last_batch_iteration: int = -1):
+        super().__init__(last_batch_iteration)
+        self.min_lr = lr_range_test_min_lr
+        self.step_size = lr_range_test_step_size
+        self.step_rate = lr_range_test_step_rate
+        self.staircase = lr_range_test_staircase
+
+    def lr_at(self, step):
+        step = _steps(step)
+        interval = (torch.floor(step / self.step_size) if self.staircase
+                    else step / self.step_size)
+        return self.min_lr * (1.0 + interval * self.step_rate)
+
+
+class OneCycle(_ScheduleBase):
+    """1-cycle policy: min→max over the first phase, max→min over the second,
+    then exponential decay (reference: lr_schedules.py:408)."""
+
+    def __init__(self, optimizer=None, cycle_min_lr: float = 0.0,
+                 cycle_max_lr: float = 0.001, decay_lr_rate: float = 0.0,
+                 cycle_first_step_size: int = 2000,
+                 cycle_second_step_size: Optional[int] = None,
+                 cycle_first_stair_count: int = 0,
+                 cycle_second_stair_count: Optional[int] = None,
+                 decay_step_size: int = 0, cycle_momentum: bool = False,
+                 cycle_min_mom: float = 0.8, cycle_max_mom: float = 0.9,
+                 decay_mom_rate: float = 0.0, last_batch_iteration: int = -1):
+        super().__init__(last_batch_iteration)
+        self.cycle_min_lr = cycle_min_lr
+        self.cycle_max_lr = cycle_max_lr
+        self.decay_lr_rate = decay_lr_rate
+        self.first = int(cycle_first_step_size)
+        self.second = int(cycle_second_step_size
+                          if cycle_second_step_size is not None
+                          else cycle_first_step_size)
+        self.decay_step_size = int(decay_step_size)
+        self.cycle_momentum = cycle_momentum
+        self.cycle_min_mom = cycle_min_mom
+        self.cycle_max_mom = cycle_max_mom
+        self.decay_mom_rate = decay_mom_rate
+
+    def lr_at(self, step):
+        step = _steps(step)
+        total_cycle = float(self.first + self.second)
+        up = torch.clamp(step / self.first, 0.0, 1.0)
+        down = torch.clamp((step - self.first) / self.second, 0.0, 1.0)
+        in_cycle_lr = (self.cycle_min_lr +
+                       (self.cycle_max_lr - self.cycle_min_lr) * (up - down))
+        decay_steps = torch.clamp(step - total_cycle, min=0.0)
+        if self.decay_step_size > 0:
+            decay_intervals = decay_steps / self.decay_step_size
+        else:
+            decay_intervals = decay_steps
+        decayed = self.cycle_min_lr / (1.0 + self.decay_lr_rate * decay_intervals)
+        return torch.where(step <= total_cycle, in_cycle_lr, decayed)
+
+    def mom_at(self, step):
+        step = _steps(step)
+        up = torch.clamp(step / self.first, 0.0, 1.0)
+        down = torch.clamp((step - self.first) / self.second, 0.0, 1.0)
+        # momentum runs opposite to lr
+        return self.cycle_max_mom - (self.cycle_max_mom -
+                                     self.cycle_min_mom) * (up - down)
+
+
+class WarmupLR(_ScheduleBase):
+    """Linear warmup from warmup_min_lr to warmup_max_lr, then constant
+    (reference: lr_schedules.py:677)."""
+
+    def __init__(self, optimizer=None, warmup_min_lr: float = 0.0,
+                 warmup_max_lr: float = 0.001, warmup_num_steps: int = 1000,
+                 last_batch_iteration: int = -1):
+        super().__init__(last_batch_iteration)
+        self.min_lr = warmup_min_lr
+        self.max_lr = warmup_max_lr
+        self.warmup_num_steps = max(1, int(warmup_num_steps))
+
+    def lr_at(self, step):
+        step = _steps(step)
+        frac = torch.clamp(step / self.warmup_num_steps, 0.0, 1.0)
+        return self.min_lr + (self.max_lr - self.min_lr) * frac
+
+
+class WarmupDecayLR(WarmupLR):
+    """Warmup then linear decay to zero at total_num_steps
+    (reference: lr_schedules.py:761)."""
+
+    def __init__(self, optimizer=None, total_num_steps: int = 10000,
+                 warmup_min_lr: float = 0.0, warmup_max_lr: float = 0.001,
+                 warmup_num_steps: int = 1000, last_batch_iteration: int = -1):
+        super().__init__(optimizer, warmup_min_lr, warmup_max_lr,
+                         warmup_num_steps, last_batch_iteration)
+        self.total_num_steps = int(total_num_steps)
+
+    def lr_at(self, step):
+        step = _steps(step)
+        warmup_lr = super().lr_at(step)
+        decay_frac = torch.clamp(
+            (self.total_num_steps - step) /
+            max(1.0, self.total_num_steps - self.warmup_num_steps),
+            0.0, 1.0)
+        return torch.where(step < self.warmup_num_steps, warmup_lr,
+                           self.max_lr * decay_frac)
+
+
+_SCHEDULE_CLASSES = {
+    LR_RANGE_TEST: LRRangeTest,
+    ONE_CYCLE: OneCycle,
+    WARMUP_LR: WarmupLR,
+    WARMUP_DECAY_LR: WarmupDecayLR,
+}
+
+
+def get_lr_schedule(name: str, params: Dict[str, Any]):
+    """Instantiate a schedule by config name (reference: engine.py
+    _scheduler_from_config)."""
+    if name not in _SCHEDULE_CLASSES:
+        raise ValueError(
+            f"Unknown scheduler {name!r}; valid: {VALID_LR_SCHEDULES}")
+    return _SCHEDULE_CLASSES[name](**params)

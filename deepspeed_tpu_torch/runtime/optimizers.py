@@ -1,0 +1,176 @@
+"""Config-name -> optimizer factory (counterpart of
+deepspeed_tpu/runtime/optimizers.py).
+
+The JAX package builds optax transformations and leaves their elementwise
+math to XLA; here the same math is plain PyTorch over the engine's FLAT
+fp32 master buffer (every parameter a view into one tensor), so a step is a
+handful of large elementwise ops whatever the parameter count.  The math
+follows optax exactly where the JAX package relies on it:
+
+- Adam/AdamW (optax.scale_by_adam): mu = (1-b1) g + b1 mu,
+  nu = (1-b2) g^2 + b2 nu, bias correction by the step count,
+  u = mu_hat / (sqrt(nu_hat) + eps) (eps outside the sqrt);
+- AdamW's decay is decoupled and multiplied by the lr
+  (optax.add_decayed_weights then scale_by_learning_rate), and it applies
+  to EVERY parameter, LayerNorm and biases included, as optax.adamw does
+  (ROADMAP.md C);
+- Lamb: Adam's update plus decay, scaled per parameter by the trust ratio
+  ||p|| / ||u|| clipped to [min_coeff, max_coeff];
+- SGD: optax.sgd's momentum trace (nesterov optional);
+- gradient clipping (optax.clip_by_global_norm) in fp32 before the
+  optimizer;
+- the lr is a float or a schedule's `lr_at(count)`, evaluated on the
+  device count of applied steps.
+
+`step` applies the update through a `where(finite, ...)` select, so a step
+whose gradients are not finite leaves the parameters and every state
+tensor, its count too, exactly as they were, with no host round trip.
+"""
+
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
+
+ADAM_OPTIMIZER = "adam"
+ADAMW_OPTIMIZER = "adamw"
+LAMB_OPTIMIZER = "lamb"
+ONEBIT_ADAM_OPTIMIZER = "onebitadam"
+ONEBIT_LAMB_OPTIMIZER = "onebitlamb"
+SGD_OPTIMIZER = "sgd"
+DEEPSPEED_ADAM = "deepspeed_adam"
+
+DEEPSPEED_OPTIMIZERS = [
+    ADAM_OPTIMIZER, ADAMW_OPTIMIZER, LAMB_OPTIMIZER, ONEBIT_ADAM_OPTIMIZER,
+    ONEBIT_LAMB_OPTIMIZER, DEEPSPEED_ADAM, SGD_OPTIMIZER,
+]
+
+
+def _select(finite, new, old):
+    old.copy_(torch.where(finite, new, old))
+
+
+class FlatOptimizer:
+    """One optimizer over flat fp32 tensors: `init(params)` returns its
+    state (a dict of tensors on the params' device); `step(params, grads,
+    state, finite)` updates params and state in place.  `segments` are the
+    (offset, numel) of each parameter inside the flat buffer, which Lamb's
+    per-parameter trust ratio needs."""
+
+    def __init__(self, kind: str, lr, b1=0.9, b2=0.999, eps=1e-8,
+                 weight_decay=0.0, decoupled=True, min_coeff=0.01,
+                 max_coeff=0.3, momentum=0.0, nesterov=False,
+                 gradient_clipping=0.0,
+                 segments: Optional[Sequence[Tuple[int, int]]] = None):
+        self.kind = kind
+        self.lr = lr
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay = weight_decay
+        self.decoupled = decoupled
+        self.min_coeff, self.max_coeff = min_coeff, max_coeff
+        self.momentum, self.nesterov = momentum, nesterov
+        self.gradient_clipping = gradient_clipping
+        self.segments = segments
+
+    def init(self, params: torch.Tensor) -> Dict[str, torch.Tensor]:
+        state = {"count": torch.zeros((), dtype=torch.int32,
+                                      device=params.device)}
+        if self.kind == SGD_OPTIMIZER:
+            state["trace"] = torch.zeros_like(params)
+        else:
+            state["mu"] = torch.zeros_like(params)
+            state["nu"] = torch.zeros_like(params)
+        return state
+
+    def lr_at(self, count):
+        if hasattr(self.lr, "lr_at"):
+            return self.lr.lr_at(count)
+        return self.lr
+
+    def _adam(self, g, state):
+        count1 = (state["count"] + 1).float()
+        mu = (1.0 - self.b1) * g + self.b1 * state["mu"]
+        nu = (1.0 - self.b2) * (g * g) + self.b2 * state["nu"]
+        mu_hat = mu / (1.0 - torch.pow(self.b1, count1))
+        nu_hat = nu / (1.0 - torch.pow(self.b2, count1))
+        return mu_hat / (torch.sqrt(nu_hat) + self.eps), {"mu": mu, "nu": nu}
+
+    def _trust_ratio(self, u, params):
+        if not self.segments:
+            raise ValueError("lamb needs the parameters' segments")
+        out = torch.empty_like(u)
+        for off, n in self.segments:
+            p_norm = params[off:off + n].norm()
+            u_norm = u[off:off + n].norm()
+            ratio = torch.where(
+                u_norm > 0,
+                torch.where(p_norm > 0, p_norm / u_norm,
+                            torch.ones_like(p_norm)),
+                torch.ones_like(u_norm))
+            ratio = torch.clamp(ratio, self.min_coeff, self.max_coeff)
+            out[off:off + n] = u[off:off + n] * ratio
+        return out
+
+    def step(self, params: torch.Tensor, grads: torch.Tensor,
+             state: Dict[str, torch.Tensor], finite: torch.Tensor) -> None:
+        """params, grads: flat fp32 (grads already unscaled); finite: a
+        device bool, False leaves everything as it was."""
+        g = grads
+        if self.gradient_clipping and self.gradient_clipping > 0:
+            g_norm = g.norm()
+            g = torch.where(g_norm < self.gradient_clipping, g,
+                            g / g_norm * self.gradient_clipping)
+        lr = self.lr_at(state["count"])
+        if self.kind == SGD_OPTIMIZER:
+            trace = g + self.momentum * state["trace"]
+            u = g + self.momentum * trace if self.nesterov else trace
+            new_state = {"trace": trace}
+        else:
+            if not self.decoupled and self.weight_decay:
+                g = g + self.weight_decay * params  # L2 into the gradient
+            u, new_state = self._adam(g, state)
+            if self.decoupled and self.weight_decay:
+                u = u + self.weight_decay * params
+            if self.kind == LAMB_OPTIMIZER:
+                u = self._trust_ratio(u, params)
+        params.add_(torch.where(finite, -lr * u, torch.zeros_like(u)))
+        for name, value in new_state.items():
+            _select(finite, value, state[name])
+        _select(finite, state["count"] + 1, state["count"])
+
+
+def build_optimizer(name: Optional[str], params_cfg: Dict[str, Any],
+                    learning_rate=None, gradient_clipping: float = 0.0,
+                    segments=None) -> FlatOptimizer:
+    """The optimizer of a config "optimizer" block.  `learning_rate` (a
+    schedule with lr_at) overrides params_cfg["lr"]."""
+    name = (name or ADAM_OPTIMIZER).lower()
+    cfg = dict(params_cfg or {})
+    lr = learning_rate if learning_rate is not None else cfg.get("lr", 1e-3)
+    b1, b2 = cfg.get("betas", (0.9, 0.999))
+    eps = cfg.get("eps", 1e-8)
+    wd = cfg.get("weight_decay", 0.0)
+    common = dict(lr=lr, gradient_clipping=gradient_clipping,
+                  segments=segments)
+    if name in (ADAM_OPTIMIZER, DEEPSPEED_ADAM, "fusedadam"):
+        return FlatOptimizer(ADAM_OPTIMIZER, b1=b1, b2=b2, eps=eps,
+                             weight_decay=wd,
+                             decoupled=bool(cfg.get("adam_w_mode", True)),
+                             **common)
+    if name == ADAMW_OPTIMIZER:
+        return FlatOptimizer(ADAMW_OPTIMIZER, b1=b1, b2=b2, eps=eps,
+                             weight_decay=wd, **common)
+    if name in (LAMB_OPTIMIZER, "fusedlamb"):
+        return FlatOptimizer(LAMB_OPTIMIZER, b1=b1, b2=b2,
+                             eps=cfg.get("eps", 1e-6), weight_decay=wd,
+                             min_coeff=cfg.get("min_coeff", 0.01),
+                             max_coeff=cfg.get("max_coeff", 0.3), **common)
+    if name == SGD_OPTIMIZER:
+        return FlatOptimizer(SGD_OPTIMIZER,
+                             momentum=cfg.get("momentum", 0.0),
+                             nesterov=cfg.get("nesterov", False), **common)
+    if name in (ONEBIT_ADAM_OPTIMIZER, ONEBIT_LAMB_OPTIMIZER):
+        raise NotImplementedError(
+            f"{name}: the 1-bit optimizers are not ported yet (ROADMAP.md "
+            "A.8, low-bandwidth collectives)")
+    raise ValueError(f"Unknown optimizer {name!r}; "
+                     f"supported: {DEEPSPEED_OPTIMIZERS}")

@@ -1,0 +1,184 @@
+"""Wall-clock and throughput timers (counterpart of
+deepspeed_tpu/utils/timer.py).
+
+Where the JAX package drains XLA's dispatch queue, these synchronise the
+CUDA device (`torch.cuda.synchronize()`), once CUDA is in use.
+"""
+
+import time
+from typing import Dict, List, Optional
+
+import torch
+
+from .logging import log_dist
+
+
+def _device_sync():
+    """Wait for the work queued on the current CUDA device, if CUDA is in
+    use (a CPU run has nothing to drain)."""
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+class SynchronizedWallClockTimer:
+    """Named timer group; `elapsed` drains the device queue before reading."""
+
+    class Timer:
+        def __init__(self, name: str):
+            self.name_ = name
+            self.elapsed_ = 0.0
+            self.started_ = False
+            self.start_time = time.time()
+
+        def start(self):
+            assert not self.started_, f"timer {self.name_} has already been started"
+            _device_sync()
+            self.start_time = time.time()
+            self.started_ = True
+
+        def stop(self, reset=False):
+            assert self.started_, "timer is not started"
+            _device_sync()
+            if reset:
+                self.elapsed_ = time.time() - self.start_time
+            else:
+                self.elapsed_ += time.time() - self.start_time
+            self.started_ = False
+
+        def reset(self):
+            self.elapsed_ = 0.0
+            self.started_ = False
+
+        def elapsed(self, reset=True):
+            started_ = self.started_
+            if started_:
+                self.stop()
+            elapsed_ = self.elapsed_
+            if reset:
+                self.reset()
+            if started_:
+                self.start()
+            return elapsed_
+
+        def mean(self):
+            return self.elapsed(reset=False)
+
+    def __init__(self):
+        self.timers: Dict[str, "SynchronizedWallClockTimer.Timer"] = {}
+
+    def __call__(self, name: str):
+        if name not in self.timers:
+            self.timers[name] = self.Timer(name)
+        return self.timers[name]
+
+    @staticmethod
+    def memory_usage():
+        if not torch.cuda.is_initialized():
+            return "MemAllocated=? MaxMemAllocated=?"
+        return (f"MemAllocated={torch.cuda.memory_allocated() / 2**30:.2f} GB "
+                f"MaxMemAllocated="
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GB")
+
+    def log(self, names: List[str], normalizer: float = 1.0, reset: bool = True,
+            memory_breakdown: bool = False, ranks: Optional[List[int]] = None):
+        assert normalizer > 0.0
+        string = "time (ms)"
+        for name in names:
+            if name in self.timers:
+                elapsed_time = self.timers[name].elapsed(
+                    reset=reset) * 1000.0 / normalizer
+                string += " | {}: {:.2f}".format(name, elapsed_time)
+        log_dist(string, ranks=ranks or [0])
+
+
+class ThroughputTimer:
+    """Samples/sec tracking (reference: deepspeed/utils/timer.py
+    ThroughputTimer).  As in the JAX package, the device is synchronised
+    only at `steps_per_output` window boundaries, not every step, so it
+    reports delivered end-to-end throughput over each window.
+    """
+
+    def __init__(self, batch_size, num_workers, start_step=2,
+                 steps_per_output=50, monitor_memory=False, logging_fn=None):
+        self.start_time = 0.0
+        self.end_time = 0.0
+        self.started = False
+        self.batch_size = max(1, batch_size)
+        self.num_workers = num_workers
+        self.start_step = start_step
+        self.epoch_count = 0
+        self.micro_step_count = 0
+        self.global_step_count = 0
+        self.total_elapsed_time = 0.0
+        self.total_timed_steps = 0
+        self.window_steps = 0
+        self.steps_per_output = steps_per_output
+        self.monitor_memory = monitor_memory
+        self.logging = logging_fn or log_dist
+        self.initialized = False
+
+    def update_epoch_count(self):
+        self.epoch_count += 1
+        self.micro_step_count = 0
+
+    def _init_timer(self):
+        self.initialized = True
+
+    def start(self):
+        self._init_timer()
+        self.started = True
+        if self.global_step_count >= self.start_step and self.start_time == 0.0:
+            # first timed step: drain the queue once so the window starts
+            # from an idle device, then let dispatch run free
+            _device_sync()
+            self.start_time = time.time()
+            self.window_steps = 0
+
+    def stop(self, global_step=False, report_speed=True):
+        if not self.started:
+            return
+        self.started = False
+        self.micro_step_count += 1
+        if not global_step:
+            return
+        self.global_step_count += 1
+        if self.start_time <= 0:
+            return
+        self.window_steps += 1
+        if self.global_step_count % self.steps_per_output != 0:
+            return
+        window_rate = self._close_window()
+        if report_speed:
+            self.logging(
+                "epoch={}/micro_step={}/global_step={}, "
+                "RunningAvgSamplesPerSec={:.6g}, CurrSamplesPerSec={:.6g}".format(
+                    self.epoch_count, self.micro_step_count,
+                    self.global_step_count, self.avg_samples_per_sec(),
+                    window_rate))
+
+    def _close_window(self):
+        """Drain the device queue, fold the open window into the running
+        totals, and start the next window.  Returns the closed window's
+        global samples/sec (all workers, same units as the running avg)."""
+        _device_sync()
+        self.end_time = time.time()
+        duration = self.end_time - self.start_time
+        self.total_elapsed_time += duration
+        self.total_timed_steps += self.window_steps
+        rate = (self.batch_size * self.num_workers * self.window_steps /
+                max(duration, 1e-12))
+        self.start_time = self.end_time  # next window starts synced
+        self.window_steps = 0
+        return rate
+
+    def avg_samples_per_sec(self):
+        if self.window_steps > 0:
+            # fold the open partial window in — otherwise short runs
+            # (< steps_per_output steps) would have no data at all
+            self._close_window()
+        if self.total_timed_steps > 0:
+            samples_per_step = self.batch_size * self.num_workers
+            avg_time_per_step = (self.total_elapsed_time /
+                                 self.total_timed_steps)
+            return samples_per_step / avg_time_per_step
+        return float("-inf")
