@@ -55,10 +55,30 @@ phase prints {"phase": ..., "ok": false, "error": ...} and the script exits
    peak device memory, exact launch counts per step, and one step under
    torch.profiler: its device-busy share and the six ops with the most
    device time.
+9. train_sparse_grads: bench.py::bench_sparse_longseq's attention (BigBird,
+   block 512, 1 random, 3 sliding-window and 1 global block) at full width
+   (n_positions 8192) but SPARSE_GRADS_LAYERS deep, batch 1 x 8192,
+   dropout off, held against the CPU fp32 run as train_grads is; counters
+   exact (kernels F and G once per layer, B and E never).
+10. train_sparse: bench_sparse_longseq exactly (12 layers, batch 2 x 8192,
+   bf16, AdamW lr 6e-4 wd 0.1, ZeRO-2, dropout 0.1, on the attention
+   output for the sparse layers) on the fixed batch
+   RandomState(0).randint(0, 50304, (2, 8192)), timed as _run_longseq (2
+   warm-up steps, 10 timed): what train reports, the MFU of the dense
+   flops_per_token as the bench row counts it, and the layout's density.
+11. train_longseq: bench_longseq, the same model, batch and timing with
+   dense causal attention (kernels B and E) at S = 8192.
 
-Then the `kernels` line (launches by path: bf16, int8, train) and, last,
-{"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
-in phase 1.
+Parity (phase 2) also holds kernels F (block-sparse flash forward) and G
+(its dq and dk/dv launches) against their plain twins, which compute in
+fp32 on the same inputs: bench_sparse_longseq's attention with fused-QKV
+views, an fp32 Fixed layout causal and not, D = 128, and a layout with an
+empty causal row (its out 0 and its lse at the mask value); the library
+yardstick is SDPA with the layout as a boolean mask.
+
+Then the `kernels` line (launches by path: bf16, int8, train,
+train_sparse, train_longseq) and, last, {"ok": true, "device": {...}}.
+Without a CUDA device the script exits 1 in phase 1.
 """
 
 import json
@@ -77,7 +97,7 @@ from deepspeed_tpu_torch.models import GPT2Config, GPT2Model
 from deepspeed_tpu_torch.ops import (KERNELS, dispatch, launch_counts,
                                      op_builder, reset_launch_counts)
 from deepspeed_tpu_torch.ops.flash_attention import (
-    dropout_keep_mask, flash_attention_bwd_dkdv_cuda,
+    DEFAULT_MASK_VALUE, dropout_keep_mask, flash_attention_bwd_dkdv_cuda,
     flash_attention_bwd_dq_cuda, flash_attention_bwd_reference,
     flash_attention_cuda, mha_reference, quantized_threshold)
 from deepspeed_tpu_torch.ops.normalize import (layer_norm_bwd_cuda,
@@ -86,6 +106,14 @@ from deepspeed_tpu_torch.ops.normalize import (layer_norm_bwd_cuda,
                                                layer_norm_reference)
 from deepspeed_tpu_torch.ops.quant import (dequant, dequant_matmul_reference,
                                            fused_dequant_matmul)
+from deepspeed_tpu_torch.ops.sparse_attention import (BigBirdSparsityConfig,
+                                                      FixedSparsityConfig,
+                                                      SparseSelfAttention,
+                                                      layout_gather)
+from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_flash import (
+    block_sparse_flash_bwd_dkdv_cuda, block_sparse_flash_bwd_dq_cuda,
+    block_sparse_flash_bwd_reference, block_sparse_flash_fwd_cuda,
+    block_sparse_flash_fwd_reference)
 from deepspeed_tpu_torch.runtime.weight_quantizer import quantize_weight
 
 # H100 SXM, NVIDIA data sheet (dense): device memory rate and the peak
@@ -113,6 +141,21 @@ BENCH_GPT2_CONFIG = {
     "optimizer": {"type": "AdamW", "params": {"lr": 6e-4,
                                               "weight_decay": 0.1}},
     "bf16": {"enabled": True, "grads_in_compute_dtype": False},
+    "zero_optimization": {"stage": 2},
+    "steps_per_print": 10 ** 9,
+}
+# long-context phases: bench.py::bench_sparse_longseq and bench_longseq
+# (bench.py:1324-1377) through _run_longseq (bench.py:1288-1321)
+LONG_BATCH, LONG_SEQ = 2, 8192
+LONG_WARMUP, LONG_ITERS = 2, 10
+SPARSE_GRADS_LAYERS = 2  # the CPU fp32 reference's depth
+BIGBIRD = dict(num_heads=12, block=512, num_random_blocks=1,
+               num_sliding_window_blocks=3, num_global_blocks=1)
+BENCH_LONGSEQ_CONFIG = {
+    "train_micro_batch_size_per_gpu": LONG_BATCH,
+    "optimizer": {"type": "AdamW", "params": {"lr": 6e-4,
+                                              "weight_decay": 0.1}},
+    "bf16": {"enabled": True},
     "zero_optimization": {"stage": 2},
     "steps_per_print": 10 ** 9,
 }
@@ -461,6 +504,148 @@ def case_dequant(m, k, n, groups, dtype):
         "bound_ms": b_ms, "bound_by": b_by}
 
 
+def bigbird_layout(heads=12, block=512, seq=LONG_SEQ):
+    return BigBirdSparsityConfig(**dict(BIGBIRD, num_heads=heads,
+                                        block=block)).make_layout(seq)
+
+
+def fixed_layout(heads, block, seq):
+    return FixedSparsityConfig(num_heads=heads, block=block,
+                               num_local_blocks=2,
+                               num_global_blocks=1).make_layout(seq)
+
+
+def empty_row_layout(heads=2):
+    """4 blocks; q-block 1 allows only the two blocks above the diagonal,
+    so under the causal mask its rows see nothing."""
+    layout = np.zeros((heads, 4, 4), bool)
+    layout[:, 0, 0] = True
+    layout[:, 1, [2, 3]] = True
+    layout[:, 2, [0, 2]] = True
+    layout[:, 3, :] = True
+    return layout
+
+
+# layouts of the F / G parity cases, by (heads, block, seq)
+SPARSE_LAYOUTS = {"bigbird": bigbird_layout, "fixed": fixed_layout,
+                  "empty-causal-row": lambda h, block, s: empty_row_layout(h)}
+
+
+def live_pairs(layout, block, causal):
+    """Score pairs the layout lets through, summed over heads: a full
+    block block**2, a diagonal block under the causal mask
+    block * (block + 1) / 2, a block above the diagonal none."""
+    if not causal:
+        return int(layout.sum()) * block * block
+    below = int(np.tril(layout, -1).sum())
+    diag = int(np.diagonal(layout, axis1=1, axis2=2).sum())
+    return below * block * block + diag * block * (block + 1) // 2
+
+
+def dense_mask(layout, block, causal):
+    """The layout as the boolean [S, S] (or [1, H, S, S] when the heads
+    differ) mask of scaled_dot_product_attention, ANDed with the causal
+    mask."""
+    heads = layout if not (layout == layout[:1]).all() else layout[:1]
+    mask = torch.from_numpy(heads).cuda().repeat_interleave(
+        block, 1).repeat_interleave(block, 2)
+    if causal:
+        mask &= torch.ones(mask.shape[-2:], dtype=torch.bool,
+                           device="cuda").tril()
+    return mask[0] if mask.shape[0] == 1 else mask[None]
+
+
+def case_block_sparse(kind, b, h, s, d, block, dtype, causal, fused=False):
+    """Kernels F and G's two launches against their plain twins on the same
+    inputs (the twins compute in fp32 on them), the backward on F's own out
+    and lse.  One sub-result per launch: device ms, host µs, bound; F's
+    plain and library times are the twin's and SDPA's forward with the
+    layout as a boolean mask, G's those of the twin's backward and SDPA's
+    backward (dq, dk and dv together)."""
+    layout = SPARSE_LAYOUTS[kind](h, block, s)
+    q, k, v = attention_inputs(b, h, s, d, dtype, s + d + block, fused)
+    fidx, fvalid = (torch.as_tensor(a, device="cuda")
+                    for a in layout_gather(layout))
+    tidx, tvalid = (torch.as_tensor(a, device="cuda")
+                    for a in layout_gather(layout, transpose=True))
+    fwd = (q, k, v, fidx, fvalid, block, causal)
+    out, lse = block_sparse_flash_fwd_cuda(*fwd)
+    ref, ref_lse = block_sparse_flash_fwd_reference(*fwd)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    do = torch.randn(b, s, h, d, device="cuda", generator=g).to(
+        dtype).transpose(1, 2)
+    delta = (do.float() * out.float()).sum(dim=-1)
+    bwd = (q, k, v, do, lse, delta)
+    dq = block_sparse_flash_bwd_dq_cuda(*bwd, fidx, fvalid, block, causal)
+    dk, dv = block_sparse_flash_bwd_dkdv_cuda(*bwd, tidx, tvalid, block,
+                                              causal)
+    ref_grads = block_sparse_flash_bwd_reference(q, k, v, out, lse, do, fidx,
+                                                 fvalid, block, causal)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    tol, lse_tol, grad_tol = (2e-2, 1e-3, 5e-2) if bf16 else (1e-4, 1e-5,
+                                                              1e-4)
+    live = ref_lse > DEFAULT_MASK_VALUE / 2  # rows that see a live block
+    empty_rows = int((~live).sum())
+    out_err = (out.float() - ref.float()).abs().max().item()
+    lse_err = (lse[live] - ref_lse[live]).abs().max().item()
+    grad_errs = {name: rel_err(a.float(), r.float()) for name, a, r in
+                 zip(("dq", "dk", "dv"), (dq, dk, dv), ref_grads)}
+    ok = (_within(out.float(), ref.float(), tol, tol) and lse_err <= lse_tol
+          and max(grad_errs.values()) <= grad_tol
+          and bool((lse[~live] < DEFAULT_MASK_VALUE / 2).all())
+          and bool((out[~live] == 0).all())
+          and all(bool(torch.isfinite(t.float()).all())
+                  for t in (dq, dk, dv)))
+    pairs = b * live_pairs(layout, block, causal)
+    operand = q.numel() * q.element_size()
+    stats = lse.numel() * 4
+    mask = dense_mask(layout, block, causal)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+    plain_bwd_ms = time_ms(lambda: block_sparse_flash_bwd_reference(
+        q, k, v, out, lse, do, fidx, fvalid, block, causal))
+    library_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        sdpa, (qg, kg, vg), do, retain_graph=True))
+    launches = {}
+    for name, fn, products, nbytes, err, plain_ms, library_ms in (
+            ("block_sparse_flash_fwd",
+             lambda: block_sparse_flash_fwd_cuda(*fwd), 2,
+             4 * operand + stats, out_err,
+             time_ms(lambda: block_sparse_flash_fwd_reference(*fwd)),
+             time_ms(lambda: F.scaled_dot_product_attention(
+                 q, k, v, attn_mask=mask))),
+            ("block_sparse_flash_bwd_dq",
+             lambda: block_sparse_flash_bwd_dq_cuda(*bwd, fidx, fvalid,
+                                                    block, causal), 3,
+             5 * operand + 2 * stats,
+             (dq.float() - ref_grads[0].float()).abs().max().item(),
+             plain_bwd_ms, library_bwd_ms),
+            ("block_sparse_flash_bwd_dkdv",
+             lambda: block_sparse_flash_bwd_dkdv_cuda(*bwd, tidx, tvalid,
+                                                      block, causal), 4,
+             6 * operand + 2 * stats,
+             max((a.float() - r.float()).abs().max().item()
+                 for a, r in zip((dk, dv), ref_grads[1:])),
+             plain_bwd_ms, library_bwd_ms)):
+        b_ms, b_by = bound_ms(nbytes, products * 2 * d * pairs, dtype)
+        launches[name] = {"ms": time_ms(fn), "host_us": host_us(fn),
+                          "bound_ms": b_ms, "bound_by": b_by,
+                          "max_abs_err": err, "plain_ms": plain_ms,
+                          "library_ms": library_ms}
+    return {
+        "case": (f"[{b},{h},{s},{d}] {kind} block {block} "
+                 f"{'causal' if causal else 'full'} {_dtname(dtype)}"
+                 f"{' fused-qkv views' if fused else ''}"),
+        "ok": ok, "tolerance": (f"out atol=rtol={tol}, lse atol={lse_tol} on "
+                                f"live rows; dq, dk, dv max|d|/max|ref| <= "
+                                f"{grad_tol}; empty rows out 0, lse masked"),
+        "density": float(layout.mean()), "score_pairs": pairs,
+        "empty_rows": empty_rows, "max_abs_err": out_err,
+        "lse_max_abs_err": lse_err, "rel_err": grad_errs,
+        "library": "SDPA, layout as a boolean mask", "launches": launches}
+
+
 PARITY_CASES = {
     "layer_norm_fwd": (case_layer_norm, [
         (rows, dt) for rows in (1024, 8)
@@ -498,6 +683,16 @@ PARITY_CASES = {
         for rate in (0.0, DROPOUT)]
         + [(2, 4, 77, 64, True, torch.float32, False, DROPOUT),
            (2, 8, 200, 128, True, torch.float32, False, DROPOUT)]),
+    # kernels F and G: (a) bench_sparse_longseq's attention, (b) the fp32
+    # Fixed layout of tests/tpu/test_kernel_parity_tpu.py:226-228 causal
+    # and not, (c) D = 128, (d) a layout with an empty causal row
+    "block_sparse_flash": (case_block_sparse, [
+        ("bigbird", LONG_BATCH, 12, LONG_SEQ, 64, 512, torch.bfloat16, True,
+         True)]
+        + [("fixed", 1, 4, 1024, 64, 128, torch.float32, causal)
+           for causal in (True, False)]
+        + [("bigbird", 2, 4, 1024, 128, 128, torch.bfloat16, True),
+           ("empty-causal-row", 2, 2, 256, 64, 64, torch.float32, True)]),
 }
 # ds_dequant_matmul_route's codes: the kernel csrc/dequant_matmul.cu takes
 DEQUANT_ROUTES = ("gemv", "mma", "tiled")
@@ -511,11 +706,15 @@ PRIMARY = {"layer_norm_fwd": (1024, torch.bfloat16),
            "dequant_matmul": (8, 768, 3072, 1, torch.bfloat16),
            "layer_norm_bwd": (TRAIN_BATCH * TRAIN_SEQ, torch.bfloat16),
            "flash_attention_bwd": (TRAIN_BATCH, 12, TRAIN_SEQ, 64, True,
-                                   torch.bfloat16, True, DROPOUT)}
+                                   torch.bfloat16, True, DROPOUT),
+           "block_sparse_flash": PARITY_CASES["block_sparse_flash"][1][0]}
 # the KERNELS entries a group of parity cases reports for
 REPORTS_FOR = {"flash_attention_fwd_dropout": ("flash_attention_fwd",),
                "flash_attention_bwd": ("flash_attention_bwd_dkdv",
-                                       "flash_attention_bwd_dq")}
+                                       "flash_attention_bwd_dq"),
+               "block_sparse_flash": ("block_sparse_flash_fwd",
+                                      "block_sparse_flash_bwd_dq",
+                                      "block_sparse_flash_bwd_dkdv")}
 
 
 def phase_parity():
@@ -749,8 +948,14 @@ def gpt2_124m_train(**overrides):
 
 
 def step_counts(cfg):
-    """Launch counts of one training forward + backward."""
+    """Launch counts of one training forward + backward: the dense layers
+    run kernels B and E, the sparse ones F and G."""
     n_ln, n_attn = 2 * cfg.num_layers + 1, cfg.num_layers
+    if cfg.sparse_attention is not None:
+        return expected_counts(layer_norm_fwd=n_ln, layer_norm_bwd=n_ln,
+                               block_sparse_flash_fwd=n_attn,
+                               block_sparse_flash_bwd_dq=n_attn,
+                               block_sparse_flash_bwd_dkdv=n_attn)
     return expected_counts(layer_norm_fwd=n_ln, layer_norm_bwd=n_ln,
                            flash_attention_fwd=n_attn,
                            flash_attention_bwd_dkdv=n_attn,
@@ -765,6 +970,14 @@ def phase_train_grads(state):
                           hidden_dropout=0.0)
     ids = torch.from_numpy(np.random.RandomState(1).randint(
         0, cfg.vocab_size, (GRADS_BATCH, TRAIN_SEQ)))
+    return grads_vs_cpu(cfg, state, ids, dict(
+        BENCH_GPT2_CONFIG, train_micro_batch_size_per_gpu=GRADS_BATCH))
+
+
+def grads_vs_cpu(cfg, state, ids, ds_config):
+    """The loss of `ids` and every parameter grad, through initialize ->
+    forward -> backward on the card in cfg's dtype, against the same
+    weights through the port on the CPU in fp32; launch counters exact."""
     t0 = time.perf_counter()
     ref_model = GPT2Model(replace(cfg, bf16=False))
     ref_model.load_state_dict(state)
@@ -774,10 +987,10 @@ def phase_train_grads(state):
     cpu_seconds = time.perf_counter() - t0
     del ref_model
 
-    engine, _, _, _ = dst.initialize(
-        model=GPT2Model(cfg), model_parameters=state,
-        config=dict(BENCH_GPT2_CONFIG,
-                    train_micro_batch_size_per_gpu=GRADS_BATCH))
+    torch.cuda.empty_cache()
+    engine, _, _, _ = dst.initialize(model=GPT2Model(cfg),
+                                     model_parameters=state,
+                                     config=ds_config)
     reset_launch_counts()
     loss = engine.forward(ids)
     engine.backward(loss)
@@ -822,17 +1035,22 @@ def _profile_once(fn):
     return wall * 1e3, busy, ops
 
 
-def phase_train(state):
-    """bench_gpt2's step, timed as bench.py's _time_steps."""
-    cfg = gpt2_124m_train()
+def timed_training(cfg, state, ds_config, warmup, iters):
+    """Train on the fixed batch RandomState(0).randint(0, vocab,
+    (micro batch, n_positions)) as bench.py's _time_steps times it: warmup
+    steps, then `iters` forward / backward / step calls on the host clock,
+    closed by fetching the last loss.  Every loss finite, the final below
+    the first, the launch counters exact; then one step under
+    torch.profiler."""
+    batch, seq = ds_config["train_micro_batch_size_per_gpu"], cfg.n_positions
     ids = np.random.RandomState(0).randint(
-        0, cfg.vocab_size, size=(TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+        0, cfg.vocab_size, size=(batch, seq)).astype(np.int32)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     engine, _, _, _ = dst.initialize(model=GPT2Model(cfg),
                                      model_parameters=state,
-                                     config=BENCH_GPT2_CONFIG)
+                                     config=ds_config)
 
     def step():
         loss = engine.forward(ids)
@@ -841,15 +1059,15 @@ def phase_train(state):
         return loss
 
     reset_launch_counts()
-    losses = [step().detach() for _ in range(TRAIN_WARMUP)]
+    losses = [step().detach() for _ in range(warmup)]
     losses[-1].item()
     t0 = time.perf_counter()
-    for _ in range(TRAIN_ITERS):
+    for _ in range(iters):
         losses.append(step().detach())
     final_loss = losses[-1].item()
     seconds = time.perf_counter() - t0
     counts = launch_counts()
-    n_steps = TRAIN_WARMUP + TRAIN_ITERS
+    n_steps = warmup + iters
     per_step = step_counts(cfg)
     check(counts == {k: n_steps * v for k, v in per_step.items()},
           f"launch counts {counts} over {n_steps} steps, expected "
@@ -858,25 +1076,81 @@ def phase_train(state):
     check(bool(torch.isfinite(losses).all()), f"non-finite loss: {losses}")
     check(final_loss < losses[0].item(),
           f"loss did not fall: {losses[0].item()} -> {final_loss}")
-    tokens_per_s = TRAIN_ITERS * TRAIN_BATCH * TRAIN_SEQ / seconds
+    tokens_per_s = iters * batch * seq / seconds
     peak = PEAK_OPS_PER_S[torch.bfloat16]
+    peak_memory = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
     wall_ms, busy_ms, ops = _profile_once(step)
     top = sorted(ops.items(), key=lambda kv: -kv[1])[:6]
     return counts, {
+        "batch": [batch, seq],
         "tokens_per_s": tokens_per_s,
-        "ms_per_step": seconds / TRAIN_ITERS * 1e3,
+        "ms_per_step": seconds / iters * 1e3,
         "flops_per_token": cfg.flops_per_token(),
         "tflops": tokens_per_s * cfg.flops_per_token() / 1e12,
         "mfu": tokens_per_s * cfg.flops_per_token() / peak,
         "mfu_peak": "989 TFLOP/s, H100 SXM bf16 dense (NVIDIA data sheet)",
         "first_loss": losses[0].item(), "final_loss": final_loss,
-        "steps": n_steps, "timed_steps": TRAIN_ITERS,
-        "peak_memory_gib": (torch.cuda.max_memory_allocated() - base)
-        / 2 ** 30,
+        "steps": n_steps, "timed_steps": iters,
+        "peak_memory_gib": peak_memory,
         "launches_per_step": per_step,
         "profiled_step_wall_ms": wall_ms, "profiled_step_device_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms,
         "top_device_ms_one_step": {name[:80]: ms for name, ms in top}}
+
+
+def phase_train(state):
+    """bench_gpt2's step, timed as bench.py's _time_steps."""
+    return timed_training(gpt2_124m_train(), state, BENCH_GPT2_CONFIG,
+                          TRAIN_WARMUP, TRAIN_ITERS)
+
+
+def gpt2_124m_long(**overrides):
+    """_run_longseq's model: GPT-2 124M at n_positions = S = 8192, bf16,
+    dropout 0.1; `sparse_attention=bigbird()` is bench_sparse_longseq's."""
+    return replace(gpt2_124m(), n_positions=LONG_SEQ, **overrides)
+
+
+def bigbird():
+    return BigBirdSparsityConfig(**BIGBIRD)
+
+
+def init_state(cfg):
+    """fp32 weights of cfg's model from seed 0, on the CPU."""
+    model = GPT2Model(replace(cfg, bf16=False))
+    model.init_params(torch.Generator().manual_seed(0))
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def phase_train_sparse_grads():
+    """bench_sparse_longseq's attention at full width, SPARSE_GRADS_LAYERS
+    deep (so that the CPU fp32 reference fits), batch 1 x 8192, dropout
+    off: the loss and every grad on the card in bf16 against the CPU in
+    fp32."""
+    cfg = gpt2_124m_long(num_layers=SPARSE_GRADS_LAYERS, embd_dropout=0.0,
+                         attn_dropout=0.0, hidden_dropout=0.0,
+                         sparse_attention=bigbird())
+    ids = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (1, LONG_SEQ)))
+    return grads_vs_cpu(cfg, init_state(cfg), ids, dict(
+        BENCH_LONGSEQ_CONFIG, train_micro_batch_size_per_gpu=1))
+
+
+def phase_train_sparse(state):
+    """bench_sparse_longseq exactly, timed as _run_longseq."""
+    cfg = gpt2_124m_long(sparse_attention=bigbird())
+    counts, summary = timed_training(cfg, state, BENCH_LONGSEQ_CONFIG,
+                                     LONG_WARMUP, LONG_ITERS)
+    summary["tflops_dense_equiv"] = summary.pop("tflops")
+    summary["attn_density"] = SparseSelfAttention(bigbird()).density(LONG_SEQ)
+    return counts, summary
+
+
+def phase_train_longseq(state):
+    """bench_longseq: the same model, batch and timing with dense causal
+    flash attention (kernels B / E) at S = 8192, the comparison
+    bench_sparse_longseq's row is defined against."""
+    return timed_training(gpt2_124m_long(), state, BENCH_LONGSEQ_CONFIG,
+                          LONG_WARMUP, LONG_ITERS)
 
 
 def main():
@@ -899,21 +1173,24 @@ def main():
     bf16_counts, int8_counts = bf16[2]["launches"], int8[2]["launches"]
     del bf16, int8, served, state
 
-    train_cfg = gpt2_124m_train()
-    train_model = GPT2Model(replace(train_cfg, bf16=False))
-    train_model.init_params(torch.Generator().manual_seed(0))
-    train_state = {k: v.detach().clone()
-                   for k, v in train_model.state_dict().items()}
-    del train_model
+    train_state = init_state(gpt2_124m_train())
     run_phase("train_grads", phase_train_grads, train_state)
-    train_counts = run_phase("train", phase_train, train_state)
+    path_counts = {"bf16": bf16_counts, "int8": int8_counts,
+                   "train": run_phase("train", phase_train, train_state)}
+    del train_state
+
+    run_phase("train_sparse_grads", phase_train_sparse_grads)
+    long_state = init_state(gpt2_124m_long())
+    path_counts["train_sparse"] = run_phase("train_sparse",
+                                            phase_train_sparse, long_state)
+    path_counts["train_longseq"] = run_phase("train_longseq",
+                                             phase_train_longseq, long_state)
 
     kernels = []
     for kern in KERNELS:
         res = primary[kern.name]
-        by_path = {"bf16": bf16_counts[kern.name],
-                   "int8": int8_counts[kern.name],
-                   "train": train_counts[kern.name]}
+        by_path = {path: counts[kern.name]
+                   for path, counts in path_counts.items()}
         kernels.append({
             "name": kern.name, "route": "cuda", "source": kern.source,
             "replaces": kern.replaces, "launches": sum(by_path.values()),

@@ -42,6 +42,10 @@ class GPT2Config:
     # reference's semantics) | "ctx" (dropout on the attention output)
     attn_dropout_impl: str = "kernel"
     activation_checkpointing: bool = False
+    # a SparsityConfig: every layer's attention is block-sparse (kernels
+    # F / G, with dropout on the attention output); flops_per_token stays
+    # the dense count
+    sparse_attention: Optional[object] = None
     tie_word_embeddings: bool = True
     # chunked LM head + cross-entropy that never holds the [B, S, V] fp32
     # logits (ops/fused_cross_entropy.py); None = the auto chunk
@@ -74,6 +78,7 @@ class GPT2Config:
             pre_layer_norm=True,
             causal=True,
             attn_dropout_impl=self.attn_dropout_impl,
+            sparsity_config=self.sparse_attention,
         )
 
     def num_params(self, include_embeddings: bool = True) -> int:

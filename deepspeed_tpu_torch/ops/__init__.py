@@ -18,6 +18,11 @@ from .normalize import (fused_layer_norm, layer_norm_bwd_cuda,
                         layer_norm_reference)
 from .quant import (QuantizedWeight, dequant, dequant_matmul_reference,
                     fused_dequant_matmul, matmul_maybe_int8)
+from . import sparse_attention
+from .sparse_attention.block_sparse_flash import (
+    block_sparse_flash_bwd_dkdv_cuda, block_sparse_flash_bwd_dq_cuda,
+    block_sparse_flash_bwd_reference, block_sparse_flash_fwd_cuda,
+    block_sparse_flash_fwd_reference)
 from .transformer import DeepSpeedTransformerConfig, DeepSpeedTransformerLayer
 
 
@@ -51,6 +56,19 @@ KERNELS = (
            flash_attention_bwd_reference,
            "deepspeed_tpu_torch/csrc/flash_attention_bwd.cu",
            "deepspeed_tpu/ops/flash_attention.py:717"),
+    Kernel("block_sparse_flash_fwd", block_sparse_flash_fwd_cuda,
+           block_sparse_flash_fwd_reference,
+           "deepspeed_tpu_torch/csrc/block_sparse_flash_fwd.cu",
+           "deepspeed_tpu/ops/sparse_attention/block_sparse_flash.py:227"),
+    # kernel G: two launches, one plain twin that returns dq, dk and dv
+    Kernel("block_sparse_flash_bwd_dq", block_sparse_flash_bwd_dq_cuda,
+           block_sparse_flash_bwd_reference,
+           "deepspeed_tpu_torch/csrc/block_sparse_flash_bwd.cu",
+           "deepspeed_tpu/ops/sparse_attention/block_sparse_flash.py:278"),
+    Kernel("block_sparse_flash_bwd_dkdv", block_sparse_flash_bwd_dkdv_cuda,
+           block_sparse_flash_bwd_reference,
+           "deepspeed_tpu_torch/csrc/block_sparse_flash_bwd.cu",
+           "deepspeed_tpu/ops/sparse_attention/block_sparse_flash.py:278"),
 )
 
 

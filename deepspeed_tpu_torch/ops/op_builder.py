@@ -56,6 +56,18 @@ SIGNATURES = {
     # q/k/v/dout/dq, then as dkdv
     "ds_flash_attention_bwd_dq": [P] * 7 + [I32] * 5
                                  + [I64_PTR, F32, I32, P, I32, F32, I32, P],
+    # q, k, v, out, lse, idx, valid, B, H, S, D, block, max_deg, the 12
+    # strides of q/k/v/out, sm_scale, causal, dtype, stream
+    "ds_block_sparse_flash_fwd": [P] * 7 + [I32] * 6
+                                 + [I64_PTR, F32, I32, I32, P],
+    # q, k, v, dout, lse, delta, dq, idx, valid, B, H, S, D, block, max_deg,
+    # the 15 strides of q/k/v/dout/dq, sm_scale, causal, dtype, stream
+    "ds_block_sparse_flash_bwd_dq": [P] * 9 + [I32] * 6
+                                    + [I64_PTR, F32, I32, I32, P],
+    # q, k, v, dout, lse, delta, dk, dv, idx_t, valid_t, B, H, S, D, block,
+    # max_deg_t, the 18 strides of q/k/v/dout/dk/dv, then as dq
+    "ds_block_sparse_flash_bwd_dkdv": [P] * 10 + [I32] * 6
+                                      + [I64_PTR, F32, I32, I32, P],
     # x, qweight, scale, out, M, K, N, groups, dtype, stream
     "ds_dequant_matmul": [P, P, P, P, I32, I32, I32, I32, I32, P],
     # x, qweight, M, K, N, dtype -> which kernel the launcher takes

@@ -8,13 +8,17 @@ LN (kernels A / D) -> QKV matmul -> flash attention (kernels B / E) ->
 out-proj + bias-dropout-residual -> LN -> bias-gelu MLP +
 bias-dropout-residual.  Attention dropout runs inside kernel B
 (`attn_dropout_impl="kernel"`, the reference's probability dropout) or on
-the attention output (`"ctx"`).  Parameters are fp32 and trainable; every
+the attention output (`"ctx"`).  A layer with a `sparsity_config` routes
+its attention through `SparseSelfAttention` (kernels F / G) instead, with
+dropout on the attention output whatever `attn_dropout_impl` says, as the
+JAX layer does.  Parameters are fp32 and trainable; every
 use casts them to the compute dtype, so autograd returns fp32 grads.
 Matmul weights may be replaced by int8 `QuantizedWeight`s (serving), which
 route through kernel C.
 """
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 from torch import nn
@@ -23,6 +27,7 @@ from .activations import bias_dropout_residual, bias_gelu, dropout
 from .flash_attention import flash_attention
 from .normalize import fused_layer_norm
 from .quant import matmul_maybe_int8
+from .sparse_attention import SparseSelfAttention
 
 
 @dataclass
@@ -47,6 +52,9 @@ class DeepSpeedTransformerConfig:
     # "kernel": probability dropout inside the flash kernel (the
     # reference's semantics); "ctx": dropout on the attention output
     attn_dropout_impl: str = "kernel"
+    # a SparsityConfig routes the layer's attention through
+    # SparseSelfAttention (block-sparse, kernels F / G)
+    sparsity_config: Optional[object] = None
 
     @property
     def gelu_approximate(self) -> bool:
@@ -86,6 +94,8 @@ class DeepSpeedTransformerLayer(nn.Module):
                 "post-LN layers are not ported yet; this slice runs the "
                 "pre-LN layer GPT-2 uses")
         self.config = config
+        self.sparse_attn = (None if config.sparsity_config is None
+                            else SparseSelfAttention(config.sparsity_config))
         for name, shape in self.param_shapes(config).items():
             self.register_parameter(name, nn.Parameter(torch.zeros(shape)))
         for name in ("norm_w", "attn_nw"):
@@ -153,13 +163,36 @@ class DeepSpeedTransformerLayer(nn.Module):
             self.output_b.to(inter.dtype), attn_out, rate, generator,
             deterministic)
 
+    def sparse_attention(self, q, k, v, attn_mask=None):
+        """Block-sparse attention of q, k, v [B, heads, S, d], routing the
+        layer's additive mask as the JAX layer does: [B, 1, 1, S] becomes
+        the key-padding mask, [1, 1, S, S] or [S, S] the attention mask
+        (both in 'add' mode); any other shape raises."""
+        s = q.shape[2]
+        kp = am = None
+        if attn_mask is not None:
+            if attn_mask.dim() == 4 and tuple(attn_mask.shape[1:3]) == (1, 1):
+                kp = attn_mask.reshape(attn_mask.shape[0], s)
+            elif attn_mask.dim() == 4 and tuple(attn_mask.shape[:2]) == (1, 1):
+                am = attn_mask.reshape(s, s)
+            elif attn_mask.dim() == 2:
+                am = attn_mask
+            else:
+                raise NotImplementedError(
+                    "sparse attention supports [B,1,1,S] key-padding or 2D "
+                    "[S,S] additive masks (the reference softmax's "
+                    f"attn_mask is 2D-only); got shape {tuple(attn_mask.shape)}")
+        return self.sparse_attn(q, k, v, causal=self.config.causal,
+                                key_padding_mask=kp, attn_mask=am)
+
     def forward(self, x, attn_mask=None, generator=None,
                 deterministic: bool = False):
         """x [B, S, H] -> [B, S, H].  attn_mask: an additive [B, 1, 1, S]
-        or [B, 1, S, S] bias (takes the plain attention).  Dropout draws
-        from `generator` (on x's device): the attention seed (or the ctx
-        mask), then the two hidden masks, three independent draws as the
-        JAX layer's split of its rng.  Without a generator the layer is
+        or [B, 1, S, S] bias (takes the plain attention; a sparse layer
+        takes the shapes `sparse_attention` routes).  Dropout draws from
+        `generator` (on x's device): the attention seed (or the ctx mask),
+        then the two hidden masks, three independent draws as the JAX
+        layer's split of its rng.  Without a generator the layer is
         deterministic, and refuses to train with dropout configured."""
         cfg = self.config
         if generator is None:
@@ -172,6 +205,11 @@ class DeepSpeedTransformerLayer(nn.Module):
             deterministic = True
         x = x.to(cfg.dtype)
         q, k, v = self.qkv_heads(x)
+        if self.sparse_attn is not None:
+            # output dropout, drawn where the dense path draws its seed
+            ctx = dropout(self.sparse_attention(q, k, v, attn_mask),
+                          cfg.attn_dropout_ratio, generator, deterministic)
+            return self.attn_out_mlp(ctx, x, generator, deterministic)
         kernel_drop = cfg.attn_dropout_impl == "kernel"
         attn_rate = (0.0 if deterministic or not kernel_drop
                      else cfg.attn_dropout_ratio)

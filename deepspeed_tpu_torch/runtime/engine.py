@@ -93,8 +93,6 @@ def refuse_unported(config: DeepSpeedConfig, model) -> None:
         refuse("zero_optimization.low_bandwidth", "A.8")
     if config.sequence_parallel_config.size > 1:
         refuse("sequence parallelism", "A.9")
-    if config.sparse_attention is not None:
-        refuse("sparse attention", "A.11")
     flags = (("resilience", config.resilience_config.enabled, "A.6, A.13"),
              ("monitor", config.monitor_config.enabled, "A.6, A.13"),
              ("analysis", config.analysis_config.enabled, "A.14"),

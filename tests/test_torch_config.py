@@ -102,7 +102,6 @@ TINY = dict(vocab_size=128, n_positions=64, hidden_size=32, num_layers=2,
     ({"zero_optimization": {"stage": 2, "low_bandwidth": {"qgz_bits": 8}}},
      "A.8"),
     ({"sequence_parallel": {"size": 2}}, "A.9"),
-    ({"sparse_attention": {"mode": "fixed"}}, "A.11"),
     ({"mesh": {"model": 2}}, "A.4"),
     ({"resilience": {"enabled": True}}, "A.13"),
     ({"monitor": {"enabled": True}}, "A.13"),
@@ -124,6 +123,18 @@ def test_unported_config_blocks_are_refused(block, item):
     with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md .*{item}"):
         dst.initialize(model=GPT2Model(GPT2Config(**TINY)), config=conf,
                        device="cpu")
+
+
+@pytest.mark.parametrize("section", [{"mode": "fixed"},
+                                     {"mode": "bigbird", "block": 16}])
+def test_sparse_attention_section_is_accepted(section):
+    """The JSON `sparse_attention` section is parsed and stored, as the JAX
+    engine does; the model's SparsityConfig routes the attention."""
+    conf = dict(FLAGSHIP, bf16={"enabled": False}, sparse_attention=section)
+    eng = dst.initialize(model=GPT2Model(GPT2Config(**TINY)), config=conf,
+                         device="cpu")[0]
+    assert eng.config.sparse_attention == section
+    assert JaxDeepSpeedConfig(conf, world_size=1).sparse_attention == section
 
 
 def test_unported_model_features_are_refused():
