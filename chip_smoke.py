@@ -76,9 +76,50 @@ views, an fp32 Fixed layout causal and not, D = 128, and a layout with an
 empty causal row (its out 0 and its lse at the mask value); the library
 yardstick is SDPA with the layout as a boolean mask.
 
+12. fcm_ops: the low-bandwidth collective tier on a mesh of W = 4 logical
+   ranks, all on this card (each rank its own compute and copy stream; the
+   "wire" is a device-to-device copy, so nothing here says anything about
+   NVLink or NCCL), at GPT-2 124M's width: `fused_allgather_matmul`
+   forward and backward for c_attn [768, 2304], c_fc [768, 3072] and c_proj
+   [3072, 768] row-sharded four ways, M = 2048 rows per rank, block 256,
+   (qwz, qgz) = (8, 8), (4, 4), (0, 0), operands bf16 and fp32, the fused
+   route (kernels I and J) and the per-tile route (kernel H);
+   `fused_matmul_reduce_scatter` for the same dW shapes over six steps with
+   the error buffers carried; the layer-2 transports bitwise against the
+   modular functions on the card; and c_fc -> gelu -> c_proj as a whole.
+   Every result is held against the port's run on a CPU mesh on the same
+   inputs in the same dtype (the plain twins multiply and accumulate in
+   fp32 whatever the operands' dtype; an fp32 copy of bf16 inputs would
+   take the quantizer's scale, which is rounded in the input's dtype, at
+   another value): max|d| / max|ref| <= 2e-2 for bf16 operands and 1e-4 for
+   fp32, and where a quantizer follows a product the one-step rule: the
+   elements further off than that are at most 0.1% and each by at most the
+   quantization steps of the tiles summed into it.  Launch counters are
+   exact per op.
+13. fcm_timing: the wall ms (median of FCM_TIMED_RUNS, synchronized at both
+   ends) of each whole op at W = 4 on the one card, c_fc in bf16 at 8 bits:
+   the fused route, the per-tile route and the modular yardstick
+   (`low_bandwidth_all_gather` then `torch.matmul`; `torch.matmul` then
+   `qgz_reduce_scatter_inner`), in turns; the device ms of the fused
+   forward's products; and, from a torch.profiler trace of five fused
+   forwards, the share of the ring's copy time that lay under a product.
+
+Parity also holds kernels H (its three tile launchers at the three
+matrices' tiles, int8, packed int4 and native payloads), I (a step that
+accumulates, the last step's cast, the transposed step) and J (the producer
+by the one-step rule and bitwise on its own tile, the collect bitwise)
+against their plain twins; the library yardstick is `torch.matmul` on the
+dequantized operand.
+
 Then the `kernels` line (launches by path: bf16, int8, train,
-train_sparse, train_longseq) and, last, {"ok": true, "device": {...}}.
-Without a CUDA device the script exits 1 in phase 1.
+train_sparse, train_longseq, fcm) and, last, {"ok": true, "device":
+{...}}.  Without a CUDA device the script exits 1 in phase 1.
+
+    python3 chip_smoke.py --fcm-only
+
+runs phase 1, the parity cases of kernels H, I and J and phases 12 and 13
+alone, the W ranks spread over every visible card (one each on a host with
+four), and prints no `kernels` line.
 """
 
 import json
@@ -96,6 +137,8 @@ import deepspeed_tpu_torch as dst
 from deepspeed_tpu_torch.models import GPT2Config, GPT2Model
 from deepspeed_tpu_torch.ops import (KERNELS, dispatch, launch_counts,
                                      op_builder, reset_launch_counts)
+from deepspeed_tpu_torch.ops import activations
+from deepspeed_tpu_torch.ops import collective_matmul as cm
 from deepspeed_tpu_torch.ops.flash_attention import (
     DEFAULT_MASK_VALUE, dropout_keep_mask, flash_attention_bwd_dkdv_cuda,
     flash_attention_bwd_dq_cuda, flash_attention_bwd_reference,
@@ -114,6 +157,8 @@ from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_flash import (
     block_sparse_flash_bwd_dkdv_cuda, block_sparse_flash_bwd_dq_cuda,
     block_sparse_flash_bwd_reference, block_sparse_flash_fwd_cuda,
     block_sparse_flash_fwd_reference)
+from deepspeed_tpu_torch.parallel import MeshContext
+from deepspeed_tpu_torch.runtime.comm import low_bandwidth as lb
 from deepspeed_tpu_torch.runtime.weight_quantizer import quantize_weight
 
 # H100 SXM, NVIDIA data sheet (dense): device memory rate and the peak
@@ -159,6 +204,19 @@ BENCH_LONGSEQ_CONFIG = {
     "zero_optimization": {"stage": 2},
     "steps_per_print": 10 ** 9,
 }
+
+
+# the collective tier: W logical ranks on the one card, bench_gpt2's 8 x 1024
+# tokens spread over them, GPT-2 124M's three row-sharded matrices [K, N]
+FCM_WORLD, FCM_ROWS, FCM_BLOCK = 4, 2048, lb.DEFAULT_BLOCK
+FCM_MATRICES = {"c_attn": (768, 2304), "c_fc": (768, 3072),
+                "c_proj": (3072, 768)}
+FCM_BITS = ((8, 8), (4, 4), (0, 0))  # (qwz, qgz)
+FCM_STEPS = 6  # steps the error buffers are carried over
+FCM_TIMED_RUNS = 10
+FCM_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# one-step rule: the share of elements that may lie a quantization step off
+FCM_FAR_SHARE = 1e-3
 
 
 class SmokeFailure(Exception):
@@ -646,6 +704,246 @@ def case_block_sparse(kind, b, h, s, d, block, dtype, causal, fused=False):
         "library": "SDPA, layout as a boolean mask", "launches": launches}
 
 
+# --------------------------------------------------------------------- #
+# parity of kernels H, I and J
+# --------------------------------------------------------------------- #
+def fcm_payload(kc, n, bits, dtype, seed):
+    """A [kc, n] weight shard in `dtype` and its ring payload (q, scales)
+    at `bits` (0: the native shard)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = (torch.randn(kc, n, device="cuda", generator=g) / 8).to(dtype)
+    q, s = cm._quantize_shard(w, bits, FCM_BLOCK)
+    return q.contiguous(), s
+
+
+def payload_bytes(q, s):
+    return q.numel() * q.element_size() + (0 if s is None else s.numel() * 4)
+
+
+def fcm_case_name(m, kc, n, bits, dtype):
+    payload = {8: "int8", 4: "int4", 0: "native"}[bits]
+    return f"m={m} tile [{kc},{n}] {payload} {_dtname(dtype)}"
+
+
+def fcm_result(name, out, ref, tol, nbytes, ops, dtype, kernel, plain,
+               library):
+    torch.cuda.synchronize()
+    err = rel_err(out.float(), ref.float())
+    b_ms, b_by = bound_ms(nbytes, ops, dtype)
+    return {"case": name, "ok": err <= tol,
+            "tolerance": f"max|d|/max|ref| <= {tol}", "rel_err": err,
+            "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+            **timings(kernel, plain, library), "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def case_fcm_tile_ag(m, kc, n, bits, dtype):
+    """Kernel H, forward tile, on a column block of x [m, 4 kc]."""
+    q, s = fcm_payload(kc, n, bits, dtype, kc + n + bits)
+    g = torch.Generator(device="cuda").manual_seed(m + bits)
+    x = torch.randn(m, FCM_WORLD * kc, device="cuda",
+                    generator=g).to(dtype)[:, kc:2 * kc]
+    args = (x, q, s, bits, kc, n)
+    dense = cm._dequant_tile(q, s, kc, n, bits).to(dtype)
+    nbytes = x.numel() * x.element_size() + payload_bytes(q, s) + m * n * 4
+    return fcm_result(
+        fcm_case_name(m, kc, n, bits, dtype), cm.fcm_tile_ag_cuda(*args),
+        cm.fcm_tile_ag_reference(*args), FCM_TOL[dtype], nbytes,
+        2 * m * kc * n, dtype, lambda: cm.fcm_tile_ag_cuda(*args),
+        lambda: cm.fcm_tile_ag_reference(*args),
+        lambda: torch.matmul(x, dense))
+
+
+def case_fcm_tile_ag_t(m, kc, n, bits, dtype):
+    """Kernel H, transposed tile: g [m, n] @ deq^T -> [m, kc]."""
+    q, s = fcm_payload(kc, n, bits, dtype, kc + n + bits + 1)
+    gen = torch.Generator(device="cuda").manual_seed(m + bits + 1)
+    g = torch.randn(m, n, device="cuda", generator=gen).to(dtype)
+    args = (g, q, s, bits, kc, n)
+    dense_t = cm._dequant_tile(q, s, kc, n, bits).to(dtype).t()
+    nbytes = g.numel() * g.element_size() + payload_bytes(q, s) + m * kc * 4
+    return fcm_result(
+        fcm_case_name(m, kc, n, bits, dtype), cm.fcm_tile_ag_t_cuda(*args),
+        cm.fcm_tile_ag_t_reference(*args), FCM_TOL[dtype], nbytes,
+        2 * m * kc * n, dtype, lambda: cm.fcm_tile_ag_t_cuda(*args),
+        lambda: cm.fcm_tile_ag_t_reference(*args),
+        lambda: torch.matmul(g, dense_t))
+
+
+def rs_operands(b, kc, n, dtype, seed):
+    """a: a column block of lhs [b, 4 kc]; rhs [b, n]."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lhs = torch.randn(b, FCM_WORLD * kc, device="cuda", generator=g).to(dtype)
+    rhs = torch.randn(b, n, device="cuda", generator=g).to(dtype)
+    return lhs[:, kc:2 * kc], rhs
+
+
+def case_fcm_tile_rs(b, kc, n, dtype):
+    """Kernel H, producer tile: a [b, kc]^T @ rhs [b, n] -> [kc, n]."""
+    a, rhs = rs_operands(b, kc, n, dtype, b + kc + n)
+    nbytes = (a.numel() + rhs.numel()) * a.element_size() + kc * n * 4
+    return fcm_result(
+        f"rows={b} tile [{kc},{n}] {_dtname(dtype)}",
+        cm.fcm_tile_rs_cuda(a, rhs), cm.fcm_tile_rs_reference(a, rhs),
+        FCM_TOL[dtype], nbytes, 2 * b * kc * n, dtype,
+        lambda: cm.fcm_tile_rs_cuda(a, rhs),
+        lambda: cm.fcm_tile_rs_reference(a, rhs),
+        lambda: torch.matmul(a.t(), rhs))
+
+
+def case_fcm_ag_step(m, kc, n, bits, dtype, last):
+    """Kernel I, a forward step that reads the accumulator and writes it
+    back, or (last) writes the cast sum."""
+    q, s = fcm_payload(kc, n, bits, dtype, kc + n + bits + 2)
+    g = torch.Generator(device="cuda").manual_seed(m + bits + 2)
+    x = torch.randn(m, FCM_WORLD * kc, device="cuda",
+                    generator=g).to(dtype)[:, kc:2 * kc]
+    start = torch.randn(m, n, device="cuda", generator=g)
+    outs = []
+    for fn in (cm.fcm_ag_step_cuda, cm.fcm_ag_step_reference):
+        acc = start.clone()
+        out = torch.empty(m, n, device="cuda", dtype=dtype)
+        fn(x, q, s, bits, kc, n, acc, out, False, last)
+        outs.append(out if last else acc)
+    acc = start.clone()
+    out = torch.empty(m, n, device="cuda", dtype=dtype)
+    args = (x, q, s, bits, kc, n, acc, out, False, last)
+    dense = cm._dequant_tile(q, s, kc, n, bits).to(dtype)
+    moved = m * n * (4 + (x.element_size() if last else 4))
+    nbytes = x.numel() * x.element_size() + payload_bytes(q, s) + moved
+    return fcm_result(
+        fcm_case_name(m, kc, n, bits, dtype)
+        + (" last step (cast)" if last else " accumulate"),
+        outs[0], outs[1], FCM_TOL[dtype], nbytes, 2 * m * kc * n, dtype,
+        lambda: cm.fcm_ag_step_cuda(*args),
+        lambda: cm.fcm_ag_step_reference(*args),
+        lambda: torch.matmul(x, dense))
+
+
+def case_fcm_ag_step_t(m, kc, n, bits, dtype):
+    """Kernel I, transposed step: the column block src * kc of dx."""
+    q, s = fcm_payload(kc, n, bits, dtype, kc + n + bits + 3)
+    gen = torch.Generator(device="cuda").manual_seed(m + bits + 3)
+    g = torch.randn(m, n, device="cuda", generator=gen).to(dtype)
+    outs = []
+    for fn in (cm.fcm_ag_step_t_cuda, cm.fcm_ag_step_t_reference):
+        dx = torch.zeros(m, FCM_WORLD * kc, device="cuda", dtype=dtype)
+        fn(g, q, s, bits, kc, n, dx[:, 2 * kc:3 * kc])
+        outs.append(dx)
+    dx = outs[0]
+    args = (g, q, s, bits, kc, n, dx[:, 2 * kc:3 * kc])
+    dense_t = cm._dequant_tile(q, s, kc, n, bits).to(dtype).t()
+    nbytes = (g.numel() + m * kc) * g.element_size() + payload_bytes(q, s)
+    res = fcm_result(
+        fcm_case_name(m, kc, n, bits, dtype) + " transposed",
+        outs[0], outs[1], FCM_TOL[dtype], nbytes, 2 * m * kc * n, dtype,
+        lambda: cm.fcm_ag_step_t_cuda(*args),
+        lambda: cm.fcm_ag_step_t_reference(*args),
+        lambda: torch.matmul(g, dense_t))
+    untouched = bool((dx[:, :2 * kc] == 0).all() and (dx[:, 3 * kc:] == 0).all())
+    return {**res, "ok": res["ok"] and untouched,
+            "other_columns_untouched": untouched}
+
+
+def one_step_rule(got, ref, steps, rtol, magnitude=None):
+    """Where a quantizer follows a product: the elements that differ by
+    more than rtol (of the value, or of the step where the value is
+    smaller) must be at most FCM_FAR_SHARE of all and each differ by at
+    most `steps`.  An error residual is a small difference of the product
+    and its dequantized value, so it is held relative to the product,
+    passed as `magnitude`.  Returns (ok, share far, worst difference in
+    steps)."""
+    got, ref = got.float(), ref.float()
+    diff = (got - ref).abs()
+    size = ref.abs() if magnitude is None else magnitude.abs()
+    far = diff > rtol * torch.maximum(size, steps)
+    share = far.float().mean().item()
+    worst = (diff[far] / steps[far]).max().item() if far.any() else 0.0
+    finite = bool(torch.isfinite(got).all())
+    return (finite and share <= FCM_FAR_SHARE and worst <= 1 + 1e-3, share,
+            worst)
+
+
+def case_fcm_rs_producer(b, kc, n, dtype):
+    """Kernel J's producer against its twin by the one-step rule, and
+    bitwise against the twin's quantizer fed the kernel's own compensated
+    tile."""
+    a, rhs = rs_operands(b, kc, n, dtype, b + kc + n + 1)
+    g = torch.Generator(device="cuda").manual_seed(kc)
+    err = 0.1 * torch.randn(kc, n, device="cuda", generator=g)
+    bs = lb.largest_divisor_at_most(kc * n, FCM_BLOCK)
+    nb = kc * n // bs
+
+    def run(fn, comp=None):
+        q = torch.empty(nb, bs, dtype=torch.int8, device="cuda")
+        s = torch.empty(1, nb, device="cuda")
+        nerr = torch.empty(kc, n, device="cuda")
+        fn(a, rhs, err, q, s, nerr, bs, comp)
+        return q, s, nerr
+
+    comp = torch.empty(kc, n, device="cuda")
+    q, s, nerr = run(cm.fcm_rs_producer_cuda, comp)
+    tq, ts, tnerr = run(cm.fcm_rs_producer_reference)
+    oq, os_, onerr = cm.quantize_tile_reference(comp, bs)
+    torch.cuda.synchronize()
+    own_tile_bitwise = bool((oq == q).all() and (os_ == s).all()
+                            and (onerr == nerr).all())
+    steps = ts.reshape(nb, 1).expand(nb, bs).reshape(kc, n)
+    deq = (q.float() * s.reshape(nb, 1)).reshape(kc, n)
+    tdeq = (tq.float() * ts.reshape(nb, 1)).reshape(kc, n)
+    ok_q, share, worst = one_step_rule(deq, tdeq, steps, 1e-4)
+    ok_e, share_e, worst_e = one_step_rule(nerr, tnerr, steps, 1e-4,
+                                           magnitude=tdeq + tnerr)
+    nbytes = ((a.numel() + rhs.numel()) * a.element_size()
+              + kc * n * (4 + 1 + 4) + nb * 4)
+    b_ms, b_by = bound_ms(nbytes, 2 * b * kc * n, dtype)
+    return {
+        "case": f"rows={b} tile [{kc},{n}] block {bs} {_dtname(dtype)}",
+        "ok": ok_q and ok_e and own_tile_bitwise,
+        "tolerance": "one-step rule (1e-4) on deq(q, scale) and new_error "
+                     "against the twin; bitwise against the twin's quantizer "
+                     "on the kernel's own tile",
+        "own_tile_bitwise": own_tile_bitwise, "far_share": max(share, share_e),
+        "worst_steps": max(worst, worst_e),
+        "max_abs_err": (deq - tdeq).abs().max().item(),
+        **timings(lambda: run(cm.fcm_rs_producer_cuda),
+                  lambda: run(cm.fcm_rs_producer_reference),
+                  lambda: torch.matmul(a.t(), rhs)),
+        "bound_ms": b_ms, "bound_by": b_by}
+
+
+def case_fcm_rs_collect(kc, n):
+    """Kernel J's collect, bitwise against the ordered sum of its twin, on
+    tables the producer kernel wrote."""
+    bs = lb.largest_divisor_at_most(kc * n, FCM_BLOCK)
+    nb = kc * n // bs
+    qtab = torch.empty(FCM_WORLD, nb, bs, dtype=torch.int8, device="cuda")
+    stab = torch.empty(FCM_WORLD, 1, nb, device="cuda")
+    for src in range(FCM_WORLD):
+        a, rhs = rs_operands(256, kc, n, torch.bfloat16, src + kc)
+        cm.fcm_rs_producer_cuda(a, rhs, None, qtab[src], stab[src], None, bs)
+    out = cm.fcm_rs_collect_cuda(qtab, stab, kc, n)
+    ref = cm.fcm_rs_collect_reference(qtab, stab, kc, n)
+    torch.cuda.synchronize()
+    bitwise = bool((out == ref).all())
+    nbytes = FCM_WORLD * (kc * n + nb * 4) + kc * n * 4
+    b_ms, b_by = bound_ms(nbytes, 2 * FCM_WORLD * kc * n, torch.float32)
+    kernel = lambda: cm.fcm_rs_collect_cuda(qtab, stab, kc, n)  # noqa: E731
+    plain = lambda: cm.fcm_rs_collect_reference(qtab, stab, kc, n)  # noqa: E731
+    return {"case": f"W={FCM_WORLD} tile [{kc},{n}] block {bs}",
+            "ok": bitwise, "tolerance": "bitwise", "bitwise": bitwise,
+            "max_abs_err": (out - ref).abs().max().item(),
+            "ms": time_ms(kernel), "plain_ms": time_ms(plain),
+            "library_ms": None, "host_us": host_us(kernel),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+FCM_TILES = [(k // FCM_WORLD, n) for k, n in FCM_MATRICES.values()]
+FCM_DTYPES = (torch.bfloat16, torch.float32)
+FCM_PRIMARY_TILE = (FCM_MATRICES["c_fc"][0] // FCM_WORLD,
+                    FCM_MATRICES["c_fc"][1])
+
+
 PARITY_CASES = {
     "layer_norm_fwd": (case_layer_norm, [
         (rows, dt) for rows in (1024, 8)
@@ -693,6 +991,33 @@ PARITY_CASES = {
            for causal in (True, False)]
         + [("bigbird", 2, 4, 1024, 128, 128, torch.bfloat16, True),
            ("empty-causal-row", 2, 2, 256, 64, 64, torch.float32, True)]),
+    # kernel H: its three launchers at the tiles of the three matrices,
+    # every payload layout, both operand types
+    "fcm_tile_ag": (case_fcm_tile_ag, [
+        (FCM_ROWS, kc, n, bits, dt) for kc, n in FCM_TILES
+        for bits in (8, 4, 0) for dt in FCM_DTYPES]),
+    "fcm_tile_ag_t": (case_fcm_tile_ag_t, [
+        (FCM_ROWS, kc, n, bits, dt) for kc, n in FCM_TILES
+        for bits in (8, 4, 0) for dt in FCM_DTYPES]),
+    "fcm_tile_rs": (case_fcm_tile_rs, [
+        (FCM_ROWS, kc, n, dt) for kc, n in FCM_TILES for dt in FCM_DTYPES]),
+    # kernel I: a step that accumulates and the last step's cast (int8 at
+    # every tile; int4 and native at c_fc's), and the transposed step
+    "fcm_ag_step": (case_fcm_ag_step, [
+        (FCM_ROWS, kc, n, 8, dt, last) for kc, n in FCM_TILES
+        for dt in FCM_DTYPES for last in (False, True)]
+        + [(FCM_ROWS, *FCM_PRIMARY_TILE, bits, torch.bfloat16, False)
+           for bits in (4, 0)]),
+    "fcm_ag_step_t": (case_fcm_ag_step_t, [
+        (FCM_ROWS, kc, n, 8, dt) for kc, n in FCM_TILES for dt in FCM_DTYPES]
+        + [(FCM_ROWS, *FCM_PRIMARY_TILE, bits, torch.bfloat16)
+           for bits in (4, 0)]),
+    # kernel J: the producer (and an odd shape whose blocks do not fit the
+    # epilogue's tile: the second launch quantizes) and the collect
+    "fcm_rs_producer": (case_fcm_rs_producer, [
+        (FCM_ROWS, kc, n, dt) for kc, n in FCM_TILES for dt in FCM_DTYPES]
+        + [(70, 33, 50, torch.float32)]),
+    "fcm_rs_collect": (case_fcm_rs_collect, FCM_TILES + [(33, 50)]),
 }
 # ds_dequant_matmul_route's codes: the kernel csrc/dequant_matmul.cu takes
 DEQUANT_ROUTES = ("gemv", "mma", "tiled")
@@ -707,7 +1032,16 @@ PRIMARY = {"layer_norm_fwd": (1024, torch.bfloat16),
            "layer_norm_bwd": (TRAIN_BATCH * TRAIN_SEQ, torch.bfloat16),
            "flash_attention_bwd": (TRAIN_BATCH, 12, TRAIN_SEQ, 64, True,
                                    torch.bfloat16, True, DROPOUT),
-           "block_sparse_flash": PARITY_CASES["block_sparse_flash"][1][0]}
+           "block_sparse_flash": PARITY_CASES["block_sparse_flash"][1][0],
+           # kernels H, I, J: c_fc's tile, int8 payload, bf16 operands
+           "fcm_tile_ag": (FCM_ROWS, *FCM_PRIMARY_TILE, 8, torch.bfloat16),
+           "fcm_tile_ag_t": (FCM_ROWS, *FCM_PRIMARY_TILE, 8, torch.bfloat16),
+           "fcm_tile_rs": (FCM_ROWS, *FCM_PRIMARY_TILE, torch.bfloat16),
+           "fcm_ag_step": (FCM_ROWS, *FCM_PRIMARY_TILE, 8, torch.bfloat16,
+                           False),
+           "fcm_ag_step_t": (FCM_ROWS, *FCM_PRIMARY_TILE, 8, torch.bfloat16),
+           "fcm_rs_producer": (FCM_ROWS, *FCM_PRIMARY_TILE, torch.bfloat16),
+           "fcm_rs_collect": FCM_PRIMARY_TILE}
 # the KERNELS entries a group of parity cases reports for
 REPORTS_FOR = {"flash_attention_fwd_dropout": ("flash_attention_fwd",),
                "flash_attention_bwd": ("flash_attention_bwd_dkdv",
@@ -1153,8 +1487,460 @@ def phase_train_longseq(state):
                           LONG_WARMUP, LONG_ITERS)
 
 
+# --------------------------------------------------------------------- #
+# phases 12 and 13: the low-bandwidth collective tier on W logical ranks
+# --------------------------------------------------------------------- #
+def fcm_inputs(shape, dtype, seed, scale=1.0):
+    """One [*shape] tensor per rank from a CPU generator, in `dtype`; the
+    ranks' data differ."""
+    g = torch.Generator().manual_seed(seed)
+    return [(scale * torch.randn(*shape, generator=g)).to(dtype)
+            for _ in range(FCM_WORLD)]
+
+
+def on_card(mesh, tensors, grad=False):
+    """Rank r's tensor on rank r's device."""
+    out = [t.detach().to(mesh.device_of(r)) for r, t in enumerate(tensors)]
+    return [t.requires_grad_() for t in out] if grad else out
+
+
+def sync_all():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def on_cpu(tensors, grad=False):
+    out = [t.detach().cpu() for t in tensors]
+    return [t.requires_grad_() for t in out] if grad else out
+
+
+def counted(fn, **expected):
+    """fn() with its launch counts held exactly to `expected` (every other
+    kernel 0)."""
+    before = launch_counts()
+    out = fn()
+    delta = {k: v - before[k] for k, v in launch_counts().items()}
+    check(delta == expected_counts(**expected),
+          f"launch counts {delta}, expected {expected}")
+    return out
+
+
+def worst_rel(got, ref):
+    """max over the ranks of max|d| / max|ref|, the reference on the CPU."""
+    return max(rel_err(g.detach().float().cpu(), r.detach().float())
+               for g, r in zip(got, ref))
+
+
+def scatter_steps(tiles, bits):
+    """Per destination rank, how far its reduce-scattered chunk may move
+    when rounds flip: the sum over the sources of the scale of the
+    element's block, from the sources' exact [K, N] fp32 tiles.  Also each
+    source's own steps [K, N] (for its error residual)."""
+    k, n = tiles[0].shape
+    kc = k // FCM_WORLD
+    own = []
+    for tile in tiles:
+        _, s = lb.blockwise_quantize(tile.reshape(FCM_WORLD, kc, n), dim=0,
+                                     bits=bits, block=FCM_BLOCK)
+        bs = kc * n // s.shape[1]
+        own.append(s.repeat_interleave(bs, dim=1).reshape(FCM_WORLD, kc, n))
+    chunk = [sum(o[d].to(own[d].device) for o in own)
+             for d in range(FCM_WORLD)]
+    return chunk, [o.reshape(k, n) for o in own]
+
+
+def hold_one_step(what, got, ref, steps, rtol, stats, magnitude=None):
+    """The one-step rule over the ranks; the reference is on the CPU."""
+    for r in range(FCM_WORLD):
+        ok, share, worst = one_step_rule(
+            got[r], ref[r].to(got[r].device), steps[r], rtol,
+            None if magnitude is None else magnitude[r])
+        stats["far_share"] = max(stats.get("far_share", 0.0), share)
+        stats["worst_steps"] = max(stats.get("worst_steps", 0.0), worst)
+        check(ok, f"{what}, rank {r}: {share:.2e} of the elements differ by "
+                  f"more than {rtol}, the worst by {worst:.3f} steps")
+
+
+def ag_launches(route, qgz):
+    """Exact launch counts of one fused_allgather_matmul forward and of its
+    backward at W = 4 (W steps on each of W ranks)."""
+    n = FCM_WORLD * FCM_WORLD
+    if route == "per_tile":
+        return dict(fcm_tile_ag=n), dict(fcm_tile_ag_t=n, fcm_tile_rs=n)
+    if qgz == 8:
+        return dict(fcm_ag_step=n), dict(fcm_ag_step_t=n, fcm_rs_producer=n,
+                                         fcm_rs_collect=FCM_WORLD)
+    return dict(fcm_ag_step=n), dict(fcm_ag_step_t=n, fcm_tile_rs=n)
+
+
+def sum_of_squares(ys):
+    """The sum over the ranks of sum(y ** 2), on the first rank's device."""
+    return sum((t.float() ** 2).sum().to(ys[0].device) for t in ys)
+
+
+def run_ag(mesh, x, w, qwz, qgz, per_tile, counts=None):
+    """y, dx, dW of loss = sum of squares through fused_allgather_matmul."""
+    fwd, bwd = counts if counts else (None, None)
+    op = lambda: cm.fused_allgather_matmul(  # noqa: E731
+        x, w, "data", qwz, qgz, FCM_BLOCK, per_tile, mesh=mesh)
+    y = counted(op, **fwd) if fwd else op()
+    loss = sum_of_squares(y)
+    if bwd:
+        counted(loss.backward, **bwd)
+    else:
+        loss.backward()
+    return ([t.detach() for t in y], [t.grad for t in x], [t.grad for t in w])
+
+
+def fcm_allgather_matmul(mesh, cpu, name, dtype, qwz, qgz):
+    """fused_allgather_matmul forward and backward at one matrix, both
+    routes on the card, against the CPU mesh."""
+    k, n = FCM_MATRICES[name]
+    seed = k + n + qwz
+    x = fcm_inputs((FCM_ROWS, k), dtype, seed)
+    w = fcm_inputs((k // FCM_WORLD, n), dtype, seed + 1, scale=0.05)
+    ref = run_ag(cpu, on_cpu(x, True), on_cpu(w, True), qwz, qgz, None)
+    tol = FCM_TOL[dtype]
+    stats = {"case": f"{name} {_dtname(dtype)} qwz={qwz} qgz={qgz}"}
+    got = {}
+    for route, per_tile in (("fused", None), ("per_tile", True)):
+        got[route] = y, dx, dw = run_ag(
+            mesh, on_card(mesh, x, True), on_card(mesh, w, True), qwz, qgz,
+            per_tile,
+            ag_launches(route, qgz))
+        sync_all()
+        for what, a, b in (("y", y, ref[0]), ("dx", dx, ref[1])):
+            err = worst_rel(a, b)
+            stats[f"{route}_{what}_rel_err"] = err
+            check(err <= tol, f"{stats['case']} {route} {what}: {err}")
+        if qgz:
+            # dW sums W quantized tiles x_r^T g_r, g_r the loss's grad.  The
+            # reference takes the card's own g_r, so that a bf16 rounding of
+            # y that fell the other way does not pass for a flipped round
+            grads = [(2 * t.float()).to(dtype) for t in y]
+            tiles = [a.float().t() @ g.float()
+                     for a, g in zip(on_card(mesh, x), grads)]
+            steps, _ = scatter_steps(tiles, qgz)
+            ref_dw, _ = cm.fused_matmul_reduce_scatter(
+                x, on_cpu(grads), None, "data", qgz, FCM_BLOCK, mesh=cpu)
+            hold_one_step(f"{stats['case']} {route} dW", dw,
+                          [t.to(dtype) for t in ref_dw], steps, tol, stats)
+        else:
+            err = worst_rel(dw, ref[2])
+            stats[f"{route}_dw_rel_err"] = err
+            check(err <= tol, f"{stats['case']} {route} dW: {err}")
+    stats["routes_bitwise"] = all(
+        torch.equal(a, b) for f, p in zip(got["fused"], got["per_tile"])
+        for a, b in zip(f, p))
+    return stats
+
+
+def fcm_matmul_reduce_scatter(mesh, cpu, name, dtype, qgz):
+    """fused_matmul_reduce_scatter over FCM_STEPS steps with the error
+    buffers carried on the card; at every step the CPU mesh is fed the
+    card's buffers, so that a flipped round does not compound."""
+    k, n = FCM_MATRICES[name]
+    kc = k // FCM_WORLD
+    lhs = fcm_inputs((FCM_ROWS, k), dtype, k + qgz)
+    rhs = fcm_inputs((FCM_ROWS, n), dtype, n + qgz)
+    clhs, crhs = on_card(mesh, lhs), on_card(mesh, rhs)
+    tiles = [a.float().t() @ b.float() for a, b in zip(clhs, crhs)]
+    exact = sum(t.cpu() for t in tiles)
+    err = [torch.zeros(k, n, device=mesh.device_of(r))
+           for r in range(FCM_WORLD)]
+    fused = qgz == 8
+    expected = (dict(fcm_rs_producer=FCM_WORLD * FCM_WORLD,
+                     fcm_rs_collect=FCM_WORLD) if fused
+                else dict(fcm_tile_rs=FCM_WORLD * FCM_WORLD))
+    stats = {"case": f"{name} {_dtname(dtype)} qgz={qgz}",
+             "route": "fused (kernel J)" if fused else "per-tile (kernel H)"}
+    total, first = 0, None
+    for step in range(FCM_STEPS):
+        ref_chunk, ref_err = cm.fused_matmul_reduce_scatter(
+            lhs, rhs, on_cpu(err), "data", qgz, FCM_BLOCK, mesh=cpu)
+        chunk, new_err = counted(
+            lambda: cm.fused_matmul_reduce_scatter(
+                clhs, crhs, err, "data", qgz, FCM_BLOCK, mesh=mesh),
+            **expected)
+        sync_all()
+        what = f"{stats['case']} step {step}"
+        if qgz:
+            comp = [t + e for t, e in zip(tiles, err)]
+            steps, own = scatter_steps(comp, qgz)
+            hold_one_step(what + " chunk", chunk, ref_chunk, steps, 1e-4,
+                          stats)
+            hold_one_step(what + " new_error", new_err, ref_err, own, 1e-4,
+                          stats, magnitude=comp)
+        else:
+            e = worst_rel(chunk, ref_chunk)
+            stats["rel_err"] = max(stats.get("rel_err", 0.0), e)
+            check(e <= 1e-4, f"{what} chunk: {e}")
+            check(all(bool((t == 0).all()) for t in new_err),
+                  f"{what}: the error buffer left zero at 0 bits")
+        got = torch.cat([c.cpu() for c in chunk])
+        total = total + got
+        first = got if first is None else first
+        err = new_err
+    if qgz:
+        err1 = (first - exact).abs().max().item()
+        err6 = (total / FCM_STEPS - exact).abs().max().item()
+        stats.update(err_first_step=err1, err_mean_of_steps=err6)
+        check(err6 < err1 / 2, f"{stats['case']}: the mean of "
+              f"{FCM_STEPS} steps is off by {err6}, the first by {err1}")
+    return stats
+
+
+def fcm_transports(mesh, dtype):
+    """Layer 2 on the card: the per-tile transports bitwise against the
+    modular functions, forward and backward, at c_fc's shard and dW."""
+    k, n = FCM_MATRICES["c_fc"]
+    w = fcm_inputs((k // FCM_WORLD, n), dtype, 11, scale=0.05)
+    same = lambda a, b: all(torch.equal(s, t.to(s.device))  # noqa: E731
+                            for s, t in zip(a, b))
+    first = mesh.device_of(0)
+    stack = lambda ts: torch.stack([t.to(first) for t in ts])  # noqa: E731
+    stats = {"case": f"c_fc {_dtname(dtype)}"}
+    for qwz, qgz in FCM_BITS:
+        grads = {}
+        for fn in (cm.fcm_all_gather, lb.low_bandwidth_all_gather):
+            ws = on_card(mesh, w, True)
+            full = fn(ws, ("data",), 0, qwz, qgz, FCM_BLOCK, mesh=mesh)
+            sum_of_squares(full).backward()
+            grads[fn] = ([t.detach() for t in full], [t.grad for t in ws])
+        sync_all()
+        fused, modular = grads[cm.fcm_all_gather], \
+            grads[lb.low_bandwidth_all_gather]
+        check(same(fused[0], modular[0]),
+              f"fcm_all_gather forward differs at ({qwz}, {qgz}) {dtype}")
+        if qgz:
+            check(same(fused[1], modular[1]),
+                  f"fcm_all_gather backward differs at ({qwz}, {qgz})")
+        else:  # psum_scatter's order is its own: fp32 rounding of 4 terms
+            e = max(rel_err(a.float(), b.float())
+                    for a, b in zip(fused[1], modular[1]))
+            check(e <= FCM_TOL[dtype], f"fcm_all_gather fp32 backward: {e}")
+    dw = on_card(mesh, fcm_inputs((k, n), torch.float32, 12))
+    for bits in (8, 4):
+        check(same(cm.fcm_reduce_scatter(dw, ("data",), 0, bits, FCM_BLOCK,
+                                         mesh=mesh),
+                   lb.quantized_psum_scatter(dw, ("data",), 0, bits,
+                                             FCM_BLOCK, mesh=mesh)),
+              f"fcm_reduce_scatter differs at {bits} bits")
+        ferr = merr = serr = lb.init_error_feedback(dw)
+        for step in range(FCM_STEPS):
+            fred, ferr = cm.fcm_qgz_reduce_scatter_inner(
+                dw, ferr, "data", 0, bits, FCM_BLOCK, mesh=mesh)
+            mred, merr = lb.qgz_reduce_scatter_inner(
+                dw, merr, "data", 0, bits, FCM_BLOCK, mesh=mesh)
+            sred, serr_t = lb.qgz_reduce_scatter(
+                stack(dw), stack(serr), mesh, "data", bits, FCM_BLOCK)
+            serr = list(serr_t.unbind(0))
+            check(same(fred, mred) and same(ferr, merr)
+                  and same(list(sred.unbind(0)), mred) and same(serr, merr),
+                  f"qgz reduce-scatter variants differ at {bits} bits, "
+                  f"step {step}")
+    e = max(rel_err(a, b) for a, b in zip(
+        cm.fcm_reduce_scatter(dw, ("data",), 0, 0, FCM_BLOCK, mesh=mesh),
+        lb.f32_psum_scatter(dw, ("data",), 0, mesh=mesh)))
+    check(e <= 1e-6, f"fcm_reduce_scatter at 0 bits vs f32_psum_scatter: {e}")
+    sync_all()
+    stats["bitwise"] = True
+    return stats
+
+
+def mlp_slice(mesh, x, w_fc, w_proj, per_tile=None, counts=False):
+    """c_fc -> gelu -> c_proj through two fused_allgather_matmul calls,
+    loss = sum of squares, backward.  Returns the per-rank losses, dx and
+    the dW shards of both matrices."""
+    n = FCM_WORLD * FCM_WORLD
+    fwd = dict(fcm_ag_step=n) if counts else None
+    op = lambda a, w: cm.fused_allgather_matmul(  # noqa: E731
+        a, w, "data", 8, 0, FCM_BLOCK, per_tile, mesh=mesh)
+    h = counted(lambda: op(x, w_fc), **fwd) if counts else op(x, w_fc)
+    act = [activations.gelu(t) for t in h]
+    y = counted(lambda: op(act, w_proj), **fwd) if counts else op(act, w_proj)
+    losses = [(t.float() ** 2).sum() for t in y]
+    total = sum(t.to(losses[0].device) for t in losses)
+    if counts:
+        counted(total.backward, fcm_ag_step_t=2 * n, fcm_tile_rs=2 * n)
+    else:
+        total.backward()
+    return ([t.detach() for t in losses], [t.grad for t in x],
+            [t.grad for t in w_fc], [t.grad for t in w_proj])
+
+
+def fcm_slice(mesh, cpu, dtype):
+    hidden = FCM_MATRICES["c_fc"][0]
+    x = fcm_inputs((FCM_ROWS, hidden), dtype, 21)
+    w_fc = fcm_inputs((hidden // FCM_WORLD, 4 * hidden), dtype, 22, scale=0.02)
+    w_proj = fcm_inputs((4 * hidden // FCM_WORLD, hidden), dtype, 23,
+                        scale=0.02)
+    ref = mlp_slice(cpu, *(on_cpu(t, True) for t in (x, w_fc, w_proj)))
+    got = mlp_slice(mesh, *(on_card(mesh, t, True)
+                            for t in (x, w_fc, w_proj)),
+                    counts=True)
+    sync_all()
+    stats = {"case": f"c_fc -> gelu -> c_proj {_dtname(dtype)}"}
+    for what, a, b in zip(("loss", "dx", "dw_fc", "dw_proj"), got, ref):
+        check(all(bool(torch.isfinite(t.float()).all()) for t in a),
+              f"slice {what}: not finite")
+        stats[f"{what}_rel_err"] = err = worst_rel(a, b)
+        check(err <= FCM_TOL[dtype], f"slice {dtype} {what}: {err}")
+    return stats
+
+
+def phase_fcm_ops():
+    mesh = MeshContext.create(data=FCM_WORLD)
+    cpu = MeshContext.create(data=FCM_WORLD, devices=["cpu"])
+    check(mesh.world_size == FCM_WORLD and mesh.is_cuda,
+          f"the mesh is {mesh}")
+    reset_launch_counts()
+    results = []
+    for name in FCM_MATRICES:
+        for dtype in FCM_DTYPES:
+            for qwz, qgz in FCM_BITS:
+                results.append(fcm_allgather_matmul(mesh, cpu, name, dtype,
+                                                    qwz, qgz))
+                emit({"phase": "fcm_ops", "op": "fused_allgather_matmul",
+                      **results[-1]})
+            for _, qgz in FCM_BITS:
+                results.append(fcm_matmul_reduce_scatter(mesh, cpu, name,
+                                                         dtype, qgz))
+                emit({"phase": "fcm_ops",
+                      "op": "fused_matmul_reduce_scatter", **results[-1]})
+    for dtype in FCM_DTYPES:
+        for fn, op in ((fcm_transports, "transports"), (fcm_slice, "slice")):
+            args = (mesh, dtype) if fn is fcm_transports else (mesh, cpu,
+                                                               dtype)
+            emit({"phase": "fcm_ops", "op": op, **fn(*args)})
+    counts = launch_counts()
+    return counts, {
+        "mesh": repr(mesh), "cases": len(results) + 2 * len(FCM_DTYPES),
+        "worst_far_share": max(r.get("far_share", 0.0) for r in results),
+        "worst_steps": max(r.get("worst_steps", 0.0) for r in results),
+        "routes_bitwise": all(r.get("routes_bitwise", True)
+                              for r in results),
+        "launches": {k: v for k, v in counts.items() if v}}
+
+
+def timed_all(fn):
+    """Wall seconds of fn(), every device synchronized at both ends."""
+    sync_all()
+    t0 = time.perf_counter()
+    fn()
+    sync_all()
+    return time.perf_counter() - t0
+
+
+def wall_ms(fns, runs=FCM_TIMED_RUNS):
+    """Median wall ms of each fn(), synchronized at both ends, the fns in
+    turns and the order reversed every round."""
+    names = list(fns)
+    for name in names:
+        fns[name]()
+    times = {name: [] for name in names}
+    for i in range(runs):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            times[name].append(timed_all(fns[name]) * 1e3)
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def copy_overlap_share(fn, calls=5):
+    """From a torch.profiler trace of `calls` fn(): the share of the
+    device-to-device copies' time that lay under a tile product, their
+    number and their total ms.  Only device activity is traced: tracing
+    the host's side as well slows the enqueueing, and the share depends on
+    how soon after a product's launch the host enqueues its copy."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            timed_all(fn)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = lambda pred: sorted(  # noqa: E731
+        (e.time_range.start, e.time_range.end) for e in events if pred(e.name))
+    copies = spans(lambda name: "memcpy" in name.lower())
+    products = spans(lambda name: "tile_matmul_kernel" in name)
+    if not copies or not products:
+        return {"copy_overlap": "not measured: the trace holds "
+                f"{len(copies)} copies and {len(products)} products"}
+    under = 0.0
+    for start, end in copies:
+        under += _union_us((max(start, ps), min(end, pe))
+                           for ps, pe in products if ps < end and pe > start)
+    total = sum(end - start for start, end in copies)
+    return {"calls": calls, "copies": len(copies), "copy_ms": total / 1e3,
+            "products": len(products),
+            "products_device_ms_per_call":
+                sum(e - s for s, e in products) / 1e3 / calls,
+            "copy_share_under_a_product": under / total}
+
+
+def phase_fcm_timing():
+    """Whole ops at W = 4 on the one card, c_fc in bf16 at 8 bits."""
+    mesh = MeshContext.create(data=FCM_WORLD)
+    k, n = FCM_MATRICES["c_fc"]
+    dtype = torch.bfloat16
+    x = on_card(mesh, fcm_inputs((FCM_ROWS, k), dtype, 31))
+    w = on_card(mesh, fcm_inputs((k // FCM_WORLD, n), dtype, 32, scale=0.05))
+    g = on_card(mesh, fcm_inputs((FCM_ROWS, n), dtype, 33))
+    err = [torch.zeros(k, n, device=mesh.device_of(r))
+           for r in range(FCM_WORLD)]
+
+    def ag(per_tile):
+        return cm.fused_allgather_matmul(x, w, "data", 8, 8, FCM_BLOCK,
+                                         per_tile, mesh=mesh)
+
+    def ag_yardstick():
+        full = lb.low_bandwidth_all_gather(w, ("data",), 0, 8, 8, FCM_BLOCK,
+                                           mesh=mesh)
+        return [torch.matmul(a, b) for a, b in zip(x, full)]
+
+    def rs(per_tile):
+        return cm.fused_matmul_reduce_scatter(x, g, err, "data", 8, FCM_BLOCK,
+                                              per_tile, mesh=mesh)
+
+    def rs_yardstick():
+        dw = [torch.matmul(a.t(), b).float() for a, b in zip(x, g)]
+        return lb.qgz_reduce_scatter_inner(dw, err, "data", 0, 8, FCM_BLOCK,
+                                           mesh=mesh)
+
+    with torch.no_grad():
+        ag_ms = wall_ms({"fused": lambda: ag(None),
+                         "per_tile": lambda: ag(True),
+                         "yardstick": ag_yardstick})
+        rs_ms = wall_ms({"fused": lambda: rs(None),
+                         "per_tile": lambda: rs(True),
+                         "yardstick": rs_yardstick})
+        overlap = copy_overlap_share(lambda: ag(None))
+    return None, {
+        "case": f"c_fc [{k},{n}] bf16, 8 bits, M={FCM_ROWS} per rank, "
+                f"W={FCM_WORLD} ranks on {len(mesh.devices)} card(s)",
+        "allgather_matmul_forward_ms": ag_ms,
+        "matmul_reduce_scatter_ms": rs_ms,
+        "yardstick": "low_bandwidth_all_gather then torch.matmul; "
+                     "torch.matmul then qgz_reduce_scatter_inner",
+        "fused_forward_trace": overlap}
+
+
+def last_line():
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
 def main():
     card = run_phase("device", phase_device)
+    if sys.argv[1:] == ["--fcm-only"]:
+        # only the collective tier, its ranks spread over every visible
+        # card (with four cards, one rank each)
+        for group in [g for g in PARITY_CASES if not g.startswith("fcm_")]:
+            del PARITY_CASES[group]
+        run_phase("parity", phase_parity)
+        run_phase("fcm_ops", phase_fcm_ops)
+        run_phase("fcm_timing", phase_fcm_timing)
+        print(card, flush=True)
+        return last_line()
     primary = run_phase("parity", phase_parity)
 
     cfg = gpt2_124m()
@@ -1186,6 +1972,9 @@ def main():
     path_counts["train_longseq"] = run_phase("train_longseq",
                                              phase_train_longseq, long_state)
 
+    path_counts["fcm"] = run_phase("fcm_ops", phase_fcm_ops)
+    run_phase("fcm_timing", phase_fcm_timing)
+
     kernels = []
     for kern in KERNELS:
         res = primary[kern.name]
@@ -1201,9 +1990,7 @@ def main():
             "host_us": res["host_us"]})
     print(card, flush=True)
     emit({"kernels": kernels})
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+    last_line()
 
 
 if __name__ == "__main__":

@@ -65,3 +65,32 @@ def gpt2_params_to_jax(state, config: GPT2Config) -> dict:
     if not config.tie_word_embeddings:
         tree["lm_head"] = arr("lm_head")
     return tree
+
+
+def ranked_from_stacked(stacked, mesh, dtype=None) -> list:
+    """The port's per-rank list (rank r's tensor on rank r's device) from a
+    worker-stacked array [W, ...]: the JAX package's layout of a row-sharded
+    weight, a per-rank batch or an error-feedback buffer under
+    `shard_map` over the mesh's ranks."""
+    arr = np.asarray(stacked)
+    if arr.shape[0] != mesh.world_size:
+        raise ValueError(f"stacked array has {arr.shape[0]} rows, the mesh "
+                         f"{mesh.world_size} ranks")
+    out = []
+    for r in range(mesh.world_size):
+        t = torch.from_numpy(np.array(arr[r]))
+        if dtype is not None:
+            t = t.to(dtype)
+        out.append(t.to(mesh.device_of(r)))
+    return out
+
+
+def stacked_from_ranked(tensors) -> np.ndarray:
+    """The worker-stacked numpy array [W, ...] of a per-rank list: the
+    inverse of ranked_from_stacked (bfloat16, which numpy lacks, comes back
+    as float32 with the same values)."""
+    rows = []
+    for t in tensors:
+        t = t.detach().cpu()
+        rows.append((t.float() if t.dtype == torch.bfloat16 else t).numpy())
+    return np.stack(rows)

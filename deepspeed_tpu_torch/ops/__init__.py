@@ -4,8 +4,19 @@ twin, its source and the TPU kernel it replaces."""
 
 from typing import Callable, NamedTuple
 
+from . import collective_matmul
 from .activations import (bias_dropout_residual, bias_gelu, dropout, gelu,
                           gelu_exact)
+from .collective_matmul import (fcm_ag_step_cuda, fcm_ag_step_reference,
+                                fcm_ag_step_t_cuda, fcm_ag_step_t_reference,
+                                fcm_all_gather, fcm_qgz_reduce_scatter_inner,
+                                fcm_reduce_scatter, fcm_rs_collect_cuda,
+                                fcm_rs_collect_reference, fcm_rs_producer_cuda,
+                                fcm_rs_producer_reference, fcm_tile_ag_cuda,
+                                fcm_tile_ag_reference, fcm_tile_ag_t_cuda,
+                                fcm_tile_ag_t_reference, fcm_tile_rs_cuda,
+                                fcm_tile_rs_reference, fused_allgather_matmul,
+                                fused_matmul_reduce_scatter)
 from .flash_attention import (DEFAULT_MASK_VALUE, dropout_keep_mask,
                               flash_attention, flash_attention_bwd,
                               flash_attention_bwd_dkdv_cuda,
@@ -69,6 +80,30 @@ KERNELS = (
            block_sparse_flash_bwd_reference,
            "deepspeed_tpu_torch/csrc/block_sparse_flash_bwd.cu",
            "deepspeed_tpu/ops/sparse_attention/block_sparse_flash.py:278"),
+    # kernel H: the three tile products of the per-tile route
+    Kernel("fcm_tile_ag", fcm_tile_ag_cuda, fcm_tile_ag_reference,
+           "deepspeed_tpu_torch/csrc/fcm_tile.cu",
+           "deepspeed_tpu/ops/collective_matmul.py:398"),
+    Kernel("fcm_tile_ag_t", fcm_tile_ag_t_cuda, fcm_tile_ag_t_reference,
+           "deepspeed_tpu_torch/csrc/fcm_tile.cu",
+           "deepspeed_tpu/ops/collective_matmul.py:398"),
+    Kernel("fcm_tile_rs", fcm_tile_rs_cuda, fcm_tile_rs_reference,
+           "deepspeed_tpu_torch/csrc/fcm_tile.cu",
+           "deepspeed_tpu/ops/collective_matmul.py:398"),
+    # kernel I: the fused all-gather-matmul's step, forward and transposed
+    Kernel("fcm_ag_step", fcm_ag_step_cuda, fcm_ag_step_reference,
+           "deepspeed_tpu_torch/csrc/fcm_ag_matmul.cu",
+           "deepspeed_tpu/ops/collective_matmul.py:587"),
+    Kernel("fcm_ag_step_t", fcm_ag_step_t_cuda, fcm_ag_step_t_reference,
+           "deepspeed_tpu_torch/csrc/fcm_ag_matmul.cu",
+           "deepspeed_tpu/ops/collective_matmul.py:587"),
+    # kernel J: the producer with the quantize epilogue, and the collect
+    Kernel("fcm_rs_producer", fcm_rs_producer_cuda, fcm_rs_producer_reference,
+           "deepspeed_tpu_torch/csrc/fcm_matmul_rs.cu",
+           "deepspeed_tpu/ops/collective_matmul.py:692"),
+    Kernel("fcm_rs_collect", fcm_rs_collect_cuda, fcm_rs_collect_reference,
+           "deepspeed_tpu_torch/csrc/fcm_matmul_rs.cu",
+           "deepspeed_tpu/ops/collective_matmul.py:692"),
 )
 
 

@@ -73,6 +73,34 @@ SIGNATURES = {
     # x, qweight, M, K, N, dtype -> which kernel the launcher takes
     # (0 gemv, 1 mma, 2 tiled); launches nothing
     "ds_dequant_matmul_route": [P, P, I32, I32, I32, I32],
+    # kernel H.  x (or g), its row pitch, its dtype; the weight payload, its
+    # scales, layout (0 native, 1 int8, 2 packed int4), native dtype, block
+    # size; out (fp32), m, kc, n, stream
+    "ds_fcm_tile_ag": [P, I64, I32, P, P, I32, I32, I32, P, I32, I32, I32, P],
+    "ds_fcm_tile_ag_t": [P, I64, I32, P, P, I32, I32, I32, P, I32, I32, I32,
+                         P],
+    # a, pitch, dtype, b, pitch, dtype, out (fp32), rows of a and b, kc, n,
+    # stream
+    "ds_fcm_tile_rs": [P, I64, I32, P, I64, I32, P, I32, I32, I32, P],
+    # kernel I.  x and the weight as kernel H; the fp32 accumulator, out (or
+    # null), out's dtype, whether the accumulator is read; m, kc, n, stream
+    "ds_fcm_ag_step": [P, I64, I32, P, P, I32, I32, I32, P, P, I32, I32, I32,
+                       I32, I32, P],
+    # g and the weight as kernel H; out's column block, out's row pitch and
+    # dtype; m, kc, n, stream
+    "ds_fcm_ag_step_t": [P, I64, I32, P, P, I32, I32, I32, P, I64, I32, I32,
+                         I32, I32, P],
+    # kernel J.  a, pitch, dtype, b, pitch, dtype, error rows (or null), q,
+    # scale, new error (or null), compensated tile (or null), rows of a and
+    # b, kc, n, block size, whether the epilogue quantizes, stream
+    "ds_fcm_rs_producer": [P, I64, I32, P, I64, I32, P, P, P, P, P, I32, I32,
+                           I32, I32, I32, P],
+    # compensated tile, q, scale, new error (or null), elements, block size,
+    # stream
+    "ds_fcm_rs_quantize": [P, P, P, P, I64, I32, P],
+    # q table, scale table, out (fp32), sources, elements per tile, block
+    # size, stream
+    "ds_fcm_rs_collect": [P, P, P, I32, I64, I32, P],
 }
 
 # dtype codes shared with csrc/common.cuh

@@ -89,8 +89,14 @@ def refuse_unported(config: DeepSpeedConfig, model) -> None:
     if (config.optimizer_name or "").lower() in (ONEBIT_ADAM_OPTIMIZER,
                                                  ONEBIT_LAMB_OPTIMIZER):
         refuse(f"the {config.optimizer_name} optimizer", "A.8")
-    if zc.low_bandwidth.enabled or zc.low_bandwidth.onebit:
-        refuse("zero_optimization.low_bandwidth", "A.8")
+    if zc.low_bandwidth.onebit:
+        refuse("zero_optimization.low_bandwidth.onebit (the 1-bit wire "
+               "tier)", "A.8")
+    if zc.low_bandwidth.enabled:
+        refuse("zero_optimization.low_bandwidth in the engine (the qwZ / qgZ "
+               "ops and the fused collective-matmul are ported, "
+               "runtime/comm/low_bandwidth.py and ops/collective_matmul.py; "
+               "the engine uses them inside the streamed ZeRO-3 scan)", "A.5")
     if config.sequence_parallel_config.size > 1:
         refuse("sequence parallelism", "A.9")
     flags = (("resilience", config.resilience_config.enabled, "A.6, A.13"),

@@ -100,7 +100,7 @@ TINY = dict(vocab_size=128, n_positions=64, hidden_size=32, num_layers=2,
     ({"zero_optimization": {"stage": 3, "low_bandwidth": {"qwz_bits": 8}}},
      "A.5"),
     ({"zero_optimization": {"stage": 2, "low_bandwidth": {"qgz_bits": 8}}},
-     "A.8"),
+     "A.5"),
     ({"sequence_parallel": {"size": 2}}, "A.9"),
     ({"mesh": {"model": 2}}, "A.4"),
     ({"resilience": {"enabled": True}}, "A.13"),
