@@ -19,7 +19,14 @@ phase prints {"phase": ..., "ok": false, "error": ...} and the script exits
    mma, tiled).  Kernel B with dropout and kernel E are held against their
    twins exactly mask for mask (the keep mask is a pure function of the
    seed and the coordinates), and the mask's keep share must lie within
-   4 sigma of 230/256; kernel D must repeat bitwise.
+   4 sigma of 230/256; kernels D and E must repeat bitwise.  B and E name
+   their route (bf16 on the tensor cores, fp32 on the CUDA cores) and
+   their achieved TFLOP/s beside the library call's; B's bf16 cases check
+   and time every compiled block_q, its dropout cases also time the call
+   without dropout; one case each runs train_longseq's S = 8192 (batch 1,
+   4 heads, so that the plain twin's [S, S] fp32 scores take 1 GiB).  The
+   device phase reports each tensor-core launch's registers, shared
+   memory, resident blocks per SM and spill bytes (CUDA runtime).
 3. serve_bf16: GPT-2 124M at full width (hidden 768, 12 layers, 12 heads,
    vocab 50304, n_positions 256, bf16, weights from seed 0) through
    init_inference -> forward / generate: batch 8, prompt 128, 128 new
@@ -140,9 +147,10 @@ from deepspeed_tpu_torch.ops import (KERNELS, dispatch, launch_counts,
 from deepspeed_tpu_torch.ops import activations
 from deepspeed_tpu_torch.ops import collective_matmul as cm
 from deepspeed_tpu_torch.ops.flash_attention import (
-    DEFAULT_MASK_VALUE, dropout_keep_mask, flash_attention_bwd_dkdv_cuda,
-    flash_attention_bwd_dq_cuda, flash_attention_bwd_reference,
-    flash_attention_cuda, mha_reference, quantized_threshold)
+    DEFAULT_MASK_VALUE, FWD_BLOCK_QS, TENSOR_CORES, dropout_keep_mask,
+    flash_attention_bwd_dkdv_cuda, flash_attention_bwd_dq_cuda,
+    flash_attention_bwd_reference, flash_attention_cuda, kernel_resources,
+    kernel_route, mha_reference, quantized_threshold)
 from deepspeed_tpu_torch.ops.normalize import (layer_norm_bwd_cuda,
                                                layer_norm_bwd_reference,
                                                layer_norm_cuda,
@@ -262,13 +270,20 @@ def phase_device():
     t0 = time.perf_counter()
     op_builder.load()
     seconds = time.perf_counter() - t0
+    # what the card gives a block of each tensor-core launch of B and E
+    resources = {f"{launch} D={d}" + (f" block_q={bq}" if launch == "fwd"
+                                      else ""): kernel_resources(launch, d, bq)
+                 for d in (64, 128) for launch, bqs in (
+                     ("fwd", FWD_BLOCK_QS), ("dkdv", (64,)), ("dq", (64,)))
+                 for bq in bqs}
     return card, {"card": card, "torch": torch.__version__,
                   "cuda": torch.version.cuda,
                   "kind": torch.cuda.get_device_name(0),
                   "build_seconds": round(seconds, 3),
                   "nvcc_seconds": op_builder.build_seconds,
                   "sources": [s.split("deepspeed_tpu_torch/")[-1]
-                              for s in op_builder.sources()]}
+                              for s in op_builder.sources()],
+                  "flash_tensor_core_resources": resources}
 
 
 # --------------------------------------------------------------------- #
@@ -392,9 +407,17 @@ def keep_share_check(seed, b, h, sq, sk, rate):
     return share, abs(share - p) <= 4 * (p * (1 - p) / n) ** 0.5
 
 
+def tflops(ops, ms):
+    """Achieved TFLOP/s of `ops` operations in `ms` of device time."""
+    return ops / (ms * 1e-3) / 1e12
+
+
 def case_flash(b, h, s, d, causal, dtype, fused=False, rate=0.0):
     """Kernel B against mha_reference; with rate > 0 both drop with the
-    mask of the same seed, so they must agree exactly as without."""
+    mask of the same seed, so they must agree exactly as without.  In bf16
+    (the tensor-core route) each compiled block_q is checked and timed; the
+    case's ms is the default's.  With dropout, ms_dropout_off times the
+    same call without it."""
     q, k, v = attention_inputs(b, h, s, d, dtype, s + causal, fused)
     seed = torch.tensor([1234 + s], dtype=torch.int32, device="cuda")
     kw = dict(causal=causal, dropout_rate=rate, dropout_seed=seed)
@@ -405,16 +428,30 @@ def case_flash(b, h, s, d, causal, dtype, fused=False, rate=0.0):
     err = (out.float() - ref.float()).abs().max().item()
     lse_err = (lse - ref_lse).abs().max().item()
     ok = _within(out.float(), ref.float(), tol, tol) and lse_err <= lse_tol
-    extra = {}
+    route = kernel_route(dtype)
+    extra = {"route": route}
+    if route == TENSOR_CORES:
+        block_q_ms = {}
+        for bq in FWD_BLOCK_QS:
+            o2, l2 = flash_attention_cuda(q, k, v, block_q=bq, **kw)
+            ok = (ok and _within(o2.float(), ref.float(), tol, tol)
+                  and (l2 - ref_lse).abs().max().item() <= lse_tol)
+            block_q_ms[bq] = time_ms(
+                lambda: flash_attention_cuda(q, k, v, block_q=bq, **kw))
+        extra["block_q_ms"] = block_q_ms
     if rate:
         share, share_ok = keep_share_check(seed, b, h, s, s, rate)
         ok = ok and share_ok
-        extra = {"keep_share": share, "keep_share_expected":
-                 quantized_threshold(rate) / 256}
+        extra.update(keep_share=share,
+                     keep_share_expected=quantized_threshold(rate) / 256,
+                     ms_dropout_off=time_ms(lambda: flash_attention_cuda(
+                         q, k, v, causal=causal)))
+    del ref, ref_lse
     pairs = s * (s + 1) // 2 if causal else s * s
+    ops = 4 * b * h * d * pairs
     nbytes = 4 * q.numel() * q.element_size() + lse.numel() * 4
-    b_ms, b_by = bound_ms(nbytes, 4 * b * h * d * pairs, dtype)
-    return {
+    b_ms, b_by = bound_ms(nbytes, ops, dtype)
+    res = {
         "case": _case_name(b, h, s, d, causal, dtype, fused, rate), "ok": ok,
         "tolerance": f"out atol=rtol={tol}, lse atol={lse_tol}",
         "max_abs_err": err, "lse_max_abs_err": lse_err, **extra,
@@ -423,6 +460,9 @@ def case_flash(b, h, s, d, causal, dtype, fused=False, rate=0.0):
                   lambda: F.scaled_dot_product_attention(
                       q, k, v, is_causal=causal, dropout_p=rate)),
         "bound_ms": b_ms, "bound_by": b_by}
+    res["tflops"] = tflops(ops, res["ms"])
+    res["library_tflops"] = tflops(ops, res["library_ms"])
+    return res
 
 
 def case_layer_norm_bwd(rows, dtype):
@@ -465,10 +505,11 @@ def case_layer_norm_bwd(rows, dtype):
 
 def case_flash_bwd(b, h, s, d, causal, dtype, fused=False, rate=0.0):
     """Kernel E's two launches against flash_attention_bwd_reference on the
-    forward's own out and lse, mask for mask.  Returns the case with one
-    sub-result per launch (its device ms, host µs and bound); the plain
-    twin and the library yardstick (SDPA's backward through autograd,
-    whose dropout mask differs: time only) cover dq, dk and dv together."""
+    forward's own out and lse, mask for mask; a second call must repeat the
+    first bitwise (no atomics).  Returns the case with one sub-result per
+    launch (its device ms, TFLOP/s, host µs and bound); the plain twin and
+    the library yardstick (SDPA's backward through autograd, whose dropout
+    mask differs: time only) cover dq, dk and dv together."""
     q, k, v = attention_inputs(b, h, s, d, dtype, s + d, fused)
     seed = torch.tensor([4321 + s], dtype=torch.int32, device="cuda")
     kw = dict(causal=causal, dropout_rate=rate, dropout_seed=seed)
@@ -479,17 +520,24 @@ def case_flash_bwd(b, h, s, d, causal, dtype, fused=False, rate=0.0):
     delta = (do.float() * out.float()).sum(dim=-1)
     dk, dv = flash_attention_bwd_dkdv_cuda(q, k, v, do, lse, delta, **kw)
     dq = flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
+    again = (flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta, **kw),
+             *flash_attention_bwd_dkdv_cuda(q, k, v, do, lse, delta, **kw))
     ref = flash_attention_bwd_reference(q, k, v, out, lse, do, **kw)
     torch.cuda.synchronize()
+    repeat = all(torch.equal(a, b_) for a, b_ in zip((dq, dk, dv), again))
+    del again
     tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
     errs = {name: rel_err(a.float(), r.float())
             for name, a, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref)}
-    ok = max(errs.values()) <= tol
-    extra = {}
+    max_err = max((a.float() - r.float()).abs().max().item()
+                  for a, r in zip((dq, dk, dv), ref))
+    del ref
+    ok = max(errs.values()) <= tol and repeat
+    extra = {"route": kernel_route(dtype), "bitwise_repeat": repeat}
     if rate:
         share, share_ok = keep_share_check(seed, b, h, s, s, rate)
         ok = ok and share_ok
-        extra = {"keep_share": share}
+        extra["keep_share"] = share
     pairs = s * (s + 1) // 2 if causal else s * s
     elt = q.element_size()
     operand = q.numel() * elt
@@ -502,24 +550,29 @@ def case_flash_bwd(b, h, s, d, causal, dtype, fused=False, rate=0.0):
             ("flash_attention_bwd_dq",
              lambda: flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta,
                                                  **kw), 3, 1)):
-        b_ms, b_by = bound_ms((4 + outs) * operand + stats,
-                              products * 2 * b * h * d * pairs, dtype)
-        launches[name] = {"ms": time_ms(fn), "host_us": host_us(fn),
-                          "bound_ms": b_ms, "bound_by": b_by}
+        ops = products * 2 * b * h * d * pairs
+        b_ms, b_by = bound_ms((4 + outs) * operand + stats, ops, dtype)
+        ms = time_ms(fn)
+        launches[name] = {"ms": ms, "tflops": tflops(ops, ms),
+                          "host_us": host_us(fn), "bound_ms": b_ms,
+                          "bound_by": b_by}
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
     sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
                                           dropout_p=rate)
-    return {
+    res = {
         "case": _case_name(b, h, s, d, causal, dtype, fused, rate), "ok": ok,
-        "tolerance": f"max|d|/max|ref| <= {tol} for dq, dk, dv",
-        "rel_err": errs, "max_abs_err": max(
-            (a.float() - r.float()).abs().max().item()
-            for a, r in zip((dq, dk, dv), ref)), **extra,
+        "tolerance": f"max|d|/max|ref| <= {tol} for dq, dk, dv; bitwise "
+                     "repeat",
+        "rel_err": errs, "max_abs_err": max_err, **extra,
         "plain_ms": time_ms(lambda: flash_attention_bwd_reference(
             q, k, v, out, lse, do, **kw)),
         "library_ms": time_ms(lambda: torch.autograd.grad(
             sdpa, (qg, kg, vg), do, retain_graph=True)),
         "launches": launches}
+    # SDPA's backward: five products (S, dP, dV, dK, dQ)
+    res["library_tflops"] = tflops(5 * 2 * b * h * d * pairs,
+                                   res["library_ms"])
+    return res
 
 
 def grouped_weight(k, n, groups, seed):
@@ -969,18 +1022,24 @@ PARITY_CASES = {
         (rows, dt) for rows in (TRAIN_BATCH * TRAIN_SEQ, 77, 1)
         for dt in (torch.bfloat16, torch.float32)]),
     # kernel B's training case: dropout inside the kernel, at the train
-    # phase's shape and layout, and a ragged fp32 one
+    # phase's shape and layout, a ragged fp32 one, and train_longseq's
+    # length with batch and heads cut so that the plain twin's [S, S] fp32
+    # scores fit (1 GiB)
     "flash_attention_fwd_dropout": (case_flash, [
         (TRAIN_BATCH, 12, TRAIN_SEQ, 64, True, torch.bfloat16, True,
          DROPOUT),
-        (2, 4, 77, 64, True, torch.float32, False, DROPOUT)]),
+        (2, 4, 77, 64, True, torch.float32, False, DROPOUT),
+        (1, 4, LONG_SEQ, 64, True, torch.bfloat16, True, DROPOUT)]),
     # kernel E: the train shape with dropout off and on, a ragged fp32
-    # length and the other head dim
+    # length, the other head dim in both routes, and train_longseq's length
+    # cut as kernel B's
     "flash_attention_bwd": (case_flash_bwd, [
         (TRAIN_BATCH, 12, TRAIN_SEQ, 64, True, torch.bfloat16, True, rate)
         for rate in (0.0, DROPOUT)]
-        + [(2, 4, 77, 64, True, torch.float32, False, DROPOUT),
-           (2, 8, 200, 128, True, torch.float32, False, DROPOUT)]),
+        + [(2, 4, 77, 64, True, torch.float32, False, DROPOUT)]
+        + [(2, 8, 200, 128, True, dt, False, DROPOUT)
+           for dt in (torch.float32, torch.bfloat16)]
+        + [(1, 4, LONG_SEQ, 64, True, torch.bfloat16, True, DROPOUT)]),
     # kernels F and G: (a) bench_sparse_longseq's attention, (b) the fp32
     # Fixed layout of tests/tpu/test_kernel_parity_tpu.py:226-228 causal
     # and not, (c) D = 128, (d) a layout with an empty causal row

@@ -4,7 +4,8 @@
 //   dq:   one block per (q-tile of 64 rows, head, batch) loops over the
 //         k-tiles and writes dq.
 // Neither needs atomics: each output tile has exactly one block that owns
-// it, so the sums are taken in a fixed order and a step is repeatable.
+// it, so the sums are taken in a fixed order and a step is repeatable
+// bitwise.
 //
 // Replaces: deepspeed_tpu/ops/flash_attention.py flash_attention_bwd_pallas
 // (_fa_bwd_dkdv_kernel, _fa_bwd_dq_kernel).  Same math, from the forward's
@@ -15,38 +16,53 @@
 //        (dropout.cuh regenerates it from (seed, b, h, row, col));
 //   dV += P_drop^T dO;   dS = P * (dP - delta) * scale;
 //   dK += dS^T Q;        dQ += dS K.
-// Products accumulate in fp32 and are stored in the input dtype.
+// Products accumulate in fp32 and are stored in the input dtype.  Strides
+// are arguments, so q, k, v, dO and the grads may be the head views of a
+// fused [B, S, 3 * H * D] projection.
 //
-// Bound on the H100: at the training shape ([8, 12, 1024, 64] bf16 causal)
-// the work is five [S, S] x D products per head, ~32 GFLOP, against ~100 MB
-// of q, k, v, o, dO, dq, dk, dv: ~33 us at the bf16 tensor-core peak and
-// ~30 us at the memory rate, so operations bound it.  This first version
-// multiplies in fp32 on the CUDA cores out of shared memory (67 TFLOP/s
-// peak), which is simple to get right; mma.sync / wgmma tiles are later
-// work.  What it keeps from FlashAttention-2 is the memory side: the
-// [S, S] scores and probabilities never reach device memory, and tiles
-// fully above the causal diagonal are never loaded.
+// Two routes, chosen by the operands' dtype:
 //
-// Thread layout: 256 threads.  For the scores of a 64 x 64 tile, 4 threads
-// share a query row and each holds the 16 columns n0 + j + 4 * i, the
-// layout of kernel B, so one Philox call gives a thread its 16 keep bytes.
-// dkdv stages P_drop and dS in shared memory and then gives each thread a
-// key row (4 threads per row, D / 4 columns each) to sum over the q rows;
-// dq sums over the keys inside the 4-thread row group with shuffles, as
-// kernel B sums P.V.  Strides are arguments, so q, k, v, dO and the grads
-// may be the head views of a fused [B, S, 3 * H * D] projection.
+// bf16, tensor cores (tc::flash_bwd_dkdv_mma_kernel and
+// tc::flash_bwd_dq_mma_kernel, D in {64, 128}).
+//   Bound on the H100: at the training shape ([8, 12, 1024, 64] causal)
+//   the dk/dv launch does four [S, S] x D products per head (S^T, dP^T,
+//   dV, dK: 25.8 GFLOP) and the dq launch three (S, dP, dQ: 19.4 GFLOP),
+//   26 and 20 us at the 989 TFLOP/s bf16 peak, against ~7 and ~6 us for
+//   their bytes: the operations bound both.  What the CUDA-core design
+//   lost, and what this one does about it:
+//   - every product runs on `mma.sync` m16n8k16 (bf16 in, fp32 sums) from
+//     swizzled bf16 tiles that ldmatrix reads without bank conflicts;
+//   - dk/dv: K and V stay in shared memory for the whole loop; each warp
+//     owns 16 keys and computes S^T = K Q^T and dP^T = V dO^T, so that
+//     P_drop^T and dS^T arrive in the accumulator layout and become, in
+//     registers, the A operands of dV += P_drop^T dO and dK += dS^T Q:
+//     no P or dS tile in shared memory and no shuffles (the first design
+//     staged both in 100 KB of shared memory, two blocks per SM);
+//   - dq: each warp owns 16 query rows, S = Q K^T and dP = dO V^T, dS in
+//     registers, dQ += dS K;
+//   - the loads: the streamed tiles (Q, dO, lse, delta over the q-tiles
+//     for dk/dv; K, V over the k-tiles for dq) go through a ring of two
+//     `cp.async` stages, one in flight while the other is multiplied;
+//   - the schedule: tiles wholly above the causal diagonal are never
+//     loaded; dk/dv starts each block at the diagonal; both grids walk the
+//     heaviest tiles first; dropout's keep bits are drawn once per block
+//     per tile into shared memory (attention_mma.cuh draw_keep_bits).
+//
+// fp32, CUDA cores (fp32::flash_bwd_dkdv_kernel, fp32::flash_bwd_dq_kernel,
+// the first design, kept as it was).  A tensor-core fp32 product would be
+// TF32, about three decimal digits, which breaks the 1e-4 fp32 parity the
+// fp32 engine mode is held to; so fp32 operands multiply in fp32 on the
+// CUDA cores out of shared memory (67 TFLOP/s peak).  256 threads; for
+// the scores of a 64 x 64 tile, 4 threads share a query row and each holds
+// the 16 columns n0 + j + 4 * i, so one Philox call gives a thread its 16
+// keep bytes.  dkdv stages P_drop and dS in shared memory and then gives
+// each thread a key row (4 threads per row, D / 4 columns each) to sum
+// over the q rows; dq sums over the keys inside the 4-thread row group
+// with shuffles.
 
-#include "common.cuh"
-#include "dropout.cuh"
+#include "attention_mma.cuh"
 
 namespace {
-
-constexpr int kBM = 64;                // query rows per tile
-constexpr int kBN = 64;                // keys per tile
-constexpr int kThreads = 256;
-constexpr int kTPR = kThreads / kBM;   // threads per row: 4
-constexpr int kNS = kBN / kTPR;        // scores per thread per tile: 16
-constexpr int kPP = kBN + 1;           // padded row of the P / dS tiles
 
 struct Strides {
   long long b, h, s;
@@ -57,6 +73,18 @@ struct DropoutArgs {
   int threshold;  // 256: no dropout
   float scale;
 };
+
+// ===================================================================== //
+// fp32: CUDA cores
+// ===================================================================== //
+namespace fp32 {
+
+constexpr int kBM = 64;                // query rows per tile
+constexpr int kBN = 64;                // keys per tile
+constexpr int kThreads = 256;
+constexpr int kTPR = kThreads / kBM;   // threads per row: 4
+constexpr int kNS = kBN / kTPR;        // scores per thread per tile: 16
+constexpr int kPP = kBN + 1;           // padded row of the P / dS tiles
 
 // Load rows [r0, r0 + rows) of one head's [S, D] operand as fp32 into a
 // [rows][DP] tile, zero past S.
@@ -337,6 +365,337 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace fp32
+
+// ===================================================================== //
+// bf16: tensor cores
+// ===================================================================== //
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kBM = 64;  // query rows per tile
+constexpr int kBN = 64;  // keys per tile
+constexpr int kThreads = 128;  // four warps of 16 rows (dq) or 16 keys (dkdv)
+
+template <int D>
+struct DkdvLayout {
+  static constexpr int kK = 0;                                       // [kBN][D]
+  static constexpr int kV = kK + ds_mma::tile_bytes<D>(kBN);         // [kBN][D]
+  static constexpr int kQ = kV + ds_mma::tile_bytes<D>(kBN);         // [2][kBM][D]
+  static constexpr int kDO = kQ + 2 * ds_mma::tile_bytes<D>(kBM);    // [2][kBM][D]
+  static constexpr int kLse = kDO + 2 * ds_mma::tile_bytes<D>(kBM);  // [2][kBM] fp32
+  static constexpr int kDelta = kLse + 2 * kBM * 4;                  // [2][kBM] fp32
+  static constexpr int kBits = kDelta + 2 * kBM * 4;                 // [2][kBM] u64
+  static constexpr int kBytes = kBits + 2 * kBM * 8;
+};
+
+// At D = 64 the registers are capped so that three blocks fit an SM (168
+// registers, a few bytes spilled): measured faster on the H100 than two
+// blocks at the 255 the compiler picks.  The dq launch measured slower
+// under a cap and has none.
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 1)
+flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int H, int Sq,
+                          int Sk, Strides qs_, Strides ks_, Strides vs_, Strides dos_,
+                          Strides dks_, Strides dvs_, float sm_scale, int causal,
+                          DropoutArgs drop) {
+  using L = DkdvLayout<D>;
+  constexpr int kTile = ds_mma::tile_bytes<D>(kBM);
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const uint32_t s_k = ds_mma::smem_u32(tc_smem + L::kK);
+  const uint32_t s_v = ds_mma::smem_u32(tc_smem + L::kV);
+  const uint32_t s_q = ds_mma::smem_u32(tc_smem + L::kQ);
+  const uint32_t s_do = ds_mma::smem_u32(tc_smem + L::kDO);
+  const uint32_t s_lse = ds_mma::smem_u32(tc_smem + L::kLse);
+  const uint32_t s_delta = ds_mma::smem_u32(tc_smem + L::kDelta);
+  const float* lse_s = reinterpret_cast<const float*>(tc_smem + L::kLse);
+  const float* delta_s = reinterpret_cast<const float*>(tc_smem + L::kDelta);
+  uint64_t* bits = reinterpret_cast<uint64_t*>(tc_smem + L::kBits);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_bh = B * H;
+  const int bh = blockIdx.x % n_bh;
+  // k-tile 0 first: under causal masking it sees the most q-tiles
+  const int n0 = static_cast<int>(blockIdx.x) / n_bh * kBN;
+  const int b = bh / H, h = bh % H;
+  const bool dropping = drop.threshold < 256;
+  const uint32_t seed = dropping ? static_cast<uint32_t>(*drop.seed) : 0u;
+  const uint32_t threshold = static_cast<uint32_t>(drop.threshold);
+  const float* lse_b = lse + static_cast<size_t>(bh) * Sq;
+  const float* delta_b = delta + static_cast<size_t>(bh) * Sq;
+  const bf16* qb = q + b * qs_.b + h * qs_.h;
+  const bf16* dob = dout + b * dos_.b + h * dos_.h;
+
+  // causal: q-tiles whose last row lies before this k-tile see none of it
+  const int m_start = causal ? n0 / kBM * kBM : 0;
+  const int n_tiles = m_start < Sq ? (Sq - m_start + kBM - 1) / kBM : 0;
+  auto load_q_tile = [&](int stage, int m0) {
+    ds_mma::load_tile_async<kBM, D, kThreads>(s_q + stage * kTile, qb, qs_.s, m0, Sq, tid);
+    ds_mma::load_tile_async<kBM, D, kThreads>(s_do + stage * kTile, dob, dos_.s, m0, Sq, tid);
+    ds_mma::load_stat_async<kBM, kThreads>(s_lse + stage * kBM * 4, lse_b, m0, Sq, tid);
+    ds_mma::load_stat_async<kBM, kThreads>(s_delta + stage * kBM * 4, delta_b, m0, Sq, tid);
+  };
+
+  ds_mma::load_tile_async<kBN, D, kThreads>(s_k, k + b * ks_.b + h * ks_.h, ks_.s, n0, Sk, tid);
+  ds_mma::load_tile_async<kBN, D, kThreads>(s_v, v + b * vs_.b + h * vs_.h, vs_.s, n0, Sk, tid);
+  if (n_tiles > 0) load_q_tile(0, m_start);
+  ds_mma::cp_async_commit();
+  if (dropping && n_tiles > 0) {
+    ds_mma::draw_keep_bits<kBM, kThreads>(bits, seed, bh, m_start, n0, threshold, tid);
+  }
+
+  const int w0 = warp * 16;    // the warp's first key in the tile
+  const int key0 = n0 + w0;    // ... and in the sequence
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dk_acc[j][e] = 0.f;
+      dv_acc[j][e] = 0.f;
+    }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    ds_mma::cp_async_wait<0>();  // tile t has landed
+    __syncthreads();             // ... for every thread; tile t - 1 is consumed
+    const int st = t & 1;
+    const int m0 = m_start + t * kBM;
+    if (t + 1 < n_tiles) {  // tile t + 1 flies while tile t is multiplied
+      load_q_tile(st ^ 1, m0 + kBM);
+      ds_mma::cp_async_commit();
+      if (dropping) {
+        ds_mma::draw_keep_bits<kBM, kThreads>(bits + (st ^ 1) * kBM, seed, bh, m0 + kBM, n0,
+                                              threshold, tid);
+      }
+    }
+    // causal: every query of the tile lies before the warp's keys
+    if (causal && m0 + kBM - 1 < key0) continue;
+
+    const uint32_t t_q = s_q + st * kTile, t_do = s_do + st * kTile;
+    const float* ls = lse_s + st * kBM;
+    const float* dl = delta_s + st * kBM;
+    const uint32_t keep =
+        dropping ? ds_mma::fragment_keep_t(bits + st * kBM, w0 + (lane >> 2), lane) : 0u;
+    const bool edge = m0 + kBM > Sq || n0 + kBN > Sk || (causal && m0 < key0 + 15);
+    // accumulator rows are keys (w0 + frag_row), columns queries (frag_col)
+
+    // S^T -> P (kept in p) and P_drop^T -> dV += P_drop^T dO
+    float p[kBM / 8][4];
+    ds_mma::warp_abt_smem<D, kBM>(p, s_k, w0, t_q, 0, lane);
+    uint32_t a[kBM / 16][4];
+    {
+      float pd[kBM / 8][4];
+#pragma unroll
+      for (int j = 0; j < kBM / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = ds_mma::frag_col(lane, j, e), ki = w0 + ds_mma::frag_row(lane, e);
+          float pv = exp2f((p[j][e] * sm_scale - ls[qi]) * ds_mma::kLog2e);
+          if (edge && (m0 + qi >= Sq || n0 + ki >= Sk || (causal && m0 + qi < n0 + ki))) {
+            pv = 0.f;
+          }
+          p[j][e] = pv;
+          // the keep scale multiplies dv once, at the end
+          pd[j][e] = dropping && !ds_mma::kept(keep, j, e) ? 0.f : pv;
+        }
+      }
+      ds_mma::acc_to_a<kBM>(a, pd);
+    }
+    ds_mma::warp_ab<kBM, D>(dv_acc, a, t_do, 0, lane);
+
+    // dP^T -> dS^T = P (dP_drop - delta) scale -> dK += dS^T Q
+    float ds[kBM / 8][4];
+    ds_mma::warp_abt_smem<D, kBM>(ds, s_v, w0, t_do, 0, lane);
+#pragma unroll
+    for (int j = 0; j < kBM / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = ds_mma::frag_col(lane, j, e);
+        float dpv = ds[j][e];
+        if (dropping) dpv = ds_mma::kept(keep, j, e) ? dpv * drop.scale : 0.f;
+        ds[j][e] = p[j][e] * (dpv - dl[qi]) * sm_scale;
+      }
+    }
+    ds_mma::acc_to_a<kBM>(a, ds);
+    ds_mma::warp_ab<kBM, D>(dk_acc, a, t_q, 0, lane);
+  }
+
+  // dk and dv through the warp's own rows of the K and V tiles, for
+  // 16-byte stores
+  ds_mma::cp_async_wait<0>();
+  __syncthreads();
+  const float dv_scale = dropping ? drop.scale : 1.f;
+  ds_mma::acc_to_tile<D>(tc_smem + L::kK, w0, dk_acc, 1.f, 1.f, lane);
+  ds_mma::acc_to_tile<D>(tc_smem + L::kV, w0, dv_acc, dv_scale, dv_scale, lane);
+  __syncwarp();
+  ds_mma::tile_rows_to_global<D>(dk + b * dks_.b + h * dks_.h, dks_.s, key0, Sk,
+                                 tc_smem + L::kK, w0, lane);
+  ds_mma::tile_rows_to_global<D>(dv + b * dvs_.b + h * dvs_.h, dvs_.s, key0, Sk,
+                                 tc_smem + L::kV, w0, lane);
+}
+
+template <int D>
+struct DqLayout {
+  static constexpr int kQ = 0;                                       // [kBM][D]
+  static constexpr int kDO = kQ + ds_mma::tile_bytes<D>(kBM);        // [kBM][D]
+  static constexpr int kK = kDO + ds_mma::tile_bytes<D>(kBM);        // [2][kBN][D]
+  static constexpr int kV = kK + 2 * ds_mma::tile_bytes<D>(kBN);     // [2][kBN][D]
+  static constexpr int kBits = kV + 2 * ds_mma::tile_bytes<D>(kBN);  // [2][kBM] u64
+  static constexpr int kBytes = kBits + 2 * kBM * 8;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        bf16* __restrict__ dq, int B, int H, int Sq, int Sk, Strides qs_,
+                        Strides ks_, Strides vs_, Strides dos_, Strides dqs_, float sm_scale,
+                        int causal, DropoutArgs drop) {
+  using L = DqLayout<D>;
+  constexpr int kKV = ds_mma::tile_bytes<D>(kBN);
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const uint32_t s_q = ds_mma::smem_u32(tc_smem + L::kQ);
+  const uint32_t s_do = ds_mma::smem_u32(tc_smem + L::kDO);
+  const uint32_t s_k = ds_mma::smem_u32(tc_smem + L::kK);
+  const uint32_t s_v = ds_mma::smem_u32(tc_smem + L::kV);
+  uint64_t* bits = reinterpret_cast<uint64_t*>(tc_smem + L::kBits);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_bh = B * H;
+  const int bh = blockIdx.x % n_bh;
+  // heaviest q-tiles first: under causal masking the last tiles see most keys
+  const int q0 = ((Sq + kBM - 1) / kBM - 1 - static_cast<int>(blockIdx.x) / n_bh) * kBM;
+  const int b = bh / H, h = bh % H;
+  const bool dropping = drop.threshold < 256;
+  const uint32_t seed = dropping ? static_cast<uint32_t>(*drop.seed) : 0u;
+  const uint32_t threshold = static_cast<uint32_t>(drop.threshold);
+  const bf16* kb = k + b * ks_.b + h * ks_.h;
+  const bf16* vb = v + b * vs_.b + h * vs_.h;
+  const int kend = causal ? min(Sk, q0 + kBM) : Sk;
+  const int n_tiles = (kend + kBN - 1) / kBN;
+
+  ds_mma::load_tile_async<kBM, D, kThreads>(s_q, q + b * qs_.b + h * qs_.h, qs_.s, q0, Sq, tid);
+  ds_mma::load_tile_async<kBM, D, kThreads>(s_do, dout + b * dos_.b + h * dos_.h, dos_.s, q0,
+                                            Sq, tid);
+  if (n_tiles > 0) {
+    ds_mma::load_tile_async<kBN, D, kThreads>(s_k, kb, ks_.s, 0, Sk, tid);
+    ds_mma::load_tile_async<kBN, D, kThreads>(s_v, vb, vs_.s, 0, Sk, tid);
+  }
+  ds_mma::cp_async_commit();
+  if (dropping && n_tiles > 0) {
+    ds_mma::draw_keep_bits<kBM, kThreads>(bits, seed, bh, q0, 0, threshold, tid);
+  }
+
+  const int w0 = warp * 16;    // the warp's first row in the tile
+  const int row0 = q0 + w0;    // ... and in the sequence
+  const int rows[2] = {row0 + (lane >> 2), row0 + (lane >> 2) + 8};
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool ok = rows[r] < Sq;
+    lse_r[r] = ok ? lse[static_cast<size_t>(bh) * Sq + rows[r]] : 0.f;
+    delta_r[r] = ok ? delta[static_cast<size_t>(bh) * Sq + rows[r]] : 0.f;
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    ds_mma::cp_async_wait<0>();  // tile t has landed
+    __syncthreads();             // ... for every thread; tile t - 1 is consumed
+    const int st = t & 1;
+    const int n0 = t * kBN;
+    if (t + 1 < n_tiles) {  // tile t + 1 flies while tile t is multiplied
+      ds_mma::load_tile_async<kBN, D, kThreads>(s_k + (st ^ 1) * kKV, kb, ks_.s, n0 + kBN, Sk,
+                                                tid);
+      ds_mma::load_tile_async<kBN, D, kThreads>(s_v + (st ^ 1) * kKV, vb, vs_.s, n0 + kBN, Sk,
+                                                tid);
+      ds_mma::cp_async_commit();
+      if (dropping) {
+        ds_mma::draw_keep_bits<kBM, kThreads>(bits + (st ^ 1) * kBM, seed, bh, q0, n0 + kBN,
+                                              threshold, tid);
+      }
+    }
+    // causal: a warp whose rows all lie above this tile has nothing in it
+    if (causal && n0 > row0 + 15) continue;
+
+    const uint32_t t_k = s_k + st * kKV;
+    float s[kBN / 8][4], dp[kBN / 8][4];
+    ds_mma::warp_abt_smem<D, kBN>(s, s_q, w0, t_k, 0, lane);
+    ds_mma::warp_abt_smem<D, kBN>(dp, s_do, w0, s_v + st * kKV, 0, lane);
+    const bool edge = n0 + kBN > Sk || (causal && n0 + kBN - 1 > row0);
+    const uint64_t* tb = bits + st * kBM + w0 + (lane >> 2);
+    const uint32_t keep = dropping ? ds_mma::fragment_keep(tb[0], tb[8], lane) : 0u;
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, ci = ds_mma::frag_col(lane, j, e);
+        float pv = exp2f((s[j][e] * sm_scale - lse_r[r]) * ds_mma::kLog2e);
+        if (edge && (n0 + ci >= Sk || (causal && n0 + ci > rows[r]))) pv = 0.f;
+        float dpv = dp[j][e];
+        if (dropping) dpv = ds_mma::kept(keep, j, e) ? dpv * drop.scale : 0.f;
+        s[j][e] = pv * (dpv - delta_r[r]) * sm_scale;  // dS
+      }
+    }
+    uint32_t a[kBN / 16][4];
+    ds_mma::acc_to_a<kBN>(a, s);
+    ds_mma::warp_ab<kBN, D>(acc, a, t_k, 0, lane);
+  }
+
+  // dq through the warp's own rows of the Q tile, for 16-byte stores
+  ds_mma::cp_async_wait<0>();
+  __syncthreads();
+  ds_mma::acc_to_tile<D>(tc_smem + L::kQ, w0, acc, 1.f, 1.f, lane);
+  __syncwarp();
+  ds_mma::tile_rows_to_global<D>(dq + b * dqs_.b + h * dqs_.h, dqs_.s, row0, Sq,
+                                 tc_smem + L::kQ, w0, lane);
+}
+
+template <int D>
+int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
+                const float* lse, const float* delta, void* dk, void* dv, int B, int H,
+                int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides dos,
+                Strides dks, Strides dvs, float sm_scale, int causal, DropoutArgs drop,
+                cudaStream_t stream) {
+  constexpr int smem = DkdvLayout<D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = static_cast<long long>((Sk + kBN - 1) / kBN) * B * H;
+  flash_bwd_dkdv_mma_kernel<D><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), B, H, Sq, Sk, qs, ks, vs, dos, dks, dvs, sm_scale, causal,
+      drop);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const float* lse, const float* delta, void* dq, int B, int H, int Sq, int Sk,
+              Strides qs, Strides ks, Strides vs, Strides dos, Strides dqs, float sm_scale,
+              int causal, DropoutArgs drop, cudaStream_t stream) {
+  constexpr int smem = DqLayout<D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = static_cast<long long>((Sq + kBM - 1) / kBM) * B * H;
+  flash_bwd_dq_mma_kernel<D><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), B, H, Sq, Sk, qs,
+      ks, vs, dos, dqs, sm_scale, causal, drop);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // Strides come as (batch, head, seq) triples in the order of the tensor
@@ -358,15 +717,18 @@ extern "C" int ds_flash_attention_bwd_dkdv(
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DS_DKDV(T, DIM)                                                     \
-  return launch_dkdv<T, DIM>(q, k, v, dout, l, dl, dk, dv, B, H, Sq, Sk, qs, \
-                             ks, vs, dos, dks, dvs, sm_scale, causal, drop,  \
-                             s)
-  if (dtype == DS_DTYPE_BF16 && D == 64) DS_DKDV(__nv_bfloat16, 64);
-  if (dtype == DS_DTYPE_BF16 && D == 128) DS_DKDV(__nv_bfloat16, 128);
-  if (dtype == DS_DTYPE_FP32 && D == 64) DS_DKDV(float, 64);
-  if (dtype == DS_DTYPE_FP32 && D == 128) DS_DKDV(float, 128);
-#undef DS_DKDV
+  if (dtype == DS_DTYPE_BF16 && D == 64)
+    return tc::launch_dkdv<64>(q, k, v, dout, l, dl, dk, dv, B, H, Sq, Sk, qs, ks, vs, dos,
+                               dks, dvs, sm_scale, causal, drop, s);
+  if (dtype == DS_DTYPE_BF16 && D == 128)
+    return tc::launch_dkdv<128>(q, k, v, dout, l, dl, dk, dv, B, H, Sq, Sk, qs, ks, vs, dos,
+                                dks, dvs, sm_scale, causal, drop, s);
+  if (dtype == DS_DTYPE_FP32 && D == 64)
+    return fp32::launch_dkdv<float, 64>(q, k, v, dout, l, dl, dk, dv, B, H, Sq, Sk, qs, ks,
+                                        vs, dos, dks, dvs, sm_scale, causal, drop, s);
+  if (dtype == DS_DTYPE_FP32 && D == 128)
+    return fp32::launch_dkdv<float, 128>(q, k, v, dout, l, dl, dk, dv, B, H, Sq, Sk, qs, ks,
+                                         vs, dos, dks, dvs, sm_scale, causal, drop, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -386,13 +748,36 @@ extern "C" int ds_flash_attention_bwd_dq(
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DS_DQ(T, DIM)                                                        \
-  return launch_dq<T, DIM>(q, k, v, dout, l, dl, dq, B, H, Sq, Sk, qs, ks,   \
-                           vs, dos, dqs, sm_scale, causal, drop, s)
-  if (dtype == DS_DTYPE_BF16 && D == 64) DS_DQ(__nv_bfloat16, 64);
-  if (dtype == DS_DTYPE_BF16 && D == 128) DS_DQ(__nv_bfloat16, 128);
-  if (dtype == DS_DTYPE_FP32 && D == 64) DS_DQ(float, 64);
-  if (dtype == DS_DTYPE_FP32 && D == 128) DS_DQ(float, 128);
-#undef DS_DQ
+  if (dtype == DS_DTYPE_BF16 && D == 64)
+    return tc::launch_dq<64>(q, k, v, dout, l, dl, dq, B, H, Sq, Sk, qs, ks, vs, dos, dqs,
+                             sm_scale, causal, drop, s);
+  if (dtype == DS_DTYPE_BF16 && D == 128)
+    return tc::launch_dq<128>(q, k, v, dout, l, dl, dq, B, H, Sq, Sk, qs, ks, vs, dos, dqs,
+                              sm_scale, causal, drop, s);
+  if (dtype == DS_DTYPE_FP32 && D == 64)
+    return fp32::launch_dq<float, 64>(q, k, v, dout, l, dl, dq, B, H, Sq, Sk, qs, ks, vs,
+                                      dos, dqs, sm_scale, causal, drop, s);
+  if (dtype == DS_DTYPE_FP32 && D == 128)
+    return fp32::launch_dq<float, 128>(q, k, v, dout, l, dl, dq, B, H, Sq, Sk, qs, ks, vs,
+                                       dos, dqs, sm_scale, causal, drop, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Registers, dynamic shared memory, resident blocks per SM and spill bytes
+// of the bf16 route's dk/dv (which = 0) or dq (which = 1) kernel, into
+// out[4].
+extern "C" int ds_flash_attention_bwd_resources(int which, int D, int* out) {
+  if (which == 0 && D == 64)
+    return ds_mma::kernel_resources(tc::flash_bwd_dkdv_mma_kernel<64>, tc::kThreads,
+                                    tc::DkdvLayout<64>::kBytes, out);
+  if (which == 0 && D == 128)
+    return ds_mma::kernel_resources(tc::flash_bwd_dkdv_mma_kernel<128>, tc::kThreads,
+                                    tc::DkdvLayout<128>::kBytes, out);
+  if (which == 1 && D == 64)
+    return ds_mma::kernel_resources(tc::flash_bwd_dq_mma_kernel<64>, tc::kThreads,
+                                    tc::DqLayout<64>::kBytes, out);
+  if (which == 1 && D == 128)
+    return ds_mma::kernel_resources(tc::flash_bwd_dq_mma_kernel<128>, tc::kThreads,
+                                    tc::DqLayout<128>::kBytes, out);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -11,35 +11,59 @@
 // The keep mask is a pure function of (seed, b, h, row, col)
 // (dropout.cuh), which the backward kernels regenerate exactly; the seed
 // is read from device memory, so drawing it needs no host round trip.
+// Strides are arguments: q, k and v may be the [B, S, H, D] head views
+// that a fused QKV projection produces; the output is written as
+// [B, S, H, D].  Any Sq, Sk: rows and keys past the end are masked here.
 //
-// Bound on the H100: at the serving shapes (S = 128..1024, D = 64, bf16,
-// causal) the work is ~30-130 operations per byte moved, below the ~295 at
-// which the bf16 tensor cores would bound it, so the least time is set by
-// the bytes.  This first version multiplies in fp32 on the CUDA cores
-// (67 TFLOP/s peak, ~20 operations per byte), out of shared memory, which
-// is simple to get right; there the operations bound it.  `mma.sync` /
-// `wgmma` tiles are the next step.  What the design keeps from flash
-// attention is the memory side: q, k and v are each read once per q-tile
-// and the [S, S] scores never reach device memory.
+// Two routes, chosen by the operands' dtype:
 //
-// Design: one block per (q-tile of 64 rows, head, batch); the TPU's
-// sequential k-grid axis becomes a loop over k-tiles of 64 keys inside the
-// block.  256 threads, 4 per query row: each thread holds 16 of its row's
-// 64 scores in registers and D/4 of its output columns, and the row's max
-// and sum are 4-lane shuffle reductions.  For P @ V the thread fetches the
-// other lanes' probabilities by shuffle, so P never goes to shared memory.
-// The Q and K tiles are padded to D+1 floats per row so that the 8 rows
-// and 4 keys a warp reads at once fall in distinct banks.  With causal
-// masking the loop stops at the tile's last row: tiles above the diagonal
-// are never loaded.  Rows and keys past S are masked in the kernel, so any
-// S runs (no block-multiple padding).  Strides are arguments: q, k and v
-// may be the [B, S, H, D] views that a fused QKV projection produces, and
-// the output may be written into one.
+// bf16, tensor cores (tc::flash_fwd_mma_kernel, D in {64, 128}).
+//   Bound on the H100: at the training shape ([8, 12, 1024, 64] causal)
+//   the two products are 12.9 GFLOP against ~50 MB of q, k, v, out and
+//   lse: 13 us at the 989 TFLOP/s bf16 peak, 15 us at 3.35 TB/s, so the
+//   bytes bound it by a little and a kernel near either is fast.  What the
+//   earlier CUDA-core design lost, and what this one does about it:
+//   - the products: S = Q K^T and O += P V run on `mma.sync` m16n8k16
+//     (bf16 in, fp32 sums) with the online softmax in registers.  One warp
+//     owns 16 query rows, so a row's max and sum are reduced inside a quad
+//     (two shuffles); Q is loaded once and kept in registers as A
+//     fragments; P is rounded to bf16 for the P.V product (l is summed
+//     from the fp32 P) and reaches it from registers (attention_mma.cuh
+//     acc_to_a), with no shuffles and no shared memory;
+//   - the loads: K and V tiles of 64 keys go through a ring of two stages
+//     of `cp.async` 16-byte copies into swizzled bf16 tiles (ldmatrix reads
+//     them without bank conflicts), so tile n + 1 is in flight while tile
+//     n is multiplied; rows past S are zero-filled by the copy;
+//   - the schedule: only tiles on or below the causal diagonal are loaded,
+//     only the tile that crosses it is masked, and the grid walks the
+//     q-tiles heaviest first (the tail is then light);
+//   - dropout: the keep bits of each 64-key tile are drawn once per block
+//     into shared memory (attention_mma.cuh draw_keep_bits), overlapped
+//     with the tile's loads.
+//   A block is BM = 16 * WARPS query rows (64 or 128, `block_m`).
+//
+// fp32, CUDA cores (fp32::flash_fwd_kernel, the first design, kept as it
+// was).  A tensor-core fp32 product would be TF32, about three decimal
+// digits, which breaks the 1e-4 fp32 parity the fp32 engine mode is held
+// to; so fp32 operands multiply in fp32 on the CUDA cores (67 TFLOP/s
+// peak, where the operations bound it).  One block per (q-tile of 64 rows,
+// head, batch), 256 threads, 4 per query row: each thread holds 16 of its
+// row's 64 scores and D/4 output columns; P.V fetches the other lanes'
+// probabilities by shuffle; with causal masking the loop stops at the
+// tile's last row.
 
-#include "common.cuh"
-#include "dropout.cuh"
+#include "attention_mma.cuh"
 
 namespace {
+
+struct Strides {
+  long long b, h, s;
+};
+
+// ===================================================================== //
+// fp32: CUDA cores
+// ===================================================================== //
+namespace fp32 {
 
 constexpr int kBM = 64;                // query rows per block
 constexpr int kBN = 64;                // keys per k-tile
@@ -47,20 +71,16 @@ constexpr int kThreads = 256;
 constexpr int kTPR = kThreads / kBM;   // threads per query row: 4
 constexpr int kNS = kBN / kTPR;        // scores per thread per k-tile: 16
 
-struct Strides {
-  long long b, h, s;
-};
-
 template <int D>
 constexpr size_t smem_bytes() {
   return static_cast<size_t>(kBM * (D + 1) + kBN * (D + 1) + kBN * D) *
          sizeof(float);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int H, int Sq, int Sk, Strides qs_,
                  Strides ks_, Strides vs_, Strides os_, float sm_scale,
                  int causal, const int* __restrict__ seed_ptr,
@@ -85,14 +105,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const uint32_t bh = static_cast<uint32_t>(b * H + h);
   const uint32_t threshold = static_cast<uint32_t>(keep_threshold);
 
-  const T* qb = q + b * qs_.b + h * qs_.h;
-  const T* kb = k + b * ks_.b + h * ks_.h;
-  const T* vb = v + b * vs_.b + h * vs_.h;
+  const float* qb = q + b * qs_.b + h * qs_.h;
+  const float* kb = k + b * ks_.b + h * ks_.h;
+  const float* vb = v + b * vs_.b + h * vs_.h;
 
   for (int idx = tid; idx < kBM * D; idx += kThreads) {
     const int row = idx / D, col = idx % D;
     const int gq = q0 + row;
-    qs[row * DP + col] = gq < Sq ? ds_to_float(qb[gq * qs_.s + col]) : 0.f;
+    qs[row * DP + col] = gq < Sq ? qb[gq * qs_.s + col] : 0.f;
   }
 
   float acc[DC];
@@ -109,8 +129,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int row = idx / D, col = idx % D;
       const int gk = n0 + row;
       const bool ok = gk < Sk;
-      ks[row * DP + col] = ok ? ds_to_float(kb[gk * ks_.s + col]) : 0.f;
-      vs[row * D + col] = ok ? ds_to_float(vb[gk * vs_.s + col]) : 0.f;
+      ks[row * DP + col] = ok ? kb[gk * ks_.s + col] : 0.f;
+      vs[row * D + col] = ok ? vb[gk * vs_.s + col] : 0.f;
     }
     __syncthreads();
 
@@ -177,73 +197,286 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (qrow < Sq) {
     const float denom = l == 0.f ? 1.f : l;
-    T* orow = o + b * os_.b + h * os_.h + qrow * os_.s;
+    float* orow = o + b * os_.b + h * os_.h + qrow * os_.s;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) orow[j + kTPR * c] = ds_from_float<T>(acc[c] / denom);
+    for (int c = 0; c < DC; ++c) orow[j + kTPR * c] = acc[c] / denom;
     if (j == 0) {
       lse[(static_cast<size_t>(b) * H + h) * Sq + qrow] = m + logf(l + 1e-37f);
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
            Strides os, float sm_scale, int causal, const int* seed,
            int keep_threshold, float keep_scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + kBM - 1) / kBM, H, B);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, H, Sq, Sk, qs, ks,
-      vs, os, sm_scale, causal, seed, keep_threshold, keep_scale);
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H, Sq, Sk,
+      qs, ks, vs, os, sm_scale, causal, seed, keep_threshold, keep_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_d(int D, const void* q, const void* k, const void* v, void* o,
-             float* lse, int B, int H, int Sq, int Sk, Strides qs, Strides ks,
-             Strides vs, Strides os, float sm_scale, int causal,
-             const int* seed, int keep_threshold, float keep_scale,
-             cudaStream_t stream) {
-  switch (D) {
-    case 64:
-      return launch<T, 64>(q, k, v, o, lse, B, H, Sq, Sk, qs, ks, vs, os, sm_scale, causal, seed, keep_threshold, keep_scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, lse, B, H, Sq, Sk, qs, ks, vs, os, sm_scale, causal, seed, keep_threshold, keep_scale, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+}  // namespace fp32
+
+// ===================================================================== //
+// bf16: tensor cores
+// ===================================================================== //
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kBN = 64;  // keys per k-tile
+
+template <int D, int WARPS>
+struct FwdLayout {
+  static constexpr int kBM = 16 * WARPS;
+  static constexpr int kQ = 0;                                   // [kBM][D]
+  static constexpr int kK = kQ + ds_mma::tile_bytes<D>(kBM);     // [2][kBN][D]
+  static constexpr int kV = kK + 2 * ds_mma::tile_bytes<D>(kBN); // [2][kBN][D]
+  static constexpr int kBits = kV + 2 * ds_mma::tile_bytes<D>(kBN);  // [2][kBM] u64
+  static constexpr int kBytes = kBits + 2 * kBM * 8;
+};
+
+// At D = 64 the registers are capped so that 16 warps fit an SM (four
+// blocks of 64 rows: 128 registers, a few bytes spilled), which measured
+// faster on the H100 than three blocks at the 159 the compiler picks.
+template <int D, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32, D == 64 ? 16 / WARPS : 1)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     float* __restrict__ lse, int B, int H, int Sq, int Sk,
+                     Strides qs_, Strides ks_, Strides vs_, Strides os_,
+                     float sm_scale, int causal, const int* __restrict__ seed_ptr,
+                     int keep_threshold, float keep_scale) {
+  using L = FwdLayout<D, WARPS>;
+  constexpr int BM = L::kBM, NT = WARPS * 32;
+  constexpr int kKV = ds_mma::tile_bytes<D>(kBN);
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const uint32_t s_q = ds_mma::smem_u32(tc_smem + L::kQ);
+  const uint32_t s_k = ds_mma::smem_u32(tc_smem + L::kK);
+  const uint32_t s_v = ds_mma::smem_u32(tc_smem + L::kV);
+  uint64_t* bits = reinterpret_cast<uint64_t*>(tc_smem + L::kBits);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_bh = B * H;
+  const int bh = blockIdx.x % n_bh;
+  // heaviest q-tiles first: under causal masking the last tiles see most keys
+  const int q0 = ((Sq + BM - 1) / BM - 1 - static_cast<int>(blockIdx.x) / n_bh) * BM;
+  const int b = bh / H, h = bh % H;
+  const bool drop = keep_threshold < 256;
+  const uint32_t seed = drop ? static_cast<uint32_t>(*seed_ptr) : 0u;
+  const uint32_t threshold = static_cast<uint32_t>(keep_threshold);
+
+  const bf16* qb = q + b * qs_.b + h * qs_.h;
+  const bf16* kb = k + b * ks_.b + h * ks_.h;
+  const bf16* vb = v + b * vs_.b + h * vs_.h;
+  const int kend = causal ? min(Sk, q0 + BM) : Sk;
+  const int n_tiles = (kend + kBN - 1) / kBN;
+
+  ds_mma::load_tile_async<BM, D, NT>(s_q, qb, qs_.s, q0, Sq, tid);
+  if (n_tiles > 0) {
+    ds_mma::load_tile_async<kBN, D, NT>(s_k, kb, ks_.s, 0, Sk, tid);
+    ds_mma::load_tile_async<kBN, D, NT>(s_v, vb, vs_.s, 0, Sk, tid);
+  }
+  ds_mma::cp_async_commit();
+  if (drop && n_tiles > 0) {
+    ds_mma::draw_keep_bits<BM, NT>(bits, seed, bh, q0, 0, threshold, tid);
+  }
+
+  const int w0 = warp * 16;      // the warp's first row in the tile
+  const int row0 = q0 + w0;      // ... and in the sequence
+  const int rows[2] = {row0 + (lane >> 2), row0 + (lane >> 2) + 8};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m[2] = {DS_MASK_VALUE, DS_MASK_VALUE};
+  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+  uint32_t qa[D / 16][4];
+
+  ds_mma::cp_async_wait<0>();
+  __syncthreads();
+  ds_mma::load_a<D>(qa, s_q, w0, lane);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t > 0) {
+      ds_mma::cp_async_wait<0>();  // tile t has landed
+      __syncthreads();             // ... for every thread; tile t - 1 is consumed
+    }
+    const int st = t & 1;
+    const int n0 = t * kBN;
+    if (t + 1 < n_tiles) {  // tile t + 1 flies while tile t is multiplied
+      ds_mma::load_tile_async<kBN, D, NT>(s_k + (st ^ 1) * kKV, kb, ks_.s, n0 + kBN, Sk, tid);
+      ds_mma::load_tile_async<kBN, D, NT>(s_v + (st ^ 1) * kKV, vb, vs_.s, n0 + kBN, Sk, tid);
+      ds_mma::cp_async_commit();
+      if (drop) {
+        ds_mma::draw_keep_bits<BM, NT>(bits + (st ^ 1) * BM, seed, bh, q0, n0 + kBN,
+                                       threshold, tid);
+      }
+    }
+    // causal: a warp whose rows all lie above this tile has nothing in it
+    if (causal && n0 > row0 + 15) continue;
+
+    float s[kBN / 8][4];
+    ds_mma::warp_abt<D, kBN>(s, qa, s_k + st * kKV, 0, lane);
+
+    const bool edge = n0 + kBN > Sk || (causal && n0 + kBN - 1 > row0);
+    float mt[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float sv = s[j][e] * sm_scale;
+        if (edge) {
+          const int col = n0 + ds_mma::frag_col(lane, j, e);
+          if (col >= Sk) {
+            sv = -CUDART_INF_F;  // past the ragged edge: weight 0
+          } else if (causal && col > rows[e >> 1]) {
+            sv = DS_MASK_VALUE;
+          }
+        }
+        s[j][e] = sv;
+        mt[e >> 1] = fmaxf(mt[e >> 1], sv);
+      }
+    }
+    // exp(x - m) as exp2((x - m) log2 e), the difference first: a masked
+    // score minus a masked max is 0, as in the plain twin's softmax
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], ds_mma::quad_max(mt[r]));
+      alpha[r] = exp2f((m[r] - m_new) * ds_mma::kLog2e);
+      m[r] = m_new;
+    }
+    float lt[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f((s[j][e] - m[e >> 1]) * ds_mma::kLog2e);
+        lt[e >> 1] += p;
+        s[j][e] = p;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + lt[r];
+    if (drop) {  // after l took the raw P: only the P.V input is dropped
+      // (the keep scale multiplies the output once, with 1 / l)
+      const uint64_t* tb = bits + st * BM + w0 + (lane >> 2);
+      const uint32_t keep = ds_mma::fragment_keep(tb[0], tb[8], lane);
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = ds_mma::kept(keep, j, e) ? s[j][e] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+    uint32_t pa[kBN / 16][4];
+    ds_mma::acc_to_a<kBN>(pa, s);
+    ds_mma::warp_ab<kBN, D>(acc, pa, s_v + st * kKV, 0, lane);
+  }
+
+  // the row sums over the quad; out = acc * keep scale / l (0 where l is
+  // 0), staged in the warp's own rows of the Q tile for 16-byte stores
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = ds_mma::quad_sum(l[r]);
+    inv[r] = (drop ? keep_scale : 1.f) / (l[r] == 0.f ? 1.f : l[r]);
+  }
+  ds_mma::acc_to_tile<D>(tc_smem + L::kQ, w0, acc, inv[0], inv[1], lane);
+  __syncwarp();
+  ds_mma::tile_rows_to_global<D>(o + b * os_.b + h * os_.h, os_.s, row0, Sq, tc_smem + L::kQ, w0,
+                                 lane);
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (rows[r] < Sq) {
+        lse[static_cast<size_t>(bh) * Sq + rows[r]] = m[r] + logf(l[r] + 1e-37f);
+      }
+    }
   }
 }
 
+template <int D, int WARPS>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
+           Strides os, float sm_scale, int causal, const int* seed,
+           int keep_threshold, float keep_scale, cudaStream_t stream) {
+  using L = FwdLayout<D, WARPS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_mma_kernel<D, WARPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = static_cast<long long>((Sq + L::kBM - 1) / L::kBM) * B * H;
+  flash_fwd_mma_kernel<D, WARPS><<<static_cast<unsigned>(blocks), WARPS * 32, L::kBytes,
+                                   stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, B, H, Sq, Sk, qs,
+      ks, vs, os, sm_scale, causal, seed, keep_threshold, keep_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
 }  // namespace
 
+// block_m: query rows per block of the bf16 route (64 or 128); the fp32
+// route always tiles 64 rows.
 extern "C" int ds_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int H, int Sq, int Sk, int D, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
     long long o_sh, long long o_ss, float sm_scale, int causal,
-    const void* seed, int keep_threshold, float keep_scale, int dtype,
-    void* stream) {
+    const void* seed, int keep_threshold, float keep_scale, int block_m,
+    int dtype, void* stream) {
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
       vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   const int* sd = static_cast<const int*>(seed);
+#define DS_FWD(NS, ...)                                                       \
+  return NS::launch<__VA_ARGS__>(q, k, v, o, l, B, H, Sq, Sk, qs, ks, vs, os, \
+                                 sm_scale, causal, sd, keep_threshold,        \
+                                 keep_scale, s)
   if (dtype == DS_DTYPE_BF16) {
-    return launch_d<__nv_bfloat16>(D, q, k, v, o, l, B, H, Sq, Sk, qs, ks, vs,
-                                   os, sm_scale, causal, sd, keep_threshold,
-                                   keep_scale, s);
+    if (D == 64 && block_m == 64) DS_FWD(tc, 64, 4);
+    if (D == 64 && block_m == 128) DS_FWD(tc, 64, 8);
+    if (D == 128 && block_m == 64) DS_FWD(tc, 128, 4);
+    if (D == 128 && block_m == 128) DS_FWD(tc, 128, 8);
   }
   if (dtype == DS_DTYPE_FP32) {
-    return launch_d<float>(D, q, k, v, o, l, B, H, Sq, Sk, qs, ks, vs, os,
-                           sm_scale, causal, sd, keep_threshold, keep_scale,
-                           s);
+    if (D == 64) DS_FWD(fp32, 64);
+    if (D == 128) DS_FWD(fp32, 128);
   }
+#undef DS_FWD
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Registers, dynamic shared memory, resident blocks per SM and spill bytes
+// of the bf16 route's kernel for (D, block_m), into out[4].
+extern "C" int ds_flash_attention_fwd_resources(int D, int block_m, int* out) {
+#define DS_RES(DIM, WARPS)                                                   \
+  return ds_mma::kernel_resources(tc::flash_fwd_mma_kernel<DIM, WARPS>,      \
+                                  WARPS * 32, tc::FwdLayout<DIM, WARPS>::kBytes, out)
+  if (D == 64 && block_m == 64) DS_RES(64, 4);
+  if (D == 64 && block_m == 128) DS_RES(64, 8);
+  if (D == 128 && block_m == 64) DS_RES(128, 4);
+  if (D == 128 && block_m == 128) DS_RES(128, 8);
+#undef DS_RES
   return static_cast<int>(cudaErrorInvalidValue);
 }
