@@ -21,12 +21,12 @@ phase prints {"phase": ..., "ok": false, "error": ...} and the script exits
    seed and the coordinates), and the mask's keep share must lie within
    4 sigma of 230/256; kernels D and E must repeat bitwise.  B and E name
    their route (bf16 on the tensor cores, fp32 on the CUDA cores) and
-   their achieved TFLOP/s beside the library call's; B's bf16 cases check
-   and time every compiled block_q, its dropout cases also time the call
-   without dropout; one case each runs train_longseq's S = 8192 (batch 1,
-   4 heads, so that the plain twin's [S, S] fp32 scores take 1 GiB).  The
-   device phase reports each tensor-core launch's registers, shared
-   memory, resident blocks per SM and spill bytes (CUDA runtime).
+   their achieved TFLOP/s beside the library call's; B's dropout cases
+   also time the call without dropout; one case each runs train_longseq's
+   S = 8192 (batch 1, 4 heads, so that the plain twin's [S, S] fp32 scores
+   take 1 GiB).  The device phase reports the registers and stack (spill)
+   bytes per thread of B's and E's tensor-core kernels, as cuobjdump reads
+   them from the built library.
 3. serve_bf16: GPT-2 124M at full width (hidden 768, 12 layers, 12 heads,
    vocab 50304, n_positions 256, bf16, weights from seed 0) through
    init_inference -> forward / generate: batch 8, prompt 128, 128 new
@@ -130,6 +130,8 @@ four), and prints no `kernels` line.
 """
 
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -147,10 +149,9 @@ from deepspeed_tpu_torch.ops import (KERNELS, dispatch, launch_counts,
 from deepspeed_tpu_torch.ops import activations
 from deepspeed_tpu_torch.ops import collective_matmul as cm
 from deepspeed_tpu_torch.ops.flash_attention import (
-    DEFAULT_MASK_VALUE, FWD_BLOCK_QS, TENSOR_CORES, dropout_keep_mask,
-    flash_attention_bwd_dkdv_cuda, flash_attention_bwd_dq_cuda,
-    flash_attention_bwd_reference, flash_attention_cuda, kernel_resources,
-    kernel_route, mha_reference, quantized_threshold)
+    DEFAULT_MASK_VALUE, dropout_keep_mask, flash_attention_bwd_dkdv_cuda,
+    flash_attention_bwd_dq_cuda, flash_attention_bwd_reference,
+    flash_attention_cuda, mha_reference, quantized_threshold)
 from deepspeed_tpu_torch.ops.normalize import (layer_norm_bwd_cuda,
                                                layer_norm_bwd_reference,
                                                layer_norm_cuda,
@@ -270,12 +271,6 @@ def phase_device():
     t0 = time.perf_counter()
     op_builder.load()
     seconds = time.perf_counter() - t0
-    # what the card gives a block of each tensor-core launch of B and E
-    resources = {f"{launch} D={d}" + (f" block_q={bq}" if launch == "fwd"
-                                      else ""): kernel_resources(launch, d, bq)
-                 for d in (64, 128) for launch, bqs in (
-                     ("fwd", FWD_BLOCK_QS), ("dkdv", (64,)), ("dq", (64,)))
-                 for bq in bqs}
     return card, {"card": card, "torch": torch.__version__,
                   "cuda": torch.version.cuda,
                   "kind": torch.cuda.get_device_name(0),
@@ -283,7 +278,27 @@ def phase_device():
                   "nvcc_seconds": op_builder.build_seconds,
                   "sources": [s.split("deepspeed_tpu_torch/")[-1]
                               for s in op_builder.sources()],
-                  "flash_tensor_core_resources": resources}
+                  "flash_tensor_core_resources": tensor_core_resources(
+                      op_builder.build())}
+
+
+def tensor_core_resources(lib_path):
+    """Registers and stack (spill) bytes per thread of kernel B's and E's
+    tensor-core kernels, as cuobjdump reads them from the built library
+    (what nvcc -Xptxas -v reports), or why they could not be read: a
+    diagnostic, which fails no phase."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        dump = subprocess.run([tool, "--dump-resource-usage", lib_path],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"cuobjdump failed: {e}"
+    return {f"{name} D={d}": {"registers": int(reg), "stack_bytes": int(stack)}
+            for name, d, reg, stack in re.findall(
+                r"Function \S*?(flash_(?:fwd|bwd_dkdv|bwd_dq)_mma_kernel)"
+                r"ILi(\d+)E\S*:\s+"
+                r"REG:(\d+) STACK:(\d+)", dump)}
 
 
 # --------------------------------------------------------------------- #
@@ -407,6 +422,12 @@ def keep_share_check(seed, b, h, sq, sk, rate):
     return share, abs(share - p) <= 4 * (p * (1 - p) / n) ** 0.5
 
 
+def flash_route(dtype):
+    """The route kernels B and E take for `dtype` (the kernels dispatch on
+    the dtype code)."""
+    return "tensor_cores" if dtype == torch.bfloat16 else "cuda_cores"
+
+
 def tflops(ops, ms):
     """Achieved TFLOP/s of `ops` operations in `ms` of device time."""
     return ops / (ms * 1e-3) / 1e12
@@ -414,10 +435,8 @@ def tflops(ops, ms):
 
 def case_flash(b, h, s, d, causal, dtype, fused=False, rate=0.0):
     """Kernel B against mha_reference; with rate > 0 both drop with the
-    mask of the same seed, so they must agree exactly as without.  In bf16
-    (the tensor-core route) each compiled block_q is checked and timed; the
-    case's ms is the default's.  With dropout, ms_dropout_off times the
-    same call without it."""
+    mask of the same seed, so they must agree exactly as without.  With
+    dropout, ms_dropout_off times the same call without it."""
     q, k, v = attention_inputs(b, h, s, d, dtype, s + causal, fused)
     seed = torch.tensor([1234 + s], dtype=torch.int32, device="cuda")
     kw = dict(causal=causal, dropout_rate=rate, dropout_seed=seed)
@@ -428,17 +447,7 @@ def case_flash(b, h, s, d, causal, dtype, fused=False, rate=0.0):
     err = (out.float() - ref.float()).abs().max().item()
     lse_err = (lse - ref_lse).abs().max().item()
     ok = _within(out.float(), ref.float(), tol, tol) and lse_err <= lse_tol
-    route = kernel_route(dtype)
-    extra = {"route": route}
-    if route == TENSOR_CORES:
-        block_q_ms = {}
-        for bq in FWD_BLOCK_QS:
-            o2, l2 = flash_attention_cuda(q, k, v, block_q=bq, **kw)
-            ok = (ok and _within(o2.float(), ref.float(), tol, tol)
-                  and (l2 - ref_lse).abs().max().item() <= lse_tol)
-            block_q_ms[bq] = time_ms(
-                lambda: flash_attention_cuda(q, k, v, block_q=bq, **kw))
-        extra["block_q_ms"] = block_q_ms
+    extra = {"route": flash_route(dtype)}
     if rate:
         share, share_ok = keep_share_check(seed, b, h, s, s, rate)
         ok = ok and share_ok
@@ -533,7 +542,7 @@ def case_flash_bwd(b, h, s, d, causal, dtype, fused=False, rate=0.0):
                   for a, r in zip((dq, dk, dv), ref))
     del ref
     ok = max(errs.values()) <= tol and repeat
-    extra = {"route": kernel_route(dtype), "bitwise_repeat": repeat}
+    extra = {"route": flash_route(dtype), "bitwise_repeat": repeat}
     if rate:
         share, share_ok = keep_share_check(seed, b, h, s, s, rate)
         ok = ok and share_ok

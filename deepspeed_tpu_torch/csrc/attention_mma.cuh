@@ -410,26 +410,4 @@ __device__ __forceinline__ bool kept(uint32_t fragment_bits, int j, int e) {
   return (fragment_bits >> (4 * j + e)) & 1u;
 }
 
-// ------------------------------------------------------------------ //
-// occupancy of a kernel, for the measurement scripts
-// ------------------------------------------------------------------ //
-// out = {registers per thread, dynamic shared memory bytes, resident
-// blocks per SM, local (spill) bytes per thread}.
-template <class Kernel>
-int kernel_resources(Kernel kernel, int threads, int smem, int* out) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
-  out[0] = attr.numRegs;
-  out[1] = smem;
-  out[2] = blocks;
-  out[3] = static_cast<int>(attr.localSizeBytes);
-  return static_cast<int>(err);
-}
-
 }  // namespace ds_mma

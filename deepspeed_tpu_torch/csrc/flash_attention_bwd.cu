@@ -763,21 +763,3 @@ extern "C" int ds_flash_attention_bwd_dq(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Registers, dynamic shared memory, resident blocks per SM and spill bytes
-// of the bf16 route's dk/dv (which = 0) or dq (which = 1) kernel, into
-// out[4].
-extern "C" int ds_flash_attention_bwd_resources(int which, int D, int* out) {
-  if (which == 0 && D == 64)
-    return ds_mma::kernel_resources(tc::flash_bwd_dkdv_mma_kernel<64>, tc::kThreads,
-                                    tc::DkdvLayout<64>::kBytes, out);
-  if (which == 0 && D == 128)
-    return ds_mma::kernel_resources(tc::flash_bwd_dkdv_mma_kernel<128>, tc::kThreads,
-                                    tc::DkdvLayout<128>::kBytes, out);
-  if (which == 1 && D == 64)
-    return ds_mma::kernel_resources(tc::flash_bwd_dq_mma_kernel<64>, tc::kThreads,
-                                    tc::DqLayout<64>::kBytes, out);
-  if (which == 1 && D == 128)
-    return ds_mma::kernel_resources(tc::flash_bwd_dq_mma_kernel<128>, tc::kThreads,
-                                    tc::DqLayout<128>::kBytes, out);
-  return static_cast<int>(cudaErrorInvalidValue);
-}

@@ -40,7 +40,8 @@
 //   - dropout: the keep bits of each 64-key tile are drawn once per block
 //     into shared memory (attention_mma.cuh draw_keep_bits), overlapped
 //     with the tile's loads.
-//   A block is BM = 16 * WARPS query rows (64 or 128, `block_m`).
+//   A block is 64 query rows (4 warps): 128 rows (8 warps) measured slower
+//   at every shape tried on the H100 (PERF.md).
 //
 // fp32, CUDA cores (fp32::flash_fwd_kernel, the first design, kept as it
 // was).  A tensor-core fp32 product would be TF32, about three decimal
@@ -232,11 +233,13 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 namespace tc {
 
 using bf16 = __nv_bfloat16;
-constexpr int kBN = 64;  // keys per k-tile
+constexpr int kBN = 64;       // keys per k-tile
+constexpr int kWarps = 4;     // each owns 16 query rows
+constexpr int kBM = 16 * kWarps;
+constexpr int kThreads = kWarps * 32;
 
-template <int D, int WARPS>
+template <int D>
 struct FwdLayout {
-  static constexpr int kBM = 16 * WARPS;
   static constexpr int kQ = 0;                                   // [kBM][D]
   static constexpr int kK = kQ + ds_mma::tile_bytes<D>(kBM);     // [2][kBN][D]
   static constexpr int kV = kK + 2 * ds_mma::tile_bytes<D>(kBN); // [2][kBN][D]
@@ -244,19 +247,19 @@ struct FwdLayout {
   static constexpr int kBytes = kBits + 2 * kBM * 8;
 };
 
-// At D = 64 the registers are capped so that 16 warps fit an SM (four
-// blocks of 64 rows: 128 registers, a few bytes spilled), which measured
-// faster on the H100 than three blocks at the 159 the compiler picks.
-template <int D, int WARPS>
-__global__ void __launch_bounds__(WARPS * 32, D == 64 ? 16 / WARPS : 1)
+// At D = 64 the registers are capped so that four blocks fit an SM (128
+// registers, a few bytes spilled), which measured faster on the H100 than
+// three blocks at the 159 the compiler picks.
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 4 : 1)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o,
                      float* __restrict__ lse, int B, int H, int Sq, int Sk,
                      Strides qs_, Strides ks_, Strides vs_, Strides os_,
                      float sm_scale, int causal, const int* __restrict__ seed_ptr,
                      int keep_threshold, float keep_scale) {
-  using L = FwdLayout<D, WARPS>;
-  constexpr int BM = L::kBM, NT = WARPS * 32;
+  using L = FwdLayout<D>;
+  constexpr int BM = kBM, NT = kThreads;
   constexpr int kKV = ds_mma::tile_bytes<D>(kBN);
   extern __shared__ __align__(128) unsigned char tc_smem[];
   const uint32_t s_q = ds_mma::smem_u32(tc_smem + L::kQ);
@@ -411,19 +414,17 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D, int WARPS>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
            Strides os, float sm_scale, int causal, const int* seed,
            int keep_threshold, float keep_scale, cudaStream_t stream) {
-  using L = FwdLayout<D, WARPS>;
+  constexpr int smem = FwdLayout<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_mma_kernel<D, WARPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L::kBytes);
+      flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = static_cast<long long>((Sq + L::kBM - 1) / L::kBM) * B * H;
-  flash_fwd_mma_kernel<D, WARPS><<<static_cast<unsigned>(blocks), WARPS * 32, L::kBytes,
-                                   stream>>>(
+  const long long blocks = static_cast<long long>((Sq + kBM - 1) / kBM) * B * H;
+  flash_fwd_mma_kernel<D><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, B, H, Sq, Sk, qs,
       ks, vs, os, sm_scale, causal, seed, keep_threshold, keep_scale);
@@ -434,16 +435,14 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 }  // namespace
 
-// block_m: query rows per block of the bf16 route (64 or 128); the fp32
-// route always tiles 64 rows.
 extern "C" int ds_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int H, int Sq, int Sk, int D, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
     long long o_sh, long long o_ss, float sm_scale, int causal,
-    const void* seed, int keep_threshold, float keep_scale, int block_m,
-    int dtype, void* stream) {
+    const void* seed, int keep_threshold, float keep_scale, int dtype,
+    void* stream) {
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
       vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -454,10 +453,8 @@ extern "C" int ds_flash_attention_fwd(
                                  sm_scale, causal, sd, keep_threshold,        \
                                  keep_scale, s)
   if (dtype == DS_DTYPE_BF16) {
-    if (D == 64 && block_m == 64) DS_FWD(tc, 64, 4);
-    if (D == 64 && block_m == 128) DS_FWD(tc, 64, 8);
-    if (D == 128 && block_m == 64) DS_FWD(tc, 128, 4);
-    if (D == 128 && block_m == 128) DS_FWD(tc, 128, 8);
+    if (D == 64) DS_FWD(tc, 64);
+    if (D == 128) DS_FWD(tc, 128);
   }
   if (dtype == DS_DTYPE_FP32) {
     if (D == 64) DS_FWD(fp32, 64);
@@ -467,16 +464,3 @@ extern "C" int ds_flash_attention_fwd(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Registers, dynamic shared memory, resident blocks per SM and spill bytes
-// of the bf16 route's kernel for (D, block_m), into out[4].
-extern "C" int ds_flash_attention_fwd_resources(int D, int block_m, int* out) {
-#define DS_RES(DIM, WARPS)                                                   \
-  return ds_mma::kernel_resources(tc::flash_fwd_mma_kernel<DIM, WARPS>,      \
-                                  WARPS * 32, tc::FwdLayout<DIM, WARPS>::kBytes, out)
-  if (D == 64 && block_m == 64) DS_RES(64, 4);
-  if (D == 64 && block_m == 128) DS_RES(64, 8);
-  if (D == 128 && block_m == 64) DS_RES(128, 4);
-  if (D == 128 && block_m == 128) DS_RES(128, 8);
-#undef DS_RES
-  return static_cast<int>(cudaErrorInvalidValue);
-}

@@ -12,14 +12,15 @@ their own ragged edge, so any sequence length runs on them: there is no
 short-sequence crossover to XLA (the JAX package's AUTO_MIN_SEQ is a v5e
 measurement).
 
-Routes.  Each kernel has two, chosen by the operands' dtype
-(`kernel_route`): bf16 multiplies on the tensor cores (`mma.sync` tiles
-fed by 16-byte `cp.async` copies, csrc/attention_mma.cuh), fp32 on the
-CUDA cores (a tensor-core fp32 product would be TF32 and miss the fp32
+Routes.  Each kernel has two, chosen in the kernel by the dtype code
+(`kernel_dtype_code`): bf16 multiplies on the tensor cores (`mma.sync`
+tiles fed by 16-byte `cp.async` copies, csrc/attention_mma.cuh), fp32 on
+the CUDA cores (a tensor-core fp32 product would be TF32 and miss the fp32
 parity).  The tensor-core route needs every operand's base address and its
 batch, head and sequence strides to be multiples of 16 bytes
-(`check_cp_async_operands`); a tensor that is not raises, there is no
-fallback.  Every call the layer and the engines make meets it.
+(`_seq_strides` checks them as it reads the strides); a tensor that is not
+raises, there is no fallback.  Every call the layer and the engines make
+meets it.
 
 Dropout.  The JAX kernel keys the TPU's PRNG by tile, which no other
 tiling can reproduce.  Here the keep decision of score (row, col) of head
@@ -34,7 +35,6 @@ kept below round((1 - rate) * 256), scaled by the exact inverse
 host round trip.
 """
 
-import ctypes
 import math
 from typing import Optional
 
@@ -50,14 +50,7 @@ DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 # head dims the kernels are compiled for
 KERNEL_HEAD_DIMS = (64, 128)
 
-# the routes of kernels B and E by operand dtype
-TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
-# query rows per block of kernel B's tensor-core route (the CUDA-core route
-# always takes 64), and the default, chosen by measurement on the H100
-# (PERF.md)
-FWD_BLOCK_QS = (64, 128)
-FWD_BLOCK_Q = 64
-# cp.async copies 16 bytes at a time
+# the tensor-core route's cp.async copies move 16 bytes, 8 bf16 elements
 CP_ASYNC_BYTES = 16
 
 # Philox4x32-10 constants (csrc/dropout.cuh)
@@ -202,13 +195,36 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, causal: bool = False,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _seq_strides(name, t):
-    """(batch, head, seq) strides of a [B, H, S, D] tensor whose last dim
-    is dense."""
-    if t.stride(3) != 1:
-        raise ValueError(f"{name}: the head dim must be dense "
+def _seq_strides(name, arg, t, cp_async=False):
+    """(batch, head, seq) strides of the [B, H, S, D] bf16 or fp32 operand
+    `arg`; its last dim must be dense.  With cp_async (kernels B and E on
+    bf16: the tensor-core route) its base address, and its batch, head and
+    sequence strides in bytes (of the dims longer than 1), must also be
+    multiples of 16.  Raises ValueError naming the operand; runs on tensors
+    of any device."""
+    sb, sh, ss, sd = t.stride()
+    if sd != 1:
+        raise ValueError(f"{name}: `{arg}`: the head dim must be dense "
                          f"(strides {t.stride()})")
-    return t.stride(0), t.stride(1), t.stride(2)
+    if cp_async:  # 16 bytes are 8 bf16 elements
+        nb, nh, ns = t.shape[:3]
+        if t.data_ptr() % CP_ASYNC_BYTES or (nb > 1 and sb % 8) \
+                or (nh > 1 and sh % 8) or (ns > 1 and ss % 8):
+            _raise_misaligned(name, arg, t)
+    return sb, sh, ss
+
+
+def _raise_misaligned(name, arg, t):
+    need = (f"not a multiple of {CP_ASYNC_BYTES} bytes, which the "
+            "tensor-core route's cp.async copies need")
+    if t.data_ptr() % CP_ASYNC_BYTES:
+        raise ValueError(f"{name}: `{arg}` starts at address "
+                         f"{t.data_ptr():#x}, {need}")
+    for dim, what in enumerate(("batch", "head", "sequence")):
+        nbytes = t.stride(dim) * t.element_size()
+        if t.shape[dim] > 1 and nbytes % CP_ASYNC_BYTES:
+            raise ValueError(f"{name}: `{arg}` has a {what} stride of "
+                             f"{nbytes} bytes (strides {t.stride()}), {need}")
 
 
 def _heads_layout(b, h, s, d, like):
@@ -216,48 +232,6 @@ def _heads_layout(b, h, s, d, like):
     merging the heads back into [B, S, H*D] is a free view."""
     return torch.empty((b, s, h, d), dtype=like.dtype,
                        device=like.device).transpose(1, 2)
-
-
-def kernel_route(dtype) -> str:
-    """The route of kernels B and E for operands of `dtype`: TENSOR_CORES
-    for bf16, CUDA_CORES for fp32; raises TypeError for any other."""
-    if dtype == torch.bfloat16:
-        return TENSOR_CORES
-    if dtype == torch.float32:
-        return CUDA_CORES
-    raise TypeError(f"the attention kernels take bfloat16 or float32, got {dtype}")
-
-
-def check_cp_async_operands(name, **operands):
-    """The tensor-core route copies rows of 16 bytes with cp.async: every
-    operand's base address, and its batch, head and sequence strides in
-    bytes (of the dims longer than 1), must be multiples of 16.  Raises
-    ValueError naming the first operand that is not; works on tensors of
-    any device."""
-    for arg, t in operands.items():
-        if t.data_ptr() % CP_ASYNC_BYTES:
-            raise ValueError(
-                f"{name}: `{arg}` starts at address {t.data_ptr():#x}, not a "
-                f"multiple of {CP_ASYNC_BYTES} bytes, which the tensor-core "
-                "route's cp.async copies need")
-        size = t.element_size()
-        for dim, what in enumerate(("batch", "head", "sequence")):
-            if t.shape[dim] > 1 and t.stride(dim) * size % CP_ASYNC_BYTES:
-                raise ValueError(
-                    f"{name}: `{arg}` has a {what} stride of "
-                    f"{t.stride(dim) * size} bytes (strides {t.stride()}), "
-                    f"not a multiple of {CP_ASYNC_BYTES}, which the "
-                    "tensor-core route's cp.async copies need")
-
-
-def check_route(name, **operands) -> str:
-    """The route the operands take (kernel_route of the first one's dtype),
-    after the checks that route needs: the tensor-core route's cp.async
-    alignment; the CUDA-core route has none."""
-    route = kernel_route(next(iter(operands.values())).dtype)
-    if route == TENSOR_CORES:
-        check_cp_async_operands(name, **operands)
-    return route
 
 
 def _check_attention(name, q, k, v, *more):
@@ -292,22 +266,19 @@ def _dropout_args(name, rate, seed, device):
 
 def flash_attention_cuda(q, k, v, causal: bool = False,
                          sm_scale: Optional[float] = None,
-                         dropout_rate: float = 0.0, dropout_seed=None,
-                         block_q: int = FWD_BLOCK_Q):
+                         dropout_rate: float = 0.0, dropout_seed=None):
     """Kernel B on CUDA tensors q [B, H, Sq, D], k, v [B, H, Sk, D] (any
     batch/head/seq strides, dense D; in bf16, strides and base addresses
     multiples of 16 bytes).  Returns (out [B, H, Sq, D], lse [B, H, Sq]
     fp32); out is laid out as [B, Sq, H, D] in memory.  dropout_seed: an
-    int or a device int32 tensor of one element.  block_q: query rows per
-    block of the bf16 route (FWD_BLOCK_QS); fp32 tiles 64."""
+    int or a device int32 tensor of one element."""
     name = "flash_attention_cuda"
     index, code, b, h, sq, sk, d = _check_attention(name, q, k, v)
-    if block_q not in FWD_BLOCK_QS:
-        raise ValueError(f"{name}: block_q {block_q} not compiled "
-                         f"(kernel takes {FWD_BLOCK_QS})")
-    check_route(name, q=q, k=k, v=v)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
+    cp_async = code == op_builder.DTYPE_BF16
+    strides = [x for arg, t in (("q", q), ("k", k), ("v", v))
+               for x in _seq_strides(name, arg, t, cp_async)]
     out = _heads_layout(b, h, sq, d, q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
@@ -317,10 +288,9 @@ def flash_attention_cuda(q, k, v, causal: bool = False,
     lib = op_builder.load()
     err = lib.ds_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, h, sq, sk, d, *_seq_strides(name, q),
-        *_seq_strides(name, k), *_seq_strides(name, v),
-        *_seq_strides(name, out), float(sm_scale), int(causal), seed_ptr,
-        threshold, scale, block_q, code, stream_handle(index))
+        lse.data_ptr(), b, h, sq, sk, d, *strides,
+        *_seq_strides(name, "out", out, cp_async), float(sm_scale),
+        int(causal), seed_ptr, threshold, scale, code, stream_handle(index))
     op_builder.check_launch(name, err)
     flash_attention_cuda.launches += 1
     return out, lse
@@ -331,17 +301,18 @@ flash_attention_cuda.launches = 0
 
 def _bwd_launch(name, fn, tensors, outs, shapes, causal, sm_scale,
                 dropout_rate, dropout_seed):
-    """One kernel E launch: `tensors` (q, k, v, dout) and `outs` give their
-    (batch, head, seq) strides in argument order."""
+    """One kernel E launch: `tensors` (q, k, v, dout) and `outs`, (name,
+    grad) pairs, give their (batch, head, seq) strides in argument order."""
     q, k, v, dout, lse, delta = tensors
     index, code, b, h, sq, sk, d = shapes
-    check_route(name, q=q, k=k, v=v, dout=dout)
-    strides = [x for t in (q, k, v, dout) + outs
-               for x in _seq_strides(name, t)]
+    cp_async = code == op_builder.DTYPE_BF16
+    strides = [x for arg, t in (("q", q), ("k", k), ("v", v), ("dout", dout))
+               + outs for x in _seq_strides(name, arg, t, cp_async)]
     seed_ptr, threshold, scale, _seed_t = _dropout_args(
         name, dropout_rate, dropout_seed, q.device)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
+             lse.data_ptr(), delta.data_ptr(),
+             *(t.data_ptr() for _, t in outs),
              b, h, sq, sk, d, (op_builder.I64_PTR._type_ * len(strides))(
                  *strides), float(sm_scale), int(causal), seed_ptr,
              threshold, scale, code, stream_handle(index))
@@ -376,8 +347,8 @@ def flash_attention_bwd_dkdv_cuda(q, k, v, dout, lse, delta,
     if dk.numel() == 0:
         return dk, dv
     _bwd_launch(name, op_builder.load().ds_flash_attention_bwd_dkdv,
-                (q, k, v, dout, lse, delta), (dk, dv), shapes, causal,
-                sm_scale, dropout_rate, dropout_seed)
+                (q, k, v, dout, lse, delta), (("dk", dk), ("dv", dv)), shapes,
+                causal, sm_scale, dropout_rate, dropout_seed)
     flash_attention_bwd_dkdv_cuda.launches += 1
     return dk, dv
 
@@ -404,31 +375,13 @@ def flash_attention_bwd_dq_cuda(q, k, v, dout, lse, delta,
     if sk == 0:
         return dq.zero_()
     _bwd_launch(name, op_builder.load().ds_flash_attention_bwd_dq,
-                (q, k, v, dout, lse, delta), (dq,), shapes, causal, sm_scale,
-                dropout_rate, dropout_seed)
+                (q, k, v, dout, lse, delta), (("dq", dq),), shapes, causal,
+                sm_scale, dropout_rate, dropout_seed)
     flash_attention_bwd_dq_cuda.launches += 1
     return dq
 
 
 flash_attention_bwd_dq_cuda.launches = 0
-
-
-def kernel_resources(launch: str, head_dim: int, block_q: int = 64) -> dict:
-    """What the card gives one block of a tensor-core launch of kernel B
-    ("fwd", with `block_q` rows) or E ("dkdv", "dq"): registers per thread,
-    dynamic shared memory bytes, resident blocks per SM and spill bytes,
-    from the CUDA runtime (cudaFuncGetAttributes and the occupancy
-    calculator).  Launches nothing."""
-    lib = op_builder.load()
-    out = (ctypes.c_int * 4)()
-    if launch == "fwd":
-        err = lib.ds_flash_attention_fwd_resources(head_dim, block_q, out)
-    else:
-        err = lib.ds_flash_attention_bwd_resources(
-            {"dkdv": 0, "dq": 1}[launch], head_dim, out)
-    op_builder.check_launch(f"kernel_resources({launch})", err)
-    return dict(zip(("registers", "smem_bytes", "blocks_per_sm",
-                     "spill_bytes"), out))
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = False,

@@ -32,7 +32,6 @@ I32 = ctypes.c_int
 I64 = ctypes.c_int64
 F32 = ctypes.c_float
 I64_PTR = ctypes.POINTER(ctypes.c_int64)
-I32_PTR = ctypes.POINTER(ctypes.c_int)
 
 # C signature of every exported launcher: (argtypes); each returns the
 # cudaError_t of its launch as an int.  A pointer or the stream passed
@@ -45,16 +44,9 @@ SIGNATURES = {
     "ds_layer_norm_bwd": [P] * 8 + [I32, I32, F32, I32, P],
     # q, k, v, out, lse, B, H, Sq, Sk, D,
     # q/k/v/out strides (batch, head, seq), sm_scale, causal,
-    # seed (device int32), keep threshold, keep scale, query rows per block
-    # (bf16 route), dtype, stream
+    # seed (device int32), keep threshold, keep scale, dtype, stream
     "ds_flash_attention_fwd": [P, P, P, P, P, I32, I32, I32, I32, I32]
-                              + [I64] * 12
-                              + [F32, I32, P, I32, F32, I32, I32, P],
-    # D, block_m, out int[4] -> registers, dynamic shared memory, resident
-    # blocks per SM, spill bytes of the bf16 forward kernel
-    "ds_flash_attention_fwd_resources": [I32, I32, I32_PTR],
-    # which (0 dk/dv, 1 dq), D, out int[4]: the same of the bf16 backward
-    "ds_flash_attention_bwd_resources": [I32, I32, I32_PTR],
+                              + [I64] * 12 + [F32, I32, P, I32, F32, I32, P],
     # q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, D, the 18 strides of
     # q/k/v/dout/dk/dv, sm_scale, causal, seed, keep threshold, keep scale,
     # dtype, stream

@@ -177,8 +177,9 @@ def _check_sparse(name, q, k, v, idx, valid, block, *more):
     return index, code, b, h, sq, d
 
 
-def _strides(name, *tensors):
-    vals = [x for t in tensors for x in _seq_strides(name, t)]
+def _strides(name, **tensors):
+    vals = [x for arg, t in tensors.items()
+            for x in _seq_strides(name, arg, t)]
     return (op_builder.I64_PTR._type_ * len(vals))(*vals)
 
 
@@ -198,7 +199,7 @@ def block_sparse_flash_fwd_cuda(q, k, v, idx, valid, block: int,
     err = op_builder.load().ds_block_sparse_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), idx.data_ptr(), valid.data_ptr(), b, h, s, d, block,
-        idx.shape[-1], _strides(name, q, k, v, out),
+        idx.shape[-1], _strides(name, q=q, k=k, v=v, out=out),
         float(_scale(q, sm_scale)), int(causal), code, stream_handle(index))
     op_builder.check_launch(name, err)
     block_sparse_flash_fwd_cuda.launches += 1
@@ -225,8 +226,8 @@ def block_sparse_flash_bwd_dq_cuda(q, k, v, dout, lse, delta, idx, valid,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), idx.data_ptr(),
         valid.data_ptr(), b, h, s, d, block, idx.shape[-1],
-        _strides(name, q, k, v, dout, dq), float(_scale(q, sm_scale)),
-        int(causal), code, stream_handle(index))
+        _strides(name, q=q, k=k, v=v, dout=dout, dq=dq),
+        float(_scale(q, sm_scale)), int(causal), code, stream_handle(index))
     op_builder.check_launch(name, err)
     block_sparse_flash_bwd_dq_cuda.launches += 1
     return dq
@@ -255,7 +256,8 @@ def block_sparse_flash_bwd_dkdv_cuda(q, k, v, dout, lse, delta, idx_t,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         idx_t.data_ptr(), valid_t.data_ptr(), b, h, s, d, block,
-        idx_t.shape[-1], _strides(name, q, k, v, dout, dk, dv),
+        idx_t.shape[-1],
+        _strides(name, q=q, k=k, v=v, dout=dout, dk=dk, dv=dv),
         float(_scale(q, sm_scale)), int(causal), code, stream_handle(index))
     op_builder.check_launch(name, err)
     block_sparse_flash_bwd_dkdv_cuda.launches += 1

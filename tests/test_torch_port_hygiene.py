@@ -1,6 +1,7 @@
-"""Static rules of the PyTorch port: deepspeed_tpu_torch/ and chip_smoke.py
-import nothing of JAX or of the JAX package (checked on the source, since
-a runtime `sys.modules` check can be fooled by a pre-imported jax), and
+"""Static rules of the PyTorch port: deepspeed_tpu_torch/, chip_smoke.py
+and flash_ab.py import nothing of JAX or of the JAX package (checked on
+the source, since a runtime `sys.modules` check can be fooled by a
+pre-imported jax), and
 every hand-written kernel has a plain twin, a launch counter and a note
 naming the TPU kernel it replaces."""
 
@@ -19,7 +20,7 @@ BANNED = ("jax", "jaxlib", "deepspeed_tpu")
 
 def _port_sources():
     files = sorted(p for p in PORT.rglob("*.py") if "__pycache__" not in p.parts)
-    return files + [REPO / "chip_smoke.py"]
+    return files + [REPO / "chip_smoke.py", REPO / "flash_ab.py"]
 
 
 def _imported_modules(path):
