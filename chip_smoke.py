@@ -19,14 +19,18 @@ phase prints {"phase": ..., "ok": false, "error": ...} and the script exits
    mma, tiled).  Kernel B with dropout and kernel E are held against their
    twins exactly mask for mask (the keep mask is a pure function of the
    seed and the coordinates), and the mask's keep share must lie within
-   4 sigma of 230/256; kernels D and E must repeat bitwise.  B and E name
-   their route (bf16 on the tensor cores, fp32 on the CUDA cores) and
-   their achieved TFLOP/s beside the library call's; B's dropout cases
-   also time the call without dropout; one case each runs train_longseq's
-   S = 8192 (batch 1, 4 heads, so that the plain twin's [S, S] fp32 scores
-   take 1 GiB).  The device phase reports the registers and stack (spill)
-   bytes per thread of B's and E's tensor-core kernels, as cuobjdump reads
-   them from the built library.
+   4 sigma of 230/256; kernels D, E and G must repeat bitwise.  B, E, F and
+   G name their route (bf16 on the tensor cores, fp32 on the CUDA cores)
+   and run at every head dim they are compiled for (32, 64, 96, 128) in
+   both dtypes; B and E report their achieved TFLOP/s beside the library
+   call's; B's dropout cases also time the call without dropout; one case
+   each runs train_longseq's S = 8192 (batch 1, 4 heads, so that the plain
+   twin's [S, S] fp32 scores take 1 GiB).  The realigned_operand cases
+   launch B, E, F and G with a bf16 operand off the 16-byte boundary the
+   tensor-core route needs: the wrapper copies it, once a launch, and the
+   result equals the aligned call's bitwise.  The device phase reports the
+   registers and stack (spill) bytes per thread of B's, E's, F's and G's
+   tensor-core kernels, as cuobjdump reads them from the built library.
 3. serve_bf16: GPT-2 124M at full width (hidden 768, 12 layers, 12 heads,
    vocab 50304, n_positions 256, bf16, weights from seed 0) through
    init_inference -> forward / generate: batch 8, prompt 128, 128 new
@@ -35,7 +39,9 @@ phase prints {"phase": ..., "ok": false, "error": ...} and the script exits
    against the same weights run through the port on the CPU in fp32
    (max|d| / max|ref| <= 2e-2 each), and the launch counters must show the
    kernels ran: 12 flash and 25 * 128 = 3200 LayerNorm launches per
-   generate.
+   generate.  On this and every training path below, the attention
+   wrappers' realigned counters must stay 0: the layer's own views meet
+   the 16-byte rule, and no operand is copied.
 4. serve_int8: the same with quantization_setting=1 (4 * 12 * 128 = 6144
    dequant-matmul launches per generate), held against the CPU fp32 run on
    the dequantized int8 weights.
@@ -79,9 +85,11 @@ phase prints {"phase": ..., "ok": false, "error": ...} and the script exits
 Parity (phase 2) also holds kernels F (block-sparse flash forward) and G
 (its dq and dk/dv launches) against their plain twins, which compute in
 fp32 on the same inputs: bench_sparse_longseq's attention with fused-QKV
-views, an fp32 Fixed layout causal and not, D = 128, and a layout with an
-empty causal row (its out 0 and its lse at the mask value); the library
-yardstick is SDPA with the layout as a boolean mask.
+views, the Fixed layout causal and not, D = 128, a layout with an empty
+causal row (its out 0 and its lse at the mask value), a non-causal
+BigBird, and D = 32 and 96, in bf16 (the tensor cores) and fp32 (the CUDA
+cores); G's two launches must repeat bitwise; the library yardstick is
+SDPA with the layout as a boolean mask.
 
 12. fcm_ops: the low-bandwidth collective tier on a mesh of W = 4 logical
    ranks, all on this card (each rank its own compute and copy stream; the
@@ -145,7 +153,8 @@ import torch.nn.functional as F
 import deepspeed_tpu_torch as dst
 from deepspeed_tpu_torch.models import GPT2Config, GPT2Model
 from deepspeed_tpu_torch.ops import (KERNELS, dispatch, launch_counts,
-                                     op_builder, reset_launch_counts)
+                                     op_builder, realign_counts,
+                                     reset_launch_counts)
 from deepspeed_tpu_torch.ops import activations
 from deepspeed_tpu_torch.ops import collective_matmul as cm
 from deepspeed_tpu_torch.ops.flash_attention import (
@@ -255,6 +264,14 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+def check_aligned(path):
+    """The attention wrappers copied no operand on this path: its own views
+    meet the tensor-core route's 16-byte rule.  Returns the counts."""
+    copies = realign_counts()
+    check(not any(copies.values()), f"{path}: realigned operands {copies}")
+    return copies
+
+
 # --------------------------------------------------------------------- #
 # phase 1
 # --------------------------------------------------------------------- #
@@ -283,10 +300,11 @@ def phase_device():
 
 
 def tensor_core_resources(lib_path):
-    """Registers and stack (spill) bytes per thread of kernel B's and E's
-    tensor-core kernels, as cuobjdump reads them from the built library
-    (what nvcc -Xptxas -v reports), or why they could not be read: a
-    diagnostic, which fails no phase."""
+    """Registers and stack (spill) bytes per thread of the tensor-core
+    kernels of B, E, F and G (by head dim, and for B and E with dropout on
+    or off), as cuobjdump reads them from the built library (what nvcc
+    -Xptxas -v reports), or why they could not be read: a diagnostic,
+    which fails no phase."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
         dump = subprocess.run([tool, "--dump-resource-usage", lib_path],
@@ -294,10 +312,11 @@ def tensor_core_resources(lib_path):
                               check=True).stdout
     except (OSError, subprocess.SubprocessError) as e:
         return f"cuobjdump failed: {e}"
-    return {f"{name} D={d}": {"registers": int(reg), "stack_bytes": int(stack)}
-            for name, d, reg, stack in re.findall(
-                r"Function \S*?(flash_(?:fwd|bwd_dkdv|bwd_dq)_mma_kernel)"
-                r"ILi(\d+)E\S*:\s+"
+    return {f"{name} D={d}{drop and (' dropout' if drop == '1' else '')}":
+            {"registers": int(reg), "stack_bytes": int(stack)}
+            for name, d, drop, reg, stack in re.findall(
+                r"Function \S*?((?:flash|bsf)_(?:fwd|bwd_dkdv|bwd_dq)"
+                r"_mma_kernel)ILi(\d+)E(?:Lb([01])E)?\S*:\s+"
                 r"REG:(\d+) STACK:(\d+)", dump)}
 
 
@@ -699,9 +718,14 @@ def case_block_sparse(kind, b, h, s, d, block, dtype, causal, fused=False):
     dq = block_sparse_flash_bwd_dq_cuda(*bwd, fidx, fvalid, block, causal)
     dk, dv = block_sparse_flash_bwd_dkdv_cuda(*bwd, tidx, tvalid, block,
                                               causal)
+    again = (block_sparse_flash_bwd_dq_cuda(*bwd, fidx, fvalid, block, causal),
+             *block_sparse_flash_bwd_dkdv_cuda(*bwd, tidx, tvalid, block,
+                                               causal))
     ref_grads = block_sparse_flash_bwd_reference(q, k, v, out, lse, do, fidx,
                                                  fvalid, block, causal)
     torch.cuda.synchronize()
+    repeat = all(torch.equal(a, b_) for a, b_ in zip((dq, dk, dv), again))
+    del again
     bf16 = dtype == torch.bfloat16
     tol, lse_tol, grad_tol = (2e-2, 1e-3, 5e-2) if bf16 else (1e-4, 1e-5,
                                                               1e-4)
@@ -716,7 +740,7 @@ def case_block_sparse(kind, b, h, s, d, block, dtype, causal, fused=False):
           and bool((lse[~live] < DEFAULT_MASK_VALUE / 2).all())
           and bool((out[~live] == 0).all())
           and all(bool(torch.isfinite(t.float()).all())
-                  for t in (dq, dk, dv)))
+                  for t in (dq, dk, dv)) and repeat)
     pairs = b * live_pairs(layout, block, causal)
     operand = q.numel() * q.element_size()
     stats = lse.numel() * 4
@@ -759,11 +783,87 @@ def case_block_sparse(kind, b, h, s, d, block, dtype, causal, fused=False):
                  f"{' fused-qkv views' if fused else ''}"),
         "ok": ok, "tolerance": (f"out atol=rtol={tol}, lse atol={lse_tol} on "
                                 f"live rows; dq, dk, dv max|d|/max|ref| <= "
-                                f"{grad_tol}; empty rows out 0, lse masked"),
+                                f"{grad_tol}; empty rows out 0, lse masked; "
+                                "bitwise repeat"),
+        "route": flash_route(dtype), "bitwise_repeat": repeat,
         "density": float(layout.mean()), "score_pairs": pairs,
         "empty_rows": empty_rows, "max_abs_err": out_err,
         "lse_max_abs_err": lse_err, "rel_err": grad_errs,
         "library": "SDPA, layout as a boolean mask", "launches": launches}
+
+
+def case_realigned(kind):
+    """Each launch of kernels B and E ("flash") or F and G ("block_sparse")
+    in bf16 with `k` two bytes off a 16-byte boundary (the head view of a
+    projection that starts one element in): the wrapper copies it (its
+    realigned count rises by one a launch), and the result equals the same
+    launch on an aligned copy of k bitwise."""
+    b, h, s, d = 2, 4, 1024, 64
+    g = torch.Generator(device="cuda").manual_seed(11)
+    qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=g).to(
+        torch.bfloat16)
+    shifted = torch.empty(b, s, 3 * h * d + 8, dtype=torch.bfloat16,
+                          device="cuda")[..., 1:1 + 3 * h * d]
+    shifted.copy_(qkv)
+
+    def views(t):
+        return [x.view(b, s, h, d).transpose(1, 2)
+                for x in t.split(h * d, dim=-1)]
+    q, _, v = views(qkv)
+    k = views(shifted)[1]
+    k_aligned = k.clone(memory_format=torch.contiguous_format)
+    do = torch.randn(b, s, h, d, device="cuda", generator=g).to(
+        torch.bfloat16).transpose(1, 2)
+    if kind == "flash":
+        out, lse = flash_attention_cuda(q, k_aligned, v, causal=True)
+        delta = (do.float() * out.float()).sum(dim=-1)
+        launches = {
+            "flash_attention_fwd": lambda kk: flash_attention_cuda(
+                q, kk, v, causal=True),
+            "flash_attention_bwd_dkdv": lambda kk: (
+                flash_attention_bwd_dkdv_cuda(q, kk, v, do, lse, delta,
+                                              causal=True)),
+            "flash_attention_bwd_dq": lambda kk: (
+                flash_attention_bwd_dq_cuda(q, kk, v, do, lse, delta,
+                                            causal=True),)}
+    else:
+        block = 128
+        layout = bigbird_layout(h, block, s)
+        fidx, fvalid = (torch.as_tensor(a, device="cuda")
+                        for a in layout_gather(layout))
+        tidx, tvalid = (torch.as_tensor(a, device="cuda")
+                        for a in layout_gather(layout, transpose=True))
+        out, lse = block_sparse_flash_fwd_cuda(q, k_aligned, v, fidx, fvalid,
+                                               block, True)
+        delta = (do.float() * out.float()).sum(dim=-1)
+        launches = {
+            "block_sparse_flash_fwd": lambda kk: block_sparse_flash_fwd_cuda(
+                q, kk, v, fidx, fvalid, block, True),
+            "block_sparse_flash_bwd_dq": lambda kk: (
+                block_sparse_flash_bwd_dq_cuda(q, kk, v, do, lse, delta, fidx,
+                                               fvalid, block, True),),
+            "block_sparse_flash_bwd_dkdv": lambda kk: (
+                block_sparse_flash_bwd_dkdv_cuda(q, kk, v, do, lse, delta,
+                                                 tidx, tvalid, block, True))}
+    results = {}
+    for name, fn in launches.items():
+        reset_launch_counts()
+        got = fn(k)
+        copies = realign_counts()[name]
+        want = fn(k_aligned)
+        torch.cuda.synchronize()
+        results[name] = {
+            "realigned": copies,
+            "realigned_by_the_aligned_call": realign_counts()[name] - copies,
+            "bitwise_equal": all(torch.equal(x, y)
+                                 for x, y in zip(got, want))}
+    ok = all(r["realigned"] == 1 and r["realigned_by_the_aligned_call"] == 0
+             and r["bitwise_equal"] for r in results.values())
+    return {"case": f"[{b},{h},{s},{d}] {kind} bf16 causal, k 2 bytes off a "
+                    "16-byte boundary", "ok": ok,
+            "tolerance": "one copy a launch; bitwise equal to the aligned "
+                         "call", "route": flash_route(torch.bfloat16),
+            "launches": results}
 
 
 # --------------------------------------------------------------------- #
@@ -1018,8 +1118,10 @@ PARITY_CASES = {
         # the layer's layout: strided head views of the fused projection
         + [(8, 12, 128, 64, True, dt, True)
            for dt in (torch.bfloat16, torch.float32)]
-        # the other head dim the kernel is built for, at a ragged length
-        + [(2, 8, 200, 128, True, dt) for dt in (torch.bfloat16, torch.float32)]),
+        # the other head dims the kernel is built for, at a ragged length
+        + [(2, 8, 200, 128, True, dt) for dt in (torch.bfloat16, torch.float32)]
+        + [(2, 4, 200, d, True, dt) for d in (32, 96)
+           for dt in (torch.bfloat16, torch.float32)]),
     "dequant_matmul": (case_dequant, [
         (m, k, n, groups, dt) for m in (8, 1024)
         for (k, n) in ((768, 2304), (768, 768), (768, 3072), (3072, 768))
@@ -1048,17 +1150,30 @@ PARITY_CASES = {
         + [(2, 4, 77, 64, True, torch.float32, False, DROPOUT)]
         + [(2, 8, 200, 128, True, dt, False, DROPOUT)
            for dt in (torch.float32, torch.bfloat16)]
+        + [(2, 4, 200, d, True, dt, False, DROPOUT) for d in (32, 96)
+           for dt in (torch.float32, torch.bfloat16)]
         + [(1, 4, LONG_SEQ, 64, True, torch.bfloat16, True, DROPOUT)]),
-    # kernels F and G: (a) bench_sparse_longseq's attention, (b) the fp32
+    # kernels F and G: (a) bench_sparse_longseq's attention, (b) the
     # Fixed layout of tests/tpu/test_kernel_parity_tpu.py:226-228 causal
-    # and not, (c) D = 128, (d) a layout with an empty causal row
+    # and not, (c) D = 128, (d) a layout with an empty causal row, (e) a
+    # non-causal BigBird, (f) D = 32 and 96; in both dtypes (bf16: the
+    # tensor cores, fp32: the CUDA cores) but (a) and (c)
     "block_sparse_flash": (case_block_sparse, [
         ("bigbird", LONG_BATCH, 12, LONG_SEQ, 64, 512, torch.bfloat16, True,
          True)]
-        + [("fixed", 1, 4, 1024, 64, 128, torch.float32, causal)
-           for causal in (True, False)]
-        + [("bigbird", 2, 4, 1024, 128, 128, torch.bfloat16, True),
-           ("empty-causal-row", 2, 2, 256, 64, 64, torch.float32, True)]),
+        + [("fixed", 1, 4, 1024, 64, 128, dt, causal)
+           for causal in (True, False)
+           for dt in (torch.float32, torch.bfloat16)]
+        + [("bigbird", 2, 4, 1024, 128, 128, torch.bfloat16, True)]
+        + [("empty-causal-row", 2, 2, 256, 64, 64, dt, True)
+           for dt in (torch.float32, torch.bfloat16)]
+        + [("bigbird", 2, 4, 1024, 64, 128, dt, False, True)
+           for dt in (torch.bfloat16, torch.float32)]
+        + [("bigbird", 2, 4, 1024, d, 128, dt, True, True) for d in (32, 96)
+           for dt in (torch.bfloat16, torch.float32)]),
+    # the 16-byte rule of the tensor-core route: each attention launch with
+    # a misaligned bf16 operand, against the same call on an aligned copy
+    "realigned_operand": (case_realigned, [("flash",), ("block_sparse",)]),
     # kernel H: its three launchers at the tiles of the three matrices,
     # every payload layout, both operand types
     "fcm_tile_ag": (case_fcm_tile_ag, [
@@ -1214,6 +1329,7 @@ def serve(cfg, state, prompt, quantization_setting, expected_launches):
     counts = launch_counts()
     check(counts == expected_launches,
           f"launch counts {counts}, expected {expected_launches}")
+    realigned = check_aligned("generate")
     toks = toks.cpu()
     check(toks.shape == (BATCH, NEW_TOKENS), f"tokens {tuple(toks.shape)}")
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
@@ -1226,7 +1342,7 @@ def serve(cfg, state, prompt, quantization_setting, expected_launches):
         "decode_logits_rel_err_max_step": worst,
         "decode_logits_rel_err_median": float(np.median(step_errs)),
         "decode_argmax_agreement_vs_cpu_fp32": step_agree,
-        "launches": counts,
+        "launches": counts, "realigned": realigned,
         "peak_memory_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30}
     return eng, toks, summary
 
@@ -1400,6 +1516,7 @@ def grads_vs_cpu(cfg, state, ids, ds_config):
     counts = launch_counts()
     check(counts == step_counts(cfg),
           f"launch counts {counts}, expected {step_counts(cfg)}")
+    realigned = check_aligned("forward + backward")
     loss_err = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
     check(loss_err <= LOSS_REL_TOL, f"loss vs CPU fp32: {loss_err}")
     grad_errs = {}
@@ -1417,7 +1534,8 @@ def grads_vs_cpu(cfg, state, ids, ds_config):
         "grads_checked": len(grad_errs), "worst_param": worst,
         "worst_grad_rel_err": grad_errs[worst], "grad_rel_tol": GRAD_REL_TOL,
         "median_grad_rel_err": float(np.median(list(grad_errs.values()))),
-        "launches_per_step": counts, "cpu_reference_seconds": cpu_seconds}
+        "launches_per_step": counts, "realigned": realigned,
+        "cpu_reference_seconds": cpu_seconds}
 
 
 def _profile_once(fn):
@@ -1474,6 +1592,7 @@ def timed_training(cfg, state, ds_config, warmup, iters):
     check(counts == {k: n_steps * v for k, v in per_step.items()},
           f"launch counts {counts} over {n_steps} steps, expected "
           f"{per_step} per step")
+    realigned = check_aligned("training steps")
     losses = torch.stack(losses).float().cpu()
     check(bool(torch.isfinite(losses).all()), f"non-finite loss: {losses}")
     check(final_loss < losses[0].item(),
@@ -1494,7 +1613,7 @@ def timed_training(cfg, state, ds_config, warmup, iters):
         "first_loss": losses[0].item(), "final_loss": final_loss,
         "steps": n_steps, "timed_steps": iters,
         "peak_memory_gib": peak_memory,
-        "launches_per_step": per_step,
+        "launches_per_step": per_step, "realigned": realigned,
         "profiled_step_wall_ms": wall_ms, "profiled_step_device_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms,
         "top_device_ms_one_step": {name[:80]: ms for name, ms in top}}

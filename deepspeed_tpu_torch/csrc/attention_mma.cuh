@@ -1,9 +1,9 @@
-// Tensor-core building blocks of the attention kernels: kernel B
-// (flash_attention_fwd.cu) and kernel E (flash_attention_bwd.cu) include
-// it for their bf16 route, and the block-sparse kernels F and G are meant
-// to include it next.  Everything here works on bf16 operands with fp32
-// sums, on sm_80 and later instructions that Hopper keeps (`cp.async`,
-// `ldmatrix`, `mma.sync`); `wgmma` and TMA are not used.
+// Tensor-core building blocks of the attention kernels: kernels B and E
+// (flash_attention_fwd.cu, flash_attention_bwd.cu) and the block-sparse
+// kernels F and G (block_sparse_flash_fwd.cu, block_sparse_flash_bwd.cu)
+// include it for their bf16 route.  Everything here works on bf16 operands
+// with fp32 sums, on sm_80 and later instructions that Hopper keeps
+// (`cp.async`, `ldmatrix`, `mma.sync`); `wgmma` and TMA are not used.
 //
 // Pieces, in the order a kernel uses them:
 //
@@ -12,12 +12,12 @@
 //   byte pitch), with rows past the sequence zero-filled through the
 //   src-size operand, so that no element-wise bounds checks are needed.
 //   Every operand's base pointer and strides must be multiples of 16
-//   bytes; the Python wrapper checks it and raises otherwise.
-// - A swizzled shared-memory layout of [rows][D] bf16 tiles: the 16-byte
-//   chunk c of row r lies at chunk c ^ (r % 8) of its row.  The eight rows
-//   that one `ldmatrix` 8 x 8 matrix reads then fall into eight different
-//   16-byte bank groups, so the reads are free of bank conflicts, and so
-//   are the writes of `cp.async` (one row's chunks per eight threads).
+//   bytes; the Python wrapper copies an operand that is not.
+// - A swizzled shared-memory layout of [rows][D] bf16 tiles, D in {32, 64,
+//   96, 128}: a row's 16-byte chunks are permuted inside groups of eight
+//   (or, for a row's last four when D / 8 is not a multiple of eight,
+//   inside that group of four), so that the eight rows one `ldmatrix` 8 x 8
+//   matrix reads fall into eight different 16-byte bank groups (tile_offset).
 // - `ldmatrix` loaders of A and B operands from such tiles, plain or
 //   transposed, and `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32`.
 // - Warp-level products: S = A . tile^T (the scores, from rows of Q or K)
@@ -26,6 +26,10 @@
 //   fragments, so that P and dS feed their next product from registers
 //   (no trip through shared memory, no shuffles).
 // - The fragment -> (row, col) map, and the dropout keep bits of a tile.
+// - The per-tile steps of the forward (B, F), of the dq launch (E, G) and
+//   of the dk/dv launch (E, G): one 64 x 64 tile's products and softmax
+//   work for a warp's 16 rows.  The dense and block-sparse kernels differ
+//   only in the tiles they walk.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16 inputs), with
 // g = lane / 4 and t = lane % 4:
@@ -49,6 +53,7 @@
 namespace ds_mma {
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kTile = 64;  // rows or keys of the tiles one step multiplies
 
 // ------------------------------------------------------------------ //
 // cp.async
@@ -86,12 +91,23 @@ __device__ __forceinline__ void cp_async_wait() {
 // swizzled [rows][D] bf16 tiles
 // ------------------------------------------------------------------ //
 // Byte offset of element (row, col) in a tile, col a multiple of 8 plus
-// an offset inside its 16-byte chunk.
+// an offset inside its 16-byte chunk.  Chunk c of row r lies at chunk
+// c ^ (r % 8) of its group of eight; when D / 8 is not a multiple of eight
+// (D = 32, and chunks 8..11 of D = 96) the row's last four chunks swizzle
+// inside their group of four with (r / 2) % 4 instead, so no chunk leaves
+// its row.  A row of 4 or 12 chunks starts at bank group 4 (r % 2), and
+// with that the eight rows r0..r0 + 7 (r0 a multiple of 8) of one chunk
+// column still land in eight different 16-byte bank groups in every case:
+// ldmatrix reads them, and cp.async writes them, without bank conflicts.
 template <int D>
 __device__ __forceinline__ uint32_t tile_offset(int row, int col) {
+  constexpr int kChunks = D / 8;
+  constexpr int kGrouped = kChunks & ~7;  // chunks in whole groups of eight
+  static_assert(D % 32 == 0 && D <= 128, "tiles of 4, 8, 12 or 16 chunks");
   const int c = col >> 3;
-  return static_cast<uint32_t>(row * (D * 2) + (((c ^ row) & 7) | (c & ~7)) * 16 +
-                               (col & 7) * 2);
+  const int p = c < kGrouped ? (((c ^ row) & 7) | (c & ~7))
+                             : (((c ^ (row >> 1)) & 3) | (c & ~3));
+  return static_cast<uint32_t>(row * (D * 2) + p * 16 + (col & 7) * 2);
 }
 
 template <int D>
@@ -408,6 +424,188 @@ __device__ __forceinline__ uint32_t fragment_keep_t(const uint64_t* bits, int ke
 
 __device__ __forceinline__ bool kept(uint32_t fragment_bits, int j, int e) {
   return (fragment_bits >> (4 * j + e)) & 1u;
+}
+
+// ------------------------------------------------------------------ //
+// the per-tile steps, shared by the dense and block-sparse kernels
+// ------------------------------------------------------------------ //
+// `edge` says whether the tile needs masking at all (it crosses the causal
+// diagonal or the sequence's end); inside it, keys at or past Sk weigh 0
+// and, under causal masking, keys after the row take DEFAULT_MASK_VALUE in
+// the forward and give P = 0 in the backward.  kDropout: the kernel
+// carries dropout (B and E; F and G have none, and compile it out), and
+// `drop` says at run time whether this call drops; `keep_words` then points
+// at the warp's keep words of this tile (the forward and dq layout: the
+// words of the thread's rows g and g + 8; dk/dv: the tile's words, rows =
+// queries).  A run-time flag and not a kernel per case: E's dq compiled
+// for dropout alone took 206 registers against 167 and ran 19% slower on
+// the H100 (PERF.md).
+
+// Forward (kernels B and F): the warp's 16 query rows (Q as A fragments in
+// qa) against the 64 keys of a K / V tile pair: S = Q K^T, the online
+// softmax update of the row maxima m and of this thread's share of the row
+// sums l, then acc = acc * alpha + P V, P rounded to bf16 from registers.
+// With dropout, l takes the raw P and only the P.V input is dropped (the
+// keep scale multiplies the output once, with 1 / l).
+template <int D, bool kDropout>
+__device__ __forceinline__ void fwd_tile_step(float (&acc)[D / 8][4], float (&m)[2],
+                                              float (&l)[2], const uint32_t (&qa)[D / 16][4],
+                                              uint32_t k_tile, uint32_t v_tile, int n0,
+                                              const int (&rows)[2], int Sk, bool causal,
+                                              bool edge, float sm_scale, bool drop,
+                                              const uint64_t* keep_words, int lane) {
+  constexpr int N = kTile;
+  float s[N / 8][4];
+  warp_abt<D, N>(s, qa, k_tile, 0, lane);
+  float mt[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float sv = s[j][e] * sm_scale;
+      if (edge) {
+        const int col = n0 + frag_col(lane, j, e);
+        if (col >= Sk) {
+          sv = -CUDART_INF_F;  // past the ragged edge: weight 0
+        } else if (causal && col > rows[e >> 1]) {
+          sv = DS_MASK_VALUE;
+        }
+      }
+      s[j][e] = sv;
+      mt[e >> 1] = fmaxf(mt[e >> 1], sv);
+    }
+  }
+  // exp(x - m) as exp2((x - m) log2 e), the difference first: a masked
+  // score minus a masked max is 0, as in the plain twin's softmax
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], quad_max(mt[r]));
+    alpha[r] = exp2f((m[r] - m_new) * kLog2e);
+    m[r] = m_new;
+  }
+  float lt[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f((s[j][e] - m[e >> 1]) * kLog2e);
+      lt[e >> 1] += p;
+      s[j][e] = p;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + lt[r];
+  if (kDropout && drop) {
+    const uint32_t keep = fragment_keep(keep_words[0], keep_words[8], lane);
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = kept(keep, j, e) ? s[j][e] : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    acc[j][0] *= alpha[0];
+    acc[j][1] *= alpha[0];
+    acc[j][2] *= alpha[1];
+    acc[j][3] *= alpha[1];
+  }
+  uint32_t pa[N / 16][4];
+  acc_to_a<N>(pa, s);
+  warp_ab<N, D>(acc, pa, v_tile, 0, lane);
+}
+
+// dq launch (kernels E and G): the warp's 16 query rows (rows w0.. of the
+// Q and dO tiles) against a K / V tile pair: S = Q K^T and dP = dO V^T,
+// P = exp(S scale - lse), dS = P (dP_drop - delta) scale, acc += dS K.
+template <int D, bool kDropout>
+__device__ __forceinline__ void bwd_dq_tile_step(float (&acc)[D / 8][4], uint32_t q_tile,
+                                                 uint32_t do_tile, int w0, uint32_t k_tile,
+                                                 uint32_t v_tile, int n0, const int (&rows)[2],
+                                                 const float (&lse_r)[2],
+                                                 const float (&delta_r)[2], int Sk, bool causal,
+                                                 bool edge, float sm_scale, bool drop,
+                                                 const uint64_t* keep_words, float keep_scale,
+                                                 int lane) {
+  constexpr int N = kTile;
+  const bool dropping = kDropout && drop;
+  float s[N / 8][4], dp[N / 8][4];
+  warp_abt_smem<D, N>(s, q_tile, w0, k_tile, 0, lane);
+  warp_abt_smem<D, N>(dp, do_tile, w0, v_tile, 0, lane);
+  const uint32_t keep = dropping ? fragment_keep(keep_words[0], keep_words[8], lane) : 0u;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1, ci = frag_col(lane, j, e);
+      float pv = exp2f((s[j][e] * sm_scale - lse_r[r]) * kLog2e);
+      if (edge && (n0 + ci >= Sk || (causal && n0 + ci > rows[r]))) pv = 0.f;
+      float dpv = dp[j][e];
+      if (dropping) dpv = kept(keep, j, e) ? dpv * keep_scale : 0.f;
+      s[j][e] = pv * (dpv - delta_r[r]) * sm_scale;  // dS
+    }
+  }
+  uint32_t a[N / 16][4];
+  acc_to_a<N>(a, s);
+  warp_ab<N, D>(acc, a, k_tile, 0, lane);
+}
+
+// dk/dv launch (kernels E and G): the warp's 16 keys (rows w0.. of the K
+// and V tiles, which stay in shared memory) against a tile of 64 queries
+// (Q, dO and their lse / delta in shared memory; query m0 is the tile's
+// row 0, key n0 the K tile's): S^T = K Q^T gives P^T, dv += P_drop^T dO;
+// dP^T = V dO^T gives dS^T, dk += dS^T Q; P_drop^T and dS^T reach their
+// products from registers.  The keep scale of dv is left to the caller.
+template <int D, bool kDropout>
+__device__ __forceinline__ void bwd_dkdv_tile_step(float (&dk)[D / 8][4], float (&dv)[D / 8][4],
+                                                   uint32_t k_tile, uint32_t v_tile, int w0,
+                                                   uint32_t q_tile, uint32_t do_tile,
+                                                   const float* ls, const float* dl, int m0,
+                                                   int n0, int Sq, int Sk, bool causal,
+                                                   bool edge, float sm_scale, bool drop,
+                                                   const uint64_t* keep_words, float keep_scale,
+                                                   int lane) {
+  constexpr int M = kTile;
+  const bool dropping = kDropout && drop;
+  const uint32_t keep = dropping ? fragment_keep_t(keep_words, w0 + (lane >> 2), lane) : 0u;
+  // accumulator rows are keys (w0 + frag_row), columns queries (frag_col)
+  float p[M / 8][4];
+  warp_abt_smem<D, M>(p, k_tile, w0, q_tile, 0, lane);
+  uint32_t a[M / 16][4];
+  {
+    float pd[M / 8][4];
+#pragma unroll
+    for (int j = 0; j < M / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = frag_col(lane, j, e), ki = w0 + frag_row(lane, e);
+        float pv = exp2f((p[j][e] * sm_scale - ls[qi]) * kLog2e);
+        if (edge && (m0 + qi >= Sq || n0 + ki >= Sk || (causal && m0 + qi < n0 + ki))) {
+          pv = 0.f;
+        }
+        p[j][e] = pv;
+        pd[j][e] = dropping && !kept(keep, j, e) ? 0.f : pv;
+      }
+    }
+    acc_to_a<M>(a, pd);
+  }
+  warp_ab<M, D>(dv, a, do_tile, 0, lane);
+
+  // dP^T -> dS^T = P (dP_drop - delta) scale -> dK += dS^T Q
+  float ds[M / 8][4];
+  warp_abt_smem<D, M>(ds, v_tile, w0, do_tile, 0, lane);
+#pragma unroll
+  for (int j = 0; j < M / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qi = frag_col(lane, j, e);
+      float dpv = ds[j][e];
+      if (dropping) dpv = kept(keep, j, e) ? dpv * keep_scale : 0.f;
+      ds[j][e] = p[j][e] * (dpv - dl[qi]) * sm_scale;
+    }
+  }
+  acc_to_a<M>(a, ds);
+  warp_ab<M, D>(dk, a, q_tile, 0, lane);
 }
 
 }  // namespace ds_mma

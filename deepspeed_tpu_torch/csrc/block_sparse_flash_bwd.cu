@@ -6,7 +6,8 @@
 //         transposed indices (the q-blocks whose rows allow its k-block)
 //         and writes dk, dv.
 // Neither needs atomics: each output tile has exactly one block that owns
-// it, so the sums are taken in a fixed order and a step is repeatable.
+// it, so the sums are taken in a fixed order and a step is repeatable
+// bitwise.
 //
 // Replaces: deepspeed_tpu/ops/sparse_attention/block_sparse_flash.py
 // block_sparse_flash_bwd (_bsf_dq_kernel, _bsf_dkdv_kernel).  Same math,
@@ -18,35 +19,63 @@
 // A k-block wholly above the causal diagonal is skipped, as the TPU
 // kernels' `live` test skips it.  A row whose forward saw no live block
 // (out = 0, lse = DEFAULT_MASK_VALUE) never reaches exp(S - lse), which
-// would overflow: its q-block has no live entry in either walk, and a row
-// whose lse is the mask value is treated as empty besides.  Products
-// accumulate in fp32 and are stored in the input dtype.
+// would overflow: every row of a q-block shares its layout row, so such a
+// row's q-block has no live entry in either walk; the dq launch also
+// treats a row whose lse is the mask value as empty (its lse taken as
+// +inf, so P = 0).  Products accumulate in fp32 and are stored in the
+// input dtype.  S is a multiple of the layout block, and the block of 64.
 //
 // Bound on the H100: at the long-context training shape ([2, 12, 8192, 64]
 // bf16, causal BigBird with block 512, 49 full and 16 diagonal live blocks
 // per head) dq does three [512, 512] x 64 products per live block
 // (~138 GFLOP) and dk/dv four (~184 GFLOP), against ~100-150 MB of
 // operands: operations bound both (~140 and ~186 us at the bf16
-// tensor-core peak).  This first version multiplies in fp32 on the CUDA
-// cores, as kernel E does; `mma.sync` / `wgmma` tiles are later work.
-// What it keeps from FlashAttention-2 is the memory side: scores and
-// probabilities never reach device memory, only live blocks are loaded.
+// tensor-core peak).
 //
-// Design: kernel E's tiles and thread layout (256 threads; for the scores
-// of a 64 x 64 tile, 4 threads share a query row and each holds 16
-// columns), walking the layout as kernel F does: a block loops over the
-// valid entries of its row (valid ones first in `valid`), cuts each 512-row
-// layout block into 64-row / 64-key sub-tiles, and inside the diagonal
-// layout block skips the sub-tiles above its own diagonal.  dkdv stages P
-// and dS in shared memory and then gives each thread a key row (4 threads
-// per row, D / 4 columns each) to sum over the q rows; dq sums over the
-// keys inside the 4-thread row group with shuffles.  Strides are
-// arguments, so q, k, v, dO and the grads may be the head views of a fused
-// [B, S, 3 * H * D] projection.
+// Two routes, chosen by the operands' dtype:
+//
+// bf16, tensor cores (tc::bsf_bwd_dq_mma_kernel and
+// tc::bsf_bwd_dkdv_mma_kernel, D in {32, 64, 96, 128}).  Kernel E's
+// tensor-core kernels (`mma.sync` m16n8k16 from two `cp.async` stages of
+// swizzled bf16 tiles, each warp 16 query rows in dq and 16 keys in dk/dv,
+// P and dS fed to their next product from registers: nothing is staged in
+// shared memory) with their per-tile work shared (ds_mma::bwd_dq_tile_step,
+// ds_mma::bwd_dkdv_tile_step), walking the layout as kernel F does: one
+// warp reads the layout row once into shared memory, and the block walks
+// (live block, 64-wide sub-tile) as one flat sequence, the next sub-tile's
+// copy in flight across block boundaries.  In dk/dv the walk runs over the
+// q sub-tiles of the q-blocks that attend to the k-tile's block and, in the
+// diagonal layout block, skips those wholly above the k-tile.  The dq grid
+// runs the q-tiles in reverse order and the dk/dv grid the k-tiles in
+// order, across all heads: the heavy tiles first (the last rows of a causal
+// layout; the global block's column, which every q-block sees).
+//
+// fp32, CUDA cores (fp32::bsf_bwd_dq_kernel, fp32::bsf_bwd_dkdv_kernel, the
+// first design, kept as it was).  A tensor-core fp32 product would be TF32
+// and miss the fp32 parity.  Kernel E's fp32 tiles and thread layout (256
+// threads; for the scores of a 64 x 64 tile, 4 threads share a query row
+// and each holds 16 columns), walking the layout row's valid entries;
+// dk/dv stages P and dS in shared memory and then gives each thread a key
+// row to sum over the q rows; dq sums over the keys inside the 4-thread
+// row group with shuffles.  Strides are arguments on both routes, so q, k,
+// v, dO and the grads may be the head views of a fused [B, S, 3 * H * D]
+// projection.
 
-#include "common.cuh"
+#include "attention_mma.cuh"
+#include "block_sparse_walk.cuh"
 
 namespace {
+
+using ds_bsf::Layout;
+
+struct Strides {
+  long long b, h, s;
+};
+
+// ===================================================================== //
+// fp32: CUDA cores
+// ===================================================================== //
+namespace fp32 {
 
 constexpr int kBM = 64;                // query rows per tile
 constexpr int kBN = 64;                // keys per tile
@@ -54,25 +83,6 @@ constexpr int kThreads = 256;
 constexpr int kTPR = kThreads / kBM;   // threads per row: 4
 constexpr int kNS = kBN / kTPR;        // scores per thread per tile: 16
 constexpr int kPP = kBN + 1;           // padded row of the P / dS tiles
-
-struct Strides {
-  long long b, h, s;
-};
-
-// The gather indices of layout_gather (forward or transposed):
-// idx / valid [H, nb, max_deg] int32, each row's valid entries first.
-struct Layout {
-  const int* idx;
-  const int* valid;
-  int block;
-  int max_deg;
-};
-
-__device__ __forceinline__ int row_degree(const int* valid, int max_deg) {
-  int deg = 0;
-  while (deg < max_deg && valid[deg] != 0) ++deg;
-  return deg;
-}
 
 // Load rows [r0, r0 + kBM) of one head's [S, D] operand as fp32 into a
 // [kBM][DP] tile.
@@ -164,7 +174,7 @@ bsf_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t stat0 = (static_cast<size_t>(b) * H + h) * S;
   const size_t row_off = (static_cast<size_t>(h) * nb + kblk) * lay_t.max_deg;
   const int* qidx = lay_t.idx + row_off;
-  const int deg = row_degree(lay_t.valid + row_off, lay_t.max_deg);
+  const int deg = ds_bsf::row_degree(lay_t.valid + row_off, lay_t.max_deg);
 
   load_tile<T, D, DP>(ks, k + b * ks_.b + h * ks_.h, ks_, n0);
   load_tile<T, D, DP>(vs, v + b * vs_.b + h * vs_.h, vs_, n0);
@@ -265,7 +275,7 @@ bsf_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float delta_r = delta[stat];
   const size_t row_off = (static_cast<size_t>(h) * nb + qblk) * lay.max_deg;
   const int* kidx = lay.idx + row_off;
-  const int deg = row_degree(lay.valid + row_off, lay.max_deg);
+  const int deg = ds_bsf::row_degree(lay.valid + row_off, lay.max_deg);
 
   load_tile<T, D, DP>(qs, q + b * qs_.b + h * qs_.h, qs_, q0);
   load_tile<T, D, DP>(dos, dout + b * dos_.b + h * dos_.h, dos_, q0);
@@ -353,6 +363,278 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace fp32
+
+// ===================================================================== //
+// bf16: tensor cores
+// ===================================================================== //
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kBM = ds_bsf::kSub;  // query rows per tile
+constexpr int kBN = ds_bsf::kSub;  // keys per tile
+constexpr int kThreads = 128;      // four warps of 16 rows (dq) or 16 keys (dkdv)
+
+template <int D>
+struct DqLayout {
+  static constexpr int kQ = 0;                                        // [kBM][D]
+  static constexpr int kDO = kQ + ds_mma::tile_bytes<D>(kBM);         // [kBM][D]
+  static constexpr int kK = kDO + ds_mma::tile_bytes<D>(kBM);         // [2][kBN][D]
+  static constexpr int kV = kK + 2 * ds_mma::tile_bytes<D>(kBN);      // [2][kBN][D]
+  static constexpr int kLive = kV + 2 * ds_mma::tile_bytes<D>(kBN);   // [max_deg] int
+  static int bytes(int max_deg) { return kLive + 4 * max_deg; }
+};
+
+// At D = 64 the registers of both launches are capped, dq's for four
+// blocks an SM (128 registers), dk/dv's for three (168), each with ~100
+// bytes spilled: on the H100 at the long-context shape 17% and 11% faster
+// than the 194 and 230 the compiler picks (two blocks).
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 4 : 1)
+bsf_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      bf16* __restrict__ dq, Layout lay, int B, int H, int S, Strides qs_,
+                      Strides ks_, Strides vs_, Strides dos_, Strides dqs_, float sm_scale,
+                      int causal) {
+  using L = DqLayout<D>;
+  constexpr int kKV = ds_mma::tile_bytes<D>(kBN);
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  __shared__ int n_live;
+  const uint32_t s_q = ds_mma::smem_u32(tc_smem + L::kQ);
+  const uint32_t s_do = ds_mma::smem_u32(tc_smem + L::kDO);
+  const uint32_t s_k = ds_mma::smem_u32(tc_smem + L::kK);
+  const uint32_t s_v = ds_mma::smem_u32(tc_smem + L::kV);
+  int* live = reinterpret_cast<int*>(tc_smem + L::kLive);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_bh = B * H;
+  const int bh = blockIdx.x % n_bh;
+  // heaviest q-tiles first: under causal masking the last rows see most blocks
+  const int q0 = (S / kBM - 1 - static_cast<int>(blockIdx.x) / n_bh) * kBM;
+  const int b = bh / H, h = bh % H;
+  const int qi = q0 / lay.block;  // the layout q-block of this tile
+  const bf16* kb = k + b * ks_.b + h * ks_.h;
+  const bf16* vb = v + b * vs_.b + h * vs_.h;
+
+  ds_mma::load_tile_async<kBM, D, kThreads>(s_q, q + b * qs_.b + h * qs_.h, qs_.s, q0, S, tid);
+  ds_mma::load_tile_async<kBM, D, kThreads>(s_do, dout + b * dos_.b + h * dos_.h, dos_.s, q0, S,
+                                            tid);
+  if (warp == 0) {  // the row's live blocks, read once
+    const size_t row = (static_cast<size_t>(h) * (S / lay.block) + qi) * lay.max_deg;
+    const int n = ds_bsf::compact_live_blocks(live, lay.idx + row, lay.valid + row,
+                                              lay.max_deg, 0, causal ? qi : INT_MAX, lane);
+    if (lane == 0) n_live = n;
+  }
+  __syncthreads();
+  ds_bsf::SubTileWalk walk(live, n_live, lay.block, 0, causal ? q0 + kBM : INT_MAX);
+  int n0 = walk.pos;
+  bool more = walk.valid();
+  if (more) {
+    ds_mma::load_tile_async<kBN, D, kThreads>(s_k, kb, ks_.s, n0, S, tid);
+    ds_mma::load_tile_async<kBN, D, kThreads>(s_v, vb, vs_.s, n0, S, tid);
+  }
+  ds_mma::cp_async_commit();
+
+  const int w0 = warp * 16;    // the warp's first row in the tile
+  const int row0 = q0 + w0;    // ... and in the sequence
+  const int rows[2] = {row0 + (lane >> 2), row0 + (lane >> 2) + 8};
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float x = lse[static_cast<size_t>(bh) * S + rows[r]];
+    // a row with no live block (lse at the mask value) gets P = 0
+    lse_r[r] = x > 0.5f * DS_MASK_VALUE ? x : CUDART_INF_F;
+    delta_r[r] = delta[static_cast<size_t>(bh) * S + rows[r]];
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int t = 0; more; ++t) {
+    ds_mma::cp_async_wait<0>();  // sub-tile t has landed
+    __syncthreads();             // ... for every thread; sub-tile t - 1 is consumed
+    const int st = t & 1;
+    const int c0 = n0;  // this sub-tile's first key
+    walk.next();
+    more = walk.valid();
+    n0 = walk.pos;
+    if (more) {  // sub-tile t + 1, of this block or the next, flies meanwhile
+      ds_mma::load_tile_async<kBN, D, kThreads>(s_k + (st ^ 1) * kKV, kb, ks_.s, n0, S, tid);
+      ds_mma::load_tile_async<kBN, D, kThreads>(s_v + (st ^ 1) * kKV, vb, vs_.s, n0, S, tid);
+      ds_mma::cp_async_commit();
+    }
+    // causal: a warp whose rows all lie above this sub-tile has nothing in it
+    if (causal && c0 > row0 + 15) continue;
+    const bool edge = causal && c0 + kBN - 1 > row0;
+    ds_mma::bwd_dq_tile_step<D, false>(acc, s_q, s_do, w0, s_k + st * kKV, s_v + st * kKV, c0,
+                                       rows, lse_r, delta_r, S, causal, edge, sm_scale, false,
+                                       nullptr, 1.f, lane);
+  }
+
+  // dq through the warp's own rows of the Q tile, for 16-byte stores
+  ds_mma::cp_async_wait<0>();
+  __syncthreads();
+  ds_mma::acc_to_tile<D>(tc_smem + L::kQ, w0, acc, 1.f, 1.f, lane);
+  __syncwarp();
+  ds_mma::tile_rows_to_global<D>(dq + b * dqs_.b + h * dqs_.h, dqs_.s, row0, S,
+                                 tc_smem + L::kQ, w0, lane);
+}
+
+template <int D>
+struct DkdvLayout {
+  static constexpr int kK = 0;                                        // [kBN][D]
+  static constexpr int kV = kK + ds_mma::tile_bytes<D>(kBN);          // [kBN][D]
+  static constexpr int kQ = kV + ds_mma::tile_bytes<D>(kBN);          // [2][kBM][D]
+  static constexpr int kDO = kQ + 2 * ds_mma::tile_bytes<D>(kBM);     // [2][kBM][D]
+  static constexpr int kLse = kDO + 2 * ds_mma::tile_bytes<D>(kBM);   // [2][kBM] fp32
+  static constexpr int kDelta = kLse + 2 * kBM * 4;                   // [2][kBM] fp32
+  static constexpr int kLive = kDelta + 2 * kBM * 4;                  // [max_deg_t] int
+  static int bytes(int max_deg) { return kLive + 4 * max_deg; }
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 1)
+bsf_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv, Layout lay_t, int B,
+                        int H, int S, Strides qs_, Strides ks_, Strides vs_, Strides dos_,
+                        Strides dks_, Strides dvs_, float sm_scale, int causal) {
+  using L = DkdvLayout<D>;
+  constexpr int kTile = ds_mma::tile_bytes<D>(kBM);
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  __shared__ int n_live;
+  const uint32_t s_k = ds_mma::smem_u32(tc_smem + L::kK);
+  const uint32_t s_v = ds_mma::smem_u32(tc_smem + L::kV);
+  const uint32_t s_q = ds_mma::smem_u32(tc_smem + L::kQ);
+  const uint32_t s_do = ds_mma::smem_u32(tc_smem + L::kDO);
+  const uint32_t s_lse = ds_mma::smem_u32(tc_smem + L::kLse);
+  const uint32_t s_delta = ds_mma::smem_u32(tc_smem + L::kDelta);
+  const float* lse_s = reinterpret_cast<const float*>(tc_smem + L::kLse);
+  const float* delta_s = reinterpret_cast<const float*>(tc_smem + L::kDelta);
+  int* live = reinterpret_cast<int*>(tc_smem + L::kLive);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_bh = B * H;
+  const int bh = blockIdx.x % n_bh;
+  // k-tiles in order: the first blocks' columns (the global block's, and
+  // under causal masking the earliest) are seen by the most q-blocks
+  const int n0 = static_cast<int>(blockIdx.x) / n_bh * kBN;
+  const int b = bh / H, h = bh % H;
+  const int kj = n0 / lay_t.block;  // the layout k-block of this tile
+  const float* lse_b = lse + static_cast<size_t>(bh) * S;
+  const float* delta_b = delta + static_cast<size_t>(bh) * S;
+  const bf16* qb = q + b * qs_.b + h * qs_.h;
+  const bf16* dob = dout + b * dos_.b + h * dos_.h;
+  auto load_q_tile = [&](int stage, int m0) {
+    ds_mma::load_tile_async<kBM, D, kThreads>(s_q + stage * kTile, qb, qs_.s, m0, S, tid);
+    ds_mma::load_tile_async<kBM, D, kThreads>(s_do + stage * kTile, dob, dos_.s, m0, S, tid);
+    ds_mma::load_stat_async<kBM, kThreads>(s_lse + stage * kBM * 4, lse_b, m0, S, tid);
+    ds_mma::load_stat_async<kBM, kThreads>(s_delta + stage * kBM * 4, delta_b, m0, S, tid);
+  };
+
+  ds_mma::load_tile_async<kBN, D, kThreads>(s_k, k + b * ks_.b + h * ks_.h, ks_.s, n0, S, tid);
+  ds_mma::load_tile_async<kBN, D, kThreads>(s_v, v + b * vs_.b + h * vs_.h, vs_.s, n0, S, tid);
+  if (warp == 0) {  // the column's live q-blocks, read once
+    const size_t row = (static_cast<size_t>(h) * (S / lay_t.block) + kj) * lay_t.max_deg;
+    const int n = ds_bsf::compact_live_blocks(live, lay_t.idx + row, lay_t.valid + row,
+                                              lay_t.max_deg, causal ? kj : 0, INT_MAX, lane);
+    if (lane == 0) n_live = n;
+  }
+  __syncthreads();
+  // causal: q sub-tiles whose last row lies before this k-tile see none of it
+  ds_bsf::SubTileWalk walk(live, n_live, lay_t.block, causal ? n0 : 0, INT_MAX);
+  int m0 = walk.pos;
+  bool more = walk.valid();
+  if (more) load_q_tile(0, m0);
+  ds_mma::cp_async_commit();
+
+  const int w0 = warp * 16;    // the warp's first key in the tile
+  const int key0 = n0 + w0;    // ... and in the sequence
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dk_acc[j][e] = 0.f;
+      dv_acc[j][e] = 0.f;
+    }
+
+  for (int t = 0; more; ++t) {
+    ds_mma::cp_async_wait<0>();  // sub-tile t has landed
+    __syncthreads();             // ... for every thread; sub-tile t - 1 is consumed
+    const int st = t & 1;
+    const int r0 = m0;  // this sub-tile's first query
+    walk.next();
+    more = walk.valid();
+    m0 = walk.pos;
+    if (more) {  // sub-tile t + 1, of this block or the next, flies meanwhile
+      load_q_tile(st ^ 1, m0);
+      ds_mma::cp_async_commit();
+    }
+    // causal: every query of the sub-tile lies before the warp's keys
+    if (causal && r0 + kBM - 1 < key0) continue;
+    const bool edge = causal && r0 < key0 + 15;
+    ds_mma::bwd_dkdv_tile_step<D, false>(dk_acc, dv_acc, s_k, s_v, w0, s_q + st * kTile,
+                                         s_do + st * kTile, lse_s + st * kBM,
+                                         delta_s + st * kBM, r0, n0, S, S, causal, edge,
+                                         sm_scale, false, nullptr, 1.f, lane);
+  }
+
+  // dk and dv through the warp's own rows of the K and V tiles, for
+  // 16-byte stores
+  ds_mma::cp_async_wait<0>();
+  __syncthreads();
+  ds_mma::acc_to_tile<D>(tc_smem + L::kK, w0, dk_acc, 1.f, 1.f, lane);
+  ds_mma::acc_to_tile<D>(tc_smem + L::kV, w0, dv_acc, 1.f, 1.f, lane);
+  __syncwarp();
+  ds_mma::tile_rows_to_global<D>(dk + b * dks_.b + h * dks_.h, dks_.s, key0, S,
+                                 tc_smem + L::kK, w0, lane);
+  ds_mma::tile_rows_to_global<D>(dv + b * dvs_.b + h * dvs_.h, dvs_.s, key0, S,
+                                 tc_smem + L::kV, w0, lane);
+}
+
+template <int D>
+int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
+                const float* lse, const float* delta, void* dk, void* dv,
+                Layout lay_t, int B, int H, int S, Strides qs, Strides ks,
+                Strides vs, Strides dos, Strides dks, Strides dvs,
+                float sm_scale, int causal, cudaStream_t stream) {
+  const int smem = DkdvLayout<D>::bytes(lay_t.max_deg);
+  cudaError_t err = cudaFuncSetAttribute(bsf_bwd_dkdv_mma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = static_cast<long long>(S / kBN) * B * H;
+  bsf_bwd_dkdv_mma_kernel<D><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), lay_t, B, H, S, qs, ks, vs, dos, dks, dvs, sm_scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const float* lse, const float* delta, void* dq, Layout lay,
+              int B, int H, int S, Strides qs, Strides ks, Strides vs,
+              Strides dos, Strides dqs, float sm_scale, int causal,
+              cudaStream_t stream) {
+  const int smem = DqLayout<D>::bytes(lay.max_deg);
+  cudaError_t err = cudaFuncSetAttribute(bsf_bwd_dq_mma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = static_cast<long long>(S / kBM) * B * H;
+  bsf_bwd_dq_mma_kernel<D><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), lay, B, H, S, qs, ks,
+      vs, dos, dqs, sm_scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // S must be a multiple of block, and block of 64 (the wrapper checks both).
@@ -364,7 +646,7 @@ extern "C" int ds_block_sparse_flash_bwd_dkdv(
     const void* idx_t, const void* valid_t, int B, int H, int S, int D,
     int block, int max_deg_t, const long long* strides, float sm_scale,
     int causal, int dtype, void* stream) {
-  if (block % kBN != 0 || S % block != 0) {
+  if (block % ds_bsf::kSub != 0 || S % block != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Strides qs{strides[0], strides[1], strides[2]},
@@ -378,13 +660,21 @@ extern "C" int ds_block_sparse_flash_bwd_dkdv(
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DS_DKDV(T, DIM)                                                   \
-  return launch_dkdv<T, DIM>(q, k, v, dout, l, dl, dk, dv, lay_t, B, H, S, \
-                             qs, ks, vs, dos, dks, dvs, sm_scale, causal, s)
-  if (dtype == DS_DTYPE_BF16 && D == 64) DS_DKDV(__nv_bfloat16, 64);
-  if (dtype == DS_DTYPE_BF16 && D == 128) DS_DKDV(__nv_bfloat16, 128);
-  if (dtype == DS_DTYPE_FP32 && D == 64) DS_DKDV(float, 64);
-  if (dtype == DS_DTYPE_FP32 && D == 128) DS_DKDV(float, 128);
+#define DS_DKDV(NS, ...)                                                                        \
+  return NS::launch_dkdv<__VA_ARGS__>(q, k, v, dout, l, dl, dk, dv, lay_t, B, H, S, qs, ks, vs, \
+                                      dos, dks, dvs, sm_scale, causal, s)
+  if (dtype == DS_DTYPE_BF16) {
+    if (D == 32) DS_DKDV(tc, 32);
+    if (D == 64) DS_DKDV(tc, 64);
+    if (D == 96) DS_DKDV(tc, 96);
+    if (D == 128) DS_DKDV(tc, 128);
+  }
+  if (dtype == DS_DTYPE_FP32) {
+    if (D == 32) DS_DKDV(fp32, float, 32);
+    if (D == 64) DS_DKDV(fp32, float, 64);
+    if (D == 96) DS_DKDV(fp32, float, 96);
+    if (D == 128) DS_DKDV(fp32, float, 128);
+  }
 #undef DS_DKDV
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -395,7 +685,7 @@ extern "C" int ds_block_sparse_flash_bwd_dq(
     const void* valid, int B, int H, int S, int D, int block, int max_deg,
     const long long* strides, float sm_scale, int causal, int dtype,
     void* stream) {
-  if (block % kBM != 0 || S % block != 0) {
+  if (block % ds_bsf::kSub != 0 || S % block != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Strides qs{strides[0], strides[1], strides[2]},
@@ -408,13 +698,21 @@ extern "C" int ds_block_sparse_flash_bwd_dq(
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DS_DQ(T, DIM)                                                     \
-  return launch_dq<T, DIM>(q, k, v, dout, l, dl, dq, lay, B, H, S, qs, ks, \
-                           vs, dos, dqs, sm_scale, causal, s)
-  if (dtype == DS_DTYPE_BF16 && D == 64) DS_DQ(__nv_bfloat16, 64);
-  if (dtype == DS_DTYPE_BF16 && D == 128) DS_DQ(__nv_bfloat16, 128);
-  if (dtype == DS_DTYPE_FP32 && D == 64) DS_DQ(float, 64);
-  if (dtype == DS_DTYPE_FP32 && D == 128) DS_DQ(float, 128);
+#define DS_DQ(NS, ...)                                                                       \
+  return NS::launch_dq<__VA_ARGS__>(q, k, v, dout, l, dl, dq, lay, B, H, S, qs, ks, vs, dos, \
+                                    dqs, sm_scale, causal, s)
+  if (dtype == DS_DTYPE_BF16) {
+    if (D == 32) DS_DQ(tc, 32);
+    if (D == 64) DS_DQ(tc, 64);
+    if (D == 96) DS_DQ(tc, 96);
+    if (D == 128) DS_DQ(tc, 128);
+  }
+  if (dtype == DS_DTYPE_FP32) {
+    if (D == 32) DS_DQ(fp32, float, 32);
+    if (D == 64) DS_DQ(fp32, float, 64);
+    if (D == 96) DS_DQ(fp32, float, 96);
+    if (D == 128) DS_DQ(fp32, float, 128);
+  }
 #undef DS_DQ
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -8,62 +8,67 @@
 // allows, gathered through idx; a k-block wholly above the causal diagonal
 // contributes nothing (the TPU kernel's `live` test); masked scores take
 // DEFAULT_MASK_VALUE; a row that sees no live block writes out = 0 and
-// lse = DEFAULT_MASK_VALUE + log(1e-37), as the TPU kernel does.
+// lse = DEFAULT_MASK_VALUE + log(1e-37), as the TPU kernel does.  S is a
+// multiple of the layout block, and the block of 64 (the wrapper checks
+// both).  Strides are arguments: q, k, v may be the head views of one
+// fused QKV projection, and out is written in [B, S, H, D] order.
 //
 // Bound on the H100: at the long-context training shape ([2, 12, 8192, 64]
 // bf16, causal BigBird with block 512) the live blocks are 49 full and 16
 // diagonal ones per head, ~92 GFLOP against ~102 MB of q, k, v, out and
-// lse: the bf16 tensor cores bound it at ~93 us, the memory at ~30 us.  This
-// first version multiplies in fp32 on the CUDA cores (67 TFLOP/s peak), as
-// kernel B does, which is simple to get right; `mma.sync` / `wgmma` tiles
-// are later work.  What it keeps is the memory side of flash attention:
-// the scores never reach device memory, and only the live k-blocks are
-// loaded.
+// lse: the bf16 tensor cores bound it at ~93 us, the memory at ~30 us.
 //
-// Design.  A 512-row layout block does not fit one thread block, so each
-// layout q-block is cut into q-tiles of 64 rows (one thread block each,
-// kernel B's tile and thread layout: 256 threads, 4 per query row, 16
-// scores each) and each gathered k-block into k-sub-tiles of 64 keys.  The
-// TPU grid walks max_deg steps for every q-block and masks the padding;
-// here a block loops over its row's valid entries only (the valid ones
-// come first in `valid`), so a row of degree 5 pays for 5 blocks, not the
-// layout's maximum.  Inside the diagonal layout block, the k-sub-tiles
-// above the q-tile's own diagonal are skipped, which halves the diagonal
-// blocks' work.  The grid is (batch * head, q-tile) with the q-tiles in
-// reverse order, so the blocks start tile by tile across all heads and the
-// layout's heavy last rows (a causal global row sees every block) start
-// first and do not form the launch's tail.  Strides are arguments, as in kernel B: q, k, v
-// may be the head views of one fused QKV projection, and out is written in
-// [B, S, H, D] order.
+// Two routes, chosen by the operands' dtype:
+//
+// bf16, tensor cores (tc::bsf_fwd_mma_kernel, D in {32, 64, 96, 128}).
+//   Kernel B's tensor-core design (attention_mma.cuh): 4 warps of 16 query
+//   rows make a 64-row q-tile, 64-key sub-tiles arrive through two
+//   `cp.async` stages of swizzled bf16 tiles, S = Q K^T and O += P V run on
+//   `mma.sync` m16n8k16 with the online softmax in registers, P fed to the
+//   second product from registers.  The per-tile work is B's own
+//   (ds_mma::fwd_tile_step); what differs is the walk:
+//   - one warp reads the layout row once, at the start, and keeps its live
+//     k-blocks (valid, and on or below the diagonal under causal masking)
+//     in shared memory (block_sparse_walk.cuh);
+//   - the block then walks (live block, 64-key sub-tile of it) as one flat
+//     sequence, so the copy of sub-tile t + 1 is in flight while t is
+//     multiplied across block boundaries too, and the pipeline never
+//     drains between blocks;
+//   - inside the diagonal layout block the sub-tiles above the q-tile's
+//     own diagonal are never loaded, and only the one on it is masked;
+//   - the grid runs the q-tiles in reverse order across all heads, so the
+//     heavy last rows of a causal layout start first and do not form the
+//     launch's tail.
+//
+// fp32, CUDA cores (fp32::bsf_fwd_kernel, the first design, kept as it
+// was).  A tensor-core fp32 product would be TF32 and miss the fp32
+// parity.  Each 64-row q-tile is one block of 256 threads, 4 per query row
+// and 16 scores each (kernel B's fp32 layout), looping over its row's
+// valid entries and each gathered block's 64-key sub-tiles; inside the
+// diagonal layout block the sub-tiles above the q-tile's diagonal are
+// skipped.
 
-#include "common.cuh"
+#include "attention_mma.cuh"
+#include "block_sparse_walk.cuh"
 
 namespace {
+
+using ds_bsf::Layout;
+
+struct Strides {
+  long long b, h, s;
+};
+
+// ===================================================================== //
+// fp32: CUDA cores
+// ===================================================================== //
+namespace fp32 {
 
 constexpr int kBM = 64;                // query rows per q-tile
 constexpr int kBN = 64;                // keys per k-sub-tile
 constexpr int kThreads = 256;
 constexpr int kTPR = kThreads / kBM;   // threads per query row: 4
 constexpr int kNS = kBN / kTPR;        // scores per thread per sub-tile: 16
-
-struct Strides {
-  long long b, h, s;
-};
-
-// The gather indices of layout_gather: idx / valid [H, nb, max_deg] int32,
-// each row's valid entries first.
-struct Layout {
-  const int* idx;
-  const int* valid;
-  int block;
-  int max_deg;
-};
-
-__device__ __forceinline__ int row_degree(const int* valid, int max_deg) {
-  int deg = 0;
-  while (deg < max_deg && valid[deg] != 0) ++deg;
-  return deg;
-}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -101,7 +106,7 @@ bsf_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + b * vs_.b + h * vs_.h;
   const size_t row_off = (static_cast<size_t>(h) * nb + qi) * lay.max_deg;
   const int* kidx = lay.idx + row_off;
-  const int deg = row_degree(lay.valid + row_off, lay.max_deg);
+  const int deg = ds_bsf::row_degree(lay.valid + row_off, lay.max_deg);
 
   for (int idx = tid; idx < kBM * D; idx += kThreads) {
     const int row = idx / D, col = idx % D;
@@ -208,6 +213,152 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace fp32
+
+// ===================================================================== //
+// bf16: tensor cores
+// ===================================================================== //
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kBM = ds_bsf::kSub;  // query rows per q-tile
+constexpr int kBN = ds_bsf::kSub;  // keys per sub-tile
+constexpr int kThreads = 128;      // four warps of 16 query rows
+
+template <int D>
+struct FwdLayout {
+  static constexpr int kQ = 0;                                    // [kBM][D]
+  static constexpr int kK = kQ + ds_mma::tile_bytes<D>(kBM);      // [2][kBN][D]
+  static constexpr int kV = kK + 2 * ds_mma::tile_bytes<D>(kBN);  // [2][kBN][D]
+  static constexpr int kLive = kV + 2 * ds_mma::tile_bytes<D>(kBN);  // [max_deg] int
+  static int bytes(int max_deg) { return kLive + 4 * max_deg; }
+};
+
+// At D = 64 the registers are capped so that four blocks fit an SM (128
+// registers, a few bytes spilled): 1.6% faster on the H100 at the
+// long-context shape than three blocks at the 168 the compiler picks.
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 4 : 1)
+bsf_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                   Layout lay, int B, int H, int S, Strides qs_, Strides ks_, Strides vs_,
+                   Strides os_, float sm_scale, int causal) {
+  using L = FwdLayout<D>;
+  constexpr int kKV = ds_mma::tile_bytes<D>(kBN);
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  __shared__ int n_live;
+  const uint32_t s_q = ds_mma::smem_u32(tc_smem + L::kQ);
+  const uint32_t s_k = ds_mma::smem_u32(tc_smem + L::kK);
+  const uint32_t s_v = ds_mma::smem_u32(tc_smem + L::kV);
+  int* live = reinterpret_cast<int*>(tc_smem + L::kLive);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_bh = B * H;
+  const int bh = blockIdx.x % n_bh;
+  // heaviest q-tiles first: under causal masking the last rows see most blocks
+  const int q0 = (S / kBM - 1 - static_cast<int>(blockIdx.x) / n_bh) * kBM;
+  const int b = bh / H, h = bh % H;
+  const int qi = q0 / lay.block;  // the layout q-block of this tile
+
+  const bf16* qb = q + b * qs_.b + h * qs_.h;
+  const bf16* kb = k + b * ks_.b + h * ks_.h;
+  const bf16* vb = v + b * vs_.b + h * vs_.h;
+  ds_mma::load_tile_async<kBM, D, kThreads>(s_q, qb, qs_.s, q0, S, tid);
+
+  if (warp == 0) {  // the row's live blocks, read once
+    const size_t row = (static_cast<size_t>(h) * (S / lay.block) + qi) * lay.max_deg;
+    const int n = ds_bsf::compact_live_blocks(live, lay.idx + row, lay.valid + row,
+                                              lay.max_deg, 0, causal ? qi : INT_MAX, lane);
+    if (lane == 0) n_live = n;
+  }
+  __syncthreads();
+  // causal: keys past the q-tile's last row are masked for all its rows
+  ds_bsf::SubTileWalk walk(live, n_live, lay.block, 0, causal ? q0 + kBM : INT_MAX);
+  int n0 = walk.pos;
+  bool more = walk.valid();
+  if (more) {
+    ds_mma::load_tile_async<kBN, D, kThreads>(s_k, kb, ks_.s, n0, S, tid);
+    ds_mma::load_tile_async<kBN, D, kThreads>(s_v, vb, vs_.s, n0, S, tid);
+  }
+  ds_mma::cp_async_commit();
+
+  const int w0 = warp * 16;      // the warp's first row in the tile
+  const int row0 = q0 + w0;      // ... and in the sequence
+  const int rows[2] = {row0 + (lane >> 2), row0 + (lane >> 2) + 8};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m[2] = {DS_MASK_VALUE, DS_MASK_VALUE};
+  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+  uint32_t qa[D / 16][4];
+
+  ds_mma::cp_async_wait<0>();
+  __syncthreads();
+  ds_mma::load_a<D>(qa, s_q, w0, lane);
+
+  for (int t = 0; more; ++t) {
+    if (t > 0) {
+      ds_mma::cp_async_wait<0>();  // sub-tile t has landed
+      __syncthreads();             // ... for every thread; sub-tile t - 1 is consumed
+    }
+    const int st = t & 1;
+    const int c0 = n0;  // this sub-tile's first key
+    walk.next();
+    more = walk.valid();
+    n0 = walk.pos;
+    if (more) {  // sub-tile t + 1, of this block or the next, flies meanwhile
+      ds_mma::load_tile_async<kBN, D, kThreads>(s_k + (st ^ 1) * kKV, kb, ks_.s, n0, S, tid);
+      ds_mma::load_tile_async<kBN, D, kThreads>(s_v + (st ^ 1) * kKV, vb, vs_.s, n0, S, tid);
+      ds_mma::cp_async_commit();
+    }
+    // causal: a warp whose rows all lie above this sub-tile has nothing in it
+    if (causal && c0 > row0 + 15) continue;
+    const bool edge = causal && c0 + kBN - 1 > row0;
+    ds_mma::fwd_tile_step<D, false>(acc, m, l, qa, s_k + st * kKV, s_v + st * kKV, c0, rows, S,
+                                    causal, edge, sm_scale, false, nullptr, lane);
+  }
+
+  // the row sums over the quad; out = acc / l (0 where l is 0: a row with
+  // no live block, whose lse is then the mask value's), staged in the
+  // warp's own rows of the Q tile for 16-byte stores
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = ds_mma::quad_sum(l[r]);
+    inv[r] = 1.f / (l[r] == 0.f ? 1.f : l[r]);
+  }
+  ds_mma::acc_to_tile<D>(tc_smem + L::kQ, w0, acc, inv[0], inv[1], lane);
+  __syncwarp();
+  ds_mma::tile_rows_to_global<D>(o + b * os_.b + h * os_.h, os_.s, row0, S, tc_smem + L::kQ, w0,
+                                 lane);
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lse[static_cast<size_t>(bh) * S + rows[r]] = m[r] + logf(l[r] + 1e-37f);
+    }
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           Layout lay, int B, int H, int S, Strides qs, Strides ks,
+           Strides vs, Strides os, float sm_scale, int causal,
+           cudaStream_t stream) {
+  const int smem = FwdLayout<D>::bytes(lay.max_deg);
+  cudaError_t err = cudaFuncSetAttribute(
+      bsf_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = static_cast<long long>(S / kBM) * B * H;
+  bsf_fwd_mma_kernel<D><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), lse, lay, B, H, S, qs, ks, vs, os, sm_scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // S must be a multiple of block, and block of 64 (the wrapper checks both).
@@ -217,7 +368,7 @@ extern "C" int ds_block_sparse_flash_fwd(
     const void* idx, const void* valid, int B, int H, int S, int D,
     int block, int max_deg, const long long* strides, float sm_scale,
     int causal, int dtype, void* stream) {
-  if (block % kBM != 0 || S % block != 0) {
+  if (block % ds_bsf::kSub != 0 || S % block != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Strides qs{strides[0], strides[1], strides[2]},
@@ -228,12 +379,20 @@ extern "C" int ds_block_sparse_flash_fwd(
                    static_cast<const int*>(valid), block, max_deg};
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DS_BSF(T, DIM) \
-  return launch<T, DIM>(q, k, v, o, l, lay, B, H, S, qs, ks, vs, os, sm_scale, causal, s)
-  if (dtype == DS_DTYPE_BF16 && D == 64) DS_BSF(__nv_bfloat16, 64);
-  if (dtype == DS_DTYPE_BF16 && D == 128) DS_BSF(__nv_bfloat16, 128);
-  if (dtype == DS_DTYPE_FP32 && D == 64) DS_BSF(float, 64);
-  if (dtype == DS_DTYPE_FP32 && D == 128) DS_BSF(float, 128);
+#define DS_BSF(NS, ...) \
+  return NS::launch<__VA_ARGS__>(q, k, v, o, l, lay, B, H, S, qs, ks, vs, os, sm_scale, causal, s)
+  if (dtype == DS_DTYPE_BF16) {
+    if (D == 32) DS_BSF(tc, 32);
+    if (D == 64) DS_BSF(tc, 64);
+    if (D == 96) DS_BSF(tc, 96);
+    if (D == 128) DS_BSF(tc, 128);
+  }
+  if (dtype == DS_DTYPE_FP32) {
+    if (D == 32) DS_BSF(fp32, float, 32);
+    if (D == 64) DS_BSF(fp32, float, 64);
+    if (D == 96) DS_BSF(fp32, float, 96);
+    if (D == 128) DS_BSF(fp32, float, 128);
+  }
 #undef DS_BSF
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -23,7 +23,7 @@
 // Two routes, chosen by the operands' dtype:
 //
 // bf16, tensor cores (tc::flash_bwd_dkdv_mma_kernel and
-// tc::flash_bwd_dq_mma_kernel, D in {64, 128}).
+// tc::flash_bwd_dq_mma_kernel, D in {32, 64, 96, 128}).
 //   Bound on the H100: at the training shape ([8, 12, 1024, 64] causal)
 //   the dk/dv launch does four [S, S] x D products per head (S^T, dP^T,
 //   dV, dK: 25.8 GFLOP) and the dq launch three (S, dP, dQ: 19.4 GFLOP),
@@ -46,7 +46,9 @@
 //   - the schedule: tiles wholly above the causal diagonal are never
 //     loaded; dk/dv starts each block at the diagonal; both grids walk the
 //     heaviest tiles first; dropout's keep bits are drawn once per block
-//     per tile into shared memory (attention_mma.cuh draw_keep_bits).
+//     per tile into shared memory (attention_mma.cuh draw_keep_bits);
+//   - the per-tile work of each launch is attention_mma.cuh's
+//     bwd_dkdv_tile_step / bwd_dq_tile_step, which kernel G shares.
 //
 // fp32, CUDA cores (fp32::flash_bwd_dkdv_kernel, fp32::flash_bwd_dq_kernel,
 // the first design, kept as it was).  A tensor-core fp32 product would be
@@ -473,54 +475,11 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     }
     // causal: every query of the tile lies before the warp's keys
     if (causal && m0 + kBM - 1 < key0) continue;
-
-    const uint32_t t_q = s_q + st * kTile, t_do = s_do + st * kTile;
-    const float* ls = lse_s + st * kBM;
-    const float* dl = delta_s + st * kBM;
-    const uint32_t keep =
-        dropping ? ds_mma::fragment_keep_t(bits + st * kBM, w0 + (lane >> 2), lane) : 0u;
     const bool edge = m0 + kBM > Sq || n0 + kBN > Sk || (causal && m0 < key0 + 15);
-    // accumulator rows are keys (w0 + frag_row), columns queries (frag_col)
-
-    // S^T -> P (kept in p) and P_drop^T -> dV += P_drop^T dO
-    float p[kBM / 8][4];
-    ds_mma::warp_abt_smem<D, kBM>(p, s_k, w0, t_q, 0, lane);
-    uint32_t a[kBM / 16][4];
-    {
-      float pd[kBM / 8][4];
-#pragma unroll
-      for (int j = 0; j < kBM / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = ds_mma::frag_col(lane, j, e), ki = w0 + ds_mma::frag_row(lane, e);
-          float pv = exp2f((p[j][e] * sm_scale - ls[qi]) * ds_mma::kLog2e);
-          if (edge && (m0 + qi >= Sq || n0 + ki >= Sk || (causal && m0 + qi < n0 + ki))) {
-            pv = 0.f;
-          }
-          p[j][e] = pv;
-          // the keep scale multiplies dv once, at the end
-          pd[j][e] = dropping && !ds_mma::kept(keep, j, e) ? 0.f : pv;
-        }
-      }
-      ds_mma::acc_to_a<kBM>(a, pd);
-    }
-    ds_mma::warp_ab<kBM, D>(dv_acc, a, t_do, 0, lane);
-
-    // dP^T -> dS^T = P (dP_drop - delta) scale -> dK += dS^T Q
-    float ds[kBM / 8][4];
-    ds_mma::warp_abt_smem<D, kBM>(ds, s_v, w0, t_do, 0, lane);
-#pragma unroll
-    for (int j = 0; j < kBM / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = ds_mma::frag_col(lane, j, e);
-        float dpv = ds[j][e];
-        if (dropping) dpv = ds_mma::kept(keep, j, e) ? dpv * drop.scale : 0.f;
-        ds[j][e] = p[j][e] * (dpv - dl[qi]) * sm_scale;
-      }
-    }
-    ds_mma::acc_to_a<kBM>(a, ds);
-    ds_mma::warp_ab<kBM, D>(dk_acc, a, t_q, 0, lane);
+    ds_mma::bwd_dkdv_tile_step<D, true>(dk_acc, dv_acc, s_k, s_v, w0, s_q + st * kTile,
+                                        s_do + st * kTile, lse_s + st * kBM,
+                                        delta_s + st * kBM, m0, n0, Sq, Sk, causal, edge,
+                                        sm_scale, dropping, bits + st * kBM, drop.scale, lane);
   }
 
   // dk and dv through the warp's own rows of the K and V tiles, for
@@ -624,29 +583,11 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     // causal: a warp whose rows all lie above this tile has nothing in it
     if (causal && n0 > row0 + 15) continue;
-
-    const uint32_t t_k = s_k + st * kKV;
-    float s[kBN / 8][4], dp[kBN / 8][4];
-    ds_mma::warp_abt_smem<D, kBN>(s, s_q, w0, t_k, 0, lane);
-    ds_mma::warp_abt_smem<D, kBN>(dp, s_do, w0, s_v + st * kKV, 0, lane);
     const bool edge = n0 + kBN > Sk || (causal && n0 + kBN - 1 > row0);
-    const uint64_t* tb = bits + st * kBM + w0 + (lane >> 2);
-    const uint32_t keep = dropping ? ds_mma::fragment_keep(tb[0], tb[8], lane) : 0u;
-#pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, ci = ds_mma::frag_col(lane, j, e);
-        float pv = exp2f((s[j][e] * sm_scale - lse_r[r]) * ds_mma::kLog2e);
-        if (edge && (n0 + ci >= Sk || (causal && n0 + ci > rows[r]))) pv = 0.f;
-        float dpv = dp[j][e];
-        if (dropping) dpv = ds_mma::kept(keep, j, e) ? dpv * drop.scale : 0.f;
-        s[j][e] = pv * (dpv - delta_r[r]) * sm_scale;  // dS
-      }
-    }
-    uint32_t a[kBN / 16][4];
-    ds_mma::acc_to_a<kBN>(a, s);
-    ds_mma::warp_ab<kBN, D>(acc, a, t_k, 0, lane);
+    ds_mma::bwd_dq_tile_step<D, true>(acc, s_q, s_do, w0, s_k + st * kKV, s_v + st * kKV, n0,
+                                      rows, lse_r, delta_r, Sk, causal, edge, sm_scale,
+                                      dropping, bits + st * kBM + w0 + (lane >> 2), drop.scale,
+                                      lane);
   }
 
   // dq through the warp's own rows of the Q tile, for 16-byte stores
@@ -717,18 +658,22 @@ extern "C" int ds_flash_attention_bwd_dkdv(
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DS_DTYPE_BF16 && D == 64)
-    return tc::launch_dkdv<64>(q, k, v, dout, l, dl, dk, dv, B, H, Sq, Sk, qs, ks, vs, dos,
-                               dks, dvs, sm_scale, causal, drop, s);
-  if (dtype == DS_DTYPE_BF16 && D == 128)
-    return tc::launch_dkdv<128>(q, k, v, dout, l, dl, dk, dv, B, H, Sq, Sk, qs, ks, vs, dos,
-                                dks, dvs, sm_scale, causal, drop, s);
-  if (dtype == DS_DTYPE_FP32 && D == 64)
-    return fp32::launch_dkdv<float, 64>(q, k, v, dout, l, dl, dk, dv, B, H, Sq, Sk, qs, ks,
-                                        vs, dos, dks, dvs, sm_scale, causal, drop, s);
-  if (dtype == DS_DTYPE_FP32 && D == 128)
-    return fp32::launch_dkdv<float, 128>(q, k, v, dout, l, dl, dk, dv, B, H, Sq, Sk, qs, ks,
-                                         vs, dos, dks, dvs, sm_scale, causal, drop, s);
+#define DS_DKDV(NS, ...)                                                                   \
+  return NS::launch_dkdv<__VA_ARGS__>(q, k, v, dout, l, dl, dk, dv, B, H, Sq, Sk, qs, ks, vs, \
+                                      dos, dks, dvs, sm_scale, causal, drop, s)
+  if (dtype == DS_DTYPE_BF16) {
+    if (D == 32) DS_DKDV(tc, 32);
+    if (D == 64) DS_DKDV(tc, 64);
+    if (D == 96) DS_DKDV(tc, 96);
+    if (D == 128) DS_DKDV(tc, 128);
+  }
+  if (dtype == DS_DTYPE_FP32) {
+    if (D == 32) DS_DKDV(fp32, float, 32);
+    if (D == 64) DS_DKDV(fp32, float, 64);
+    if (D == 96) DS_DKDV(fp32, float, 96);
+    if (D == 128) DS_DKDV(fp32, float, 128);
+  }
+#undef DS_DKDV
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -748,18 +693,22 @@ extern "C" int ds_flash_attention_bwd_dq(
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DS_DTYPE_BF16 && D == 64)
-    return tc::launch_dq<64>(q, k, v, dout, l, dl, dq, B, H, Sq, Sk, qs, ks, vs, dos, dqs,
-                             sm_scale, causal, drop, s);
-  if (dtype == DS_DTYPE_BF16 && D == 128)
-    return tc::launch_dq<128>(q, k, v, dout, l, dl, dq, B, H, Sq, Sk, qs, ks, vs, dos, dqs,
-                              sm_scale, causal, drop, s);
-  if (dtype == DS_DTYPE_FP32 && D == 64)
-    return fp32::launch_dq<float, 64>(q, k, v, dout, l, dl, dq, B, H, Sq, Sk, qs, ks, vs,
-                                      dos, dqs, sm_scale, causal, drop, s);
-  if (dtype == DS_DTYPE_FP32 && D == 128)
-    return fp32::launch_dq<float, 128>(q, k, v, dout, l, dl, dq, B, H, Sq, Sk, qs, ks, vs,
-                                       dos, dqs, sm_scale, causal, drop, s);
+#define DS_DQ(NS, ...)                                                                    \
+  return NS::launch_dq<__VA_ARGS__>(q, k, v, dout, l, dl, dq, B, H, Sq, Sk, qs, ks, vs, dos, \
+                                    dqs, sm_scale, causal, drop, s)
+  if (dtype == DS_DTYPE_BF16) {
+    if (D == 32) DS_DQ(tc, 32);
+    if (D == 64) DS_DQ(tc, 64);
+    if (D == 96) DS_DQ(tc, 96);
+    if (D == 128) DS_DQ(tc, 128);
+  }
+  if (dtype == DS_DTYPE_FP32) {
+    if (D == 32) DS_DQ(fp32, float, 32);
+    if (D == 64) DS_DQ(fp32, float, 64);
+    if (D == 96) DS_DQ(fp32, float, 96);
+    if (D == 128) DS_DQ(fp32, float, 128);
+  }
+#undef DS_DQ
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -17,7 +17,7 @@
 //
 // Two routes, chosen by the operands' dtype:
 //
-// bf16, tensor cores (tc::flash_fwd_mma_kernel, D in {64, 128}).
+// bf16, tensor cores (tc::flash_fwd_mma_kernel, D in {32, 64, 96, 128}).
 //   Bound on the H100: at the training shape ([8, 12, 1024, 64] causal)
 //   the two products are 12.9 GFLOP against ~50 MB of q, k, v, out and
 //   lse: 13 us at the 989 TFLOP/s bf16 peak, 15 us at 3.35 TB/s, so the
@@ -41,7 +41,10 @@
 //     into shared memory (attention_mma.cuh draw_keep_bits), overlapped
 //     with the tile's loads.
 //   A block is 64 query rows (4 warps): 128 rows (8 warps) measured slower
-//   at every shape tried on the H100 (PERF.md).
+//   at every shape tried on the H100 (PERF.md).  The per-tile work (the
+//   two products and the softmax update) is attention_mma.cuh's
+//   fwd_tile_step, which kernel F shares; the two differ only in the tiles
+//   they walk.
 //
 // fp32, CUDA cores (fp32::flash_fwd_kernel, the first design, kept as it
 // was).  A tensor-core fp32 product would be TF32, about three decimal
@@ -327,69 +330,10 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     // causal: a warp whose rows all lie above this tile has nothing in it
     if (causal && n0 > row0 + 15) continue;
-
-    float s[kBN / 8][4];
-    ds_mma::warp_abt<D, kBN>(s, qa, s_k + st * kKV, 0, lane);
-
     const bool edge = n0 + kBN > Sk || (causal && n0 + kBN - 1 > row0);
-    float mt[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float sv = s[j][e] * sm_scale;
-        if (edge) {
-          const int col = n0 + ds_mma::frag_col(lane, j, e);
-          if (col >= Sk) {
-            sv = -CUDART_INF_F;  // past the ragged edge: weight 0
-          } else if (causal && col > rows[e >> 1]) {
-            sv = DS_MASK_VALUE;
-          }
-        }
-        s[j][e] = sv;
-        mt[e >> 1] = fmaxf(mt[e >> 1], sv);
-      }
-    }
-    // exp(x - m) as exp2((x - m) log2 e), the difference first: a masked
-    // score minus a masked max is 0, as in the plain twin's softmax
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], ds_mma::quad_max(mt[r]));
-      alpha[r] = exp2f((m[r] - m_new) * ds_mma::kLog2e);
-      m[r] = m_new;
-    }
-    float lt[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f((s[j][e] - m[e >> 1]) * ds_mma::kLog2e);
-        lt[e >> 1] += p;
-        s[j][e] = p;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + lt[r];
-    if (drop) {  // after l took the raw P: only the P.V input is dropped
-      // (the keep scale multiplies the output once, with 1 / l)
-      const uint64_t* tb = bits + st * BM + w0 + (lane >> 2);
-      const uint32_t keep = ds_mma::fragment_keep(tb[0], tb[8], lane);
-#pragma unroll
-      for (int j = 0; j < kBN / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = ds_mma::kept(keep, j, e) ? s[j][e] : 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
-    uint32_t pa[kBN / 16][4];
-    ds_mma::acc_to_a<kBN>(pa, s);
-    ds_mma::warp_ab<kBN, D>(acc, pa, s_v + st * kKV, 0, lane);
+    ds_mma::fwd_tile_step<D, true>(acc, m, l, qa, s_k + st * kKV, s_v + st * kKV, n0, rows, Sk,
+                                   causal, edge, sm_scale, drop,
+                                   bits + st * BM + w0 + (lane >> 2), lane);
   }
 
   // the row sums over the quad; out = acc * keep scale / l (0 where l is
@@ -453,11 +397,15 @@ extern "C" int ds_flash_attention_fwd(
                                  sm_scale, causal, sd, keep_threshold,        \
                                  keep_scale, s)
   if (dtype == DS_DTYPE_BF16) {
+    if (D == 32) DS_FWD(tc, 32);
     if (D == 64) DS_FWD(tc, 64);
+    if (D == 96) DS_FWD(tc, 96);
     if (D == 128) DS_FWD(tc, 128);
   }
   if (dtype == DS_DTYPE_FP32) {
+    if (D == 32) DS_FWD(fp32, 32);
     if (D == 64) DS_FWD(fp32, 64);
+    if (D == 96) DS_FWD(fp32, 96);
     if (D == 128) DS_FWD(fp32, 128);
   }
 #undef DS_FWD

@@ -108,9 +108,20 @@ KERNELS = (
 
 
 def reset_launch_counts() -> None:
+    """Zero every wrapper's launch count and, where it has one, its count
+    of realigned operands."""
     for k in KERNELS:
         k.wrapper.launches = 0
+        if hasattr(k.wrapper, "realigned"):
+            k.wrapper.realigned = 0
 
 
 def launch_counts() -> dict:
     return {k.name: k.wrapper.launches for k in KERNELS}
+
+
+def realign_counts() -> dict:
+    """Operands the attention wrappers (kernels B, E, F, G) copied to meet
+    the tensor-core route's 16-byte rule, by kernel."""
+    return {k.name: k.wrapper.realigned for k in KERNELS
+            if hasattr(k.wrapper, "realigned")}

@@ -16,11 +16,13 @@ Routes.  Each kernel has two, chosen in the kernel by the dtype code
 (`kernel_dtype_code`): bf16 multiplies on the tensor cores (`mma.sync`
 tiles fed by 16-byte `cp.async` copies, csrc/attention_mma.cuh), fp32 on
 the CUDA cores (a tensor-core fp32 product would be TF32 and miss the fp32
-parity).  The tensor-core route needs every operand's base address and its
-batch, head and sequence strides to be multiples of 16 bytes
-(`_seq_strides` checks them as it reads the strides); a tensor that is not
-raises, there is no fallback.  Every call the layer and the engines make
-meets it.
+parity).  Both take head dims 32, 64, 96 and 128 (KERNEL_HEAD_DIMS); any
+other raises ValueError.  The tensor-core route needs every operand's base
+address and its batch, head and sequence strides to be multiples of 16
+bytes.  The wrapper copies an operand that breaks the rule into a fresh
+contiguous tensor before the launch (`_launch_operands`), and counts the
+copy on the wrapper's `realigned`; every call the layer and the engines make
+meets the rule, so on their paths the count stays 0.
 
 Dropout.  The JAX kernel keys the TPU's PRNG by tile, which no other
 tiling can reproduce.  Here the keep decision of score (row, col) of head
@@ -47,8 +49,8 @@ from .dispatch import check_cuda, kernel_dtype_code, stream_handle, use_kernel
 # Finite mask value: keeps the running max finite for fully masked rows.
 DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
-# head dims the kernels are compiled for
-KERNEL_HEAD_DIMS = (64, 128)
+# head dims the kernels are compiled for (both routes)
+KERNEL_HEAD_DIMS = (32, 64, 96, 128)
 
 # the tensor-core route's cp.async copies move 16 bytes, 8 bf16 elements
 CP_ASYNC_BYTES = 16
@@ -195,36 +197,51 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, causal: bool = False,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _seq_strides(name, arg, t, cp_async=False):
-    """(batch, head, seq) strides of the [B, H, S, D] bf16 or fp32 operand
-    `arg`; its last dim must be dense.  With cp_async (kernels B and E on
-    bf16: the tensor-core route) its base address, and its batch, head and
-    sequence strides in bytes (of the dims longer than 1), must also be
-    multiples of 16.  Raises ValueError naming the operand; runs on tensors
-    of any device."""
+def _seq_strides(name, arg, t):
+    """(batch, head, seq) strides of the [B, H, S, D] operand `arg`; its
+    last dim must be dense (raises ValueError naming the operand).  Runs on
+    tensors of any device."""
     sb, sh, ss, sd = t.stride()
     if sd != 1:
         raise ValueError(f"{name}: `{arg}`: the head dim must be dense "
                          f"(strides {t.stride()})")
-    if cp_async:  # 16 bytes are 8 bf16 elements
-        nb, nh, ns = t.shape[:3]
-        if t.data_ptr() % CP_ASYNC_BYTES or (nb > 1 and sb % 8) \
-                or (nh > 1 and sh % 8) or (ns > 1 and ss % 8):
-            _raise_misaligned(name, arg, t)
     return sb, sh, ss
 
 
-def _raise_misaligned(name, arg, t):
-    need = (f"not a multiple of {CP_ASYNC_BYTES} bytes, which the "
-            "tensor-core route's cp.async copies need")
+def _misaligned(t):
+    """Whether operand t breaks the tensor-core route's rule: its base
+    address, or its batch, head or sequence stride in bytes (of a dim
+    longer than 1), not a multiple of 16 (the size of a cp.async copy)."""
     if t.data_ptr() % CP_ASYNC_BYTES:
-        raise ValueError(f"{name}: `{arg}` starts at address "
-                         f"{t.data_ptr():#x}, {need}")
-    for dim, what in enumerate(("batch", "head", "sequence")):
-        nbytes = t.stride(dim) * t.element_size()
-        if t.shape[dim] > 1 and nbytes % CP_ASYNC_BYTES:
-            raise ValueError(f"{name}: `{arg}` has a {what} stride of "
-                             f"{nbytes} bytes (strides {t.stride()}), {need}")
+        return True
+    return any(n > 1 and st * t.element_size() % CP_ASYNC_BYTES
+               for n, st in zip(t.shape[:3], t.stride()[:3]))
+
+
+def _launch_operands(name, wrapper, code, inputs, outputs):
+    """The input tensors a launch reads and the (batch, head, seq) strides
+    of every operand, inputs then outputs, in argument order; `inputs` and
+    `outputs` map argument names to tensors.  On the tensor-core route
+    (dtype code DTYPE_BF16) an input that breaks the 16-byte rule is copied
+    into a fresh contiguous tensor, whose base and strides meet it, and
+    `wrapper.realigned` counts the copy (the wrappers allocate the outputs
+    themselves, aligned).  Runs on tensors of any device."""
+    tensors, strides = [], []
+    for arg, t in inputs.items():
+        _seq_strides(name, arg, t)
+        if code == op_builder.DTYPE_BF16 and _misaligned(t):
+            t = t.clone(memory_format=torch.contiguous_format)
+            wrapper.realigned += 1
+        tensors.append(t)
+        strides.extend(t.stride()[:3])
+    for arg, t in outputs.items():
+        strides.extend(_seq_strides(name, arg, t))
+    return tensors, strides
+
+
+def _stride_array(strides):
+    """Strides as the int64 array the launchers with many operands take."""
+    return (op_builder.I64_PTR._type_ * len(strides))(*strides)
 
 
 def _heads_layout(b, h, s, d, like):
@@ -235,9 +252,9 @@ def _heads_layout(b, h, s, d, like):
 
 
 def _check_attention(name, q, k, v, *more):
-    """Device, dtype and shape checks shared by kernels B and E; returns
+    """Dtype, shape and device checks shared by kernels B, E, F and G, the
+    device last (so that the rest holds on CPU tensors too); returns
     (device index, dtype code, B, H, Sq, Sk, D)."""
-    index = check_cuda(name, q, k, v, *more)
     code = kernel_dtype_code(q)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name}: q, k, v dtypes differ: {q.dtype}, "
@@ -248,8 +265,9 @@ def _check_attention(name, q, k, v, *more):
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     b, h, sq, d = q.shape
     if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not compiled "
-                         f"(kernel takes {KERNEL_HEAD_DIMS})")
+        raise ValueError(f"{name}: head dim {d} not compiled (the kernels "
+                         f"take {', '.join(map(str, KERNEL_HEAD_DIMS))})")
+    index = check_cuda(name, q, k, v, *more)
     return index, code, b, h, sq, k.shape[2], d
 
 
@@ -268,28 +286,27 @@ def flash_attention_cuda(q, k, v, causal: bool = False,
                          sm_scale: Optional[float] = None,
                          dropout_rate: float = 0.0, dropout_seed=None):
     """Kernel B on CUDA tensors q [B, H, Sq, D], k, v [B, H, Sk, D] (any
-    batch/head/seq strides, dense D; in bf16, strides and base addresses
-    multiples of 16 bytes).  Returns (out [B, H, Sq, D], lse [B, H, Sq]
-    fp32); out is laid out as [B, Sq, H, D] in memory.  dropout_seed: an
-    int or a device int32 tensor of one element."""
+    batch/head/seq strides, dense D; a bf16 operand whose strides or base
+    address are not multiples of 16 bytes is copied first).  Returns
+    (out [B, H, Sq, D], lse [B, H, Sq] fp32); out is laid out as
+    [B, Sq, H, D] in memory.  dropout_seed: an int or a device int32 tensor
+    of one element."""
     name = "flash_attention_cuda"
     index, code, b, h, sq, sk, d = _check_attention(name, q, k, v)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    cp_async = code == op_builder.DTYPE_BF16
-    strides = [x for arg, t in (("q", q), ("k", k), ("v", v))
-               for x in _seq_strides(name, arg, t, cp_async)]
     out = _heads_layout(b, h, sq, d, q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
+    (q, k, v), strides = _launch_operands(
+        name, flash_attention_cuda, code, dict(q=q, k=k, v=v), dict(out=out))
     seed_ptr, threshold, scale, _seed_t = _dropout_args(
         name, dropout_rate, dropout_seed, q.device)
     lib = op_builder.load()
     err = lib.ds_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, h, sq, sk, d, *strides,
-        *_seq_strides(name, "out", out, cp_async), float(sm_scale),
+        lse.data_ptr(), b, h, sq, sk, d, *strides, float(sm_scale),
         int(causal), seed_ptr, threshold, scale, code, stream_handle(index))
     op_builder.check_launch(name, err)
     flash_attention_cuda.launches += 1
@@ -297,24 +314,24 @@ def flash_attention_cuda(q, k, v, causal: bool = False,
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.realigned = 0
 
 
-def _bwd_launch(name, fn, tensors, outs, shapes, causal, sm_scale,
+def _bwd_launch(name, wrapper, fn, tensors, outs, shapes, causal, sm_scale,
                 dropout_rate, dropout_seed):
-    """One kernel E launch: `tensors` (q, k, v, dout) and `outs`, (name,
-    grad) pairs, give their (batch, head, seq) strides in argument order."""
+    """One kernel E launch: `tensors` (q, k, v, dout) and `outs` (argument
+    name -> grad) give their (batch, head, seq) strides in argument
+    order."""
     q, k, v, dout, lse, delta = tensors
     index, code, b, h, sq, sk, d = shapes
-    cp_async = code == op_builder.DTYPE_BF16
-    strides = [x for arg, t in (("q", q), ("k", k), ("v", v), ("dout", dout))
-               + outs for x in _seq_strides(name, arg, t, cp_async)]
+    (q, k, v, dout), strides = _launch_operands(
+        name, wrapper, code, dict(q=q, k=k, v=v, dout=dout), outs)
     seed_ptr, threshold, scale, _seed_t = _dropout_args(
         name, dropout_rate, dropout_seed, q.device)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
              lse.data_ptr(), delta.data_ptr(),
-             *(t.data_ptr() for _, t in outs),
-             b, h, sq, sk, d, (op_builder.I64_PTR._type_ * len(strides))(
-                 *strides), float(sm_scale), int(causal), seed_ptr,
+             *(t.data_ptr() for t in outs.values()), b, h, sq, sk, d,
+             _stride_array(strides), float(sm_scale), int(causal), seed_ptr,
              threshold, scale, code, stream_handle(index))
     op_builder.check_launch(name, err)
 
@@ -346,14 +363,16 @@ def flash_attention_bwd_dkdv_cuda(q, k, v, dout, lse, delta,
     dv = _heads_layout(b, h, sk, d, v)
     if dk.numel() == 0:
         return dk, dv
-    _bwd_launch(name, op_builder.load().ds_flash_attention_bwd_dkdv,
-                (q, k, v, dout, lse, delta), (("dk", dk), ("dv", dv)), shapes,
+    _bwd_launch(name, flash_attention_bwd_dkdv_cuda,
+                op_builder.load().ds_flash_attention_bwd_dkdv,
+                (q, k, v, dout, lse, delta), dict(dk=dk, dv=dv), shapes,
                 causal, sm_scale, dropout_rate, dropout_seed)
     flash_attention_bwd_dkdv_cuda.launches += 1
     return dk, dv
 
 
 flash_attention_bwd_dkdv_cuda.launches = 0
+flash_attention_bwd_dkdv_cuda.realigned = 0
 
 
 def flash_attention_bwd_dq_cuda(q, k, v, dout, lse, delta,
@@ -374,14 +393,16 @@ def flash_attention_bwd_dq_cuda(q, k, v, dout, lse, delta,
         return dq
     if sk == 0:
         return dq.zero_()
-    _bwd_launch(name, op_builder.load().ds_flash_attention_bwd_dq,
-                (q, k, v, dout, lse, delta), (("dq", dq),), shapes, causal,
+    _bwd_launch(name, flash_attention_bwd_dq_cuda,
+                op_builder.load().ds_flash_attention_bwd_dq,
+                (q, k, v, dout, lse, delta), dict(dq=dq), shapes, causal,
                 sm_scale, dropout_rate, dropout_seed)
     flash_attention_bwd_dq_cuda.launches += 1
     return dq
 
 
 flash_attention_bwd_dq_cuda.launches = 0
+flash_attention_bwd_dq_cuda.realigned = 0
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = False,

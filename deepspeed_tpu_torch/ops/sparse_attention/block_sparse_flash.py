@@ -17,6 +17,11 @@ layout's largest degree, which for BigBird's global rows is dense-size.
 The gather indices are layout_gather's, as device int32 tensors: idx / valid
 [H, nb, max_deg], each row's valid entries first, padded by repeating the
 last valid index.  The kernels loop over a row's valid entries only.
+
+Routes and operands follow kernels B and E (flash_attention.py): bf16 on
+the tensor cores, fp32 on the CUDA cores, head dims 32, 64, 96 and 128; a
+bf16 operand whose base or strides are not multiples of 16 bytes is copied
+before the launch and counted on the wrapper's `realigned`.
 """
 
 import math
@@ -29,7 +34,7 @@ from .. import op_builder
 from ..dispatch import stream_handle, use_kernel
 from ..flash_attention import (DEFAULT_MASK_VALUE, _acc_dtype,
                                _check_attention, _check_stats, _heads_layout,
-                               _seq_strides)
+                               _launch_operands, _stride_array)
 
 # rows of a q-tile and keys of a k-tile in kernels F and G: a layout block
 # must be a multiple of it for the kernels to take it
@@ -177,36 +182,35 @@ def _check_sparse(name, q, k, v, idx, valid, block, *more):
     return index, code, b, h, sq, d
 
 
-def _strides(name, **tensors):
-    vals = [x for arg, t in tensors.items()
-            for x in _seq_strides(name, arg, t)]
-    return (op_builder.I64_PTR._type_ * len(vals))(*vals)
-
-
 def block_sparse_flash_fwd_cuda(q, k, v, idx, valid, block: int,
                                 causal: bool = False,
                                 sm_scale: Optional[float] = None):
     """Kernel F on CUDA tensors q, k, v [B, H, S, D] (any batch/head/seq
-    strides, dense D) and the device int32 gather indices idx / valid of
-    layout_gather(layout).  Returns (out [B, H, S, D] laid out as
-    [B, S, H, D], lse [B, H, S] fp32)."""
+    strides, dense D; a misaligned bf16 operand is copied first) and the
+    device int32 gather indices idx / valid of layout_gather(layout).
+    Returns (out [B, H, S, D] laid out as [B, S, H, D], lse [B, H, S]
+    fp32)."""
     name = "block_sparse_flash_fwd_cuda"
     index, code, b, h, s, d = _check_sparse(name, q, k, v, idx, valid, block)
     out = _heads_layout(b, h, s, d, q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
+    (q, k, v), strides = _launch_operands(
+        name, block_sparse_flash_fwd_cuda, code, dict(q=q, k=k, v=v),
+        dict(out=out))
     err = op_builder.load().ds_block_sparse_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), idx.data_ptr(), valid.data_ptr(), b, h, s, d, block,
-        idx.shape[-1], _strides(name, q=q, k=k, v=v, out=out),
-        float(_scale(q, sm_scale)), int(causal), code, stream_handle(index))
+        idx.shape[-1], _stride_array(strides), float(_scale(q, sm_scale)),
+        int(causal), code, stream_handle(index))
     op_builder.check_launch(name, err)
     block_sparse_flash_fwd_cuda.launches += 1
     return out, lse
 
 
 block_sparse_flash_fwd_cuda.launches = 0
+block_sparse_flash_fwd_cuda.realigned = 0
 
 
 def block_sparse_flash_bwd_dq_cuda(q, k, v, dout, lse, delta, idx, valid,
@@ -222,18 +226,22 @@ def block_sparse_flash_bwd_dq_cuda(q, k, v, dout, lse, delta, idx, valid,
     dq = _heads_layout(b, h, s, d, q)
     if dq.numel() == 0:
         return dq
+    (q, k, v, dout), strides = _launch_operands(
+        name, block_sparse_flash_bwd_dq_cuda, code,
+        dict(q=q, k=k, v=v, dout=dout), dict(dq=dq))
     err = op_builder.load().ds_block_sparse_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), idx.data_ptr(),
         valid.data_ptr(), b, h, s, d, block, idx.shape[-1],
-        _strides(name, q=q, k=k, v=v, dout=dout, dq=dq),
-        float(_scale(q, sm_scale)), int(causal), code, stream_handle(index))
+        _stride_array(strides), float(_scale(q, sm_scale)), int(causal), code,
+        stream_handle(index))
     op_builder.check_launch(name, err)
     block_sparse_flash_bwd_dq_cuda.launches += 1
     return dq
 
 
 block_sparse_flash_bwd_dq_cuda.launches = 0
+block_sparse_flash_bwd_dq_cuda.realigned = 0
 
 
 def block_sparse_flash_bwd_dkdv_cuda(q, k, v, dout, lse, delta, idx_t,
@@ -252,19 +260,22 @@ def block_sparse_flash_bwd_dkdv_cuda(q, k, v, dout, lse, delta, idx_t,
     dv = _heads_layout(b, h, s, d, v)
     if dk.numel() == 0:
         return dk, dv
+    (q, k, v, dout), strides = _launch_operands(
+        name, block_sparse_flash_bwd_dkdv_cuda, code,
+        dict(q=q, k=k, v=v, dout=dout), dict(dk=dk, dv=dv))
     err = op_builder.load().ds_block_sparse_flash_bwd_dkdv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         idx_t.data_ptr(), valid_t.data_ptr(), b, h, s, d, block,
-        idx_t.shape[-1],
-        _strides(name, q=q, k=k, v=v, dout=dout, dk=dk, dv=dv),
-        float(_scale(q, sm_scale)), int(causal), code, stream_handle(index))
+        idx_t.shape[-1], _stride_array(strides), float(_scale(q, sm_scale)),
+        int(causal), code, stream_handle(index))
     op_builder.check_launch(name, err)
     block_sparse_flash_bwd_dkdv_cuda.launches += 1
     return dk, dv
 
 
 block_sparse_flash_bwd_dkdv_cuda.launches = 0
+block_sparse_flash_bwd_dkdv_cuda.realigned = 0
 
 
 def block_sparse_flash_bwd(q, k, v, out, lse, dout, idx, valid, idx_t,

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Kernels B and E (flash attention) of several source trees, timed in
-turns on one NVIDIA GPU.
+"""Kernels B and E (flash attention) and F and G (block-sparse flash
+attention) of several source trees, timed in turns on one NVIDIA GPU.
 
     python3 flash_ab.py NAME=ROOT [NAME=ROOT ...] [--uncapped NAME]
                         [--rounds N]
@@ -8,8 +8,9 @@ turns on one NVIDIA GPU.
 Each ROOT is a directory that holds a `deepspeed_tpu_torch/` package: this
 checkout, or another commit's unpacked there with `git archive`.
 `--uncapped NAME` adds the tree `NAME-uncapped`, a copy of NAME's package
-under build/flash_ab/ whose tensor-core attention kernels lose their
-register caps (the second argument of their `__launch_bounds__`).
+under build/flash_ab/ whose tensor-core attention kernels (B, E, F, G)
+lose their register caps (the second argument of their
+`__launch_bounds__`).
 
 Every tree is measured in a process of its own, which builds its kernels
 at first use into ROOT/build/torch_kernels/.  The host's speed drifts
@@ -26,7 +27,12 @@ fused-QKV head views the layer passes, causal:
   the training shape [8, 12, 1024, 64] and train_longseq's [2, 12, 8192,
   64], both with dropout 0.1, and serving prefill's [8, 12, 128, 64]
   without;
-- prefill_err: max |B - mha_reference| at the prefill shape, to show that
+- ms of kernels F and G (the forward, and G's dq and dk/dv launches) at
+  bench_sparse_longseq's attention: [2, 12, 8192, 64] causal BigBird
+  (block 512, 1 random, 3 sliding-window and 1 global block), and their
+  host_us there;
+- prefill_err: max |B - mha_reference| at the prefill shape, and
+  sparse_err: max |F - its plain twin| at the BigBird shape, to show that
   each tree computes attention.
 
 Prints the card's name and power limit, one JSON line per process, and,
@@ -50,22 +56,29 @@ SHAPES = {"train": (8, 12, 1024, 64, 0.1),
           "prefill": (8, 12, 128, 64, 0.0)}
 HOST_SHAPE = "train"
 LAUNCHES = ("fwd", "dkdv", "dq")
+# kernels F and G: bench_sparse_longseq's attention
+SPARSE_SHAPE = (2, 12, 8192, 64)
+BIGBIRD = dict(num_heads=12, block=512, num_random_blocks=1,
+               num_sliding_window_blocks=3, num_global_blocks=1)
+SPARSE_LAUNCHES = ("bsf_fwd", "bsf_dq", "bsf_dkdv")
 TIMED_RUNS = 30
 SPIN_CYCLES = 2_000_000  # ~1 ms of torch.cuda._sleep: longer than any enqueue
 HOST_CALLS = 200
 HOST_BATCHES = 5
-CAPPED_KERNELS = 2  # B's and E's dk/dv tensor-core kernels
+CAPPED_SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
+                  "block_sparse_flash_fwd.cu", "block_sparse_flash_bwd.cu")
 
 
 def strip_caps(src_root, dst_root):
-    """Copy src_root's package to dst_root without the register caps."""
+    """Copy src_root's package to dst_root without the register caps of
+    its attention kernels; raises if it has none."""
     if os.path.exists(dst_root):
         shutil.rmtree(dst_root)
     dst = os.path.join(dst_root, "deepspeed_tpu_torch")
     shutil.copytree(os.path.join(src_root, "deepspeed_tpu_torch"), dst,
                     ignore=shutil.ignore_patterns("__pycache__"))
     found = 0
-    for name in ("flash_attention_fwd.cu", "flash_attention_bwd.cu"):
+    for name in CAPPED_SOURCES:
         path = os.path.join(dst, "csrc", name)
         with open(path) as f:
             text, n = re.subn(
@@ -74,9 +87,9 @@ def strip_caps(src_root, dst_root):
         with open(path, "w") as f:
             f.write(text)
         found += n
-    if found != CAPPED_KERNELS:
-        raise SystemExit(f"found {found} register caps in {src_root}, "
-                         f"expected {CAPPED_KERNELS}")
+    if not found:
+        raise SystemExit(f"found no register caps in {src_root}")
+    print(f"stripped {found} register caps from {src_root}", flush=True)
 
 
 # --------------------------------------------------------------------- #
@@ -147,7 +160,45 @@ def measure(root):
         if shape == "prefill":
             ref = fa.mha_reference(q, k, v, causal=True)
             res["prefill_err"] = (out.float() - ref).abs().max().item()
+    res["ms"]["bigbird"], sparse_host, res["sparse_err"] = measure_sparse(
+        torch, flush)
+    res["host_us"].update(sparse_host)
     return res
+
+
+def measure_sparse(torch, flush):
+    """(device ms, host µs, max error of F against its plain twin) of
+    kernels F and G at SPARSE_SHAPE."""
+    bsf = importlib.import_module(
+        "deepspeed_tpu_torch.ops.sparse_attention.block_sparse_flash")
+    sa = importlib.import_module("deepspeed_tpu_torch.ops.sparse_attention")
+    b, h, s, d = SPARSE_SHAPE
+    block = BIGBIRD["block"]
+    layout = sa.BigBirdSparsityConfig(**BIGBIRD).make_layout(s)
+    fidx, fvalid = (torch.as_tensor(a, device="cuda")
+                    for a in bsf.layout_gather(layout))
+    tidx, tvalid = (torch.as_tensor(a, device="cuda")
+                    for a in bsf.layout_gather(layout, transpose=True))
+    g = torch.Generator(device="cuda").manual_seed(s + 1)
+    qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=g)
+    q, k, v = (t.view(b, s, h, d).transpose(1, 2) for t in
+               qkv.to(torch.bfloat16).split(h * d, dim=-1))
+    do = torch.randn(b, s, h, d, device="cuda", generator=g).to(
+        torch.bfloat16).transpose(1, 2)
+    out, lse = bsf.block_sparse_flash_fwd_cuda(q, k, v, fidx, fvalid, block,
+                                               True)
+    delta = (do.float() * out.float()).sum(dim=-1)
+    fns = {"bsf_fwd": lambda: bsf.block_sparse_flash_fwd_cuda(
+               q, k, v, fidx, fvalid, block, True),
+           "bsf_dq": lambda: bsf.block_sparse_flash_bwd_dq_cuda(
+               q, k, v, do, lse, delta, fidx, fvalid, block, True),
+           "bsf_dkdv": lambda: bsf.block_sparse_flash_bwd_dkdv_cuda(
+               q, k, v, do, lse, delta, tidx, tvalid, block, True)}
+    ms = {n: time_ms(torch, fns[n], flush) for n in SPARSE_LAUNCHES}
+    host = {n: host_us(torch, fns[n]) for n in SPARSE_LAUNCHES}
+    ref = bsf.block_sparse_flash_fwd_reference(q, k, v, fidx, fvalid, block,
+                                               True)[0]
+    return ms, host, (out.float() - ref.float()).abs().max().item()
 
 
 # --------------------------------------------------------------------- #
@@ -201,10 +252,12 @@ def main():
     for name, rs in runs.items():
         summary[name] = {
             "host_us": {n: median([r["host_us"][n] for r in rs])
-                        for n in LAUNCHES},
+                        for n in rs[0]["host_us"]},
             "us": {shape: {n: 1e3 * median([r["ms"][shape][n] for r in rs])
-                           for n in LAUNCHES} for shape in SHAPES},
-            "prefill_err": max(r["prefill_err"] for r in rs)}
+                           for n in launches}
+                   for shape, launches in rs[0]["ms"].items()},
+            "prefill_err": max(r["prefill_err"] for r in rs),
+            "sparse_err": max(r["sparse_err"] for r in rs)}
     print(json.dumps({"medians": summary}), flush=True)
 
 

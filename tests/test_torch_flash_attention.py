@@ -15,8 +15,9 @@ from deepspeed_tpu.ops.flash_attention import flash_attention_pallas
 from deepspeed_tpu.ops.flash_attention import mha_reference as jax_mha
 from deepspeed_tpu_torch.ops.flash_attention import (
     dropout_keep_mask, flash_attention, flash_attention_bwd_dkdv_cuda,
-    flash_attention_bwd_dq_cuda, flash_attention_cuda, keep_scale,
-    mha_reference, philox4x32_10, quantized_threshold)
+    flash_attention_bwd_dq_cuda, flash_attention_bwd_reference,
+    flash_attention_cuda, keep_scale, mha_reference, philox4x32_10,
+    quantized_threshold)
 
 
 def _qkv(shape, seed=0):
@@ -114,6 +115,30 @@ def test_flash_attention_bwd_matches_pallas_interpret(causal):
     _, _, grads = _port_grads(q, k, v, do, causal=causal)
     for g, r in zip(grads, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [32, 96])
+def test_plain_twins_match_pallas_at_kernel_head_dims(d):
+    """mha_reference's out and lse and flash_attention_bwd_reference's
+    grads (the plain twins of kernels B and E, which the CUDA kernels are
+    held against on the card) vs the Pallas kernels in interpret mode at
+    D = 32 and 96, causal, [1, 2, 128, D], fp32, atol = rtol = 1e-4."""
+    from deepspeed_tpu.ops.flash_attention import flash_attention_bwd_pallas
+    q, k, v = _qkv((1, 2, 128, d), seed=d)
+    do = _qkv((1, 2, 128, d), seed=d + 1)[0]
+    jq, jk, jv, jdo = (jnp.asarray(t) for t in (q, k, v, do))
+    jout, jlse = flash_attention_pallas(jq, jk, jv, causal=True, block_q=64,
+                                        block_k=64, interpret=True,
+                                        return_lse=True)
+    ref = flash_attention_bwd_pallas(jq, jk, jv, jout, jlse, jdo, causal=True,
+                                     block_q=64, block_k=64, interpret=True)
+    tq, tk, tv, tdo = (torch.from_numpy(t) for t in (q, k, v, do))
+    out, lse = mha_reference(tq, tk, tv, causal=True, return_lse=True)
+    grads = flash_attention_bwd_reference(tq, tk, tv, out, lse, tdo,
+                                          causal=True)
+    for got, want in [(out, jout), (lse, jlse), *zip(grads, ref)]:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                    atol=1e-4)
 
 

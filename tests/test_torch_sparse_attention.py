@@ -128,9 +128,9 @@ def test_bench_bigbird_layout():
 # ---------------------------------------------------------------------- #
 # the plain twins of kernels F and G vs the Pallas kernels (interpret)
 # ---------------------------------------------------------------------- #
-def _twin_vs_pallas(layout, block, seq, causal, seed):
+def _twin_vs_pallas(layout, block, seq, causal, seed, d=D):
     heads = layout.shape[0]
-    q, k, v, do = _arrays(4, (2, heads, seq, D), seed)
+    q, k, v, do = _arrays(4, (2, heads, seq, d), seed)
     fidx, fvalid = jsa.layout_gather(layout)
     tidx, tvalid = jsa.layout_gather(layout, transpose=True)
     jq, jk, jv = map(jnp.asarray, (q, k, v))
@@ -149,15 +149,23 @@ def _twin_vs_pallas(layout, block, seq, causal, seed):
     return (out, lse, grads), (ref_out, ref_lse, ref_grads)
 
 
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("spec", FLASH, ids=FLASH_IDS)
-def test_twins_match_pallas_kernels(spec, causal):
+# the three layouts causal and not at D = 8, and BigBird at the kernels'
+# head dims 32 and 96 (64 and 128 have the sizes of every other D here)
+TWIN_CASES = (
+    [pytest.param(spec, causal, D, id=f"{sid}-{causal}")
+     for spec, sid in zip(FLASH, FLASH_IDS) for causal in (False, True)]
+    + [pytest.param(FLASH[1], causal, d, id=f"{FLASH_IDS[1]}-{causal}-d{d}")
+       for d in (32, 96) for causal in (False, True)])
+
+
+@pytest.mark.parametrize("spec,causal,d", TWIN_CASES)
+def test_twins_match_pallas_kernels(spec, causal, d):
     """Out and lse against block_sparse_flash_fwd(interpret=True,
     return_lse=True), dq / dk / dv against block_sparse_flash_bwd(
     interpret=True), on the same forward out and lse."""
     jcfg, _ = _pair(spec)
     (out, lse, grads), (rout, rlse, rgrads) = _twin_vs_pallas(
-        jcfg.make_layout(S), BLOCK, S, causal, seed=11)
+        jcfg.make_layout(S), BLOCK, S, causal, seed=11, d=d)
     _close(out, rout, OUT_TOL)
     _close(lse, rlse, OUT_TOL)
     for g, r in zip(grads, rgrads):
