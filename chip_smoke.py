@@ -21,16 +21,19 @@ phase prints {"phase": ..., "ok": false, "error": ...} and the script exits
    seed and the coordinates), and the mask's keep share must lie within
    4 sigma of 230/256; kernels D, E and G must repeat bitwise.  B, E, F and
    G name their route (bf16 on the tensor cores, fp32 on the CUDA cores)
-   and run at every head dim they are compiled for (32, 64, 96, 128) in
-   both dtypes; B and E report their achieved TFLOP/s beside the library
-   call's; B's dropout cases also time the call without dropout; one case
+   and run at every head dim they are compiled for (32, 64, 96, 128) and at
+   D = 40 and 80 (multiples of 8 that run the next instantiation up,
+   zero-filled past D) in both dtypes; B and E report their achieved
+   TFLOP/s beside the library call's; B's dropout cases also time the call without dropout; one case
    each runs train_longseq's S = 8192 (batch 1, 4 heads, so that the plain
    twin's [S, S] fp32 scores take 1 GiB).  The realigned_operand cases
    launch B, E, F and G with a bf16 operand off the 16-byte boundary the
    tensor-core route needs: the wrapper copies it, once a launch, and the
    result equals the aligned call's bitwise.  The device phase reports the
    registers and stack (spill) bytes per thread of B's, E's, F's and G's
-   tensor-core kernels, as cuobjdump reads them from the built library.
+   tensor-core kernels, as cuobjdump reads them from the built library,
+   and of I's and J's tensor-core kernels with the count of HMMA
+   instructions in their SASS (the phase fails if one has none).
 3. serve_bf16: GPT-2 124M at full width (hidden 768, 12 layers, 12 heads,
    vocab 50304, n_positions 256, bf16, weights from seed 0) through
    init_inference -> forward / generate: batch 8, prompt 128, 128 new
@@ -40,8 +43,9 @@ phase prints {"phase": ..., "ok": false, "error": ...} and the script exits
    (max|d| / max|ref| <= 2e-2 each), and the launch counters must show the
    kernels ran: 12 flash and 25 * 128 = 3200 LayerNorm launches per
    generate.  On this and every training path below, the attention
-   wrappers' realigned counters must stay 0: the layer's own views meet
-   the 16-byte rule, and no operand is copied.
+   wrappers' realigned counters (B, E, F, G, and the tensor-core routes of
+   I and J) must stay 0: the layer's own views meet the 16-byte rule, and
+   no operand is copied.
 4. serve_int8: the same with quantization_setting=1 (4 * 12 * 128 = 6144
    dequant-matmul launches per generate), held against the CPU fp32 run on
    the dequantized int8 weights.
@@ -102,11 +106,11 @@ SDPA with the layout as a boolean mask.
    `fused_matmul_reduce_scatter` for the same dW shapes over six steps with
    the error buffers carried; the layer-2 transports bitwise against the
    modular functions on the card; and c_fc -> gelu -> c_proj as a whole.
-   Every result is held against the port's run on a CPU mesh on the same
-   inputs in the same dtype (the plain twins multiply and accumulate in
-   fp32 whatever the operands' dtype; an fp32 copy of bf16 inputs would
-   take the quantizer's scale, which is rounded in the input's dtype, at
-   another value): max|d| / max|ref| <= 2e-2 for bf16 operands and 1e-4 for
+   `realigned` stays 0.  Every result is held against the port's run on a
+   CPU mesh on the same inputs in the same dtype (the plain twins multiply
+   and accumulate in fp32 whatever the operands' dtype; an fp32 copy of
+   bf16 inputs would take the quantizer's scale, which is rounded in the
+   input's dtype, at another value): max|d| / max|ref| <= 2e-2 for bf16 operands and 1e-4 for
    fp32, and where a quantizer follows a product the one-step rule: the
    elements further off than that are at most 0.1% and each by at most the
    quantization steps of the tiles summed into it.  Launch counters are
@@ -115,16 +119,23 @@ SDPA with the layout as a boolean mask.
    ends) of each whole op at W = 4 on the one card, c_fc in bf16 at 8 bits:
    the fused route, the per-tile route and the modular yardstick
    (`low_bandwidth_all_gather` then `torch.matmul`; `torch.matmul` then
-   `qgz_reduce_scatter_inner`), in turns; the device ms of the fused
-   forward's products; and, from a torch.profiler trace of five fused
-   forwards, the share of the ring's copy time that lay under a product.
+   `qgz_reduce_scatter_inner`), in turns; from torch.profiler traces of
+   five calls each, the device ms of the fused forward's products and of
+   the fused reduce-scatter's producers, and the share of the ring's copy
+   time that lay under a product.
 
 Parity also holds kernels H (its three tile launchers at the three
-matrices' tiles, int8, packed int4 and native payloads), I (a step that
-accumulates, the last step's cast, the transposed step) and J (the producer
-by the one-step rule and bitwise on its own tile, the collect bitwise)
-against their plain twins; the library yardstick is `torch.matmul` on the
-dequantized operand.
+matrices' tiles, int8, packed int4 and native payloads), I (the first
+step, a step that accumulates, the last step's cast, the transposed step
+writing a column block; bf16 on the tensor cores at every tile and
+payload, fp32 on the CUDA cores) and J (the producer by the one-step rule,
+bitwise on its own tile, at the three tiles and an odd shape in both
+dtypes; the collect bitwise) against their plain twins; I and J must
+repeat bitwise, and I's bf16 cases with an int8 or int4 payload must also
+lie within FCM_FP32_DEQUANT_TOL (1e-4) of the twin with an fp32
+destination, which a single bf16 rounding of the dequantized weights would
+miss; the library yardstick is `torch.matmul` on the dequantized
+operand.
 
 Then the `kernels` line (launches by path: bf16, int8, train,
 train_sparse, train_longseq, fcm) and, last, {"ok": true, "device":
@@ -233,6 +244,10 @@ FCM_BITS = ((8, 8), (4, 4), (0, 0))  # (qwz, qgz)
 FCM_STEPS = 6  # steps the error buffers are carried over
 FCM_TIMED_RUNS = 10
 FCM_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# kernel I with bf16 operands and a quantized payload, into an fp32
+# destination: the tensor-core route's hi / lo split keeps the fp32 dequant
+# (one bf16 rounding of the weights would miss this by ~10x)
+FCM_FP32_DEQUANT_TOL = 1e-4
 # one-step rule: the share of elements that may lie a quantization step off
 FCM_FAR_SHARE = 1e-3
 
@@ -296,6 +311,8 @@ def phase_device():
                   "sources": [s.split("deepspeed_tpu_torch/")[-1]
                               for s in op_builder.sources()],
                   "flash_tensor_core_resources": tensor_core_resources(
+                      op_builder.build()),
+                  "fcm_tensor_core_sass": fcm_tensor_core_sass(
                       op_builder.build())}
 
 
@@ -318,6 +335,41 @@ def tensor_core_resources(lib_path):
                 r"Function \S*?((?:flash|bsf)_(?:fwd|bwd_dkdv|bwd_dq)"
                 r"_mma_kernel)ILi(\d+)E(?:Lb([01])E)?\S*:\s+"
                 r"REG:(\d+) STACK:(\d+)", dump)}
+
+
+# the tensor-core product kernels of I and J (csrc/tile_mma.cuh)
+FCM_MMA_KERNELS = ("wprod_mma_kernel", "at_b_mma_kernel")
+
+
+def fcm_tensor_core_sass(lib_path):
+    """Registers, stack (spill) bytes and the count of HMMA instructions
+    in the SASS of each tensor-core kernel of I and J, as cuobjdump reads
+    them from the built library, by mangled name; or why they could not be
+    read.  The phase fails only when the SASS was read and a kernel has no
+    HMMA (then the path never reaches the tensor cores)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        usage = subprocess.run([tool, "--dump-resource-usage", lib_path],
+                               capture_output=True, text=True, timeout=120,
+                               check=True).stdout
+        sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"cuobjdump failed: {e}"
+    pattern = "|".join(FCM_MMA_KERNELS)
+    out = {}
+    for name, reg, stack in re.findall(
+            rf"Function (\S*(?:{pattern})\S*):\s+REG:(\d+) STACK:(\d+)",
+            usage):
+        out[name] = {"registers": int(reg), "stack_bytes": int(stack)}
+    for chunk in sass.split("Function : ")[1:]:
+        name = chunk.split(None, 1)[0]
+        if re.search(pattern, name):
+            out.setdefault(name, {})["hmma"] = len(
+                re.findall(r"\bHG?MMA\b", chunk))
+    check(out and all(v.get("hmma", 0) > 0 for v in out.values()),
+          f"tensor-core kernels of I and J without HMMA: {out}")
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -953,45 +1005,88 @@ def case_fcm_tile_rs(b, kc, n, dtype):
         lambda: torch.matmul(a.t(), rhs))
 
 
-def case_fcm_ag_step(m, kc, n, bits, dtype, last):
-    """Kernel I, a forward step that reads the accumulator and writes it
-    back, or (last) writes the cast sum."""
+def fp32_dequant_err(kernel, twin, args, dest):
+    """max|d| / max|ref| of kernel I against its twin with an fp32
+    destination (`dest`: the argument index of the accumulator or output
+    block, replaced by a fresh fp32 one for each): the tensor-core route's
+    hi / lo split has to keep the TPU kernel's fp32 dequant, which a bf16
+    cast of the output would hide."""
+    outs = []
+    for fn in (kernel, twin):
+        call = list(args)
+        call[dest] = torch.zeros(call[dest].shape, device="cuda")
+        fn(*call)
+        outs.append(call[dest])
+    torch.cuda.synchronize()
+    return rel_err(outs[0], outs[1])
+
+
+def hold_fp32_dequant(res, dtype, bits, err):
+    """The bf16 cases with a quantized payload: also within
+    FCM_FP32_DEQUANT_TOL of the fp32 twin."""
+    if dtype != torch.bfloat16 or not bits:
+        return res
+    ok = err <= FCM_FP32_DEQUANT_TOL
+    return {**res, "ok": res["ok"] and ok, "fp32_dest_rel_err": err,
+            "fp32_dest_tolerance": f"max|d|/max|ref| <= "
+                                   f"{FCM_FP32_DEQUANT_TOL}"}
+
+
+def case_fcm_ag_step(m, kc, n, bits, dtype, step):
+    """Kernel I, a forward step: the first (reads no accumulator), one that
+    accumulates, or the last (writes the cast sum); bitwise on a repeat."""
+    first, last = step == "first", step == "last"
     q, s = fcm_payload(kc, n, bits, dtype, kc + n + bits + 2)
     g = torch.Generator(device="cuda").manual_seed(m + bits + 2)
     x = torch.randn(m, FCM_WORLD * kc, device="cuda",
                     generator=g).to(dtype)[:, kc:2 * kc]
     start = torch.randn(m, n, device="cuda", generator=g)
     outs = []
-    for fn in (cm.fcm_ag_step_cuda, cm.fcm_ag_step_reference):
+    for fn in (cm.fcm_ag_step_cuda, cm.fcm_ag_step_reference,
+               cm.fcm_ag_step_cuda):
         acc = start.clone()
         out = torch.empty(m, n, device="cuda", dtype=dtype)
-        fn(x, q, s, bits, kc, n, acc, out, False, last)
+        fn(x, q, s, bits, kc, n, acc, out, first, last)
         outs.append(out if last else acc)
+    torch.cuda.synchronize()
+    repeat = torch.equal(outs[0], outs[2])
     acc = start.clone()
     out = torch.empty(m, n, device="cuda", dtype=dtype)
-    args = (x, q, s, bits, kc, n, acc, out, False, last)
+    args = (x, q, s, bits, kc, n, acc, out, first, last)
     dense = cm._dequant_tile(q, s, kc, n, bits).to(dtype)
-    moved = m * n * (4 + (x.element_size() if last else 4))
+    moved = m * n * ((0 if first else 4) + (x.element_size() if last else 4))
     nbytes = x.numel() * x.element_size() + payload_bytes(q, s) + moved
-    return fcm_result(
-        fcm_case_name(m, kc, n, bits, dtype)
-        + (" last step (cast)" if last else " accumulate"),
+    res = fcm_result(
+        fcm_case_name(m, kc, n, bits, dtype) + f" {step} step",
         outs[0], outs[1], FCM_TOL[dtype], nbytes, 2 * m * kc * n, dtype,
         lambda: cm.fcm_ag_step_cuda(*args),
         lambda: cm.fcm_ag_step_reference(*args),
         lambda: torch.matmul(x, dense))
+    res = {**res, "route": cm.fcm_route(x), "ok": res["ok"] and repeat,
+           "repeat_bitwise": repeat}
+    if dtype == torch.bfloat16 and bits:
+        # an fp32 accumulator step, whatever this case's step
+        err = fp32_dequant_err(cm.fcm_ag_step_cuda, cm.fcm_ag_step_reference,
+                               (x, q, s, bits, kc, n, start, None, first,
+                                False), 6)
+        res = hold_fp32_dequant(res, dtype, bits, err)
+    return res
 
 
 def case_fcm_ag_step_t(m, kc, n, bits, dtype):
-    """Kernel I, transposed step: the column block src * kc of dx."""
+    """Kernel I, transposed step: the column block src * kc of dx; bitwise
+    on a repeat, the other columns untouched."""
     q, s = fcm_payload(kc, n, bits, dtype, kc + n + bits + 3)
     gen = torch.Generator(device="cuda").manual_seed(m + bits + 3)
     g = torch.randn(m, n, device="cuda", generator=gen).to(dtype)
     outs = []
-    for fn in (cm.fcm_ag_step_t_cuda, cm.fcm_ag_step_t_reference):
+    for fn in (cm.fcm_ag_step_t_cuda, cm.fcm_ag_step_t_reference,
+               cm.fcm_ag_step_t_cuda):
         dx = torch.zeros(m, FCM_WORLD * kc, device="cuda", dtype=dtype)
         fn(g, q, s, bits, kc, n, dx[:, 2 * kc:3 * kc])
         outs.append(dx)
+    torch.cuda.synchronize()
+    repeat = torch.equal(outs[0], outs[2])
     dx = outs[0]
     args = (g, q, s, bits, kc, n, dx[:, 2 * kc:3 * kc])
     dense_t = cm._dequant_tile(q, s, kc, n, bits).to(dtype).t()
@@ -1003,8 +1098,17 @@ def case_fcm_ag_step_t(m, kc, n, bits, dtype):
         lambda: cm.fcm_ag_step_t_reference(*args),
         lambda: torch.matmul(g, dense_t))
     untouched = bool((dx[:, :2 * kc] == 0).all() and (dx[:, 3 * kc:] == 0).all())
-    return {**res, "ok": res["ok"] and untouched,
-            "other_columns_untouched": untouched}
+    res = {**res, "route": cm.fcm_route(g),
+           "splits": (cm.split_plan(m, kc, n, cm.AG_T_TILE)
+                      if cm.fcm_route(g) == cm.ROUTE_TENSOR_CORES else 1),
+           "ok": res["ok"] and untouched and repeat,
+           "other_columns_untouched": untouched, "repeat_bitwise": repeat}
+    if dtype == torch.bfloat16 and bits:
+        err = fp32_dequant_err(
+            cm.fcm_ag_step_t_cuda, cm.fcm_ag_step_t_reference,
+            (g, q, s, bits, kc, n, torch.zeros(m, kc, device="cuda")), 6)
+        res = hold_fp32_dequant(res, dtype, bits, err)
+    return res
 
 
 def one_step_rule(got, ref, steps, rtol, magnitude=None):
@@ -1047,9 +1151,12 @@ def case_fcm_rs_producer(b, kc, n, dtype):
     q, s, nerr = run(cm.fcm_rs_producer_cuda, comp)
     tq, ts, tnerr = run(cm.fcm_rs_producer_reference)
     oq, os_, onerr = cm.quantize_tile_reference(comp, bs)
+    rq, rs_, rnerr = run(cm.fcm_rs_producer_cuda)
     torch.cuda.synchronize()
     own_tile_bitwise = bool((oq == q).all() and (os_ == s).all()
                             and (onerr == nerr).all())
+    repeat = bool(torch.equal(rq, q) and torch.equal(rs_, s)
+                  and torch.equal(rnerr, nerr))
     steps = ts.reshape(nb, 1).expand(nb, bs).reshape(kc, n)
     deq = (q.float() * s.reshape(nb, 1)).reshape(kc, n)
     tdeq = (tq.float() * ts.reshape(nb, 1)).reshape(kc, n)
@@ -1061,11 +1168,15 @@ def case_fcm_rs_producer(b, kc, n, dtype):
     b_ms, b_by = bound_ms(nbytes, 2 * b * kc * n, dtype)
     return {
         "case": f"rows={b} tile [{kc},{n}] block {bs} {_dtname(dtype)}",
-        "ok": ok_q and ok_e and own_tile_bitwise,
+        "ok": ok_q and ok_e and own_tile_bitwise and repeat,
         "tolerance": "one-step rule (1e-4) on deq(q, scale) and new_error "
                      "against the twin; bitwise against the twin's quantizer "
-                     "on the kernel's own tile",
-        "own_tile_bitwise": own_tile_bitwise, "far_share": max(share, share_e),
+                     "on the kernel's own tile; bitwise on a repeat",
+        "route": cm.fcm_route(a, rhs),
+        "splits": (cm.split_plan(kc, n, b, cm.RS_TILE)
+                   if cm.fcm_route(a, rhs) == cm.ROUTE_TENSOR_CORES else 0),
+        "own_tile_bitwise": own_tile_bitwise, "repeat_bitwise": repeat,
+        "far_share": max(share, share_e),
         "worst_steps": max(worst, worst_e),
         "max_abs_err": (deq - tdeq).abs().max().item(),
         **timings(lambda: run(cm.fcm_rs_producer_cuda),
@@ -1121,6 +1232,9 @@ PARITY_CASES = {
         # the other head dims the kernel is built for, at a ragged length
         + [(2, 8, 200, 128, True, dt) for dt in (torch.bfloat16, torch.float32)]
         + [(2, 4, 200, d, True, dt) for d in (32, 96)
+           for dt in (torch.bfloat16, torch.float32)]
+        # head dims between the compiled ones (80 runs the D = 96 kernel)
+        + [(2, 4, 200, d, True, dt) for d in (40, 80)
            for dt in (torch.bfloat16, torch.float32)]),
     "dequant_matmul": (case_dequant, [
         (m, k, n, groups, dt) for m in (8, 1024)
@@ -1152,6 +1266,8 @@ PARITY_CASES = {
            for dt in (torch.float32, torch.bfloat16)]
         + [(2, 4, 200, d, True, dt, False, DROPOUT) for d in (32, 96)
            for dt in (torch.float32, torch.bfloat16)]
+        + [(2, 4, 200, d, True, dt, False, DROPOUT) for d in (40, 80)
+           for dt in (torch.float32, torch.bfloat16)]
         + [(1, 4, LONG_SEQ, 64, True, torch.bfloat16, True, DROPOUT)]),
     # kernels F and G: (a) bench_sparse_longseq's attention, (b) the
     # Fixed layout of tests/tpu/test_kernel_parity_tpu.py:226-228 causal
@@ -1169,7 +1285,8 @@ PARITY_CASES = {
            for dt in (torch.float32, torch.bfloat16)]
         + [("bigbird", 2, 4, 1024, 64, 128, dt, False, True)
            for dt in (torch.bfloat16, torch.float32)]
-        + [("bigbird", 2, 4, 1024, d, 128, dt, True, True) for d in (32, 96)
+        + [("bigbird", 2, 4, 1024, d, 128, dt, True, True)
+           for d in (32, 96, 40, 80)
            for dt in (torch.bfloat16, torch.float32)]),
     # the 16-byte rule of the tensor-core route: each attention launch with
     # a misaligned bf16 operand, against the same call on an aligned copy
@@ -1185,21 +1302,26 @@ PARITY_CASES = {
     "fcm_tile_rs": (case_fcm_tile_rs, [
         (FCM_ROWS, kc, n, dt) for kc, n in FCM_TILES for dt in FCM_DTYPES]),
     # kernel I: a step that accumulates and the last step's cast (int8 at
-    # every tile; int4 and native at c_fc's), and the transposed step
+    # every tile in both dtypes), int4 and native payloads at every tile
+    # and the first step at c_fc's in bf16 (the tensor cores; fp32 takes
+    # the CUDA cores), and the transposed step likewise
     "fcm_ag_step": (case_fcm_ag_step, [
-        (FCM_ROWS, kc, n, 8, dt, last) for kc, n in FCM_TILES
-        for dt in FCM_DTYPES for last in (False, True)]
-        + [(FCM_ROWS, *FCM_PRIMARY_TILE, bits, torch.bfloat16, False)
-           for bits in (4, 0)]),
+        (FCM_ROWS, kc, n, 8, dt, step) for kc, n in FCM_TILES
+        for dt in FCM_DTYPES for step in ("accumulate", "last")]
+        + [(FCM_ROWS, kc, n, bits, torch.bfloat16, "accumulate")
+           for kc, n in FCM_TILES for bits in (4, 0)]
+        + [(FCM_ROWS, *FCM_PRIMARY_TILE, bits, torch.bfloat16, "first")
+           for bits in (8, 4)]),
     "fcm_ag_step_t": (case_fcm_ag_step_t, [
         (FCM_ROWS, kc, n, 8, dt) for kc, n in FCM_TILES for dt in FCM_DTYPES]
-        + [(FCM_ROWS, *FCM_PRIMARY_TILE, bits, torch.bfloat16)
+        + [(FCM_ROWS, kc, n, bits, torch.bfloat16) for kc, n in FCM_TILES
            for bits in (4, 0)]),
     # kernel J: the producer (and an odd shape whose blocks do not fit the
     # epilogue's tile: the second launch quantizes) and the collect
     "fcm_rs_producer": (case_fcm_rs_producer, [
         (FCM_ROWS, kc, n, dt) for kc, n in FCM_TILES for dt in FCM_DTYPES]
-        + [(70, 33, 50, torch.float32)]),
+        + [(70, dt_kc, 50, dt) for dt_kc, dt in ((33, torch.float32),
+                                                 (33, torch.bfloat16))]),
     "fcm_rs_collect": (case_fcm_rs_collect, FCM_TILES + [(33, 50)]),
 }
 # ds_dequant_matmul_route's codes: the kernel csrc/dequant_matmul.cu takes
@@ -1221,7 +1343,7 @@ PRIMARY = {"layer_norm_fwd": (1024, torch.bfloat16),
            "fcm_tile_ag_t": (FCM_ROWS, *FCM_PRIMARY_TILE, 8, torch.bfloat16),
            "fcm_tile_rs": (FCM_ROWS, *FCM_PRIMARY_TILE, torch.bfloat16),
            "fcm_ag_step": (FCM_ROWS, *FCM_PRIMARY_TILE, 8, torch.bfloat16,
-                           False),
+                           "accumulate"),
            "fcm_ag_step_t": (FCM_ROWS, *FCM_PRIMARY_TILE, 8, torch.bfloat16),
            "fcm_rs_producer": (FCM_ROWS, *FCM_PRIMARY_TILE, torch.bfloat16),
            "fcm_rs_collect": FCM_PRIMARY_TILE}
@@ -2001,8 +2123,10 @@ def phase_fcm_ops():
                                                                dtype)
             emit({"phase": "fcm_ops", "op": op, **fn(*args)})
     counts = launch_counts()
+    realigned = check_aligned("fcm_ops")
     return counts, {
         "mesh": repr(mesh), "cases": len(results) + 2 * len(FCM_DTYPES),
+        "realigned": realigned,
         "worst_far_share": max(r.get("far_share", 0.0) for r in results),
         "worst_steps": max(r.get("worst_steps", 0.0) for r in results),
         "routes_bitwise": all(r.get("routes_bitwise", True)
@@ -2032,22 +2156,52 @@ def wall_ms(fns, runs=FCM_TIMED_RUNS):
     return {name: float(np.median(t)) for name, t in times.items()}
 
 
-def copy_overlap_share(fn, calls=5):
-    """From a torch.profiler trace of `calls` fn(): the share of the
-    device-to-device copies' time that lay under a tile product, their
-    number and their total ms.  Only device activity is traced: tracing
-    the host's side as well slows the enqueueing, and the share depends on
-    how soon after a product's launch the host enqueues its copy."""
+# kernel names of the tile products in a trace: kernel I's and J's on
+# either route (CUDA cores: tile_matmul.cuh; tensor cores: tile_mma.cuh,
+# with the split passes), the collect excluded
+FCM_PRODUCT_KERNELS = ("tile_matmul_kernel", "wprod_mma_kernel",
+                       "split_sum_kernel", "at_b_mma_kernel",
+                       "split_quantize_kernel")
+
+
+def device_spans(fn, calls):
+    """The device events of a torch.profiler trace of `calls` fn().  Only
+    device activity is traced: tracing the host's side as well slows the
+    enqueueing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             timed_all(fn)
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def _is_product(name):
+    return any(k in name for k in FCM_PRODUCT_KERNELS)
+
+
+def products_device_ms(fn, calls=5):
+    """Device ms per call of the tile products in a trace of `calls` fn(),
+    and their number per call."""
+    events = [e for e in device_spans(fn, calls) if _is_product(e.name)]
+    if not events:
+        return {"products": "not measured: the trace holds no product"}
+    return {"calls": calls, "products_per_call": len(events) / calls,
+            "products_device_ms_per_call":
+                sum(e.time_range.end - e.time_range.start
+                    for e in events) / 1e3 / calls}
+
+
+def copy_overlap_share(fn, calls=5):
+    """From a torch.profiler trace of `calls` fn(): the share of the
+    device-to-device copies' time that lay under a tile product, their
+    number and their total ms (the share depends on how soon after a
+    product's launch the host enqueues its copy)."""
+    events = device_spans(fn, calls)
     spans = lambda pred: sorted(  # noqa: E731
         (e.time_range.start, e.time_range.end) for e in events if pred(e.name))
     copies = spans(lambda name: "memcpy" in name.lower())
-    products = spans(lambda name: "tile_matmul_kernel" in name)
+    products = spans(_is_product)
     if not copies or not products:
         return {"copy_overlap": "not measured: the trace holds "
                 f"{len(copies)} copies and {len(products)} products"}
@@ -2100,6 +2254,7 @@ def phase_fcm_timing():
                          "per_tile": lambda: rs(True),
                          "yardstick": rs_yardstick})
         overlap = copy_overlap_share(lambda: ag(None))
+        producers = products_device_ms(lambda: rs(None))
     return None, {
         "case": f"c_fc [{k},{n}] bf16, 8 bits, M={FCM_ROWS} per rank, "
                 f"W={FCM_WORLD} ranks on {len(mesh.devices)} card(s)",
@@ -2107,7 +2262,8 @@ def phase_fcm_timing():
         "matmul_reduce_scatter_ms": rs_ms,
         "yardstick": "low_bandwidth_all_gather then torch.matmul; "
                      "torch.matmul then qgz_reduce_scatter_inner",
-        "fused_forward_trace": overlap}
+        "fused_forward_trace": overlap,
+        "fused_reduce_scatter_producers": producers}
 
 
 def last_line():

@@ -12,9 +12,12 @@
 //   byte pitch), with rows past the sequence zero-filled through the
 //   src-size operand, so that no element-wise bounds checks are needed.
 //   Every operand's base pointer and strides must be multiples of 16
-//   bytes; the Python wrapper copies an operand that is not.
+//   bytes; the Python wrapper copies an operand that is not.  A head dim
+//   below the tile's D (any multiple of 8) is zero-filled past its end, so
+//   the zero columns add nothing to a product, and never stored.
 // - A swizzled shared-memory layout of [rows][D] bf16 tiles, D in {32, 64,
-//   96, 128}: a row's 16-byte chunks are permuted inside groups of eight
+//   96, 128} (the instantiations; the true head dim may be smaller): a
+//   row's 16-byte chunks are permuted inside groups of eight
 //   (or, for a row's last four when D / 8 is not a multiple of eight,
 //   inside that group of four), so that the eight rows one `ldmatrix` 8 x 8
 //   matrix reads fall into eight different 16-byte bank groups (tile_offset).
@@ -115,21 +118,30 @@ __host__ __device__ constexpr int tile_bytes(int rows) {
   return rows * D * 2;
 }
 
-// Issue the copies of rows [r0, r0 + ROWS) of one head's [S, D] operand
-// (row stride `ss` elements) into a tile; rows past S are zero-filled.
-// NT threads share the copies, neighbouring threads on neighbouring chunks.
+// Issue the copies of rows [r0, r0 + ROWS) of one head's [S, dhead] operand
+// (row stride `ss` elements) into a tile of the instantiation's D >= dhead
+// columns; rows past S, and the chunks at and past dhead (a multiple of 8),
+// are zero-filled.  NT threads share the copies, neighbouring threads on
+// neighbouring chunks.
 template <int ROWS, int D, int NT>
 __device__ __forceinline__ void load_tile_async(uint32_t tile, const __nv_bfloat16* src,
-                                                long long ss, int r0, int S, int tid) {
+                                                long long ss, int r0, int S, int tid,
+                                                int dhead) {
   constexpr int kChunks = D / 8;
   static_assert((ROWS * kChunks) % NT == 0, "whole rounds of copies");
+  // when NT is a multiple of a row's chunks a thread copies the same chunk
+  // column in every round, so its head-dim test is made once
+  constexpr bool kFixedColumn = NT % kChunks == 0;
+  const bool col_ok = !kFixedColumn || (tid % kChunks) * 8 < dhead;
 #pragma unroll
   for (int i = 0; i < ROWS * kChunks / NT; ++i) {
     const int idx = tid + i * NT;
-    const int r = idx / kChunks, c = idx % kChunks;
+    const int r = idx / kChunks, c = kFixedColumn ? tid % kChunks : idx % kChunks;
     const int g = r0 + r;
-    const bool ok = g < S;
-    const __nv_bfloat16* p = src + static_cast<long long>(ok ? g : 0) * ss + c * 8;
+    // a chunk at or past dhead is not read (src-size 0), so its address,
+    // inside the instantiation's row, needs no clamping
+    const __nv_bfloat16* p = src + static_cast<long long>(g < S ? g : 0) * ss + c * 8;
+    const bool ok = g < S && (kFixedColumn ? col_ok : c * 8 < dhead);
     cp_async_16(tile + tile_offset<D>(r, c * 8), p, ok);
   }
 }
@@ -317,17 +329,17 @@ __device__ __forceinline__ void acc_to_tile(unsigned char* tile, int r0,
 }
 
 // Store rows [r0, r0 + 16) of a tile to global rows g0 + 0..15 (row stride
-// `ss` elements), 16 bytes per thread and step; rows at or past S are
-// skipped.
+// `ss` elements), 16 bytes per thread and step; rows at or past S, and the
+// chunks at and past dhead, are skipped.
 template <int D>
 __device__ __forceinline__ void tile_rows_to_global(__nv_bfloat16* dst, long long ss, int g0,
                                                     int S, const unsigned char* tile, int r0,
-                                                    int lane) {
+                                                    int lane, int dhead) {
   constexpr int kChunks = D / 8;
 #pragma unroll
   for (int i = lane; i < 16 * kChunks; i += 32) {
     const int r = i / kChunks, c = i % kChunks;
-    if (g0 + r < S) {
+    if (g0 + r < S && c * 8 < dhead) {
       *reinterpret_cast<uint4*>(dst + static_cast<long long>(g0 + r) * ss + c * 8) =
           *reinterpret_cast<const uint4*>(tile + tile_offset<D>(r0 + r, c * 8));
     }

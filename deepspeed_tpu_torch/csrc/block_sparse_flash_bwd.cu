@@ -32,6 +32,11 @@
 // operands: operations bound both (~140 and ~186 us at the bf16
 // tensor-core peak).
 //
+// Head dims: any multiple of 8 up to 128 runs, on either route, the
+// smallest instantiation (32, 64, 96, 128) at or above it; the columns
+// past the true D are zero-filled on load, so they add nothing to a
+// product, and are never stored.
+//
 // Two routes, chosen by the operands' dtype:
 //
 // bf16, tensor cores (tc::bsf_bwd_dq_mma_kernel and
@@ -88,10 +93,10 @@ constexpr int kPP = kBN + 1;           // padded row of the P / dS tiles
 // [kBM][DP] tile.
 template <typename T, int D, int DP>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, Strides st,
-                                          int r0) {
+                                          int r0, int dhead) {
   for (int idx = threadIdx.x; idx < kBM * D; idx += kThreads) {
     const int row = idx / D, col = idx % D;
-    dst[row * DP + col] = ds_to_float(src[(r0 + row) * st.s + col]);
+    dst[row * DP + col] = col < dhead ? ds_to_float(src[(r0 + row) * st.s + col]) : 0.f;
   }
 }
 
@@ -148,7 +153,7 @@ bsf_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ delta, T* __restrict__ dk,
                     T* __restrict__ dv, Layout lay_t, int H, int S,
                     Strides qs_, Strides ks_, Strides vs_, Strides dos_,
-                    Strides dks_, Strides dvs_, float sm_scale, int causal) {
+                    Strides dks_, Strides dvs_, float sm_scale, int dhead, int causal) {
   constexpr int DP = D + 1;
   constexpr int DC = D / kTPR;
   extern __shared__ float smem[];
@@ -176,8 +181,8 @@ bsf_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int* qidx = lay_t.idx + row_off;
   const int deg = ds_bsf::row_degree(lay_t.valid + row_off, lay_t.max_deg);
 
-  load_tile<T, D, DP>(ks, k + b * ks_.b + h * ks_.h, ks_, n0);
-  load_tile<T, D, DP>(vs, v + b * vs_.b + h * vs_.h, vs_, n0);
+  load_tile<T, D, DP>(ks, k + b * ks_.b + h * ks_.h, ks_, n0, dhead);
+  load_tile<T, D, DP>(vs, v + b * vs_.b + h * vs_.h, vs_, n0, dhead);
 
   float dk_acc[DC], dv_acc[DC];
 #pragma unroll
@@ -197,8 +202,8 @@ bsf_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int m_end = qblk * lay_t.block + lay_t.block;
     for (int m0 = m_begin; m0 < m_end; m0 += kBM) {
       __syncthreads();  // the previous tile's P / dS are consumed
-      load_tile<T, D, DP>(qs, qb, qs_, m0);
-      load_tile<T, D, DP>(dos, dob, dos_, m0);
+      load_tile<T, D, DP>(qs, qb, qs_, m0, dhead);
+      load_tile<T, D, DP>(dos, dob, dos_, m0, dhead);
       for (int i = tid; i < kBM; i += kThreads) {
         lse_s[i] = lse[stat0 + m0 + i];
         delta_s[i] = delta[stat0 + m0 + i];
@@ -237,8 +242,8 @@ bsf_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* dvrow = dv + b * dvs_.b + h * dvs_.h + krow * dvs_.s;
 #pragma unroll
   for (int c = 0; c < DC; ++c) {
-    dkrow[j + kTPR * c] = ds_from_float<T>(dk_acc[c]);
-    dvrow[j + kTPR * c] = ds_from_float<T>(dv_acc[c]);
+    if (j + kTPR * c < dhead) dkrow[j + kTPR * c] = ds_from_float<T>(dk_acc[c]);
+    if (j + kTPR * c < dhead) dvrow[j + kTPR * c] = ds_from_float<T>(dv_acc[c]);
   }
 }
 
@@ -249,7 +254,7 @@ bsf_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta, T* __restrict__ dq,
                   Layout lay, int H, int S, Strides qs_, Strides ks_,
-                  Strides vs_, Strides dos_, Strides dqs_, float sm_scale,
+                  Strides vs_, Strides dos_, Strides dqs_, float sm_scale, int dhead,
                   int causal) {
   constexpr int DP = D + 1;
   constexpr int DC = D / kTPR;
@@ -277,8 +282,8 @@ bsf_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int* kidx = lay.idx + row_off;
   const int deg = ds_bsf::row_degree(lay.valid + row_off, lay.max_deg);
 
-  load_tile<T, D, DP>(qs, q + b * qs_.b + h * qs_.h, qs_, q0);
-  load_tile<T, D, DP>(dos, dout + b * dos_.b + h * dos_.h, dos_, q0);
+  load_tile<T, D, DP>(qs, q + b * qs_.b + h * qs_.h, qs_, q0, dhead);
+  load_tile<T, D, DP>(dos, dout + b * dos_.b + h * dos_.h, dos_, q0, dhead);
 
   float acc[DC];
 #pragma unroll
@@ -294,8 +299,8 @@ bsf_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                              : k_begin + lay.block;
     for (int n0 = k_begin; n0 < k_end; n0 += kBN) {
       __syncthreads();  // Q, dO loaded / the previous K, V consumed
-      load_tile<T, D, DP>(ks, kb, ks_, n0);
-      load_tile<T, D, DP>(vs, vb, vs_, n0);
+      load_tile<T, D, DP>(ks, kb, ks_, n0, dhead);
+      load_tile<T, D, DP>(vs, vb, vs_, n0, dhead);
       __syncthreads();
 
       float s[kNS], ds[kNS];
@@ -320,7 +325,8 @@ bsf_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   T* dqrow = dq + b * dqs_.b + h * dqs_.h + qrow * dqs_.s;
 #pragma unroll
-  for (int c = 0; c < DC; ++c) dqrow[j + kTPR * c] = ds_from_float<T>(acc[c]);
+  for (int c = 0; c < DC; ++c)
+    if (j + kTPR * c < dhead) dqrow[j + kTPR * c] = ds_from_float<T>(acc[c]);
 }
 
 template <typename T, int D>
@@ -328,7 +334,7 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
                 const float* lse, const float* delta, void* dk, void* dv,
                 Layout lay_t, int B, int H, int S, Strides qs, Strides ks,
                 Strides vs, Strides dos, Strides dks, Strides dvs,
-                float sm_scale, int causal, cudaStream_t stream) {
+                float sm_scale, int dhead, int causal, cudaStream_t stream) {
   const size_t smem = dkdv_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       bsf_bwd_dkdv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -339,7 +345,7 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dk), static_cast<T*>(dv), lay_t, H, S, qs, ks, vs, dos,
-      dks, dvs, sm_scale, causal);
+      dks, dvs, sm_scale, dhead, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -347,7 +353,7 @@ template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, Layout lay,
               int B, int H, int S, Strides qs, Strides ks, Strides vs,
-              Strides dos, Strides dqs, float sm_scale, int causal,
+              Strides dos, Strides dqs, float sm_scale, int dhead, int causal,
               cudaStream_t stream) {
   const size_t smem = dq_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -358,7 +364,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   bsf_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), lay, H, S, qs, ks, vs, dos, dqs, sm_scale,
+      static_cast<T*>(dq), lay, H, S, qs, ks, vs, dos, dqs, sm_scale, dhead,
       causal);
   return static_cast<int>(cudaGetLastError());
 }
@@ -395,7 +401,8 @@ bsf_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       bf16* __restrict__ dq, Layout lay, int B, int H, int S, Strides qs_,
-                      Strides ks_, Strides vs_, Strides dos_, Strides dqs_, float sm_scale,
+                      Strides ks_, Strides vs_, Strides dos_, Strides dqs_,
+                      float sm_scale, int dhead,
                       int causal) {
   using L = DqLayout<D>;
   constexpr int kKV = ds_mma::tile_bytes<D>(kBN);
@@ -417,9 +424,10 @@ bsf_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + b * ks_.b + h * ks_.h;
   const bf16* vb = v + b * vs_.b + h * vs_.h;
 
-  ds_mma::load_tile_async<kBM, D, kThreads>(s_q, q + b * qs_.b + h * qs_.h, qs_.s, q0, S, tid);
+  ds_mma::load_tile_async<kBM, D, kThreads>(s_q, q + b * qs_.b + h * qs_.h, qs_.s, q0, S, tid,
+                                            dhead);
   ds_mma::load_tile_async<kBM, D, kThreads>(s_do, dout + b * dos_.b + h * dos_.h, dos_.s, q0, S,
-                                            tid);
+                                            tid, dhead);
   if (warp == 0) {  // the row's live blocks, read once
     const size_t row = (static_cast<size_t>(h) * (S / lay.block) + qi) * lay.max_deg;
     const int n = ds_bsf::compact_live_blocks(live, lay.idx + row, lay.valid + row,
@@ -431,8 +439,8 @@ bsf_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   int n0 = walk.pos;
   bool more = walk.valid();
   if (more) {
-    ds_mma::load_tile_async<kBN, D, kThreads>(s_k, kb, ks_.s, n0, S, tid);
-    ds_mma::load_tile_async<kBN, D, kThreads>(s_v, vb, vs_.s, n0, S, tid);
+    ds_mma::load_tile_async<kBN, D, kThreads>(s_k, kb, ks_.s, n0, S, tid, dhead);
+    ds_mma::load_tile_async<kBN, D, kThreads>(s_v, vb, vs_.s, n0, S, tid, dhead);
   }
   ds_mma::cp_async_commit();
 
@@ -462,8 +470,8 @@ bsf_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     more = walk.valid();
     n0 = walk.pos;
     if (more) {  // sub-tile t + 1, of this block or the next, flies meanwhile
-      ds_mma::load_tile_async<kBN, D, kThreads>(s_k + (st ^ 1) * kKV, kb, ks_.s, n0, S, tid);
-      ds_mma::load_tile_async<kBN, D, kThreads>(s_v + (st ^ 1) * kKV, vb, vs_.s, n0, S, tid);
+      ds_mma::load_tile_async<kBN, D, kThreads>(s_k + (st ^ 1) * kKV, kb, ks_.s, n0, S, tid, dhead);
+      ds_mma::load_tile_async<kBN, D, kThreads>(s_v + (st ^ 1) * kKV, vb, vs_.s, n0, S, tid, dhead);
       ds_mma::cp_async_commit();
     }
     // causal: a warp whose rows all lie above this sub-tile has nothing in it
@@ -480,7 +488,7 @@ bsf_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   ds_mma::acc_to_tile<D>(tc_smem + L::kQ, w0, acc, 1.f, 1.f, lane);
   __syncwarp();
   ds_mma::tile_rows_to_global<D>(dq + b * dqs_.b + h * dqs_.h, dqs_.s, row0, S,
-                                 tc_smem + L::kQ, w0, lane);
+                                 tc_smem + L::kQ, w0, lane, dhead);
 }
 
 template <int D>
@@ -502,7 +510,7 @@ bsf_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         bf16* __restrict__ dk, bf16* __restrict__ dv, Layout lay_t, int B,
                         int H, int S, Strides qs_, Strides ks_, Strides vs_, Strides dos_,
-                        Strides dks_, Strides dvs_, float sm_scale, int causal) {
+                        Strides dks_, Strides dvs_, float sm_scale, int dhead, int causal) {
   using L = DkdvLayout<D>;
   constexpr int kTile = ds_mma::tile_bytes<D>(kBM);
   extern __shared__ __align__(128) unsigned char tc_smem[];
@@ -530,14 +538,16 @@ bsf_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* qb = q + b * qs_.b + h * qs_.h;
   const bf16* dob = dout + b * dos_.b + h * dos_.h;
   auto load_q_tile = [&](int stage, int m0) {
-    ds_mma::load_tile_async<kBM, D, kThreads>(s_q + stage * kTile, qb, qs_.s, m0, S, tid);
-    ds_mma::load_tile_async<kBM, D, kThreads>(s_do + stage * kTile, dob, dos_.s, m0, S, tid);
+    ds_mma::load_tile_async<kBM, D, kThreads>(s_q + stage * kTile, qb, qs_.s, m0, S, tid, dhead);
+    ds_mma::load_tile_async<kBM, D, kThreads>(s_do + stage * kTile, dob, dos_.s, m0, S, tid, dhead);
     ds_mma::load_stat_async<kBM, kThreads>(s_lse + stage * kBM * 4, lse_b, m0, S, tid);
     ds_mma::load_stat_async<kBM, kThreads>(s_delta + stage * kBM * 4, delta_b, m0, S, tid);
   };
 
-  ds_mma::load_tile_async<kBN, D, kThreads>(s_k, k + b * ks_.b + h * ks_.h, ks_.s, n0, S, tid);
-  ds_mma::load_tile_async<kBN, D, kThreads>(s_v, v + b * vs_.b + h * vs_.h, vs_.s, n0, S, tid);
+  ds_mma::load_tile_async<kBN, D, kThreads>(s_k, k + b * ks_.b + h * ks_.h, ks_.s, n0, S, tid,
+                                            dhead);
+  ds_mma::load_tile_async<kBN, D, kThreads>(s_v, v + b * vs_.b + h * vs_.h, vs_.s, n0, S, tid,
+                                            dhead);
   if (warp == 0) {  // the column's live q-blocks, read once
     const size_t row = (static_cast<size_t>(h) * (S / lay_t.block) + kj) * lay_t.max_deg;
     const int n = ds_bsf::compact_live_blocks(live, lay_t.idx + row, lay_t.valid + row,
@@ -592,9 +602,9 @@ bsf_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   ds_mma::acc_to_tile<D>(tc_smem + L::kV, w0, dv_acc, 1.f, 1.f, lane);
   __syncwarp();
   ds_mma::tile_rows_to_global<D>(dk + b * dks_.b + h * dks_.h, dks_.s, key0, S,
-                                 tc_smem + L::kK, w0, lane);
+                                 tc_smem + L::kK, w0, lane, dhead);
   ds_mma::tile_rows_to_global<D>(dv + b * dvs_.b + h * dvs_.h, dvs_.s, key0, S,
-                                 tc_smem + L::kV, w0, lane);
+                                 tc_smem + L::kV, w0, lane, dhead);
 }
 
 template <int D>
@@ -602,7 +612,7 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
                 const float* lse, const float* delta, void* dk, void* dv,
                 Layout lay_t, int B, int H, int S, Strides qs, Strides ks,
                 Strides vs, Strides dos, Strides dks, Strides dvs,
-                float sm_scale, int causal, cudaStream_t stream) {
+                float sm_scale, int dhead, int causal, cudaStream_t stream) {
   const int smem = DkdvLayout<D>::bytes(lay_t.max_deg);
   cudaError_t err = cudaFuncSetAttribute(bsf_bwd_dkdv_mma_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -611,7 +621,7 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
   bsf_bwd_dkdv_mma_kernel<D><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), lay_t, B, H, S, qs, ks, vs, dos, dks, dvs, sm_scale, causal);
+      static_cast<bf16*>(dv), lay_t, B, H, S, qs, ks, vs, dos, dks, dvs, sm_scale, dhead, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -619,7 +629,7 @@ template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, Layout lay,
               int B, int H, int S, Strides qs, Strides ks, Strides vs,
-              Strides dos, Strides dqs, float sm_scale, int causal,
+              Strides dos, Strides dqs, float sm_scale, int dhead, int causal,
               cudaStream_t stream) {
   const int smem = DqLayout<D>::bytes(lay.max_deg);
   cudaError_t err = cudaFuncSetAttribute(bsf_bwd_dq_mma_kernel<D>,
@@ -629,7 +639,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   bsf_bwd_dq_mma_kernel<D><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), lay, B, H, S, qs, ks,
-      vs, dos, dqs, sm_scale, causal);
+      vs, dos, dqs, sm_scale, dhead, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -662,18 +672,21 @@ extern "C" int ds_block_sparse_flash_bwd_dkdv(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DS_DKDV(NS, ...)                                                                        \
   return NS::launch_dkdv<__VA_ARGS__>(q, k, v, dout, l, dl, dk, dv, lay_t, B, H, S, qs, ks, vs, \
-                                      dos, dks, dvs, sm_scale, causal, s)
+                                      dos, dks, dvs, sm_scale, D, causal, s)
+  // any D that is a multiple of 8 up to 128 runs the smallest instantiation at or
+  // above it, its columns past D zero-filled on load and masked on store
+  if (D < 8 || D > 128 || D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == DS_DTYPE_BF16) {
-    if (D == 32) DS_DKDV(tc, 32);
-    if (D == 64) DS_DKDV(tc, 64);
-    if (D == 96) DS_DKDV(tc, 96);
-    if (D == 128) DS_DKDV(tc, 128);
+    if (D <= 32) DS_DKDV(tc, 32);
+    if (D <= 64) DS_DKDV(tc, 64);
+    if (D <= 96) DS_DKDV(tc, 96);
+    if (D <= 128) DS_DKDV(tc, 128);
   }
   if (dtype == DS_DTYPE_FP32) {
-    if (D == 32) DS_DKDV(fp32, float, 32);
-    if (D == 64) DS_DKDV(fp32, float, 64);
-    if (D == 96) DS_DKDV(fp32, float, 96);
-    if (D == 128) DS_DKDV(fp32, float, 128);
+    if (D <= 32) DS_DKDV(fp32, float, 32);
+    if (D <= 64) DS_DKDV(fp32, float, 64);
+    if (D <= 96) DS_DKDV(fp32, float, 96);
+    if (D <= 128) DS_DKDV(fp32, float, 128);
   }
 #undef DS_DKDV
   return static_cast<int>(cudaErrorInvalidValue);
@@ -700,18 +713,21 @@ extern "C" int ds_block_sparse_flash_bwd_dq(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DS_DQ(NS, ...)                                                                       \
   return NS::launch_dq<__VA_ARGS__>(q, k, v, dout, l, dl, dq, lay, B, H, S, qs, ks, vs, dos, \
-                                    dqs, sm_scale, causal, s)
+                                    dqs, sm_scale, D, causal, s)
+  // any D that is a multiple of 8 up to 128 runs the smallest instantiation at or
+  // above it, its columns past D zero-filled on load and masked on store
+  if (D < 8 || D > 128 || D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == DS_DTYPE_BF16) {
-    if (D == 32) DS_DQ(tc, 32);
-    if (D == 64) DS_DQ(tc, 64);
-    if (D == 96) DS_DQ(tc, 96);
-    if (D == 128) DS_DQ(tc, 128);
+    if (D <= 32) DS_DQ(tc, 32);
+    if (D <= 64) DS_DQ(tc, 64);
+    if (D <= 96) DS_DQ(tc, 96);
+    if (D <= 128) DS_DQ(tc, 128);
   }
   if (dtype == DS_DTYPE_FP32) {
-    if (D == 32) DS_DQ(fp32, float, 32);
-    if (D == 64) DS_DQ(fp32, float, 64);
-    if (D == 96) DS_DQ(fp32, float, 96);
-    if (D == 128) DS_DQ(fp32, float, 128);
+    if (D <= 32) DS_DQ(fp32, float, 32);
+    if (D <= 64) DS_DQ(fp32, float, 64);
+    if (D <= 96) DS_DQ(fp32, float, 96);
+    if (D <= 128) DS_DQ(fp32, float, 128);
   }
 #undef DS_DQ
   return static_cast<int>(cudaErrorInvalidValue);

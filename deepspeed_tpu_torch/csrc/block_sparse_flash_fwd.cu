@@ -18,6 +18,11 @@
 // diagonal ones per head, ~92 GFLOP against ~102 MB of q, k, v, out and
 // lse: the bf16 tensor cores bound it at ~93 us, the memory at ~30 us.
 //
+// Head dims: any multiple of 8 up to 128 runs, on either route, the
+// smallest instantiation (32, 64, 96, 128) at or above it; the columns
+// past the true D are zero-filled on load, so they add nothing to a
+// product, and are never stored.
+//
 // Two routes, chosen by the operands' dtype:
 //
 // bf16, tensor cores (tc::bsf_fwd_mma_kernel, D in {32, 64, 96, 128}).
@@ -82,7 +87,7 @@ bsf_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, T* __restrict__ o,
                float* __restrict__ lse, Layout lay, int H, int S,
                Strides qs_, Strides ks_, Strides vs_, Strides os_,
-               float sm_scale, int causal) {
+               float sm_scale, int dhead, int causal) {
   constexpr int DP = D + 1;
   constexpr int DC = D / kTPR;  // output columns per thread
   extern __shared__ float smem[];
@@ -110,7 +115,7 @@ bsf_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int idx = tid; idx < kBM * D; idx += kThreads) {
     const int row = idx / D, col = idx % D;
-    qs[row * DP + col] = ds_to_float(qb[(q0 + row) * qs_.s + col]);
+    qs[row * DP + col] = col < dhead ? ds_to_float(qb[(q0 + row) * qs_.s + col]) : 0.f;
   }
 
   float acc[DC];
@@ -130,8 +135,9 @@ bsf_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();  // Q is loaded / the previous K, V tiles are consumed
       for (int idx = tid; idx < kBN * D; idx += kThreads) {
         const int row = idx / D, col = idx % D;
-        ks[row * DP + col] = ds_to_float(kb[(n0 + row) * ks_.s + col]);
-        vs[row * D + col] = ds_to_float(vb[(n0 + row) * vs_.s + col]);
+        const bool ok = col < dhead;
+        ks[row * DP + col] = ok ? ds_to_float(kb[(n0 + row) * ks_.s + col]) : 0.f;
+        vs[row * D + col] = ok ? ds_to_float(vb[(n0 + row) * vs_.s + col]) : 0.f;
       }
       __syncthreads();
 
@@ -189,7 +195,8 @@ bsf_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float denom = l == 0.f ? 1.f : l;
   T* orow = o + b * os_.b + h * os_.h + qrow * os_.s;
 #pragma unroll
-  for (int c = 0; c < DC; ++c) orow[j + kTPR * c] = ds_from_float<T>(acc[c] / denom);
+  for (int c = 0; c < DC; ++c)
+    if (j + kTPR * c < dhead) orow[j + kTPR * c] = ds_from_float<T>(acc[c] / denom);
   if (j == 0) {
     lse[(static_cast<size_t>(b) * H + h) * S + qrow] = m + logf(l + 1e-37f);
   }
@@ -198,7 +205,7 @@ bsf_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            Layout lay, int B, int H, int S, Strides qs, Strides ks,
-           Strides vs, Strides os, float sm_scale, int causal,
+           Strides vs, Strides os, float sm_scale, int dhead, int causal,
            cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -209,7 +216,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   bsf_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, lay, H, S, qs, ks,
-      vs, os, sm_scale, causal);
+      vs, os, sm_scale, dhead, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -242,7 +249,7 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 4 : 1)
 bsf_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
                    Layout lay, int B, int H, int S, Strides qs_, Strides ks_, Strides vs_,
-                   Strides os_, float sm_scale, int causal) {
+                   Strides os_, float sm_scale, int dhead, int causal) {
   using L = FwdLayout<D>;
   constexpr int kKV = ds_mma::tile_bytes<D>(kBN);
   extern __shared__ __align__(128) unsigned char tc_smem[];
@@ -263,7 +270,7 @@ bsf_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* qb = q + b * qs_.b + h * qs_.h;
   const bf16* kb = k + b * ks_.b + h * ks_.h;
   const bf16* vb = v + b * vs_.b + h * vs_.h;
-  ds_mma::load_tile_async<kBM, D, kThreads>(s_q, qb, qs_.s, q0, S, tid);
+  ds_mma::load_tile_async<kBM, D, kThreads>(s_q, qb, qs_.s, q0, S, tid, dhead);
 
   if (warp == 0) {  // the row's live blocks, read once
     const size_t row = (static_cast<size_t>(h) * (S / lay.block) + qi) * lay.max_deg;
@@ -277,8 +284,8 @@ bsf_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   int n0 = walk.pos;
   bool more = walk.valid();
   if (more) {
-    ds_mma::load_tile_async<kBN, D, kThreads>(s_k, kb, ks_.s, n0, S, tid);
-    ds_mma::load_tile_async<kBN, D, kThreads>(s_v, vb, vs_.s, n0, S, tid);
+    ds_mma::load_tile_async<kBN, D, kThreads>(s_k, kb, ks_.s, n0, S, tid, dhead);
+    ds_mma::load_tile_async<kBN, D, kThreads>(s_v, vb, vs_.s, n0, S, tid, dhead);
   }
   ds_mma::cp_async_commit();
 
@@ -309,8 +316,8 @@ bsf_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     more = walk.valid();
     n0 = walk.pos;
     if (more) {  // sub-tile t + 1, of this block or the next, flies meanwhile
-      ds_mma::load_tile_async<kBN, D, kThreads>(s_k + (st ^ 1) * kKV, kb, ks_.s, n0, S, tid);
-      ds_mma::load_tile_async<kBN, D, kThreads>(s_v + (st ^ 1) * kKV, vb, vs_.s, n0, S, tid);
+      ds_mma::load_tile_async<kBN, D, kThreads>(s_k + (st ^ 1) * kKV, kb, ks_.s, n0, S, tid, dhead);
+      ds_mma::load_tile_async<kBN, D, kThreads>(s_v + (st ^ 1) * kKV, vb, vs_.s, n0, S, tid, dhead);
       ds_mma::cp_async_commit();
     }
     // causal: a warp whose rows all lie above this sub-tile has nothing in it
@@ -332,7 +339,7 @@ bsf_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   ds_mma::acc_to_tile<D>(tc_smem + L::kQ, w0, acc, inv[0], inv[1], lane);
   __syncwarp();
   ds_mma::tile_rows_to_global<D>(o + b * os_.b + h * os_.h, os_.s, row0, S, tc_smem + L::kQ, w0,
-                                 lane);
+                                 lane, dhead);
   if ((lane & 3) == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -344,7 +351,7 @@ bsf_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            Layout lay, int B, int H, int S, Strides qs, Strides ks,
-           Strides vs, Strides os, float sm_scale, int causal,
+           Strides vs, Strides os, float sm_scale, int dhead, int causal,
            cudaStream_t stream) {
   const int smem = FwdLayout<D>::bytes(lay.max_deg);
   cudaError_t err = cudaFuncSetAttribute(
@@ -353,7 +360,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   const long long blocks = static_cast<long long>(S / kBM) * B * H;
   bsf_fwd_mma_kernel<D><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), lse, lay, B, H, S, qs, ks, vs, os, sm_scale, causal);
+      static_cast<bf16*>(o), lse, lay, B, H, S, qs, ks, vs, os, sm_scale, dhead, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -380,18 +387,22 @@ extern "C" int ds_block_sparse_flash_fwd(
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DS_BSF(NS, ...) \
-  return NS::launch<__VA_ARGS__>(q, k, v, o, l, lay, B, H, S, qs, ks, vs, os, sm_scale, causal, s)
+  return NS::launch<__VA_ARGS__>(q, k, v, o, l, lay, B, H, S, qs, ks, vs, os, sm_scale, D, causal, \
+                                 s)
+  // any D that is a multiple of 8 up to 128 runs the smallest instantiation at or
+  // above it, its columns past D zero-filled on load and masked on store
+  if (D < 8 || D > 128 || D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == DS_DTYPE_BF16) {
-    if (D == 32) DS_BSF(tc, 32);
-    if (D == 64) DS_BSF(tc, 64);
-    if (D == 96) DS_BSF(tc, 96);
-    if (D == 128) DS_BSF(tc, 128);
+    if (D <= 32) DS_BSF(tc, 32);
+    if (D <= 64) DS_BSF(tc, 64);
+    if (D <= 96) DS_BSF(tc, 96);
+    if (D <= 128) DS_BSF(tc, 128);
   }
   if (dtype == DS_DTYPE_FP32) {
-    if (D == 32) DS_BSF(fp32, float, 32);
-    if (D == 64) DS_BSF(fp32, float, 64);
-    if (D == 96) DS_BSF(fp32, float, 96);
-    if (D == 128) DS_BSF(fp32, float, 128);
+    if (D <= 32) DS_BSF(fp32, float, 32);
+    if (D <= 64) DS_BSF(fp32, float, 64);
+    if (D <= 96) DS_BSF(fp32, float, 96);
+    if (D <= 128) DS_BSF(fp32, float, 128);
   }
 #undef DS_BSF
   return static_cast<int>(cudaErrorInvalidValue);

@@ -20,6 +20,11 @@
 // are arguments, so q, k, v, dO and the grads may be the head views of a
 // fused [B, S, 3 * H * D] projection.
 //
+// Head dims: any multiple of 8 up to 128 runs, on either route, the
+// smallest instantiation (32, 64, 96, 128) at or above it; the columns
+// past the true D are zero-filled on load, so they add nothing to a
+// product, and are never stored.
+//
 // Two routes, chosen by the operands' dtype:
 //
 // bf16, tensor cores (tc::flash_bwd_dkdv_mma_kernel and
@@ -92,11 +97,11 @@ constexpr int kPP = kBN + 1;           // padded row of the P / dS tiles
 // [rows][DP] tile, zero past S.
 template <typename T, int D, int DP>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, Strides st,
-                                          int r0, int rows, int S) {
+                                          int r0, int rows, int S, int dhead) {
   for (int idx = threadIdx.x; idx < rows * D; idx += kThreads) {
     const int row = idx / D, col = idx % D;
     const int g = r0 + row;
-    dst[row * DP + col] = g < S ? ds_to_float(src[g * st.s + col]) : 0.f;
+    dst[row * DP + col] = g < S && col < dhead ? ds_to_float(src[g * st.s + col]) : 0.f;
   }
 }
 
@@ -164,7 +169,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const float* __restrict__ delta, T* __restrict__ dk,
                       T* __restrict__ dv, int H, int Sq, int Sk, Strides qs_,
                       Strides ks_, Strides vs_, Strides dos_, Strides dks_,
-                      Strides dvs_, float sm_scale, int causal,
+                      Strides dvs_, float sm_scale, int dhead, int causal,
                       DropoutArgs drop) {
   constexpr int DP = D + 1;
   constexpr int DC = D / kTPR;
@@ -189,8 +194,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       drop.threshold < 256 ? static_cast<uint32_t>(*drop.seed) : 0u;
   const size_t stat0 = (static_cast<size_t>(b) * H + h) * Sq;
 
-  load_tile<T, D, DP>(ks, k + b * ks_.b + h * ks_.h, ks_, n0, kBN, Sk);
-  load_tile<T, D, DP>(vs, v + b * vs_.b + h * vs_.h, vs_, n0, kBN, Sk);
+  load_tile<T, D, DP>(ks, k + b * ks_.b + h * ks_.h, ks_, n0, kBN, Sk, dhead);
+  load_tile<T, D, DP>(vs, v + b * vs_.b + h * vs_.h, vs_, n0, kBN, Sk, dhead);
 
   float dk_acc[DC], dv_acc[DC];
 #pragma unroll
@@ -203,9 +208,9 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int m_start = causal ? (n0 / kBM) * kBM : 0;
   for (int m0 = m_start; m0 < Sq; m0 += kBM) {
     __syncthreads();  // the previous tile's P / dS are consumed
-    load_tile<T, D, DP>(qs, q + b * qs_.b + h * qs_.h, qs_, m0, kBM, Sq);
+    load_tile<T, D, DP>(qs, q + b * qs_.b + h * qs_.h, qs_, m0, kBM, Sq, dhead);
     load_tile<T, D, DP>(dos, dout + b * dos_.b + h * dos_.h, dos_, m0, kBM,
-                        Sq);
+                        Sq, dhead);
     for (int i = tid; i < kBM; i += kThreads) {
       const bool ok = m0 + i < Sq;
       lse_s[i] = ok ? lse[stat0 + m0 + i] : 0.f;
@@ -246,8 +251,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* dvrow = dv + b * dvs_.b + h * dvs_.h + krow * dvs_.s;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
-      dkrow[j + kTPR * c] = ds_from_float<T>(dk_acc[c]);
-      dvrow[j + kTPR * c] = ds_from_float<T>(dv_acc[c]);
+      if (j + kTPR * c < dhead) dkrow[j + kTPR * c] = ds_from_float<T>(dk_acc[c]);
+      if (j + kTPR * c < dhead) dvrow[j + kTPR * c] = ds_from_float<T>(dv_acc[c]);
     }
   }
 }
@@ -259,7 +264,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     int H, int Sq, int Sk, Strides qs_, Strides ks_,
-                    Strides vs_, Strides dos_, Strides dqs_, float sm_scale,
+                    Strides vs_, Strides dos_, Strides dqs_, float sm_scale, int dhead,
                     int causal, DropoutArgs drop) {
   constexpr int DP = D + 1;
   constexpr int DC = D / kTPR;
@@ -284,8 +289,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float lse_r = qrow < Sq ? lse[stat] : 0.f;
   const float delta_r = qrow < Sq ? delta[stat] : 0.f;
 
-  load_tile<T, D, DP>(qs, q + b * qs_.b + h * qs_.h, qs_, q0, kBM, Sq);
-  load_tile<T, D, DP>(dos, dout + b * dos_.b + h * dos_.h, dos_, q0, kBM, Sq);
+  load_tile<T, D, DP>(qs, q + b * qs_.b + h * qs_.h, qs_, q0, kBM, Sq, dhead);
+  load_tile<T, D, DP>(dos, dout + b * dos_.b + h * dos_.h, dos_, q0, kBM, Sq, dhead);
 
   float acc[DC];
 #pragma unroll
@@ -296,8 +301,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kend = causal ? min(Sk, q0 + kBM) : Sk;
   for (int n0 = 0; n0 < kend; n0 += kBN) {
     __syncthreads();  // Q, dO loaded / the previous K, V consumed
-    load_tile<T, D, DP>(ks, kb, ks_, n0, kBN, Sk);
-    load_tile<T, D, DP>(vs, vb, vs_, n0, kBN, Sk);
+    load_tile<T, D, DP>(ks, kb, ks_, n0, kBN, Sk, dhead);
+    load_tile<T, D, DP>(vs, vb, vs_, n0, kBN, Sk, dhead);
     __syncthreads();
 
     float s[kNS], ds[kNS], pd[kNS];
@@ -322,7 +327,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (qrow < Sq) {
     T* dqrow = dq + b * dqs_.b + h * dqs_.h + qrow * dqs_.s;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) dqrow[j + kTPR * c] = ds_from_float<T>(acc[c]);
+    for (int c = 0; c < DC; ++c)
+      if (j + kTPR * c < dhead) dqrow[j + kTPR * c] = ds_from_float<T>(acc[c]);
   }
 }
 
@@ -331,7 +337,7 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
                 const float* lse, const float* delta, void* dk, void* dv,
                 int B, int H, int Sq, int Sk, Strides qs, Strides ks,
                 Strides vs, Strides dos, Strides dks, Strides dvs,
-                float sm_scale, int causal, DropoutArgs drop,
+                float sm_scale, int dhead, int causal, DropoutArgs drop,
                 cudaStream_t stream) {
   const size_t smem = dkdv_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -343,7 +349,7 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Sk, qs, ks, vs, dos,
-      dks, dvs, sm_scale, causal, drop);
+      dks, dvs, sm_scale, dhead, causal, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -351,7 +357,7 @@ template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, int B, int H,
               int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides dos,
-              Strides dqs, float sm_scale, int causal, DropoutArgs drop,
+              Strides dqs, float sm_scale, int dhead, int causal, DropoutArgs drop,
               cudaStream_t stream) {
   const size_t smem = dq_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -362,7 +368,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), H, Sq, Sk, qs, ks, vs, dos, dqs, sm_scale, causal,
+      static_cast<T*>(dq), H, Sq, Sk, qs, ks, vs, dos, dqs, sm_scale, dhead, causal,
       drop);
   return static_cast<int>(cudaGetLastError());
 }
@@ -402,7 +408,7 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int H, int Sq,
                           int Sk, Strides qs_, Strides ks_, Strides vs_, Strides dos_,
-                          Strides dks_, Strides dvs_, float sm_scale, int causal,
+                          Strides dks_, Strides dvs_, float sm_scale, int dhead, int causal,
                           DropoutArgs drop) {
   using L = DkdvLayout<D>;
   constexpr int kTile = ds_mma::tile_bytes<D>(kBM);
@@ -435,14 +441,17 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const int m_start = causal ? n0 / kBM * kBM : 0;
   const int n_tiles = m_start < Sq ? (Sq - m_start + kBM - 1) / kBM : 0;
   auto load_q_tile = [&](int stage, int m0) {
-    ds_mma::load_tile_async<kBM, D, kThreads>(s_q + stage * kTile, qb, qs_.s, m0, Sq, tid);
-    ds_mma::load_tile_async<kBM, D, kThreads>(s_do + stage * kTile, dob, dos_.s, m0, Sq, tid);
+    ds_mma::load_tile_async<kBM, D, kThreads>(s_q + stage * kTile, qb, qs_.s, m0, Sq, tid, dhead);
+    ds_mma::load_tile_async<kBM, D, kThreads>(s_do + stage * kTile, dob, dos_.s, m0, Sq, tid,
+                                              dhead);
     ds_mma::load_stat_async<kBM, kThreads>(s_lse + stage * kBM * 4, lse_b, m0, Sq, tid);
     ds_mma::load_stat_async<kBM, kThreads>(s_delta + stage * kBM * 4, delta_b, m0, Sq, tid);
   };
 
-  ds_mma::load_tile_async<kBN, D, kThreads>(s_k, k + b * ks_.b + h * ks_.h, ks_.s, n0, Sk, tid);
-  ds_mma::load_tile_async<kBN, D, kThreads>(s_v, v + b * vs_.b + h * vs_.h, vs_.s, n0, Sk, tid);
+  ds_mma::load_tile_async<kBN, D, kThreads>(s_k, k + b * ks_.b + h * ks_.h, ks_.s, n0, Sk, tid,
+                                            dhead);
+  ds_mma::load_tile_async<kBN, D, kThreads>(s_v, v + b * vs_.b + h * vs_.h, vs_.s, n0, Sk, tid,
+                                            dhead);
   if (n_tiles > 0) load_q_tile(0, m_start);
   ds_mma::cp_async_commit();
   if (dropping && n_tiles > 0) {
@@ -491,9 +500,9 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   ds_mma::acc_to_tile<D>(tc_smem + L::kV, w0, dv_acc, dv_scale, dv_scale, lane);
   __syncwarp();
   ds_mma::tile_rows_to_global<D>(dk + b * dks_.b + h * dks_.h, dks_.s, key0, Sk,
-                                 tc_smem + L::kK, w0, lane);
+                                 tc_smem + L::kK, w0, lane, dhead);
   ds_mma::tile_rows_to_global<D>(dv + b * dvs_.b + h * dvs_.h, dvs_.s, key0, Sk,
-                                 tc_smem + L::kV, w0, lane);
+                                 tc_smem + L::kV, w0, lane, dhead);
 }
 
 template <int D>
@@ -506,13 +515,17 @@ struct DqLayout {
   static constexpr int kBytes = kBits + 2 * kBM * 8;
 };
 
+// At D = 64 the registers are capped so that three blocks fit an SM, as
+// dk/dv's are: the run-time head dim's masks took the uncapped kernel from
+// 167 registers to 174 and two blocks an SM, 27% slower on the H100.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 1)
 flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         bf16* __restrict__ dq, int B, int H, int Sq, int Sk, Strides qs_,
-                        Strides ks_, Strides vs_, Strides dos_, Strides dqs_, float sm_scale,
+                        Strides ks_, Strides vs_, Strides dos_, Strides dqs_,
+                        float sm_scale, int dhead,
                         int causal, DropoutArgs drop) {
   using L = DqLayout<D>;
   constexpr int kKV = ds_mma::tile_bytes<D>(kBN);
@@ -537,12 +550,13 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kend = causal ? min(Sk, q0 + kBM) : Sk;
   const int n_tiles = (kend + kBN - 1) / kBN;
 
-  ds_mma::load_tile_async<kBM, D, kThreads>(s_q, q + b * qs_.b + h * qs_.h, qs_.s, q0, Sq, tid);
+  ds_mma::load_tile_async<kBM, D, kThreads>(s_q, q + b * qs_.b + h * qs_.h, qs_.s, q0, Sq, tid,
+                                            dhead);
   ds_mma::load_tile_async<kBM, D, kThreads>(s_do, dout + b * dos_.b + h * dos_.h, dos_.s, q0,
-                                            Sq, tid);
+                                            Sq, tid, dhead);
   if (n_tiles > 0) {
-    ds_mma::load_tile_async<kBN, D, kThreads>(s_k, kb, ks_.s, 0, Sk, tid);
-    ds_mma::load_tile_async<kBN, D, kThreads>(s_v, vb, vs_.s, 0, Sk, tid);
+    ds_mma::load_tile_async<kBN, D, kThreads>(s_k, kb, ks_.s, 0, Sk, tid, dhead);
+    ds_mma::load_tile_async<kBN, D, kThreads>(s_v, vb, vs_.s, 0, Sk, tid, dhead);
   }
   ds_mma::cp_async_commit();
   if (dropping && n_tiles > 0) {
@@ -572,9 +586,9 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int n0 = t * kBN;
     if (t + 1 < n_tiles) {  // tile t + 1 flies while tile t is multiplied
       ds_mma::load_tile_async<kBN, D, kThreads>(s_k + (st ^ 1) * kKV, kb, ks_.s, n0 + kBN, Sk,
-                                                tid);
+                                                tid, dhead);
       ds_mma::load_tile_async<kBN, D, kThreads>(s_v + (st ^ 1) * kKV, vb, vs_.s, n0 + kBN, Sk,
-                                                tid);
+                                                tid, dhead);
       ds_mma::cp_async_commit();
       if (dropping) {
         ds_mma::draw_keep_bits<kBM, kThreads>(bits + (st ^ 1) * kBM, seed, bh, q0, n0 + kBN,
@@ -596,14 +610,14 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   ds_mma::acc_to_tile<D>(tc_smem + L::kQ, w0, acc, 1.f, 1.f, lane);
   __syncwarp();
   ds_mma::tile_rows_to_global<D>(dq + b * dqs_.b + h * dqs_.h, dqs_.s, row0, Sq,
-                                 tc_smem + L::kQ, w0, lane);
+                                 tc_smem + L::kQ, w0, lane, dhead);
 }
 
 template <int D>
 int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
                 const float* lse, const float* delta, void* dk, void* dv, int B, int H,
                 int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides dos,
-                Strides dks, Strides dvs, float sm_scale, int causal, DropoutArgs drop,
+                Strides dks, Strides dvs, float sm_scale, int dhead, int causal, DropoutArgs drop,
                 cudaStream_t stream) {
   constexpr int smem = DkdvLayout<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel<D>,
@@ -613,7 +627,7 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
   flash_bwd_dkdv_mma_kernel<D><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), B, H, Sq, Sk, qs, ks, vs, dos, dks, dvs, sm_scale, causal,
+      static_cast<bf16*>(dv), B, H, Sq, Sk, qs, ks, vs, dos, dks, dvs, sm_scale, dhead, causal,
       drop);
   return static_cast<int>(cudaGetLastError());
 }
@@ -621,7 +635,8 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, int B, int H, int Sq, int Sk,
-              Strides qs, Strides ks, Strides vs, Strides dos, Strides dqs, float sm_scale,
+              Strides qs, Strides ks, Strides vs, Strides dos, Strides dqs,
+              float sm_scale, int dhead,
               int causal, DropoutArgs drop, cudaStream_t stream) {
   constexpr int smem = DqLayout<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<D>,
@@ -631,7 +646,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   flash_bwd_dq_mma_kernel<D><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), B, H, Sq, Sk, qs,
-      ks, vs, dos, dqs, sm_scale, causal, drop);
+      ks, vs, dos, dqs, sm_scale, dhead, causal, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -660,18 +675,21 @@ extern "C" int ds_flash_attention_bwd_dkdv(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DS_DKDV(NS, ...)                                                                   \
   return NS::launch_dkdv<__VA_ARGS__>(q, k, v, dout, l, dl, dk, dv, B, H, Sq, Sk, qs, ks, vs, \
-                                      dos, dks, dvs, sm_scale, causal, drop, s)
+                                      dos, dks, dvs, sm_scale, D, causal, drop, s)
+  // any D that is a multiple of 8 up to 128 runs the smallest instantiation at or
+  // above it, its columns past D zero-filled on load and masked on store
+  if (D < 8 || D > 128 || D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == DS_DTYPE_BF16) {
-    if (D == 32) DS_DKDV(tc, 32);
-    if (D == 64) DS_DKDV(tc, 64);
-    if (D == 96) DS_DKDV(tc, 96);
-    if (D == 128) DS_DKDV(tc, 128);
+    if (D <= 32) DS_DKDV(tc, 32);
+    if (D <= 64) DS_DKDV(tc, 64);
+    if (D <= 96) DS_DKDV(tc, 96);
+    if (D <= 128) DS_DKDV(tc, 128);
   }
   if (dtype == DS_DTYPE_FP32) {
-    if (D == 32) DS_DKDV(fp32, float, 32);
-    if (D == 64) DS_DKDV(fp32, float, 64);
-    if (D == 96) DS_DKDV(fp32, float, 96);
-    if (D == 128) DS_DKDV(fp32, float, 128);
+    if (D <= 32) DS_DKDV(fp32, float, 32);
+    if (D <= 64) DS_DKDV(fp32, float, 64);
+    if (D <= 96) DS_DKDV(fp32, float, 96);
+    if (D <= 128) DS_DKDV(fp32, float, 128);
   }
 #undef DS_DKDV
   return static_cast<int>(cudaErrorInvalidValue);
@@ -695,18 +713,21 @@ extern "C" int ds_flash_attention_bwd_dq(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DS_DQ(NS, ...)                                                                    \
   return NS::launch_dq<__VA_ARGS__>(q, k, v, dout, l, dl, dq, B, H, Sq, Sk, qs, ks, vs, dos, \
-                                    dqs, sm_scale, causal, drop, s)
+                                    dqs, sm_scale, D, causal, drop, s)
+  // any D that is a multiple of 8 up to 128 runs the smallest instantiation at or
+  // above it, its columns past D zero-filled on load and masked on store
+  if (D < 8 || D > 128 || D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == DS_DTYPE_BF16) {
-    if (D == 32) DS_DQ(tc, 32);
-    if (D == 64) DS_DQ(tc, 64);
-    if (D == 96) DS_DQ(tc, 96);
-    if (D == 128) DS_DQ(tc, 128);
+    if (D <= 32) DS_DQ(tc, 32);
+    if (D <= 64) DS_DQ(tc, 64);
+    if (D <= 96) DS_DQ(tc, 96);
+    if (D <= 128) DS_DQ(tc, 128);
   }
   if (dtype == DS_DTYPE_FP32) {
-    if (D == 32) DS_DQ(fp32, float, 32);
-    if (D == 64) DS_DQ(fp32, float, 64);
-    if (D == 96) DS_DQ(fp32, float, 96);
-    if (D == 128) DS_DQ(fp32, float, 128);
+    if (D <= 32) DS_DQ(fp32, float, 32);
+    if (D <= 64) DS_DQ(fp32, float, 64);
+    if (D <= 96) DS_DQ(fp32, float, 96);
+    if (D <= 128) DS_DQ(fp32, float, 128);
   }
 #undef DS_DQ
   return static_cast<int>(cudaErrorInvalidValue);

@@ -15,6 +15,11 @@
 // that a fused QKV projection produces; the output is written as
 // [B, S, H, D].  Any Sq, Sk: rows and keys past the end are masked here.
 //
+// Head dims: any multiple of 8 up to 128 runs, on either route, the
+// smallest instantiation (32, 64, 96, 128) at or above it; the columns
+// past the true D are zero-filled on load, so they add nothing to a
+// product, and are never stored.
+//
 // Two routes, chosen by the operands' dtype:
 //
 // bf16, tensor cores (tc::flash_fwd_mma_kernel, D in {32, 64, 96, 128}).
@@ -86,7 +91,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int H, int Sq, int Sk, Strides qs_,
-                 Strides ks_, Strides vs_, Strides os_, float sm_scale,
+                 Strides ks_, Strides vs_, Strides os_, float sm_scale, int dhead,
                  int causal, const int* __restrict__ seed_ptr,
                  int keep_threshold, float keep_scale) {
   constexpr int DP = D + 1;
@@ -116,7 +121,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int idx = tid; idx < kBM * D; idx += kThreads) {
     const int row = idx / D, col = idx % D;
     const int gq = q0 + row;
-    qs[row * DP + col] = gq < Sq ? qb[gq * qs_.s + col] : 0.f;
+    qs[row * DP + col] = gq < Sq && col < dhead ? qb[gq * qs_.s + col] : 0.f;
   }
 
   float acc[DC];
@@ -132,7 +137,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int idx = tid; idx < kBN * D; idx += kThreads) {
       const int row = idx / D, col = idx % D;
       const int gk = n0 + row;
-      const bool ok = gk < Sk;
+      const bool ok = gk < Sk && col < dhead;
       ks[row * DP + col] = ok ? kb[gk * ks_.s + col] : 0.f;
       vs[row * D + col] = ok ? vb[gk * vs_.s + col] : 0.f;
     }
@@ -203,7 +208,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float denom = l == 0.f ? 1.f : l;
     float* orow = o + b * os_.b + h * os_.h + qrow * os_.s;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) orow[j + kTPR * c] = acc[c] / denom;
+    for (int c = 0; c < DC; ++c)
+      if (j + kTPR * c < dhead) orow[j + kTPR * c] = acc[c] / denom;
     if (j == 0) {
       lse[(static_cast<size_t>(b) * H + h) * Sq + qrow] = m + logf(l + 1e-37f);
     }
@@ -213,7 +219,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
-           Strides os, float sm_scale, int causal, const int* seed,
+           Strides os, float sm_scale, int dhead, int causal, const int* seed,
            int keep_threshold, float keep_scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -224,7 +230,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, H, Sq, Sk,
-      qs, ks, vs, os, sm_scale, causal, seed, keep_threshold, keep_scale);
+      qs, ks, vs, os, sm_scale, dhead, causal, seed, keep_threshold, keep_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -259,7 +265,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o,
                      float* __restrict__ lse, int B, int H, int Sq, int Sk,
                      Strides qs_, Strides ks_, Strides vs_, Strides os_,
-                     float sm_scale, int causal, const int* __restrict__ seed_ptr,
+                     float sm_scale, int dhead, int causal, const int* __restrict__ seed_ptr,
                      int keep_threshold, float keep_scale) {
   using L = FwdLayout<D>;
   constexpr int BM = kBM, NT = kThreads;
@@ -286,10 +292,10 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kend = causal ? min(Sk, q0 + BM) : Sk;
   const int n_tiles = (kend + kBN - 1) / kBN;
 
-  ds_mma::load_tile_async<BM, D, NT>(s_q, qb, qs_.s, q0, Sq, tid);
+  ds_mma::load_tile_async<BM, D, NT>(s_q, qb, qs_.s, q0, Sq, tid, dhead);
   if (n_tiles > 0) {
-    ds_mma::load_tile_async<kBN, D, NT>(s_k, kb, ks_.s, 0, Sk, tid);
-    ds_mma::load_tile_async<kBN, D, NT>(s_v, vb, vs_.s, 0, Sk, tid);
+    ds_mma::load_tile_async<kBN, D, NT>(s_k, kb, ks_.s, 0, Sk, tid, dhead);
+    ds_mma::load_tile_async<kBN, D, NT>(s_v, vb, vs_.s, 0, Sk, tid, dhead);
   }
   ds_mma::cp_async_commit();
   if (drop && n_tiles > 0) {
@@ -320,8 +326,10 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int st = t & 1;
     const int n0 = t * kBN;
     if (t + 1 < n_tiles) {  // tile t + 1 flies while tile t is multiplied
-      ds_mma::load_tile_async<kBN, D, NT>(s_k + (st ^ 1) * kKV, kb, ks_.s, n0 + kBN, Sk, tid);
-      ds_mma::load_tile_async<kBN, D, NT>(s_v + (st ^ 1) * kKV, vb, vs_.s, n0 + kBN, Sk, tid);
+      ds_mma::load_tile_async<kBN, D, NT>(s_k + (st ^ 1) * kKV, kb, ks_.s, n0 + kBN, Sk, tid,
+                                          dhead);
+      ds_mma::load_tile_async<kBN, D, NT>(s_v + (st ^ 1) * kKV, vb, vs_.s, n0 + kBN, Sk, tid,
+                                          dhead);
       ds_mma::cp_async_commit();
       if (drop) {
         ds_mma::draw_keep_bits<BM, NT>(bits + (st ^ 1) * BM, seed, bh, q0, n0 + kBN,
@@ -347,7 +355,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   ds_mma::acc_to_tile<D>(tc_smem + L::kQ, w0, acc, inv[0], inv[1], lane);
   __syncwarp();
   ds_mma::tile_rows_to_global<D>(o + b * os_.b + h * os_.h, os_.s, row0, Sq, tc_smem + L::kQ, w0,
-                                 lane);
+                                 lane, dhead);
   if ((lane & 3) == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -361,7 +369,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
-           Strides os, float sm_scale, int causal, const int* seed,
+           Strides os, float sm_scale, int dhead, int causal, const int* seed,
            int keep_threshold, float keep_scale, cudaStream_t stream) {
   constexpr int smem = FwdLayout<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -371,7 +379,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   flash_fwd_mma_kernel<D><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, B, H, Sq, Sk, qs,
-      ks, vs, os, sm_scale, causal, seed, keep_threshold, keep_scale);
+      ks, vs, os, sm_scale, dhead, causal, seed, keep_threshold, keep_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -394,19 +402,22 @@ extern "C" int ds_flash_attention_fwd(
   const int* sd = static_cast<const int*>(seed);
 #define DS_FWD(NS, ...)                                                       \
   return NS::launch<__VA_ARGS__>(q, k, v, o, l, B, H, Sq, Sk, qs, ks, vs, os, \
-                                 sm_scale, causal, sd, keep_threshold,        \
+                                 sm_scale, D, causal, sd, keep_threshold,     \
                                  keep_scale, s)
+  // any D that is a multiple of 8 up to 128 runs the smallest instantiation at or
+  // above it, its columns past D zero-filled on load and masked on store
+  if (D < 8 || D > 128 || D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == DS_DTYPE_BF16) {
-    if (D == 32) DS_FWD(tc, 32);
-    if (D == 64) DS_FWD(tc, 64);
-    if (D == 96) DS_FWD(tc, 96);
-    if (D == 128) DS_FWD(tc, 128);
+    if (D <= 32) DS_FWD(tc, 32);
+    if (D <= 64) DS_FWD(tc, 64);
+    if (D <= 96) DS_FWD(tc, 96);
+    if (D <= 128) DS_FWD(tc, 128);
   }
   if (dtype == DS_DTYPE_FP32) {
-    if (D == 32) DS_FWD(fp32, 32);
-    if (D == 64) DS_FWD(fp32, 64);
-    if (D == 96) DS_FWD(fp32, 96);
-    if (D == 128) DS_FWD(fp32, 128);
+    if (D <= 32) DS_FWD(fp32, 32);
+    if (D <= 64) DS_FWD(fp32, 64);
+    if (D <= 96) DS_FWD(fp32, 96);
+    if (D <= 128) DS_FWD(fp32, 128);
   }
 #undef DS_FWD
   return static_cast<int>(cudaErrorInvalidValue);

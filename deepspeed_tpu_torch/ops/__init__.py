@@ -121,7 +121,8 @@ def launch_counts() -> dict:
 
 
 def realign_counts() -> dict:
-    """Operands the attention wrappers (kernels B, E, F, G) copied to meet
-    the tensor-core route's 16-byte rule, by kernel."""
+    """Operands the wrappers with a tensor-core route (kernels B, E, F, G,
+    and I's and J's product launches) copied to meet its 16-byte rule, by
+    kernel."""
     return {k.name: k.wrapper.realigned for k in KERNELS
             if hasattr(k.wrapper, "realigned")}

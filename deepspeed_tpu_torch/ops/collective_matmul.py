@@ -61,6 +61,24 @@ FCM_SCOPE = C.FCM_SCOPE
 # payload layouts of csrc/tile_matmul.cuh's weight loader
 W_NATIVE, W_INT8, W_INT4 = 0, 1, 2
 
+# Kernels I and J have two routes each: bf16 left operands (x, g; a and b)
+# multiply on the tensor cores (csrc/tile_mma.cuh), fp32 or mixed ones on
+# the CUDA cores (csrc/tile_matmul.cuh; a tensor-core fp32 product would be
+# TF32).  Kernel H keeps the CUDA cores on every route.
+ROUTE_TENSOR_CORES, ROUTE_CUDA_CORES = "tensor_cores", "cuda_cores"
+# the tensor-core route reads its left operands with 16-byte cp.async
+# copies: base and row pitch must be multiples of this many bytes
+CP_ASYNC_BYTES = 16
+# Where the output has too few tiles to fill the card, the tensor-core
+# route splits K over blocks so that at least two per SM run, into fp32
+# partials summed in split order by a second pass (SM_COUNT: the H100
+# SXM's).  Output tile and K step of the two split launches
+# (csrc/tile_mma.cuh WprodCfg<true> and AtbCfg).
+SM_COUNT = 132
+SPLIT_MIN_BLOCKS = 2 * SM_COUNT
+AG_T_TILE = (64, 64, 64)   # kernel I, transposed: BM, BN, BK
+RS_TILE = (64, 128, 32)    # kernel J's producer: BM, BN, BK
+
 
 def _fcm_scope():
     """The profiler scope every fused transport runs under."""
@@ -449,6 +467,54 @@ def _check_operand(name, arg, t, rows=None, cols=None):
                          f"expected ({rows}, {cols})")
 
 
+def fcm_route(*operands):
+    """The route kernels I and J take for their left operands: the tensor
+    cores when every one is bf16, else the CUDA cores."""
+    if all(t.dtype == torch.bfloat16 for t in operands):
+        return ROUTE_TENSOR_CORES
+    return ROUTE_CUDA_CORES
+
+
+def split_plan(m, n, k, tile):
+    """How many parts the tensor-core route splits K into for an [m, n]
+    output of BM x BN tiles and K steps of BK: enough that the blocks
+    reach SPLIT_MIN_BLOCKS, each part a whole number of steps (the C
+    launchers split the same way).  1 when the tiles alone suffice."""
+    bm, bn, bk = tile
+    tiles = -(-m // bm) * -(-n // bn)
+    want = max(1, min(-(-SPLIT_MIN_BLOCKS // tiles), -(-k // bk)))
+    depth = -(-(-(-k // want)) // bk) * bk
+    return -(-k // depth)
+
+
+def _partials(splits, rows, cols, device):
+    """The fp32 partials' workspace [splits, rows, cols] of a split
+    launch."""
+    return torch.empty((splits, rows, cols), dtype=torch.float32,
+                       device=device)
+
+
+def _cp_async_operand(wrapper, t):
+    """A bf16 left operand as the tensor-core route reads it: base and row
+    pitch multiples of 16 bytes.  One that breaks the rule (a column block
+    at an odd offset, an odd width) is copied once into a buffer whose rows
+    are padded to the rule, and `wrapper.realigned` counts the copy; the
+    kernel zero-fills past the true width.  Runs on tensors of any
+    device."""
+    rows, cols = t.shape
+    pitch = t.stride(0) * t.element_size()
+    pitch_ok = rows <= 1 or pitch % CP_ASYNC_BYTES == 0
+    if t.data_ptr() % CP_ASYNC_BYTES == 0 and pitch_ok:
+        return t
+    step = CP_ASYNC_BYTES // t.element_size()
+    buf = torch.empty((rows, -(-cols // step) * step), dtype=t.dtype,
+                      device=t.device)
+    view = buf[:, :cols]
+    view.copy_(t)
+    wrapper.realigned += 1
+    return view
+
+
 def _launch(name, wrapper, fn, *args):
     op_builder.check_launch(name, fn(*args))
     wrapper.launches += 1
@@ -567,6 +633,8 @@ def fcm_ag_step_cuda(x, q, s, bits, kc, n, acc, out, first, last):
         raise ValueError(f"{name}: `out` must be contiguous [{m}, {n}]")
     if m * n == 0:
         return
+    if fcm_route(x) == ROUTE_TENSOR_CORES:
+        x = _cp_async_operand(fcm_ag_step_cuda, x)
     _launch(name, fcm_ag_step_cuda, op_builder.load().ds_fcm_ag_step,
             x.data_ptr(), x.stride(0), kernel_dtype_code(x), w, sc, mode,
             wcode, bs, 0 if acc is None else acc.data_ptr(),
@@ -576,6 +644,7 @@ def fcm_ag_step_cuda(x, q, s, bits, kc, n, acc, out, first, last):
 
 
 fcm_ag_step_cuda.launches = 0
+fcm_ag_step_cuda.realigned = 0
 
 
 def fcm_ag_step_t_reference(g, q, s, bits, kc, n, out_cols):
@@ -589,7 +658,10 @@ def fcm_ag_step_t_cuda(g, q, s, bits, kc, n, out_cols):
     """Kernel I, transposed step of dx: g [m, n] @ deq(q, s)^T -> the
     column block `out_cols` [m, kc] (a view of dx at columns src * kc) in
     its dtype.  The blocks of the W steps are disjoint, so each is cast as
-    it is written and no fp32 copy of dx is kept."""
+    it is written and no fp32 copy of dx is kept.  On the tensor-core route
+    (bf16 g) K = n may be split over blocks (`split_plan`), the partials
+    going to a workspace allocated here and summed in split order by the
+    same launch."""
     name = "fcm_ag_step_t"
     index = check_cuda(name, g, q, out_cols, *(() if s is None else (s,)))
     _check_operand(name, "g", g, cols=n)
@@ -597,14 +669,22 @@ def fcm_ag_step_t_cuda(g, q, s, bits, kc, n, out_cols):
     w, sc, mode, wcode, bs = _weight_args(name, q, s, kc, n, bits)
     if out_cols.numel() == 0:
         return
+    m, splits, work = g.shape[0], 1, None
+    if fcm_route(g) == ROUTE_TENSOR_CORES:
+        g = _cp_async_operand(fcm_ag_step_t_cuda, g)
+        splits = split_plan(m, kc, n, AG_T_TILE)
+        if splits > 1:
+            work = _partials(splits, m, kc, g.device)
     _launch(name, fcm_ag_step_t_cuda, op_builder.load().ds_fcm_ag_step_t,
             g.data_ptr(), g.stride(0), kernel_dtype_code(g), w, sc, mode,
             wcode, bs, out_cols.data_ptr(), out_cols.stride(0),
-            kernel_dtype_code(out_cols), g.shape[0], kc, n,
+            kernel_dtype_code(out_cols), m, kc, n,
+            0 if work is None else work.data_ptr(), splits,
             stream_handle(index))
 
 
 fcm_ag_step_t_cuda.launches = 0
+fcm_ag_step_t_cuda.realigned = 0
 
 
 # ---- kernel J: the producer with the quantize epilogue, the collect -- #
@@ -654,10 +734,14 @@ def fcm_rs_producer_cuda(a, b, err, q_out, s_out, nerr, bs, comp_out=None):
     `comp_out` [kc, n] fp32, when given, receives the compensated tile the
     kernel quantized.
 
-    The epilogue owns whole quantization blocks when they lie inside the
-    output tile's rows (bs divides both n and the tile's 256 columns);
-    otherwise the product writes the compensated tile to a workspace and a
-    second launch quantizes it.  Every launch counts."""
+    Tensor-core route (bf16 a and b): K = the rows of a and b is split
+    over blocks (`split_plan`) into a workspace allocated here, and the
+    same launch's second pass sums the partials in split order, adds the
+    error rows and quantizes, for any block size.  CUDA-core route: the
+    epilogue owns whole quantization blocks when they lie inside the output
+    tile's rows (bs divides both n and the tile's 256 columns); otherwise
+    the product writes the compensated tile to a workspace and a second
+    launch quantizes it.  Every launch counts."""
     name = "fcm_rs_producer"
     given = [t for t in (err, nerr, comp_out) if t is not None]
     index = check_cuda(name, a, b, q_out, s_out, *given)
@@ -681,17 +765,30 @@ def fcm_rs_producer_cuda(a, b, err, q_out, s_out, nerr, bs, comp_out=None):
                               or tuple(t.shape) != (kc, n)):
             raise ValueError(f"{name}: `{arg}` must be contiguous fp32 "
                              f"[{kc}, {n}]")
-    fused = n % bs == 0 and RS_TILE_COLS % bs == 0
-    if not fused and comp_out is None:
-        comp_out = torch.empty((kc, n), dtype=torch.float32, device=a.device)
     lib = op_builder.load()
     ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
     stream = stream_handle(index)
+    bdim = a.shape[0]
+    tensor_cores = fcm_route(a, b) == ROUTE_TENSOR_CORES
+    if tensor_cores:
+        a = _cp_async_operand(fcm_rs_producer_cuda, a)
+        b = _cp_async_operand(fcm_rs_producer_cuda, b)
+        splits = split_plan(kc, n, bdim, RS_TILE)
+        # the second pass sums the partials into partial 0 and quantizes
+        # from there, so J takes a workspace even when K is not split
+        work = _partials(splits, kc, n, a.device)
+        fused = True  # the second pass quantizes any block size
+    else:
+        splits, work = 0, None
+        fused = n % bs == 0 and RS_TILE_COLS % bs == 0
+        if not fused and comp_out is None:
+            comp_out = torch.empty((kc, n), dtype=torch.float32,
+                                   device=a.device)
     _launch(name, fcm_rs_producer_cuda, lib.ds_fcm_rs_producer,
             a.data_ptr(), a.stride(0), kernel_dtype_code(a), b.data_ptr(),
             b.stride(0), kernel_dtype_code(b), ptr(err), q_out.data_ptr(),
-            s_out.data_ptr(), ptr(nerr), ptr(comp_out), a.shape[0], kc, n, bs,
-            int(fused), stream)
+            s_out.data_ptr(), ptr(nerr), ptr(comp_out), bdim, kc, n, bs,
+            int(fused), ptr(work), splits, stream)
     if not fused:
         _launch(name, fcm_rs_producer_cuda, lib.ds_fcm_rs_quantize,
                 comp_out.data_ptr(), q_out.data_ptr(), s_out.data_ptr(),
@@ -699,6 +796,7 @@ def fcm_rs_producer_cuda(a, b, err, q_out, s_out, nerr, bs, comp_out=None):
 
 
 fcm_rs_producer_cuda.launches = 0
+fcm_rs_producer_cuda.realigned = 0
 
 
 def fcm_rs_collect_reference(qtab, stab, kc, n):

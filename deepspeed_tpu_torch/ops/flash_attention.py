@@ -12,17 +12,20 @@ their own ragged edge, so any sequence length runs on them: there is no
 short-sequence crossover to XLA (the JAX package's AUTO_MIN_SEQ is a v5e
 measurement).
 
-Routes.  Each kernel has two, chosen in the kernel by the dtype code
+Routes. Each kernel has two, chosen in the kernel by the dtype code
 (`kernel_dtype_code`): bf16 multiplies on the tensor cores (`mma.sync`
 tiles fed by 16-byte `cp.async` copies, csrc/attention_mma.cuh), fp32 on
 the CUDA cores (a tensor-core fp32 product would be TF32 and miss the fp32
-parity).  Both take head dims 32, 64, 96 and 128 (KERNEL_HEAD_DIMS); any
-other raises ValueError.  The tensor-core route needs every operand's base
-address and its batch, head and sequence strides to be multiples of 16
-bytes.  The wrapper copies an operand that breaks the rule into a fresh
-contiguous tensor before the launch (`_launch_operands`), and counts the
-copy on the wrapper's `realigned`; every call the layer and the engines make
-meets the rule, so on their paths the count stays 0.
+parity). Both are compiled for head dims 32, 64, 96 and 128
+(KERNEL_HEAD_DIMS), and any head dim that is a multiple of 8 up to 128 runs
+the smallest of them at or above it (`kernel_head_dim`): the kernels take
+the true D, zero-fill the columns past it on load and store none of them.
+Any other head dim raises ValueError. The tensor-core route needs every
+operand's base address and its batch, head and sequence strides to be
+multiples of 16 bytes. The wrapper copies an operand that breaks the rule
+into a fresh contiguous tensor before the launch (`_launch_operands`), and
+counts the copy on the wrapper's `realigned`; every call the layer and the
+engines make meets the rule, so on their paths the count stays 0.
 
 Dropout.  The JAX kernel keys the TPU's PRNG by tile, which no other
 tiling can reproduce.  Here the keep decision of score (row, col) of head
@@ -51,6 +54,9 @@ DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
 # head dims the kernels are compiled for (both routes)
 KERNEL_HEAD_DIMS = (32, 64, 96, 128)
+# a launch takes any head dim that is a multiple of HEAD_DIM_STEP up to the
+# largest compiled one (a cp.async copy moves 8 bf16 columns at a time)
+HEAD_DIM_STEP = 8
 
 # the tensor-core route's cp.async copies move 16 bytes, 8 bf16 elements
 CP_ASYNC_BYTES = 16
@@ -251,6 +257,17 @@ def _heads_layout(b, h, s, d, like):
                        device=like.device).transpose(1, 2)
 
 
+def kernel_head_dim(d: int) -> int:
+    """The compiled head dim a launch at head dim `d` runs: the smallest of
+    KERNEL_HEAD_DIMS at or above it.  Raises ValueError naming the rule for
+    a `d` that is not a multiple of 8 between 8 and 128."""
+    if d % HEAD_DIM_STEP or not HEAD_DIM_STEP <= d <= KERNEL_HEAD_DIMS[-1]:
+        raise ValueError(
+            f"head dim {d} not supported (the kernels take a multiple of "
+            f"{HEAD_DIM_STEP} from {HEAD_DIM_STEP} to {KERNEL_HEAD_DIMS[-1]})")
+    return next(c for c in KERNEL_HEAD_DIMS if c >= d)
+
+
 def _check_attention(name, q, k, v, *more):
     """Dtype, shape and device checks shared by kernels B, E, F and G, the
     device last (so that the rest holds on CPU tensors too); returns
@@ -264,9 +281,10 @@ def _check_attention(name, q, k, v, *more):
         raise ValueError(f"{name}: bad shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     b, h, sq, d = q.shape
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not compiled (the kernels "
-                         f"take {', '.join(map(str, KERNEL_HEAD_DIMS))})")
+    try:
+        kernel_head_dim(d)
+    except ValueError as exc:
+        raise ValueError(f"{name}: {exc}") from None
     index = check_cuda(name, q, k, v, *more)
     return index, code, b, h, sq, k.shape[2], d
 

@@ -87,14 +87,17 @@ SIGNATURES = {
     "ds_fcm_ag_step": [P, I64, I32, P, P, I32, I32, I32, P, P, I32, I32, I32,
                        I32, I32, P],
     # g and the weight as kernel H; out's column block, out's row pitch and
-    # dtype; m, kc, n, stream
+    # dtype; m, kc, n; the split partials' workspace (or null) and the
+    # number of splits (bf16 g only); stream
     "ds_fcm_ag_step_t": [P, I64, I32, P, P, I32, I32, I32, P, I64, I32, I32,
-                         I32, I32, P],
+                         I32, I32, P, I32, P],
     # kernel J.  a, pitch, dtype, b, pitch, dtype, error rows (or null), q,
     # scale, new error (or null), compensated tile (or null), rows of a and
-    # b, kc, n, block size, whether the epilogue quantizes, stream
+    # b, kc, n, block size, whether the epilogue quantizes, the split
+    # partials' workspace and the number of splits (bf16 a and b only),
+    # stream
     "ds_fcm_rs_producer": [P, I64, I32, P, I64, I32, P, P, P, P, P, I32, I32,
-                           I32, I32, I32, P],
+                           I32, I32, I32, P, I32, P],
     # compensated tile, q, scale, new error (or null), elements, block size,
     # stream
     "ds_fcm_rs_quantize": [P, P, P, P, I64, I32, P],

@@ -19,8 +19,9 @@ The gather indices are layout_gather's, as device int32 tensors: idx / valid
 last valid index.  The kernels loop over a row's valid entries only.
 
 Routes and operands follow kernels B and E (flash_attention.py): bf16 on
-the tensor cores, fp32 on the CUDA cores, head dims 32, 64, 96 and 128; a
-bf16 operand whose base or strides are not multiples of 16 bytes is copied
+the tensor cores, fp32 on the CUDA cores, any head dim that is a multiple
+of 8 up to 128 (`kernel_head_dim`: the smallest of 32, 64, 96 and 128 at or
+above it runs, zero-filled past the true D); a bf16 operand whose base or strides are not multiples of 16 bytes is copied
 before the launch and counted on the wrapper's `realigned`.
 """
 

@@ -438,12 +438,37 @@ def test_wrappers_launch_every_compiled_head_dim(kernels, kind, d):
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_wrappers_refuse_other_head_dims(kind):
-    """D = 40 raises ValueError naming the compiled set, before the device
-    check: the CPU tensors here never reach it."""
-    q, k, v, do = _attention_inputs(40, torch.float32)
-    with pytest.raises(ValueError, match=r"head dim 40 not compiled \(the "
-                                         r"kernels take 32, 64, 96, 128\)"):
-        _call(kind, q, k, v, do)
+    """D = 36 (not a multiple of 8) and D = 136 (above 128) raise ValueError
+    naming the rule, before the device check: the CPU tensors here never
+    reach it."""
+    for d in (36, 136):
+        q, k, v, do = _attention_inputs(d, torch.float32)
+        with pytest.raises(ValueError, match=rf"head dim {d} not supported "
+                                             r"\(the kernels take a multiple "
+                                             r"of 8 from 8 to 128\)"):
+            _call(kind, q, k, v, do)
+
+
+@pytest.mark.parametrize("d,compiled", [(8, 32), (24, 32), (32, 32),
+                                        (40, 64), (80, 96), (96, 96),
+                                        (104, 128), (128, 128)])
+def test_a_head_dim_runs_the_smallest_instantiation_at_or_above_it(
+        d, compiled):
+    """Any multiple of 8 up to 128 maps to the smallest compiled head dim
+    at or above it (the C launchers take the same one)."""
+    assert fa.kernel_head_dim(d) == compiled
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind", KINDS)
+def test_wrappers_launch_at_head_dim_80_with_the_true_d(kernels, kind, dtype):
+    """D = 80 reaches the launch with D = 80 itself (the kernel zero-fills
+    the columns up to its instantiation, 96), and the launch computes the
+    plain twin's result from what the wrapper hands it."""
+    q, k, v, do = _attention_inputs(80, dtype)
+    got = _call(kind, q, k, v, do)
+    assert len(kernels.calls) == 1 and got[0].shape[-1] == 80
+    _close(got, _plain(kind, q, k, v, do), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -488,13 +513,15 @@ def test_a_misaligned_operand_is_copied_and_the_result_is_the_aligned_calls(
 
 
 def test_realign_counts_name_the_attention_kernels():
-    """realign_counts() covers the six launches of B, E, F and G, and
+    """realign_counts() covers the six launches of B, E, F and G (and the
+    three tensor-core product launches of kernels I and J), and
     reset_launch_counts() zeroes them."""
     from deepspeed_tpu_torch.ops import reset_launch_counts
     fa.flash_attention_cuda.realigned = 3
     assert set(realign_counts()) == {
         "flash_attention_fwd", "flash_attention_bwd_dkdv",
         "flash_attention_bwd_dq", "block_sparse_flash_fwd",
-        "block_sparse_flash_bwd_dq", "block_sparse_flash_bwd_dkdv"}
+        "block_sparse_flash_bwd_dq", "block_sparse_flash_bwd_dkdv",
+        "fcm_ag_step", "fcm_ag_step_t", "fcm_rs_producer"}
     reset_launch_counts()
     assert set(realign_counts().values()) == {0}
