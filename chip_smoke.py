@@ -21,18 +21,20 @@ phase prints {"phase": ..., "ok": false, "error": ...} and the script exits
    seed and the coordinates), and the mask's keep share must lie within
    4 sigma of 230/256; kernels D, E and G must repeat bitwise.  B, E, F and
    G name their route (bf16 on the tensor cores, fp32 on the CUDA cores)
-   and run at every head dim they are compiled for (32, 64, 96, 128) and at
-   D = 40 and 80 (multiples of 8 that run the next instantiation up,
-   zero-filled past D) in both dtypes; B and E report their achieved
-   TFLOP/s beside the library call's; B's dropout cases also time the call without dropout; one case
-   each runs train_longseq's S = 8192 (batch 1, 4 heads, so that the plain
-   twin's [S, S] fp32 scores take 1 GiB).  The realigned_operand cases
+   and run at every head dim they are compiled for (32, 64, 96, 128, 256),
+   at D = 40, 80 and 136 (which run the next instantiation up, zero-filled
+   past D) and at D = 36 (which the bf16 route pads to 40 in the wrapper)
+   in both dtypes; B and E also at [2, 12, 1024, 256] causal bf16 beside
+   SDPA's flash forward and backward; B and E report their achieved
+   TFLOP/s beside the library call's; B's dropout cases also time the call
+   without dropout; one case each runs train_longseq's S = 8192 (batch 1,
+   4 heads, so that the plain twin's [S, S] fp32 scores take 1 GiB).  The realigned_operand cases
    launch B, E, F and G with a bf16 operand off the 16-byte boundary the
    tensor-core route needs: the wrapper copies it, once a launch, and the
    result equals the aligned call's bitwise.  The device phase reports the
    registers and stack (spill) bytes per thread of B's, E's, F's and G's
-   tensor-core kernels, as cuobjdump reads them from the built library,
-   and of I's and J's tensor-core kernels with the count of HMMA
+   kernels on both routes, as cuobjdump reads them from the built library,
+   and of the tensor-core kernels of H, I and J with the count of HMMA
    instructions in their SASS (the phase fails if one has none).
 3. serve_bf16: GPT-2 124M at full width (hidden 768, 12 layers, 12 heads,
    vocab 50304, n_positions 256, bf16, weights from seed 0) through
@@ -91,9 +93,9 @@ Parity (phase 2) also holds kernels F (block-sparse flash forward) and G
 fp32 on the same inputs: bench_sparse_longseq's attention with fused-QKV
 views, the Fixed layout causal and not, D = 128, a layout with an empty
 causal row (its out 0 and its lse at the mask value), a non-causal
-BigBird, and D = 32 and 96, in bf16 (the tensor cores) and fp32 (the CUDA
-cores); G's two launches must repeat bitwise; the library yardstick is
-SDPA with the layout as a boolean mask.
+BigBird, and D = 32, 96, 40, 80, 36, 136 and 256, in bf16 (the tensor
+cores) and fp32 (the CUDA cores); G's two launches must repeat bitwise;
+the library yardstick is SDPA with the layout as a boolean mask.
 
 12. fcm_ops: the low-bandwidth collective tier on a mesh of W = 4 logical
    ranks, all on this card (each rank its own compute and copy stream; the
@@ -120,12 +122,18 @@ SDPA with the layout as a boolean mask.
    the fused route, the per-tile route and the modular yardstick
    (`low_bandwidth_all_gather` then `torch.matmul`; `torch.matmul` then
    `qgz_reduce_scatter_inner`), in turns; from torch.profiler traces of
-   five calls each, the device ms of the fused forward's products and of
-   the fused reduce-scatter's producers, and the share of the ring's copy
-   time that lay under a product.
+   five calls each, the device ms of the products of the fused forward,
+   of the fused reduce-scatter (its producers), and of the per-tile
+   forward and reduce-scatter (kernel H's), and the share of the ring's
+   copy time that lay under a product.
 
 Parity also holds kernels H (its three tile launchers at the three
-matrices' tiles, int8, packed int4 and native payloads), I (the first
+matrices' tiles, int8, packed int4 and native payloads; bf16 on the
+tensor cores, fp32 on the CUDA cores, each launch repeating bitwise, the
+bf16 cases with an int8 or int4 payload within FCM_FP32_DEQUANT_TOL of
+the fp32 twin; and, from torch.profiler, the device kernels one launch of
+each entry point ran: tile_mma.cuh's in bf16 and not tile_matmul.cuh's,
+the reverse in fp32), I (the first
 step, a step that accumulates, the last step's cast, the transposed step
 writing a column block; bf16 on the tensor cores at every tile and
 payload, fp32 on the CUDA cores) and J (the producer by the one-step rule,
@@ -317,11 +325,11 @@ def phase_device():
 
 
 def tensor_core_resources(lib_path):
-    """Registers and stack (spill) bytes per thread of the tensor-core
-    kernels of B, E, F and G (by head dim, and for B and E with dropout on
-    or off), as cuobjdump reads them from the built library (what nvcc
-    -Xptxas -v reports), or why they could not be read: a diagnostic,
-    which fails no phase."""
+    """Registers and stack (spill) bytes per thread of the kernels of B, E,
+    F and G on both routes (`..._mma_kernel` the tensor cores, the others
+    the CUDA cores; by head dim), as cuobjdump reads them from the built
+    library (what nvcc -Xptxas -v reports), or why they could not be read:
+    a diagnostic, which fails no phase."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
         dump = subprocess.run([tool, "--dump-resource-usage", lib_path],
@@ -333,7 +341,7 @@ def tensor_core_resources(lib_path):
             {"registers": int(reg), "stack_bytes": int(stack)}
             for name, d, drop, reg, stack in re.findall(
                 r"Function \S*?((?:flash|bsf)_(?:fwd|bwd_dkdv|bwd_dq)"
-                r"_mma_kernel)ILi(\d+)E(?:Lb([01])E)?\S*:\s+"
+                r"(?:_mma)?_kernel)I(?:f)?Li(\d+)E(?:Lb([01])E)?\S*:\s+"
                 r"REG:(\d+) STACK:(\d+)", dump)}
 
 
@@ -951,6 +959,21 @@ def fcm_result(name, out, ref, tol, nbytes, ops, dtype, kernel, plain,
             "bound_by": b_by}
 
 
+def hold_tile(res, kernel, args, route, bits, splits=None):
+    """Kernel H's further holds: a second launch repeats the first bitwise,
+    and the bf16 cases with a quantized payload lie within
+    FCM_FP32_DEQUANT_TOL of the fp32 twin (H's output is fp32 already)."""
+    first, again = kernel(*args), kernel(*args)
+    torch.cuda.synchronize()
+    repeat = torch.equal(first, again)
+    res = {**res, "route": route, "ok": res["ok"] and repeat,
+           "repeat_bitwise": repeat}
+    if splits is not None:
+        res["splits"] = splits if route == cm.ROUTE_TENSOR_CORES else 1
+    dtype = args[0].dtype
+    return hold_fp32_dequant(res, dtype, bits, res["rel_err"])
+
+
 def case_fcm_tile_ag(m, kc, n, bits, dtype):
     """Kernel H, forward tile, on a column block of x [m, 4 kc]."""
     q, s = fcm_payload(kc, n, bits, dtype, kc + n + bits)
@@ -960,12 +983,13 @@ def case_fcm_tile_ag(m, kc, n, bits, dtype):
     args = (x, q, s, bits, kc, n)
     dense = cm._dequant_tile(q, s, kc, n, bits).to(dtype)
     nbytes = x.numel() * x.element_size() + payload_bytes(q, s) + m * n * 4
-    return fcm_result(
+    res = fcm_result(
         fcm_case_name(m, kc, n, bits, dtype), cm.fcm_tile_ag_cuda(*args),
         cm.fcm_tile_ag_reference(*args), FCM_TOL[dtype], nbytes,
         2 * m * kc * n, dtype, lambda: cm.fcm_tile_ag_cuda(*args),
         lambda: cm.fcm_tile_ag_reference(*args),
         lambda: torch.matmul(x, dense))
+    return hold_tile(res, cm.fcm_tile_ag_cuda, args, cm.fcm_route(x), bits)
 
 
 def case_fcm_tile_ag_t(m, kc, n, bits, dtype):
@@ -976,12 +1000,14 @@ def case_fcm_tile_ag_t(m, kc, n, bits, dtype):
     args = (g, q, s, bits, kc, n)
     dense_t = cm._dequant_tile(q, s, kc, n, bits).to(dtype).t()
     nbytes = g.numel() * g.element_size() + payload_bytes(q, s) + m * kc * 4
-    return fcm_result(
+    res = fcm_result(
         fcm_case_name(m, kc, n, bits, dtype), cm.fcm_tile_ag_t_cuda(*args),
         cm.fcm_tile_ag_t_reference(*args), FCM_TOL[dtype], nbytes,
         2 * m * kc * n, dtype, lambda: cm.fcm_tile_ag_t_cuda(*args),
         lambda: cm.fcm_tile_ag_t_reference(*args),
         lambda: torch.matmul(g, dense_t))
+    return hold_tile(res, cm.fcm_tile_ag_t_cuda, args, cm.fcm_route(g), bits,
+                     cm.split_plan(m, kc, n, cm.AG_T_TILE))
 
 
 def rs_operands(b, kc, n, dtype, seed):
@@ -996,13 +1022,68 @@ def case_fcm_tile_rs(b, kc, n, dtype):
     """Kernel H, producer tile: a [b, kc]^T @ rhs [b, n] -> [kc, n]."""
     a, rhs = rs_operands(b, kc, n, dtype, b + kc + n)
     nbytes = (a.numel() + rhs.numel()) * a.element_size() + kc * n * 4
-    return fcm_result(
+    res = fcm_result(
         f"rows={b} tile [{kc},{n}] {_dtname(dtype)}",
         cm.fcm_tile_rs_cuda(a, rhs), cm.fcm_tile_rs_reference(a, rhs),
         FCM_TOL[dtype], nbytes, 2 * b * kc * n, dtype,
         lambda: cm.fcm_tile_rs_cuda(a, rhs),
         lambda: cm.fcm_tile_rs_reference(a, rhs),
         lambda: torch.matmul(a.t(), rhs))
+    return hold_tile(res, cm.fcm_tile_rs_cuda, (a, rhs), cm.fcm_route(a, rhs),
+                     0, cm.split_plan(kc, n, b, cm.RS_TILE))
+
+
+# the device kernels of one launch of each of kernel H's entry points, by
+# route (csrc/tile_mma.cuh on the tensor cores, tile_matmul.cuh on the CUDA
+# cores)
+H_ROUTE_KERNELS = {cm.ROUTE_TENSOR_CORES: {"ag": ("wprod_mma_kernel",),
+                                           "ag_t": ("wprod_mma_kernel",
+                                                    "split_sum_kernel"),
+                                           "rs": ("at_b_mma_kernel",
+                                                  "split_sum_kernel")},
+                   cm.ROUTE_CUDA_CORES: {"ag": ("tile_matmul_kernel",),
+                                         "ag_t": ("tile_matmul_kernel",),
+                                         "rs": ("tile_matmul_kernel",)}}
+
+
+def case_fcm_tile_kernels(entry, dtype):
+    """The device kernel names of one launch of kernel H's entry point at
+    c_fc's tile (int8 payload), from torch.profiler: on the tensor-core
+    route (bf16) tile_mma.cuh's kernels ran and tile_matmul.cuh's did not;
+    on the CUDA-core route (fp32) the reverse."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    m, (kc, n) = FCM_ROWS, FCM_PRIMARY_TILE
+    q, s = fcm_payload(kc, n, 8, dtype, 5)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    if entry == "ag":
+        x = torch.randn(m, kc, device="cuda", generator=gen).to(dtype)
+        call, route = (lambda: cm.fcm_tile_ag_cuda(x, q, s, 8, kc, n),
+                       cm.fcm_route(x))
+    elif entry == "ag_t":
+        g = torch.randn(m, n, device="cuda", generator=gen).to(dtype)
+        call, route = (lambda: cm.fcm_tile_ag_t_cuda(g, q, s, 8, kc, n),
+                       cm.fcm_route(g))
+    else:
+        a, rhs = rs_operands(m, kc, n, dtype, 7)
+        call, route = (lambda: cm.fcm_tile_rs_cuda(a, rhs),
+                       cm.fcm_route(a, rhs))
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events()
+                    if e.device_type == DeviceType.CUDA})
+    want = H_ROUTE_KERNELS[route][entry]
+    other = {k for r, by in H_ROUTE_KERNELS.items() if r != route
+             for k in by[entry]} - set(want)
+    ran = all(any(w in nm for nm in names) for w in want)
+    absent = not any(o in nm for nm in names for o in other)
+    return {"case": f"fcm_tile_{entry} m={m} tile [{kc},{n}] int8 "
+                    f"{_dtname(dtype)}", "ok": bool(names) and ran and absent,
+            "tolerance": f"{', '.join(want)} ran; {', '.join(sorted(other))} "
+                         "did not", "route": route, "device_kernels": names}
 
 
 def fp32_dequant_err(kernel, twin, args, dest):
@@ -1233,9 +1314,14 @@ PARITY_CASES = {
         + [(2, 8, 200, 128, True, dt) for dt in (torch.bfloat16, torch.float32)]
         + [(2, 4, 200, d, True, dt) for d in (32, 96)
            for dt in (torch.bfloat16, torch.float32)]
-        # head dims between the compiled ones (80 runs the D = 96 kernel)
-        + [(2, 4, 200, d, True, dt) for d in (40, 80)
-           for dt in (torch.bfloat16, torch.float32)]),
+        # head dims between the compiled ones (80 runs the D = 96 kernel);
+        # 36 (the tensor-core route pads it to 40), 136 and 256 (the D = 256
+        # kernel: two column groups on the tensor cores, 32-row tiles on
+        # the CUDA cores)
+        + [(2, 4, 200, d, True, dt) for d in (40, 80, 36, 136, 256)
+           for dt in (torch.bfloat16, torch.float32)]
+        # D = 256 at the training length, beside SDPA's flash forward
+        + [(2, 12, 1024, 256, True, torch.bfloat16)]),
     "dequant_matmul": (case_dequant, [
         (m, k, n, groups, dt) for m in (8, 1024)
         for (k, n) in ((768, 2304), (768, 768), (768, 3072), (3072, 768))
@@ -1266,9 +1352,13 @@ PARITY_CASES = {
            for dt in (torch.float32, torch.bfloat16)]
         + [(2, 4, 200, d, True, dt, False, DROPOUT) for d in (32, 96)
            for dt in (torch.float32, torch.bfloat16)]
-        + [(2, 4, 200, d, True, dt, False, DROPOUT) for d in (40, 80)
+        + [(2, 4, 200, d, True, dt, False, DROPOUT)
+           for d in (40, 80, 36, 136, 256)
            for dt in (torch.float32, torch.bfloat16)]
-        + [(1, 4, LONG_SEQ, 64, True, torch.bfloat16, True, DROPOUT)]),
+        + [(1, 4, LONG_SEQ, 64, True, torch.bfloat16, True, DROPOUT)]
+        # D = 256 at the training length, dropout off, beside SDPA's
+        # flash backward
+        + [(2, 12, 1024, 256, True, torch.bfloat16)]),
     # kernels F and G: (a) bench_sparse_longseq's attention, (b) the
     # Fixed layout of tests/tpu/test_kernel_parity_tpu.py:226-228 causal
     # and not, (c) D = 128, (d) a layout with an empty causal row, (e) a
@@ -1286,7 +1376,7 @@ PARITY_CASES = {
         + [("bigbird", 2, 4, 1024, 64, 128, dt, False, True)
            for dt in (torch.bfloat16, torch.float32)]
         + [("bigbird", 2, 4, 1024, d, 128, dt, True, True)
-           for d in (32, 96, 40, 80)
+           for d in (32, 96, 40, 80, 36, 136, 256)
            for dt in (torch.bfloat16, torch.float32)]),
     # the 16-byte rule of the tensor-core route: each attention launch with
     # a misaligned bf16 operand, against the same call on an aligned copy
@@ -1301,6 +1391,10 @@ PARITY_CASES = {
         for bits in (8, 4, 0) for dt in FCM_DTYPES]),
     "fcm_tile_rs": (case_fcm_tile_rs, [
         (FCM_ROWS, kc, n, dt) for kc, n in FCM_TILES for dt in FCM_DTYPES]),
+    # kernel H's route, by the device kernels one launch of each entry
+    # point ran
+    "fcm_tile_route": (case_fcm_tile_kernels, [
+        (entry, dt) for entry in ("ag", "ag_t", "rs") for dt in FCM_DTYPES]),
     # kernel I: a step that accumulates and the last step's cast (int8 at
     # every tile in both dtypes), int4 and native payloads at every tile
     # and the first step at c_fc's in bf16 (the tensor cores; fp32 takes
@@ -2255,6 +2349,8 @@ def phase_fcm_timing():
                          "yardstick": rs_yardstick})
         overlap = copy_overlap_share(lambda: ag(None))
         producers = products_device_ms(lambda: rs(None))
+        per_tile_ag = products_device_ms(lambda: ag(True))
+        per_tile_rs = products_device_ms(lambda: rs(True))
     return None, {
         "case": f"c_fc [{k},{n}] bf16, 8 bits, M={FCM_ROWS} per rank, "
                 f"W={FCM_WORLD} ranks on {len(mesh.devices)} card(s)",
@@ -2263,7 +2359,9 @@ def phase_fcm_timing():
         "yardstick": "low_bandwidth_all_gather then torch.matmul; "
                      "torch.matmul then qgz_reduce_scatter_inner",
         "fused_forward_trace": overlap,
-        "fused_reduce_scatter_producers": producers}
+        "fused_reduce_scatter_producers": producers,
+        "per_tile_forward_products": per_tile_ag,
+        "per_tile_reduce_scatter_products": per_tile_rs}
 
 
 def last_line():

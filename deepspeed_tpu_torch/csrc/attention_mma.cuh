@@ -16,8 +16,8 @@
 //   below the tile's D (any multiple of 8) is zero-filled past its end, so
 //   the zero columns add nothing to a product, and never stored.
 // - A swizzled shared-memory layout of [rows][D] bf16 tiles, D in {32, 64,
-//   96, 128} (the instantiations; the true head dim may be smaller): a
-//   row's 16-byte chunks are permuted inside groups of eight
+//   96, 128, 256} (the instantiations; the true head dim may be smaller):
+//   a row's 16-byte chunks are permuted inside groups of eight
 //   (or, for a row's last four when D / 8 is not a multiple of eight,
 //   inside that group of four), so that the eight rows one `ldmatrix` 8 x 8
 //   matrix reads fall into eight different 16-byte bank groups (tile_offset).
@@ -33,6 +33,13 @@
 //   of the dk/dv launch (E, G): one 64 x 64 tile's products and softmax
 //   work for a warp's 16 rows.  The dense and block-sparse kernels differ
 //   only in the tiles they walk.
+// - The column split of D = 256 (ColumnSplit): a warp's fp32 sums of 16
+//   rows x 256 columns (128 registers for O or dQ, 256 for dK and dV) do
+//   not fit beside the scores, so from D = 256 on a block has two groups of
+//   four warps.  Both groups compute a tile's scores over the whole D from
+//   shared memory (Q too, which D <= 128 keeps in registers), and each
+//   accumulates its own 128 output columns: the score products run twice,
+//   the output products once.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16 inputs), with
 // g = lane / 4 and t = lane % 4:
@@ -106,7 +113,7 @@ template <int D>
 __device__ __forceinline__ uint32_t tile_offset(int row, int col) {
   constexpr int kChunks = D / 8;
   constexpr int kGrouped = kChunks & ~7;  // chunks in whole groups of eight
-  static_assert(D % 32 == 0 && D <= 128, "tiles of 4, 8, 12 or 16 chunks");
+  static_assert(D % 32 == 0 && D <= 256, "rows of 4 to 32 chunks, in fours");
   const int c = col >> 3;
   const int p = c < kGrouped ? (((c ^ row) & 7) | (c & ~7))
                              : (((c ^ (row >> 1)) & 3) | (c & ~3));
@@ -117,6 +124,17 @@ template <int D>
 __host__ __device__ constexpr int tile_bytes(int rows) {
   return rows * D * 2;
 }
+
+// How a block of the per-tile steps splits its head dim: kParts groups of
+// four warps, each owning DO of the D output columns (at column
+// (warp / 4) * DO); every warp computes the whole-D scores of its 16 rows.
+template <int D>
+struct ColumnSplit {
+  static constexpr int kParts = D > 128 ? 2 : 1;
+  static constexpr int DO = D / kParts;
+  static constexpr int kThreads = 128 * kParts;
+  static_assert(DO <= 128, "a warp's sums hold at most 128 columns");
+};
 
 // Issue the copies of rows [r0, r0 + ROWS) of one head's [S, dhead] operand
 // (row stride `ss` elements) into a tile of the instantiation's D >= dhead
@@ -262,16 +280,17 @@ __device__ __forceinline__ void warp_abt_smem(float (&s)[N / 8][4], uint32_t a_t
   }
 }
 
-// o[16 x D] += P[16 x K] . tile[k0 .. k0 + K)[0 .. D), P as A fragments.
-template <int K, int D>
-__device__ __forceinline__ void warp_ab(float (&o)[D / 8][4], const uint32_t (&p)[K / 16][4],
-                                        uint32_t tile, int k0, int lane) {
+// o[16 x DO] += P[16 x K] . tile[k0 .. k0 + K)[c0 .. c0 + DO), P as A
+// fragments (DO of the tile's D columns from column c0).
+template <int K, int D, int DO = D>
+__device__ __forceinline__ void warp_ab(float (&o)[DO / 8][4], const uint32_t (&p)[K / 16][4],
+                                        uint32_t tile, int k0, int lane, int c0 = 0) {
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk) {
 #pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
+    for (int dp = 0; dp < DO / 16; ++dp) {
       uint32_t b[4];
-      ldsm_x4_trans(b, frag_addr<D>(tile, k0 + 16 * kk, 16 * dp, lane));
+      ldsm_x4_trans(b, frag_addr<D>(tile, k0 + 16 * kk, c0 + 16 * dp, lane));
       mma_16816(o[2 * dp], p[kk], b[0], b[1]);
       mma_16816(o[2 * dp + 1], p[kk], b[2], b[3]);
     }
@@ -308,37 +327,37 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Write the warp's accumulator rows [16 x D] as bf16 into rows
-// [r0, r0 + 16) of a tile (the warp's own rows: no block barrier needed,
-// only __syncwarp before they are read back).
-template <int D>
+// Write the warp's accumulator rows [16 x DO] as bf16 into rows
+// [r0, r0 + 16) x columns [c0, c0 + DO) of a tile (the warp's own block:
+// no block barrier needed, only __syncwarp before it is read back).
+template <int D, int DO = D>
 __device__ __forceinline__ void acc_to_tile(unsigned char* tile, int r0,
-                                            const float (&o)[D / 8][4], float scale_lo,
-                                            float scale_hi, int lane) {
+                                            const float (&o)[DO / 8][4], float scale_lo,
+                                            float scale_hi, int lane, int c0 = 0) {
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < DO / 8; ++j) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const float sc = half ? scale_hi : scale_lo;
       const uint32_t off =
-          tile_offset<D>(r0 + frag_row(lane, 2 * half), frag_col(lane, j, 0));
+          tile_offset<D>(r0 + frag_row(lane, 2 * half), c0 + frag_col(lane, j, 0));
       *reinterpret_cast<uint32_t*>(tile + off) =
           pack_bf16(o[j][2 * half] * sc, o[j][2 * half + 1] * sc);
     }
   }
 }
 
-// Store rows [r0, r0 + 16) of a tile to global rows g0 + 0..15 (row stride
-// `ss` elements), 16 bytes per thread and step; rows at or past S, and the
-// chunks at and past dhead, are skipped.
-template <int D>
+// Store rows [r0, r0 + 16) x columns [c0, c0 + DO) of a tile to global
+// rows g0 + 0..15 (row stride `ss` elements), 16 bytes per thread and
+// step; rows at or past S, and the chunks at and past dhead, are skipped.
+template <int D, int DO = D>
 __device__ __forceinline__ void tile_rows_to_global(__nv_bfloat16* dst, long long ss, int g0,
                                                     int S, const unsigned char* tile, int r0,
-                                                    int lane, int dhead) {
-  constexpr int kChunks = D / 8;
+                                                    int lane, int dhead, int c0 = 0) {
+  constexpr int kChunks = DO / 8;
 #pragma unroll
   for (int i = lane; i < 16 * kChunks; i += 32) {
-    const int r = i / kChunks, c = i % kChunks;
+    const int r = i / kChunks, c = c0 / 8 + i % kChunks;
     if (g0 + r < S && c * 8 < dhead) {
       *reinterpret_cast<uint4*>(dst + static_cast<long long>(g0 + r) * ss + c * 8) =
           *reinterpret_cast<const uint4*>(tile + tile_offset<D>(r0 + r, c * 8));
@@ -453,22 +472,20 @@ __device__ __forceinline__ bool kept(uint32_t fragment_bits, int j, int e) {
 // for dropout alone took 206 registers against 167 and ran 19% slower on
 // the H100 (PERF.md).
 
-// Forward (kernels B and F): the warp's 16 query rows (Q as A fragments in
-// qa) against the 64 keys of a K / V tile pair: S = Q K^T, the online
-// softmax update of the row maxima m and of this thread's share of the row
-// sums l, then acc = acc * alpha + P V, P rounded to bf16 from registers.
-// With dropout, l takes the raw P and only the P.V input is dropped (the
-// keep scale multiplies the output once, with 1 / l).
-template <int D, bool kDropout>
-__device__ __forceinline__ void fwd_tile_step(float (&acc)[D / 8][4], float (&m)[2],
-                                              float (&l)[2], const uint32_t (&qa)[D / 16][4],
-                                              uint32_t k_tile, uint32_t v_tile, int n0,
-                                              const int (&rows)[2], int Sk, bool causal,
-                                              bool edge, float sm_scale, bool drop,
-                                              const uint64_t* keep_words, int lane) {
+// Forward (kernels B and F), after S = Q K^T of the warp's 16 query rows
+// against the 64 keys of a K / V tile pair (in s): the online softmax
+// update of the row maxima m and of this thread's share of the row sums l,
+// then acc = acc * alpha + P V[:, c0 .. c0 + DO), P rounded to bf16 from
+// registers.  With dropout, l takes the raw P and only the P.V input is
+// dropped (the keep scale multiplies the output once, with 1 / l).
+template <int D, int DO, bool kDropout>
+__device__ __forceinline__ void fwd_softmax_pv(float (&acc)[DO / 8][4], float (&m)[2],
+                                               float (&l)[2], float (&s)[kTile / 8][4],
+                                               uint32_t v_tile, int n0, const int (&rows)[2],
+                                               int Sk, bool causal, bool edge, float sm_scale,
+                                               bool drop, const uint64_t* keep_words, int lane,
+                                               int c0) {
   constexpr int N = kTile;
-  float s[N / 8][4];
-  warp_abt<D, N>(s, qa, k_tile, 0, lane);
   float mt[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
@@ -516,7 +533,7 @@ __device__ __forceinline__ void fwd_tile_step(float (&acc)[D / 8][4], float (&m)
       for (int e = 0; e < 4; ++e) s[j][e] = kept(keep, j, e) ? s[j][e] : 0.f;
   }
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < DO / 8; ++j) {
     acc[j][0] *= alpha[0];
     acc[j][1] *= alpha[0];
     acc[j][2] *= alpha[1];
@@ -524,21 +541,53 @@ __device__ __forceinline__ void fwd_tile_step(float (&acc)[D / 8][4], float (&m)
   }
   uint32_t pa[N / 16][4];
   acc_to_a<N>(pa, s);
-  warp_ab<N, D>(acc, pa, v_tile, 0, lane);
+  warp_ab<N, D, DO>(acc, pa, v_tile, 0, lane, c0);
+}
+
+// The forward step with Q as A fragments in registers (qa; D <= 128).
+template <int D, bool kDropout>
+__device__ __forceinline__ void fwd_tile_step(float (&acc)[D / 8][4], float (&m)[2],
+                                              float (&l)[2], const uint32_t (&qa)[D / 16][4],
+                                              uint32_t k_tile, uint32_t v_tile, int n0,
+                                              const int (&rows)[2], int Sk, bool causal,
+                                              bool edge, float sm_scale, bool drop,
+                                              const uint64_t* keep_words, int lane) {
+  float s[kTile / 8][4];
+  warp_abt<D, kTile>(s, qa, k_tile, 0, lane);
+  fwd_softmax_pv<D, D, kDropout>(acc, m, l, s, v_tile, n0, rows, Sk, causal, edge, sm_scale,
+                                 drop, keep_words, lane, 0);
+}
+
+// The forward step with Q read from rows [w0, w0 + 16) of its tile at each
+// k-slice, for a warp that owns DO of the output columns (from c0): the
+// column split of D = 256.
+template <int D, int DO, bool kDropout>
+__device__ __forceinline__ void fwd_tile_step_split(float (&acc)[DO / 8][4], float (&m)[2],
+                                                    float (&l)[2], uint32_t q_tile, int w0,
+                                                    uint32_t k_tile, uint32_t v_tile, int n0,
+                                                    const int (&rows)[2], int Sk, bool causal,
+                                                    bool edge, float sm_scale, bool drop,
+                                                    const uint64_t* keep_words, int lane,
+                                                    int c0) {
+  float s[kTile / 8][4];
+  warp_abt_smem<D, kTile>(s, q_tile, w0, k_tile, 0, lane);
+  fwd_softmax_pv<D, DO, kDropout>(acc, m, l, s, v_tile, n0, rows, Sk, causal, edge, sm_scale,
+                                  drop, keep_words, lane, c0);
 }
 
 // dq launch (kernels E and G): the warp's 16 query rows (rows w0.. of the
 // Q and dO tiles) against a K / V tile pair: S = Q K^T and dP = dO V^T,
-// P = exp(S scale - lse), dS = P (dP_drop - delta) scale, acc += dS K.
-template <int D, bool kDropout>
-__device__ __forceinline__ void bwd_dq_tile_step(float (&acc)[D / 8][4], uint32_t q_tile,
+// P = exp(S scale - lse), dS = P (dP_drop - delta) scale,
+// acc += dS K[:, c0 .. c0 + DO).
+template <int D, int DO, bool kDropout>
+__device__ __forceinline__ void bwd_dq_tile_step(float (&acc)[DO / 8][4], uint32_t q_tile,
                                                  uint32_t do_tile, int w0, uint32_t k_tile,
                                                  uint32_t v_tile, int n0, const int (&rows)[2],
                                                  const float (&lse_r)[2],
                                                  const float (&delta_r)[2], int Sk, bool causal,
                                                  bool edge, float sm_scale, bool drop,
                                                  const uint64_t* keep_words, float keep_scale,
-                                                 int lane) {
+                                                 int lane, int c0) {
   constexpr int N = kTile;
   const bool dropping = kDropout && drop;
   float s[N / 8][4], dp[N / 8][4];
@@ -559,7 +608,7 @@ __device__ __forceinline__ void bwd_dq_tile_step(float (&acc)[D / 8][4], uint32_
   }
   uint32_t a[N / 16][4];
   acc_to_a<N>(a, s);
-  warp_ab<N, D>(acc, a, k_tile, 0, lane);
+  warp_ab<N, D, DO>(acc, a, k_tile, 0, lane, c0);
 }
 
 // dk/dv launch (kernels E and G): the warp's 16 keys (rows w0.. of the K
@@ -567,16 +616,17 @@ __device__ __forceinline__ void bwd_dq_tile_step(float (&acc)[D / 8][4], uint32_
 // (Q, dO and their lse / delta in shared memory; query m0 is the tile's
 // row 0, key n0 the K tile's): S^T = K Q^T gives P^T, dv += P_drop^T dO;
 // dP^T = V dO^T gives dS^T, dk += dS^T Q; P_drop^T and dS^T reach their
-// products from registers.  The keep scale of dv is left to the caller.
-template <int D, bool kDropout>
-__device__ __forceinline__ void bwd_dkdv_tile_step(float (&dk)[D / 8][4], float (&dv)[D / 8][4],
+// products from registers; the warp accumulates the DO columns of dk and
+// dv from c0.  The keep scale of dv is left to the caller.
+template <int D, int DO, bool kDropout>
+__device__ __forceinline__ void bwd_dkdv_tile_step(float (&dk)[DO / 8][4], float (&dv)[DO / 8][4],
                                                    uint32_t k_tile, uint32_t v_tile, int w0,
                                                    uint32_t q_tile, uint32_t do_tile,
                                                    const float* ls, const float* dl, int m0,
                                                    int n0, int Sq, int Sk, bool causal,
                                                    bool edge, float sm_scale, bool drop,
                                                    const uint64_t* keep_words, float keep_scale,
-                                                   int lane) {
+                                                   int lane, int c0) {
   constexpr int M = kTile;
   const bool dropping = kDropout && drop;
   const uint32_t keep = dropping ? fragment_keep_t(keep_words, w0 + (lane >> 2), lane) : 0u;
@@ -601,7 +651,7 @@ __device__ __forceinline__ void bwd_dkdv_tile_step(float (&dk)[D / 8][4], float 
     }
     acc_to_a<M>(a, pd);
   }
-  warp_ab<M, D>(dv, a, do_tile, 0, lane);
+  warp_ab<M, D, DO>(dv, a, do_tile, 0, lane, c0);
 
   // dP^T -> dS^T = P (dP_drop - delta) scale -> dK += dS^T Q
   float ds[M / 8][4];
@@ -617,7 +667,7 @@ __device__ __forceinline__ void bwd_dkdv_tile_step(float (&dk)[D / 8][4], float 
     }
   }
   acc_to_a<M>(a, ds);
-  warp_ab<M, D>(dk, a, q_tile, 0, lane);
+  warp_ab<M, D, DO>(dk, a, q_tile, 0, lane, c0);
 }
 
 }  // namespace ds_mma

@@ -32,15 +32,20 @@
 // operands: operations bound both (~140 and ~186 us at the bf16
 // tensor-core peak).
 //
-// Head dims: any multiple of 8 up to 128 runs, on either route, the
-// smallest instantiation (32, 64, 96, 128) at or above it; the columns
-// past the true D are zero-filled on load, so they add nothing to a
-// product, and are never stored.
+// Head dims: any D up to 256 runs, on either route, the smallest
+// instantiation (32, 64, 96, 128, 256) at or above it; the columns past
+// the true D are zero-filled on load, so they add nothing to a product,
+// and are never stored.  The tensor-core route takes D a multiple of 8
+// (its 16-byte copies): the Python wrapper pads any other D with zero
+// columns up to one, and passes the true D's 1 / sqrt(D).  D = 256 splits
+// the output columns over two groups of four warps on the tensor cores
+// (ds_mma::ColumnSplit) and runs 32 x 32 tiles on the CUDA cores, as
+// kernel E does.
 //
 // Two routes, chosen by the operands' dtype:
 //
 // bf16, tensor cores (tc::bsf_bwd_dq_mma_kernel and
-// tc::bsf_bwd_dkdv_mma_kernel, D in {32, 64, 96, 128}).  Kernel E's
+// tc::bsf_bwd_dkdv_mma_kernel, D in {32, 64, 96, 128, 256}).  Kernel E's
 // tensor-core kernels (`mma.sync` m16n8k16 from two `cp.async` stages of
 // swizzled bf16 tiles, each warp 16 query rows in dq and 16 keys in dk/dv,
 // P and dS fed to their next product from registers: nothing is staged in
@@ -82,31 +87,41 @@ struct Strides {
 // ===================================================================== //
 namespace fp32 {
 
-constexpr int kBM = 64;                // query rows per tile
-constexpr int kBN = 64;                // keys per tile
-constexpr int kThreads = 256;
-constexpr int kTPR = kThreads / kBM;   // threads per row: 4
-constexpr int kNS = kBN / kTPR;        // scores per thread per tile: 16
-constexpr int kPP = kBN + 1;           // padded row of the P / dS tiles
+constexpr int kTPR = 4;  // threads per row
 
-// Load rows [r0, r0 + kBM) of one head's [S, D] operand as fp32 into a
-// [kBM][DP] tile.
+// The tiles by head dim: 64 query rows and 64 keys, 256 threads; for
+// D > 128, 32 and 32 with 128 threads, since four fp32 tiles of 64 rows
+// (Q, dO, K, V: 263 KB at D = 256) would not fit the 227 KB of shared
+// memory a block can have (a layout block is a multiple of 64, so of 32).
+template <int D>
+struct Tiles {
+  static constexpr int kBM = D > 128 ? 32 : 64;  // query rows per tile
+  static constexpr int kBN = kBM;                // keys per tile
+  static constexpr int kThreads = kTPR * kBM;
+  static constexpr int kNS = kBN / kTPR;         // scores per thread per tile
+  static constexpr int kPP = kBN + 1;            // padded row of the P / dS tiles
+};
+
+// Load rows [r0, r0 + Tiles::kBM) of one head's [S, D] operand as fp32
+// into a [kBM][DP] tile.
 template <typename T, int D, int DP>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, Strides st,
                                           int r0, int dhead) {
-  for (int idx = threadIdx.x; idx < kBM * D; idx += kThreads) {
+  using TL = Tiles<D>;
+  for (int idx = threadIdx.x; idx < TL::kBM * D; idx += TL::kThreads) {
     const int row = idx / D, col = idx % D;
     dst[row * DP + col] = col < dhead ? ds_to_float(src[(r0 + row) * st.s + col]) : 0.f;
   }
 }
 
-// The 16 scores and dP of this thread's row r against keys n0 + j + 4 i,
+// The kNS scores and dP of this thread's row r against keys n0 + j + 4 i,
 // turned into P (in s) and dS (in dp).
 template <int D, int DP>
 __device__ __forceinline__ void tile_grads(
     const float* qs, const float* dos, const float* ks, const float* vs,
     int r, int j, int qrow, int n0, float lse_r, float delta_r,
     float sm_scale, int causal, float* s, float* dp) {
+  constexpr int kNS = Tiles<D>::kNS;
 #pragma unroll
   for (int i = 0; i < kNS; ++i) {
     s[i] = 0.f;
@@ -136,17 +151,18 @@ __device__ __forceinline__ void tile_grads(
 
 template <int D>
 constexpr size_t dkdv_smem_bytes() {
-  return static_cast<size_t>(4 * kBM * (D + 1) + 2 * kBM * kPP + 2 * kBM) *
+  using TL = Tiles<D>;
+  return static_cast<size_t>(4 * TL::kBM * (D + 1) + 2 * TL::kBM * TL::kPP + 2 * TL::kBM) *
          sizeof(float);
 }
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
-  return static_cast<size_t>(4 * kBM * (D + 1)) * sizeof(float);
+  return static_cast<size_t>(4 * Tiles<D>::kBM * (D + 1)) * sizeof(float);
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Tiles<D>::kThreads)
 bsf_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
@@ -154,6 +170,9 @@ bsf_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     T* __restrict__ dv, Layout lay_t, int H, int S,
                     Strides qs_, Strides ks_, Strides vs_, Strides dos_,
                     Strides dks_, Strides dvs_, float sm_scale, int dhead, int causal) {
+  using TL = Tiles<D>;
+  constexpr int kBM = TL::kBM, kBN = TL::kBN, kThreads = TL::kThreads, kNS = TL::kNS,
+                kPP = TL::kPP;
   constexpr int DP = D + 1;
   constexpr int DC = D / kTPR;
   extern __shared__ float smem[];
@@ -248,7 +267,7 @@ bsf_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Tiles<D>::kThreads)
 bsf_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const T* __restrict__ dout,
                   const float* __restrict__ lse,
@@ -256,6 +275,8 @@ bsf_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   Layout lay, int H, int S, Strides qs_, Strides ks_,
                   Strides vs_, Strides dos_, Strides dqs_, float sm_scale, int dhead,
                   int causal) {
+  using TL = Tiles<D>;
+  constexpr int kBM = TL::kBM, kBN = TL::kBN, kNS = TL::kNS;
   constexpr int DP = D + 1;
   constexpr int DC = D / kTPR;
   extern __shared__ float smem[];
@@ -340,8 +361,8 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
       bsf_bwd_dkdv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * H, S / kBN);
-  bsf_bwd_dkdv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(B * H, S / Tiles<D>::kBN);
+  bsf_bwd_dkdv_kernel<T, D><<<grid, Tiles<D>::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dk), static_cast<T*>(dv), lay_t, H, S, qs, ks, vs, dos,
@@ -360,8 +381,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
       bsf_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * H, S / kBM);
-  bsf_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(B * H, S / Tiles<D>::kBM);
+  bsf_bwd_dq_kernel<T, D><<<grid, Tiles<D>::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dq), lay, H, S, qs, ks, vs, dos, dqs, sm_scale, dhead,
@@ -379,7 +400,10 @@ namespace tc {
 using bf16 = __nv_bfloat16;
 constexpr int kBM = ds_bsf::kSub;  // query rows per tile
 constexpr int kBN = ds_bsf::kSub;  // keys per tile
-constexpr int kThreads = 128;      // four warps of 16 rows (dq) or 16 keys (dkdv)
+// four warps of 16 rows (dq) or 16 keys (dkdv) per column group
+// (ds_mma::ColumnSplit: one group up to D = 128, two at D = 256)
+template <int D>
+constexpr int kThreads = ds_mma::ColumnSplit<D>::kThreads;
 
 template <int D>
 struct DqLayout {
@@ -396,7 +420,7 @@ struct DqLayout {
 // bytes spilled: on the H100 at the long-context shape 17% and 11% faster
 // than the 194 and 230 the compiler picks (two blocks).
 template <int D>
-__global__ void __launch_bounds__(kThreads, D == 64 ? 4 : 1)
+__global__ void __launch_bounds__(kThreads<D>, D == 64 ? 4 : 1)
 bsf_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
@@ -405,6 +429,8 @@ bsf_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       float sm_scale, int dhead,
                       int causal) {
   using L = DqLayout<D>;
+  using Split = ds_mma::ColumnSplit<D>;
+  constexpr int NT = kThreads<D>, DO = Split::DO;
   constexpr int kKV = ds_mma::tile_bytes<D>(kBN);
   extern __shared__ __align__(128) unsigned char tc_smem[];
   __shared__ int n_live;
@@ -424,10 +450,9 @@ bsf_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + b * ks_.b + h * ks_.h;
   const bf16* vb = v + b * vs_.b + h * vs_.h;
 
-  ds_mma::load_tile_async<kBM, D, kThreads>(s_q, q + b * qs_.b + h * qs_.h, qs_.s, q0, S, tid,
-                                            dhead);
-  ds_mma::load_tile_async<kBM, D, kThreads>(s_do, dout + b * dos_.b + h * dos_.h, dos_.s, q0, S,
-                                            tid, dhead);
+  ds_mma::load_tile_async<kBM, D, NT>(s_q, q + b * qs_.b + h * qs_.h, qs_.s, q0, S, tid, dhead);
+  ds_mma::load_tile_async<kBM, D, NT>(s_do, dout + b * dos_.b + h * dos_.h, dos_.s, q0, S, tid,
+                                      dhead);
   if (warp == 0) {  // the row's live blocks, read once
     const size_t row = (static_cast<size_t>(h) * (S / lay.block) + qi) * lay.max_deg;
     const int n = ds_bsf::compact_live_blocks(live, lay.idx + row, lay.valid + row,
@@ -439,13 +464,14 @@ bsf_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   int n0 = walk.pos;
   bool more = walk.valid();
   if (more) {
-    ds_mma::load_tile_async<kBN, D, kThreads>(s_k, kb, ks_.s, n0, S, tid, dhead);
-    ds_mma::load_tile_async<kBN, D, kThreads>(s_v, vb, vs_.s, n0, S, tid, dhead);
+    ds_mma::load_tile_async<kBN, D, NT>(s_k, kb, ks_.s, n0, S, tid, dhead);
+    ds_mma::load_tile_async<kBN, D, NT>(s_v, vb, vs_.s, n0, S, tid, dhead);
   }
   ds_mma::cp_async_commit();
 
-  const int w0 = warp * 16;    // the warp's first row in the tile
-  const int row0 = q0 + w0;    // ... and in the sequence
+  const int w0 = (Split::kParts == 1 ? warp : warp & 3) * 16;  // the warp's first row
+  const int col0 = Split::kParts == 1 ? 0 : (warp >> 2) * DO;   // ... and output column
+  const int row0 = q0 + w0;    // the warp's first row in the sequence
   const int rows[2] = {row0 + (lane >> 2), row0 + (lane >> 2) + 8};
   float lse_r[2], delta_r[2];
 #pragma unroll
@@ -455,9 +481,9 @@ bsf_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     lse_r[r] = x > 0.5f * DS_MASK_VALUE ? x : CUDART_INF_F;
     delta_r[r] = delta[static_cast<size_t>(bh) * S + rows[r]];
   }
-  float acc[D / 8][4];
+  float acc[DO / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DO / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
@@ -470,25 +496,25 @@ bsf_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     more = walk.valid();
     n0 = walk.pos;
     if (more) {  // sub-tile t + 1, of this block or the next, flies meanwhile
-      ds_mma::load_tile_async<kBN, D, kThreads>(s_k + (st ^ 1) * kKV, kb, ks_.s, n0, S, tid, dhead);
-      ds_mma::load_tile_async<kBN, D, kThreads>(s_v + (st ^ 1) * kKV, vb, vs_.s, n0, S, tid, dhead);
+      ds_mma::load_tile_async<kBN, D, NT>(s_k + (st ^ 1) * kKV, kb, ks_.s, n0, S, tid, dhead);
+      ds_mma::load_tile_async<kBN, D, NT>(s_v + (st ^ 1) * kKV, vb, vs_.s, n0, S, tid, dhead);
       ds_mma::cp_async_commit();
     }
     // causal: a warp whose rows all lie above this sub-tile has nothing in it
     if (causal && c0 > row0 + 15) continue;
     const bool edge = causal && c0 + kBN - 1 > row0;
-    ds_mma::bwd_dq_tile_step<D, false>(acc, s_q, s_do, w0, s_k + st * kKV, s_v + st * kKV, c0,
-                                       rows, lse_r, delta_r, S, causal, edge, sm_scale, false,
-                                       nullptr, 1.f, lane);
+    ds_mma::bwd_dq_tile_step<D, DO, false>(acc, s_q, s_do, w0, s_k + st * kKV, s_v + st * kKV,
+                                           c0, rows, lse_r, delta_r, S, causal, edge, sm_scale,
+                                           false, nullptr, 1.f, lane, col0);
   }
 
   // dq through the warp's own rows of the Q tile, for 16-byte stores
   ds_mma::cp_async_wait<0>();
   __syncthreads();
-  ds_mma::acc_to_tile<D>(tc_smem + L::kQ, w0, acc, 1.f, 1.f, lane);
+  ds_mma::acc_to_tile<D, DO>(tc_smem + L::kQ, w0, acc, 1.f, 1.f, lane, col0);
   __syncwarp();
-  ds_mma::tile_rows_to_global<D>(dq + b * dqs_.b + h * dqs_.h, dqs_.s, row0, S,
-                                 tc_smem + L::kQ, w0, lane, dhead);
+  ds_mma::tile_rows_to_global<D, DO>(dq + b * dqs_.b + h * dqs_.h, dqs_.s, row0, S,
+                                     tc_smem + L::kQ, w0, lane, dhead, col0);
 }
 
 template <int D>
@@ -504,7 +530,7 @@ struct DkdvLayout {
 };
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 1)
+__global__ void __launch_bounds__(kThreads<D>, D == 64 ? 3 : 1)
 bsf_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
@@ -512,6 +538,8 @@ bsf_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         int H, int S, Strides qs_, Strides ks_, Strides vs_, Strides dos_,
                         Strides dks_, Strides dvs_, float sm_scale, int dhead, int causal) {
   using L = DkdvLayout<D>;
+  using Split = ds_mma::ColumnSplit<D>;
+  constexpr int NT = kThreads<D>, DO = Split::DO;
   constexpr int kTile = ds_mma::tile_bytes<D>(kBM);
   extern __shared__ __align__(128) unsigned char tc_smem[];
   __shared__ int n_live;
@@ -538,16 +566,14 @@ bsf_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* qb = q + b * qs_.b + h * qs_.h;
   const bf16* dob = dout + b * dos_.b + h * dos_.h;
   auto load_q_tile = [&](int stage, int m0) {
-    ds_mma::load_tile_async<kBM, D, kThreads>(s_q + stage * kTile, qb, qs_.s, m0, S, tid, dhead);
-    ds_mma::load_tile_async<kBM, D, kThreads>(s_do + stage * kTile, dob, dos_.s, m0, S, tid, dhead);
-    ds_mma::load_stat_async<kBM, kThreads>(s_lse + stage * kBM * 4, lse_b, m0, S, tid);
-    ds_mma::load_stat_async<kBM, kThreads>(s_delta + stage * kBM * 4, delta_b, m0, S, tid);
+    ds_mma::load_tile_async<kBM, D, NT>(s_q + stage * kTile, qb, qs_.s, m0, S, tid, dhead);
+    ds_mma::load_tile_async<kBM, D, NT>(s_do + stage * kTile, dob, dos_.s, m0, S, tid, dhead);
+    ds_mma::load_stat_async<kBM, NT>(s_lse + stage * kBM * 4, lse_b, m0, S, tid);
+    ds_mma::load_stat_async<kBM, NT>(s_delta + stage * kBM * 4, delta_b, m0, S, tid);
   };
 
-  ds_mma::load_tile_async<kBN, D, kThreads>(s_k, k + b * ks_.b + h * ks_.h, ks_.s, n0, S, tid,
-                                            dhead);
-  ds_mma::load_tile_async<kBN, D, kThreads>(s_v, v + b * vs_.b + h * vs_.h, vs_.s, n0, S, tid,
-                                            dhead);
+  ds_mma::load_tile_async<kBN, D, NT>(s_k, k + b * ks_.b + h * ks_.h, ks_.s, n0, S, tid, dhead);
+  ds_mma::load_tile_async<kBN, D, NT>(s_v, v + b * vs_.b + h * vs_.h, vs_.s, n0, S, tid, dhead);
   if (warp == 0) {  // the column's live q-blocks, read once
     const size_t row = (static_cast<size_t>(h) * (S / lay_t.block) + kj) * lay_t.max_deg;
     const int n = ds_bsf::compact_live_blocks(live, lay_t.idx + row, lay_t.valid + row,
@@ -562,11 +588,12 @@ bsf_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (more) load_q_tile(0, m0);
   ds_mma::cp_async_commit();
 
-  const int w0 = warp * 16;    // the warp's first key in the tile
-  const int key0 = n0 + w0;    // ... and in the sequence
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  const int w0 = (Split::kParts == 1 ? warp : warp & 3) * 16;  // the warp's first key
+  const int col0 = Split::kParts == 1 ? 0 : (warp >> 2) * DO;   // ... and output column
+  const int key0 = n0 + w0;    // the warp's first key in the sequence
+  float dk_acc[DO / 8][4], dv_acc[DO / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DO / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       dk_acc[j][e] = 0.f;
@@ -588,23 +615,23 @@ bsf_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // causal: every query of the sub-tile lies before the warp's keys
     if (causal && r0 + kBM - 1 < key0) continue;
     const bool edge = causal && r0 < key0 + 15;
-    ds_mma::bwd_dkdv_tile_step<D, false>(dk_acc, dv_acc, s_k, s_v, w0, s_q + st * kTile,
-                                         s_do + st * kTile, lse_s + st * kBM,
-                                         delta_s + st * kBM, r0, n0, S, S, causal, edge,
-                                         sm_scale, false, nullptr, 1.f, lane);
+    ds_mma::bwd_dkdv_tile_step<D, DO, false>(dk_acc, dv_acc, s_k, s_v, w0, s_q + st * kTile,
+                                             s_do + st * kTile, lse_s + st * kBM,
+                                             delta_s + st * kBM, r0, n0, S, S, causal, edge,
+                                             sm_scale, false, nullptr, 1.f, lane, col0);
   }
 
   // dk and dv through the warp's own rows of the K and V tiles, for
   // 16-byte stores
   ds_mma::cp_async_wait<0>();
   __syncthreads();
-  ds_mma::acc_to_tile<D>(tc_smem + L::kK, w0, dk_acc, 1.f, 1.f, lane);
-  ds_mma::acc_to_tile<D>(tc_smem + L::kV, w0, dv_acc, 1.f, 1.f, lane);
+  ds_mma::acc_to_tile<D, DO>(tc_smem + L::kK, w0, dk_acc, 1.f, 1.f, lane, col0);
+  ds_mma::acc_to_tile<D, DO>(tc_smem + L::kV, w0, dv_acc, 1.f, 1.f, lane, col0);
   __syncwarp();
-  ds_mma::tile_rows_to_global<D>(dk + b * dks_.b + h * dks_.h, dks_.s, key0, S,
-                                 tc_smem + L::kK, w0, lane, dhead);
-  ds_mma::tile_rows_to_global<D>(dv + b * dvs_.b + h * dvs_.h, dvs_.s, key0, S,
-                                 tc_smem + L::kV, w0, lane, dhead);
+  ds_mma::tile_rows_to_global<D, DO>(dk + b * dks_.b + h * dks_.h, dks_.s, key0, S,
+                                     tc_smem + L::kK, w0, lane, dhead, col0);
+  ds_mma::tile_rows_to_global<D, DO>(dv + b * dvs_.b + h * dvs_.h, dvs_.s, key0, S,
+                                     tc_smem + L::kV, w0, lane, dhead, col0);
 }
 
 template <int D>
@@ -618,7 +645,7 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = static_cast<long long>(S / kBN) * B * H;
-  bsf_bwd_dkdv_mma_kernel<D><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+  bsf_bwd_dkdv_mma_kernel<D><<<static_cast<unsigned>(blocks), kThreads<D>, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), lay_t, B, H, S, qs, ks, vs, dos, dks, dvs, sm_scale, dhead, causal);
@@ -636,7 +663,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = static_cast<long long>(S / kBM) * B * H;
-  bsf_bwd_dq_mma_kernel<D><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+  bsf_bwd_dq_mma_kernel<D><<<static_cast<unsigned>(blocks), kThreads<D>, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), lay, B, H, S, qs, ks,
       vs, dos, dqs, sm_scale, dhead, causal);
@@ -673,23 +700,23 @@ extern "C" int ds_block_sparse_flash_bwd_dkdv(
 #define DS_DKDV(NS, ...)                                                                        \
   return NS::launch_dkdv<__VA_ARGS__>(q, k, v, dout, l, dl, dk, dv, lay_t, B, H, S, qs, ks, vs, \
                                       dos, dks, dvs, sm_scale, D, causal, s)
-  // any D that is a multiple of 8 up to 128 runs the smallest instantiation at or
-  // above it, its columns past D zero-filled on load and masked on store
-  if (D < 8 || D > 128 || D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  // any D up to 256 (bf16: a multiple of 8) runs the smallest instantiation
+  // at or above it, its columns past D zero-filled on load and masked on
+  // store
+  if (!ds_head_dim_ok(D, dtype)) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == DS_DTYPE_BF16) {
     if (D <= 32) DS_DKDV(tc, 32);
     if (D <= 64) DS_DKDV(tc, 64);
     if (D <= 96) DS_DKDV(tc, 96);
     if (D <= 128) DS_DKDV(tc, 128);
+    DS_DKDV(tc, 256);
   }
-  if (dtype == DS_DTYPE_FP32) {
-    if (D <= 32) DS_DKDV(fp32, float, 32);
-    if (D <= 64) DS_DKDV(fp32, float, 64);
-    if (D <= 96) DS_DKDV(fp32, float, 96);
-    if (D <= 128) DS_DKDV(fp32, float, 128);
-  }
+  if (D <= 32) DS_DKDV(fp32, float, 32);
+  if (D <= 64) DS_DKDV(fp32, float, 64);
+  if (D <= 96) DS_DKDV(fp32, float, 96);
+  if (D <= 128) DS_DKDV(fp32, float, 128);
+  DS_DKDV(fp32, float, 256);
 #undef DS_DKDV
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int ds_block_sparse_flash_bwd_dq(
@@ -714,21 +741,21 @@ extern "C" int ds_block_sparse_flash_bwd_dq(
 #define DS_DQ(NS, ...)                                                                       \
   return NS::launch_dq<__VA_ARGS__>(q, k, v, dout, l, dl, dq, lay, B, H, S, qs, ks, vs, dos, \
                                     dqs, sm_scale, D, causal, s)
-  // any D that is a multiple of 8 up to 128 runs the smallest instantiation at or
-  // above it, its columns past D zero-filled on load and masked on store
-  if (D < 8 || D > 128 || D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  // any D up to 256 (bf16: a multiple of 8) runs the smallest instantiation
+  // at or above it, its columns past D zero-filled on load and masked on
+  // store
+  if (!ds_head_dim_ok(D, dtype)) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == DS_DTYPE_BF16) {
     if (D <= 32) DS_DQ(tc, 32);
     if (D <= 64) DS_DQ(tc, 64);
     if (D <= 96) DS_DQ(tc, 96);
     if (D <= 128) DS_DQ(tc, 128);
+    DS_DQ(tc, 256);
   }
-  if (dtype == DS_DTYPE_FP32) {
-    if (D <= 32) DS_DQ(fp32, float, 32);
-    if (D <= 64) DS_DQ(fp32, float, 64);
-    if (D <= 96) DS_DQ(fp32, float, 96);
-    if (D <= 128) DS_DQ(fp32, float, 128);
-  }
+  if (D <= 32) DS_DQ(fp32, float, 32);
+  if (D <= 64) DS_DQ(fp32, float, 64);
+  if (D <= 96) DS_DQ(fp32, float, 96);
+  if (D <= 128) DS_DQ(fp32, float, 128);
+  DS_DQ(fp32, float, 256);
 #undef DS_DQ
-  return static_cast<int>(cudaErrorInvalidValue);
 }

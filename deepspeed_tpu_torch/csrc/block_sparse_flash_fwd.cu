@@ -18,14 +18,17 @@
 // diagonal ones per head, ~92 GFLOP against ~102 MB of q, k, v, out and
 // lse: the bf16 tensor cores bound it at ~93 us, the memory at ~30 us.
 //
-// Head dims: any multiple of 8 up to 128 runs, on either route, the
-// smallest instantiation (32, 64, 96, 128) at or above it; the columns
-// past the true D are zero-filled on load, so they add nothing to a
-// product, and are never stored.
+// Head dims: any D up to 256 runs, on either route, the smallest
+// instantiation (32, 64, 96, 128, 256) at or above it; the columns past
+// the true D are zero-filled on load, so they add nothing to a product,
+// and are never stored.  The tensor-core route takes D a multiple of 8
+// (its 16-byte copies): the Python wrapper pads any other D with zero
+// columns up to one, and passes the true D's 1 / sqrt(D).
 //
 // Two routes, chosen by the operands' dtype:
 //
-// bf16, tensor cores (tc::bsf_fwd_mma_kernel, D in {32, 64, 96, 128}).
+// bf16, tensor cores (tc::bsf_fwd_mma_kernel, D in {32, 64, 96, 128,
+// 256}).
 //   Kernel B's tensor-core design (attention_mma.cuh): 4 warps of 16 query
 //   rows make a 64-row q-tile, 64-key sub-tiles arrive through two
 //   `cp.async` stages of swizzled bf16 tiles, S = Q K^T and O += P V run on
@@ -43,7 +46,9 @@
 //     own diagonal are never loaded, and only the one on it is masked;
 //   - the grid runs the q-tiles in reverse order across all heads, so the
 //     heavy last rows of a causal layout start first and do not form the
-//     launch's tail.
+//     launch's tail;
+//   - D = 256 splits O's columns over two groups of four warps, Q read
+//     from shared memory, as kernel B does (ds_mma::ColumnSplit).
 //
 // fp32, CUDA cores (fp32::bsf_fwd_kernel, the first design, kept as it
 // was).  A tensor-core fp32 product would be TF32 and miss the fp32
@@ -230,10 +235,11 @@ namespace tc {
 using bf16 = __nv_bfloat16;
 constexpr int kBM = ds_bsf::kSub;  // query rows per q-tile
 constexpr int kBN = ds_bsf::kSub;  // keys per sub-tile
-constexpr int kThreads = 128;      // four warps of 16 query rows
 
 template <int D>
 struct FwdLayout {
+  // four warps of 16 query rows per column group
+  static constexpr int kThreads = ds_mma::ColumnSplit<D>::kThreads;
   static constexpr int kQ = 0;                                    // [kBM][D]
   static constexpr int kK = kQ + ds_mma::tile_bytes<D>(kBM);      // [2][kBN][D]
   static constexpr int kV = kK + 2 * ds_mma::tile_bytes<D>(kBN);  // [2][kBN][D]
@@ -245,12 +251,14 @@ struct FwdLayout {
 // registers, a few bytes spilled): 1.6% faster on the H100 at the
 // long-context shape than three blocks at the 168 the compiler picks.
 template <int D>
-__global__ void __launch_bounds__(kThreads, D == 64 ? 4 : 1)
+__global__ void __launch_bounds__(FwdLayout<D>::kThreads, D == 64 ? 4 : 1)
 bsf_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
                    Layout lay, int B, int H, int S, Strides qs_, Strides ks_, Strides vs_,
                    Strides os_, float sm_scale, int dhead, int causal) {
   using L = FwdLayout<D>;
+  using Split = ds_mma::ColumnSplit<D>;
+  constexpr int kThreads = L::kThreads, DO = Split::DO;
   constexpr int kKV = ds_mma::tile_bytes<D>(kBN);
   extern __shared__ __align__(128) unsigned char tc_smem[];
   __shared__ int n_live;
@@ -289,21 +297,22 @@ bsf_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   ds_mma::cp_async_commit();
 
-  const int w0 = warp * 16;      // the warp's first row in the tile
-  const int row0 = q0 + w0;      // ... and in the sequence
+  const int w0 = (Split::kParts == 1 ? warp : warp & 3) * 16;  // the warp's first row
+  const int col0 = Split::kParts == 1 ? 0 : (warp >> 2) * DO;   // ... and output column
+  const int row0 = q0 + w0;      // the warp's first row in the sequence
   const int rows[2] = {row0 + (lane >> 2), row0 + (lane >> 2) + 8};
-  float acc[D / 8][4];
+  float acc[DO / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DO / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
   float m[2] = {DS_MASK_VALUE, DS_MASK_VALUE};
   float l[2] = {0.f, 0.f};  // this thread's share of the row sums
-  uint32_t qa[D / 16][4];
+  uint32_t qa[Split::kParts == 1 ? D / 16 : 1][4];
 
   ds_mma::cp_async_wait<0>();
   __syncthreads();
-  ds_mma::load_a<D>(qa, s_q, w0, lane);
+  if constexpr (Split::kParts == 1) ds_mma::load_a<D>(qa, s_q, w0, lane);
 
   for (int t = 0; more; ++t) {
     if (t > 0) {
@@ -323,9 +332,17 @@ bsf_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // causal: a warp whose rows all lie above this sub-tile has nothing in it
     if (causal && c0 > row0 + 15) continue;
     const bool edge = causal && c0 + kBN - 1 > row0;
-    ds_mma::fwd_tile_step<D, false>(acc, m, l, qa, s_k + st * kKV, s_v + st * kKV, c0, rows, S,
-                                    causal, edge, sm_scale, false, nullptr, lane);
+    if constexpr (Split::kParts == 1) {
+      ds_mma::fwd_tile_step<D, false>(acc, m, l, qa, s_k + st * kKV, s_v + st * kKV, c0, rows, S,
+                                      causal, edge, sm_scale, false, nullptr, lane);
+    } else {
+      ds_mma::fwd_tile_step_split<D, DO, false>(acc, m, l, s_q, w0, s_k + st * kKV,
+                                                s_v + st * kKV, c0, rows, S, causal, edge,
+                                                sm_scale, false, nullptr, lane, col0);
+    }
   }
+  // the other group may still read these rows of Q for its last scores
+  if constexpr (Split::kParts > 1) __syncthreads();
 
   // the row sums over the quad; out = acc / l (0 where l is 0: a row with
   // no live block, whose lse is then the mask value's), staged in the
@@ -336,11 +353,11 @@ bsf_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[r] = ds_mma::quad_sum(l[r]);
     inv[r] = 1.f / (l[r] == 0.f ? 1.f : l[r]);
   }
-  ds_mma::acc_to_tile<D>(tc_smem + L::kQ, w0, acc, inv[0], inv[1], lane);
+  ds_mma::acc_to_tile<D, DO>(tc_smem + L::kQ, w0, acc, inv[0], inv[1], lane, col0);
   __syncwarp();
-  ds_mma::tile_rows_to_global<D>(o + b * os_.b + h * os_.h, os_.s, row0, S, tc_smem + L::kQ, w0,
-                                 lane, dhead);
-  if ((lane & 3) == 0) {
+  ds_mma::tile_rows_to_global<D, DO>(o + b * os_.b + h * os_.h, os_.s, row0, S,
+                                     tc_smem + L::kQ, w0, lane, dhead, col0);
+  if (col0 == 0 && (lane & 3) == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       lse[static_cast<size_t>(bh) * S + rows[r]] = m[r] + logf(l[r] + 1e-37f);
@@ -358,7 +375,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
       bsf_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = static_cast<long long>(S / kBM) * B * H;
-  bsf_fwd_mma_kernel<D><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+  bsf_fwd_mma_kernel<D><<<static_cast<unsigned>(blocks), FwdLayout<D>::kThreads, smem,
+                          stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), lse, lay, B, H, S, qs, ks, vs, os, sm_scale, dhead, causal);
   return static_cast<int>(cudaGetLastError());
@@ -389,21 +407,21 @@ extern "C" int ds_block_sparse_flash_fwd(
 #define DS_BSF(NS, ...) \
   return NS::launch<__VA_ARGS__>(q, k, v, o, l, lay, B, H, S, qs, ks, vs, os, sm_scale, D, causal, \
                                  s)
-  // any D that is a multiple of 8 up to 128 runs the smallest instantiation at or
-  // above it, its columns past D zero-filled on load and masked on store
-  if (D < 8 || D > 128 || D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  // any D up to 256 (bf16: a multiple of 8) runs the smallest instantiation
+  // at or above it, its columns past D zero-filled on load and masked on
+  // store
+  if (!ds_head_dim_ok(D, dtype)) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == DS_DTYPE_BF16) {
     if (D <= 32) DS_BSF(tc, 32);
     if (D <= 64) DS_BSF(tc, 64);
     if (D <= 96) DS_BSF(tc, 96);
     if (D <= 128) DS_BSF(tc, 128);
+    DS_BSF(tc, 256);
   }
-  if (dtype == DS_DTYPE_FP32) {
-    if (D <= 32) DS_BSF(fp32, float, 32);
-    if (D <= 64) DS_BSF(fp32, float, 64);
-    if (D <= 96) DS_BSF(fp32, float, 96);
-    if (D <= 128) DS_BSF(fp32, float, 128);
-  }
+  if (D <= 32) DS_BSF(fp32, float, 32);
+  if (D <= 64) DS_BSF(fp32, float, 64);
+  if (D <= 96) DS_BSF(fp32, float, 96);
+  if (D <= 128) DS_BSF(fp32, float, 128);
+  DS_BSF(fp32, float, 256);
 #undef DS_BSF
-  return static_cast<int>(cudaErrorInvalidValue);
 }

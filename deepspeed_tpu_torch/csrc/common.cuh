@@ -15,6 +15,15 @@
 // so a running max over masked scores never becomes -inf.
 #define DS_MASK_VALUE (-0.7f * 3.4028234663852886e+38f)
 
+// The head dims the attention launchers (kernels B, E, F, G) take: 1 to
+// 256, and on the bf16 (tensor-core) route a multiple of 8, the width of
+// its 16-byte copies (the Python wrappers pad any other D with zero
+// columns).
+inline bool ds_head_dim_ok(int D, int dtype) {
+  if (dtype != DS_DTYPE_BF16 && dtype != DS_DTYPE_FP32) return false;
+  return D >= 1 && D <= 256 && (dtype == DS_DTYPE_FP32 || D % 8 == 0);
+}
+
 __device__ __forceinline__ float ds_to_float(float v) { return v; }
 __device__ __forceinline__ float ds_to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);

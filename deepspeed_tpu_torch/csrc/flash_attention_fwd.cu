@@ -15,14 +15,17 @@
 // that a fused QKV projection produces; the output is written as
 // [B, S, H, D].  Any Sq, Sk: rows and keys past the end are masked here.
 //
-// Head dims: any multiple of 8 up to 128 runs, on either route, the
-// smallest instantiation (32, 64, 96, 128) at or above it; the columns
-// past the true D are zero-filled on load, so they add nothing to a
-// product, and are never stored.
+// Head dims: any D up to 256 runs, on either route, the smallest
+// instantiation (32, 64, 96, 128, 256) at or above it; the columns past
+// the true D are zero-filled on load, so they add nothing to a product,
+// and are never stored.  The tensor-core route takes D a multiple of 8
+// (its 16-byte copies): the Python wrapper pads any other D with zero
+// columns up to one, and passes the true D's 1 / sqrt(D).
 //
 // Two routes, chosen by the operands' dtype:
 //
-// bf16, tensor cores (tc::flash_fwd_mma_kernel, D in {32, 64, 96, 128}).
+// bf16, tensor cores (tc::flash_fwd_mma_kernel, D in {32, 64, 96, 128,
+// 256}).
 //   Bound on the H100: at the training shape ([8, 12, 1024, 64] causal)
 //   the two products are 12.9 GFLOP against ~50 MB of q, k, v, out and
 //   lse: 13 us at the 989 TFLOP/s bf16 peak, 15 us at 3.35 TB/s, so the
@@ -50,6 +53,13 @@
 //   two products and the softmax update) is attention_mma.cuh's
 //   fwd_tile_step, which kernel F shares; the two differ only in the tiles
 //   they walk.
+//   D = 256: the 64 rows x 256 columns of O in fp32 and Q's fragments do
+//   not fit a warp's registers beside the scores, so the block has two
+//   groups of four warps (ds_mma::ColumnSplit): each warp reads Q from
+//   shared memory at every k-slice, computes its 16 rows' scores over the
+//   whole D, and accumulates its group's 128 columns of O
+//   (fwd_tile_step_split): S = Q K^T runs twice, P V once.  Q, K and V
+//   take 160 KB of shared memory, one block per SM.
 //
 // fp32, CUDA cores (fp32::flash_fwd_kernel, the first design, kept as it
 // was).  A tensor-core fp32 product would be TF32, about three decimal
@@ -243,12 +253,11 @@ namespace tc {
 
 using bf16 = __nv_bfloat16;
 constexpr int kBN = 64;       // keys per k-tile
-constexpr int kWarps = 4;     // each owns 16 query rows
-constexpr int kBM = 16 * kWarps;
-constexpr int kThreads = kWarps * 32;
+constexpr int kBM = 64;       // query rows per block: 4 warps of 16 (per column group)
 
 template <int D>
 struct FwdLayout {
+  static constexpr int kThreads = ds_mma::ColumnSplit<D>::kThreads;
   static constexpr int kQ = 0;                                   // [kBM][D]
   static constexpr int kK = kQ + ds_mma::tile_bytes<D>(kBM);     // [2][kBN][D]
   static constexpr int kV = kK + 2 * ds_mma::tile_bytes<D>(kBN); // [2][kBN][D]
@@ -260,7 +269,7 @@ struct FwdLayout {
 // registers, a few bytes spilled), which measured faster on the H100 than
 // three blocks at the 159 the compiler picks.
 template <int D>
-__global__ void __launch_bounds__(kThreads, D == 64 ? 4 : 1)
+__global__ void __launch_bounds__(FwdLayout<D>::kThreads, D == 64 ? 4 : 1)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o,
                      float* __restrict__ lse, int B, int H, int Sq, int Sk,
@@ -268,7 +277,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      float sm_scale, int dhead, int causal, const int* __restrict__ seed_ptr,
                      int keep_threshold, float keep_scale) {
   using L = FwdLayout<D>;
-  constexpr int BM = kBM, NT = kThreads;
+  using Split = ds_mma::ColumnSplit<D>;
+  constexpr int BM = kBM, NT = L::kThreads, DO = Split::DO;
   constexpr int kKV = ds_mma::tile_bytes<D>(kBN);
   extern __shared__ __align__(128) unsigned char tc_smem[];
   const uint32_t s_q = ds_mma::smem_u32(tc_smem + L::kQ);
@@ -302,21 +312,22 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     ds_mma::draw_keep_bits<BM, NT>(bits, seed, bh, q0, 0, threshold, tid);
   }
 
-  const int w0 = warp * 16;      // the warp's first row in the tile
-  const int row0 = q0 + w0;      // ... and in the sequence
+  const int w0 = (Split::kParts == 1 ? warp : warp & 3) * 16;  // the warp's first row
+  const int col0 = Split::kParts == 1 ? 0 : (warp >> 2) * DO;   // ... and output column
+  const int row0 = q0 + w0;      // the warp's first row in the sequence
   const int rows[2] = {row0 + (lane >> 2), row0 + (lane >> 2) + 8};
-  float acc[D / 8][4];
+  float acc[DO / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DO / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
   float m[2] = {DS_MASK_VALUE, DS_MASK_VALUE};
   float l[2] = {0.f, 0.f};  // this thread's share of the row sums
-  uint32_t qa[D / 16][4];
+  uint32_t qa[Split::kParts == 1 ? D / 16 : 1][4];
 
   ds_mma::cp_async_wait<0>();
   __syncthreads();
-  ds_mma::load_a<D>(qa, s_q, w0, lane);
+  if constexpr (Split::kParts == 1) ds_mma::load_a<D>(qa, s_q, w0, lane);
 
   for (int t = 0; t < n_tiles; ++t) {
     if (t > 0) {
@@ -339,10 +350,19 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // causal: a warp whose rows all lie above this tile has nothing in it
     if (causal && n0 > row0 + 15) continue;
     const bool edge = n0 + kBN > Sk || (causal && n0 + kBN - 1 > row0);
-    ds_mma::fwd_tile_step<D, true>(acc, m, l, qa, s_k + st * kKV, s_v + st * kKV, n0, rows, Sk,
-                                   causal, edge, sm_scale, drop,
-                                   bits + st * BM + w0 + (lane >> 2), lane);
+    if constexpr (Split::kParts == 1) {
+      ds_mma::fwd_tile_step<D, true>(acc, m, l, qa, s_k + st * kKV, s_v + st * kKV, n0, rows,
+                                     Sk, causal, edge, sm_scale, drop,
+                                     bits + st * BM + w0 + (lane >> 2), lane);
+    } else {
+      ds_mma::fwd_tile_step_split<D, DO, true>(acc, m, l, s_q, w0, s_k + st * kKV,
+                                               s_v + st * kKV, n0, rows, Sk, causal, edge,
+                                               sm_scale, drop, bits + st * BM + w0 + (lane >> 2),
+                                               lane, col0);
+    }
   }
+  // the other group may still read these rows of Q for its last scores
+  if constexpr (Split::kParts > 1) __syncthreads();
 
   // the row sums over the quad; out = acc * keep scale / l (0 where l is
   // 0), staged in the warp's own rows of the Q tile for 16-byte stores
@@ -352,11 +372,11 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[r] = ds_mma::quad_sum(l[r]);
     inv[r] = (drop ? keep_scale : 1.f) / (l[r] == 0.f ? 1.f : l[r]);
   }
-  ds_mma::acc_to_tile<D>(tc_smem + L::kQ, w0, acc, inv[0], inv[1], lane);
+  ds_mma::acc_to_tile<D, DO>(tc_smem + L::kQ, w0, acc, inv[0], inv[1], lane, col0);
   __syncwarp();
-  ds_mma::tile_rows_to_global<D>(o + b * os_.b + h * os_.h, os_.s, row0, Sq, tc_smem + L::kQ, w0,
-                                 lane, dhead);
-  if ((lane & 3) == 0) {
+  ds_mma::tile_rows_to_global<D, DO>(o + b * os_.b + h * os_.h, os_.s, row0, Sq,
+                                     tc_smem + L::kQ, w0, lane, dhead, col0);
+  if (col0 == 0 && (lane & 3) == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (rows[r] < Sq) {
@@ -376,7 +396,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
       flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = static_cast<long long>((Sq + kBM - 1) / kBM) * B * H;
-  flash_fwd_mma_kernel<D><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+  flash_fwd_mma_kernel<D><<<static_cast<unsigned>(blocks), FwdLayout<D>::kThreads, smem,
+                            stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, B, H, Sq, Sk, qs,
       ks, vs, os, sm_scale, dhead, causal, seed, keep_threshold, keep_scale);
@@ -404,21 +425,22 @@ extern "C" int ds_flash_attention_fwd(
   return NS::launch<__VA_ARGS__>(q, k, v, o, l, B, H, Sq, Sk, qs, ks, vs, os, \
                                  sm_scale, D, causal, sd, keep_threshold,     \
                                  keep_scale, s)
-  // any D that is a multiple of 8 up to 128 runs the smallest instantiation at or
-  // above it, its columns past D zero-filled on load and masked on store
-  if (D < 8 || D > 128 || D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  // any D up to 256 (bf16: a multiple of 8) runs the smallest instantiation
+  // at or above it, its columns past D zero-filled on load and masked on
+  // store
+  if (!ds_head_dim_ok(D, dtype)) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == DS_DTYPE_BF16) {
     if (D <= 32) DS_FWD(tc, 32);
     if (D <= 64) DS_FWD(tc, 64);
     if (D <= 96) DS_FWD(tc, 96);
     if (D <= 128) DS_FWD(tc, 128);
+    DS_FWD(tc, 256);
   }
-  if (dtype == DS_DTYPE_FP32) {
-    if (D <= 32) DS_FWD(fp32, 32);
-    if (D <= 64) DS_FWD(fp32, 64);
-    if (D <= 96) DS_FWD(fp32, 96);
-    if (D <= 128) DS_FWD(fp32, 128);
-  }
+  if (D <= 32) DS_FWD(fp32, 32);
+  if (D <= 64) DS_FWD(fp32, 64);
+  if (D <= 96) DS_FWD(fp32, 96);
+  if (D <= 128) DS_FWD(fp32, 128);
+  DS_FWD(fp32, 256);
 #undef DS_FWD
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -61,10 +61,10 @@ FCM_SCOPE = C.FCM_SCOPE
 # payload layouts of csrc/tile_matmul.cuh's weight loader
 W_NATIVE, W_INT8, W_INT4 = 0, 1, 2
 
-# Kernels I and J have two routes each: bf16 left operands (x, g; a and b)
-# multiply on the tensor cores (csrc/tile_mma.cuh), fp32 or mixed ones on
-# the CUDA cores (csrc/tile_matmul.cuh; a tensor-core fp32 product would be
-# TF32).  Kernel H keeps the CUDA cores on every route.
+# Kernels H, I and J have two routes each: bf16 left operands (x, g; a and
+# b) multiply on the tensor cores (csrc/tile_mma.cuh), fp32 or mixed ones
+# on the CUDA cores (csrc/tile_matmul.cuh; a tensor-core fp32 product would
+# be TF32).
 ROUTE_TENSOR_CORES, ROUTE_CUDA_CORES = "tensor_cores", "cuda_cores"
 # the tensor-core route reads its left operands with 16-byte cp.async
 # copies: base and row pitch must be multiples of this many bytes
@@ -73,7 +73,8 @@ CP_ASYNC_BYTES = 16
 # route splits K over blocks so that at least two per SM run, into fp32
 # partials summed in split order by a second pass (SM_COUNT: the H100
 # SXM's).  Output tile and K step of the two split launches
-# (csrc/tile_mma.cuh WprodCfg<true> and AtbCfg).
+# (csrc/tile_mma.cuh WprodCfg<true> and AtbCfg), which kernel H's
+# transposed and producer tiles share with I and J.
 SM_COUNT = 132
 SPLIT_MIN_BLOCKS = 2 * SM_COUNT
 AG_T_TILE = (64, 64, 64)   # kernel I, transposed: BM, BN, BK
@@ -468,8 +469,8 @@ def _check_operand(name, arg, t, rows=None, cols=None):
 
 
 def fcm_route(*operands):
-    """The route kernels I and J take for their left operands: the tensor
-    cores when every one is bf16, else the CUDA cores."""
+    """The route kernels H, I and J take for their left operands: the
+    tensor cores when every one is bf16, else the CUDA cores."""
     if all(t.dtype == torch.bfloat16 for t in operands):
         return ROUTE_TENSOR_CORES
     return ROUTE_CUDA_CORES
@@ -528,7 +529,9 @@ def fcm_tile_ag_reference(x, q, s, bits, kc, n):
 
 def fcm_tile_ag_cuda(x, q, s, bits, kc, n):
     """Kernel H, forward tile: x [m, kc] (bf16 / fp32; a column block is
-    fine) @ the dequantized ring payload -> fp32 [m, n]."""
+    fine) @ the dequantized ring payload -> fp32 [m, n].  bf16 x takes the
+    tensor cores (`fcm_route`), its columns copied first when they break
+    the 16-byte rule (counted on `realigned`)."""
     name = "fcm_tile_ag"
     index = check_cuda(name, x, q, *(() if s is None else (s,)))
     _check_operand(name, "x", x, cols=kc)
@@ -536,6 +539,8 @@ def fcm_tile_ag_cuda(x, q, s, bits, kc, n):
     m = x.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if out.numel():
+        if fcm_route(x) == ROUTE_TENSOR_CORES:
+            x = _cp_async_operand(fcm_tile_ag_cuda, x)
         _launch(name, fcm_tile_ag_cuda, op_builder.load().ds_fcm_tile_ag,
                 x.data_ptr(), x.stride(0), kernel_dtype_code(x), w, sc, mode,
                 wcode, bs, out.data_ptr(), m, kc, n, stream_handle(index))
@@ -543,6 +548,7 @@ def fcm_tile_ag_cuda(x, q, s, bits, kc, n):
 
 
 fcm_tile_ag_cuda.launches = 0
+fcm_tile_ag_cuda.realigned = 0
 
 
 def fcm_tile_ag_t_reference(g, q, s, bits, kc, n):
@@ -552,7 +558,10 @@ def fcm_tile_ag_t_reference(g, q, s, bits, kc, n):
 
 def fcm_tile_ag_t_cuda(g, q, s, bits, kc, n):
     """Kernel H, transposed tile of the dx backward: g [m, n] @ the
-    dequantized payload's transpose -> fp32 [m, kc]."""
+    dequantized payload's transpose -> fp32 [m, kc].  On the tensor-core
+    route (bf16 g) K = n may be split over blocks (`split_plan`), the
+    partials going to a workspace allocated here and summed in split order
+    by the same launch."""
     name = "fcm_tile_ag_t"
     index = check_cuda(name, g, q, *(() if s is None else (s,)))
     _check_operand(name, "g", g, cols=n)
@@ -560,13 +569,22 @@ def fcm_tile_ag_t_cuda(g, q, s, bits, kc, n):
     m = g.shape[0]
     out = torch.empty((m, kc), dtype=torch.float32, device=g.device)
     if out.numel():
+        splits, work = 1, None
+        if fcm_route(g) == ROUTE_TENSOR_CORES:
+            g = _cp_async_operand(fcm_tile_ag_t_cuda, g)
+            splits = split_plan(m, kc, n, AG_T_TILE)
+            if splits > 1:
+                work = _partials(splits, m, kc, g.device)
         _launch(name, fcm_tile_ag_t_cuda, op_builder.load().ds_fcm_tile_ag_t,
                 g.data_ptr(), g.stride(0), kernel_dtype_code(g), w, sc, mode,
-                wcode, bs, out.data_ptr(), m, kc, n, stream_handle(index))
+                wcode, bs, out.data_ptr(), m, kc, n,
+                0 if work is None else work.data_ptr(), splits,
+                stream_handle(index))
     return out
 
 
 fcm_tile_ag_t_cuda.launches = 0
+fcm_tile_ag_t_cuda.realigned = 0
 
 
 def fcm_tile_rs_reference(a, b):
@@ -576,22 +594,34 @@ def fcm_tile_rs_reference(a, b):
 
 def fcm_tile_rs_cuda(a, b):
     """Kernel H, producer tile of dW: a [B, kc]^T (a column block of lhs)
-    @ b [B, n] -> fp32 [kc, n]."""
+    @ b [B, n] -> fp32 [kc, n].  On the tensor-core route (bf16 a and b)
+    K = B is split over blocks (`split_plan`) into a workspace allocated
+    here, summed in split order by the same launch; with one part the
+    product writes the tile itself."""
     name = "fcm_tile_rs"
     index = check_cuda(name, a, b)
     _check_operand(name, "a", a)
     _check_operand(name, "b", b, rows=a.shape[0])
-    kc, n = a.shape[1], b.shape[1]
+    bdim, kc, n = a.shape[0], a.shape[1], b.shape[1]
     out = torch.empty((kc, n), dtype=torch.float32, device=a.device)
     if out.numel():
+        splits, work = 1, None
+        if fcm_route(a, b) == ROUTE_TENSOR_CORES:
+            a = _cp_async_operand(fcm_tile_rs_cuda, a)
+            b = _cp_async_operand(fcm_tile_rs_cuda, b)
+            splits = split_plan(kc, n, bdim, RS_TILE)
+            if splits > 1:
+                work = _partials(splits, kc, n, a.device)
         _launch(name, fcm_tile_rs_cuda, op_builder.load().ds_fcm_tile_rs,
                 a.data_ptr(), a.stride(0), kernel_dtype_code(a), b.data_ptr(),
-                b.stride(0), kernel_dtype_code(b), out.data_ptr(), a.shape[0],
-                kc, n, stream_handle(index))
+                b.stride(0), kernel_dtype_code(b), out.data_ptr(), bdim, kc, n,
+                0 if work is None else work.data_ptr(), splits,
+                stream_handle(index))
     return out
 
 
 fcm_tile_rs_cuda.launches = 0
+fcm_tile_rs_cuda.realigned = 0
 
 
 def _tile(cuda, reference, *args):

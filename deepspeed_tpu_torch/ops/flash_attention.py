@@ -16,16 +16,21 @@ Routes. Each kernel has two, chosen in the kernel by the dtype code
 (`kernel_dtype_code`): bf16 multiplies on the tensor cores (`mma.sync`
 tiles fed by 16-byte `cp.async` copies, csrc/attention_mma.cuh), fp32 on
 the CUDA cores (a tensor-core fp32 product would be TF32 and miss the fp32
-parity). Both are compiled for head dims 32, 64, 96 and 128
-(KERNEL_HEAD_DIMS), and any head dim that is a multiple of 8 up to 128 runs
-the smallest of them at or above it (`kernel_head_dim`): the kernels take
-the true D, zero-fill the columns past it on load and store none of them.
-Any other head dim raises ValueError. The tensor-core route needs every
+parity). Both are compiled for head dims 32, 64, 96, 128 and 256
+(KERNEL_HEAD_DIMS), and any head dim from 1 to 256 runs the smallest of them
+at or above it (`kernel_head_dim`): the kernels take the launch's D,
+zero-fill the columns past it on load and store none of them. A head dim
+above 256 raises ValueError. The tensor-core route copies 8 bf16 columns
+(16 bytes) at a time, so it launches D rounded up to a multiple of 8
+(`launch_head_dim`): an operand of another D is copied once into a
+zero-padded buffer of that width, the scale stays 1 / sqrt(true D), and the
+outputs are handed back as views of the true D. The route also needs every
 operand's base address and its batch, head and sequence strides to be
-multiples of 16 bytes. The wrapper copies an operand that breaks the rule
-into a fresh contiguous tensor before the launch (`_launch_operands`), and
-counts the copy on the wrapper's `realigned`; every call the layer and the
-engines make meets the rule, so on their paths the count stays 0.
+multiples of 16 bytes: the wrapper copies an operand that breaks the rule
+into a fresh contiguous tensor before the launch (`_launch_operands`). The
+wrapper's `realigned` counts both kinds of copy; every call the layer and
+the engines make (D = 64, the fused projection's head views) needs
+neither, so on their paths the count stays 0.
 
 Dropout.  The JAX kernel keys the TPU's PRNG by tile, which no other
 tiling can reproduce.  Here the keep decision of score (row, col) of head
@@ -52,10 +57,11 @@ from .dispatch import check_cuda, kernel_dtype_code, stream_handle, use_kernel
 # Finite mask value: keeps the running max finite for fully masked rows.
 DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
-# head dims the kernels are compiled for (both routes)
-KERNEL_HEAD_DIMS = (32, 64, 96, 128)
-# a launch takes any head dim that is a multiple of HEAD_DIM_STEP up to the
-# largest compiled one (a cp.async copy moves 8 bf16 columns at a time)
+# head dims the kernels are compiled for (both routes); any head dim from 1
+# to the largest runs the smallest of them at or above it
+KERNEL_HEAD_DIMS = (32, 64, 96, 128, 256)
+# the tensor-core route launches a head dim that is a multiple of
+# HEAD_DIM_STEP (a cp.async copy moves 8 bf16 columns at a time)
 HEAD_DIM_STEP = 8
 
 # the tensor-core route's cp.async copies move 16 bytes, 8 bf16 elements
@@ -224,20 +230,33 @@ def _misaligned(t):
                for n, st in zip(t.shape[:3], t.stride()[:3]))
 
 
-def _launch_operands(name, wrapper, code, inputs, outputs):
+def _zero_padded(t, width):
+    """A contiguous copy of t whose last dim is zero-padded to `width`."""
+    buf = t.new_zeros(tuple(t.shape[:-1]) + (width,))
+    buf[..., :t.shape[-1]].copy_(t)
+    return buf
+
+
+def _launch_operands(name, wrapper, code, inputs, outputs, width=None):
     """The input tensors a launch reads and the (batch, head, seq) strides
     of every operand, inputs then outputs, in argument order; `inputs` and
     `outputs` map argument names to tensors.  On the tensor-core route
-    (dtype code DTYPE_BF16) an input that breaks the 16-byte rule is copied
-    into a fresh contiguous tensor, whose base and strides meet it, and
-    `wrapper.realigned` counts the copy (the wrappers allocate the outputs
-    themselves, aligned).  Runs on tensors of any device."""
+    (dtype code DTYPE_BF16) an input narrower than the launch's head dim
+    `width` is copied once into a zero-padded contiguous buffer of that
+    width, and one that breaks the 16-byte rule into a fresh contiguous
+    tensor, whose base and strides meet it; `wrapper.realigned` counts each
+    copy (the wrappers allocate the outputs themselves, aligned and of the
+    launch's width).  Runs on tensors of any device."""
     tensors, strides = [], []
     for arg, t in inputs.items():
         _seq_strides(name, arg, t)
-        if code == op_builder.DTYPE_BF16 and _misaligned(t):
-            t = t.clone(memory_format=torch.contiguous_format)
-            wrapper.realigned += 1
+        if code == op_builder.DTYPE_BF16:
+            if width is not None and t.shape[-1] < width:
+                t = _zero_padded(t, width)
+                wrapper.realigned += 1
+            elif _misaligned(t):
+                t = t.clone(memory_format=torch.contiguous_format)
+                wrapper.realigned += 1
         tensors.append(t)
         strides.extend(t.stride()[:3])
     for arg, t in outputs.items():
@@ -260,12 +279,27 @@ def _heads_layout(b, h, s, d, like):
 def kernel_head_dim(d: int) -> int:
     """The compiled head dim a launch at head dim `d` runs: the smallest of
     KERNEL_HEAD_DIMS at or above it.  Raises ValueError naming the rule for
-    a `d` that is not a multiple of 8 between 8 and 128."""
-    if d % HEAD_DIM_STEP or not HEAD_DIM_STEP <= d <= KERNEL_HEAD_DIMS[-1]:
+    a `d` outside 1 to 256."""
+    if not 1 <= d <= KERNEL_HEAD_DIMS[-1]:
         raise ValueError(
-            f"head dim {d} not supported (the kernels take a multiple of "
-            f"{HEAD_DIM_STEP} from {HEAD_DIM_STEP} to {KERNEL_HEAD_DIMS[-1]})")
+            f"head dim {d} not supported (the kernels take 1 to "
+            f"{KERNEL_HEAD_DIMS[-1]})")
     return next(c for c in KERNEL_HEAD_DIMS if c >= d)
+
+
+def launch_head_dim(code: int, d: int) -> int:
+    """The head dim a launch passes for a true head dim `d`: on the
+    tensor-core route (dtype code DTYPE_BF16) `d` rounded up to a multiple
+    of HEAD_DIM_STEP, the operands zero-padded to it; `d` itself on the
+    CUDA-core route, which reads element by element."""
+    if code == op_builder.DTYPE_BF16:
+        return -(-d // HEAD_DIM_STEP) * HEAD_DIM_STEP
+    return d
+
+
+def _true_head_dim(t, d):
+    """An output of the launch's head dim as a view of the true `d`."""
+    return t if t.shape[-1] == d else t[..., :d]
 
 
 def _check_attention(name, q, k, v, *more):
@@ -313,22 +347,24 @@ def flash_attention_cuda(q, k, v, causal: bool = False,
     index, code, b, h, sq, sk, d = _check_attention(name, q, k, v)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    out = _heads_layout(b, h, sq, d, q)
+    width = launch_head_dim(code, d)
+    out = _heads_layout(b, h, sq, width, q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
-        return out, lse
+        return _true_head_dim(out, d), lse
     (q, k, v), strides = _launch_operands(
-        name, flash_attention_cuda, code, dict(q=q, k=k, v=v), dict(out=out))
+        name, flash_attention_cuda, code, dict(q=q, k=k, v=v), dict(out=out),
+        width)
     seed_ptr, threshold, scale, _seed_t = _dropout_args(
         name, dropout_rate, dropout_seed, q.device)
     lib = op_builder.load()
     err = lib.ds_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, h, sq, sk, d, *strides, float(sm_scale),
+        lse.data_ptr(), b, h, sq, sk, width, *strides, float(sm_scale),
         int(causal), seed_ptr, threshold, scale, code, stream_handle(index))
     op_builder.check_launch(name, err)
     flash_attention_cuda.launches += 1
-    return out, lse
+    return _true_head_dim(out, d), lse
 
 
 flash_attention_cuda.launches = 0
@@ -338,17 +374,18 @@ flash_attention_cuda.realigned = 0
 def _bwd_launch(name, wrapper, fn, tensors, outs, shapes, causal, sm_scale,
                 dropout_rate, dropout_seed):
     """One kernel E launch: `tensors` (q, k, v, dout) and `outs` (argument
-    name -> grad) give their (batch, head, seq) strides in argument
-    order."""
+    name -> grad, of the launch's head dim) give their (batch, head, seq)
+    strides in argument order."""
     q, k, v, dout, lse, delta = tensors
     index, code, b, h, sq, sk, d = shapes
+    width = launch_head_dim(code, d)
     (q, k, v, dout), strides = _launch_operands(
-        name, wrapper, code, dict(q=q, k=k, v=v, dout=dout), outs)
+        name, wrapper, code, dict(q=q, k=k, v=v, dout=dout), outs, width)
     seed_ptr, threshold, scale, _seed_t = _dropout_args(
         name, dropout_rate, dropout_seed, q.device)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
              lse.data_ptr(), delta.data_ptr(),
-             *(t.data_ptr() for t in outs.values()), b, h, sq, sk, d,
+             *(t.data_ptr() for t in outs.values()), b, h, sq, sk, width,
              _stride_array(strides), float(sm_scale), int(causal), seed_ptr,
              threshold, scale, code, stream_handle(index))
     op_builder.check_launch(name, err)
@@ -373,20 +410,20 @@ def flash_attention_bwd_dkdv_cuda(q, k, v, dout, lse, delta,
     [B, H, Sq] fp32.  Returns (dk, dv), laid out as [B, Sk, H, D]."""
     name = "flash_attention_bwd_dkdv_cuda"
     shapes = _check_attention(name, q, k, v, dout, lse, delta)
-    _, _, b, h, sq, sk, d = shapes
+    _, code, b, h, sq, sk, d = shapes
     _check_stats(name, lse, delta, b, h, sq)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    dk = _heads_layout(b, h, sk, d, k)
-    dv = _heads_layout(b, h, sk, d, v)
-    if dk.numel() == 0:
-        return dk, dv
-    _bwd_launch(name, flash_attention_bwd_dkdv_cuda,
-                op_builder.load().ds_flash_attention_bwd_dkdv,
-                (q, k, v, dout, lse, delta), dict(dk=dk, dv=dv), shapes,
-                causal, sm_scale, dropout_rate, dropout_seed)
-    flash_attention_bwd_dkdv_cuda.launches += 1
-    return dk, dv
+    width = launch_head_dim(code, d)
+    dk = _heads_layout(b, h, sk, width, k)
+    dv = _heads_layout(b, h, sk, width, v)
+    if dk.numel():
+        _bwd_launch(name, flash_attention_bwd_dkdv_cuda,
+                    op_builder.load().ds_flash_attention_bwd_dkdv,
+                    (q, k, v, dout, lse, delta), dict(dk=dk, dv=dv), shapes,
+                    causal, sm_scale, dropout_rate, dropout_seed)
+        flash_attention_bwd_dkdv_cuda.launches += 1
+    return _true_head_dim(dk, d), _true_head_dim(dv, d)
 
 
 flash_attention_bwd_dkdv_cuda.launches = 0
@@ -402,21 +439,20 @@ def flash_attention_bwd_dq_cuda(q, k, v, dout, lse, delta,
     flash_attention_bwd_dkdv_cuda.  Returns dq laid out as [B, Sq, H, D]."""
     name = "flash_attention_bwd_dq_cuda"
     shapes = _check_attention(name, q, k, v, dout, lse, delta)
-    _, _, b, h, sq, sk, d = shapes
+    _, code, b, h, sq, sk, d = shapes
     _check_stats(name, lse, delta, b, h, sq)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    dq = _heads_layout(b, h, sq, d, q)
-    if dq.numel() == 0:
-        return dq
-    if sk == 0:
-        return dq.zero_()
-    _bwd_launch(name, flash_attention_bwd_dq_cuda,
-                op_builder.load().ds_flash_attention_bwd_dq,
-                (q, k, v, dout, lse, delta), dict(dq=dq), shapes, causal,
-                sm_scale, dropout_rate, dropout_seed)
-    flash_attention_bwd_dq_cuda.launches += 1
-    return dq
+    dq = _heads_layout(b, h, sq, launch_head_dim(code, d), q)
+    if dq.numel() and sk == 0:
+        dq.zero_()
+    elif dq.numel():
+        _bwd_launch(name, flash_attention_bwd_dq_cuda,
+                    op_builder.load().ds_flash_attention_bwd_dq,
+                    (q, k, v, dout, lse, delta), dict(dq=dq), shapes, causal,
+                    sm_scale, dropout_rate, dropout_seed)
+        flash_attention_bwd_dq_cuda.launches += 1
+    return _true_head_dim(dq, d)
 
 
 flash_attention_bwd_dq_cuda.launches = 0

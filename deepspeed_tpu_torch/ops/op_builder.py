@@ -75,13 +75,15 @@ SIGNATURES = {
     "ds_dequant_matmul_route": [P, P, I32, I32, I32, I32],
     # kernel H.  x (or g), its row pitch, its dtype; the weight payload, its
     # scales, layout (0 native, 1 int8, 2 packed int4), native dtype, block
-    # size; out (fp32), m, kc, n, stream
+    # size; out (fp32), m, kc, n; for ag_t the split partials' workspace (or
+    # null) and the number of splits (bf16 g only); stream
     "ds_fcm_tile_ag": [P, I64, I32, P, P, I32, I32, I32, P, I32, I32, I32, P],
     "ds_fcm_tile_ag_t": [P, I64, I32, P, P, I32, I32, I32, P, I32, I32, I32,
-                         P],
+                         P, I32, P],
     # a, pitch, dtype, b, pitch, dtype, out (fp32), rows of a and b, kc, n,
-    # stream
-    "ds_fcm_tile_rs": [P, I64, I32, P, I64, I32, P, I32, I32, I32, P],
+    # the split partials' workspace (or null) and the number of splits (bf16
+    # a and b only), stream
+    "ds_fcm_tile_rs": [P, I64, I32, P, I64, I32, P, I32, I32, I32, P, I32, P],
     # kernel I.  x and the weight as kernel H; the fp32 accumulator, out (or
     # null), out's dtype, whether the accumulator is read; m, kc, n, stream
     "ds_fcm_ag_step": [P, I64, I32, P, P, I32, I32, I32, P, P, I32, I32, I32,

@@ -19,10 +19,13 @@ The gather indices are layout_gather's, as device int32 tensors: idx / valid
 last valid index.  The kernels loop over a row's valid entries only.
 
 Routes and operands follow kernels B and E (flash_attention.py): bf16 on
-the tensor cores, fp32 on the CUDA cores, any head dim that is a multiple
-of 8 up to 128 (`kernel_head_dim`: the smallest of 32, 64, 96 and 128 at or
-above it runs, zero-filled past the true D); a bf16 operand whose base or strides are not multiples of 16 bytes is copied
-before the launch and counted on the wrapper's `realigned`.
+the tensor cores, fp32 on the CUDA cores, any head dim from 1 to 256
+(`kernel_head_dim`: the smallest of 32, 64, 96, 128 and 256 at or above it
+runs, zero-filled past the launch's D); a bf16 operand whose head dim is
+not a multiple of 8 is copied into a zero-padded buffer (`launch_head_dim`)
+and one whose base or strides are not multiples of 16 bytes into a fresh
+contiguous one, before the launch, each copy counted on the wrapper's
+`realigned`.
 """
 
 import math
@@ -35,7 +38,8 @@ from .. import op_builder
 from ..dispatch import stream_handle, use_kernel
 from ..flash_attention import (DEFAULT_MASK_VALUE, _acc_dtype,
                                _check_attention, _check_stats, _heads_layout,
-                               _launch_operands, _stride_array)
+                               _launch_operands, _stride_array,
+                               _true_head_dim, launch_head_dim)
 
 # rows of a q-tile and keys of a k-tile in kernels F and G: a layout block
 # must be a multiple of it for the kernels to take it
@@ -193,21 +197,21 @@ def block_sparse_flash_fwd_cuda(q, k, v, idx, valid, block: int,
     fp32)."""
     name = "block_sparse_flash_fwd_cuda"
     index, code, b, h, s, d = _check_sparse(name, q, k, v, idx, valid, block)
-    out = _heads_layout(b, h, s, d, q)
+    scale, width = _scale(q, sm_scale), launch_head_dim(code, d)
+    out = _heads_layout(b, h, s, width, q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    if out.numel() == 0:
-        return out, lse
-    (q, k, v), strides = _launch_operands(
-        name, block_sparse_flash_fwd_cuda, code, dict(q=q, k=k, v=v),
-        dict(out=out))
-    err = op_builder.load().ds_block_sparse_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), idx.data_ptr(), valid.data_ptr(), b, h, s, d, block,
-        idx.shape[-1], _stride_array(strides), float(_scale(q, sm_scale)),
-        int(causal), code, stream_handle(index))
-    op_builder.check_launch(name, err)
-    block_sparse_flash_fwd_cuda.launches += 1
-    return out, lse
+    if out.numel():
+        (q, k, v), strides = _launch_operands(
+            name, block_sparse_flash_fwd_cuda, code, dict(q=q, k=k, v=v),
+            dict(out=out), width)
+        err = op_builder.load().ds_block_sparse_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), idx.data_ptr(), valid.data_ptr(), b, h, s, width,
+            block, idx.shape[-1], _stride_array(strides), float(scale),
+            int(causal), code, stream_handle(index))
+        op_builder.check_launch(name, err)
+        block_sparse_flash_fwd_cuda.launches += 1
+    return _true_head_dim(out, d), lse
 
 
 block_sparse_flash_fwd_cuda.launches = 0
@@ -224,21 +228,21 @@ def block_sparse_flash_bwd_dq_cuda(q, k, v, dout, lse, delta, idx, valid,
     index, code, b, h, s, d = _check_sparse(name, q, k, v, idx, valid, block,
                                             dout, lse, delta)
     _check_stats(name, lse, delta, b, h, s)
-    dq = _heads_layout(b, h, s, d, q)
-    if dq.numel() == 0:
-        return dq
-    (q, k, v, dout), strides = _launch_operands(
-        name, block_sparse_flash_bwd_dq_cuda, code,
-        dict(q=q, k=k, v=v, dout=dout), dict(dq=dq))
-    err = op_builder.load().ds_block_sparse_flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), idx.data_ptr(),
-        valid.data_ptr(), b, h, s, d, block, idx.shape[-1],
-        _stride_array(strides), float(_scale(q, sm_scale)), int(causal), code,
-        stream_handle(index))
-    op_builder.check_launch(name, err)
-    block_sparse_flash_bwd_dq_cuda.launches += 1
-    return dq
+    scale, width = _scale(q, sm_scale), launch_head_dim(code, d)
+    dq = _heads_layout(b, h, s, width, q)
+    if dq.numel():
+        (q, k, v, dout), strides = _launch_operands(
+            name, block_sparse_flash_bwd_dq_cuda, code,
+            dict(q=q, k=k, v=v, dout=dout), dict(dq=dq), width)
+        err = op_builder.load().ds_block_sparse_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), idx.data_ptr(),
+            valid.data_ptr(), b, h, s, width, block, idx.shape[-1],
+            _stride_array(strides), float(scale), int(causal), code,
+            stream_handle(index))
+        op_builder.check_launch(name, err)
+        block_sparse_flash_bwd_dq_cuda.launches += 1
+    return _true_head_dim(dq, d)
 
 
 block_sparse_flash_bwd_dq_cuda.launches = 0
@@ -257,22 +261,22 @@ def block_sparse_flash_bwd_dkdv_cuda(q, k, v, dout, lse, delta, idx_t,
     index, code, b, h, s, d = _check_sparse(name, q, k, v, idx_t, valid_t,
                                             block, dout, lse, delta)
     _check_stats(name, lse, delta, b, h, s)
-    dk = _heads_layout(b, h, s, d, k)
-    dv = _heads_layout(b, h, s, d, v)
-    if dk.numel() == 0:
-        return dk, dv
-    (q, k, v, dout), strides = _launch_operands(
-        name, block_sparse_flash_bwd_dkdv_cuda, code,
-        dict(q=q, k=k, v=v, dout=dout), dict(dk=dk, dv=dv))
-    err = op_builder.load().ds_block_sparse_flash_bwd_dkdv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        idx_t.data_ptr(), valid_t.data_ptr(), b, h, s, d, block,
-        idx_t.shape[-1], _stride_array(strides), float(_scale(q, sm_scale)),
-        int(causal), code, stream_handle(index))
-    op_builder.check_launch(name, err)
-    block_sparse_flash_bwd_dkdv_cuda.launches += 1
-    return dk, dv
+    scale, width = _scale(q, sm_scale), launch_head_dim(code, d)
+    dk = _heads_layout(b, h, s, width, k)
+    dv = _heads_layout(b, h, s, width, v)
+    if dk.numel():
+        (q, k, v, dout), strides = _launch_operands(
+            name, block_sparse_flash_bwd_dkdv_cuda, code,
+            dict(q=q, k=k, v=v, dout=dout), dict(dk=dk, dv=dv), width)
+        err = op_builder.load().ds_block_sparse_flash_bwd_dkdv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            idx_t.data_ptr(), valid_t.data_ptr(), b, h, s, width, block,
+            idx_t.shape[-1], _stride_array(strides), float(scale),
+            int(causal), code, stream_handle(index))
+        op_builder.check_launch(name, err)
+        block_sparse_flash_bwd_dkdv_cuda.launches += 1
+    return _true_head_dim(dk, d), _true_head_dim(dv, d)
 
 
 block_sparse_flash_bwd_dkdv_cuda.launches = 0

@@ -31,6 +31,9 @@ fused-QKV head views the layer passes, causal:
   bench_sparse_longseq's attention: [2, 12, 8192, 64] causal BigBird
   (block 512, 1 random, 3 sliding-window and 1 global block), and their
   host_us there;
+- for a tree whose kernels take D = 256 (KERNEL_HEAD_DIMS), the same at
+  D = 256: B and E at [2, 12, 1024, 256] without dropout ("wide"), F and
+  G at [2, 12, 8192, 256] BigBird ("bigbird_wide");
 - prefill_err: max |B - mha_reference| at the prefill shape, and
   sparse_err: max |F - its plain twin| at the BigBird shape, to show that
   each tree computes attention.
@@ -54,10 +57,13 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SHAPES = {"train": (8, 12, 1024, 64, 0.1),
           "longseq": (2, 12, 8192, 64, 0.1),
           "prefill": (8, 12, 128, 64, 0.0)}
+# timed only in a tree whose kernels take D = 256
+WIDE_SHAPES = {"wide": (2, 12, 1024, 256, 0.0)}
 HOST_SHAPE = "train"
 LAUNCHES = ("fwd", "dkdv", "dq")
 # kernels F and G: bench_sparse_longseq's attention
 SPARSE_SHAPE = (2, 12, 8192, 64)
+WIDE_SPARSE_SHAPE = (2, 12, 8192, 256)
 BIGBIRD = dict(num_heads=12, block=512, num_random_blocks=1,
                num_sliding_window_blocks=3, num_global_blocks=1)
 SPARSE_LAUNCHES = ("bsf_fwd", "bsf_dq", "bsf_dkdv")
@@ -138,7 +144,9 @@ def measure(root):
     flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
     seed = torch.tensor([1234], dtype=torch.int32, device="cuda")
     res = {"root": root, "ms": {}, "host_us": {}}
-    for shape, (b, h, s, d, rate) in SHAPES.items():
+    wide = fa.KERNEL_HEAD_DIMS[-1] >= 256
+    for shape, (b, h, s, d, rate) in {**SHAPES,
+                                      **(WIDE_SHAPES if wide else {})}.items():
         g = torch.Generator(device="cuda").manual_seed(s)
         qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=g)
         q, k, v = (t.view(b, s, h, d).transpose(1, 2) for t in
@@ -161,18 +169,22 @@ def measure(root):
             ref = fa.mha_reference(q, k, v, causal=True)
             res["prefill_err"] = (out.float() - ref).abs().max().item()
     res["ms"]["bigbird"], sparse_host, res["sparse_err"] = measure_sparse(
-        torch, flush)
+        torch, flush, SPARSE_SHAPE)
     res["host_us"].update(sparse_host)
+    if wide:
+        res["ms"]["bigbird_wide"], _, wide_err = measure_sparse(
+            torch, flush, WIDE_SPARSE_SHAPE)
+        res["sparse_err"] = max(res["sparse_err"], wide_err)
     return res
 
 
-def measure_sparse(torch, flush):
+def measure_sparse(torch, flush, shape):
     """(device ms, host µs, max error of F against its plain twin) of
-    kernels F and G at SPARSE_SHAPE."""
+    kernels F and G at `shape` [B, H, S, D]."""
     bsf = importlib.import_module(
         "deepspeed_tpu_torch.ops.sparse_attention.block_sparse_flash")
     sa = importlib.import_module("deepspeed_tpu_torch.ops.sparse_attention")
-    b, h, s, d = SPARSE_SHAPE
+    b, h, s, d = shape
     block = BIGBIRD["block"]
     layout = sa.BigBirdSparsityConfig(**BIGBIRD).make_layout(s)
     fidx, fvalid = (torch.as_tensor(a, device="cuda")

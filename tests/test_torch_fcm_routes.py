@@ -1,4 +1,4 @@
-"""Kernels I and J pick their route by the dtype of their left operands:
+"""Kernels H, I and J pick their route by the dtype of their left operands:
 bf16 multiplies on the tensor cores (csrc/tile_mma.cuh), fp32 or a mixed
 pair on the CUDA cores (csrc/tile_matmul.cuh).  The choice, the split of K
 that fills the card where the output has few tiles (and its workspace), and
@@ -82,6 +82,28 @@ class _Kernels:
                                read=_snapshot(a, bdim, kc, lda, a_code)))
         return 0
 
+    def ds_fcm_tile_ag(self, x, ldx, x_code, w, sc, mode, w_code, bs, out, m,
+                       kc, n, stream):
+        self.calls.append(dict(fn="tile_ag", x=x, ldx=ldx, code=x_code, m=m,
+                               kc=kc, n=n,
+                               read=_snapshot(x, m, kc, ldx, x_code)))
+        return 0
+
+    def ds_fcm_tile_ag_t(self, g, ldg, g_code, w, sc, mode, w_code, bs, out,
+                         m, kc, n, work, splits, stream):
+        self.calls.append(dict(fn="tile_ag_t", x=g, ldx=ldg, code=g_code,
+                               m=m, kc=kc, n=n, work=work, splits=splits,
+                               read=_snapshot(g, m, n, ldg, g_code)))
+        return 0
+
+    def ds_fcm_tile_rs(self, a, lda, a_code, b, ldb, b_code, out, bdim, kc, n,
+                       work, splits, stream):
+        self.calls.append(dict(fn="tile_rs", a=a, lda=lda, a_code=a_code,
+                               b=b, ldb=ldb, b_code=b_code, work=work,
+                               splits=splits,
+                               read=_snapshot(a, bdim, kc, lda, a_code)))
+        return 0
+
     def ds_fcm_rs_quantize(self, comp, q, s, nerr, total, bs, stream):
         self.calls.append(dict(fn="rs_quantize", comp=comp))
         return 0
@@ -89,7 +111,7 @@ class _Kernels:
 
 @pytest.fixture
 def kernels(monkeypatch):
-    """The wrappers of kernels I and J with CPU tensors taken as if they
+    """The wrappers of kernels H, I and J with CPU tensors taken as if they
     lay on the card; launches go to a _Kernels stand-in, and every
     workspace the wrappers allocate is recorded by shape."""
     lib = _Kernels()
@@ -105,7 +127,8 @@ def kernels(monkeypatch):
         return work
 
     monkeypatch.setattr(cm, "_partials", spy)
-    for w in (cm.fcm_ag_step_cuda, cm.fcm_ag_step_t_cuda,
+    for w in (cm.fcm_tile_ag_cuda, cm.fcm_tile_ag_t_cuda, cm.fcm_tile_rs_cuda,
+              cm.fcm_ag_step_cuda, cm.fcm_ag_step_t_cuda,
               cm.fcm_rs_producer_cuda):
         monkeypatch.setattr(w, "launches", 0)
         monkeypatch.setattr(w, "realigned", 0)
@@ -181,7 +204,8 @@ def test_ag_step_hands_the_column_block_in_place(kernels, dtype):
     assert cm.fcm_ag_step_cuda.launches == 1
 
 
-@pytest.mark.parametrize("kind", ["ag_step", "ag_step_t", "rs_producer"])
+@pytest.mark.parametrize("kind", ["ag_step", "ag_step_t", "rs_producer",
+                                  "tile_ag", "tile_ag_t", "tile_rs"])
 def test_a_misaligned_bf16_operand_is_copied_once_and_counted(kernels, kind):
     """A bf16 left operand off the 16-byte boundary (a column block one
     element in, an odd pitch) is copied into a buffer with a 16-byte base
@@ -190,8 +214,10 @@ def test_a_misaligned_bf16_operand_is_copied_once_and_counted(kernels, kind):
     copied."""
     kc, n, m = 24, 48, 16
     q, s = _payload(kc, n)
-    x = _column_block(m, kc if kind != "ag_step_t" else n, BF16, offset=1)
+    x = _column_block(m, n if kind.endswith("ag_step_t") or kind == "tile_ag_t"
+                      else kc, BF16, offset=1)
     assert x.data_ptr() % cm.CP_ASYNC_BYTES
+    b = torch.randn(m, n).to(BF16)
     if kind == "ag_step":
         wrapper = cm.fcm_ag_step_cuda
         wrapper(x, q, s, 8, kc, n, torch.zeros(m, n), None, True, False)
@@ -200,9 +226,16 @@ def test_a_misaligned_bf16_operand_is_copied_once_and_counted(kernels, kind):
         wrapper = cm.fcm_ag_step_t_cuda
         wrapper(x, q, s, 8, kc, n, torch.empty(m, kc, dtype=BF16))
         ptr, ld = "x", "ldx"
+    elif kind in ("tile_ag", "tile_ag_t"):
+        wrapper = getattr(cm, f"fcm_{kind}_cuda")
+        wrapper(x, q, s, 8, kc, n)
+        ptr, ld = "x", "ldx"
+    elif kind == "tile_rs":
+        wrapper = cm.fcm_tile_rs_cuda
+        wrapper(x, b)
+        ptr, ld = "a", "lda"
     else:
         wrapper = cm.fcm_rs_producer_cuda
-        b = torch.randn(m, n).to(BF16)
         nb = kc * n // 16
         wrapper(x, b, None, torch.empty(nb, 16, dtype=torch.int8),
                 torch.empty(1, nb), None, 16)
@@ -221,6 +254,10 @@ def test_a_misaligned_bf16_operand_is_copied_once_and_counted(kernels, kind):
                 False)
     elif kind == "ag_step_t":
         wrapper(x.float(), q, s, 8, kc, n, torch.empty(m, kc))
+    elif kind in ("tile_ag", "tile_ag_t"):
+        wrapper(x.float(), q, s, 8, kc, n)
+    elif kind == "tile_rs":
+        wrapper(x.float(), b.float())
     else:
         wrapper(x.float(), b.float(), None,
                 torch.empty(nb, 16, dtype=torch.int8), torch.empty(1, nb),
@@ -228,6 +265,71 @@ def test_a_misaligned_bf16_operand_is_copied_once_and_counted(kernels, kind):
     assert kernels.calls[before]["read"].dtype == FP32
     assert torch.equal(kernels.calls[before]["read"], x.float())
     assert wrapper.realigned == 1
+
+
+@pytest.mark.parametrize("kind", ["tile_ag", "tile_ag_t", "tile_rs"])
+@pytest.mark.parametrize("left,other", [(BF16, BF16), (FP32, FP32),
+                                        (BF16, FP32), (FP32, BF16)])
+def test_tile_launches_take_the_route_by_operand_dtypes(kernels, kind, left,
+                                                        other):
+    """Kernel H routes as I and J do: bf16 x or g (whatever the payload's
+    dtype), bf16 a and b, take the tensor cores, where the transposed and
+    producer tiles split K by split_plan; fp32 or a mixed pair take the
+    CUDA cores, with no split and no workspace.  Each launch passes its
+    operands' dtype codes, and one launch is counted either way."""
+    m, kc, n = 64, 32, 96
+    q, s = _payload(kc, n, dtype=other, bits=0)
+    wrapper = getattr(cm, f"fcm_{kind}_cuda")
+    if kind == "tile_ag":
+        x = torch.randn(m, kc).to(left)
+        wrapper(x, q, s, 0, kc, n)
+        route, plan = cm.fcm_route(x), None
+    elif kind == "tile_ag_t":
+        g = torch.randn(m, n).to(left)
+        wrapper(g, q, s, 0, kc, n)
+        route, plan = cm.fcm_route(g), cm.split_plan(m, kc, n, cm.AG_T_TILE)
+    else:
+        a, b = torch.randn(m, kc).to(left), torch.randn(m, n).to(other)
+        wrapper(a, b)
+        route, plan = cm.fcm_route(a, b), cm.split_plan(kc, n, m, cm.RS_TILE)
+    tensor_cores = left == BF16 and (kind != "tile_rs" or other == BF16)
+    assert route == (cm.ROUTE_TENSOR_CORES if tensor_cores
+                     else cm.ROUTE_CUDA_CORES)
+    call = kernels.calls[-1]
+    if kind == "tile_rs":
+        assert (call["a_code"], call["b_code"]) == (_code(left), _code(other))
+    else:
+        assert call["code"] == _code(left)
+    if plan is not None:
+        splits = plan if tensor_cores else 1
+        assert call["splits"] == splits and (call["work"] != 0) == (splits > 1)
+        assert len(kernels.partials) == int(splits > 1)
+    assert wrapper.launches == 1 and wrapper.realigned == 0
+
+
+@pytest.mark.parametrize("kind,splits,workspace", [
+    ("tile_ag_t", 3, (3, 2048, 192)), ("tile_rs", 4, (4, 192, 3072))])
+def test_tile_split_plan_at_the_c_fc_tile(kernels, kind, splits, workspace):
+    """At GPT-2 124M's c_fc tile (m = 2048 rows per rank, kc = 192,
+    n = 3072): bf16 g's transposed tile splits K = n in 3 ([3, 2048, 192]
+    fp32 workspace) and the producer tile splits K = 2048 rows in 4
+    ([4, 192, 3072]), each one counted launch; the forward tile (768
+    output tiles) takes no workspace."""
+    m, kc, n = 2048, 192, 3072
+    q, s = _payload(kc, n, dtype=BF16, bits=8)
+    if kind == "tile_ag_t":
+        cm.fcm_tile_ag_t_cuda(torch.zeros(m, n, dtype=BF16), q, s, 8, kc, n)
+        assert cm.split_plan(m, kc, n, cm.AG_T_TILE) == splits
+    else:
+        cm.fcm_tile_rs_cuda(torch.zeros(m, kc, dtype=BF16),
+                            torch.zeros(m, n, dtype=BF16))
+        assert cm.split_plan(kc, n, m, cm.RS_TILE) == splits
+    call = kernels.calls[-1]
+    assert call["splits"] == splits and call["work"] != 0
+    assert kernels.partials == [workspace]
+    assert getattr(cm, f"fcm_{kind}_cuda").launches == 1
+    cm.fcm_tile_ag_cuda(torch.zeros(m, kc, dtype=BF16), q, s, 8, kc, n)
+    assert kernels.partials == [workspace]
 
 
 @pytest.mark.parametrize("dtype", [BF16, FP32])

@@ -259,7 +259,7 @@ class _Kernels:
                                         sm_scale=scale, return_lse=True)
         ot.copy_(out)
         _at(lse, (b, h, sq), (h * sq, sq, 1), torch.float32).copy_(ref_lse)
-        self._record("fwd", code, q=q, k=k, v=v)
+        self._record("fwd", code, q=q, k=k, v=v, d=d, scale=scale)
         return 0
 
     def _bwd(self, fn, ptrs, b, h, sq, d, strides, scale, causal, code,
@@ -279,7 +279,8 @@ class _Kernels:
                                    strides[12:], dt)
         for name, view in zip(outs, out_views):
             view.copy_(grads[name])
-        self._record(fn, code, q=ptrs[0], k=ptrs[1], v=ptrs[2], dout=ptrs[3])
+        self._record(fn, code, q=ptrs[0], k=ptrs[1], v=ptrs[2], dout=ptrs[3],
+                     d=d, scale=scale)
         return 0
 
     def ds_flash_attention_bwd_dkdv(self, q, k, v, do, lse, delta, dk, dv, b,
@@ -310,7 +311,7 @@ class _Kernels:
             qt, kt, vt, it, vl, block, bool(causal), scale)
         ot.copy_(out)
         _at(lse, (b, h, s), (h * s, s, 1), torch.float32).copy_(ref_lse)
-        self._record("bsf_fwd", code, q=q, k=k, v=v)
+        self._record("bsf_fwd", code, q=q, k=k, v=v, d=d, scale=scale)
         return 0
 
     def ds_block_sparse_flash_bwd_dq(self, q, k, v, do, lse, delta, dq, idx,
@@ -438,25 +439,80 @@ def test_wrappers_launch_every_compiled_head_dim(kernels, kind, d):
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_wrappers_refuse_other_head_dims(kind):
-    """D = 36 (not a multiple of 8) and D = 136 (above 128) raise ValueError
-    naming the rule, before the device check: the CPU tensors here never
-    reach it."""
-    for d in (36, 136):
-        q, k, v, do = _attention_inputs(d, torch.float32)
-        with pytest.raises(ValueError, match=rf"head dim {d} not supported "
-                                             r"\(the kernels take a multiple "
-                                             r"of 8 from 8 to 128\)"):
+    """D = 264 (above 256) raises ValueError naming the rule, in either
+    dtype, before the device check: the CPU tensors here never reach it."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = _attention_inputs(264, dtype)
+        with pytest.raises(ValueError, match=r"head dim 264 not supported "
+                                             r"\(the kernels take 1 to "
+                                             r"256\)"):
             _call(kind, q, k, v, do)
 
 
-@pytest.mark.parametrize("d,compiled", [(8, 32), (24, 32), (32, 32),
-                                        (40, 64), (80, 96), (96, 96),
-                                        (104, 128), (128, 128)])
+@pytest.mark.parametrize("d,compiled,padded", [
+    (8, 32, 8), (24, 32, 24), (32, 32, 32), (40, 64, 40), (80, 96, 80),
+    (96, 96, 96), (104, 128, 104), (128, 128, 128), (1, 32, 8),
+    (36, 64, 40), (100, 128, 104), (136, 256, 136), (200, 256, 200),
+    (256, 256, 256)])
 def test_a_head_dim_runs_the_smallest_instantiation_at_or_above_it(
-        d, compiled):
-    """Any multiple of 8 up to 128 maps to the smallest compiled head dim
-    at or above it (the C launchers take the same one)."""
+        d, compiled, padded):
+    """Any head dim from 1 to 256 maps to the smallest compiled head dim at
+    or above it (the C launchers take the same one).  The tensor-core route
+    launches it rounded up to a multiple of 8 (`padded`); the CUDA-core
+    route launches it as it is."""
     assert fa.kernel_head_dim(d) == compiled
+    assert fa.launch_head_dim(op_builder.DTYPE_BF16, d) == padded
+    assert fa.launch_head_dim(op_builder.DTYPE_FP32, d) == d
+    assert fa.kernel_head_dim(padded) == compiled
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [36, 136])
+@pytest.mark.parametrize("kind", KINDS)
+def test_wrappers_launch_other_head_dims(kernels, kind, d, dtype):
+    """D = 36 (not a multiple of 8) and D = 136 (above 128) reach the launch
+    on either route, and the launch computes the plain twin's result from
+    what the wrapper hands it; the outputs have the true head dim."""
+    q, k, v, do = _attention_inputs(d, dtype)
+    got = _call(kind, q, k, v, do)
+    assert len(kernels.calls) == 1
+    assert all(t.shape[-1] == d for t in (got[:1] if "fwd" in kind else got))
+    _close(got, _plain(kind, q, k, v, do), dtype)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_a_head_dim_off_the_copy_width_is_zero_padded_once(kernels, kind,
+                                                           monkeypatch):
+    """bf16 at D = 36: the wrapper copies each operand the launch reads
+    once into a zero-padded contiguous buffer 40 wide, counts each copy on
+    `realigned`, launches D = 40 with the scale of the true D (1 / 6), and
+    hands back outputs [..., 36] equal to the plain twin's; fp32 launches
+    D = 36 itself and copies nothing."""
+    copies = []
+    pad = fa._zero_padded
+    monkeypatch.setattr(fa, "_zero_padded",
+                        lambda t, width: copies.append(pad(t, width))
+                        or copies[-1])
+    q, k, v, do = _attention_inputs(36, torch.bfloat16)
+    for w in WRAPPERS.values():
+        w.realigned = 0
+    got = _call(kind, q, k, v, do)
+    call = kernels.calls[-1]
+    operands = ("q", "k", "v") if kind.endswith("fwd") else ("q", "k", "v",
+                                                             "dout")
+    assert WRAPPERS[kind].realigned == len(operands) == len(copies)
+    assert call["d"] == 40 and call["scale"] == pytest.approx(1 / 6)
+    for arg, t, padded in zip(operands, (q, k, v, do), copies):
+        assert call[arg] == padded.data_ptr() and padded.is_contiguous()
+        assert padded.shape == t.shape[:3] + (40,)
+        assert torch.equal(padded[..., :36], t)
+        assert not padded[..., 36:].any()
+    assert all(g.shape[-1] == 36 for g in (got[:1] if "fwd" in kind else got))
+    _close(got, _plain(kind, q, k, v, do), torch.bfloat16)
+    q, k, v, do = _attention_inputs(36, torch.float32)
+    WRAPPERS[kind].realigned = 0
+    _call(kind, q, k, v, do)
+    assert kernels.calls[-1]["d"] == 36 and WRAPPERS[kind].realigned == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -514,7 +570,7 @@ def test_a_misaligned_operand_is_copied_and_the_result_is_the_aligned_calls(
 
 def test_realign_counts_name_the_attention_kernels():
     """realign_counts() covers the six launches of B, E, F and G (and the
-    three tensor-core product launches of kernels I and J), and
+    six tensor-core product launches of kernels H, I and J), and
     reset_launch_counts() zeroes them."""
     from deepspeed_tpu_torch.ops import reset_launch_counts
     fa.flash_attention_cuda.realigned = 3
@@ -522,6 +578,7 @@ def test_realign_counts_name_the_attention_kernels():
         "flash_attention_fwd", "flash_attention_bwd_dkdv",
         "flash_attention_bwd_dq", "block_sparse_flash_fwd",
         "block_sparse_flash_bwd_dq", "block_sparse_flash_bwd_dkdv",
-        "fcm_ag_step", "fcm_ag_step_t", "fcm_rs_producer"}
+        "fcm_tile_ag", "fcm_tile_ag_t", "fcm_tile_rs", "fcm_ag_step",
+        "fcm_ag_step_t", "fcm_rs_producer"}
     reset_launch_counts()
     assert set(realign_counts().values()) == {0}

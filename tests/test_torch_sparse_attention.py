@@ -150,13 +150,14 @@ def _twin_vs_pallas(layout, block, seq, causal, seed, d=D):
 
 
 # the three layouts causal and not at D = 8, and BigBird at the kernels'
-# head dims 32 and 96 (64 and 128 have the sizes of every other D here) and
-# at D = 80, which the kernels run zero-filled in their D = 96 instantiation
+# head dims 32, 96 and 256 (64 and 128 have the sizes of every other D
+# here), at D = 80, which the kernels run zero-filled in their D = 96
+# instantiation, and at D = 36, which the tensor-core route pads to 40
 TWIN_CASES = (
     [pytest.param(spec, causal, D, id=f"{sid}-{causal}")
      for spec, sid in zip(FLASH, FLASH_IDS) for causal in (False, True)]
     + [pytest.param(FLASH[1], causal, d, id=f"{FLASH_IDS[1]}-{causal}-d{d}")
-       for d in (32, 96, 80) for causal in (False, True)])
+       for d in (32, 96, 80, 36, 256) for causal in (False, True)])
 
 
 @pytest.mark.parametrize("spec,causal,d", TWIN_CASES)
