@@ -15,17 +15,32 @@ phase prints {"phase": ..., "ok": false, "error": ...} and the script exits
    runs after a warm-up, L2 flushed and the card kept busy while the host
    enqueues, so the events see the device alone), beside its bound, one
    PyTorch library call as a yardstick, and the host's cost of one launch
-   (host_us).  Kernel C's cases name the kernel its launcher took (gemv,
-   mma, tiled).  Kernel B with dropout and kernel E are held against their
+   (host_us).  That timer cannot see below its own ~8 µs, so kernel C's and
+   LayerNorm's bf16 cases add a batched timer (batched_us: 64 launches
+   under one pair of events after a spin kernel, rotating over copies of
+   the operands that exceed twice the L2, so that each launch reads cold
+   HBM) of the kernel and of the library call (the dense bf16 matmul on the
+   pre-dequantized weight; F.layer_norm), LayerNorm at 8, 1024 and 8192
+   rows.  Kernel C runs at GPT-2's four int8 products ([768, 2304], [768,
+   768], [768, 3072], [3072, 768]) at M = 1, 8, 77 and 1024, groups 1 and
+   8, bf16 and fp32; each case names the kernel its launcher took (gemv
+   and gemv_mma at decode, mma at a bf16 prefill, tiled), holds the
+   launcher's plan (ds_dequant_matmul_plan) to ops/quant.py dequant_plan's
+   and repeats bitwise, and one launch of each route shows its device
+   kernel (torch.profiler).  Kernel B with dropout and kernel E are held
+   against their
    twins exactly mask for mask (the keep mask is a pure function of the
    seed and the coordinates), and the mask's keep share must lie within
    4 sigma of 230/256; kernels D, E and G must repeat bitwise.  B, E, F and
    G name their route (bf16 on the tensor cores, fp32 on the CUDA cores)
    and run at every head dim they are compiled for (32, 64, 96, 128, 256),
    at D = 40, 80 and 136 (which run the next instantiation up, zero-filled
-   past D) and at D = 36 (which the bf16 route pads to 40 in the wrapper)
-   in both dtypes; B and E also at [2, 12, 1024, 256] causal bf16 beside
-   SDPA's flash forward and backward; B and E report their achieved
+   past D), at D = 36 (which the bf16 route pads to 40 in the wrapper) and
+   at D = 264, 320 and 512 (the wide kernels, csrc/attention_wide.cuh, on
+   the CUDA cores in either dtype, their route named cuda_cores_wide) in
+   both dtypes; B and E also at [2, 12, 1024, 256] causal bf16 beside
+   SDPA's flash forward and backward, and at [2, 12, 1024, 512] beside the
+   SDPA backend that takes D = 512 (named); B and E report their achieved
    TFLOP/s beside the library call's; B's dropout cases also time the call
    without dropout; one case each runs train_longseq's S = 8192 (batch 1,
    4 heads, so that the plain twin's [S, S] fp32 scores take 1 GiB).  The realigned_operand cases
@@ -34,7 +49,8 @@ phase prints {"phase": ..., "ok": false, "error": ...} and the script exits
    result equals the aligned call's bitwise.  The device phase reports the
    registers and stack (spill) bytes per thread of B's, E's, F's and G's
    kernels on both routes, as cuobjdump reads them from the built library,
-   and of the tensor-core kernels of H, I and J with the count of HMMA
+   of the wide attention kernels and kernel C's GEMVs, and of the
+   tensor-core kernels of C's prefill, H, I and J with the count of HMMA
    instructions in their SASS (the phase fails if one has none).
 3. serve_bf16: GPT-2 124M at full width (hidden 768, 12 layers, 12 heads,
    vocab 50304, n_positions 256, bf16, weights from seed 0) through
@@ -55,7 +71,8 @@ phase prints {"phase": ..., "ok": false, "error": ...} and the script exits
    (bf16, int8, int8, bf16, ...) since the host's speed drifts during a
    run; medians with min and max.
 6. profile: the device-busy share of prefill and of a decode step of both
-   engines (torch.profiler), after the timing.
+   engines (torch.profiler), after the timing, and kernel C's device ms in
+   a decode step and its share of the step's device time.
 7. train_grads: GPT-2 124M at full width (n_positions 1024), batch 2 x
    1024, dropout off, weights from seed 0, through initialize -> forward ->
    backward on the card in bf16, held against the same weights through the
@@ -94,7 +111,8 @@ fp32 on the same inputs: bench_sparse_longseq's attention with fused-QKV
 views, the Fixed layout causal and not, D = 128, a layout with an empty
 causal row (its out 0 and its lse at the mask value), a non-causal
 BigBird, and D = 32, 96, 40, 80, 36, 136 and 256, in bf16 (the tensor
-cores) and fp32 (the CUDA cores); G's two launches must repeat bitwise;
+cores) and fp32 (the CUDA cores), and D = 264, 320 and 512 in both (the
+wide kernels, CUDA cores); G's two launches must repeat bitwise;
 the library yardstick is SDPA with the layout as a boolean mask.
 
 12. fcm_ops: the low-bandwidth collective tier on a mesh of W = 4 logical
@@ -156,6 +174,8 @@ alone, the W ranks spread over every visible card (one each on a host with
 four), and prints no `kernels` line.
 """
 
+import contextlib
+import ctypes
 import json
 import re
 import shutil
@@ -179,13 +199,14 @@ from deepspeed_tpu_torch.ops import collective_matmul as cm
 from deepspeed_tpu_torch.ops.flash_attention import (
     DEFAULT_MASK_VALUE, dropout_keep_mask, flash_attention_bwd_dkdv_cuda,
     flash_attention_bwd_dq_cuda, flash_attention_bwd_reference,
-    flash_attention_cuda, mha_reference, quantized_threshold)
+    flash_attention_cuda, head_dim_plan, mha_reference, quantized_threshold)
 from deepspeed_tpu_torch.ops.normalize import (layer_norm_bwd_cuda,
                                                layer_norm_bwd_reference,
                                                layer_norm_cuda,
                                                layer_norm_reference)
-from deepspeed_tpu_torch.ops.quant import (dequant, dequant_matmul_reference,
-                                           fused_dequant_matmul)
+from deepspeed_tpu_torch.ops.quant import (DEQUANT_ROUTES, QuantizedWeight,
+                                           dequant, dequant_matmul_reference,
+                                           dequant_plan, fused_dequant_matmul)
 from deepspeed_tpu_torch.ops.sparse_attention import (BigBirdSparsityConfig,
                                                       FixedSparsityConfig,
                                                       SparseSelfAttention,
@@ -321,6 +342,8 @@ def phase_device():
                   "flash_tensor_core_resources": tensor_core_resources(
                       op_builder.build()),
                   "fcm_tensor_core_sass": fcm_tensor_core_sass(
+                      op_builder.build()),
+                  "wide_and_gemv_resources": wide_and_gemv_resources(
                       op_builder.build())}
 
 
@@ -343,6 +366,46 @@ def tensor_core_resources(lib_path):
                 r"Function \S*?((?:flash|bsf)_(?:fwd|bwd_dkdv|bwd_dq)"
                 r"(?:_mma)?_kernel)I(?:f)?Li(\d+)E(?:Lb([01])E)?\S*:\s+"
                 r"REG:(\d+) STACK:(\d+)", dump)}
+
+
+def wide_and_gemv_resources(lib_path):
+    """Registers and stack (spill) bytes per thread of the wide attention
+    kernels (csrc/attention_wide.cuh: by launch, dtype and walk; the bf16
+    ones are the tensor-core `_mma_` kernels) and of
+    kernel C's GEMVs (the CUDA-core one by dtype, rows MT and column groups
+    CG; the tensor-core one by warps a block), as cuobjdump reads them; or
+    why they could not be read (a diagnostic)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        dump = subprocess.run([tool, "--dump-resource-usage", lib_path],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"cuobjdump failed: {e}"
+    dt = {"f": "fp32", "13__nv_bfloat16": "bf16"}
+    out = {f"{kind} {dt[t]} {walk}": {"registers": int(reg),
+                                      "stack_bytes": int(stack)}
+           for kind, t, walk, reg, stack in re.findall(
+               r"Function \S*?(wide_(?:fwd|dq|dkdv)_kernel)I(f|13__nv_bfloat16)"
+               r"NS_\d+(DenseWalk|SparseWalk)\S*:\s+REG:(\d+) STACK:(\d+)",
+               dump)}
+    out.update({f"{kind} bf16 {walk}": {"registers": int(reg),
+                                        "stack_bytes": int(stack)}
+                for kind, walk, reg, stack in re.findall(
+                    r"Function \S*?(wide_(?:fwd|dq|dkdv)_mma_kernel)INS_\d+"
+                    r"(DenseWalk|SparseWalk)\S*:\s+REG:(\d+) STACK:(\d+)",
+                    dump)})
+    out.update({f"dq_gemv_kernel {dt[t]} MT={mt} CG={cg}":
+                {"registers": int(reg), "stack_bytes": int(stack)}
+                for t, mt, cg, reg, stack in re.findall(
+                    r"Function \S*?dq_gemv_kernelI(f|13__nv_bfloat16)Li(\d+)E"
+                    r"Li(\d+)E\S*:\s+REG:(\d+) STACK:(\d+)", dump)})
+    out.update({f"dq_gemv_mma_kernel warps={nw}":
+                {"registers": int(reg), "stack_bytes": int(stack)}
+                for nw, reg, stack in re.findall(
+                    r"Function \S*?dq_gemv_mma_kernelILi(\d+)E\S*:\s+"
+                    r"REG:(\d+) STACK:(\d+)", dump)})
+    return out
 
 
 # the tensor-core product kernels of I and J (csrc/tile_mma.cuh)
@@ -411,6 +474,41 @@ def time_ms(fn):
     return float(np.median(times))
 
 
+L2_BYTES = 50 * 2 ** 20  # the H100's L2
+BATCH_LAUNCHES = 64
+BATCH_SPIN_CYCLES = 8 * SPIN_CYCLES  # ~4 ms: longer than 64 enqueues
+BATCH_ROUNDS = 5
+
+
+def batched_us(fn, operands, launches=BATCH_LAUNCHES):
+    """Device µs per launch of fn(*operands), BATCH_LAUNCHES launches back
+    to back under one pair of CUDA events after a spin kernel (which keeps
+    the card busy while the host enqueues them): the timer's own cost is
+    spread over the batch, where time_ms's single launch sits on a floor of
+    ~8 µs.  The launches rotate over copies of the operands that together
+    exceed twice the L2, so each reads them cold from HBM.  Median of
+    BATCH_ROUNDS."""
+    nbytes = sum(t.numel() * t.element_size() for t in operands)
+    copies = [tuple(t.clone() for t in operands)
+              for _ in range(max(2, -(-2 * L2_BYTES // nbytes) + 1))]
+    for args in copies[:2]:
+        fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(BATCH_ROUNDS):
+        torch.cuda._sleep(BATCH_SPIN_CYCLES)
+        start.record()
+        for i in range(launches):
+            fn(*copies[i % len(copies)])
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) * 1e3 / launches)
+    del copies
+    return float(np.median(times))
+
+
 def host_us(fn, calls=200):
     """Host µs per call when calls are enqueued back to back without a
     synchronize: what one launch costs the CPU."""
@@ -463,13 +561,21 @@ def case_layer_norm(rows, dtype):
     g_lib, b_lib = gamma.to(dtype), beta.to(dtype)
     nbytes = 2 * x.numel() * x.element_size() + 2 * hidden * 4
     b_ms, b_by = bound_ms(nbytes, 8 * x.numel(), torch.float32)
-    return {
+    res = {
         "case": f"[{rows},{hidden}] {_dtname(dtype)}", "ok": ok,
         "tolerance": f"atol=rtol={tol}", "max_abs_err": err,
         **timings(lambda: layer_norm_cuda(x, gamma, beta, 1e-5),
                   lambda: layer_norm_reference(x, gamma, beta, 1e-5),
                   lambda: F.layer_norm(x, (hidden,), g_lib, b_lib, 1e-5)),
         "bound_ms": b_ms, "bound_by": b_by}
+    if dtype == torch.bfloat16:
+        res["batched_us"] = batched_us(
+            lambda xx, gg, bb: layer_norm_cuda(xx, gg, bb, 1e-5),
+            (x, gamma, beta))
+        res["library_batched_us"] = batched_us(
+            lambda xx, gg, bb: F.layer_norm(xx, (hidden,), gg, bb, 1e-5),
+            (x, g_lib, b_lib))
+    return res
 
 
 def attention_inputs(b, h, s, d, dtype, seed, fused):
@@ -501,10 +607,40 @@ def keep_share_check(seed, b, h, sq, sk, rate):
     return share, abs(share - p) <= 4 * (p * (1 - p) / n) ** 0.5
 
 
-def flash_route(dtype):
-    """The route kernels B and E take for `dtype` (the kernels dispatch on
-    the dtype code)."""
-    return "tensor_cores" if dtype == torch.bfloat16 else "cuda_cores"
+def flash_route(dtype, d):
+    """The route kernels B, E, F and G take for `dtype` and head dim `d`
+    (flash_attention.head_dim_plan, which the launch passes on and the
+    launchers check): the tensor cores for bf16 and the CUDA cores for fp32
+    up to D = 256, the wide CUDA-core kernels above."""
+    return head_dim_plan(dispatch.kernel_dtype_code(
+        torch.empty(0, dtype=dtype)), d).route
+
+
+# SDPA's backends in PyTorch's order of preference
+SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION",
+                 "MATH")
+
+
+def sdpa_backend(q, k, v, causal, extra):
+    """Above D = 256, where the flash backend stops: the first SDPA backend
+    that takes these operands, named in `extra["library_backend"]`, as a
+    context factory that pins it; below, PyTorch's own choice (a no-op
+    context)."""
+    if q.shape[-1] <= 256:
+        return contextlib.nullcontext
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        try:
+            with sdpa_kernel(backend):
+                F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+        except RuntimeError:
+            continue
+        extra["library_backend"] = name
+        return lambda: sdpa_kernel(backend)
+    raise SmokeFailure(f"no SDPA backend takes D = {q.shape[-1]}")
 
 
 def tflops(ops, ms):
@@ -526,7 +662,7 @@ def case_flash(b, h, s, d, causal, dtype, fused=False, rate=0.0):
     err = (out.float() - ref.float()).abs().max().item()
     lse_err = (lse - ref_lse).abs().max().item()
     ok = _within(out.float(), ref.float(), tol, tol) and lse_err <= lse_tol
-    extra = {"route": flash_route(dtype)}
+    extra = {"route": flash_route(dtype, d)}
     if rate:
         share, share_ok = keep_share_check(seed, b, h, s, s, rate)
         ok = ok and share_ok
@@ -539,14 +675,19 @@ def case_flash(b, h, s, d, causal, dtype, fused=False, rate=0.0):
     ops = 4 * b * h * d * pairs
     nbytes = 4 * q.numel() * q.element_size() + lse.numel() * 4
     b_ms, b_by = bound_ms(nbytes, ops, dtype)
+    backend = sdpa_backend(q, k, v, causal, extra)
+
+    def library():
+        with backend():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                  dropout_p=rate)
     res = {
         "case": _case_name(b, h, s, d, causal, dtype, fused, rate), "ok": ok,
         "tolerance": f"out atol=rtol={tol}, lse atol={lse_tol}",
         "max_abs_err": err, "lse_max_abs_err": lse_err, **extra,
         **timings(lambda: flash_attention_cuda(q, k, v, **kw),
                   lambda: mha_reference(q, k, v, return_lse=True, **kw),
-                  lambda: F.scaled_dot_product_attention(
-                      q, k, v, is_causal=causal, dropout_p=rate)),
+                  library),
         "bound_ms": b_ms, "bound_by": b_by}
     res["tflops"] = tflops(ops, res["ms"])
     res["library_tflops"] = tflops(ops, res["library_ms"])
@@ -621,7 +762,7 @@ def case_flash_bwd(b, h, s, d, causal, dtype, fused=False, rate=0.0):
                   for a, r in zip((dq, dk, dv), ref))
     del ref
     ok = max(errs.values()) <= tol and repeat
-    extra = {"route": flash_route(dtype), "bitwise_repeat": repeat}
+    extra = {"route": flash_route(dtype, d), "bitwise_repeat": repeat}
     if rate:
         share, share_ok = keep_share_check(seed, b, h, s, s, rate)
         ok = ok and share_ok
@@ -645,8 +786,9 @@ def case_flash_bwd(b, h, s, d, causal, dtype, fused=False, rate=0.0):
                           "host_us": host_us(fn), "bound_ms": b_ms,
                           "bound_by": b_by}
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
-                                          dropout_p=rate)
+    with sdpa_backend(q, k, v, causal, extra)():
+        sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
+                                              dropout_p=rate)
     res = {
         "case": _case_name(b, h, s, d, causal, dtype, fused, rate), "ok": ok,
         "tolerance": f"max|d|/max|ref| <= {tol} for dq, dk, dv; bitwise "
@@ -674,16 +816,30 @@ def grouped_weight(k, n, groups, seed):
 
 
 def case_dequant(m, k, n, groups, dtype):
+    """Kernel C against its plain twin: the route its launcher took, which
+    must be the one ops/quant.py dequant_plan predicts, with the whole plan
+    (ds_dequant_matmul_plan); a second launch must repeat the first
+    bitwise.  bf16 at groups 1 adds the batched timer (cold HBM) of C and of
+    the dense bf16 matmul on the pre-dequantized weight."""
     w = quantize_weight(grouped_weight(k, n, groups, m + k + n + groups),
                         groups, "cuda")
     g = torch.Generator(device="cuda").manual_seed(m)
     x = torch.randn(m, k, device="cuda", generator=g).to(dtype)
     out = fused_dequant_matmul(x, w)
+    again = fused_dequant_matmul(x, w)
     ref = dequant_matmul_reference(x, w)
     torch.cuda.synchronize()
-    route = DEQUANT_ROUTES[op_builder.load().ds_dequant_matmul_route(
-        x.data_ptr(), w.qweight.data_ptr(), m, k, n,
-        dispatch.kernel_dtype_code(x))]
+    repeat = torch.equal(out, again)
+    code = dispatch.kernel_dtype_code(x)
+    lib = op_builder.load()
+    route = DEQUANT_ROUTES[lib.ds_dequant_matmul_route(
+        x.data_ptr(), w.qweight.data_ptr(), m, k, n, code)]
+    c_plan = (ctypes.c_int * 5)()
+    lib.ds_dequant_matmul_plan(x.data_ptr(), w.qweight.data_ptr(), m, k, n,
+                               code, c_plan)
+    plan = dequant_plan(m, k, n, dtype)
+    plan_agrees = (route, *c_plan[1:]) == tuple(plan) and \
+        DEQUANT_ROUTES[c_plan[0]] == route
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     err = (out.float() - ref.float()).abs().max().item()
     rel = err / ref.float().abs().max().item()
@@ -691,16 +847,50 @@ def case_dequant(m, k, n, groups, dtype):
     nbytes = (x.numel() * x.element_size() + k * n + groups * 4
               + m * n * x.element_size())
     b_ms, b_by = bound_ms(nbytes, 2 * m * k * n, dtype)
-    return {
+    res = {
         "case": f"M={m} [{k},{n}] groups={groups} {_dtname(dtype)}",
-        "route": route, "ok": rel <= tol, "tolerance": f"max|d|/max|ref| <= {tol}",
-        "max_abs_err": err, "rel_err": rel,
+        "route": route, "plan": plan._asdict(), "plan_agrees": plan_agrees,
+        "ok": rel <= tol and repeat and plan_agrees,
+        "tolerance": f"max|d|/max|ref| <= {tol}; bitwise repeat; the "
+                     "launcher's plan is dequant_plan's",
+        "max_abs_err": err, "rel_err": rel, "bitwise_repeat": repeat,
         # library: the dense matmul on the pre-dequantized weight (reads
         # 2x the weight bytes in bf16), the product int8 serving replaces
         **timings(lambda: fused_dequant_matmul(x, w),
                   lambda: dequant_matmul_reference(x, w),
                   lambda: torch.matmul(x, dense)),
         "bound_ms": b_ms, "bound_by": b_by}
+    if dtype == torch.bfloat16 and groups == 1:
+        res["batched_us"] = batched_us(
+            lambda xx, q, sc: fused_dequant_matmul(xx, QuantizedWeight(q, sc)),
+            (x, w.qweight, w.scale))
+        res["library_batched_us"] = batched_us(torch.matmul, (x, dense))
+    return res
+
+
+DEQUANT_ROUTE_KERNELS = {"gemv": "dq_gemv_kernel", "mma": "wprod_mma_kernel",
+                         "tiled": "dq_tiled_kernel",
+                         "gemv_mma": "dq_gemv_mma_kernel"}
+
+
+def case_dequant_kernels(m, dtype):
+    """The device kernel names of one kernel C launch at M = m, [768, 3072]
+    (torch.profiler): its route's kernel ran and the other routes' did
+    not."""
+    k, n = 768, 3072
+    w = quantize_weight(grouped_weight(k, n, 8, 3), 8, "cuda")
+    x = torch.randn(m, k, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(4)
+                    ).to(dtype)
+    route = dequant_plan(m, k, n, dtype).route
+    names, attempts = device_kernel_names(lambda: fused_dequant_matmul(x, w))
+    want = DEQUANT_ROUTE_KERNELS[route]
+    others = [v for r, v in DEQUANT_ROUTE_KERNELS.items() if r != route]
+    ok = (len(names) == 1 and want in names[0]
+          and not any(o in nm for nm in names for o in others))
+    return {"case": f"M={m} [{k},{n}] groups=8 {_dtname(dtype)}", "ok": ok,
+            "tolerance": f"one device kernel, {want}", "route": route,
+            "device_kernels": names, "profiler_sessions": attempts}
 
 
 def bigbird_layout(heads=12, block=512, seq=LONG_SEQ):
@@ -845,7 +1035,7 @@ def case_block_sparse(kind, b, h, s, d, block, dtype, causal, fused=False):
                                 f"live rows; dq, dk, dv max|d|/max|ref| <= "
                                 f"{grad_tol}; empty rows out 0, lse masked; "
                                 "bitwise repeat"),
-        "route": flash_route(dtype), "bitwise_repeat": repeat,
+        "route": flash_route(dtype, d), "bitwise_repeat": repeat,
         "density": float(layout.mean()), "score_pairs": pairs,
         "empty_rows": empty_rows, "max_abs_err": out_err,
         "lse_max_abs_err": lse_err, "rel_err": grad_errs,
@@ -922,7 +1112,7 @@ def case_realigned(kind):
     return {"case": f"[{b},{h},{s},{d}] {kind} bf16 causal, k 2 bytes off a "
                     "16-byte boundary", "ok": ok,
             "tolerance": "one copy a launch; bitwise equal to the aligned "
-                         "call", "route": flash_route(torch.bfloat16),
+                         "call", "route": flash_route(torch.bfloat16, d),
             "launches": results}
 
 
@@ -1046,13 +1236,39 @@ H_ROUTE_KERNELS = {cm.ROUTE_TENSOR_CORES: {"ag": ("wprod_mma_kernel",),
                                          "rs": ("tile_matmul_kernel",)}}
 
 
+PROFILER_ATTEMPTS = 5
+
+
+def device_kernel_names(call):
+    """The names of the device kernels that call() ran, from torch.profiler
+    (CUDA activity), and the profiler sessions it took.  On some machines
+    a session loses the record of its first kernel: each session starts
+    with a short spin kernel (left out of the names), and one that recorded
+    no kernel of call() at all is repeated, up to PROFILER_ATTEMPTS."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    for attempt in range(1, PROFILER_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            call()
+            torch.cuda.synchronize()
+            time.sleep(0.05 * (attempt - 1))  # time for the activity records
+        names = sorted({e.name for e in prof.events()
+                        if e.device_type == DeviceType.CUDA
+                        and "spin_kernel" not in e.name})
+        if names:
+            break
+    return names, attempt
+
+
 def case_fcm_tile_kernels(entry, dtype):
     """The device kernel names of one launch of kernel H's entry point at
     c_fc's tile (int8 payload), from torch.profiler: on the tensor-core
     route (bf16) tile_mma.cuh's kernels ran and tile_matmul.cuh's did not;
     on the CUDA-core route (fp32) the reverse."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     m, (kc, n) = FCM_ROWS, FCM_PRIMARY_TILE
     q, s = fcm_payload(kc, n, 8, dtype, 5)
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -1068,13 +1284,7 @@ def case_fcm_tile_kernels(entry, dtype):
         a, rhs = rs_operands(m, kc, n, dtype, 7)
         call, route = (lambda: cm.fcm_tile_rs_cuda(a, rhs),
                        cm.fcm_route(a, rhs))
-    call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        call()
-        torch.cuda.synchronize()
-    names = sorted({e.name for e in prof.events()
-                    if e.device_type == DeviceType.CUDA})
+    names, attempts = device_kernel_names(call)
     want = H_ROUTE_KERNELS[route][entry]
     other = {k for r, by in H_ROUTE_KERNELS.items() if r != route
              for k in by[entry]} - set(want)
@@ -1083,7 +1293,8 @@ def case_fcm_tile_kernels(entry, dtype):
     return {"case": f"fcm_tile_{entry} m={m} tile [{kc},{n}] int8 "
                     f"{_dtname(dtype)}", "ok": bool(names) and ran and absent,
             "tolerance": f"{', '.join(want)} ran; {', '.join(sorted(other))} "
-                         "did not", "route": route, "device_kernels": names}
+                         "did not", "route": route, "device_kernels": names,
+            "profiler_sessions": attempts}
 
 
 def fp32_dequant_err(kernel, twin, args, dest):
@@ -1298,10 +1509,25 @@ FCM_PRIMARY_TILE = (FCM_MATRICES["c_fc"][0] // FCM_WORLD,
                     FCM_MATRICES["c_fc"][1])
 
 
+# head dims above the tiled kernels' 256 (csrc/attention_wide.cuh)
+WIDE_HEAD_DIMS = (264, 320, 512)
+GPT2_INT8_SHAPES = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
 PARITY_CASES = {
+    # the route checks read device kernel names from torch.profiler, first:
+    # on some machines its sessions lose records later in the phase
+    # kernel C's four kernels, by the device kernel one launch of each ran
+    "dequant_route": (case_dequant_kernels, [
+        (8, torch.bfloat16), (8, torch.float32), (1024, torch.bfloat16),
+        (1024, torch.float32)]),
+    # kernel H's route, by the device kernels one launch of each entry
+    # point ran
+    "fcm_tile_route": (case_fcm_tile_kernels, [
+        (entry, dt) for entry in ("ag", "ag_t", "rs") for dt in FCM_DTYPES]),
     "layer_norm_fwd": (case_layer_norm, [
         (rows, dt) for rows in (1024, 8)
-        for dt in (torch.bfloat16, torch.float32)]),
+        for dt in (torch.bfloat16, torch.float32)]
+        # the train step's rows, for the batched timer
+        + [(TRAIN_BATCH * TRAIN_SEQ, torch.bfloat16)]),
     "flash_attention_fwd": (case_flash, [
         (8, 12, 128, 64, True, dt) for dt in (torch.bfloat16, torch.float32)]
         + [(2, 12, 1024, 64, causal, dt) for causal in (True, False)
@@ -1321,14 +1547,20 @@ PARITY_CASES = {
         + [(2, 4, 200, d, True, dt) for d in (40, 80, 36, 136, 256)
            for dt in (torch.bfloat16, torch.float32)]
         # D = 256 at the training length, beside SDPA's flash forward
-        + [(2, 12, 1024, 256, True, torch.bfloat16)]),
+        + [(2, 12, 1024, 256, True, torch.bfloat16)]
+        # head dims above 256: the wide kernels, three and four column
+        # chunks, in both dtypes; D = 512 at the training length beside
+        # SDPA's backend for that D
+        + [(2, 4, 200, d, True, dt) for d in WIDE_HEAD_DIMS
+           for dt in (torch.bfloat16, torch.float32)]
+        + [(2, 12, 1024, 512, True, torch.bfloat16)]),
+    # kernel C at GPT-2's four int8 products: one decode row, the decode
+    # batch (the GEMV), a 77-token prompt and the 8 x 128 prefill (bf16 on
+    # the tensor cores, fp32 the tiled kernel)
     "dequant_matmul": (case_dequant, [
-        (m, k, n, groups, dt) for m in (8, 1024)
-        for (k, n) in ((768, 2304), (768, 768), (768, 3072), (3072, 768))
-        for groups in (1, 8) for dt in (torch.bfloat16, torch.float32)]
-        # ragged M: one decode row, a 77-token prompt
-        + [(m, 768, 2304, 8, dt) for m in (1, 77)
-           for dt in (torch.bfloat16, torch.float32)]),
+        (m, k, n, groups, dt) for m in (8, 1, 77, 1024)
+        for (k, n) in GPT2_INT8_SHAPES
+        for groups in (1, 8) for dt in (torch.bfloat16, torch.float32)]),
     "layer_norm_bwd": (case_layer_norm_bwd, [
         (rows, dt) for rows in (TRAIN_BATCH * TRAIN_SEQ, 77, 1)
         for dt in (torch.bfloat16, torch.float32)]),
@@ -1358,7 +1590,12 @@ PARITY_CASES = {
         + [(1, 4, LONG_SEQ, 64, True, torch.bfloat16, True, DROPOUT)]
         # D = 256 at the training length, dropout off, beside SDPA's
         # flash backward
-        + [(2, 12, 1024, 256, True, torch.bfloat16)]),
+        + [(2, 12, 1024, 256, True, torch.bfloat16)]
+        # head dims above 256 (the wide kernels), dropout on, both dtypes;
+        # D = 512 at the training length, dropout off
+        + [(2, 4, 200, d, True, dt, False, DROPOUT) for d in WIDE_HEAD_DIMS
+           for dt in (torch.float32, torch.bfloat16)]
+        + [(2, 12, 1024, 512, True, torch.bfloat16)]),
     # kernels F and G: (a) bench_sparse_longseq's attention, (b) the
     # Fixed layout of tests/tpu/test_kernel_parity_tpu.py:226-228 causal
     # and not, (c) D = 128, (d) a layout with an empty causal row, (e) a
@@ -1376,7 +1613,7 @@ PARITY_CASES = {
         + [("bigbird", 2, 4, 1024, 64, 128, dt, False, True)
            for dt in (torch.bfloat16, torch.float32)]
         + [("bigbird", 2, 4, 1024, d, 128, dt, True, True)
-           for d in (32, 96, 40, 80, 36, 136, 256)
+           for d in (32, 96, 40, 80, 36, 136, 256) + WIDE_HEAD_DIMS
            for dt in (torch.bfloat16, torch.float32)]),
     # the 16-byte rule of the tensor-core route: each attention launch with
     # a misaligned bf16 operand, against the same call on an aligned copy
@@ -1391,10 +1628,6 @@ PARITY_CASES = {
         for bits in (8, 4, 0) for dt in FCM_DTYPES]),
     "fcm_tile_rs": (case_fcm_tile_rs, [
         (FCM_ROWS, kc, n, dt) for kc, n in FCM_TILES for dt in FCM_DTYPES]),
-    # kernel H's route, by the device kernels one launch of each entry
-    # point ran
-    "fcm_tile_route": (case_fcm_tile_kernels, [
-        (entry, dt) for entry in ("ag", "ag_t", "rs") for dt in FCM_DTYPES]),
     # kernel I: a step that accumulates and the last step's cast (int8 at
     # every tile in both dtypes), int4 and native payloads at every tile
     # and the first step at c_fc's in bf16 (the tensor cores; fp32 takes
@@ -1418,8 +1651,6 @@ PARITY_CASES = {
                                                  (33, torch.bfloat16))]),
     "fcm_rs_collect": (case_fcm_rs_collect, FCM_TILES + [(33, 50)]),
 }
-# ds_dequant_matmul_route's codes: the kernel csrc/dequant_matmul.cu takes
-DEQUANT_ROUTES = ("gemv", "mma", "tiled")
 # the case each kernel's entry of the `kernels` line reports: the shape and
 # layout its path runs most (LN forward at prefill, dequant at decode; the
 # flash forward, LN backward and flash backward at the training step)
@@ -1580,7 +1811,7 @@ def device_profile(eng, prompt, prefill_ms, decode_step_ms):
     of the unprofiled wall time, and the ops with the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    busy_us, ops = {}, {}
+    busy_us, dequant_us, ops = {}, {}, {}
     for new in (1, PROFILED_TOKENS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1591,17 +1822,26 @@ def device_profile(eng, prompt, prefill_ms, decode_step_ms):
         ops = {}
         for e in kernels:
             ops[e.name] = ops.get(e.name, 0.0) + e.time_range.elapsed_us()
+        dequant_us[new] = sum(us for name, us in ops.items()
+                              if any(kn in name for kn in
+                                     DEQUANT_ROUTE_KERNELS.values()))
     if not busy_us[PROFILED_TOKENS]:
         return {"device_busy": "not measured: torch.profiler recorded no "
                                "device activity"}
-    step_device_ms = ((busy_us[PROFILED_TOKENS] - busy_us[1]) / 1e3
-                      / (PROFILED_TOKENS - 1))
+    steps = PROFILED_TOKENS - 1
+    step_device_ms = (busy_us[PROFILED_TOKENS] - busy_us[1]) / 1e3 / steps
+    step_dequant_ms = (dequant_us[PROFILED_TOKENS] - dequant_us[1]) / 1e3 / steps
     top = sorted(ops.items(), key=lambda kv: -kv[1])[:6]
     return {
         "prefill_device_ms": busy_us[1] / 1e3,
         "prefill_device_busy_share": busy_us[1] / 1e3 / prefill_ms,
         "decode_step_device_ms": step_device_ms,
         "decode_device_busy_share": step_device_ms / decode_step_ms,
+        # kernel C's device time in a decode step and in the prefill (0
+        # for bf16 serving)
+        "decode_step_dequant_device_ms": step_dequant_ms,
+        "decode_step_dequant_share": step_dequant_ms / step_device_ms,
+        "prefill_dequant_device_ms": dequant_us[1] / 1e3,
         f"top_device_ms_generate_{PROFILED_TOKENS}": {
             name[:80]: us / 1e3 for name, us in top}}
 

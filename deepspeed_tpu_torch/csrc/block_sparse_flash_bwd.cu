@@ -32,7 +32,10 @@
 // operands: operations bound both (~140 and ~186 us at the bf16
 // tensor-core peak).
 //
-// Head dims: any D up to 256 runs, on either route, the smallest
+// Head dims above 256 run the wide kernels of attention_wide.cuh over the
+// same layout walks (bf16 on the tensor cores, fp32 on the CUDA cores): the
+// output columns in chunks of 128 over the grid.  Up to
+// 256, any D runs, on either route, the smallest
 // instantiation (32, 64, 96, 128, 256) at or above it; the columns past
 // the true D are zero-filled on load, so they add nothing to a product,
 // and are never stored.  The tensor-core route takes D a multiple of 8
@@ -72,6 +75,7 @@
 // projection.
 
 #include "attention_mma.cuh"
+#include "attention_wide.cuh"
 #include "block_sparse_walk.cuh"
 
 namespace {
@@ -81,6 +85,7 @@ using ds_bsf::Layout;
 struct Strides {
   long long b, h, s;
 };
+
 
 // ===================================================================== //
 // fp32: CUDA cores
@@ -681,7 +686,7 @@ extern "C" int ds_block_sparse_flash_bwd_dkdv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv,
     const void* idx_t, const void* valid_t, int B, int H, int S, int D,
-    int block, int max_deg_t, const long long* strides, float sm_scale,
+    int chunks, int block, int max_deg_t, const long long* strides, float sm_scale,
     int causal, int dtype, void* stream) {
   if (block % ds_bsf::kSub != 0 || S % block != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -702,8 +707,18 @@ extern "C" int ds_block_sparse_flash_bwd_dkdv(
                                       dos, dks, dvs, sm_scale, D, causal, s)
   // any D up to 256 (bf16: a multiple of 8) runs the smallest instantiation
   // at or above it, its columns past D zero-filled on load and masked on
-  // store
-  if (!ds_head_dim_ok(D, dtype)) return static_cast<int>(cudaErrorInvalidValue);
+  // store; a larger D runs the wide kernel, `chunks` column chunks
+  if (!ds_head_dim_plan_ok(D, chunks, dtype)) return static_cast<int>(cudaErrorInvalidValue);
+  if (D > DS_MAX_TILED_HEAD_DIM) {
+    const ds_wide::SparseWalk walk{lay_t, lay_t, S, S, causal};
+    const ds_wide::Dropout none{nullptr, 256, 1.f};
+#define DS_WIDE_DKDV(F)                                                                     \
+  return F(q, k, v, dout, l, dl, dk, dv, B, H, D, qs, ks, vs, dos, dks, dvs,                      \
+                                 sm_scale, walk, none, s)
+    if (dtype == DS_DTYPE_BF16) DS_WIDE_DKDV(ds_wide::tc::launch_dkdv);
+    DS_WIDE_DKDV(ds_wide::launch_dkdv<float>);
+#undef DS_WIDE_DKDV
+  }
   if (dtype == DS_DTYPE_BF16) {
     if (D <= 32) DS_DKDV(tc, 32);
     if (D <= 64) DS_DKDV(tc, 64);
@@ -722,7 +737,7 @@ extern "C" int ds_block_sparse_flash_bwd_dkdv(
 extern "C" int ds_block_sparse_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, const void* idx,
-    const void* valid, int B, int H, int S, int D, int block, int max_deg,
+    const void* valid, int B, int H, int S, int D, int chunks, int block, int max_deg,
     const long long* strides, float sm_scale, int causal, int dtype,
     void* stream) {
   if (block % ds_bsf::kSub != 0 || S % block != 0) {
@@ -743,8 +758,18 @@ extern "C" int ds_block_sparse_flash_bwd_dq(
                                     dqs, sm_scale, D, causal, s)
   // any D up to 256 (bf16: a multiple of 8) runs the smallest instantiation
   // at or above it, its columns past D zero-filled on load and masked on
-  // store
-  if (!ds_head_dim_ok(D, dtype)) return static_cast<int>(cudaErrorInvalidValue);
+  // store; a larger D runs the wide kernel, `chunks` column chunks
+  if (!ds_head_dim_plan_ok(D, chunks, dtype)) return static_cast<int>(cudaErrorInvalidValue);
+  if (D > DS_MAX_TILED_HEAD_DIM) {
+    const ds_wide::SparseWalk walk{lay, lay, S, S, causal};
+    const ds_wide::Dropout none{nullptr, 256, 1.f};
+#define DS_WIDE_DQ(F)                                                                       \
+  return F(q, k, v, dout, l, dl, dq, B, H, D, qs, ks, vs, dos, dqs, sm_scale,                     \
+                               walk, none, s)
+    if (dtype == DS_DTYPE_BF16) DS_WIDE_DQ(ds_wide::tc::launch_dq);
+    DS_WIDE_DQ(ds_wide::launch_dq<float>);
+#undef DS_WIDE_DQ
+  }
   if (dtype == DS_DTYPE_BF16) {
     if (D <= 32) DS_DQ(tc, 32);
     if (D <= 64) DS_DQ(tc, 64);

@@ -18,7 +18,10 @@
 // diagonal ones per head, ~92 GFLOP against ~102 MB of q, k, v, out and
 // lse: the bf16 tensor cores bound it at ~93 us, the memory at ~30 us.
 //
-// Head dims: any D up to 256 runs, on either route, the smallest
+// Head dims above 256 run the wide kernels of attention_wide.cuh over the
+// same layout walk (bf16 on the tensor cores, fp32 on the CUDA cores): the
+// output columns in chunks of 128 over the grid.  Up to 256, any D runs, on either
+// route, the smallest
 // instantiation (32, 64, 96, 128, 256) at or above it; the columns past
 // the true D are zero-filled on load, so they add nothing to a product,
 // and are never stored.  The tensor-core route takes D a multiple of 8
@@ -59,6 +62,7 @@
 // skipped.
 
 #include "attention_mma.cuh"
+#include "attention_wide.cuh"
 #include "block_sparse_walk.cuh"
 
 namespace {
@@ -391,7 +395,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 extern "C" int ds_block_sparse_flash_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     const void* idx, const void* valid, int B, int H, int S, int D,
-    int block, int max_deg, const long long* strides, float sm_scale,
+    int chunks, int block, int max_deg, const long long* strides, float sm_scale,
     int causal, int dtype, void* stream) {
   if (block % ds_bsf::kSub != 0 || S % block != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -409,8 +413,17 @@ extern "C" int ds_block_sparse_flash_fwd(
                                  s)
   // any D up to 256 (bf16: a multiple of 8) runs the smallest instantiation
   // at or above it, its columns past D zero-filled on load and masked on
-  // store
-  if (!ds_head_dim_ok(D, dtype)) return static_cast<int>(cudaErrorInvalidValue);
+  // store; a larger D runs the wide kernel, `chunks` column chunks
+  if (!ds_head_dim_plan_ok(D, chunks, dtype)) return static_cast<int>(cudaErrorInvalidValue);
+  if (D > DS_MAX_TILED_HEAD_DIM) {
+    const ds_wide::SparseWalk walk{lay, lay, S, S, causal};
+    const ds_wide::Dropout none{nullptr, 256, 1.f};
+    if (dtype == DS_DTYPE_BF16)
+      return ds_wide::tc::launch_fwd(q, k, v, o, l, B, H, D, qs, ks, vs, os, sm_scale, walk,
+                                     none, s);
+    return ds_wide::launch_fwd<float>(q, k, v, o, l, B, H, D, qs, ks, vs, os, sm_scale, walk,
+                                      none, s);
+  }
   if (dtype == DS_DTYPE_BF16) {
     if (D <= 32) DS_BSF(tc, 32);
     if (D <= 64) DS_BSF(tc, 64);

@@ -15,13 +15,28 @@
 // so a running max over masked scores never becomes -inf.
 #define DS_MASK_VALUE (-0.7f * 3.4028234663852886e+38f)
 
-// The head dims the attention launchers (kernels B, E, F, G) take: 1 to
-// 256, and on the bf16 (tensor-core) route a multiple of 8, the width of
-// its 16-byte copies (the Python wrappers pad any other D with zero
-// columns).
+// The head dims the attention launchers (kernels B, E, F, G) take: any
+// D >= 1.  Up to 256 the tiled kernels run it, above 256 the wide kernels
+// (attention_wide.cuh), their output columns in chunks of DS_WIDE_CHUNK
+// over the grid.  On the bf16 (tensor-core) routes D must be a multiple of
+// 8, the width of their 16-byte copies (the Python wrappers pad any other
+// D with zero columns).  A launch passes the chunk count it planned
+// (ops/flash_attention.py head_dim_plan), and one that differs from
+// ds_head_dim_chunks is refused.
+#define DS_MAX_TILED_HEAD_DIM 256
+#define DS_WIDE_CHUNK 128
+
 inline bool ds_head_dim_ok(int D, int dtype) {
   if (dtype != DS_DTYPE_BF16 && dtype != DS_DTYPE_FP32) return false;
-  return D >= 1 && D <= 256 && (dtype == DS_DTYPE_FP32 || D % 8 == 0);
+  return D >= 1 && (dtype == DS_DTYPE_FP32 || D % 8 == 0);
+}
+
+inline int ds_head_dim_chunks(int D) {
+  return D > DS_MAX_TILED_HEAD_DIM ? (D + DS_WIDE_CHUNK - 1) / DS_WIDE_CHUNK : 1;
+}
+
+inline bool ds_head_dim_plan_ok(int D, int chunks, int dtype) {
+  return ds_head_dim_ok(D, dtype) && chunks == ds_head_dim_chunks(D);
 }
 
 __device__ __forceinline__ float ds_to_float(float v) { return v; }

@@ -4,46 +4,90 @@
 // Replaces: deepspeed_tpu/ops/quant.py fused_dequant_matmul (_dq_kernel).
 // Same numerics: each int8 weight is converted on chip, scaled by its
 // row's fp32 group scale and rounded to x's dtype (as the TPU kernel feeds
-// its MXU), then multiplied with fp32 accumulation.
+// its MXU), then multiplied with fp32 accumulation.  Every sum is taken in
+// a fixed order with no atomics, so a launch repeats bitwise, and a call is
+// one launch.
 //
 // Bound on the H100: bytes at decode, where M is the batch (8): the weight
-// is read once for 2*M operations per int8 byte, far below the ~295 at
+// is read once for 2 M operations per int8 byte, far below the ~295 at
 // which the tensor cores would bound it.  At prefill (M = 1024, ~1,500
-// operations per byte) the bf16 tensor cores bound it.  What the design
-// does about the bytes: device memory sees only the int8 weight (1 byte
-// per element, half of bf16), never a dequantized copy.  The launcher
-// picks one of three kernels from the shape:
+// operations per byte) the bf16 tensor cores bound it.  Device memory sees
+// only the int8 weight (1 byte per element, half of bf16), never a
+// dequantized copy.  The launcher picks one of four kernels from the shape
+// (ds_dequant_matmul_plan; ops/quant.py dequant_plan mirrors it):
 //
-// - dq_gemv_kernel, M <= 8 (decode).  A block owns 128 output columns and
-//   one slice of K; its 16 warps split the slice between them, and each
-//   lane owns 4 adjacent columns, read as one 4-byte load per weight row,
-//   so a warp reads 128 contiguous bytes of a row.  Sixteen rows are loaded
-//   before any is used, to keep many loads in flight: at these sizes the
-//   time is set by memory latency and by how many SMs take part, not by
-//   the memory rate.  The K slices of one column block form a thread-block
-//   cluster (up to 8 blocks on neighbouring SMs), so that a [3072, 768]
-//   weight, which has only 6 column blocks, still runs on 48 SMs.  x is
-//   staged in shared memory as fp32.  The warps' partial sums meet in
-//   shared memory, and the cluster's blocks read each other's sums through
-//   distributed shared memory; every sum is taken in a fixed order, so the
-//   result does not depend on scheduling, and no workspace or second
-//   launch is needed.
-// - dq_mma_kernel, bf16 x with M > 8 (prefill).  64 x 64 output tiles,
-//   four warps of 32 x 32, `mma.sync` m16n8k16 bf16 with fp32
-//   accumulators, K in steps of 32.  The int8 tile is dequantized on its
-//   way into shared memory (stored n-major, so each B fragment is one
-//   32-bit load); the next step's tiles are loaded into registers while
-//   the current one multiplies.  Needs K % 32 == 0, N % 16 == 0 and
-//   16-byte aligned x and qweight.
+// - dq_gemv_mma_kernel, bf16 x with M <= 8 (decode).  At these sizes the
+//   time is memory latency, the number of SMs in play and the
+//   instructions between a load and the sums, not the memory rate (GPT-2's
+//   four weights are 0.6-2.4 MB, a few KB per SM).  So:
+//   - the products run on the tensor cores with the operands swapped,
+//     out^T[N, M] = W^T x^T: mma.sync m16n8k16 with the dequantized weight
+//     as A (16 output columns) and x^T as B (n = 8 >= M).  A CUDA-core
+//     design spends 8 FMAs a weight at M = 8 and measured slower than the
+//     dense bf16 matmul; here a weight costs a byte permute, an add, a
+//     multiply and half a pack;
+//   - the fragment slots are assigned so that every operand comes straight
+//     from the thread's own loads (see the kernel): 8 weights of a row in
+//     one 8-byte load that skips L1 (the weight streams through once), x
+//     in one 8-byte load; no shuffles and no shared memory feed the
+//     products;
+//   - every SM takes part: a block owns 64 columns and one of `split`
+//     slices of K, its 8 (or 16) warps taking interleaved k-steps of 16;
+//     the K slices of a column block form a thread-block cluster (up to
+//     16, a non-portable size), split chosen so that the blocks reach 132
+//     and a slice is at most 128 rows.  The choice is a sweep's on the
+//     H100: 128-column blocks with 16-byte loads halve the
+//     blocks, or need deeper slices, and measured slower at every GPT-2
+//     shape; so did 16-column strips over the whole K (no cross-block sum,
+//     but every block re-reads all of x);
+//   - a row's scale: the group index of the thread's first row is one
+//     division, later rows step it (rows only increase), never divide;
+//   - the epilogue: the block sums its warps' fragments in shared memory
+//     in warp order, and sends each group of four sums to the rank that
+//     owns it with one 16-byte distributed-shared-memory store (stores
+//     post without a round trip); after one cluster barrier each rank sums
+//     its outputs over the ranks in rank order from its own shared memory.
+//     A pull design (a cluster barrier, remote loads, a second barrier so
+//     that no block left while read) measured slower.  The sum is a fixed
+//     tree, so a launch repeats bitwise;
+//   - on the host: static shared memory, the cluster-size attribute set
+//     once per device, a launch one cudaLaunchKernelEx.
+// - dq_gemv_kernel, M <= 8 otherwise (fp32 x; bf16 x off the 16-byte
+//   boundary or with K % 16 != 0): the same cluster split on the CUDA
+//   cores.  A thread owns 16 adjacent columns and reads 16 bytes of a row
+//   at a time, kGemvRows rows in flight; x is staged once per block,
+//   transposed to [k][MT] fp32, by 16-byte loads where x allows them, while
+//   the first rows are in flight; the warp's k-lanes reduce-scatter their
+//   MT x 16 sums by shuffles, each warp writes its [MT][W] partial, the
+//   block sums its warps in warp order, and after a cluster barrier each
+//   rank sums its share of the outputs over the ranks in rank order,
+//   reading them through distributed shared memory (a second barrier keeps
+//   every block alive while others read it); an int8 weight becomes fp32
+//   by a byte permute and an add (exact), not the quarter-rate integer
+//   conversion.
+// - bf16 x with M > 8 (prefill): tile_mma.cuh's weight-product core,
+//   which kernels H and I run: a 3-stage cp.async ring of x tiles and the
+//   raw int8 payload with its scales, dequantized in shared memory into a
+//   swizzled bf16 tile (hi = bf16(q * s), the one rounding C makes),
+//   ldmatrix, mma.sync m16n8k16 with fp32 sums, the bf16 output stored
+//   through the staging tile in 8-byte vectors.  Its own tiles (WprodCfg's
+//   row-group shapes, chosen by a sweep on the H100): k-steps of 64, and
+//   64 x 128 outputs (3 stages) where those blocks fill the card twice,
+//   else 64 x 64 (4 stages); kernel I's 64 x 128 x 32 tile gives N = 768
+//   only 96 blocks and K = 3072 96 k-steps in one block.  C's scale is one
+//   per group of K / groups rows: the core's row-group modes stage
+//   scale[k / rpg] per window row, with no per-call expansion of the
+//   scales.  Needs x 16-byte aligned (the Python
+//   wrapper copies one that is not, and counts it) and K % 8 == 0.
 // - dq_tiled_kernel, everything else (fp32 x at M > 8, odd shapes): the
 //   plain tiled GEMM on the CUDA cores, one block per 64 x 64 output
 //   tile, fp32 FMA, all edges masked.
-//
-// `wgmma`, TMA, and a split of K at prefill, are later work.
 
 #include <cooperative_groups.h>
 
-#include "common.cuh"
+#include <algorithm>
+
+#include "tile_mma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -52,248 +96,403 @@ namespace {
 // --------------------------------------------------------------------- //
 // decode: M <= 8
 // --------------------------------------------------------------------- //
-constexpr int kGemvWarps = 16;
-constexpr int kGemvThreads = kGemvWarps * 32;
-constexpr int kGemvCols = 128;         // 4 per lane
 constexpr int kGemvMaxM = 8;
-constexpr int kGemvChunk = 1024;       // rows of x staged in shared memory
-constexpr int kGemvUnroll = 16;        // weight rows in flight per lane
-constexpr int kGemvMaxSplit = 8;       // K slices per column block (cluster size)
-constexpr int kGemvTargetBlocks = 132; // one per SM of an H100 SXM
-constexpr int kGemvMinRows = 64;       // rows of K per slice, at least
+constexpr int kGemvRows = 8;         // rows of 16 bytes a thread has in flight
+constexpr int kGemvMaxThreads = 256;
+constexpr int kGemvMaxSplit = 8;     // K slices per column block: a portable cluster
+constexpr int kGemvSMs = 132;        // an H100 SXM
+constexpr int kGemvXFloats = 4096;   // x staged per block: 16 KB
 
-constexpr size_t gemv_smem_bytes() {
-  return static_cast<size_t>(kGemvChunk * kGemvMaxM +
-                             kGemvWarps * kGemvMaxM * kGemvCols) *
-         sizeof(float);
+struct GemvPlan {
+  int width;    // output columns per block: 32, 64 or 128
+  int split;    // K slices per column block (the cluster)
+  int rows;     // rows of K per slice, a multiple of 8
+  int threads;  // (width / 16) column groups x KL k-lanes
+};
+
+// The widest column block whose blocks, with at most kGemvMaxSplit K
+// slices, reach one per SM; the slices at least kGemvRows rows deep; as
+// many k-lanes as give each thread one batch of rows, at most
+// kGemvMaxThreads threads, a whole number of warps.
+GemvPlan gemv_plan(int K, int N) {
+  GemvPlan p{};
+  for (p.width = 128;; p.width /= 2) {
+    const int col_blocks = (N + p.width - 1) / p.width;
+    p.split = std::min(kGemvMaxSplit, (kGemvSMs + col_blocks - 1) / col_blocks);
+    p.split = std::max(1, std::min(p.split, (K + kGemvRows - 1) / kGemvRows));
+    if (col_blocks * p.split >= kGemvSMs || p.width == 32) break;
+  }
+  p.rows = ((K + p.split - 1) / p.split + 7) / 8 * 8;
+  const int groups = p.width / 16;
+  const int lanes_per_warp = 32 / groups;
+  int kl = std::min((p.rows + kGemvRows - 1) / kGemvRows, kGemvMaxThreads / groups);
+  kl = (kl + lanes_per_warp - 1) / lanes_per_warp * lanes_per_warp;
+  p.threads = kl * groups;
+  return p;
 }
 
-// K slices for an [K, N] weight: the smallest power of two that gives
-// about one block per SM, at most the cluster limit, and no slice under
-// kGemvMinRows rows.
-int gemv_split(int K, int N) {
-  const int col_blocks = (N + kGemvCols - 1) / kGemvCols;
-  int split = 1;
-  while (split < kGemvMaxSplit && col_blocks * split < kGemvTargetBlocks &&
-         K / (2 * split) >= kGemvMinRows)
-    split *= 2;
-  return split;
+// Byte i of a word of int8 weights whose bytes were XORed with 0x80 (b +
+// 128, unsigned), as an exact fp32: 0x4B0000uu is 2^23 + uu, so one byte
+// permute and one add replace the slower integer conversion.
+__device__ __forceinline__ float int8_value(uint32_t biased, int i) {
+  return __int_as_float(static_cast<int>(__byte_perm(biased, 0x4B000000u, 0x7440 + i))) -
+         8388736.f;
 }
 
+// Two dequantized weights rounded to T (for bf16 the one rounding C
+// makes), back in fp32.
 template <typename T>
-__global__ void __launch_bounds__(kGemvThreads)
+__device__ __forceinline__ float2 round_pair(float a, float b);
+template <>
+__device__ __forceinline__ float2 round_pair<float>(float a, float b) {
+  return make_float2(a, b);
+}
+template <>
+__device__ __forceinline__ float2 round_pair<__nv_bfloat16>(float a, float b) {
+  return __bfloat1622float2(__floats2bfloat162_rn(a, b));
+}
+
+// v[0, L) of every lane: the k-lanes that differ in bit OFF (and above)
+// swap halves and add, so that after the last step (OFF = 16) each lane
+// holds the warp's sum of the L >> steps values from flat index `base` on.
+template <int L, int OFF>
+__device__ __forceinline__ void reduce_scatter(float* v, int lane, int& base) {
+  if constexpr (OFF < 32) {
+    constexpr int kHalf = L / 2;
+    const bool upper = (lane & OFF) != 0;
+#pragma unroll
+    for (int i = 0; i < kHalf; ++i) {
+      const float send = upper ? v[i] : v[kHalf + i];
+      const float keep = upper ? v[kHalf + i] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+    }
+    if (upper) base += kHalf;
+    reduce_scatter<kHalf, OFF * 2>(v, lane, base);
+  }
+}
+
+// MT: M rounded up to 1, 2, 4 or 8; CG: column groups of 16 per block.
+template <typename T, int MT, int CG>
+__global__ void __launch_bounds__(kGemvMaxThreads)
 dq_gemv_kernel(const T* __restrict__ x, const int8_t* __restrict__ qw,
-               const float* __restrict__ scale, T* __restrict__ out, int M,
-               int K, int N, int rows_per_group) {
-  constexpr int MT = kGemvMaxM;
+               const float* __restrict__ scale, T* __restrict__ out, int M, int K, int N,
+               int rows_per_group, int rows_per_slice, int xvec) {
+  constexpr int W = CG * 16;
+  constexpr int NV = MT * 16;  // a thread's sums: MT rows x 16 columns
+  constexpr int kChunk = kGemvXFloats / MT;  // rows of x staged at once
   extern __shared__ float smem[];
-  float* xs = smem;                       // [kGemvChunk][MT]
-  float* part = xs + kGemvChunk * MT;     // [kGemvWarps][MT][kGemvCols]
+  float* xs = smem;                  // [kChunk][MT]
+  float* part = smem + kGemvXFloats; // [warps][MT][W]
   cg::cluster_group cluster = cg::this_cluster();
   const int split = static_cast<int>(cluster.num_blocks());  // == gridDim.y
   const int rank = static_cast<int>(cluster.block_rank());   // == blockIdx.y
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int n = blockIdx.x * kGemvCols + lane * 4;  // N % 4 == 0: all 4 in or out
-  const bool active = n < N;
-  // this block's slice of K
-  const int per = (K + split - 1) / split;
-  const int kbeg = min(K, rank * per), kend = min(K, kbeg + per);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lanes = blockDim.x / CG;  // KL
+  const int grp = tid % CG, kl = tid / CG;
+  const int n = blockIdx.x * W + grp * 16;
+  const bool active = n < N;  // N % 16 == 0: all 16 in or out
+  const int kbeg = min(K, rank * rows_per_slice), kend = min(K, kbeg + rows_per_slice);
 
-  float acc[MT][4];
+  float acc[NV];
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[m][c] = 0.f;
+  for (int i = 0; i < NV; ++i) acc[i] = 0.f;
 
-  for (int k0 = kbeg; k0 < kend; k0 += kGemvChunk) {
-    const int kc = min(kGemvChunk, kend - k0);
-    __syncthreads();  // the previous chunk of x is consumed
-    for (int idx = threadIdx.x; idx < kc * MT; idx += kGemvThreads) {
-      const int kk = idx / MT, m = idx % MT;
-      xs[idx] = m < M ? ds_to_float(x[static_cast<size_t>(m) * K + k0 + kk]) : 0.f;
+  uint4 w[kGemvRows];
+  float s[kGemvRows];
+  // the batch of rows r0, r0 + KL, ... (below `end`) into w and s
+  auto fetch = [&](int r0, int end) {
+    int g = r0 / rows_per_group, bound = (g + 1) * rows_per_group;
+#pragma unroll
+    for (int u = 0; u < kGemvRows; ++u) {
+      const int r = r0 + u * lanes;
+      const bool ok = active && r < end;
+      w[u] = ok ? __ldg(reinterpret_cast<const uint4*>(qw + static_cast<size_t>(r) * N + n))
+                : make_uint4(0u, 0u, 0u, 0u);
+      while (r >= bound) {
+        ++g;
+        bound += rows_per_group;
+      }
+      s[u] = ok ? __ldg(scale + g) : 0.f;
+    }
+  };
+
+  for (int k0 = kbeg; k0 < kend; k0 += kChunk) {
+    const int kc = min(kChunk, kend - k0);
+    int r0 = k0 + kl;
+    fetch(r0, k0 + kc);  // in flight while x is staged
+    if (k0 != kbeg) __syncthreads();  // the previous chunk of x is consumed
+    if (xvec) {
+      constexpr int E = 16 / sizeof(T);  // elements of a 16-byte vector
+      const int nvec = kc / E;           // kc is a multiple of 8
+      for (int idx = tid; idx < MT * nvec; idx += blockDim.x) {
+        const int m = idx % MT, vv = idx / MT;
+        float e[E];
+        if (m < M) {
+          const uint4 u =
+              __ldg(reinterpret_cast<const uint4*>(x + static_cast<size_t>(m) * K + k0) + vv);
+          const T* t = reinterpret_cast<const T*>(&u);
+#pragma unroll
+          for (int i = 0; i < E; ++i) e[i] = ds_to_float(t[i]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < E; ++i) e[i] = 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < E; ++i) xs[(vv * E + i) * MT + m] = e[i];
+      }
+    } else {
+      for (int idx = tid; idx < MT * kc; idx += blockDim.x) {
+        const int m = idx / kc, kk = idx % kc;
+        xs[kk * MT + m] = m < M ? ds_to_float(x[static_cast<size_t>(m) * K + k0 + kk]) : 0.f;
+      }
     }
     __syncthreads();
-    if (!active) continue;
-    for (int kb = warp; kb < kc; kb += kGemvWarps * kGemvUnroll) {
-      char4 w[kGemvUnroll];
-      float s[kGemvUnroll];
+    while (true) {
 #pragma unroll
-      for (int u = 0; u < kGemvUnroll; ++u) {
-        const int kk = kb + u * kGemvWarps;
-        if (kk < kc) {
-          const int gk = k0 + kk;
-          w[u] = *reinterpret_cast<const char4*>(qw + static_cast<size_t>(gk) * N + n);
-          s[u] = scale[gk / rows_per_group];
-        } else {
-          w[u] = make_char4(0, 0, 0, 0);
-          s[u] = 0.f;
+      for (int u = 0; u < kGemvRows; ++u) {
+        const int r = r0 + u * lanes;
+        if (r >= k0 + kc) break;
+        const uint32_t words[4] = {w[u].x ^ 0x80808080u, w[u].y ^ 0x80808080u,
+                                   w[u].z ^ 0x80808080u, w[u].w ^ 0x80808080u};
+        float wv[16];
+#pragma unroll
+        for (int c = 0; c < 16; c += 2) {
+          const float a = int8_value(words[c / 4], c % 4);
+          const float b = int8_value(words[c / 4], c % 4 + 1);
+          const float2 rp = round_pair<T>(a * s[u], b * s[u]);
+          wv[c] = rp.x;
+          wv[c + 1] = rp.y;
         }
-      }
-#pragma unroll
-      for (int u = 0; u < kGemvUnroll; ++u) {
-        const int kk = kb + u * kGemvWarps;
-        if (kk >= kc) break;  // uniform over the warp
-        float wv[4];
-        wv[0] = ds_to_float(ds_from_float<T>(static_cast<float>(w[u].x) * s[u]));
-        wv[1] = ds_to_float(ds_from_float<T>(static_cast<float>(w[u].y) * s[u]));
-        wv[2] = ds_to_float(ds_from_float<T>(static_cast<float>(w[u].z) * s[u]));
-        wv[3] = ds_to_float(ds_from_float<T>(static_cast<float>(w[u].w) * s[u]));
-        const float* xr = xs + kk * MT;  // the same address in every lane
+        const float* xr = xs + (r - k0) * MT;
 #pragma unroll
         for (int m = 0; m < MT; ++m) {
           const float xv = xr[m];
 #pragma unroll
-          for (int c = 0; c < 4; ++c) acc[m][c] = fmaf(xv, wv[c], acc[m][c]);
+          for (int c = 0; c < 16; ++c) acc[m * 16 + c] = fmaf(xv, wv[c], acc[m * 16 + c]);
         }
       }
+      r0 += kGemvRows * lanes;
+      if (r0 >= k0 + kc) break;
+      fetch(r0, k0 + kc);
     }
   }
 
-  // the block's sum over its warps, in warp order, into part[0]
+  // the warp's k-lanes (lanes that differ in the bits from CG up) sum by
+  // halves; then each warp's [MT][W] partial goes to shared memory
+  int base = 0;
+  reduce_scatter<NV, CG>(acc, lane, base);
+  constexpr int kKept = NV * CG / 32;  // halved once per lane bit from CG to 16
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      part[(warp * MT + m) * kGemvCols + lane * 4 + c] = acc[m][c];
+  for (int i = 0; i < kKept; ++i) {
+    const int f = base + i, m = f / 16, c = f % 16;
+    part[(warp * MT + m) * W + grp * 16 + c] = acc[i];
+  }
+  // the block's sum over its warps, in warp order, into warp 0's slot;
+  // each sum's loads are issued together
+  constexpr int kMaxWarps = kGemvMaxThreads / 32;
+  const int warps = blockDim.x / 32;
   __syncthreads();
-  for (int idx = threadIdx.x; idx < MT * kGemvCols; idx += kGemvThreads) {
-    float sum = 0.f;
+  for (int idx = tid; idx < MT * W; idx += blockDim.x) {
+    float v[kMaxWarps];
 #pragma unroll
-    for (int w = 0; w < kGemvWarps; ++w) sum += part[w * MT * kGemvCols + idx];
+    for (int wp = 0; wp < kMaxWarps; ++wp) v[wp] = wp < warps ? part[wp * MT * W + idx] : 0.f;
+    float sum = v[0];
+#pragma unroll
+    for (int wp = 1; wp < kMaxWarps; ++wp)
+      if (wp < warps) sum += v[wp];
     part[idx] = sum;  // this thread alone reads and writes idx
   }
-  // the cluster's sum over its K slices, in rank order; each block
-  // finishes its share of the outputs
+  // the cluster's sum over its K slices, in rank order, each rank's value
+  // read through distributed shared memory, all issued together; each
+  // block finishes its share of the outputs
   cluster.sync();
-  const int share = (MT * kGemvCols + split - 1) / split;
-  for (int idx = rank * share + threadIdx.x;
-       idx < min(MT * kGemvCols, (rank + 1) * share); idx += kGemvThreads) {
-    const int m = idx / kGemvCols, gn = blockIdx.x * kGemvCols + idx % kGemvCols;
+  const int share = (MT * W + split - 1) / split;
+  for (int idx = rank * share + tid; idx < min(MT * W, (rank + 1) * share);
+       idx += blockDim.x) {
+    const int m = idx / W, col = idx % W, gn = blockIdx.x * W + col;
     if (m >= M || gn >= N) continue;
-    float sum = 0.f;
-    for (int r = 0; r < split; ++r) sum += cluster.map_shared_rank(part, r)[idx];
+    float v[kGemvMaxSplit];
+#pragma unroll
+    for (int q = 0; q < kGemvMaxSplit; ++q)
+      v[q] = q < split ? cluster.map_shared_rank(part, q)[idx] : 0.f;
+    float sum = v[0];
+#pragma unroll
+    for (int q = 1; q < kGemvMaxSplit; ++q)
+      if (q < split) sum += v[q];
     out[static_cast<size_t>(m) * N + gn] = ds_from_float<T>(sum);
   }
   cluster.sync();  // no block leaves while another still reads its part
 }
 
 // --------------------------------------------------------------------- //
-// prefill, bf16: mma.sync tensor cores
+// decode, bf16: the tensor cores, outT[N, M] = W^T x^T
 // --------------------------------------------------------------------- //
-constexpr int kMmaBM = 64;
-constexpr int kMmaBN = 64;
-constexpr int kMmaBK = 32;
-constexpr int kMmaThreads = 128;
-constexpr int kMmaLd = kMmaBK + 8;  // row pitch in shared memory, bf16 elements
+constexpr int kGemvMmaCols = 64;      // output columns a block: 8 bytes a thread a row
+constexpr int kGemvMmaMaxSplit = 16;  // a non-portable cluster
+constexpr int kGemvMmaRows = 128;     // rows of K a block has in flight (8 k-steps of 16)
+struct GemvMmaPlan {
+  int split;  // K slices per column block (the cluster)
+  int warps;  // a block's warps, which share its K slice
+  int rows;   // rows of K per slice, a multiple of 16
+};
 
-__device__ __forceinline__ uint32_t ld_b32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// From a sweep on the H100: 64 columns a block; a K split that
+// gives every SM a block and at most kGemvMmaRows rows a slice (at most
+// 16, a non-portable cluster); 8 warps a block, 16 when a slice has more
+// than 8 k-steps of 16.
+GemvMmaPlan gemv_mma_plan(int K, int N) {
+  GemvMmaPlan p{};
+  const int col_blocks = (N + kGemvMmaCols - 1) / kGemvMmaCols;
+  p.split = std::max((kGemvSMs + col_blocks - 1) / col_blocks,
+                     (K + kGemvMmaRows - 1) / kGemvMmaRows);
+  p.split = std::max(1, std::min({p.split, kGemvMmaMaxSplit, (K + 15) / 16}));
+  p.rows = ((K + p.split - 1) / p.split + 15) / 16 * 16;
+  p.warps = p.rows / 16 > 8 ? 16 : 8;
+  return p;
 }
 
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// 8 bytes of the weight, which a launch reads once: not allocated in L1
+// (measured faster than __ldg's L1 allocation on the H100).
+__device__ __forceinline__ uint2 load_streaming(const int8_t* p) {
+  uint2 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];\n"
+               : "=r"(v.x), "=r"(v.y)
+               : "l"(p));
+  return v;
 }
 
-__global__ void __launch_bounds__(kMmaThreads)
-dq_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ qw,
-              const float* __restrict__ scale, __nv_bfloat16* __restrict__ out,
-              int M, int K, int N, int rows_per_group) {
-  __shared__ __align__(16) __nv_bfloat16 as[kMmaBM * kMmaLd];  // [m][k]
-  __shared__ __align__(16) __nv_bfloat16 bs[kMmaBN * kMmaLd];  // [n][k]
+// One mma.sync m16n8k16 computes 16 output columns x 8 rows of x over 16
+// rows of K, with the weight as the A operand (rows = output columns) and
+// x^T as B (columns = x's rows, M <= 8).  The fragment slots are assigned
+// so that every operand comes straight from a thread's own loads: lane
+// (g, t) = (lane / 4, lane % 4) loads rows k0 + 4t .. k0 + 4t + 3 of the
+// weight at its 8 columns n0 + 8g .. (one 8-byte load a row) and x's row g
+// at k0 + 4t .. + 3 (one 8-byte load); its A slots (k 2t, 2t+1, 2t+8,
+// 2t+9) are those four rows and its A rows (g, g + 8) the columns
+// n0 + 8g + 2j and + 2j + 1 of tile j; B's k slots follow the same rows,
+// so the product is the true one.
+template <int NW>
+__global__ void __launch_bounds__(NW * 32)
+dq_gemv_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ qw,
+                   const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int M,
+                   int K, int N, int rows_per_group, int rows_per_slice) {
+  constexpr int kThreads = NW * 32;
+  constexpr int kSteps = kGemvMmaRows / 16 / NW > 0 ? kGemvMmaRows / 16 / NW : 1;
+  constexpr int W = kGemvMmaCols;
+  constexpr int CB = W / 8;   // columns (bytes) of a thread's row load
+  constexpr int NJ = CB / 2;  // mma tiles a k-step
+  constexpr int kVals = NJ * 4 * 32;  // the block's sums: M <= 8 rows x W columns
+  __shared__ __align__(16) float part[NW * kVals];
+  // what the cluster's ranks push for this rank's outputs
+  __shared__ __align__(16) float recv[kVals + 4 * kGemvMmaMaxSplit];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = static_cast<int>(cluster.num_blocks());  // == gridDim.y
+  const int rank = static_cast<int>(cluster.block_rank());   // == blockIdx.y
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int gid = lane / 4, tig = lane % 4;
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-  const int m0 = blockIdx.y * kMmaBM, n0 = blockIdx.x * kMmaBN;
+  // a block writes into another's shared memory only once that block runs:
+  // arrive now, wait before the first push (long after every block began)
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n = blockIdx.x * W + g * CB;  // N % 16 == 0: all CB in or out
+  const bool active = n < N;
+  const int kbeg = min(K, rank * rows_per_slice), kend = min(K, kbeg + rows_per_slice);
+  const __nv_bfloat16* xg = x + static_cast<size_t>(min(g, M - 1)) * K;
 
-  // global -> register staging: two 16-byte pieces of the x tile (8 bf16
-  // each) and one 16-byte piece of the int8 tile (16 weights of one row)
-  const int a_row0 = tid / 4, a_col = (tid % 4) * 8;  // rows a_row0, a_row0 + 32
-  const int b_k = tid / 4, b_n = (tid % 4) * 16;
-  uint4 a_reg[2];
-  uint4 b_reg;
-  float b_scale;
+  float acc[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
-  auto load_tiles = [&](int k0) {
+  // the scale group of this thread's rows, which only increase
+  int grp = (kbeg + warp * 16 + 4 * t) / rows_per_group;
+  int bound = (grp + 1) * rows_per_group;
+  for (int k0 = kbeg + warp * 16; k0 < kend; k0 += NW * 16 * kSteps) {
+    uint2 w[kSteps][4];  // 8 weights a row
+    uint2 xb[kSteps];
+    float sc[kSteps][4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int gm = m0 + a_row0 + 32 * i;
-      a_reg[i] = gm < M ? *reinterpret_cast<const uint4*>(
-                              x + static_cast<size_t>(gm) * K + k0 + a_col)
-                        : make_uint4(0, 0, 0, 0);
-    }
-    const int gk = k0 + b_k, gn = n0 + b_n;
-    b_reg = gn < N ? *reinterpret_cast<const uint4*>(qw + static_cast<size_t>(gk) * N + gn)
-                   : make_uint4(0, 0, 0, 0);
-    b_scale = scale[gk / rows_per_group];
-  };
-
-  float acc[2][4][4];
+    for (int s = 0; s < kSteps; ++s) {
+      const int r0 = k0 + s * NW * 16 + 4 * t;
+      const bool step = r0 < kend;  // kend - kbeg and K are multiples of 16
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
-
-  load_tiles(0);
-  for (int k0 = 0; k0 < K; k0 += kMmaBK) {
-    __syncthreads();  // the previous tiles are consumed
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      *reinterpret_cast<uint4*>(as + (a_row0 + 32 * i) * kMmaLd + a_col) = a_reg[i];
-    const int8_t* q8 = reinterpret_cast<const int8_t*>(&b_reg);
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-      bs[(b_n + j) * kMmaLd + b_k] = __float2bfloat16(static_cast<float>(q8[j]) * b_scale);
-    __syncthreads();
-    if (k0 + kMmaBK < K) load_tiles(k0 + kMmaBK);  // in flight during the products
-
-#pragma unroll
-    for (int kk = 0; kk < kMmaBK; kk += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const __nv_bfloat16* p = as + (wm + 16 * i + gid) * kMmaLd + kk + 2 * tig;
-        a[i][0] = ld_b32(p);
-        a[i][1] = ld_b32(p + 8 * kMmaLd);
-        a[i][2] = ld_b32(p + 8);
-        a[i][3] = ld_b32(p + 8 * kMmaLd + 8);
+      for (int u = 0; u < 4; ++u) {
+        w[s][u] = active && step ? load_streaming(qw + static_cast<size_t>(r0 + u) * N + n)
+                                 : make_uint2(0u, 0u);
+        while (r0 + u >= bound) {
+          ++grp;
+          bound += rows_per_group;
+        }
+        sc[s][u] = step ? __ldg(scale + grp) : 0.f;
       }
+      xb[s] = step && g < M ? __ldg(reinterpret_cast<const uint2*>(xg + r0)) : make_uint2(0u, 0u);
+    }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const __nv_bfloat16* p = bs + (wn + 8 * j + gid) * kMmaLd + kk + 2 * tig;
-        const uint32_t b0 = ld_b32(p), b1 = ld_b32(p + 8);
+    for (int s = 0; s < kSteps; ++s) {
 #pragma unroll
-        for (int i = 0; i < 2; ++i) mma_bf16_16816(acc[i][j], a[i], b0, b1);
+      for (int j = 0; j < NJ; ++j) {
+        // columns 2j and 2j + 1 of the thread's CB, rows u = 0..3
+        float v[4][2];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int col = 2 * j + c;
+            v[u][c] = int8_value((col < 4 ? w[s][u].x : w[s][u].y) ^ 0x80808080u, col % 4) *
+                      sc[s][u];
+          }
+        const uint32_t a[4] = {ds_mma::pack_bf16(v[0][0], v[1][0]),
+                               ds_mma::pack_bf16(v[0][1], v[1][1]),
+                               ds_mma::pack_bf16(v[2][0], v[3][0]),
+                               ds_mma::pack_bf16(v[2][1], v[3][1])};
+        ds_mma::mma_16816(acc[j], a, xb[s].x, xb[s].y);
       }
     }
   }
 
+  // The block's sum over its warps in warp order, then the cluster's over
+  // its K slices in rank order.  Value i = 4 (32 j + lane) + e is acc[j][e]
+  // of that lane; each group of four has an owner rank, into whose shared
+  // memory the block pushes it (one 16-byte distributed-shared-memory
+  // store); after one cluster barrier each rank sums its own outputs over
+  // the ranks from its own shared memory.
+  const int share = ((kVals + split - 1) / split + 3) / 4 * 4;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+  for (int j = 0; j < NJ; ++j)
+    *reinterpret_cast<float4*>(part + warp * kVals + 4 * (32 * j + lane)) =
+        make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+  __syncthreads();
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  for (int grp4 = tid; grp4 < kVals / 4; grp4 += kThreads) {
+    const int i = 4 * grp4;
+    float4 v = *reinterpret_cast<const float4*>(part + i);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + wn + 8 * j + 2 * tig;  // N % 16 == 0: gn + 1 < N too
-      if (gn >= N) continue;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int gm = m0 + wm + 16 * i + gid + 8 * half;
-        if (gm >= M) continue;
-        __nv_bfloat162 v;
-        v.x = __float2bfloat16(acc[i][j][2 * half]);
-        v.y = __float2bfloat16(acc[i][j][2 * half + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(gm) * N + gn) = v;
-      }
+    for (int wp = 1; wp < NW; ++wp) {
+      const float4 o = *reinterpret_cast<const float4*>(part + wp * kVals + i);
+      v = make_float4(v.x + o.x, v.y + o.y, v.z + o.z, v.w + o.w);
     }
+    const int owner = i / share;
+    *reinterpret_cast<float4*>(cluster.map_shared_rank(recv, owner) + rank * share +
+                               (i - owner * share)) = v;
+  }
+  cluster.sync();
+  for (int off = tid; off < share; off += kThreads) {
+    const int i = rank * share + off;
+    if (i >= kVals) break;
+    const int e = i & 3, ln = (i >> 2) & 31, j = i >> 7;
+    const int m = 2 * (ln & 3) + (e & 1);
+    const int col = blockIdx.x * W + (ln >> 2) * CB + 2 * j + (e >> 1);
+    if (m >= M || col >= N) continue;
+    float v[kGemvMmaMaxSplit];
+#pragma unroll
+    for (int q = 0; q < kGemvMmaMaxSplit; ++q) v[q] = q < split ? recv[q * share + off] : 0.f;
+    float sum = v[0];
+#pragma unroll
+    for (int q = 1; q < kGemvMmaMaxSplit; ++q)
+      if (q < split) sum += v[q];
+    out[static_cast<size_t>(m) * N + col] = __float2bfloat16(sum);
   }
 }
 
@@ -377,43 +576,101 @@ dq_tiled_kernel(const T* __restrict__ x, const int8_t* __restrict__ qw,
 // --------------------------------------------------------------------- //
 // launchers
 // --------------------------------------------------------------------- //
-template <typename T>
-int launch_gemv(const void* x, const void* qw, const void* scale, void* out,
-                int M, int K, int N, int rows_per_group, cudaStream_t stream) {
-  const size_t smem = gemv_smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(
-      dq_gemv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int split = gemv_split(K, N);
+template <typename T, int MT, int CG>
+int launch_gemv_cfg(const void* x, const void* qw, const void* scale, void* out, int M, int K,
+                    int N, int rows_per_group, const GemvPlan& p, cudaStream_t stream) {
+  const int xvec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && (K * sizeof(T)) % 16 == 0;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = split;
+  attr[0].val.clusterDim.y = p.split;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + kGemvCols - 1) / kGemvCols, split);
-  cfg.blockDim = dim3(kGemvThreads);
-  cfg.dynamicSmemBytes = smem;
+  cfg.gridDim = dim3((N + p.width - 1) / p.width, p.split);
+  cfg.blockDim = dim3(p.threads);
+  cfg.dynamicSmemBytes = (kGemvXFloats + p.threads / 32 * MT * p.width) * sizeof(float);
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, dq_gemv_kernel<T>, static_cast<const T*>(x),
-                           static_cast<const int8_t*>(qw),
-                           static_cast<const float*>(scale),
-                           static_cast<T*>(out), M, K, N, rows_per_group);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, dq_gemv_kernel<T, MT, CG>, static_cast<const T*>(x), static_cast<const int8_t*>(qw),
+      static_cast<const float*>(scale), static_cast<T*>(out), M, K, N, rows_per_group, p.rows,
+      xvec);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_mma(const void* x, const void* qw, const void* scale, void* out,
-               int M, int K, int N, int rows_per_group, cudaStream_t stream) {
-  const dim3 grid((N + kMmaBN - 1) / kMmaBN, (M + kMmaBM - 1) / kMmaBM);
-  dq_mma_kernel<<<grid, kMmaThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(qw),
-      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), M,
-      K, N, rows_per_group);
+template <typename T, int MT>
+int launch_gemv_m(const void* x, const void* qw, const void* scale, void* out, int M, int K,
+                  int N, int rpg, const GemvPlan& p, cudaStream_t stream) {
+  switch (p.width) {
+    case 128:
+      return launch_gemv_cfg<T, MT, 8>(x, qw, scale, out, M, K, N, rpg, p, stream);
+    case 64:
+      return launch_gemv_cfg<T, MT, 4>(x, qw, scale, out, M, K, N, rpg, p, stream);
+    default:
+      return launch_gemv_cfg<T, MT, 2>(x, qw, scale, out, M, K, N, rpg, p, stream);
+  }
+}
+
+template <typename T>
+int launch_gemv(const void* x, const void* qw, const void* scale, void* out, int M, int K,
+                int N, int rpg, cudaStream_t stream) {
+  const GemvPlan p = gemv_plan(K, N);
+  if (M <= 1) return launch_gemv_m<T, 1>(x, qw, scale, out, M, K, N, rpg, p, stream);
+  if (M <= 2) return launch_gemv_m<T, 2>(x, qw, scale, out, M, K, N, rpg, p, stream);
+  if (M <= 4) return launch_gemv_m<T, 4>(x, qw, scale, out, M, K, N, rpg, p, stream);
+  return launch_gemv_m<T, 8>(x, qw, scale, out, M, K, N, rpg, p, stream);
+}
+
+template <int NW>
+int launch_gemv_mma_cfg(const void* x, const void* qw, const void* scale, void* out, int M,
+                        int K, int N, int rpg, const GemvMmaPlan& p, cudaStream_t stream) {
+  if (p.split > 8) {  // a non-portable cluster: allowed once per device
+    static unsigned allowed = 0;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (!(allowed >> dev & 1u)) {
+      err = cudaFuncSetAttribute(dq_gemv_mma_kernel<NW>,
+                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      allowed |= 1u << dev;
+    }
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = p.split;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + kGemvMmaCols - 1) / kGemvMmaCols, p.split);
+  cfg.blockDim = dim3(NW * 32);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, dq_gemv_mma_kernel<NW>, static_cast<const __nv_bfloat16*>(x),
+      static_cast<const int8_t*>(qw), static_cast<const float*>(scale),
+      static_cast<__nv_bfloat16*>(out), M, K, N, rpg, p.rows);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch_gemv_mma(const void* x, const void* qw, const void* scale, void* out, int M, int K,
+                    int N, int rpg, cudaStream_t stream) {
+  const GemvMmaPlan p = gemv_mma_plan(K, N);
+  if (p.warps == 8) return launch_gemv_mma_cfg<8>(x, qw, scale, out, M, K, N, rpg, p, stream);
+  return launch_gemv_mma_cfg<16>(x, qw, scale, out, M, K, N, rpg, p, stream);
+}
+
+int launch_prefill(const void* x, const void* qw, const void* scale, void* out, int M, int K,
+                   int N, int rpg, cudaStream_t stream) {
+  const bool vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 8 == 0;
+  const ds_tmma::TileStore st{nullptr, out, N, DS_DTYPE_BF16, vec};
+  return ds_tmma::launch_row_group_product(x, qw, static_cast<const float*>(scale), rpg, st, M,
+                                           K, N, stream);
 }
 
 template <typename T>
@@ -429,17 +686,50 @@ int launch_tiled(const void* x, const void* qw, const void* scale, void* out,
 
 }  // namespace
 
-// Which kernel the launcher takes for this shape and dtype: 0 gemv, 1 mma,
-// 2 tiled.  chip_smoke.py reports it beside each parity case.
+// Which kernel the launcher takes for this shape and dtype: 0 the CUDA-core
+// GEMV, 1 the tensor-core prefill product, 2 tiled, 3 the tensor-core GEMV.
+// chip_smoke.py reports it beside each parity case.
 extern "C" int ds_dequant_matmul_route(const void* x, const void* qweight,
                                        int M, int K, int N, int dtype) {
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
   const uintptr_t qa = reinterpret_cast<uintptr_t>(qweight);
-  if (M <= kGemvMaxM && N % 4 == 0 && qa % 4 == 0) return 0;
-  if (dtype == DS_DTYPE_BF16 && K % kMmaBK == 0 && N % 16 == 0 &&
-      xa % 16 == 0 && qa % 16 == 0)
-    return 1;
+  const bool bf16 = dtype == DS_DTYPE_BF16;
+  if (M <= kGemvMaxM && N % 16 == 0 && qa % 16 == 0)
+    return bf16 && K % 16 == 0 && xa % 16 == 0 ? 3 : 0;
+  if (bf16 && K % 8 == 0 && xa % 16 == 0) return 1;
   return 2;
+}
+
+// The launcher's whole plan, into plan[5]: route; for the gemv its column
+// block width, K split (cluster size) and threads a block (0 otherwise);
+// and the blocks the launch runs.  ops/quant.py dequant_plan mirrors it.
+extern "C" int ds_dequant_matmul_plan(const void* x, const void* qweight, int M, int K, int N,
+                                      int dtype, int* plan) {
+  const int route = ds_dequant_matmul_route(x, qweight, M, K, N, dtype);
+  plan[0] = route;
+  plan[1] = plan[2] = plan[3] = 0;
+  if (route == 0) {
+    const GemvPlan p = gemv_plan(K, N);
+    plan[1] = p.width;
+    plan[2] = p.split;
+    plan[3] = p.threads;
+    plan[4] = (N + p.width - 1) / p.width * p.split;
+  } else if (route == 3) {
+    const GemvMmaPlan p = gemv_mma_plan(K, N);
+    plan[1] = kGemvMmaCols;
+    plan[2] = p.split;
+    plan[3] = p.warps * 32;
+    plan[4] = (N + kGemvMmaCols - 1) / kGemvMmaCols * p.split;
+  } else if (route == 1) {
+    const int bn = ds_tmma::row_groups_wide(M, N)
+                       ? ds_tmma::WprodCfg<false, ds_tmma::kInt8RowGroupsWide>::BN
+                       : ds_tmma::WprodCfg<false, ds_tmma::kInt8RowGroups>::BN;
+    plan[1] = bn;
+    plan[4] = (N + bn - 1) / bn * ((M + 63) / 64);
+  } else {
+    plan[4] = (N + kBN - 1) / kBN * ((M + kBM - 1) / kBM);
+  }
+  return 0;
 }
 
 extern "C" int ds_dequant_matmul(const void* x, const void* qweight,
@@ -456,7 +746,9 @@ extern "C" int ds_dequant_matmul(const void* x, const void* qweight,
       return bf16 ? launch_gemv<__nv_bfloat16>(x, qweight, scale, out, M, K, N, rpg, s)
                   : launch_gemv<float>(x, qweight, scale, out, M, K, N, rpg, s);
     case 1:
-      return launch_mma(x, qweight, scale, out, M, K, N, rpg, s);
+      return launch_prefill(x, qweight, scale, out, M, K, N, rpg, s);
+    case 3:
+      return launch_gemv_mma(x, qweight, scale, out, M, K, N, rpg, s);
     default:
       return bf16 ? launch_tiled<__nv_bfloat16>(x, qweight, scale, out, M, K, N, rpg, s)
                   : launch_tiled<float>(x, qweight, scale, out, M, K, N, rpg, s);

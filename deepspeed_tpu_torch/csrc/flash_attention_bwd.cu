@@ -20,8 +20,11 @@
 // are arguments, so q, k, v, dO and the grads may be the head views of a
 // fused [B, S, 3 * H * D] projection.
 //
-// Head dims: any D up to 256 runs, on either route, the smallest
-// instantiation (32, 64, 96, 128, 256) at or above it; the columns past
+// Head dims above 256 run the wide kernels of attention_wide.cuh (bf16 on
+// the tensor cores, fp32 on the CUDA cores): the output columns in chunks
+// of 128 over the grid, each block computing S and dP over the whole D
+// from slices.  Up to 256, any D runs, on either route, the
+// smallest instantiation (32, 64, 96, 128, 256) at or above it; the columns past
 // the true D are zero-filled on load, so they add nothing to a product,
 // and are never stored.  The tensor-core route takes D a multiple of 8
 // (its 16-byte copies): the Python wrapper pads any other D with zero
@@ -80,6 +83,7 @@
 // with shuffles.
 
 #include "attention_mma.cuh"
+#include "attention_wide.cuh"
 
 namespace {
 
@@ -92,6 +96,7 @@ struct DropoutArgs {
   int threshold;  // 256: no dropout
   float scale;
 };
+
 
 // ===================================================================== //
 // fp32: CUDA cores
@@ -694,7 +699,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 extern "C" int ds_flash_attention_bwd_dkdv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int B, int H,
-    int Sq, int Sk, int D, const long long* strides, float sm_scale,
+    int Sq, int Sk, int D, int chunks, const long long* strides, float sm_scale,
     int causal, const void* seed, int keep_threshold, float keep_scale,
     int dtype, void* stream) {
   const Strides qs{strides[0], strides[1], strides[2]},
@@ -713,8 +718,18 @@ extern "C" int ds_flash_attention_bwd_dkdv(
                                       dos, dks, dvs, sm_scale, D, causal, drop, s)
   // any D up to 256 (bf16: a multiple of 8) runs the smallest instantiation
   // at or above it, its columns past D zero-filled on load and masked on
-  // store
-  if (!ds_head_dim_ok(D, dtype)) return static_cast<int>(cudaErrorInvalidValue);
+  // store; a larger D runs the wide kernel, `chunks` column chunks
+  if (!ds_head_dim_plan_ok(D, chunks, dtype)) return static_cast<int>(cudaErrorInvalidValue);
+  if (D > DS_MAX_TILED_HEAD_DIM) {
+    const ds_wide::DenseWalk walk{Sq, Sk, causal};
+    const ds_wide::Dropout wd{drop.seed, drop.threshold, drop.scale};
+#define DS_WIDE_DKDV(F)                                                                     \
+  return F(q, k, v, dout, l, dl, dk, dv, B, H, D, qs, ks, vs, dos, dks, dvs,                      \
+                                 sm_scale, walk, wd, s)
+    if (dtype == DS_DTYPE_BF16) DS_WIDE_DKDV(ds_wide::tc::launch_dkdv);
+    DS_WIDE_DKDV(ds_wide::launch_dkdv<float>);
+#undef DS_WIDE_DKDV
+  }
   if (dtype == DS_DTYPE_BF16) {
     if (D <= 32) DS_DKDV(tc, 32);
     if (D <= 64) DS_DKDV(tc, 64);
@@ -733,7 +748,7 @@ extern "C" int ds_flash_attention_bwd_dkdv(
 extern "C" int ds_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int B, int H, int Sq,
-    int Sk, int D, const long long* strides, float sm_scale, int causal,
+    int Sk, int D, int chunks, const long long* strides, float sm_scale, int causal,
     const void* seed, int keep_threshold, float keep_scale, int dtype,
     void* stream) {
   const Strides qs{strides[0], strides[1], strides[2]},
@@ -751,8 +766,18 @@ extern "C" int ds_flash_attention_bwd_dq(
                                     dqs, sm_scale, D, causal, drop, s)
   // any D up to 256 (bf16: a multiple of 8) runs the smallest instantiation
   // at or above it, its columns past D zero-filled on load and masked on
-  // store
-  if (!ds_head_dim_ok(D, dtype)) return static_cast<int>(cudaErrorInvalidValue);
+  // store; a larger D runs the wide kernel, `chunks` column chunks
+  if (!ds_head_dim_plan_ok(D, chunks, dtype)) return static_cast<int>(cudaErrorInvalidValue);
+  if (D > DS_MAX_TILED_HEAD_DIM) {
+    const ds_wide::DenseWalk walk{Sq, Sk, causal};
+    const ds_wide::Dropout wd{drop.seed, drop.threshold, drop.scale};
+#define DS_WIDE_DQ(F)                                                                       \
+  return F(q, k, v, dout, l, dl, dq, B, H, D, qs, ks, vs, dos, dqs, sm_scale,                     \
+                               walk, wd, s)
+    if (dtype == DS_DTYPE_BF16) DS_WIDE_DQ(ds_wide::tc::launch_dq);
+    DS_WIDE_DQ(ds_wide::launch_dq<float>);
+#undef DS_WIDE_DQ
+  }
   if (dtype == DS_DTYPE_BF16) {
     if (D <= 32) DS_DQ(tc, 32);
     if (D <= 64) DS_DQ(tc, 64);

@@ -20,7 +20,10 @@
 // the true D are zero-filled on load, so they add nothing to a product,
 // and are never stored.  The tensor-core route takes D a multiple of 8
 // (its 16-byte copies): the Python wrapper pads any other D with zero
-// columns up to one, and passes the true D's 1 / sqrt(D).
+// columns up to one, and passes the true D's 1 / sqrt(D).  A D above 256
+// runs the wide kernels of attention_wide.cuh (bf16 on the tensor cores,
+// fp32 on the CUDA cores): the output columns in chunks of 128 over the
+// grid, each block computing its scores over the whole D from slices.
 //
 // Two routes, chosen by the operands' dtype:
 //
@@ -72,6 +75,7 @@
 // tile's last row.
 
 #include "attention_mma.cuh"
+#include "attention_wide.cuh"
 
 namespace {
 
@@ -410,7 +414,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 extern "C" int ds_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
-    int H, int Sq, int Sk, int D, long long q_sb, long long q_sh,
+    int H, int Sq, int Sk, int D, int chunks, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
     long long o_sh, long long o_ss, float sm_scale, int causal,
@@ -427,8 +431,17 @@ extern "C" int ds_flash_attention_fwd(
                                  keep_scale, s)
   // any D up to 256 (bf16: a multiple of 8) runs the smallest instantiation
   // at or above it, its columns past D zero-filled on load and masked on
-  // store
-  if (!ds_head_dim_ok(D, dtype)) return static_cast<int>(cudaErrorInvalidValue);
+  // store; a larger D runs the wide kernel, `chunks` column chunks
+  if (!ds_head_dim_plan_ok(D, chunks, dtype)) return static_cast<int>(cudaErrorInvalidValue);
+  if (D > DS_MAX_TILED_HEAD_DIM) {
+    const ds_wide::DenseWalk walk{Sq, Sk, causal};
+    const ds_wide::Dropout drop{sd, keep_threshold, keep_scale};
+    if (dtype == DS_DTYPE_BF16)
+      return ds_wide::tc::launch_fwd(q, k, v, o, l, B, H, D, qs, ks, vs, os, sm_scale, walk,
+                                     drop, s);
+    return ds_wide::launch_fwd<float>(q, k, v, o, l, B, H, D, qs, ks, vs, os, sm_scale, walk,
+                                      drop, s);
+  }
   if (dtype == DS_DTYPE_BF16) {
     if (D <= 32) DS_FWD(tc, 32);
     if (D <= 64) DS_FWD(tc, 64);

@@ -23,6 +23,10 @@
 //   TPU kernel's function up to the order of the sums.  A native bf16
 //   tile is exact as it is and takes hi alone.  A payload whose base or
 //   row is not a multiple of 16 bytes is staged by plain loads instead.
+// - Kernel C's int8 weight (dequant_matmul.cu, prefill) is staged the
+//   same way in its own mode, kInt8RowGroups: one fp32 scale per group of
+//   `rpg` consecutive rows, scale[r / rpg], staged per window row; it runs
+//   hi-only (kSplit false), as C rounds w = q * s to x's dtype once.
 // - A block's sums leave through an fp32 staging tile in shared memory,
 //   four columns per thread and step, so that reads and writes of device
 //   memory are 16-byte vectors where the shapes allow.
@@ -37,6 +41,15 @@ using bf16 = __nv_bfloat16;
 using ds_mma::smem_u32;
 constexpr int kThreads = 128;  // four warps
 constexpr int kStages = 3;     // cp.async ring depth
+// int8 [rows, cols] with one fp32 scale per group of rpg rows (kernel C),
+// beside ds_tile::WeightMode's kNative, kInt8, kInt4; the two modes differ
+// only in their tile (WprodCfg): 64 x 64 outputs for narrow N, 64 x 128
+// for wide
+constexpr int kInt8RowGroups = 3;
+constexpr int kInt8RowGroupsWide = 4;
+__host__ __device__ constexpr bool row_groups(int mode) {
+  return mode == kInt8RowGroups || mode == kInt8RowGroupsWide;
+}
 
 // 16 bytes from global to shared of which the first `bytes` (0..16) are
 // read and the rest zero-filled; src must be a valid address even when
@@ -70,19 +83,22 @@ __device__ __forceinline__ void load_bf16_tile(uint32_t tile, const bf16* p, int
 // scales [rows, nb] of bs columns each.
 template <int Mode, typename TN>
 struct Payload {
-  static constexpr int kBits = Mode == ds_tile::kInt4 ? 4 : Mode == ds_tile::kInt8 ? 8
-                                                                                   : 8 * sizeof(TN);
+  static constexpr int kBits = Mode == ds_tile::kInt4                            ? 4
+                               : Mode == ds_tile::kInt8 || row_groups(Mode)      ? 8
+                                                                                  : 8 * sizeof(TN);
   const unsigned char* w;
   const float* scale;
   int rows, cols, bs, nb;
   int64_t row_bytes;
   int vec;  // base and row bytes are multiples of 16: cp.async copies
+  int rpg;  // kInt8RowGroups: rows per scale group
 };
 
 // Stage the window rows [r0, r0 + ROWS) x columns [c0, c0 + COLS) of the
 // payload into `raw` ([ROWS][COLS * kBits / 8] bytes) and its scales into
-// `sc` ([ROWS][nsc], the nsc blocks from c0 / bs on); everything at or past
-// row R or column C (and past the scale table) is zero.
+// `sc` ([ROWS][nsc], the nsc blocks from c0 / bs on; kInt8RowGroups: nsc is
+// 1, the row's group scale); everything at or past row R or column C (and
+// past the scale table) is zero.
 template <int ROWS, int COLS, int Mode, typename TN>
 __device__ __forceinline__ void load_payload(unsigned char* raw, float* sc, int nsc,
                                              const Payload<Mode, TN>& w, int r0, int R, int c0,
@@ -112,7 +128,12 @@ __device__ __forceinline__ void load_payload(unsigned char* raw, float* sc, int 
       raw[idx] = gr < R && gb < cb_end ? w.w[gr * w.row_bytes + gb] : 0;
     }
   }
-  if (Mode != ds_tile::kNative) {
+  if (row_groups(Mode)) {
+    for (int r = tid; r < ROWS; r += kThreads) {
+      const int gr = r0 + r;
+      ds_mma::cp_async_4(smem_u32(sc + r), w.scale + (gr < R ? gr / w.rpg : 0), gr < R);
+    }
+  } else if (Mode != ds_tile::kNative) {
     const int b0 = c0 / w.bs;
     for (int idx = tid; idx < ROWS * nsc; idx += kThreads) {
       const int r = idx / nsc, j = idx % nsc;
@@ -141,7 +162,7 @@ __device__ __forceinline__ void dequant_window(unsigned char* hi, unsigned char*
     const int r = idx / kChunks, c = idx % kChunks;
     const unsigned char* src = raw + r * RB + c * kBits;  // 8 elements: kBits bytes
     float w[8];
-    if (Mode == ds_tile::kInt8) {
+    if (Mode == ds_tile::kInt8 || row_groups(Mode)) {
       const uint2 u = *reinterpret_cast<const uint2*>(src);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -166,7 +187,10 @@ __device__ __forceinline__ void dequant_window(unsigned char* hi, unsigned char*
       w[0] = u0.x, w[1] = u0.y, w[2] = u0.z, w[3] = u0.w;
       w[4] = u1.x, w[5] = u1.y, w[6] = u1.z, w[7] = u1.w;
     }
-    if (Mode != ds_tile::kNative) {
+    if (row_groups(Mode)) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) w[j] = __fmul_rn(w[j], sc[r]);
+    } else if (Mode != ds_tile::kNative) {
       const int col = c0 + c * 8;
       int blk = col / bs - c0 / bs, rem = col % bs;
       const float* srow = sc + r * nsc;
@@ -331,11 +355,19 @@ inline int split_depth(int K, int splits, int bk) {
 // window 32 rows of w x 128 columns.  Transposed: 64 x 64 outputs (dx's
 // column block is only kc wide), k-steps of 64 along w's columns, the
 // window 64 rows of w x 64 columns; K (= n) may be split across blocks.
-template <bool kTrans>
+// Kernel C's forward (K = 768 or 3072 in one block): k-steps of 64; for N
+// = 768 (kInt8RowGroups) 64 x 64 outputs, so that M = 1024 still gives 192
+// blocks, and a ring of 4 stages, as one block walks the whole K; for wide
+// N (kInt8RowGroupsWide) 64 x 128 outputs and 3 stages.  A sweep on the
+// H100 chose them: kernel I's 64 x 128 x 32 tile gives N = 768 only 96
+// blocks and K = 3072 96 k-steps in one block.
+template <bool kTrans, int Mode = ds_tile::kNative>
 struct WprodCfg {
+  static constexpr bool kC = row_groups(Mode);
   static constexpr int BM = 64;
-  static constexpr int BN = kTrans ? 64 : 128;
-  static constexpr int BK = kTrans ? 64 : 32;
+  static constexpr int BN = kTrans || Mode == kInt8RowGroups ? 64 : 128;
+  static constexpr int BK = kTrans || kC ? 64 : 32;
+  static constexpr int kRing = Mode == kInt8RowGroups ? 4 : kStages;  // cp.async stages
   static constexpr int WROWS = kTrans ? BN : BK;  // the payload window
   static constexpr int WCOLS = kTrans ? BK : BN;
   static constexpr int FM = 2, FN = BN / 2 / 8;   // warps 2 x 2
@@ -349,13 +381,14 @@ struct WprodArgs {
   const float* scale;
   int wrows, wcols, bs, nb, nsc, wvec;
   int M, N, K, kdepth;  // kdepth: K per split (blockIdx.z)
+  int rpg;              // kInt8RowGroups: rows of w per scale
   TileStore store;      // splits == 1
   float* work;          // [splits, M, N] partials, or null
 };
 
 template <int Mode, typename TN, bool kSplit, bool kTrans>
 struct WprodSmem {
-  using C = WprodCfg<kTrans>;
+  using C = WprodCfg<kTrans, Mode>;
   static constexpr int kA = C::BM * C::BK * 2;
   static constexpr int kRaw = C::WROWS * C::WCOLS * Payload<Mode, TN>::kBits / 8;
   static constexpr int kHalf = C::WROWS * C::WCOLS * 2;
@@ -365,7 +398,7 @@ struct WprodSmem {
     return Mode == ds_tile::kNative ? 0 : (C::WROWS * nsc * 4 + 127) / 128 * 128;
   }
   static int bytes(int nsc) {
-    const int loop = kStages * (kA + kRaw + scale_bytes(nsc)) + (kSplit ? 2 : 1) * kHalf;
+    const int loop = C::kRing * (kA + kRaw + scale_bytes(nsc)) + (kSplit ? 2 : 1) * kHalf;
     return loop > kStaging ? loop : kStaging;
   }
 };
@@ -373,14 +406,14 @@ struct WprodSmem {
 template <int Mode, typename TN, bool kSplit, bool kTrans>
 __global__ void __launch_bounds__(kThreads)
 wprod_mma_kernel(WprodArgs p) {
-  using C = WprodCfg<kTrans>;
+  using C = WprodCfg<kTrans, Mode>;
   using L = WprodSmem<Mode, TN, kSplit, kTrans>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int sc_bytes = L::scale_bytes(p.nsc);
   unsigned char* a_s = smem;
-  unsigned char* raw_s = a_s + kStages * L::kA;
-  float* sc_s = reinterpret_cast<float*>(raw_s + kStages * L::kRaw);
-  unsigned char* hi = raw_s + kStages * L::kRaw + kStages * sc_bytes;
+  unsigned char* raw_s = a_s + C::kRing * L::kA;
+  float* sc_s = reinterpret_cast<float*>(raw_s + C::kRing * L::kRaw);
+  unsigned char* hi = raw_s + C::kRing * L::kRaw + C::kRing * sc_bytes;
   unsigned char* lo = hi + L::kHalf;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -391,7 +424,8 @@ wprod_mma_kernel(WprodArgs p) {
   const int nk = (ke - kb + C::BK - 1) / C::BK;
   const Payload<Mode, TN> w{static_cast<const unsigned char*>(p.w), p.scale, p.wrows, p.wcols,
                             p.bs, p.nb,
-                            static_cast<int64_t>(p.wcols) * Payload<Mode, TN>::kBits / 8, p.wvec};
+                            static_cast<int64_t>(p.wcols) * Payload<Mode, TN>::kBits / 8, p.wvec,
+                            p.rpg};
   const int nsc_stride = sc_bytes / 4;  // floats per stage
 
   auto issue = [&](int t, int slot) {
@@ -406,7 +440,7 @@ wprod_mma_kernel(WprodArgs p) {
   };
 
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
+  for (int s = 0; s < C::kRing - 1; ++s) {
     if (s < nk) issue(s, s);
     ds_mma::cp_async_commit();
   }
@@ -419,13 +453,13 @@ wprod_mma_kernel(WprodArgs p) {
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
   for (int t = 0; t < nk; ++t) {
-    const int slot = t % kStages;
-    ds_mma::cp_async_wait<kStages - 2>();  // stage t has landed
+    const int slot = t % C::kRing;
+    ds_mma::cp_async_wait<C::kRing - 2>();  // stage t has landed
     __syncthreads();                       // ... for all; step t - 1's products are done
     dequant_window<C::WROWS, C::WCOLS, Mode, TN, kSplit>(
         hi, lo, raw_s + slot * L::kRaw, sc_s + slot * nsc_stride, p.nsc,
         kTrans ? kb + t * C::BK : n0, p.bs, tid);
-    if (t + kStages - 1 < nk) issue(t + kStages - 1, (t + kStages - 1) % kStages);
+    if (t + C::kRing - 1 < nk) issue(t + C::kRing - 1, (t + C::kRing - 1) % C::kRing);
     ds_mma::cp_async_commit();
     __syncthreads();  // hi / lo are written
     const uint32_t a_tile = smem_u32(a_s + slot * L::kA);
@@ -465,13 +499,13 @@ split_sum_kernel(const float* __restrict__ work, int splits, int M, int N, TileS
 
 template <int Mode, typename TN, bool kSplit, bool kTrans>
 int launch_wprod(WprodArgs p, int splits, cudaStream_t stream) {
-  using C = WprodCfg<kTrans>;
+  using C = WprodCfg<kTrans, Mode>;
   using L = WprodSmem<Mode, TN, kSplit, kTrans>;
   p.wvec = aligned16(p.w) &&
            (static_cast<int64_t>(p.wcols) * Payload<Mode, TN>::kBits / 8) % 16 == 0;
   // the scale blocks a window's columns can touch (those past the table
   // are staged as zeros, so a ragged window reads no stale scale)
-  p.nsc = Mode == ds_tile::kNative ? 0 : (C::WCOLS - 1) / p.bs + 2;
+  p.nsc = Mode == ds_tile::kNative ? 0 : row_groups(Mode) ? 1 : (C::WCOLS - 1) / p.bs + 2;
   p.kdepth = split_depth(p.K, splits, C::BK);
   const int gz = (p.K + p.kdepth - 1) / p.kdepth;
   if (gz > 1 && p.work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -613,6 +647,41 @@ inline int launch_at_b_mma(const void* a, int64_t lda, const void* b, int64_t ld
       static_cast<const bf16*>(a), lda, static_cast<const bf16*>(b), ldb, work, M, N, K, kdepth);
   *parts = gz;
   return static_cast<int>(cudaGetLastError());
+}
+
+// The wide tile for kernel C's prefill when its blocks fill the card
+// twice over (2 x 132 SMs).
+inline bool row_groups_wide(int M, int N) {
+  return static_cast<int64_t>((N + 127) / 128) * ((M + 63) / 64) >= 264;
+}
+
+// Kernel C's prefill product: x [M, K] bf16 (row pitch K) @ (q [K, N] int8
+// * scale[k / rpg]) rounded to bf16, fp32 sums, into `store` (bf16 out):
+// the forward weight product in a row-group mode (by N: the wide tile
+// when its 128-column blocks still give 2 blocks per SM), hi only, K
+// unsplit.
+inline int launch_row_group_product(const void* x, const void* q, const float* scale, int rpg,
+                                    const TileStore& store, int M, int K, int N,
+                                    cudaStream_t stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || rpg <= 0 || !aligned16(x) || (K * 2) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  WprodArgs p{};
+  p.x = static_cast<const bf16*>(x);
+  p.ldx = K;
+  p.w = q;
+  p.scale = scale;
+  p.wrows = K;
+  p.wcols = N;
+  p.bs = N;
+  p.nb = 1;
+  p.rpg = rpg;
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.store = store;
+  if (row_groups_wide(M, N))
+    return launch_wprod<kInt8RowGroupsWide, float, false, false>(p, 1, stream);
+  return launch_wprod<kInt8RowGroups, float, false, false>(p, 1, stream);
 }
 
 }  // namespace ds_tmma

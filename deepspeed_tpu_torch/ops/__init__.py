@@ -122,7 +122,7 @@ def launch_counts() -> dict:
 
 def realign_counts() -> dict:
     """Operands the wrappers with a tensor-core route (kernels B, E, F, G,
-    and I's and J's product launches) copied to meet its 16-byte rule, by
-    kernel."""
+    H's, I's and J's product launches, and C's prefill route) copied to meet
+    its 16-byte rule, by kernel."""
     return {k.name: k.wrapper.realigned for k in KERNELS
             if hasattr(k.wrapper, "realigned")}

@@ -12,16 +12,21 @@ their own ragged edge, so any sequence length runs on them: there is no
 short-sequence crossover to XLA (the JAX package's AUTO_MIN_SEQ is a v5e
 measurement).
 
-Routes. Each kernel has two, chosen in the kernel by the dtype code
-(`kernel_dtype_code`): bf16 multiplies on the tensor cores (`mma.sync`
-tiles fed by 16-byte `cp.async` copies, csrc/attention_mma.cuh), fp32 on
-the CUDA cores (a tensor-core fp32 product would be TF32 and miss the fp32
-parity). Both are compiled for head dims 32, 64, 96, 128 and 256
-(KERNEL_HEAD_DIMS), and any head dim from 1 to 256 runs the smallest of them
-at or above it (`kernel_head_dim`): the kernels take the launch's D,
-zero-fill the columns past it on load and store none of them. A head dim
-above 256 raises ValueError. The tensor-core route copies 8 bf16 columns
-(16 bytes) at a time, so it launches D rounded up to a multiple of 8
+Routes. `head_dim_plan` picks one from the dtype and the head dim, in the
+open, and the launch passes it (the launchers refuse a plan they would not
+make themselves). Up to D = 256 the dtype code (`kernel_dtype_code`)
+decides: bf16 multiplies on the tensor cores (`mma.sync` tiles fed by
+16-byte `cp.async` copies, csrc/attention_mma.cuh), fp32 on the CUDA cores
+(a tensor-core fp32 product would be TF32 and miss the fp32 parity). Both
+are compiled for head dims 32, 64, 96, 128 and 256 (KERNEL_HEAD_DIMS), and
+any head dim from 1 to 256 runs the smallest of them at or above it
+(`kernel_head_dim`): the kernels take the launch's D, zero-fill the
+columns past it on load and store none of them. A head dim above 256 runs
+the wide kernels (csrc/attention_wide.cuh), bf16 on the tensor cores and
+fp32 on the CUDA cores: the output columns in chunks of WIDE_CHUNK over the
+grid, each block computing its scores over the whole D from slices. The
+tensor-core routes copy 8 bf16 columns (16 bytes) at a time, so they
+launch D rounded up to a multiple of 8
 (`launch_head_dim`): an operand of another D is copied once into a
 zero-padded buffer of that width, the scale stays 1 / sqrt(true D), and the
 outputs are handed back as views of the true D. The route also needs every
@@ -46,7 +51,7 @@ host round trip.
 """
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -63,6 +68,14 @@ KERNEL_HEAD_DIMS = (32, 64, 96, 128, 256)
 # the tensor-core route launches a head dim that is a multiple of
 # HEAD_DIM_STEP (a cp.async copy moves 8 bf16 columns at a time)
 HEAD_DIM_STEP = 8
+# above KERNEL_HEAD_DIMS[-1] the wide kernels own WIDE_CHUNK output columns
+# a block (csrc/common.cuh DS_WIDE_CHUNK)
+WIDE_CHUNK = 128
+# the routes of kernels B, E, F and G
+ROUTE_TENSOR_CORES = "tensor_cores"
+ROUTE_CUDA_CORES = "cuda_cores"
+ROUTE_TENSOR_CORES_WIDE = "tensor_cores_wide"
+ROUTE_CUDA_CORES_WIDE = "cuda_cores_wide"
 
 # the tensor-core route's cp.async copies move 16 bytes, 8 bf16 elements
 CP_ASYNC_BYTES = 16
@@ -240,7 +253,7 @@ def _zero_padded(t, width):
 def _launch_operands(name, wrapper, code, inputs, outputs, width=None):
     """The input tensors a launch reads and the (batch, head, seq) strides
     of every operand, inputs then outputs, in argument order; `inputs` and
-    `outputs` map argument names to tensors.  On the tensor-core route
+    `outputs` map argument names to tensors.  On the tensor-core routes
     (dtype code DTYPE_BF16) an input narrower than the launch's head dim
     `width` is copied once into a zero-padded contiguous buffer of that
     width, and one that breaks the 16-byte rule into a fresh contiguous
@@ -277,24 +290,52 @@ def _heads_layout(b, h, s, d, like):
 
 
 def kernel_head_dim(d: int) -> int:
-    """The compiled head dim a launch at head dim `d` runs: the smallest of
-    KERNEL_HEAD_DIMS at or above it.  Raises ValueError naming the rule for
-    a `d` outside 1 to 256."""
+    """The compiled head dim a tiled launch at head dim `d` runs: the
+    smallest of KERNEL_HEAD_DIMS at or above it.  Raises ValueError for a
+    `d` outside 1 to 256 (a larger one runs the wide kernels, which are not
+    compiled per head dim: head_dim_plan)."""
     if not 1 <= d <= KERNEL_HEAD_DIMS[-1]:
         raise ValueError(
-            f"head dim {d} not supported (the kernels take 1 to "
+            f"head dim {d} has no tiled instantiation (those take 1 to "
             f"{KERNEL_HEAD_DIMS[-1]})")
     return next(c for c in KERNEL_HEAD_DIMS if c >= d)
 
 
 def launch_head_dim(code: int, d: int) -> int:
     """The head dim a launch passes for a true head dim `d`: on the
-    tensor-core route (dtype code DTYPE_BF16) `d` rounded up to a multiple
+    tensor-core routes (dtype code DTYPE_BF16) `d` rounded up to a multiple
     of HEAD_DIM_STEP, the operands zero-padded to it; `d` itself on the
-    CUDA-core route, which reads element by element."""
+    CUDA-core routes, which read element by element."""
     if code == op_builder.DTYPE_BF16:
         return -(-d // HEAD_DIM_STEP) * HEAD_DIM_STEP
     return d
+
+
+class HeadDimPlan(NamedTuple):
+    """How kernels B, E, F and G run a head dim: the route, the head dim
+    the launch passes (`width`) and the output-column chunks on the grid
+    (1 but on the wide route)."""
+    route: str
+    width: int
+    chunks: int
+
+
+def head_dim_plan(code: int, d: int) -> HeadDimPlan:
+    """The plan of a launch at dtype code `code` and true head dim `d`: bf16
+    on the tensor cores and fp32 on the CUDA cores; up to 256 the tiled
+    kernels, one chunk; above 256 the wide kernels, ceil(width / WIDE_CHUNK)
+    chunks.  Raises ValueError for d < 1."""
+    if d < 1:
+        raise ValueError(f"head dim {d} not supported (the kernels take any "
+                         "head dim >= 1)")
+    width = launch_head_dim(code, d)
+    bf16 = code == op_builder.DTYPE_BF16
+    if d > KERNEL_HEAD_DIMS[-1]:
+        return HeadDimPlan(
+            ROUTE_TENSOR_CORES_WIDE if bf16 else ROUTE_CUDA_CORES_WIDE,
+            width, -(-width // WIDE_CHUNK))
+    return HeadDimPlan(ROUTE_TENSOR_CORES if bf16 else ROUTE_CUDA_CORES,
+                       width, 1)
 
 
 def _true_head_dim(t, d):
@@ -316,7 +357,7 @@ def _check_attention(name, q, k, v, *more):
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     b, h, sq, d = q.shape
     try:
-        kernel_head_dim(d)
+        head_dim_plan(code, d)
     except ValueError as exc:
         raise ValueError(f"{name}: {exc}") from None
     index = check_cuda(name, q, k, v, *more)
@@ -347,20 +388,21 @@ def flash_attention_cuda(q, k, v, causal: bool = False,
     index, code, b, h, sq, sk, d = _check_attention(name, q, k, v)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    width = launch_head_dim(code, d)
-    out = _heads_layout(b, h, sq, width, q)
+    plan = head_dim_plan(code, d)
+    out = _heads_layout(b, h, sq, plan.width, q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return _true_head_dim(out, d), lse
     (q, k, v), strides = _launch_operands(
         name, flash_attention_cuda, code, dict(q=q, k=k, v=v), dict(out=out),
-        width)
+        plan.width)
     seed_ptr, threshold, scale, _seed_t = _dropout_args(
         name, dropout_rate, dropout_seed, q.device)
     lib = op_builder.load()
     err = lib.ds_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, h, sq, sk, width, *strides, float(sm_scale),
+        lse.data_ptr(), b, h, sq, sk, plan.width, plan.chunks, *strides,
+        float(sm_scale),
         int(causal), seed_ptr, threshold, scale, code, stream_handle(index))
     op_builder.check_launch(name, err)
     flash_attention_cuda.launches += 1
@@ -378,14 +420,16 @@ def _bwd_launch(name, wrapper, fn, tensors, outs, shapes, causal, sm_scale,
     strides in argument order."""
     q, k, v, dout, lse, delta = tensors
     index, code, b, h, sq, sk, d = shapes
-    width = launch_head_dim(code, d)
+    plan = head_dim_plan(code, d)
     (q, k, v, dout), strides = _launch_operands(
-        name, wrapper, code, dict(q=q, k=k, v=v, dout=dout), outs, width)
+        name, wrapper, code, dict(q=q, k=k, v=v, dout=dout), outs,
+        plan.width)
     seed_ptr, threshold, scale, _seed_t = _dropout_args(
         name, dropout_rate, dropout_seed, q.device)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
              lse.data_ptr(), delta.data_ptr(),
-             *(t.data_ptr() for t in outs.values()), b, h, sq, sk, width,
+             *(t.data_ptr() for t in outs.values()), b, h, sq, sk,
+             plan.width, plan.chunks,
              _stride_array(strides), float(sm_scale), int(causal), seed_ptr,
              threshold, scale, code, stream_handle(index))
     op_builder.check_launch(name, err)
@@ -414,7 +458,7 @@ def flash_attention_bwd_dkdv_cuda(q, k, v, dout, lse, delta,
     _check_stats(name, lse, delta, b, h, sq)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    width = launch_head_dim(code, d)
+    width = head_dim_plan(code, d).width
     dk = _heads_layout(b, h, sk, width, k)
     dv = _heads_layout(b, h, sk, width, v)
     if dk.numel():
@@ -443,7 +487,7 @@ def flash_attention_bwd_dq_cuda(q, k, v, dout, lse, delta,
     _check_stats(name, lse, delta, b, h, sq)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    dq = _heads_layout(b, h, sq, launch_head_dim(code, d), q)
+    dq = _heads_layout(b, h, sq, head_dim_plan(code, d).width, q)
     if dq.numel() and sk == 0:
         dq.zero_()
     elif dq.numel():

@@ -42,37 +42,42 @@ SIGNATURES = {
     # x, gamma, dy, dx, dgamma/dbeta workspaces, dgamma, dbeta, rows,
     # hidden, eps, dtype, stream
     "ds_layer_norm_bwd": [P] * 8 + [I32, I32, F32, I32, P],
-    # q, k, v, out, lse, B, H, Sq, Sk, D,
-    # q/k/v/out strides (batch, head, seq), sm_scale, causal,
-    # seed (device int32), keep threshold, keep scale, dtype, stream
-    "ds_flash_attention_fwd": [P, P, P, P, P, I32, I32, I32, I32, I32]
+    # q, k, v, out, lse, B, H, Sq, Sk, D, chunks (flash_attention.py
+    # head_dim_plan), q/k/v/out strides (batch, head, seq), sm_scale,
+    # causal, seed (device int32), keep threshold, keep scale, dtype, stream
+    "ds_flash_attention_fwd": [P, P, P, P, P] + [I32] * 6
                               + [I64] * 12 + [F32, I32, P, I32, F32, I32, P],
-    # q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, D, the 18 strides of
-    # q/k/v/dout/dk/dv, sm_scale, causal, seed, keep threshold, keep scale,
-    # dtype, stream
-    "ds_flash_attention_bwd_dkdv": [P] * 8 + [I32] * 5
+    # q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, D, chunks, the 18
+    # strides of q/k/v/dout/dk/dv, sm_scale, causal, seed, keep threshold,
+    # keep scale, dtype, stream
+    "ds_flash_attention_bwd_dkdv": [P] * 8 + [I32] * 6
                                    + [I64_PTR, F32, I32, P, I32, F32, I32, P],
-    # q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, D, the 15 strides of
-    # q/k/v/dout/dq, then as dkdv
-    "ds_flash_attention_bwd_dq": [P] * 7 + [I32] * 5
+    # q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, D, chunks, the 15
+    # strides of q/k/v/dout/dq, then as dkdv
+    "ds_flash_attention_bwd_dq": [P] * 7 + [I32] * 6
                                  + [I64_PTR, F32, I32, P, I32, F32, I32, P],
-    # q, k, v, out, lse, idx, valid, B, H, S, D, block, max_deg, the 12
-    # strides of q/k/v/out, sm_scale, causal, dtype, stream
-    "ds_block_sparse_flash_fwd": [P] * 7 + [I32] * 6
+    # q, k, v, out, lse, idx, valid, B, H, S, D, chunks, block, max_deg, the
+    # 12 strides of q/k/v/out, sm_scale, causal, dtype, stream
+    "ds_block_sparse_flash_fwd": [P] * 7 + [I32] * 7
                                  + [I64_PTR, F32, I32, I32, P],
-    # q, k, v, dout, lse, delta, dq, idx, valid, B, H, S, D, block, max_deg,
-    # the 15 strides of q/k/v/dout/dq, sm_scale, causal, dtype, stream
-    "ds_block_sparse_flash_bwd_dq": [P] * 9 + [I32] * 6
+    # q, k, v, dout, lse, delta, dq, idx, valid, B, H, S, D, chunks, block,
+    # max_deg, the 15 strides of q/k/v/dout/dq, sm_scale, causal, dtype,
+    # stream
+    "ds_block_sparse_flash_bwd_dq": [P] * 9 + [I32] * 7
                                     + [I64_PTR, F32, I32, I32, P],
-    # q, k, v, dout, lse, delta, dk, dv, idx_t, valid_t, B, H, S, D, block,
-    # max_deg_t, the 18 strides of q/k/v/dout/dk/dv, then as dq
-    "ds_block_sparse_flash_bwd_dkdv": [P] * 10 + [I32] * 6
+    # q, k, v, dout, lse, delta, dk, dv, idx_t, valid_t, B, H, S, D, chunks,
+    # block, max_deg_t, the 18 strides of q/k/v/dout/dk/dv, then as dq
+    "ds_block_sparse_flash_bwd_dkdv": [P] * 10 + [I32] * 7
                                       + [I64_PTR, F32, I32, I32, P],
     # x, qweight, scale, out, M, K, N, groups, dtype, stream
     "ds_dequant_matmul": [P, P, P, P, I32, I32, I32, I32, I32, P],
     # x, qweight, M, K, N, dtype -> which kernel the launcher takes
-    # (0 gemv, 1 mma, 2 tiled); launches nothing
+    # (0 gemv, 1 mma, 2 tiled, 3 gemv_mma); launches nothing
     "ds_dequant_matmul_route": [P, P, I32, I32, I32, I32],
+    # x, qweight, M, K, N, dtype, plan (int32[5] out: route, columns a
+    # block, GEMV split and threads, blocks; ops/quant.py dequant_plan);
+    # launches nothing
+    "ds_dequant_matmul_plan": [P, P, I32, I32, I32, I32, P],
     # kernel H.  x (or g), its row pitch, its dtype; the weight payload, its
     # scales, layout (0 native, 1 int8, 2 packed int4), native dtype, block
     # size; out (fp32), m, kc, n; for ag_t the split partials' workspace (or

@@ -5,6 +5,17 @@ deepspeed_tpu/ops/quant.py).
 `fused_dequant_matmul` / `_dq_kernel`) for a `QuantizedWeight` on CUDA, the
 plain twin `dequant_matmul_reference` on the CPU, and `torch.matmul` for a
 dense weight (a product the JAX package leaves to XLA).
+
+Kernel C's launcher picks its kernel from the shape (`dequant_plan`
+mirrors it): M <= 8 (decode) a GEMV, its K split over thread-block
+clusters so that every SM of the card takes part, on the tensor cores for
+bf16 x ("gemv_mma") and the CUDA cores otherwise ("gemv"); bf16 x with
+M > 8 (prefill) the tensor-core weight product of csrc/tile_mma.cuh
+("mma"); anything else the CUDA-core tiled kernel ("tiled").  The
+tensor-core prefill route reads x with 16-byte `cp.async` copies: the
+wrapper copies an x whose base is not 16-byte aligned into a fresh tensor
+first and counts the copy on `fused_dequant_matmul.realigned` (0 on the
+serving path).
 """
 
 from typing import Any, NamedTuple
@@ -14,6 +25,108 @@ import torch
 from . import op_builder
 from .dispatch import (check_contiguous, check_cuda, kernel_dtype_code,
                        stream_handle, use_kernel)
+
+# the kernels ds_dequant_matmul_route names, by its codes
+DEQUANT_ROUTES = ("gemv", "mma", "tiled", "gemv_mma")
+GEMV_MAX_M = 8          # rows of x the GEMVs take
+GEMV_ROWS = 8           # weight rows of 16 bytes a GEMV thread has in flight
+GEMV_MAX_THREADS = 256
+GEMV_MAX_SPLIT = 8      # K slices per column block: a portable cluster
+GEMV_SMS = 132          # the SMs of an H100 SXM
+GEMV_MMA_COLS = 64      # the tensor-core GEMV's columns a block,
+GEMV_MMA_ROWS = 128     # ... rows of K a block has in flight,
+GEMV_MMA_MAX_SPLIT = 16  # ... and K slices (a non-portable cluster)
+MMA_ROWS = 64           # the prefill route's output tile rows; its columns
+                        # are 128 where those blocks fill 2 x GEMV_SMS, else 64
+TILED_TILE = (64, 64)   # the tiled route's (rows, columns)
+CP_ASYNC_BYTES = 16
+
+
+class DequantPlan(NamedTuple):
+    """Kernel C's launch for a shape: the route; the output columns a block
+    owns (GEMVs and the prefill route; 0 on the tiled route); for a GEMV
+    its K split (the cluster size) and threads a block (0 on the other
+    routes); and the blocks the launch runs."""
+    route: str
+    width: int
+    split: int
+    threads: int
+    blocks: int
+
+
+def dequant_route(m, k, n, code, w_aligned=True, x_aligned=True) -> str:
+    """The kernel ds_dequant_matmul_route picks (csrc/dequant_matmul.cu):
+    for M <= 8 with N % 16 == 0 and a 16-byte aligned weight a GEMV, on the
+    tensor cores for bf16 x (dtype code `code`) with K % 16 == 0 and a
+    16-byte aligned x, else on the CUDA cores; else the tensor-core product
+    for bf16 x with K % 8 == 0 and a 16-byte aligned x; else the tiled
+    kernel."""
+    bf16 = code == op_builder.DTYPE_BF16
+    if m <= GEMV_MAX_M and n % 16 == 0 and w_aligned:
+        return "gemv_mma" if bf16 and k % 16 == 0 and x_aligned else "gemv"
+    if bf16 and k % 8 == 0 and x_aligned:
+        return "mma"
+    return "tiled"
+
+
+def gemv_plan(k, n):
+    """(width, split, threads) of the GEMV for a [k, n] weight: the widest
+    column block (128, 64, 32) whose column blocks times a K split of at
+    most GEMV_MAX_SPLIT reach one block per SM, slices at least GEMV_ROWS
+    deep; enough k-lanes for one batch of rows a thread, at most
+    GEMV_MAX_THREADS threads, whole warps (csrc/dequant_matmul.cu
+    gemv_plan)."""
+    width = 128
+    while True:
+        col_blocks = -(-n // width)
+        split = min(GEMV_MAX_SPLIT, -(-GEMV_SMS // col_blocks))
+        split = max(1, min(split, -(-k // GEMV_ROWS)))
+        if col_blocks * split >= GEMV_SMS or width == 32:
+            break
+        width //= 2
+    rows = -(-(-(-k // split)) // 8) * 8
+    groups = width // 16
+    per_warp = 32 // groups
+    lanes = min(-(-rows // GEMV_ROWS), GEMV_MAX_THREADS // groups)
+    lanes = -(-lanes // per_warp) * per_warp
+    return width, split, lanes * groups
+
+
+def gemv_mma_plan(k, n):
+    """(split, threads) of the tensor-core GEMV for a [k, n] weight, whose
+    blocks own GEMV_MMA_COLS columns (csrc/dequant_matmul.cu gemv_mma_plan,
+    from a sweep on the H100): a K split that gives every SM a block and at
+    most GEMV_MMA_ROWS rows a slice (at most GEMV_MMA_MAX_SPLIT, in whole
+    k-steps of 16); 8 warps a block, 16 when a slice has more than 8
+    k-steps."""
+    col_blocks = -(-n // GEMV_MMA_COLS)
+    split = max(-(-GEMV_SMS // col_blocks), -(-k // GEMV_MMA_ROWS))
+    split = max(1, min(split, GEMV_MMA_MAX_SPLIT, -(-k // 16)))
+    rows = -(-(-(-k // split)) // 16) * 16
+    return split, (16 if rows // 16 > 8 else 8) * 32
+
+
+def dequant_plan(m, k, n, dtype, w_aligned=True) -> DequantPlan:
+    """Kernel C's whole launch for x [m, k] of `dtype` (16-byte aligned, as
+    the wrapper makes it where the route needs it) and a [k, n] int8
+    weight: ds_dequant_matmul_plan's in Python."""
+    code = kernel_dtype_code(torch.empty(0, dtype=dtype))
+    route = dequant_route(m, k, n, code, w_aligned)
+    if route == "gemv":
+        width, split, threads = gemv_plan(k, n)
+        return DequantPlan(route, width, split, threads,
+                           -(-n // width) * split)
+    if route == "gemv_mma":
+        split, threads = gemv_mma_plan(k, n)
+        return DequantPlan(route, GEMV_MMA_COLS, split, threads,
+                           -(-n // GEMV_MMA_COLS) * split)
+    if route == "mma":
+        width = 128 if -(-n // 128) * -(-m // MMA_ROWS) >= 2 * GEMV_SMS \
+            else 64
+        return DequantPlan(route, width, 0, 0,
+                           -(-n // width) * -(-m // MMA_ROWS))
+    bm, bn = TILED_TILE
+    return DequantPlan(route, 0, 0, 0, -(-n // bn) * -(-m // bm))
 
 
 class QuantizedWeight(NamedTuple):
@@ -77,6 +190,10 @@ def fused_dequant_matmul(x, w: QuantizedWeight):
         return out
     if k == 0:
         return out.zero_()
+    if x.data_ptr() % CP_ASYNC_BYTES and dequant_route(
+            m, k, n, code, qw.data_ptr() % CP_ASYNC_BYTES == 0) == "mma":
+        x = x.clone(memory_format=torch.contiguous_format)
+        fused_dequant_matmul.realigned += 1
     lib = op_builder.load()
     err = lib.ds_dequant_matmul(x.data_ptr(), qw.data_ptr(), scale.data_ptr(),
                                 out.data_ptr(), m, k, n, groups, code,
@@ -87,6 +204,7 @@ def fused_dequant_matmul(x, w: QuantizedWeight):
 
 
 fused_dequant_matmul.launches = 0
+fused_dequant_matmul.realigned = 0
 
 
 def matmul_maybe_int8(x: torch.Tensor, w: Any) -> torch.Tensor:

@@ -18,14 +18,16 @@ The gather indices are layout_gather's, as device int32 tensors: idx / valid
 [H, nb, max_deg], each row's valid entries first, padded by repeating the
 last valid index.  The kernels loop over a row's valid entries only.
 
-Routes and operands follow kernels B and E (flash_attention.py): bf16 on
-the tensor cores, fp32 on the CUDA cores, any head dim from 1 to 256
-(`kernel_head_dim`: the smallest of 32, 64, 96, 128 and 256 at or above it
-runs, zero-filled past the launch's D); a bf16 operand whose head dim is
-not a multiple of 8 is copied into a zero-padded buffer (`launch_head_dim`)
-and one whose base or strides are not multiples of 16 bytes into a fresh
-contiguous one, before the launch, each copy counted on the wrapper's
-`realigned`.
+Routes and operands follow kernels B and E (flash_attention.py,
+`head_dim_plan`): up to D = 256 bf16 on the tensor cores, fp32 on the CUDA
+cores (`kernel_head_dim`: the smallest of 32, 64, 96, 128 and 256 at or
+above D runs, zero-filled past the launch's D); a bf16 operand whose head
+dim is not a multiple of 8 is copied into a zero-padded buffer
+(`launch_head_dim`) and one whose base or strides are not multiples of 16
+bytes into a fresh contiguous one, before the launch, each copy counted on
+the wrapper's `realigned`.  Above D = 256 the wide kernels run (bf16 on the
+tensor cores, fp32 on the CUDA cores), the output columns in chunks over
+the grid, over the same layout walk.
 """
 
 import math
@@ -39,7 +41,7 @@ from ..dispatch import stream_handle, use_kernel
 from ..flash_attention import (DEFAULT_MASK_VALUE, _acc_dtype,
                                _check_attention, _check_stats, _heads_layout,
                                _launch_operands, _stride_array,
-                               _true_head_dim, launch_head_dim)
+                               _true_head_dim, head_dim_plan)
 
 # rows of a q-tile and keys of a k-tile in kernels F and G: a layout block
 # must be a multiple of it for the kernels to take it
@@ -197,7 +199,8 @@ def block_sparse_flash_fwd_cuda(q, k, v, idx, valid, block: int,
     fp32)."""
     name = "block_sparse_flash_fwd_cuda"
     index, code, b, h, s, d = _check_sparse(name, q, k, v, idx, valid, block)
-    scale, width = _scale(q, sm_scale), launch_head_dim(code, d)
+    scale, plan = _scale(q, sm_scale), head_dim_plan(code, d)
+    width = plan.width
     out = _heads_layout(b, h, s, width, q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     if out.numel():
@@ -207,8 +210,8 @@ def block_sparse_flash_fwd_cuda(q, k, v, idx, valid, block: int,
         err = op_builder.load().ds_block_sparse_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), idx.data_ptr(), valid.data_ptr(), b, h, s, width,
-            block, idx.shape[-1], _stride_array(strides), float(scale),
-            int(causal), code, stream_handle(index))
+            plan.chunks, block, idx.shape[-1], _stride_array(strides),
+            float(scale), int(causal), code, stream_handle(index))
         op_builder.check_launch(name, err)
         block_sparse_flash_fwd_cuda.launches += 1
     return _true_head_dim(out, d), lse
@@ -228,7 +231,8 @@ def block_sparse_flash_bwd_dq_cuda(q, k, v, dout, lse, delta, idx, valid,
     index, code, b, h, s, d = _check_sparse(name, q, k, v, idx, valid, block,
                                             dout, lse, delta)
     _check_stats(name, lse, delta, b, h, s)
-    scale, width = _scale(q, sm_scale), launch_head_dim(code, d)
+    scale, plan = _scale(q, sm_scale), head_dim_plan(code, d)
+    width = plan.width
     dq = _heads_layout(b, h, s, width, q)
     if dq.numel():
         (q, k, v, dout), strides = _launch_operands(
@@ -237,9 +241,9 @@ def block_sparse_flash_bwd_dq_cuda(q, k, v, dout, lse, delta, idx, valid,
         err = op_builder.load().ds_block_sparse_flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), idx.data_ptr(),
-            valid.data_ptr(), b, h, s, width, block, idx.shape[-1],
-            _stride_array(strides), float(scale), int(causal), code,
-            stream_handle(index))
+            valid.data_ptr(), b, h, s, width, plan.chunks, block,
+            idx.shape[-1], _stride_array(strides), float(scale), int(causal),
+            code, stream_handle(index))
         op_builder.check_launch(name, err)
         block_sparse_flash_bwd_dq_cuda.launches += 1
     return _true_head_dim(dq, d)
@@ -261,7 +265,8 @@ def block_sparse_flash_bwd_dkdv_cuda(q, k, v, dout, lse, delta, idx_t,
     index, code, b, h, s, d = _check_sparse(name, q, k, v, idx_t, valid_t,
                                             block, dout, lse, delta)
     _check_stats(name, lse, delta, b, h, s)
-    scale, width = _scale(q, sm_scale), launch_head_dim(code, d)
+    scale, plan = _scale(q, sm_scale), head_dim_plan(code, d)
+    width = plan.width
     dk = _heads_layout(b, h, s, width, k)
     dv = _heads_layout(b, h, s, width, v)
     if dk.numel():
@@ -271,8 +276,8 @@ def block_sparse_flash_bwd_dkdv_cuda(q, k, v, dout, lse, delta, idx_t,
         err = op_builder.load().ds_block_sparse_flash_bwd_dkdv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            idx_t.data_ptr(), valid_t.data_ptr(), b, h, s, width, block,
-            idx_t.shape[-1], _stride_array(strides), float(scale),
+            idx_t.data_ptr(), valid_t.data_ptr(), b, h, s, width, plan.chunks,
+            block, idx_t.shape[-1], _stride_array(strides), float(scale),
             int(causal), code, stream_handle(index))
         op_builder.check_launch(name, err)
         block_sparse_flash_bwd_dkdv_cuda.launches += 1

@@ -34,6 +34,9 @@ fused-QKV head views the layer passes, causal:
 - for a tree whose kernels take D = 256 (KERNEL_HEAD_DIMS), the same at
   D = 256: B and E at [2, 12, 1024, 256] without dropout ("wide"), F and
   G at [2, 12, 8192, 256] BigBird ("bigbird_wide");
+- for a tree whose kernels take any D (WIDE_CHUNK: the column-chunked
+  kernels above D = 256), the same at D = 512: B and E at [2, 12, 1024,
+  512] ("d512"), F and G at [2, 12, 2048, 512] BigBird ("bigbird_d512");
 - prefill_err: max |B - mha_reference| at the prefill shape, and
   sparse_err: max |F - its plain twin| at the BigBird shape, to show that
   each tree computes attention.
@@ -59,6 +62,9 @@ SHAPES = {"train": (8, 12, 1024, 64, 0.1),
           "prefill": (8, 12, 128, 64, 0.0)}
 # timed only in a tree whose kernels take D = 256
 WIDE_SHAPES = {"wide": (2, 12, 1024, 256, 0.0)}
+# timed only in a tree whose kernels take any D
+D512_SHAPES = {"d512": (2, 12, 1024, 512, 0.0)}
+D512_SPARSE_SHAPE = (2, 12, 2048, 512)
 HOST_SHAPE = "train"
 LAUNCHES = ("fwd", "dkdv", "dq")
 # kernels F and G: bench_sparse_longseq's attention
@@ -145,8 +151,10 @@ def measure(root):
     seed = torch.tensor([1234], dtype=torch.int32, device="cuda")
     res = {"root": root, "ms": {}, "host_us": {}}
     wide = fa.KERNEL_HEAD_DIMS[-1] >= 256
-    for shape, (b, h, s, d, rate) in {**SHAPES,
-                                      **(WIDE_SHAPES if wide else {})}.items():
+    any_d = hasattr(fa, "WIDE_CHUNK")
+    for shape, (b, h, s, d, rate) in {
+            **SHAPES, **(WIDE_SHAPES if wide else {}),
+            **(D512_SHAPES if any_d else {})}.items():
         g = torch.Generator(device="cuda").manual_seed(s)
         qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=g)
         q, k, v = (t.view(b, s, h, d).transpose(1, 2) for t in
@@ -173,14 +181,18 @@ def measure(root):
     res["host_us"].update(sparse_host)
     if wide:
         res["ms"]["bigbird_wide"], _, wide_err = measure_sparse(
-            torch, flush, WIDE_SPARSE_SHAPE)
+            torch, flush, WIDE_SPARSE_SHAPE, host=False)
+        res["sparse_err"] = max(res["sparse_err"], wide_err)
+    if any_d:
+        res["ms"]["bigbird_d512"], _, wide_err = measure_sparse(
+            torch, flush, D512_SPARSE_SHAPE, host=False)
         res["sparse_err"] = max(res["sparse_err"], wide_err)
     return res
 
 
-def measure_sparse(torch, flush, shape):
-    """(device ms, host µs, max error of F against its plain twin) of
-    kernels F and G at `shape` [B, H, S, D]."""
+def measure_sparse(torch, flush, shape, host=True):
+    """(device ms, host µs (with `host`; else None), max error of F against
+    its plain twin) of kernels F and G at `shape` [B, H, S, D]."""
     bsf = importlib.import_module(
         "deepspeed_tpu_torch.ops.sparse_attention.block_sparse_flash")
     sa = importlib.import_module("deepspeed_tpu_torch.ops.sparse_attention")
@@ -207,7 +219,8 @@ def measure_sparse(torch, flush, shape):
            "bsf_dkdv": lambda: bsf.block_sparse_flash_bwd_dkdv_cuda(
                q, k, v, do, lse, delta, tidx, tvalid, block, True)}
     ms = {n: time_ms(torch, fns[n], flush) for n in SPARSE_LAUNCHES}
-    host = {n: host_us(torch, fns[n]) for n in SPARSE_LAUNCHES}
+    host = ({n: host_us(torch, fns[n]) for n in SPARSE_LAUNCHES} if host
+            else None)
     ref = bsf.block_sparse_flash_fwd_reference(q, k, v, fidx, fvalid, block,
                                                True)[0]
     return ms, host, (out.float() - ref.float()).abs().max().item()

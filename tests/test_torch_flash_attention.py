@@ -118,14 +118,15 @@ def test_flash_attention_bwd_matches_pallas_interpret(causal):
                                    atol=1e-4)
 
 
-@pytest.mark.parametrize("d", [32, 96, 80, 36, 256])
+@pytest.mark.parametrize("d", [32, 96, 80, 36, 256, 264, 320])
 def test_plain_twins_match_pallas_at_kernel_head_dims(d):
     """mha_reference's out and lse and flash_attention_bwd_reference's
     grads (the plain twins of kernels B and E, which the CUDA kernels are
     held against on the card) vs the Pallas kernels in interpret mode at
     D = 32, 96 and 256, at D = 80, which the kernels run zero-filled in
-    their D = 96 instantiation, and at D = 36, which the tensor-core route
-    pads to 40; causal, [1, 2, 128, D], fp32, atol = rtol = 1e-4."""
+    their D = 96 instantiation, at D = 36, which the tensor-core route
+    pads to 40, and at D = 264 and 320, which run the wide kernels in three
+    column chunks; causal, [1, 2, 128, D], fp32, atol = rtol = 1e-4."""
     from deepspeed_tpu.ops.flash_attention import flash_attention_bwd_pallas
     q, k, v = _qkv((1, 2, 128, d), seed=d)
     do = _qkv((1, 2, 128, d), seed=d + 1)[0]

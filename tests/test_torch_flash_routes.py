@@ -249,7 +249,8 @@ class _Kernels:
         return [_at(p, shape, tuple(strides[3 * i:3 * i + 3]) + (1,), dtype)
                 for i, p in enumerate(ptrs)]
 
-    def ds_flash_attention_fwd(self, q, k, v, o, lse, b, h, sq, sk, d, *rest):
+    def ds_flash_attention_fwd(self, q, k, v, o, lse, b, h, sq, sk, d, chunks,
+                               *rest):
         strides, (scale, causal, _seed, _thr, _ks, code, _stream) = \
             rest[:12], rest[12:]
         dt = self._dtype(code)
@@ -259,11 +260,12 @@ class _Kernels:
                                         sm_scale=scale, return_lse=True)
         ot.copy_(out)
         _at(lse, (b, h, sq), (h * sq, sq, 1), torch.float32).copy_(ref_lse)
-        self._record("fwd", code, q=q, k=k, v=v, d=d, scale=scale)
+        self._record("fwd", code, q=q, k=k, v=v, d=d, chunks=chunks,
+                     scale=scale)
         return 0
 
-    def _bwd(self, fn, ptrs, b, h, sq, d, strides, scale, causal, code,
-             outs, allowed=None):
+    def _bwd(self, fn, ptrs, b, h, sq, d, chunks, strides, scale, causal,
+             code, outs, allowed=None):
         dt = self._dtype(code)
         q, k, v, do = self._operands(ptrs[:4], (b, h, sq, d), strides, dt)
         lse, delta = (_at(p, (b, h, sq), (h * sq, sq, 1), torch.float32)
@@ -280,20 +282,21 @@ class _Kernels:
         for name, view in zip(outs, out_views):
             view.copy_(grads[name])
         self._record(fn, code, q=ptrs[0], k=ptrs[1], v=ptrs[2], dout=ptrs[3],
-                     d=d, scale=scale)
+                     d=d, chunks=chunks, scale=scale)
         return 0
 
     def ds_flash_attention_bwd_dkdv(self, q, k, v, do, lse, delta, dk, dv, b,
-                                    h, sq, sk, d, strides, scale, causal,
-                                    _seed, _thr, _ks, code, _stream):
+                                    h, sq, sk, d, chunks, strides, scale,
+                                    causal, _seed, _thr, _ks, code, _stream):
         return self._bwd("dkdv", (q, k, v, do, lse, delta, dk, dv), b, h, sq,
-                         d, strides, scale, causal, code, ("dk", "dv"))
+                         d, chunks, strides, scale, causal, code,
+                         ("dk", "dv"))
 
     def ds_flash_attention_bwd_dq(self, q, k, v, do, lse, delta, dq, b, h, sq,
-                                  sk, d, strides, scale, causal, _seed, _thr,
-                                  _ks, code, _stream):
+                                  sk, d, chunks, strides, scale, causal,
+                                  _seed, _thr, _ks, code, _stream):
         return self._bwd("dq", (q, k, v, do, lse, delta, dq), b, h, sq, d,
-                         strides, scale, causal, code, ("dq",))
+                         chunks, strides, scale, causal, code, ("dq",))
 
     @staticmethod
     def _indices(idx, valid, h, nb, max_deg):
@@ -301,8 +304,8 @@ class _Kernels:
                     torch.int32) for p in (idx, valid))
 
     def ds_block_sparse_flash_fwd(self, q, k, v, o, lse, idx, valid, b, h, s,
-                                  d, block, max_deg, strides, scale, causal,
-                                  code, _stream):
+                                  d, chunks, block, max_deg, strides, scale,
+                                  causal, code, _stream):
         dt = self._dtype(code)
         qt, kt, vt, ot = self._operands((q, k, v, o), (b, h, s, d), strides,
                                         dt)
@@ -311,24 +314,27 @@ class _Kernels:
             qt, kt, vt, it, vl, block, bool(causal), scale)
         ot.copy_(out)
         _at(lse, (b, h, s), (h * s, s, 1), torch.float32).copy_(ref_lse)
-        self._record("bsf_fwd", code, q=q, k=k, v=v, d=d, scale=scale)
+        self._record("bsf_fwd", code, q=q, k=k, v=v, d=d, chunks=chunks,
+                     scale=scale)
         return 0
 
     def ds_block_sparse_flash_bwd_dq(self, q, k, v, do, lse, delta, dq, idx,
-                                     valid, b, h, s, d, block, max_deg,
-                                     strides, scale, causal, code, _stream):
+                                     valid, b, h, s, d, chunks, block,
+                                     max_deg, strides, scale, causal, code,
+                                     _stream):
         it, vl = self._indices(idx, valid, h, s // block, max_deg)
         return self._bwd("bsf_dq", (q, k, v, do, lse, delta, dq), b, h, s, d,
-                         strides, scale, causal, code, ("dq",),
+                         chunks, strides, scale, causal, code, ("dq",),
                          _layout_mask(it, vl, block))
 
     def ds_block_sparse_flash_bwd_dkdv(self, q, k, v, do, lse, delta, dk, dv,
-                                       idx_t, valid_t, b, h, s, d, block,
-                                       max_deg, strides, scale, causal, code,
-                                       _stream):
+                                       idx_t, valid_t, b, h, s, d, chunks,
+                                       block, max_deg, strides, scale, causal,
+                                       code, _stream):
         it, vl = self._indices(idx_t, valid_t, h, s // block, max_deg)
         return self._bwd("bsf_dkdv", (q, k, v, do, lse, delta, dk, dv), b, h,
-                         s, d, strides, scale, causal, code, ("dk", "dv"),
+                         s, d, chunks, strides, scale, causal, code,
+                         ("dk", "dv"),
                          _layout_mask(it, vl, block, transpose=True))
 
 
@@ -363,18 +369,23 @@ def _attention_inputs(d, dtype, offset=0):
     return q, k, v, do.to(dtype)
 
 
-def _call(kind, q, k, v, do, causal=True):
-    """One wrapper's launch on the inputs; returns its outputs."""
+def _call(kind, q, k, v, do, causal=True, stats=None):
+    """One wrapper's launch on the inputs; returns its outputs.  `stats`
+    gives the backward's (lse, delta) instead of the plain forward's."""
     fidx, fvalid = (torch.from_numpy(a) for a in layout_gather(_layout()))
     tidx, tvalid = (torch.from_numpy(a)
                     for a in layout_gather(_layout(), transpose=True))
-    if kind in ("fwd", "dkdv", "dq"):
-        out, lse = fa.mha_reference(q, k, v, causal=causal, return_lse=True)
+    if stats is not None:
+        lse, delta = stats
     else:
-        out, lse = bsf.block_sparse_flash_fwd_reference(
-            q, k, v, fidx, fvalid, BLOCK, causal)
-    delta = (do.float() * out.float()).sum(-1)
-    lse = lse.float().contiguous()
+        if kind in ("fwd", "dkdv", "dq"):
+            out, lse = fa.mha_reference(q, k, v, causal=causal,
+                                        return_lse=True)
+        else:
+            out, lse = bsf.block_sparse_flash_fwd_reference(
+                q, k, v, fidx, fvalid, BLOCK, causal)
+        delta = (do.float() * out.float()).sum(-1)
+        lse = lse.float().contiguous()
     return {
         "fwd": lambda: fa.flash_attention_cuda(q, k, v, causal=causal),
         "dkdv": lambda: fa.flash_attention_bwd_dkdv_cuda(
@@ -438,15 +449,43 @@ def test_wrappers_launch_every_compiled_head_dim(kernels, kind, d):
 
 
 @pytest.mark.parametrize("kind", KINDS)
-def test_wrappers_refuse_other_head_dims(kind):
-    """D = 264 (above 256) raises ValueError naming the rule, in either
-    dtype, before the device check: the CPU tensors here never reach it."""
+def test_wrappers_refuse_other_head_dims(kind, kernels):
+    """Every head dim >= 1 runs: D = 264, 320 and 300 reach the launch in
+    either dtype with the plan the wrapper chose (the wide kernels, bf16 on
+    the tensor cores at D rounded up to a multiple of 8, fp32 on the CUDA
+    cores at D itself, ceil(width / 128) column chunks; only bf16 D = 300
+    is copied, zero-padded to 304), and the launch computes the plain
+    twin's result at the true D; D <= 0 still raises ValueError naming the
+    rule, before the device check."""
+    for d in (264, 320, 300):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = _attention_inputs(d, dtype)
+            WRAPPERS[kind].realigned = 0
+            got = _call(kind, q, k, v, do)
+            call = kernels.calls[-1]
+            bf16 = dtype == torch.bfloat16
+            width = -(-d // 8) * 8 if bf16 else d
+            route = fa.ROUTE_TENSOR_CORES_WIDE if bf16 \
+                else fa.ROUTE_CUDA_CORES_WIDE
+            assert fa.head_dim_plan(call["code"], d) == (route, width,
+                                                         -(-width // 128))
+            assert (call["d"], call["chunks"]) == (width, -(-width // 128))
+            assert call["code"] == kernel_dtype_code(q)
+            operands = 3 if kind.endswith("fwd") else 4
+            assert WRAPPERS[kind].realigned == (
+                operands if width != d else 0)
+            assert all(g.shape[-1] == d
+                       for g in (got[:1] if "fwd" in kind else got))
+            _close(got, _plain(kind, q, k, v, do), dtype)
     for dtype in (torch.float32, torch.bfloat16):
-        q, k, v, do = _attention_inputs(264, dtype)
-        with pytest.raises(ValueError, match=r"head dim 264 not supported "
-                                             r"\(the kernels take 1 to "
-                                             r"256\)"):
-            _call(kind, q, k, v, do)
+        q, k, v, do = _attention_inputs(4, dtype)
+        q, k, v, do = (t[..., :0] for t in (q, k, v, do))
+        stats = torch.zeros(2, 2, H, S)
+        with pytest.raises(ValueError, match=r"head dim 0 not supported "
+                                             r"\(the kernels take any head "
+                                             r"dim >= 1\)"):
+            _call(kind, q, k, v, do, stats=stats)
+    assert len(kernels.calls) == 6
 
 
 @pytest.mark.parametrize("d,compiled,padded", [
@@ -570,8 +609,8 @@ def test_a_misaligned_operand_is_copied_and_the_result_is_the_aligned_calls(
 
 def test_realign_counts_name_the_attention_kernels():
     """realign_counts() covers the six launches of B, E, F and G (and the
-    six tensor-core product launches of kernels H, I and J), and
-    reset_launch_counts() zeroes them."""
+    six tensor-core product launches of kernels H, I and J, and kernel C's
+    prefill route), and reset_launch_counts() zeroes them."""
     from deepspeed_tpu_torch.ops import reset_launch_counts
     fa.flash_attention_cuda.realigned = 3
     assert set(realign_counts()) == {
@@ -579,6 +618,6 @@ def test_realign_counts_name_the_attention_kernels():
         "flash_attention_bwd_dq", "block_sparse_flash_fwd",
         "block_sparse_flash_bwd_dq", "block_sparse_flash_bwd_dkdv",
         "fcm_tile_ag", "fcm_tile_ag_t", "fcm_tile_rs", "fcm_ag_step",
-        "fcm_ag_step_t", "fcm_rs_producer"}
+        "fcm_ag_step_t", "fcm_rs_producer", "dequant_matmul"}
     reset_launch_counts()
     assert set(realign_counts().values()) == {0}

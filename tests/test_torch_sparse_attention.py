@@ -157,7 +157,7 @@ TWIN_CASES = (
     [pytest.param(spec, causal, D, id=f"{sid}-{causal}")
      for spec, sid in zip(FLASH, FLASH_IDS) for causal in (False, True)]
     + [pytest.param(FLASH[1], causal, d, id=f"{FLASH_IDS[1]}-{causal}-d{d}")
-       for d in (32, 96, 80, 36, 256) for causal in (False, True)])
+       for d in (32, 96, 80, 36, 256, 264, 320) for causal in (False, True)])
 
 
 @pytest.mark.parametrize("spec,causal,d", TWIN_CASES)
