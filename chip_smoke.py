@@ -51,7 +51,24 @@ phase prints {"phase": ..., "ok": false, "error": ...} and the script exits
    kernels on both routes, as cuobjdump reads them from the built library,
    of the wide attention kernels and kernel C's GEMVs, and of the
    tensor-core kernels of C's prefill, H, I and J with the count of HMMA
-   instructions in their SASS (the phase fails if one has none).
+   instructions in their SASS (the phase fails if one has none), and of
+   kernels A's and D's device kernels (layer_norm_resources).
+   Kernels A and D (LayerNorm forward and backward) run at hidden 768,
+   1024, 1600, 4096, 8192 and 771 (the scalar route) at 8, 77 and 1024
+   rows, x and gamma / beta each in bf16 and fp32, and at 16385 and 20000
+   (the streamed route) at 8 and 1024 rows: within 2e-2 (bf16) or 1e-5
+   (fp32) of the plain twins, D's dgamma and dbeta within 1e-4 of
+   max|ref| past the one rounding into gamma's dtype, in gamma's dtype, D
+   bitwise on a repeat;
+   each case names its route and holds the wrapper's plan
+   (layer_norm_plan) to the launcher's (ds_layer_norm_plan).  Hidden 768
+   is timed, A's bf16 cases and D's at the train step's and
+   train_longseq's rows (8192, 16384) also on the batched timer beside
+   F.layer_norm and aten's native_layer_norm_backward.  The
+   layer_norm_kernels group reads, by torch.profiler, the device kernels
+   of one call and the device µs of each: A exactly one, D at most two, no
+   cast, copy or fill, by a direct call and through fused_layer_norm's
+   autograd on the training layout.
 3. serve_bf16: GPT-2 124M at full width (hidden 768, 12 layers, 12 heads,
    vocab 50304, n_positions 256, bf16, weights from seed 0) through
    init_inference -> forward / generate: batch 8, prompt 128, 128 new
@@ -89,8 +106,9 @@ phase prints {"phase": ..., "ok": false, "error": ...} and the script exits
    tokens/s, ms per step, MFU against the H100's 989 TFLOP/s bf16 peak,
    first and final loss (every loss finite, the final below the first),
    peak device memory, exact launch counts per step, and one step under
-   torch.profiler: its device-busy share and the six ops with the most
-   device time.
+   torch.profiler: its device-busy share, the six ops with the most
+   device time, kernels A's and D's launches and device ms in the step,
+   and the cast / copy and fill kernels that sit next to them.
 9. train_sparse_grads: bench.py::bench_sparse_longseq's attention (BigBird,
    block 512, 1 random, 3 sliding-window and 1 global block) at full width
    (n_positions 8192) but SPARSE_GRADS_LAYERS deep, batch 1 x 8192,
@@ -200,9 +218,10 @@ from deepspeed_tpu_torch.ops.flash_attention import (
     DEFAULT_MASK_VALUE, dropout_keep_mask, flash_attention_bwd_dkdv_cuda,
     flash_attention_bwd_dq_cuda, flash_attention_bwd_reference,
     flash_attention_cuda, head_dim_plan, mha_reference, quantized_threshold)
-from deepspeed_tpu_torch.ops.normalize import (layer_norm_bwd_cuda,
+from deepspeed_tpu_torch.ops.normalize import (LN_ROUTES, fused_layer_norm,
+                                               layer_norm_bwd_cuda,
                                                layer_norm_bwd_reference,
-                                               layer_norm_cuda,
+                                               layer_norm_cuda, layer_norm_plan,
                                                layer_norm_reference)
 from deepspeed_tpu_torch.ops.quant import (DEQUANT_ROUTES, QuantizedWeight,
                                            dequant, dequant_matmul_reference,
@@ -344,6 +363,8 @@ def phase_device():
                   "fcm_tensor_core_sass": fcm_tensor_core_sass(
                       op_builder.build()),
                   "wide_and_gemv_resources": wide_and_gemv_resources(
+                      op_builder.build()),
+                  "layer_norm_resources": layer_norm_resources(
                       op_builder.build())}
 
 
@@ -405,6 +426,31 @@ def wide_and_gemv_resources(lib_path):
                 for nw, reg, stack in re.findall(
                     r"Function \S*?dq_gemv_mma_kernelILi(\d+)E\S*:\s+"
                     r"REG:(\d+) STACK:(\d+)", dump)})
+    return out
+
+
+def layer_norm_resources(lib_path):
+    """Registers and stack (spill) bytes per thread of kernels A's and D's
+    device kernels (by template: x's and gamma's dtypes, the elements of a
+    pack, packs a thread and, for D, the ring's stages), as cuobjdump reads
+    them from the built library; or why they could not be read (a
+    diagnostic)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        dump = subprocess.run([tool, "--dump-resource-usage", lib_path],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"cuobjdump failed: {e}"
+    out = {}
+    for kind, args, reg, stack in re.findall(
+            r"Function \S*?(ln_(?:fwd|bwd)(?:_streamed|_cols)?_kernel)I(\S+?)EE?v"
+            r"PK\S*:\s+REG:(\d+) STACK:(\d+)", dump):
+        head = args.split("Li", 1)[0]
+        types = ["fp32" if t == "f" else "bf16"
+                 for t in re.findall(r"13__nv_bfloat16|S\d*_|f", head)]
+        label = f"{kind}<{','.join(types + re.findall(r'Li(\d+)E', args))}>"
+        out[label] = {"registers": int(reg), "stack_bytes": int(stack)}
     return out
 
 
@@ -546,28 +592,92 @@ def _dtname(dtype):
     return str(dtype).split(".")[-1]
 
 
-def case_layer_norm(rows, dtype):
-    hidden = 768
-    g = torch.Generator(device="cuda").manual_seed(rows)
+# kernels A and D: the widths their parity cases run (GPT-2 124M's, 1024,
+# GPT-2 XL's 1600, 4096 and 8192, which kernel D's first design refused, and
+# an odd width, the scalar route) at decode's, a prompt's and prefill's rows
+LN_WIDTHS = (768, 1024, 1600, 4096, 8192, 771)
+LN_ROWS = (8, 77, 1024)
+LN_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+LN_SUM_TOL = 1e-4  # dgamma, dbeta: max|d| / max|ref| past the rounding into gamma's dtype
+LN_DTYPES = (torch.bfloat16, torch.float32)
+# rows too wide for 16 warps' registers: the streamed route (odd, and bf16
+# past 16384), at decode's rows and at prefill's, where each block takes
+# several rows one after another (A 4, D 8)
+LN_STREAMED_WIDTHS = (16385, 20000)
+LN_STREAMED_ROWS = (8, 1024)
+# kernel D's batched timer: the train step's and train_longseq's rows
+LN_BWD_BATCHED_ROWS = (TRAIN_BATCH * TRAIN_SEQ, LONG_BATCH * LONG_SEQ)
+
+
+def ln_inputs(rows, hidden, dtype, pdtype, seed):
+    """x and dy [rows, hidden] in dtype, gamma and beta [hidden] in pdtype."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(rows, hidden, device="cuda", generator=g).to(dtype)
-    gamma = 1.0 + 0.1 * torch.randn(hidden, device="cuda", generator=g)
-    beta = 0.1 * torch.randn(hidden, device="cuda", generator=g)
+    dy = torch.randn(rows, hidden, device="cuda", generator=g).to(dtype)
+    gamma = (1.0 + 0.1 * torch.randn(hidden, device="cuda", generator=g)).to(pdtype)
+    beta = (0.1 * torch.randn(hidden, device="cuda", generator=g)).to(pdtype)
+    return x, dy, gamma, beta
+
+
+def ln_plan(rows, hidden, dtype, backward):
+    """The plan of kernel A or D (ops/normalize.py layer_norm_plan) for an
+    aligned launch, its route label ("split" when a row spans several
+    warps), and whether the launcher's own plan (ds_layer_norm_plan)
+    agrees with it."""
+    code = dispatch.kernel_dtype_code(torch.empty(0, dtype=dtype))
+    plan = layer_norm_plan(rows, hidden, code, True, backward)
+    theirs = (ctypes.c_int * 6)()
+    op_builder.load().ds_layer_norm_plan(rows, hidden, code, 1, int(backward),
+                                         theirs)
+    mine = [LN_ROUTES.index(plan.route), plan.threads_per_row,
+            plan.per_thread, plan.slots, plan.rows_per_slot, plan.blocks]
+    split = plan.route != "streamed" and plan.threads_per_row > 32
+    return {"route": plan.route + (" split" if split else ""),
+            "plan": plan._asdict(), "plan_agrees": list(theirs) == mine}
+
+
+def half_ulp(ref, dtype):
+    """Half a unit in the last place of dtype at each value of ref."""
+    _, exp = torch.frexp(ref.float())
+    bits = 9 if dtype == torch.bfloat16 else 25
+    return torch.ldexp(torch.ones_like(ref, dtype=torch.float32), exp - bits)
+
+
+def sum_rel_err(out, ref, dtype):
+    """max|out - ref| / max|ref| of a column sum returned in dtype, beyond
+    the one rounding of the fp32 sum into dtype (half an ulp)."""
+    excess = ((out.float() - ref.float()).abs() - half_ulp(ref, dtype)).clamp(
+        min=0)
+    return (excess.max() / ref.float().abs().max()).item()
+
+
+def _ln_case_name(rows, hidden, dtype, pdtype):
+    return f"[{rows},{hidden}] {_dtname(dtype)}, gamma {_dtname(pdtype)}"
+
+
+def case_layer_norm(rows, dtype, hidden=768, pdtype=torch.float32):
+    """Kernel A against layer_norm_reference, its route and plan; at hidden
+    768 also timed (bf16 also on the batched timer, beside F.layer_norm)."""
+    x, _, gamma, beta = ln_inputs(rows, hidden, dtype, pdtype, rows + hidden)
     out = layer_norm_cuda(x, gamma, beta, 1e-5)
     ref = layer_norm_reference(x, gamma, beta, 1e-5)
     torch.cuda.synchronize()
-    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    tol = LN_TOL[dtype]
     err = (out.float() - ref.float()).abs().max().item()
-    ok = _within(out.float(), ref.float(), tol, tol)
+    plan = ln_plan(rows, hidden, dtype, False)
+    res = {"case": _ln_case_name(rows, hidden, dtype, pdtype),
+           "ok": _within(out.float(), ref.float(), tol, tol)
+           and plan["plan_agrees"],
+           "tolerance": f"atol=rtol={tol}", "max_abs_err": err, **plan}
+    if hidden != 768:
+        return res
     g_lib, b_lib = gamma.to(dtype), beta.to(dtype)
-    nbytes = 2 * x.numel() * x.element_size() + 2 * hidden * 4
+    nbytes = 2 * x.numel() * x.element_size() + 2 * hidden * gamma.element_size()
     b_ms, b_by = bound_ms(nbytes, 8 * x.numel(), torch.float32)
-    res = {
-        "case": f"[{rows},{hidden}] {_dtname(dtype)}", "ok": ok,
-        "tolerance": f"atol=rtol={tol}", "max_abs_err": err,
-        **timings(lambda: layer_norm_cuda(x, gamma, beta, 1e-5),
-                  lambda: layer_norm_reference(x, gamma, beta, 1e-5),
-                  lambda: F.layer_norm(x, (hidden,), g_lib, b_lib, 1e-5)),
-        "bound_ms": b_ms, "bound_by": b_by}
+    res.update(timings(lambda: layer_norm_cuda(x, gamma, beta, 1e-5),
+                       lambda: layer_norm_reference(x, gamma, beta, 1e-5),
+                       lambda: F.layer_norm(x, (hidden,), g_lib, b_lib, 1e-5)),
+               bound_ms=b_ms, bound_by=b_by)
     if dtype == torch.bfloat16:
         res["batched_us"] = batched_us(
             lambda xx, gg, bb: layer_norm_cuda(xx, gg, bb, 1e-5),
@@ -694,42 +804,65 @@ def case_flash(b, h, s, d, causal, dtype, fused=False, rate=0.0):
     return res
 
 
-def case_layer_norm_bwd(rows, dtype):
-    """Kernel D against layer_norm_bwd_reference; it must also repeat
-    bitwise (its dgamma / dbeta sums take a fixed order, no atomics)."""
-    hidden = 768
-    g = torch.Generator(device="cuda").manual_seed(rows + 1)
-    x = torch.randn(rows, hidden, device="cuda", generator=g).to(dtype)
-    dy = torch.randn(rows, hidden, device="cuda", generator=g).to(dtype)
-    gamma = 1.0 + 0.1 * torch.randn(hidden, device="cuda", generator=g)
+def case_layer_norm_bwd(rows, dtype, hidden=768, pdtype=torch.float32):
+    """Kernel D against layer_norm_bwd_reference, its route and plan; it
+    must also repeat bitwise (its dgamma / dbeta sums take a fixed order,
+    no atomics) and return dgamma and dbeta in gamma's dtype.  At hidden
+    768 also timed (bf16 at the training rows also on the batched timer,
+    beside F.layer_norm's backward)."""
+    x, dy, gamma, _ = ln_inputs(rows, hidden, dtype, pdtype, rows + hidden + 1)
     out = layer_norm_bwd_cuda(x, gamma, dy)
     again = layer_norm_bwd_cuda(x, gamma, dy)
     ref = layer_norm_bwd_reference(x, gamma, dy)
     torch.cuda.synchronize()
     repeat = all(torch.equal(a, b) for a, b in zip(out, again))
-    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    tol = LN_TOL[dtype]
     err = (out[0].float() - ref[0].float()).abs().max().item()
-    sum_errs = [rel_err(a, r) for a, r in zip(out[1:], ref[1:])]
-    ok = (_within(out[0].float(), ref[0].float(), tol, tol)
-          and max(sum_errs) <= 1e-4 and repeat)
-    nbytes = 3 * x.numel() * x.element_size() + 3 * hidden * 4
+    sum_errs = [sum_rel_err(a, r, pdtype) for a, r in zip(out[1:], ref[1:])]
+    dtypes_ok = out[1].dtype == out[2].dtype == pdtype
+    plan = ln_plan(rows, hidden, dtype, True)
+    res = {"case": _ln_case_name(rows, hidden, dtype, pdtype),
+           "ok": (_within(out[0].float(), ref[0].float(), tol, tol)
+                  and max(sum_errs) <= LN_SUM_TOL and repeat and dtypes_ok
+                  and plan["plan_agrees"]),
+           "tolerance": f"dx atol=rtol={tol}; dgamma, dbeta max|d|/max|ref| "
+                        f"<= {LN_SUM_TOL} past half an ulp of gamma's dtype "
+                        "(the one rounding of the fp32 sums); bitwise "
+                        "repeat; dgamma, dbeta in gamma's dtype",
+           "max_abs_err": err, "dgamma_dbeta_rel_err": sum_errs,
+           "bitwise_repeat": repeat,
+           "dgamma_dtype": _dtname(out[1].dtype), **plan}
+    if hidden != 768:
+        return res
+    nbytes = (3 * x.numel() * x.element_size()
+              + 3 * hidden * gamma.element_size())
     b_ms, b_by = bound_ms(nbytes, 20 * x.numel(), torch.float32)
     xg = x.detach().requires_grad_()
     g_lib = gamma.to(dtype).requires_grad_()
     b_lib = torch.zeros(hidden, device="cuda", dtype=dtype,
                         requires_grad=True)
     lib_out = F.layer_norm(xg, (hidden,), g_lib, b_lib, 1e-5)
-    return {
-        "case": f"[{rows},{hidden}] {_dtname(dtype)}", "ok": ok,
-        "tolerance": f"dx atol=rtol={tol}; dgamma, dbeta max|d|/max|ref| "
-                     "<= 1e-4; bitwise repeat",
-        "max_abs_err": err, "dgamma_dbeta_rel_err": sum_errs,
-        "bitwise_repeat": repeat,
-        **timings(lambda: layer_norm_bwd_cuda(x, gamma, dy),
-                  lambda: layer_norm_bwd_reference(x, gamma, dy),
-                  lambda: torch.autograd.grad(lib_out, (xg, g_lib, b_lib),
-                                              dy, retain_graph=True)),
-        "bound_ms": b_ms, "bound_by": b_by}
+    res.update(timings(lambda: layer_norm_bwd_cuda(x, gamma, dy),
+                       lambda: layer_norm_bwd_reference(x, gamma, dy),
+                       lambda: torch.autograd.grad(
+                           lib_out, (xg, g_lib, b_lib), dy,
+                           retain_graph=True)),
+               bound_ms=b_ms, bound_by=b_by)
+    if dtype == torch.bfloat16 and rows in LN_BWD_BATCHED_ROWS:
+        res["batched_us"] = batched_us(
+            lambda xx, gg, dd: layer_norm_bwd_cuda(xx, gg, dd),
+            (x, gamma, dy))
+        # F.layer_norm's backward as one call: aten's
+        # native_layer_norm_backward on the forward's mean and rstd
+        g_d, b_d = g_lib.detach(), b_lib.detach()
+        _, mean, rstd = torch.ops.aten.native_layer_norm(x, [hidden], g_d,
+                                                         b_d, 1e-5)
+        res["library_batched_us"] = batched_us(
+            lambda xx, dd, gg, bb, mm, rr:
+            torch.ops.aten.native_layer_norm_backward(
+                dd, xx, [hidden], mm, rr, gg, bb, [True, True, True]),
+            (x, dy, g_d, b_d, mean, rstd))
+    return res
 
 
 def case_flash_bwd(b, h, s, d, causal, dtype, fused=False, rate=0.0):
@@ -1239,12 +1372,13 @@ H_ROUTE_KERNELS = {cm.ROUTE_TENSOR_CORES: {"ag": ("wprod_mma_kernel",),
 PROFILER_ATTEMPTS = 5
 
 
-def device_kernel_names(call):
-    """The names of the device kernels that call() ran, from torch.profiler
-    (CUDA activity), and the profiler sessions it took.  On some machines
-    a session loses the record of its first kernel: each session starts
-    with a short spin kernel (left out of the names), and one that recorded
-    no kernel of call() at all is repeated, up to PROFILER_ATTEMPTS."""
+def device_kernel_events(call):
+    """The device kernels that call() ran, in launch order, as (name,
+    device µs) from torch.profiler (CUDA activity), and the profiler
+    sessions it took.  On some machines a session loses the record of its
+    first kernel: each session starts with a short spin kernel (left out of
+    the list), and one that recorded no kernel of call() at all is
+    repeated, up to PROFILER_ATTEMPTS."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     call()
@@ -1256,12 +1390,27 @@ def device_kernel_names(call):
             call()
             torch.cuda.synchronize()
             time.sleep(0.05 * (attempt - 1))  # time for the activity records
-        names = sorted({e.name for e in prof.events()
-                        if e.device_type == DeviceType.CUDA
-                        and "spin_kernel" not in e.name})
-        if names:
+        events = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA
+                         and "spin_kernel" not in e.name),
+                        key=lambda e: e.time_range.start)
+        if events:
             break
-    return names, attempt
+    return [(e.name, e.time_range.elapsed_us()) for e in events], attempt
+
+
+def device_kernels(call):
+    """The names of the device kernels that call() ran, in launch order,
+    and the profiler sessions it took (device_kernel_events)."""
+    events, attempts = device_kernel_events(call)
+    return [name for name, _ in events], attempts
+
+
+def device_kernel_names(call):
+    """The sorted names of the device kernels that call() ran (each once),
+    and the profiler sessions it took (device_kernels)."""
+    kernels, attempts = device_kernels(call)
+    return sorted(set(kernels)), attempts
 
 
 def case_fcm_tile_kernels(entry, dtype):
@@ -1294,6 +1443,52 @@ def case_fcm_tile_kernels(entry, dtype):
                     f"{_dtname(dtype)}", "ok": bool(names) and ran and absent,
             "tolerance": f"{', '.join(want)} ran; {', '.join(sorted(other))} "
                          "did not", "route": route, "device_kernels": names,
+            "profiler_sessions": attempts}
+
+
+# kernels A's and D's device kernels (csrc/layer_norm.cu, layer_norm_bwd.cu),
+# and the names of PyTorch's cast / copy and fill kernels
+LN_KERNEL = re.compile(r"ln_(?:fwd|bwd)\w*_kernel")
+CAST_OR_FILL = re.compile(r"copy_kernel|FillFunctor|fill_kernel|_to_copy")
+
+
+def case_layer_norm_kernels(entry):
+    """The device kernels one call launches, from torch.profiler: kernel A
+    exactly one, kernel D at most two (ln_bwd_kernel, ln_bwd_cols_kernel),
+    and no cast, copy or fill kernel beside them; A on the serving layout
+    (bf16 x, fp32 gamma and beta, the prefill's rows), A and D on the
+    training layout (bf16 x, gamma, beta, the train step's rows) by a direct
+    call and through fused_layer_norm's autograd (forward, then backward
+    into fresh grads).  Each kernel's device µs comes with it: D's
+    column-sum kernel starts while the first runs (programmatic dependent
+    launch), so its µs count from its start, its wait included."""
+    rows = 1024 if entry == "A serve" else TRAIN_BATCH * TRAIN_SEQ
+    pdtype = torch.float32 if entry == "A serve" else torch.bfloat16
+    x, dy, gamma, beta = ln_inputs(rows, 768, torch.bfloat16, pdtype, 3)
+    leaves = [t.clone().requires_grad_() for t in (x, gamma, beta)]
+    out = fused_layer_norm(*leaves)
+
+    def backward():
+        for t in leaves:
+            t.grad = None
+        out.backward(dy, retain_graph=True)
+    call, most = {"A serve": (lambda: layer_norm_cuda(x, gamma, beta), 1),
+                  "A train": (lambda: layer_norm_cuda(x, gamma, beta), 1),
+                  "D train": (lambda: layer_norm_bwd_cuda(x, gamma, dy), 2),
+                  "A train autograd": (lambda: fused_layer_norm(*leaves), 1),
+                  "D train autograd": (backward, 2)}[entry]
+    events, attempts = device_kernel_events(call)
+    kernels = [name for name, _ in events]
+    ln = [k for k in kernels if LN_KERNEL.search(k)]
+    casts = [k[:140] for k in kernels if CAST_OR_FILL.search(k)]
+    return {"case": f"{entry} [{rows},768] bf16, gamma {_dtname(pdtype)}",
+            "ok": 1 <= len(kernels) <= most and len(ln) == len(kernels)
+            and not casts,
+            "tolerance": f"<= {most} device kernel(s), all kernel "
+                         f"{entry[0]}'s; no cast, copy or fill",
+            "device_kernels": [k[:80] for k in kernels],
+            "device_us": [us for _, us in events],
+            "count": len(kernels), "casts_and_fills": casts,
             "profiler_sessions": attempts}
 
 
@@ -1523,11 +1718,21 @@ PARITY_CASES = {
     # point ran
     "fcm_tile_route": (case_fcm_tile_kernels, [
         (entry, dt) for entry in ("ag", "ag_t", "rs") for dt in FCM_DTYPES]),
+    # kernels A's and D's device kernels per call, by torch.profiler
+    "layer_norm_kernels": (case_layer_norm_kernels, [
+        (entry,) for entry in ("A serve", "A train", "D train",
+                               "A train autograd", "D train autograd")]),
+    # kernel A: every width at decode's, a prompt's and prefill's rows, x
+    # and gamma / beta each in bf16 and fp32 (hidden 768 timed), the train
+    # step's rows (batched timer), and two widths past the registers (the
+    # streamed route)
     "layer_norm_fwd": (case_layer_norm, [
-        (rows, dt) for rows in (1024, 8)
-        for dt in (torch.bfloat16, torch.float32)]
-        # the train step's rows, for the batched timer
-        + [(TRAIN_BATCH * TRAIN_SEQ, torch.bfloat16)]),
+        (rows, dt, h, pdt) for h in LN_WIDTHS for rows in LN_ROWS
+        for dt in LN_DTYPES for pdt in LN_DTYPES]
+        + [(TRAIN_BATCH * TRAIN_SEQ, torch.bfloat16, 768, pdt)
+           for pdt in LN_DTYPES]
+        + [(rows, dt, h, dt) for rows in LN_STREAMED_ROWS
+           for h in LN_STREAMED_WIDTHS for dt in LN_DTYPES]),
     "flash_attention_fwd": (case_flash, [
         (8, 12, 128, 64, True, dt) for dt in (torch.bfloat16, torch.float32)]
         + [(2, 12, 1024, 64, causal, dt) for causal in (True, False)
@@ -1561,9 +1766,17 @@ PARITY_CASES = {
         (m, k, n, groups, dt) for m in (8, 1, 77, 1024)
         for (k, n) in GPT2_INT8_SHAPES
         for groups in (1, 8) for dt in (torch.bfloat16, torch.float32)]),
+    # kernel D: the same grid, one row, the train step's and
+    # train_longseq's rows (batched timer), and the streamed route
     "layer_norm_bwd": (case_layer_norm_bwd, [
-        (rows, dt) for rows in (TRAIN_BATCH * TRAIN_SEQ, 77, 1)
-        for dt in (torch.bfloat16, torch.float32)]),
+        (rows, dt, h, pdt) for h in LN_WIDTHS for rows in LN_ROWS
+        for dt in LN_DTYPES for pdt in LN_DTYPES]
+        + [(1, dt, 768, torch.float32) for dt in LN_DTYPES]
+        + [(TRAIN_BATCH * TRAIN_SEQ, dt, 768, pdt) for dt in LN_DTYPES
+           for pdt in LN_DTYPES]
+        + [(LONG_BATCH * LONG_SEQ, torch.bfloat16, 768, torch.bfloat16)]
+        + [(rows, dt, h, dt) for rows in LN_STREAMED_ROWS
+           for h in LN_STREAMED_WIDTHS for dt in LN_DTYPES]),
     # kernel B's training case: dropout inside the kernel, at the train
     # phase's shape and layout, a ragged fp32 one, and train_longseq's
     # length with batch and heads cut so that the plain twin's [S, S] fp32
@@ -1654,12 +1867,13 @@ PARITY_CASES = {
 # the case each kernel's entry of the `kernels` line reports: the shape and
 # layout its path runs most (LN forward at prefill, dequant at decode; the
 # flash forward, LN backward and flash backward at the training step)
-PRIMARY = {"layer_norm_fwd": (1024, torch.bfloat16),
+PRIMARY = {"layer_norm_fwd": (1024, torch.bfloat16, 768, torch.float32),
            "flash_attention_fwd_dropout": (TRAIN_BATCH, 12, TRAIN_SEQ, 64,
                                            True, torch.bfloat16, True,
                                            DROPOUT),
            "dequant_matmul": (8, 768, 3072, 1, torch.bfloat16),
-           "layer_norm_bwd": (TRAIN_BATCH * TRAIN_SEQ, torch.bfloat16),
+           "layer_norm_bwd": (TRAIN_BATCH * TRAIN_SEQ, torch.bfloat16, 768,
+                              torch.bfloat16),
            "flash_attention_bwd": (TRAIN_BATCH, 12, TRAIN_SEQ, 64, True,
                                    torch.bfloat16, True, DROPOUT),
            "block_sparse_flash": PARITY_CASES["block_sparse_flash"][1][0],
@@ -1995,20 +2209,45 @@ def grads_vs_cpu(cfg, state, ids, ds_config):
 
 
 def _profile_once(fn):
-    """(wall ms, device-busy ms, {op: device ms}) of one fn() under
-    torch.profiler, synchronised on both sides."""
+    """(wall ms, device-busy ms, {op: device ms}, [(name, device ms)] in
+    launch order) of one fn() under torch.profiler, synchronised on both
+    sides."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, wall = timed(fn)
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
     ops = {}
     for e in kernels:
         ops[e.name] = ops.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy = _union_us((e.time_range.start, e.time_range.end)
                      for e in kernels) / 1e3
-    return wall * 1e3, busy, ops
+    return wall * 1e3, busy, ops, [(e.name, e.time_range.elapsed_us() / 1e3)
+                                   for e in kernels]
+
+
+def layer_norm_in_step(kernels):
+    """Kernels A's and D's part of a profiled step: their launches and
+    device ms, and the cast / copy and fill kernels that sit next to a run
+    of them in launch order (with their names)."""
+    ln = [i for i, (name, _) in enumerate(kernels) if LN_KERNEL.search(name)]
+    beside = {}
+    for i in ln:
+        for j in (i - 1, i + 1):
+            if 0 <= j < len(kernels) and j not in beside \
+                    and not LN_KERNEL.search(kernels[j][0]) \
+                    and CAST_OR_FILL.search(kernels[j][0]):
+                beside[j] = kernels[j][0][:140]
+    names = {}
+    for name in beside.values():
+        names[name] = names.get(name, 0) + 1
+    return {"ln_kernels": len(ln),
+            "ln_device_ms": sum(kernels[i][1] for i in ln),
+            "ln_casts_and_fills_beside": len(beside),
+            "ln_casts_and_fills_beside_by_name": names}
 
 
 def timed_training(cfg, state, ds_config, warmup, iters):
@@ -2056,7 +2295,7 @@ def timed_training(cfg, state, ds_config, warmup, iters):
     tokens_per_s = iters * batch * seq / seconds
     peak = PEAK_OPS_PER_S[torch.bfloat16]
     peak_memory = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
-    wall_ms, busy_ms, ops = _profile_once(step)
+    wall_ms, busy_ms, ops, kernels = _profile_once(step)
     top = sorted(ops.items(), key=lambda kv: -kv[1])[:6]
     return counts, {
         "batch": [batch, seq],
@@ -2072,7 +2311,8 @@ def timed_training(cfg, state, ds_config, warmup, iters):
         "launches_per_step": per_step, "realigned": realigned,
         "profiled_step_wall_ms": wall_ms, "profiled_step_device_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms,
-        "top_device_ms_one_step": {name[:80]: ms for name, ms in top}}
+        "top_device_ms_one_step": {name[:80]: ms for name, ms in top},
+        **layer_norm_in_step(kernels)}
 
 
 def phase_train(state):

@@ -11,6 +11,7 @@ counterpart here.)
 
 import torch
 
+from .op_builder import DTYPE_BF16, DTYPE_FP32
 
 # The checks below run on every launch, and eager decode is bound by the
 # host (PERF.md), so they use the cheapest tensor attributes there are.
@@ -30,15 +31,18 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     return False
 
 
+# torch dtype -> csrc/common.cuh dtype code
+DTYPE_CODES = {torch.float32: DTYPE_FP32, torch.bfloat16: DTYPE_BF16}
+
+
 def kernel_dtype_code(t: torch.Tensor) -> int:
     """The dtype code of csrc/common.cuh for a kernel operand; raises for
     a dtype the kernels do not take."""
-    from .op_builder import DTYPE_BF16, DTYPE_FP32
-    if t.dtype == torch.float32:
-        return DTYPE_FP32
-    if t.dtype == torch.bfloat16:
-        return DTYPE_BF16
-    raise TypeError(f"the CUDA kernels take bfloat16 or float32, got {t.dtype}")
+    code = DTYPE_CODES.get(t.dtype)
+    if code is None:
+        raise TypeError(
+            f"the CUDA kernels take bfloat16 or float32, got {t.dtype}")
+    return code
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> int:
@@ -49,9 +53,12 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> int:
         if not t.is_cuda or t.get_device() != index:
             raise ValueError(f"{name}: every operand must lie on one CUDA "
                              f"device, got {t.device} and {tensors[0].device}")
-    if index != torch.cuda.current_device():
+    # CUDA is initialised once a CUDA tensor exists: the raw query skips
+    # torch.cuda.current_device()'s initialisation check
+    current = torch._C._cuda_getDevice()
+    if index != current:
         raise ValueError(f"{name}: operands lie on cuda:{index} but the "
-                         f"current device is cuda:{torch.cuda.current_device()}")
+                         f"current device is cuda:{current}")
     return index
 
 

@@ -9,15 +9,118 @@ The JAX package defaults to the XLA LN over its Pallas kernels, a choice
 measured on v5e; on the card the port always runs its kernels.
 """
 
+import ctypes
+import functools
+from typing import NamedTuple
+
 import torch
 
 from . import op_builder
-from .dispatch import (check_contiguous, check_cuda, kernel_dtype_code,
-                       stream_handle, use_kernel)
+from .dispatch import (DTYPE_CODES, check_contiguous, check_cuda,
+                       kernel_dtype_code, stream_handle, use_kernel)
 
-# csrc/layer_norm_bwd.cu kRowsPerBlock: rows per block of the backward's
-# first pass, which sizes its [blocks, hidden] dgamma / dbeta workspaces
-LN_BWD_ROWS_PER_BLOCK = 32
+# csrc/layer_norm_row.cuh: the routes (by code) and the constants of its plan
+LN_ROUTES = ("vector", "scalar", "streamed")
+LN_VECTOR_CAP = 4          # 16-byte packs a thread a row
+LN_SCALAR_CAP = 16         # element packs a thread a row (powers of two)
+LN_MAX_ROW_THREADS = 512   # a row in registers: at most 16 warps
+LN_SLOT_THREADS = 256      # a block's threads when its rows are narrower
+LN_STREAM_THREADS = 1024   # the streamed route: a block, one row at a time
+LN_FWD_BLOCKS = 264        # A: 2 blocks per SM of an H100 SXM (a constant)
+LN_BWD_BLOCKS = 132        # D: 1 block per SM (fewer workspace rows)
+LN_ALIGN = 16              # the vector route's 16-byte loads and stores
+_ROUTE_CODE = {r: i for i, r in enumerate(LN_ROUTES)}
+
+
+class LayerNormPlan(NamedTuple):
+    """Kernel A's or D's launch for x [rows, hidden]: the route ("vector":
+    the row in registers from 16-byte loads; "scalar": the same from
+    element loads; "streamed": a row too wide for registers, a block
+    taking its rows one at a time and re-reading each in every pass), the
+    threads a row (whole warps; more than 32 split the row over the warps
+    of a block), the packs a thread holds (0 when streamed), the rows a block holds at once (slots) and takes one after
+    another each (rows_per_slot), the blocks, and for D the chunks: the
+    rows of its fp32 workspace, one a block, that its second launch sums in
+    a fixed order (0 for A)."""
+    route: str
+    threads_per_row: int
+    per_thread: int
+    slots: int
+    rows_per_slot: int
+    blocks: int
+    chunks: int
+
+    @property
+    def rows_per_block(self) -> int:
+        return self.slots * self.rows_per_slot
+
+    @property
+    def launch_args(self) -> tuple:
+        """What the launch passes for the launchers to check: (route code,
+        threads a row, rows a block, blocks)."""
+        return (_ROUTE_CODE[self.route], self.threads_per_row,
+                self.rows_per_block, self.blocks)
+
+
+def layer_norm_plan(rows: int, hidden: int, code: int, aligned: bool = True,
+                    backward: bool = False) -> LayerNormPlan:
+    """The plan of kernel A (backward False) or D for x [rows, hidden] of
+    dtype code `code`, every tensor the launch reads or writes starting on
+    16 bytes when `aligned` (csrc/layer_norm_row.cuh plan(), which the
+    launchers hold the launch to).  Any hidden >= 1 has one.  A function of
+    its arguments and the constants above only, never of the device (its
+    SM count): D's column sums take the same order on any card."""
+    if hidden < 1:
+        raise ValueError(f"layer_norm_plan: hidden {hidden} must be >= 1")
+    vec = LN_ALIGN // (2 if code == op_builder.DTYPE_BF16 else 4)
+    if aligned and hidden % vec == 0:
+        route, n, cap = "vector", hidden // vec, LN_VECTOR_CAP
+    else:
+        route, n, cap = "scalar", hidden, LN_SCALAR_CAP
+    warps = -(-n // (32 * cap))
+    if 32 * warps > LN_MAX_ROW_THREADS:
+        route, tpr, per = "streamed", LN_STREAM_THREADS, 0
+    else:
+        tpr = 32 * warps
+        per = -(-n // tpr)
+        if route == "scalar":
+            per = 1 << (per - 1).bit_length()
+    max_slots = LN_SLOT_THREADS // tpr if tpr < LN_SLOT_THREADS else 1
+    spread = LN_BWD_BLOCKS if backward else LN_FWD_BLOCKS
+    slots = min(max_slots, max(1, -(-rows // spread)))
+    rps = -(-rows // (slots * spread)) if rows > 0 else 1
+    blocks = -(-rows // (slots * rps)) if rows > 0 else 0
+    return LayerNormPlan(route, tpr, per, slots, rps, blocks,
+                         blocks if backward else 0)
+
+
+@functools.lru_cache(maxsize=512)
+def _shape_launches(name, shape, dtype, pdtype, vector_shapes, backward):
+    """Kernel A's (backward False) or D's launch facts for x of `shape` and
+    `dtype` and gamma (and beta) of `pdtype` and `vector_shapes`, checked
+    once a shape: (rows, the int32 arrays an unaligned and an aligned
+    launch pass (csrc/layer_norm_row.cuh LaunchField): rows, hidden, x's
+    and gamma's dtype codes, then layer_norm_plan's launch_args).  The
+    wrappers run on every decode step, which the host paces: a call reads
+    these facts here and hands the launcher one pointer."""
+    code = DTYPE_CODES.get(dtype)
+    pcode = DTYPE_CODES.get(pdtype)
+    if code is None or pcode is None:
+        bad = dtype if code is None else pdtype
+        raise TypeError(f"{name}: the CUDA kernels take bfloat16 or float32, "
+                        f"got {bad}")
+    hidden = shape[-1]
+    for vshape in vector_shapes:
+        if vshape != (hidden,):
+            raise ValueError(f"{name}: gamma / beta {tuple(vshape)} must "
+                             f"be [{hidden}]")
+    rows = shape.numel() // hidden if hidden else 0
+    if rows == 0:
+        return 0, ()
+    return rows, tuple(
+        (ctypes.c_int * 8)(rows, hidden, code, pcode, *layer_norm_plan(
+            rows, hidden, code, aligned, backward).launch_args)
+        for aligned in (False, True))
 
 
 def layer_norm_reference(x, gamma, beta, eps: float = 1e-5):
@@ -47,38 +150,39 @@ def layer_norm_bwd_reference(x, gamma, dy, eps: float = 1e-5):
             dyf.sum(dim=0))
 
 
-def _check_ln_operands(name, x, vectors, rows=()):
-    """The checks of kernels A and D: every operand on one CUDA device, x
-    (and the other [..., hidden] tensors `rows`) contiguous in bf16 or fp32,
-    each of `vectors` (gamma, beta) a bf16 or fp32 [hidden]."""
-    index = check_cuda(name, x, *vectors, *rows)
-    check_contiguous(name, x=x)
-    code = kernel_dtype_code(x)
-    hidden = x.shape[-1]
+def _as_params(vectors):
+    """gamma (and beta) as the kernels read them: as they are when they
+    share a dtype and are contiguous (every model path), else (off the
+    model's paths) as contiguous fp32 copies."""
+    first = vectors[0]
+    if all(t.dtype is first.dtype and t.is_contiguous() for t in vectors):
+        return vectors
     for t in vectors:
         kernel_dtype_code(t)  # raises unless bf16 or fp32
-        if t.shape != (hidden,):
-            raise ValueError(f"{name}: gamma / beta {tuple(t.shape)} must "
-                             f"be [{hidden}]")
-    return index, code, hidden
+    return tuple(t.float().contiguous() for t in vectors)
 
 
 def layer_norm_cuda(x, gamma, beta, eps: float = 1e-5):
     """Kernel A on a contiguous CUDA tensor: LN over the last dim, gamma and
-    beta of [hidden] (taken in fp32)."""
+    beta [hidden] in bf16 or fp32, read in their own dtype.  One device
+    kernel, no other."""
     name = "layer_norm_cuda"
-    index, code, hidden = _check_ln_operands(name, x, (gamma, beta))
-    gamma = gamma.float().contiguous()
-    beta = beta.float().contiguous()
+    index = check_cuda(name, x, gamma, beta)
+    if not x.is_contiguous():
+        check_contiguous(name, x=x)
+    gamma, beta = _as_params((gamma, beta))
+    rows, launches = _shape_launches(name, x.shape, x.dtype, gamma.dtype,
+                                     (gamma.shape, beta.shape), False)
     out = torch.empty_like(x)
-    rows = x.numel() // hidden if hidden else 0
     if rows == 0:
         return out
-    lib = op_builder.load()
-    err = lib.ds_layer_norm_fwd(x.data_ptr(), gamma.data_ptr(),
-                                beta.data_ptr(), out.data_ptr(), rows, hidden,
-                                float(eps), code, stream_handle(index))
-    op_builder.check_launch(name, err)
+    xp, gp, bp, op = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                      out.data_ptr())
+    err = op_builder.load().ds_layer_norm_fwd(
+        xp, gp, bp, op, eps, launches[not (xp | gp | bp | op) % LN_ALIGN],
+        stream_handle(index))
+    if err:
+        op_builder.check_launch(name, err)
     layer_norm_cuda.launches += 1
     return out
 
@@ -88,31 +192,35 @@ layer_norm_cuda.launches = 0
 
 def layer_norm_bwd_cuda(x, gamma, dy, eps: float = 1e-5):
     """Kernel D on contiguous CUDA tensors x and dy (same shape and dtype)
-    and gamma [hidden] (taken in fp32): (dx in x's dtype, dgamma, dbeta in
-    fp32), the column sums taken in a fixed order with no atomics."""
+    and gamma [hidden] (bf16 or fp32, read in its own dtype): (dx in x's
+    dtype, dgamma, dbeta in gamma's dtype), the column sums taken in fp32 in
+    a fixed order with no atomics and rounded once.  Two device kernels, no
+    other."""
     name = "layer_norm_bwd_cuda"
-    index, code, hidden = _check_ln_operands(name, x, (gamma,), (dy,))
-    check_contiguous(name, dy=dy)
+    index = check_cuda(name, x, gamma, dy)
+    check_contiguous(name, x=x, dy=dy)
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError(f"{name}: dy {tuple(dy.shape)} {dy.dtype} must match "
                          f"x {tuple(x.shape)} {x.dtype}")
-    gamma = gamma.float().contiguous()
+    (gamma,) = _as_params((gamma,))
+    rows, launches = _shape_launches(name, x.shape, x.dtype, gamma.dtype,
+                                     (gamma.shape,), True)
     dx = torch.empty_like(x)
-    dgamma = torch.zeros(hidden, dtype=torch.float32, device=x.device)
-    dbeta = torch.zeros(hidden, dtype=torch.float32, device=x.device)
-    rows = x.numel() // hidden if hidden else 0
+    hidden = x.shape[-1]
     if rows == 0:
-        return dx, dgamma, dbeta
-    blocks = -(-rows // LN_BWD_ROWS_PER_BLOCK)
-    part = torch.empty((2, blocks, hidden), dtype=torch.float32,
-                       device=x.device)
-    lib = op_builder.load()
-    err = lib.ds_layer_norm_bwd(x.data_ptr(), gamma.data_ptr(),
-                                dy.data_ptr(), dx.data_ptr(),
-                                part[0].data_ptr(), part[1].data_ptr(),
-                                dgamma.data_ptr(), dbeta.data_ptr(), rows,
-                                hidden, float(eps), code,
-                                stream_handle(index))
+        return (dx, torch.zeros(hidden, dtype=gamma.dtype, device=x.device),
+                torch.zeros(hidden, dtype=gamma.dtype, device=x.device))
+    xp, gp, dyp, dxp = (x.data_ptr(), gamma.data_ptr(), dy.data_ptr(),
+                        dx.data_ptr())
+    launch = launches[not (xp | gp | dyp | dxp) % LN_ALIGN]
+    # the workspace: one fp32 [dgamma | dbeta] row a block (launch[-1])
+    ws = torch.empty((launch[-1], 2, hidden), dtype=torch.float32,
+                     device=x.device)
+    dgamma = torch.empty(hidden, dtype=gamma.dtype, device=x.device)
+    dbeta = torch.empty(hidden, dtype=gamma.dtype, device=x.device)
+    err = op_builder.load().ds_layer_norm_bwd(
+        xp, gp, dyp, dxp, ws.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
+        eps, launch, stream_handle(index))
     op_builder.check_launch(name, err)
     layer_norm_bwd_cuda.launches += 1
     return dx, dgamma, dbeta

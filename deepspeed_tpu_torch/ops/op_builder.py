@@ -37,11 +37,17 @@ I64_PTR = ctypes.POINTER(ctypes.c_int64)
 # cudaError_t of its launch as an int.  A pointer or the stream passed
 # without c_void_p would be cut to 32 bits.
 SIGNATURES = {
-    # x, gamma, beta, out, rows, hidden, eps, dtype, stream
-    "ds_layer_norm_fwd": [P, P, P, P, I32, I32, F32, I32, P],
-    # x, gamma, dy, dx, dgamma/dbeta workspaces, dgamma, dbeta, rows,
-    # hidden, eps, dtype, stream
-    "ds_layer_norm_bwd": [P] * 8 + [I32, I32, F32, I32, P],
+    # x, gamma, beta, out, eps, the launch (int32[8]: rows, hidden, x's and
+    # gamma's dtype codes, then ops/normalize.py layer_norm_plan's route,
+    # threads a row, rows a block, blocks), stream
+    "ds_layer_norm_fwd": [P, P, P, P, F32, P, P],
+    # x, gamma, dy, dx, the fp32 workspace [blocks, 2, hidden], dgamma,
+    # dbeta, eps, the launch as the forward's, stream
+    "ds_layer_norm_bwd": [P] * 7 + [F32, P, P],
+    # rows, hidden, dtype, aligned, backward, plan (int32[6] out: route,
+    # threads a row, packs a thread, slots, rows a slot, blocks); launches
+    # nothing
+    "ds_layer_norm_plan": [I32] * 5 + [P],
     # q, k, v, out, lse, B, H, Sq, Sk, D, chunks (flash_attention.py
     # head_dim_plan), q/k/v/out strides (batch, head, seq), sm_scale,
     # causal, seed (device int32), keep threshold, keep scale, dtype, stream
