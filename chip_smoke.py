@@ -52,7 +52,9 @@ phase prints {"phase": ..., "ok": false, "error": ...} and the script exits
    of the wide attention kernels and kernel C's GEMVs, and of the
    tensor-core kernels of C's prefill, H, I and J with the count of HMMA
    instructions in their SASS (the phase fails if one has none), and of
-   kernels A's and D's device kernels (layer_norm_resources).
+   kernels A's and D's device kernels (layer_norm_resources), and of
+   kernel J's collect kernels with their counts of global loads and
+   stores in the SASS (collect_resources).
    Kernels A and D (LayerNorm forward and backward) run at hidden 768,
    1024, 1600, 4096, 8192 and 771 (the scalar route) at 8, 77 and 1024
    rows, x and gamma / beta each in bf16 and fp32, and at 16385 and 20000
@@ -69,6 +71,18 @@ phase prints {"phase": ..., "ok": false, "error": ...} and the script exits
    of one call and the device µs of each: A exactly one, D at most two, no
    cast, copy or fill, by a direct call and through fused_layer_norm's
    autograd on the training layout.
+   Two repairs are held here too.  sparse_gather: SparseSelfAttention at
+   layout blocks 16 and 32 (which kernels F and G cannot tile), [2, 12,
+   1024, 64] bf16, causal and not, takes the gather path on the card,
+   counted once a call on SparseSelfAttention.gathered with F and G
+   launched 0 times, out and the grads of q, k, v within 2e-2 / 5e-2 of
+   the port's CPU fp32 run.  dequant_matmul_grad: kernel C's backward (an
+   autograd Function) at M = 8 and 1024, [768, 3072], bf16, groups 1 and
+   8: a grad_fn, one launch, the grads of x and of the scales within 5e-2
+   of the plain twin's autograd on the card; int8_layer_grad: a GPT-2
+   124M layer with int8 weights, forward and backward on [8, 128, 768],
+   against the CPU fp32 run (out 2e-2, every grad 5e-2), C launched 4
+   times.
 3. serve_bf16: GPT-2 124M at full width (hidden 768, 12 layers, 12 heads,
    vocab 50304, n_positions 256, bf16, weights from seed 0) through
    init_inference -> forward / generate: batch 8, prompt 128, 128 new
@@ -174,7 +188,14 @@ step, a step that accumulates, the last step's cast, the transposed step
 writing a column block; bf16 on the tensor cores at every tile and
 payload, fp32 on the CUDA cores) and J (the producer by the one-step rule,
 bitwise on its own tile, at the three tiles and an odd shape in both
-dtypes; the collect bitwise) against their plain twins; I and J must
+dtypes; the collect bitwise and bitwise on a repeat, its plan
+(ds_fcm_rs_collect_plan) equal to collective_matmul.collect_plan's, at W = 4
+of the three tiles and of (33, 50) (one element a thread), at W = 2, 8 and 9
+and with a q table 4 bytes (4 elements a thread) and 2 bytes (one) off the
+16-byte boundary at c_fc's tile, and at an off-path [2048, 3072] tile; at
+c_fc's tile and the off-path one also the batched timer and the device
+kernel and µs of one launch by torch.profiler, warm and cold in L2)
+against their plain twins; I and J must
 repeat bitwise, and I's bf16 cases with an int8 or int4 payload must also
 lie within FCM_FP32_DEQUANT_TOL (1e-4) of the twin with an fp32
 destination, which a single bf16 rounding of the dequantized weights would
@@ -225,7 +246,8 @@ from deepspeed_tpu_torch.ops.normalize import (LN_ROUTES, fused_layer_norm,
                                                layer_norm_reference)
 from deepspeed_tpu_torch.ops.quant import (DEQUANT_ROUTES, QuantizedWeight,
                                            dequant, dequant_matmul_reference,
-                                           dequant_plan, fused_dequant_matmul)
+                                           dequant_plan, fused_dequant_matmul,
+                                           matmul_maybe_int8)
 from deepspeed_tpu_torch.ops.sparse_attention import (BigBirdSparsityConfig,
                                                       FixedSparsityConfig,
                                                       SparseSelfAttention,
@@ -234,9 +256,11 @@ from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_flash import (
     block_sparse_flash_bwd_dkdv_cuda, block_sparse_flash_bwd_dq_cuda,
     block_sparse_flash_bwd_reference, block_sparse_flash_fwd_cuda,
     block_sparse_flash_fwd_reference)
+from deepspeed_tpu_torch.ops.transformer import DeepSpeedTransformerLayer
 from deepspeed_tpu_torch.parallel import MeshContext
 from deepspeed_tpu_torch.runtime.comm import low_bandwidth as lb
-from deepspeed_tpu_torch.runtime.weight_quantizer import quantize_weight
+from deepspeed_tpu_torch.runtime.weight_quantizer import (WeightQuantization,
+                                                          quantize_weight)
 
 # H100 SXM, NVIDIA data sheet (dense): device memory rate and the peak
 # operation rate by operand type (bf16 on the tensor cores; fp32 on the
@@ -365,6 +389,8 @@ def phase_device():
                   "wide_and_gemv_resources": wide_and_gemv_resources(
                       op_builder.build()),
                   "layer_norm_resources": layer_norm_resources(
+                      op_builder.build()),
+                  "collect_resources": collect_resources(
                       op_builder.build())}
 
 
@@ -454,6 +480,38 @@ def layer_norm_resources(lib_path):
     return out
 
 
+def collect_resources(lib_path):
+    """Registers and stack (spill) bytes per thread of kernel J's collect
+    kernels (by chunk width and unrolled sources, 0: the run-time world),
+    and in the SASS of each the count of global loads (LDG) and stores
+    (STG) and of 32-bit integer divisions' reciprocal steps (MUFU.RCP),
+    as cuobjdump reads them from the built library; or why they could not
+    be read (a diagnostic)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        usage = subprocess.run([tool, "--dump-resource-usage", lib_path],
+                               capture_output=True, text=True, timeout=120,
+                               check=True).stdout
+        sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"cuobjdump failed: {e}"
+    pattern = r"collect_kernelILi(\d+)ELi(\d+)E"
+    out = {}
+    for width, world, reg, stack in re.findall(
+            rf"Function \S*?{pattern}\S*:\s+REG:(\d+) STACK:(\d+)", usage):
+        out[f"collect_kernel<{width},{world}>"] = {
+            "registers": int(reg), "stack_bytes": int(stack)}
+    for chunk in sass.split("Function : ")[1:]:
+        found = re.search(pattern, chunk.split(None, 1)[0])
+        if found:
+            entry = out.setdefault(
+                f"collect_kernel<{found.group(1)},{found.group(2)}>", {})
+            for op in ("LDG", "STG", "MUFU.RCP"):
+                entry[op] = len(re.findall(rf"\b{re.escape(op)}\b", chunk))
+    return out
+
+
 # the tensor-core product kernels of I and J (csrc/tile_mma.cuh)
 FCM_MMA_KERNELS = ("wprod_mma_kernel", "at_b_mma_kernel")
 
@@ -500,9 +558,6 @@ def time_ms(fn):
     run.  A spin kernel keeps the card busy while the host enqueues the
     call, so that the events measure the device's time and not the host's
     launch cost (host_us measures that)."""
-    global _flush
-    if _flush is None:
-        _flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
     fn()
     fn()
     torch.cuda.synchronize()
@@ -510,7 +565,7 @@ def time_ms(fn):
     end = torch.cuda.Event(enable_timing=True)
     times = []
     for _ in range(TIMED_RUNS):
-        _flush.zero_()
+        _cold_l2()
         torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
@@ -518,6 +573,14 @@ def time_ms(fn):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def _cold_l2():
+    """Evict the L2 (time_ms's flush buffer, made on first use)."""
+    global _flush
+    if _flush is None:
+        _flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    _flush.zero_()
 
 
 L2_BYTES = 50 * 2 ** 20  # the H100's L2
@@ -1024,6 +1087,150 @@ def case_dequant_kernels(m, dtype):
     return {"case": f"M={m} [{k},{n}] groups=8 {_dtname(dtype)}", "ok": ok,
             "tolerance": f"one device kernel, {want}", "route": route,
             "device_kernels": names, "profiler_sessions": attempts}
+
+
+def case_dequant_grad(m, groups):
+    """Kernel C's backward (repair C.2): matmul_maybe_int8 of a bf16 x
+    [m, 768] that requires grad and an int8 [768, 3072] weight whose scales
+    require grad, on the card: the output has a grad_fn, C launches once,
+    and the grads of x and of the scales for a seeded cotangent lie within
+    max|d| / max|ref| <= 5e-2 of the plain twin's autograd on the same
+    card tensors."""
+    k, n = 768, 3072
+    w = quantize_weight(grouped_weight(k, n, groups, 5 + m), groups, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(m + groups)
+    x = torch.randn(m, k, device="cuda", generator=g).to(torch.bfloat16)
+    dout = torch.randn(m, n, device="cuda", generator=g).to(torch.bfloat16)
+
+    def run(fn):
+        xx = x.clone().requires_grad_(True)
+        sc = w.scale.clone().requires_grad_(True)
+        out = fn(xx, QuantizedWeight(w.qweight, sc))
+        has_grad_fn = out.grad_fn is not None
+        out.backward(dout)
+        return has_grad_fn, xx.grad, sc.grad
+
+    before = fused_dequant_matmul.launches
+    has_grad_fn, dx, ds = run(matmul_maybe_int8)
+    launched = fused_dequant_matmul.launches - before
+    _, rdx, rds = run(dequant_matmul_reference)
+    torch.cuda.synchronize()
+    dx_err, ds_err = rel_err(dx.float(), rdx.float()), rel_err(ds, rds)
+    return {"case": f"M={m} [{k},{n}] groups={groups} bfloat16",
+            "ok": has_grad_fn and launched == 1 and dx_err <= GRAD_REL_TOL
+            and ds_err <= GRAD_REL_TOL,
+            "tolerance": f"max|d|/max|ref| <= {GRAD_REL_TOL} for dx and "
+                         "dscale; a grad_fn; one launch of C",
+            "grad_fn": has_grad_fn, "launches": launched,
+            "dx_rel_err": dx_err, "dscale_rel_err": ds_err}
+
+
+INT8_LAYER_TOKENS = (BATCH, PROMPT)  # the serving prefill's
+
+
+def case_int8_layer_grad():
+    """A GPT-2 124M DeepSpeedTransformerLayer with its four matmul weights
+    int8 (WeightQuantization, 8 groups, as init_inference quantizes them),
+    dropout off, forward and backward on the card in bf16 on a seeded
+    [8, 128, 768] input against the same layer and int8 bytes on the CPU
+    in fp32: the output within 2e-2 and the grads of x and of every
+    parameter left (LayerNorm, biases) within 5e-2 (max|d| / max|ref|);
+    kernel C launched 4 times, the backward through its autograd."""
+    cfg = replace(gpt2_124m().layer_config(), attn_dropout_ratio=0.0,
+                  hidden_dropout_ratio=0.0)
+    ref_layer = DeepSpeedTransformerLayer(replace(cfg, bf16=False))
+    ref_layer.init_params(torch.Generator().manual_seed(6))
+    wq = WeightQuantization(quantize_groups=8)
+    qweights = wq.quantize_layer_params(
+        {name: getattr(ref_layer, name).detach() for name in wq.LAYER_TARGETS},
+        "cpu")
+    state = {k: v.clone() for k, v in ref_layer.state_dict().items()}
+    layer = DeepSpeedTransformerLayer(cfg)
+    layer.load_state_dict(state)
+    layer.to("cuda")
+    for lay, dev in ((ref_layer, "cpu"), (layer, "cuda")):
+        for name in wq.LAYER_TARGETS:
+            delattr(lay, name)
+            qw = qweights[name]
+            setattr(lay, name, QuantizedWeight(qw.qweight.to(dev),
+                                               qw.scale.to(dev)))
+    rng = torch.Generator().manual_seed(7)
+    x = torch.randn(*INT8_LAYER_TOKENS, cfg.hidden_size, generator=rng)
+    dout = torch.randn(*INT8_LAYER_TOKENS, cfg.hidden_size, generator=rng)
+
+    def run(lay, dev):
+        xx = x.to(dev, copy=True).requires_grad_(True)
+        out = lay(xx, deterministic=True)
+        out.float().backward(dout.to(dev))
+        grads = {"x": xx.grad}
+        grads.update({n: p.grad for n, p in lay.named_parameters()})
+        return out, grads
+
+    ref_out, ref_grads = run(ref_layer, "cpu")
+    reset_launch_counts()
+    out, grads = run(layer, "cuda")
+    torch.cuda.synchronize()
+    launched = launch_counts()["dequant_matmul"]
+    out_err = rel_err(out.float().cpu(), ref_out)
+    errs = {n: rel_err(grads[n].float().cpu(), ref_grads[n])
+            for n in ref_grads}
+    worst = max(errs, key=errs.get)
+    return {"case": f"GPT-2 124M layer, int8 weights (8 groups), x "
+                    f"{list(INT8_LAYER_TOKENS)} bfloat16",
+            "ok": out_err <= LOGIT_REL_TOL and errs[worst] <= GRAD_REL_TOL
+            and launched == 4,
+            "tolerance": f"out {LOGIT_REL_TOL}, every grad {GRAD_REL_TOL} "
+                         "(max|d|/max|ref|) of the CPU fp32 run; 4 launches "
+                         "of C",
+            "out_rel_err": out_err, "grads_checked": len(errs),
+            "worst_grad": worst, "worst_grad_rel_err": errs[worst],
+            "launches": launched}
+
+
+SPARSE_GATHER_SHAPE = (2, 12, 1024, 64)  # B, H, S, D
+
+
+def case_sparse_gather(block, causal):
+    """SparseSelfAttention at a layout block kernels F and G cannot tile
+    (repair C.1): on the card in bf16 it takes the gather path, counted
+    once on SparseSelfAttention.gathered, with F and G launched 0 times;
+    out and the grads of q, k, v for a seeded cotangent within 2e-2 / 5e-2
+    (max|d| / max|ref|) of the port's CPU fp32 run (which takes the plain
+    twins of F and G)."""
+    b, h, s, d = SPARSE_GATHER_SHAPE
+    cfg = FixedSparsityConfig(num_heads=h, block=block)
+    rng = torch.Generator().manual_seed(block + causal)
+    q, k, v, dout = (torch.randn(b, h, s, d, generator=rng)
+                     for _ in range(4))
+
+    def run(dev, dtype):
+        ins = [t.to(dev, dtype, copy=True).requires_grad_(True)
+               for t in (q, k, v)]
+        out = SparseSelfAttention(cfg)(*ins, causal=causal)
+        out.backward(dout.to(dev, dtype))
+        return out, [t.grad for t in ins]
+
+    ref, ref_grads = run("cpu", torch.float32)
+    reset_launch_counts()
+    SparseSelfAttention.gathered = 0
+    out, grads = run("cuda", torch.bfloat16)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    flash = {n: counts[n] for n in ("block_sparse_flash_fwd",
+                                    "block_sparse_flash_bwd_dq",
+                                    "block_sparse_flash_bwd_dkdv")}
+    out_err = rel_err(out.float().cpu(), ref)
+    grad_err = max(rel_err(g.float().cpu(), r)
+                   for g, r in zip(grads, ref_grads))
+    return {"case": f"Fixed block {block} {list(SPARSE_GATHER_SHAPE)} "
+                    f"{'causal' if causal else 'bidirectional'} bfloat16",
+            "ok": out_err <= LOGIT_REL_TOL and grad_err <= GRAD_REL_TOL
+            and SparseSelfAttention.gathered == 1 and not any(flash.values()),
+            "tolerance": f"out {LOGIT_REL_TOL}, grads {GRAD_REL_TOL} "
+                         "(max|d|/max|ref|) of the CPU fp32 run; gathered 1, "
+                         "F and G 0",
+            "out_rel_err": out_err, "grad_rel_err": grad_err,
+            "gathered": SparseSelfAttention.gathered, "flash_launches": flash}
 
 
 def bigbird_layout(heads=12, block=512, seq=LONG_SEQ):
@@ -1672,36 +1879,109 @@ def case_fcm_rs_producer(b, kc, n, dtype):
         "bound_ms": b_ms, "bound_by": b_by}
 
 
-def case_fcm_rs_collect(kc, n):
-    """Kernel J's collect, bitwise against the ordered sum of its twin, on
-    tables the producer kernel wrote."""
-    bs = lb.largest_divisor_at_most(kc * n, FCM_BLOCK)
-    nb = kc * n // bs
-    qtab = torch.empty(FCM_WORLD, nb, bs, dtype=torch.int8, device="cuda")
-    stab = torch.empty(FCM_WORLD, 1, nb, device="cuda")
-    for src in range(FCM_WORLD):
+# an off-path collect well above the timers' floors: W tables of a
+# [2048, 3072] tile (~50 MB moved, a ~15 µs bound)
+FCM_COLLECT_OFF_PATH = (2048, 3072)
+
+
+def collect_tables(world, kc, n, bs, offset):
+    """W source tables of a [kc, n] tile, the q table `offset` bytes past a
+    16-byte boundary: written by the producer kernel from bf16 operands,
+    or, at the off-path tile, seeded random bytes and scales."""
+    total, nb = kc * n, kc * n // bs
+    buf = torch.empty(world * total + 16, dtype=torch.int8, device="cuda")
+    qtab = buf[offset:offset + world * total].view(world, nb, bs)
+    stab = torch.empty(world, 1, nb, device="cuda")
+    if (kc, n) == FCM_COLLECT_OFF_PATH:
+        g = torch.Generator(device="cuda").manual_seed(kc + world)
+        qtab.copy_(torch.randint(-127, 128, qtab.shape, device="cuda",
+                                 generator=g, dtype=torch.int8))
+        stab.copy_(torch.rand(stab.shape, device="cuda", generator=g) / 64)
+        return qtab, stab
+    for src in range(world):
         a, rhs = rs_operands(256, kc, n, torch.bfloat16, src + kc)
         cm.fcm_rs_producer_cuda(a, rhs, None, qtab[src], stab[src], None, bs)
-    out = cm.fcm_rs_collect_cuda(qtab, stab, kc, n)
-    ref = cm.fcm_rs_collect_reference(qtab, stab, kc, n)
-    torch.cuda.synchronize()
-    bitwise = bool((out == ref).all())
-    nbytes = FCM_WORLD * (kc * n + nb * 4) + kc * n * 4
-    b_ms, b_by = bound_ms(nbytes, 2 * FCM_WORLD * kc * n, torch.float32)
+    return qtab, stab
+
+
+def case_fcm_rs_collect(kc, n, world=FCM_WORLD, offset=0):
+    """Kernel J's collect of W tables, bitwise against the ordered sum of
+    its twin and against itself on a repeat; the launcher's plan
+    (ds_fcm_rs_collect_plan) must be collect_plan's, at the chunk width the
+    block size and the q table's offset allow (4 or 1 elements).  At the
+    path's tile and the off-path one (W = 4, aligned) also the batched
+    timer and, by torch.profiler, the device kernel of one launch and its
+    µs with the tables warm in L2 and, L2 flushed first, cold; the share
+    of the bound is the cold launch's."""
+    bs = lb.largest_divisor_at_most(kc * n, FCM_BLOCK)
+    total, nb = kc * n, kc * n // bs
+    qtab, stab = collect_tables(world, kc, n, bs, offset)
     kernel = lambda: cm.fcm_rs_collect_cuda(qtab, stab, kc, n)  # noqa: E731
     plain = lambda: cm.fcm_rs_collect_reference(qtab, stab, kc, n)  # noqa: E731
+    out, again, ref = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    bitwise = bool((out == ref).all())
+    repeat = torch.equal(out, again)
+    c_plan = (ctypes.c_int * 4)()
+    op_builder.load().ds_fcm_rs_collect_plan(
+        qtab.data_ptr(), out.data_ptr(), world, total, bs, c_plan)
+    plan = cm.collect_plan(world, total, bs, cm.collect_alignment(
+        qtab.data_ptr(), out.data_ptr()))
+    want = 4 if bs % 4 == 0 and offset % 4 == 0 else 1
+    plan_agrees = tuple(c_plan) == tuple(plan) and plan.width == want
+    nbytes = world * (total + nb * 4) + total * 4
+    b_ms, b_by = bound_ms(nbytes, 2 * world * total, torch.float32)
+    res = {"case": f"W={world} tile [{kc},{n}] block {bs} q offset {offset}",
+           "ok": bitwise and repeat and plan_agrees,
+           "tolerance": "bitwise; bitwise repeat; the launcher's plan is "
+                        "collect_plan's",
+           "bitwise": bitwise, "repeat_bitwise": repeat,
+           "plan": plan._asdict(), "plan_agrees": plan_agrees,
+           "max_abs_err": (out - ref).abs().max().item(),
+           "ms": time_ms(kernel), "plain_ms": time_ms(plain),
+           "library_ms": None, "host_us": host_us(kernel),
+           "bound_ms": b_ms, "bound_by": b_by}
+    if world == FCM_WORLD and offset == 0 and (kc, n) in FCM_COLLECT_TIMED:
+        res["batched_us"] = batched_us(
+            lambda q, sc: cm.fcm_rs_collect_cuda(q, sc, kc, n), (qtab, stab))
+    return res
+
+
+def case_fcm_rs_collect_kernels(kc, n):
+    """The device kernels of one collect launch of W = 4 tables of a
+    [kc, n] tile (torch.profiler): exactly one, the 4-wide kernel with the
+    sources unrolled; its µs with the tables warm in L2 from the call
+    before (as on the path, where the producers have just written them)
+    and, L2 flushed first, cold, and the cold launch's share of the
+    bound."""
+    bs = lb.largest_divisor_at_most(kc * n, FCM_BLOCK)
+    qtab, stab = collect_tables(FCM_WORLD, kc, n, bs, 0)
+    kernel = lambda: cm.fcm_rs_collect_cuda(qtab, stab, kc, n)  # noqa: E731
+    events, attempts = device_kernel_events(kernel)
+    cold, _ = device_kernel_events(lambda: (_cold_l2(), kernel()))
+    cold = [us for name, us in cold if "collect_kernel" in name]
+    want = f"collect_kernel<4, {FCM_WORLD}>"
+    total = kc * n
+    b_ms, _ = bound_ms(FCM_WORLD * (total + total // bs * 4) + total * 4,
+                       2 * FCM_WORLD * total, torch.float32)
+    device_us_cold = cold[0] if len(cold) == 1 else None
     return {"case": f"W={FCM_WORLD} tile [{kc},{n}] block {bs}",
-            "ok": bitwise, "tolerance": "bitwise", "bitwise": bitwise,
-            "max_abs_err": (out - ref).abs().max().item(),
-            "ms": time_ms(kernel), "plain_ms": time_ms(plain),
-            "library_ms": None, "host_us": host_us(kernel),
-            "bound_ms": b_ms, "bound_by": b_by}
+            "ok": len(events) == 1 and want in events[0][0],
+            "tolerance": f"one device kernel, {want}",
+            "device_kernels": events, "profiler_sessions": attempts,
+            "device_us": events[0][1] if len(events) == 1 else None,
+            "device_us_cold": device_us_cold, "bound_us": b_ms * 1e3,
+            "bound_share": b_ms * 1e3 / device_us_cold if device_us_cold
+            else None}
 
 
 FCM_TILES = [(k // FCM_WORLD, n) for k, n in FCM_MATRICES.values()]
 FCM_DTYPES = (torch.bfloat16, torch.float32)
 FCM_PRIMARY_TILE = (FCM_MATRICES["c_fc"][0] // FCM_WORLD,
                     FCM_MATRICES["c_fc"][1])
+# the collects also timed on the batched timer and by torch.profiler: the
+# path's (c_fc's tile at W = 4) and the off-path one
+FCM_COLLECT_TIMED = (FCM_PRIMARY_TILE, FCM_COLLECT_OFF_PATH)
 
 
 # head dims above the tiled kernels' 256 (csrc/attention_wide.cuh)
@@ -1718,6 +1998,9 @@ PARITY_CASES = {
     # point ran
     "fcm_tile_route": (case_fcm_tile_kernels, [
         (entry, dt) for entry in ("ag", "ag_t", "rs") for dt in FCM_DTYPES]),
+    # kernel J's collect: its device kernel and µs, warm and cold
+    "fcm_rs_collect_kernels": (case_fcm_rs_collect_kernels,
+                               list(FCM_COLLECT_TIMED)),
     # kernels A's and D's device kernels per call, by torch.profiler
     "layer_norm_kernels": (case_layer_norm_kernels, [
         (entry,) for entry in ("A serve", "A train", "D train",
@@ -1766,6 +2049,12 @@ PARITY_CASES = {
         (m, k, n, groups, dt) for m in (8, 1, 77, 1024)
         for (k, n) in GPT2_INT8_SHAPES
         for groups in (1, 8) for dt in (torch.bfloat16, torch.float32)]),
+    # kernel C's backward (an autograd Function, the JAX package's
+    # backward in plain PyTorch) at decode's and prefill's rows, and an
+    # int8 layer differentiated end to end
+    "dequant_matmul_grad": (case_dequant_grad, [
+        (m, groups) for m in (8, 1024) for groups in (1, 8)]),
+    "int8_layer_grad": (case_int8_layer_grad, [()]),
     # kernel D: the same grid, one row, the train step's and
     # train_longseq's rows (batched timer), and the streamed route
     "layer_norm_bwd": (case_layer_norm_bwd, [
@@ -1828,6 +2117,10 @@ PARITY_CASES = {
         + [("bigbird", 2, 4, 1024, d, 128, dt, True, True)
            for d in (32, 96, 40, 80, 36, 136, 256) + WIDE_HEAD_DIMS
            for dt in (torch.bfloat16, torch.float32)]),
+    # SparseSelfAttention at layout blocks F and G cannot tile: the gather
+    # path on the card, counted, F and G not launched
+    "sparse_gather": (case_sparse_gather, [
+        (block, causal) for block in (16, 32) for causal in (True, False)]),
     # the 16-byte rule of the tensor-core route: each attention launch with
     # a misaligned bf16 operand, against the same call on an aligned copy
     "realigned_operand": (case_realigned, [("flash",), ("block_sparse",)]),
@@ -1862,7 +2155,14 @@ PARITY_CASES = {
         (FCM_ROWS, kc, n, dt) for kc, n in FCM_TILES for dt in FCM_DTYPES]
         + [(70, dt_kc, 50, dt) for dt_kc, dt in ((33, torch.float32),
                                                  (33, torch.bfloat16))]),
-    "fcm_rs_collect": (case_fcm_rs_collect, FCM_TILES + [(33, 50)]),
+    # the collect: W = 4 at every tile and at an odd one (bs = 165: one
+    # element a thread), W = 2, 8 and 9 (sources in groups of four) and a
+    # q table 4 bytes (4 elements a thread) and 2 bytes (one) off the
+    # 16-byte boundary at c_fc's, and the off-path [2048, 3072] tile
+    "fcm_rs_collect": (case_fcm_rs_collect, FCM_TILES + [(33, 50)] + [
+        (*FCM_PRIMARY_TILE, world) for world in (2, 8, 9)]
+        + [(*FCM_PRIMARY_TILE, FCM_WORLD, offset) for offset in (4, 2)]
+        + [FCM_COLLECT_OFF_PATH]),
 }
 # the case each kernel's entry of the `kernels` line reports: the shape and
 # layout its path runs most (LN forward at prefill, dequant at decode; the

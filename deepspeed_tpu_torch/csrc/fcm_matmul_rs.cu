@@ -33,15 +33,17 @@
 //   product and difference are rounded separately (__fmul_rn, __fsub_rn),
 //   as the TPU kernel's are;
 // - the collect: out = ((0 + q0 * s0) + q1 * s1) + ... over the W sources in
-//   index order, each product and sum rounded separately.
+//   index order, each product and sum rounded separately (see
+//   collect_kernel for its design).
 //
 // Bound on the H100: operations for the producer (at GPT-2 124M's c_fc
 // tile, kc = 192, n = 3072 over 2048 rows: 2.4 GFLOP on ~15 MB, 2.4 us at
 // the bf16 tensor-core peak against 4.5 us for the bytes, so in fact the
 // bytes by a little on the tensor cores), bytes for the collect (W int8
-// tiles and scales in, one fp32 tile out).  What the design does about
-// them: the split partials stay in L2 mostly; the collect reads each byte
-// once, four elements per thread where the block size allows.
+// tiles and scales in, one fp32 tile out: ~4.7 MB, 1.42 us at W = 4 of
+// that tile).  What the design does about them: the split partials stay
+// in L2 mostly; the collect reads each byte once in whole lines, with
+// every load of a chunk in flight before its first add.
 
 #include "tile_mma.cuh"
 
@@ -158,36 +160,166 @@ split_quantize_kernel(float* __restrict__ work, int splits, const float* __restr
   }
 }
 
-// VEC elements per thread, all in one scale block (bs % VEC == 0).
+// ---- the collect ---------------------------------------------------- //
+// out[e] = ((0 + q0[e] * s0) + q1[e] * s1) + ... in source order, each
+// product and sum rounded on its own (__fmul_rn, __fadd_rn: no FMA), as
+// fcm_rs_collect_reference and the JAX op add.  A memory-bound stream:
+// every byte is read once, so the design is about bytes in flight and
+// whole-line accesses.
+//
+// - A thread takes a chunk of 4 consecutive elements (where bs % 4 == 0,
+//   the q table lies on 4 bytes and out on 16; else 1): one 4-byte load a
+//   source and one float4 store, so that a warp's loads read whole 128-byte
+//   lines and its store writes 512 contiguous bytes.  A chunk lies in one
+//   scale block: its scale index is one 32-bit division where the chunks
+//   fit.  (A chunk of 16, one 16-byte load a source and four float4 stores
+//   64 bytes apart across the lanes, measured slower on the H100, slower
+//   even than the first design, which waited on each source in turn;
+//   PERF.md has the numbers.)
+// - Every load of a chunk is issued before its first add: W int8 loads,
+//   then W scale loads, then the sums in source order.  W is a template
+//   parameter for 1..kCollectMaxUnrolled (the launcher switches on it); a
+//   larger world runs W = 0, which loads its sources in groups of
+//   kCollectGroup.
+// - 128 threads a block, one chunk a thread, up to kCollectBlocksPerSm
+//   blocks an SM (eight waves at full occupancy), the grid striding beyond:
+//   at [192, 3072] 147,456 chunks are 1152 blocks.
+constexpr int kCollectThreads = 128;
+constexpr int kCollectSms = 132;  // the H100 SXM's (ops/collective_matmul.py SM_COUNT)
+constexpr int kCollectBlocksPerSm = 128;
+constexpr int kCollectMaxUnrolled = 8;
+constexpr int kCollectGroup = 4;
+
+// VEC int8 values of one source
 template <int VEC>
-__global__ void __launch_bounds__(kThreads)
+struct QChunk;
+
+template <>
+struct QChunk<4> {
+  uint32_t w;
+  __device__ __forceinline__ void load(const int8_t* p) {
+    w = __ldg(reinterpret_cast<const unsigned int*>(p));
+  }
+  __device__ __forceinline__ float get(int j) const {
+    return static_cast<float>(static_cast<int8_t>(w >> (8 * j)));
+  }
+};
+
+template <>
+struct QChunk<1> {
+  int8_t w;
+  __device__ __forceinline__ void load(const int8_t* p) { w = __ldg(p); }
+  __device__ __forceinline__ float get(int) const { return static_cast<float>(w); }
+};
+
+template <int VEC>
+__device__ __forceinline__ void add_source(float (&sum)[VEC], const QChunk<VEC>& q, float sc) {
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) sum[j] = __fadd_rn(sum[j], __fmul_rn(q.get(j), sc));
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_chunk(float* out, const float (&sum)[VEC]) {
+  if constexpr (VEC == 1)
+    out[0] = sum[0];
+  else
+    *reinterpret_cast<float4*>(out) = make_float4(sum[0], sum[1], sum[2], sum[3]);
+}
+
+// chunks of VEC elements; cpb = bs / VEC chunks a scale block; W sources
+// unrolled (0: `world` sources in groups of kCollectGroup)
+template <int VEC, int W>
+__global__ void __launch_bounds__(kCollectThreads)
 collect_kernel(const int8_t* __restrict__ qtab, const float* __restrict__ stab,
-               float* __restrict__ out, int world, int64_t total, int bs) {
-  const int64_t nb = total / bs;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads * VEC;
-  for (int64_t i = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * VEC;
-       i < total; i += stride) {
+               float* __restrict__ out, int world, int64_t total, int64_t nb, int cpb,
+               int64_t chunks) {
+  const bool narrow = chunks <= 0xffffffffll;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kCollectThreads;
+  for (int64_t c = static_cast<int64_t>(blockIdx.x) * kCollectThreads + threadIdx.x; c < chunks;
+       c += stride) {
+    const int8_t* q0 = qtab + c * VEC;
+    const int64_t sb = narrow ? static_cast<int64_t>(static_cast<uint32_t>(c) /
+                                                     static_cast<uint32_t>(cpb))
+                              : c / cpb;
     float sum[VEC];
 #pragma unroll
-    for (int v = 0; v < VEC; ++v) sum[v] = 0.f;
-    for (int s = 0; s < world; ++s) {
-      const int8_t* q = qtab + s * total + i;
-      const float sc = stab[s * nb + i / bs];
-      int8_t qv[4] = {q[0], 0, 0, 0};
-      if (VEC == 4) {
-        const char4 c = *reinterpret_cast<const char4*>(q);
-        qv[0] = c.x, qv[1] = c.y, qv[2] = c.z, qv[3] = c.w;
-      }
+    for (int j = 0; j < VEC; ++j) sum[j] = 0.f;
+    if constexpr (W > 0) {
+      QChunk<VEC> q[W];
 #pragma unroll
-      for (int v = 0; v < VEC; ++v)
-        sum[v] = __fadd_rn(sum[v], __fmul_rn(static_cast<float>(qv[v]), sc));
-    }
-    if (VEC == 4) {
-      *reinterpret_cast<float4*>(out + i) = make_float4(sum[0], sum[1], sum[2], sum[3]);
+      for (int s = 0; s < W; ++s) q[s].load(q0 + s * total);
+      float sc[W];
+#pragma unroll
+      for (int s = 0; s < W; ++s) sc[s] = __ldg(stab + s * nb + sb);
+#pragma unroll
+      for (int s = 0; s < W; ++s) add_source(sum, q[s], sc[s]);
     } else {
-      out[i] = sum[0];
+      for (int s0 = 0; s0 < world; s0 += kCollectGroup) {
+        const int n = min(kCollectGroup, world - s0);
+        QChunk<VEC> q[kCollectGroup];
+        float sc[kCollectGroup];
+#pragma unroll
+        for (int s = 0; s < kCollectGroup; ++s)
+          if (s < n) q[s].load(q0 + (s0 + s) * total);
+#pragma unroll
+        for (int s = 0; s < kCollectGroup; ++s)
+          if (s < n) sc[s] = __ldg(stab + (s0 + s) * nb + sb);
+#pragma unroll
+        for (int s = 0; s < kCollectGroup; ++s)
+          if (s < n) add_source(sum, q[s], sc[s]);
+      }
     }
+    store_chunk<VEC>(out + c * VEC, sum);
   }
+}
+
+struct CollectPlan {
+  int width;     // elements a chunk: 4 or 1
+  int threads;
+  int blocks;
+  int unrolled;  // W when the sources are unrolled, else 0
+};
+
+// The widest chunk the pointers allow: 4 when out lies on 16 bytes and
+// the q table on 4, else 1 (ops/collective_matmul.py collect_alignment).
+int collect_alignment(const void* qtab, const void* out) {
+  return reinterpret_cast<uintptr_t>(out) % 16 == 0 && reinterpret_cast<uintptr_t>(qtab) % 4 == 0
+             ? 4
+             : 1;
+}
+
+// ops/collective_matmul.py collect_plan
+CollectPlan collect_plan(int world, int64_t total, int bs, int alignment) {
+  CollectPlan p;
+  p.width = bs % 4 == 0 && alignment % 4 == 0 ? 4 : 1;
+  p.threads = kCollectThreads;
+  const int64_t blocks = (total / p.width + kCollectThreads - 1) / kCollectThreads;
+  const int64_t cap = static_cast<int64_t>(kCollectSms) * kCollectBlocksPerSm;
+  p.blocks = static_cast<int>(blocks < cap ? blocks : cap);
+  p.unrolled = world <= kCollectMaxUnrolled ? world : 0;
+  return p;
+}
+
+template <int VEC>
+void launch_collect(const CollectPlan& p, const int8_t* qtab, const float* stab, float* out,
+                    int world, int64_t total, int bs, cudaStream_t s) {
+  const int64_t nb = total / bs, chunks = total / VEC;
+  const int cpb = bs / VEC;
+#define DS_COLLECT(W)                                                                     \
+  collect_kernel<VEC, W><<<p.blocks, p.threads, 0, s>>>(qtab, stab, out, world, total, nb, \
+                                                          cpb, chunks)
+  switch (p.unrolled) {
+    case 1: DS_COLLECT(1); break;
+    case 2: DS_COLLECT(2); break;
+    case 3: DS_COLLECT(3); break;
+    case 4: DS_COLLECT(4); break;
+    case 5: DS_COLLECT(5); break;
+    case 6: DS_COLLECT(6); break;
+    case 7: DS_COLLECT(7); break;
+    case 8: DS_COLLECT(8); break;
+    default: DS_COLLECT(0); break;
+  }
+#undef DS_COLLECT
 }
 
 }  // namespace
@@ -245,18 +377,27 @@ extern "C" int ds_fcm_rs_collect(const void* qtab, const void* stab, void* out, 
   if (world <= 0 || bs <= 0 || total <= 0 || total % bs != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = bs % 4 == 0 && reinterpret_cast<uintptr_t>(qtab) % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const int64_t per_block = static_cast<int64_t>(kThreads) * (vec ? 4 : 1);
-  const int64_t blocks = (total + per_block - 1) / per_block;
-  const int grid = static_cast<int>(blocks < 65535 ? blocks : 65535);
-  if (vec)
-    collect_kernel<4><<<grid, kThreads, 0, s>>>(static_cast<const int8_t*>(qtab),
-                                                static_cast<const float*>(stab),
-                                                static_cast<float*>(out), world, total, bs);
+  const CollectPlan p = collect_plan(world, total, bs, collect_alignment(qtab, out));
+  const int8_t* q = static_cast<const int8_t*>(qtab);
+  const float* sc = static_cast<const float*>(stab);
+  float* o = static_cast<float*>(out);
+  if (p.width == 4)
+    launch_collect<4>(p, q, sc, o, world, total, bs, s);
   else
-    collect_kernel<1><<<grid, kThreads, 0, s>>>(static_cast<const int8_t*>(qtab),
-                                                static_cast<const float*>(stab),
-                                                static_cast<float*>(out), world, total, bs);
+    launch_collect<1>(p, q, sc, o, world, total, bs, s);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The collect's launch for these tables (plan: int32[4] out: elements a
+// chunk, threads a block, blocks, unrolled sources or 0); launches nothing.
+extern "C" int ds_fcm_rs_collect_plan(const void* qtab, const void* out, int world, int64_t total,
+                                      int bs, int* plan) {
+  if (world <= 0 || bs <= 0 || total <= 0 || total % bs != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const CollectPlan p = collect_plan(world, total, bs, collect_alignment(qtab, out));
+  plan[0] = p.width;
+  plan[1] = p.threads;
+  plan[2] = p.blocks;
+  plan[3] = p.unrolled;
+  return 0;
 }

@@ -42,7 +42,7 @@ host code.  Every transport runs under
 """
 
 import contextlib
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -838,9 +838,46 @@ def fcm_rs_collect_reference(qtab, stab, kc, n):
     return ordered_sum(deq.reshape(world, kc, n))
 
 
+# kernel J's collect (csrc/fcm_matmul_rs.cu collect_kernel): threads a
+# block, blocks an SM at most (the grid strides beyond), sources unrolled
+# at most (a larger world loads them in groups of four)
+COLLECT_THREADS = 128
+COLLECT_BLOCKS_PER_SM = 128
+COLLECT_MAX_UNROLLED = 8
+
+
+class CollectPlan(NamedTuple):
+    """The collect's launch: the elements a thread takes at once (a chunk:
+    4, or 1 where the block size or the tables' alignment rule 4 out; one
+    scale block), threads a block, blocks, and the sources it unrolls (W up
+    to COLLECT_MAX_UNROLLED, else 0)."""
+    width: int
+    threads: int
+    blocks: int
+    unrolled: int
+
+
+def collect_alignment(qtab_ptr, out_ptr):
+    """The widest chunk the tables' addresses allow: 4 when out lies on 16
+    bytes (one float4 store) and the q table on 4 (one 4-byte load), else
+    1."""
+    return 4 if out_ptr % 16 == 0 and qtab_ptr % 4 == 0 else 1
+
+
+def collect_plan(world, total, bs, alignment=4) -> CollectPlan:
+    """ds_fcm_rs_collect_plan in Python: chunks of 4 where bs and
+    `alignment` (collect_alignment) allow, else 1, one chunk a thread, the
+    grid capped at COLLECT_BLOCKS_PER_SM blocks an SM."""
+    width = 4 if bs % 4 == 0 and alignment % 4 == 0 else 1
+    blocks = -(-(total // width) // COLLECT_THREADS)
+    return CollectPlan(width, COLLECT_THREADS,
+                       min(blocks, SM_COUNT * COLLECT_BLOCKS_PER_SM),
+                       world if world <= COLLECT_MAX_UNROLLED else 0)
+
+
 def fcm_rs_collect_cuda(qtab, stab, kc, n):
     """Kernel J, collect: dequantize the source table and add in
-    shard-index order, starting from zero."""
+    shard-index order, starting from zero (launch: `collect_plan`)."""
     name = "fcm_rs_collect"
     index = check_cuda(name, qtab, stab)
     world, total = qtab.shape[0], kc * n

@@ -117,6 +117,10 @@ SIGNATURES = {
     # q table, scale table, out (fp32), sources, elements per tile, block
     # size, stream
     "ds_fcm_rs_collect": [P, P, P, I32, I64, I32, P],
+    # q table, out, sources, elements per tile, block size, plan (int32[4]
+    # out: elements a chunk, threads a block, blocks, unrolled sources or 0;
+    # ops/collective_matmul.py collect_plan); launches nothing
+    "ds_fcm_rs_collect_plan": [P, P, I32, I64, I32, P],
 }
 
 # dtype codes shared with csrc/common.cuh

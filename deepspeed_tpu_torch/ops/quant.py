@@ -16,6 +16,13 @@ tensor-core prefill route reads x with 16-byte `cp.async` copies: the
 wrapper copies an x whose base is not 16-byte aligned into a fresh tensor
 first and counts the copy on `fused_dequant_matmul.realigned` (0 on the
 serving path).
+
+Kernel C is differentiable: on CUDA, `matmul_maybe_int8` takes it through
+`_FusedDequantMatmul` when x or the scales need a gradient.  Its backward
+is the JAX package's `_fused_dq_bwd` in plain PyTorch (the JAX package
+computes it outside any Pallas kernel too): dx = g @ dequant(w)^T, the
+scales' cotangent from x^T g (`dequant_scale_grad`, only when the scales
+need it), and none for the int8 weight.
 """
 
 from typing import Any, NamedTuple
@@ -207,14 +214,53 @@ fused_dequant_matmul.launches = 0
 fused_dequant_matmul.realigned = 0
 
 
+def dequant_scale_grad(x, g, qweight, scale):
+    """The cotangent of the [groups, 1] scales of x @ dequant(w) for the
+    output cotangent g (`_fused_dq_bwd`): gw = x^T g in fp32, each weight
+    row's sum of gw * float(qweight), summed over its group's rows; in the
+    scales' dtype."""
+    gw = x.float().t() @ g.float()
+    per_row = (gw * qweight.float()).sum(dim=1)
+    groups = scale.shape[0]
+    return per_row.reshape(groups, -1).sum(dim=1).reshape(scale.shape).to(
+        scale.dtype)
+
+
+class _FusedDequantMatmul(torch.autograd.Function):
+    """Kernel C forward; backward `_fused_dq_bwd` in plain PyTorch, the
+    scales' cotangent only when they need one (x is saved only then)."""
+
+    @staticmethod
+    def forward(ctx, x, qweight, scale):
+        ctx.save_for_backward(x if ctx.needs_input_grad[2] else None,
+                              qweight, scale)
+        return fused_dequant_matmul(x, QuantizedWeight(qweight, scale))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, qweight, scale = ctx.saved_tensors
+        dx = dscale = None
+        if ctx.needs_input_grad[0]:
+            dx = g @ dequant(QuantizedWeight(qweight, scale), g.dtype).t()
+        if ctx.needs_input_grad[2]:
+            dscale = dequant_scale_grad(x, g, qweight, scale)
+        return dx, None, dscale
+
+
 def matmul_maybe_int8(x: torch.Tensor, w: Any) -> torch.Tensor:
     """x @ w over the last dim of x; a QuantizedWeight is dequantized on the
-    fly (kernel C on CUDA, the plain version on the CPU)."""
+    fly (kernel C on CUDA, differentiable in x and the scales; the plain
+    version on the CPU)."""
     if isinstance(w, QuantizedWeight):
         shape = x.shape
         x2 = x.reshape(-1, shape[-1])
         if use_kernel(x2, w.qweight, w.scale):
-            out = fused_dequant_matmul(x2.contiguous(), w)
+            x2 = x2.contiguous()
+            if torch.is_grad_enabled() and (x2.requires_grad
+                                            or w.scale.requires_grad):
+                out = _FusedDequantMatmul.apply(x2, w.qweight, w.scale)
+            else:
+                out = fused_dequant_matmul(x2, w)
         else:
             out = dequant_matmul_reference(x2, w)
         return out.reshape(*shape[:-1], -1)

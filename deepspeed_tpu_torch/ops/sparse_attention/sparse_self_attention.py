@@ -6,9 +6,14 @@ an unmasked call is `block_sparse_flash_attention`, which runs kernels F / G
 on CUDA tensors and their plain twins on CPU tensors.  A call with rpe,
 key_padding_mask or attn_mask runs `sparse_attention_reference`, the port of
 the JAX gather path `_sparse_attention_impl`, in plain PyTorch on either
-device (the JAX package leaves it to XLA too).  The JAX module's `impl=`
+device (the JAX package leaves it to XLA too).  So does an unmasked call on
+CUDA tensors whose layout block the kernels cannot tile (`sparse_tiling_ok`:
+a multiple of 64; SparsityConfig's default block is 16), as the JAX module
+sends a block its Pallas kernel cannot tile to the gather path; each such
+call is counted on `SparseSelfAttention.gathered`.  The JAX module's `impl=`
 switch ("pallas" | "gather" | "auto") chose between its TPU kernel and that
-path; here the tensors' device chooses, so only "auto" is taken.
+path; here the tensors' device and the block choose, so only "auto" is
+taken.
 
 The gather path pads every row to the layout's largest degree and holds an
 fp32 [B, H, nb, block, max_deg * block] score tensor: O(S * max_deg *
@@ -21,8 +26,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..dispatch import use_kernel
 from ..flash_attention import DEFAULT_MASK_VALUE
-from .block_sparse_flash import block_sparse_flash_attention, layout_gather
+from .block_sparse_flash import (block_sparse_flash_attention, layout_gather,
+                                 sparse_tiling_ok)
 from .sparsity_config import SparsityConfig
 
 
@@ -157,7 +164,11 @@ class SparseSelfAttention:
     """Layout-driven attention module (reference:
     sparse_self_attention.py:14).  The layout and its gather indices are
     built once per sequence length, and moved to a device once: a call
-    copies nothing from the host."""
+    copies nothing from the host.  `gathered` counts the unmasked calls on
+    CUDA tensors that took the gather path because kernels F and G cannot
+    tile the layout's block."""
+
+    gathered = 0
 
     def __init__(self, sparsity_config: SparsityConfig,
                  key_padding_mask_mode: str = "add",
@@ -211,8 +222,10 @@ class SparseSelfAttention:
         (sparse_self_attention.py:105): rpe is [S, S] / [H, S, S] /
         [B, H, S, S] added to the scores; key_padding_mask is [B, S] over
         keys; attn_mask is [S, S]; each mask honors this module's add/mul
-        mode.  Masked calls run the gather path; unmasked ones the
-        block-sparse flash attention."""
+        mode.  Masked calls run the gather path, and so do unmasked calls
+        on CUDA tensors at a block kernels F and G cannot tile (counted on
+        `gathered`); other unmasked calls the block-sparse flash
+        attention."""
         s = q.shape[2]
         block = self.sparsity_config.block
         if q.shape[1] != self.sparsity_config.num_heads:
@@ -220,8 +233,13 @@ class SparseSelfAttention:
                 f"q has {q.shape[1]} heads, layout built for "
                 f"{self.sparsity_config.num_heads}")
         _, idx, valid, flash = self.layout_for(s, q.device)
-        if rpe is not None or key_padding_mask is not None \
-                or attn_mask is not None:
+        gather = rpe is not None or key_padding_mask is not None \
+            or attn_mask is not None
+        if not gather and not sparse_tiling_ok(block) \
+                and use_kernel(q, k, v):
+            SparseSelfAttention.gathered += 1
+            gather = True
+        if gather:
             return sparse_attention_reference(
                 q, k, v, idx, valid, block, causal, sm_scale, rpe=rpe,
                 key_padding_mask=key_padding_mask, attn_mask=attn_mask,

@@ -455,3 +455,131 @@ def test_hi_lo_split_keeps_the_fp32_dequant(bits, transposed):
     # the halves reproduce w to ~2^-17 of itself
     err = (hi.float() + lo.float() - (wt.t() if transposed else wt)).abs()
     assert float(err.max()) <= 2 ** -16 * float(wt.abs().max())
+
+
+# --------------------------------------------------------------------- #
+# (c) kernel J's collect: its launch plan, emulated
+# --------------------------------------------------------------------- #
+def _collect_chunks(plan, total):
+    """The chunks of the collect's grid-stride loop, as the kernel indexes
+    them: thread t of block b takes chunk b * threads + t, then strides by
+    blocks * threads; every visit in the order of (iteration, thread)."""
+    chunks = total // plan.width
+    stride = plan.blocks * plan.threads
+    visits = np.arange(stride)[None, :] + stride * np.arange(
+        -(-chunks // stride))[:, None]
+    return visits[visits < chunks]
+
+
+def _collect_sources(plan, world):
+    """The source order of a chunk: all W unrolled, or groups of four."""
+    if plan.unrolled:
+        assert plan.unrolled == world
+        return list(range(world))
+    return [s0 + s for s0 in range(0, world, 4)
+            for s in range(min(4, world - s0))]
+
+
+def _emulate_collect(qtab, stab, world, total, bs, plan):
+    """The kernel's arithmetic on the plan's chunks, in numpy fp32:
+    ((0 + q0 * s0) + q1 * s1) + ..., one scale index a chunk."""
+    q = qtab.reshape(world, total).numpy()
+    sc = stab.reshape(world, -1).numpy()
+    chunks = _collect_chunks(plan, total)
+    elems = chunks[:, None] * plan.width + np.arange(plan.width)
+    block = chunks // (bs // plan.width)
+    acc = np.zeros(elems.shape, np.float32)
+    for s in _collect_sources(plan, world):
+        acc = acc + q[s][elems].astype(np.float32) * sc[s][block][:, None]
+    out = np.empty(total, np.float32)
+    out[elems] = acc
+    return out
+
+
+# the three FCM tiles at W = 4 (c_attn, c_fc, c_proj) and the odd tile of
+# chip_smoke.py, each at the block sizes that divide it
+COLLECT_CASES = [(kc, n, bs) for kc, n in ((192, 2304), (192, 3072),
+                                           (768, 768), (33, 50))
+                 for bs in (256, 165, 4, 16, 48) if (kc * n) % bs == 0]
+
+
+@pytest.mark.parametrize("kc,n,bs", COLLECT_CASES)
+def test_collect_plan_covers_every_element_once(kc, n, bs):
+    """At W = 1-9 and both alignments, the chunks of `collect_plan` (4
+    elements where bs % 4 == 0 and the tables allow 4-byte loads and
+    16-byte stores, else 1) cover every element of the tile exactly once,
+    each chunk inside one scale block; the grid is one chunk a thread up
+    to 128 blocks an SM of the H100; W <= 8 unrolls its sources, W = 9
+    takes them in groups of four, each source once, in order."""
+    total = kc * n
+    for alignment in (4, 1):
+        width = 4 if bs % 4 == 0 and alignment == 4 else 1
+        for world in range(1, 10):
+            plan = cm.collect_plan(world, total, bs, alignment)
+            assert plan.width == width and plan.threads == 128
+            assert plan.blocks == min(-(-(total // width) // 128), 132 * 128)
+            assert plan.unrolled == (world if world <= 8 else 0)
+            assert _collect_sources(plan, world) == list(range(world))
+        chunks = _collect_chunks(plan, total)
+        elems = chunks[:, None] * width + np.arange(width)
+        assert np.bincount(elems.ravel(), minlength=total).tolist() == \
+            [1] * total
+        first_block = elems[:, 0] // bs
+        assert (elems // bs == first_block[:, None]).all()
+        assert (chunks // (bs // width) == first_block).all()
+
+
+def test_collect_plan_at_the_path_tile():
+    """W = 4 tables of c_fc's [192, 3072] tile with blocks of 256: 147,456
+    chunks of 4 elements, 1152 blocks of 128 threads, sources unrolled;
+    the off-path [2048, 3072] tile takes 12,288 blocks; a tile past 128
+    blocks an SM strides.  The alignment: 4-byte q table, 16-byte out."""
+    assert cm.collect_plan(4, 192 * 3072, 256) == (4, 128, 1152, 4)
+    assert cm.collect_plan(4, 2048 * 3072, 256) == (4, 128, 12288, 4)
+    assert cm.collect_plan(2, 2 ** 24, 256).blocks == 132 * 128
+    assert cm.collect_alignment(0x1000, 0x2000) == 4
+    assert cm.collect_alignment(0x1004, 0x2000) == 4
+    assert cm.collect_alignment(0x1002, 0x2000) == 1
+    assert cm.collect_alignment(0x1000, 0x2008) == 1
+
+
+@pytest.mark.parametrize("world", [1, 2, 4, 8, 9])
+@pytest.mark.parametrize("kc,n,bs,offset", [
+    (192, 3072, 256, 0), (192, 3072, 256, 4), (192, 3072, 256, 2),
+    (192, 2304, 48, 1), (33, 50, 165, 0), (24, 64, 16, 0)])
+def test_collect_kernel_emulated_on_its_plan_is_bitwise(monkeypatch, world,
+                                                        kc, n, bs, offset):
+    """The wrapper hands the launcher the q table as it lies (an offset of
+    4 bytes keeps the 4-wide route, of 2 or 1 takes the scalar one; the
+    plan comes from the pointers), and the kernel's arithmetic emulated on
+    that plan's chunks equals fcm_rs_collect_reference (the ordered sum
+    that equals the JAX op's collect) bitwise."""
+    calls = []
+
+    class Lib:
+        def ds_fcm_rs_collect(self, q, s, out, w, total, bs_, stream):
+            plan = cm.collect_plan(w, total, bs_,
+                                   cm.collect_alignment(q, out))
+            qv = _at(q, (w * total,), (1,), torch.int8)
+            sv = _at(s, (w * (total // bs_),), (1,), FP32)
+            _at(out, (total,), (1,), FP32).copy_(torch.from_numpy(
+                _emulate_collect(qv, sv, w, total, bs_, plan)))
+            calls.append(plan)
+            return 0
+
+    monkeypatch.setattr(op_builder, "load", lambda: Lib())
+    monkeypatch.setattr(cm, "check_cuda", lambda name, *t: 0)
+    monkeypatch.setattr(cm, "stream_handle", lambda index: 0)
+    monkeypatch.setattr(cm.fcm_rs_collect_cuda, "launches", 0)
+    total, nb = kc * n, kc * n // bs
+    rs = np.random.RandomState(world + kc)
+    buf = torch.from_numpy(rs.randint(-127, 128, world * total + 16)
+                           .astype(np.int8))
+    base = (-buf.data_ptr()) % 16
+    qtab = buf[base + offset:base + offset + world * total].view(world, nb,
+                                                                 bs)
+    stab = torch.from_numpy((rs.rand(world, 1, nb) / 64).astype(np.float32))
+    out = cm.fcm_rs_collect_cuda(qtab, stab, kc, n)
+    assert cm.fcm_rs_collect_cuda.launches == 1
+    assert calls[0].width == (4 if bs % 4 == 0 and offset % 4 == 0 else 1)
+    assert torch.equal(out, cm.fcm_rs_collect_reference(qtab, stab, kc, n))

@@ -5,6 +5,7 @@ the CPU the port runs its plain version; chip_smoke.py holds the CUDA
 kernel against it on the card."""
 
 import ctypes
+import functools
 
 import numpy as np
 import pytest
@@ -259,3 +260,100 @@ def test_a_misaligned_bf16_x_is_copied_once_and_counted(monkeypatch, m,
     fused_dequant_matmul(aligned, qw)
     assert fused_dequant_matmul.realigned == 0
     assert lib.x_ptrs[-1] == aligned.data_ptr()
+
+
+@pytest.fixture
+def kernel_route(monkeypatch):
+    """matmul_maybe_int8 on the kernel route with CPU tensors: the launch
+    goes to the _Kernels stand-in, which writes the plain twin's result
+    through the output pointer."""
+    lib = _Kernels()
+    monkeypatch.setattr(op_builder, "load", lambda: lib)
+    monkeypatch.setattr(quant, "use_kernel", lambda *t: True)
+    monkeypatch.setattr(quant, "check_cuda", lambda name, *t: 0)
+    monkeypatch.setattr(quant, "stream_handle", lambda index: 0)
+    monkeypatch.setattr(fused_dequant_matmul, "launches", 0)
+    return lib
+
+
+def _rel_err(got, ref):
+    got = np.asarray(got, np.float32)
+    ref = np.asarray(ref, np.float32)
+    return np.abs(got - ref).max() / np.abs(ref).max()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("m", [8, 77])
+@pytest.mark.parametrize("groups", [1, 8])
+def test_kernel_route_grads_match_jax_fused_dq(monkeypatch, kernel_route,
+                                               groups, m, dtype, tol):
+    """Kernel C on its route (the stand-in library) is differentiable: the
+    output has a grad_fn, and the grads of x and of the group scales for a
+    seeded output cotangent match jax.vjp of the JAX package's custom_vjp
+    `_fused_dq` (its forward the Pallas kernel in interpret mode): fp32
+    within max|d| / max|ref| <= 1e-5, bf16 within 5e-2 (the chip-lane
+    grad tolerance).  The int8 weight gets no grad."""
+    import jax
+    from deepspeed_tpu.ops import quant as jquant
+    monkeypatch.setattr(jquant, "fused_dequant_matmul",
+                        functools.partial(jquant.fused_dequant_matmul,
+                                          interpret=True))
+    k, n = 256, 384
+    w = _weight(k, n, seed=30 + groups)
+    w *= 2.0 ** (np.arange(k) // (k // groups) % 4)[:, None]
+    jq = jax_quantize_weight(w, groups)
+    rng = np.random.default_rng(m + groups)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    g = rng.standard_normal((m, n)).astype(np.float32)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    _, vjp = jax.vjp(lambda x_, s_: jquant._fused_dq(x_, jq.qweight, s_),
+                     jnp.asarray(x, jdt), jq.scale)
+    ref_dx, ref_ds = vjp(jnp.asarray(g, jdt))
+
+    tx = torch.from_numpy(x).to(dtype).requires_grad_(True)
+    ts = torch.from_numpy(np.array(jq.scale)).requires_grad_(True)
+    tq = torch.from_numpy(np.array(jq.qweight))
+    out = matmul_maybe_int8(tx, QuantizedWeight(tq, ts))
+    assert out.grad_fn is not None and out.dtype == dtype
+    assert fused_dequant_matmul.launches == 1 and kernel_route.x_ptrs
+    out.backward(torch.from_numpy(g).to(dtype))
+    assert tx.grad.dtype == dtype and ts.grad.dtype == torch.float32
+    assert ts.grad.shape == (groups, 1)
+    assert _rel_err(tx.grad.float(), ref_dx) <= tol
+    assert _rel_err(ts.grad, ref_ds) <= tol
+    assert tq.grad is None
+
+
+def test_scale_grad_is_computed_only_when_the_scale_needs_one(
+        monkeypatch, kernel_route):
+    """On the kernel route the scales' cotangent (`dequant_scale_grad`) is
+    computed only when the scales require grad, as XLA drops the unused
+    matmul of `_fused_dq_bwd`; x's grad is computed either way.  Without
+    any input that needs a grad (or under no_grad) the launch is direct and
+    the output has no grad_fn."""
+    calls = []
+    real = quant.dequant_scale_grad
+
+    def spy(*args):
+        calls.append(1)
+        return real(*args)
+
+    monkeypatch.setattr(quant, "dequant_scale_grad", spy)
+    qw = quantize_weight(_weight(64, 96, seed=31), 4)
+    x = torch.from_numpy(np.random.default_rng(32).standard_normal(
+        (8, 64)).astype(np.float32))
+    tx = x.clone().requires_grad_(True)
+    matmul_maybe_int8(tx, qw).square().sum().backward()
+    assert calls == [] and tx.grad is not None
+    np.testing.assert_allclose(
+        tx.grad.numpy(), (2 * dequant_matmul_reference(x, qw)
+                          @ dequantize_weight(qw).t()).numpy(),
+        rtol=1e-5, atol=1e-5)
+    ts = qw.scale.clone().requires_grad_(True)
+    matmul_maybe_int8(x, QuantizedWeight(qw.qweight, ts)).sum().backward()
+    assert calls == [1] and ts.grad is not None
+    assert matmul_maybe_int8(x, qw).grad_fn is None
+    with torch.no_grad():
+        assert matmul_maybe_int8(tx, qw).grad_fn is None
+    assert fused_dequant_matmul.launches == 4

@@ -239,6 +239,79 @@ def test_sparse_self_attention_matches_jax(spec, causal):
         _close(g, r, GRAD_TOL)
 
 
+def _kernel_route(monkeypatch):
+    """SparseSelfAttention and the block-sparse wrappers take CPU tensors
+    as if they lay on the card.  Returns the blocks of the calls that
+    reached block_sparse_flash_attention: at a block the kernels tile, the
+    call runs the plain twins; at any other it goes on to the kernel
+    wrappers, which refuse the block as they do on the card."""
+    module = tsa.sparse_self_attention
+    monkeypatch.setattr(module, "use_kernel", lambda *t: True, raising=False)
+    monkeypatch.setattr(tsa.block_sparse_flash, "use_kernel", lambda *t: True)
+    monkeypatch.setattr(tsa.SparseSelfAttention, "gathered", 0,
+                        raising=False)
+    flash_calls = []
+
+    def spy(*args, **kwargs):
+        flash_calls.append(args[7])
+        if args[7] % 64:
+            return block_sparse_flash_attention(*args, **kwargs)
+        with monkeypatch.context() as m:
+            m.setattr(tsa.block_sparse_flash, "use_kernel", lambda *t: False)
+            return block_sparse_flash_attention(*args, **kwargs)
+
+    monkeypatch.setattr(module, "block_sparse_flash_attention", spy)
+    return flash_calls
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("block", [16, 32])
+def test_untileable_block_takes_the_gather_path_on_the_kernel_route(
+        monkeypatch, block, causal):
+    """On the kernel route (CUDA tensors; forced here on CPU ones), a
+    layout block that kernels F and G cannot tile (16, SparsityConfig's
+    default, and 32) runs the gather path, as the JAX module does, and is
+    counted on `gathered`, once a call: out and the grads of sum(out**2)
+    against the JAX module (fp32, rtol = atol = 1e-5 for out, 1e-4 for the
+    grads).  Kernels F and G are never reached."""
+    flash_calls = _kernel_route(monkeypatch)
+    jcfg = jsa.FixedSparsityConfig(num_heads=2, block=block)
+    tcfg = tsa.FixedSparsityConfig(num_heads=2, block=block)
+    q, k, v = _arrays(3, (1, 2, 128, 8), seed=27 + block)
+    ref, rgrads = _jax_gather_grads(jsa.SparseSelfAttention(jcfg), q, k, v,
+                                    causal)
+    attn = tsa.SparseSelfAttention(tcfg)
+    tq, tk, tv = _t(q, k, v, grad=True)
+    out = attn(tq, tk, tv, causal=causal)
+    out.square().sum().backward()
+    _close(out.detach(), ref, 1e-5)
+    for g, r in zip((tq.grad, tk.grad, tv.grad), rgrads):
+        _close(g, r, 1e-4)
+    assert tsa.SparseSelfAttention.gathered == 1
+    with torch.no_grad():
+        attn(tq, tk, tv, causal=causal)
+    assert tsa.SparseSelfAttention.gathered == 2
+    assert flash_calls == []
+
+
+def test_tileable_block_keeps_the_flash_route(monkeypatch):
+    """On the kernel route a block of 64 still takes
+    block_sparse_flash_attention (kernels F and G), and nothing is counted
+    on `gathered`; on the CPU route a block of 16 takes it too (the plain
+    twins take any block)."""
+    flash_calls = _kernel_route(monkeypatch)
+    cfg = tsa.FixedSparsityConfig(num_heads=2, block=64)
+    q, k, v = _t(*_arrays(3, (1, 2, 128, 8), seed=28))
+    tsa.SparseSelfAttention(cfg)(q, k, v, causal=True)
+    assert flash_calls == [64]
+    assert tsa.SparseSelfAttention.gathered == 0
+    for module in (tsa.sparse_self_attention, tsa.block_sparse_flash):
+        monkeypatch.setattr(module, "use_kernel", lambda *t: False)
+    tsa.SparseSelfAttention(tsa.FixedSparsityConfig(num_heads=2))(q, k, v)
+    assert flash_calls == [64, 16]
+    assert tsa.SparseSelfAttention.gathered == 0
+
+
 def _masks(kp_mode, attn_mode, seed):
     rs = np.random.RandomState(seed)
     rpe = (rs.randn(H, S, S) * 0.5).astype(np.float32)
