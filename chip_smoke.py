@@ -202,9 +202,37 @@ destination, which a single bf16 rounding of the dequantized weights would
 miss; the library yardstick is `torch.matmul` on the dequantized
 operand.
 
-Then the `kernels` line (launches by path: bf16, int8, train,
+The train phases above pin `"mesh": {"data": 1}`: one rank, one card's
+numbers on any host.  After phase 8:
+
+14. train_dp_grads: GPT-2 124M (dropout off, bf16) through initialize ->
+   forward / backward / step with `"mesh": {"data": 4}`: W = 4 ranks of
+   the single-controller mesh over every visible card (all four on a
+   one-card host, each on its own compute stream), 1 row each, at ZeRO-2
+   and then ZeRO-1, against the port's one-rank engine on the card fed
+   the same 4 rows: the mean loss within 2e-2, the reduce-scattered grad
+   ranges concatenated (divided by W) within 5e-2 for every parameter,
+   the parameters after the step within 5e-2 (max|d| / max|ref| over the
+   buffer); ZeRO-1 and ZeRO-2 bitwise equal; every rank's parameters equal
+   after the all-gather; the launch counters a step's counts times W.
+15. train_dp: bench_gpt2's config with `"mesh": {"data": 4}` (ZeRO-2,
+   micro-batch 8 a rank) on the global batch RandomState(0).randint(0,
+   50304, (32, 1024)), dropout 0.1 in kernel B, timed as train: global
+   and per-card tokens/s, ms a step, MFU over the cards in use, the host's
+   time to issue a step after a synchronisation (on every train row),
+   peak memory a card, the bytes rank 0 holds, and the device ms of one
+   step's reduce-scatter and all-gather on the engine's buffers (CUDA
+   events, and the kernels torch.profiler records of one call).
+
+Then the `kernels` line (launches by path: bf16, int8, train, train_dp,
 train_sparse, train_longseq, fcm) and, last, {"ok": true, "device":
 {...}}.  Without a CUDA device the script exits 1 in phase 1.
+
+    python3 chip_smoke.py --dp-only
+
+runs phase 1, the parity cases of kernels A, B, D and E and phases 14
+and 15 alone, the ranks spread over every visible card (one each on a
+host with four), and prints no `kernels` line.
 
     python3 chip_smoke.py --fcm-only
 
@@ -279,6 +307,7 @@ TRAIN_BATCH, TRAIN_SEQ = 8, 1024
 GRADS_BATCH = 2
 LOSS_REL_TOL, GRAD_REL_TOL = 2e-2, 5e-2
 TRAIN_WARMUP, TRAIN_ITERS = 3, 30  # bench.py _time_steps
+HOST_ISSUE_STEPS = 3  # steps whose host issue time is read, after a sync
 DROPOUT = 0.1
 # bench.py::bench_gpt2's engine config (bench.py:501-509)
 BENCH_GPT2_CONFIG = {
@@ -289,7 +318,13 @@ BENCH_GPT2_CONFIG = {
     "bf16": {"enabled": True, "grads_in_compute_dtype": False},
     "zero_optimization": {"stage": 2},
     "steps_per_print": 10 ** 9,
+    # one rank, whatever the cards: these rows are one card's numbers
+    "mesh": {"data": 1},
 }
+# data-parallel phases: bench_gpt2's step on W ranks of a single-controller
+# mesh over every visible card (all of them on one card of a one-card host)
+DP_WORLD = 4
+DP_GRADS_MICRO = 1  # rows a rank in train_dp_grads
 # long-context phases: bench.py::bench_sparse_longseq and bench_longseq
 # (bench.py:1324-1377) through _run_longseq (bench.py:1288-1321)
 LONG_BATCH, LONG_SEQ = 2, 8192
@@ -304,6 +339,7 @@ BENCH_LONGSEQ_CONFIG = {
     "bf16": {"enabled": True},
     "zero_optimization": {"stage": 2},
     "steps_per_print": 10 ** 9,
+    "mesh": {"data": 1},
 }
 
 
@@ -2450,6 +2486,14 @@ def step_counts(cfg):
                            flash_attention_bwd_dq=n_attn)
 
 
+def train_engine(cfg, state, ds_config):
+    """initialize on the card with cfg's model and `state`'s weights, the
+    mesh built anew from ds_config's "mesh" block."""
+    dst.reset_mesh_context()
+    return dst.initialize(model=GPT2Model(cfg), model_parameters=state,
+                          config=ds_config)[0]
+
+
 def phase_train_grads(state):
     """One loss and its parameter grads on the card (bf16, through the
     engine) against the same weights through the port on the CPU in
@@ -2476,9 +2520,7 @@ def grads_vs_cpu(cfg, state, ids, ds_config):
     del ref_model
 
     torch.cuda.empty_cache()
-    engine, _, _, _ = dst.initialize(model=GPT2Model(cfg),
-                                     model_parameters=state,
-                                     config=ds_config)
+    engine = train_engine(cfg, state, ds_config)
     reset_launch_counts()
     loss = engine.forward(ids)
     engine.backward(loss)
@@ -2552,20 +2594,25 @@ def layer_norm_in_step(kernels):
 
 def timed_training(cfg, state, ds_config, warmup, iters):
     """Train on the fixed batch RandomState(0).randint(0, vocab,
-    (micro batch, n_positions)) as bench.py's _time_steps times it: warmup
-    steps, then `iters` forward / backward / step calls on the host clock,
-    closed by fetching the last loss.  Every loss finite, the final below
-    the first, the launch counters exact; then one step under
-    torch.profiler."""
-    batch, seq = ds_config["train_micro_batch_size_per_gpu"], cfg.n_positions
+    (micro batch x data-parallel world, n_positions)) as bench.py's
+    _time_steps times it: warmup steps, then `iters` forward / backward /
+    step calls on the host clock, closed by fetching the last loss.  Every
+    loss finite, the final below the first, the launch counters exact (a
+    step's counts on every rank); the host's time to issue a step after a
+    synchronisation; then one step under torch.profiler.  Returns the
+    engine too."""
+    micro, seq = ds_config["train_micro_batch_size_per_gpu"], cfg.n_positions
+    cards = range(torch.cuda.device_count())
+    torch.cuda.empty_cache()
+    base = []
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+        base.append(torch.cuda.memory_allocated(d))
+    engine = train_engine(cfg, state, ds_config)
+    world = engine.world_size
+    batch = micro * world
     ids = np.random.RandomState(0).randint(
         0, cfg.vocab_size, size=(batch, seq)).astype(np.int32)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    engine, _, _, _ = dst.initialize(model=GPT2Model(cfg),
-                                     model_parameters=state,
-                                     config=ds_config)
 
     def step():
         loss = engine.forward(ids)
@@ -2583,7 +2630,7 @@ def timed_training(cfg, state, ds_config, warmup, iters):
     seconds = time.perf_counter() - t0
     counts = launch_counts()
     n_steps = warmup + iters
-    per_step = step_counts(cfg)
+    per_step = {k: world * v for k, v in step_counts(cfg).items()}
     check(counts == {k: n_steps * v for k, v in per_step.items()},
           f"launch counts {counts} over {n_steps} steps, expected "
           f"{per_step} per step")
@@ -2592,33 +2639,204 @@ def timed_training(cfg, state, ds_config, warmup, iters):
     check(bool(torch.isfinite(losses).all()), f"non-finite loss: {losses}")
     check(final_loss < losses[0].item(),
           f"loss did not fall: {losses[0].item()} -> {final_loss}")
+    issue_ms = []
+    for _ in range(HOST_ISSUE_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step()
+        issue_ms.append((time.perf_counter() - t1) * 1e3)
+    torch.cuda.synchronize()
+    used = sorted({engine.mesh.device_of(r).index for r in range(world)})
     tokens_per_s = iters * batch * seq / seconds
-    peak = PEAK_OPS_PER_S[torch.bfloat16]
-    peak_memory = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    peak = PEAK_OPS_PER_S[torch.bfloat16] * len(used)
+    peaks = {d: (torch.cuda.max_memory_allocated(d) - base[d]) / 2 ** 30
+             for d in used}
     wall_ms, busy_ms, ops, kernels = _profile_once(step)
     top = sorted(ops.items(), key=lambda kv: -kv[1])[:6]
     return counts, {
-        "batch": [batch, seq],
+        "batch": [batch, seq], "data_parallel_world": world,
+        "cards_used": len(used),
         "tokens_per_s": tokens_per_s,
+        "tokens_per_s_per_card": tokens_per_s / len(used),
         "ms_per_step": seconds / iters * 1e3,
+        "host_issue_ms_per_step": float(np.median(issue_ms)),
+        "host_issue_ms_each": issue_ms,
         "flops_per_token": cfg.flops_per_token(),
         "tflops": tokens_per_s * cfg.flops_per_token() / 1e12,
         "mfu": tokens_per_s * cfg.flops_per_token() / peak,
-        "mfu_peak": "989 TFLOP/s, H100 SXM bf16 dense (NVIDIA data sheet)",
+        "mfu_peak": "989 TFLOP/s a card in use, H100 SXM bf16 dense "
+                    "(NVIDIA data sheet)",
         "first_loss": losses[0].item(), "final_loss": final_loss,
         "steps": n_steps, "timed_steps": iters,
-        "peak_memory_gib": peak_memory,
+        "peak_memory_gib": max(peaks.values()),
+        "peak_memory_gib_by_card": peaks,
         "launches_per_step": per_step, "realigned": realigned,
         "profiled_step_wall_ms": wall_ms, "profiled_step_device_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms,
         "top_device_ms_one_step": {name[:80]: ms for name, ms in top},
-        **layer_norm_in_step(kernels)}
+        **layer_norm_in_step(kernels)}, engine
 
 
 def phase_train(state):
     """bench_gpt2's step, timed as bench.py's _time_steps."""
     return timed_training(gpt2_124m_train(), state, BENCH_GPT2_CONFIG,
-                          TRAIN_WARMUP, TRAIN_ITERS)
+                          TRAIN_WARMUP, TRAIN_ITERS)[:2]
+
+
+# --------------------------------------------------------------------- #
+# phases 14 and 15: ZeRO-1/2 data parallelism over W ranks
+# --------------------------------------------------------------------- #
+def dp_config(micro, stage):
+    """bench_gpt2's config at `micro` rows a rank and ZeRO `stage` on a
+    mesh of DP_WORLD data-parallel ranks."""
+    return dict(BENCH_GPT2_CONFIG, train_micro_batch_size_per_gpu=micro,
+                zero_optimization={"stage": stage},
+                mesh={"data": DP_WORLD})
+
+
+def check_ranks(engine):
+    """The engine's ranks: DP_WORLD of them, each on a card, and after a
+    step every rank's parameters equal rank 0's bitwise."""
+    check(engine.world_size == DP_WORLD
+          and all(engine.mesh.device_of(r).type == "cuda"
+                  for r in range(DP_WORLD)),
+          f"the mesh is {engine.mesh}")
+    for flat in engine._flats[1:]:
+        check(torch.equal(flat.to(engine.device), engine._flat),
+              "the ranks' parameters differ after the all-gather")
+
+
+def phase_train_dp_grads(state):
+    """One forward / backward / step of GPT-2 124M (dropout off, bf16) on
+    DP_WORLD ranks, DP_GRADS_MICRO rows each, at ZeRO-2 and ZeRO-1, against
+    the port's one-rank engine on the card at DP_WORLD rows: the mean loss
+    (2e-2), the reduce-scattered grad ranges concatenated (each parameter
+    within 5e-2) and the parameters after the step (max|d| / max|ref| over
+    the buffer, 5e-2); stages 1 and 2 bitwise equal; the launch counters a
+    step's counts on every rank."""
+    cfg = gpt2_124m_train(embd_dropout=0.0, attn_dropout=0.0,
+                          hidden_dropout=0.0)
+    rows = DP_WORLD * DP_GRADS_MICRO
+    ids = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (rows, TRAIN_SEQ)))
+    ref = train_engine(cfg, state, dict(
+        BENCH_GPT2_CONFIG, train_micro_batch_size_per_gpu=rows))
+    ref_loss = ref.forward(ids)
+    ref.backward(ref_loss)
+    n = ref.num_params
+    ref_grads = ref._flat_grad[:n].clone()
+    ref.step()
+    ref_params, ref_loss = ref._flat[:n].clone(), ref_loss.item()
+    del ref
+    torch.cuda.empty_cache()
+    per_step = {k: DP_WORLD * v for k, v in step_counts(cfg).items()}
+    stats, flats = {}, {}
+    for stage in (2, 1):
+        engine = train_engine(cfg, state, dp_config(DP_GRADS_MICRO, stage))
+        reset_launch_counts()
+        loss = engine.forward(ids)
+        engine.backward(loss)
+        if stage == 2:
+            grads = torch.cat([acc.float().to(engine.device)
+                               for acc in engine._acc])[:n] / DP_WORLD
+        engine.step()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        check(counts == per_step,
+              f"ZeRO-{stage} launch counts {counts}, expected {per_step}")
+        check_ranks(engine)
+        check_aligned(f"ZeRO-{stage} forward + backward")
+        loss_err = abs(loss.item() - ref_loss) / abs(ref_loss)
+        check(loss_err <= LOSS_REL_TOL, f"ZeRO-{stage} loss vs one rank: "
+              f"{loss_err}")
+        param_err = rel_err(engine._flat[:n], ref_params)
+        check(param_err <= GRAD_REL_TOL, f"ZeRO-{stage} parameters after "
+              f"the step vs one rank: {param_err}")
+        stats[f"zero{stage}"] = {"loss": loss.item(),
+                                 "loss_rel_err": loss_err,
+                                 "params_rel_err": param_err}
+        if stage == 2:
+            errs = {name: rel_err(grads[o:o + size], ref_grads[o:o + size])
+                    for (name, _), (o, size) in zip(engine._named_params,
+                                                    engine._segments)}
+            worst = max(errs, key=errs.get)
+            check(errs[worst] <= GRAD_REL_TOL,
+                  f"ZeRO-2 grad range of {worst} vs one rank: {errs[worst]}")
+            stats["zero2"].update(
+                worst_param=worst, worst_grad_rel_err=errs[worst],
+                median_grad_rel_err=float(np.median(list(errs.values()))))
+        flats[stage] = engine._flat.clone()
+        del engine
+        torch.cuda.empty_cache()
+    check(torch.equal(flats[1], flats[2]),
+          "ZeRO-1 and ZeRO-2 parameters differ")
+    return None, {
+        "world": DP_WORLD, "rows_a_rank": DP_GRADS_MICRO,
+        "one_rank_loss": ref_loss, **stats,
+        "loss_rel_tol": LOSS_REL_TOL, "rel_tol": GRAD_REL_TOL,
+        "zero1_zero2_bitwise": True, "launches_per_step": per_step}
+
+
+def held_bytes(engine):
+    """What rank 0 holds for the model: the fp32 parameters and the grad
+    buffer autograd fills (whole), the ZeRO-2 grad range, the optimizer
+    state's range."""
+    mib = lambda *ts: sum(t.numel() * t.element_size()  # noqa: E731
+                          for t in ts) / 2 ** 20
+    acc = engine._acc[0]
+    return {"params_mib": mib(engine._flat),
+            "grad_buffer_mib": mib(engine._flat_grad),
+            "grad_range_mib": mib(acc) if acc is not None else 0.0,
+            "optimizer_range_mib": mib(*engine.opt_state.values()),
+            "estimate_memory_bytes": engine.estimate_memory()}
+
+
+def collectives_device_ms(engine):
+    """One step's ZeRO-2 reduce-scatter of the grad buffers and all-gather
+    of the parameter ranges, on the engine's own buffers: device ms by
+    CUDA events (time_ms: the events on the caller's stream, which the
+    ranks' streams wait for and rejoin), and the kernels torch.profiler
+    records of one call and the sum of their µs (sessions here can lose
+    records: the count says how many it kept)."""
+    mesh = engine.mesh
+
+    def reduce_scatter():
+        with mesh.forked():
+            mesh.reduce_scatter_flat(engine._flat_grads)
+
+    def all_gather():
+        with mesh.forked():
+            mesh.all_gather_flat([f[lo:hi] for f, (lo, hi) in
+                                  zip(engine._flats, engine._ranges)],
+                                 out=engine._flats)
+
+    out = {}
+    for name, fn in (("reduce_scatter", reduce_scatter),
+                     ("all_gather", all_gather)):
+        events, sessions = device_kernel_events(fn)
+        out[name] = {"device_ms": time_ms(fn),
+                     "profiled_kernels": len(events),
+                     "profiled_kernel_ms": sum(us for _, us in events) / 1e3,
+                     "profiler_sessions": sessions}
+    return out
+
+
+def phase_train_dp(state):
+    """bench_gpt2's step on DP_WORLD data-parallel ranks at ZeRO-2, its
+    micro-batch of 8 a rank, timed as phase_train."""
+    counts, summary, engine = timed_training(
+        gpt2_124m_train(), state, dp_config(TRAIN_BATCH, 2), TRAIN_WARMUP,
+        TRAIN_ITERS)
+    check_ranks(engine)
+    summary.update(held_bytes_rank0=held_bytes(engine),
+                   collectives=collectives_device_ms(engine))
+    coll = summary["collectives"]
+    step_ms = summary["profiled_step_device_ms"]
+    summary["collectives_share_of_step_device_ms"] = (
+        (coll["reduce_scatter"]["device_ms"] + coll["all_gather"]["device_ms"])
+        / step_ms if step_ms > 0
+        else "not measured: the step's trace held no device kernel")
+    return counts, summary
 
 
 def gpt2_124m_long(**overrides):
@@ -2655,8 +2873,8 @@ def phase_train_sparse_grads():
 def phase_train_sparse(state):
     """bench_sparse_longseq exactly, timed as _run_longseq."""
     cfg = gpt2_124m_long(sparse_attention=bigbird())
-    counts, summary = timed_training(cfg, state, BENCH_LONGSEQ_CONFIG,
-                                     LONG_WARMUP, LONG_ITERS)
+    counts, summary, _ = timed_training(cfg, state, BENCH_LONGSEQ_CONFIG,
+                                        LONG_WARMUP, LONG_ITERS)
     summary["tflops_dense_equiv"] = summary.pop("tflops")
     summary["attn_density"] = SparseSelfAttention(bigbird()).density(LONG_SEQ)
     return counts, summary
@@ -2667,7 +2885,7 @@ def phase_train_longseq(state):
     flash attention (kernels B / E) at S = 8192, the comparison
     bench_sparse_longseq's row is defined against."""
     return timed_training(gpt2_124m_long(), state, BENCH_LONGSEQ_CONFIG,
-                          LONG_WARMUP, LONG_ITERS)
+                          LONG_WARMUP, LONG_ITERS)[:2]
 
 
 # --------------------------------------------------------------------- #
@@ -3144,6 +3362,12 @@ def phase_fcm_timing():
         "per_tile_reduce_scatter_products": per_tile_rs}
 
 
+# the parity groups of the kernels a data-parallel train step runs
+DP_PARITY = ("layer_norm_kernels", "layer_norm_fwd", "layer_norm_bwd",
+             "flash_attention_fwd", "flash_attention_fwd_dropout",
+             "flash_attention_bwd")
+
+
 def last_line():
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -3160,6 +3384,17 @@ def main():
         run_phase("parity", phase_parity)
         run_phase("fcm_ops", phase_fcm_ops)
         run_phase("fcm_timing", phase_fcm_timing)
+        print(card, flush=True)
+        return last_line()
+    if sys.argv[1:] == ["--dp-only"]:
+        # kernels A, B, D, E and the data-parallel phases, the ranks spread
+        # over every visible card
+        for group in [g for g in PARITY_CASES if g not in DP_PARITY]:
+            del PARITY_CASES[group]
+        run_phase("parity", phase_parity)
+        train_state = init_state(gpt2_124m_train())
+        run_phase("train_dp_grads", phase_train_dp_grads, train_state)
+        run_phase("train_dp", phase_train_dp, train_state)
         print(card, flush=True)
         return last_line()
     primary = run_phase("parity", phase_parity)
@@ -3184,6 +3419,9 @@ def main():
     run_phase("train_grads", phase_train_grads, train_state)
     path_counts = {"bf16": bf16_counts, "int8": int8_counts,
                    "train": run_phase("train", phase_train, train_state)}
+    run_phase("train_dp_grads", phase_train_dp_grads, train_state)
+    path_counts["train_dp"] = run_phase("train_dp", phase_train_dp,
+                                        train_state)
     del train_state
 
     run_phase("train_sparse_grads", phase_train_sparse_grads)

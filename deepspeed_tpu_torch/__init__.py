@@ -7,15 +7,20 @@ kernel on a ported path is a hand-written CUDA kernel here
 plain PyTorch.  This package imports torch and numpy, never jax and
 nothing of deepspeed_tpu.
 
-Ported so far: serving and single-GPU training.  `init_inference` ->
+Ported so far: serving, and training with ZeRO-1/2 data parallelism over
+the ranks of a single-controller mesh.  `init_inference` ->
 `InferenceEngine` (`forward`, `generate`) over GPT-2, with int8 weights
 under `quantization_setting`; `initialize` -> `DeepSpeedEngine`
-(`forward`, `backward`, `step`, `train_batch`) over GPT-2 in bf16 or fp32.
+(`forward`, `backward`, `step`, `train_batch`) over GPT-2 in bf16 or fp32,
+on the data-parallel ranks of the config's "mesh" block, of `mesh=` or of
+the mesh `initialize_mesh` registered.
 """
 
 import torch
 
 from .version import __version__
+from .parallel import (MeshContext, get_mesh_context, groups,
+                       initialize_mesh, reset_mesh_context)
 from .utils import logger, log_dist
 
 
@@ -41,7 +46,7 @@ def _resolve_device(device, entry: str) -> torch.device:
 
 def initialize(model=None, config=None, config_params=None, optimizer=None,
                model_parameters=None, lr_scheduler=None, training_data=None,
-               collate_fn=None, device=None):
+               collate_fn=None, device=None, mesh=None):
     """Create a training engine (deepspeed_tpu.initialize).  Returns
     (engine, optimizer, dataloader, lr_scheduler).
 
@@ -52,8 +57,11 @@ def initialize(model=None, config=None, config_params=None, optimizer=None,
     runtime.optimizers.FlatOptimizer; lr_scheduler: None (the config's) or
     an object with lr_at(step).  device: None means "cuda", which must be
     present; pass device="cpu" to run the plain PyTorch versions of the
-    kernels.  Features not ported yet raise NotImplementedError naming
-    their ROADMAP.md item."""
+    kernels.  mesh: None (the registered mesh, else the config's "mesh"
+    block over every visible card, or over the one device that `device`
+    names when it is "cpu" or "cuda:k") or a parallel.MeshContext; its data
+    axis is the data-parallel world.  Features not ported yet raise
+    NotImplementedError naming their ROADMAP.md item."""
     from .config import DeepSpeedConfigError
     from .runtime.engine import DeepSpeedEngine
 
@@ -65,7 +73,7 @@ def initialize(model=None, config=None, config_params=None, optimizer=None,
                              model_parameters=model_parameters,
                              lr_scheduler=lr_scheduler,
                              training_data=training_data,
-                             collate_fn=collate_fn, device=device)
+                             collate_fn=collate_fn, device=device, mesh=mesh)
     return (engine, engine.optimizer, engine.training_dataloader,
             engine.lr_scheduler)
 

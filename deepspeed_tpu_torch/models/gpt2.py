@@ -128,6 +128,14 @@ class GPT2Model(nn.Module):
         if not config.tie_word_embeddings:
             self.lm_head = nn.Parameter(torch.zeros(h, config.vocab_size))
 
+    @staticmethod
+    def jax_leaf(name: str) -> str:
+        """The leaf of the JAX parameter tree that holds parameter `name`:
+        the JAX model stacks each layer parameter over the layers, so the
+        `h.<i>.<leaf>` of every layer i lie in one leaf, `h.<leaf>`."""
+        parts = name.split(".")
+        return ".".join(parts[:1] + parts[2:]) if parts[0] == "h" else name
+
     def is_ln_param(self, name: str) -> bool:
         return name in self.LN_PARAMS or \
             name.rsplit(".", 1)[-1] in DeepSpeedTransformerLayer.LN_PARAMS

@@ -23,7 +23,12 @@ order.
 
 The collectives the JAX package leaves to XLA (`all_gather`,
 `all_to_all`, `psum_scatter`) are plain tensor code on the caller's
-stream.  A multi-process transport (NCCL process groups) is not part of
+stream.  ZeRO's collectives over the engine's flat buffers
+(`reduce_scatter_flat`, `all_gather_flat` and `all_sum` on top of it) run
+on the ranks' compute streams instead, ordered by events: each rank reads
+a peer's buffer only after the peer's stream reached the call, and no
+rank's stream goes past the call before every reader of its buffer is
+done.  A multi-process transport (NCCL process groups) is not part of
 this module.
 """
 
@@ -124,9 +129,43 @@ class MeshContext:
         shape = resolve_mesh_shape(len(devs), pipe, data, expert, seq, model)
         return MeshContext(shape, devs)
 
+    @staticmethod
+    def from_config(mesh_config, devices=None) -> "MeshContext":
+        """The mesh of a config's "mesh" block (config.MeshConfig)."""
+        return MeshContext.create(
+            pipe=mesh_config.pipe, data=mesh_config.data,
+            expert=mesh_config.expert, seq=mesh_config.seq,
+            model=mesh_config.model, devices=devices)
+
     # -- layout -------------------------------------------------------- #
     def axis_size(self, axis: str) -> int:
         return self.axis_sizes[axis]
+
+    @property
+    def data_parallel_world_size(self) -> int:
+        # the expert axis carves its replicas out of the data-parallel
+        # world, so dense data parallelism spans data x expert
+        return self.axis_size(DATA_AXIS) * self.axis_size(EXPERT_AXIS)
+
+    @property
+    def expert_parallel_world_size(self) -> int:
+        return self.axis_size(EXPERT_AXIS)
+
+    @property
+    def expert_data_parallel_world_size(self) -> int:
+        return self.axis_size(DATA_AXIS)
+
+    @property
+    def model_parallel_world_size(self) -> int:
+        return self.axis_size(MODEL_AXIS)
+
+    @property
+    def pipe_parallel_world_size(self) -> int:
+        return self.axis_size(PIPE_AXIS)
+
+    @property
+    def seq_parallel_world_size(self) -> int:
+        return self.axis_size(SEQ_AXIS)
 
     def axis_index(self, rank: int, axis: str) -> int:
         """Rank's coordinate along `axis` (`lax.axis_index`)."""
@@ -329,6 +368,94 @@ class MeshContext:
         return out
 
 
+    # -- ZeRO's collectives over flat buffers, on the ranks' streams ---- #
+    def _barrier(self, groups) -> None:
+        """Every rank's compute stream waits until each rank of its group
+        is done with the work enqueued so far, so that no rank overwrites
+        a buffer its peers still read."""
+        done = [self.record(r) for r in range(self.world_size)]
+        for r in range(self.world_size):
+            with self.rank(r, wait=[done[g] for g in groups[r]]):
+                pass
+
+    def reduce_scatter_flat(self, tensors, axes=ZERO_AXES):
+        """ZeRO's gradient reduce-scatter: every rank gives a 1-D tensor of
+        one length L, a multiple of its group's size G; rank r gets the
+        [L / G] chunk at its group index, its group's chunks summed in
+        group order (as `psum_scatter`).  Call inside `forked()`; the result
+        of rank r is ordered on its compute stream, and every input may be
+        overwritten on its rank's stream as soon as this returns."""
+        self.check_ranked("reduce_scatter_flat", tensors)
+        ready = [self.record(r) for r in range(self.world_size)]
+        groups = [self.group(r, axes) for r in range(self.world_size)]
+        out = []
+        for r, group in enumerate(groups):
+            length = tensors[r].numel()
+            if tensors[r].dim() != 1 or length % len(group):
+                raise ValueError(
+                    f"reduce_scatter_flat: rank {r} gives a tensor of shape "
+                    f"{tuple(tensors[r].shape)}; it must be 1-D with a "
+                    f"length divisible by the group size {len(group)}")
+            chunk = length // len(group)
+            start = self.group_index(r, axes) * chunk
+            dev = self.device_of(r)
+            with self.rank(r, wait=[ready[g] for g in group]):
+                total = tensors[group[0]].narrow(0, start, chunk).to(
+                    dev, copy=True)
+                for g in group[1:]:
+                    total.add_(tensors[g].narrow(0, start, chunk).to(dev))
+            out.append(total)
+        self._barrier(groups)
+        return out
+
+    def all_gather_flat(self, tensors, axes=ZERO_AXES, out=None):
+        """ZeRO's tiled all-gather: every rank gives a 1-D tensor of one
+        length c; rank r gets its group's tensors concatenated in group
+        order, [G * c], written into out[r] when `out` is given (a piece
+        that already lies where it belongs is not copied).  Call inside
+        `forked()`; ordered as `reduce_scatter_flat`."""
+        self.check_ranked("all_gather_flat", tensors)
+        ready = [self.record(r) for r in range(self.world_size)]
+        groups = [self.group(r, axes) for r in range(self.world_size)]
+        gathered = []
+        for r, group in enumerate(groups):
+            chunk = tensors[r].numel()
+            with self.rank(r, wait=[ready[g] for g in group]):
+                dst = (out[r] if out is not None else torch.empty(
+                    len(group) * chunk, dtype=tensors[r].dtype,
+                    device=self.device_of(r)))
+                if dst.shape != (len(group) * chunk,):
+                    raise ValueError(
+                        f"all_gather_flat: rank {r}'s output has shape "
+                        f"{tuple(dst.shape)}, expected "
+                        f"({len(group) * chunk},)")
+                for i, g in enumerate(group):
+                    piece = dst.narrow(0, i * chunk, chunk)
+                    if piece.data_ptr() != tensors[g].data_ptr() or \
+                            piece.device != tensors[g].device:
+                        piece.copy_(tensors[g])
+            gathered.append(dst)
+        self._barrier(groups)
+        return gathered
+
+    def all_sum(self, tensors, axes=ZERO_AXES):
+        """Every rank gets the sum over its group, in group order, of the
+        group's tensors (one shape on every rank): an `all_gather_flat`,
+        then the same ordered sum on each rank, so that every rank holds
+        the same bits.  Call inside `forked()`."""
+        gathered = self.all_gather_flat([t.reshape(-1) for t in tensors],
+                                        axes)
+        out = []
+        for r, full in enumerate(gathered):
+            with self.rank(r):
+                parts = full.view(-1, tensors[r].numel())
+                total = parts[0].clone()
+                for part in parts[1:]:
+                    total.add_(part)
+            out.append(total.view(tensors[r].shape))
+        return out
+
+
 # ---------------------------------------------------------------------- #
 # Global mesh registry, as the JAX package keeps one.
 # ---------------------------------------------------------------------- #
@@ -342,6 +469,11 @@ def initialize_mesh(pipe: int = 1, data: int = -1, expert: int = 1,
     _MESH_CTX = MeshContext.create(pipe=pipe, data=data, expert=expert,
                                    seq=seq, model=model, devices=devices)
     return _MESH_CTX
+
+
+def set_mesh_context(ctx: MeshContext) -> None:
+    global _MESH_CTX
+    _MESH_CTX = ctx
 
 
 def get_mesh_context(required: bool = True) -> Optional[MeshContext]:

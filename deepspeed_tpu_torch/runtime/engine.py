@@ -1,40 +1,67 @@
-"""DeepSpeedEngine: single-GPU training (counterpart of
-deepspeed_tpu/runtime/engine.py).
+"""DeepSpeedEngine: training on one device or on the data-parallel ranks
+of a single-controller mesh (counterpart of deepspeed_tpu/runtime/engine.py).
 
 What it keeps of the JAX engine:
 
-- fp32 master weights owned by the engine.  They live in ONE flat fp32
-  buffer on the device, every parameter of the model a view into it, and
-  their grads in a second flat buffer that autograd accumulates into, so
-  the optimizer step is a few large elementwise ops (runtime/optimizers.py).
-- The forward runs on every floating parameter cast to the compute dtype,
-  LayerNorm gamma/beta and the embeddings included (the JAX engine's
-  `_tree_cast(p, compute_dtype)` inside `loss_fn`), through
-  `torch.func.functional_call`; autograd returns fp32 grads to the master.
+- The mesh: the `mesh=` argument, else the registered mesh, else the
+  config's "mesh" block (`resolve_mesh_ctx`), whose data axis defaults to
+  -1, "fill the devices": every visible card for device None / "cuda",
+  the one device of "cpu" or "cuda:k" (where a `data` of W puts W ranks).
+  The config's batch arithmetic is checked at the data-parallel world W.
+- fp32 master weights owned by the engine, replicated on every rank below
+  ZeRO-3.  Rank r's live in ONE flat fp32 buffer on its device
+  (`devices[r % n]`), every parameter a view into it, and their grads in a
+  second flat buffer that autograd accumulates into, so the optimizer step
+  is a few large elementwise ops (runtime/optimizers.py).  Both are
+  zero-padded to a multiple of W; `engine.module`'s parameters are rank
+  0's views.
+- ZeRO stages 0-2 over the flat layout (runtime/zero/partition.py): stage
+  1 shards the optimizer state over the ranks' ranges, stage 2 also
+  reduce-scatters each micro-step's grads into the owner's range, where
+  they accumulate; stage 1 sums the accumulated full grads at the
+  boundary; stage 0 all-reduces them and every rank steps the whole
+  buffer.  The sums run over the ranks in rank order and divide by W once,
+  so stages 1 and 2 give the same bits.  After the step every rank's
+  updated range is all-gathered into every rank's buffer.
+- The batch (`_shard_batch`): a leading dimension W divides is split into
+  W contiguous row blocks in rank order; anything else goes whole to
+  every rank.
+- The forward runs each rank on its own compute stream, on every floating
+  parameter cast to the compute dtype, LayerNorm gamma/beta and the
+  embeddings included (the JAX engine's `_tree_cast(p, compute_dtype)`
+  inside `loss_fn`), through `torch.func.functional_call`; autograd
+  returns fp32 grads to the rank's master, on the rank's stream.
   `bf16.grads_in_compute_dtype` accumulates the micro-steps' grads in bf16
   instead.
-- `forward(*batch)` returns the unscaled loss with its graph;
-  `backward(loss)` backpropagates loss * loss_scale and accumulates across
+- `forward(*batch)` returns the unscaled loss with its graph, the mean of
+  the ranks' losses (the global batch's loss when the ranks hold equal
+  token counts); `backward(loss)` backpropagates loss * loss_scale, which
+  gives each rank the grads of its own loss, and accumulates across
   micro-steps (the PyTorch idiom; the JAX engine fuses grad into forward).
 - `step()` acts at the gradient-accumulation boundary: unscale by
-  1 / (loss_scale * gas) in fp32, a finite flag over all grads, the
-  optimizer update through a where(finite) select (a non-finite step leaves
+  1 / (loss_scale * gas * W) in fp32, a finite flag over all ranks' grads
+  (one rank's overflow skips the step on every rank, as the JAX engine's
+  one `isfinite` over the grad tree), the optimizer update of each rank's
+  range through a where(finite) select (a non-finite step leaves
   parameters and optimizer state, its count too, as they were), the loss
   scaler update, the LR scheduler's step.  It reads nothing back to the
   host: the overflow flag stays on the device (`overflow` reads it).
-- One engine `torch.Generator` on the device, seeded 42 as the JAX engine's
-  key; every forward draws its dropout from it.
+- A `torch.Generator` per rank on its device, seeded 42 + r (the JAX
+  engine's key is 42), so no two ranks draw the same dropout mask.
 
-ZeRO stages 0-2 are accepted and, at data-parallel world 1, partition
-nothing.  What is not ported yet is refused by `refuse_unported` with the
-ROADMAP.md item that will port it.
+What is not ported yet is refused by `refuse_unported` with the ROADMAP.md
+item that will port it.
 """
 
 import numpy as np
 import torch
 from torch.func import functional_call
 
-from ..config import DeepSpeedConfig
+from .. import constants as C
+from ..config import DeepSpeedConfig, MeshConfig
+from ..config_utils import load_config_dict
+from ..parallel import mesh as mesh_mod
+from ..parallel.mesh import ZERO_AXES, MeshContext
 from ..utils.logging import log_dist
 from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
 from .dataloader import DeepSpeedDataLoader
@@ -42,63 +69,113 @@ from .fp16.loss_scaler import create_loss_scaler, update_loss_scale
 from .lr_schedules import get_lr_schedule
 from .optimizers import (ONEBIT_ADAM_OPTIMIZER, ONEBIT_LAMB_OPTIMIZER,
                          FlatOptimizer, build_optimizer)
+from .zero.partition import ZeroPartitioner
 
 FORWARD_MICRO_TIMER = "forward_microstep"
 BACKWARD_MICRO_TIMER = "backward_microstep"
 STEP_MICRO_TIMER = "step_microstep"
 
+# the mesh axes the engine refuses above 1, with the items that port them
+_UNPORTED_AXES = (("model", "tensor parallelism", "A.9"),
+                  ("pipe", "pipeline parallelism", "A.9"),
+                  ("seq", "sequence parallelism", "A.9"),
+                  ("expert", "expert parallelism (MoE)", "A.10"))
 
-def _data_parallel_world() -> int:
+
+def _refuse(what, item):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
+
+
+def _refuse_mesh_axes(sizes, where):
+    for axis, what, item in _UNPORTED_AXES:
+        if sizes[axis] > 1:
+            _refuse(f"{where}: a {axis} axis of {sizes[axis]} ({what})", item)
+
+
+def _torch_distributed_world() -> int:
     import torch.distributed as dist
     if dist.is_available() and dist.is_initialized():
         return dist.get_world_size()
     return 1
 
 
-def refuse_unported(config: DeepSpeedConfig, model) -> None:
+def resolve_mesh_ctx(config, mesh=None, device=None) -> MeshContext:
+    """The engine's mesh, from (in order) the `mesh` argument, the
+    registered mesh, or the config's "mesh" block on the devices `device`
+    names (None or "cuda": every visible card; "cpu" or "cuda:k": that
+    one device); registered as the global mesh.  Only the mesh block is
+    read before the mesh exists: the full config parse checks the batch
+    arithmetic at the mesh's data-parallel world.  An explicit entry of
+    the block that disagrees with a given or registered mesh raises."""
+    raw = (config._param_dict if isinstance(config, DeepSpeedConfig)
+           else load_config_dict(config))
+    block = raw.get(C.MESH) or {}
+    mesh_cfg = MeshConfig.from_dict(block)
+    _refuse_mesh_axes(vars(mesh_cfg), "the config's mesh")
+    device = torch.device("cuda" if device is None else device)
+    if mesh is None:
+        mesh = mesh_mod.get_mesh_context(required=False)
+    if mesh is None:
+        devices = (None if device.type == "cuda" and device.index is None
+                   else [device])
+        mesh = MeshContext.from_config(mesh_cfg, devices)
+    else:
+        if not isinstance(mesh, MeshContext):
+            raise TypeError(f"mesh must be a MeshContext, got "
+                            f"{type(mesh).__name__}")
+        clash = {axis: size for axis, size in block.items()
+                 if size != -1 and mesh.axis_sizes.get(axis) != size}
+        if clash or mesh.devices[0].type != device.type:
+            raise ValueError(
+                f"the config's mesh block {block} and device {device} "
+                f"disagree with the mesh in use, {mesh} (given as mesh= or "
+                "registered by initialize_mesh or an earlier engine; call "
+                "reset_mesh_context() to build the config's)")
+    mesh_mod.set_mesh_context(mesh)
+    return mesh
+
+
+def refuse_unported(config: DeepSpeedConfig, model, mesh: MeshContext) -> None:
     """Raise NotImplementedError, naming the ROADMAP.md item that ports it,
-    for every feature of the config or model that the port does not run
-    yet."""
+    for every feature of the config, model or mesh that the port does not
+    run yet."""
     from ..models.gpt2 import GPT2Model
 
-    def refuse(what, item):
-        raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
-                                  f"{item})")
-
     if not isinstance(model, GPT2Model):
-        refuse(f"training a {type(model).__name__} (only GPT2Model is "
-               "ported; a PipelineModule is A.9, an MoE model A.10)",
-               "A.9-A.10")
-    world = _data_parallel_world()
-    mesh = config.mesh_config
-    if world > 1 or max(mesh.model, mesh.pipe, mesh.expert, mesh.seq) > 1:
-        refuse(f"a data-parallel world of {world} / a multi-axis mesh "
-               "(ZeRO-1/2 data parallelism)", "A.4")
+        _refuse(f"training a {type(model).__name__} (only GPT2Model is "
+                "ported; a PipelineModule is A.9, an MoE model A.10)",
+                "A.9-A.10")
+    world = _torch_distributed_world()
+    if world > 1:
+        _refuse(f"a torch.distributed world of {world} (one process per "
+                "GPU over NCCL; the engine's data parallelism runs the "
+                "ranks of one process's mesh)", "A.4b")
+    _refuse_mesh_axes(mesh.axis_sizes, "the mesh")
     zc = config.zero_config
     if zc.stage >= 3:
-        refuse(f"zero_optimization.stage {zc.stage} (ZeRO-3)", "A.5")
+        _refuse(f"zero_optimization.stage {zc.stage} (ZeRO-3)", "A.5")
     for what, off in (("offload_param", zc.offload_param),
                       ("offload_optimizer", zc.offload_optimizer)):
         if off is not None and off.device not in (None, "none"):
-            refuse(f"zero_optimization.{what} (the offload tier)", "A.7")
+            _refuse(f"zero_optimization.{what} (the offload tier)", "A.7")
     if config.fp16.enabled:
-        refuse("fp16.enabled (the kernels take bf16 and fp32; fp16 and its "
-               "dynamic loss scaling)", "A.1b")
+        _refuse("fp16.enabled (the kernels take bf16 and fp32; fp16 and its "
+                "dynamic loss scaling)", "A.1b")
     if config.fused_step_config.enabled:
-        refuse("fused_step (one dispatch per optimizer step)", "A.6")
+        _refuse("fused_step (one dispatch per optimizer step)", "A.6")
     if (config.optimizer_name or "").lower() in (ONEBIT_ADAM_OPTIMIZER,
                                                  ONEBIT_LAMB_OPTIMIZER):
-        refuse(f"the {config.optimizer_name} optimizer", "A.8")
+        _refuse(f"the {config.optimizer_name} optimizer", "A.8")
     if zc.low_bandwidth.onebit:
-        refuse("zero_optimization.low_bandwidth.onebit (the 1-bit wire "
-               "tier)", "A.8")
+        _refuse("zero_optimization.low_bandwidth.onebit (the 1-bit wire "
+                "tier)", "A.8")
     if zc.low_bandwidth.enabled:
-        refuse("zero_optimization.low_bandwidth in the engine (the qwZ / qgZ "
-               "ops and the fused collective-matmul are ported, "
-               "runtime/comm/low_bandwidth.py and ops/collective_matmul.py; "
-               "the engine uses them inside the streamed ZeRO-3 scan)", "A.5")
+        _refuse("zero_optimization.low_bandwidth in the engine (the qwZ / qgZ "
+                "ops and the fused collective-matmul are ported, "
+                "runtime/comm/low_bandwidth.py and ops/collective_matmul.py; "
+                "the engine uses them inside the streamed ZeRO-3 scan)", "A.5")
     if config.sequence_parallel_config.size > 1:
-        refuse("sequence parallelism", "A.9")
+        _refuse("sequence parallelism", "A.9")
     flags = (("resilience", config.resilience_config.enabled, "A.6, A.13"),
              ("monitor", config.monitor_config.enabled, "A.6, A.13"),
              ("analysis", config.analysis_config.enabled, "A.14"),
@@ -111,24 +188,47 @@ def refuse_unported(config: DeepSpeedConfig, model) -> None:
              ("tensorboard", config.tensorboard_config.enabled, "A.13"))
     for what, on, item in flags:
         if on:
-            refuse(f"the {what} block", item)
+            _refuse(f"the {what} block", item)
+
+
+class _MeanOfRanks(torch.autograd.Function):
+    """The mean of the ranks' losses, on `device`.  Its backward hands
+    every rank's loss the incoming gradient unchanged: each rank
+    backpropagates its own loss, as data parallelism does, and the engine
+    divides the gradients summed over the ranks by their number."""
+
+    @staticmethod
+    def forward(ctx, device, *losses):
+        ctx.devices = [loss.device for loss in losses]
+        return torch.stack([loss.to(device) for loss in losses]).mean()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (None, *(grad.to(d) for d in ctx.devices))
 
 
 class DeepSpeedEngine:
-    """Config-driven training engine on one device."""
+    """Config-driven training engine over the data-parallel ranks of a
+    mesh (one rank on one device by default)."""
 
     def __init__(self, model=None, config=None, optimizer=None,
                  model_parameters=None, lr_scheduler=None,
-                 training_data=None, collate_fn=None, device="cuda"):
+                 training_data=None, collate_fn=None, device="cuda",
+                 mesh=None):
         self.module = model
-        self.device = torch.device(device)
         self.global_steps = 0
         self.micro_steps = 0
         self.skipped_steps = 0
+        self.mesh = resolve_mesh_ctx(config, mesh, device)
+        world = self.mesh.data_parallel_world_size
         self.config = (config if isinstance(config, DeepSpeedConfig)
-                       else DeepSpeedConfig(config, world_size=1))
-        self.world_size = 1
-        refuse_unported(self.config, model)
+                       else DeepSpeedConfig(config, world_size=world))
+        self.world_size = world
+        refuse_unported(self.config, model, self.mesh)
+        self.device = self.mesh.device_of(0)
+        self.zero_partitioner = ZeroPartitioner(
+            self.mesh, self.config.zero_optimization_stage,
+            self.config.zero_config.param_persistence_threshold)
 
         self.compute_dtype = (torch.bfloat16 if self.config.bf16.enabled
                               else torch.float32)
@@ -137,27 +237,51 @@ class DeepSpeedEngine:
         self._grads_half = (self.config.bf16.enabled
                             and self.config.bf16.grads_in_compute_dtype)
 
-        # ---- fp32 master weights: one flat buffer, params are views ---- #
+        # ---- fp32 master weights: a flat buffer a rank, params views ---- #
         if model_parameters is not None:
             model.load_state_dict(model_parameters)
         self._named_params = list(model.named_parameters())
-        total = sum(p.numel() for _, p in self._named_params)
-        self._flat = torch.empty(total, dtype=torch.float32,
-                                 device=self.device)
-        self._flat_grad = torch.zeros_like(self._flat)
         self._segments = []
         off = 0
+        for _, p in self._named_params:
+            self._segments.append((off, p.numel()))
+            off += p.numel()
+        self.num_params = off
+        padded = self.zero_partitioner.padded_size(off)
+        self._flats, self._flat_grads, self._leaves = [], [], []
         with torch.no_grad():
-            for _, p in self._named_params:
-                n = p.numel()
-                view = self._flat[off:off + n].view(p.shape)
-                view.copy_(p.detach())
-                p.data = view
-                p.requires_grad_(True)
-                p.grad = self._flat_grad[off:off + n].view(p.shape)
-                self._segments.append((off, n))
-                off += n
-        self._half_acc = None
+            for r in range(world):
+                dev = self.mesh.device_of(r)
+                flat = torch.zeros(padded, dtype=torch.float32, device=dev)
+                grad = torch.zeros_like(flat)
+                leaves = {}
+                for (name, p), (o, n) in zip(self._named_params,
+                                             self._segments):
+                    view = flat[o:o + n].view(p.shape)
+                    view.copy_(p.detach())
+                    if r == 0:  # the module's own parameters
+                        p.data = view
+                        leaf = p
+                    else:
+                        leaf = view
+                    leaf.requires_grad_(True)
+                    leaf.grad = grad[o:o + n].view(p.shape)
+                    leaves[name] = leaf
+                self._flats.append(flat)
+                self._flat_grads.append(grad)
+                self._leaves.append(leaves)
+        self._flat, self._flat_grad = self._flats[0], self._flat_grads[0]
+        self._ranges = [self.zero_partitioner.owned_range(off, r)
+                        for r in range(world)]
+        # stage 2 on several ranks: each micro-step's grads are
+        # reduce-scattered into the rank's range and accumulate there
+        self._scatter_each_micro = self.zero_partitioner.stage >= 2 \
+            and world > 1
+        acc_dtype = self.compute_dtype if self._grads_half else torch.float32
+        self._acc = [torch.zeros(hi - lo, dtype=acc_dtype,
+                                 device=self.mesh.device_of(r))
+                     if self._scatter_each_micro else None
+                     for r, (lo, hi) in enumerate(self._ranges)]
 
         # ---- LR schedule + optimizer --------------------------------- #
         self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
@@ -167,21 +291,28 @@ class DeepSpeedEngine:
                     "optimizer must be a deepspeed_tpu_torch FlatOptimizer "
                     "(runtime.optimizers.build_optimizer), got "
                     f"{type(optimizer).__name__}")
-            # the parameters' places in the flat buffer are the engine's
-            optimizer.segments = self._segments
             self.optimizer = optimizer
         else:
             self.optimizer = build_optimizer(
                 self.config.optimizer_name or "adam",
                 self.config.optimizer_params,
                 learning_rate=self.lr_scheduler,
-                gradient_clipping=self.config.gradient_clipping,
-                segments=self._segments)
-        self.opt_state = self.optimizer.init(self._flat)
+                gradient_clipping=self.config.gradient_clipping)
+        # the parameters' places in the flat buffer are the engine's, and
+        # the layers' copies of a parameter share the JAX tree's leaf
+        leaves = {}
+        self.optimizer.segments = self._segments
+        self.optimizer.segment_leaves = [
+            leaves.setdefault(model.jax_leaf(name), len(leaves))
+            for name, _ in self._named_params]
+        self.opt_states = [self.optimizer.init(self._flats[r][lo:hi])
+                           for r, (lo, hi) in enumerate(self._ranges)]
+        self.opt_state = self.opt_states[0]
 
         self.training_dataloader = self._configure_dataloader(
             training_data, collate_fn)
-        self._rng = torch.Generator(device=self.device).manual_seed(42)
+        self._rngs = [torch.Generator(device=self.mesh.device_of(r))
+                      .manual_seed(42 + r) for r in range(world)]
 
         self.timers = SynchronizedWallClockTimer()
         self.tput_timer = ThroughputTimer(
@@ -189,11 +320,12 @@ class DeepSpeedEngine:
             num_workers=self.world_size,
             steps_per_output=self.steps_per_print())
         self._last_loss = None
+        self._rank_losses = None
         self._last_overflow = None
         self._is_train_mode = True
         log_dist(f"DeepSpeedEngine: zero_stage="
                  f"{self.zero_optimization_stage()} dtype={self.compute_dtype} "
-                 f"device={self.device} params={total} "
+                 f"mesh={self.mesh} dp_world={world} params={off} "
                  f"micro_batch={self.train_micro_batch_size_per_gpu()} "
                  f"gas={self.gradient_accumulation_steps()}", ranks=[0])
 
@@ -295,30 +427,57 @@ class DeepSpeedEngine:
             training_data, batch_size=self.train_micro_batch_size_per_gpu()
             * self.world_size, collate_fn=collate_fn)
 
-    def _to_device(self, a):
-        if isinstance(a, torch.Tensor):
-            return a.to(self.device)
-        if isinstance(a, np.ndarray):
-            return torch.from_numpy(a).to(self.device)
-        return a
+    def _shard_batch(self, value):
+        """One value a rank (JAX engine `_shard_batch`): a tensor or array
+        whose leading dimension the data-parallel world divides is split
+        into that many contiguous row blocks in rank order; anything else
+        goes whole to every rank."""
+        world = self.world_size
+        if isinstance(value, (torch.Tensor, np.ndarray)) and value.ndim >= 1 \
+                and value.shape[0] % world == 0:
+            rows = value.shape[0] // world
+            return [value[r * rows:(r + 1) * rows] for r in range(world)]
+        return [value] * world
+
+    def _place(self, value, rank):
+        dev = self.mesh.device_of(rank)
+        if isinstance(value, torch.Tensor):
+            return value.to(dev)
+        if isinstance(value, np.ndarray):
+            return torch.from_numpy(value).to(dev)
+        return value
 
     # ------------------------------------------------------------------ #
     # forward / backward / step (reference: engine.py:1224,1303,1462)
     # ------------------------------------------------------------------ #
     def forward(self, *args, **kwargs):
-        """The model's loss on the batch, on every parameter cast to the
-        compute dtype; dropout draws from the engine's generator.  Returns
-        the unscaled loss with its autograd graph."""
+        """The model's loss on the batch, each rank's rows on its own
+        stream and on every parameter cast to the compute dtype; dropout
+        draws from the rank's generator.  Returns the unscaled loss with
+        its autograd graph: the mean of the ranks' losses, on rank 0's
+        device."""
         if self.wall_clock_breakdown():
             self.timers(FORWARD_MICRO_TIMER).start()
         if self._is_train_mode:
             self.tput_timer.start()
-        args = tuple(self._to_device(a) for a in args)
-        kwargs = {k: self._to_device(v) for k, v in kwargs.items()}
-        cast = {name: p.to(self.compute_dtype) if p.is_floating_point() else p
-                for name, p in self._named_params}
-        loss = functional_call(self.module, cast, args,
-                               dict(kwargs, generator=self._rng))
+        args = [self._shard_batch(a) for a in args]
+        kwargs = {k: self._shard_batch(v) for k, v in kwargs.items()}
+        losses = []
+        with self.mesh.forked():
+            for r, leaves in enumerate(self._leaves):
+                with self.mesh.rank(r):
+                    cast = {name: p.to(self.compute_dtype)
+                            if p.is_floating_point() else p
+                            for name, p in leaves.items()}
+                    losses.append(functional_call(
+                        self.module, cast,
+                        tuple(self._place(a[r], r) for a in args),
+                        {**{k: self._place(v[r], r)
+                            for k, v in kwargs.items()},
+                         "generator": self._rngs[r]}))
+        self._rank_losses = losses
+        loss = losses[0] if len(losses) == 1 else \
+            _MeanOfRanks.apply(self.device, *losses)
         self._last_loss = loss
         if self.wall_clock_breakdown():
             self.timers(FORWARD_MICRO_TIMER).stop()
@@ -327,44 +486,98 @@ class DeepSpeedEngine:
     __call__ = forward
 
     def backward(self, loss=None):
-        """Backpropagate loss * loss_scale, accumulating the grads of the
-        master weights across micro-steps."""
+        """Backpropagate loss * loss_scale (each rank's backward on its own
+        stream), then accumulate the grads across micro-steps: at stage 2
+        on several ranks in each rank's range (a reduce-scatter), else in
+        the full buffers."""
         loss = self._last_loss if loss is None else loss
         if loss is None:
             raise RuntimeError("backward() called before forward()")
         if self.wall_clock_breakdown():
             self.timers(BACKWARD_MICRO_TIMER).start()
         (loss.float() * self.scaler_state.loss_scale).backward()
-        if self._grads_half:
-            half = self._flat_grad.to(self.compute_dtype)
-            self._half_acc = (half if self._half_acc is None
-                              else self._half_acc + half)
-            self._flat_grad.zero_()
+        if self._scatter_each_micro:
+            with self.mesh.forked():
+                parts = self.mesh.reduce_scatter_flat(self._flat_grads,
+                                                      ZERO_AXES)
+                for r, part in enumerate(parts):
+                    with self.mesh.rank(r):
+                        self._acc[r].add_(part)
+                        self._flat_grads[r].zero_()
+        elif self._grads_half:
+            with self.mesh.forked():
+                for r, grad in enumerate(self._flat_grads):
+                    with self.mesh.rank(r):
+                        half = grad.to(self.compute_dtype)
+                        self._acc[r] = (half if self._acc[r] is None
+                                        else self._acc[r] + half)
+                        grad.zero_()
         self.micro_steps += 1
         if self.wall_clock_breakdown():
             self.timers(BACKWARD_MICRO_TIMER).stop()
         return loss
 
+    def _reduced_grads(self):
+        """Each rank's summed (not yet unscaled) fp32 grads of the buffer
+        it steps: its range, or at stage 0 the whole buffer."""
+        if self._scatter_each_micro:
+            return [acc.float() for acc in self._acc]
+        full = [grad if acc is None else acc.float()
+                for acc, grad in zip(self._acc, self._flat_grads)]
+        if len(full) == 1:
+            return full
+        parts = self.mesh.reduce_scatter_flat(full, ZERO_AXES)
+        if self.zero_partitioner.stage == 0:
+            return self.mesh.all_gather_flat(parts, ZERO_AXES,
+                                             out=self._flat_grads)
+        return parts
+
     def step(self, lr_kwargs=None):
-        """Apply the optimizer at gradient-accumulation boundaries; no host
+        """Apply the optimizer at gradient-accumulation boundaries, each
+        rank to the range it owns, then all-gather the ranges; no host
         synchronisation."""
         if not self.is_gradient_accumulation_boundary():
             return
         if self.wall_clock_breakdown():
             self.timers(STEP_MICRO_TIMER).start()
-        acc = self._half_acc if self._grads_half else self._flat_grad
-        if acc is None:
+        if self._grads_half and not self._scatter_each_micro \
+                and self._acc[0] is None:
             raise RuntimeError("step() called before backward()")
+        mesh, world = self.mesh, self.world_size
+        partitioned = self.zero_partitioner.stage >= 1 and world > 1
         inv = 1.0 / (self.scaler_state.loss_scale
-                     * self.gradient_accumulation_steps())
-        grads = acc.float() * inv
-        finite = torch.isfinite(grads).all()
-        self.optimizer.step(self._flat, grads, self.opt_state, finite)
-        overflow = ~finite
+                     * self.gradient_accumulation_steps() * world)
+        with mesh.forked():
+            grads = self._reduced_grads()
+            flags = []
+            for r in range(world):
+                with mesh.rank(r):
+                    grads[r] = grads[r] * inv.to(mesh.device_of(r))
+                    flags.append(torch.isfinite(grads[r]).all().reshape(1))
+            flags = mesh.all_gather_flat(flags, ZERO_AXES)
+            finite = []
+            for r in range(world):
+                with mesh.rank(r):
+                    finite.append(flags[r].all())
+            params = [flat[lo:hi]
+                      for flat, (lo, hi) in zip(self._flats, self._ranges)]
+            self.optimizer.step_ranks(
+                params, grads, self.opt_states, finite,
+                offsets=[lo for lo, _ in self._ranges], rank=mesh.rank,
+                total=((lambda parts: mesh.all_sum(parts, ZERO_AXES))
+                       if partitioned else None))
+            if partitioned:
+                mesh.all_gather_flat(params, ZERO_AXES, out=self._flats)
+            for r in range(world):
+                with mesh.rank(r):
+                    self._flat_grads[r].zero_()
+                    if self._scatter_each_micro:
+                        self._acc[r].zero_()
+                    else:
+                        self._acc[r] = None
+        overflow = ~finite[0]
         self.scaler_state = update_loss_scale(self.scaler_cfg,
                                               self.scaler_state, overflow)
-        self._flat_grad.zero_()
-        self._half_acc = None
         self._last_overflow = overflow
         self.global_steps += 1
         # the dynamic scaler (fp16) reads the flag to skip the scheduler,
@@ -376,6 +589,11 @@ class DeepSpeedEngine:
         self.tput_timer.stop(global_step=True)
         if self.wall_clock_breakdown():
             self.timers(STEP_MICRO_TIMER).stop()
+
+    def estimate_memory(self):
+        """Bytes a rank holds (the JAX engine's estimate, through the
+        partitioner)."""
+        return self.zero_partitioner.estimate_memory(self.num_params)
 
     def train_batch(self, data_iter=None):
         """gradient_accumulation_steps micro-steps and one optimizer step;

@@ -15,7 +15,10 @@ follows optax exactly where the JAX package relies on it:
   to EVERY parameter, LayerNorm and biases included, as optax.adamw does
   (ROADMAP.md C);
 - Lamb: Adam's update plus decay, scaled per parameter by the trust ratio
-  ||p|| / ||u|| clipped to [min_coeff, max_coeff];
+  ||p|| / ||u|| clipped to [min_coeff, max_coeff].  optax takes "per
+  parameter" to be per leaf of the tree, and the JAX GPT-2 stacks each
+  layer parameter over the layers into one leaf: the engine passes
+  `segment_leaves` so that the layers' copies share one ratio;
 - SGD: optax.sgd's momentum trace (nesterov optional);
 - gradient clipping (optax.clip_by_global_norm) in fp32 before the
   optimizer;
@@ -25,9 +28,18 @@ follows optax exactly where the JAX package relies on it:
 `step` applies the update through a `where(finite, ...)` select, so a step
 whose gradients are not finite leaves the parameters and every state
 tensor, its count too, exactly as they were, with no host round trip.
+
+Under ZeRO (runtime/zero/partition.py) each data-parallel rank updates
+only its range of the flat buffer (`step_ranks`).  The math is
+elementwise except for two global reductions, which the ranks' partial
+sums feed: the gradient norm of clipping (the square root of the sum over
+ranks of each range's sum of squares) and Lamb's per-parameter norms of
+the parameter and its update (a parameter may straddle two ranges).  Every
+rank uses the same summed value.
 """
 
-from typing import Any, Dict, Optional, Sequence, Tuple
+import contextlib
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -54,7 +66,8 @@ class FlatOptimizer:
     state (a dict of tensors on the params' device); `step(params, grads,
     state, finite)` updates params and state in place.  `segments` are the
     (offset, numel) of each parameter inside the flat buffer, which Lamb's
-    per-parameter trust ratio needs."""
+    per-parameter trust ratio needs; `segment_leaves` (one int a segment,
+    default: each its own) groups the segments that share one ratio."""
 
     def __init__(self, kind: str, lr, b1=0.9, b2=0.999, eps=1e-8,
                  weight_decay=0.0, decoupled=True, min_coeff=0.01,
@@ -70,6 +83,7 @@ class FlatOptimizer:
         self.momentum, self.nesterov = momentum, nesterov
         self.gradient_clipping = gradient_clipping
         self.segments = segments
+        self.segment_leaves: Optional[Sequence[int]] = None
 
     def init(self, params: torch.Tensor) -> Dict[str, torch.Tensor]:
         state = {"count": torch.zeros((), dtype=torch.int32,
@@ -94,44 +108,115 @@ class FlatOptimizer:
         nu_hat = nu / (1.0 - torch.pow(self.b2, count1))
         return mu_hat / (torch.sqrt(nu_hat) + self.eps), {"mu": mu, "nu": nu}
 
-    def _trust_ratio(self, u, params):
+    def _segments_in(self, offset: int, length: int):
+        """(leaf index, start, end) within a range [offset, offset +
+        length) of the flat buffer, for each parameter segment it meets."""
         if not self.segments:
             raise ValueError("lamb needs the parameters' segments")
-        out = torch.empty_like(u)
-        for off, n in self.segments:
-            p_norm = params[off:off + n].norm()
-            u_norm = u[off:off + n].norm()
-            ratio = torch.where(
-                u_norm > 0,
-                torch.where(p_norm > 0, p_norm / u_norm,
-                            torch.ones_like(p_norm)),
-                torch.ones_like(u_norm))
-            ratio = torch.clamp(ratio, self.min_coeff, self.max_coeff)
-            out[off:off + n] = u[off:off + n] * ratio
+        leaves = self.segment_leaves or range(len(self.segments))
+        out = []
+        for leaf, (off, n) in zip(leaves, self.segments):
+            lo, hi = max(off, offset), min(off + n, offset + length)
+            if lo < hi:
+                out.append((leaf, lo - offset, hi - offset))
+        return out
+
+    def _segment_squares(self, params, u, offset):
+        """[leaves, 2]: each leaf's sum of squares of params and of u over
+        the part of it that lies in this range (0 elsewhere)."""
+        n_leaves = (max(self.segment_leaves) + 1 if self.segment_leaves
+                    else len(self.segments))
+        sq = torch.zeros(n_leaves, 2, dtype=torch.float32, device=u.device)
+        for leaf, lo, hi in self._segments_in(offset, u.numel()):
+            sq[leaf, 0] += (params[lo:hi] * params[lo:hi]).sum()
+            sq[leaf, 1] += (u[lo:hi] * u[lo:hi]).sum()
+        return sq
+
+    def _trust_ratio(self, u, sq, offset):
+        """u scaled per parameter by ||p|| / ||u|| clipped to [min_coeff,
+        max_coeff] (1 where either norm is 0), from its leaf's summed
+        squares."""
+        p_norm, u_norm = torch.sqrt(sq[:, 0]), torch.sqrt(sq[:, 1])
+        ratio = torch.where(
+            u_norm > 0,
+            torch.where(p_norm > 0, p_norm / u_norm, torch.ones_like(p_norm)),
+            torch.ones_like(u_norm))
+        ratio = torch.clamp(ratio, self.min_coeff, self.max_coeff)
+        out = u.clone()
+        for leaf, lo, hi in self._segments_in(offset, u.numel()):
+            out[lo:hi] = u[lo:hi] * ratio[leaf]
         return out
 
     def step(self, params: torch.Tensor, grads: torch.Tensor,
              state: Dict[str, torch.Tensor], finite: torch.Tensor) -> None:
         """params, grads: flat fp32 (grads already unscaled); finite: a
         device bool, False leaves everything as it was."""
-        g = grads
+        self.step_ranks([params], [grads], [state], [finite])
+
+    def step_ranks(self, params: List[torch.Tensor],
+                   grads: List[torch.Tensor],
+                   states: List[Dict[str, torch.Tensor]],
+                   finite: List[torch.Tensor],
+                   offsets: Optional[Sequence[int]] = None,
+                   rank: Optional[Callable] = None,
+                   total: Optional[Callable] = None) -> None:
+        """One step of every rank's range, in place.  Per rank (lists in
+        rank order): its range of the fp32 parameters, the unscaled
+        gradients of that range, its state and the finite flag (the same
+        on every rank).  offsets: where each range starts in the flat
+        buffer (default 0).  rank(r): a context that runs rank r's work
+        (the mesh's `rank`).  total(parts): every rank's partial sums
+        summed over the ranks, one result per rank (the mesh's `all_sum`);
+        None when each rank holds the whole buffer."""
+        world = len(params)
+        offsets = offsets if offsets is not None else [0] * world
+
+        def each(fn):
+            out = []
+            for r in range(world):
+                with (rank(r) if rank is not None
+                      else contextlib.nullcontext()):
+                    out.append(fn(r))
+            return out
+
+        def summed(parts):
+            return parts if total is None else total(parts)
+
+        g = list(grads)
         if self.gradient_clipping and self.gradient_clipping > 0:
-            g_norm = g.norm()
-            g = torch.where(g_norm < self.gradient_clipping, g,
-                            g / g_norm * self.gradient_clipping)
-        lr = self.lr_at(state["count"])
+            sq = summed(each(lambda r: (g[r] * g[r]).sum()))
+
+            def clip(r):
+                g_norm = torch.sqrt(sq[r])
+                return torch.where(g_norm < self.gradient_clipping, g[r],
+                                   g[r] / g_norm * self.gradient_clipping)
+            g = each(clip)
+        updates = each(lambda r: self._update(params[r], g[r], states[r]))
+        if self.kind == LAMB_OPTIMIZER:
+            sq = summed(each(lambda r: self._segment_squares(
+                params[r], updates[r][0], offsets[r])))
+            updates = each(lambda r: (self._trust_ratio(
+                updates[r][0], sq[r], offsets[r]), updates[r][1]))
+        each(lambda r: self._apply(params[r], updates[r], states[r],
+                                   finite[r]))
+
+    def _update(self, params, g, state):
+        """(the update u before the lr and Lamb's trust ratio, the new
+        state tensors)."""
         if self.kind == SGD_OPTIMIZER:
             trace = g + self.momentum * state["trace"]
             u = g + self.momentum * trace if self.nesterov else trace
-            new_state = {"trace": trace}
-        else:
-            if not self.decoupled and self.weight_decay:
-                g = g + self.weight_decay * params  # L2 into the gradient
-            u, new_state = self._adam(g, state)
-            if self.decoupled and self.weight_decay:
-                u = u + self.weight_decay * params
-            if self.kind == LAMB_OPTIMIZER:
-                u = self._trust_ratio(u, params)
+            return u, {"trace": trace}
+        if not self.decoupled and self.weight_decay:
+            g = g + self.weight_decay * params  # L2 into the gradient
+        u, new_state = self._adam(g, state)
+        if self.decoupled and self.weight_decay:
+            u = u + self.weight_decay * params
+        return u, new_state
+
+    def _apply(self, params, update, state, finite):
+        u, new_state = update
+        lr = self.lr_at(state["count"])
         params.add_(torch.where(finite, -lr * u, torch.zeros_like(u)))
         for name, value in new_state.items():
             _select(finite, value, state[name])

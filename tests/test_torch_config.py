@@ -102,7 +102,7 @@ TINY = dict(vocab_size=128, n_positions=64, hidden_size=32, num_layers=2,
     ({"zero_optimization": {"stage": 2, "low_bandwidth": {"qgz_bits": 8}}},
      "A.5"),
     ({"sequence_parallel": {"size": 2}}, "A.9"),
-    ({"mesh": {"model": 2}}, "A.4"),
+    ({"mesh": {"model": 2}}, "A.9"),
     ({"resilience": {"enabled": True}}, "A.13"),
     ({"monitor": {"enabled": True}}, "A.13"),
     ({"analysis": {"mode": "warn"}}, "A.14"),
