@@ -224,14 +224,36 @@ numbers on any host.  After phase 8:
    step's reduce-scatter and all-gather on the engine's buffers (CUDA
    events, and the kernels torch.profiler records of one call).
 
-Then the `kernels` line (launches by path: bf16, int8, train, train_dp,
-train_sparse, train_longseq, fcm) and, last, {"ok": true, "device":
-{...}}.  Without a CUDA device the script exits 1 in phase 1.
+After phase 8 and after phase 15 (checkpoints in the JAX package's
+layout, written under build/ and removed at the phase's end):
+
+16. checkpoint: bench_gpt2's model and config: 3 steps on the batch of
+   `train`, save_checkpoint, 3 more steps (run a); the engine freed, a new
+   one from other weights (seed 1), load_checkpoint, the same 3 steps (run
+   b).  The restored master buffer, Adam's mu, nu and count, the scaler
+   and the generator equal what was saved bitwise, and run b's losses
+   equal run a's bitwise; the launch counters 9 steps' counts.  Then
+   init_inference(checkpoint=) in bf16 and int8 (quantization_setting=1)
+   serves bench_decode's prompt (forward and a generate of 128 tokens):
+   logits and tokens equal, bitwise, those of init_inference(
+   model_parameters=) on the saved weights, the counters A and B, plus C
+   under int8.  Seconds to save and to load (host clock, synchronised),
+   bytes written, GB/s.
+17. checkpoint_dp: one step of train_dp's config (W = 4, ZeRO-2) and a
+   save; the engine freed, a one-rank engine from other weights loads it:
+   the full parameters and optimizer state equal the W = 4 engine's
+   gathered state bitwise; then one step at W = 1.  Save and load seconds
+   and GB/s.
+
+Then the `kernels` line (launches by path: bf16, int8, train, checkpoint,
+train_dp, checkpoint_dp, train_sparse, train_longseq, fcm) and, last,
+{"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
+in phase 1.
 
     python3 chip_smoke.py --dp-only
 
-runs phase 1, the parity cases of kernels A, B, D and E and phases 14
-and 15 alone, the ranks spread over every visible card (one each on a
+runs phase 1, the parity cases of kernels A, B, D and E and phases 14, 15
+and 17 alone, the ranks spread over every visible card (one each on a
 host with four), and prints no `kernels` line.
 
     python3 chip_smoke.py --fcm-only
@@ -244,10 +266,12 @@ four), and prints no `kernels` line.
 import contextlib
 import ctypes
 import json
+import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from dataclasses import replace
@@ -286,7 +310,9 @@ from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_flash import (
     block_sparse_flash_fwd_reference)
 from deepspeed_tpu_torch.ops.transformer import DeepSpeedTransformerLayer
 from deepspeed_tpu_torch.parallel import MeshContext
+from deepspeed_tpu_torch.runtime import checkpoint as ckpt_mod
 from deepspeed_tpu_torch.runtime.comm import low_bandwidth as lb
+from deepspeed_tpu_torch.runtime.fp16.loss_scaler import LossScaleState
 from deepspeed_tpu_torch.runtime.weight_quantizer import (WeightQuantization,
                                                           quantize_weight)
 
@@ -325,6 +351,10 @@ BENCH_GPT2_CONFIG = {
 # mesh over every visible card (all of them on one card of a one-card host)
 DP_WORLD = 4
 DP_GRADS_MICRO = 1  # rows a rank in train_dp_grads
+# checkpoint phases: steps before the save, and after it on each engine;
+# the checkpoints go under the repository's build/ and are removed after
+CKPT_STEPS = 3
+CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 # long-context phases: bench.py::bench_sparse_longseq and bench_longseq
 # (bench.py:1324-1377) through _run_longseq (bench.py:1288-1321)
 LONG_BATCH, LONG_SEQ = 2, 8192
@@ -2839,6 +2869,227 @@ def phase_train_dp(state):
     return counts, summary
 
 
+# --------------------------------------------------------------------- #
+# phases 16 and 17: checkpoints
+# --------------------------------------------------------------------- #
+@contextlib.contextmanager
+def checkpoint_dir():
+    """A fresh directory under build/, removed on exit whether the phase
+    passes or fails."""
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    path = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=CKPT_DIR)
+    try:
+        yield path
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def restorable_state(engine, generators=True):
+    """Host copies of what load_checkpoint restores: the parameters,
+    every optimizer state tensor over the whole buffer (the ranks' ranges
+    gathered), the scaler and, with `generators`, every rank's generator
+    state."""
+    n = engine.num_params
+    host = lambda t: t.detach().to("cpu", copy=True)  # noqa: E731
+    out = {"params": host(engine._flat[:n])}
+    for key, value in engine.opt_state.items():
+        out[key] = (host(value) if key == "count"
+                    else torch.from_numpy(engine._gathered(key)[:n].copy()))
+    for field, value in zip(LossScaleState._fields, engine.scaler_state):
+        out[f"scaler.{field}"] = host(value)
+    if generators:
+        for r, gen in enumerate(engine._rngs):
+            out[f"generator{r}"] = gen.get_state()
+    return out
+
+
+def check_restored(engine, saved, generators=True):
+    got = restorable_state(engine, generators)
+    check(sorted(got) == sorted(saved), f"restored {sorted(got)}, saved "
+          f"{sorted(saved)}")
+    for key, value in saved.items():
+        check(torch.equal(got[key], value),
+              f"the restored {key} differs from what was saved")
+    return sorted(saved)
+
+
+def loss_values(engine, ids, steps):
+    """`steps` forward / backward / step calls; the losses as floats."""
+    losses = []
+    for _ in range(steps):
+        loss = engine.forward(ids)
+        engine.backward(loss)
+        engine.step()
+        losses.append(loss.detach())
+    return [x.item() for x in losses]
+
+
+def timed_save(engine, path, tag):
+    """(seconds, bytes written, split) of one save_checkpoint,
+    synchronised.  The split: the seconds of a separate gather of the
+    state into the host trees the save writes (`gather_seconds`)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine._module_tree(), engine._engine_state()
+    gather_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tag_dir = engine.save_checkpoint(path, tag=tag)
+    seconds = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(tag_dir, f))
+                 for f in os.listdir(tag_dir))
+    return seconds, nbytes, {"gather_seconds": gather_s}
+
+
+def timed_load(engine, path):
+    """(seconds, split) of one load_checkpoint, synchronised.  The split:
+    the seconds of reading the tag's two .npz files alone (`read_seconds`,
+    the files warm in the page cache)."""
+    tag_dir = os.path.join(path, ckpt_mod.read_latest_tag(path))
+    t0 = time.perf_counter()
+    for name in os.listdir(tag_dir):
+        if name.endswith(".npz"):
+            with np.load(os.path.join(tag_dir, name)) as data:
+                [data[k] for k in data.files]
+    read_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.load_checkpoint(path)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, {"read_seconds": read_s}
+
+
+def io_summary(save_s, load_s, nbytes, save_split, load_split):
+    return {"save_seconds": save_s, "load_seconds": load_s,
+            "bytes_written": nbytes,
+            "save_gb_per_s": nbytes / save_s / 1e9,
+            "load_gb_per_s": nbytes / load_s / 1e9,
+            **save_split, **load_split}
+
+
+def add_counts(*counts):
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def serve_from_checkpoint(cfg, path, weights, prompt, quant):
+    """init_inference(checkpoint=path) against init_inference(
+    model_parameters=weights) on the card: the forward's logits and a
+    generate of NEW_TOKENS equal bitwise.  Returns the checkpoint engine's
+    launch counts (the reference engine's runs are not counted)."""
+    ref = dst.init_inference(GPT2Model(cfg), model_parameters=weights,
+                             quantization_setting=quant)
+    ref_logits = ref.forward(prompt)
+    ref_toks = ref.generate(prompt, max_new_tokens=NEW_TOKENS)
+    del ref
+    reset_launch_counts()
+    eng = dst.init_inference(GPT2Model(cfg), checkpoint=path,
+                             quantization_setting=quant)
+    logits = eng.forward(prompt)
+    toks = eng.generate(prompt, max_new_tokens=NEW_TOKENS)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    what = "int8" if quant else "bf16"
+    check(torch.equal(logits, ref_logits), f"{what} logits served from the "
+          "checkpoint differ from model_parameters=")
+    check(torch.equal(toks, ref_toks), f"{what} tokens served from the "
+          "checkpoint differ from model_parameters=")
+    check(bool(torch.isfinite(logits).all()), f"{what}: non-finite logits")
+    n_ln, layers = 2 * cfg.num_layers + 1, cfg.num_layers
+    expected = expected_counts(
+        layer_norm_fwd=n_ln * (1 + NEW_TOKENS),
+        flash_attention_fwd=2 * layers,
+        dequant_matmul=4 * layers * (1 + NEW_TOKENS) if quant else 0)
+    check(counts == expected, f"{what} served from the checkpoint: launch "
+          f"counts {counts}, expected {expected}")
+    return counts
+
+
+def phase_checkpoint(state):
+    """bench_gpt2's run saved and resumed bitwise, then served from the
+    checkpoint in bf16 and int8 (phase 16 of the module docstring)."""
+    cfg = gpt2_124m_train()
+    ids = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    other = init_state(cfg, seed=1)
+    with checkpoint_dir() as path:
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+        engine = train_engine(cfg, state, BENCH_GPT2_CONFIG)
+        before = loss_values(engine, ids, CKPT_STEPS)
+        save_s, nbytes, save_split = timed_save(engine, path, "ckpt")
+        saved = restorable_state(engine)
+        weights = {name: p.detach().cpu().clone()
+                   for name, p in engine.module.named_parameters()}
+        run_a = loss_values(engine, ids, CKPT_STEPS)
+        del engine
+        torch.cuda.empty_cache()
+        engine = train_engine(cfg, other, BENCH_GPT2_CONFIG)
+        load_s, load_split = timed_load(engine, path)
+        restored = check_restored(engine, saved)
+        run_b = loss_values(engine, ids, CKPT_STEPS)
+        torch.cuda.synchronize()
+        train_counts = launch_counts()
+        del engine
+        torch.cuda.empty_cache()
+        check(run_b == run_a, f"resumed losses {run_b} differ from the "
+              f"uninterrupted run's {run_a}")
+        per_step = step_counts(cfg)
+        steps = 3 * CKPT_STEPS
+        check(train_counts == {k: steps * v for k, v in per_step.items()},
+              f"launch counts {train_counts} over {steps} steps, expected "
+              f"{per_step} a step")
+        prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                               generator=torch.Generator().manual_seed(1))
+        served = {what: serve_from_checkpoint(cfg, path, weights, prompt, q)
+                  for what, q in (("bf16", None), ("int8", 1))}
+    counts = add_counts(train_counts, *served.values())
+    return counts, {
+        "steps_before_save": CKPT_STEPS, "losses_before_save": before,
+        "run_a_losses": run_a, "run_b_losses": run_b,
+        "resume_bitwise": True, "restored_bitwise": restored,
+        **io_summary(save_s, load_s, nbytes, save_split, load_split),
+        "served_from_checkpoint": {
+            what: {"logits_and_tokens_bitwise_vs_model_parameters": True,
+                   "launches": c} for what, c in served.items()},
+        "launches_train": train_counts}
+
+
+def phase_checkpoint_dp(state):
+    """One step at train_dp's config (W = 4, ZeRO-2), saved and loaded at
+    W = 1 (phase 17 of the module docstring)."""
+    cfg = gpt2_124m_train()
+    world_ids = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(DP_WORLD * TRAIN_BATCH, TRAIN_SEQ)
+    ).astype(np.int32)
+    other = init_state(cfg, seed=1)
+    with checkpoint_dir() as path:
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+        engine = train_engine(cfg, state, dp_config(TRAIN_BATCH, 2))
+        check(engine.world_size == DP_WORLD, f"the mesh is {engine.mesh}")
+        loss_w4 = loss_values(engine, world_ids, 1)
+        save_s, nbytes, save_split = timed_save(engine, path, "w4")
+        saved = restorable_state(engine, generators=False)
+        del engine
+        torch.cuda.empty_cache()
+        engine = train_engine(cfg, other, BENCH_GPT2_CONFIG)
+        check(engine.world_size == 1, f"the mesh is {engine.mesh}")
+        load_s, load_split = timed_load(engine, path)
+        restored = check_restored(engine, saved, generators=False)
+        loss_w1 = loss_values(engine, world_ids[:TRAIN_BATCH], 1)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        del engine
+        torch.cuda.empty_cache()
+    expected = {k: (DP_WORLD + 1) * v for k, v in step_counts(cfg).items()}
+    check(counts == expected, f"launch counts {counts}, expected {expected}")
+    check(all(np.isfinite(loss_w4 + loss_w1)), "non-finite loss")
+    return counts, {"saved_world": DP_WORLD, "loaded_world": 1,
+                    "loss_w4": loss_w4, "loss_w1_after_load": loss_w1,
+                    "restored_bitwise": restored,
+                    **io_summary(save_s, load_s, nbytes, save_split,
+                                 load_split)}
+
+
 def gpt2_124m_long(**overrides):
     """_run_longseq's model: GPT-2 124M at n_positions = S = 8192, bf16,
     dropout 0.1; `sparse_attention=bigbird()` is bench_sparse_longseq's."""
@@ -2849,10 +3100,10 @@ def bigbird():
     return BigBirdSparsityConfig(**BIGBIRD)
 
 
-def init_state(cfg):
-    """fp32 weights of cfg's model from seed 0, on the CPU."""
+def init_state(cfg, seed=0):
+    """fp32 weights of cfg's model from `seed`, on the CPU."""
     model = GPT2Model(replace(cfg, bf16=False))
-    model.init_params(torch.Generator().manual_seed(0))
+    model.init_params(torch.Generator().manual_seed(seed))
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
@@ -3395,6 +3646,7 @@ def main():
         train_state = init_state(gpt2_124m_train())
         run_phase("train_dp_grads", phase_train_dp_grads, train_state)
         run_phase("train_dp", phase_train_dp, train_state)
+        run_phase("checkpoint_dp", phase_checkpoint_dp, train_state)
         print(card, flush=True)
         return last_line()
     primary = run_phase("parity", phase_parity)
@@ -3419,9 +3671,13 @@ def main():
     run_phase("train_grads", phase_train_grads, train_state)
     path_counts = {"bf16": bf16_counts, "int8": int8_counts,
                    "train": run_phase("train", phase_train, train_state)}
+    path_counts["checkpoint"] = run_phase("checkpoint", phase_checkpoint,
+                                          train_state)
     run_phase("train_dp_grads", phase_train_dp_grads, train_state)
     path_counts["train_dp"] = run_phase("train_dp", phase_train_dp,
                                         train_state)
+    path_counts["checkpoint_dp"] = run_phase("checkpoint_dp",
+                                             phase_checkpoint_dp, train_state)
     del train_state
 
     run_phase("train_sparse_grads", phase_train_sparse_grads)

@@ -11,9 +11,11 @@ Ported so far: serving, and training with ZeRO-1/2 data parallelism over
 the ranks of a single-controller mesh.  `init_inference` ->
 `InferenceEngine` (`forward`, `generate`) over GPT-2, with int8 weights
 under `quantization_setting`; `initialize` -> `DeepSpeedEngine`
-(`forward`, `backward`, `step`, `train_batch`) over GPT-2 in bf16 or fp32,
-on the data-parallel ranks of the config's "mesh" block, of `mesh=` or of
-the mesh `initialize_mesh` registered.
+(`forward`, `backward`, `step`, `train_batch`, `save_checkpoint`,
+`load_checkpoint`) over GPT-2 in bf16 or fp32, on the data-parallel ranks
+of the config's "mesh" block, of `mesh=` or of the mesh `initialize_mesh`
+registered.  Checkpoints are the JAX package's layout, so a run moves
+between the packages; `init_inference(checkpoint=...)` serves one.
 """
 
 import torch
@@ -84,8 +86,10 @@ def init_inference(model, mp_size=1, checkpoint=None, dtype=None,
     """Create an inference engine (deepspeed_tpu.init_inference).
 
     model: a deepspeed_tpu_torch GPT2Model.  model_parameters: its state
-    dict (e.g. from models.convert.gpt2_params_from_jax); None keeps the
-    model's own weights.  dtype: None or the model's compute dtype
+    dict (e.g. from models.convert.gpt2_params_from_jax).  checkpoint: a
+    training checkpoint's directory (either package's layout), whose
+    `latest` tag's module weights are served when model_parameters is
+    None; with neither, the model keeps its own weights.  dtype: None or the model's compute dtype
     (config.bf16 sets it; int8 weights come from quantization_setting, an
     int group count or (mlp_extra_grouping, groups)).  device: None means
     "cuda", which must be present; pass device="cpu" to run the plain
@@ -97,11 +101,6 @@ def init_inference(model, mp_size=1, checkpoint=None, dtype=None,
         raise NotImplementedError(
             f"mp_size={mp_size}: tensor-parallel serving over NCCL is not "
             "ported yet (ROADMAP.md A.12, inference: tensor parallelism)")
-    if checkpoint is not None:
-        raise NotImplementedError(
-            "checkpoint=: loading a checkpoint is not ported yet (ROADMAP.md "
-            "A.12, inference: the checkpoint module); pass "
-            "model_parameters= instead")
     if not isinstance(model, GPT2Model):
         if _is_torch_module(model):
             raise NotImplementedError(
@@ -119,4 +118,5 @@ def init_inference(model, mp_size=1, checkpoint=None, dtype=None,
             "quantization_setting, not dtype")
     device = _resolve_device(device, "init_inference")
     return InferenceEngine(model, quantization_setting=quantization_setting,
-                           model_parameters=model_parameters, device=device)
+                           model_parameters=model_parameters, device=device,
+                           checkpoint=checkpoint)

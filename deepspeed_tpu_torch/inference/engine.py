@@ -2,7 +2,9 @@
 deepspeed_tpu/inference/engine.py).
 
 The engine takes the model over: it loads `model_parameters` into it when
-given, moves it to the device, optionally replaces each layer's four
+given (else the module weights of a training checkpoint, `checkpoint=`: a
+directory of either package's layout, runtime/checkpoint.py), moves it to
+the device, optionally replaces each layer's four
 matmul weights by int8 QuantizedWeights (`quantization_setting`), and
 casts every other non-LayerNorm parameter to the compute dtype ONCE, so
 that the model's per-call `.to(dtype)` casts (the JAX package's `astype`)
@@ -17,6 +19,7 @@ are the later counterpart).
 
 import torch
 
+from ..models.convert import gpt2_params_from_jax, gpt2_params_to_jax
 from ..models.gpt2 import GPT2Model
 from ..ops.transformer_inference import (DeepSpeedTransformerInference,
                                          init_kv_cache)
@@ -33,13 +36,26 @@ def _parse_quantization(setting):
     return False, int(setting)
 
 
+def checkpoint_params(checkpoint, model: GPT2Model):
+    """The model's state dict from the module weights of the checkpoint
+    `latest` names under directory `checkpoint`."""
+    from ..runtime.checkpoint import load_checkpoint_state
+    cfg = model.config
+    template = gpt2_params_to_jax(model.state_dict(), cfg)
+    state, _, _ = load_checkpoint_state(checkpoint, None,
+                                        {"module": template}, None)
+    return gpt2_params_from_jax(state["module"], cfg)
+
+
 class InferenceEngine:
     def __init__(self, model: GPT2Model, quantization_setting=None,
-                 model_parameters=None, device=None):
+                 model_parameters=None, device=None, checkpoint=None):
         self.device = torch.device(device)
         self.module = model
         cfg = model.config
         self.dtype = cfg.dtype
+        if model_parameters is None and checkpoint is not None:
+            model_parameters = checkpoint_params(checkpoint, model)
         if model_parameters is not None:
             model.load_state_dict(model_parameters)
         model.to(self.device)

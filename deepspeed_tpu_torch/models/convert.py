@@ -4,7 +4,9 @@ The JAX tree (deepspeed_tpu/models/gpt2.py GPT2Model.init_params) holds
 `wte` [V, H], `wpe` [P, H], the layer leaves stacked [L, ...] under `h`,
 `ln_f` {`w`, `b`} and, when the embeddings are untied, `lm_head` [H, V].
 Both packages keep the [in, out] weight layout (`x @ W`), so the bridge
-only copies and (un)stacks.  It takes and returns numpy arrays (or
+only copies and (un)stacks.  The training engine's flat master buffer
+crosses the same way (`gpt2_tree_from_flat`, `gpt2_flat_from_tree`), which
+is how a checkpoint holds the parameters and the optimizer's moments.  It takes and returns numpy arrays (or
 anything `np.asarray` reads) and imports nothing of JAX.
 """
 
@@ -17,42 +19,56 @@ from ..ops.transformer import DeepSpeedTransformerLayer
 from .gpt2 import GPT2Config
 
 
-def _tensor(a, shape, name):
-    arr = np.array(a, dtype=np.float32)
+def _named_shapes(config: GPT2Config):
+    """(port parameter name, shape) of every GPT2Model parameter."""
+    h = config.hidden_size
+    out = [("wte", (config.vocab_size, h)), ("wpe", (config.n_positions, h))]
+    layer_shapes = DeepSpeedTransformerLayer.param_shapes(config.layer_config())
+    out += [(f"h.{i}.{name}", tuple(shape))
+            for i in range(config.num_layers)
+            for name, shape in layer_shapes.items()]
+    out += [("ln_f.w", (h,)), ("ln_f.b", (h,))]
+    if not config.tie_word_embeddings:
+        out.append(("lm_head", (h, config.vocab_size)))
+    return out
+
+
+def _jax_leaf(tree, name: str, shape, config: GPT2Config) -> np.ndarray:
+    """The JAX tree's array of port parameter `name` (shape `shape`): a
+    layer parameter `h.<i>.<leaf>` is row i of the stacked leaf."""
+    parts = name.split(".")
+    if parts[0] == "h":
+        label, shape = f"h/{parts[2]}", (config.num_layers,) + tuple(shape)
+        arr = np.asarray(tree["h"][parts[2]])
+    elif parts[0] == "ln_f":
+        label, arr = f"ln_f/{parts[1]}", np.asarray(tree["ln_f"][parts[1]])
+    else:
+        label, arr = name, np.asarray(tree[name])
     if arr.shape != tuple(shape):
-        raise ValueError(f"{name}: shape {arr.shape}, config wants "
+        raise ValueError(f"{label}: shape {arr.shape}, config wants "
                          f"{tuple(shape)}")
-    return torch.from_numpy(arr)
+    return arr[int(parts[1])] if parts[0] == "h" else arr
 
 
 def gpt2_params_from_jax(tree, config: GPT2Config) -> "OrderedDict[str, torch.Tensor]":
     """The port's GPT2Model state dict (fp32 CPU tensors) from the JAX
     parameter tree."""
-    h, n_layers = config.hidden_size, config.num_layers
-    layer_shapes = DeepSpeedTransformerLayer.param_shapes(config.layer_config())
-    out = OrderedDict()
-    out["wte"] = _tensor(tree["wte"], (config.vocab_size, h), "wte")
-    out["wpe"] = _tensor(tree["wpe"], (config.n_positions, h), "wpe")
-    stacked = {name: _tensor(tree["h"][name], (n_layers,) + shape, f"h/{name}")
-               for name, shape in layer_shapes.items()}
-    for i in range(n_layers):
-        for name in layer_shapes:
-            out[f"h.{i}.{name}"] = stacked[name][i].clone()
-    out["ln_f.w"] = _tensor(tree["ln_f"]["w"], (h,), "ln_f/w")
-    out["ln_f.b"] = _tensor(tree["ln_f"]["b"], (h,), "ln_f/b")
-    if not config.tie_word_embeddings:
-        out["lm_head"] = _tensor(tree["lm_head"], (h, config.vocab_size),
-                                 "lm_head")
-    return out
+    return OrderedDict(
+        (name, torch.from_numpy(np.array(_jax_leaf(tree, name, shape, config),
+                                         dtype=np.float32)))
+        for name, shape in _named_shapes(config))
 
 
 def gpt2_params_to_jax(state, config: GPT2Config) -> dict:
     """The JAX parameter tree (fp32 numpy arrays, layer leaves stacked
     [L, ...]) of a port state dict or of anything with the same keys, such
-    as a dict of parameter grads: the inverse of gpt2_params_from_jax."""
+    as a dict of parameter grads or of numpy arrays: the inverse of
+    gpt2_params_from_jax."""
     def arr(name):
-        return np.array(state[name].detach().float().cpu().numpy(),
-                        dtype=np.float32)
+        value = state[name]
+        if isinstance(value, torch.Tensor):
+            value = value.detach().float().cpu().numpy()
+        return np.array(value, dtype=np.float32)
 
     layer_names = DeepSpeedTransformerLayer.param_shapes(config.layer_config())
     tree = {
@@ -65,6 +81,35 @@ def gpt2_params_to_jax(state, config: GPT2Config) -> dict:
     if not config.tie_word_embeddings:
         tree["lm_head"] = arr("lm_head")
     return tree
+
+
+def gpt2_tree_from_flat(flat, named_shapes, config: GPT2Config) -> dict:
+    """The JAX parameter tree of a flat vector laid out as the training
+    engine's master buffer: the parameters of `named_shapes` ((name, shape)
+    in the buffer's order) one after another, each in C order; entries past
+    the last parameter (the ZeRO padding) are ignored.  The optimizer's
+    `mu`, `nu` and `trace` share the layout."""
+    flat = np.asarray(flat)
+    state, off = {}, 0
+    for name, shape in named_shapes:
+        n = int(np.prod(shape))
+        state[name] = flat[off:off + n].reshape(shape)
+        off += n
+    return gpt2_params_to_jax(state, config)
+
+
+def gpt2_flat_from_tree(tree, named_shapes, config: GPT2Config,
+                        size: int = 0) -> np.ndarray:
+    """The inverse of gpt2_tree_from_flat: an fp32 vector of max(`size`,
+    the parameters' count) entries, zero past the last parameter."""
+    total = sum(int(np.prod(shape)) for _, shape in named_shapes)
+    out = np.zeros(max(size, total), dtype=np.float32)
+    off = 0
+    for name, shape in named_shapes:
+        n = int(np.prod(shape))
+        out[off:off + n] = _jax_leaf(tree, name, shape, config).reshape(-1)
+        off += n
+    return out
 
 
 def ranked_from_stacked(stacked, mesh, dtype=None) -> list:

@@ -48,10 +48,21 @@ What it keeps of the JAX engine:
   host: the overflow flag stays on the device (`overflow` reads it).
 - A `torch.Generator` per rank on its device, seeded 42 + r (the JAX
   engine's key is 42), so no two ranks draw the same dropout mask.
+- Checkpoints in the JAX engine's consolidated layout, file for file
+  (`save_checkpoint`, `load_checkpoint`; runtime/checkpoint.py): the
+  module tree, the optax state tree that the JAX chain holds for the
+  config (optimizers.py `jax_state`), the scaler, and the client state.
+  A run moves between the packages in either direction.  The leaves are
+  whole, so a load at any data-parallel world cuts them into its own
+  ranges.  In place of the JAX key `engine_rng`, every rank's generator
+  state is saved (TORCH_RNG_KEY), restored when the world is the same.
 
 What is not ported yet is refused by `refuse_unported` with the ROADMAP.md
-item that will port it.
+item that will port it: among others the sharded checkpoint layout (A.5)
+and the resilience block that would make saves atomic (A.6).
 """
+
+import os
 
 import numpy as np
 import torch
@@ -60,20 +71,27 @@ from torch.func import functional_call
 from .. import constants as C
 from ..config import DeepSpeedConfig, MeshConfig
 from ..config_utils import load_config_dict
+from ..models.convert import gpt2_flat_from_tree, gpt2_tree_from_flat
 from ..parallel import mesh as mesh_mod
 from ..parallel.mesh import ZERO_AXES, MeshContext
 from ..utils.logging import log_dist
 from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
+from . import checkpoint as ckpt_mod
 from .dataloader import DeepSpeedDataLoader
-from .fp16.loss_scaler import create_loss_scaler, update_loss_scale
+from .fp16.loss_scaler import (LossScaleState, create_loss_scaler,
+                               update_loss_scale)
 from .lr_schedules import get_lr_schedule
 from .optimizers import (ONEBIT_ADAM_OPTIMIZER, ONEBIT_LAMB_OPTIMIZER,
                          FlatOptimizer, build_optimizer)
+from .resilience import reshard
 from .zero.partition import ZeroPartitioner
 
 FORWARD_MICRO_TIMER = "forward_microstep"
 BACKWARD_MICRO_TIMER = "backward_microstep"
 STEP_MICRO_TIMER = "step_microstep"
+# client-state key of every rank's torch.Generator state (byte lists in
+# rank order): the counterpart of the JAX engine's `engine_rng` key
+TORCH_RNG_KEY = "torch_rng"
 
 # the mesh axes the engine refuses above 1, with the items that port them
 _UNPORTED_AXES = (("model", "tensor parallelism", "A.9"),
@@ -396,15 +414,222 @@ class DeepSpeedEngine:
     def module_state_dict(self):
         return self.module.state_dict()
 
-    def save_checkpoint(self, *args, **kwargs):
-        raise NotImplementedError(
-            "save_checkpoint is not ported yet (ROADMAP.md A.1b: the JAX "
-            "layout of runtime/checkpoint.py)")
+    # ------------------------------------------------------------------ #
+    # checkpoints in the JAX layout (reference: engine.py:2447-2895)
+    # ------------------------------------------------------------------ #
+    def _named_shapes(self):
+        return [(name, tuple(p.shape)) for name, p in self._named_params]
 
-    def load_checkpoint(self, *args, **kwargs):
-        raise NotImplementedError(
-            "load_checkpoint is not ported yet (ROADMAP.md A.1b: the JAX "
-            "layout of runtime/checkpoint.py)")
+    def _module_tree(self):
+        """The parameters as the JAX tree (fp32 numpy), from rank 0's
+        buffer (every rank holds them whole)."""
+        flat = self._flats[0][:self.num_params].detach().cpu().numpy()
+        return gpt2_tree_from_flat(flat, self._named_shapes(),
+                                   self.module.config)
+
+    def _gathered(self, key):
+        """Optimizer state `key` over the whole buffer: every rank's range
+        in its place (at stage 0 each rank holds it all)."""
+        full = np.empty(self._flats[0].numel(), dtype=np.float32)
+        done = set()
+        for (lo, hi), state in zip(self._ranges, self.opt_states):
+            if (lo, hi) not in done:
+                full[lo:hi] = state[key].detach().cpu().numpy()
+                done.add((lo, hi))
+        return full
+
+    @property
+    def _scheduled(self) -> bool:
+        return hasattr(self.optimizer.lr, "lr_at")
+
+    def _engine_state(self):
+        """{"optimizer": the optax state tree the JAX engine holds for
+        this config, "scaler": the loss scaler's state}, as numpy."""
+        shapes, cfg = self._named_shapes(), self.module.config
+        leaves = {key: gpt2_tree_from_flat(self._gathered(key), shapes, cfg)
+                  for key in self.opt_state if key != "count"}
+        count = self.opt_state["count"].detach().cpu().numpy()
+        return {"optimizer": self.optimizer.jax_state(leaves, count,
+                                                      self._scheduled),
+                "scaler": LossScaleState(*(t.detach().cpu().numpy()
+                                           for t in self.scaler_state))}
+
+    def _partition_topology(self):
+        """The partition topology every checkpoint records (reshard.py)."""
+        topo = self.zero_partitioner.topology()
+        topo.update({"format_version": reshard.TOPOLOGY_FORMAT_VERSION,
+                     "process_count": 1, "layout": "consolidated"})
+        return topo
+
+    @staticmethod
+    def _check_tag(tag):
+        """'.tmp.' and '.old.' name the atomic protocol's working
+        directories (resilience/atomic.py): such a tag would be invisible
+        to tag discovery.  (Tags agree across processes trivially: the
+        port runs one.)"""
+        if ".tmp." in str(tag) or ".old." in str(tag):
+            raise ValueError(
+                f"checkpoint tag {tag!r} contains a reserved marker ('.tmp.' "
+                "/ '.old.' name in-flight checkpoint dirs); pick another tag")
+
+    def _refuse_sharded(self):
+        if self.config.checkpoint_config.sharded:
+            _refuse("checkpoint.sharded: true (the per-process sharded "
+                    "checkpoint layout, runtime/sharded_checkpoint.py)", "A.5")
+
+    def save_checkpoint(self, save_dir, tag=None, client_state=None,
+                        save_latest=True):
+        """Write the JAX engine's consolidated layout under
+        <save_dir>/<tag>/ (tag default: global_step<N>): the module tree,
+        the optimizer and scaler state, and the client state with the
+        engine's counters, the LR schedule, the batch triple, the
+        data-parallel world, the partition topology and every rank's
+        generator state (TORCH_RNG_KEY).  `latest` always moves to the
+        tag: as in the JAX engine's consolidated layout, `save_latest` is
+        not honoured (ROADMAP.md C).  Returns the tag's directory."""
+        if tag is None:
+            tag = f"global_step{self.global_steps}"
+        self._check_tag(tag)
+        self._refuse_sharded()
+        client = dict(client_state or {})
+        sched = self.lr_scheduler
+        client.update({
+            "global_steps": self.global_steps,
+            "micro_steps": self.micro_steps,
+            "skipped_steps": self.skipped_steps,
+            "lr_scheduler": (sched.state_dict()
+                             if hasattr(sched, "state_dict") else None),
+            "ds_config_batch": [self.train_batch_size(),
+                                self.train_micro_batch_size_per_gpu(),
+                                self.gradient_accumulation_steps()],
+            "dp_world_size": self.world_size,
+            # MoQ and curriculum learning are refused (A.13)
+            "quantizer": None,
+            "curriculum": None,
+            TORCH_RNG_KEY: [g.get_state().tolist() for g in self._rngs],
+            reshard.TOPOLOGY_KEY: self._partition_topology(),
+        })
+        path = ckpt_mod.save_checkpoint_state(
+            save_dir, tag, module_state={"module": self._module_tree()},
+            optimizer_state=self._engine_state(), client_state=client)
+        log_dist(f"saved checkpoint {path}", ranks=[0])
+        return path
+
+    def _set_full(self, buffers, full):
+        """Copy a full padded fp32 vector into each rank's range of
+        `buffers` (one tensor a rank, covering its range)."""
+        full = torch.from_numpy(full)
+        for r, ((lo, hi), buf) in enumerate(zip(self._ranges, buffers)):
+            part = full if buf.numel() == full.numel() else full[lo:hi]
+            buf.copy_(part.to(self.mesh.device_of(r)))
+
+    @torch.no_grad()
+    def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,
+                        load_optimizer_states=True,
+                        load_lr_scheduler_states=True,
+                        load_module_only=False):
+        """Load a checkpoint of either package's consolidated layout (tag
+        None: the one `latest` names) at this engine's data-parallel world,
+        whatever the world it was saved at: the topology is checked first
+        (reshard.check_reshard), the module tree goes into every rank's
+        buffer, the optimizer state is cut into this engine's ranges.  The
+        scaler, the LR schedule's state, the counters and (when the saved
+        world equals this one) every rank's generator are restored.
+        Returns (the tag's directory, the client state)."""
+        resolved = tag or ckpt_mod.read_latest_tag(load_dir)
+        saved_client = reshard.read_saved_client_state(load_dir,
+                                                       str(resolved))
+        reshard.check_reshard(str(resolved), saved_client,
+                              self._partition_topology(),
+                              current_world_size=self.world_size)
+        if os.path.isfile(os.path.join(load_dir, str(resolved),
+                                       "model_index.json")):
+            _refuse("loading the sharded checkpoint layout", "A.5")
+        opt_tmpl = (None if load_module_only or not load_optimizer_states
+                    else self._engine_state())
+        module_state, opt_state, client = ckpt_mod.load_checkpoint_state(
+            load_dir, resolved, {"module": self._module_tree()}, opt_tmpl,
+            strict=load_module_strict)
+        shapes, cfg = self._named_shapes(), self.module.config
+        padded = self._flats[0].numel()
+        self._set_full(self._flats, gpt2_flat_from_tree(
+            module_state["module"], shapes, cfg, padded))
+        if opt_state is not None:
+            leaves, count = self.optimizer.from_jax_state(
+                opt_state["optimizer"], self._scheduled)
+            if count is None:  # optax's SGD without a schedule keeps none
+                count = (client.get("global_steps", 0)
+                         - client.get("skipped_steps", 0))
+            for key, tree in leaves.items():
+                self._set_full([s[key] for s in self.opt_states],
+                               gpt2_flat_from_tree(tree, shapes, cfg, padded))
+            for state in self.opt_states:
+                state["count"].fill_(int(count))
+            self.scaler_state = LossScaleState(
+                *(torch.from_numpy(np.array(v)).to(self.device)
+                  for v in opt_state["scaler"]))
+        if load_lr_scheduler_states and self.lr_scheduler is not None \
+                and client.get("lr_scheduler"):
+            self.lr_scheduler.load_state_dict(client["lr_scheduler"])
+        if not load_module_only:
+            self.global_steps = client.get("global_steps", 0)
+            self.micro_steps = client.get("micro_steps", 0)
+            self.skipped_steps = client.get("skipped_steps", 0)
+            self._load_generators(client.get(TORCH_RNG_KEY))
+        for r, grad in enumerate(self._flat_grads):
+            grad.zero_()
+            if self._scatter_each_micro:
+                self._acc[r].zero_()
+            else:
+                self._acc[r] = None
+        self._last_loss = self._rank_losses = self._last_overflow = None
+        path = os.path.join(load_dir, str(resolved))
+        log_dist(f"loaded checkpoint {path}", ranks=[0])
+        return path, client
+
+    def _load_generators(self, saved):
+        """Every rank's generator from the saved states, when there is one
+        a rank of this engine and each fits its generator (a checkpoint of
+        the JAX engine holds a JAX key instead, which is logged)."""
+        current = [g.get_state() for g in self._rngs]
+        if saved is None or len(saved) != len(current) or any(
+                len(s) != c.numel() for s, c in zip(saved, current)):
+            log_dist("generator states not restored: the checkpoint holds "
+                     f"{'none' if saved is None else len(saved)} for "
+                     f"{len(current)} ranks of this engine (dropout draws "
+                     "continue from the engine's seeds)", ranks=[0])
+            return
+        for g, s in zip(self._rngs, saved):
+            g.set_state(torch.tensor(s, dtype=torch.uint8))
+
+    @torch.no_grad()
+    def load_module_state_dict(self, state_dict, strict=True):
+        """Copy a module state dict (the port's parameter names, as
+        `module_state_dict` returns) into every rank's fp32 master."""
+        names = [name for name, _ in self._named_params]
+        missing = [n for n in names if n not in state_dict]
+        unexpected = [k for k in state_dict if k not in self._leaves[0]]
+        if strict and (missing or unexpected):
+            raise KeyError(f"state dict mismatch: missing {missing[:5]}, "
+                           f"unexpected {unexpected[:5]}")
+        for leaves in self._leaves:
+            for name in names:
+                if name in state_dict:
+                    leaves[name].copy_(torch.as_tensor(state_dict[name]))
+
+    def save_fp16_model(self, save_dir, save_filename="model_weights.npz"):
+        """The module's weights in fp16, one .npz keyed by the JAX tree's
+        paths (the JAX engine's export for serving).  Returns its path."""
+        os.makedirs(save_dir, exist_ok=True)
+        path = os.path.join(save_dir, save_filename)
+        arrays = {name: arr.astype(np.float16)
+                  if np.issubdtype(arr.dtype, np.floating) else arr
+                  for name, arr in ckpt_mod.flatten(
+                      self._module_tree()).items()}
+        np.savez(path, **arrays)
+        log_dist(f"saved {len(arrays)} half-precision weight arrays to "
+                 f"{path}", ranks=[0])
+        return path
 
     # ------------------------------------------------------------------ #
     # construction helpers

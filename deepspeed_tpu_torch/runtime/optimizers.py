@@ -29,6 +29,18 @@ follows optax exactly where the JAX package relies on it:
 whose gradients are not finite leaves the parameters and every state
 tensor, its count too, exactly as they were, with no host round trip.
 
+The state is `count` plus `mu` / `nu` (Adam, AdamW, Lamb) or `trace`
+(SGD).  A checkpoint holds it in the JAX layout (`jax_state`,
+`from_jax_state`): the optax state that the JAX package's
+`build_optimizer` chain gives for the same config.  The chain decides
+the path, for example `[0].mu` for AdamW and `[1].mu` for Adam without
+decoupled decay (its decay or identity comes first), `[1][0].mu` under
+gradient clipping (the clip comes first), and a schedule adds its own
+`count` at the chain's last place.  optax's SGD keeps no count: without a
+schedule a JAX checkpoint holds none, and the engine restores the port's
+`count` from the client state's `global_steps - skipped_steps` (SGD
+without a schedule reads its count nowhere).
+
 Under ZeRO (runtime/zero/partition.py) each data-parallel rank updates
 only its range of the flat buffer (`step_ranks`).  The math is
 elementwise except for two global reductions, which the ranks' partial
@@ -39,7 +51,8 @@ rank uses the same summed value.
 """
 
 import contextlib
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import torch
 
@@ -55,6 +68,23 @@ DEEPSPEED_OPTIMIZERS = [
     ADAM_OPTIMIZER, ADAMW_OPTIMIZER, LAMB_OPTIMIZER, ONEBIT_ADAM_OPTIMIZER,
     ONEBIT_LAMB_OPTIMIZER, DEEPSPEED_ADAM, SGD_OPTIMIZER,
 ]
+
+
+class ScaleByAdamState(NamedTuple):
+    """optax.scale_by_adam's state: its fields name the checkpoint keys."""
+    count: Any
+    mu: Any
+    nu: Any
+
+
+class TraceState(NamedTuple):
+    """optax.trace's state (SGD's momentum)."""
+    trace: Any
+
+
+class ScaleByScheduleState(NamedTuple):
+    """optax.scale_by_schedule's state (a schedule's step count)."""
+    count: Any
 
 
 def _select(finite, new, old):
@@ -94,6 +124,52 @@ class FlatOptimizer:
             state["mu"] = torch.zeros_like(params)
             state["nu"] = torch.zeros_like(params)
         return state
+
+    # -- the optax state of the JAX package's chain ------------------- #
+    def _chain(self) -> Tuple[int, int]:
+        """(length, place of the Adam / trace state) of the optax chain
+        that deepspeed_tpu's build_optimizer makes for this optimizer: sgd
+        = (trace, lr); adamw and decoupled adam = (adam, decay, lr); adam
+        with L2 or no decay = (decay or identity, adam, lr); lamb = (adam,
+        decay, trust ratio, lr)."""
+        if self.kind == SGD_OPTIMIZER:
+            return 2, 0
+        if self.kind == LAMB_OPTIMIZER:
+            return 4, 0
+        if self.kind == ADAMW_OPTIMIZER or (self.decoupled
+                                            and self.weight_decay):
+            return 3, 0
+        return 3, 1
+
+    @property
+    def _clipped(self) -> bool:
+        return bool(self.gradient_clipping and self.gradient_clipping > 0)
+
+    def jax_state(self, leaves: Dict[str, Any], count, scheduled: bool):
+        """The optax state tree of the JAX package for this optimizer:
+        `leaves` maps "mu" / "nu" or "trace" to parameter trees, `count` is
+        the applied-step count, `scheduled` whether the lr is a schedule
+        (whose state holds a count of its own).  Stateless links of the
+        chain are empty tuples, which hold no checkpoint key."""
+        length, core_at = self._chain()
+        chain = [()] * length
+        chain[core_at] = (TraceState(leaves["trace"])
+                          if self.kind == SGD_OPTIMIZER else
+                          ScaleByAdamState(count, leaves["mu"], leaves["nu"]))
+        if scheduled:
+            chain[-1] = ScaleByScheduleState(count)
+        chain = tuple(chain)
+        return ((), chain) if self._clipped else chain
+
+    def from_jax_state(self, tree, scheduled: bool):
+        """({"mu", "nu"} or {"trace"} parameter trees, the count or None)
+        of an optax state tree laid out as `jax_state` lays it out."""
+        chain = tree[1] if self._clipped else tree
+        core = chain[self._chain()[1]]
+        if self.kind == SGD_OPTIMIZER:
+            count = chain[-1].count if scheduled else None
+            return {"trace": core.trace}, count
+        return {"mu": core.mu, "nu": core.nu}, core.count
 
     def lr_at(self, count):
         if hasattr(self.lr, "lr_at"):

@@ -25,9 +25,48 @@ Lamb's per-parameter norms, which the optimizer sums across the ranges
 """
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 from ...parallel.mesh import MESH_AXES, ZERO_AXES, MeshContext
+
+
+# ---------------------------------------------------------------------- #
+# partition topology: the saved-vs-requested contract behind checkpoints
+# that load at another mesh shape (runtime/resilience/reshard.py)
+# ---------------------------------------------------------------------- #
+def topology_reshard_problems(saved: Dict[str, Any],
+                              current: Dict[str, Any]) -> List[str]:
+    """Problems mapping a partition topology saved at one mesh shape onto
+    the current one ([] = reshardable).  A layout keyed by global slices
+    reshards along the ZeRO (data / expert) axes only: the other axes
+    (pipe / seq / model) change which values a leaf's dimensions hold.
+    The zero stage may differ (the stored values are whole); callers log
+    that."""
+    problems: List[str] = []
+    saved_mesh = dict(saved.get("mesh") or {})
+    cur_mesh = dict(current.get("mesh") or {})
+    for axis in MESH_AXES:
+        if axis in ZERO_AXES:
+            continue
+        s = int(saved_mesh.get(axis, 1))
+        c = int(cur_mesh.get(axis, 1))
+        if s != c:
+            problems.append(
+                f"mesh axis {axis!r} resized {s} -> {c}: only the ZeRO "
+                f"axes {ZERO_AXES} are reshape-portable (a non-ZeRO axis "
+                "resize changes which values each shard holds)")
+    return problems
+
+
+def topologies_equal(saved: Dict[str, Any], current: Dict[str, Any]) -> bool:
+    """True when two partition topologies agree in every field that shapes
+    the step's collectives: mesh axis sizes, zero stage, hpZ group."""
+    def key(t):
+        mesh = {a: int((t.get("mesh") or {}).get(a, 1)) for a in MESH_AXES}
+        return (tuple(sorted(mesh.items())),
+                int(t.get("zero_stage") or 0),
+                int(t.get("hpz_group_size") or 0))
+    return key(saved) == key(current)
 
 
 class ZeroPartitioner:

@@ -159,13 +159,25 @@ class _HFLikeModule(nn.Module):
 
 @pytest.mark.parametrize("kwargs,match", [
     (dict(mp_size=2), "tensor parallel"),
-    (dict(checkpoint="ckpt_dir"), "checkpoint"),
     (dict(model=_HFLikeModule()), "module_inject"),
 ])
 def test_unported_arguments_raise(kwargs, match):
     kwargs.setdefault("model", GPT2Model(GPT2Config(**TINY)))
     with pytest.raises(NotImplementedError, match=match):
         dst.init_inference(device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs,error,match", [
+    (dict(checkpoint="missing_ckpt_dir"), FileNotFoundError, "latest"),
+])
+def test_bad_arguments_raise(tmp_path, kwargs, error, match):
+    """A checkpoint directory with no `latest` raises rather than serving
+    the model's own weights."""
+    kwargs = {k: str(tmp_path / v) if k == "checkpoint" else v
+              for k, v in kwargs.items()}
+    with pytest.raises(error, match=match):
+        dst.init_inference(GPT2Model(GPT2Config(**TINY)), device="cpu",
+                           **kwargs)
 
 
 def test_dtype_int8_is_refused():
