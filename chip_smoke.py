@@ -245,8 +245,36 @@ layout, written under build/ and removed at the phase's end):
    gathered state bitwise; then one step at W = 1.  Save and load seconds
    and GB/s.
 
+After phase 17, one process a card (torch.distributed over NCCL):
+
+18. train_mp_grads: W = torch.cuda.device_count() worker processes of
+   this script, started by `python -m torch.distributed.run --standalone
+   --nproc_per_node W` (`--mp-worker`), each joining the group through
+   `dst.init_distributed()` from torchrun's env (on one card the world is
+   one process, which init_distributed leaves alone as the JAX module
+   does: the worker then opens the one-process NCCL group itself, since
+   NCCL refuses two ranks on one card).  GPT-2 124M (dropout off, bf16),
+   1 row a process, one forward / backward / step at ZeRO-2 and ZeRO-1,
+   against the single-controller engine in this process at "mesh":
+   {"data": W} over the same cards on the same global rows: the losses,
+   the grad ranges and the parameters after the step bitwise (predicted;
+   the phase reports which are, and holds the rest at 2e-2 / 5e-2);
+   every process's parameters equal, ZeRO-1 = ZeRO-2; each process's
+   launch counters one step's counts.
+19. train_mp: bench_gpt2's step (ZeRO-2, micro-batch 8 a process, dropout
+   0.1 in kernel B) in W processes on the global batch
+   RandomState(0).randint(0, 50304, (8W, 1024)), each process its rows,
+   timed in every process as train: global and per-card tokens/s, ms a
+   step, MFU over the cards, host issue ms, one profiled step's device ms,
+   peak memory a card, each process's launch counters, and the device ms
+   (CUDA events, the processes lined up by a barrier) of one step's
+   reduce-scatter and all-gather over the group beside NCCL's own
+   `reduce_scatter_tensor` on the same buffer.  A worker that fails, or a
+   group that outlives its deadline, fails the phase.
+
 Then the `kernels` line (launches by path: bf16, int8, train, checkpoint,
-train_dp, checkpoint_dp, train_sparse, train_longseq, fcm) and, last,
+train_dp, checkpoint_dp, train_mp (every process's launches summed),
+train_sparse, train_longseq, fcm) and, last,
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
 in phase 1.
 
@@ -255,6 +283,11 @@ in phase 1.
 runs phase 1, the parity cases of kernels A, B, D and E and phases 14, 15
 and 17 alone, the ranks spread over every visible card (one each on a
 host with four), and prints no `kernels` line.
+
+    python3 chip_smoke.py --mp-only
+
+runs phase 1, the parity cases of kernels A, B, D and E and phases 18
+and 19 alone, one process a visible card, and prints no `kernels` line.
 
     python3 chip_smoke.py --fcm-only
 
@@ -265,10 +298,12 @@ four), and prints no `kernels` line.
 
 import contextlib
 import ctypes
+import hashlib
 import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -278,6 +313,7 @@ from dataclasses import replace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 import deepspeed_tpu_torch as dst
@@ -619,11 +655,12 @@ def fcm_tensor_core_sass(lib_path):
 _flush = None
 
 
-def time_ms(fn):
+def time_ms(fn, before=None):
     """Median device ms of one call, CUDA events, L2 flushed before each
     run.  A spin kernel keeps the card busy while the host enqueues the
     call, so that the events measure the device's time and not the host's
-    launch cost (host_us measures that)."""
+    launch cost (host_us measures that).  before(), when given, runs
+    first in every run (the processes' barrier of a collective)."""
     fn()
     fn()
     torch.cuda.synchronize()
@@ -631,6 +668,8 @@ def time_ms(fn):
     end = torch.cuda.Event(enable_timing=True)
     times = []
     for _ in range(TIMED_RUNS):
+        if before is not None:
+            before()
         _cold_l2()
         torch.cuda._sleep(SPIN_CYCLES)
         start.record()
@@ -2628,21 +2667,25 @@ def timed_training(cfg, state, ds_config, warmup, iters):
     _time_steps times it: warmup steps, then `iters` forward / backward /
     step calls on the host clock, closed by fetching the last loss.  Every
     loss finite, the final below the first, the launch counters exact (a
-    step's counts on every rank); the host's time to issue a step after a
-    synchronisation; then one step under torch.profiler.  Returns the
-    engine too."""
+    step's counts on every rank this process drives); the host's time to
+    issue a step after a synchronisation; then one step under
+    torch.profiler.  Under a process world each process feeds its ranks'
+    rows of the global batch, and the rates count the global batch over
+    every process's cards.  Returns the engine too."""
     micro, seq = ds_config["train_micro_batch_size_per_gpu"], cfg.n_positions
-    cards = range(torch.cuda.device_count())
+    cards = ([torch.cuda.current_device()] if dist.is_initialized()
+             else range(torch.cuda.device_count()))
     torch.cuda.empty_cache()
-    base = []
+    base = {}
     for d in cards:
         torch.cuda.reset_peak_memory_stats(d)
-        base.append(torch.cuda.memory_allocated(d))
+        base[d] = torch.cuda.memory_allocated(d)
     engine = train_engine(cfg, state, ds_config)
-    world = engine.world_size
+    world, local = engine.world_size, engine.local_ranks
     batch = micro * world
     ids = np.random.RandomState(0).randint(
         0, cfg.vocab_size, size=(batch, seq)).astype(np.int32)
+    ids = ids[local[0] * micro:(local[-1] + 1) * micro]  # this process's
 
     def step():
         loss = engine.forward(ids)
@@ -2660,7 +2703,7 @@ def timed_training(cfg, state, ds_config, warmup, iters):
     seconds = time.perf_counter() - t0
     counts = launch_counts()
     n_steps = warmup + iters
-    per_step = {k: world * v for k, v in step_counts(cfg).items()}
+    per_step = {k: len(local) * v for k, v in step_counts(cfg).items()}
     check(counts == {k: n_steps * v for k, v in per_step.items()},
           f"launch counts {counts} over {n_steps} steps, expected "
           f"{per_step} per step")
@@ -2676,18 +2719,19 @@ def timed_training(cfg, state, ds_config, warmup, iters):
         step()
         issue_ms.append((time.perf_counter() - t1) * 1e3)
     torch.cuda.synchronize()
-    used = sorted({engine.mesh.device_of(r).index for r in range(world)})
+    used = sorted({engine.mesh.device_of(r).index for r in local})
+    n_cards = len(used) * engine.mesh.process_count
     tokens_per_s = iters * batch * seq / seconds
-    peak = PEAK_OPS_PER_S[torch.bfloat16] * len(used)
+    peak = PEAK_OPS_PER_S[torch.bfloat16] * n_cards
     peaks = {d: (torch.cuda.max_memory_allocated(d) - base[d]) / 2 ** 30
              for d in used}
     wall_ms, busy_ms, ops, kernels = _profile_once(step)
     top = sorted(ops.items(), key=lambda kv: -kv[1])[:6]
     return counts, {
         "batch": [batch, seq], "data_parallel_world": world,
-        "cards_used": len(used),
+        "cards_used": n_cards,
         "tokens_per_s": tokens_per_s,
-        "tokens_per_s_per_card": tokens_per_s / len(used),
+        "tokens_per_s_per_card": tokens_per_s / n_cards,
         "ms_per_step": seconds / iters * 1e3,
         "host_issue_ms_per_step": float(np.median(issue_ms)),
         "host_issue_ms_each": issue_ms,
@@ -2716,12 +2760,12 @@ def phase_train(state):
 # --------------------------------------------------------------------- #
 # phases 14 and 15: ZeRO-1/2 data parallelism over W ranks
 # --------------------------------------------------------------------- #
-def dp_config(micro, stage):
+def dp_config(micro, stage, world=DP_WORLD):
     """bench_gpt2's config at `micro` rows a rank and ZeRO `stage` on a
-    mesh of DP_WORLD data-parallel ranks."""
+    mesh of `world` data-parallel ranks."""
     return dict(BENCH_GPT2_CONFIG, train_micro_batch_size_per_gpu=micro,
                 zero_optimization={"stage": stage},
-                mesh={"data": DP_WORLD})
+                mesh={"data": world})
 
 
 def check_ranks(engine):
@@ -3088,6 +3132,290 @@ def phase_checkpoint_dp(state):
                     "restored_bitwise": restored,
                     **io_summary(save_s, load_s, nbytes, save_split,
                                  load_split)}
+
+
+# --------------------------------------------------------------------- #
+# phases 18 and 19: one process a card (torch.distributed, NCCL)
+# --------------------------------------------------------------------- #
+MP_TIMEOUT_S = {"train_mp_grads": 600, "train_mp": 900}
+
+
+@contextlib.contextmanager
+def mp_dir():
+    """A fresh directory under build/ for the workers' results, removed on
+    exit."""
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    path = tempfile.mkdtemp(prefix="chip_smoke_mp_", dir=CKPT_DIR)
+    try:
+        yield path
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def launch_mp(phase, out_dir):
+    """Run `phase`'s worker in W = torch.cuda.device_count() processes of
+    this script, one a card, through torchrun (`python -m
+    torch.distributed.run --standalone`); each joins the group by
+    init_distributed from torchrun's env.  A worker that fails, or a group
+    that outlives MP_TIMEOUT_S[phase], fails the phase (the group's
+    processes killed).  Returns each rank's result."""
+    world = torch.cuda.device_count()
+    log_path = os.path.join(out_dir, "torchrun.log")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={world}", os.path.abspath(__file__),
+           "--mp-worker", phase, out_dir]
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                start_new_session=True,
+                                cwd=os.path.dirname(os.path.abspath(__file__)))
+        try:
+            code = proc.wait(timeout=MP_TIMEOUT_S[phase])
+        except subprocess.TimeoutExpired:
+            code = f"killed after {MP_TIMEOUT_S[phase]} s"
+        finally:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    if code != 0:
+        with open(log_path) as f:
+            tail = f.read()[-4000:]
+        print(tail, file=sys.stderr, flush=True)
+        raise SmokeFailure(f"{phase}: the {world} worker processes failed "
+                           f"(torchrun: {code}); log tail: {tail[-600:]}")
+    results = []
+    for rank in range(world):
+        with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def mp_worker(phase, out_dir):
+    """One worker process of `phase` (run by launch_mp under torchrun): it
+    joins the group through init_distributed, runs its part and writes
+    rank<r>.json into out_dir."""
+    dst.init_distributed()
+    if not dist.is_initialized():
+        # a world of one process: init_distributed leaves it alone, as the
+        # JAX module does, so open the one-process NCCL group here for the
+        # phase to run the process-group transport all the same
+        dist.init_process_group("nccl", rank=0, world_size=1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    op_builder.load()
+    result = MP_WORKERS[phase](out_dir)
+    with open(os.path.join(out_dir, f"rank{dist.get_rank()}.json"),
+              "w") as f:
+        json.dump(result, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def sha256(tensor):
+    return hashlib.sha256(tensor.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def grad_ranges(engine):
+    """The summed grads of the ranges this process's ranks step (fp32):
+    the ZeRO-2 accumulator, or the full grad buffer's range."""
+    return [acc.float() if acc is not None else grad[lo:hi]
+            for acc, grad, (lo, hi) in zip(engine._acc, engine._flat_grads,
+                                           engine._ranges)]
+
+
+def grads_step(engine, rows):
+    """One forward / backward / step of `rows` on a fresh count: (loss, the
+    grad ranges before the step, the launch counts)."""
+    reset_launch_counts()
+    loss = engine.forward(rows)
+    engine.backward(loss)
+    grads = torch.cat([g.to(engine.device) for g in grad_ranges(engine)])
+    engine.step()
+    torch.cuda.synchronize()
+    return loss.item(), grads, launch_counts()
+
+
+def mp_grads_ids(cfg, world):
+    return torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (world * DP_GRADS_MICRO, TRAIN_SEQ)))
+
+
+def mp_grads_worker(out_dir):
+    """train_mp_grads in one process: its DP_GRADS_MICRO rows of the
+    global batch through one step at ZeRO-2 and ZeRO-1."""
+    cfg = gpt2_124m_train(embd_dropout=0.0, attn_dropout=0.0,
+                          hidden_dropout=0.0)
+    state = init_state(gpt2_124m_train())
+    world, rank = dist.get_world_size(), dist.get_rank()
+    rows = mp_grads_ids(cfg, world)[rank * DP_GRADS_MICRO:
+                                    (rank + 1) * DP_GRADS_MICRO]
+    out = {"rank": rank, "world": world,
+           "device": torch.cuda.current_device()}
+    for stage in (2, 1):
+        engine = train_engine(cfg, state, dp_config(DP_GRADS_MICRO, stage,
+                                                    world))
+        check(engine.local_ranks == [rank]
+              and engine.mesh.process_count == world,
+              f"the mesh is {engine.mesh}")
+        loss, grads, counts = grads_step(engine, rows)
+        out[f"zero{stage}"] = {
+            "loss": loss, "params_sha256": sha256(engine._flat),
+            "launches": counts, "realigned": realign_counts()}
+        if stage == 2:
+            torch.save(grads.cpu(), os.path.join(out_dir, f"grads{rank}.pt"))
+            if rank == 0:
+                torch.save(engine._flat[:engine.num_params].cpu(),
+                           os.path.join(out_dir, "params0.pt"))
+        del engine
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_mp_grads(state):
+    """One forward / backward / step of GPT-2 124M (dropout off, bf16) in W
+    = every visible card processes, one rank each, DP_GRADS_MICRO rows a
+    process, at ZeRO-2 and ZeRO-1, against the single-controller engine
+    in this process at "mesh": {"data": W} over the same cards on the same
+    global rows: the losses, the grad ranges and the parameters after the
+    step bitwise (predicted; held at the training tolerances, and
+    reported, if not), ZeRO-1 = ZeRO-2 bitwise, every process's launch
+    counters one step's counts."""
+    cfg = gpt2_124m_train(embd_dropout=0.0, attn_dropout=0.0,
+                          hidden_dropout=0.0)
+    torch.cuda.empty_cache()
+    with mp_dir() as out_dir:
+        results = launch_mp("train_mp_grads", out_dir)
+        world = len(results)
+        grads = torch.cat([torch.load(os.path.join(out_dir, f"grads{r}.pt"))
+                           for r in range(world)])
+        params = torch.load(os.path.join(out_dir, "params0.pt"))
+    ids = mp_grads_ids(cfg, world)
+    ref = {}
+    for stage in (2, 1):
+        engine = train_engine(cfg, state, dp_config(DP_GRADS_MICRO, stage,
+                                                    world))
+        loss, stage_grads, _ = grads_step(engine, ids)
+        ref[stage] = {"loss": loss, "params_sha256": sha256(engine._flat)}
+        if stage == 2:
+            ref_grads = stage_grads.cpu()
+            ref_params = engine._flat[:engine.num_params].cpu()
+        del engine
+        torch.cuda.empty_cache()
+    expected = step_counts(cfg)
+    for res in results:
+        for stage in (2, 1):
+            got = res[f"zero{stage}"]
+            check(got["launches"] == expected,
+                  f"rank {res['rank']} ZeRO-{stage} launches "
+                  f"{got['launches']}, expected {expected}")
+            check(not any(got["realigned"].values()),
+                  f"rank {res['rank']}: realigned {got['realigned']}")
+    check(len({res["device"] for res in results}) == world,
+          f"the processes share cards: {[r['device'] for r in results]}")
+    digests = {res[f"zero{s}"]["params_sha256"]
+               for res in results for s in (2, 1)}
+    check(len(digests) == 1, "the processes' parameters differ after the "
+          "step, or ZeRO-1 from ZeRO-2")
+    losses = {res[f"zero{s}"]["loss"] for res in results for s in (2, 1)}
+    bitwise = {"loss": losses == {ref[2]["loss"]} == {ref[1]["loss"]},
+               "grads": torch.equal(grads, ref_grads),
+               "params": digests == {ref[2]["params_sha256"]}
+               == {ref[1]["params_sha256"]}}
+    errs = {"loss": max(abs(x - ref[2]["loss"]) for x in losses)
+            / abs(ref[2]["loss"]),
+            "grads": rel_err(grads, ref_grads),
+            "params": rel_err(params, ref_params)}
+    check(errs["loss"] <= LOSS_REL_TOL and errs["grads"] <= GRAD_REL_TOL
+          and errs["params"] <= GRAD_REL_TOL,
+          f"processes vs the single controller: {errs}")
+    return None, {
+        "world": world, "rows_a_process": DP_GRADS_MICRO,
+        "loss": results[0]["zero2"]["loss"],
+        "single_controller_loss": ref[2]["loss"],
+        "bitwise_vs_single_controller": bitwise,
+        "rel_err_vs_single_controller": errs,
+        "held_at": "bitwise predicted; max|d| / max|ref| loss 2e-2, grads "
+                   "and parameters 5e-2 otherwise",
+        "zero1_zero2_bitwise": True, "launches_per_step_a_process": expected}
+
+
+def mp_collectives_ms(engine):
+    """One step's ZeRO-2 reduce-scatter of the grad buffer and all-gather
+    of the parameter ranges over the process group, on the engine's own
+    buffers, and NCCL's own `reduce_scatter_tensor` (ring order, not rank
+    order: the library yardstick, not used by the engine) on the same
+    buffer: device ms by CUDA events, the processes lined up by a barrier
+    before each run."""
+    mesh = engine.mesh
+    lo, hi = engine._ranges[0]
+    chunk = torch.empty_like(engine._flat_grad[lo:hi])
+
+    def reduce_scatter():
+        with mesh.forked():
+            mesh.reduce_scatter_flat(engine._flat_grads)
+
+    def all_gather():
+        with mesh.forked():
+            mesh.all_gather_flat([f[lo:hi] for f, (lo, hi) in
+                                  zip(engine._flats, engine._ranges)],
+                                 out=engine._flats)
+
+    def nccl_reduce_scatter():
+        dist.reduce_scatter_tensor(chunk, engine._flat_grad)
+
+    def lined_up():
+        dist.barrier()
+        torch.cuda.synchronize()
+
+    nbytes = engine._flat_grad.numel() * 4
+    out = {"buffer_bytes": nbytes,
+           "bytes_sent_a_rank": nbytes * (engine.world_size - 1)
+           // engine.world_size}
+    for name, fn in (("reduce_scatter", reduce_scatter),
+                     ("all_gather", all_gather),
+                     ("nccl_reduce_scatter_tensor", nccl_reduce_scatter)):
+        out[f"{name}_device_ms"] = time_ms(fn, before=lined_up)
+    return out
+
+
+def mp_train_worker(out_dir):
+    """train_mp in one process: bench_gpt2's step on its rows, timed as
+    train, then the collectives."""
+    state = init_state(gpt2_124m_train())
+    world = dist.get_world_size()
+    counts, summary, engine = timed_training(
+        gpt2_124m_train(), state, dp_config(TRAIN_BATCH, 2, world),
+        TRAIN_WARMUP, TRAIN_ITERS)
+    summary.update(rank=dist.get_rank(), launches=counts,
+                   collectives=mp_collectives_ms(engine))
+    return summary
+
+
+MP_WORKERS = {"train_mp_grads": mp_grads_worker, "train_mp": mp_train_worker}
+
+
+def phase_train_mp(state):
+    """bench_gpt2's step (ZeRO-2, micro-batch 8 a process, dropout 0.1 in
+    kernel B) in W = every visible card processes, one rank each, on the
+    global batch RandomState(0).randint(0, 50304, (8W, 1024)), timed as
+    train in every process.  The row is rank 0's, with the slowest
+    process's rate and every process's host issue beside it; the launch
+    counts are every process's summed."""
+    del state  # each worker makes the same weights from the seed
+    torch.cuda.empty_cache()
+    with mp_dir() as out_dir:
+        results = launch_mp("train_mp", out_dir)
+    row = {k: v for k, v in results[0].items() if k != "launches"}
+    counts = {name: sum(res["launches"][name] for res in results)
+              for name in results[0]["launches"]}
+    row.update(
+        processes=len(results),
+        slowest_tokens_per_s=min(r["tokens_per_s"] for r in results),
+        host_issue_ms_per_step_by_rank=[r["host_issue_ms_per_step"]
+                                        for r in results],
+        peak_memory_gib_by_rank=[r["peak_memory_gib"] for r in results],
+        collectives_by_rank=[r["collectives"] for r in results],
+        launches_all_processes=counts)
+    return counts, row
 
 
 def gpt2_124m_long(**overrides):
@@ -3626,6 +3954,9 @@ def last_line():
 
 
 def main():
+    if sys.argv[1:2] == ["--mp-worker"]:
+        # a worker process of train_mp_grads / train_mp (launch_mp)
+        return mp_worker(sys.argv[2], sys.argv[3])
     card = run_phase("device", phase_device)
     if sys.argv[1:] == ["--fcm-only"]:
         # only the collective tier, its ranks spread over every visible
@@ -3647,6 +3978,16 @@ def main():
         run_phase("train_dp_grads", phase_train_dp_grads, train_state)
         run_phase("train_dp", phase_train_dp, train_state)
         run_phase("checkpoint_dp", phase_checkpoint_dp, train_state)
+        print(card, flush=True)
+        return last_line()
+    if sys.argv[1:] == ["--mp-only"]:
+        # kernels A, B, D, E and the phases of one process a card
+        for group in [g for g in PARITY_CASES if g not in DP_PARITY]:
+            del PARITY_CASES[group]
+        run_phase("parity", phase_parity)
+        train_state = init_state(gpt2_124m_train())
+        run_phase("train_mp_grads", phase_train_mp_grads, train_state)
+        run_phase("train_mp", phase_train_mp, train_state)
         print(card, flush=True)
         return last_line()
     primary = run_phase("parity", phase_parity)
@@ -3678,6 +4019,9 @@ def main():
                                         train_state)
     path_counts["checkpoint_dp"] = run_phase("checkpoint_dp",
                                              phase_checkpoint_dp, train_state)
+    run_phase("train_mp_grads", phase_train_mp_grads, train_state)
+    path_counts["train_mp"] = run_phase("train_mp", phase_train_mp,
+                                        train_state)
     del train_state
 
     run_phase("train_sparse_grads", phase_train_sparse_grads)

@@ -8,7 +8,8 @@ plain PyTorch.  This package imports torch and numpy, never jax and
 nothing of deepspeed_tpu.
 
 Ported so far: serving, and training with ZeRO-1/2 data parallelism over
-the ranks of a single-controller mesh.  `init_inference` ->
+the ranks of a single-controller mesh or over one process a card
+(`init_distributed`, then `initialize` in every process).  `init_inference` ->
 `InferenceEngine` (`forward`, `generate`) over GPT-2, with int8 weights
 under `quantization_setting`; `initialize` -> `DeepSpeedEngine`
 (`forward`, `backward`, `step`, `train_batch`, `save_checkpoint`,
@@ -23,7 +24,7 @@ import torch
 from .version import __version__
 from .parallel import (MeshContext, get_mesh_context, groups,
                        initialize_mesh, reset_mesh_context)
-from .utils import logger, log_dist
+from .utils import init_distributed, logger, log_dist
 
 
 _DTYPE_NAMES = {torch.float32: ("fp32", "float32"),
@@ -62,8 +63,14 @@ def initialize(model=None, config=None, config_params=None, optimizer=None,
     kernels.  mesh: None (the registered mesh, else the config's "mesh"
     block over every visible card, or over the one device that `device`
     names when it is "cpu" or "cuda:k") or a parallel.MeshContext; its data
-    axis is the data-parallel world.  Features not ported yet raise
-    NotImplementedError naming their ROADMAP.md item."""
+    axis is the data-parallel world.
+
+    One process a card: call `init_distributed()` first in every process
+    (torchrun's, dslaunch's or OpenMPI's env), then `initialize` with the
+    same config; device None means this process's card, the mesh holds one
+    rank a process, and each process passes `forward` its own rows.
+    Features not ported yet raise NotImplementedError naming their
+    ROADMAP.md item."""
     from .config import DeepSpeedConfigError
     from .runtime.engine import DeepSpeedEngine
 
@@ -100,7 +107,8 @@ def init_inference(model, mp_size=1, checkpoint=None, dtype=None,
     if mp_size > 1:
         raise NotImplementedError(
             f"mp_size={mp_size}: tensor-parallel serving over NCCL is not "
-            "ported yet (ROADMAP.md A.12, inference: tensor parallelism)")
+            "ported yet (ROADMAP.md A.12, inference: tensor parallelism, on "
+            "A.4b's process groups)")
     if not isinstance(model, GPT2Model):
         if _is_torch_module(model):
             raise NotImplementedError(

@@ -96,12 +96,13 @@ def get_world_size() -> int:
     return _ctx().world_size
 
 
-# --- ranks: one process drives every rank of the mesh, so the calling
-# process's rank along an axis is that of the first rank it drives, rank 0
-# (the JAX package reads the coordinates of the process's first local
-# device). ---
+# --- ranks: the calling process's rank along an axis is that of the first
+# rank it drives (the JAX package reads the coordinates of the process's
+# first local device): rank 0 under one controller, the process's own rank
+# under a torch.distributed world of one process a card. ---
 def _axis_rank(axis: str) -> int:
-    return _ctx().axis_index(0, axis)
+    ctx = _ctx()
+    return ctx.axis_index(ctx.local_ranks[0], axis)
 
 
 def get_data_parallel_rank() -> int:

@@ -28,16 +28,33 @@ stream.  ZeRO's collectives over the engine's flat buffers
 on the ranks' compute streams instead, ordered by events: each rank reads
 a peer's buffer only after the peer's stream reached the call, and no
 rank's stream goes past the call before every reader of its buffer is
-done.  A multi-process transport (NCCL process groups) is not part of
-this module.
+done.
+
+Under a torch.distributed world of P processes (utils/distributed.py's
+`init_distributed`, one process per card) a mesh holds one rank a
+process: rank `dist.get_rank()` on the process's card, its data axis P.
+`local_ranks` lists the ranks this process drives ([rank] there,
+range(world_size) under one controller), and every per-rank list is a
+list over them.  ZeRO's collectives then run over the process group with
+the single controller's arithmetic: `reduce_scatter_flat` is an
+all-to-all of the W chunks followed by the same rank-order sum on the
+caller's stream, `all_gather_flat` an `all_gather_into_tensor`, `all_sum`
+the gather and the same ordered sum, so that W processes give the bits
+W ranks of one process give.  NCCL orders a collective on the stream
+current at the call (the rank's compute stream): no host sync, no
+barrier.  The collective tier's primitives (`permute`, `all_gather`,
+`all_to_all`, `psum_scatter`) are not ported over process groups
+(ROADMAP.md A.4c).
 """
 
 import contextlib
+import warnings
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 MESH_AXES = ("pipe", "data", "expert", "seq", "model")
 
@@ -89,17 +106,36 @@ def resolve_mesh_shape(n_devices: int, pipe: int = 1, data: int = -1,
     return MeshShape(**sizes)
 
 
+def process_world() -> Optional[Tuple[int, int]]:
+    """(process count, this process's rank) of the torch.distributed world
+    when one is up, else None."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return None
+
+
 def _default_devices() -> List[torch.device]:
+    """Every visible card, or under a process world this process's card
+    (the one `init_distributed` bound it to)."""
     if not torch.cuda.is_available():
         raise RuntimeError(
             "MeshContext: no CUDA device is visible; the mesh does not fall "
             "back to the CPU (pass devices=['cpu'] explicitly)")
+    if process_world() is not None:
+        return [torch.device("cuda", torch.cuda.current_device())]
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _not_over_processes(what):
+    raise NotImplementedError(
+        f"{what} over a torch.distributed process group is not ported yet "
+        "(ROADMAP.md A.4c, the collective tier over process groups)")
 
 
 class MeshContext:
     """`world_size` logical ranks over the named axes, mapped onto
-    `devices`."""
+    `devices`: all of them driven by this process, or under a process
+    world one rank a process (`local_ranks`)."""
 
     def __init__(self, shape: MeshShape,
                  devices: Optional[Sequence] = None):
@@ -120,13 +156,37 @@ class MeshContext:
         self._coords = np.stack(np.unravel_index(
             np.arange(self.world_size), shape.as_tuple()), axis=1)
         self._compute = self._copy = None  # streams, made at first use
+        self._recv = {}  # the all-to-all's receive buffers, by shape
+        world = process_world()
+        self.process_group = None
+        self.process_count = 1
+        self.local_ranks = list(range(self.world_size))
+        if world is not None:
+            count, pid = world
+            if shape.data != count or shape.total != count:
+                raise ValueError(
+                    f"MeshContext: under a torch.distributed world of {count} "
+                    f"processes the mesh holds one rank a process on its data "
+                    f"axis, so data must be {count}; got data={shape.data} "
+                    f"(axes {self.axis_sizes})")
+            if len(self.devices) != 1:
+                raise ValueError(
+                    f"MeshContext: a process of a torch.distributed world "
+                    f"drives one device, got {devs}")
+            self.process_group = dist.group.WORLD
+            self.process_count = count
+            self.local_ranks = [pid]
 
     # -- factory ------------------------------------------------------- #
     @staticmethod
     def create(pipe: int = 1, data: int = -1, expert: int = 1, seq: int = 1,
                model: int = 1, devices=None) -> "MeshContext":
+        """The axis that is -1 fills the devices, or under a process world
+        the processes."""
         devs = _default_devices() if devices is None else list(devices)
-        shape = resolve_mesh_shape(len(devs), pipe, data, expert, seq, model)
+        world = process_world()
+        fill = len(devs) if world is None else world[0]
+        shape = resolve_mesh_shape(fill, pipe, data, expert, seq, model)
         return MeshContext(shape, devs)
 
     @staticmethod
@@ -201,25 +261,29 @@ class MeshContext:
         return idx
 
     def check_ranked(self, name: str, values) -> None:
-        if not isinstance(values, (list, tuple)) or \
-                len(values) != self.world_size:
+        """`values` holds one value for each rank this process drives."""
+        n = len(self.local_ranks)
+        if not isinstance(values, (list, tuple)) or len(values) != n:
             raise ValueError(
                 f"{name}: expected one value per rank (a list of "
-                f"{self.world_size}), got "
+                f"{n}), got "
                 f"{type(values).__name__}"
                 + (f" of {len(values)}" if hasattr(values, "__len__") else ""))
 
     def __repr__(self):
+        procs = (f", processes={self.process_count}"
+                 if self.process_group is not None else "")
         return (f"MeshContext({self.axis_sizes}, devices="
-                f"{[str(d) for d in self.devices]})")
+                f"{[str(d) for d in self.devices]}{procs})")
 
     # -- streams ------------------------------------------------------- #
     def _streams(self):
+        """Each local rank's compute and copy streams, by rank."""
         if self._compute is None:
-            self._compute = [torch.cuda.Stream(self.device_of(r))
-                             for r in range(self.world_size)]
-            self._copy = [torch.cuda.Stream(self.device_of(r))
-                          for r in range(self.world_size)]
+            self._compute = {r: torch.cuda.Stream(self.device_of(r))
+                             for r in self.local_ranks}
+            self._copy = {r: torch.cuda.Stream(self.device_of(r))
+                          for r in self.local_ranks}
         return self._compute, self._copy
 
     @contextlib.contextmanager
@@ -231,15 +295,15 @@ class MeshContext:
             yield
             return
         compute, copy = self._streams()
-        callers = [torch.cuda.current_stream(self.device_of(r))
-                   for r in range(self.world_size)]
-        for r in range(self.world_size):
+        callers = {r: torch.cuda.current_stream(self.device_of(r))
+                   for r in self.local_ranks}
+        for r in self.local_ranks:
             compute[r].wait_stream(callers[r])
             copy[r].wait_stream(callers[r])
         try:
             yield
         finally:
-            for r in range(self.world_size):
+            for r in self.local_ranks:
                 callers[r].wait_stream(compute[r])
                 callers[r].wait_stream(copy[r])
 
@@ -295,6 +359,8 @@ class MeshContext:
         inside `forked()`: each copy runs on the receiver's copy stream
         after the sender's compute stream, and the receiver's compute
         stream waits for it."""
+        if self.process_group is not None:
+            _not_over_processes("permute")
         self.check_ranked("permute", tensors)
         source = {dst: src for src, dst in perm}
         out = []
@@ -327,6 +393,8 @@ class MeshContext:
         """Tiled `lax.all_gather(x, axes, axis=dim, tiled=True)`: every
         rank gets its group's values concatenated along `dim` in
         axis-major order."""
+        if self.process_group is not None:
+            _not_over_processes("all_gather")
         self.check_ranked("all_gather", tensors)
         return [torch.cat([tensors[g].to(self.device_of(r))
                            for g in self.group(r, axes)], dim=dim)
@@ -336,6 +404,8 @@ class MeshContext:
         """`lax.all_to_all(x, axis, split_axis=0, concat_axis=0)` for
         values whose leading dimension is the axis size: rank i's row j
         becomes rank j's row i."""
+        if self.process_group is not None:
+            _not_over_processes("all_to_all")
         self.check_ranked("all_to_all", tensors)
         out = []
         for r in range(self.world_size):
@@ -348,6 +418,8 @@ class MeshContext:
         """Tiled `lax.psum_scatter(x, axes, scatter_dimension=dim,
         tiled=True)`: the group's values summed in group order, each rank
         keeping its chunk of `dim`."""
+        if self.process_group is not None:
+            _not_over_processes("psum_scatter")
         self.check_ranked("psum_scatter", tensors)
         out = []
         for r in range(self.world_size):
@@ -378,25 +450,57 @@ class MeshContext:
             with self.rank(r, wait=[done[g] for g in groups[r]]):
                 pass
 
+    def _process_group_of(self, axes):
+        """Under a process world: the group over `axes` must be the whole
+        world (the data axis holds every rank); raise for a sub-group."""
+        me = self.local_ranks[0]
+        if self.group(me, axes) != list(range(self.world_size)):
+            _not_over_processes(f"a collective over the axes {axes!r} of "
+                                f"{self.axis_sizes}")
+        return self.process_group
+
+    def _receive_buffer(self, like):
+        """The all-to-all's receive buffer for tensors like `like`: one a
+        shape, dtype and device, made at first use and kept."""
+        key = (like.numel(), like.dtype, like.device)
+        if key not in self._recv:
+            self._recv[key] = torch.empty_like(like)
+        return self._recv[key]
+
     def reduce_scatter_flat(self, tensors, axes=ZERO_AXES):
         """ZeRO's gradient reduce-scatter: every rank gives a 1-D tensor of
         one length L, a multiple of its group's size G; rank r gets the
         [L / G] chunk at its group index, its group's chunks summed in
         group order (as `psum_scatter`).  Call inside `forked()`; the result
         of rank r is ordered on its compute stream, and every input may be
-        overwritten on its rank's stream as soon as this returns."""
+        overwritten on its rank's stream as soon as this returns.  Under a
+        process world: an all-to-all of the chunks, then the same ordered
+        sum."""
         self.check_ranked("reduce_scatter_flat", tensors)
-        ready = [self.record(r) for r in range(self.world_size)]
-        groups = [self.group(r, axes) for r in range(self.world_size)]
-        out = []
-        for r, group in enumerate(groups):
-            length = tensors[r].numel()
-            if tensors[r].dim() != 1 or length % len(group):
+        locals_ = self.local_ranks
+        groups = {r: self.group(r, axes) for r in locals_}
+        for r, x in zip(locals_, tensors):
+            if x.dim() != 1 or x.numel() % len(groups[r]):
                 raise ValueError(
                     f"reduce_scatter_flat: rank {r} gives a tensor of shape "
-                    f"{tuple(tensors[r].shape)}; it must be 1-D with a "
-                    f"length divisible by the group size {len(group)}")
-            chunk = length // len(group)
+                    f"{tuple(x.shape)}; it must be 1-D with a length "
+                    f"divisible by the group size {len(groups[r])}")
+        if self.process_group is not None:
+            pg = self._process_group_of(axes)
+            (r,), (x,) = locals_, tensors
+            with self.rank(r):
+                recv = self._receive_buffer(x)
+                dist.all_to_all_single(recv, x, group=pg)
+                parts = recv.view(self.world_size, -1)
+                total = parts[0].clone()
+                for part in parts[1:]:
+                    total.add_(part)
+            return [total]
+        ready = [self.record(r) for r in range(self.world_size)]
+        out = []
+        for r in range(self.world_size):
+            group = groups[r]
+            chunk = tensors[r].numel() // len(group)
             start = self.group_index(r, axes) * chunk
             dev = self.device_of(r)
             with self.rank(r, wait=[ready[g] for g in group]):
@@ -405,7 +509,7 @@ class MeshContext:
                 for g in group[1:]:
                     total.add_(tensors[g].narrow(0, start, chunk).to(dev))
             out.append(total)
-        self._barrier(groups)
+        self._barrier([groups[r] for r in range(self.world_size)])
         return out
 
     def all_gather_flat(self, tensors, axes=ZERO_AXES, out=None):
@@ -413,28 +517,50 @@ class MeshContext:
         length c; rank r gets its group's tensors concatenated in group
         order, [G * c], written into out[r] when `out` is given (a piece
         that already lies where it belongs is not copied).  Call inside
-        `forked()`; ordered as `reduce_scatter_flat`."""
+        `forked()`; ordered as `reduce_scatter_flat`.  Under a process
+        world: `all_gather_into_tensor` (in place where the rank's piece
+        already lies in `out`)."""
         self.check_ranked("all_gather_flat", tensors)
+        gathered = []
+        for i, r in enumerate(self.local_ranks):
+            n = len(self.group(r, axes)) * tensors[i].numel()
+            with self.rank(r):
+                dst = (out[i] if out is not None else torch.empty(
+                    n, dtype=tensors[i].dtype, device=self.device_of(r)))
+            if dst.shape != (n,):
+                raise ValueError(
+                    f"all_gather_flat: rank {r}'s output has shape "
+                    f"{tuple(dst.shape)}, expected ({n},)")
+            gathered.append(dst)
+        if self.process_group is not None:
+            pg = self._process_group_of(axes)
+            (r,), (x,), (dst,) = self.local_ranks, tensors, gathered
+            with self.rank(r):
+                mine = dst.narrow(0, self.group_index(r, axes) * x.numel(),
+                                  x.numel())
+                in_place = x.data_ptr() == mine.data_ptr() and \
+                    dist.get_backend(pg) == "nccl"
+                if not in_place and x.untyped_storage().data_ptr() == \
+                        dst.untyped_storage().data_ptr():
+                    # only NCCL documents the in-place form, and only with
+                    # the rank's piece where it belongs
+                    x = x.clone()
+                with warnings.catch_warnings():
+                    # torch 2.13 renames it; 2.11 has only this name
+                    warnings.simplefilter("ignore", FutureWarning)
+                    dist.all_gather_into_tensor(dst, x, group=pg)
+            return gathered
         ready = [self.record(r) for r in range(self.world_size)]
         groups = [self.group(r, axes) for r in range(self.world_size)]
-        gathered = []
         for r, group in enumerate(groups):
             chunk = tensors[r].numel()
+            dst = gathered[r]
             with self.rank(r, wait=[ready[g] for g in group]):
-                dst = (out[r] if out is not None else torch.empty(
-                    len(group) * chunk, dtype=tensors[r].dtype,
-                    device=self.device_of(r)))
-                if dst.shape != (len(group) * chunk,):
-                    raise ValueError(
-                        f"all_gather_flat: rank {r}'s output has shape "
-                        f"{tuple(dst.shape)}, expected "
-                        f"({len(group) * chunk},)")
                 for i, g in enumerate(group):
                     piece = dst.narrow(0, i * chunk, chunk)
                     if piece.data_ptr() != tensors[g].data_ptr() or \
                             piece.device != tensors[g].device:
                         piece.copy_(tensors[g])
-            gathered.append(dst)
         self._barrier(groups)
         return gathered
 
@@ -446,13 +572,13 @@ class MeshContext:
         gathered = self.all_gather_flat([t.reshape(-1) for t in tensors],
                                         axes)
         out = []
-        for r, full in enumerate(gathered):
+        for r, x, full in zip(self.local_ranks, tensors, gathered):
             with self.rank(r):
-                parts = full.view(-1, tensors[r].numel())
+                parts = full.view(-1, x.numel())
                 total = parts[0].clone()
                 for part in parts[1:]:
                     total.add_(part)
-            out.append(total.view(tensors[r].shape))
+            out.append(total.view(x.shape))
         return out
 
 

@@ -1,5 +1,6 @@
-"""DeepSpeedEngine: training on one device or on the data-parallel ranks
-of a single-controller mesh (counterpart of deepspeed_tpu/runtime/engine.py).
+"""DeepSpeedEngine: training on one device, on the data-parallel ranks
+of a single-controller mesh, or on one rank a process of a torch.distributed
+world (counterpart of deepspeed_tpu/runtime/engine.py).
 
 What it keeps of the JAX engine:
 
@@ -7,7 +8,11 @@ What it keeps of the JAX engine:
   config's "mesh" block (`resolve_mesh_ctx`), whose data axis defaults to
   -1, "fill the devices": every visible card for device None / "cuda",
   the one device of "cpu" or "cuda:k" (where a `data` of W puts W ranks).
-  The config's batch arithmetic is checked at the data-parallel world W.
+  Under a torch.distributed world of P processes (`init_distributed`) the
+  mesh holds one rank a process, on the process's card, and its data axis
+  is P.  The config's batch arithmetic is checked at the data-parallel
+  world W.  Every per-rank list below holds the ranks this process drives
+  (`mesh.local_ranks`): all W under one controller, its own under P.
 - fp32 master weights owned by the engine, replicated on every rank below
   ZeRO-3.  Rank r's live in ONE flat fp32 buffer on its device
   (`devices[r % n]`), every parameter a view into it, and their grads in a
@@ -23,9 +28,11 @@ What it keeps of the JAX engine:
   buffer.  The sums run over the ranks in rank order and divide by W once,
   so stages 1 and 2 give the same bits.  After the step every rank's
   updated range is all-gathered into every rank's buffer.
-- The batch (`_shard_batch`): a leading dimension W divides is split into
-  W contiguous row blocks in rank order; anything else goes whole to
-  every rank.
+- The batch (`_shard_batch`): this process's rows (the whole global
+  batch under one controller; under P processes, the JAX engine's
+  multi-host rule, this process's slice of it).  A leading dimension the
+  local ranks divide is split into contiguous row blocks in rank order;
+  anything else goes whole to every rank.
 - The forward runs each rank on its own compute stream, on every floating
   parameter cast to the compute dtype, LayerNorm gamma/beta and the
   embeddings included (the JAX engine's `_tree_cast(p, compute_dtype)`
@@ -34,8 +41,9 @@ What it keeps of the JAX engine:
   `bf16.grads_in_compute_dtype` accumulates the micro-steps' grads in bf16
   instead.
 - `forward(*batch)` returns the unscaled loss with its graph, the mean of
-  the ranks' losses (the global batch's loss when the ranks hold equal
-  token counts); `backward(loss)` backpropagates loss * loss_scale, which
+  all W ranks' losses (the global batch's loss when the ranks hold equal
+  token counts; under processes the W losses are gathered over the
+  group); `backward(loss)` backpropagates loss * loss_scale, which
   gives each rank the grads of its own loss, and accumulates across
   micro-steps (the PyTorch idiom; the JAX engine fuses grad into forward).
 - `step()` acts at the gradient-accumulation boundary: unscale by
@@ -46,8 +54,9 @@ What it keeps of the JAX engine:
   parameters and optimizer state, its count too, as they were), the loss
   scaler update, the LR scheduler's step.  It reads nothing back to the
   host: the overflow flag stays on the device (`overflow` reads it).
-- A `torch.Generator` per rank on its device, seeded 42 + r (the JAX
-  engine's key is 42), so no two ranks draw the same dropout mask.
+- A `torch.Generator` per rank on its device, seeded 42 + r for global
+  rank r (the JAX engine's key is 42), so no two ranks draw the same
+  dropout mask.
 - Checkpoints in the JAX engine's consolidated layout, file for file
   (`save_checkpoint`, `load_checkpoint`; runtime/checkpoint.py): the
   module tree, the optax state tree that the JAX chain holds for the
@@ -55,7 +64,10 @@ What it keeps of the JAX engine:
   A run moves between the packages in either direction.  The leaves are
   whole, so a load at any data-parallel world cuts them into its own
   ranges.  In place of the JAX key `engine_rng`, every rank's generator
-  state is saved (TORCH_RNG_KEY), restored when the world is the same.
+  state is saved (TORCH_RNG_KEY, in global rank order), restored when the
+  world is the same.  Under processes the ranges and generator states
+  are gathered over the group, process 0 writes the files the single
+  controller writes, and every process loads and cuts its own range.
 
 What is not ported yet is refused by `refuse_unported` with the ROADMAP.md
 item that will port it: among others the sharded checkpoint layout (A.5)
@@ -111,17 +123,30 @@ def _refuse_mesh_axes(sizes, where):
 
 
 def _torch_distributed_world() -> int:
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
+    world = mesh_mod.process_world()
+    return 1 if world is None else world[0]
+
+
+def _check_process_world(mesh: MeshContext) -> None:
+    """The mesh must hold one rank for each process of the torch.distributed
+    world it runs in (a mesh built before `init_distributed`, or by another
+    world, does not)."""
+    procs = _torch_distributed_world()
+    if mesh.process_count != procs:
+        raise ValueError(
+            f"the mesh {mesh} drives its data axis of "
+            f"{mesh.axis_size('data')} from {mesh.process_count} process(es), "
+            f"which disagrees with the torch.distributed world of {procs} "
+            "processes (one rank a process: build the mesh after "
+            "init_distributed, with data equal to the process count)")
 
 
 def resolve_mesh_ctx(config, mesh=None, device=None) -> MeshContext:
     """The engine's mesh, from (in order) the `mesh` argument, the
     registered mesh, or the config's "mesh" block on the devices `device`
-    names (None or "cuda": every visible card; "cpu" or "cuda:k": that
-    one device); registered as the global mesh.  Only the mesh block is
+    names (None or "cuda": every visible card, or under a torch.distributed
+    world this process's card; "cpu" or "cuda:k": that one device);
+    registered as the global mesh.  Only the mesh block is
     read before the mesh exists: the full config parse checks the batch
     arithmetic at the mesh's data-parallel world.  An explicit entry of
     the block that disagrees with a given or registered mesh raises."""
@@ -163,11 +188,6 @@ def refuse_unported(config: DeepSpeedConfig, model, mesh: MeshContext) -> None:
         _refuse(f"training a {type(model).__name__} (only GPT2Model is "
                 "ported; a PipelineModule is A.9, an MoE model A.10)",
                 "A.9-A.10")
-    world = _torch_distributed_world()
-    if world > 1:
-        _refuse(f"a torch.distributed world of {world} (one process per "
-                "GPU over NCCL; the engine's data parallelism runs the "
-                "ranks of one process's mesh)", "A.4b")
     _refuse_mesh_axes(mesh.axis_sizes, "the mesh")
     zc = config.zero_config
     if zc.stage >= 3:
@@ -210,15 +230,17 @@ def refuse_unported(config: DeepSpeedConfig, model, mesh: MeshContext) -> None:
 
 
 class _MeanOfRanks(torch.autograd.Function):
-    """The mean of the ranks' losses, on `device`.  Its backward hands
-    every rank's loss the incoming gradient unchanged: each rank
-    backpropagates its own loss, as data parallelism does, and the engine
-    divides the gradients summed over the ranks by their number."""
+    """The mean of `stacked`, every rank's loss in rank order (detached),
+    with `losses`, this process's ranks' losses, as the inputs that carry
+    the graph.  Its backward hands every local rank's loss the incoming
+    gradient unchanged: each rank backpropagates its own loss, as data
+    parallelism does, and the engine divides the gradients summed over
+    the ranks by their number."""
 
     @staticmethod
-    def forward(ctx, device, *losses):
+    def forward(ctx, stacked, *losses):
         ctx.devices = [loss.device for loss in losses]
-        return torch.stack([loss.to(device) for loss in losses]).mean()
+        return stacked.mean()
 
     @staticmethod
     def backward(ctx, grad):
@@ -238,12 +260,16 @@ class DeepSpeedEngine:
         self.micro_steps = 0
         self.skipped_steps = 0
         self.mesh = resolve_mesh_ctx(config, mesh, device)
+        _check_process_world(self.mesh)
         world = self.mesh.data_parallel_world_size
         self.config = (config if isinstance(config, DeepSpeedConfig)
                        else DeepSpeedConfig(config, world_size=world))
         self.world_size = world
+        # the ranks this process drives: every rank under one controller,
+        # its own under a process world
+        self.local_ranks = list(self.mesh.local_ranks)
         refuse_unported(self.config, model, self.mesh)
-        self.device = self.mesh.device_of(0)
+        self.device = self.mesh.device_of(self.local_ranks[0])
         self.zero_partitioner = ZeroPartitioner(
             self.mesh, self.config.zero_optimization_stage,
             self.config.zero_config.param_persistence_threshold)
@@ -268,7 +294,7 @@ class DeepSpeedEngine:
         padded = self.zero_partitioner.padded_size(off)
         self._flats, self._flat_grads, self._leaves = [], [], []
         with torch.no_grad():
-            for r in range(world):
+            for i, r in enumerate(self.local_ranks):
                 dev = self.mesh.device_of(r)
                 flat = torch.zeros(padded, dtype=torch.float32, device=dev)
                 grad = torch.zeros_like(flat)
@@ -277,7 +303,7 @@ class DeepSpeedEngine:
                                              self._segments):
                     view = flat[o:o + n].view(p.shape)
                     view.copy_(p.detach())
-                    if r == 0:  # the module's own parameters
+                    if i == 0:  # the module's own parameters
                         p.data = view
                         leaf = p
                     else:
@@ -290,7 +316,7 @@ class DeepSpeedEngine:
                 self._leaves.append(leaves)
         self._flat, self._flat_grad = self._flats[0], self._flat_grads[0]
         self._ranges = [self.zero_partitioner.owned_range(off, r)
-                        for r in range(world)]
+                        for r in self.local_ranks]
         # stage 2 on several ranks: each micro-step's grads are
         # reduce-scattered into the rank's range and accumulate there
         self._scatter_each_micro = self.zero_partitioner.stage >= 2 \
@@ -299,7 +325,7 @@ class DeepSpeedEngine:
         self._acc = [torch.zeros(hi - lo, dtype=acc_dtype,
                                  device=self.mesh.device_of(r))
                      if self._scatter_each_micro else None
-                     for r, (lo, hi) in enumerate(self._ranges)]
+                     for r, (lo, hi) in zip(self.local_ranks, self._ranges)]
 
         # ---- LR schedule + optimizer --------------------------------- #
         self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
@@ -323,14 +349,14 @@ class DeepSpeedEngine:
         self.optimizer.segment_leaves = [
             leaves.setdefault(model.jax_leaf(name), len(leaves))
             for name, _ in self._named_params]
-        self.opt_states = [self.optimizer.init(self._flats[r][lo:hi])
-                           for r, (lo, hi) in enumerate(self._ranges)]
+        self.opt_states = [self.optimizer.init(flat[lo:hi]) for flat, (lo, hi)
+                           in zip(self._flats, self._ranges)]
         self.opt_state = self.opt_states[0]
 
         self.training_dataloader = self._configure_dataloader(
             training_data, collate_fn)
         self._rngs = [torch.Generator(device=self.mesh.device_of(r))
-                      .manual_seed(42 + r) for r in range(world)]
+                      .manual_seed(42 + r) for r in self.local_ranks]
 
         self.timers = SynchronizedWallClockTimer()
         self.tput_timer = ThroughputTimer(
@@ -421,15 +447,23 @@ class DeepSpeedEngine:
         return [(name, tuple(p.shape)) for name, p in self._named_params]
 
     def _module_tree(self):
-        """The parameters as the JAX tree (fp32 numpy), from rank 0's
-        buffer (every rank holds them whole)."""
+        """The parameters as the JAX tree (fp32 numpy), from the first
+        local rank's buffer (every rank holds them whole)."""
         flat = self._flats[0][:self.num_params].detach().cpu().numpy()
         return gpt2_tree_from_flat(flat, self._named_shapes(),
                                    self.module.config)
 
     def _gathered(self, key):
         """Optimizer state `key` over the whole buffer: every rank's range
-        in its place (at stage 0 each rank holds it all)."""
+        in its place (at stage 0 each rank holds it all; under processes
+        the ranges are all-gathered over the group, so every process must
+        call it)."""
+        if self.mesh.process_group is not None and \
+                self.zero_partitioner.stage >= 1:
+            with self.mesh.forked():
+                full = self.mesh.all_gather_flat(
+                    [state[key] for state in self.opt_states])[0]
+            return full.cpu().numpy()
         full = np.empty(self._flats[0].numel(), dtype=np.float32)
         done = set()
         for (lo, hi), state in zip(self._ranges, self.opt_states):
@@ -437,6 +471,17 @@ class DeepSpeedEngine:
                 full[lo:hi] = state[key].detach().cpu().numpy()
                 done.add((lo, hi))
         return full
+
+    def _generator_states(self):
+        """Every rank's generator state in global rank order (gathered
+        from the processes under a process world)."""
+        states = [g.get_state().tolist() for g in self._rngs]
+        if self.mesh.process_group is None:
+            return states
+        import torch.distributed as dist
+        every = [None] * self.mesh.process_count
+        dist.all_gather_object(every, states, group=self.mesh.process_group)
+        return [s for process in every for s in process]
 
     @property
     def _scheduled(self) -> bool:
@@ -458,15 +503,16 @@ class DeepSpeedEngine:
         """The partition topology every checkpoint records (reshard.py)."""
         topo = self.zero_partitioner.topology()
         topo.update({"format_version": reshard.TOPOLOGY_FORMAT_VERSION,
-                     "process_count": 1, "layout": "consolidated"})
+                     "process_count": self.mesh.process_count,
+                     "layout": "consolidated"})
         return topo
 
     @staticmethod
     def _check_tag(tag):
         """'.tmp.' and '.old.' name the atomic protocol's working
         directories (resilience/atomic.py): such a tag would be invisible
-        to tag discovery.  (Tags agree across processes trivially: the
-        port runs one.)"""
+        to tag discovery.  (Every process names the same tag: the default
+        is the step count, which the processes share.)"""
         if ".tmp." in str(tag) or ".old." in str(tag):
             raise ValueError(
                 f"checkpoint tag {tag!r} contains a reserved marker ('.tmp.' "
@@ -486,7 +532,10 @@ class DeepSpeedEngine:
         data-parallel world, the partition topology and every rank's
         generator state (TORCH_RNG_KEY).  `latest` always moves to the
         tag: as in the JAX engine's consolidated layout, `save_latest` is
-        not honoured (ROADMAP.md C).  Returns the tag's directory."""
+        not honoured (ROADMAP.md C).  Under a process world every process
+        calls it: the state is gathered over the group, process 0 writes
+        (the JAX engine's processes all write the same files) and the
+        others wait for it.  Returns the tag's directory."""
         if tag is None:
             tag = f"global_step{self.global_steps}"
         self._check_tag(tag)
@@ -506,22 +555,40 @@ class DeepSpeedEngine:
             # MoQ and curriculum learning are refused (A.13)
             "quantizer": None,
             "curriculum": None,
-            TORCH_RNG_KEY: [g.get_state().tolist() for g in self._rngs],
+            TORCH_RNG_KEY: self._generator_states(),
             reshard.TOPOLOGY_KEY: self._partition_topology(),
         })
-        path = ckpt_mod.save_checkpoint_state(
-            save_dir, tag, module_state={"module": self._module_tree()},
-            optimizer_state=self._engine_state(), client_state=client)
+        module_state = {"module": self._module_tree()}
+        optimizer_state = self._engine_state()
+        path = os.path.join(save_dir, str(tag))
+        if self._writes_files:
+            path = ckpt_mod.save_checkpoint_state(
+                save_dir, tag, module_state=module_state,
+                optimizer_state=optimizer_state, client_state=client)
+        self._wait_for_writer()
         log_dist(f"saved checkpoint {path}", ranks=[0])
         return path
 
+    @property
+    def _writes_files(self) -> bool:
+        """Process 0 writes a checkpoint (the only process under one
+        controller)."""
+        return self.local_ranks[0] == 0
+
+    def _wait_for_writer(self):
+        """Under a process world, every process waits until process 0's
+        files are written."""
+        if self.mesh.process_group is not None:
+            import torch.distributed as dist
+            dist.barrier(group=self.mesh.process_group)
+
     def _set_full(self, buffers, full):
-        """Copy a full padded fp32 vector into each rank's range of
+        """Copy a full padded fp32 vector into each local rank's range of
         `buffers` (one tensor a rank, covering its range)."""
         full = torch.from_numpy(full)
-        for r, ((lo, hi), buf) in enumerate(zip(self._ranges, buffers)):
+        for (lo, hi), buf in zip(self._ranges, buffers):
             part = full if buf.numel() == full.numel() else full[lo:hi]
-            buf.copy_(part.to(self.mesh.device_of(r)))
+            buf.copy_(part.to(buf.device))
 
     @torch.no_grad()
     def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,
@@ -576,31 +643,33 @@ class DeepSpeedEngine:
             self.micro_steps = client.get("micro_steps", 0)
             self.skipped_steps = client.get("skipped_steps", 0)
             self._load_generators(client.get(TORCH_RNG_KEY))
-        for r, grad in enumerate(self._flat_grads):
+        for i, grad in enumerate(self._flat_grads):
             grad.zero_()
             if self._scatter_each_micro:
-                self._acc[r].zero_()
+                self._acc[i].zero_()
             else:
-                self._acc[r] = None
+                self._acc[i] = None
         self._last_loss = self._rank_losses = self._last_overflow = None
         path = os.path.join(load_dir, str(resolved))
         log_dist(f"loaded checkpoint {path}", ranks=[0])
         return path, client
 
     def _load_generators(self, saved):
-        """Every rank's generator from the saved states, when there is one
-        a rank of this engine and each fits its generator (a checkpoint of
-        the JAX engine holds a JAX key instead, which is logged)."""
+        """Every local rank's generator from the saved states (global rank
+        order), when there is one a rank of this engine's world and each
+        fits its generator (a checkpoint of the JAX engine holds a JAX key
+        instead, which is logged)."""
         current = [g.get_state() for g in self._rngs]
-        if saved is None or len(saved) != len(current) or any(
-                len(s) != c.numel() for s, c in zip(saved, current)):
+        if saved is None or len(saved) != self.world_size or any(
+                len(saved[r]) != c.numel()
+                for r, c in zip(self.local_ranks, current)):
             log_dist("generator states not restored: the checkpoint holds "
                      f"{'none' if saved is None else len(saved)} for "
-                     f"{len(current)} ranks of this engine (dropout draws "
+                     f"{self.world_size} ranks of this engine (dropout draws "
                      "continue from the engine's seeds)", ranks=[0])
             return
-        for g, s in zip(self._rngs, saved):
-            g.set_state(torch.tensor(s, dtype=torch.uint8))
+        for g, r in zip(self._rngs, self.local_ranks):
+            g.set_state(torch.tensor(saved[r], dtype=torch.uint8))
 
     @torch.no_grad()
     def load_module_state_dict(self, state_dict, strict=True):
@@ -620,13 +689,15 @@ class DeepSpeedEngine:
     def save_fp16_model(self, save_dir, save_filename="model_weights.npz"):
         """The module's weights in fp16, one .npz keyed by the JAX tree's
         paths (the JAX engine's export for serving).  Returns its path."""
-        os.makedirs(save_dir, exist_ok=True)
         path = os.path.join(save_dir, save_filename)
         arrays = {name: arr.astype(np.float16)
                   if np.issubdtype(arr.dtype, np.floating) else arr
                   for name, arr in ckpt_mod.flatten(
                       self._module_tree()).items()}
-        np.savez(path, **arrays)
+        if self._writes_files:
+            os.makedirs(save_dir, exist_ok=True)
+            np.savez(path, **arrays)
+        self._wait_for_writer()
         log_dist(f"saved {len(arrays)} half-precision weight arrays to "
                  f"{path}", ranks=[0])
         return path
@@ -646,23 +717,27 @@ class DeepSpeedEngine:
         return None
 
     def _configure_dataloader(self, training_data, collate_fn):
+        """This process's loader: micro-batch x its ranks' rows a batch,
+        strided over the processes (the JAX engine's per-process shard)."""
         if training_data is None:
             return None
         return DeepSpeedDataLoader(
             training_data, batch_size=self.train_micro_batch_size_per_gpu()
-            * self.world_size, collate_fn=collate_fn)
+            * len(self.local_ranks), collate_fn=collate_fn,
+            data_parallel_world_size=self.mesh.process_count,
+            data_parallel_rank=self.local_ranks[0] // len(self.local_ranks))
 
     def _shard_batch(self, value):
-        """One value a rank (JAX engine `_shard_batch`): a tensor or array
-        whose leading dimension the data-parallel world divides is split
-        into that many contiguous row blocks in rank order; anything else
-        goes whole to every rank."""
-        world = self.world_size
+        """One value a local rank (JAX engine `_shard_batch`): `value` is
+        this process's rows; a tensor or array whose leading dimension the
+        local ranks divide is split into that many contiguous row blocks
+        in rank order; anything else goes whole to every rank."""
+        n = len(self.local_ranks)
         if isinstance(value, (torch.Tensor, np.ndarray)) and value.ndim >= 1 \
-                and value.shape[0] % world == 0:
-            rows = value.shape[0] // world
-            return [value[r * rows:(r + 1) * rows] for r in range(world)]
-        return [value] * world
+                and value.shape[0] % n == 0:
+            rows = value.shape[0] // n
+            return [value[i * rows:(i + 1) * rows] for i in range(n)]
+        return [value] * n
 
     def _place(self, value, rank):
         dev = self.mesh.device_of(rank)
@@ -676,11 +751,11 @@ class DeepSpeedEngine:
     # forward / backward / step (reference: engine.py:1224,1303,1462)
     # ------------------------------------------------------------------ #
     def forward(self, *args, **kwargs):
-        """The model's loss on the batch, each rank's rows on its own
-        stream and on every parameter cast to the compute dtype; dropout
-        draws from the rank's generator.  Returns the unscaled loss with
-        its autograd graph: the mean of the ranks' losses, on rank 0's
-        device."""
+        """The model's loss on this process's rows, each local rank's rows
+        on its own stream and on every parameter cast to the compute
+        dtype; dropout draws from the rank's generator.  Returns the
+        unscaled loss with its autograd graph: the mean of all W ranks'
+        losses, on the first local rank's device."""
         if self.wall_clock_breakdown():
             self.timers(FORWARD_MICRO_TIMER).start()
         if self._is_train_mode:
@@ -689,20 +764,29 @@ class DeepSpeedEngine:
         kwargs = {k: self._shard_batch(v) for k, v in kwargs.items()}
         losses = []
         with self.mesh.forked():
-            for r, leaves in enumerate(self._leaves):
+            for i, (r, leaves) in enumerate(zip(self.local_ranks,
+                                                self._leaves)):
                 with self.mesh.rank(r):
                     cast = {name: p.to(self.compute_dtype)
                             if p.is_floating_point() else p
                             for name, p in leaves.items()}
                     losses.append(functional_call(
                         self.module, cast,
-                        tuple(self._place(a[r], r) for a in args),
-                        {**{k: self._place(v[r], r)
+                        tuple(self._place(a[i], r) for a in args),
+                        {**{k: self._place(v[i], r)
                             for k, v in kwargs.items()},
-                         "generator": self._rngs[r]}))
+                         "generator": self._rngs[i]}))
+            if self.world_size > 1 and self.mesh.process_group is not None:
+                stacked = self.mesh.all_gather_flat(
+                    [loss.detach().reshape(1) for loss in losses])[0]
         self._rank_losses = losses
-        loss = losses[0] if len(losses) == 1 else \
-            _MeanOfRanks.apply(self.device, *losses)
+        if self.world_size == 1:
+            loss = losses[0]
+        else:
+            if self.mesh.process_group is None:
+                stacked = torch.stack([loss.detach().to(self.device)
+                                       for loss in losses])
+            loss = _MeanOfRanks.apply(stacked, *losses)
         self._last_loss = loss
         if self.wall_clock_breakdown():
             self.timers(FORWARD_MICRO_TIMER).stop()
@@ -725,17 +809,18 @@ class DeepSpeedEngine:
             with self.mesh.forked():
                 parts = self.mesh.reduce_scatter_flat(self._flat_grads,
                                                       ZERO_AXES)
-                for r, part in enumerate(parts):
+                for i, (r, part) in enumerate(zip(self.local_ranks, parts)):
                     with self.mesh.rank(r):
-                        self._acc[r].add_(part)
-                        self._flat_grads[r].zero_()
+                        self._acc[i].add_(part)
+                        self._flat_grads[i].zero_()
         elif self._grads_half:
             with self.mesh.forked():
-                for r, grad in enumerate(self._flat_grads):
+                for i, (r, grad) in enumerate(zip(self.local_ranks,
+                                                  self._flat_grads)):
                     with self.mesh.rank(r):
                         half = grad.to(self.compute_dtype)
-                        self._acc[r] = (half if self._acc[r] is None
-                                        else self._acc[r] + half)
+                        self._acc[i] = (half if self._acc[i] is None
+                                        else self._acc[i] + half)
                         grad.zero_()
         self.micro_steps += 1
         if self.wall_clock_breakdown():
@@ -749,7 +834,7 @@ class DeepSpeedEngine:
             return [acc.float() for acc in self._acc]
         full = [grad if acc is None else acc.float()
                 for acc, grad in zip(self._acc, self._flat_grads)]
-        if len(full) == 1:
+        if self.world_size == 1:
             return full
         parts = self.mesh.reduce_scatter_flat(full, ZERO_AXES)
         if self.zero_partitioner.stage == 0:
@@ -768,38 +853,39 @@ class DeepSpeedEngine:
         if self._grads_half and not self._scatter_each_micro \
                 and self._acc[0] is None:
             raise RuntimeError("step() called before backward()")
-        mesh, world = self.mesh, self.world_size
+        mesh, world, local = self.mesh, self.world_size, self.local_ranks
         partitioned = self.zero_partitioner.stage >= 1 and world > 1
         inv = 1.0 / (self.scaler_state.loss_scale
                      * self.gradient_accumulation_steps() * world)
         with mesh.forked():
             grads = self._reduced_grads()
             flags = []
-            for r in range(world):
+            for i, r in enumerate(local):
                 with mesh.rank(r):
-                    grads[r] = grads[r] * inv.to(mesh.device_of(r))
-                    flags.append(torch.isfinite(grads[r]).all().reshape(1))
+                    grads[i] = grads[i] * inv.to(mesh.device_of(r))
+                    flags.append(torch.isfinite(grads[i]).all().reshape(1))
             flags = mesh.all_gather_flat(flags, ZERO_AXES)
             finite = []
-            for r in range(world):
+            for i, r in enumerate(local):
                 with mesh.rank(r):
-                    finite.append(flags[r].all())
+                    finite.append(flags[i].all())
             params = [flat[lo:hi]
                       for flat, (lo, hi) in zip(self._flats, self._ranges)]
             self.optimizer.step_ranks(
                 params, grads, self.opt_states, finite,
-                offsets=[lo for lo, _ in self._ranges], rank=mesh.rank,
+                offsets=[lo for lo, _ in self._ranges],
+                rank=lambda i: mesh.rank(local[i]),
                 total=((lambda parts: mesh.all_sum(parts, ZERO_AXES))
                        if partitioned else None))
             if partitioned:
                 mesh.all_gather_flat(params, ZERO_AXES, out=self._flats)
-            for r in range(world):
+            for i, r in enumerate(local):
                 with mesh.rank(r):
-                    self._flat_grads[r].zero_()
+                    self._flat_grads[i].zero_()
                     if self._scatter_each_micro:
-                        self._acc[r].zero_()
+                        self._acc[i].zero_()
                     else:
-                        self._acc[r] = None
+                        self._acc[i] = None
         overflow = ~finite[0]
         self.scaler_state = update_loss_scale(self.scaler_cfg,
                                               self.scaler_state, overflow)

@@ -1,8 +1,9 @@
 """Logging for the PyTorch port (counterpart of deepspeed_tpu/utils/logging.py).
 
-The port runs in one process per card and this slice has no process
-group, so `log_dist` logs from rank 0, the only rank there is.  Logs go
-to stderr, so that a script's standard output holds only what it prints.
+`log_dist` logs from the listed ranks: a process's rank is its rank in
+the torch.distributed world when one is up (one process per card,
+utils/distributed.py), else 0.  Logs go to stderr, so that a script's
+standard output holds only what it prints.
 """
 
 import logging
@@ -25,10 +26,17 @@ def _create_logger(name="DeepSpeedTorch", level=logging.INFO):
 logger = _create_logger()
 
 
+def _process_rank() -> int:
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
 def log_dist(message, ranks=None, level=logging.INFO):
     """Log from the listed ranks only; None means rank 0 and -1 in the list
-    means every rank.  Single-process: this process is rank 0."""
-    my_rank = 0
+    means every rank."""
+    my_rank = _process_rank()
     ranks = ranks or [0]
     if my_rank in ranks or -1 in ranks:
         logger.log(level, f"[Rank {my_rank}] {message}")

@@ -419,8 +419,9 @@ def test_flat_collectives_sum_and_concatenate_in_rank_order():
 def test_engine_mesh_sources_and_refusals(monkeypatch):
     """The mesh comes from mesh=, else the registry, else the config; a
     config block that disagrees with the mesh in use raises; model, pipe,
-    seq and expert axes above 1 are refused naming A.9 / A.10, and a
-    torch.distributed world above 1 naming A.4b."""
+    seq and expert axes above 1 are refused naming A.9 / A.10, and a mesh
+    whose data axis one process drives under a torch.distributed world of
+    2 processes raises naming both counts."""
     _, tree = _jax_params(False)
     conf = _config(2, 4, 2)
     eng = _port_engine(tree, conf)
@@ -445,5 +446,6 @@ def test_engine_mesh_sources_and_refusals(monkeypatch):
                                                    devices=["cpu"]))
     from deepspeed_tpu_torch.runtime import engine as engine_mod
     monkeypatch.setattr(engine_mod, "_torch_distributed_world", lambda: 2)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.4b"):
+    with pytest.raises(ValueError, match=r"data axis of 2 from 1 process.*"
+                       r"torch\.distributed world of 2 processes"):
         dst.initialize(model=GPT2Model(cfg), config=conf, device="cpu")
