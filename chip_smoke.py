@@ -57,9 +57,12 @@ phase prints {"phase": ..., "ok": false, "error": ...} and the script exits
    stores in the SASS (collect_resources).
    Kernels A and D (LayerNorm forward and backward) run at hidden 768,
    1024, 1600, 4096, 8192 and 771 (the scalar route) at 8, 77 and 1024
-   rows, x and gamma / beta each in bf16 and fp32, and at 16385 and 20000
-   (the streamed route) at 8 and 1024 rows: within 2e-2 (bf16) or 1e-5
-   (fp32) of the plain twins, D's dgamma and dbeta within 1e-4 of
+   rows, x and gamma / beta each in bf16 and fp32, at 16385 and 20000
+   (the streamed route) at 8 and 1024 rows, at GPT-2 medium's and large's
+   training shapes ([8192, 1024] and [4096, 1280], bf16, fp32 gamma,
+   timed), and with an fp16 run's fp16 gamma and beta at [8192, 768]
+   (timed), [8, 768] fp32 x, [77, 771] and (D) [8, 16385]: within 2e-2
+   (bf16) or 1e-5 (fp32) of the plain twins, D's dgamma and dbeta within 1e-4 of
    max|ref| past the one rounding into gamma's dtype, in gamma's dtype, D
    bitwise on a repeat;
    each case names its route and holds the wrapper's plan
@@ -272,11 +275,41 @@ After phase 17, one process a card (torch.distributed over NCCL):
    `reduce_scatter_tensor` on the same buffer.  A worker that fails, or a
    group that outlives its deadline, fails the phase.
 
-Then the `kernels` line (launches by path: bf16, int8, train, checkpoint,
-train_dp, checkpoint_dp, train_mp (every process's launches summed),
-train_sparse, train_longseq, fcm) and, last,
-{"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
-in phase 1.
+Activation checkpointing and fp16 (train_fp16 after phase 8; the others
+after phase 11):
+
+20. train_fp16: bench_gpt2's row with `"fp16": {"enabled": true}` in place
+   of bf16 (the model computes in bf16 on parameters rounded through fp16,
+   so kernels A and D take fp16 gamma and beta), the dynamic scaler at its
+   defaults (2^32, window 1000, hysteresis 2): steps one at a time until 5
+   clean steps follow the skipped ones (at most 48): the skipped steps
+   and the scale trajectory, each skipped step leaving the master buffer
+   and Adam's state bitwise as they were, skipped_steps equal to them,
+   the launch counters exact; a second engine with a window of 2 clean
+   steps from a quarter of the settled scale, whose scale must double
+   twice; then timed as train (3 + 30 steps from 2^32), its tokens/s
+   beside train's of the same run.
+21. train_remat_grads: one step of bench_gpt2_medium's config (GPT-2 355M:
+   24 layers of 1024, 16 heads, batch 8 x 1024, dropout 0.1, AdamW, ZeRO-2)
+   with and without activation_checkpointing from the same weights (seed
+   0) and generator seed: loss, grads and the parameters after the step
+   bitwise (else the differing parameters named and the pair held at 2e-2
+   / 5e-2), counters exact for both (rematted: A 4L + 1, B 2L, D 2L + 1,
+   E L + L), and each step's peak GiB.
+22. train_medium: bench_gpt2_medium exactly (activation_checkpointing,
+   batch 8 x 1024, bf16), timed as the long-context rows (2 + 10 steps):
+   what train reports, MFU over flops_per_token (the model's, as bench.py
+   counts it) and over the executed operations (the recompute adds each
+   layer's forward), then the peak GiB of one step of a new engine
+   without activation checkpointing (or that it ran out of memory).
+23. train_large: bench_gpt2_large the same way (GPT-2 774M: 36 layers of
+   1280, 20 heads, batch 4 x 1024, bf16 grads_in_compute_dtype).
+
+Then the `kernels` line (launches by path: bf16, int8, train, train_fp16,
+checkpoint, train_dp, checkpoint_dp, train_mp (every process's launches
+summed), train_sparse, train_longseq, train_medium, train_large, fcm) and,
+last, {"ok": true, "device": {...}}.  Without a CUDA device the script
+exits 1 in phase 1.
 
     python3 chip_smoke.py --dp-only
 
@@ -289,6 +322,12 @@ host with four), and prints no `kernels` line.
 runs phase 1, the parity cases of kernels A, B, D and E and phases 18
 and 19 alone, one process a visible card, and prints no `kernels` line.
 
+    python3 chip_smoke.py --remat-only
+
+runs phase 1, the parity cases of kernels A, B, D and E (the new widths and
+fp16 gamma included), phase 8 (train, for train_fp16's comparison) and
+phases 20-23 alone, and prints no `kernels` line.
+
     python3 chip_smoke.py --fcm-only
 
 runs phase 1, the parity cases of kernels H, I and J and phases 12 and 13
@@ -298,6 +337,7 @@ four), and prints no `kernels` line.
 
 import contextlib
 import ctypes
+import gc
 import hashlib
 import json
 import os
@@ -768,6 +808,9 @@ LN_ROWS = (8, 77, 1024)
 LN_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 LN_SUM_TOL = 1e-4  # dgamma, dbeta: max|d| / max|ref| past the rounding into gamma's dtype
 LN_DTYPES = (torch.bfloat16, torch.float32)
+# the training shapes of GPT-2 medium (8 x 1024 rows of 1024) and large
+# (4 x 1024 rows of 1280): timed as hidden 768 is, bf16 x, fp32 gamma
+LN_TRAIN_SHAPES = ((8192, 1024), (4096, 1280))
 # rows too wide for 16 warps' registers: the streamed route (odd, and bf16
 # past 16384), at decode's rows and at prefill's, where each block takes
 # several rows one after another (A 4, D 8)
@@ -807,7 +850,7 @@ def ln_plan(rows, hidden, dtype, backward):
 def half_ulp(ref, dtype):
     """Half a unit in the last place of dtype at each value of ref."""
     _, exp = torch.frexp(ref.float())
-    bits = 9 if dtype == torch.bfloat16 else 25
+    bits = {torch.bfloat16: 9, torch.float16: 12}.get(dtype, 25)
     return torch.ldexp(torch.ones_like(ref, dtype=torch.float32), exp - bits)
 
 
@@ -823,9 +866,17 @@ def _ln_case_name(rows, hidden, dtype, pdtype):
     return f"[{rows},{hidden}] {_dtname(dtype)}, gamma {_dtname(pdtype)}"
 
 
+def ln_timed(rows, hidden):
+    """Whether a LayerNorm case is timed: hidden 768, and the training
+    shapes of GPT-2 medium and large."""
+    return hidden == 768 or (rows, hidden) in LN_TRAIN_SHAPES
+
+
 def case_layer_norm(rows, dtype, hidden=768, pdtype=torch.float32):
     """Kernel A against layer_norm_reference, its route and plan; at hidden
-    768 also timed (bf16 also on the batched timer, beside F.layer_norm)."""
+    768 and the training shapes of GPT-2 medium and large also timed (bf16
+    also on the batched timer, beside F.layer_norm).  gamma and beta in
+    bf16, fp32 or fp16 (an fp16 run's)."""
     x, _, gamma, beta = ln_inputs(rows, hidden, dtype, pdtype, rows + hidden)
     out = layer_norm_cuda(x, gamma, beta, 1e-5)
     ref = layer_norm_reference(x, gamma, beta, 1e-5)
@@ -837,7 +888,7 @@ def case_layer_norm(rows, dtype, hidden=768, pdtype=torch.float32):
            "ok": _within(out.float(), ref.float(), tol, tol)
            and plan["plan_agrees"],
            "tolerance": f"atol=rtol={tol}", "max_abs_err": err, **plan}
-    if hidden != 768:
+    if not ln_timed(rows, hidden):
         return res
     g_lib, b_lib = gamma.to(dtype), beta.to(dtype)
     nbytes = 2 * x.numel() * x.element_size() + 2 * hidden * gamma.element_size()
@@ -975,9 +1026,10 @@ def case_flash(b, h, s, d, causal, dtype, fused=False, rate=0.0):
 def case_layer_norm_bwd(rows, dtype, hidden=768, pdtype=torch.float32):
     """Kernel D against layer_norm_bwd_reference, its route and plan; it
     must also repeat bitwise (its dgamma / dbeta sums take a fixed order,
-    no atomics) and return dgamma and dbeta in gamma's dtype.  At hidden
-    768 also timed (bf16 at the training rows also on the batched timer,
-    beside F.layer_norm's backward)."""
+    no atomics) and return dgamma and dbeta in gamma's dtype (fp16 ones
+    too).  At hidden 768 and the training shapes of GPT-2 medium and large
+    also timed (bf16 at the training rows also on the batched timer, beside
+    F.layer_norm's backward)."""
     x, dy, gamma, _ = ln_inputs(rows, hidden, dtype, pdtype, rows + hidden + 1)
     out = layer_norm_bwd_cuda(x, gamma, dy)
     again = layer_norm_bwd_cuda(x, gamma, dy)
@@ -1000,7 +1052,7 @@ def case_layer_norm_bwd(rows, dtype, hidden=768, pdtype=torch.float32):
            "max_abs_err": err, "dgamma_dbeta_rel_err": sum_errs,
            "bitwise_repeat": repeat,
            "dgamma_dtype": _dtname(out[1].dtype), **plan}
-    if hidden != 768:
+    if not ln_timed(rows, hidden):
         return res
     nbytes = (3 * x.numel() * x.element_size()
               + 3 * hidden * gamma.element_size())
@@ -2119,6 +2171,15 @@ PARITY_CASES = {
         for dt in LN_DTYPES for pdt in LN_DTYPES]
         + [(TRAIN_BATCH * TRAIN_SEQ, torch.bfloat16, 768, pdt)
            for pdt in LN_DTYPES]
+        # GPT-2 medium's and large's training shapes; an fp16 run's gamma
+        # and beta at the train step's rows, and at decode's and an odd
+        # width's (the scalar route)
+        + [(rows, torch.bfloat16, h, torch.float32)
+           for rows, h in LN_TRAIN_SHAPES]
+        + [(TRAIN_BATCH * TRAIN_SEQ, torch.bfloat16, 768, torch.float16),
+           (8, torch.float32, 768, torch.float16),
+           (77, torch.bfloat16, 771, torch.float16),
+           (8, torch.bfloat16, 16385, torch.float16)]
         + [(rows, dt, h, dt) for rows in LN_STREAMED_ROWS
            for h in LN_STREAMED_WIDTHS for dt in LN_DTYPES]),
     "flash_attention_fwd": (case_flash, [
@@ -2169,6 +2230,12 @@ PARITY_CASES = {
         + [(TRAIN_BATCH * TRAIN_SEQ, dt, 768, pdt) for dt in LN_DTYPES
            for pdt in LN_DTYPES]
         + [(LONG_BATCH * LONG_SEQ, torch.bfloat16, 768, torch.bfloat16)]
+        + [(rows, torch.bfloat16, h, torch.float32)
+           for rows, h in LN_TRAIN_SHAPES]
+        + [(TRAIN_BATCH * TRAIN_SEQ, torch.bfloat16, 768, torch.float16),
+           (8, torch.float32, 768, torch.float16),
+           (77, torch.bfloat16, 771, torch.float16),
+           (8, torch.bfloat16, 16385, torch.float16)]
         + [(rows, dt, h, dt) for rows in LN_STREAMED_ROWS
            for h in LN_STREAMED_WIDTHS for dt in LN_DTYPES]),
     # kernel B's training case: dropout inside the kernel, at the train
@@ -2542,15 +2609,21 @@ def gpt2_124m_train(**overrides):
 
 def step_counts(cfg):
     """Launch counts of one training forward + backward: the dense layers
-    run kernels B and E, the sparse ones F and G."""
-    n_ln, n_attn = 2 * cfg.num_layers + 1, cfg.num_layers
+    run kernels B and E, the sparse ones F and G.  Under activation
+    checkpointing the backward runs each layer's forward again (its two
+    LayerNorms and its attention), so A counts 4L + 1 and B (or F) 2L,
+    while D and E (or G) are unchanged."""
+    layers = cfg.num_layers
+    n_ln, n_attn = 2 * layers + 1, layers
+    recompute = layers if cfg.activation_checkpointing else 0
+    fwd_ln, fwd_attn = n_ln + 2 * recompute, n_attn + recompute
     if cfg.sparse_attention is not None:
-        return expected_counts(layer_norm_fwd=n_ln, layer_norm_bwd=n_ln,
-                               block_sparse_flash_fwd=n_attn,
+        return expected_counts(layer_norm_fwd=fwd_ln, layer_norm_bwd=n_ln,
+                               block_sparse_flash_fwd=fwd_attn,
                                block_sparse_flash_bwd_dq=n_attn,
                                block_sparse_flash_bwd_dkdv=n_attn)
-    return expected_counts(layer_norm_fwd=n_ln, layer_norm_bwd=n_ln,
-                           flash_attention_fwd=n_attn,
+    return expected_counts(layer_norm_fwd=fwd_ln, layer_norm_bwd=n_ln,
+                           flash_attention_fwd=fwd_attn,
                            flash_attention_bwd_dkdv=n_attn,
                            flash_attention_bwd_dq=n_attn)
 
@@ -2752,9 +2825,12 @@ def timed_training(cfg, state, ds_config, warmup, iters):
 
 
 def phase_train(state):
-    """bench_gpt2's step, timed as bench.py's _time_steps."""
-    return timed_training(gpt2_124m_train(), state, BENCH_GPT2_CONFIG,
-                          TRAIN_WARMUP, TRAIN_ITERS)[:2]
+    """bench_gpt2's step, timed as bench.py's _time_steps.  Returns the
+    launch counts and the summary (train_fp16 reads its tokens/s)."""
+    counts, summary, _ = timed_training(gpt2_124m_train(), state,
+                                        BENCH_GPT2_CONFIG, TRAIN_WARMUP,
+                                        TRAIN_ITERS)
+    return (counts, summary), summary
 
 
 # --------------------------------------------------------------------- #
@@ -3468,6 +3544,279 @@ def phase_train_longseq(state):
 
 
 # --------------------------------------------------------------------- #
+# phases 20-23: activation checkpointing (GPT-2 medium and large) and fp16
+# --------------------------------------------------------------------- #
+def gpt2_bench(hidden, layers, heads, **overrides):
+    """bench.py::bench_gpt2's model at another width and depth (GPT-2 medium
+    and large, bench.py:1673-1699): S = 1024, bf16, dropout 0.1 with the
+    attention dropout inside kernel B, every layer rematted."""
+    return GPT2Config(vocab_size=50304, n_positions=TRAIN_SEQ,
+                      hidden_size=hidden, num_layers=layers, num_heads=heads,
+                      bf16=True, activation_checkpointing=True, **overrides)
+
+
+def gpt2_medium():
+    """bench_gpt2_medium's model: GPT-2 355M, 24 layers of 1024, 16 heads."""
+    return gpt2_bench(1024, 24, 16)
+
+
+def gpt2_large():
+    """bench_gpt2_large's model: GPT-2 774M, 36 layers of 1280, 20 heads."""
+    return gpt2_bench(1280, 36, 20)
+
+
+# bench_gpt2_large's engine config: micro-batch 4 and bf16 grads
+BENCH_LARGE_CONFIG = dict(BENCH_GPT2_CONFIG, train_micro_batch_size_per_gpu=4,
+                          bf16={"enabled": True,
+                                "grads_in_compute_dtype": True})
+# bench_gpt2's engine config under fp16 in place of bf16 (the model keeps
+# its default bf16 compute), the scaler at its defaults: 2^32, a window of
+# 1000 clean steps, hysteresis 2
+BENCH_FP16_CONFIG = dict({k: v for k, v in BENCH_GPT2_CONFIG.items()
+                          if k != "bf16"}, fp16={"enabled": True})
+# the rematted rows run as the long-context rows do, to stay in the limit
+REMAT_WARMUP, REMAT_ITERS = LONG_WARMUP, LONG_ITERS
+# train_fp16: steps until this many clean steps follow the skipped ones
+FP16_CLEAN_STEPS, FP16_MAX_STEPS = 5, 48
+# its second run: a window of 2 clean steps from a quarter of the settled
+# scale, long enough to double twice
+FP16_WINDOW, FP16_WINDOW_STEPS = 2, 6
+
+
+def bench_ids(cfg, micro, seed=0):
+    """bench_gpt2's fixed batch: RandomState(seed).randint(0, vocab,
+    (micro, n_positions))."""
+    return np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, size=(micro, cfg.n_positions)).astype(np.int32)
+
+
+def recompute_ratio(cfg):
+    """The operations a rematted step executes over the model's own
+    (flops_per_token, which MFU counts): the recompute adds each layer's
+    forward, 2N + 4 L H S a token of the 6N + 12 L H S + 6 H V."""
+    n = cfg.num_params(include_embeddings=False)
+    forward = 2 * n + 4 * cfg.num_layers * cfg.hidden_size * cfg.n_positions
+    return (cfg.flops_per_token() + forward) / cfg.flops_per_token()
+
+
+def one_step_peak(cfg, state, ds_config):
+    """Peak GiB above the start of one forward / backward / step of a new
+    engine (None when the card runs out of memory, reported as such)."""
+    gc_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    engine = None
+    try:
+        engine = train_engine(cfg, state, ds_config)
+        ids = bench_ids(cfg, ds_config["train_micro_batch_size_per_gpu"])
+        loss = engine.forward(ids)
+        engine.backward(loss)
+        engine.step()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    except torch.cuda.OutOfMemoryError:
+        return None
+    finally:
+        del engine
+        gc_cuda()
+
+
+def gc_cuda():
+    """Free what the last engine held, for the next phase's peak."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train_remat_grads(state):
+    """One step of bench_gpt2_medium's config with every dropout on, with
+    and without activation checkpointing, from the same weights and the
+    engine's same generator seed: the loss, the grads after the backward
+    and the parameters after the step must be bitwise equal (predicted:
+    the kernels use no atomics and the recompute draws every mask again
+    from the saved generator state).  Where they are not, the parameters
+    whose grads differ are named and the pair is held at 2e-2 (loss) and
+    5e-2 (each grad, max|d|/max|ref|).  Launch counters exact for both."""
+    cfg_remat = gpt2_medium()
+    runs = {}
+    for remat in (True, False):
+        cfg = replace(cfg_remat, activation_checkpointing=remat)
+        gc_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        engine = train_engine(cfg, state, BENCH_GPT2_CONFIG)
+        ids = bench_ids(cfg, TRAIN_BATCH)
+        reset_launch_counts()
+        loss = engine.forward(ids)
+        engine.backward(loss)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        check(counts == step_counts(cfg),
+              f"remat={remat}: launch counts {counts}, expected "
+              f"{step_counts(cfg)}")
+        grads = engine._flat_grads[0][:engine.num_params].cpu()
+        engine.step()
+        params = engine._flats[0][:engine.num_params].cpu()
+        torch.cuda.synchronize()
+        names = [(name, o, n) for (name, _), (o, n)
+                 in zip(engine._named_params, engine._segments)]
+        runs[remat] = {"loss": loss.item(), "grads": grads, "params": params,
+                       "counts": counts,
+                       "peak_gib": (torch.cuda.max_memory_allocated() - base)
+                       / 2 ** 30}
+        del engine, loss
+    on, off = runs[True], runs[False]
+    bitwise = {"loss": on["loss"] == off["loss"],
+               "grads": torch.equal(on["grads"], off["grads"]),
+               "params_after_step": torch.equal(on["params"], off["params"])}
+    differing, worst = [], 0.0
+    if not all(bitwise.values()):
+        for name, o, n in names:
+            a, b = on["grads"][o:o + n], off["grads"][o:o + n]
+            if not torch.equal(a, b):
+                differing.append(name)
+                worst = max(worst, rel_err(a, b))
+        loss_err = abs(on["loss"] - off["loss"]) / abs(off["loss"])
+        check(loss_err <= LOSS_REL_TOL and worst <= GRAD_REL_TOL,
+              f"remat vs not: loss {loss_err}, worst grad {worst} "
+              f"({differing[:5]})")
+    return None, {
+        "batch": [TRAIN_BATCH, TRAIN_SEQ], "dropout": DROPOUT,
+        "bitwise": bitwise, "grads_differ_in": differing[:10],
+        "worst_grad_rel_err": worst, "loss": on["loss"],
+        "launches_per_step_remat": on["counts"],
+        "launches_per_step_no_remat": off["counts"],
+        "peak_memory_gib_step_remat": on["peak_gib"],
+        "peak_memory_gib_step_no_remat": off["peak_gib"]}
+
+
+def phase_train_rematted(cfg, state, ds_config):
+    """A rematted bench row (bench_gpt2_medium or bench_gpt2_large), timed
+    as the long-context rows (2 + 10 steps): what train reports, with the
+    launch counters' recompute (A 4L + 1, B 2L a step), MFU over the
+    model's flops_per_token as bench.py counts it and, beside it, over
+    the operations the recompute adds; then the peak GiB of one step of a
+    new engine without activation checkpointing."""
+    counts, summary, engine = timed_training(cfg, state, ds_config,
+                                             REMAT_WARMUP, REMAT_ITERS)
+    del engine
+    ratio = recompute_ratio(cfg)
+    no_remat = one_step_peak(replace(cfg, activation_checkpointing=False),
+                             state, ds_config)
+    summary.update(
+        model={"hidden": cfg.hidden_size, "layers": cfg.num_layers,
+               "heads": cfg.num_heads, "params": cfg.num_params()},
+        recompute_ratio=ratio, mfu_executed=summary["mfu"] * ratio,
+        peak_memory_gib_no_remat_step=no_remat,
+        no_remat_out_of_memory=no_remat is None)
+    return counts, summary
+
+
+def phase_train_medium(state):
+    return phase_train_rematted(gpt2_medium(), state, BENCH_GPT2_CONFIG)
+
+
+def phase_train_large(state):
+    return phase_train_rematted(gpt2_large(), state, BENCH_LARGE_CONFIG)
+
+
+def fp16_steps(engine, ids, max_steps, clean_needed=None):
+    """Steps of an fp16 engine, one at a time: each step's loss, scale after
+    it and overflow; on every skipped step the master buffer and the
+    optimizer state must be bitwise unchanged.  Stops after max_steps, or
+    once `clean_needed` clean steps have followed the last skipped one."""
+    trajectory, clean = [], 0
+    for i in range(max_steps):
+        before = (engine._flats[0].clone(),
+                  {k: v.clone() for k, v in engine.opt_states[0].items()})
+        loss = engine.forward(ids)
+        engine.backward(loss)
+        engine.step()
+        overflow = engine.overflow
+        trajectory.append({"step": i + 1, "loss": loss.item(),
+                           "scale": engine.loss_scale, "skipped": overflow})
+        if overflow:
+            check(torch.equal(engine._flats[0], before[0]) and all(
+                torch.equal(v, before[1][k])
+                for k, v in engine.opt_states[0].items()),
+                f"skipped step {i + 1} changed the parameters or the "
+                "optimizer state")
+            clean = 0
+        else:
+            clean += 1
+        del before
+        if clean_needed is not None and clean >= clean_needed:
+            break
+    return trajectory
+
+
+def phase_train_fp16(state, train_summary):
+    """bench_gpt2's row under `"fp16": {"enabled": true}` (the model's bf16
+    compute, every parameter rounded through fp16: A and D take fp16 gamma
+    and beta), the scaler at its defaults.  (1) From 2^32, steps until
+    FP16_CLEAN_STEPS clean steps follow the skipped ones: the skipped
+    steps, the scale trajectory, each skipped step bitwise without effect
+    on the parameters and Adam's state, skipped_steps equal to them, the
+    launch counters exact.  (2) A new engine with a window of 2 clean steps
+    from a quarter of the settled scale: the scale doubles.  (3) Timed as
+    train (3 + 30 steps, a fresh engine from 2^32): tokens/s beside
+    train's of this run."""
+    cfg = gpt2_124m_train()
+    ids = bench_ids(cfg, TRAIN_BATCH)
+    engine = train_engine(cfg, state, BENCH_FP16_CONFIG)
+    check(engine.compute_dtype == torch.float16 and engine.dynamic_loss_scale(),
+          "the fp16 engine does not compute in fp16 with a dynamic scaler")
+    reset_launch_counts()
+    trajectory = fp16_steps(engine, ids, FP16_MAX_STEPS, FP16_CLEAN_STEPS)
+    counts = launch_counts()
+    steps = len(trajectory)
+    expected = {k: steps * v for k, v in step_counts(cfg).items()}
+    check(counts == expected, f"launch counts {counts} over {steps} steps, "
+          f"expected {expected}")
+    skipped = sum(t["skipped"] for t in trajectory)
+    clean_losses = [t["loss"] for t in trajectory if not t["skipped"]]
+    check(0 < skipped == engine.skipped_steps,
+          f"skipped {skipped}, engine.skipped_steps {engine.skipped_steps}")
+    check(len(clean_losses) >= FP16_CLEAN_STEPS
+          and all(np.isfinite(clean_losses))
+          and clean_losses[-1] < clean_losses[0],
+          f"fp16 run did not settle and learn: {trajectory}")
+    settled = engine.loss_scale
+    del engine
+    gc_cuda()
+    power = int(np.log2(settled)) - 2
+    window = train_engine(cfg, state, dict(BENCH_FP16_CONFIG, fp16={
+        "enabled": True, "initial_scale_power": power,
+        "loss_scale_window": FP16_WINDOW}))
+    doubling = fp16_steps(window, ids, FP16_WINDOW_STEPS)
+    check(max(t["scale"] for t in doubling) >= 4 * 2.0 ** power,
+          f"the scale did not double twice: {doubling}")
+    del window
+    gc_cuda()
+    timed_counts, timed, engine = timed_training(
+        cfg, state, BENCH_FP16_CONFIG, TRAIN_WARMUP, TRAIN_ITERS)
+    timed_skipped = engine.skipped_steps
+    del engine
+    bf16_rate = train_summary["tokens_per_s"]
+    return timed_counts, {
+        "skipped_steps": skipped, "steps_to_settle": steps,
+        "settled_scale": settled,
+        "scale_trajectory": [t["scale"] for t in trajectory],
+        "losses": [t["loss"] for t in trajectory],
+        "launches_per_step": step_counts(cfg),
+        "window_run": {"initial_scale_power": power,
+                       "loss_scale_window": FP16_WINDOW,
+                       "scales": [t["scale"] for t in doubling],
+                       "skipped": [t["skipped"] for t in doubling]},
+        "timed": {k: timed[k] for k in (
+            "tokens_per_s", "ms_per_step", "mfu", "host_issue_ms_per_step",
+            "profiled_step_device_ms", "device_busy_share",
+            "peak_memory_gib", "first_loss", "final_loss")},
+        "timed_skipped_steps": timed_skipped,
+        "train_bf16_tokens_per_s": bf16_rate,
+        "fp16_over_bf16": timed["tokens_per_s"] / bf16_rate}
+
+
+# --------------------------------------------------------------------- #
 # phases 12 and 13: the low-bandwidth collective tier on W logical ranks
 # --------------------------------------------------------------------- #
 def fcm_inputs(shape, dtype, seed, scale=1.0):
@@ -3980,6 +4329,23 @@ def main():
         run_phase("checkpoint_dp", phase_checkpoint_dp, train_state)
         print(card, flush=True)
         return last_line()
+    if sys.argv[1:] == ["--remat-only"]:
+        # kernels A, B, D, E, train (for train_fp16's comparison) and the
+        # phases of activation checkpointing and fp16
+        for group in [g for g in PARITY_CASES if g not in DP_PARITY]:
+            del PARITY_CASES[group]
+        run_phase("parity", phase_parity)
+        train_state = init_state(gpt2_124m_train())
+        _, train_summary = run_phase("train", phase_train, train_state)
+        run_phase("train_fp16", phase_train_fp16, train_state, train_summary)
+        del train_state
+        medium_state = init_state(gpt2_medium())
+        run_phase("train_remat_grads", phase_train_remat_grads, medium_state)
+        run_phase("train_medium", phase_train_medium, medium_state)
+        del medium_state
+        run_phase("train_large", phase_train_large, init_state(gpt2_large()))
+        print(card, flush=True)
+        return last_line()
     if sys.argv[1:] == ["--mp-only"]:
         # kernels A, B, D, E and the phases of one process a card
         for group in [g for g in PARITY_CASES if g not in DP_PARITY]:
@@ -4010,8 +4376,11 @@ def main():
 
     train_state = init_state(gpt2_124m_train())
     run_phase("train_grads", phase_train_grads, train_state)
+    train_counts, train_summary = run_phase("train", phase_train, train_state)
     path_counts = {"bf16": bf16_counts, "int8": int8_counts,
-                   "train": run_phase("train", phase_train, train_state)}
+                   "train": train_counts}
+    path_counts["train_fp16"] = run_phase("train_fp16", phase_train_fp16,
+                                          train_state, train_summary)
     path_counts["checkpoint"] = run_phase("checkpoint", phase_checkpoint,
                                           train_state)
     run_phase("train_dp_grads", phase_train_dp_grads, train_state)
@@ -4030,6 +4399,15 @@ def main():
                                             phase_train_sparse, long_state)
     path_counts["train_longseq"] = run_phase("train_longseq",
                                              phase_train_longseq, long_state)
+    del long_state
+
+    medium_state = init_state(gpt2_medium())
+    run_phase("train_remat_grads", phase_train_remat_grads, medium_state)
+    path_counts["train_medium"] = run_phase("train_medium",
+                                            phase_train_medium, medium_state)
+    del medium_state
+    path_counts["train_large"] = run_phase("train_large", phase_train_large,
+                                           init_state(gpt2_large()))
 
     path_counts["fcm"] = run_phase("fcm_ops", phase_fcm_ops)
     run_phase("fcm_timing", phase_fcm_timing)

@@ -1,15 +1,21 @@
 // Shared helpers of the port's CUDA kernels: the dtype codes the Python
-// wrappers pass (ops/op_builder.py DTYPE_*), bf16 <-> fp32 conversion
-// through the __nv_bfloat16 intrinsics only, and warp reductions.
+// wrappers pass (ops/op_builder.py DTYPE_*), bf16 and fp16 <-> fp32
+// conversion through the __nv_bfloat16 and __half intrinsics only, and warp
+// reductions.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math_constants.h>
 #include <stdint.h>
 
 #define DS_DTYPE_FP32 0
 #define DS_DTYPE_BF16 1
+// fp16 is a parameter dtype only: kernels A and D take an fp16 gamma and
+// beta (an fp16 run rounds the parameters through fp16, the JAX engine's
+// cast); every launcher refuses it for an activation
+#define DS_DTYPE_FP16 2
 
 // ops/flash_attention.py DEFAULT_MASK_VALUE: -0.7 * float32 max.  Finite,
 // so a running max over masked scores never becomes -inf.
@@ -43,6 +49,7 @@ __device__ __forceinline__ float ds_to_float(float v) { return v; }
 __device__ __forceinline__ float ds_to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float ds_to_float(__half v) { return __half2float(v); }
 
 template <typename T>
 __device__ __forceinline__ T ds_from_float(float v);
@@ -51,6 +58,10 @@ __device__ __forceinline__ float ds_from_float<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 ds_from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
+}
+template <>
+__device__ __forceinline__ __half ds_from_float<__half>(float v) {
+  return __float2half_rn(v);
 }
 
 __device__ __forceinline__ float ds_warp_sum(float v) {

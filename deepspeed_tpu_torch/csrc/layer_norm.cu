@@ -16,8 +16,9 @@
 // deviations come from the registers (two warp-shuffle sums, a fixed-order
 // shared-memory step when a row spans several warps), and y is written in
 // 16-byte packs.  Each thread loads its columns of gamma and beta once, in
-// their own dtype (bf16 in training, fp32 in serving), so the wrapper
-// launches no cast.  Few rows take one row a block: decode's 8 rows run on
+// their own dtype (bf16 in training, fp32 in serving, fp16 in an fp16 run),
+// widened to fp32 in registers as the Pallas kernel's astype(float32), so
+// the wrapper launches no cast.  Few rows take one row a block: decode's 8 rows run on
 // 8 SMs, prefill's 1024 on 256 blocks.
 
 #include "layer_norm_row.cuh"
@@ -129,6 +130,22 @@ int launch_fwd(const ds_ln::Plan& p, const void* x, const void* gamma, const voi
   });
 }
 
+// gamma and beta of dtype code `pdtype` (fp32, bf16 or fp16) beside x of T.
+template <typename T>
+int launch_fwd_params(int pdtype, const ds_ln::Plan& p, const void* x, const void* gamma,
+                      const void* beta, void* out, int rows, int hidden, float eps,
+                      cudaStream_t s) {
+  switch (pdtype) {
+    case DS_DTYPE_FP32:
+      return launch_fwd<T, float>(p, x, gamma, beta, out, rows, hidden, eps, s);
+    case DS_DTYPE_BF16:
+      return launch_fwd<T, __nv_bfloat16>(p, x, gamma, beta, out, rows, hidden, eps, s);
+    case DS_DTYPE_FP16:
+      return launch_fwd<T, __half>(p, x, gamma, beta, out, rows, hidden, eps, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // The plan of kernel A (backward 0) or D (1) for x [rows, hidden] of dtype
@@ -146,9 +163,9 @@ extern "C" int ds_layer_norm_plan(int rows, int hidden, int dtype, int aligned, 
   return 0;
 }
 
-// x [rows, hidden] and out in x's dtype, gamma and beta [hidden] in theirs;
-// `launch` the wrapper's array (ds_ln::LaunchField), refused unless its
-// plan is this launcher's.
+// x [rows, hidden] and out in x's dtype (bf16 or fp32), gamma and beta
+// [hidden] in theirs (fp32, bf16 or fp16); `launch` the wrapper's array
+// (ds_ln::LaunchField), refused unless its plan is this launcher's.
 extern "C" int ds_layer_norm_fwd(const void* x, const void* gamma, const void* beta, void* out,
                                  float eps, const int* launch, void* stream) {
   const bool aligned = ds_ln::aligned16(x) && ds_ln::aligned16(out) &&
@@ -159,14 +176,10 @@ extern "C" int ds_layer_norm_fwd(const void* x, const void* gamma, const void* b
   const int rows = launch[ds_ln::kRows], hidden = launch[ds_ln::kHidden];
   const int dtype = launch[ds_ln::kDtype], pdtype = launch[ds_ln::kParamDtype];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool pb = pdtype == DS_DTYPE_BF16;
-  if (pdtype != DS_DTYPE_BF16 && pdtype != DS_DTYPE_FP32)
-    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == DS_DTYPE_BF16)
-    return pb ? launch_fwd<__nv_bfloat16, __nv_bfloat16>(p, x, gamma, beta, out, rows, hidden, eps, s)
-              : launch_fwd<__nv_bfloat16, float>(p, x, gamma, beta, out, rows, hidden, eps, s);
+    return launch_fwd_params<__nv_bfloat16>(pdtype, p, x, gamma, beta, out, rows, hidden, eps,
+                                            s);
   if (dtype == DS_DTYPE_FP32)
-    return pb ? launch_fwd<float, __nv_bfloat16>(p, x, gamma, beta, out, rows, hidden, eps, s)
-              : launch_fwd<float, float>(p, x, gamma, beta, out, rows, hidden, eps, s);
+    return launch_fwd_params<float>(pdtype, p, x, gamma, beta, out, rows, hidden, eps, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,7 +5,8 @@
 // passes, as the forward), x_hat = (x - mean) * rstd, then
 //   dx = (dy*g - mean(dy*g) - x_hat * mean(dy*g*x_hat)) * rstd  (x's dtype),
 //   dgamma = sum over rows of dy * x_hat,  dbeta = sum over rows of dy,
-// summed in fp32 and rounded once into gamma's dtype.
+// summed in fp32 and rounded once into gamma's dtype (fp32, bf16, or fp16
+// in an fp16 run: the JAX op's dgamma.astype(gamma.dtype)).
 //
 // Bound on the H100: bytes.  It reads x and dy once and writes dx once
 // (6 B/element in bf16, 12 in fp32), ~20 operations per element, far below
@@ -396,12 +397,32 @@ int launch_bwd(const ds_ln::Plan& p, const void* x, const void* gamma, const voi
   return static_cast<int>(cudaGetLastError());
 }
 
+// gamma of dtype code `pdtype` (fp32, bf16 or fp16) beside x and dy of T.
+template <typename T>
+int launch_bwd_params(int pdtype, const ds_ln::Plan& p, const void* x, const void* gamma,
+                      const void* dy, void* dx, float* ws, void* dgamma, void* dbeta, int rows,
+                      int hidden, float eps, cudaStream_t s) {
+  switch (pdtype) {
+    case DS_DTYPE_FP32:
+      return launch_bwd<T, float, kRingStages>(p, x, gamma, dy, dx, ws, dgamma, dbeta, rows,
+                                               hidden, eps, s);
+    case DS_DTYPE_BF16:
+      return launch_bwd<T, __nv_bfloat16, kRingStages>(p, x, gamma, dy, dx, ws, dgamma, dbeta,
+                                                       rows, hidden, eps, s);
+    case DS_DTYPE_FP16:
+      return launch_bwd<T, __half, kRingStages>(p, x, gamma, dy, dx, ws, dgamma, dbeta, rows,
+                                                hidden, eps, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// x, dy, dx [rows, hidden] in x's dtype; gamma [hidden], and dgamma, dbeta
-// written in its dtype; ws an fp32 workspace [blocks, 2, hidden]; `launch`
-// the wrapper's array (ds_ln::LaunchField), refused unless its plan is this
-// launcher's.  Two launches.
+// x, dy, dx [rows, hidden] in x's dtype (bf16 or fp32); gamma [hidden], and
+// dgamma, dbeta written in its dtype (fp32, bf16 or fp16); ws an fp32
+// workspace [blocks, 2, hidden]; `launch` the wrapper's array
+// (ds_ln::LaunchField), refused unless its plan is this launcher's.  Two
+// launches.
 extern "C" int ds_layer_norm_bwd(const void* x, const void* gamma, const void* dy, void* dx,
                                  void* ws, void* dgamma, void* dbeta, float eps,
                                  const int* launch, void* stream) {
@@ -412,20 +433,13 @@ extern "C" int ds_layer_norm_bwd(const void* x, const void* gamma, const void* d
     return static_cast<int>(cudaErrorInvalidValue);
   const int rows = launch[ds_ln::kRows], hidden = launch[ds_ln::kHidden];
   const int dtype = launch[ds_ln::kDtype], pdtype = launch[ds_ln::kParamDtype];
-  if (pdtype != DS_DTYPE_BF16 && pdtype != DS_DTYPE_FP32)
-    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
-  const bool pb = pdtype == DS_DTYPE_BF16;
   if (dtype == DS_DTYPE_BF16)
-    return pb ? launch_bwd<__nv_bfloat16, __nv_bfloat16, kRingStages>(
-                    p, x, gamma, dy, dx, w, dgamma, dbeta, rows, hidden, eps, s)
-              : launch_bwd<__nv_bfloat16, float, kRingStages>(p, x, gamma, dy, dx, w, dgamma,
-                                                              dbeta, rows, hidden, eps, s);
+    return launch_bwd_params<__nv_bfloat16>(pdtype, p, x, gamma, dy, dx, w, dgamma, dbeta, rows,
+                                            hidden, eps, s);
   if (dtype == DS_DTYPE_FP32)
-    return pb ? launch_bwd<float, __nv_bfloat16, kRingStages>(p, x, gamma, dy, dx, w, dgamma,
-                                                              dbeta, rows, hidden, eps, s)
-              : launch_bwd<float, float, kRingStages>(p, x, gamma, dy, dx, w, dgamma, dbeta,
-                                                      rows, hidden, eps, s);
+    return launch_bwd_params<float>(pdtype, p, x, gamma, dy, dx, w, dgamma, dbeta, rows, hidden,
+                                    eps, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -160,7 +160,8 @@ int dispatch(const Plan& p, F&& f) {
 }
 
 // N contiguous elements of T held in registers as raw 32-bit words (bf16
-// two a word), loaded in one access: 16 bytes (or 32 as two, 8, 4, 2).
+// and fp16 two a word), loaded in one access: 16 bytes (or 32 as two, 8,
+// 4, 2).  x is bf16 or fp32; gamma and beta are also fp16 in an fp16 run.
 template <typename T, int N>
 struct Pack {
   static constexpr int kBytes = N * static_cast<int>(sizeof(T));
@@ -206,6 +207,9 @@ struct Pack {
   __device__ __forceinline__ float get(int i) const {
     if constexpr (std::is_same<T, float>::value) {
       return __uint_as_float(w[i]);
+    } else if constexpr (std::is_same<T, __half>::value) {
+      const unsigned int bits = i % 2 ? w[i / 2] >> 16 : w[i / 2] & 0xffffu;
+      return __half2float(__ushort_as_half(static_cast<unsigned short>(bits)));
     } else {
       return __uint_as_float(i % 2 ? w[i / 2] & 0xffff0000u : w[i / 2] << 16);
     }

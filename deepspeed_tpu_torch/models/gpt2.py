@@ -7,21 +7,30 @@ stacked [L, ...] tree), `ln_f.w`/`ln_f.b`, and `lm_head` [H, V] when the
 embeddings are untied.  They are fp32 and trainable; compute runs in
 config.dtype.  `loss` (also `forward`, as the JAX model's `__call__`) is
 the next-token cross-entropy, through the chunked
-`fused_linear_cross_entropy` by default.  Activation checkpointing, PLD
-and layer streaming are not ported yet.
+`fused_linear_cross_entropy` by default.  With `activation_checkpointing`
+each layer is recomputed in the backward, as the JAX model's
+`jax.checkpoint(body)`: only the layer's input is saved, and the
+recompute draws its dropout masks again from the layer's generator state
+(runtime/activation_checkpointing `checkpoint_with_generator`), so the loss
+and the gradients equal those without recompute, bit for bit.  PLD and
+layer streaming are not ported yet.
 """
 
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from ..ops.activations import dropout
 from ..ops.fused_cross_entropy import fused_linear_cross_entropy
 from ..ops.normalize import fused_layer_norm
 from ..ops.transformer import (DeepSpeedTransformerConfig,
                                DeepSpeedTransformerLayer)
+from ..runtime.activation_checkpointing.checkpointing import (
+    checkpoint_with_generator, nothing_saveable)
 
 
 @dataclass
@@ -55,10 +64,6 @@ class GPT2Config:
     def __post_init__(self):
         if self.intermediate_size is None:
             self.intermediate_size = 4 * self.hidden_size
-        if self.activation_checkpointing:
-            raise NotImplementedError(
-                "activation_checkpointing=True is not ported yet (ROADMAP.md "
-                "A.1b: torch.utils.checkpoint around each layer)")
 
     @property
     def dtype(self):
@@ -98,6 +103,13 @@ class GPT2Config:
         attn = 12 * self.num_layers * self.hidden_size * self.n_positions
         head = 6 * self.hidden_size * self.vocab_size
         return 6 * n + attn + head
+
+
+def _run_layer(layer, names, deterministic, h, *tensors, generator=None):
+    """layer(h) on `tensors` as its parameters `names`."""
+    return functional_call(layer, dict(zip(names, tensors)), (h,),
+                           {"generator": generator,
+                            "deterministic": deterministic})
 
 
 class _FinalNorm(nn.Module):
@@ -195,13 +207,28 @@ class GPT2Model(nn.Module):
         """input_ids [B, S] -> pre-head hidden states [B, S, H].  Dropout
         (embedding, then each layer's) draws from `generator`, on the
         model's device; without one the pass is deterministic, as the JAX
-        model without an rng."""
+        model without an rng.  With activation_checkpointing (and grad
+        enabled) each layer is checkpointed, recomputing everything but its
+        input."""
         if generator is None:
             deterministic = True
         h = dropout(self.embed(input_ids), self.config.embd_dropout,
                     generator, deterministic)
+        remat = self.config.activation_checkpointing and \
+            torch.is_grad_enabled()
         for layer in self.h:
-            h = layer(h, generator=generator, deterministic=deterministic)
+            if remat:
+                # the layer's tensors of this call go in as inputs: under
+                # the engine's functional_call they are the compute-dtype
+                # casts, which the recompute (in the backward, after the
+                # call has put the masters back) must read again
+                params = dict(layer.named_parameters())
+                h = checkpoint_with_generator(
+                    functools.partial(_run_layer, layer, tuple(params),
+                                      deterministic),
+                    generator, h, *params.values(), policy=nothing_saveable)
+            else:
+                h = layer(h, generator=generator, deterministic=deterministic)
         return h
 
     def logits(self, input_ids):

@@ -11,7 +11,7 @@ counterpart here.)
 
 import torch
 
-from .op_builder import DTYPE_BF16, DTYPE_FP32
+from .op_builder import DTYPE_BF16, DTYPE_FP16, DTYPE_FP32
 
 # The checks below run on every launch, and eager decode is bound by the
 # host (PERF.md), so they use the cheapest tensor attributes there are.
@@ -33,6 +33,10 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
 
 # torch dtype -> csrc/common.cuh dtype code
 DTYPE_CODES = {torch.float32: DTYPE_FP32, torch.bfloat16: DTYPE_BF16}
+# the dtypes of kernels A's and D's gamma and beta: also fp16, which an fp16
+# run's cast of the parameters gives them (every other operand of every
+# kernel is bf16 or fp32)
+PARAM_DTYPE_CODES = {**DTYPE_CODES, torch.float16: DTYPE_FP16}
 
 
 def kernel_dtype_code(t: torch.Tensor) -> int:

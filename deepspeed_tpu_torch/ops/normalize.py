@@ -16,8 +16,8 @@ from typing import NamedTuple
 import torch
 
 from . import op_builder
-from .dispatch import (DTYPE_CODES, check_contiguous, check_cuda,
-                       kernel_dtype_code, stream_handle, use_kernel)
+from .dispatch import (DTYPE_CODES, PARAM_DTYPE_CODES, check_contiguous,
+                       check_cuda, stream_handle, use_kernel)
 
 # csrc/layer_norm_row.cuh: the routes (by code) and the constants of its plan
 LN_ROUTES = ("vector", "scalar", "streamed")
@@ -104,11 +104,10 @@ def _shape_launches(name, shape, dtype, pdtype, vector_shapes, backward):
     wrappers run on every decode step, which the host paces: a call reads
     these facts here and hands the launcher one pointer."""
     code = DTYPE_CODES.get(dtype)
-    pcode = DTYPE_CODES.get(pdtype)
-    if code is None or pcode is None:
-        bad = dtype if code is None else pdtype
+    if code is None:
         raise TypeError(f"{name}: the CUDA kernels take bfloat16 or float32, "
-                        f"got {bad}")
+                        f"got {dtype}")
+    pcode = _param_code(name, pdtype)
     hidden = shape[-1]
     for vshape in vector_shapes:
         if vshape != (hidden,):
@@ -150,27 +149,38 @@ def layer_norm_bwd_reference(x, gamma, dy, eps: float = 1e-5):
             dyf.sum(dim=0))
 
 
-def _as_params(vectors):
+def _param_code(name, pdtype):
+    """gamma's and beta's dtype code: fp32, bf16, or fp16 (an fp16 run's
+    parameters); raises for any other dtype."""
+    pcode = PARAM_DTYPE_CODES.get(pdtype)
+    if pcode is None:
+        raise TypeError(f"{name}: gamma and beta must be bfloat16, float16 or "
+                        f"float32, got {pdtype}")
+    return pcode
+
+
+def _as_params(name, vectors):
     """gamma (and beta) as the kernels read them: as they are when they
-    share a dtype and are contiguous (every model path), else (off the
-    model's paths) as contiguous fp32 copies."""
+    share a dtype and are contiguous (every model path: bf16 in training,
+    fp32 in serving, fp16 in an fp16 run), else (off the model's paths) as
+    contiguous fp32 copies."""
     first = vectors[0]
     if all(t.dtype is first.dtype and t.is_contiguous() for t in vectors):
         return vectors
     for t in vectors:
-        kernel_dtype_code(t)  # raises unless bf16 or fp32
+        _param_code(name, t.dtype)
     return tuple(t.float().contiguous() for t in vectors)
 
 
 def layer_norm_cuda(x, gamma, beta, eps: float = 1e-5):
-    """Kernel A on a contiguous CUDA tensor: LN over the last dim, gamma and
-    beta [hidden] in bf16 or fp32, read in their own dtype.  One device
-    kernel, no other."""
+    """Kernel A on a contiguous CUDA tensor x (bf16 or fp32): LN over the
+    last dim, gamma and beta [hidden] in bf16, fp16 or fp32, read in their
+    own dtype.  One device kernel, no other."""
     name = "layer_norm_cuda"
     index = check_cuda(name, x, gamma, beta)
     if not x.is_contiguous():
         check_contiguous(name, x=x)
-    gamma, beta = _as_params((gamma, beta))
+    gamma, beta = _as_params(name, (gamma, beta))
     rows, launches = _shape_launches(name, x.shape, x.dtype, gamma.dtype,
                                      (gamma.shape, beta.shape), False)
     out = torch.empty_like(x)
@@ -191,8 +201,9 @@ layer_norm_cuda.launches = 0
 
 
 def layer_norm_bwd_cuda(x, gamma, dy, eps: float = 1e-5):
-    """Kernel D on contiguous CUDA tensors x and dy (same shape and dtype)
-    and gamma [hidden] (bf16 or fp32, read in its own dtype): (dx in x's
+    """Kernel D on contiguous CUDA tensors x and dy (same shape and dtype,
+    bf16 or fp32) and gamma [hidden] (bf16, fp16 or fp32, read in its own
+    dtype): (dx in x's
     dtype, dgamma, dbeta in gamma's dtype), the column sums taken in fp32 in
     a fixed order with no atomics and rounded once.  Two device kernels, no
     other."""
@@ -202,7 +213,7 @@ def layer_norm_bwd_cuda(x, gamma, dy, eps: float = 1e-5):
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError(f"{name}: dy {tuple(dy.shape)} {dy.dtype} must match "
                          f"x {tuple(x.shape)} {x.dtype}")
-    (gamma,) = _as_params((gamma,))
+    (gamma,) = _as_params(name, (gamma,))
     rows, launches = _shape_launches(name, x.shape, x.dtype, gamma.dtype,
                                      (gamma.shape,), True)
     dx = torch.empty_like(x)
@@ -232,7 +243,7 @@ layer_norm_bwd_cuda.launches = 0
 class _FusedLayerNorm(torch.autograd.Function):
     """Kernel A forward and kernel D backward on CUDA, the plain pair on the
     CPU.  dgamma / dbeta are reduced in fp32 and returned in gamma's and
-    beta's dtypes (normalize.py _fused_ln_bwd)."""
+    beta's dtypes, fp16 ones too (normalize.py _fused_ln_bwd)."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, eps):

@@ -38,7 +38,7 @@ I64_PTR = ctypes.POINTER(ctypes.c_int64)
 # without c_void_p would be cut to 32 bits.
 SIGNATURES = {
     # x, gamma, beta, out, eps, the launch (int32[8]: rows, hidden, x's and
-    # gamma's dtype codes, then ops/normalize.py layer_norm_plan's route,
+    # gamma's dtype codes (gamma's may be fp16), then ops/normalize.py layer_norm_plan's route,
     # threads a row, rows a block, blocks), stream
     "ds_layer_norm_fwd": [P, P, P, P, F32, P, P],
     # x, gamma, dy, dx, the fp32 workspace [blocks, 2, hidden], dgamma,
@@ -123,9 +123,11 @@ SIGNATURES = {
     "ds_fcm_rs_collect_plan": [P, P, I32, I64, I32, P],
 }
 
-# dtype codes shared with csrc/common.cuh
+# dtype codes shared with csrc/common.cuh (fp16: kernels A's and D's gamma
+# and beta only)
 DTYPE_FP32 = 0
 DTYPE_BF16 = 1
+DTYPE_FP16 = 2
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None

@@ -39,7 +39,15 @@ What it keeps of the JAX engine:
   inside `loss_fn`), through `torch.func.functional_call`; autograd
   returns fp32 grads to the rank's master, on the rank's stream.
   `bf16.grads_in_compute_dtype` accumulates the micro-steps' grads in bf16
-  instead.
+  instead (bf16 only, as in the JAX engine).
+- fp16 (`"fp16": {"enabled": true}`, the JAX engine's): the compute dtype
+  is fp16, so every parameter is rounded through fp16, while the model
+  computes in its own dtype (bf16 by default): LayerNorm's gamma and beta
+  reach kernels A and D as fp16 vectors and every other use casts on.
+  The loss is scaled by the dynamic scaler (`initial_scale_power`,
+  `loss_scale_window`, `hysteresis`, `min_loss_scale`) or the static
+  `loss_scale`; the grads that come back through the fp16 casts overflow
+  to inf, the step's finite flag skips the update, and the scaler halves.
 - `forward(*batch)` returns the unscaled loss with its graph, the mean of
   all W ranks' losses (the global batch's loss when the ranks hold equal
   token counts; under processes the W losses are gathered over the
@@ -196,9 +204,6 @@ def refuse_unported(config: DeepSpeedConfig, model, mesh: MeshContext) -> None:
                       ("offload_optimizer", zc.offload_optimizer)):
         if off is not None and off.device not in (None, "none"):
             _refuse(f"zero_optimization.{what} (the offload tier)", "A.7")
-    if config.fp16.enabled:
-        _refuse("fp16.enabled (the kernels take bf16 and fp32; fp16 and its "
-                "dynamic loss scaling)", "A.1b")
     if config.fused_step_config.enabled:
         _refuse("fused_step (one dispatch per optimizer step)", "A.6")
     if (config.optimizer_name or "").lower() in (ONEBIT_ADAM_OPTIMIZER,
@@ -274,10 +279,18 @@ class DeepSpeedEngine:
             self.mesh, self.config.zero_optimization_stage,
             self.config.zero_config.param_persistence_threshold)
 
-        self.compute_dtype = (torch.bfloat16 if self.config.bf16.enabled
-                              else torch.float32)
+        # the JAX engine's precision: bf16 first, then fp16 (every floating
+        # parameter rounded through fp16 on its way to the model, which
+        # computes in its own dtype), else fp32
+        if self.config.bf16.enabled:
+            self.compute_dtype = torch.bfloat16
+        elif self.config.fp16.enabled:
+            self.compute_dtype = torch.float16
+        else:
+            self.compute_dtype = torch.float32
         self.scaler_cfg, self.scaler_state = create_loss_scaler(
-            None, device=self.device)
+            self.config.fp16 if self.config.fp16.enabled else None,
+            device=self.device)
         self._grads_half = (self.config.bf16.enabled
                             and self.config.bf16.grads_in_compute_dtype)
 
@@ -891,8 +904,9 @@ class DeepSpeedEngine:
                                               self.scaler_state, overflow)
         self._last_overflow = overflow
         self.global_steps += 1
-        # the dynamic scaler (fp16) reads the flag to skip the scheduler,
-        # as the JAX engine; bf16 / fp32 never do
+        # the dynamic scaler (fp16) reads the flag, once a step, to count a
+        # skipped step and hold the scheduler, as the JAX engine; bf16 /
+        # fp32 and fp16's static scale never do
         if self.scaler_cfg.dynamic and bool(overflow):
             self.skipped_steps += 1
         elif self.lr_scheduler is not None:

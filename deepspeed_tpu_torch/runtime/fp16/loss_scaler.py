@@ -5,9 +5,10 @@ deepspeed/runtime/fp16/loss_scaler.py:221).
 The scaler is split as in the JAX package: a static config and a state of
 three 0-dim tensors on the engine's device, updated with selects
 (`torch.where`) so that the step reads nothing back to the host.  bf16 and
-fp32 runs keep the static scale 1.0; fp16 is refused by `initialize` for
-now (the kernels take bf16 and fp32), so the dynamic transition serves the
-port's later fp16 path (ROADMAP.md A.1b).
+fp32 runs keep the static scale 1.0; an fp16 run (`"fp16": {"enabled":
+true}`) takes the dynamic scaler, or the static `loss_scale`, from its
+config, and the engine reads the overflow flag once a step to count a
+skipped step, as the JAX engine does.
 """
 
 from dataclasses import dataclass

@@ -16,6 +16,8 @@ from deepspeed_tpu.config import DeepSpeedConfigError as JaxConfigError
 import deepspeed_tpu_torch as dst
 from deepspeed_tpu_torch.config import DeepSpeedConfig, DeepSpeedConfigError
 from deepspeed_tpu_torch.models import GPT2Config, GPT2Model
+from deepspeed_tpu_torch.ops.transformer import (DeepSpeedTransformerConfig,
+                                                 DeepSpeedTransformerLayer)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLES = sorted(glob.glob(os.path.join(REPO, "docs", "examples", "*.json")))
@@ -92,7 +94,8 @@ TINY = dict(vocab_size=128, n_positions=64, hidden_size=32, num_layers=2,
                             {"device": "cpu"}}}, "A.7"),
     ({"zero_optimization": {"stage": 3, "offload_param":
                             {"device": "cpu"}}}, "A.5"),
-    ({"fp16": {"enabled": True}}, "A.1b"),
+    ({"zero_optimization": {"stage": 2, "offload_optimizer":
+                            {"device": "nvme"}}}, "A.7"),
     ({"fused_step": {"enabled": True}}, "A.6"),
     ({"optimizer": {"type": "OneBitAdam", "params": {"lr": 1e-3}},
       "zero_optimization": {"stage": 2, "low_bandwidth": {"onebit": True}}},
@@ -138,8 +141,9 @@ def test_sparse_attention_section_is_accepted(section):
 
 
 def test_unported_model_features_are_refused():
-    with pytest.raises(NotImplementedError, match="A.1b"):
-        GPT2Config(activation_checkpointing=True, **TINY)
+    with pytest.raises(NotImplementedError, match="post-LN"):
+        DeepSpeedTransformerLayer(DeepSpeedTransformerConfig(
+            hidden_size=32, heads=4, pre_layer_norm=False))
     with pytest.raises(NotImplementedError, match="A.9-A.10"):
         dst.initialize(model=torch.nn.Linear(2, 2), config=FLAGSHIP,
                        device="cpu")

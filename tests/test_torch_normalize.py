@@ -335,7 +335,8 @@ def _at(ptr, shape, dtype):
 
 
 def _dtype(code):
-    return torch.bfloat16 if code == BF16 else torch.float32
+    return {BF16: torch.bfloat16, op_builder.DTYPE_FP16: torch.float16}.get(
+        code, torch.float32)
 
 
 class _Kernels:
