@@ -305,11 +305,61 @@ after phase 11):
 23. train_large: bench_gpt2_large the same way (GPT-2 774M: 36 layers of
    1280, 20 heads, batch 4 x 1024, bf16 grads_in_compute_dtype).
 
+train_large also splits one more step's memory (step_memory): what the
+engine holds before it, the forward and backward's peak above that, and
+the step's peak above what the backward left.
+
+The fused whole step (one CUDA graph a window, runtime/fused_step.py) and
+the resilience block (24-27 after phase 19, 28 after phase 23).  A
+replay launches the graph's kernels without calling a wrapper, so the
+launch counters of a fused run count its eager first window and the
+capture's launch calls (which the capture records into the graph); a
+torch.profiler trace of a replay counts kernels A, B, D and E by kernel
+name, and each phase holds it against an eager window's counters:
+
+24. train_fused_grads: bench_gpt2's config at gas 2 with dropout 0.1, with
+   and without activation_checkpointing, then under fp16 from 2^32 (the
+   first windows overflow): 3 windows from the same weights and generator
+   seeds through the modular loop and through the fused step (the first
+   window eager, then one capture and two replays).  Every window's
+   loss, scale and skipped steps, and after the run the master buffer,
+   Adam's state, the scaler and the generators, bitwise; one graph, the
+   last replay's traced launches an eager window's; the graphed peak
+   within the eager run's plus the static input buffers.  Then the same
+   at 4 data-parallel ranks of one process on the card (ZeRO-2, one row
+   a rank: train_fused_dp).
+25. train_fused: bench.py::bench_gpt2_gas4 and bench_gpt2_gas4_fused
+   exactly (gas 4, batch 8 x 1024), two engines from the same weights,
+   timed as _bench_gpt2_gas (2 warm-up steps, then 8 train_batch calls,
+   closed by the loss and a parameter read) in turns (modular, fused,
+   fused, modular): tokens/s, MFU, host issue ms a step, one profiled
+   step's device ms and busy share, peak GiB, and one replay's device
+   time split by kernel name: kernels A, B, D, E, the GEMMs, the step
+   (the kernels after the window's last D) and the rest (glue and casts).
+26. train_fused_mp (also in --mp-only): the fused step at one process a
+   card over NCCL (torchrun, as phase 18) at one process, gas 2, dropout
+   0.1: its graphed windows bitwise against its eager process-group
+   windows, one graph (the engine graphs no window across cards yet,
+   ROADMAP A.6c).
+27. resilience: bench_gpt2's 1.494 GB under fused_step and the resilience
+   block: a save with atomic_checkpoints off and one with it on (staged,
+   a size and CRC32 manifest, renamed), the manifest's CRC pass alone and
+   a verified load, in seconds; then 3 windows,
+   request_stop(), the 4th window saves emergency_step4 at its boundary
+   and raises TrainingInterrupted; an engine from other weights resumes
+   from the directory's latest tag, and its 2 windows, parameters, Adam's
+   state and generators equal an uninterrupted run's bitwise.
+28. train_fused_large: bench_gpt2_large under fused_step, timed as
+   train_large (2 + 10 steps), beside train_large's numbers of this run.
+
 Then the `kernels` line (launches by path: bf16, int8, train, train_fp16,
 checkpoint, train_dp, checkpoint_dp, train_mp (every process's launches
-summed), train_sparse, train_longseq, train_medium, train_large, fcm) and,
-last, {"ok": true, "device": {...}}.  Without a CUDA device the script
-exits 1 in phase 1.
+summed), train_fused, train_fused_mp, resilience, train_sparse,
+train_longseq, train_medium, train_large, train_fused_large, fcm; and
+for the fused paths the traced launches of their profiled replays, which
+no counter sees) and, last, {"ok": true, "device": {...}}.  A capture that fails fails its
+phase, and the script exits 1 without a result.  Without a CUDA device
+the script exits 1 in phase 1.
 
     python3 chip_smoke.py --dp-only
 
@@ -319,14 +369,21 @@ host with four), and prints no `kernels` line.
 
     python3 chip_smoke.py --mp-only
 
-runs phase 1, the parity cases of kernels A, B, D and E and phases 18
-and 19 alone, one process a visible card, and prints no `kernels` line.
+runs phase 1, the parity cases of kernels A, B, D and E and phases 18,
+19 and 26 alone, one process a visible card, and prints no `kernels`
+line.
 
     python3 chip_smoke.py --remat-only
 
 runs phase 1, the parity cases of kernels A, B, D and E (the new widths and
 fp16 gamma included), phase 8 (train, for train_fp16's comparison) and
 phases 20-23 alone, and prints no `kernels` line.
+
+    python3 chip_smoke.py --fused-only
+
+runs phase 1, the parity cases of kernels A, B, D and E, phases 24-27,
+phase 23 (train_large, for train_fused_large's comparison) and phase 28
+alone, and prints no `kernels` line.
 
     python3 chip_smoke.py --fcm-only
 
@@ -337,6 +394,7 @@ four), and prints no `kernels` line.
 
 import contextlib
 import ctypes
+import functools
 import gc
 import hashlib
 import json
@@ -517,23 +575,30 @@ def phase_device():
     t0 = time.perf_counter()
     op_builder.load()
     seconds = time.perf_counter() - t0
-    return card, {"card": card, "torch": torch.__version__,
-                  "cuda": torch.version.cuda,
-                  "kind": torch.cuda.get_device_name(0),
-                  "build_seconds": round(seconds, 3),
-                  "nvcc_seconds": op_builder.build_seconds,
-                  "sources": [s.split("deepspeed_tpu_torch/")[-1]
-                              for s in op_builder.sources()],
-                  "flash_tensor_core_resources": tensor_core_resources(
-                      op_builder.build()),
-                  "fcm_tensor_core_sass": fcm_tensor_core_sass(
-                      op_builder.build()),
-                  "wide_and_gemv_resources": wide_and_gemv_resources(
-                      op_builder.build()),
-                  "layer_norm_resources": layer_norm_resources(
-                      op_builder.build()),
-                  "collect_resources": collect_resources(
-                      op_builder.build())}
+    lib = op_builder.build()
+    summary = {"card": card, "torch": torch.__version__,
+               "cuda": torch.version.cuda,
+               "kind": torch.cuda.get_device_name(0),
+               "build_seconds": round(seconds, 3),
+               "nvcc_seconds": op_builder.build_seconds,
+               "sources": [s.split("deepspeed_tpu_torch/")[-1]
+                           for s in op_builder.sources()],
+               "flash_tensor_core_resources": tensor_core_resources(lib),
+               "fcm_tensor_core_sass": fcm_tensor_core_sass(lib),
+               "wide_and_gemv_resources": wide_and_gemv_resources(lib),
+               "layer_norm_resources": layer_norm_resources(lib),
+               "collect_resources": collect_resources(lib)}
+    cuobjdump.cache_clear()  # the SASS dump is large
+    return card, summary
+
+
+@functools.lru_cache(maxsize=None)
+def cuobjdump(lib_path, flag):
+    """cuobjdump's `flag` output for the built library (--dump-resource-usage
+    or -sass), run once and shared by the readers below."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([tool, flag, lib_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
 
 
 def tensor_core_resources(lib_path):
@@ -542,11 +607,8 @@ def tensor_core_resources(lib_path):
     the CUDA cores; by head dim), as cuobjdump reads them from the built
     library (what nvcc -Xptxas -v reports), or why they could not be read:
     a diagnostic, which fails no phase."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
-        dump = subprocess.run([tool, "--dump-resource-usage", lib_path],
-                              capture_output=True, text=True, timeout=120,
-                              check=True).stdout
+        dump = cuobjdump(lib_path, "--dump-resource-usage")
     except (OSError, subprocess.SubprocessError) as e:
         return f"cuobjdump failed: {e}"
     return {f"{name} D={d}{drop and (' dropout' if drop == '1' else '')}":
@@ -564,11 +626,8 @@ def wide_and_gemv_resources(lib_path):
     kernel C's GEMVs (the CUDA-core one by dtype, rows MT and column groups
     CG; the tensor-core one by warps a block), as cuobjdump reads them; or
     why they could not be read (a diagnostic)."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
-        dump = subprocess.run([tool, "--dump-resource-usage", lib_path],
-                              capture_output=True, text=True, timeout=120,
-                              check=True).stdout
+        dump = cuobjdump(lib_path, "--dump-resource-usage")
     except (OSError, subprocess.SubprocessError) as e:
         return f"cuobjdump failed: {e}"
     dt = {"f": "fp32", "13__nv_bfloat16": "bf16"}
@@ -603,11 +662,8 @@ def layer_norm_resources(lib_path):
     pack, packs a thread and, for D, the ring's stages), as cuobjdump reads
     them from the built library; or why they could not be read (a
     diagnostic)."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
-        dump = subprocess.run([tool, "--dump-resource-usage", lib_path],
-                              capture_output=True, text=True, timeout=120,
-                              check=True).stdout
+        dump = cuobjdump(lib_path, "--dump-resource-usage")
     except (OSError, subprocess.SubprocessError) as e:
         return f"cuobjdump failed: {e}"
     out = {}
@@ -629,13 +685,9 @@ def collect_resources(lib_path):
     (STG) and of 32-bit integer divisions' reciprocal steps (MUFU.RCP),
     as cuobjdump reads them from the built library; or why they could not
     be read (a diagnostic)."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
-        usage = subprocess.run([tool, "--dump-resource-usage", lib_path],
-                               capture_output=True, text=True, timeout=120,
-                               check=True).stdout
-        sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
-                              text=True, timeout=300, check=True).stdout
+        usage = cuobjdump(lib_path, "--dump-resource-usage")
+        sass = cuobjdump(lib_path, "-sass")
     except (OSError, subprocess.SubprocessError) as e:
         return f"cuobjdump failed: {e}"
     pattern = r"collect_kernelILi(\d+)ELi(\d+)E"
@@ -664,13 +716,9 @@ def fcm_tensor_core_sass(lib_path):
     them from the built library, by mangled name; or why they could not be
     read.  The phase fails only when the SASS was read and a kernel has no
     HMMA (then the path never reaches the tensor cores)."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
-        usage = subprocess.run([tool, "--dump-resource-usage", lib_path],
-                               capture_output=True, text=True, timeout=120,
-                               check=True).stdout
-        sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
-                              text=True, timeout=300, check=True).stdout
+        usage = cuobjdump(lib_path, "--dump-resource-usage")
+        sass = cuobjdump(lib_path, "-sass")
     except (OSError, subprocess.SubprocessError) as e:
         return f"cuobjdump failed: {e}"
     pattern = "|".join(FCM_MMA_KERNELS)
@@ -2738,7 +2786,8 @@ def timed_training(cfg, state, ds_config, warmup, iters):
     """Train on the fixed batch RandomState(0).randint(0, vocab,
     (micro batch x data-parallel world, n_positions)) as bench.py's
     _time_steps times it: warmup steps, then `iters` forward / backward /
-    step calls on the host clock, closed by fetching the last loss.  Every
+    step calls on the host clock (one train_batch call a step when the
+    config enables fused_step), closed by fetching the last loss.  Every
     loss finite, the final below the first, the launch counters exact (a
     step's counts on every rank this process drives); the host's time to
     issue a step after a synchronisation; then one step under
@@ -2760,12 +2809,19 @@ def timed_training(cfg, state, ds_config, warmup, iters):
         0, cfg.vocab_size, size=(batch, seq)).astype(np.int32)
     ids = ids[local[0] * micro:(local[-1] + 1) * micro]  # this process's
 
+    fused = ds_config.get("fused_step", {}).get("enabled", False)
+    batches = repeat_batch(ids)
+
     def step():
+        if fused:
+            return engine.train_batch(batches)
         loss = engine.forward(ids)
         engine.backward(loss)
         engine.step()
         return loss
 
+    check(fused == (engine._fused is not None),
+          f"fused_step: {engine.fused_step_reason}")
     reset_launch_counts()
     losses = [step().detach() for _ in range(warmup)]
     losses[-1].item()
@@ -2776,10 +2832,14 @@ def timed_training(cfg, state, ds_config, warmup, iters):
     seconds = time.perf_counter() - t0
     counts = launch_counts()
     n_steps = warmup + iters
-    per_step = {k: len(local) * v for k, v in step_counts(cfg).items()}
-    check(counts == {k: n_steps * v for k, v in per_step.items()},
+    gas = ds_config.get("gradient_accumulation_steps", 1)
+    per_step = {k: gas * len(local) * v for k, v in step_counts(cfg).items()}
+    # the fused step's counters count its eager first window and its
+    # capture's launch calls; its replays are counted from a trace below
+    counted = min(n_steps, 2) if fused else n_steps
+    check(counts == {k: counted * v for k, v in per_step.items()},
           f"launch counts {counts} over {n_steps} steps, expected "
-          f"{per_step} per step")
+          f"{counted} x {per_step}")
     realigned = check_aligned("training steps")
     losses = torch.stack(losses).float().cpu()
     check(bool(torch.isfinite(losses).all()), f"non-finite loss: {losses}")
@@ -2794,11 +2854,17 @@ def timed_training(cfg, state, ds_config, warmup, iters):
     torch.cuda.synchronize()
     used = sorted({engine.mesh.device_of(r).index for r in local})
     n_cards = len(used) * engine.mesh.process_count
-    tokens_per_s = iters * batch * seq / seconds
+    tokens_per_s = iters * gas * batch * seq / seconds
     peak = PEAK_OPS_PER_S[torch.bfloat16] * n_cards
     peaks = {d: (torch.cuda.max_memory_allocated(d) - base[d]) / 2 ** 30
              for d in used}
     wall_ms, busy_ms, ops, kernels = _profile_once(step)
+    traced = {}
+    if fused:
+        traced = traced_launches(kernels)
+        check(traced == traced_part(per_step),
+              f"a replay's traced launches {traced}, a window's "
+              f"{traced_part(per_step)}")
     top = sorted(ops.items(), key=lambda kv: -kv[1])[:6]
     return counts, {
         "batch": [batch, seq], "data_parallel_world": world,
@@ -2821,6 +2887,7 @@ def timed_training(cfg, state, ds_config, warmup, iters):
         "profiled_step_wall_ms": wall_ms, "profiled_step_device_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms,
         "top_device_ms_one_step": {name[:80]: ms for name, ms in top},
+        **({"replay_launches_traced": traced} if fused else {}),
         **layer_norm_in_step(kernels)}, engine
 
 
@@ -3213,7 +3280,8 @@ def phase_checkpoint_dp(state):
 # --------------------------------------------------------------------- #
 # phases 18 and 19: one process a card (torch.distributed, NCCL)
 # --------------------------------------------------------------------- #
-MP_TIMEOUT_S = {"train_mp_grads": 600, "train_mp": 900}
+MP_TIMEOUT_S = {"train_mp_grads": 600, "train_mp": 900,
+                "train_fused_mp": 600}
 
 
 @contextlib.contextmanager
@@ -3228,14 +3296,14 @@ def mp_dir():
         shutil.rmtree(path, ignore_errors=True)
 
 
-def launch_mp(phase, out_dir):
-    """Run `phase`'s worker in W = torch.cuda.device_count() processes of
-    this script, one a card, through torchrun (`python -m
+def launch_mp(phase, out_dir, world=None):
+    """Run `phase`'s worker in W processes of this script (default: every
+    visible card), one a card, through torchrun (`python -m
     torch.distributed.run --standalone`); each joins the group by
     init_distributed from torchrun's env.  A worker that fails, or a group
     that outlives MP_TIMEOUT_S[phase], fails the phase (the group's
     processes killed).  Returns each rank's result."""
-    world = torch.cuda.device_count()
+    world = world or torch.cuda.device_count()
     log_path = os.path.join(out_dir, "torchrun.log")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc_per_node={world}", os.path.abspath(__file__),
@@ -3466,7 +3534,8 @@ def mp_train_worker(out_dir):
     return summary
 
 
-MP_WORKERS = {"train_mp_grads": mp_grads_worker, "train_mp": mp_train_worker}
+MP_WORKERS = {"train_mp_grads": mp_grads_worker, "train_mp": mp_train_worker,
+              "train_fused_mp": lambda out_dir: mp_fused_worker(out_dir)}
 
 
 def phase_train_mp(state):
@@ -3694,10 +3763,13 @@ def phase_train_rematted(cfg, state, ds_config):
     as the long-context rows (2 + 10 steps): what train reports, with the
     launch counters' recompute (A 4L + 1, B 2L a step), MFU over the
     model's flops_per_token as bench.py counts it and, beside it, over
-    the operations the recompute adds; then the peak GiB of one step of a
-    new engine without activation checkpointing."""
+    the operations the recompute adds; one more step's memory split
+    (step_memory); then the peak GiB of one step of a new engine without
+    activation checkpointing."""
     counts, summary, engine = timed_training(cfg, state, ds_config,
                                              REMAT_WARMUP, REMAT_ITERS)
+    summary["step_memory"] = step_memory(
+        engine, bench_ids(cfg, ds_config["train_micro_batch_size_per_gpu"]))
     del engine
     ratio = recompute_ratio(cfg)
     no_remat = one_step_peak(replace(cfg, activation_checkpointing=False),
@@ -3716,7 +3788,11 @@ def phase_train_medium(state):
 
 
 def phase_train_large(state):
-    return phase_train_rematted(gpt2_large(), state, BENCH_LARGE_CONFIG)
+    """train_large; returns the launch counts and the summary
+    (train_fused_large reads it)."""
+    counts, summary = phase_train_rematted(gpt2_large(), state,
+                                           BENCH_LARGE_CONFIG)
+    return (counts, summary), summary
 
 
 def fp16_steps(engine, ids, max_steps, clean_needed=None):
@@ -3814,6 +3890,611 @@ def phase_train_fp16(state, train_summary):
         "timed_skipped_steps": timed_skipped,
         "train_bf16_tokens_per_s": bf16_rate,
         "fp16_over_bf16": timed["tokens_per_s"] / bf16_rate}
+
+
+# --------------------------------------------------------------------- #
+# phases 24-28: the fused whole step (one CUDA graph a window) and the
+# resilience block
+# --------------------------------------------------------------------- #
+# bench.py::bench_gpt2_gas4 / _fused: bench_gpt2's model and config at
+# gas 4, timed as _bench_gpt2_gas (2 warm-up steps, 8 timed)
+BENCH_GAS4_CONFIG = dict(BENCH_GPT2_CONFIG, gradient_accumulation_steps=4)
+GAS4_WARMUP, GAS4_ITERS = 2, 8
+FUSED_ROUNDS = 2  # timed turns of each path: modular, fused, fused, modular
+# train_fused_grads: gas 2, three windows a run (the eager first, the
+# capture and two replays)
+FUSED_GRADS_GAS, FUSED_GRADS_STEPS = 2, 3
+# the eager run's own peak moves by up to ~0.7% between runs of the script
+# (the caching allocator's state after earlier phases); the graphed peak
+# is held within it, the static inputs and this share of it
+FUSED_PEAK_SLACK = 0.01
+# resilience: windows before the stop, and after the resume
+RES_STEPS, RES_RESUMED = 3, 2
+GEMM_KERNEL = re.compile(r"gemm|nvjet|cutlass|xmma|cublas", re.I)
+# kernels A, B, D and E by their names in a torch.profiler trace: the one
+# kernel a call of their wrapper launches on the training path (D's
+# column-sum kernel is the same call's second launch, and is not counted)
+TRACED_KERNELS = {
+    "layer_norm_fwd": re.compile(r"\bln_fwd(?:_streamed)?_kernel\b"),
+    "layer_norm_bwd": re.compile(r"\bln_bwd(?:_streamed)?_kernel\b"),
+    "flash_attention_fwd": re.compile(r"\bflash_fwd(?:_mma)?_kernel\b"),
+    "flash_attention_bwd_dkdv": re.compile(
+        r"\bflash_bwd_dkdv(?:_mma)?_kernel\b"),
+    "flash_attention_bwd_dq": re.compile(
+        r"\bflash_bwd_dq(?:_mma)?_kernel\b"),
+}
+
+
+def traced_launches(kernels):
+    """Kernels A, B, D and E's launches among a profiled run's device
+    kernels ([(name, ms)] as _profile_once gives them), by wrapper name.
+    A CUDA graph's replay launches its kernels without calling a wrapper,
+    so no launch counter moves then: its trace is what counts them."""
+    return {name: sum(1 for k, _ in kernels if pattern.search(k))
+            for name, pattern in TRACED_KERNELS.items()}
+
+
+def traced_part(counts):
+    """The wrappers' counts of the kernels a trace counts."""
+    return {name: counts[name] for name in TRACED_KERNELS}
+
+
+def fused_config(ds_config, fused=True, **extra):
+    return dict(ds_config, fused_step={"enabled": fused}, **extra)
+
+
+def repeat_batch(ids):
+    """An endless iterator of the one batch (bench.py's batch_iter)."""
+    while True:
+        yield (ids,)
+
+
+def window_batches(cfg, micro, windows, gas, seed=10):
+    """A different batch for every micro-step of `windows` windows."""
+    return [(bench_ids(cfg, micro, seed=seed + k),)
+            for k in range(windows * gas)]
+
+
+def engine_state_bits(engine):
+    """Host copies of the state a step moves: each rank's master buffer and
+    optimizer state tensors, the scaler and each rank's generator."""
+    n = engine.num_params
+    out = {}
+    for r, (flat, opt) in enumerate(zip(engine._flats, engine.opt_states)):
+        out[f"params{r}"] = flat[:n].cpu()
+        for key, value in opt.items():
+            out[f"adam{r}.{key}"] = value.cpu()
+    for field, value in zip(LossScaleState._fields, engine.scaler_state):
+        out[f"scaler.{field}"] = value.cpu()
+    for r, gen in enumerate(engine._rngs):
+        out[f"generator{r}"] = gen.get_state()
+    return out
+
+
+def run_windows(engine, batches, windows):
+    """`windows` train_batch calls over `batches`: each window's loss,
+    the scale after it and skipped_steps, on the host; and kernels A, B,
+    D and E's launches in the last window, read from its torch.profiler
+    trace."""
+    it = iter(batches)
+    out = []
+
+    def window():
+        loss = engine.train_batch(it)
+        out.append({"loss": float(loss), "scale": engine.loss_scale,
+                    "skipped_steps": engine.skipped_steps})
+
+    for _ in range(windows - 1):
+        window()
+    kernels = _profile_once(window)[3]
+    return out, traced_launches(kernels)
+
+
+def graphed_vs_eager(cfg, state, ds_config, windows, what):
+    """The same windows from the same weights and generator seeds through
+    the modular loop and through the fused step (the first window eager,
+    then one capture and its replays): every window's loss, scale and
+    skipped steps, and after the run every rank's master buffer and Adam
+    state, the scaler and the generators, all bitwise; the fused engine
+    captured one graph and replayed it every window after; the graphed
+    peak within the eager run's plus the static inputs.  Launches: the
+    eager run's counters count every window; the fused run's count the
+    eager first window and the capture's launch calls, which the capture
+    records into the graph; the last window's trace (a replay under the
+    fused step) holds an eager window's launches of kernels A, B, D and
+    E."""
+    gas = ds_config["gradient_accumulation_steps"]
+    world = ds_config.get("mesh", {}).get("data", 1)
+    batches = window_batches(
+        cfg, ds_config["train_micro_batch_size_per_gpu"] * world, windows,
+        gas)
+    runs = {}
+    for fused in (False, True):
+        gc_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        engine = train_engine(cfg, state, fused_config(ds_config, fused))
+        check(fused == (engine._fused is not None),
+              f"{what}: fused_step {engine.fused_step_reason}")
+        window = {k: gas * len(engine.local_ranks) * v
+                  for k, v in step_counts(cfg).items()}
+        reset_launch_counts()
+        trajectory, traced = run_windows(engine, batches, windows)
+        run = {"trajectory": trajectory, "counts": launch_counts(),
+               "traced_last": traced,
+               "bits": engine_state_bits(engine),
+               "peak_gib": (torch.cuda.max_memory_allocated() - base)
+               / 2 ** 30,
+               "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30}
+        if fused:
+            fs = engine._fused
+            check(fs.graph is not None and fs.calls == windows
+                  and fs.replays == windows - 1,
+                  f"{what}: {fs.calls} calls, graph "
+                  f"{fs.graph is not None}, {fs.replays} replays")
+            run.update(captured=fs.launches_captured,
+                       static_gib=fs.static_bytes() / 2 ** 30)
+        runs[fused] = run
+        del engine
+    eager, graphed = runs[False], runs[True]
+    check(eager["counts"] == {k: windows * v for k, v in window.items()},
+          f"{what}: eager launch counts {eager['counts']} over {windows} "
+          f"windows of {window}")
+    check(graphed["captured"] == window
+          and graphed["counts"] == {k: 2 * v for k, v in window.items()},
+          f"{what}: the capture's launch calls {graphed['captured']}, the "
+          f"fused run's counts {graphed['counts']}; a window's {window}")
+    check(eager["traced_last"] == graphed["traced_last"]
+          == traced_part(window),
+          f"{what}: traced launches of the last window: eager "
+          f"{eager['traced_last']}, a replay {graphed['traced_last']}, "
+          f"counted a window {traced_part(window)}")
+    same_traj = json.dumps(eager["trajectory"]) == json.dumps(
+        graphed["trajectory"])
+    differ = [k for k, v in eager["bits"].items()
+              if not torch.equal(v, graphed["bits"][k])]
+    check(same_traj and not differ,
+          f"{what}: graphed vs eager differ in {differ}; trajectories "
+          f"{eager['trajectory']} / {graphed['trajectory']}")
+    check(graphed["peak_gib"] <= eager["peak_gib"] * (1 + FUSED_PEAK_SLACK)
+          + graphed["static_gib"],
+          f"{what}: graphed peak {graphed['peak_gib']} GiB over the eager "
+          f"{eager['peak_gib']} + static {graphed['static_gib']}")
+    return {
+        "windows": windows, "gas": gas, "bitwise": True,
+        "compared": sorted(eager["bits"]) + ["loss", "scale",
+                                             "skipped_steps"],
+        "trajectory": graphed["trajectory"], "graphs_captured": 1,
+        "replays": windows - 1, "launches_per_window": window,
+        "replay_launches_traced": graphed["traced_last"],
+        "peak_gib_eager": eager["peak_gib"],
+        "peak_gib_graphed": graphed["peak_gib"],
+        "static_input_gib": graphed["static_gib"],
+        "reserved_gib_eager": eager["reserved_gib"],
+        "reserved_gib_graphed": graphed["reserved_gib"]}
+
+
+def phase_train_fused_grads(state):
+    """bench_gpt2_gas4's config at gas 2, dropout 0.1 (kernel B's in-kernel
+    mask and the hidden masks), with and without activation_checkpointing,
+    then fp16 from 2^32 (the first windows overflow): graphed_vs_eager
+    on each."""
+    base = dict(BENCH_GPT2_CONFIG, gradient_accumulation_steps=FUSED_GRADS_GAS)
+    out = {}
+    for what, cfg, ds_config in (
+            ("bf16", gpt2_124m_train(), base),
+            ("bf16_remat", gpt2_124m_train(activation_checkpointing=True),
+             base),
+            ("fp16", gpt2_124m_train(),
+             dict(BENCH_FP16_CONFIG,
+                  gradient_accumulation_steps=FUSED_GRADS_GAS))):
+        out[what] = graphed_vs_eager(cfg, state, ds_config,
+                                     FUSED_GRADS_STEPS, what)
+    check(out["fp16"]["trajectory"][0]["skipped_steps"] >= 1,
+          f"fp16 from 2^32 did not overflow: {out['fp16']['trajectory']}")
+    return None, dict(out, dropout=DROPOUT)
+
+
+def phase_train_fused_dp(state):
+    """graphed_vs_eager at DP_WORLD data-parallel ranks of one process on
+    one card (ZeRO-2, DP_GRADS_MICRO rows a rank, gas 2, dropout 0.1):
+    every rank's streams fork from the capture stream and join it again,
+    and its reduce-scatter and all-gather are captured with its
+    kernels."""
+    check(torch.cuda.device_count() == 1,
+          "train_fused_dp puts every rank on one card")
+    summary = graphed_vs_eager(
+        gpt2_124m_train(), state,
+        dict(dp_config(DP_GRADS_MICRO, 2),
+             gradient_accumulation_steps=FUSED_GRADS_GAS),
+        FUSED_GRADS_STEPS, f"ZeRO-2 at {DP_WORLD} ranks")
+    return None, dict(summary, world=DP_WORLD, rows_a_rank=DP_GRADS_MICRO,
+                      dropout=DROPOUT)
+
+
+def device_split(kernels):
+    """One window's device ms by kernel name: kernels A, B, D and E, the
+    GEMMs, the step (every kernel after the window's last D: the
+    embeddings' grads, the unscale, the finite flag, the optimizer, the
+    scaler) and the rest (glue and casts: elementwise, copies, the loss)."""
+    last_d = max((i for i, (name, _) in enumerate(kernels)
+                  if "ln_bwd" in name), default=len(kernels))
+    split = {}
+    for i, (name, ms) in enumerate(kernels):
+        if "ln_fwd" in name:
+            key = "A_layer_norm_fwd"
+        elif "ln_bwd" in name:
+            key = "D_layer_norm_bwd"
+        elif "flash_fwd" in name:
+            key = "B_flash_fwd"
+        elif "flash_bwd" in name:
+            key = "E_flash_bwd"
+        elif GEMM_KERNEL.search(name):
+            key = "gemm"
+        elif i > last_d:
+            key = "step_after_last_D"
+        else:
+            key = "glue_and_casts"
+        split[key] = split.get(key, 0.0) + ms
+    return split
+
+
+def host_issue_ms(step):
+    """The host's ms to issue one step after a synchronisation, for
+    HOST_ISSUE_STEPS steps."""
+    out = []
+    for _ in range(HOST_ISSUE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        out.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return out
+
+
+def counts_added(fn):
+    """fn()'s result and the launch counts it added."""
+    before = launch_counts()
+    out = fn()
+    after = launch_counts()
+    return out, {k: after[k] - before[k] for k in after}
+
+
+def phase_train_fused(state):
+    """bench.py::bench_gpt2_gas4 and bench_gpt2_gas4_fused exactly (gas 4,
+    batch 8 x 1024, bf16, AdamW, ZeRO-2, dropout 0.1), two engines from
+    the same weights, timed as _bench_gpt2_gas (2 warm-up steps, then 8
+    train_batch calls on the host clock, closed by the last loss and a
+    parameter read) in turns, FUSED_ROUNDS each: tokens/s, MFU, host issue
+    ms a step, device ms and busy share of one profiled step, peak GiB
+    (each engine's warm-up from its own start), and one replay's device
+    time split by kernel name.  The fused engine's launch counters count
+    its eager first window and its capture's launch calls, and move at no
+    replay; the profiled replay's trace holds an eager window's launches
+    of kernels A, B, D and E, as the profiled modular window's trace holds
+    what its counters counted."""
+    cfg = gpt2_124m_train()
+    ids = bench_ids(cfg, TRAIN_BATCH)
+    tokens = GAS4_ITERS * 4 * TRAIN_BATCH * TRAIN_SEQ
+    engines, its, rows, counts, traced = {}, {}, {}, None, {}
+    for kind in ("modular", "fused"):
+        gc_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        engines[kind] = eng = train_engine(
+            cfg, state, fused_config(BENCH_GAS4_CONFIG, kind == "fused"))
+        its[kind] = repeat_batch(ids)
+        reset_launch_counts()
+        losses = [float(eng.train_batch(its[kind]))
+                  for _ in range(GAS4_WARMUP)]
+        torch.cuda.synchronize()
+        if kind == "fused":
+            counts = launch_counts()
+        rows[kind] = {"warmup_losses": losses,
+                      "peak_memory_gib": (torch.cuda.max_memory_allocated()
+                                          - base) / 2 ** 30,
+                      "tokens_per_s_rounds": []}
+    check(engines["fused"]._fused.graph is not None, "no graph captured")
+    rows["fused"]["static_input_gib"] = \
+        engines["fused"]._fused.static_bytes() / 2 ** 30
+
+    def step(kind):
+        return engines[kind].train_batch(its[kind])
+
+    for kind in ("modular", "fused", "fused", "modular") * (FUSED_ROUNDS // 2):
+        eng = engines[kind]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GAS4_ITERS):
+            loss, added = counts_added(lambda: step(kind))
+            if kind == "fused":
+                counts = add_counts(counts, added)
+        final = float(loss)
+        eng._flats[0][0].item()  # the last update, as bench.py's param_sync
+        seconds = time.perf_counter() - t0
+        rows[kind]["tokens_per_s_rounds"].append(tokens / seconds)
+        rows[kind]["final_loss"] = final
+    for kind, eng in engines.items():
+        row = rows[kind]
+        rate = float(np.median(row["tokens_per_s_rounds"]))
+        issue, added = counts_added(lambda: host_issue_ms(lambda: step(kind)))
+        (wall_ms, busy_ms, ops, kernels), added2 = counts_added(
+            lambda: _profile_once(lambda: step(kind)))
+        traced[kind] = traced_launches(kernels)
+        if kind == "fused":
+            counts = add_counts(counts, added, added2)
+            check(not any(added2.values()),
+                  f"a replay moved the launch counters: {added2}")
+        else:
+            check(traced[kind] == traced_part(added2),
+                  f"modular window: traced launches {traced[kind]}, "
+                  f"counted {traced_part(added2)}")
+        top = sorted(ops.items(), key=lambda kv: -kv[1])[:6]
+        row.update(
+            tokens_per_s=rate, mfu=rate * cfg.flops_per_token()
+            / PEAK_OPS_PER_S[torch.bfloat16],
+            ms_per_step=4 * TRAIN_BATCH * TRAIN_SEQ / rate * 1e3,
+            host_issue_ms_per_step=float(np.median(issue)),
+            host_issue_ms_each=issue,
+            profiled_step_wall_ms=wall_ms, profiled_step_device_ms=busy_ms,
+            device_busy_share=busy_ms / wall_ms,
+            device_kernels_one_step=len(kernels),
+            launches_traced_one_step=traced[kind],
+            device_ms_split=device_split(kernels),
+            top_device_ms_one_step={n[:80]: ms for n, ms in top},
+            dispatches_per_step=eng._dispatches_per_step)
+        check(np.isfinite(row["final_loss"])
+              and row["final_loss"] < row["warmup_losses"][0],
+              f"{kind}: loss did not fall: {row}")
+    fs = engines["fused"]._fused
+    window = {k: 4 * v for k, v in step_counts(cfg).items()}
+    check(fs.launches_captured == window
+          and counts == {k: 2 * v for k, v in window.items()},
+          f"the capture's launch calls {fs.launches_captured} and the fused "
+          f"counts {counts} (the eager window and the capture), a window "
+          f"{window}")
+    check(traced["fused"] == traced_part(window),
+          f"a replay's traced launches {traced['fused']}, a window's "
+          f"{traced_part(window)}")
+    steps = fs.calls
+    check(fs.replays == steps - 1, f"{fs.replays} replays of {steps} calls")
+    del engines, eng
+    gc_cuda()
+    rows["fused_over_modular"] = (rows["fused"]["tokens_per_s"]
+                                  / rows["modular"]["tokens_per_s"])
+    rows.update(batch=[TRAIN_BATCH, TRAIN_SEQ], gas=4, windows_fused=steps,
+                launches_per_window=window, realigned=check_aligned(
+                    "fused windows"))
+    return (counts, traced["fused"]), rows
+
+
+def step_memory(engine, ids):
+    """One more forward / backward / step of a modular engine, split:
+    (GiB held before it, the forward and backward's peak above that (the
+    activations and the grads' temporaries), the step's peak above what
+    the backward left (the unscale's and the optimizer's temporaries))."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss = engine.forward(ids)
+    engine.backward(loss)
+    torch.cuda.synchronize()
+    fwd_bwd = torch.cuda.max_memory_allocated() - held
+    after = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    engine.step()
+    torch.cuda.synchronize()
+    step = torch.cuda.max_memory_allocated() - after
+    del loss
+    return {"held_gib": held / 2 ** 30,
+            "forward_backward_peak_gib": fwd_bwd / 2 ** 30,
+            "step_peak_gib": step / 2 ** 30}
+
+
+def phase_train_fused_large(state, large_summary):
+    """bench_gpt2_large (rematted, bf16 grads) under fused_step, timed as
+    train_large (2 + 10 steps), beside train_large's numbers of this run."""
+    counts, summary, engine = timed_training(
+        gpt2_large(), state, fused_config(BENCH_LARGE_CONFIG),
+        REMAT_WARMUP, REMAT_ITERS)
+    fs = engine._fused
+    check(fs.graph is not None and fs.replays == fs.calls - 1,
+          f"{fs.calls} calls, {fs.replays} replays")
+    summary["static_input_gib"] = fs.static_bytes() / 2 ** 30
+    traced = summary["replay_launches_traced"]
+    del engine, fs
+    gc_cuda()
+    if large_summary is not None:
+        summary["modular"] = {k: large_summary.get(k) for k in (
+            "tokens_per_s", "ms_per_step", "mfu", "host_issue_ms_per_step",
+            "profiled_step_device_ms", "device_busy_share",
+            "peak_memory_gib", "step_memory")}
+        summary["fused_over_modular"] = (summary["tokens_per_s"]
+                                         / large_summary["tokens_per_s"])
+    return (counts, traced), summary
+
+
+def mp_fused_worker(out_dir):
+    """train_fused_mp in one process: bench_gpt2's config at gas 2 and
+    dropout 0.1 over the process group, FUSED_GRADS_STEPS windows through
+    the modular loop and through the fused step (one NCCL-capturing
+    graph): the trajectories and the state's digests."""
+    cfg = gpt2_124m_train()
+    state = init_state(cfg)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    ds_config = dict(dp_config(TRAIN_BATCH, 2, world),
+                     gradient_accumulation_steps=FUSED_GRADS_GAS)
+    batches = window_batches(cfg, TRAIN_BATCH * world, FUSED_GRADS_STEPS,
+                             FUSED_GRADS_GAS)
+    rows = [(ids[rank * TRAIN_BATCH:(rank + 1) * TRAIN_BATCH],)
+            for (ids,) in batches]
+    out = {"rank": rank, "world": world,
+           "device": torch.cuda.current_device()}
+    for fused in (False, True):
+        engine = train_engine(cfg, state, fused_config(ds_config, fused))
+        check(fused == (engine._fused is not None),
+              f"fused_step: {engine.fused_step_reason}")
+        reset_launch_counts()
+        traj, traced = run_windows(engine, rows, FUSED_GRADS_STEPS)
+        bits = engine_state_bits(engine)
+        out["fused" if fused else "eager"] = {
+            "trajectory": traj, "launches": launch_counts(),
+            "traced_last": traced,
+            "digests": {k: sha256(v) for k, v in bits.items()}}
+        if fused:
+            fs = engine._fused
+            out["fused"].update(graph=fs.graph is not None,
+                                replays=fs.replays,
+                                captured=fs.launches_captured)
+        del engine
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_fused_mp(state):
+    """The fused step in one process over NCCL (the engine graphs no
+    window across cards: ROADMAP A.6c): its graphed windows bitwise
+    against its eager process-group windows (trajectory, parameters,
+    Adam, scaler, generators), one graph; the counters count every eager
+    window, or the fused step's eager first window and its capture's
+    launch calls, and the last window's trace (a replay under the fused
+    step) holds a window's launches of kernels A, B, D and E."""
+    del state  # each worker makes the same weights from the seed
+    torch.cuda.empty_cache()
+    with mp_dir() as out_dir:
+        results = launch_mp("train_fused_mp", out_dir, world=1)
+    cfg = gpt2_124m_train()
+    window = {k: FUSED_GRADS_GAS * v for k, v in step_counts(cfg).items()}
+    for res in results:
+        eager, fused = res["eager"], res["fused"]
+        check(fused["graph"] and fused["replays"] == FUSED_GRADS_STEPS - 1
+              and fused["captured"] == window
+              and fused["launches"] == {k: 2 * v for k, v in window.items()}
+              and eager["launches"] == {k: FUSED_GRADS_STEPS * v
+                                        for k, v in window.items()},
+              f"rank {res['rank']}: graph {fused['graph']}, replays "
+              f"{fused['replays']}, captured {fused['captured']}, counts "
+              f"fused {fused['launches']} eager {eager['launches']}")
+        check(eager["traced_last"] == fused["traced_last"]
+              == traced_part(window),
+              f"rank {res['rank']}: traced launches of the last window: "
+              f"eager {eager['traced_last']}, a replay "
+              f"{fused['traced_last']}, a window {traced_part(window)}")
+        check(eager["trajectory"] == fused["trajectory"]
+              and eager["digests"] == fused["digests"],
+              f"rank {res['rank']}: graphed vs eager over NCCL differ: "
+              f"{eager['trajectory']} / {fused['trajectory']}, digests "
+              f"{[k for k in eager['digests'] if eager['digests'][k] != fused['digests'][k]]}")
+    counts = {name: sum(res["fused"]["launches"][name] for res in results)
+              for name in results[0]["fused"]["launches"]}
+    traced = {name: sum(res["fused"]["traced_last"][name]
+                        for res in results) for name in TRACED_KERNELS}
+    return (counts, traced), {
+        "processes": len(results), "gas": FUSED_GRADS_GAS,
+        "windows": FUSED_GRADS_STEPS, "bitwise": True,
+        "trajectory_rank0": results[0]["fused"]["trajectory"],
+        "launches_per_window": window,
+        "replay_launches_traced_all_processes": traced}
+
+
+def phase_resilience(state):
+    """The resilience block on bench_gpt2's 1.494 GB under fused_step:
+    one engine's save with atomic_checkpoints off, then on (a staged
+    directory, a size and CRC32 manifest, a rename), and a verified load
+    (the manifest's CRCs read, then the load), in seconds, and the CRC pass
+    alone; then RES_STEPS fused windows, request_stop(): the next window
+    saves emergency_step<N> at its boundary and raises
+    TrainingInterrupted; a new engine from other weights resumes from the
+    directory's latest tag and its next RES_RESUMED windows equal an
+    uninterrupted run's bitwise, as do the parameters and Adam's state.
+    Each of the three engines captures once: the counters count its eager
+    first window and its capture's launch calls, and the uninterrupted
+    run's last window (a replay) is traced."""
+    from deepspeed_tpu_torch.runtime.resilience import (TrainingInterrupted,
+                                                         verify_manifest)
+    cfg = gpt2_124m_train()
+    batches = window_batches(cfg, TRAIN_BATCH, RES_STEPS + 1 + RES_RESUMED, 1)
+    other = init_state(cfg, seed=1)
+    reset_launch_counts()
+    with checkpoint_dir() as path:
+        res_block = {"enabled": True, "verify_lockstep_on_resume": False,
+                     "preemption": {"enabled": True, "reraise": False,
+                                    "save_dir": path}}
+        ds_config = fused_config(BENCH_GPT2_CONFIG, resilience=res_block)
+        gc_cuda()
+        engine = train_engine(cfg, state, ds_config)
+        it = iter(batches)
+        ref = [float(engine.train_batch(it)) for _ in range(RES_STEPS)]
+        atomic_cfg = engine.resilience
+        engine.resilience = replace(atomic_cfg, atomic_checkpoints=False)
+        plain_s, nbytes, _ = timed_save(engine, path, "plain")
+        engine.resilience = atomic_cfg
+        atomic_s, _, _ = timed_save(engine, path, "atomic")
+        check(not os.path.exists(os.path.join(path, "plain",
+                                              "manifest.json"))
+              and not verify_manifest(os.path.join(path, "atomic")),
+              "the atomic save's manifest does not verify")
+        t0 = time.perf_counter()
+        problems = verify_manifest(os.path.join(path, "atomic"))
+        crc_s = time.perf_counter() - t0
+        verified_s, _ = timed_load(engine, path)
+        shutil.rmtree(os.path.join(path, "plain"))
+        # the stop: one more window, then the boundary's emergency save
+        engine._preemption.request_stop()
+        try:
+            engine.train_batch(it)
+            check(False, "request_stop() did not stop the fused loop")
+        except TrainingInterrupted as stop:
+            tag = stop.emergency_tag
+        expected_tag = f"emergency_step{RES_STEPS + 1}"
+        check(tag == expected_tag and ckpt_mod.read_latest_tag(path) == tag
+              and not verify_manifest(os.path.join(path, tag)),
+              f"emergency tag {tag!r}, latest "
+              f"{ckpt_mod.read_latest_tag(path)!r}, expected {expected_tag}")
+        del engine
+        gc_cuda()
+        resumed = train_engine(cfg, other, ds_config)
+        resumed.load_checkpoint(path)
+        check(resumed.global_steps == RES_STEPS + 1,
+              f"resumed at step {resumed.global_steps}")
+        it_b = iter(batches[RES_STEPS + 1:])
+        run_b = [float(resumed.train_batch(it_b)) for _ in range(RES_RESUMED)]
+        bits_b = engine_state_bits(resumed)
+        resumed._preemption.uninstall()
+        del resumed
+        gc_cuda()
+        whole = train_engine(cfg, state, ds_config)
+        it_a = iter(batches)
+        run_a = [float(whole.train_batch(it_a))
+                 for _ in range(RES_STEPS + RES_RESUMED)]
+        kernels = _profile_once(
+            lambda: run_a.append(float(whole.train_batch(it_a))))[3]
+        bits_a = engine_state_bits(whole)
+        whole._preemption.uninstall()
+        del whole
+        gc_cuda()
+    counts = launch_counts()
+    window = step_counts(cfg)
+    traced = traced_launches(kernels)
+    check(counts == {k: 3 * 2 * v for k, v in window.items()}
+          and traced == traced_part(window),
+          f"launch counts {counts} (expected three engines' eager window "
+          f"and capture of {window}), a replay's traced {traced}")
+    differ = [k for k in bits_a if not torch.equal(bits_a[k], bits_b[k])]
+    check(run_a[:RES_STEPS] == ref and run_a[RES_STEPS + 1:] == run_b
+          and not differ,
+          f"resume vs uninterrupted: {run_b} / {run_a}, state differs in "
+          f"{differ}")
+    return (counts, traced), {
+        "bytes": nbytes, "plain_save_seconds": plain_s,
+        "atomic_save_seconds": atomic_s,
+        "atomic_over_plain": atomic_s / plain_s,
+        "manifest_crc_seconds": crc_s, "manifest_problems": problems,
+        "verified_load_seconds": verified_s,
+        "emergency_tag": tag, "resume_bitwise": True,
+        "losses_resumed": run_b, "losses_uninterrupted": run_a,
+        "windows": RES_STEPS + 1 + RES_RESUMED,
+        "replay_launches_traced": traced}
 
 
 # --------------------------------------------------------------------- #
@@ -4354,6 +5035,26 @@ def main():
         train_state = init_state(gpt2_124m_train())
         run_phase("train_mp_grads", phase_train_mp_grads, train_state)
         run_phase("train_mp", phase_train_mp, train_state)
+        run_phase("train_fused_mp", phase_train_fused_mp, train_state)
+        print(card, flush=True)
+        return last_line()
+    if sys.argv[1:] == ["--fused-only"]:
+        # kernels A, B, D, E and the phases of the fused step and the
+        # resilience block (train_large for train_fused_large's comparison)
+        for group in [g for g in PARITY_CASES if g not in DP_PARITY]:
+            del PARITY_CASES[group]
+        run_phase("parity", phase_parity)
+        train_state = init_state(gpt2_124m_train())
+        run_phase("train_fused_grads", phase_train_fused_grads, train_state)
+        run_phase("train_fused_dp", phase_train_fused_dp, train_state)
+        run_phase("train_fused", phase_train_fused, train_state)
+        run_phase("train_fused_mp", phase_train_fused_mp, train_state)
+        run_phase("resilience", phase_resilience, train_state)
+        del train_state
+        large_state = init_state(gpt2_large())
+        _, large = run_phase("train_large", phase_train_large, large_state)
+        run_phase("train_fused_large", phase_train_fused_large, large_state,
+                  large)
         print(card, flush=True)
         return last_line()
     primary = run_phase("parity", phase_parity)
@@ -4391,6 +5092,15 @@ def main():
     run_phase("train_mp_grads", phase_train_mp_grads, train_state)
     path_counts["train_mp"] = run_phase("train_mp", phase_train_mp,
                                         train_state)
+    run_phase("train_fused_grads", phase_train_fused_grads, train_state)
+    run_phase("train_fused_dp", phase_train_fused_dp, train_state)
+    # the fused paths' counters and the traced launches of their replays
+    replays_traced = {}
+    for path, fn in (("train_fused", phase_train_fused),
+                     ("train_fused_mp", phase_train_fused_mp),
+                     ("resilience", phase_resilience)):
+        path_counts[path], replays_traced[path] = run_phase(path, fn,
+                                                            train_state)
     del train_state
 
     run_phase("train_sparse_grads", phase_train_sparse_grads)
@@ -4406,8 +5116,13 @@ def main():
     path_counts["train_medium"] = run_phase("train_medium",
                                             phase_train_medium, medium_state)
     del medium_state
-    path_counts["train_large"] = run_phase("train_large", phase_train_large,
-                                           init_state(gpt2_large()))
+    large_state = init_state(gpt2_large())
+    path_counts["train_large"], large = run_phase(
+        "train_large", phase_train_large, large_state)
+    path_counts["train_fused_large"], replays_traced["train_fused_large"] = \
+        run_phase("train_fused_large", phase_train_fused_large, large_state,
+                  large)
+    del large_state
 
     path_counts["fcm"] = run_phase("fcm_ops", phase_fcm_ops)
     run_phase("fcm_timing", phase_fcm_timing)
@@ -4420,7 +5135,11 @@ def main():
         kernels.append({
             "name": kern.name, "route": "cuda", "source": kern.source,
             "replaces": kern.replaces, "launches": sum(by_path.values()),
-            "launches_by_path": by_path, "case": res["case"],
+            "launches_by_path": by_path,
+            "replay_launches_traced_by_path": {
+                path: traced.get(kern.name, 0)
+                for path, traced in replays_traced.items()},
+            "case": res["case"],
             "max_abs_err": res["max_abs_err"], "ms": res["ms"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"], "library_ms": res["library_ms"],

@@ -4,8 +4,8 @@ A copy of deepspeed_tpu/config.py, the same schema, defaults, batch-triple
 inference and errors.  The port keeps its own copy (ROADMAP.md A.2): the JAX package's module
 is jax-free, but importing it runs deepspeed_tpu/__init__.py, which
 imports JAX.  What the copy cannot reach is
-marked where it stands: the chaos fault catalog and the retry policy
-(resilience, ROADMAP.md A.13), which `initialize` refuses anyway.
+marked where it stands: the chaos fault catalog (resilience.chaos,
+ROADMAP.md A.13), which `initialize` refuses anyway.
 
 Reference: deepspeed/runtime/config.py:682 (DeepSpeedConfig), including the
 train-batch triple inference (config.py:869-924) and duplicate-key rejection
@@ -1553,9 +1553,12 @@ class ResilienceConfig:
         staging, or None when resilience is off / retries are 0."""
         if not self.enabled or self.io_retries <= 0:
             return None
-        raise NotImplementedError(
-            "the resilience retry policy is not ported yet (ROADMAP.md "
-            "A.13)")
+        from .runtime.resilience.retry import RetryPolicy
+        return RetryPolicy(retries=self.io_retries,
+                           backoff_s=self.io_backoff_seconds,
+                           max_backoff_s=self.retry_max_backoff_seconds,
+                           jitter=self.retry_jitter,
+                           seed=self.retry_seed, sleep=sleep)
 
 
 @dataclass

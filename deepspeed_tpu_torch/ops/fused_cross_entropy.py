@@ -32,7 +32,10 @@ def _valid_mask(labels, ignore_index):
     if ignore_index is None:
         return (torch.ones(labels.shape, dtype=torch.float32,
                            device=labels.device),
-                torch.tensor(float(labels.shape[0]), device=labels.device))
+                # a fill, not a host-to-device copy (a CUDA graph captures
+                # the loss)
+                torch.full((), float(labels.shape[0]), dtype=torch.float32,
+                           device=labels.device))
     valid = (labels != ignore_index).float()
     return valid, torch.clamp(valid.sum(), min=1.0)
 

@@ -26,12 +26,16 @@ forward, runs the forward on the caller's generator (which ends where it
 would without recompute), and recomputes on a fresh generator set to the
 saved state: every mask is drawn again as it was, and the loss and the
 gradients equal those without recompute, bit for bit.  (The JAX package
-gets that from its counter-based keys.)
+gets that from its counter-based keys.)  Inside a CUDA graph capture of a
+window (runtime/fused_step.py) the state cannot be read on the host:
+`RecomputeGenerators` gives each recompute a generator of its own that
+the graph reads at each replay.
 
 `model_parallel_rng` forks a generator by the model-axis rank, the
 counterpart of folding the axis index into the JAX key.
 """
 
+import contextlib
 import functools
 import hashlib
 from typing import Any, Callable, Optional
@@ -218,23 +222,128 @@ def checkpoint(function: Callable, *args, policy=None) -> Any:
     return _checkpoint(function, args, policy, True)
 
 
+class RecomputeGenerators:
+    """The generators the recomputes of one CUDA-graphed window draw from
+    (runtime/fused_step.py).
+
+    Outside a capture `checkpoint_with_generator` reads the generator's
+    state (`get_state`, a host copy of its seed and Philox offset) before
+    the forward and recomputes on a fresh generator set to it.  Inside a
+    capture torch refuses to make a generator or to set another seed on
+    one, and a host copy would replay the capture's masks on every
+    replay; the graph-safe forms do not serve either (graph_rng_probe.py:
+    an in-capture `clone_state` is refused, a `graphsafe_get_state`
+    shares the live state, and a registered clone matches the first
+    replay only unless it is set again before each).  So the window is
+    first run eagerly under `record()`: each call's generator and the
+    Philox offset it had reached since the window began are noted, in
+    call order.  The capture then runs under `capture()`: the i-th call
+    recomputes on the i-th of `generators`, new generators the caller
+    registers with the graph (`CUDAGraph.register_generator_state`), so
+    that the graph reads their seed and offset at each replay.
+    `prepare()` sets each to its call's generator's seed and offset
+    before a replay, plus the call's offset into the window: the
+    recompute draws each mask again as the forward drew it in that
+    replay."""
+
+    def __init__(self):
+        self.calls = []          # (generator, Philox offset into the window)
+        self.generators = []     # one a call, made for the capture
+        self._start = {}
+        self._mode = None
+        self._next = 0
+
+    @staticmethod
+    def _seed_offset(generator):
+        state = generator.get_state()
+        return (int(state[:8].view(torch.int64)),
+                int(state[8:16].view(torch.int64)))
+
+    @contextlib.contextmanager
+    def _active(self, mode):
+        global _RECOMPUTE
+        if _RECOMPUTE is not None:
+            raise RuntimeError("a window's recompute generators are in use")
+        self._mode, self._next, _RECOMPUTE = mode, 0, self
+        try:
+            yield self
+        finally:
+            _RECOMPUTE, self._mode = None, None
+
+    def record(self, generators):
+        """Run the window eagerly and note its calls; `generators` are the
+        ones its draws come from, read here at the window's start."""
+        self.calls = []
+        self._start = {id(g): self._seed_offset(g)[1] for g in generators}
+        return self._active("record")
+
+    def capture(self):
+        """Capture the window: the calls take the `generators` in order."""
+        if len(self.generators) != len(self.calls):
+            raise RuntimeError(
+                f"{len(self.generators)} recompute generators for "
+                f"{len(self.calls)} recorded calls")
+        return self._active("capture")
+
+    def make_generators(self):
+        """One new generator a recorded call, on its generator's device."""
+        self.generators = [torch.Generator(device=g.device)
+                           for g, _ in self.calls]
+        return self.generators
+
+    def prepare(self):
+        """Before a replay: each call's generator at its seed and its
+        offset into the window, from the host state of the generator the
+        forward draws from (the replay's starting point)."""
+        for (g, into), replay in zip(self.calls, self.generators):
+            seed, offset = self._seed_offset(g)
+            state = torch.tensor([seed, offset + into], dtype=torch.int64)
+            replay.set_state(state.view(torch.uint8))
+
+    def _note(self, generator):
+        """The generator a recompute of this call draws from, or None to
+        take the state eagerly (record, or no window)."""
+        if self._mode == "record":
+            start = self._start.get(id(generator))
+            if start is None:
+                raise RuntimeError("a checkpointed call drew from a "
+                                   "generator the window did not name")
+            self.calls.append(
+                (generator, self._seed_offset(generator)[1] - start))
+            return None
+        i, self._next = self._next, self._next + 1
+        if i >= len(self.generators) or self.calls[i][0] is not generator:
+            raise RuntimeError(
+                f"checkpointed call {i} of the captured window differs "
+                "from the recorded window's")
+        return self.generators[i]
+
+
+_RECOMPUTE: Optional[RecomputeGenerators] = None
+
+
 def checkpoint_with_generator(function: Callable, generator, *args,
                               policy=None) -> Any:
     """`checkpoint` of `function(*args, generator=generator)` whose random
     draws all come from `generator`: the forward draws from it (leaving it
     where it would be without recompute), the recompute from a fresh
     generator set to the state it had before the forward, so each mask is
-    drawn again as it was."""
+    drawn again as it was.  While a CUDA graph of the window is captured
+    the recompute draws from the generator `RecomputeGenerators` made for
+    this call instead."""
     if generator is None:
         return checkpoint(functools.partial(function, generator=None), *args,
                           policy=policy)
-    state = generator.get_state()
+    graphed = _RECOMPUTE._note(generator) if _RECOMPUTE is not None else None
+    state = generator.get_state() if graphed is None else None
     runs = []
 
     def run(*inputs):
         if not runs:
             runs.append(generator)
             return function(*inputs, generator=generator)
+        if graphed is not None:
+            return function(*inputs, generator=graphed)
         replay = torch.Generator(device=generator.device)
         replay.set_state(state)
         return function(*inputs, generator=replay)

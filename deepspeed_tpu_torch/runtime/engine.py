@@ -77,12 +77,31 @@ What it keeps of the JAX engine:
   are gathered over the group, process 0 writes the files the single
   controller writes, and every process loads and cuts its own range.
 
+- The fused whole step (`"fused_step": {"enabled": true}`, the JAX
+  engine's): `train_batch` runs the window's gas micro-steps and the
+  step as one CUDA graph, captured at the second call and replayed after
+  (runtime/fused_step.py); on the CPU the same body runs eagerly.  On
+  CUDA the graph takes one process's ranks on one card: a window across
+  cards is refused (A.6c).  A config in `fused_fallback_reason`'s matrix
+  logs its reason once, keeps it on `fused_step_reason` and runs the
+  modular loop.
+- The `resilience` block (the JAX engine's): atomic saves with a size and
+  CRC32 manifest, each under the retry policy (`retry_counters` in the
+  client state), retention GC, verified loads that fall back to the
+  newest intact tag (process 0 resolves, under processes, and broadcasts
+  the tag), the training-health sentinel (modular: a host check a step;
+  fused: in the window, drained at boundaries), and preemption: at each
+  step boundary (agreed over the process group) an emergency save and
+  `TrainingInterrupted`, with a grace timer's forced save.
+
 What is not ported yet is refused by `refuse_unported` with the ROADMAP.md
-item that will port it: among others the sharded checkpoint layout (A.5)
-and the resilience block that would make saves atomic (A.6).
+item that will port it: among others the sharded checkpoint layout (A.5),
+the monitor (A.6b), the chaos plane (A.13) and the lockstep signature
+that a resume re-verifies (A.14).
 """
 
 import os
+import threading
 
 import numpy as np
 import torch
@@ -94,7 +113,7 @@ from ..config_utils import load_config_dict
 from ..models.convert import gpt2_flat_from_tree, gpt2_tree_from_flat
 from ..parallel import mesh as mesh_mod
 from ..parallel.mesh import ZERO_AXES, MeshContext
-from ..utils.logging import log_dist
+from ..utils.logging import log_dist, logger
 from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
 from . import checkpoint as ckpt_mod
 from .dataloader import DeepSpeedDataLoader
@@ -104,11 +123,14 @@ from .lr_schedules import get_lr_schedule
 from .optimizers import (ONEBIT_ADAM_OPTIMIZER, ONEBIT_LAMB_OPTIMIZER,
                          FlatOptimizer, build_optimizer)
 from .resilience import reshard
+from .resilience.atomic import cleanup_tmp_dirs
 from .zero.partition import ZeroPartitioner
 
 FORWARD_MICRO_TIMER = "forward_microstep"
 BACKWARD_MICRO_TIMER = "backward_microstep"
 STEP_MICRO_TIMER = "step_microstep"
+# the fused path's window-level timer: the whole window is one dispatch
+FUSED_STEP_TIMER = "fused_train_batch"
 # client-state key of every rank's torch.Generator state (byte lists in
 # rank order): the counterpart of the JAX engine's `engine_rng` key
 TORCH_RNG_KEY = "torch_rng"
@@ -204,8 +226,6 @@ def refuse_unported(config: DeepSpeedConfig, model, mesh: MeshContext) -> None:
                       ("offload_optimizer", zc.offload_optimizer)):
         if off is not None and off.device not in (None, "none"):
             _refuse(f"zero_optimization.{what} (the offload tier)", "A.7")
-    if config.fused_step_config.enabled:
-        _refuse("fused_step (one dispatch per optimizer step)", "A.6")
     if (config.optimizer_name or "").lower() in (ONEBIT_ADAM_OPTIMIZER,
                                                  ONEBIT_LAMB_OPTIMIZER):
         _refuse(f"the {config.optimizer_name} optimizer", "A.8")
@@ -219,8 +239,10 @@ def refuse_unported(config: DeepSpeedConfig, model, mesh: MeshContext) -> None:
                 "the engine uses them inside the streamed ZeRO-3 scan)", "A.5")
     if config.sequence_parallel_config.size > 1:
         _refuse("sequence parallelism", "A.9")
-    flags = (("resilience", config.resilience_config.enabled, "A.6, A.13"),
-             ("monitor", config.monitor_config.enabled, "A.6, A.13"),
+    if config.resilience_config.enabled and \
+            config.resilience_config.chaos.enabled:
+        _refuse("resilience.chaos (the fault-injection plane)", "A.13")
+    flags = (("monitor", config.monitor_config.enabled, "A.6b, A.13"),
              ("analysis", config.analysis_config.enabled, "A.14"),
              ("progressive_layer_drop", config.pld_enabled, "A.13"),
              ("curriculum_learning", config.curriculum_enabled, "A.13"),
@@ -380,11 +402,89 @@ class DeepSpeedEngine:
         self._rank_losses = None
         self._last_overflow = None
         self._is_train_mode = True
+        self._init_resilience()
+        self._init_fused_step()
         log_dist(f"DeepSpeedEngine: zero_stage="
                  f"{self.zero_optimization_stage()} dtype={self.compute_dtype} "
                  f"mesh={self.mesh} dp_world={world} params={off} "
                  f"micro_batch={self.train_micro_batch_size_per_gpu()} "
                  f"gas={self.gradient_accumulation_steps()}", ranks=[0])
+
+    def _init_resilience(self):
+        """The resilience block (the JAX engine's, engine.py:278-316): the
+        retry policy, the sentinel, the preemption handler with its grace
+        timer's forced save; all off by default."""
+        res = self.config.resilience_config
+        self.resilience = res
+        self._retry_policy = res.build_retry_policy()
+        self.sentinel = None
+        if res.sentinel.enabled:
+            from .resilience.sentinel import TrainingSentinel
+            self.sentinel = TrainingSentinel(
+                ewma_alpha=res.sentinel.ewma_alpha,
+                k_sigma=res.sentinel.k_sigma,
+                warmup_steps=res.sentinel.warmup_steps,
+                policy=res.sentinel.policy,
+                anomaly_budget=res.sentinel.anomaly_budget,
+                monitor_grad_norm=res.sentinel.monitor_grad_norm)
+        # held while a step's update is issued and its counters move, by
+        # the boundary's emergency save, and by the grace timer's forced
+        # save (another thread): a save sees whole steps
+        self._emergency_lock = threading.Lock()
+        # the generators' states at the last step boundary, for a forced
+        # save that lands while the next window draws (grace timer only)
+        self._boundary_rngs = None
+        self._preemption = None
+        if res.preemption.enabled:
+            from .resilience.preemption import PreemptionHandler
+            self._preemption = PreemptionHandler(
+                signals=res.preemption.signals,
+                reraise=res.preemption.reraise,
+                grace_s=res.preemption.grace_s,
+                on_deadline=self._forced_emergency_save).install()
+            if self._preemption.grace_s > 0:
+                self._note_boundary()
+        # the rewind target and the emergency saves' default directory
+        self._last_good_ckpt = None
+        self._last_save_dir = None
+
+    def _init_fused_step(self):
+        """The fused whole step (the JAX engine's, engine.py:349-392), or
+        the modular loop with the reason logged once."""
+        self._fused = None
+        self.fused_step_reason = None
+        # host dispatches a step: each micro-step's forward and backward on
+        # the modular path (the JAX engine's count), one replay fused
+        self._dispatches_per_step = 2 * self.gradient_accumulation_steps()
+        if not self.config.fused_step_config.enabled:
+            return
+        from .fused_step import build_fused_step, fused_fallback_reason
+        reason = fused_fallback_reason(self)
+        if reason is not None:
+            self.fused_step_reason = reason
+            logger.warning("fused_step: falling back to the modular forward/"
+                           f"backward/step loop — {reason}")
+            return
+        cards = {self.mesh.device_of(r) for r in self.local_ranks}
+        if self.mesh.is_cuda and (len(cards) > 1
+                                  or self.mesh.process_count > 1):
+            raise NotImplementedError(
+                "fused_step on CUDA graphs one process's ranks on one card "
+                f"(here {len(cards)} card(s) and "
+                f"{self.mesh.process_count} process(es)); a window across "
+                "cards is ROADMAP.md A.6c")
+        self._fused = build_fused_step(self)
+        log_dist(f"fused_step: 1 dispatch per optimizer step "
+                 f"(gas={self.gradient_accumulation_steps()}; modular loop "
+                 f"would issue {2 * self.gradient_accumulation_steps()}; "
+                 f"{'one CUDA graph' if self._fused.graphed else 'eager'})",
+                 ranks=[0])
+        if self.wall_clock_breakdown():
+            logger.warning(
+                "wall_clock_breakdown: forward/backward micro timers are "
+                "unavailable under fused_step (the window is one dispatch) "
+                f"— the window-level '{FUSED_STEP_TIMER}' timer reports the "
+                "whole optimizer step instead")
 
     # ------------------------------------------------------------------ #
     # configuration accessors (reference: engine.py:260-540)
@@ -485,10 +585,12 @@ class DeepSpeedEngine:
                 done.add((lo, hi))
         return full
 
-    def _generator_states(self):
+    def _generator_states(self, states=None):
         """Every rank's generator state in global rank order (gathered
-        from the processes under a process world)."""
-        states = [g.get_state().tolist() for g in self._rngs]
+        from the processes under a process world); `states`: this
+        process's, in place of its generators' current ones."""
+        states = [g.tolist() for g in (
+            states or [g.get_state() for g in self._rngs])]
         if self.mesh.process_group is None:
             return states
         import torch.distributed as dist
@@ -537,7 +639,7 @@ class DeepSpeedEngine:
                     "checkpoint layout, runtime/sharded_checkpoint.py)", "A.5")
 
     def save_checkpoint(self, save_dir, tag=None, client_state=None,
-                        save_latest=True):
+                        save_latest=True, _generators=None):
         """Write the JAX engine's consolidated layout under
         <save_dir>/<tag>/ (tag default: global_step<N>): the module tree,
         the optimizer and scaler state, and the client state with the
@@ -548,7 +650,14 @@ class DeepSpeedEngine:
         not honoured (ROADMAP.md C).  Under a process world every process
         calls it: the state is gathered over the group, process 0 writes
         (the JAX engine's processes all write the same files) and the
-        others wait for it.  Returns the tag's directory."""
+        others wait for it.  With the resilience block on (the JAX
+        engine's): the sentinel's state and the retry counters ride the
+        client state, the files are written under the retry policy, an
+        atomic save stages them with a manifest (in place under a process
+        group, recorded as a degradation, as the JAX engine), and process
+        0 collects old tags by the retention policy.  A save writes no
+        lockstep signature (ROADMAP.md A.14).  Returns the tag's
+        directory."""
         if tag is None:
             tag = f"global_step{self.global_steps}"
         self._check_tag(tag)
@@ -568,17 +677,54 @@ class DeepSpeedEngine:
             # MoQ and curriculum learning are refused (A.13)
             "quantizer": None,
             "curriculum": None,
-            TORCH_RNG_KEY: self._generator_states(),
+            TORCH_RNG_KEY: self._generator_states(_generators),
             reshard.TOPOLOGY_KEY: self._partition_topology(),
         })
+        if self.sentinel is not None:
+            if self._fused is not None:
+                # fold the windows' EWMA and pending verdicts into the host
+                # sentinel; never abort inside a save
+                from .fused_step import sentinel_state_to_host
+                self._drain_fused_sentinel(raise_abort=False)
+                sentinel_state_to_host(self._fused.sent_state, self.sentinel)
+            client["sentinel"] = self.sentinel.state_dict()
+        if self._retry_policy is not None:
+            # sealed before this save's own I/O, as in the JAX engine
+            client["retry_counters"] = self._retry_policy.snapshot()
         module_state = {"module": self._module_tree()}
         optimizer_state = self._engine_state()
+        res = self.resilience
+        atomic = res.atomic_enabled
+        if atomic and self.mesh.process_group is not None:
+            logger.warning(
+                "resilience.atomic_checkpoints is not supported for "
+                "multi-process consolidated checkpoints — saving with the "
+                "legacy in-place layout")
+            from .resilience.degradation import record as degrade
+            degrade("checkpoint", "atomic", "in_place",
+                    "multi-process consolidated layout cannot stage "
+                    "atomic commits")
+            atomic = False
+
+        def write():
+            return ckpt_mod.save_checkpoint_state(
+                save_dir, tag, module_state=module_state,
+                optimizer_state=optimizer_state, client_state=client,
+                atomic=atomic)
+
         path = os.path.join(save_dir, str(tag))
         if self._writes_files:
-            path = ckpt_mod.save_checkpoint_state(
-                save_dir, tag, module_state=module_state,
-                optimizer_state=optimizer_state, client_state=client)
+            if atomic:
+                cleanup_tmp_dirs(save_dir)  # orphans of crashed saves
+            path = (self._retry_policy.run(write, what="checkpoint save")
+                    if self._retry_policy is not None else write())
+            if res.gc_enabled:
+                from .resilience.recovery import gc_checkpoints
+                gc_checkpoints(save_dir, res.keep_last_n, res.keep_every,
+                               latest_tag=ckpt_mod.read_latest_tag(save_dir))
         self._wait_for_writer()
+        self._last_save_dir = save_dir
+        self._last_good_ckpt = (save_dir, str(tag))
         log_dist(f"saved checkpoint {path}", ranks=[0])
         return path
 
@@ -615,13 +761,27 @@ class DeepSpeedEngine:
         buffer, the optimizer state is cut into this engine's ranges.  The
         scaler, the LR schedule's state, the counters and (when the saved
         world equals this one) every rank's generator are restored.
-        Returns (the tag's directory, the client state)."""
+        With resilience's verify_on_load the tag is resolved verified
+        (`_resolve_verified_tag`), and the sentinel's state and the retry
+        counters are restored.  A resume that would re-verify the lockstep
+        signature (a resharded load, or a checkpoint that holds one, with
+        verify_lockstep_on_resume) is refused: that signature is ROADMAP.md
+        A.14.  Returns (the tag's directory, the client state)."""
         resolved = tag or ckpt_mod.read_latest_tag(load_dir)
+        if self.resilience.verify_enabled:
+            resolved = self._resolve_verified_tag(load_dir, tag)
         saved_client = reshard.read_saved_client_state(load_dir,
                                                        str(resolved))
-        reshard.check_reshard(str(resolved), saved_client,
-                              self._partition_topology(),
-                              current_world_size=self.world_size)
+        resharded = reshard.check_reshard(
+            str(resolved), saved_client, self._partition_topology(),
+            current_world_size=self.world_size)
+        if self.resilience.lockstep_resume_enabled and (
+                saved_client.get(reshard.SIGNATURE_KEY) or resharded):
+            _refuse(f"resuming checkpoint tag {resolved!r} "
+                    f"{'at another topology' if resharded else 'saved with a lockstep signature'}"
+                    " with resilience.verify_lockstep_on_resume (the "
+                    "collective lockstep signature; set it to false to "
+                    "resume without the re-verify)", "A.14")
         if os.path.isfile(os.path.join(load_dir, str(resolved),
                                        "model_index.json")):
             _refuse("loading the sharded checkpoint layout", "A.5")
@@ -645,9 +805,9 @@ class DeepSpeedEngine:
                                gpt2_flat_from_tree(tree, shapes, cfg, padded))
             for state in self.opt_states:
                 state["count"].fill_(int(count))
-            self.scaler_state = LossScaleState(
-                *(torch.from_numpy(np.array(v)).to(self.device)
-                  for v in opt_state["scaler"]))
+            # in place: a captured fused window reads these tensors
+            for dst, v in zip(self.scaler_state, opt_state["scaler"]):
+                dst.copy_(torch.as_tensor(np.array(v)))
         if load_lr_scheduler_states and self.lr_scheduler is not None \
                 and client.get("lr_scheduler"):
             self.lr_scheduler.load_state_dict(client["lr_scheduler"])
@@ -656,6 +816,17 @@ class DeepSpeedEngine:
             self.micro_steps = client.get("micro_steps", 0)
             self.skipped_steps = client.get("skipped_steps", 0)
             self._load_generators(client.get(TORCH_RNG_KEY))
+            if self.sentinel is not None and client.get("sentinel"):
+                self.sentinel.load_state_dict(client["sentinel"])
+            if self._retry_policy is not None and client.get(
+                    "retry_counters"):
+                self._retry_policy.restore(client["retry_counters"])
+        if self._fused is not None and self.sentinel is not None:
+            from .fused_step import load_sentinel_state
+            self._fused.pending = []
+            load_sentinel_state(self._fused.sent_state, self.sentinel)
+        if self._boundary_rngs is not None:
+            self._note_boundary()
         for i, grad in enumerate(self._flat_grads):
             grad.zero_()
             if self._scatter_each_micro:
@@ -664,8 +835,52 @@ class DeepSpeedEngine:
                 self._acc[i] = None
         self._last_loss = self._rank_losses = self._last_overflow = None
         path = os.path.join(load_dir, str(resolved))
+        self._last_save_dir = load_dir
+        self._last_good_ckpt = (load_dir, str(resolved))
         log_dist(f"loaded checkpoint {path}", ranks=[0])
         return path, client
+
+    def _resolve_verified_tag(self, load_dir, tag):
+        """The manifest-verified tag to load (the JAX engine's): an
+        explicit tag that fails verification raises, never substituting
+        other weights; tag None falls back to the newest intact tag within
+        max_fallback_tags.  Under a process group process 0 verifies once
+        and broadcasts the tag (or its error) to every process."""
+
+        def resolve_local():
+            from .resilience.recovery import (list_tags, resolve_intact_tag,
+                                              tag_problems)
+            if tag is not None:
+                problems = tag_problems(load_dir, tag)
+                if problems:
+                    raise FileNotFoundError(
+                        f"checkpoint tag {tag!r} under {load_dir} failed "
+                        f"verification: {problems}; available tags: "
+                        f"{list_tags(load_dir) or 'none'} (pass tag=None "
+                        f"to resume from the newest intact tag)")
+                return str(tag)
+            resolved, _ = resolve_intact_tag(
+                load_dir, None,
+                latest_tag=ckpt_mod.read_latest_tag(load_dir),
+                max_fallback_tags=self.resilience.max_fallback_tags)
+            return resolved
+
+        pg = self.mesh.process_group
+        if pg is None:
+            return resolve_local()
+        import torch.distributed as dist
+        payload = [None]
+        if self._writes_files:
+            try:
+                payload = [resolve_local()]
+            except Exception as e:  # noqa: BLE001 — re-raised everywhere
+                payload = ["!" + str(e)]
+        dist.broadcast_object_list(payload, src=0, group=pg)
+        if payload[0].startswith("!"):
+            raise FileNotFoundError(
+                f"checkpoint verification failed on process 0: "
+                f"{payload[0][1:]}")
+        return payload[0]
 
     def _load_generators(self, saved):
         """Every local rank's generator from the saved states (global rank
@@ -760,6 +975,16 @@ class DeepSpeedEngine:
             return torch.from_numpy(value).to(dev)
         return value
 
+    def _shard_stacked(self, value):
+        """`_shard_batch` of a stacked window ([gas, rows, ...]): each local
+        rank's rows of every micro-batch, as [gas, rows / n, ...]."""
+        n = len(self.local_ranks)
+        if isinstance(value, (torch.Tensor, np.ndarray)) and value.ndim >= 2 \
+                and value.shape[1] % n == 0:
+            rows = value.shape[1] // n
+            return [value[:, i * rows:(i + 1) * rows] for i in range(n)]
+        return [value] * n
+
     # ------------------------------------------------------------------ #
     # forward / backward / step (reference: engine.py:1224,1303,1462)
     # ------------------------------------------------------------------ #
@@ -775,19 +1000,32 @@ class DeepSpeedEngine:
             self.tput_timer.start()
         args = [self._shard_batch(a) for a in args]
         kwargs = {k: self._shard_batch(v) for k, v in kwargs.items()}
+        loss = self._forward_ranks(
+            [(tuple(a[i] for a in args), {k: v[i] for k, v in kwargs.items()})
+             for i in range(len(self.local_ranks))])
+        if self.wall_clock_breakdown():
+            self.timers(FORWARD_MICRO_TIMER).stop()
+        return loss
+
+    __call__ = forward
+
+    def _forward_ranks(self, inputs):
+        """The forward of `inputs`, one (args, kwargs) a local rank holding
+        its share of the batch (placed on the rank's device, on its
+        stream, where it is not there yet)."""
         losses = []
         with self.mesh.forked():
             for i, (r, leaves) in enumerate(zip(self.local_ranks,
                                                 self._leaves)):
+                args, kwargs = inputs[i]
                 with self.mesh.rank(r):
                     cast = {name: p.to(self.compute_dtype)
                             if p.is_floating_point() else p
                             for name, p in leaves.items()}
                     losses.append(functional_call(
                         self.module, cast,
-                        tuple(self._place(a[i], r) for a in args),
-                        {**{k: self._place(v[i], r)
-                            for k, v in kwargs.items()},
+                        tuple(self._place(a, r) for a in args),
+                        {**{k: self._place(v, r) for k, v in kwargs.items()},
                          "generator": self._rngs[i]}))
             if self.world_size > 1 and self.mesh.process_group is not None:
                 stacked = self.mesh.all_gather_flat(
@@ -801,11 +1039,7 @@ class DeepSpeedEngine:
                                        for loss in losses])
             loss = _MeanOfRanks.apply(stacked, *losses)
         self._last_loss = loss
-        if self.wall_clock_breakdown():
-            self.timers(FORWARD_MICRO_TIMER).stop()
         return loss
-
-    __call__ = forward
 
     def backward(self, loss=None):
         """Backpropagate loss * loss_scale (each rank's backward on its own
@@ -817,6 +1051,15 @@ class DeepSpeedEngine:
             raise RuntimeError("backward() called before forward()")
         if self.wall_clock_breakdown():
             self.timers(BACKWARD_MICRO_TIMER).start()
+        self._accumulate(loss)
+        self.micro_steps += 1
+        if self.wall_clock_breakdown():
+            self.timers(BACKWARD_MICRO_TIMER).stop()
+        return loss
+
+    def _accumulate(self, loss):
+        """backward's device work: the scaled backward and the
+        accumulation."""
         (loss.float() * self.scaler_state.loss_scale).backward()
         if self._scatter_each_micro:
             with self.mesh.forked():
@@ -835,14 +1078,13 @@ class DeepSpeedEngine:
                         self._acc[i] = (half if self._acc[i] is None
                                         else self._acc[i] + half)
                         grad.zero_()
-        self.micro_steps += 1
-        if self.wall_clock_breakdown():
-            self.timers(BACKWARD_MICRO_TIMER).stop()
-        return loss
 
     def _reduced_grads(self):
         """Each rank's summed (not yet unscaled) fp32 grads of the buffer
-        it steps: its range, or at stage 0 the whole buffer."""
+        it steps: its range, or at stage 0 the whole buffer.  A tensor the
+        step may scale in place: the grad buffers and accumulators are
+        zeroed after it, and a compute-dtype accumulator gives its one
+        fp32 copy."""
         if self._scatter_each_micro:
             return [acc.float() for acc in self._acc]
         full = [grad if acc is None else acc.float()
@@ -855,37 +1097,56 @@ class DeepSpeedEngine:
                                              out=self._flat_grads)
         return parts
 
-    def step(self, lr_kwargs=None):
-        """Apply the optimizer at gradient-accumulation boundaries, each
-        rank to the range it owns, then all-gather the ranges; no host
-        synchronisation."""
-        if not self.is_gradient_accumulation_boundary():
-            return
-        if self.wall_clock_breakdown():
-            self.timers(STEP_MICRO_TIMER).start()
-        if self._grads_half and not self._scatter_each_micro \
-                and self._acc[0] is None:
-            raise RuntimeError("step() called before backward()")
+    def _unscale_inv(self):
+        """1 / (loss_scale * gas * W) on the caller's stream (before the
+        ranks fork from it)."""
+        return 1.0 / (self.scaler_state.loss_scale
+                      * self.gradient_accumulation_steps() * self.world_size)
+
+    def _unscaled_grads(self, inv):
+        """Inside `forked()`: each rank's reduced grads unscaled in place,
+        and the finite flag over every rank's grads, one a rank."""
+        mesh, local = self.mesh, self.local_ranks
+        grads = self._reduced_grads()
+        flags = []
+        for i, r in enumerate(local):
+            with mesh.rank(r):
+                grads[i].mul_(inv.to(mesh.device_of(r)))
+                flags.append(torch.isfinite(grads[i]).all().reshape(1))
+        flags = mesh.all_gather_flat(flags, ZERO_AXES)
+        finite = []
+        for i, r in enumerate(local):
+            with mesh.rank(r):
+                finite.append(flags[i].all())
+        return grads, finite
+
+    def _step_device(self, healthy=None, prepared=None):
+        """step()'s device work, with no host read: unscale (unless
+        `prepared` holds the unscaled grads and finite flags), the
+        optimizer's update of each rank's range through its finite select
+        (ANDed with `healthy`, the sentinel's verdict: a bool or a device
+        bool), the all-gather of the ranges, the grads zeroed, the loss
+        scaler's transition written in place.  Returns the overflow flag
+        (the scaler sees only the real overflow)."""
         mesh, world, local = self.mesh, self.world_size, self.local_ranks
         partitioned = self.zero_partitioner.stage >= 1 and world > 1
-        inv = 1.0 / (self.scaler_state.loss_scale
-                     * self.gradient_accumulation_steps() * world)
+        inv = self._unscale_inv() if prepared is None else None
         with mesh.forked():
-            grads = self._reduced_grads()
-            flags = []
-            for i, r in enumerate(local):
-                with mesh.rank(r):
-                    grads[i] = grads[i] * inv.to(mesh.device_of(r))
-                    flags.append(torch.isfinite(grads[i]).all().reshape(1))
-            flags = mesh.all_gather_flat(flags, ZERO_AXES)
-            finite = []
-            for i, r in enumerate(local):
-                with mesh.rank(r):
-                    finite.append(flags[i].all())
+            grads, finite = (self._unscaled_grads(inv) if prepared is None
+                             else prepared)
+            apply = finite
+            if healthy is not None:
+                apply = []
+                for i, r in enumerate(local):
+                    with mesh.rank(r):
+                        ok = (healthy.to(mesh.device_of(r))
+                              if isinstance(healthy, torch.Tensor)
+                              else healthy)
+                        apply.append(finite[i] & ok)
             params = [flat[lo:hi]
                       for flat, (lo, hi) in zip(self._flats, self._ranges)]
             self.optimizer.step_ranks(
-                params, grads, self.opt_states, finite,
+                params, grads, self.opt_states, apply,
                 offsets=[lo for lo, _ in self._ranges],
                 rank=lambda i: mesh.rank(local[i]),
                 total=((lambda parts: mesh.all_sum(parts, ZERO_AXES))
@@ -900,20 +1161,78 @@ class DeepSpeedEngine:
                     else:
                         self._acc[i] = None
         overflow = ~finite[0]
-        self.scaler_state = update_loss_scale(self.scaler_cfg,
-                                              self.scaler_state, overflow)
-        self._last_overflow = overflow
-        self.global_steps += 1
-        # the dynamic scaler (fp16) reads the flag, once a step, to count a
-        # skipped step and hold the scheduler, as the JAX engine; bf16 /
-        # fp32 and fp16's static scale never do
-        if self.scaler_cfg.dynamic and bool(overflow):
-            self.skipped_steps += 1
-        elif self.lr_scheduler is not None:
-            self.lr_scheduler.step(**(lr_kwargs or {}))
+        self._set_scaler(update_loss_scale(self.scaler_cfg,
+                                           self.scaler_state, overflow))
+        return overflow
+
+    def _set_scaler(self, state):
+        """The scaler's new state written into its tensors (a captured
+        window reads them)."""
+        for dst, src in zip(self.scaler_state, state):
+            if dst is not src:
+                dst.copy_(src)
+
+    def step(self, lr_kwargs=None):
+        """Apply the optimizer at gradient-accumulation boundaries, each
+        rank to the range it owns, then all-gather the ranges; no host
+        synchronisation but the dynamic scaler's overflow read and the
+        sentinel's check."""
+        if not self.is_gradient_accumulation_boundary():
+            return
+        if self.wall_clock_breakdown():
+            self.timers(STEP_MICRO_TIMER).start()
+        if self._grads_half and not self._scatter_each_micro \
+                and self._acc[0] is None:
+            raise RuntimeError("step() called before backward()")
+        healthy = prepared = None
+        sentinel_skip = False
+        if self.sentinel is not None:
+            inv = self._unscale_inv()
+            with self.mesh.forked():
+                prepared = self._unscaled_grads(inv)
+            verdict = self._sentinel_check(prepared[0])
+            if verdict == "rewind":
+                # the last good checkpoint is loaded; this window's grads
+                # came from the bad trajectory and are dropped with it
+                self._last_overflow = None
+                if self.wall_clock_breakdown():
+                    self.timers(STEP_MICRO_TIMER).stop()
+                self._maybe_handle_preemption()
+                return
+            sentinel_skip = verdict == "skip"
+            healthy = not sentinel_skip
+        with self._emergency_lock:
+            overflow = self._step_device(healthy, prepared)
+            self._last_overflow = overflow
+            self.global_steps += 1
+            # the dynamic scaler (fp16) reads the flag, once a step, to
+            # count a skipped step and hold the scheduler, as the JAX
+            # engine; bf16 / fp32 and fp16's static scale never do; a
+            # sentinel skip wins and is counted once
+            self._after_update(sentinel_skip,
+                               self.scaler_cfg.dynamic and not sentinel_skip
+                               and bool(overflow), lr_kwargs)
         self.tput_timer.stop(global_step=True)
         if self.wall_clock_breakdown():
             self.timers(STEP_MICRO_TIMER).stop()
+        self._maybe_handle_preemption()
+
+    def _after_update(self, sentinel_skip, overflowed, lr_kwargs=None):
+        """The host's side of an update (the JAX engine's chain): a
+        sentinel skip or a dynamic scaler's overflow counts a skipped step
+        and holds the scheduler; else the scheduler steps."""
+        if sentinel_skip:
+            self.skipped_steps += 1
+            self.sentinel.record_skip()
+        elif overflowed:
+            self.skipped_steps += 1
+        elif self.lr_scheduler is not None:
+            self.lr_scheduler.step(**(lr_kwargs or {}))
+        if self._boundary_rngs is not None:
+            self._note_boundary()
+
+    def _note_boundary(self):
+        self._boundary_rngs = [g.get_state() for g in self._rngs]
 
     def estimate_memory(self):
         """Bytes a rank holds (the JAX engine's estimate, through the
@@ -921,12 +1240,17 @@ class DeepSpeedEngine:
         return self.zero_partitioner.estimate_memory(self.num_params)
 
     def train_batch(self, data_iter=None):
-        """gradient_accumulation_steps micro-steps and one optimizer step;
-        returns the mean loss, read once after the whole window."""
+        """gradient_accumulation_steps micro-steps and one optimizer step.
+        The modular loop returns the mean loss, read once after the whole
+        window.  Under fused_step the window is one dispatch (one CUDA
+        graph replay on the card) and the mean loss is returned as a
+        device scalar, which the caller reads when it needs it."""
         if data_iter is None:
             if self.training_dataloader is None:
                 raise ValueError("train_batch needs data_iter or training_data")
             data_iter = iter(self.training_dataloader)
+        if self._fused is not None and self._is_train_mode:
+            return self._fused_train_batch(data_iter)
         losses = []
         for _ in range(self.gradient_accumulation_steps()):
             batch = next(data_iter)
@@ -937,3 +1261,224 @@ class DeepSpeedEngine:
             self.step()
             losses.append(loss.detach())
         return float(torch.stack(losses).float().mean())
+
+    def _fused_train_batch(self, data_iter):
+        """One fused window (the JAX engine's `_fused_train_batch`): pull
+        and stack the gas micro-batches, run the window (a replay), then
+        the host bookkeeping step() does: the skip and scheduler chain,
+        the sentinel's verdicts kept for the drain at boundaries, the
+        preemption check."""
+        from .fused_step import OUT_FLAGGED, OUT_LOSS, OUT_OVERFLOW
+        gas = self.gradient_accumulation_steps()
+        batches = []
+        for _ in range(gas):
+            b = next(data_iter)
+            batches.append(b if isinstance(b, tuple) else (b,))
+        if self.wall_clock_breakdown():
+            self.timers(FUSED_STEP_TIMER).start()
+        self.tput_timer.start()
+        skip_policy = (self.sentinel is not None
+                       and self.sentinel.policy == "skip_step")
+        with self._emergency_lock:
+            out = self._fused(batches)
+            self.micro_steps += gas
+            self.global_steps += 1
+            self._last_loss = out[OUT_LOSS]
+            self._last_overflow = out[OUT_OVERFLOW]
+            # the one host read of a window: fp16's overflow and the
+            # skip_step verdict, together
+            flags = (out[OUT_OVERFLOW:OUT_FLAGGED + 1].tolist()
+                     if skip_policy or self.scaler_cfg.dynamic else (0, 0))
+            sentinel_skip = skip_policy and bool(flags[1])
+            self._after_update(sentinel_skip,
+                               self.scaler_cfg.dynamic and not sentinel_skip
+                               and bool(flags[0]))
+        if self.sentinel is not None:
+            self._fused.pending.append((self.global_steps, out))
+            if (self.global_steps % self.steps_per_print() == 0
+                    or len(self._fused.pending) >= 32):
+                self._drain_fused_sentinel()
+            if self.sentinel.over_budget:
+                # a drain inside a save may have spent the budget without
+                # raising: stop at this boundary
+                self.sentinel.abort(self.global_steps,
+                                    float(self._last_loss))
+        self.tput_timer.stop(global_step=True)
+        if self.wall_clock_breakdown():
+            self.timers(FUSED_STEP_TIMER).stop()
+        self._maybe_handle_preemption()
+        return out[OUT_LOSS]
+
+    def _drain_fused_sentinel(self, raise_abort=True):
+        """Fold the windows' sentinel verdicts into the host sentinel's
+        counters and budget (the JAX engine's drain; skipped steps are
+        counted per window, not here).  raise_abort=False defers an
+        exhausted budget to the next boundary: a drain inside a save (the
+        emergency save) must not lose the checkpoint."""
+        from .fused_step import OUT_FLAGGED, OUT_LOSS, OUT_NONFINITE
+        s = self.sentinel
+        pending, self._fused.pending = self._fused.pending, []
+        for step, out in pending:
+            vals = out.tolist()
+            if not vals[OUT_FLAGGED]:
+                s.consecutive_anomalies = 0
+                continue
+            nf = bool(vals[OUT_NONFINITE])
+            loss_val = vals[OUT_LOSS]
+            s.anomalies_seen += 1
+            s.last_reasons = [
+                f"loss is non-finite ({loss_val})" if nf else
+                f"loss {loss_val:.6g} exceeded k-sigma in-program "
+                f"(k={s.k_sigma})"]
+            if not (s.policy == "warn" and not nf):
+                s.consecutive_anomalies += 1
+            logger.warning(
+                f"sentinel(fused): anomaly at step {step} "
+                f"({s.consecutive_anomalies}/{s.anomaly_budget} "
+                f"consecutive): {s.last_reasons[0]}")
+            if s.over_budget and raise_abort:
+                s.abort(step, loss_val)
+
+    # ------------------------------------------------------------------ #
+    # resilience: sentinel + preemption (reference: engine.py:1946-2135)
+    # ------------------------------------------------------------------ #
+    def _grad_norm(self, grads):
+        """The global norm of the unscaled grads: the ranges' squared
+        norms summed over the ranks (one range a rank at stages 1-2; at
+        stage 0 every rank holds the whole buffer), one host read."""
+        mesh = self.mesh
+        partitioned = self.zero_partitioner.stage >= 1 and self.world_size > 1
+        with mesh.forked():
+            parts = []
+            for i, r in enumerate(self.local_ranks):
+                with mesh.rank(r):
+                    parts.append((grads[i] * grads[i]).sum().reshape(1))
+            if partitioned:
+                parts = mesh.all_sum(parts, ZERO_AXES)
+        return float(torch.sqrt(parts[0]))
+
+    def _sentinel_check(self, grads) -> str:
+        """Observe this step's (loss, grad norm): "ok", "skip" or
+        "rewind".  Raises SentinelAbort once the consecutive-anomaly
+        budget is spent."""
+        s = self.sentinel
+        loss = (float(self._last_loss.detach())
+                if self._last_loss is not None else float("nan"))
+        norm = None
+        if s.monitor_grad_norm:
+            norm = self._grad_norm(grads)
+            if (self.scaler_cfg.dynamic and np.isfinite(loss)
+                    and not np.isfinite(norm)):
+                # an fp16 overflow with a finite loss is the scaler's (it
+                # skips the step and shrinks the scale), not an anomaly
+                norm = None
+        step = self.global_steps + 1
+        if not s.observe(step, loss, norm):
+            return "ok"
+        if s.over_budget:
+            s.abort(step, loss, norm)
+        if s.policy == "warn":
+            return "ok"
+        if s.policy == "rewind":
+            if self._last_good_ckpt is not None:
+                self._sentinel_rewind()
+                return "rewind"
+            logger.warning(
+                "sentinel: rewind requested but no checkpoint has been "
+                "saved or loaded this run — skipping the step instead")
+        return "skip"
+
+    def _sentinel_rewind(self):
+        """Load the last good checkpoint, keeping the sentinel's anomaly
+        bookkeeping across the load (a rewind must not reset the budget,
+        or a deterministic divergence loops forever)."""
+        load_dir, tag = self._last_good_ckpt
+        snapshot = self.sentinel.state_dict()
+        logger.error(f"sentinel: rewinding to checkpoint {tag!r} under "
+                     f"{load_dir}")
+        self.load_checkpoint(load_dir, tag=tag)
+        self.sentinel.load_state_dict(snapshot)
+        self.sentinel.record_rewind()
+
+    def _maybe_handle_preemption(self):
+        """The step boundary's half of the preemption protocol: the
+        signal only set a flag; here the processes agree (an all-reduce of
+        one flag under a process group), save the emergency checkpoint
+        and stop."""
+        if self._preemption is None:
+            return
+        triggered = self._preemption.triggered
+        pg = self.mesh.process_group
+        if pg is not None:
+            import torch.distributed as dist
+            flag = torch.tensor([1 if triggered else 0], dtype=torch.int32,
+                                device=self.device)
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=pg)
+            agreed = bool(flag.item())
+            if agreed and not triggered:
+                self._preemption.request_stop()  # adopt the peer's signal
+            triggered = agreed
+        if not triggered:
+            return
+        # the boundary is reached: disarm a pending grace deadline, or wait
+        # out a forced save already running on the timer thread
+        self._preemption.boundary_reached()
+        pre = self.resilience.preemption
+        with self._emergency_lock:
+            forced = self._preemption.forced_tag
+        tag = None
+        if forced is not None:
+            tag = forced  # the grace deadline saved this boundary's state
+        else:
+            save_dir = pre.save_dir or self._last_save_dir
+            if save_dir is not None:
+                tag = f"{pre.emergency_tag_prefix}_step{self.global_steps}"
+                try:
+                    with self._emergency_lock:
+                        self.save_checkpoint(save_dir, tag=tag)
+                except Exception as e:  # noqa: BLE001 — still stop cleanly
+                    logger.error(
+                        f"preemption: emergency checkpoint failed: {e}")
+                    tag = None
+            else:
+                logger.error(
+                    "preemption: no emergency save dir known (no prior "
+                    "save_checkpoint and resilience.preemption.save_dir "
+                    "unset) — stopping without an emergency checkpoint")
+        self._preemption.finalize(emergency_tag=tag)
+
+    def _forced_emergency_save(self):
+        """The grace deadline's callback (on the timer thread): no step
+        boundary came within grace_s of the signal, so save the state the
+        device holds after the last step issued, tagged with that step.
+        Every update is issued and counted under `_emergency_lock`, and
+        this save reads the state on the default stream, after the update
+        (the step's stream, or joined to it), so the tag names the step
+        the files hold; the generators are those of that boundary.  Under
+        a process group a save is collective and cannot run off the loop:
+        the forced save is single-process only, as in the JAX engine."""
+        if self.mesh.process_group is not None:
+            logger.error(
+                "preemption: grace deadline expired but forced emergency "
+                "saves are single-process only (a multi-process save is "
+                "collective) — the processes keep waiting for the step "
+                "boundary")
+            return None
+        pre = self.resilience.preemption
+        save_dir = pre.save_dir or self._last_save_dir
+        if save_dir is None:
+            logger.error(
+                "preemption: grace deadline expired but no emergency save "
+                "dir is known (resilience.preemption.save_dir unset, no "
+                "prior save_checkpoint)")
+            return None
+        try:
+            with self._emergency_lock:
+                tag = (f"{pre.emergency_tag_prefix}_step{self.global_steps}"
+                       "_forced")
+                self.save_checkpoint(save_dir, tag=tag,
+                                     _generators=self._boundary_rngs)
+            return tag
+        except Exception as e:  # noqa: BLE001 — the boundary path remains
+            logger.error(f"preemption: forced emergency save failed: {e}")
+            return None
