@@ -352,12 +352,46 @@ name, and each phase holds it against an eager window's counters:
 28. train_fused_large: bench_gpt2_large under fused_step, timed as
    train_large (2 + 10 steps), beside train_large's numbers of this run.
 
+The runtime monitor (deepspeed_tpu_torch/monitor/, the engine's `monitor`
+and `tensorboard` blocks), after phase 27:
+
+29. monitor: bench_gpt2 (3 + 30 steps) and bench_gpt2_gas4_fused (2 + 8
+   windows), each as two engines from the same weights, without and with
+   the monitor (every writer, the trace, a flush every 10 steps,
+   heartbeats), timed in turns (plain, monitored, monitored, plain).  The
+   monitored run's records: a step record a step, each loss the engine's
+   returned loss after the monitor's 6-place rounding, dispatches_per_step
+   2 (modular) or 1 (fused), the card's allocator as the memory source
+   with the peak read at each flush, tokens/s within 5% of the host
+   clock over the same steps; the CSV's columns; a valid trace.json with
+   three phases a modular step or one fused_step(gas=4) span a window; a
+   measured-only reconcile record a window and its degradation record; a
+   heartbeat; the tensorboard backend that ran (or the JSONL fallback and
+   its degradation record).  Kernels A, B, D and E run as often with the
+   monitor as without it (counters; on the fused path a profiled replay's
+   trace).  The monitor's per-step calls run under
+   torch.cuda.set_sync_debug_mode("error") on every step that closes no
+   window.  A profiler capture armed on purpose traces K = 2 steps into a
+   Chrome trace whose A/B/D/E launches equal the counters (modular) or K
+   replays' (fused).  Reported: monitored / unmonitored tokens/s, the
+   monitor's host µs a step, ms a flush (and the batched loss read's
+   share), and the fused step's issue split: its fused_step span (the
+   batch copy and the replay) against train_batch's host time after a
+   synchronisation, with the span's parts.
+30. monitor_mp: bench_gpt2's step at one process a visible card
+   (torchrun, as phase 18) with monitor.fleet and heartbeats, 20 steps:
+   one window exchange a process a full window, at its boundary (over a
+   gloo group the engine makes above one process; the local stack at
+   one), rank 0's fleet_host and fleet records each window (at W = 1 the
+   one-host summary), every process's heartbeat.
+
 Then the `kernels` line (launches by path: bf16, int8, train, train_fp16,
 checkpoint, train_dp, checkpoint_dp, train_mp (every process's launches
-summed), train_fused, train_fused_mp, resilience, train_sparse,
-train_longseq, train_medium, train_large, train_fused_large, fcm; and
-for the fused paths the traced launches of their profiled replays, which
-no counter sees) and, last, {"ok": true, "device": {...}}.  A capture that fails fails its
+summed), train_fused, train_fused_mp, resilience, monitor, monitor_mp,
+train_sparse, train_longseq, train_medium, train_large,
+train_fused_large, fcm; and for the fused paths the traced launches of
+their profiled replays, which no counter sees) and, last, {"ok": true,
+"device": {...}}.  A capture that fails fails its
 phase, and the script exits 1 without a result.  Without a CUDA device
 the script exits 1 in phase 1.
 
@@ -385,6 +419,11 @@ runs phase 1, the parity cases of kernels A, B, D and E, phases 24-27,
 phase 23 (train_large, for train_fused_large's comparison) and phase 28
 alone, and prints no `kernels` line.
 
+    python3 chip_smoke.py --monitor-only
+
+runs phase 1, the parity cases of kernels A, B, D and E and phases 29 and
+30 alone, and prints no `kernels` line.
+
     python3 chip_smoke.py --fcm-only
 
 runs phase 1, the parity cases of kernels H, I and J and phases 12 and 13
@@ -393,6 +432,7 @@ four), and prints no `kernels` line.
 """
 
 import contextlib
+import csv
 import ctypes
 import functools
 import gc
@@ -3281,7 +3321,7 @@ def phase_checkpoint_dp(state):
 # phases 18 and 19: one process a card (torch.distributed, NCCL)
 # --------------------------------------------------------------------- #
 MP_TIMEOUT_S = {"train_mp_grads": 600, "train_mp": 900,
-                "train_fused_mp": 600}
+                "train_fused_mp": 600, "monitor_mp": 600}
 
 
 @contextlib.contextmanager
@@ -3535,7 +3575,8 @@ def mp_train_worker(out_dir):
 
 
 MP_WORKERS = {"train_mp_grads": mp_grads_worker, "train_mp": mp_train_worker,
-              "train_fused_mp": lambda out_dir: mp_fused_worker(out_dir)}
+              "train_fused_mp": lambda out_dir: mp_fused_worker(out_dir),
+              "monitor_mp": lambda out_dir: mp_monitor_worker(out_dir)}
 
 
 def phase_train_mp(state):
@@ -4498,6 +4539,648 @@ def phase_resilience(state):
 
 
 # --------------------------------------------------------------------- #
+# phases 29 and 30: the runtime monitor on bench_gpt2's modular and fused
+# steps, and its fleet layer at one process a card
+# --------------------------------------------------------------------- #
+MONITOR_WINDOW = 10  # the monitor's write_interval (a flush a window)
+MONITOR_TRACE_STEPS = 128  # every step of a phase's monitored run
+MONITOR_CAPTURE_STEPS = 2  # K, the steps a capture traces
+MONITOR_RATE_TOL = 0.05  # records' tokens/s against the phase's clock
+MONITOR_MP_STEPS = 20  # monitor_mp: two windows
+MONITOR_CALLS = ("mark_step_start", "add_phase", "end_step")
+
+
+def monitor_config(ds_config, out_dir, **extra):
+    """ds_config with the monitor on (every writer, the trace, a flush
+    every MONITOR_WINDOW steps, heartbeats, the capture armed on demand)
+    and the tensorboard block that feeds the monitor's tensorboard
+    writer."""
+    block = dict({"enabled": True, "output_path": out_dir,
+                  "writers": ["jsonl", "csv", "tensorboard"], "trace": True,
+                  "trace_steps": MONITOR_TRACE_STEPS,
+                  "write_interval": MONITOR_WINDOW, "heartbeat": True,
+                  "capture": {"enabled": True,
+                              "steps": MONITOR_CAPTURE_STEPS,
+                              "max_captures": 1, "cooldown_steps": 0}},
+                 **extra)
+    return dict(ds_config, monitor=block, tensorboard={
+        "enabled": True, "write_interval": MONITOR_WINDOW,
+        "output_path": os.path.join(out_dir, "tensorboard")})
+
+
+class MonitorProbe:
+    """Wraps a monitor's per-step calls (mark_step_start, add_phase,
+    end_step): each call that reads nothing by design (not a flush, no
+    capture live) runs under torch.cuda.set_sync_debug_mode("error"), so
+    that a synchronising call in it raises; every call's host time is
+    kept, and the flushes' apart, with the batched loss read's share of
+    them; and the writer thread's seconds inside each writer's write and
+    flush."""
+
+    def __init__(self, engine):
+        from deepspeed_tpu_torch.monitor import monitor as monitor_mod
+        self.mon = mon = engine.monitor
+        self.step_us, self.flush_ms = [], []
+        # a flush's parts: the boundary reads (the first device read, which
+        # waits for the card to drain the queued steps), the batched loss
+        # read, the hand-off (heartbeat, trace mark, writer thread)
+        self.parts_ms = {"boundary_reads": [], "loss_fetch": [],
+                         "hand_off": []}
+        self.checked = 0
+        self._call_us = 0.0
+        stream = mon.stream
+        originals = (monitor_mod._batched_loss_fetch, stream._boundary_fn,
+                     stream._sink)
+
+        def timed(part, fn):
+            def run(*args):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args)
+                finally:
+                    self.parts_ms[part].append(
+                        (time.perf_counter() - t0) * 1e3)
+            return run
+
+        monitor_mod._batched_loss_fetch = timed("loss_fetch", originals[0])
+        stream._boundary_fn = timed("boundary_reads", originals[1])
+        stream._sink = timed("hand_off", originals[2])
+
+        def restore():
+            monitor_mod._batched_loss_fetch = originals[0]
+            stream._boundary_fn, stream._sink = originals[1:]
+
+        self._restore = restore
+        for name in MONITOR_CALLS:
+            setattr(mon, name, self._wrap(name, getattr(mon, name)))
+        self.writer_s = {}
+        for writer in mon._thread.writers:
+            self._time_writer(writer)
+
+    def _time_writer(self, writer):
+        name = type(writer).__name__
+        self.writer_s[name] = 0.0
+        for method in ("write", "flush"):
+            fn = getattr(writer, method)
+
+            def timed(*args, _fn=fn):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*args)
+                finally:
+                    self.writer_s[name] += time.perf_counter() - t0
+
+            setattr(writer, method, timed)
+
+    def _wrap(self, name, call):
+        mon = self.mon
+
+        def probed(*args, **kwargs):
+            flush = (name == "end_step"
+                     and len(mon.stream._pending) + 1 >= mon.stream.window)
+            quiet = not flush and not (mon.capture and mon.capture.armed)
+            if quiet:
+                torch.cuda.set_sync_debug_mode("error")
+            t0 = time.perf_counter()
+            try:
+                out = call(*args, **kwargs)
+            finally:
+                us = (time.perf_counter() - t0) * 1e6
+                if quiet:
+                    torch.cuda.set_sync_debug_mode("default")
+            if quiet:
+                self.checked += 1
+                self._call_us += us
+            if flush:
+                self.flush_ms.append(us / 1e3)
+            if name == "end_step":
+                if quiet:
+                    self.step_us.append(self._call_us)
+                self._call_us = 0.0
+            return out
+        return probed
+
+    def close(self):
+        self._restore()
+        for name in MONITOR_CALLS:
+            vars(self.mon).pop(name, None)
+
+
+def read_jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def trace_kernel_launches(path):
+    """Kernels A, B, D and E's launches in a Chrome trace that
+    torch.profiler exported (its device kernels, by name)."""
+    with open(path) as f:
+        payload = json.load(f)
+    return traced_launches([(ev["name"], 0.0)
+                            for ev in payload["traceEvents"]
+                            if ev.get("cat") == "kernel"])
+
+
+def check_monitor_files(engine, what, fused, returned, host_times,
+                        boundary_peaks):
+    """The monitored run's files after close(): a step record a step,
+    1..steps, each loss the engine's returned loss for that step after
+    the monitor's 6-place rounding, dispatches_per_step 1 (fused) or 2
+    (modular, gas 1), the card's allocator as the memory source with the
+    peak read at each flush boundary, tokens/s within MONITOR_RATE_TOL of
+    the host clock over the same steps; the CSV's columns and a row a
+    step record; the trace valid, with its phases a step; a measured-only
+    reconcile record a window; the three writers, and in the stream and
+    the registry exactly the expected degradations (monitor-predictions,
+    and the tensorboard fallback where it ran), so that a writer that
+    failed fails the check; a heartbeat.
+    Returns the summary's part."""
+    from deepspeed_tpu_torch.monitor import (STEP_RECORD_FIELDS,
+                                             read_heartbeats,
+                                             validate_trace_events)
+    from deepspeed_tpu_torch.runtime.resilience.degradation import \
+        get_registry
+    mon = engine.monitor
+    steps = engine.global_steps
+    check(len(returned) == steps,
+          f"{what}: {len(returned)} returned losses, {steps} steps")
+    recs = read_jsonl(mon.jsonl_path)
+    by_kind = {}
+    for rec in recs:
+        by_kind.setdefault(rec["kind"], []).append(rec)
+    step_recs = by_kind.get("step", [])
+    check([r["step"] for r in step_recs] == list(range(1, steps + 1)),
+          f"{what}: step records {[r['step'] for r in step_recs]}")
+    want = [round(v, 6) for v in returned]
+    got = [r["loss"] for r in step_recs]
+    check(got == want, f"{what}: record losses {got[:4]}... against the "
+          f"returned {want[:4]}...")
+    dispatches = 1 if fused else 2
+    check(all(r["dispatches_per_step"] == dispatches for r in step_recs)
+          and all(r["mem_source"] == "device" for r in step_recs),
+          f"{what}: dispatches / memory source "
+          f"{[(r['dispatches_per_step'], r['mem_source']) for r in step_recs][:3]}")
+    for step, peak in boundary_peaks.items():
+        rec = step_recs[step - 1]
+        check(rec["mem_peak_bytes"] == peak,
+              f"{what}: step {step}'s mem_peak_bytes {rec['mem_peak_bytes']}"
+              f", torch.cuda.max_memory_allocated at its flush {peak}")
+    # tokens/s: the records' against the host clock's over the same steps:
+    # a turn's first step spans the other engine's turn (left out), and
+    # the host clock starts and stops at returns that no flush delays
+    rates = []
+    for first, last in host_times["turns"]:
+        ts = host_times["returns"]
+        while first % MONITOR_WINDOW == 0:
+            first += 1
+        while last % MONITOR_WINDOW == 0:
+            last -= 1
+        recs_run = step_recs[first:last]  # steps first + 1 .. last
+        tokens = sum(r["tokens_per_sec"] * r["wall_time_s"]
+                     for r in recs_run)
+        rec_rate = tokens / sum(r["wall_time_s"] for r in recs_run)
+        host_rate = tokens / (ts[last] - ts[first])
+        rates.append((rec_rate, host_rate))
+    worst = max(abs(a / b - 1) for a, b in rates)
+    check(worst <= MONITOR_RATE_TOL,
+          f"{what}: records' tokens/s against the host clock {rates}")
+    with open(mon.csv_path, newline="") as f:
+        header = next(csv.reader(f))
+    check(tuple(header) == STEP_RECORD_FIELDS, f"{what}: csv header {header}")
+    with open(mon.trace_path) as f:
+        payload = json.load(f)
+    problems = validate_trace_events(payload)
+    check(not problems, f"{what}: trace problems {problems[:3]}")
+    phases = {}
+    for ev in payload["traceEvents"]:
+        if ev["ph"] == "X":
+            phases.setdefault(ev["args"]["step"], []).append(ev["name"])
+    expect = (["fused_step(gas=4)"] if fused else
+              ["grad_dispatch", "accumulate_dispatch", "apply_dispatch"])
+    traced_steps = min(steps, MONITOR_TRACE_STEPS)
+    check(sorted(phases) == list(range(1, traced_steps + 1))
+          and all(v == expect for v in phases.values()),
+          f"{what}: trace phases {dict(list(phases.items())[:3])}")
+    recon = by_kind.get("reconcile", [])
+    windows = -(-steps // MONITOR_WINDOW)
+    check(len(recon) == windows
+          and all(r["predicted_step_time_lb_s"] is None and not r["flags"]
+                  for r in recon),
+          f"{what}: {len(recon)} reconcile records for {windows} windows")
+    with open(mon.csv_path, newline="") as f:
+        rows = sum(1 for _ in csv.reader(f)) - 1
+    check(rows == len(step_recs),
+          f"{what}: {rows} csv rows, {len(step_recs)} step records")
+    # a writer's failure is a degradation (the writer thread and the
+    # tensorboard writer swallow it so that telemetry never raises): the
+    # stream and the registry hold the expected ones and no other
+    writers = [type(w).__name__ for w in mon._thread.writers]
+    check(writers == ["JsonlWriter", "CsvWriter", "TensorBoardWriter"],
+          f"{what}: writers {writers}")
+    writer = engine._summary_writer
+    backend = f"{type(writer).__module__}.{type(writer).__name__}"
+    expected = [("monitor-predictions", "static-audit", "measured-only")]
+    if type(writer).__name__ == "ScalarJsonlWriter":
+        expected.insert(0, ("tensorboard", "torch", "jsonl"))
+    degraded = [(r["subsystem"], r["from_tier"], r["to_tier"])
+                for r in by_kind.get("degradation", [])]
+    registry = [(e["subsystem"], e["from_tier"], e["to_tier"])
+                for e in get_registry().events()]
+    check(degraded == registry == expected,
+          f"{what}: degradation records {degraded}, registry {registry}, "
+          f"expected {expected} (tensorboard backend {backend})")
+    beats = read_heartbeats(os.path.join(mon.out_dir, "heartbeat"))
+    check([(b["process_index"], b["status"], b["step"]) for b in beats]
+          == [(0, "stopped", steps)], f"{what}: heartbeats {beats}")
+    return {"records": {k: len(v) for k, v in by_kind.items()},
+            "tensorboard_backend": backend, "degradations": degraded,
+            "record_vs_host_tokens_per_s": rates,
+            "reconcile_last": recon[-1],
+            "step_record_last": step_recs[-1]}
+
+
+def monitored_rounds(steps, warmup, iters, per_call):
+    """Each engine's warm-up, then `iters` timed calls each in turns
+    (plain, monitored, monitored, plain; each turn iters / 2 calls),
+    closed by the last loss and a parameter read as bench.py does.
+    `steps[name]` runs one step (a train_batch window on the fused path)
+    and returns its loss.  Returns (tokens/s by engine, the launches each
+    engine's turns counted, the monitored engine's turns as (first step,
+    last step) and the host time at each of its returns by step, and the
+    allocator's peak after each of its flushing steps), after the
+    launches each engine's warm-up counted."""
+    counts = {name: None for name in steps}
+    warm = {}
+    rates = {name: [] for name in steps}
+    returns, turns, peaks = {}, [], {}
+    mon = steps["monitored"].engine
+    for name, step in steps.items():
+        def warm_up(name=name, step=step):
+            for _ in range(warmup):
+                step()
+                if name == "monitored":
+                    returns[mon.global_steps] = time.perf_counter()
+        _, warm[name] = counts_added(warm_up)
+    torch.cuda.synchronize()
+    half = iters // 2
+    for name in ("plain", "monitored", "monitored", "plain"):
+        step = steps[name]
+        torch.cuda.synchronize()
+        first = mon.global_steps + 1
+        t0 = time.perf_counter()
+        for _ in range(half):
+            loss, added = counts_added(step)
+            counts[name] = add_counts(counts[name] or
+                                      {k: 0 for k in added}, added)
+            if name == "monitored":
+                returns[mon.global_steps] = time.perf_counter()
+                if mon.global_steps % MONITOR_WINDOW == 0:
+                    peaks[mon.global_steps] = \
+                        torch.cuda.max_memory_allocated()
+        float(loss.detach())
+        step.engine._flats[0][0].item()
+        rates[name].append(per_call * half / (time.perf_counter() - t0))
+        if name == "monitored":
+            turns.append((first, mon.global_steps))
+    return warm, rates, counts, {"turns": turns, "returns": returns}, peaks
+
+
+class Stepper:
+    """One step of `engine` (train_batch on the fused path, else forward /
+    backward / step of the batch), keeping every returned loss."""
+
+    def __init__(self, engine, fused, batch):
+        self.engine, self.fused = engine, fused
+        self.it = repeat_batch(batch) if fused else None
+        self.batch = batch
+        self.returned = []
+
+    def __call__(self):
+        eng = self.engine
+        if self.fused:
+            loss = eng.train_batch(self.it)
+        else:
+            loss = eng.forward(self.batch)
+            eng.backward(loss)
+            eng.step()
+        self.returned.append(loss.detach())
+        return loss
+
+
+def capture_on_demand(engine, kind, step_fn):
+    """Arm the monitor's capture after this step and run K more: the
+    Chrome trace's A/B/D/E launches, the launches the counters counted in
+    the K steps, the trace's bytes, the arm's and the K steps' seconds
+    (the last step's includes the stop and the export)."""
+    cap = engine.monitor.capture
+    t0 = time.perf_counter()
+    check(cap.arm("chip_smoke", engine.global_steps),
+          f"{kind}: the capture did not arm ({cap.failures} failures)")
+    arm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, added = counts_added(lambda: [step_fn()
+                                     for _ in range(MONITOR_CAPTURE_STEPS)])
+    steps_s = time.perf_counter() - t0
+    entry = cap.captures[-1]
+    check(not cap.armed and cap.failures == 0
+          and entry["steps"] == MONITOR_CAPTURE_STEPS
+          and os.path.exists(entry["path"]),
+          f"{kind}: capture {entry}, failures {cap.failures}")
+    return {"path": entry["path"],
+            "traced": trace_kernel_launches(entry["path"]),
+            "counted": added,
+            "bytes": os.path.getsize(entry["path"]), "arm_s": arm_s,
+            "captured_steps_s": steps_s}
+
+
+def fused_issue_split(stepper):
+    """HOST_ISSUE_STEPS windows of the monitored fused engine, each after a
+    synchronisation: train_batch's host ms, its fused_step span (read back
+    from the monitor's trace buffer), and inside the span the wrapper's
+    parts (the batch's stacking and cut, its copy into the static
+    buffers, the replay call)."""
+    fs = stepper.engine._fused
+    parts = {"shares": [], "load_inputs": [], "replay": []}
+    owners = {"shares": fs, "load_inputs": fs, "replay": fs.graph}
+    if fs.graph is None:  # an eager window (the CPU)
+        del parts["replay"], owners["replay"]
+    names = {"shares": "_shares", "load_inputs": "_load_inputs",
+             "replay": "replay"}
+
+    def timed(part, fn):
+        def run(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            parts[part].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    for part, owner in owners.items():
+        setattr(owner, names[part], timed(part, getattr(owner, names[part])))
+    issue, spans = [], []
+    try:
+        for _ in range(HOST_ISSUE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stepper()
+            issue.append((time.perf_counter() - t0) * 1e3)
+            span = stepper.engine.monitor.trace.events[-1]
+            check(span["name"] == "fused_step(gas=4)",
+                  f"the last trace event {span}")
+            spans.append(span["dur"] / 1e3)
+        torch.cuda.synchronize()
+    finally:
+        for part, owner in owners.items():
+            del owner.__dict__[names[part]]
+    return {"train_batch_host_ms": issue, "fused_step_span_ms": spans,
+            "span_share": float(np.median(spans) / np.median(issue)),
+            "rest_of_train_batch_ms": [a - b for a, b in zip(issue, spans)],
+            "span_parts_ms": parts}
+
+
+def phase_monitor(state):
+    """bench_gpt2 (3 + 30 steps) and bench_gpt2_gas4_fused (2 + 8
+    windows), each path as two engines from the same weights, without and
+    with the monitor (monitor_config), timed in turns.  Checks the
+    monitored run's files (check_monitor_files); that kernels A, B, D and
+    E run as often with the monitor as without it (each engine's counters
+    read over its warm-up and its turns: on the fused path the warm-up is
+    the eager window and the capture, a replay moves no counter, and a
+    profiled replay's trace counts its launches), and that the counters
+    read after the capture hold nothing else; that no per-step
+    monitor call synchronises (MonitorProbe); and a capture armed on
+    purpose: its Chrome trace's A/B/D/E launches equal the counters of
+    the K steps it traced (modular) or K traced replays' (fused).
+    Reports the monitored / unmonitored tokens/s, the monitor's host µs a
+    step and ms a flush (with the batched loss read's share: it waits for
+    the card to reach the window's last loss), and on the fused path the
+    fused_step span (the batch copy and the replay) against train_batch's
+    whole host time after a synchronisation (fused_issue_split)."""
+    from deepspeed_tpu_torch.runtime.resilience.degradation import \
+        get_registry
+    cfg = gpt2_124m_train()
+    ids = bench_ids(cfg, TRAIN_BATCH)
+    summary, path_counts, replay_traced = {}, None, None
+    with mp_dir() as out_dir:
+        for kind, ds_config, warmup, iters in (
+                ("modular", BENCH_GPT2_CONFIG, TRAIN_WARMUP, TRAIN_ITERS),
+                ("fused", fused_config(BENCH_GAS4_CONFIG), GAS4_WARMUP,
+                 GAS4_ITERS)):
+            gc_cuda()
+            fused = kind == "fused"
+            gas = 4 if fused else 1
+            window = {k: gas * v for k, v in step_counts(cfg).items()}
+            # each stream carries its own tensorboard and measured-only
+            # records (the registry reports a degradation once a process)
+            get_registry().clear()
+            steps = {"plain": Stepper(train_engine(cfg, state, ds_config),
+                                      fused, ids),
+                     "monitored": Stepper(train_engine(
+                         cfg, state, monitor_config(
+                             ds_config, os.path.join(out_dir, kind))),
+                         fused, ids)}
+            check(all((st.engine._fused is not None) == fused
+                      for st in steps.values()),
+                  f"{kind}: fused_step "
+                  f"{[st.engine.fused_step_reason for st in steps.values()]}")
+            mon_step = steps["monitored"]
+            mon_eng = mon_step.engine
+            probe = MonitorProbe(mon_eng)
+            reset_launch_counts()
+            warm, rates, counts, host_times, peaks = monitored_rounds(
+                steps, warmup, iters, gas * TRAIN_BATCH * TRAIN_SEQ)
+            row = {"tokens_per_s_plain": float(np.median(rates["plain"])),
+                   "tokens_per_s_monitored": float(np.median(
+                       rates["monitored"])),
+                   "tokens_per_s_rounds": rates}
+            row["monitored_over_plain"] = (row["tokens_per_s_monitored"]
+                                           / row["tokens_per_s_plain"])
+            if fused:
+                # the counters saw each engine's eager window and capture
+                # (its warm-up); a replay moves none: a profiled one's
+                # trace counts its launches
+                check(all(st.engine._fused.launches_captured == window
+                          for st in steps.values())
+                      and all(w == {k: 2 * v for k, v in window.items()}
+                              for w in warm.values())
+                      and all(not any(c.values()) for c in counts.values()),
+                      f"fused: captured "
+                      f"{[st.engine._fused.launches_captured for st in steps.values()]}"
+                      f", the warm-ups counted {warm}, the turns {counts}, "
+                      f"a window {window}")
+                traced = {name: traced_launches(_profile_once(st)[3])
+                          for name, st in steps.items()}
+                check(traced["plain"] == traced["monitored"]
+                      == traced_part(window),
+                      f"fused replays' traces {traced}, a window "
+                      f"{traced_part(window)}")
+                replay_traced = traced["monitored"]
+                row["fused_issue_split"] = fused_issue_split(mon_step)
+                # the same windows' host issue without the monitor
+                row["fused_issue_split"]["plain_train_batch_host_ms"] = \
+                    host_issue_ms(steps["plain"])
+            else:
+                check(warm["plain"] == warm["monitored"]
+                      == {k: warmup * v for k, v in window.items()}
+                      and counts["plain"] == counts["monitored"]
+                      == {k: iters * v for k, v in window.items()},
+                      f"modular: the warm-ups counted {warm}, the turns "
+                      f"{counts}, a step {window}")
+            counted = add_counts(warm["monitored"], counts["monitored"])
+            path_counts = add_counts(path_counts or {k: 0 for k in counted},
+                                     counted)
+            capture = capture_on_demand(mon_eng, kind, mon_step)
+            k_steps = traced_part({k: MONITOR_CAPTURE_STEPS * v
+                                   for k, v in window.items()})
+            if fused:
+                check(capture["traced"] == k_steps
+                      and not any(capture["counted"].values()),
+                      f"fused capture: traced {capture['traced']}, K "
+                      f"replays {k_steps}, counters {capture['counted']}")
+            else:
+                check(capture["traced"] == traced_part(capture["counted"])
+                      == k_steps,
+                      f"modular capture: traced {capture['traced']}, "
+                      f"counted {capture['counted']}, K steps {k_steps}")
+            path_counts = add_counts(path_counts, capture["counted"])
+            # every launch since the reset is one of those measured above
+            total = add_counts(*warm.values(), *counts.values(),
+                               capture["counted"])
+            check(launch_counts() == total,
+                  f"{kind}: {launch_counts()} launches since the reset, "
+                  f"{total} in the warm-ups, turns and capture")
+            probe.close()
+            mon_eng.monitor.close()
+            check(probe.checked > 0, f"{kind}: no per-step call checked")
+            losses = [float(v) for v in mon_step.returned]
+            row.update(check_monitor_files(mon_eng, kind, fused, losses,
+                                           host_times, peaks))
+            row.update(
+                steps=mon_eng.global_steps,
+                monitor_host_us_per_step=float(np.median(probe.step_us)),
+                monitor_host_us_per_step_p90=float(
+                    np.percentile(probe.step_us, 90)),
+                calls_checked_sync_free=probe.checked,
+                # the writer thread's ms a step inside each writer (GIL time
+                # taken beside the issuing thread, on the modular loop)
+                writer_thread_ms_per_step={
+                    name: sec * 1e3 / mon_eng.global_steps
+                    for name, sec in probe.writer_s.items()},
+                flush_ms=probe.flush_ms, flush_parts_ms=probe.parts_ms,
+                # a flush's time but its two device reads' (their wait)
+                flush_host_ms=[
+                    f - b - l for f, b, l in zip(
+                        probe.flush_ms, probe.parts_ms["boundary_reads"],
+                        probe.parts_ms["loss_fetch"])],
+                capture={k: v for k, v in capture.items() if k != "path"},
+                trace_bytes=os.path.getsize(mon_eng.monitor.trace_path))
+            summary[kind] = row
+            del steps, mon_step, mon_eng, probe
+            gc_cuda()
+    return (path_counts, replay_traced), summary
+
+
+def mp_monitor_worker(out_dir):
+    """monitor_mp in one process: bench_gpt2's step over the process
+    group with monitor.fleet and heartbeats, MONITOR_MP_STEPS steps; the
+    steps at which the window exchange ran (the gather wrapped)."""
+    cfg = gpt2_124m_train()
+    state = init_state(cfg)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    ds_config = dict(dp_config(TRAIN_BATCH, 2, world), monitor={
+        "enabled": True, "output_path": os.path.join(out_dir, "monitor"),
+        "writers": ["jsonl"], "write_interval": MONITOR_WINDOW,
+        "fleet": True, "heartbeat": True})
+    engine = train_engine(cfg, state, ds_config)
+    mon = engine.monitor
+    check(mon is not None and mon.fleet is not None, "no fleet monitor")
+    exchanged = []
+    gather = mon.fleet._gather
+
+    def counted_gather(vec):
+        if vec.dtype == np.float64:
+            exchanged.append(engine.global_steps)
+        return gather(vec) if gather is not None else vec[None]
+
+    mon.fleet._gather = counted_gather
+    ids = bench_ids(cfg, TRAIN_BATCH * world)
+    rows = ids[rank * TRAIN_BATCH:(rank + 1) * TRAIN_BATCH]
+    reset_launch_counts()
+    for _ in range(MONITOR_MP_STEPS):
+        loss = engine.forward(rows)
+        engine.backward(loss)
+        engine.step()
+    float(loss.detach())
+    counts = launch_counts()
+    exchanges = mon.fleet.exchanges
+    mon.close()
+    return {"rank": rank, "world": world, "exchanged_at": exchanged,
+            "exchanges": exchanges, "launches": counts,
+            "gloo_group": gather is not None,
+            "jsonl": mon.jsonl_path, "out_dir": mon.out_dir}
+
+
+def phase_monitor_mp(state):
+    """launch_mp's processes, one a visible card, with monitor.fleet and
+    heartbeats (write_interval MONITOR_WINDOW, MONITOR_MP_STEPS steps):
+    every process exchanged once a full window, at its boundary step (over
+    the engine's gloo group above one process, the local stack at one);
+    rank 0's stream holds a fleet_host record a process and a fleet record
+    a window (at W = 1 the degenerate one-host summary); every process
+    beat its heartbeat."""
+    from deepspeed_tpu_torch.monitor import (read_heartbeats,
+                                             straggler_verdict)
+    del state  # each worker makes the same weights from the seed
+    torch.cuda.empty_cache()
+    windows = MONITOR_MP_STEPS // MONITOR_WINDOW
+    with mp_dir() as out_dir:
+        results = launch_mp("monitor_mp", out_dir)
+        world = len(results)
+        recs = read_jsonl(results[0]["jsonl"])
+        beats = read_heartbeats(os.path.join(results[0]["out_dir"],
+                                             "heartbeat"))
+    # the exchange runs in the boundary step's end_step, after its update
+    boundaries = [MONITOR_WINDOW * (w + 1) for w in range(windows)]
+    for res in results:
+        check(res["exchanges"] == windows
+              and res["exchanged_at"] == boundaries
+              and res["gloo_group"] == (world > 1),
+              f"rank {res['rank']}: {res['exchanges']} exchanges at steps "
+              f"{res['exchanged_at']} (boundaries after {boundaries}), "
+              f"gloo {res['gloo_group']}")
+    kinds = [r["kind"] for r in recs]
+    fleet = [r for r in recs if r["kind"] == "fleet"]
+    check(kinds.count("fleet_host") == windows * world
+          and len(fleet) == windows
+          and all(f["hosts"] == world for f in fleet),
+          f"rank 0's records: {kinds}")
+    check([(b["process_index"], b["status"]) for b in beats]
+          == [(r, "stopped") for r in range(world)], f"heartbeats {beats}")
+    if world == 1:
+        per_host = fleet[-1]["per_host"]
+        check(fleet[-1]["step_time_min_s"] == fleet[-1]["step_time_max_s"]
+              and len(per_host["host"]) == 1 and fleet[-1]["loss_spread"]
+              == 0.0, f"W = 1 fleet record {fleet[-1]}")
+    counts = {name: sum(res["launches"][name] for res in results)
+              for name in results[0]["launches"]}
+    window = step_counts(gpt2_124m_train())
+    check(all(res["launches"] == {k: MONITOR_MP_STEPS * v
+                                  for k, v in window.items()}
+              for res in results),
+          f"launch counts {[res['launches'] for res in results]}")
+    return counts, {
+        "processes": world, "windows": windows,
+        "exchanges_by_rank": [res["exchanges"] for res in results],
+        "exchanged_at_step": results[0]["exchanged_at"],
+        "gloo_group": results[0]["gloo_group"],
+        "records": {k: kinds.count(k) for k in sorted(set(kinds))},
+        "fleet_last": fleet[-1],
+        "health": [r for r in recs if r["kind"] == "health"],
+        "heartbeats": [(b["process_index"], b["status"], b["step"])
+                       for b in beats]}
+
+
+# --------------------------------------------------------------------- #
 # phases 12 and 13: the low-bandwidth collective tier on W logical ranks
 # --------------------------------------------------------------------- #
 def fcm_inputs(shape, dtype, seed, scale=1.0):
@@ -5038,6 +5721,16 @@ def main():
         run_phase("train_fused_mp", phase_train_fused_mp, train_state)
         print(card, flush=True)
         return last_line()
+    if sys.argv[1:] == ["--monitor-only"]:
+        # kernels A, B, D, E and the runtime monitor's phases
+        for group in [g for g in PARITY_CASES if g not in DP_PARITY]:
+            del PARITY_CASES[group]
+        run_phase("parity", phase_parity)
+        train_state = init_state(gpt2_124m_train())
+        run_phase("monitor", phase_monitor, train_state)
+        run_phase("monitor_mp", phase_monitor_mp, train_state)
+        print(card, flush=True)
+        return last_line()
     if sys.argv[1:] == ["--fused-only"]:
         # kernels A, B, D, E and the phases of the fused step and the
         # resilience block (train_large for train_fused_large's comparison)
@@ -5098,9 +5791,12 @@ def main():
     replays_traced = {}
     for path, fn in (("train_fused", phase_train_fused),
                      ("train_fused_mp", phase_train_fused_mp),
-                     ("resilience", phase_resilience)):
+                     ("resilience", phase_resilience),
+                     ("monitor", phase_monitor)):
         path_counts[path], replays_traced[path] = run_phase(path, fn,
                                                             train_state)
+    path_counts["monitor_mp"] = run_phase("monitor_mp", phase_monitor_mp,
+                                          train_state)
     del train_state
 
     run_phase("train_sparse_grads", phase_train_sparse_grads)

@@ -93,15 +93,24 @@ What it keeps of the JAX engine:
   fused: in the window, drained at boundaries), and preemption: at each
   step boundary (agreed over the process group) an emergency save and
   `TrainingInterrupted`, with a grace timer's forced save.
+- The `monitor` and `tensorboard` blocks (the JAX engine's): one record an
+  optimizer step, the step-phase trace, measured-only reconciliation, the
+  fleet exchange over a gloo group, heartbeats and profiler captures
+  (deepspeed_tpu_torch/monitor/), and `_boundary_logging`'s line at
+  steps_per_print and scalars at the tensorboard write_interval.  The
+  per-step calls do host work only; every device read waits for a flush
+  boundary.
 
 What is not ported yet is refused by `refuse_unported` with the ROADMAP.md
 item that will port it: among others the sharded checkpoint layout (A.5),
-the monitor (A.6b), the chaos plane (A.13) and the lockstep signature
-that a resume re-verifies (A.14).
+the monitor's MoE routing records (A.10), the chaos plane (A.13) and the
+lockstep signature that a resume re-verifies (A.14).
 """
 
 import os
 import threading
+import time
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -155,6 +164,11 @@ def _refuse_mesh_axes(sizes, where):
 def _torch_distributed_world() -> int:
     world = mesh_mod.process_world()
     return 1 if world is None else world[0]
+
+
+def _process_rank() -> int:
+    world = mesh_mod.process_world()
+    return 0 if world is None else world[1]
 
 
 def _check_process_world(mesh: MeshContext) -> None:
@@ -242,15 +256,15 @@ def refuse_unported(config: DeepSpeedConfig, model, mesh: MeshContext) -> None:
     if config.resilience_config.enabled and \
             config.resilience_config.chaos.enabled:
         _refuse("resilience.chaos (the fault-injection plane)", "A.13")
-    flags = (("monitor", config.monitor_config.enabled, "A.6b, A.13"),
-             ("analysis", config.analysis_config.enabled, "A.14"),
+    if config.monitor_config.enabled and config.monitor_config.moe.enabled:
+        _refuse("monitor.moe (the MoE routing records)", "A.10")
+    flags = (("analysis", config.analysis_config.enabled, "A.14"),
              ("progressive_layer_drop", config.pld_enabled, "A.13"),
              ("curriculum_learning", config.curriculum_enabled, "A.13"),
              ("quantize_training", config.quantize_training_enabled, "A.13"),
              ("eigenvalue", config.eigenvalue_config.enabled, "A.13"),
              ("sparse_gradients", config.sparse_gradients_enabled, "A.13"),
-             ("flops_profiler", config.flops_profiler_config.enabled, "A.13"),
-             ("tensorboard", config.tensorboard_config.enabled, "A.13"))
+             ("flops_profiler", config.flops_profiler_config.enabled, "A.13"))
     for what, on, item in flags:
         if on:
             _refuse(f"the {what} block", item)
@@ -404,11 +418,31 @@ class DeepSpeedEngine:
         self._is_train_mode = True
         self._init_resilience()
         self._init_fused_step()
+        # the sentinel's host-read grad norm of the last step (modular),
+        # which the monitor's fleet vector carries
+        self._last_grad_norm_host = None
+        self._summary_writer = self._configure_tensorboard()
+        # the summary scalars (and the loss / lr reads they force) wait
+        # for this boundary, as the JAX engine's (see _boundary_logging)
+        self._tb_write_interval = (self.config.tensorboard_config.
+                                   write_interval or self.steps_per_print())
+        # the monitor: on process 0, or on every process when the fleet
+        # exchange or the heartbeats (each process's own) are on
+        self.monitor = None
+        self._monitor_seq = None
+        mc = self.config.monitor_config
+        if mc.enabled and (_process_rank() == 0 or mc.fleet or mc.heartbeat):
+            self.monitor = self._configure_monitor()
         log_dist(f"DeepSpeedEngine: zero_stage="
                  f"{self.zero_optimization_stage()} dtype={self.compute_dtype} "
                  f"mesh={self.mesh} dp_world={world} params={off} "
                  f"micro_batch={self.train_micro_batch_size_per_gpu()} "
                  f"gas={self.gradient_accumulation_steps()}", ranks=[0])
+        from .resilience.degradation import get_registry
+        degraded = get_registry().summary()
+        if degraded:
+            log_dist(f"DeepSpeedEngine: degraded tiers: {degraded}",
+                     ranks=[0])
 
     def _init_resilience(self):
         """The resilience block (the JAX engine's, engine.py:278-316): the
@@ -998,11 +1032,23 @@ class DeepSpeedEngine:
             self.timers(FORWARD_MICRO_TIMER).start()
         if self._is_train_mode:
             self.tput_timer.start()
+            if self.monitor is not None:
+                self.monitor.mark_step_start()
+        if self.monitor is not None:
+            self._monitor_note_batch(list(args) + list(kwargs.values()))
         args = [self._shard_batch(a) for a in args]
         kwargs = {k: self._shard_batch(v) for k, v in kwargs.items()}
+        trace_on = self.monitor is not None and self.monitor.trace_active
+        if trace_on:
+            t0 = time.perf_counter()
         loss = self._forward_ranks(
             [(tuple(a[i] for a in args), {k: v[i] for k, v in kwargs.items()})
              for i in range(len(self.local_ranks))])
+        if trace_on:
+            # the host's dispatch window of the forward; the card runs it
+            # behind (the JAX engine's span of its whole grad program)
+            self.monitor.add_phase("grad_dispatch", t0,
+                                   step=self.global_steps + 1)
         if self.wall_clock_breakdown():
             self.timers(FORWARD_MICRO_TIMER).stop()
         return loss
@@ -1051,7 +1097,13 @@ class DeepSpeedEngine:
             raise RuntimeError("backward() called before forward()")
         if self.wall_clock_breakdown():
             self.timers(BACKWARD_MICRO_TIMER).start()
+        trace_on = self.monitor is not None and self.monitor.trace_active
+        if trace_on:
+            t0 = time.perf_counter()
         self._accumulate(loss)
+        if trace_on:
+            self.monitor.add_phase("accumulate_dispatch", t0,
+                                   step=self.global_steps + 1)
         self.micro_steps += 1
         if self.wall_clock_breakdown():
             self.timers(BACKWARD_MICRO_TIMER).stop()
@@ -1195,14 +1247,24 @@ class DeepSpeedEngine:
                 # the last good checkpoint is loaded; this window's grads
                 # came from the bad trajectory and are dropped with it
                 self._last_overflow = None
+                if self.monitor is not None:
+                    # no record for the rewound step: the next record's
+                    # wall time stays one step's
+                    self.monitor.discard_step()
                 if self.wall_clock_breakdown():
                     self.timers(STEP_MICRO_TIMER).stop()
                 self._maybe_handle_preemption()
                 return
             sentinel_skip = verdict == "skip"
             healthy = not sentinel_skip
+        trace_on = self.monitor is not None and self.monitor.trace_active
+        if trace_on:
+            t0 = time.perf_counter()
         with self._emergency_lock:
             overflow = self._step_device(healthy, prepared)
+            if trace_on:
+                self.monitor.add_phase("apply_dispatch", t0,
+                                       step=self.global_steps + 1)
             self._last_overflow = overflow
             self.global_steps += 1
             # the dynamic scaler (fp16) reads the flag, once a step, to
@@ -1213,6 +1275,17 @@ class DeepSpeedEngine:
                                self.scaler_cfg.dynamic and not sentinel_skip
                                and bool(overflow), lr_kwargs)
         self.tput_timer.stop(global_step=True)
+        if self.monitor is not None:
+            # host work only: the loss stays a device tensor reference,
+            # read with the window's others at the monitor's flush
+            self.monitor.end_step(
+                self.global_steps,
+                loss=(self._last_loss.detach() if self._last_loss is not None
+                      else None),
+                tokens=self._monitor_tokens_per_step(),
+                counters=self._monitor_counters(),
+                grad_norm=self._last_grad_norm_host)
+        self._boundary_logging()
         if self.wall_clock_breakdown():
             self.timers(STEP_MICRO_TIMER).stop()
         self._maybe_handle_preemption()
@@ -1277,10 +1350,21 @@ class DeepSpeedEngine:
         if self.wall_clock_breakdown():
             self.timers(FUSED_STEP_TIMER).start()
         self.tput_timer.start()
+        if self.monitor is not None:
+            self.monitor.mark_step_start()
+            self._monitor_note_batch(batches[0])
         skip_policy = (self.sentinel is not None
                        and self.sentinel.policy == "skip_step")
+        trace_on = self.monitor is not None and self.monitor.trace_active
+        if trace_on:
+            t0 = time.perf_counter()
         with self._emergency_lock:
             out = self._fused(batches)
+            if trace_on:
+                # the host's window of the whole step: the batch copy and
+                # one graph replay (eager on the CPU)
+                self.monitor.add_phase(f"fused_step(gas={gas})", t0,
+                                       step=self.global_steps + 1)
             self.micro_steps += gas
             self.global_steps += 1
             self._last_loss = out[OUT_LOSS]
@@ -1304,6 +1388,16 @@ class DeepSpeedEngine:
                 self.sentinel.abort(self.global_steps,
                                     float(self._last_loss))
         self.tput_timer.stop(global_step=True)
+        if self.monitor is not None:
+            # no grad norm: the fused path reads none on the host (its
+            # sentinel is loss-only, in the window), so the fleet's
+            # grad-norm divergence lane is loss-only here, as in JAX.
+            # `out` is a tensor of this window's own (a replay returns a
+            # clone of the graph's output), safe to hold to the flush
+            self.monitor.end_step(self.global_steps, loss=out[OUT_LOSS],
+                                  tokens=self._monitor_tokens_per_step(),
+                                  counters=self._monitor_counters())
+        self._boundary_logging()
         if self.wall_clock_breakdown():
             self.timers(FUSED_STEP_TIMER).stop()
         self._maybe_handle_preemption()
@@ -1340,6 +1434,160 @@ class DeepSpeedEngine:
                 s.abort(step, loss_val)
 
     # ------------------------------------------------------------------ #
+    # logging, tensorboard and the monitor (reference: engine.py:675-710,
+    # :1676-1830, :1911-1923)
+    # ------------------------------------------------------------------ #
+    def _configure_tensorboard(self):
+        """The summary writer of the `tensorboard` block:
+        torch.utils.tensorboard (which needs the `tensorboard` package),
+        then tensorboardX, then the monitor's JSONL scalar writer, each
+        fallback loud, once, and recorded in the degradation registry."""
+        tb = self.config.tensorboard_config
+        if not tb.enabled:
+            return None
+        path = os.path.join(tb.output_path or "./runs", tb.job_name or "")
+        errors = []
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+            return SummaryWriter(log_dir=path)
+        except Exception as e:  # noqa: BLE001 — absent or broken backend
+            errors.append(f"torch.utils.tensorboard: {e}")
+        try:
+            from tensorboardX import SummaryWriter
+            return SummaryWriter(log_dir=path)
+        except Exception as e:  # noqa: BLE001
+            errors.append(f"tensorboardX: {e}")
+        from .resilience.degradation import record as degrade
+        try:
+            from ..monitor.writers import ScalarJsonlWriter
+            writer = ScalarJsonlWriter(path)
+        except Exception as e:  # noqa: BLE001 — e.g. an unwritable path:
+            # the scalars are lost, the engine still starts
+            errors.append(f"jsonl fallback: {e}")
+            logger.warning("tensorboard unavailable: " + "; ".join(errors))
+            degrade("tensorboard", "torch", "disabled", "; ".join(errors))
+            return None
+        logger.warning(
+            "tensorboard requested but no SummaryWriter backend worked "
+            f"({'; '.join(errors)}) — scalars will be written as JSONL "
+            f"to {writer.path} instead")
+        degrade("tensorboard", "torch", "jsonl", "; ".join(errors))
+        return writer
+
+    def _boundary_logging(self):
+        """The loss read (`float(self._last_loss)`), `get_lr()` (which
+        reads the optimizer's step count) and the summary scalars each
+        wait for the card, so they run only at steps_per_print /
+        tensorboard.write_interval boundaries: the steps between leave the
+        launch queue deep."""
+        print_b = self.global_steps % self.steps_per_print() == 0
+        write_b = (self._summary_writer is not None and
+                   self.global_steps % self._tb_write_interval == 0)
+        if not (print_b or write_b):
+            return
+        loss_val = (float(self._last_loss.detach())
+                    if self._last_loss is not None else float("nan"))
+        lr = self.get_lr()[0]
+        if print_b:
+            extra = f", skipped={self.skipped_steps}"
+            if self.sentinel is not None:
+                c = self.sentinel.counters()
+                extra += (f", sentinel_anomalies={c['anomalies_seen']}, "
+                          f"sentinel_skips={c['steps_skipped']}, "
+                          f"sentinel_rewinds={c['rewinds']}")
+            log_dist(f"step={self.global_steps}, loss={loss_val:.6f}, "
+                     f"lr={lr:.3e}, loss_scale={self.loss_scale:g}{extra}",
+                     ranks=[0])
+        if write_b:
+            self._summary_writer.add_scalar(
+                "Train/Samples/train_loss", loss_val,
+                self.global_steps * self.train_batch_size())
+            self._summary_writer.add_scalar("Train/Samples/lr", lr,
+                                            self.global_steps)
+
+    def _configure_monitor(self):
+        """The TrainingMonitor.  The JAX engine takes its predictions from
+        the Program Auditor; the port has none yet (ROADMAP.md A.14), so
+        it takes the JAX engine's own branch for an engine the auditor
+        cannot model: reconciliation carries measured values only,
+        logged and recorded as a degradation.  Under several processes
+        with `monitor.fleet`, every process joins one gloo group made
+        here, in the same order, which the window exchange runs over."""
+        from ..monitor import TrainingMonitor, process_group_gather
+        from .resilience.degradation import get_registry
+        from .resilience.degradation import record as degrade
+        logger.warning(
+            "monitor: static predictions unavailable (the Program Auditor "
+            "is not ported, ROADMAP.md A.14) — reconciliation will carry "
+            "measured values only")
+        degrade("monitor-predictions", "static-audit", "measured-only",
+                "no Program Auditor in the port (ROADMAP.md A.14)")
+        procs = _torch_distributed_world()
+        gather_fn = None
+        if self.config.monitor_config.fleet and procs > 1:
+            import torch.distributed as dist
+            gather_fn = process_group_gather(dist.new_group(backend="gloo"))
+        return TrainingMonitor(
+            self.config.monitor_config,
+            steps_per_print=self.steps_per_print(),
+            predictions=None,
+            summary_writer=self._summary_writer,
+            boundary_fn=self._monitor_boundary_reads,
+            process_index=_process_rank(),
+            world_size=procs,
+            gather_fn=gather_fn,
+            # fleet health events land in the sentinel's event log beside
+            # its own loss / grad-norm anomalies
+            health_sink=(self.sentinel.record_health_event
+                         if self.sentinel is not None else None),
+            # the degradation registry's new events ride the stream at its
+            # boundaries (the JAX engine adds its chaos plane's fired
+            # faults, ROADMAP.md A.13)
+            extra_records_fn=get_registry().drain_records,
+            meta={"engine": type(self).__name__,
+                  "zero_stage": self.config.zero_optimization_stage,
+                  "dtype": str(self.compute_dtype).replace("torch.", ""),
+                  "gas": self.gradient_accumulation_steps(),
+                  "micro_batch": self.train_micro_batch_size_per_gpu(),
+                  "world_size": self.world_size,
+                  "fused_step": self._fused is not None},
+            device=self.device)
+
+    def _monitor_boundary_reads(self) -> Dict[str, Any]:
+        """The flush boundary's device reads: the lr (it reads the
+        optimizer's step count) and the loss scale, once a window."""
+        return {"lr": self.get_lr()[0],
+                "loss_scale": float(self.scaler_state.loss_scale)}
+
+    def _monitor_counters(self) -> Dict[str, Any]:
+        """Host integers only, free to copy every step."""
+        from ..monitor import record as mrec
+        counters = {mrec.F_SKIPPED_STEPS: self.skipped_steps,
+                    mrec.F_DISPATCHES_PER_STEP: self._dispatches_per_step}
+        if self.sentinel is not None:
+            c = self.sentinel.counters()
+            counters[mrec.F_SENTINEL_ANOMALIES] = c["anomalies_seen"]
+            counters[mrec.F_SENTINEL_SKIPS] = c["steps_skipped"]
+        if self._retry_policy is not None:
+            counters[mrec.F_IO_RETRIES] = self._retry_policy.counters[
+                "retries"]
+        return counters
+
+    def _monitor_note_batch(self, leaves) -> None:
+        """The sequence length from the batch's shapes (host metadata, no
+        data read), so that records carry tokens/s: the first leaf of two
+        or more dimensions, [B, S]."""
+        for leaf in leaves:
+            if getattr(leaf, "ndim", 0) >= 2:
+                self._monitor_seq = leaf.shape[1]
+                return
+
+    def _monitor_tokens_per_step(self) -> Optional[int]:
+        if self._monitor_seq is None:
+            return None
+        return self.train_batch_size() * self._monitor_seq
+
+    # ------------------------------------------------------------------ #
     # resilience: sentinel + preemption (reference: engine.py:1946-2135)
     # ------------------------------------------------------------------ #
     def _grad_norm(self, grads):
@@ -1372,6 +1620,7 @@ class DeepSpeedEngine:
                 # an fp16 overflow with a finite loss is the scaler's (it
                 # skips the step and shrinks the scale), not an anomaly
                 norm = None
+        self._last_grad_norm_host = norm
         step = self.global_steps + 1
         if not s.observe(step, loss, norm):
             return "ok"

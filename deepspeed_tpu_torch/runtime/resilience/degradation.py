@@ -12,9 +12,11 @@ Every ladder reports here: a structured :class:`DegradationEvent`
 (subsystem, from-tier, to-tier, reason) with a one-shot loud warning,
 deduplicated by (subsystem, from, to) with a repeat count.  In the port
 the engine's checkpoint save records atomic -> in_place under a process
-group, as the JAX engine does.  The JAX registry's `summary` and
-`drain_records` feed its monitor and init line, and come with the
-monitor (ROADMAP.md A.6b).
+group, as the JAX engine does, and the monitor records its own ladders
+(the tensorboard writer chain, the profiler capture, measured-only
+reconciliation).  The registry surfaces in two places: the monitor
+stream (``degradation`` records, `drain_records`) and the engine's init
+line (`summary`).
 
 Process-global by design: a degradation describes the *process*, not
 one engine object.
@@ -46,12 +48,13 @@ class DegradationRegistry:
         self._lock = threading.Lock()
         self._events: Dict[Tuple[str, str, str], DegradationEvent] = {}
         self._order: List[Tuple[str, str, str]] = []
+        self._undrained: List[Dict[str, Any]] = []
 
     def record(self, subsystem: str, from_tier: str, to_tier: str,
                reason: str = "") -> DegradationEvent:
         """Report one ladder step-down.  First report of a given
-        (subsystem, from, to) warns loudly; repeats only bump the
-        count."""
+        (subsystem, from, to) warns loudly and queues a monitor record;
+        repeats only bump the count."""
         key = (subsystem, from_tier, to_tier)
         with self._lock:
             ev = self._events.get(key)
@@ -62,6 +65,7 @@ class DegradationRegistry:
                                   str(reason))
             self._events[key] = ev
             self._order.append(key)
+            self._undrained.append(ev.as_dict())
         logger.warning(
             f"DEGRADED: {subsystem} fell back {from_tier} -> {to_tier}"
             + (f" — {reason}" if reason else ""))
@@ -71,10 +75,25 @@ class DegradationRegistry:
         with self._lock:
             return [self._events[k].as_dict() for k in self._order]
 
+    def summary(self) -> str:
+        """Compact one-line form for the engine init log, e.g.
+        ``checkpoint:atomic->in_place, tensorboard:torch->jsonl``."""
+        with self._lock:
+            return ", ".join(
+                f"{k[0]}:{k[1]}->{k[2]}" for k in self._order)
+
+    def drain_records(self) -> List[Dict[str, Any]]:
+        """New degradation events since the last drain, monitor-ready."""
+        from ...monitor import record as R
+        with self._lock:
+            out, self._undrained = self._undrained, []
+        return [{R.F_KIND: R.KIND_DEGRADATION, **e} for e in out]
+
     def clear(self) -> None:
         with self._lock:
             self._events.clear()
             self._order.clear()
+            self._undrained.clear()
 
 
 _REGISTRY = DegradationRegistry()

@@ -96,7 +96,7 @@ TINY = dict(vocab_size=128, n_positions=64, hidden_size=32, num_layers=2,
                             {"device": "cpu"}}}, "A.5"),
     ({"zero_optimization": {"stage": 2, "offload_optimizer":
                             {"device": "nvme"}}}, "A.7"),
-    ({"monitor": {"enabled": True}}, "A.6"),
+    ({"monitor": {"enabled": True, "moe": {"enabled": True}}}, "A.10"),
     ({"optimizer": {"type": "OneBitAdam", "params": {"lr": 1e-3}},
       "zero_optimization": {"stage": 2, "low_bandwidth": {"onebit": True}}},
      "A.8"),
@@ -107,7 +107,7 @@ TINY = dict(vocab_size=128, n_positions=64, hidden_size=32, num_layers=2,
     ({"sequence_parallel": {"size": 2}}, "A.9"),
     ({"mesh": {"model": 2}}, "A.9"),
     ({"resilience": {"enabled": True, "chaos": {"enabled": True}}}, "A.13"),
-    ({"monitor": {"enabled": True}}, "A.13"),
+    ({"flops_profiler": {"enabled": True}}, "A.13"),
     ({"analysis": {"mode": "warn"}}, "A.14"),
     ({"progressive_layer_drop": {"enabled": True}}, "A.13"),
     ({"curriculum_learning": {"enabled": True, "curriculum_type": "seqlen",

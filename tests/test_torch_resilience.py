@@ -444,11 +444,12 @@ def test_modular_sentinel_counters_match_the_jax_engine(
 
 def test_initialize_takes_resilience_and_refuses_monitor_and_chaos():
     """The resilience block at its defaults (io_retries 3) builds the
-    retry policy; the monitor is refused naming A.6b, resilience.chaos
-    naming A.13."""
+    retry policy; the monitor's MoE routing records are refused naming
+    A.10 (the monitor itself is ported), resilience.chaos naming A.13."""
     eng = _engine(_conf(ROWS, resilience={"enabled": True}), dropout=0.0)
     assert eng._retry_policy.retries == 3 and eng.sentinel is None
-    for block, item in (({"monitor": {"enabled": True}}, r"A\.6b"),
+    for block, item in (({"monitor": {"enabled": True,
+                                      "moe": {"enabled": True}}}, r"A\.10"),
                         ({"resilience": {"enabled": True, "chaos": {
                             "enabled": True}}}, r"A\.13")):
         with pytest.raises(NotImplementedError,
