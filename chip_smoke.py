@@ -384,13 +384,37 @@ and `tensorboard` blocks), after phase 27:
    gloo group the engine makes above one process; the local stack at
    one), rank 0's fleet_host and fleet records each window (at W = 1 the
    one-host summary), every process's heartbeat.
+31. zero3_grads: GPT-2 at full width and 2 layers at ZeRO-3 on 4 ranks of
+   one row each, dropout off, the `off` and `carried` plans: loss (2e-2)
+   and every grad (5e-2) against the port's CPU fp32 run; off and carried
+   bitwise equal; with dropout 0.1 carried bitwise off; launch counters a
+   step's (carried: a rematted step's, its backward recomputes each
+   group).
+32. train_zero3: bench.py::bench_gpt2_zero3_stream and _carried exactly
+   (4 ranks on the visible cards, global batch 8 x 1024, groups of 2
+   layers), timed as phase 8, in turns: tokens/s, MFU, the plan, host
+   issue ms and busy share, peak GiB, what rank 0 holds (beside ZeRO-2's
+   on the same mesh), the gathered bytes' high-water mark against the
+   plan's bound, a step's gathers and reduce-scatters.
+33. train_zero3_fcm: bench.py::bench_gpt2_zero3_stream_fcm's engines
+   exactly (the carried row with qwZ 8 / qgZ 8), the modular transports
+   then the fused ones, 3 + 10 steps each: both rates, fcm_speedup, the
+   trajectories bitwise equal.
+34. checkpoint_zero3: the carried row saved after 3 steps; a stage-3
+   resume at 4 ranks bitwise the uninterrupted run for 2 steps, a stage-2
+   load on one rank holding the saved masters and Adam state bitwise and
+   its next loss within 2e-2.
+35. train_zero3_fused: graphed vs eager at stage 3 on one card (gas 2,
+   dropout 0.1, off and carried), bitwise, a replay's launches traced.
 
 Then the `kernels` line (launches by path: bf16, int8, train, train_fp16,
 checkpoint, train_dp, checkpoint_dp, train_mp (every process's launches
 summed), train_fused, train_fused_mp, resilience, monitor, monitor_mp,
-train_sparse, train_longseq, train_medium, train_large,
-train_fused_large, fcm; and for the fused paths the traced launches of
-their profiled replays, which no counter sees) and, last, {"ok": true,
+zero3 paths (train_zero3, train_zero3_fcm, checkpoint_zero3,
+train_zero3_fused), train_sparse, train_longseq, train_medium,
+train_large, train_fused_large, fcm; and for the fused paths the traced
+launches of their profiled replays, which no counter sees) and, last,
+{"ok": true,
 "device": {...}}.  A capture that fails fails its
 phase, and the script exits 1 without a result.  Without a CUDA device
 the script exits 1 in phase 1.
@@ -412,6 +436,11 @@ line.
 runs phase 1, the parity cases of kernels A, B, D and E (the new widths and
 fp16 gamma included), phase 8 (train, for train_fp16's comparison) and
 phases 20-23 alone, and prints no `kernels` line.
+
+    python3 chip_smoke.py --zero3-only
+
+runs phase 1, the parity cases of kernels A, B, D and E and phases 31-35
+alone, and prints no `kernels` line.
 
     python3 chip_smoke.py --fused-only
 
@@ -2789,8 +2818,11 @@ def _profile_once(fn):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, wall = timed(fn)
+    # a record_function range on the card (the fused transports'
+    # "fcm_fused") is an annotation, not a kernel: left out of busy time
     kernels = sorted((e for e in prof.events()
-                      if e.device_type == DeviceType.CUDA),
+                      if e.device_type == DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)),
                      key=lambda e: e.time_range.start)
     ops = {}
     for e in kernels:
@@ -2822,7 +2854,8 @@ def layer_norm_in_step(kernels):
             "ln_casts_and_fills_beside_by_name": names}
 
 
-def timed_training(cfg, state, ds_config, warmup, iters):
+def timed_training(cfg, state, ds_config, warmup, iters, count_cfg=None,
+                   keep_losses=False):
     """Train on the fixed batch RandomState(0).randint(0, vocab,
     (micro batch x data-parallel world, n_positions)) as bench.py's
     _time_steps times it: warmup steps, then `iters` forward / backward /
@@ -2833,7 +2866,9 @@ def timed_training(cfg, state, ds_config, warmup, iters):
     issue a step after a synchronisation; then one step under
     torch.profiler.  Under a process world each process feeds its ranks'
     rows of the global batch, and the rates count the global batch over
-    every process's cards.  Returns the engine too."""
+    every process's cards.  `count_cfg`: the config whose step_counts a
+    rank's step launches (default cfg); `keep_losses`: the summary holds
+    every step's loss.  Returns the engine too."""
     micro, seq = ds_config["train_micro_batch_size_per_gpu"], cfg.n_positions
     cards = ([torch.cuda.current_device()] if dist.is_initialized()
              else range(torch.cuda.device_count()))
@@ -2873,7 +2908,8 @@ def timed_training(cfg, state, ds_config, warmup, iters):
     counts = launch_counts()
     n_steps = warmup + iters
     gas = ds_config.get("gradient_accumulation_steps", 1)
-    per_step = {k: gas * len(local) * v for k, v in step_counts(cfg).items()}
+    per_step = {k: gas * len(local) * v
+                for k, v in step_counts(count_cfg or cfg).items()}
     # the fused step's counters count its eager first window and its
     # capture's launch calls; its replays are counted from a trace below
     counted = min(n_steps, 2) if fused else n_steps
@@ -2928,6 +2964,7 @@ def timed_training(cfg, state, ds_config, warmup, iters):
         "device_busy_share": busy_ms / wall_ms,
         "top_device_ms_one_step": {name[:80]: ms for name, ms in top},
         **({"replay_launches_traced": traced} if fused else {}),
+        **({"losses": losses.tolist()} if keep_losses else {}),
         **layer_norm_in_step(kernels)}, engine
 
 
@@ -4031,7 +4068,7 @@ def run_windows(engine, batches, windows):
     return out, traced_launches(kernels)
 
 
-def graphed_vs_eager(cfg, state, ds_config, windows, what):
+def graphed_vs_eager(cfg, state, ds_config, windows, what, count_cfg=None):
     """The same windows from the same weights and generator seeds through
     the modular loop and through the fused step (the first window eager,
     then one capture and its replays): every window's loss, scale and
@@ -4058,7 +4095,7 @@ def graphed_vs_eager(cfg, state, ds_config, windows, what):
         check(fused == (engine._fused is not None),
               f"{what}: fused_step {engine.fused_step_reason}")
         window = {k: gas * len(engine.local_ranks) * v
-                  for k, v in step_counts(cfg).items()}
+                  for k, v in step_counts(count_cfg or cfg).items()}
         reset_launch_counts()
         trajectory, traced = run_windows(engine, batches, windows)
         run = {"trajectory": trajectory, "counts": launch_counts(),
@@ -5655,6 +5692,345 @@ def phase_fcm_timing():
 
 
 # the parity groups of the kernels a data-parallel train step runs
+
+# --------------------------------------------------------------------- #
+# phases 31-35: ZeRO-3, the streamed layer executor
+# --------------------------------------------------------------------- #
+ZERO3_WORLD, ZERO3_MICRO = 4, 2  # bench.py: global batch 8 over W = 4
+ZERO3_GRADS_LAYERS = 2  # zero3_grads' depth (the CPU fp32 reference's)
+ZERO3_CKPT_RESUMED = 2  # checkpoint_zero3: steps after the save
+ZERO3_LOW_BANDWIDTH = {"qwz_bits": 8, "qgz_bits": 8}  # bench.py:906-908
+# train_zero3_fcm's timed steps a transport: bench.py's 3 + 30 would take
+# ~40 s more of the script's time limit (the fused transports' host issue
+# is ~1.3 s a step); the trajectories are held bitwise over these 3 + 10
+ZERO3_FCM_ITERS = 10
+
+
+def zero3_per_layer(cfg):
+    """A layer's parameters (bench.py's per_layer: 7,087,872 at GPT-2
+    124M)."""
+    return (cfg.num_params(False) - 2 * cfg.hidden_size) // cfg.num_layers
+
+
+def zero3_config(cfg, carried, fcm=None, micro=ZERO3_MICRO):
+    """bench.py::_zero3_stream_run's engine config (bench.py:806-825) at
+    `micro` rows a rank on ZERO3_WORLD ranks: `zero3_stream` (carried
+    False: max_live 2 layers, no bucket, mode off), `_carried` (4 layers,
+    bucket 2, carried) and, with `fcm` a bool, `_fcm` (the carried knobs
+    with qwZ 8 / qgZ 8 and fused_collective_matmul = fcm)."""
+    per = zero3_per_layer(cfg)
+    zc = {"stage": 3, "stage3_param_persistence_threshold": 0,
+          "stage3_max_live_parameters": (4 if carried else 2) * per,
+          "stage3_prefetch_bucket_size": 2 * per if carried else 0,
+          "stage3_prefetch_mode": "carried" if carried else "off"}
+    if fcm is not None:
+        zc["low_bandwidth"] = dict(ZERO3_LOW_BANDWIDTH,
+                                   fused_collective_matmul=fcm)
+    return dict(BENCH_GPT2_CONFIG, train_micro_batch_size_per_gpu=micro,
+                zero_optimization=zc, mesh={"data": ZERO3_WORLD})
+
+
+def zero3_count_cfg(cfg, carried):
+    """The config whose step_counts a rank's stage-3 step launches: the
+    carried backward runs every layer's forward again (its two LayerNorms
+    and its attention), as activation checkpointing does."""
+    return replace(cfg, activation_checkpointing=True) if carried else cfg
+
+
+def zero3_whole_grads(engine):
+    """The grads of the mean loss by parameter, whole: the ranks' pieces
+    (each the sum over the ranks, reduce-scattered by the stream's
+    gathers) put together, the leaves every rank holds whole summed here,
+    all divided by W."""
+    layout, w = engine._layout, engine.world_size
+    grads = [g.float().cpu() for g in engine._flat_grads]
+    out = {}
+    for leaf in layout.leaves:
+        pieces = [g[leaf.offset:leaf.offset + leaf.numel].view(
+            leaf.piece_shape) for g in grads]
+        whole = (torch.stack(pieces).sum(0) if leaf.dim is None
+                 else torch.cat(pieces, dim=leaf.dim))
+        out[leaf.name] = whole / w
+    return out
+
+
+def zero3_step(engine, ids):
+    """One forward and backward; the loss, the grads whole, the launch
+    counts and the stream's gathers / reduce-scatters."""
+    stream = engine._zero3_stream
+    stream.counts = {k: 0 for k in stream.counts}
+    reset_launch_counts()
+    loss = engine.forward(ids)
+    engine.backward(loss)
+    torch.cuda.synchronize()
+    return (loss.item(), zero3_whole_grads(engine), launch_counts(),
+            dict(stream.counts))
+
+
+def phase_zero3_grads(state):
+    """GPT-2 at full width, ZERO3_GRADS_LAYERS layers, ZERO3_WORLD ranks of
+    one row each, dropout off: the loss and every grad at stage 3 in the
+    `off` and `carried` plans against the port's CPU fp32 run of the same
+    rows (loss 2e-2, grads max|d| / max|ref| 5e-2, as the other _grads
+    phases); off and carried bitwise equal on the card; then with dropout
+    0.1, carried bitwise off (the recompute redraws the masks); launch
+    counters a step's counts on every rank (carried: a rematted step's)."""
+    cfg = gpt2_124m_train(num_layers=ZERO3_GRADS_LAYERS, embd_dropout=0.0,
+                          attn_dropout=0.0, hidden_dropout=0.0)
+    state = {k: v for k, v in state.items()
+             if not k.startswith("h.") or int(k.split(".")[1])
+             < ZERO3_GRADS_LAYERS}
+    ids = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (ZERO3_WORLD, TRAIN_SEQ)))
+    t0 = time.perf_counter()
+    ref_model = GPT2Model(replace(cfg, bf16=False))
+    ref_model.load_state_dict(state)
+    ref_loss = ref_model.loss(ids)
+    ref_loss.backward()
+    ref_grads = {n: p.grad for n, p in ref_model.named_parameters()}
+    cpu_seconds = time.perf_counter() - t0
+    ref_loss = ref_loss.item()
+    del ref_model
+    out = {"cpu_fp32_loss": ref_loss, "cpu_reference_seconds": cpu_seconds,
+           "world": ZERO3_WORLD, "layers": ZERO3_GRADS_LAYERS,
+           "loss_rel_tol": LOSS_REL_TOL, "grad_rel_tol": GRAD_REL_TOL}
+    runs = {}
+    for carried in (False, True):
+        mode = "carried" if carried else "off"
+        gc_cuda()
+        engine = train_engine(cfg, state, zero3_config(cfg, carried, micro=1))
+        check(engine._zero3_stream.last_plan.mode == mode,
+              f"{mode}: plan {engine._zero3_stream.last_plan}")
+        loss, grads, counts, wire = zero3_step(engine, ids)
+        want = {k: ZERO3_WORLD * v for k, v in step_counts(
+            zero3_count_cfg(cfg, carried)).items()}
+        check(counts == want, f"{mode}: launch counts {counts}, expected "
+              f"{want}")
+        check_aligned(f"zero3 {mode} forward + backward")
+        loss_err = abs(loss - ref_loss) / abs(ref_loss)
+        check(loss_err <= LOSS_REL_TOL, f"{mode}: loss vs CPU fp32 "
+              f"{loss_err}")
+        errs = {n: rel_err(g, ref_grads[n]) for n, g in grads.items()}
+        worst = max(errs, key=errs.get)
+        check(errs[worst] <= GRAD_REL_TOL, f"{mode}: grad of {worst} vs CPU "
+              f"fp32 {errs[worst]}")
+        runs[mode] = (loss, grads)
+        out[mode] = {"loss": loss, "loss_rel_err": loss_err,
+                     "worst_param": worst, "worst_grad_rel_err": errs[worst],
+                     "median_grad_rel_err": float(np.median(list(
+                         errs.values()))),
+                     "launches_per_step": counts, "gathers_and_scatters": wire,
+                     "plan": engine._zero3_stream.last_plan.__dict__}
+        del engine
+    same = runs["off"][0] == runs["carried"][0] and all(
+        torch.equal(runs["off"][1][n], runs["carried"][1][n])
+        for n in runs["off"][1])
+    check(same, "off and carried differ on the card")
+    dropped = {}
+    cfg_drop = replace(cfg, embd_dropout=DROPOUT, attn_dropout=DROPOUT,
+                       hidden_dropout=DROPOUT)
+    for carried in (False, True):
+        gc_cuda()
+        engine = train_engine(cfg_drop, state,
+                              zero3_config(cfg, carried, micro=1))
+        loss, grads, _, _ = zero3_step(engine, ids)
+        dropped[carried] = (loss, grads, [g.get_state()
+                                          for g in engine._rngs])
+        del engine
+    same_drop = dropped[False][0] == dropped[True][0] and all(
+        torch.equal(dropped[False][1][n], dropped[True][1][n])
+        for n in dropped[False][1]) and all(
+        torch.equal(a, b) for a, b in zip(dropped[False][2],
+                                          dropped[True][2]))
+    check(same_drop, "dropout 0.1: carried differs from off")
+    out.update(off_carried_bitwise=True, dropout_carried_off_bitwise=True,
+               dropout=DROPOUT, dropout_loss=dropped[True][0])
+    return None, out
+
+
+def held_bytes_zero3(engine):
+    """What rank 0 holds at stage 3: its pieces of the fp32 parameters,
+    of the grad buffer and of the optimizer state."""
+    mib = lambda *ts: sum(t.numel() * t.element_size()  # noqa: E731
+                          for t in ts) / 2 ** 20
+    return {"params_mib": mib(engine._flat),
+            "grad_buffer_mib": mib(engine._flat_grad),
+            "optimizer_mib": mib(*engine.opt_state.values()),
+            "estimate_memory_bytes": engine.estimate_memory()}
+
+
+def zero3_wire_per_step(engine, ids):
+    """One more step's gathers and reduce-scatters (group operations over
+    every rank: the non-layer leaves' one, each layer group's, and the
+    backward's gathers again)."""
+    stream = engine._zero3_stream
+    stream.counts = {k: 0 for k in stream.counts}
+    loss = engine.forward(ids)
+    engine.backward(loss)
+    engine.step()
+    torch.cuda.synchronize()
+    return dict(stream.counts)
+
+
+def timed_zero3(cfg, state, carried, fcm=None, keep_losses=False,
+                iters=TRAIN_ITERS):
+    """One bench row timed as phase_train, with the stream's plan, the
+    gathered bytes' high-water mark against the plan's bound (the
+    compute-dtype width), and a step's gathers and reduce-scatters."""
+    ds_config = zero3_config(cfg, carried, fcm)
+    counts, summary, engine = timed_training(
+        cfg, state, ds_config, TRAIN_WARMUP, iters,
+        count_cfg=zero3_count_cfg(cfg, carried), keep_losses=keep_losses)
+    stream = engine._zero3_stream
+    plan = stream.last_plan
+    check(plan.layers_per_step == 2 and plan.mode == (
+        "carried" if carried else "off"), f"plan {plan}")
+    check(stream.fcm == bool(fcm), f"fused_collective_matmul: {stream.fcm}")
+    bound = plan.live_parameters * 2  # bf16 bytes a rank
+    check(0 < stream.peak_live_bytes <= bound,
+          f"gathered high-water mark {stream.peak_live_bytes} B a rank, "
+          f"the plan's bound {bound} B")
+    ids = bench_ids(cfg, ZERO3_MICRO * ZERO3_WORLD)
+    summary.update(
+        plan=plan.__dict__, live_parameters=plan.live_parameters,
+        gathered_peak_bytes_a_rank=stream.peak_live_bytes,
+        gathered_bound_bytes_a_rank=bound,
+        held_bytes_rank0=held_bytes_zero3(engine),
+        wire_ops_per_step=zero3_wire_per_step(engine, ids))
+    return counts, summary
+
+
+def phase_train_zero3(state):
+    """bench.py::bench_gpt2_zero3_stream and _carried exactly (GPT-2 124M,
+    bf16, AdamW lr 6e-4 wd 0.1, global batch 8 x 1024 over 4 ranks on the
+    visible cards, groups of 2 layers), each timed as phase_train, in
+    turns; beside them what rank 0 holds at ZeRO-2 on the same mesh
+    (train_dp's engine, not stepped)."""
+    cfg = gpt2_124m_train()
+    out, counts = {}, []
+    for carried in (False, True):
+        gc_cuda()
+        c, out["carried" if carried else "off"] = timed_zero3(cfg, state,
+                                                              carried)
+        counts.append(c)
+    gc_cuda()
+    stage2 = train_engine(cfg, state, dp_config(ZERO3_MICRO, 2,
+                                                ZERO3_WORLD))
+    out["zero2_held_bytes_rank0"] = held_bytes(stage2)
+    del stage2
+    return add_counts(*counts), out
+
+
+def phase_train_zero3_fcm(state):
+    """bench.py::bench_gpt2_zero3_stream_fcm's engines exactly: the carried
+    row with qwZ 8 / qgZ 8, the modular transports then the fused ones,
+    each timed over TRAIN_WARMUP + ZERO3_FCM_ITERS steps; the two loss
+    trajectories bitwise equal (the port's transports move the modular
+    ops' values), both rates and fcm_speedup."""
+    cfg = gpt2_124m_train()
+    runs, counts = {}, []
+    for fcm in (False, True):
+        gc_cuda()
+        c, runs[fcm] = timed_zero3(cfg, state, True, fcm, keep_losses=True,
+                                   iters=ZERO3_FCM_ITERS)
+        counts.append(c)
+    check(runs[False]["losses"] == runs[True]["losses"],
+          "the fused transports' trajectory differs from the modular one")
+    out = {"modular": runs[False], "fused": runs[True],
+           "trajectories_bitwise": True,
+           "fcm_speedup": runs[True]["tokens_per_s"]
+           / runs[False]["tokens_per_s"]}
+    for run in (runs[False], runs[True]):
+        del run["losses"]
+    return add_counts(*counts), out
+
+
+def phase_checkpoint_zero3(state):
+    """The carried row at 4 ranks saved after CKPT_STEPS steps, then loaded
+    twice: at stage 3 and 4 ranks (into an engine of other weights), whose
+    next ZERO3_CKPT_RESUMED steps are bitwise the uninterrupted run's
+    (losses, every rank's pieces and Adam state, the generators), and at
+    stage 2 on one rank, which holds the saved masters and optimizer state
+    bitwise and whose next loss (other dropout draws: the generators are
+    restored only at the saved world) is within LOSS_REL_TOL of it."""
+    cfg = gpt2_124m_train()
+    ids = bench_ids(cfg, ZERO3_MICRO * ZERO3_WORLD)
+    ds_config = zero3_config(cfg, True)
+    other = init_state(cfg, seed=1)
+    with checkpoint_dir() as path:
+        gc_cuda()
+        engine = train_engine(cfg, state, ds_config)
+        reset_launch_counts()
+        loss_values(engine, ids, CKPT_STEPS)
+        save_s, nbytes, save_split = timed_save(engine, path, "zero3")
+        saved = {"module": engine.module_state_dict(),
+                 **{k: torch.from_numpy(engine._gathered(k).copy())
+                    for k in ("mu", "nu")}}
+        cont = loss_values(engine, ids, ZERO3_CKPT_RESUMED)
+        cont_bits = engine_state_bits(engine)
+        counts = launch_counts()
+        del engine
+        gc_cuda()
+        again = train_engine(cfg, other, ds_config)
+        load_s, load_split = timed_load(again, path)
+        resumed = loss_values(again, ids, ZERO3_CKPT_RESUMED)
+        bits = engine_state_bits(again)
+        check(resumed == cont, f"stage-3 resume {resumed} vs {cont}")
+        differ = [k for k in cont_bits if not torch.equal(cont_bits[k],
+                                                          bits[k])]
+        check(not differ, f"stage-3 resume differs in {differ}")
+        del again
+        gc_cuda()
+        one = train_engine(cfg, other, BENCH_GPT2_CONFIG)
+        one.load_checkpoint(path)
+        whole = one.module_state_dict()
+        diff = [n for n in saved["module"]
+                if not torch.equal(whole[n].cpu(), saved["module"][n])]
+        check(not diff, f"stage-2 load: masters differ in {diff[:4]}")
+        for key in ("mu", "nu"):
+            got = torch.from_numpy(one._gathered(key)[:one.num_params])
+            check(torch.equal(got, saved[key]),
+                  f"stage-2 load: {key} differs")
+        next_loss = loss_values(one, ids, 1)[0]
+        err = abs(next_loss - cont[0]) / abs(cont[0])
+        check(err <= LOSS_REL_TOL, f"stage-2 resume loss {next_loss} vs "
+              f"{cont[0]}: {err}")
+        del one
+    return counts, {
+        "steps_before_save": CKPT_STEPS, "resumed_steps": ZERO3_CKPT_RESUMED,
+        "stage3_resume_bitwise": True, "compared": sorted(cont_bits),
+        "stage2_one_rank_masters_and_adam_bitwise": True,
+        "stage2_next_loss": next_loss, "stage3_next_loss": cont[0],
+        "stage2_loss_rel_err": err, "loss_rel_tol": LOSS_REL_TOL,
+        **io_summary(save_s, load_s, nbytes, save_split, load_split)}
+
+
+def phase_train_zero3_fused(state):
+    """graphed_vs_eager at stage 3 on one card, gas 2, dropout 0.1, in the
+    `off` and `carried` plans: the graphed window replays every rank's
+    streamed layers and is bitwise the eager one (losses, every rank's
+    pieces and Adam state, the generators)."""
+    check(torch.cuda.device_count() == 1,
+          "train_zero3_fused puts every rank on one card")
+    cfg = gpt2_124m_train()
+    out, traced, counts = {}, {}, []
+    for carried in (False, True):
+        mode = "carried" if carried else "off"
+        out[mode] = graphed_vs_eager(
+            cfg, state, dict(zero3_config(cfg, carried),
+                             gradient_accumulation_steps=FUSED_GRADS_GAS),
+            FUSED_GRADS_STEPS, f"ZeRO-3 {mode}",
+            count_cfg=zero3_count_cfg(cfg, carried))
+        for k, v in out[mode]["replay_launches_traced"].items():
+            traced[k] = traced.get(k, 0) + v
+        # the counters the check held: every eager window, then the fused
+        # run's eager first window and its capture
+        counts.append({k: (FUSED_GRADS_STEPS + 2) * v for k, v in
+                       out[mode]["launches_per_window"].items()})
+    return (add_counts(*counts), traced), dict(out, world=ZERO3_WORLD,
+                                               dropout=DROPOUT)
+
+
 DP_PARITY = ("layer_norm_kernels", "layer_norm_fwd", "layer_norm_bwd",
              "flash_attention_fwd", "flash_attention_fwd_dropout",
              "flash_attention_bwd")
@@ -5664,6 +6040,17 @@ def last_line():
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
+
+
+def run_zero3_phases(state, path_counts, replays_traced):
+    """Phases 31-35, their launch counts into the kernel line's maps."""
+    run_phase("zero3_grads", phase_zero3_grads, state)
+    for path, fn in (("train_zero3", phase_train_zero3),
+                     ("train_zero3_fcm", phase_train_zero3_fcm),
+                     ("checkpoint_zero3", phase_checkpoint_zero3)):
+        path_counts[path] = run_phase(path, fn, state)
+    path_counts["train_zero3_fused"], replays_traced["train_zero3_fused"] = \
+        run_phase("train_zero3_fused", phase_train_zero3_fused, state)
 
 
 def main():
@@ -5729,6 +6116,15 @@ def main():
         train_state = init_state(gpt2_124m_train())
         run_phase("monitor", phase_monitor, train_state)
         run_phase("monitor_mp", phase_monitor_mp, train_state)
+        print(card, flush=True)
+        return last_line()
+    if sys.argv[1:] == ["--zero3-only"]:
+        # kernels A, B, D, E and the ZeRO-3 phases
+        for group in [g for g in PARITY_CASES if g not in DP_PARITY]:
+            del PARITY_CASES[group]
+        run_phase("parity", phase_parity)
+        train_state = init_state(gpt2_124m_train())
+        run_zero3_phases(train_state, {}, {})
         print(card, flush=True)
         return last_line()
     if sys.argv[1:] == ["--fused-only"]:
@@ -5797,6 +6193,7 @@ def main():
                                                             train_state)
     path_counts["monitor_mp"] = run_phase("monitor_mp", phase_monitor_mp,
                                           train_state)
+    run_zero3_phases(train_state, path_counts, replays_traced)
     del train_state
 
     run_phase("train_sparse_grads", phase_train_sparse_grads)

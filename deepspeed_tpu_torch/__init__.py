@@ -25,6 +25,7 @@ from .version import __version__
 from .parallel import (MeshContext, get_mesh_context, groups,
                        initialize_mesh, reset_mesh_context)
 from .utils import init_distributed, logger, log_dist
+from .runtime import zero  # zero.Init / GatheredParameters, as the JAX package
 
 
 _DTYPE_NAMES = {torch.float32: ("fp32", "float32"),

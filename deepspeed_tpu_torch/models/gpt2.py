@@ -12,8 +12,13 @@ each layer is recomputed in the backward, as the JAX model's
 `jax.checkpoint(body)`: only the layer's input is saved, and the
 recompute draws its dropout masks again from the layer's generator state
 (runtime/activation_checkpointing `checkpoint_with_generator`), so the loss
-and the gradients equal those without recompute, bit for bit.  PLD and
-layer streaming are not ported yet.
+and the gradients equal those without recompute, bit for bit.  At ZeRO
+stage 3 the engine installs its layer stream
+(`install_zero3_streaming`) and calls `loss` once with every local rank's
+batch as lists: each rank's embedding and head run on its gathered copy
+of the non-layer leaves, and the layers run through the stream in group
+lockstep over the ranks (runtime/zero/stage3_streaming.py).  PLD is not
+ported yet.
 """
 
 import functools
@@ -139,6 +144,32 @@ class GPT2Model(nn.Module):
         self.ln_f = _FinalNorm(h)
         if not config.tie_word_embeddings:
             self.lm_head = nn.Parameter(torch.zeros(h, config.vocab_size))
+        self._zero3_stream = None
+
+    def install_zero3_streaming(self, stream) -> None:
+        """Engine hook at ZeRO stage 3: the rank-list forms of `loss` and
+        `hidden_states` run the layer stack through `stream`
+        (runtime/zero/stage3_streaming.Zero3StreamContext)."""
+        self._zero3_stream = stream
+
+    @staticmethod
+    def param_partition_spec(name: str):
+        """The JAX model's tensor-parallel spec of parameter `name`
+        (vocab-sharded embeddings, the layers' Megatron splits), which
+        ZeRO-3 cuts around (runtime/zero/partition.py)."""
+        from ..parallel.mesh import MODEL_AXIS
+        from ..runtime.zero.partition import PartitionSpec as P
+        parts = name.split(".")
+        if parts[0] == "h":
+            return DeepSpeedTransformerLayer.param_partition_specs()[parts[2]]
+        return {"wte": P(MODEL_AXIS, None),
+                "lm_head": P(None, MODEL_AXIS)}.get(name, P())
+
+    @staticmethod
+    def layer_index(name: str) -> Optional[int]:
+        """The layer a parameter belongs to (None outside the layers)."""
+        parts = name.split(".")
+        return int(parts[1]) if parts[0] == "h" else None
 
     @staticmethod
     def jax_leaf(name: str) -> str:
@@ -202,6 +233,13 @@ class GPT2Model(nn.Module):
         h = self._final_hidden(h)
         return (h @ self._head_matrix(h.dtype)).float()
 
+    def embed_dropout(self, input_ids, generator=None,
+                      deterministic: bool = False):
+        """The embedding and its dropout: the hidden states the layers
+        take."""
+        return dropout(self.embed(input_ids), self.config.embd_dropout,
+                       generator, deterministic)
+
     def hidden_states(self, input_ids, generator=None,
                       deterministic: bool = False):
         """input_ids [B, S] -> pre-head hidden states [B, S, H].  Dropout
@@ -209,11 +247,24 @@ class GPT2Model(nn.Module):
         model's device; without one the pass is deterministic, as the JAX
         model without an rng.  With activation_checkpointing (and grad
         enabled) each layer is checkpointed, recomputing everything but its
-        input."""
+        input.  At ZeRO stage 3 `input_ids` and `generator` are lists, one
+        entry a local rank, and so is the result: the layers run through
+        the installed stream."""
+        if isinstance(input_ids, (list, tuple)):
+            stream = self._zero3_stream
+            if stream is None or not stream.usable():
+                raise RuntimeError(
+                    "the rank-list forward runs inside a stage-3 engine's "
+                    "forward (runtime/zero/stage3_streaming.py)")
+            gens = (list(generator) if generator is not None
+                    else [None] * len(input_ids))
+            deterministic = deterministic or gens[0] is None
+            hs = [stream.call(i, self.embed_dropout, ids, gen, deterministic)
+                  for i, (ids, gen) in enumerate(zip(input_ids, gens))]
+            return stream.scan(self.h, hs, gens, deterministic)
         if generator is None:
             deterministic = True
-        h = dropout(self.embed(input_ids), self.config.embd_dropout,
-                    generator, deterministic)
+        h = self.embed_dropout(input_ids, generator, deterministic)
         remat = self.config.activation_checkpointing and \
             torch.is_grad_enabled()
         for layer in self.h:
@@ -240,10 +291,24 @@ class GPT2Model(nn.Module):
         generator is given.  When labels is None, input_ids[:, 1:] are the
         targets.  With config.fused_loss (default) the head projection and
         the cross-entropy run chunked over the vocabulary and never hold
-        the [B, S, V] fp32 logits."""
-        cfg = self.config
+        the [B, S, V] fp32 logits.  At ZeRO stage 3 the arguments are
+        lists, one entry a local rank, and so is the result (one loss a
+        rank)."""
+        if isinstance(input_ids, (list, tuple)):
+            ids = [i.long() for i in input_ids]
+            hs = self.hidden_states(ids, generator,
+                                    deterministic=generator is None)
+            labels = labels if labels is not None else [None] * len(ids)
+            return [self._zero3_stream.call(i, self.head_loss, h, x, lab)
+                    for i, (h, x, lab) in enumerate(zip(hs, ids, labels))]
         ids = input_ids.long()
         h = self.hidden_states(ids, generator, deterministic=generator is None)
+        return self.head_loss(h, ids, labels)
+
+    def head_loss(self, h, ids, labels=None):
+        """The loss of the last layer's hidden states `h` (the part of
+        `loss` after the layers)."""
+        cfg = self.config
         if cfg.fused_loss:
             h, targets = self._shift_for_next_token(self._final_hidden(h), ids,
                                                     labels)

@@ -113,6 +113,20 @@ class DeepSpeedTransformerLayer(nn.Module):
             "output_w": (inter, h), "output_b": (h,),
         }
 
+    @staticmethod
+    def param_partition_specs() -> dict:
+        """The JAX layer's Megatron-style tensor-parallel specs over the
+        "model" axis (qkv / inter column-split, out / output row-split), in
+        runtime/zero/partition.py's PartitionSpec: ZeRO-3 cuts each leaf
+        along a dimension they leave free, as the JAX package does."""
+        from ..parallel.mesh import MODEL_AXIS
+        from ..runtime.zero.partition import PartitionSpec as P
+        return {"attn_qkvw": P(None, MODEL_AXIS), "attn_qkvb": P(MODEL_AXIS),
+                "attn_ow": P(MODEL_AXIS, None), "attn_ob": P(),
+                "norm_w": P(), "norm_b": P(), "attn_nw": P(), "attn_nb": P(),
+                "inter_w": P(None, MODEL_AXIS), "inter_b": P(MODEL_AXIS),
+                "output_w": P(MODEL_AXIS, None), "output_b": P()}
+
     @torch.no_grad()
     def init_params(self, generator: torch.Generator):
         """Matmul weights ~ N(0, initializer_range), biases 0, LN 1/0."""

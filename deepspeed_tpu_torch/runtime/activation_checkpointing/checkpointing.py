@@ -334,20 +334,35 @@ def checkpoint_with_generator(function: Callable, generator, *args,
     if generator is None:
         return checkpoint(functools.partial(function, generator=None), *args,
                           policy=policy)
-    graphed = _RECOMPUTE._note(generator) if _RECOMPUTE is not None else None
-    state = generator.get_state() if graphed is None else None
+    replay = recompute_generator(generator)
     runs = []
 
     def run(*inputs):
         if not runs:
             runs.append(generator)
             return function(*inputs, generator=generator)
-        if graphed is not None:
-            return function(*inputs, generator=graphed)
-        replay = torch.Generator(device=generator.device)
-        replay.set_state(state)
-        return function(*inputs, generator=replay)
+        return function(*inputs, generator=replay())
     return _checkpoint(run, args, policy, False)
+
+
+def recompute_generator(generator) -> Callable[[], Any]:
+    """Called before a forward that draws from `generator` and is
+    recomputed later: returns a function that gives the generator the
+    recompute draws from, one at the state `generator` has now (a fresh
+    generator set to it; inside a window's capture the one
+    `RecomputeGenerators` made for this call).  None stays None."""
+    if generator is None:
+        return lambda: None
+    graphed = _RECOMPUTE._note(generator) if _RECOMPUTE is not None else None
+    if graphed is not None:
+        return lambda: graphed
+    state = generator.get_state()
+
+    def replay():
+        fresh = torch.Generator(device=generator.device)
+        fresh.set_state(state)
+        return fresh
+    return replay
 
 
 class CheckpointFunction:

@@ -28,6 +28,25 @@ What it keeps of the JAX engine:
   buffer.  The sums run over the ranks in rank order and divide by W once,
   so stages 1 and 2 give the same bits.  After the step every rank's
   updated range is all-gathered into every rank's buffer.
+- ZeRO-3 on one process's mesh (`"stage": 3` at a data axis above 1): each
+  rank's fp32 masters are its pieces only, every leaf cut along the
+  dimension zero_partition_spec picks or kept whole under the persistence
+  threshold (partition.py `Stage3Layout`: one flat buffer a rank, the
+  non-layer pieces first, then each layer's).  The forward casts each
+  rank's buffer to the compute dtype once a span (the non-layer leaves,
+  then each layer group) and runs the model's rank-list loss: the
+  non-layer leaves are gathered at the start, the layers stream in group
+  lockstep over the ranks (runtime/zero/stage3_streaming.py, the
+  `stage3_*` knobs and the `low_bandwidth` block), and each gather's
+  backward leaves the gradients reduce-scattered into their owners'
+  pieces, in fp32 and in rank order.  The step runs over each rank's whole
+  buffer; a leaf every rank holds whole has its gradients summed over the
+  ranks first and counts once in the norms.  `engine.module`'s parameters
+  are empty placeholders at stage 3 (`ds_shape` holds the shape, `ds_engine`
+  a weak reference to the engine):
+  `module_state_dict()` and checkpoints hold whole leaves, and
+  runtime/zero/api.py `GatheredParameters` fills the placeholders for
+  host-side code and scatters edits back.
 - The batch (`_shard_batch`): this process's rows (the whole global
   batch under one controller; under P processes, the JAX engine's
   multi-host rule, this process's slice of it).  A leading dimension the
@@ -102,7 +121,7 @@ What it keeps of the JAX engine:
   boundary.
 
 What is not ported yet is refused by `refuse_unported` with the ROADMAP.md
-item that will port it: among others the sharded checkpoint layout (A.5),
+item that will port it: among others the sharded checkpoint layout (A.5b),
 the monitor's MoE routing records (A.10), the chaos plane (A.13) and the
 lockstep signature that a resume re-verifies (A.14).
 """
@@ -110,6 +129,7 @@ lockstep signature that a resume re-verifies (A.14).
 import os
 import threading
 import time
+import weakref
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -235,7 +255,18 @@ def refuse_unported(config: DeepSpeedConfig, model, mesh: MeshContext) -> None:
     _refuse_mesh_axes(mesh.axis_sizes, "the mesh")
     zc = config.zero_config
     if zc.stage >= 3:
-        _refuse(f"zero_optimization.stage {zc.stage} (ZeRO-3)", "A.5")
+        if mesh.process_group is not None:
+            _refuse(f"zero_optimization.stage {zc.stage} under a "
+                    "torch.distributed process group (the mesh's all_gather "
+                    "and psum_scatter over process groups)", "A.4c")
+        if getattr(model.config, "activation_checkpointing", False):
+            _refuse("GPT2Config(activation_checkpointing=True) at "
+                    f"zero_optimization.stage {zc.stage} (per-layer "
+                    "recompute inside the streamed layer groups)", "A.5b")
+        if config.checkpoint_config.sharded:
+            _refuse(f"checkpoint.sharded at zero_optimization.stage "
+                    f"{zc.stage} (the per-process sharded checkpoint "
+                    "layout, runtime/sharded_checkpoint.py)", "A.5b")
     for what, off in (("offload_param", zc.offload_param),
                       ("offload_optimizer", zc.offload_optimizer)):
         if off is not None and off.device not in (None, "none"):
@@ -246,11 +277,6 @@ def refuse_unported(config: DeepSpeedConfig, model, mesh: MeshContext) -> None:
     if zc.low_bandwidth.onebit:
         _refuse("zero_optimization.low_bandwidth.onebit (the 1-bit wire "
                 "tier)", "A.8")
-    if zc.low_bandwidth.enabled:
-        _refuse("zero_optimization.low_bandwidth in the engine (the qwZ / qgZ "
-                "ops and the fused collective-matmul are ported, "
-                "runtime/comm/low_bandwidth.py and ops/collective_matmul.py; "
-                "the engine uses them inside the streamed ZeRO-3 scan)", "A.5")
     if config.sequence_parallel_config.size > 1:
         _refuse("sequence parallelism", "A.9")
     if config.resilience_config.enabled and \
@@ -334,12 +360,54 @@ class DeepSpeedEngine:
         if model_parameters is not None:
             model.load_state_dict(model_parameters)
         self._named_params = list(model.named_parameters())
+        self._shapes = [(name, tuple(p.shape))
+                        for name, p in self._named_params]
         self._segments = []
         off = 0
         for _, p in self._named_params:
             self._segments.append((off, p.numel()))
             off += p.numel()
         self.num_params = off
+        self._segment_names = [name for name, _ in self._named_params]
+        self._whole_segments = ()
+        self._init_zero3_stream()
+        if self._zero3:
+            self._init_zero3_buffers(model)
+        else:
+            self._init_flat_buffers()
+
+        # ---- LR schedule + optimizer --------------------------------- #
+        self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
+        if optimizer is not None:
+            if not isinstance(optimizer, FlatOptimizer):
+                raise TypeError(
+                    "optimizer must be a deepspeed_tpu_torch FlatOptimizer "
+                    "(runtime.optimizers.build_optimizer), got "
+                    f"{type(optimizer).__name__}")
+            self.optimizer = optimizer
+        else:
+            self.optimizer = build_optimizer(
+                self.config.optimizer_name or "adam",
+                self.config.optimizer_params,
+                learning_rate=self.lr_scheduler,
+                gradient_clipping=self.config.gradient_clipping)
+        # the parameters' places in the flat buffer are the engine's, and
+        # the layers' copies of a parameter share the JAX tree's leaf
+        leaves = {}
+        self.optimizer.segments = self._segments
+        self.optimizer.segment_leaves = [
+            leaves.setdefault(model.jax_leaf(name), len(leaves))
+            for name in self._segment_names]
+        self.opt_states = [self.optimizer.init(flat[lo:hi]) for flat, (lo, hi)
+                           in zip(self._flats, self._ranges)]
+        self.opt_state = self.opt_states[0]
+        self._init_rest(training_data, collate_fn)
+
+    def _init_flat_buffers(self):
+        """Stages 0-2: each rank's whole fp32 buffer (zero-padded to a
+        multiple of W), the parameters views into it (rank 0's are the
+        module's), their grads views into a second buffer."""
+        off, world = self.num_params, self.world_size
         padded = self.zero_partitioner.padded_size(off)
         self._flats, self._flat_grads, self._leaves = [], [], []
         with torch.no_grad():
@@ -376,32 +444,88 @@ class DeepSpeedEngine:
                      if self._scatter_each_micro else None
                      for r, (lo, hi) in zip(self.local_ranks, self._ranges)]
 
-        # ---- LR schedule + optimizer --------------------------------- #
-        self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
-        if optimizer is not None:
-            if not isinstance(optimizer, FlatOptimizer):
-                raise TypeError(
-                    "optimizer must be a deepspeed_tpu_torch FlatOptimizer "
-                    "(runtime.optimizers.build_optimizer), got "
-                    f"{type(optimizer).__name__}")
-            self.optimizer = optimizer
-        else:
-            self.optimizer = build_optimizer(
-                self.config.optimizer_name or "adam",
-                self.config.optimizer_params,
-                learning_rate=self.lr_scheduler,
-                gradient_clipping=self.config.gradient_clipping)
-        # the parameters' places in the flat buffer are the engine's, and
-        # the layers' copies of a parameter share the JAX tree's leaf
-        leaves = {}
-        self.optimizer.segments = self._segments
-        self.optimizer.segment_leaves = [
-            leaves.setdefault(model.jax_leaf(name), len(leaves))
-            for name, _ in self._named_params]
-        self.opt_states = [self.optimizer.init(flat[lo:hi]) for flat, (lo, hi)
-                           in zip(self._flats, self._ranges)]
-        self.opt_state = self.opt_states[0]
+    def _init_zero3_stream(self):
+        """At stage 3 the stream context (built at any world, so that an hpZ
+        group the mesh cannot hold raises here, as in the JAX engine);
+        `_zero3` is whether it streams (a ZeRO world above 1).  The
+        low_bandwidth block below stage 3 is ignored with the JAX engine's
+        warning."""
+        zc = self.config.zero_config
+        lbc = zc.low_bandwidth
+        stage = self.zero_partitioner.stage
+        self._zero3_stream = None
+        if lbc.enabled and stage < 3:
+            logger.warning(
+                "zero_optimization.low_bandwidth is configured but ZeRO "
+                f"stage is {stage} — qwZ/qgZ/hpZ only apply to the stage-3 "
+                "explicit streaming path and will be ignored")
+        if stage >= 3:
+            from .zero.stage3_streaming import Zero3StreamContext
+            self._zero3_stream = Zero3StreamContext(
+                self.mesh, zc.max_live_parameters, zc.prefetch_bucket_size,
+                zc.param_persistence_threshold,
+                low_bandwidth=lbc if lbc.enabled else None,
+                prefetch_mode=zc.prefetch_mode)
+        self._zero3 = (self._zero3_stream is not None
+                       and self._zero3_stream.active)
 
+    @torch.no_grad()
+    def _init_zero3_buffers(self, model):
+        """Stage 3: each rank's flat fp32 buffer of its pieces
+        (`Stage3Layout`), its grads' buffer, its pieces by name
+        (`_leaves`), and one autograd leaf a span of the stream (the
+        non-layer pieces, then each layer group: `_regions`), whose grads
+        are views into the grads' buffer.  The module's parameters become
+        empty placeholders."""
+        layout = self.zero_partitioner.stage3_layout(
+            self._shapes, model.layer_index, model.param_partition_spec)
+        self._layout = layout
+        spans = self._zero3_stream.attach(model, layout)
+        whole = {name: p.detach() for name, p in self._named_params}
+        self._flats, self._flat_grads, self._leaves = [], [], []
+        self._regions = []
+        for r in self.local_ranks:
+            dev = self.mesh.device_of(r)
+            index = self.mesh.group_index(r, ZERO_AXES)
+            flat = torch.zeros(layout.size, dtype=torch.float32, device=dev)
+            grad = torch.zeros_like(flat)
+            pieces = {}
+            for leaf in layout.leaves:
+                view = flat[leaf.offset:leaf.offset + leaf.numel].view(
+                    leaf.piece_shape)
+                view.copy_(leaf.cut(whole[leaf.name], index))
+                pieces[leaf.name] = view
+            regions = []
+            for lo, hi in spans:
+                region = flat[lo:hi]
+                region.requires_grad_(True)
+                region.grad = grad[lo:hi]
+                regions.append(region)
+            self._flats.append(flat)
+            self._flat_grads.append(grad)
+            self._leaves.append(pieces)
+            self._regions.append(regions)
+        self._flat, self._flat_grad = self._flats[0], self._flat_grads[0]
+        self._ranges = [(0, layout.size)] * len(self.local_ranks)
+        self._scatter_each_micro = False
+        self._acc = [None] * len(self.local_ranks)
+        self._segments = [(leaf.offset, leaf.numel) for leaf in layout.leaves]
+        self._segment_names = [leaf.name for leaf in layout.leaves]
+        self._whole_segments = layout.whole_segments()
+        # a weak reference: a tensor's attributes hold the engine outside
+        # the garbage collector's reach (torch traverses no tensor's
+        # __dict__ that C++ also owns), so a strong one would keep every
+        # stage-3 engine alive
+        engine = weakref.ref(self)
+        for name, p in self._named_params:
+            p.data = torch.empty(0, device=self.device)
+            p.ds_shape = layout.by_name[name].shape
+            p.ds_name = name
+            p.ds_engine = engine
+        model.install_zero3_streaming(self._zero3_stream)
+
+    def _init_rest(self, training_data, collate_fn):
+        world = self.world_size
         self.training_dataloader = self._configure_dataloader(
             training_data, collate_fn)
         self._rngs = [torch.Generator(device=self.mesh.device_of(r))
@@ -435,7 +559,7 @@ class DeepSpeedEngine:
             self.monitor = self._configure_monitor()
         log_dist(f"DeepSpeedEngine: zero_stage="
                  f"{self.zero_optimization_stage()} dtype={self.compute_dtype} "
-                 f"mesh={self.mesh} dp_world={world} params={off} "
+                 f"mesh={self.mesh} dp_world={world} params={self.num_params} "
                  f"micro_batch={self.train_micro_batch_size_per_gpu()} "
                  f"gas={self.gradient_accumulation_steps()}", ranks=[0])
         from .resilience.degradation import get_registry
@@ -585,18 +709,43 @@ class DeepSpeedEngine:
         return not self.overflow
 
     def module_state_dict(self):
-        return self.module.state_dict()
+        """The module's parameters by name, whole (at stage 3 gathered from
+        the ranks' pieces, fp32 on the host)."""
+        if not self._zero3:
+            return self.module.state_dict()
+        full = self._whole_flat(self._flats)
+        out, off = {}, 0
+        for name, shape in self._shapes:
+            n = int(np.prod(shape)) if shape else 1
+            out[name] = torch.from_numpy(full[off:off + n].reshape(shape))
+            off += n
+        return out
 
     # ------------------------------------------------------------------ #
     # checkpoints in the JAX layout (reference: engine.py:2447-2895)
     # ------------------------------------------------------------------ #
     def _named_shapes(self):
-        return [(name, tuple(p.shape)) for name, p in self._named_params]
+        return self._shapes
+
+    def _whole_flat(self, buffers):
+        """Stage 3: the whole parameters laid out flat in the module's
+        order (the stages' 0-2 layout, unpadded) from every rank's buffer
+        of pieces (or of optimizer state laid out alike)."""
+        return self._layout.whole_from_locals(
+            [b.detach().cpu().numpy() for b in buffers], self._shapes)
+
+    @property
+    def _padded_size(self) -> int:
+        """Length of the flat layout a checkpoint converts through."""
+        if self._zero3:
+            return self.num_params
+        return self._flats[0].numel()
 
     def _module_tree(self):
         """The parameters as the JAX tree (fp32 numpy), from the first
-        local rank's buffer (every rank holds them whole)."""
-        flat = self._flats[0][:self.num_params].detach().cpu().numpy()
+        local rank's buffer (every rank holds them whole below stage 3)."""
+        flat = (self._whole_flat(self._flats) if self._zero3 else
+                self._flats[0][:self.num_params].detach().cpu().numpy())
         return gpt2_tree_from_flat(flat, self._named_shapes(),
                                    self.module.config)
 
@@ -604,7 +753,9 @@ class DeepSpeedEngine:
         """Optimizer state `key` over the whole buffer: every rank's range
         in its place (at stage 0 each rank holds it all; under processes
         the ranges are all-gathered over the group, so every process must
-        call it)."""
+        call it; at stage 3 every rank's pieces are put together)."""
+        if self._zero3:
+            return self._whole_flat([state[key] for state in self.opt_states])
         if self.mesh.process_group is not None and \
                 self.zero_partitioner.stage >= 1:
             with self.mesh.forked():
@@ -670,7 +821,8 @@ class DeepSpeedEngine:
     def _refuse_sharded(self):
         if self.config.checkpoint_config.sharded:
             _refuse("checkpoint.sharded: true (the per-process sharded "
-                    "checkpoint layout, runtime/sharded_checkpoint.py)", "A.5")
+                    "checkpoint layout, runtime/sharded_checkpoint.py)",
+                    "A.5b")
 
     def save_checkpoint(self, save_dir, tag=None, client_state=None,
                         save_latest=True, _generators=None):
@@ -777,7 +929,14 @@ class DeepSpeedEngine:
 
     def _set_full(self, buffers, full):
         """Copy a full padded fp32 vector into each local rank's range of
-        `buffers` (one tensor a rank, covering its range)."""
+        `buffers` (one tensor a rank, covering its range; at stage 3 its
+        buffer of pieces)."""
+        if self._zero3:
+            for r, buf in zip(self.local_ranks, buffers):
+                local = self._layout.local_from_whole(
+                    full, self._shapes, self.mesh.group_index(r, ZERO_AXES))
+                buf.copy_(torch.from_numpy(local).to(buf.device))
+            return
         full = torch.from_numpy(full)
         for (lo, hi), buf in zip(self._ranges, buffers):
             part = full if buf.numel() == full.numel() else full[lo:hi]
@@ -818,14 +977,14 @@ class DeepSpeedEngine:
                     "resume without the re-verify)", "A.14")
         if os.path.isfile(os.path.join(load_dir, str(resolved),
                                        "model_index.json")):
-            _refuse("loading the sharded checkpoint layout", "A.5")
+            _refuse("loading the sharded checkpoint layout", "A.5b")
         opt_tmpl = (None if load_module_only or not load_optimizer_states
                     else self._engine_state())
         module_state, opt_state, client = ckpt_mod.load_checkpoint_state(
             load_dir, resolved, {"module": self._module_tree()}, opt_tmpl,
             strict=load_module_strict)
         shapes, cfg = self._named_shapes(), self.module.config
-        padded = self._flats[0].numel()
+        padded = self._padded_size
         self._set_full(self._flats, gpt2_flat_from_tree(
             module_state["module"], shapes, cfg, padded))
         if opt_state is not None:
@@ -935,18 +1094,42 @@ class DeepSpeedEngine:
 
     @torch.no_grad()
     def load_module_state_dict(self, state_dict, strict=True):
-        """Copy a module state dict (the port's parameter names, as
-        `module_state_dict` returns) into every rank's fp32 master."""
+        """Copy a module state dict (the port's parameter names, whole
+        tensors, as `module_state_dict` returns) into every rank's fp32
+        master (at stage 3 each rank's piece)."""
         names = [name for name, _ in self._named_params]
         missing = [n for n in names if n not in state_dict]
         unexpected = [k for k in state_dict if k not in self._leaves[0]]
         if strict and (missing or unexpected):
             raise KeyError(f"state dict mismatch: missing {missing[:5]}, "
                            f"unexpected {unexpected[:5]}")
-        for leaves in self._leaves:
+        for r, leaves in zip(self.local_ranks, self._leaves):
             for name in names:
                 if name in state_dict:
-                    leaves[name].copy_(torch.as_tensor(state_dict[name]))
+                    value = torch.as_tensor(state_dict[name])
+                    if self._zero3:
+                        value = self._layout.by_name[name].cut(
+                            value, self.mesh.group_index(r, ZERO_AXES))
+                    leaves[name].copy_(value)
+
+    @torch.no_grad()
+    def _gather_parameter(self, name):
+        """Stage 3: parameter `name` whole (fp32, on the first local rank's
+        device), from every rank's piece (runtime/zero/api.py)."""
+        leaf = self._layout.by_name[name]
+        pieces = [leaves[name].to(self.device) for leaves in self._leaves]
+        if leaf.dim is None:
+            return pieces[0].clone()
+        return torch.cat(pieces, dim=leaf.dim)
+
+    @torch.no_grad()
+    def _scatter_parameter(self, name, value):
+        """Stage 3: the whole `value` of parameter `name` cut into every
+        rank's piece (runtime/zero/api.py)."""
+        leaf = self._layout.by_name[name]
+        for r, leaves in zip(self.local_ranks, self._leaves):
+            leaves[name].copy_(leaf.cut(value, self.mesh.group_index(
+                r, ZERO_AXES)))
 
     def save_fp16_model(self, save_dir, save_filename="model_weights.npz"):
         """The module's weights in fp16, one .npz keyed by the JAX tree's
@@ -1059,6 +1242,12 @@ class DeepSpeedEngine:
         """The forward of `inputs`, one (args, kwargs) a local rank holding
         its share of the batch (placed on the rank's device, on its
         stream, where it is not there yet)."""
+        # the last forward's graph goes first: its AccumulateGrad nodes
+        # would be taken up again on the stream they were made on, which a
+        # CUDA graph capture of stage 3's caller-stream work cannot join
+        self._rank_losses = self._last_loss = None
+        if self._zero3:
+            return self._mean_of_ranks(self._forward_zero3(inputs))
         losses = []
         with self.mesh.forked():
             for i, (r, leaves) in enumerate(zip(self.local_ranks,
@@ -1073,19 +1262,40 @@ class DeepSpeedEngine:
                         tuple(self._place(a, r) for a in args),
                         {**{k: self._place(v, r) for k, v in kwargs.items()},
                          "generator": self._rngs[i]}))
+            stacked = None
             if self.world_size > 1 and self.mesh.process_group is not None:
                 stacked = self.mesh.all_gather_flat(
                     [loss.detach().reshape(1) for loss in losses])[0]
+        return self._mean_of_ranks(losses, stacked)
+
+    def _mean_of_ranks(self, losses, stacked=None):
+        """The loss `forward` returns from the local ranks' losses
+        (`stacked`: every rank's, gathered over the process group)."""
         self._rank_losses = losses
         if self.world_size == 1:
             loss = losses[0]
         else:
-            if self.mesh.process_group is None:
+            if stacked is None:
                 stacked = torch.stack([loss.detach().to(self.device)
                                        for loss in losses])
             loss = _MeanOfRanks.apply(stacked, *losses)
         self._last_loss = loss
         return loss
+
+    def _forward_zero3(self, inputs):
+        """Stage 3: each local rank's buffer cast to the compute dtype once
+        a span of the stream, then the model's rank-list loss (its layers
+        streamed in group lockstep over the ranks), on the caller's
+        stream."""
+        regions = [[region.to(self.compute_dtype) for region in regions]
+                   for regions in self._regions]
+        ranks = self.local_ranks
+        args = [[self._place(inputs[i][0][a], r) for i, r in enumerate(ranks)]
+                for a in range(len(inputs[0][0]))]
+        kwargs = {k: [self._place(inputs[i][1][k], r)
+                      for i, r in enumerate(ranks)] for k in inputs[0][1]}
+        with self._zero3_stream.bind(regions):
+            return self.module(*args, **kwargs, generator=list(self._rngs))
 
     def backward(self, loss=None):
         """Backpropagate loss * loss_scale (each rank's backward on its own
@@ -1141,6 +1351,12 @@ class DeepSpeedEngine:
             return [acc.float() for acc in self._acc]
         full = [grad if acc is None else acc.float()
                 for acc, grad in zip(self._acc, self._flat_grads)]
+        if self._zero3:
+            # the streamed gathers' backward reduce-scattered every cut
+            # leaf; the leaves every rank holds whole are summed here
+            if self._whole_segments:
+                self._sum_whole(full)
+            return full
         if self.world_size == 1:
             return full
         parts = self.mesh.reduce_scatter_flat(full, ZERO_AXES)
@@ -1148,6 +1364,22 @@ class DeepSpeedEngine:
             return self.mesh.all_gather_flat(parts, ZERO_AXES,
                                              out=self._flat_grads)
         return parts
+
+    def _sum_whole(self, grads):
+        """Stage 3, inside `forked()`: the gradients of the leaves every
+        rank holds whole, summed over the ranks in rank order, in place."""
+        mesh, whole = self.mesh, self._whole_segments
+        parts = []
+        for i, r in enumerate(self.local_ranks):
+            with mesh.rank(r):
+                parts.append(torch.cat([grads[i][o:o + n] for o, n in whole]))
+        sums = mesh.all_sum(parts, ZERO_AXES)
+        for i, r in enumerate(self.local_ranks):
+            with mesh.rank(r):
+                at = 0
+                for o, n in whole:
+                    grads[i][o:o + n].copy_(sums[i][at:at + n])
+                    at += n
 
     def _unscale_inv(self):
         """1 / (loss_scale * gas * W) on the caller's stream (before the
@@ -1202,8 +1434,9 @@ class DeepSpeedEngine:
                 offsets=[lo for lo, _ in self._ranges],
                 rank=lambda i: mesh.rank(local[i]),
                 total=((lambda parts: mesh.all_sum(parts, ZERO_AXES))
-                       if partitioned else None))
-            if partitioned:
+                       if partitioned else None),
+                shared=self._whole_segments)
+            if partitioned and not self._zero3:
                 mesh.all_gather_flat(params, ZERO_AXES, out=self._flats)
             for i, r in enumerate(local):
                 with mesh.rank(r):
@@ -1600,7 +1833,8 @@ class DeepSpeedEngine:
             parts = []
             for i, r in enumerate(self.local_ranks):
                 with mesh.rank(r):
-                    parts.append((grads[i] * grads[i]).sum().reshape(1))
+                    parts.append(FlatOptimizer.square_sum(
+                        grads[i], self._whole_segments, i == 0).reshape(1))
             if partitioned:
                 parts = mesh.all_sum(parts, ZERO_AXES)
         return float(torch.sqrt(parts[0]))

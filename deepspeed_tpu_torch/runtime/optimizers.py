@@ -47,7 +47,9 @@ elementwise except for two global reductions, which the ranks' partial
 sums feed: the gradient norm of clipping (the square root of the sum over
 ranks of each range's sum of squares) and Lamb's per-parameter norms of
 the parameter and its update (a parameter may straddle two ranges).  Every
-rank uses the same summed value.
+rank uses the same summed value.  At ZeRO-3 each rank's buffer holds its
+pieces of the parameters (partition.py `Stage3Layout`); a parameter every
+rank holds whole (`shared`) enters those sums from the first rank only.
 """
 
 import contextlib
@@ -197,13 +199,16 @@ class FlatOptimizer:
                 out.append((leaf, lo - offset, hi - offset))
         return out
 
-    def _segment_squares(self, params, u, offset):
+    def _segment_squares(self, params, u, offset, skip=()):
         """[leaves, 2]: each leaf's sum of squares of params and of u over
-        the part of it that lies in this range (0 elsewhere)."""
+        the part of it that lies in this range (0 elsewhere), but for the
+        segments that start at an offset in `skip`."""
         n_leaves = (max(self.segment_leaves) + 1 if self.segment_leaves
                     else len(self.segments))
         sq = torch.zeros(n_leaves, 2, dtype=torch.float32, device=u.device)
         for leaf, lo, hi in self._segments_in(offset, u.numel()):
+            if lo + offset in skip:
+                continue
             sq[leaf, 0] += (params[lo:hi] * params[lo:hi]).sum()
             sq[leaf, 1] += (u[lo:hi] * u[lo:hi]).sum()
         return sq
@@ -229,13 +234,25 @@ class FlatOptimizer:
         device bool, False leaves everything as it was."""
         self.step_ranks([params], [grads], [state], [finite])
 
+    @staticmethod
+    def square_sum(g: torch.Tensor, shared=None, first: bool = True):
+        """g's sum of squares; for a rank after the first, without the
+        (offset, numel) segments of `shared` (they count once)."""
+        if first or not shared:
+            return (g * g).sum()
+        keep = torch.ones_like(g, dtype=torch.bool)
+        for off, n in shared:
+            keep[off:off + n] = False
+        return torch.where(keep, g * g, torch.zeros_like(g)).sum()
+
     def step_ranks(self, params: List[torch.Tensor],
                    grads: List[torch.Tensor],
                    states: List[Dict[str, torch.Tensor]],
                    finite: List[torch.Tensor],
                    offsets: Optional[Sequence[int]] = None,
                    rank: Optional[Callable] = None,
-                   total: Optional[Callable] = None) -> None:
+                   total: Optional[Callable] = None,
+                   shared: Sequence[Tuple[int, int]] = ()) -> None:
         """One step of every rank's range, in place.  Per rank (lists in
         rank order): its range of the fp32 parameters, the unscaled
         gradients of that range, its state and the finite flag (the same
@@ -243,7 +260,9 @@ class FlatOptimizer:
         buffer (default 0).  rank(r): a context that runs rank r's work
         (the mesh's `rank`).  total(parts): every rank's partial sums
         summed over the ranks, one result per rank (the mesh's `all_sum`);
-        None when each rank holds the whole buffer."""
+        None when each rank holds the whole buffer.  shared: the (offset,
+        numel) segments every rank holds whole at ZeRO-3, summed from the
+        first rank only."""
         world = len(params)
         offsets = offsets if offsets is not None else [0] * world
 
@@ -260,7 +279,8 @@ class FlatOptimizer:
 
         g = list(grads)
         if self.gradient_clipping and self.gradient_clipping > 0:
-            sq = summed(each(lambda r: (g[r] * g[r]).sum()))
+            sq = summed(each(lambda r: self.square_sum(g[r], shared,
+                                                       r == 0)))
 
             def clip(r):
                 g_norm = torch.sqrt(sq[r])
@@ -269,8 +289,10 @@ class FlatOptimizer:
             g = each(clip)
         updates = each(lambda r: self._update(params[r], g[r], states[r]))
         if self.kind == LAMB_OPTIMIZER:
+            skip = {off for off, _ in shared}
             sq = summed(each(lambda r: self._segment_squares(
-                params[r], updates[r][0], offsets[r])))
+                params[r], updates[r][0], offsets[r],
+                skip if r > 0 else ())))
             updates = each(lambda r: (self._trust_ratio(
                 updates[r][0], sq[r], offsets[r]), updates[r][1]))
         each(lambda r: self._apply(params[r], updates[r], states[r],

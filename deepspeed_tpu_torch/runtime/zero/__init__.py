@@ -1,1 +1,3 @@
-from .partition import ZeroPartitioner
+from .partition import (ZeroPartitioner, resolve_hpz_axes,
+                        zero_partition_spec)
+from .api import GatheredParameters, Init

@@ -21,13 +21,234 @@ weights and their gradients in one flat buffer (runtime/engine.py):
 The layout is only memory: the optimizer's math is elementwise, so a range
 and a leaf get the same update, except for the global gradient norm and
 Lamb's per-parameter norms, which the optimizer sums across the ranges
-(runtime/optimizers.py).  Stage 3 (parameter sharding) is not ported.
+(runtime/optimizers.py).
+
+Stage 3 shards the parameters too, per leaf as the JAX module does: each
+leaf is cut along the dimension `zero_partition_spec` picks (the largest
+one the ZeRO world divides and the model's tensor-parallel spec leaves
+free), and rank r keeps the r-th piece; a leaf below the persistence
+threshold, or one with no such dimension, stays whole on every rank.  A
+layer parameter is cut on its own shape, which is the JAX stream's
+per-layer spec (deepspeed_tpu/runtime/zero/stage3_streaming.py
+`_per_layer_zero_spec`).  Each rank's pieces lie in
+one flat fp32 buffer of its own (`Stage3Layout`), the non-layer leaves
+first, then the layers in order, so that every layer group of the stream
+is one contiguous region of it; the optimizer steps each rank's whole
+buffer.
 """
 
 import math
-from typing import Any, Dict, List, Tuple
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from ...parallel.mesh import MESH_AXES, ZERO_AXES, MeshContext
+
+
+class PartitionSpec(tuple):
+    """A sharding spec in jax.sharding.PartitionSpec's form: one entry a
+    dimension, None (not sharded), an axis name, or a tuple of axis
+    names."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple(self)!r}"
+
+
+def zero_partition_spec(shape: Tuple[int, ...], axis_sizes: dict,
+                        persistence_threshold: int = 0,
+                        existing: Optional[PartitionSpec] = None
+                        ) -> PartitionSpec:
+    """The dimension to shard over the ZeRO ("data", "expert") axes (the
+    JAX function's rule): the largest dimension divisible by the shard
+    factor of the ZeRO axes that `existing` does not use, and not claimed
+    by another axis there; replicated when the leaf is below
+    `persistence_threshold` elements, the factor is 1, or nothing
+    divides."""
+    n = int(np.prod(shape)) if shape else 1
+    zero_size = int(np.prod([axis_sizes.get(a, 1) for a in ZERO_AXES]))
+    if zero_size <= 1 or n < max(1, persistence_threshold):
+        return existing if existing is not None else PartitionSpec()
+    existing_parts = (list(existing) if existing is not None
+                      else [None] * len(shape))
+    while len(existing_parts) < len(shape):
+        existing_parts.append(None)
+    used = set()
+    for part in existing_parts:
+        if part is None:
+            continue
+        for ax in (part if isinstance(part, tuple) else (part,)):
+            used.add(ax)
+    zero_axes = tuple(a for a in ZERO_AXES if a not in used)
+    shard_factor = int(np.prod([axis_sizes.get(a, 1) for a in zero_axes]))
+    if not zero_axes or shard_factor <= 1:
+        return existing if existing is not None else PartitionSpec()
+    best_dim, best_size = None, 0
+    for i, d in enumerate(shape):
+        if existing_parts[i] is not None:
+            continue
+        if d % shard_factor == 0 and d > best_size:
+            best_dim, best_size = i, d
+    if best_dim is None:
+        return existing if existing is not None else PartitionSpec()
+    existing_parts[best_dim] = zero_axes
+    return PartitionSpec(*existing_parts)
+
+
+def filter_spec_axes(spec: PartitionSpec, keep) -> PartitionSpec:
+    """Only the axis names of `spec` for which `keep(axis)` is true,
+    emptied entries collapsed to None and one-name tuples to the name."""
+    parts = []
+    for entry in spec:
+        if entry is None:
+            parts.append(None)
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        kept = tuple(a for a in axes if keep(a))
+        parts.append(kept if len(kept) > 1 else (kept[0] if kept else None))
+    return PartitionSpec(*parts)
+
+
+def resolve_hpz_axes(axis_sizes: dict, group_size: int) -> Tuple[str, ...]:
+    """hpZ's secondary partition: the suffix of the ZeRO axes whose sizes
+    multiply to `group_size` (the JAX function; 1 is the empty suffix).
+    Raises ValueError listing the valid sizes otherwise."""
+    group_size = int(group_size)
+    sizes = [int(axis_sizes.get(a, 1)) for a in ZERO_AXES]
+    valid = {1: ()}
+    prod = 1
+    for i in range(len(ZERO_AXES) - 1, -1, -1):
+        prod *= sizes[i]
+        valid[prod] = tuple(ZERO_AXES[i:])
+    if group_size in valid:
+        return tuple(a for a in valid[group_size]
+                     if axis_sizes.get(a, 1) > 1)
+    raise ValueError(
+        f"hpz_group_size={group_size} does not match a suffix of the "
+        f"ZeRO axes {dict(zip(ZERO_AXES, sizes))} — valid sizes here: "
+        f"{sorted(valid)} (the secondary partition must align with whole "
+        "inner mesh axes)")
+
+
+def shard_dim(spec: PartitionSpec) -> Optional[int]:
+    """The dimension a spec shards over the ZeRO axes (None: none)."""
+    for i, entry in enumerate(spec):
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        if any(a in ZERO_AXES for a in axes):
+            return i
+    return None
+
+
+@dataclass(frozen=True)
+class ShardedLeaf:
+    """One parameter at stage 3: its whole shape, the dimension cut over
+    the ZeRO world (None: whole on every rank), the piece a rank holds and
+    where that piece starts in the rank's flat buffer."""
+    name: str
+    shape: Tuple[int, ...]
+    dim: Optional[int]
+    world: int
+    offset: int
+
+    @property
+    def piece_shape(self) -> Tuple[int, ...]:
+        if self.dim is None:
+            return self.shape
+        s = list(self.shape)
+        s[self.dim] //= self.world
+        return tuple(s)
+
+    @property
+    def numel(self) -> int:
+        """Elements of a rank's piece."""
+        return int(np.prod(self.piece_shape)) if self.shape else 1
+
+    def cut(self, whole, index: int):
+        """Rank `index`'s piece of the whole leaf (a view; a tensor or an
+        array)."""
+        if self.dim is None:
+            return whole
+        c = self.shape[self.dim] // self.world
+        at = [slice(None)] * len(self.shape)
+        at[self.dim] = slice(index * c, (index + 1) * c)
+        return whole[tuple(at)]
+
+
+class Stage3Layout:
+    """Every rank's flat buffer at stage 3: the pieces of the parameters,
+    the non-layer ones (`layer_of(name)` None) first, then each layer's.
+    `regions[0]` spans the non-layer pieces and `regions[1 + i]` the
+    pieces of layer i, as [start, end) offsets.  `spec_of(name)`: the
+    parameter's tensor-parallel spec, whose dimensions ZeRO leaves alone
+    (the JAX engine's base specs)."""
+
+    def __init__(self, named_shapes: Sequence[Tuple[str, Tuple[int, ...]]],
+                 axis_sizes: dict, persistence_threshold: int,
+                 layer_of, spec_of=lambda name: None):
+        world = int(np.prod([axis_sizes.get(a, 1) for a in ZERO_AXES]))
+        first = [(n, s) for n, s in named_shapes if layer_of(n) is None]
+        layers = {}
+        for n, s in named_shapes:
+            if layer_of(n) is not None:
+                layers.setdefault(layer_of(n), []).append((n, s))
+        ordered = [first] + [layers[i] for i in sorted(layers)]
+        self.leaves: List[ShardedLeaf] = []
+        self.regions: List[Tuple[int, int]] = []
+        off = 0
+        for part in ordered:
+            start = off
+            for name, shape in part:
+                dim = shard_dim(zero_partition_spec(
+                    tuple(shape), axis_sizes, persistence_threshold,
+                    spec_of(name)))
+                leaf = ShardedLeaf(name, tuple(shape), dim, world, off)
+                self.leaves.append(leaf)
+                off += leaf.numel
+            self.regions.append((start, off))
+        self.size = off
+        self.world = world
+        self.by_name = {leaf.name: leaf for leaf in self.leaves}
+
+    def region_leaves(self, i: int) -> List[ShardedLeaf]:
+        lo, hi = self.regions[i]
+        return [leaf for leaf in self.leaves if lo <= leaf.offset < hi]
+
+    def whole_segments(self) -> List[Tuple[int, int]]:
+        """(offset, numel) of every leaf every rank holds whole."""
+        return [(leaf.offset, leaf.numel) for leaf in self.leaves
+                if leaf.dim is None]
+
+    def local_from_whole(self, full: np.ndarray, named_shapes,
+                         index: int) -> np.ndarray:
+        """Rank `index`'s flat buffer from the whole parameters laid out
+        flat in `named_shapes` order (the engine's stage 0-2 layout)."""
+        out = np.empty(self.size, dtype=full.dtype)
+        off = 0
+        for name, shape in named_shapes:
+            n = int(np.prod(shape)) if shape else 1
+            leaf = self.by_name[name]
+            piece = leaf.cut(full[off:off + n].reshape(shape), index)
+            out[leaf.offset:leaf.offset + leaf.numel] = \
+                np.ascontiguousarray(piece).reshape(-1)
+            off += n
+        return out
+
+    def whole_from_locals(self, locals_: Sequence[np.ndarray],
+                          named_shapes) -> np.ndarray:
+        """The whole parameters laid out flat in `named_shapes` order from
+        every rank's flat buffer (in ZeRO-rank order)."""
+        parts = []
+        for name, _ in named_shapes:
+            leaf = self.by_name[name]
+            pieces = [loc[leaf.offset:leaf.offset + leaf.numel].reshape(
+                leaf.piece_shape) for loc in locals_]
+            whole = (pieces[0] if leaf.dim is None
+                     else np.concatenate(pieces, axis=leaf.dim))
+            parts.append(whole.reshape(-1))
+        return np.concatenate(parts) if parts else np.empty(0, np.float32)
 
 
 # ---------------------------------------------------------------------- #
@@ -76,14 +297,12 @@ class ZeroPartitioner:
              the whole buffer, the gradients are all-reduced)
     stage 1: optimizer state partitioned
     stage 2: + gradients reduce-scattered to their owner
+    stage 3: + parameters partitioned per leaf (`stage3_layout`); each
+             rank owns its whole buffer of pieces
     """
 
     def __init__(self, mesh_ctx: MeshContext, stage: int,
                  persistence_threshold: int = 0):
-        if stage >= 3:
-            raise NotImplementedError(
-                f"zero_optimization.stage {stage} (ZeRO-3: parameter "
-                "sharding) is not ported yet (ROADMAP.md A.5)")
         self.ctx = mesh_ctx
         self.stage = stage
         self.zero_size = mesh_ctx.data_parallel_world_size
@@ -96,6 +315,14 @@ class ZeroPartitioner:
         """The flat buffer's length for n parameters: a multiple of the
         ZeRO world."""
         return math.ceil(n / self.zero_size) * self.zero_size
+
+    def stage3_layout(self, named_shapes, layer_of,
+                      spec_of=lambda name: None) -> Stage3Layout:
+        """Every rank's flat buffer of pieces at stage 3 (`layer_of(name)`:
+        the layer index of a parameter, None outside the layers;
+        `spec_of(name)`: its tensor-parallel spec)."""
+        return Stage3Layout(named_shapes, self.axis_sizes,
+                            self.persistence_threshold, layer_of, spec_of)
 
     def owned_range(self, n: int, rank: int) -> Tuple[int, int]:
         """[start, end) of the padded buffer whose optimizer update rank
@@ -132,5 +359,7 @@ class ZeroPartitioner:
             opt_b = math.ceil(opt_b / z)
         if self.stage >= 2:
             grad_b = math.ceil(grad_b / z)
+        if self.stage >= 3:
+            param_b = math.ceil(param_b / z)
         return {"params": param_b, "grads": grad_b, "optimizer": opt_b,
                 "total": param_b + grad_b + opt_b}

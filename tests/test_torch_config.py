@@ -89,21 +89,21 @@ TINY = dict(vocab_size=128, n_positions=64, hidden_size=32, num_layers=2,
 
 
 @pytest.mark.parametrize("block,item", [
-    ({"zero_optimization": {"stage": 3}}, "A.5"),
+    ({"zero_optimization": {"stage": 3}, "checkpoint": {"sharded": True}},
+     "A.5b"),
     ({"zero_optimization": {"stage": 2, "offload_optimizer":
                             {"device": "cpu"}}}, "A.7"),
     ({"zero_optimization": {"stage": 3, "offload_param":
-                            {"device": "cpu"}}}, "A.5"),
+                            {"device": "cpu"}}}, "A.7"),
     ({"zero_optimization": {"stage": 2, "offload_optimizer":
                             {"device": "nvme"}}}, "A.7"),
     ({"monitor": {"enabled": True, "moe": {"enabled": True}}}, "A.10"),
     ({"optimizer": {"type": "OneBitAdam", "params": {"lr": 1e-3}},
       "zero_optimization": {"stage": 2, "low_bandwidth": {"onebit": True}}},
      "A.8"),
-    ({"zero_optimization": {"stage": 3, "low_bandwidth": {"qwz_bits": 8}}},
-     "A.5"),
-    ({"zero_optimization": {"stage": 2, "low_bandwidth": {"qgz_bits": 8}}},
-     "A.5"),
+    ({"zero_optimization": {"stage": 3, "offload_optimizer":
+                            {"device": "nvme"}}}, "A.7"),
+    ({"zero_optimization": {"stage": 3}, "mesh": {"expert": 2}}, "A.10"),
     ({"sequence_parallel": {"size": 2}}, "A.9"),
     ({"mesh": {"model": 2}}, "A.9"),
     ({"resilience": {"enabled": True, "chaos": {"enabled": True}}}, "A.13"),
@@ -126,6 +126,37 @@ def test_unported_config_blocks_are_refused(block, item):
     with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md .*{item}"):
         dst.initialize(model=GPT2Model(GPT2Config(**TINY)), config=conf,
                        device="cpu")
+
+
+def test_zero3_with_activation_checkpointing_is_refused():
+    """Per-layer recompute inside the streamed layer groups is A.5b: the
+    engine refuses GPT2Config(activation_checkpointing=True) at stage 3."""
+    dst.reset_mesh_context()
+    conf = dict(FLAGSHIP, bf16={"enabled": False},
+                zero_optimization={"stage": 3}, mesh={"data": 2})
+    model = GPT2Model(GPT2Config(**dict(TINY, activation_checkpointing=True)))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.5b"):
+        dst.initialize(model=model, config=conf, device="cpu")
+    dst.reset_mesh_context()
+
+
+@pytest.mark.parametrize("stage", [2, 3])
+def test_zero3_and_low_bandwidth_blocks_now_run(stage):
+    """The cases that left the refusal list: stage 3, and the
+    low_bandwidth block at stages 2 and 3, build an engine that trains."""
+    dst.reset_mesh_context()
+    conf = dict(FLAGSHIP, bf16={"enabled": False}, mesh={"data": 2},
+                zero_optimization={"stage": stage, "low_bandwidth": {
+                    "qwz_bits": 8, "qgz_bits": 8}})
+    eng = dst.initialize(model=GPT2Model(GPT2Config(**TINY)), config=conf,
+                         device="cpu")[0]
+    ids = torch.randint(0, TINY["vocab_size"], (
+        eng.train_micro_batch_size_per_gpu() * 2, 16))
+    eng.backward(eng.forward(ids))
+    eng.step()
+    assert eng.global_steps == 1
+    assert (eng._zero3_stream is not None) == (stage == 3)
+    dst.reset_mesh_context()
 
 
 @pytest.mark.parametrize("section", [{"mode": "fixed"},

@@ -138,7 +138,9 @@ def _case_probe(spec, case, world, rank):
             ("permute", lambda: eng.mesh.permute([torch.zeros(2)], "data",
                                                  [(0, 1)])),
             ("psum_scatter", lambda: eng.mesh.psum_scatter(
-                [torch.zeros(4)], "data", 0))):
+                [torch.zeros(4)], "data", 0)),
+            ("zero3", lambda: _engine(spec, dict(case, config=dict(
+                case["config"], zero_optimization={"stage": 3}))))):
         try:
             fn()
             out[what] = None
@@ -648,6 +650,15 @@ def test_groups_log_rank_and_refusals_under_processes(runs):
         for prim in ("permute", "psum_scatter"):
             assert out[prim].startswith("NotImplementedError") and \
                 "ROADMAP.md A.4c" in out[prim], out[prim]
+
+
+def test_zero3_under_processes_is_refused(runs):
+    """ZeRO-3 over a gloo process group is refused naming ROADMAP.md A.4c
+    (the mesh's all_gather and psum_scatter over process groups)."""
+    for res in runs[2]:
+        out = res["probe"]["zero3"]
+        assert out.startswith("NotImplementedError") and \
+            "ROADMAP.md A.4c" in out and "stage 3" in out, out
 
 
 def test_the_worker_side_imports_no_jax():
