@@ -8,14 +8,18 @@ phase prints {"phase": ..., "ok": false, "error": ...} and the script exits
 1 without a result):
 
 1. device: the card's name and power limit (nvidia-smi), TF32 off, and the
-   build of deepspeed_tpu_torch/csrc/*.cu into build/torch_kernels/.
+   build of deepspeed_tpu_torch/csrc/*.cu into build/torch_kernels/; the
+   two cuobjdump dumps of the built library start here in the background,
+   and a `device_resources` line after phase 2 prints what they read
+   (registers, stack bytes, SASS counts), in every mode.
 2. parity: every kernel against its plain PyTorch twin on the same CUDA
    tensors at the serving and training paths' shapes, with the tolerances
    below.  Each case is timed with CUDA events (median device time of 30
    runs after a warm-up, L2 flushed and the card kept busy while the host
    enqueues, so the events see the device alone), beside its bound, one
-   PyTorch library call as a yardstick, and the host's cost of one launch
-   (host_us).  That timer cannot see below its own ~8 µs, so kernel C's and
+   PyTorch library call as a yardstick (the plain twin and the library call
+   median of 5 runs), and the host's cost of one launch (host_us).  That
+   timer cannot see below its own ~8 µs, so kernel C's and
    LayerNorm's bf16 cases add a batched timer (batched_us: 64 launches
    under one pair of events after a spin kernel, rotating over copies of
    the operands that exceed twice the L2, so that each launch reads cold
@@ -406,13 +410,37 @@ and `tensorboard` blocks), after phase 27:
    its next loss within 2e-2.
 35. train_zero3_fused: graphed vs eager at stage 3 on one card (gas 2,
    dropout 0.1, off and carried), bitwise, a replay's launches traced.
+36. offload_grads: bench_offload's model (dropout off, one row), 3 steps
+   of the host tier (offload_optimizer cpu) against the device-resident
+   stage-2 engine from the same weights (losses 2e-2, each leaf of the
+   master's update 0.05 of the engine's, a skipped step above it);
+   the NVMe tier bitwise the host tier (losses, device parameters,
+   master, moments); a save resumed in a new engine bitwise; the native
+   Adam's thread count, the aio backend and the swap directory's file
+   system.
+37. train_offload: bench.py::bench_offload at gas 1, timed as train, and
+   at gas 4 over 3 + 10 steps: tokens/s beside train's, the step split (device, D2H, host
+   Adam, H2D), peak GiB beside train's, the pinned host bytes, A/B/D/E a
+   step (train's exactly).
+38. train_offload_nvme: the same row with offload_optimizer nvme, 2 + 10
+   steps: tokens/s, the sweep's read and write GB/s, exposed I/O s.
+39. infinity_grads: bench_infinity's model (dropout off), 2 steps with
+   offload_param cpu and nvme against the stage-2 engine with the host
+   tier (losses 2e-2, the master's update as in 36); the launch counters
+   a rematted step's.
+40. train_infinity: bench.py::bench_infinity (bench_infinity_stream's
+   buffer_count 2, dropout 0.1) at prefetch depth 2 and 0 in turns, 2 + 4
+   steps each: the two trajectories and masters bitwise, tokens/s, at
+   most 2 groups on the card, peak GiB, the swap report.
 
 Then the `kernels` line (launches by path: bf16, int8, train, train_fp16,
 checkpoint, train_dp, checkpoint_dp, train_mp (every process's launches
 summed), train_fused, train_fused_mp, resilience, monitor, monitor_mp,
 zero3 paths (train_zero3, train_zero3_fcm, checkpoint_zero3,
-train_zero3_fused), train_sparse, train_longseq, train_medium,
-train_large, train_fused_large, fcm; and for the fused paths the traced
+train_zero3_fused), the offload paths (offload: train_offload,
+offload_nvme: train_offload_nvme, infinity: train_infinity),
+train_sparse, train_longseq, train_medium, train_large,
+train_fused_large, fcm; and for the fused paths the traced
 launches of their profiled replays, which no counter sees) and, last,
 {"ok": true,
 "device": {...}}.  A capture that fails fails its
@@ -442,6 +470,12 @@ phases 20-23 alone, and prints no `kernels` line.
 runs phase 1, the parity cases of kernels A, B, D and E and phases 31-35
 alone, and prints no `kernels` line.
 
+    python3 chip_smoke.py --offload-only
+
+runs phase 1, the parity cases of kernels A, B, D and E, phase 8 (train,
+for the offload rows' comparison) and phases 36-40 alone, and prints no
+`kernels` line.
+
     python3 chip_smoke.py --fused-only
 
 runs phase 1, the parity cases of kernels A, B, D and E, phases 24-27,
@@ -460,6 +494,7 @@ alone, the W ranks spread over every visible card (one each on a host with
 four), and prints no `kernels` line.
 """
 
+import atexit
 import contextlib
 import csv
 import ctypes
@@ -526,6 +561,9 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 TIMED_RUNS = 30
+# the plain twin's and the library call's runs: yardsticks beside the
+# kernel's 30 (fewer, to keep the whole script inside its time limit)
+YARDSTICK_RUNS = 5
 SPIN_CYCLES = 2_000_000  # ~1 ms of torch.cuda._sleep: longer than any enqueue
 BATCH, PROMPT, NEW_TOKENS = 8, 128, 128
 TIMING_ROUNDS = 6  # timed generates per engine, in turns
@@ -632,6 +670,9 @@ def check_aligned(path):
 # phase 1
 # --------------------------------------------------------------------- #
 def phase_device():
+    """The card, TF32 off, the kernels' build; cuobjdump's two dumps of the
+    built library start in the background, to run under the parity phase
+    (run_parity reads them after it)."""
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -651,23 +692,81 @@ def phase_device():
                "build_seconds": round(seconds, 3),
                "nvcc_seconds": op_builder.build_seconds,
                "sources": [s.split("deepspeed_tpu_torch/")[-1]
-                           for s in op_builder.sources()],
-               "flash_tensor_core_resources": tensor_core_resources(lib),
-               "fcm_tensor_core_sass": fcm_tensor_core_sass(lib),
-               "wide_and_gemv_resources": wide_and_gemv_resources(lib),
-               "layer_norm_resources": layer_norm_resources(lib),
-               "collect_resources": collect_resources(lib)}
-    cuobjdump.cache_clear()  # the SASS dump is large
+                           for s in op_builder.sources()]}
+    start_cuobjdumps(lib)
     return card, summary
+
+
+def phase_device_resources():
+    """The built library's registers, stack bytes and SASS counts, read
+    from the cuobjdump dumps that phase_device started."""
+    lib = op_builder.build()
+    out = {"flash_tensor_core_resources": tensor_core_resources(lib),
+           "fcm_tensor_core_sass": fcm_tensor_core_sass(lib),
+           "wide_and_gemv_resources": wide_and_gemv_resources(lib),
+           "layer_norm_resources": layer_norm_resources(lib),
+           "collect_resources": collect_resources(lib)}
+    cuobjdump.cache_clear()  # the SASS dump is large
+    return None, out
+
+
+# the dumps phase_device starts in the background: flag -> (process, file),
+# or the OSError that kept it from starting
+_DUMPS = {}
+CUOBJDUMP_FLAGS = ("--dump-resource-usage", "-sass")
+
+
+def start_cuobjdumps(lib_path):
+    """Start cuobjdump's two dumps of the library, each into a file under
+    build/ (a pipe would stall the dump until read); stop_cuobjdumps ends
+    and removes them at exit at the latest."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    atexit.register(stop_cuobjdumps)
+    for flag in CUOBJDUMP_FLAGS:
+        fd, path = tempfile.mkstemp(prefix="chip_smoke_cuobjdump_",
+                                    dir=CKPT_DIR)
+        try:
+            with os.fdopen(fd, "w") as out:
+                _DUMPS[flag] = (subprocess.Popen(
+                    [tool, flag, lib_path], stdout=out,
+                    stderr=subprocess.DEVNULL), path)
+        except OSError as e:  # no cuobjdump: the readers report why
+            os.remove(path)
+            _DUMPS[flag] = e
+
+
+def stop_cuobjdumps():
+    for entry in _DUMPS.values():
+        if isinstance(entry, OSError):
+            continue
+        proc, path = entry
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        with contextlib.suppress(OSError):
+            os.remove(path)
+    _DUMPS.clear()
 
 
 @functools.lru_cache(maxsize=None)
 def cuobjdump(lib_path, flag):
     """cuobjdump's `flag` output for the built library (--dump-resource-usage
-    or -sass), run once and shared by the readers below."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    return subprocess.run([tool, flag, lib_path], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
+    or -sass): the dump that phase_device started, waited for once and
+    shared by the readers below."""
+    entry = _DUMPS.pop(flag)
+    if isinstance(entry, OSError):
+        raise entry
+    proc, path = entry
+    try:
+        code = proc.wait(timeout=300)
+        if code != 0:
+            raise subprocess.CalledProcessError(code, [flag, lib_path])
+        with open(path) as f:
+            return f.read()
+    finally:
+        with contextlib.suppress(OSError):
+            os.remove(path)
 
 
 def tensor_core_resources(lib_path):
@@ -812,7 +911,7 @@ def fcm_tensor_core_sass(lib_path):
 _flush = None
 
 
-def time_ms(fn, before=None):
+def time_ms(fn, before=None, runs=TIMED_RUNS):
     """Median device ms of one call, CUDA events, L2 flushed before each
     run.  A spin kernel keeps the card busy while the host enqueues the
     call, so that the events measure the device's time and not the host's
@@ -824,7 +923,7 @@ def time_ms(fn, before=None):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     times = []
-    for _ in range(TIMED_RUNS):
+    for _ in range(runs):
         if before is not None:
             before()
         _cold_l2()
@@ -896,8 +995,10 @@ def host_us(fn, calls=200):
 def timings(kernel, plain, library):
     """Device ms of the kernel, its plain twin and the library call, and
     the host µs of one kernel and one library launch."""
-    return {"ms": time_ms(kernel), "plain_ms": time_ms(plain),
-            "library_ms": time_ms(library), "host_us": host_us(kernel),
+    return {"ms": time_ms(kernel),
+            "plain_ms": time_ms(plain, runs=YARDSTICK_RUNS),
+            "library_ms": time_ms(library, runs=YARDSTICK_RUNS),
+            "host_us": host_us(kernel),
             "library_host_us": host_us(library)}
 
 
@@ -1265,9 +1366,10 @@ def case_flash_bwd(b, h, s, d, causal, dtype, fused=False, rate=0.0):
                      "repeat",
         "rel_err": errs, "max_abs_err": max_err, **extra,
         "plain_ms": time_ms(lambda: flash_attention_bwd_reference(
-            q, k, v, out, lse, do, **kw)),
+            q, k, v, out, lse, do, **kw), runs=YARDSTICK_RUNS),
         "library_ms": time_ms(lambda: torch.autograd.grad(
-            sdpa, (qg, kg, vg), do, retain_graph=True)),
+            sdpa, (qg, kg, vg), do, retain_graph=True),
+            runs=YARDSTICK_RUNS),
         "launches": launches}
     # SDPA's backward: five products (S, dP, dV, dK, dQ)
     res["library_tflops"] = tflops(5 * 2 * b * h * d * pairs,
@@ -1612,17 +1714,19 @@ def case_block_sparse(kind, b, h, s, d, block, dtype, causal, fused=False):
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
     sdpa = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
     plain_bwd_ms = time_ms(lambda: block_sparse_flash_bwd_reference(
-        q, k, v, out, lse, do, fidx, fvalid, block, causal))
+        q, k, v, out, lse, do, fidx, fvalid, block, causal),
+        runs=YARDSTICK_RUNS)
     library_bwd_ms = time_ms(lambda: torch.autograd.grad(
-        sdpa, (qg, kg, vg), do, retain_graph=True))
+        sdpa, (qg, kg, vg), do, retain_graph=True), runs=YARDSTICK_RUNS)
     launches = {}
     for name, fn, products, nbytes, err, plain_ms, library_ms in (
             ("block_sparse_flash_fwd",
              lambda: block_sparse_flash_fwd_cuda(*fwd), 2,
              4 * operand + stats, out_err,
-             time_ms(lambda: block_sparse_flash_fwd_reference(*fwd)),
+             time_ms(lambda: block_sparse_flash_fwd_reference(*fwd),
+                     runs=YARDSTICK_RUNS),
              time_ms(lambda: F.scaled_dot_product_attention(
-                 q, k, v, attn_mask=mask))),
+                 q, k, v, attn_mask=mask), runs=YARDSTICK_RUNS)),
             ("block_sparse_flash_bwd_dq",
              lambda: block_sparse_flash_bwd_dq_cuda(*bwd, fidx, fvalid,
                                                     block, causal), 3,
@@ -2212,7 +2316,8 @@ def case_fcm_rs_collect(kc, n, world=FCM_WORLD, offset=0):
            "bitwise": bitwise, "repeat_bitwise": repeat,
            "plan": plan._asdict(), "plan_agrees": plan_agrees,
            "max_abs_err": (out - ref).abs().max().item(),
-           "ms": time_ms(kernel), "plain_ms": time_ms(plain),
+           "ms": time_ms(kernel),
+           "plain_ms": time_ms(plain, runs=YARDSTICK_RUNS),
            "library_ms": None, "host_us": host_us(kernel),
            "bound_ms": b_ms, "bound_by": b_by}
     if world == FCM_WORLD and offset == 0 and (kc, n) in FCM_COLLECT_TIMED:
@@ -2488,8 +2593,10 @@ def phase_parity():
     results, failed = {}, []
     for group, (fn, cases) in PARITY_CASES.items():
         for args in cases:
+            t0 = time.perf_counter()
             res = fn(*args)
-            emit({"phase": "parity", "kernel": group, **res})
+            emit({"phase": "parity", "kernel": group, **res,
+                  "case_seconds": round(time.perf_counter() - t0, 3)})
             if args == PRIMARY.get(group):
                 for name in REPORTS_FOR.get(group, (group,)):
                     per_launch = res.get("launches", {}).get(name, {})
@@ -2499,6 +2606,14 @@ def phase_parity():
     check(not failed, f"kernels disagree with their plain twins: {failed}")
     n_cases = sum(len(c) for _, c in PARITY_CASES.values())
     return results, {"cases": n_cases}
+
+
+def run_parity():
+    """Phase 2, then the `device_resources` line from phase 1's dumps:
+    phase 2's results."""
+    results = run_phase("parity", phase_parity)
+    run_phase("device_resources", phase_device_resources)
+    return results
 
 
 # --------------------------------------------------------------------- #
@@ -6036,6 +6151,518 @@ DP_PARITY = ("layer_norm_kernels", "layer_norm_fwd", "layer_norm_bwd",
              "flash_attention_bwd")
 
 
+# --------------------------------------------------------------------- #
+# phases 36-40: the offload tier (ZeRO-Offload's host and NVMe Adam on the
+# stage-2 engine, ZeRO-Infinity's layer streaming)
+# --------------------------------------------------------------------- #
+OFFLOAD_GRADS_STEPS = 3  # offload_grads: steps a tier; then 2 resumed
+OFFLOAD_RESUMED = 2
+# offload_grads / infinity_grads: each leaf's update against the
+# reference's (hold_master).  On an H100 the sound tiers' worst leaf read
+# 8.1e-3 (3 steps) and 4.3e-3 (2 steps), a skipped last step at least 0.27
+# and 0.44: the limit sits between, 6x and 5x from each
+UPDATE_REL_TOL = 0.05
+# train_offload's timed steps at gas 4: each takes four micro-batches, so
+# these 10 see more tokens than gas 1's 30
+OFFLOAD_GAS4_ITERS = 10
+OFFLOAD_NVME_WARMUP, OFFLOAD_NVME_ITERS = 2, 10
+# bench.py::bench_infinity (bench.py:1455-1503): batch 4 x 1024, AdamW lr
+# 6e-4, bf16, stage 3, parameters and optimizer state on NVMe; with
+# bench_infinity_stream's buffer_count 2 and prefetch_depth 2 against 0
+INF_MICRO = 4
+INF_WARMUP, INF_ITERS = 2, 4
+INF_ROUNDS = 2  # timed turns of one step: depth 2, 0, 0, 2
+INF_GRADS_STEPS = 2
+
+
+def offload_config(gas=1, device="cpu", nvme_path=None, micro=TRAIN_BATCH):
+    """bench.py::bench_offload's config (bench.py:1380-1410): bench_gpt2's
+    with offload_optimizer on `device`, at `gas`."""
+    oo = {"device": device}
+    if nvme_path is not None:
+        oo["nvme_path"] = nvme_path
+    return dict(BENCH_GPT2_CONFIG, train_micro_batch_size_per_gpu=micro,
+                gradient_accumulation_steps=gas,
+                zero_optimization={"stage": 2, "offload_optimizer": oo})
+
+
+def infinity_config(nvme_path, params="nvme", optimizer="nvme", depth=2,
+                    buffer_count=2):
+    """bench.py::bench_infinity's config, the swap files under nvme_path;
+    `params` / `optimizer` the offload devices."""
+    zo = {"stage": 3,
+          "offload_param": {"device": params, "nvme_path": nvme_path,
+                            "buffer_count": buffer_count,
+                            "prefetch_depth": depth}}
+    if optimizer is not None:
+        zo["offload_optimizer"] = {"device": optimizer,
+                                   "nvme_path": nvme_path}
+    return {"train_micro_batch_size_per_gpu": INF_MICRO,
+            "optimizer": {"type": "AdamW", "params": {"lr": 6e-4}},
+            "bf16": {"enabled": True}, "zero_optimization": zo,
+            "steps_per_print": 10 ** 9, "mesh": {"data": 1}}
+
+
+def fs_type(path):
+    """The file system type of the mount that holds `path` (/proc/mounts)."""
+    real, best, kind = os.path.realpath(path), "", None
+    with open("/proc/mounts") as f:
+        for line in f:
+            parts = line.split()
+            mnt = parts[1]
+            if (real == mnt or real.startswith(mnt.rstrip("/") + "/")) \
+                    and len(mnt) >= len(best):
+                best, kind = mnt, parts[2]
+    return kind
+
+
+def run_steps(engine, ids, steps):
+    """`steps` forward / backward / step calls on one batch: the losses."""
+    out = []
+    for _ in range(steps):
+        loss = engine.forward(ids)
+        engine.backward(loss)
+        engine.step()
+        out.append(loss.item())
+    return out
+
+
+def tier_state(engine):
+    """The offload tier's fp32 master, exp_avg and exp_avg_sq by JAX leaf
+    number (either tier), as CPU tensors."""
+    tier = engine.optimizer
+    sd = tier.state_dict()
+    n = len(tier.leaf_map.leaves)
+    if "exp_avg" in sd:
+        params = [torch.as_tensor(np.asarray(tier.leaf_map.tree_leaf(
+            sd["params"], k))) for k in range(n)]
+        return {"param": params,
+                "exp_avg": [sd["exp_avg"][str(k)] for k in range(n)],
+                "exp_avg_sq": [sd["exp_avg_sq"][str(k)] for k in range(n)]}
+    return {kind: [torch.as_tensor(np.asarray(sd[f"leaf{k}_{kind}"]))
+                   for k in range(n)]
+            for kind in ("param", "exp_avg", "exp_avg_sq")}
+
+
+def same_bits(a, b):
+    """Whether two tier_state()s (or tensor lists) hold the same bits."""
+    if isinstance(a, dict):
+        return all(same_bits(a[k], b[k]) for k in a)
+    return len(a) == len(b) and all(
+        torch.equal(x.reshape(-1).view(torch.int32),
+                    y.reshape(-1).view(torch.int32)) for x, y in zip(a, b))
+
+
+def update_errors(tree, ref, start, hidden):
+    """Two JAX GPT-2 trees that left `start` compared leaf by leaf: how far
+    each leaf's update is from the reference's, ||tree - ref|| /
+    ||ref - start||.  A leaf that was not updated reads 1.  The key third
+    of attn_qkvb is left out, as the CPU tests leave it out: its true
+    gradient is zero (softmax is shift-invariant along the keys), so its
+    grads are only rounding noise."""
+    from deepspeed_tpu_torch.utils.tree import tree_flatten
+
+    def cut(t):
+        t = {k: (dict(v) if isinstance(v, dict) else v) for k, v in t.items()}
+        b = np.asarray(t["h"]["attn_qkvb"])
+        t["h"]["attn_qkvb"] = np.concatenate(
+            [b[:, :hidden], b[:, 2 * hidden:]], axis=1)
+        return t
+
+    leaves = [tree_flatten(cut(t))[0] for t in (tree, ref, start)]
+    errs = {}
+    for name, o, r, w0 in zip(leaf_paths(ref), *leaves):
+        o, r, w0 = (np.asarray(x, np.float64) for x in (o, r, w0))
+        errs[name] = float(np.linalg.norm(o - r) / np.linalg.norm(r - w0))
+    return errs
+
+
+def hold_master(tree, ref, start, short, hidden, what):
+    """Every leaf's update held against the reference's at UPDATE_REL_TOL
+    (update_errors), and the limit against a skipped step: `short`, the
+    reference's own tree one step before `ref`, is what a tier that
+    skipped the last step would hold, and must read above the limit in
+    every leaf.  Returns the summary's fields."""
+    errs = update_errors(tree, ref, start, hidden)
+    skipped = update_errors(short, ref, start, hidden)
+    worst = max(errs, key=errs.get)
+    least = min(skipped, key=skipped.get)
+    check(skipped[least] > UPDATE_REL_TOL,
+          f"{what}: a skipped step reads {skipped[least]} at {least}, "
+          f"inside the limit {UPDATE_REL_TOL}")
+    check(errs[worst] <= UPDATE_REL_TOL,
+          f"{what}: the updates vs the reference's {errs}")
+    return {"worst_update_leaf": worst,
+            "worst_update_rel_err": errs[worst], "update_rel_err": errs,
+            "skipped_step_least_leaf": least,
+            "skipped_step_least_rel_err": skipped[least]}
+
+
+def leaf_paths(tree, prefix=""):
+    """The dotted paths of a nested dict's leaves, in JAX order."""
+    out = []
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            out += leaf_paths(tree[k], f"{prefix}{k}.")
+        else:
+            out.append(prefix + k)
+    return out
+
+
+
+
+def phase_offload_grads(state):
+    """bench_offload's model with dropout off, one row of 1024 tokens, 3
+    steps: the host tier (offload_optimizer cpu) against the device-
+    resident stage-2 engine from the same weights (losses 2e-2, each leaf
+    of the fp32 master's update against the engine's: hold_master); the NVMe
+    tier's trajectory, device parameters, master and moments bitwise the
+    host tier's; a save after the 3 steps resumed in a new engine bitwise
+    for 2 more steps.  The launch counters exact."""
+    from deepspeed_tpu_torch.models.convert import gpt2_params_to_jax
+    from deepspeed_tpu_torch.ops.adam import num_threads
+    cfg = gpt2_124m_train(embd_dropout=0.0, attn_dropout=0.0,
+                          hidden_dropout=0.0)
+    ids = torch.from_numpy(bench_ids(cfg, 1))
+    steps = OFFLOAD_GRADS_STEPS
+    gc_cuda()
+    ref = train_engine(cfg, state, dict(BENCH_GPT2_CONFIG,
+                                        train_micro_batch_size_per_gpu=1))
+    ref_losses = run_steps(ref, ids, steps - 1)
+    short = gpt2_params_to_jax(dict(ref.module.named_parameters()), cfg)
+    ref_losses += run_steps(ref, ids, 1)
+    ref_tree = gpt2_params_to_jax(dict(ref.module.named_parameters()), cfg)
+    del ref
+    gc_cuda()
+    reset_launch_counts()
+    cpu = train_engine(cfg, state, offload_config(micro=1))
+    losses = run_steps(cpu, ids, steps)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {k: steps * v for k, v in step_counts(cfg).items()}
+    check(counts == want, f"launch counts {counts}, expected {want}")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    check(loss_err <= LOSS_REL_TOL, f"losses {losses} vs {ref_losses}")
+    out = {"losses": losses, "device_engine_losses": ref_losses,
+           "loss_rel_err": loss_err,
+           **hold_master(cpu.optimizer.master_params, ref_tree,
+                         gpt2_params_to_jax(state, cfg), short,
+                         cfg.hidden_size, "cpu tier"),
+           "native_adam_threads": num_threads(),
+           "launches_per_step": step_counts(cfg)}
+    with checkpoint_dir() as swap:
+        gc_cuda()
+        nvme = train_engine(cfg, state, offload_config(
+            micro=1, device="nvme", nvme_path=swap))
+        nvme_losses = run_steps(nvme, ids, steps)
+        check(nvme_losses == losses,
+              f"nvme losses {nvme_losses} vs cpu {losses}")
+        check(same_bits(tier_state(nvme), tier_state(cpu)),
+              "the nvme tier's master / moments differ from the cpu tier's")
+        check(torch.equal(nvme._flats[0], cpu._flats[0]),
+              "the nvme engine's device parameters differ")
+        from deepspeed_tpu_torch.runtime.swap_tensor.aio_handle import (
+            io_uring_available)
+        out.update(aio_backend=nvme.optimizer.aio_backend,
+                   io_uring_available=io_uring_available(),
+                   swap_fs=fs_type(swap), nvme_bitwise=True,
+                   nvme_sweep=nvme.optimizer.last_sweep_stats)
+        del nvme
+    with checkpoint_dir() as ckpt:
+        cpu.save_checkpoint(ckpt, tag="resume")
+        cont = run_steps(cpu, ids, OFFLOAD_RESUMED)
+        gc_cuda()
+        fresh = train_engine(cfg, state, offload_config(micro=1))
+        fresh.load_checkpoint(ckpt, tag="resume")
+        resumed = run_steps(fresh, ids, OFFLOAD_RESUMED)
+        check(resumed == cont, f"resumed {resumed} vs {cont}")
+        check(same_bits(tier_state(fresh), tier_state(cpu))
+              and torch.equal(fresh._flats[0], cpu._flats[0]),
+              "the resumed engine's state differs")
+        out.update(resumed_losses=resumed, resume_bitwise=True)
+    del cpu, fresh
+    gc_cuda()
+    return None, out
+
+
+def timed_offload(cfg, state, ds_config, warmup, iters, train_summary,
+                  after_step=None):
+    """One offload row timed as phase_train (warmup, then `iters`
+    train_batch calls on the host clock; each reads its loss, as the
+    host tier synchronises a step anyway): tokens/s beside train's, the
+    step split (device ms of a profiled step, the grads' copy to the host,
+    the host tier's step, the parameters' copy back), the card's peak GiB
+    beside train's, the pinned host bytes, A/B/D/E a step (train's
+    exactly).  `after_step(engine)` runs after each timed step, outside
+    the clock.  Returns the counts, the summary and the engine."""
+    gas = ds_config["gradient_accumulation_steps"]
+    gc_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    engine = train_engine(cfg, state, ds_config)
+    check(engine._fused is None and engine._offload is not None,
+          "the offload engine runs the modular loop")
+    batches = repeat_batch(bench_ids(cfg, TRAIN_BATCH))
+    reset_launch_counts()
+    losses = [engine.train_batch(batches) for _ in range(warmup)]
+    seconds = 0.0
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        losses.append(engine.train_batch(batches))
+        seconds += time.perf_counter() - t0
+        if after_step is not None:
+            after_step(engine)
+    counts = launch_counts()
+    per_step = {k: gas * v for k, v in step_counts(cfg).items()}
+    check(per_step == {k: gas * v for k, v in
+                       train_summary["launches_per_step"].items()},
+          f"a step's launches {per_step}, train's x {gas}")
+    check(counts == {k: (warmup + iters) * v for k, v in per_step.items()},
+          f"launch counts {counts} over {warmup + iters} steps, a step "
+          f"{per_step}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"losses {losses}")
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    wall_ms, busy_ms, _, _ = _profile_once(lambda: engine.train_batch(
+        batches))
+    split = engine.offload_split()
+    rate = iters * gas * TRAIN_BATCH * TRAIN_SEQ / seconds
+    return counts, {
+        "gas": gas, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+        "tokens_per_s": rate, "train_tokens_per_s":
+            train_summary["tokens_per_s"],
+        "vs_train": rate / train_summary["tokens_per_s"],
+        "ms_per_step": seconds / iters * 1e3,
+        "mfu": rate * cfg.flops_per_token() / PEAK_OPS_PER_S[torch.bfloat16],
+        "first_loss": losses[0], "final_loss": losses[-1],
+        "steps": warmup + iters, "timed_steps": iters,
+        "profiled_step_wall_ms": wall_ms,
+        "profiled_step_device_ms": busy_ms,
+        "device_busy_share": busy_ms / wall_ms, "step_split_ms": split,
+        "peak_memory_gib": peak,
+        "train_peak_memory_gib": train_summary["peak_memory_gib"],
+        "pinned_host_bytes": engine._offload.pinned_bytes,
+        "launches_per_step": per_step}, engine
+
+
+def phase_train_offload(state, train_summary):
+    """bench.py::bench_offload at gas 1 (DS_BENCH_GAS), timed as train
+    (3 + 30 steps), and at gas 4 over 3 + OFFLOAD_GAS4_ITERS steps."""
+    cfg = gpt2_124m_train()
+    out, counts = {}, []
+    for gas, iters in ((1, TRAIN_ITERS), (4, OFFLOAD_GAS4_ITERS)):
+        c, out[f"gas{gas}"], engine = timed_offload(
+            cfg, state, offload_config(gas), TRAIN_WARMUP, iters,
+            train_summary)
+        counts.append(c)
+        del engine
+    gc_cuda()
+    return add_counts(*counts), out
+
+
+def phase_train_offload_nvme(state, train_summary):
+    """bench_offload's row with the optimizer tier in files
+    (offload_optimizer nvme), 2 + 10 steps: tokens/s, the sweep's read and
+    write GB/s (bytes over the sweep's wall time) and its exposed I/O
+    seconds (the host's waits for reads and write-backs), the medians of
+    the timed steps."""
+    cfg = gpt2_124m_train()
+    sweeps = []
+    with checkpoint_dir() as swap:
+        counts, out, engine = timed_offload(
+            cfg, state, offload_config(device="nvme", nvme_path=swap),
+            OFFLOAD_NVME_WARMUP, OFFLOAD_NVME_ITERS, train_summary,
+            lambda e: sweeps.append(dict(e.optimizer.last_sweep_stats)))
+        med = lambda f: float(np.median([f(s) for s in sweeps]))  # noqa
+        out.update(
+            aio_backend=engine.optimizer.aio_backend, swap_fs=fs_type(swap),
+            sweep_wall_s=med(lambda s: s["wall_s"]),
+            read_gbps=med(lambda s: s["bytes_read"] / s["wall_s"] / 1e9),
+            write_gbps=med(lambda s: s["bytes_written"] / s["wall_s"] / 1e9),
+            exposed_io_s=med(lambda s: s["read_wait_s"] + s["write_wait_s"]),
+            exposed_read_s=med(lambda s: s["read_wait_s"]),
+            exposed_write_s=med(lambda s: s["write_wait_s"]),
+            host_adam_s=med(lambda s: s["adam_s"]),
+            bytes_read_a_step=sweeps[-1]["bytes_read"],
+            bytes_written_a_step=sweeps[-1]["bytes_written"])
+        del engine
+    gc_cuda()
+    return counts, out
+
+
+def infinity_counts(cfg):
+    """A streamed step's launches: the forward's, then each layer's forward
+    again in the recompute (a rematted step's)."""
+    return step_counts(replace(cfg, activation_checkpointing=True))
+
+
+def infinity_run(cfg, state, ds_config, ids, steps):
+    """(losses, master tree, engine) of `steps` streamed steps, the launch
+    counters exact and at most two groups on the card."""
+    gc_cuda()
+    engine = train_engine(cfg, state, ds_config)
+    check(type(engine).__name__ == "ZeroInfinityEngine",
+          f"initialize returned {type(engine).__name__}")
+    reset_launch_counts()
+    losses = run_steps(engine, ids, steps)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {k: steps * v for k, v in infinity_counts(cfg).items()}
+    check(counts == want, f"launch counts {counts}, expected {want}")
+    check(engine.max_live_param_groups <= 2,
+          f"{engine.max_live_param_groups} groups on the card")
+    return losses, engine.optimizer.master_params, engine
+
+
+def phase_infinity_grads(state):
+    """bench_infinity's model (4 x 1024, bf16, AdamW lr 6e-4), dropout off,
+    2 steps: the streaming engine with its parameters on the host and with
+    parameters and optimizer on NVMe against the stage-2 device engine
+    with the host tier (losses 2e-2, each leaf of the master's update
+    against the engine's: hold_master).  The launch counters exact: a
+    rematted step's.  (Prefetch depth 2 against 0 with dropout is held
+    bitwise in train_infinity, whose two engines take the same steps.)"""
+    from deepspeed_tpu_torch.models.convert import gpt2_params_to_jax
+    cfg = gpt2_124m_train(embd_dropout=0.0, attn_dropout=0.0,
+                          hidden_dropout=0.0)
+    ids = torch.from_numpy(bench_ids(cfg, INF_MICRO))
+    steps = INF_GRADS_STEPS
+    gc_cuda()
+    ref = train_engine(cfg, state, dict(
+        offload_config(micro=INF_MICRO),
+        optimizer={"type": "AdamW", "params": {"lr": 6e-4}}))
+    ref_losses = run_steps(ref, ids, steps - 1)
+    short = ref.optimizer.master_params
+    ref_losses += run_steps(ref, ids, 1)
+    ref_master = ref.optimizer.master_params
+    del ref
+    start = gpt2_params_to_jax(state, cfg)
+    out = {"device_engine_losses": ref_losses,
+           "launches_per_step": infinity_counts(cfg)}
+    with checkpoint_dir() as swap:
+        for params, opt in (("cpu", "cpu"), ("nvme", "nvme")):
+            losses, master, engine = infinity_run(
+                cfg, state, infinity_config(swap, params, opt), ids, steps)
+            err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+            check(err <= LOSS_REL_TOL, f"{params}: losses {losses} ({err})")
+            out[f"params_{params}"] = {
+                "losses": losses, "loss_rel_err": err,
+                **hold_master(master, ref_master, start, short,
+                              cfg.hidden_size, params),
+                "max_live_param_groups": engine.max_live_param_groups}
+            del engine
+    gc_cuda()
+    return None, out
+
+
+def swap_summary(stats):
+    """A streamed row's swap report over its timed steps."""
+    read = sum(s["read_bytes"] for s in stats)
+    window = sum(s["read_hidden_s"] + s["read_exposed_s"] for s in stats)
+    return {"read_gbps": read / window / 1e9 if window else 0.0,
+            "overlap_fraction": (sum(s["overlap_bytes"] for s in stats)
+                                 / read if read else 1.0),
+            "read_exposed_s_a_step": float(np.mean(
+                [s["read_exposed_s"] for s in stats])),
+            "write_exposed_s_a_step": float(np.mean(
+                [s["write_exposed_s"] for s in stats])),
+            "serialized_swap_ins": sum(len(s["serialized_swap_ins"])
+                                       for s in stats),
+            "read_bytes_a_step": stats[-1]["read_bytes"],
+            "write_bytes_a_step": stats[-1]["write_bytes"],
+            "optimizer_sweep_wall_s": float(np.median(
+                [s["optimizer_sweep"]["wall_s"] for s in stats])),
+            "aio_backend": stats[-1]["aio_backend"]}
+
+
+def phase_train_infinity(state):
+    """bench.py::bench_infinity (GPT-2 124M, 4 x 1024, bf16, AdamW lr 6e-4,
+    dropout 0.1, parameters and optimizer state on NVMe) with
+    bench_infinity_stream's buffer_count 2, at prefetch depth 2 and 0: two
+    engines from the same weights, INF_WARMUP warm-up steps each, then
+    INF_ITERS timed steps each in turns (2, 0, 0, 2): tokens/s, the groups
+    on the card (at most 2), the card's peak GiB (each engine's warm-up
+    from its start), the swap report of the timed steps.  Each engine
+    draws its dropout seeds from its own generator and takes the same
+    steps, so the two trajectories and masters must be equal bit for bit
+    (the JAX row holds them at 1e-6)."""
+    from deepspeed_tpu_torch.utils.tree import tree_flatten
+    cfg = gpt2_124m_train()
+    ids = torch.from_numpy(bench_ids(cfg, INF_MICRO))
+    engines, rows, counts = {}, {}, None
+    with checkpoint_dir() as swap:
+        for depth in (2, 0):
+            gc_cuda()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            engines[depth] = eng = train_engine(cfg, state, infinity_config(
+                os.path.join(swap, f"depth{depth}"), depth=depth))
+            warm, added = counts_added(lambda: run_steps(eng, ids,
+                                                         INF_WARMUP))
+            torch.cuda.synchronize()
+            counts = added if counts is None else add_counts(counts, added)
+            rows[depth] = {"losses": warm, "seconds": 0.0, "stats": [],
+                           "peak_memory_gib": (torch.cuda.max_memory_allocated()
+                                               - base) / 2 ** 30}
+        per_round = INF_ITERS // INF_ROUNDS
+        for depth in (2, 0, 0, 2) * (INF_ROUNDS // 2):
+            eng, row = engines[depth], rows[depth]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(per_round):
+                loss, added = counts_added(lambda: run_steps(eng, ids, 1))
+                counts = add_counts(counts, added)
+                row["losses"] += loss
+                row["stats"].append(eng.swap_stats())
+            row["seconds"] += time.perf_counter() - t0
+        steps = INF_WARMUP + INF_ITERS
+        want = {k: 2 * steps * v for k, v in infinity_counts(cfg).items()}
+        check(counts == want, f"launch counts {counts}, expected {want}")
+        m2, m0 = (tree_flatten(engines[d].optimizer.master_params)[0]
+                  for d in (2, 0))
+        check(rows[2]["losses"] == rows[0]["losses"] and all(
+            np.array_equal(a, b) for a, b in zip(m2, m0)),
+            f"prefetch 2 vs 0: losses {rows[2]['losses']} vs "
+            f"{rows[0]['losses']}")
+        out = {"depth_2_vs_0_bitwise": True}
+        for depth, eng in engines.items():
+            row = rows[depth]
+            rate = INF_ITERS * INF_MICRO * TRAIN_SEQ / row["seconds"]
+            check(eng.max_live_param_groups <= 2,
+                  f"depth {depth}: {eng.max_live_param_groups} groups")
+            check(all(np.isfinite(row["losses"]))
+                  and row["losses"][-1] < row["losses"][0],
+                  f"depth {depth}: losses {row['losses']}")
+            out[f"depth{depth}"] = {
+                "tokens_per_s": rate,
+                "ms_per_step": row["seconds"] / INF_ITERS * 1e3,
+                "losses": row["losses"],
+                "max_live_param_groups": eng.max_live_param_groups,
+                "peak_memory_gib": row["peak_memory_gib"],
+                "serialized_swap_steps": eng.serialized_swap_steps,
+                "pinned_host_bytes": eng.pinned_bytes,
+                **swap_summary(row["stats"])}
+        out["depth2_over_depth0"] = (out["depth2"]["tokens_per_s"]
+                                     / out["depth0"]["tokens_per_s"])
+        out["swap_fs"] = fs_type(swap)
+        out["launches_per_step"] = infinity_counts(cfg)
+        del engines, eng
+    gc_cuda()
+    return counts, out
+
+
+def run_offload_phases(state, train_summary, path_counts):
+    """Phases 36-40, their launch counts into the kernel line's map."""
+    run_phase("offload_grads", phase_offload_grads, state)
+    path_counts["offload"] = run_phase("train_offload", phase_train_offload,
+                                       state, train_summary)
+    path_counts["offload_nvme"] = run_phase(
+        "train_offload_nvme", phase_train_offload_nvme, state, train_summary)
+    run_phase("infinity_grads", phase_infinity_grads, state)
+    path_counts["infinity"] = run_phase("train_infinity",
+                                        phase_train_infinity, state)
+
+
 def last_line():
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -6063,7 +6690,7 @@ def main():
         # card (with four cards, one rank each)
         for group in [g for g in PARITY_CASES if not g.startswith("fcm_")]:
             del PARITY_CASES[group]
-        run_phase("parity", phase_parity)
+        run_parity()
         run_phase("fcm_ops", phase_fcm_ops)
         run_phase("fcm_timing", phase_fcm_timing)
         print(card, flush=True)
@@ -6073,7 +6700,7 @@ def main():
         # over every visible card
         for group in [g for g in PARITY_CASES if g not in DP_PARITY]:
             del PARITY_CASES[group]
-        run_phase("parity", phase_parity)
+        run_parity()
         train_state = init_state(gpt2_124m_train())
         run_phase("train_dp_grads", phase_train_dp_grads, train_state)
         run_phase("train_dp", phase_train_dp, train_state)
@@ -6085,7 +6712,7 @@ def main():
         # phases of activation checkpointing and fp16
         for group in [g for g in PARITY_CASES if g not in DP_PARITY]:
             del PARITY_CASES[group]
-        run_phase("parity", phase_parity)
+        run_parity()
         train_state = init_state(gpt2_124m_train())
         _, train_summary = run_phase("train", phase_train, train_state)
         run_phase("train_fp16", phase_train_fp16, train_state, train_summary)
@@ -6101,7 +6728,7 @@ def main():
         # kernels A, B, D, E and the phases of one process a card
         for group in [g for g in PARITY_CASES if g not in DP_PARITY]:
             del PARITY_CASES[group]
-        run_phase("parity", phase_parity)
+        run_parity()
         train_state = init_state(gpt2_124m_train())
         run_phase("train_mp_grads", phase_train_mp_grads, train_state)
         run_phase("train_mp", phase_train_mp, train_state)
@@ -6112,7 +6739,7 @@ def main():
         # kernels A, B, D, E and the runtime monitor's phases
         for group in [g for g in PARITY_CASES if g not in DP_PARITY]:
             del PARITY_CASES[group]
-        run_phase("parity", phase_parity)
+        run_parity()
         train_state = init_state(gpt2_124m_train())
         run_phase("monitor", phase_monitor, train_state)
         run_phase("monitor_mp", phase_monitor_mp, train_state)
@@ -6122,9 +6749,20 @@ def main():
         # kernels A, B, D, E and the ZeRO-3 phases
         for group in [g for g in PARITY_CASES if g not in DP_PARITY]:
             del PARITY_CASES[group]
-        run_phase("parity", phase_parity)
+        run_parity()
         train_state = init_state(gpt2_124m_train())
         run_zero3_phases(train_state, {}, {})
+        print(card, flush=True)
+        return last_line()
+    if sys.argv[1:] == ["--offload-only"]:
+        # kernels A, B, D, E, train (for the offload rows' comparison) and
+        # the offload tier's phases
+        for group in [g for g in PARITY_CASES if g not in DP_PARITY]:
+            del PARITY_CASES[group]
+        run_parity()
+        train_state = init_state(gpt2_124m_train())
+        _, train_summary = run_phase("train", phase_train, train_state)
+        run_offload_phases(train_state, train_summary, {})
         print(card, flush=True)
         return last_line()
     if sys.argv[1:] == ["--fused-only"]:
@@ -6132,7 +6770,7 @@ def main():
         # resilience block (train_large for train_fused_large's comparison)
         for group in [g for g in PARITY_CASES if g not in DP_PARITY]:
             del PARITY_CASES[group]
-        run_phase("parity", phase_parity)
+        run_parity()
         train_state = init_state(gpt2_124m_train())
         run_phase("train_fused_grads", phase_train_fused_grads, train_state)
         run_phase("train_fused_dp", phase_train_fused_dp, train_state)
@@ -6146,7 +6784,7 @@ def main():
                   large)
         print(card, flush=True)
         return last_line()
-    primary = run_phase("parity", phase_parity)
+    primary = run_parity()
 
     cfg = gpt2_124m()
     model = GPT2Model(replace(cfg, bf16=False))
@@ -6194,6 +6832,7 @@ def main():
     path_counts["monitor_mp"] = run_phase("monitor_mp", phase_monitor_mp,
                                           train_state)
     run_zero3_phases(train_state, path_counts, replays_traced)
+    run_offload_phases(train_state, train_summary, path_counts)
     del train_state
 
     run_phase("train_sparse_grads", phase_train_sparse_grads)

@@ -16,7 +16,10 @@ under `quantization_setting`; `initialize` -> `DeepSpeedEngine`
 `load_checkpoint`) over GPT-2 in bf16 or fp32, on the data-parallel ranks
 of the config's "mesh" block, of `mesh=` or of the mesh `initialize_mesh`
 registered.  Checkpoints are the JAX package's layout, so a run moves
-between the packages; `init_inference(checkpoint=...)` serves one.
+between the packages; `init_inference(checkpoint=...)` serves one.  The
+offload tier: `offload_optimizer` keeps the fp32 master and Adam state
+in host memory or files (ZeRO-Offload), and `offload_param` makes
+`initialize` return the layer-streaming ZeroInfinityEngine.
 """
 
 import torch
@@ -70,15 +73,37 @@ def initialize(model=None, config=None, config_params=None, optimizer=None,
     (torchrun's, dslaunch's or OpenMPI's env), then `initialize` with the
     same config; device None means this process's card, the mesh holds one
     rank a process, and each process passes `forward` its own rows.
+    With zero_optimization.offload_optimizer ("cpu" or "nvme") the
+    engine keeps compute-dtype parameters on the card and steps the fp32
+    master in the host tier (ZeRO-Offload); with offload_param (or the
+    legacy cpu_offload_params) it returns a
+    runtime.zero.infinity.ZeroInfinityEngine, which streams the layer
+    groups from host memory or files (ZeRO-Infinity).
+
     Features not ported yet raise NotImplementedError naming their
     ROADMAP.md item."""
-    from .config import DeepSpeedConfigError
-    from .runtime.engine import DeepSpeedEngine
+    from .config import DeepSpeedConfig, DeepSpeedConfigError, ZeroConfig
+    from .config_utils import load_config_dict
+    from .runtime.engine import DeepSpeedEngine, offload_on
 
     cfg = config if config is not None else config_params
     if cfg is None:
         raise DeepSpeedConfigError("DeepSpeed requires a config (dict or path)")
     device = _resolve_device(device, "initialize")
+    # ZeRO-Infinity: offload_param (or the legacy cpu_offload_params) runs
+    # on the layer-streaming engine, as in the JAX package's initialize
+    raw = (cfg._param_dict if isinstance(cfg, DeepSpeedConfig)
+           else load_config_dict(cfg))
+    if offload_on(ZeroConfig.from_dict(
+            raw.get("zero_optimization")).offload_param):
+        from .runtime.zero.infinity import ZeroInfinityEngine
+        engine = ZeroInfinityEngine(
+            model=model, config=cfg, model_parameters=model_parameters,
+            optimizer=optimizer, lr_scheduler=lr_scheduler,
+            training_data=training_data, collate_fn=collate_fn,
+            device=device, mesh=mesh)
+        return (engine, engine.optimizer, engine.training_dataloader,
+                engine.lr_scheduler)
     engine = DeepSpeedEngine(model=model, config=cfg, optimizer=optimizer,
                              model_parameters=model_parameters,
                              lr_scheduler=lr_scheduler,

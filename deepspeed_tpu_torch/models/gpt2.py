@@ -322,3 +322,99 @@ class GPT2Model(nn.Module):
 
     # the JAX model's __call__ is its loss: the engine's entry point
     forward = loss
+
+    # -- layer streaming (ZeRO-Infinity parameter offload) -------------- #
+    def layerwise_api(self):
+        """The model cut into streaming groups for ZeroInfinityEngine
+        (runtime/zero/infinity.py), as the JAX model's layerwise_api:
+        "embed" {wte, wpe}, "layer<i>" {the layer's leaves}, "head"
+        {"ln_f": {w, b}} (and lm_head when untied), each a tree of the JAX
+        split's keys.  `split` / `join` / `join_consuming` map the port's
+        state-dict names to and from the groups; `embed_fn(embed_g, ids,
+        seed)`, `layer_fn(layer_g, h, seed, layer_idx)` and
+        `head_loss_fn(head_g, embed_g, h, ids, labels)` compute on a
+        group's tensors (any dtype: they cast to the model's).  A seed (None
+        for no dropout) takes the place of the JAX rng: layer_fn draws its
+        masks from a generator seeded by (seed, layer_idx), the counterpart
+        of fold_in(rng, layer_idx), so a recompute from the layer's input
+        draws kernel B's dropout mask and the hidden masks again, bit for
+        bit.  The head reads the tied wte from the embed group."""
+        cfg = self.config
+        n = cfg.num_layers
+        layer_names = list(DeepSpeedTransformerLayer.param_shapes(
+            cfg.layer_config()))
+
+        def split(params):
+            groups = {"embed": {"wte": params["wte"], "wpe": params["wpe"]}}
+            for i in range(n):
+                groups[f"layer{i}"] = {k: params[f"h.{i}.{k}"]
+                                       for k in layer_names}
+            head = {"ln_f": {"w": params["ln_f.w"], "b": params["ln_f.b"]}}
+            if not cfg.tie_word_embeddings:
+                head["lm_head"] = params["lm_head"]
+            groups["head"] = head
+            return groups
+
+        def join_consuming(groups):
+            """join, dropping each group from `groups` as it is read."""
+            out = {"wte": groups["embed"]["wte"],
+                   "wpe": groups["embed"]["wpe"]}
+            groups["embed"] = None
+            for i in range(n):
+                layer = groups[f"layer{i}"]
+                groups[f"layer{i}"] = None
+                out.update({f"h.{i}.{k}": layer[k] for k in layer_names})
+            head = groups["head"]
+            groups["head"] = None
+            out["ln_f.w"], out["ln_f.b"] = head["ln_f"]["w"], head["ln_f"]["b"]
+            if not cfg.tie_word_embeddings:
+                out["lm_head"] = head["lm_head"]
+            return {name: out[name] for name, _ in self.named_parameters()}
+
+        def join(groups):
+            return join_consuming(dict(groups))
+
+        def generator_for(seed, device, index):
+            gen = torch.Generator(device=device)
+            gen.manual_seed((int(seed) * 1_000_003 + index + 1) % 2 ** 63)
+            return gen
+
+        def embed_fn(embed_g, input_ids, seed):
+            ids = input_ids.long()
+            pos = torch.arange(ids.shape[1], device=ids.device)
+            h = embed_g["wte"].to(cfg.dtype)[ids] + \
+                embed_g["wpe"].to(cfg.dtype)[pos]
+            if seed is None:
+                return h
+            return dropout(h, cfg.embd_dropout,
+                           generator_for(seed, h.device, -1))
+
+        def layer_fn(layer_g, h, seed, layer_idx):
+            cast = {k: v.to(cfg.dtype) for k, v in layer_g.items()}
+            gen = (None if seed is None
+                   else generator_for(seed, h.device, int(layer_idx)))
+            return functional_call(self.h[layer_idx], cast, (h,),
+                                   {"generator": gen,
+                                    "deterministic": seed is None})
+
+        def head_loss_fn(head_g, embed_g, h, input_ids, labels=None):
+            hs = fused_layer_norm(h, head_g["ln_f"]["w"].to(cfg.dtype),
+                                  head_g["ln_f"]["b"].to(cfg.dtype),
+                                  cfg.layer_norm_eps)
+            head = (embed_g["wte"].to(hs.dtype).T if cfg.tie_word_embeddings
+                    else head_g["lm_head"].to(hs.dtype))
+            hs, targets = self._shift_for_next_token(hs, input_ids.long(),
+                                                     labels)
+            if cfg.fused_loss:
+                return fused_linear_cross_entropy(
+                    hs.reshape(-1, cfg.hidden_size), head,
+                    targets.reshape(-1), cfg.fused_loss_chunk)
+            logits = (hs @ head).float()
+            return torch.nn.functional.cross_entropy(
+                logits.reshape(-1, cfg.vocab_size),
+                targets.reshape(-1).long())
+
+        return {"split": split, "join": join,
+                "join_consuming": join_consuming, "embed_fn": embed_fn,
+                "layer_fn": layer_fn, "head_loss_fn": head_loss_fn,
+                "num_layers": n}

@@ -78,8 +78,8 @@ class MetricsStream:
     reads.  ``flush`` is the boundary call: one batched transfer of the
     window's retained device scalars plus one read each of lr/loss-scale
     (``boundary_fn``), memory stats (of ``device``), and swap stats
-    (``swap_stats_fn``; no port tier has them until offload, ROADMAP.md
-    A.7), then the whole window's records go to the writer thread at
+    (``swap_stats_fn``, which runtime/zero/infinity.py's streaming engine
+    feeds), then the whole window's records go to the writer thread at
     once.  The JAX stream's MoE routing window (``moe_stats_fn``) comes
     with MoE (A.10)."""
 

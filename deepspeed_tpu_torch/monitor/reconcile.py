@@ -11,10 +11,11 @@ slow run says *why* it is slow instead of just *that* it is (the
 ZeRO-Infinity methodology: attribute step time to compute/NVMe/comm
 lanes, arXiv:2104.07857).
 
-The port has no auditor yet (ROADMAP.md A.14) and no offload tier
-(A.7): its engine reconciles with no predictions, so every window's
-payload carries the measured values and an empty comparison, still
-self-describing.  Everything here is pure host math over already-fetched
+The port has no auditor yet (ROADMAP.md A.14): its engines reconcile
+with no predictions, so every window's payload carries the measured
+values and an empty comparison, still self-describing.  The streaming
+engine (runtime/zero/infinity.py) feeds the swap lane: its read rate
+against the aio sweep ceiling that DS_AIO_SWEEP_RESULTS names.  Everything here is pure host math over already-fetched
 numbers, so rigged predicted/measured pairs test the band logic exactly.
 
 Interpretation contract: the predicted step time is a LOWER BOUND —

@@ -4,8 +4,8 @@ and metadata).
 
 Turns the monitor's host-side timeline — step phases (the modular
 path's grad / accumulate / apply dispatch windows, the fused path's one
-whole-window replay), swap-tier I/O lanes (empty until the offload tier,
-ROADMAP.md A.7), and flush boundaries — into trace-event JSON that
+whole-window replay), swap-tier I/O lanes (the streaming engine's reads
+and write-backs, runtime/zero/infinity.py), and flush boundaries — into trace-event JSON that
 chrome://tracing and https://ui.perfetto.dev open directly.
 
 Semantics caveat, stated once and embedded in the trace metadata: spans
@@ -161,8 +161,8 @@ class TraceEventBuffer:
 
     def add_swap_read_events(self, events: List[Dict[str, Any]],
                              step: Optional[int] = None) -> None:
-        """Spans from a streaming engine's swap-in window accounting (the
-        offload tier, ROADMAP.md A.7): the issue→done window per group,
+        """Spans from a streaming engine's swap-in window accounting
+        (runtime/zero/infinity.py): the issue→done window per group,
         plus an explicit `wait` sub-span for the exposed (caller-blocked)
         tail — serialized swap-ins are visible at a glance."""
         if step is not None and not self.note_step(step):

@@ -10,19 +10,31 @@ anew and an unchanged one loads the library already built.
 
 The build happens at first use, inside the process that launches a
 kernel, never at import.  A failed build raises with nvcc's stderr.
+
+The offload tier's host libraries are built here too (`CPUAdamBuilder`,
+`AsyncIOBuilder`, the counterparts of the JAX package's builders): C++
+for the CPU in `deepspeed_tpu_torch/csrc/host/`, compiled by `g++ -O3
+-march=native -pthread` into `build/torch_host/<name>-<hash>.so` at first
+use and loaded with `ctypes`.  Where the JAX package links OpenMP, the
+port's copies run std::threads: the toolchain beside the GPU need not
+ship libgomp.  They read no file outside the port's tree, and a
+failed build raises with g++'s stderr.
 """
 
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import time
-from typing import Optional
+from typing import Dict, List, Optional
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
+HOST_CSRC_DIR = os.path.join(CSRC_DIR, "host")
+HOST_BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_host")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 LIB_NAME = "libds_torch_kernels"
@@ -225,3 +237,110 @@ def check_launch(name: str, err: int) -> None:
         msg = load().ds_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA launch failed: error {err} "
                            f"({msg})")
+
+
+# --------------------------------------------------------------------- #
+# the offload tier's host libraries (g++, loaded with ctypes)
+# --------------------------------------------------------------------- #
+def _cpu_identity() -> str:
+    """The CPU model and ISA flags that -march=native binds the library
+    to: part of the build's key, so a library built on another host is
+    never loaded."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith(("model name", "flags", "Features")):
+                    return line.strip()
+    except OSError:
+        pass
+    return platform.processor() or "unknown-cpu"
+
+
+class HostOpBuilder:
+    """Compile-and-load of one host library (the JAX package's OpBuilder):
+    `sources()` under csrc/host/, `headers()` that key the build without
+    being compiled, `ldflags()`.  `load()` returns the ctypes.CDLL, built
+    first when this hash has none."""
+
+    NAME = "base"
+    _cache: Dict[str, ctypes.CDLL] = {}
+
+    def sources(self) -> List[str]:
+        raise NotImplementedError
+
+    def headers(self) -> List[str]:
+        return []
+
+    def cxx_flags(self) -> List[str]:
+        return ["-O3", "-std=c++17", "-fPIC", "-shared", "-march=native",
+                "-pthread"]
+
+    def ldflags(self) -> List[str]:
+        return []
+
+    @staticmethod
+    def compiler() -> str:
+        return os.environ.get("CXX", "g++")
+
+    def _hash(self) -> str:
+        h = hashlib.sha256()
+        for path in self.sources() + self.headers():
+            with open(path, "rb") as f:
+                h.update(f.read())
+        h.update(" ".join(self.cxx_flags() + self.ldflags()).encode())
+        h.update(platform.machine().encode())
+        h.update(_cpu_identity().encode())
+        return h.hexdigest()[:16]
+
+    def lib_path(self) -> str:
+        return os.path.join(HOST_BUILD_DIR, f"{self.NAME}-{self._hash()}.so")
+
+    def build(self) -> str:
+        path = self.lib_path()
+        if os.path.exists(path):
+            return path
+        os.makedirs(HOST_BUILD_DIR, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = ([self.compiler()] + self.cxx_flags() + self.sources()
+               + self.ldflags() + ["-o", tmp])
+        try:
+            subprocess.run(cmd, capture_output=True, check=True, text=True)
+        except (OSError, subprocess.CalledProcessError) as e:
+            err = getattr(e, "stderr", None) or str(e)
+            raise RuntimeError(f"host library {self.NAME} failed to build:\n"
+                               f"$ {' '.join(cmd)}\n{err}") from e
+        os.replace(tmp, path)  # atomic against a concurrent builder
+        return path
+
+    def load(self) -> ctypes.CDLL:
+        key = self.lib_path()
+        if key not in HostOpBuilder._cache:
+            HostOpBuilder._cache[key] = ctypes.CDLL(self.build())
+        return HostOpBuilder._cache[key]
+
+
+class CPUAdamBuilder(HostOpBuilder):
+    """The host Adam / AdamW of the offload tier (csrc/host/host_adam.cpp)."""
+
+    NAME = "cpu_adam"
+
+    def sources(self):
+        return [os.path.join(HOST_CSRC_DIR, "host_adam.cpp")]
+
+
+class AsyncIOBuilder(HostOpBuilder):
+    """The async file I/O engines of the NVMe tier: the thread-pool and
+    batched engines (csrc/host/host_aio.cpp) and the io_uring engine
+    (uring_aio.cpp), which is compiled everywhere and probed at run time."""
+
+    NAME = "async_io"
+
+    def sources(self):
+        return [os.path.join(HOST_CSRC_DIR, "host_aio.cpp"),
+                os.path.join(HOST_CSRC_DIR, "uring_aio.cpp")]
+
+    def headers(self):
+        return [os.path.join(HOST_CSRC_DIR, "aio_backend.h")]
+
+    def ldflags(self):
+        return ["-lpthread"]

@@ -15,7 +15,9 @@ sequence index as `[i]` and a named-tuple field as `.name`, the dict keys
 taken in sorted order as JAX flattens them; None and empty containers hold
 no leaf.  So the files of either package load in the other.  numpy has no
 bfloat16, and the engines keep their state in fp32 and int32: a bf16 leaf
-is refused rather than written as something else.  Loading maps the
+is refused rather than written as something else.  The JAX package's
+offload engine writes its module tree in bf16 (ml_dtypes), which reads
+back here as 2-byte void items: a load takes those as bf16 bits.  Loading maps the
 arrays back onto a template tree of the same structure, each cast to its
 template leaf's dtype.
 """
@@ -83,6 +85,16 @@ def _leaf_dtype(leaf):
     return getattr(leaf, "dtype", None)
 
 
+def _from_bf16_bits(arr: np.ndarray) -> np.ndarray:
+    """A bf16 array as the JAX package writes it (ml_dtypes' bfloat16,
+    which np.load reads back as 2-byte void items) in fp32; any other
+    array as it is."""
+    if arr.dtype.kind != "V" or arr.dtype.itemsize != 2:
+        return arr
+    bits = arr.view(np.uint16).astype(np.uint32) << 16
+    return bits.view(np.float32)
+
+
 def unflatten_into(template: Any, flat: Dict[str, np.ndarray],
                    strict: bool = True) -> Any:
     """`template`'s structure with each leaf replaced by the array stored
@@ -98,7 +110,7 @@ def unflatten_into(template: Any, flat: Dict[str, np.ndarray],
             if path not in flat:
                 missing.append(path)
                 return node
-            arr = np.asarray(flat[path])
+            arr = _from_bf16_bits(np.asarray(flat[path]))
             shape = getattr(node, "shape", None)
             if shape is not None and tuple(arr.shape) != tuple(shape):
                 raise ValueError(f"checkpoint {path}: shape {arr.shape}, "

@@ -120,6 +120,23 @@ What it keeps of the JAX engine:
   per-step calls do host work only; every device read waits for a flush
   boundary.
 
+- ZeRO-Offload (`zero_optimization.offload_optimizer`, "cpu" or "nvme";
+  the JAX engine's offload branch, engine.py:203-263): every rank's flat
+  buffer holds compute-dtype parameters, and the fp32 master with the
+  Adam moments lives in the host tier (runtime/zero/offload.py) or in
+  files (runtime/swap_tensor/optimizer_swapper.py).  The micro-steps'
+  grads accumulate in fp32 on the card; at the boundary the ranks'
+  reduced grads go to pinned host memory on a copy stream (the host waits
+  for the copy's event), the tier unscales, checks, clips and steps them
+  and writes the new compute-dtype parameters, which go back to every
+  rank on the copy stream (the next step's host work waits for that copy
+  before it rewrites the buffer).  A non-finite grad skips the step and
+  moves the scaler.  Checkpoints hold the tier's state_dict (the JAX
+  tier's layout) and the master as the module tree.  Under a process
+  group, at stage 3 over several ranks, and with the sentinel, the tier
+  is refused naming A.7b; `offload_param` is ZeroInfinityEngine's
+  (runtime/zero/infinity.py), which `initialize` returns for it.
+
 What is not ported yet is refused by `refuse_unported` with the ROADMAP.md
 item that will port it: among others the sharded checkpoint layout (A.5b),
 the monitor's MoE routing records (A.10), the chaos plane (A.13) and the
@@ -242,6 +259,12 @@ def resolve_mesh_ctx(config, mesh=None, device=None) -> MeshContext:
     return mesh
 
 
+def offload_on(block) -> bool:
+    """Whether an offload_param / offload_optimizer block is set to a
+    device."""
+    return block is not None and block.device not in (None, "none")
+
+
 def refuse_unported(config: DeepSpeedConfig, model, mesh: MeshContext) -> None:
     """Raise NotImplementedError, naming the ROADMAP.md item that ports it,
     for every feature of the config, model or mesh that the port does not
@@ -267,10 +290,24 @@ def refuse_unported(config: DeepSpeedConfig, model, mesh: MeshContext) -> None:
             _refuse(f"checkpoint.sharded at zero_optimization.stage "
                     f"{zc.stage} (the per-process sharded checkpoint "
                     "layout, runtime/sharded_checkpoint.py)", "A.5b")
-    for what, off in (("offload_param", zc.offload_param),
-                      ("offload_optimizer", zc.offload_optimizer)):
-        if off is not None and off.device not in (None, "none"):
-            _refuse(f"zero_optimization.{what} (the offload tier)", "A.7")
+    if offload_on(zc.offload_param):
+        raise ValueError(
+            "zero_optimization.offload_param runs on ZeroInfinityEngine "
+            "(runtime/zero/infinity.py), which deepspeed_tpu_torch.initialize "
+            "dispatches to; DeepSpeedEngine does not stream parameters")
+    if offload_on(zc.offload_optimizer):
+        if mesh.process_group is not None:
+            _refuse("zero_optimization.offload_optimizer under a "
+                    "torch.distributed process group (each process's "
+                    "ranges to its own host tier)", "A.7b")
+        if zc.stage >= 3 and mesh.axis_size("data") > 1:
+            _refuse(f"zero_optimization.offload_optimizer at stage {zc.stage} "
+                    "over several ranks (the host tier over each rank's "
+                    "pieces)", "A.7b")
+        if config.resilience_config.sentinel.enabled:
+            _refuse("resilience.sentinel with zero_optimization."
+                    "offload_optimizer (the sentinel's grad norm from the "
+                    "host tier)", "A.7b")
     if (config.optimizer_name or "").lower() in (ONEBIT_ADAM_OPTIMIZER,
                                                  ONEBIT_LAMB_OPTIMIZER):
         _refuse(f"the {config.optimizer_name} optimizer", "A.8")
@@ -312,6 +349,55 @@ class _MeanOfRanks(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return (None, *(grad.to(d) for d in ctx.devices))
+
+
+class _OffloadState:
+    """The engine's side of ZeRO-Offload: the host or NVMe tier, the pinned
+    host staging of the grads and of the new compute-dtype parameters, one
+    copy stream a card, the events that order the host against the
+    copies, and the last step's split."""
+
+    def __init__(self):
+        self.master = None  # the fp32 master, handed to the tier at build
+        self.tier = None
+        self.leaf_map = None
+        self.host_grads = None
+        self.host_out = None
+        self.streams: Dict[Any, Any] = {}
+        self.h2d_done = []  # events after the last upload's copies
+        self.timing: Dict[str, Any] = {}
+
+    def copy_stream(self, device):
+        if device.type != "cuda":
+            return None
+        if device not in self.streams:
+            self.streams[device] = torch.cuda.Stream(device=device)
+        return self.streams[device]
+
+    def async_copy(self, src, dst):
+        """dst.copy_(src) on the copy stream of the card involved, after the
+        work enqueued so far on that card's current stream; returns (start,
+        end) events (None on the CPU, where the copy runs at once)."""
+        dev = src.device if src.device.type == "cuda" else dst.device
+        stream = self.copy_stream(dev)
+        if stream is None:
+            dst.copy_(src)
+            return None
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(stream):
+            start.record(stream)
+            dst.copy_(src, non_blocking=True)
+            end.record(stream)
+        return start, end
+
+    @property
+    def pinned_bytes(self) -> int:
+        staged = [t for t in (self.host_grads, self.host_out)
+                  if t is not None and t.is_pinned()]
+        return self.tier.pinned_bytes + sum(
+            t.numel() * t.element_size() for t in staged)
 
 
 class DeepSpeedEngine:
@@ -371,6 +457,10 @@ class DeepSpeedEngine:
         self._segment_names = [name for name, _ in self._named_params]
         self._whole_segments = ()
         self._init_zero3_stream()
+        # ZeRO-Offload: the card holds compute-dtype parameters only, the
+        # fp32 master and the Adam state live in the host tier
+        self._offload = (_OffloadState() if offload_on(
+            self.config.zero_config.offload_optimizer) else None)
         if self._zero3:
             self._init_zero3_buffers(model)
         else:
@@ -378,6 +468,14 @@ class DeepSpeedEngine:
 
         # ---- LR schedule + optimizer --------------------------------- #
         self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
+        if self._offload is not None:
+            if optimizer is not None:
+                raise ValueError(
+                    "offload_optimizer is driven by the host Adam — a client "
+                    "optimizer cannot be offloaded")
+            self._init_offload_tier()
+            self._init_rest(training_data, collate_fn)
+            return
         if optimizer is not None:
             if not isinstance(optimizer, FlatOptimizer):
                 raise TypeError(
@@ -410,10 +508,20 @@ class DeepSpeedEngine:
         off, world = self.num_params, self.world_size
         padded = self.zero_partitioner.padded_size(off)
         self._flats, self._flat_grads, self._leaves = [], [], []
+        dtype = torch.float32
+        if self._offload is not None:
+            # the host tier's fp32 master, before the parameters become
+            # compute-dtype views
+            dtype = self.compute_dtype
+            master = torch.zeros(padded, dtype=torch.float32)
+            with torch.no_grad():
+                for (_, p), (o, n) in zip(self._named_params, self._segments):
+                    master[o:o + n].copy_(p.detach().reshape(-1))
+            self._offload.master = master
         with torch.no_grad():
             for i, r in enumerate(self.local_ranks):
                 dev = self.mesh.device_of(r)
-                flat = torch.zeros(padded, dtype=torch.float32, device=dev)
+                flat = torch.zeros(padded, dtype=dtype, device=dev)
                 grad = torch.zeros_like(flat)
                 leaves = {}
                 for (name, p), (o, n) in zip(self._named_params,
@@ -437,12 +545,49 @@ class DeepSpeedEngine:
         # stage 2 on several ranks: each micro-step's grads are
         # reduce-scattered into the rank's range and accumulate there
         self._scatter_each_micro = self.zero_partitioner.stage >= 2 \
-            and world > 1
+            and world > 1 and self._offload is None
         acc_dtype = self.compute_dtype if self._grads_half else torch.float32
         self._acc = [torch.zeros(hi - lo, dtype=acc_dtype,
                                  device=self.mesh.device_of(r))
                      if self._scatter_each_micro else None
                      for r, (lo, hi) in zip(self.local_ranks, self._ranges)]
+        if self._offload is not None and dtype != torch.float32:
+            # the micro-steps' compute-dtype grads accumulate here in fp32
+            self._acc = [torch.zeros(padded, dtype=torch.float32,
+                                     device=self.mesh.device_of(r))
+                         for r in self.local_ranks]
+
+    def _init_offload_tier(self):
+        """ZeRO-Offload's host tier (offload_optimizer.device "cpu") or
+        NVMe tier ("nvme") over the flat layout, and the pinned host
+        staging of the grads and of the new parameters (the JAX engine's
+        offload branch, engine.py:203-263).  The native libraries must
+        build: a failure raises here."""
+        from .swap_tensor.utils import aligned_empty
+        from .zero.offload import HostOffloadOptimizer, JaxLeafMap
+        off, cfg = self._offload, self.config
+        pin = self.mesh.is_cuda
+        size = self._flats[0].numel()
+        off.leaf_map = JaxLeafMap(self._shapes,
+                                  [o for o, _ in self._segments], size)
+        if cfg.zero_config.offload_optimizer.device == C.OFFLOAD_NVME_DEVICE:
+            from .swap_tensor.optimizer_swapper import (
+                create_nvme_offload_optimizer)
+            off.tier = create_nvme_offload_optimizer(
+                off.leaf_map, off.master, cfg,
+                gradient_clipping=cfg.gradient_clipping)
+        else:
+            off.tier = HostOffloadOptimizer(
+                off.leaf_map, off.master, cfg.optimizer_name or "adam",
+                cfg.optimizer_params, gradient_clipping=cfg.gradient_clipping,
+                pin=pin)
+        off.master = None
+        off.host_grads = aligned_empty(4 * size, torch.float32, pin)[:size]
+        esize = torch.empty((), dtype=self.compute_dtype).element_size()
+        off.host_out = aligned_empty(esize * size, self.compute_dtype,
+                                     pin)[:size]
+        self.optimizer = off.tier
+        self.opt_states, self.opt_state = [], {}
 
     def _init_zero3_stream(self):
         """At stage 3 the stream context (built at any world, so that an hpZ
@@ -686,7 +831,9 @@ class DeepSpeedEngine:
 
     def get_lr(self):
         if self.lr_scheduler is not None:
-            return [float(self.lr_scheduler.lr_at(self.opt_state["count"]))]
+            count = (self._offload.tier.step_count()
+                     if self._offload is not None else self.opt_state["count"])
+            return [float(self.lr_scheduler.lr_at(count))]
         return [float(self.config.optimizer_params.get("lr", 1e-3))]
 
     def is_gradient_accumulation_boundary(self) -> bool:
@@ -743,7 +890,10 @@ class DeepSpeedEngine:
 
     def _module_tree(self):
         """The parameters as the JAX tree (fp32 numpy), from the first
-        local rank's buffer (every rank holds them whole below stage 3)."""
+        local rank's buffer (every rank holds them whole below stage 3);
+        under offload the host tier's fp32 master."""
+        if self._offload is not None:
+            return self._offload.tier.master_params
         flat = (self._whole_flat(self._flats) if self._zero3 else
                 self._flats[0][:self.num_params].detach().cpu().numpy())
         return gpt2_tree_from_flat(flat, self._named_shapes(),
@@ -789,15 +939,21 @@ class DeepSpeedEngine:
 
     def _engine_state(self):
         """{"optimizer": the optax state tree the JAX engine holds for
-        this config, "scaler": the loss scaler's state}, as numpy."""
+        this config, "scaler": the loss scaler's state}, as numpy; under
+        offload the tier's state_dict (the JAX tier's layout) as
+        "optimizer"."""
+        scaler = LossScaleState(*(t.detach().cpu().numpy()
+                                  for t in self.scaler_state))
+        if self._offload is not None:
+            return {"optimizer": self._offload.tier.state_dict(),
+                    "scaler": scaler}
         shapes, cfg = self._named_shapes(), self.module.config
         leaves = {key: gpt2_tree_from_flat(self._gathered(key), shapes, cfg)
                   for key in self.opt_state if key != "count"}
         count = self.opt_state["count"].detach().cpu().numpy()
         return {"optimizer": self.optimizer.jax_state(leaves, count,
                                                       self._scheduled),
-                "scaler": LossScaleState(*(t.detach().cpu().numpy()
-                                           for t in self.scaler_state))}
+                "scaler": scaler}
 
     def _partition_topology(self):
         """The partition topology every checkpoint records (reshard.py)."""
@@ -987,7 +1143,15 @@ class DeepSpeedEngine:
         padded = self._padded_size
         self._set_full(self._flats, gpt2_flat_from_tree(
             module_state["module"], shapes, cfg, padded))
-        if opt_state is not None:
+        if self._offload is not None and opt_state is not None:
+            self._offload.tier.load_state_dict(opt_state["optimizer"])
+            for dst, v in zip(self.scaler_state, opt_state["scaler"]):
+                dst.copy_(torch.as_tensor(np.array(v)))
+        elif self._offload is not None:
+            # module only: the master takes the loaded weights, or the next
+            # step would put the old ones back (the JAX engine's :2787-2792)
+            self._offload.tier.load_master_params(module_state["module"])
+        elif opt_state is not None:
             leaves, count = self.optimizer.from_jax_state(
                 opt_state["optimizer"], self._scheduled)
             if count is None:  # optax's SGD without a schedule keeps none
@@ -1020,12 +1184,7 @@ class DeepSpeedEngine:
             load_sentinel_state(self._fused.sent_state, self.sentinel)
         if self._boundary_rngs is not None:
             self._note_boundary()
-        for i, grad in enumerate(self._flat_grads):
-            grad.zero_()
-            if self._scatter_each_micro:
-                self._acc[i].zero_()
-            else:
-                self._acc[i] = None
+        self._zero_grads()
         self._last_loss = self._rank_losses = self._last_overflow = None
         path = os.path.join(load_dir, str(resolved))
         self._last_save_dir = load_dir
@@ -1111,6 +1270,12 @@ class DeepSpeedEngine:
                         value = self._layout.by_name[name].cut(
                             value, self.mesh.group_index(r, ZERO_AXES))
                     leaves[name].copy_(value)
+        if self._offload is not None:
+            from ..models.convert import gpt2_params_to_jax
+            tree = gpt2_params_to_jax(
+                {n: state_dict.get(n, self._leaves[0][n]) for n in names},
+                self.module.config)
+            self._offload.tier.load_master_params(tree)
 
     @torch.no_grad()
     def _gather_parameter(self, name):
@@ -1323,6 +1488,15 @@ class DeepSpeedEngine:
         """backward's device work: the scaled backward and the
         accumulation."""
         (loss.float() * self.scaler_state.loss_scale).backward()
+        if self._offload is not None:
+            if self._acc[0] is not None:
+                # compute-dtype grads into the fp32 accumulators
+                with self.mesh.forked():
+                    for i, r in enumerate(self.local_ranks):
+                        with self.mesh.rank(r):
+                            self._acc[i].add_(self._flat_grads[i])
+                            self._flat_grads[i].zero_()
+            return
         if self._scatter_each_micro:
             with self.mesh.forked():
                 parts = self.mesh.reduce_scatter_flat(self._flat_grads,
@@ -1450,6 +1624,106 @@ class DeepSpeedEngine:
                                            self.scaler_state, overflow))
         return overflow
 
+    def _zero_grads(self):
+        """Zero every grad buffer and accumulator (after a step or a
+        load)."""
+        for i, grad in enumerate(self._flat_grads):
+            grad.zero_()
+            if self._scatter_each_micro or (self._offload is not None
+                                            and self._acc[i] is not None):
+                self._acc[i].zero_()
+            else:
+                self._acc[i] = None
+
+    def _offload_fetch_grads(self):
+        """The reduced (summed over the ranks, still scaled) fp32 grads in
+        the pinned host buffer: at W ranks each rank's reduce-scattered
+        range, copied on its card's copy stream; the host waits for the
+        copies' events before it reads them."""
+        off, mesh = self._offload, self.mesh
+        full = [grad if acc is None else acc
+                for acc, grad in zip(self._acc, self._flat_grads)]
+        chunk = full[0].numel() // self.world_size
+        copies = []
+        with mesh.forked():
+            parts = (mesh.reduce_scatter_flat(full, ZERO_AXES)
+                     if self.world_size > 1 else full)
+            for r, part in zip(self.local_ranks, parts):
+                start = mesh.group_index(r, ZERO_AXES) * chunk
+                with mesh.rank(r):
+                    copies.append(off.async_copy(
+                        part, off.host_grads[start:start + part.numel()]))
+        for ev in copies:
+            if ev is not None:
+                ev[1].synchronize()
+        return copies
+
+    def _offload_upload(self):
+        """The new compute-dtype parameters from the pinned host buffer to
+        every rank's buffer, on the copy streams; each card's current
+        stream waits for them, so the next forward reads the new values,
+        while the host goes on (the next step's host Adam waits for these
+        copies before it rewrites the buffer)."""
+        off = self._offload
+        off.h2d_done = []
+        for flat in self._flats:
+            ev = off.async_copy(off.host_out, flat)
+            if ev is not None:
+                torch.cuda.current_stream(flat.device).wait_event(ev[1])
+                off.h2d_done.append(ev)
+
+    def _offload_step(self):
+        """The JAX engine's `_offload_step` (engine.py:2227-2247): the grads
+        to the host, the tier's unscale, finite check, clip and native
+        Adam (or the NVMe sweep) writing the new parameters in the compute
+        dtype, their upload to every rank, the loss scaler's update.  A
+        non-finite grad skips the step.  Returns the overflow flag (a CPU
+        bool tensor)."""
+        off = self._offload
+        t0 = time.perf_counter()
+        d2h = self._offload_fetch_grads()
+        t1 = time.perf_counter()
+        scale_inv = float(self._unscale_inv())
+        lr = None
+        if self.lr_scheduler is not None:
+            lr = float(self.lr_scheduler.lr_at(off.tier.step_count()))
+        for ev in off.h2d_done:  # the last upload still reads host_out
+            ev[1].synchronize()
+        t2 = time.perf_counter()
+        applied = off.tier.apply(off.host_grads, scale_inv, lr, off.host_out)
+        t3 = time.perf_counter()
+        self._zero_grads()
+        if applied:
+            self._offload_upload()
+        t4 = time.perf_counter()
+        off.timing = {"d2h_wait_s": t1 - t0, "h2d_wait_s": t2 - t1,
+                      "host_adam_s": t3 - t2, "h2d_issue_s": t4 - t3,
+                      "d2h_events": d2h,
+                      "h2d_events": list(off.h2d_done) if applied else []}
+        overflow = torch.tensor(not applied)
+        self._set_scaler(update_loss_scale(self.scaler_cfg,
+                                           self.scaler_state, overflow))
+        return overflow
+
+    def offload_split(self) -> Dict[str, float]:
+        """The last offloaded step's split, in ms: the host's wait for the
+        grads' copy, the host tier's step, the copies' device times (D2H
+        and H2D, read from their events: this waits for the upload)."""
+        t = self._offload.timing
+
+        def device_ms(events):
+            spans = [s.elapsed_time(e) for s, e in
+                     (ev for ev in events if ev is not None)]
+            return float(sum(spans)) if spans else None
+
+        for ev in t.get("h2d_events", []):
+            ev[1].synchronize()
+        return {"d2h_wait_ms": t["d2h_wait_s"] * 1e3,
+                "host_adam_ms": t["host_adam_s"] * 1e3,
+                "h2d_issue_ms": t["h2d_issue_s"] * 1e3,
+                "d2h_device_ms": device_ms(t["d2h_events"]),
+                "h2d_device_ms": device_ms(t["h2d_events"])}
+
     def _set_scaler(self, state):
         """The scaler's new state written into its tensors (a captured
         window reads them)."""
@@ -1494,7 +1768,8 @@ class DeepSpeedEngine:
         if trace_on:
             t0 = time.perf_counter()
         with self._emergency_lock:
-            overflow = self._step_device(healthy, prepared)
+            overflow = (self._offload_step() if self._offload is not None
+                        else self._step_device(healthy, prepared))
             if trace_on:
                 self.monitor.add_phase("apply_dispatch", t0,
                                        step=self.global_steps + 1)

@@ -86,3 +86,38 @@ def test_every_cuda_source_is_listed():
 def test_launch_counts_reset():
     reset_launch_counts()
     assert launch_counts() == {k.name: 0 for k in KERNELS}
+
+
+# the offload tier's modules (ROADMAP.md A.7): host code, no kernel
+OFFLOAD_MODULES = ("ops/adam/cpu_adam.py", "runtime/zero/offload.py",
+                   "runtime/zero/infinity.py", "runtime/swap_tensor/utils.py",
+                   "runtime/swap_tensor/aio_handle.py",
+                   "runtime/swap_tensor/async_swapper.py",
+                   "runtime/swap_tensor/optimizer_swapper.py",
+                   "runtime/swap_tensor/partitioned_param_swapper.py",
+                   "utils/tree.py")
+
+
+@pytest.mark.parametrize("module", OFFLOAD_MODULES)
+def test_offload_module_imports_no_jax(module):
+    path = PORT / module
+    assert path.exists(), module
+    found = [f"{module}:{line} imports {mod}"
+             for line, mod in _imported_modules(path) if _banned(mod)]
+    assert not found, found
+
+
+def test_host_builders_stay_in_the_port_tree():
+    """The host libraries compile the port's own copies
+    (deepspeed_tpu_torch/csrc/host/) into the repository's build/, and
+    name no file of the JAX package's csrc/."""
+    from deepspeed_tpu_torch.ops.op_builder import (AsyncIOBuilder,
+                                                    CPUAdamBuilder)
+    host = (PORT / "csrc" / "host").resolve()
+    for builder in (CPUAdamBuilder(), AsyncIOBuilder()):
+        for f in builder.sources() + builder.headers():
+            assert Path(f).resolve().parent == host, f
+        lib = Path(builder.lib_path()).resolve()
+        assert lib.parent == (REPO / "build" / "torch_host").resolve()
+    text = (PORT / "ops" / "op_builder.py").read_text()
+    assert "csrc/adam" not in text and "csrc/aio" not in text
