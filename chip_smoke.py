@@ -95,7 +95,8 @@ phase prints {"phase": ..., "ok": false, "error": ...} and the script exits
    init_inference -> forward / generate: batch 8, prompt 128, 128 new
    tokens, greedy.  The forward's logits, and the head logits of a
    prefill and 127 decode steps fed the reference's greedy tokens, are held
-   against the same weights run through the port on the CPU in fp32
+   against the same weights run through the port in fp32 with every
+   kernel's plain version in its place, on the card with TF32 off
    (max|d| / max|ref| <= 2e-2 each), and the launch counters must show the
    kernels ran: 12 flash and 25 * 128 = 3200 LayerNorm launches per
    generate.  On this and every training path below, the attention
@@ -103,8 +104,8 @@ phase prints {"phase": ..., "ok": false, "error": ...} and the script exits
    I and J) must stay 0: the layer's own views meet the 16-byte rule, and
    no operand is copied.
 4. serve_int8: the same with quantization_setting=1 (4 * 12 * 128 = 6144
-   dequant-matmul launches per generate), held against the CPU fp32 run on
-   the dequantized int8 weights.
+   dequant-matmul launches per generate), held against the fp32 reference
+   on the dequantized int8 weights.
 5. timing: prefill ms and decode tokens/s of both engines, timed in turns
    (bf16, int8, int8, bf16, ...) since the host's speed drifts during a
    run; medians with min and max.
@@ -114,7 +115,9 @@ phase prints {"phase": ..., "ok": false, "error": ...} and the script exits
 7. train_grads: GPT-2 124M at full width (n_positions 1024), batch 2 x
    1024, dropout off, weights from seed 0, through initialize -> forward ->
    backward on the card in bf16, held against the same weights through the
-   port on the CPU in fp32: the loss within max|d|/max|ref| <= 2e-2, every
+   port in fp32 with every kernel's plain PyTorch version in its place (the
+   code the CPU tests hold against the JAX package; run on the card, TF32
+   off): the loss within max|d|/max|ref| <= 2e-2, every
    parameter's grad within 5e-2 (the chip-lane tolerances of
    tests/tpu/test_kernel_parity_tpu.py), and one step's launch counters
    exact: LN forward 25, LN backward 25, flash forward 12, flash backward
@@ -133,7 +136,7 @@ phase prints {"phase": ..., "ok": false, "error": ...} and the script exits
 9. train_sparse_grads: bench.py::bench_sparse_longseq's attention (BigBird,
    block 512, 1 random, 3 sliding-window and 1 global block) at full width
    (n_positions 8192) but SPARSE_GRADS_LAYERS deep, batch 1 x 8192,
-   dropout off, held against the CPU fp32 run as train_grads is; counters
+   dropout off, held against the fp32 reference as train_grads is; counters
    exact (kernels F and G once per layer, B and E never).
 10. train_sparse: bench_sparse_longseq exactly (12 layers, batch 2 x 8192,
    bf16, AdamW lr 6e-4 wd 0.1, ZeRO-2, dropout 0.1, on the attention
@@ -390,7 +393,7 @@ and `tensorboard` blocks), after phase 27:
    one-host summary), every process's heartbeat.
 31. zero3_grads: GPT-2 at full width and 2 layers at ZeRO-3 on 4 ranks of
    one row each, dropout off, the `off` and `carried` plans: loss (2e-2)
-   and every grad (5e-2) against the port's CPU fp32 run; off and carried
+   and every grad (5e-2) against the port's fp32 reference; off and carried
    bitwise equal; with dropout 0.1 carried bitwise off; launch counters a
    step's (carried: a rematted step's, its backward recomputes each
    group).
@@ -407,7 +410,9 @@ and `tensorboard` blocks), after phase 27:
 34. checkpoint_zero3: the carried row saved after 3 steps; a stage-3
    resume at 4 ranks bitwise the uninterrupted run for 2 steps, a stage-2
    load on one rank holding the saved masters and Adam state bitwise and
-   its next loss within 2e-2.
+   its next loss within 2e-2.  The resuming engine (configured for the
+   sharded layout, atomic) also saves the sharded layout right after its
+   load, for phase 42.
 35. train_zero3_fused: graphed vs eager at stage 3 on one card (gas 2,
    dropout 0.1, off and carried), bitwise, a replay's launches traced.
 36. offload_grads: bench_offload's model (dropout off, one row), 3 steps
@@ -432,12 +437,32 @@ and `tensorboard` blocks), after phase 27:
    buffer_count 2, dropout 0.1) at prefetch depth 2 and 0 in turns, 2 + 4
    steps each: the two trajectories and masters bitwise, tokens/s, at
    most 2 groups on the card, peak GiB, the swap report.
+41. train_zero3_remat (after 32): train_zero3's engines with
+   GPT2Config(activation_checkpointing=True), each layer of the stream
+   recomputed in the backward, off and carried, 3 + 10 steps each: every
+   loss and, after the warm-up, every rank's pieces, Adam state and
+   generator bitwise train_zero3's run without recompute; tokens/s and
+   peak GiB beside it; the gathered high-water mark within the plan's
+   bound; A/B/D/E a rank-step (off: A 4L + 1, B 2L; carried: A 6L + 1,
+   B 3L).
+42. checkpoint_sharded (after 34): phase 34's run in the sharded layout
+   with atomic checkpoints (`checkpoint.sharded: true`): the files and
+   their manifest, a verified load into phase 34's resuming engine whose
+   next 2 steps are bitwise the uninterrupted run, a stage-2 load on one
+   rank (the resize) with the masters and Adam state bitwise, and
+   consolidate_sharded_to_fp32 equal to the masters; save and load
+   seconds, bytes and GB/s beside phase 34's consolidated ones.
+43. tiled_linear (after 35): TiledLinear.from_dense at c_fc's width
+   ([8192, 768] x [768, 3072] bf16, 4 x 4 tiles), forward and backward,
+   against the dense x @ W + b in fp32 (output 2e-2, grads 5e-2); peak
+   MiB and device ms beside the dense bf16 product's.
 
 Then the `kernels` line (launches by path: bf16, int8, train, train_fp16,
 checkpoint, train_dp, checkpoint_dp, train_mp (every process's launches
 summed), train_fused, train_fused_mp, resilience, monitor, monitor_mp,
-zero3 paths (train_zero3, train_zero3_fcm, checkpoint_zero3,
-train_zero3_fused), the offload paths (offload: train_offload,
+zero3 paths (train_zero3, train_zero3_remat, train_zero3_fcm,
+checkpoint_zero3, checkpoint_sharded, train_zero3_fused), the offload
+paths (offload: train_offload,
 offload_nvme: train_offload_nvme, infinity: train_infinity),
 train_sparse, train_longseq, train_medium, train_large,
 train_fused_large, fcm; and for the fused paths the traced
@@ -468,7 +493,7 @@ phases 20-23 alone, and prints no `kernels` line.
     python3 chip_smoke.py --zero3-only
 
 runs phase 1, the parity cases of kernels A, B, D and E and phases 31-35
-alone, and prints no `kernels` line.
+and 41-43 alone, and prints no `kernels` line.
 
     python3 chip_smoke.py --offload-only
 
@@ -509,6 +534,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 from dataclasses import replace
@@ -519,7 +545,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 import deepspeed_tpu_torch as dst
-from deepspeed_tpu_torch.models import GPT2Config, GPT2Model
+from deepspeed_tpu_torch.models import (GPT2Config, GPT2Model,
+                                        gpt2_params_to_jax)
 from deepspeed_tpu_torch.ops import (KERNELS, dispatch, launch_counts,
                                      op_builder, realign_counts,
                                      reset_launch_counts)
@@ -600,7 +627,7 @@ CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 # (bench.py:1324-1377) through _run_longseq (bench.py:1288-1321)
 LONG_BATCH, LONG_SEQ = 2, 8192
 LONG_WARMUP, LONG_ITERS = 2, 10
-SPARSE_GRADS_LAYERS = 2  # the CPU fp32 reference's depth
+SPARSE_GRADS_LAYERS = 2  # train_sparse_grads' depth
 BIGBIRD = dict(num_heads=12, block=512, num_random_blocks=1,
                num_sliding_window_blocks=3, num_global_blocks=1)
 BENCH_LONGSEQ_CONFIG = {
@@ -667,6 +694,113 @@ def check_aligned(path):
 
 
 # --------------------------------------------------------------------- #
+# work that needs no kernel of the port, done while nvcc builds them
+# --------------------------------------------------------------------- #
+WARM_SECONDS, WARM_ERRORS = {}, []
+
+
+def _warm(name):
+    """Time a warm-up step into WARM_SECONDS; its failure goes to
+    WARM_ERRORS, which phase_device checks after the build."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run():
+            t0 = time.perf_counter()
+            try:
+                fn()
+            except Exception as exc:  # re-raised by phase_device's check
+                traceback.print_exc()
+                WARM_ERRORS.append(f"{name}: {type(exc).__name__}: {exc}")
+            WARM_SECONDS[name] = round(time.perf_counter() - t0, 3)
+        return run
+    return wrap
+
+
+def warm_card(groups, profiler):
+    """On the card, during the build: the SDPA calls of the parity cases
+    of `groups` (two threads share them), and with `profiler` CUPTI's and
+    cuBLAS's start-up; the card's generator state as before (the calls
+    with dropout draw from it)."""
+    with torch.random.fork_rng(devices=[torch.cuda.current_device()]):
+        _warm(f"sdpa_graphs {' '.join(groups)}")(
+            lambda: sdpa_warm_up(groups))()
+        if profiler:
+            _warm("cupti_cublas")(profiler_warm_up)()
+
+
+def warm_host():
+    """On the host, during the build: the offload tier's host libraries
+    (g++) and the weights init_state gives the phases (_STATES)."""
+    @_warm("host_libraries")
+    def libraries():
+        for builder in (op_builder.CPUAdamBuilder, op_builder.AsyncIOBuilder):
+            builder().build()
+
+    @_warm("weights")
+    def weights():
+        for cfg, seed in ((gpt2_124m_train(), 0), (gpt2_124m_train(), 1),
+                          (gpt2_124m_long(), 0), (gpt2_medium(), 0),
+                          (gpt2_large(), 0)):
+            _STATES[(repr(cfg), seed)] = init_state(cfg, seed)
+    libraries()
+    weights()
+
+
+def sdpa_warm_up(groups):
+    """Each bf16 parity case's SDPA call of `groups` (its library
+    yardstick) once, forward and for the backward cases backward, on
+    inputs of the case's shapes and strides.  PyTorch's default SDPA on
+    this card is cuDNN's for bf16, whose first call at a shape builds its
+    graph (seconds a shape: sdpa_first_call.py), then cached: so the cases time the calls they always timed, without paying
+    the builds in the parity phase.  fp32 takes another backend, and
+    above D = 256 the cases pin one (sdpa_backend): left out."""
+    for group in groups:
+        fn, cases = PARITY_CASES.get(group, (None, []))
+        for args in cases:
+            if torch.float32 in args:
+                continue
+            if fn is case_block_sparse:
+                kind, b, h, s, d, block, dtype, causal, *fused = args
+                q, k, v = attention_inputs(b, h, s, d, dtype, s + d + block,
+                                           bool(fused and fused[0]))
+                kw = {"attn_mask": dense_mask(SPARSE_LAYOUTS[kind](
+                    h, block, s), block, causal)}
+                backward = True
+            else:
+                b, h, s, d, causal, dtype, *rest = args
+                fused, rate = list(rest) + [False, 0.0][len(rest):]
+                if d > 256:
+                    continue
+                q, k, v = attention_inputs(
+                    b, h, s, d, dtype,
+                    s + causal if fn is case_flash else s + d, fused)
+                kw = {"is_causal": causal, "dropout_p": rate}
+                backward = fn is case_flash_bwd
+            F.scaled_dot_product_attention(q, k, v, **kw)
+            if backward:
+                qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+                out = F.scaled_dot_product_attention(qg, kg, vg, **kw)
+                do = torch.randn(b, s, h, d, device="cuda").to(
+                    dtype).transpose(1, 2)
+                torch.autograd.grad(out, (qg, kg, vg), do)
+            torch.cuda.synchronize()
+    gc_cuda()
+
+
+def profiler_warm_up():
+    """One torch.profiler session of the card and one bf16 and fp32
+    product: CUPTI's and cuBLAS's first use, which the first parity case
+    paid before."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for dtype in (torch.bfloat16, torch.float32):
+            a = torch.ones(256, 256, device="cuda", dtype=dtype)
+            a @ a
+        torch.cuda.synchronize()
+    prof.events()
+
+
+# --------------------------------------------------------------------- #
 # phase 1
 # --------------------------------------------------------------------- #
 def phase_device():
@@ -683,13 +817,24 @@ def phase_device():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+    warm = [threading.Thread(target=fn, args=args) for fn, args in (
+        (warm_card, (("flash_attention_fwd", "flash_attention_fwd_dropout",
+                      "flash_attention_bwd"), True)),
+        (warm_card, (("block_sparse_flash",), False)), (warm_host, ()))]
+    for thread in warm:
+        thread.start()
     op_builder.load()
     seconds = time.perf_counter() - t0
+    for thread in warm:
+        thread.join()
+    check(not WARM_ERRORS, f"the work done during the build failed: "
+          f"{WARM_ERRORS}")
     lib = op_builder.build()
     summary = {"card": card, "torch": torch.__version__,
                "cuda": torch.version.cuda,
                "kind": torch.cuda.get_device_name(0),
                "build_seconds": round(seconds, 3),
+               "during_the_build_seconds": WARM_SECONDS,
                "nvcc_seconds": op_builder.build_seconds,
                "sources": [s.split("deepspeed_tpu_torch/")[-1]
                            for s in op_builder.sources()]}
@@ -1571,8 +1716,8 @@ def case_sparse_gather(block, causal):
     (repair C.1): on the card in bf16 it takes the gather path, counted
     once on SparseSelfAttention.gathered, with F and G launched 0 times;
     out and the grads of q, k, v for a seeded cotangent within 2e-2 / 5e-2
-    (max|d| / max|ref|) of the port's CPU fp32 run (which takes the plain
-    twins of F and G)."""
+    (max|d| / max|ref|) of the port's fp32 run with every kernel's plain
+    version (`plain_versions`) on the card."""
     b, h, s, d = SPARSE_GATHER_SHAPE
     cfg = FixedSparsityConfig(num_heads=h, block=block)
     rng = torch.Generator().manual_seed(block + causal)
@@ -1586,7 +1731,9 @@ def case_sparse_gather(block, causal):
         out.backward(dout.to(dev, dtype))
         return out, [t.grad for t in ins]
 
-    ref, ref_grads = run("cpu", torch.float32)
+    with plain_versions():
+        ref, ref_grads = run("cuda", torch.float32)
+    ref, ref_grads = ref.cpu(), [g.cpu() for g in ref_grads]
     reset_launch_counts()
     SparseSelfAttention.gathered = 0
     out, grads = run("cuda", torch.bfloat16)
@@ -1603,8 +1750,8 @@ def case_sparse_gather(block, causal):
             "ok": out_err <= LOGIT_REL_TOL and grad_err <= GRAD_REL_TOL
             and SparseSelfAttention.gathered == 1 and not any(flash.values()),
             "tolerance": f"out {LOGIT_REL_TOL}, grads {GRAD_REL_TOL} "
-                         "(max|d|/max|ref|) of the CPU fp32 run; gathered 1, "
-                         "F and G 0",
+                         "(max|d|/max|ref|) of the plain fp32 run; gathered "
+                         "1, F and G 0",
             "out_rel_err": out_err, "grad_rel_err": grad_err,
             "gathered": SparseSelfAttention.gathered, "flash_launches": flash}
 
@@ -2636,40 +2783,57 @@ def timed(fn, *args, **kwargs):
     return out, time.perf_counter() - t0
 
 
-def teacher_forced_errors(eng, ref_eng, prompt):
+def fp32_serving_reference(cfg, state, prompt, quantization_setting):
+    """`serve`'s reference: the same weights through init_inference in
+    fp32 with every kernel's plain version in its place (`plain_versions`,
+    on the card, TF32 off): the forward's logits of `prompt`, then a
+    prefill and NEW_TOKENS - 1 decode steps fed its own greedy tokens,
+    each step's head logits and token, on the host."""
+    with plain_versions():
+        ref_eng = dst.init_inference(GPT2Model(replace(cfg, bf16=False)),
+                                     model_parameters=state,
+                                     quantization_setting=quantization_setting)
+        prompt = prompt.cuda()
+        logits = ref_eng.forward(prompt).cpu()
+        total = PROMPT + NEW_TOKENS
+        caches = ref_eng.init_caches(BATCH, total)
+        out = ref_eng.prefill(prompt, caches)
+        steps = []
+        for pos in range(PROMPT, total):
+            tok = out.argmax(-1)
+            steps.append((out.cpu(), tok.cpu()))
+            if pos < total - 1:
+                out = ref_eng.decode_step(tok, pos, caches)
+        del ref_eng, caches, out
+    gc_cuda()
+    return logits, steps
+
+
+def teacher_forced_errors(eng, steps, prompt):
     """A prefill and NEW_TOKENS - 1 decode steps (the positions a generate
-    of NEW_TOKENS decodes) on the card and on the CPU reference, both fed
-    the reference's greedy tokens: max|d| / max|ref| of each step's head
-    logits, and the share of rows whose argmax agrees."""
-    total = PROMPT + NEW_TOKENS
-    caches = eng.init_caches(BATCH, total)
-    ref_caches = ref_eng.init_caches(BATCH, total)
-    ref = ref_eng.prefill(prompt, ref_caches)
+    of NEW_TOKENS decodes) on the card, fed the reference's greedy tokens
+    (`steps`, fp32_serving_reference's): max|d| / max|ref| of each step's
+    head logits, and the share of rows whose argmax agrees."""
+    caches = eng.init_caches(BATCH, PROMPT + NEW_TOKENS)
     out = eng.prefill(prompt.cuda(), caches).cpu()
     errs, agree = [], []
-    for pos in range(PROMPT, total):
+    for i, (ref, tok) in enumerate(steps):
         errs.append(rel_err(out, ref))
-        tok = ref.argmax(-1)
         agree.append((out.argmax(-1) == tok).float().mean().item())
-        if pos == total - 1:
-            break
-        ref = ref_eng.decode_step(tok, pos, ref_caches)
-        out = eng.decode_step(tok.cuda(), pos, caches).cpu()
+        if i < len(steps) - 1:
+            out = eng.decode_step(tok.cuda(), PROMPT + i, caches).cpu()
     return errs, float(np.mean(agree))
 
 
 def serve(cfg, state, prompt, quantization_setting, expected_launches):
-    """One engine on the card, held against its CPU fp32 twin on the same
-    weights (forward, then teacher-forced decode), and one counted
-    generate.  Returns the engine, its greedy tokens and the phase
-    summary."""
+    """One engine on the card, held against its fp32 twin on the same
+    weights (fp32_serving_reference: forward, then teacher-forced
+    decode), and one counted generate.  Returns the engine, its greedy
+    tokens and the phase summary."""
+    ref, steps = fp32_serving_reference(cfg, state, prompt,
+                                        quantization_setting)
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    ref_eng = dst.init_inference(GPT2Model(replace(cfg, bf16=False)),
-                                 model_parameters=state,
-                                 quantization_setting=quantization_setting,
-                                 device="cpu")
-    ref = ref_eng.forward(prompt)
     eng = dst.init_inference(GPT2Model(cfg), model_parameters=state,
                              quantization_setting=quantization_setting)
     logits = eng.forward(prompt.cuda()).cpu()
@@ -2677,15 +2841,15 @@ def serve(cfg, state, prompt, quantization_setting, expected_launches):
           f"logits shape {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits).all()), "non-finite logits")
     err = rel_err(logits, ref)
-    check(err <= LOGIT_REL_TOL, f"logits vs CPU fp32: max|d|/max|ref| = {err}")
+    check(err <= LOGIT_REL_TOL, f"logits vs fp32: max|d|/max|ref| = {err}")
     first_agree = (logits[:, -1].argmax(-1) == ref[:, -1].argmax(-1)).float()
     del ref, logits
 
-    step_errs, step_agree = teacher_forced_errors(eng, ref_eng, prompt)
-    del ref_eng
+    step_errs, step_agree = teacher_forced_errors(eng, steps, prompt)
+    del steps
     worst = int(np.argmax(step_errs))
     check(step_errs[worst] <= LOGIT_REL_TOL,
-          f"teacher-forced step {worst} (0 = prefill) head logits vs CPU "
+          f"teacher-forced step {worst} (0 = prefill) head logits vs "
           f"fp32: max|d|/max|ref| = {step_errs[worst]}")
 
     eng.generate(prompt, max_new_tokens=4)  # warm-up
@@ -2701,12 +2865,13 @@ def serve(cfg, state, prompt, quantization_setting, expected_launches):
           "token ids out of range")
     summary = {
         "logits_rel_err": err, "logits_rel_tol": LOGIT_REL_TOL,
-        "first_token_agreement_vs_cpu_fp32": first_agree.mean().item(),
+        "reference": "the port's plain versions in fp32 on the card",
+        "first_token_agreement_vs_fp32": first_agree.mean().item(),
         "decode_steps_checked": len(step_errs) - 1,
         "decode_logits_rel_err_max": step_errs[worst],
         "decode_logits_rel_err_max_step": worst,
         "decode_logits_rel_err_median": float(np.median(step_errs)),
-        "decode_argmax_agreement_vs_cpu_fp32": step_agree,
+        "decode_argmax_agreement_vs_fp32": step_agree,
         "launches": counts, "realigned": realigned,
         "peak_memory_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30}
     return eng, toks, summary
@@ -2731,8 +2896,7 @@ def device_profile(eng, prompt, prefill_ms, decode_step_ms):
     from torch.profiler import ProfilerActivity, profile
     busy_us, dequant_us, ops = {}, {}, {}
     for new in (1, PROFILED_TOKENS):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             timed(eng.generate, prompt, max_new_tokens=new)
         kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         busy_us[new] = _union_us((e.time_range.start, e.time_range.end)
@@ -2839,15 +3003,19 @@ def gpt2_124m_train(**overrides):
     return replace(gpt2_124m(), n_positions=TRAIN_SEQ, **overrides)
 
 
-def step_counts(cfg):
+def step_counts(cfg, recomputes=None):
     """Launch counts of one training forward + backward: the dense layers
     run kernels B and E, the sparse ones F and G.  Under activation
     checkpointing the backward runs each layer's forward again (its two
     LayerNorms and its attention), so A counts 4L + 1 and B (or F) 2L,
-    while D and E (or G) are unchanged."""
+    while D and E (or G) are unchanged.  `recomputes`: the forwards of
+    each layer past the first (default 1 under activation checkpointing,
+    else 0)."""
     layers = cfg.num_layers
     n_ln, n_attn = 2 * layers + 1, layers
-    recompute = layers if cfg.activation_checkpointing else 0
+    if recomputes is None:
+        recomputes = int(cfg.activation_checkpointing)
+    recompute = recomputes * layers
     fwd_ln, fwd_attn = n_ln + 2 * recompute, n_attn + recompute
     if cfg.sparse_attention is not None:
         return expected_counts(layer_norm_fwd=fwd_ln, layer_norm_bwd=n_ln,
@@ -2880,20 +3048,61 @@ def phase_train_grads(state):
         BENCH_GPT2_CONFIG, train_micro_batch_size_per_gpu=GRADS_BATCH))
 
 
+@contextlib.contextmanager
+def plain_versions():
+    """Every kernel wrapper of the port takes its plain PyTorch version on
+    the card too (the `use_kernel` of ops/dispatch.py, where each module
+    bound it, answers False), with TF32 off: the code the CPU tests hold
+    against the JAX package, run in fp32 on the card."""
+    kernel_route = dispatch.use_kernel
+    bound = [m for m in list(sys.modules.values())
+             if getattr(m, "__name__", "").startswith("deepspeed_tpu_torch")
+             and getattr(m, "use_kernel", None) is kernel_route]
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    for mod in bound:
+        mod.use_kernel = lambda *tensors: False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        for mod in bound:
+            mod.use_kernel = kernel_route
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+
+
+def fp32_reference(cfg, state, ids):
+    """(loss, {name: grad on the host}, seconds) of `ids` through the port
+    in fp32 on the card with every kernel's plain version in its place
+    (`plain_versions`; no kernel launched), from the weights `state`: the
+    _grads phases' reference (the same function the CPU tests hold
+    against the JAX package, at the card's speed)."""
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    with plain_versions():
+        model = GPT2Model(replace(cfg, bf16=False)).cuda()
+        model.load_state_dict(state)
+        loss = model.loss(ids.cuda())
+        loss.backward()
+        torch.cuda.synchronize()
+    check(not any(launch_counts().values()),
+          f"the fp32 reference launched kernels: {launch_counts()}")
+    grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+    loss = loss.item()
+    del model
+    gc_cuda()
+    return loss, grads, time.perf_counter() - t0
+
+
 def grads_vs_cpu(cfg, state, ids, ds_config):
     """The loss of `ids` and every parameter grad, through initialize ->
     forward -> backward on the card in cfg's dtype, against the same
-    weights through the port on the CPU in fp32; launch counters exact."""
-    t0 = time.perf_counter()
-    ref_model = GPT2Model(replace(cfg, bf16=False))
-    ref_model.load_state_dict(state)
-    ref_loss = ref_model.loss(ids)
-    ref_loss.backward()
-    ref_grads = {n: p.grad for n, p in ref_model.named_parameters()}
-    cpu_seconds = time.perf_counter() - t0
-    del ref_model
+    weights through the port's plain versions in fp32 (`fp32_reference`);
+    launch counters exact."""
+    ref_loss, ref_grads, ref_seconds = fp32_reference(cfg, state, ids)
 
-    torch.cuda.empty_cache()
     engine = train_engine(cfg, state, ds_config)
     reset_launch_counts()
     loss = engine.forward(ids)
@@ -2903,8 +3112,8 @@ def grads_vs_cpu(cfg, state, ids, ds_config):
     check(counts == step_counts(cfg),
           f"launch counts {counts}, expected {step_counts(cfg)}")
     realigned = check_aligned("forward + backward")
-    loss_err = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
-    check(loss_err <= LOSS_REL_TOL, f"loss vs CPU fp32: {loss_err}")
+    loss_err = abs(loss.item() - ref_loss) / abs(ref_loss)
+    check(loss_err <= LOSS_REL_TOL, f"loss vs fp32: {loss_err}")
     grad_errs = {}
     for name, p in engine.module.named_parameters():
         grad = p.grad.float().cpu()
@@ -2912,26 +3121,28 @@ def grads_vs_cpu(cfg, state, ids, ds_config):
         grad_errs[name] = rel_err(grad, ref_grads[name])
     worst = max(grad_errs, key=grad_errs.get)
     check(grad_errs[worst] <= GRAD_REL_TOL,
-          f"grad of {worst} vs CPU fp32: max|d|/max|ref| = "
+          f"grad of {worst} vs fp32: max|d|/max|ref| = "
           f"{grad_errs[worst]}")
     return None, {
-        "loss": loss.item(), "cpu_fp32_loss": ref_loss.item(),
+        "loss": loss.item(), "fp32_reference_loss": ref_loss,
         "loss_rel_err": loss_err, "loss_rel_tol": LOSS_REL_TOL,
         "grads_checked": len(grad_errs), "worst_param": worst,
         "worst_grad_rel_err": grad_errs[worst], "grad_rel_tol": GRAD_REL_TOL,
         "median_grad_rel_err": float(np.median(list(grad_errs.values()))),
         "launches_per_step": counts, "realigned": realigned,
-        "cpu_reference_seconds": cpu_seconds}
+        "reference": "the port's plain versions in fp32 on the card",
+        "reference_seconds": ref_seconds}
 
 
 def _profile_once(fn):
     """(wall ms, device-busy ms, {op: device ms}, [(name, device ms)] in
     launch order) of one fn() under torch.profiler, synchronised on both
-    sides."""
+    sides.  Only device activity is traced (as device_spans): the host's
+    ops were most of the trace's parse, and slow the enqueueing they
+    record."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, wall = timed(fn)
     # a record_function range on the card (the fused transports'
     # "fcm_fused") is an annotation, not a kernel: left out of busy time
@@ -2969,8 +3180,8 @@ def layer_norm_in_step(kernels):
             "ln_casts_and_fills_beside_by_name": names}
 
 
-def timed_training(cfg, state, ds_config, warmup, iters, count_cfg=None,
-                   keep_losses=False):
+def timed_training(cfg, state, ds_config, warmup, iters, rank_step=None,
+                   keep_losses=False, after_warmup=None):
     """Train on the fixed batch RandomState(0).randint(0, vocab,
     (micro batch x data-parallel world, n_positions)) as bench.py's
     _time_steps times it: warmup steps, then `iters` forward / backward /
@@ -2981,9 +3192,10 @@ def timed_training(cfg, state, ds_config, warmup, iters, count_cfg=None,
     issue a step after a synchronisation; then one step under
     torch.profiler.  Under a process world each process feeds its ranks'
     rows of the global batch, and the rates count the global batch over
-    every process's cards.  `count_cfg`: the config whose step_counts a
-    rank's step launches (default cfg); `keep_losses`: the summary holds
-    every step's loss.  Returns the engine too."""
+    every process's cards.  `rank_step`: what a rank's step launches
+    (default step_counts(cfg)); `keep_losses`: the summary holds every step's loss;
+    `after_warmup(engine)` runs after the warm-up steps, outside the timed
+    steps.  Returns the engine too."""
     micro, seq = ds_config["train_micro_batch_size_per_gpu"], cfg.n_positions
     cards = ([torch.cuda.current_device()] if dist.is_initialized()
              else range(torch.cuda.device_count()))
@@ -3015,6 +3227,8 @@ def timed_training(cfg, state, ds_config, warmup, iters, count_cfg=None,
     reset_launch_counts()
     losses = [step().detach() for _ in range(warmup)]
     losses[-1].item()
+    if after_warmup is not None:
+        after_warmup(engine)
     t0 = time.perf_counter()
     for _ in range(iters):
         losses.append(step().detach())
@@ -3024,7 +3238,7 @@ def timed_training(cfg, state, ds_config, warmup, iters, count_cfg=None,
     n_steps = warmup + iters
     gas = ds_config.get("gradient_accumulation_steps", 1)
     per_step = {k: gas * len(local) * v
-                for k, v in step_counts(count_cfg or cfg).items()}
+                for k, v in (rank_step or step_counts(cfg)).items()}
     # the fused step's counters count its eager first window and its
     # capture's launch calls; its replays are counted from a trace below
     counted = min(n_steps, 2) if fused else n_steps
@@ -3306,10 +3520,14 @@ def loss_values(engine, ids, steps):
 def timed_save(engine, path, tag):
     """(seconds, bytes written, split) of one save_checkpoint,
     synchronised.  The split: the seconds of a separate gather of the
-    state into the host trees the save writes (`gather_seconds`)."""
+    state into the host trees the save writes, in the engine's layout
+    (`gather_seconds`)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    engine._module_tree(), engine._engine_state()
+    if engine._sharded_checkpoints():
+        engine._sharded_trees()
+    else:
+        engine._module_tree(), engine._engine_state()
     gather_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     tag_dir = engine.save_checkpoint(path, tag=tag)
@@ -3488,26 +3706,63 @@ def mp_dir():
         shutil.rmtree(path, ignore_errors=True)
 
 
-def launch_mp(phase, out_dir, world=None):
-    """Run `phase`'s worker in W processes of this script (default: every
-    visible card), one a card, through torchrun (`python -m
-    torch.distributed.run --standalone`); each joins the group by
-    init_distributed from torchrun's env.  A worker that fails, or a group
-    that outlives MP_TIMEOUT_S[phase], fails the phase (the group's
-    processes killed).  Returns each rank's result."""
-    world = world or torch.cuda.device_count()
-    log_path = os.path.join(out_dir, "torchrun.log")
+# the mp phases this run drives (main sets them for its mode); the first
+# of them launches every one of the same process count in one group
+MP_PLANNED = []
+_MP_RUNS = {}  # phase: (its directory, each rank's result)
+
+
+def mp_world(phase):
+    """`phase`'s process count: one a visible card; train_fused_mp one (the
+    engine graphs no window across cards: ROADMAP A.6c)."""
+    return 1 if phase == "train_fused_mp" else torch.cuda.device_count()
+
+
+@contextlib.contextmanager
+def mp_results(phase):
+    """(directory, each rank's result) of `phase`'s workers.  The first mp
+    phase of a run launches, in one torchrun group, every planned mp phase
+    of its process count that has not run (each worker runs them in turn,
+    each in a directory of its own), so that a group's start-up, two
+    interpreters, CUDA and NCCL (sdpa_first_call.py times one
+    interpreter's), is paid once; each phase then takes its own results.
+    The directory goes when the phase is done with it."""
+    if phase not in _MP_RUNS:
+        world = mp_world(phase)
+        batch = [phase] + [p for p in MP_PLANNED if p != phase
+                           and p not in _MP_RUNS and mp_world(p) == world]
+        os.makedirs(CKPT_DIR, exist_ok=True)
+        root = tempfile.mkdtemp(prefix="chip_smoke_mp_", dir=CKPT_DIR)
+        atexit.register(shutil.rmtree, root, True)
+        _MP_RUNS.update(launch_mp(batch, root, world))
+    out_dir, results = _MP_RUNS[phase]
+    try:
+        yield out_dir, results
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def launch_mp(phases, root, world):
+    """Run `phases`' workers in `world` processes of this script, one a
+    card, through torchrun (`python -m torch.distributed.run
+    --standalone`); each joins the group by init_distributed from
+    torchrun's env and runs the phases in turn, each into root/<phase>.  A
+    worker that fails, or a group that outlives the phases' MP_TIMEOUT_S,
+    fails the phase (the group's processes killed).  Returns {phase: (its
+    directory, each rank's result)}."""
+    log_path = os.path.join(root, "torchrun.log")
+    timeout = sum(MP_TIMEOUT_S[p] for p in phases)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc_per_node={world}", os.path.abspath(__file__),
-           "--mp-worker", phase, out_dir]
+           "--mp-worker", ",".join(phases), root]
     with open(log_path, "w") as log:
         proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
                                 start_new_session=True,
                                 cwd=os.path.dirname(os.path.abspath(__file__)))
         try:
-            code = proc.wait(timeout=MP_TIMEOUT_S[phase])
+            code = proc.wait(timeout=timeout)
         except subprocess.TimeoutExpired:
-            code = f"killed after {MP_TIMEOUT_S[phase]} s"
+            code = f"killed after {timeout} s"
         finally:
             with contextlib.suppress(ProcessLookupError):
                 os.killpg(proc.pid, signal.SIGKILL)
@@ -3516,19 +3771,24 @@ def launch_mp(phase, out_dir, world=None):
         with open(log_path) as f:
             tail = f.read()[-4000:]
         print(tail, file=sys.stderr, flush=True)
-        raise SmokeFailure(f"{phase}: the {world} worker processes failed "
-                           f"(torchrun: {code}); log tail: {tail[-600:]}")
-    results = []
-    for rank in range(world):
-        with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
-            results.append(json.load(f))
-    return results
+        raise SmokeFailure(f"{','.join(phases)}: the {world} worker "
+                           f"processes failed (torchrun: {code}); log tail: "
+                           f"{tail[-600:]}")
+    runs = {}
+    for phase in phases:
+        out_dir = os.path.join(root, phase)
+        results = []
+        for rank in range(world):
+            with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
+                results.append(json.load(f))
+        runs[phase] = (out_dir, results)
+    return runs
 
 
-def mp_worker(phase, out_dir):
-    """One worker process of `phase` (run by launch_mp under torchrun): it
-    joins the group through init_distributed, runs its part and writes
-    rank<r>.json into out_dir."""
+def mp_worker(phases, root):
+    """One worker process of `phases` (comma-separated; run by launch_mp
+    under torchrun): it joins the group through init_distributed, runs
+    each phase's part in turn and writes rank<r>.json into root/<phase>."""
     dst.init_distributed()
     if not dist.is_initialized():
         # a world of one process: init_distributed leaves it alone, as the
@@ -3538,11 +3798,15 @@ def mp_worker(phase, out_dir):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     op_builder.load()
-    result = MP_WORKERS[phase](out_dir)
-    with open(os.path.join(out_dir, f"rank{dist.get_rank()}.json"),
-              "w") as f:
-        json.dump(result, f)
-    dist.barrier()
+    for phase in phases.split(","):
+        out_dir = os.path.join(root, phase)
+        os.makedirs(out_dir, exist_ok=True)
+        result = MP_WORKERS[phase](out_dir)
+        with open(os.path.join(out_dir, f"rank{dist.get_rank()}.json"),
+                  "w") as f:
+            json.dump(result, f)
+        dist.barrier()
+        gc_cuda()
     dist.destroy_process_group()
 
 
@@ -3618,8 +3882,7 @@ def phase_train_mp_grads(state):
     cfg = gpt2_124m_train(embd_dropout=0.0, attn_dropout=0.0,
                           hidden_dropout=0.0)
     torch.cuda.empty_cache()
-    with mp_dir() as out_dir:
-        results = launch_mp("train_mp_grads", out_dir)
+    with mp_results("train_mp_grads") as (out_dir, results):
         world = len(results)
         grads = torch.cat([torch.load(os.path.join(out_dir, f"grads{r}.pt"))
                            for r in range(world)])
@@ -3740,8 +4003,8 @@ def phase_train_mp(state):
     counts are every process's summed."""
     del state  # each worker makes the same weights from the seed
     torch.cuda.empty_cache()
-    with mp_dir() as out_dir:
-        results = launch_mp("train_mp", out_dir)
+    with mp_results("train_mp") as (_, results):
+        pass
     row = {k: v for k, v in results[0].items() if k != "launches"}
     counts = {name: sum(res["launches"][name] for res in results)
               for name in results[0]["launches"]}
@@ -3766,8 +4029,15 @@ def bigbird():
     return BigBirdSparsityConfig(**BIGBIRD)
 
 
+_STATES = {}  # init_state's weights made during the build (warm_host)
+
+
 def init_state(cfg, seed=0):
-    """fp32 weights of cfg's model from `seed`, on the CPU."""
+    """fp32 weights of cfg's model from `seed`, on the CPU (the phases
+    treat them as read-only, so those made during the build are shared)."""
+    made = _STATES.get((repr(cfg), seed))
+    if made is not None:
+        return made
     model = GPT2Model(replace(cfg, bf16=False))
     model.init_params(torch.Generator().manual_seed(seed))
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -3775,7 +4045,7 @@ def init_state(cfg, seed=0):
 
 def phase_train_sparse_grads():
     """bench_sparse_longseq's attention at full width, SPARSE_GRADS_LAYERS
-    deep (so that the CPU fp32 reference fits), batch 1 x 8192, dropout
+    deep, batch 1 x 8192, dropout
     off: the loss and every grad on the card in bf16 against the CPU in
     fp32."""
     cfg = gpt2_124m_long(num_layers=SPARSE_GRADS_LAYERS, embd_dropout=0.0,
@@ -4183,7 +4453,8 @@ def run_windows(engine, batches, windows):
     return out, traced_launches(kernels)
 
 
-def graphed_vs_eager(cfg, state, ds_config, windows, what, count_cfg=None):
+def graphed_vs_eager(cfg, state, ds_config, windows, what,
+                     rank_step=None):
     """The same windows from the same weights and generator seeds through
     the modular loop and through the fused step (the first window eager,
     then one capture and its replays): every window's loss, scale and
@@ -4210,7 +4481,7 @@ def graphed_vs_eager(cfg, state, ds_config, windows, what, count_cfg=None):
         check(fused == (engine._fused is not None),
               f"{what}: fused_step {engine.fused_step_reason}")
         window = {k: gas * len(engine.local_ranks) * v
-                  for k, v in step_counts(count_cfg or cfg).items()}
+                  for k, v in (rank_step or step_counts(cfg)).items()}
         reset_launch_counts()
         trajectory, traced = run_windows(engine, batches, windows)
         run = {"trajectory": trajectory, "counts": launch_counts(),
@@ -4554,8 +4825,8 @@ def phase_train_fused_mp(state):
     step) holds a window's launches of kernels A, B, D and E."""
     del state  # each worker makes the same weights from the seed
     torch.cuda.empty_cache()
-    with mp_dir() as out_dir:
-        results = launch_mp("train_fused_mp", out_dir, world=1)
+    with mp_results("train_fused_mp") as (_, results):
+        pass
     cfg = gpt2_124m_train()
     window = {k: FUSED_GRADS_GAS * v for k, v in step_counts(cfg).items()}
     for res in results:
@@ -5285,8 +5556,7 @@ def phase_monitor_mp(state):
     del state  # each worker makes the same weights from the seed
     torch.cuda.empty_cache()
     windows = MONITOR_MP_STEPS // MONITOR_WINDOW
-    with mp_dir() as out_dir:
-        results = launch_mp("monitor_mp", out_dir)
+    with mp_results("monitor_mp") as (_, results):
         world = len(results)
         recs = read_jsonl(results[0]["jsonl"])
         beats = read_heartbeats(os.path.join(results[0]["out_dir"],
@@ -5354,9 +5624,6 @@ def sync_all():
         torch.cuda.synchronize(i)
 
 
-def on_cpu(tensors, grad=False):
-    out = [t.detach().cpu() for t in tensors]
-    return [t.requires_grad_() for t in out] if grad else out
 
 
 def counted(fn, **expected):
@@ -5371,8 +5638,8 @@ def counted(fn, **expected):
 
 
 def worst_rel(got, ref):
-    """max over the ranks of max|d| / max|ref|, the reference on the CPU."""
-    return max(rel_err(g.detach().float().cpu(), r.detach().float())
+    """max over the ranks of max|d| / max|ref|."""
+    return max(rel_err(g.detach().float().cpu(), r.detach().float().cpu())
                for g, r in zip(got, ref))
 
 
@@ -5395,7 +5662,7 @@ def scatter_steps(tiles, bits):
 
 
 def hold_one_step(what, got, ref, steps, rtol, stats, magnitude=None):
-    """The one-step rule over the ranks; the reference is on the CPU."""
+    """The one-step rule over the ranks."""
     for r in range(FCM_WORLD):
         ok, share, worst = one_step_rule(
             got[r], ref[r].to(got[r].device), steps[r], rtol,
@@ -5437,14 +5704,17 @@ def run_ag(mesh, x, w, qwz, qgz, per_tile, counts=None):
     return ([t.detach() for t in y], [t.grad for t in x], [t.grad for t in w])
 
 
-def fcm_allgather_matmul(mesh, cpu, name, dtype, qwz, qgz):
+def fcm_allgather_matmul(mesh, plain, name, dtype, qwz, qgz):
     """fused_allgather_matmul forward and backward at one matrix, both
-    routes on the card, against the CPU mesh."""
+    routes on the card, against the plain versions (`plain`, a mesh of the
+    card driven under plain_versions)."""
     k, n = FCM_MATRICES[name]
     seed = k + n + qwz
     x = fcm_inputs((FCM_ROWS, k), dtype, seed)
     w = fcm_inputs((k // FCM_WORLD, n), dtype, seed + 1, scale=0.05)
-    ref = run_ag(cpu, on_cpu(x, True), on_cpu(w, True), qwz, qgz, None)
+    with plain_versions():
+        ref = run_ag(plain, on_card(plain, x, True), on_card(plain, w, True),
+                     qwz, qgz, None)
     tol = FCM_TOL[dtype]
     stats = {"case": f"{name} {_dtname(dtype)} qwz={qwz} qgz={qgz}"}
     got = {}
@@ -5466,8 +5736,10 @@ def fcm_allgather_matmul(mesh, cpu, name, dtype, qwz, qgz):
             tiles = [a.float().t() @ g.float()
                      for a, g in zip(on_card(mesh, x), grads)]
             steps, _ = scatter_steps(tiles, qgz)
-            ref_dw, _ = cm.fused_matmul_reduce_scatter(
-                x, on_cpu(grads), None, "data", qgz, FCM_BLOCK, mesh=cpu)
+            with plain_versions():
+                ref_dw, _ = cm.fused_matmul_reduce_scatter(
+                    on_card(plain, x), on_card(plain, grads), None, "data",
+                    qgz, FCM_BLOCK, mesh=plain)
             hold_one_step(f"{stats['case']} {route} dW", dw,
                           [t.to(dtype) for t in ref_dw], steps, tol, stats)
         else:
@@ -5480,10 +5752,11 @@ def fcm_allgather_matmul(mesh, cpu, name, dtype, qwz, qgz):
     return stats
 
 
-def fcm_matmul_reduce_scatter(mesh, cpu, name, dtype, qgz):
+def fcm_matmul_reduce_scatter(mesh, plain, name, dtype, qgz):
     """fused_matmul_reduce_scatter over FCM_STEPS steps with the error
-    buffers carried on the card; at every step the CPU mesh is fed the
-    card's buffers, so that a flipped round does not compound."""
+    buffers carried on the card; at every step the plain versions (on
+    `plain`) are fed the card's buffers, so that a flipped round does not
+    compound."""
     k, n = FCM_MATRICES[name]
     kc = k // FCM_WORLD
     lhs = fcm_inputs((FCM_ROWS, k), dtype, k + qgz)
@@ -5500,9 +5773,12 @@ def fcm_matmul_reduce_scatter(mesh, cpu, name, dtype, qgz):
     stats = {"case": f"{name} {_dtname(dtype)} qgz={qgz}",
              "route": "fused (kernel J)" if fused else "per-tile (kernel H)"}
     total, first = 0, None
+    plhs, prhs = on_card(plain, lhs), on_card(plain, rhs)
     for step in range(FCM_STEPS):
-        ref_chunk, ref_err = cm.fused_matmul_reduce_scatter(
-            lhs, rhs, on_cpu(err), "data", qgz, FCM_BLOCK, mesh=cpu)
+        with plain_versions():
+            ref_chunk, ref_err = cm.fused_matmul_reduce_scatter(
+                plhs, prhs, on_card(plain, err), "data", qgz, FCM_BLOCK,
+                mesh=plain)
         chunk, new_err = counted(
             lambda: cm.fused_matmul_reduce_scatter(
                 clhs, crhs, err, "data", qgz, FCM_BLOCK, mesh=mesh),
@@ -5614,13 +5890,15 @@ def mlp_slice(mesh, x, w_fc, w_proj, per_tile=None, counts=False):
             [t.grad for t in w_fc], [t.grad for t in w_proj])
 
 
-def fcm_slice(mesh, cpu, dtype):
+def fcm_slice(mesh, plain, dtype):
     hidden = FCM_MATRICES["c_fc"][0]
     x = fcm_inputs((FCM_ROWS, hidden), dtype, 21)
     w_fc = fcm_inputs((hidden // FCM_WORLD, 4 * hidden), dtype, 22, scale=0.02)
     w_proj = fcm_inputs((4 * hidden // FCM_WORLD, hidden), dtype, 23,
                         scale=0.02)
-    ref = mlp_slice(cpu, *(on_cpu(t, True) for t in (x, w_fc, w_proj)))
+    with plain_versions():
+        ref = mlp_slice(plain, *(on_card(plain, t, True)
+                                 for t in (x, w_fc, w_proj)))
     got = mlp_slice(mesh, *(on_card(mesh, t, True)
                             for t in (x, w_fc, w_proj)),
                     counts=True)
@@ -5636,7 +5914,8 @@ def fcm_slice(mesh, cpu, dtype):
 
 def phase_fcm_ops():
     mesh = MeshContext.create(data=FCM_WORLD)
-    cpu = MeshContext.create(data=FCM_WORLD, devices=["cpu"])
+    # the plain versions' mesh: the same ranks, driven under plain_versions
+    plain = MeshContext.create(data=FCM_WORLD)
     check(mesh.world_size == FCM_WORLD and mesh.is_cuda,
           f"the mesh is {mesh}")
     reset_launch_counts()
@@ -5644,18 +5923,18 @@ def phase_fcm_ops():
     for name in FCM_MATRICES:
         for dtype in FCM_DTYPES:
             for qwz, qgz in FCM_BITS:
-                results.append(fcm_allgather_matmul(mesh, cpu, name, dtype,
+                results.append(fcm_allgather_matmul(mesh, plain, name, dtype,
                                                     qwz, qgz))
                 emit({"phase": "fcm_ops", "op": "fused_allgather_matmul",
                       **results[-1]})
             for _, qgz in FCM_BITS:
-                results.append(fcm_matmul_reduce_scatter(mesh, cpu, name,
+                results.append(fcm_matmul_reduce_scatter(mesh, plain, name,
                                                          dtype, qgz))
                 emit({"phase": "fcm_ops",
                       "op": "fused_matmul_reduce_scatter", **results[-1]})
     for dtype in FCM_DTYPES:
         for fn, op in ((fcm_transports, "transports"), (fcm_slice, "slice")):
-            args = (mesh, dtype) if fn is fcm_transports else (mesh, cpu,
+            args = (mesh, dtype) if fn is fcm_transports else (mesh, plain,
                                                                dtype)
             emit({"phase": "fcm_ops", "op": op, **fn(*args)})
     counts = launch_counts()
@@ -5812,13 +6091,17 @@ def phase_fcm_timing():
 # phases 31-35: ZeRO-3, the streamed layer executor
 # --------------------------------------------------------------------- #
 ZERO3_WORLD, ZERO3_MICRO = 4, 2  # bench.py: global batch 8 over W = 4
-ZERO3_GRADS_LAYERS = 2  # zero3_grads' depth (the CPU fp32 reference's)
+ZERO3_GRADS_LAYERS = 2  # zero3_grads' depth
 ZERO3_CKPT_RESUMED = 2  # checkpoint_zero3: steps after the save
 ZERO3_LOW_BANDWIDTH = {"qwz_bits": 8, "qgz_bits": 8}  # bench.py:906-908
 # train_zero3_fcm's timed steps a transport: bench.py's 3 + 30 would take
 # ~40 s more of the script's time limit (the fused transports' host issue
 # is ~1.3 s a step); the trajectories are held bitwise over these 3 + 10
 ZERO3_FCM_ITERS = 10
+# train_zero3_remat's timed steps a plan, as train_zero3_fcm's: the
+# trajectory is held bitwise over the 3 + 10 steps against train_zero3's
+ZERO3_REMAT_ITERS = 10
+TILED_ROWS, TILED_SPLITS = TRAIN_BATCH * TRAIN_SEQ, (4, 4)  # tiled_linear
 
 
 def zero3_per_layer(cfg):
@@ -5845,11 +6128,13 @@ def zero3_config(cfg, carried, fcm=None, micro=ZERO3_MICRO):
                 zero_optimization=zc, mesh={"data": ZERO3_WORLD})
 
 
-def zero3_count_cfg(cfg, carried):
-    """The config whose step_counts a rank's stage-3 step launches: the
-    carried backward runs every layer's forward again (its two LayerNorms
-    and its attention), as activation checkpointing does."""
-    return replace(cfg, activation_checkpointing=True) if carried else cfg
+def zero3_counts(cfg, carried):
+    """What a rank's stage-3 step launches: the carried backward runs every
+    layer's forward again (its two LayerNorms and its attention), as
+    activation checkpointing does, and under activation checkpointing each
+    layer's own recompute runs it once more (a carried rematted step runs
+    each layer's forward three times)."""
+    return step_counts(cfg, int(carried) + int(cfg.activation_checkpointing))
 
 
 def zero3_whole_grads(engine):
@@ -5885,8 +6170,8 @@ def zero3_step(engine, ids):
 def phase_zero3_grads(state):
     """GPT-2 at full width, ZERO3_GRADS_LAYERS layers, ZERO3_WORLD ranks of
     one row each, dropout off: the loss and every grad at stage 3 in the
-    `off` and `carried` plans against the port's CPU fp32 run of the same
-    rows (loss 2e-2, grads max|d| / max|ref| 5e-2, as the other _grads
+    `off` and `carried` plans against the port's fp32 run of the same rows
+    (`fp32_reference`) (loss 2e-2, grads max|d| / max|ref| 5e-2, as the other _grads
     phases); off and carried bitwise equal on the card; then with dropout
     0.1, carried bitwise off (the recompute redraws the masks); launch
     counters a step's counts on every rank (carried: a rematted step's)."""
@@ -5897,16 +6182,10 @@ def phase_zero3_grads(state):
              < ZERO3_GRADS_LAYERS}
     ids = torch.from_numpy(np.random.RandomState(1).randint(
         0, cfg.vocab_size, (ZERO3_WORLD, TRAIN_SEQ)))
-    t0 = time.perf_counter()
-    ref_model = GPT2Model(replace(cfg, bf16=False))
-    ref_model.load_state_dict(state)
-    ref_loss = ref_model.loss(ids)
-    ref_loss.backward()
-    ref_grads = {n: p.grad for n, p in ref_model.named_parameters()}
-    cpu_seconds = time.perf_counter() - t0
-    ref_loss = ref_loss.item()
-    del ref_model
-    out = {"cpu_fp32_loss": ref_loss, "cpu_reference_seconds": cpu_seconds,
+    ref_loss, ref_grads, ref_seconds = fp32_reference(cfg, state, ids)
+    out = {"fp32_reference_loss": ref_loss,
+           "reference": "the port's plain versions in fp32 on the card",
+           "reference_seconds": ref_seconds,
            "world": ZERO3_WORLD, "layers": ZERO3_GRADS_LAYERS,
            "loss_rel_tol": LOSS_REL_TOL, "grad_rel_tol": GRAD_REL_TOL}
     runs = {}
@@ -5917,17 +6196,17 @@ def phase_zero3_grads(state):
         check(engine._zero3_stream.last_plan.mode == mode,
               f"{mode}: plan {engine._zero3_stream.last_plan}")
         loss, grads, counts, wire = zero3_step(engine, ids)
-        want = {k: ZERO3_WORLD * v for k, v in step_counts(
-            zero3_count_cfg(cfg, carried)).items()}
+        want = {k: ZERO3_WORLD * v
+                for k, v in zero3_counts(cfg, carried).items()}
         check(counts == want, f"{mode}: launch counts {counts}, expected "
               f"{want}")
         check_aligned(f"zero3 {mode} forward + backward")
         loss_err = abs(loss - ref_loss) / abs(ref_loss)
-        check(loss_err <= LOSS_REL_TOL, f"{mode}: loss vs CPU fp32 "
+        check(loss_err <= LOSS_REL_TOL, f"{mode}: loss vs fp32 "
               f"{loss_err}")
         errs = {n: rel_err(g, ref_grads[n]) for n, g in grads.items()}
         worst = max(errs, key=errs.get)
-        check(errs[worst] <= GRAD_REL_TOL, f"{mode}: grad of {worst} vs CPU "
+        check(errs[worst] <= GRAD_REL_TOL, f"{mode}: grad of {worst} vs "
               f"fp32 {errs[worst]}")
         runs[mode] = (loss, grads)
         out[mode] = {"loss": loss, "loss_rel_err": loss_err,
@@ -5988,14 +6267,22 @@ def zero3_wire_per_step(engine, ids):
 
 
 def timed_zero3(cfg, state, carried, fcm=None, keep_losses=False,
-                iters=TRAIN_ITERS):
+                iters=TRAIN_ITERS, snapshot=None):
     """One bench row timed as phase_train, with the stream's plan, the
     gathered bytes' high-water mark against the plan's bound (the
-    compute-dtype width), and a step's gathers and reduce-scatters."""
+    compute-dtype width), and a step's gathers and reduce-scatters.
+    `snapshot`: a dict that takes engine_state_bits after the warm-up
+    steps (outside the timed ones)."""
     ds_config = zero3_config(cfg, carried, fcm)
+    after_warmup = None
+    if snapshot is not None:
+        def after_warmup(engine):
+            snapshot.update({k: v.clone() for k, v in
+                             engine_state_bits(engine).items()})
     counts, summary, engine = timed_training(
         cfg, state, ds_config, TRAIN_WARMUP, iters,
-        count_cfg=zero3_count_cfg(cfg, carried), keep_losses=keep_losses)
+        rank_step=zero3_counts(cfg, carried), keep_losses=keep_losses,
+        after_warmup=after_warmup)
     stream = engine._zero3_stream
     plan = stream.last_plan
     check(plan.layers_per_step == 2 and plan.mode == (
@@ -6020,19 +6307,71 @@ def phase_train_zero3(state):
     bf16, AdamW lr 6e-4 wd 0.1, global batch 8 x 1024 over 4 ranks on the
     visible cards, groups of 2 layers), each timed as phase_train, in
     turns; beside them what rank 0 holds at ZeRO-2 on the same mesh
-    (train_dp's engine, not stepped)."""
+    (train_dp's engine, not stepped).  Returns the launch counts and, for
+    train_zero3_remat, each plan's losses, its state after the warm-up
+    and its summary."""
     cfg = gpt2_124m_train()
-    out, counts = {}, []
+    out, counts, kept = {}, [], {}
     for carried in (False, True):
+        mode = "carried" if carried else "off"
         gc_cuda()
-        c, out["carried" if carried else "off"] = timed_zero3(cfg, state,
-                                                              carried)
+        bits = {}
+        c, out[mode] = timed_zero3(cfg, state, carried, keep_losses=True,
+                                   snapshot=bits)
+        kept[mode] = {"losses": out[mode].pop("losses"), "bits": bits,
+                      "summary": out[mode]}
         counts.append(c)
     gc_cuda()
     stage2 = train_engine(cfg, state, dp_config(ZERO3_MICRO, 2,
                                                 ZERO3_WORLD))
     out["zero2_held_bytes_rank0"] = held_bytes(stage2)
     del stage2
+    return (add_counts(*counts), kept), out
+
+
+def phase_train_zero3_remat(state, plain):
+    """train_zero3's engines (zero3_config) with
+    GPT2Config(activation_checkpointing=True): each layer of the stream
+    recomputed in the backward (stage3_streaming `_RematLayer`), in the
+    `off` and `carried` plans, timed over TRAIN_WARMUP + ZERO3_REMAT_ITERS
+    steps.  Each plan bitwise its own run in train_zero3 (`plain`): the
+    losses of these steps, and after the warm-up every rank's pieces, Adam
+    state, scaler and generator; tokens/s and peak GiB beside train_zero3's;
+    the gathered high-water mark within the plan's bound; A, B, D and E a
+    rank-step as zero3_counts predicts (each layer's forward twice a step
+    in `off`, three times in `carried`)."""
+    cfg = gpt2_124m_train(activation_checkpointing=True)
+    out, counts = {}, []
+    for carried in (False, True):
+        mode = "carried" if carried else "off"
+        gc_cuda()
+        bits = {}
+        c, summary = timed_zero3(cfg, state, carried, keep_losses=True,
+                                 iters=ZERO3_REMAT_ITERS, snapshot=bits)
+        counts.append(c)
+        ref = plain[mode]
+        losses = summary.pop("losses")
+        check(losses == ref["losses"][:len(losses)],
+              f"{mode}: rematted losses {losses} differ from "
+              f"{ref['losses'][:len(losses)]}")
+        differ = [k for k in ref["bits"] if not torch.equal(ref["bits"][k],
+                                                            bits[k])]
+        check(not differ, f"{mode}: rematted state after the warm-up "
+              f"differs in {differ[:6]}")
+        predicted = zero3_counts(cfg, carried)
+        base = ref["summary"]
+        out[mode] = {
+            "remat": summary, "losses_bitwise_steps": len(losses),
+            "state_bitwise_after_steps": TRAIN_WARMUP,
+            "compared": sorted(bits), "predicted_launches_a_rank_step":
+            predicted, "no_remat_launches_a_rank_step": zero3_counts(
+                replace(cfg, activation_checkpointing=False), carried),
+            "no_remat_tokens_per_s": base["tokens_per_s"],
+            "no_remat_peak_memory_gib": base["peak_memory_gib"],
+            "tokens_per_s_vs_no_remat": summary["tokens_per_s"]
+            / base["tokens_per_s"],
+            "peak_memory_vs_no_remat": summary["peak_memory_gib"]
+            / base["peak_memory_gib"]}
     return add_counts(*counts), out
 
 
@@ -6060,6 +6399,13 @@ def phase_train_zero3_fcm(state):
     return add_counts(*counts), out
 
 
+def sharded_config(ds_config):
+    """`ds_config` saving the sharded layout atomically (resilience's
+    atomic checkpoints and verified loads, its defaults)."""
+    return dict(ds_config, checkpoint={"sharded": True},
+                resilience={"enabled": True, "atomic_checkpoints": True})
+
+
 def phase_checkpoint_zero3(state):
     """The carried row at 4 ranks saved after CKPT_STEPS steps, then loaded
     twice: at stage 3 and 4 ranks (into an engine of other weights), whose
@@ -6067,11 +6413,17 @@ def phase_checkpoint_zero3(state):
     (losses, every rank's pieces and Adam state, the generators), and at
     stage 2 on one rank, which holds the saved masters and optimizer state
     bitwise and whose next loss (other dropout draws: the generators are
-    restored only at the saved world) is within LOSS_REL_TOL of it."""
+    restored only at the saved world) is within LOSS_REL_TOL of it.  The
+    stage-3 engine that resumes saves the sharded layout (sharded_config)
+    right after its load, the saved state bitwise; checkpoint_sharded
+    loads that and takes what this phase kept (the engines, the
+    uninterrupted run, the saved state)."""
     cfg = gpt2_124m_train()
     ids = bench_ids(cfg, ZERO3_MICRO * ZERO3_WORLD)
     ds_config = zero3_config(cfg, True)
     other = init_state(cfg, seed=1)
+    sharded_path = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=CKPT_DIR)
+    atexit.register(shutil.rmtree, sharded_path, True)
     with checkpoint_dir() as path:
         gc_cuda()
         engine = train_engine(cfg, state, ds_config)
@@ -6086,15 +6438,15 @@ def phase_checkpoint_zero3(state):
         counts = launch_counts()
         del engine
         gc_cuda()
-        again = train_engine(cfg, other, ds_config)
+        again = train_engine(cfg, other, sharded_config(ds_config))
         load_s, load_split = timed_load(again, path)
+        sharded = timed_save(again, sharded_path, "zero3")
         resumed = loss_values(again, ids, ZERO3_CKPT_RESUMED)
         bits = engine_state_bits(again)
         check(resumed == cont, f"stage-3 resume {resumed} vs {cont}")
         differ = [k for k in cont_bits if not torch.equal(cont_bits[k],
                                                           bits[k])]
         check(not differ, f"stage-3 resume differs in {differ}")
-        del again
         gc_cuda()
         one = train_engine(cfg, other, BENCH_GPT2_CONFIG)
         one.load_checkpoint(path)
@@ -6110,14 +6462,105 @@ def phase_checkpoint_zero3(state):
         err = abs(next_loss - cont[0]) / abs(cont[0])
         check(err <= LOSS_REL_TOL, f"stage-2 resume loss {next_loss} vs "
               f"{cont[0]}: {err}")
-        del one
-    return counts, {
+    consolidated = io_summary(save_s, load_s, nbytes, save_split,
+                              load_split)
+    kept = {"path": sharded_path, "save": sharded, "engines": (again, one),
+            "ids": ids, "cont": cont, "cont_bits": cont_bits, "saved": saved,
+            "consolidated": consolidated}
+    return (counts, kept), {
         "steps_before_save": CKPT_STEPS, "resumed_steps": ZERO3_CKPT_RESUMED,
         "stage3_resume_bitwise": True, "compared": sorted(cont_bits),
         "stage2_one_rank_masters_and_adam_bitwise": True,
         "stage2_next_loss": next_loss, "stage3_next_loss": cont[0],
         "stage2_loss_rel_err": err, "loss_rel_tol": LOSS_REL_TOL,
-        **io_summary(save_s, load_s, nbytes, save_split, load_split)}
+        **consolidated}
+
+
+def phase_checkpoint_sharded(kept):
+    """checkpoint_zero3's run in the sharded layout (the carried row at 4
+    ranks of one card, `checkpoint.sharded: true`, atomic checkpoints):
+    the save checkpoint_zero3's resuming engine wrote right after its
+    load (the saved state), the files it wrote and their manifest; loaded
+    into that engine (then at other weights, two steps on), verified, its
+    next ZERO3_CKPT_RESUMED steps bitwise the uninterrupted run (losses,
+    every rank's pieces and Adam state, the generators); loaded at stage 2
+    on one rank (the resize) with the masters and Adam state bitwise the
+    saved ones; consolidate_sharded_to_fp32 equal to the masters.  Save and
+    load seconds, bytes and GB/s beside the consolidated layout's."""
+    from deepspeed_tpu_torch.runtime import sharded_checkpoint as sc
+    from deepspeed_tpu_torch.runtime.resilience import verify_manifest
+    path, consolidated = kept["path"], kept["consolidated"]
+    try:
+        (again, one), kept["engines"] = kept["engines"], None
+        save_s, nbytes, save_split = kept["save"]
+        tag_dir = os.path.join(path, "zero3")
+        files = {name: os.path.getsize(os.path.join(tag_dir, name))
+                 for name in sorted(os.listdir(tag_dir))}
+        check(sorted(files) == [
+            "ds_meta.json", "manifest.json", "model_index.json",
+            "model_shards_p00000.npz", "optim_index.json",
+            "optim_shards_p00000.npz"], f"sharded files {sorted(files)}")
+        check(not verify_manifest(tag_dir), "the manifest does not verify")
+        check(not [d for d in os.listdir(path) if ".tmp." in d],
+              "a staging directory was left")
+        gc_cuda()
+        load_s, load_split = timed_load(again, path)
+        reset_launch_counts()
+        resumed = loss_values(again, kept["ids"], ZERO3_CKPT_RESUMED)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = {k: ZERO3_WORLD * ZERO3_CKPT_RESUMED * v for k, v in
+                zero3_counts(gpt2_124m_train(), True).items()}
+        check(counts == want, f"launch counts {counts}, expected {want}")
+        bits = engine_state_bits(again)
+        check(resumed == kept["cont"],
+              f"sharded resume {resumed} vs {kept['cont']}")
+        differ = [k for k in kept["cont_bits"]
+                  if not torch.equal(kept["cont_bits"][k], bits[k])]
+        check(not differ, f"sharded resume differs in {differ}")
+        del again
+        gc_cuda()
+        saved = kept["saved"]
+        t0 = time.perf_counter()
+        one.load_checkpoint(path)
+        torch.cuda.synchronize()
+        resize_s = time.perf_counter() - t0
+        whole = one.module_state_dict()
+        diff = [n for n in saved["module"]
+                if not torch.equal(whole[n].cpu(), saved["module"][n])]
+        check(not diff, f"stage-2 sharded load: masters differ in {diff[:4]}")
+        for key in ("mu", "nu"):
+            got = torch.from_numpy(one._gathered(key)[:one.num_params])
+            check(torch.equal(got, saved[key]),
+                  f"stage-2 sharded load: {key} differs")
+        del one
+        t0 = time.perf_counter()
+        fp32 = sc.consolidate_sharded_to_fp32(tag_dir)
+        consolidate_s = time.perf_counter() - t0
+        masters = sc.leaf_paths({"module": gpt2_params_to_jax(
+            saved["module"], gpt2_124m_train())})
+        check(sorted(fp32) == sorted(masters),
+              "consolidate_sharded_to_fp32: other leaves")
+        unequal = [k for k in masters if not np.array_equal(fp32[k],
+                                                            masters[k])]
+        check(not unequal, f"consolidated leaves differ: {unequal[:4]}")
+    finally:
+        kept.clear()
+        shutil.rmtree(path, ignore_errors=True)
+    sharded = io_summary(save_s, load_s, nbytes, save_split, load_split)
+    return counts, {
+        "files_bytes": files, "manifest_verified": True,
+        "resumed_steps": ZERO3_CKPT_RESUMED, "stage3_resume_bitwise": True,
+        "compared": sorted(bits),
+        "stage2_one_rank_masters_and_adam_bitwise": True,
+        "stage2_load_seconds": resize_s,
+        "consolidated_fp32_equals_masters": True,
+        "consolidate_seconds": consolidate_s, "sharded": sharded,
+        "consolidated": consolidated,
+        "save_seconds_vs_consolidated": save_s
+        / consolidated["save_seconds"],
+        "load_seconds_vs_consolidated": load_s
+        / consolidated["load_seconds"]}
 
 
 def phase_train_zero3_fused(state):
@@ -6135,7 +6578,7 @@ def phase_train_zero3_fused(state):
             cfg, state, dict(zero3_config(cfg, carried),
                              gradient_accumulation_steps=FUSED_GRADS_GAS),
             FUSED_GRADS_STEPS, f"ZeRO-3 {mode}",
-            count_cfg=zero3_count_cfg(cfg, carried))
+            rank_step=zero3_counts(cfg, carried))
         for k, v in out[mode]["replay_launches_traced"].items():
             traced[k] = traced.get(k, 0) + v
         # the counters the check held: every eager window, then the fused
@@ -6144,6 +6587,73 @@ def phase_train_zero3_fused(state):
                        out[mode]["launches_per_window"].items()})
     return (add_counts(*counts), traced), dict(out, world=ZERO3_WORLD,
                                                dropout=DROPOUT)
+
+
+def phase_tiled_linear():
+    """TiledLinear.from_dense at c_fc's width on the card: x [TILED_ROWS,
+    768] through a [768, 3072] weight and a bias, all bf16, in
+    TILED_SPLITS (4, 4) tiles, forward and backward (each input tile's
+    step recomputed in the backward), against the dense x @ W + b in plain
+    PyTorch on the same tensors computed in fp32 (TF32 off): the output
+    within LOSS_REL_TOL and the grads of x, W and b within GRAD_REL_TOL
+    (max|d| / max|ref|), the bf16 dense product's errors beside them;
+    the peak device memory and the device ms (CUDA events) of a forward
+    and backward of each."""
+    from deepspeed_tpu_torch.runtime.zero import TiledLinear
+    k, n = FCM_MATRICES["c_fc"]
+    gen = torch.Generator().manual_seed(0)
+    on_card = lambda *shape, scale=1.0: (  # noqa: E731
+        torch.randn(*shape, generator=gen) * scale).to("cuda",
+                                                        torch.bfloat16)
+    x, w, b = on_card(TILED_ROWS, k), on_card(k, n, scale=0.02), \
+        on_card(n, scale=0.02)
+    g = on_card(TILED_ROWS, n)
+    ins, outs = TILED_SPLITS
+
+    lin = TiledLinear.from_dense(w, b, ins, outs)
+
+    def tiled():
+        lin.zero_grad(set_to_none=True)
+        xt = x.detach().requires_grad_()
+        y = lin(xt)
+        y.backward(g)
+        dw = lin.w.grad.permute(0, 2, 1, 3).reshape(k, n)
+        return y, xt.grad, dw, lin.b.grad.reshape(n)
+
+    def dense():
+        xd, wd, bd = (t.detach().requires_grad_() for t in (x, w, b))
+        y = xd @ wd + bd
+        y.backward(g)
+        return y, xd.grad, wd.grad, bd.grad
+
+    with plain_versions():
+        xf, wf, gf = x.float(), w.float(), g.float()
+        ref = (xf @ wf + b.float(), gf @ wf.T, xf.T @ gf, gf.sum(0))
+    names = ("out", "dx", "dw", "db")
+    out, mem, ms = {}, {}, {}
+    for what, fn in (("tiled", tiled), ("dense_bf16", dense)):
+        gc_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = fn()
+        torch.cuda.synchronize()
+        mem[what] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        out[what] = {name: rel_err(t.float(), r)
+                     for name, t, r in zip(names, got, ref)}
+        check(all(bool(torch.isfinite(t).all()) for t in got),
+              f"{what}: non-finite values")
+        del got
+        ms[what] = time_ms(fn, runs=5)
+    errs = out["tiled"]
+    check(errs["out"] <= LOSS_REL_TOL, f"tiled output vs fp32: {errs}")
+    worst = max(("dx", "dw", "db"), key=errs.get)
+    check(errs[worst] <= GRAD_REL_TOL, f"tiled grads vs fp32: {errs}")
+    return None, {
+        "x": [TILED_ROWS, k], "w": [k, n], "splits": list(TILED_SPLITS),
+        "dtype": "bfloat16", "rel_err_vs_fp32": out,
+        "out_rel_tol": LOSS_REL_TOL, "grad_rel_tol": GRAD_REL_TOL,
+        "peak_mib_forward_backward": mem, "ms_forward_backward": ms,
+        "peak_vs_dense": mem["tiled"] / mem["dense_bf16"]}
 
 
 DP_PARITY = ("layer_norm_kernels", "layer_norm_fwd", "layer_norm_bwd",
@@ -6319,7 +6829,6 @@ def phase_offload_grads(state):
     tier's trajectory, device parameters, master and moments bitwise the
     host tier's; a save after the 3 steps resumed in a new engine bitwise
     for 2 more steps.  The launch counters exact."""
-    from deepspeed_tpu_torch.models.convert import gpt2_params_to_jax
     from deepspeed_tpu_torch.ops.adam import num_threads
     cfg = gpt2_124m_train(embd_dropout=0.0, attn_dropout=0.0,
                           hidden_dropout=0.0)
@@ -6522,7 +7031,6 @@ def phase_infinity_grads(state):
     against the engine's: hold_master).  The launch counters exact: a
     rematted step's.  (Prefetch depth 2 against 0 with dropout is held
     bitwise in train_infinity, whose two engines take the same steps.)"""
-    from deepspeed_tpu_torch.models.convert import gpt2_params_to_jax
     cfg = gpt2_124m_train(embd_dropout=0.0, attn_dropout=0.0,
                           hidden_dropout=0.0)
     ids = torch.from_numpy(bench_ids(cfg, INF_MICRO))
@@ -6670,20 +7178,37 @@ def last_line():
 
 
 def run_zero3_phases(state, path_counts, replays_traced):
-    """Phases 31-35, their launch counts into the kernel line's maps."""
+    """Phases 31-35 and 41-43, their launch counts into the kernel line's
+    maps."""
     run_phase("zero3_grads", phase_zero3_grads, state)
-    for path, fn in (("train_zero3", phase_train_zero3),
-                     ("train_zero3_fcm", phase_train_zero3_fcm),
-                     ("checkpoint_zero3", phase_checkpoint_zero3)):
-        path_counts[path] = run_phase(path, fn, state)
+    path_counts["train_zero3"], plain = run_phase(
+        "train_zero3", phase_train_zero3, state)
+    path_counts["train_zero3_remat"] = run_phase(
+        "train_zero3_remat", phase_train_zero3_remat, state, plain)
+    del plain
+    path_counts["train_zero3_fcm"] = run_phase(
+        "train_zero3_fcm", phase_train_zero3_fcm, state)
+    path_counts["checkpoint_zero3"], kept = run_phase(
+        "checkpoint_zero3", phase_checkpoint_zero3, state)
+    path_counts["checkpoint_sharded"] = run_phase(
+        "checkpoint_sharded", phase_checkpoint_sharded, kept)
+    del kept
     path_counts["train_zero3_fused"], replays_traced["train_zero3_fused"] = \
         run_phase("train_zero3_fused", phase_train_zero3_fused, state)
+    run_phase("tiled_linear", phase_tiled_linear)
 
 
 def main():
     if sys.argv[1:2] == ["--mp-worker"]:
-        # a worker process of train_mp_grads / train_mp (launch_mp)
+        # a worker process of the mp phases (launch_mp)
         return mp_worker(sys.argv[2], sys.argv[3])
+    MP_PLANNED[:] = {
+        "--mp-only": ["train_mp_grads", "train_mp", "train_fused_mp"],
+        "--monitor-only": ["monitor_mp"],
+        "--fused-only": ["train_fused_mp"]}.get(
+            " ".join(sys.argv[1:]),
+            [] if sys.argv[1:] else ["train_mp_grads", "train_mp",
+                                     "train_fused_mp", "monitor_mp"])
     card = run_phase("device", phase_device)
     if sys.argv[1:] == ["--fcm-only"]:
         # only the collective tier, its ranks spread over every visible

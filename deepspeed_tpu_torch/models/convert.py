@@ -64,16 +64,17 @@ def gpt2_params_to_jax(state, config: GPT2Config) -> dict:
     [L, ...]) of a port state dict or of anything with the same keys, such
     as a dict of parameter grads or of numpy arrays: the inverse of
     gpt2_params_from_jax."""
-    def arr(name):
+    def arr(name, copy=True):
         value = state[name]
         if isinstance(value, torch.Tensor):
             value = value.detach().float().cpu().numpy()
-        return np.array(value, dtype=np.float32)
+        return (np.array if copy else np.asarray)(value, dtype=np.float32)
 
     layer_names = DeepSpeedTransformerLayer.param_shapes(config.layer_config())
     tree = {
         "wte": arr("wte"), "wpe": arr("wpe"),
-        "h": {name: np.stack([arr(f"h.{i}.{name}")
+        # np.stack copies: each layer's part is read in place
+        "h": {name: np.stack([arr(f"h.{i}.{name}", copy=False)
                               for i in range(config.num_layers)])
               for name in layer_names},
         "ln_f": {"w": arr("ln_f.w"), "b": arr("ln_f.b")},

@@ -249,7 +249,8 @@ class GPT2Model(nn.Module):
         enabled) each layer is checkpointed, recomputing everything but its
         input.  At ZeRO stage 3 `input_ids` and `generator` are lists, one
         entry a local rank, and so is the result: the layers run through
-        the installed stream."""
+        the installed stream, which recomputes each layer itself under
+        activation_checkpointing (stage3_streaming `_RematLayer`)."""
         if isinstance(input_ids, (list, tuple)):
             stream = self._zero3_stream
             if stream is None or not stream.usable():
@@ -261,7 +262,8 @@ class GPT2Model(nn.Module):
             deterministic = deterministic or gens[0] is None
             hs = [stream.call(i, self.embed_dropout, ids, gen, deterministic)
                   for i, (ids, gen) in enumerate(zip(input_ids, gens))]
-            return stream.scan(self.h, hs, gens, deterministic)
+            return stream.scan(self.h, hs, gens, deterministic,
+                               remat=self.config.activation_checkpointing)
         if generator is None:
             deterministic = True
         h = self.embed_dropout(input_ids, generator, deterministic)

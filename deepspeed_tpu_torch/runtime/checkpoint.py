@@ -68,15 +68,22 @@ def _to_numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
-    """{keystr path: numpy array} of every leaf of `tree`."""
+def leaf_paths(tree: Any, prefix: str = "") -> Dict[str, Any]:
+    """{keystr path: leaf} of every leaf of `tree`, the leaves as they
+    are."""
     kids = _children(tree)
     if kids is None:
-        return {prefix: _to_numpy(tree)}
+        return {prefix: tree}
     flat = {}
     for key, child in kids:
-        flat.update(flatten(child, prefix + key))
+        flat.update(leaf_paths(child, prefix + key))
     return flat
+
+
+def flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    """{keystr path: numpy array} of every leaf of `tree`."""
+    return {key: _to_numpy(leaf)
+            for key, leaf in leaf_paths(tree, prefix).items()}
 
 
 def _leaf_dtype(leaf):

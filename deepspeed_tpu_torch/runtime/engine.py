@@ -84,17 +84,26 @@ What it keeps of the JAX engine:
 - A `torch.Generator` per rank on its device, seeded 42 + r for global
   rank r (the JAX engine's key is 42), so no two ranks draw the same
   dropout mask.
-- Checkpoints in the JAX engine's consolidated layout, file for file
-  (`save_checkpoint`, `load_checkpoint`; runtime/checkpoint.py): the
-  module tree, the optax state tree that the JAX chain holds for the
-  config (optimizers.py `jax_state`), the scaler, and the client state.
-  A run moves between the packages in either direction.  The leaves are
-  whole, so a load at any data-parallel world cuts them into its own
-  ranges.  In place of the JAX key `engine_rng`, every rank's generator
-  state is saved (TORCH_RNG_KEY, in global rank order), restored when the
-  world is the same.  Under processes the ranges and generator states
-  are gathered over the group, process 0 writes the files the single
-  controller writes, and every process loads and cuts its own range.
+- Checkpoints in the JAX engine's layouts, file for file
+  (`save_checkpoint`, `load_checkpoint`): the module tree, the optax state
+  tree that the JAX chain holds for the config (optimizers.py
+  `jax_state`), the scaler, and the client state.  A run moves between
+  the packages in either direction.  In place of the JAX key
+  `engine_rng`, every rank's generator state is saved (TORCH_RNG_KEY, in
+  global rank order), restored when the world is the same.  The layout is
+  the JAX engine's choice (`_sharded_checkpoints`): `checkpoint.sharded`
+  when set, else sharded exactly when several processes save.
+  - consolidated (runtime/checkpoint.py): whole leaves; under processes
+    the ranges and generator states are gathered over the group and
+    process 0 writes the files the single controller writes.
+  - sharded (runtime/sharded_checkpoint.py): every leaf the JAX engine
+    cuts over the ZeRO world is written slice by slice, each slice by the
+    process that hosts its owner (at stages 1-2 the slices of the flat
+    ranges come from their owners in one all-to-all over the group), the
+    rest whole from process 0.
+  Either way a load reads what each local rank holds (its pieces, or its
+  range), so it loads at any data-parallel world, stage or process
+  count.
 
 - The fused whole step (`"fused_step": {"enabled": true}`, the JAX
   engine's): `train_batch` runs the window's gas micro-steps and the
@@ -138,7 +147,7 @@ What it keeps of the JAX engine:
   (runtime/zero/infinity.py), which `initialize` returns for it.
 
 What is not ported yet is refused by `refuse_unported` with the ROADMAP.md
-item that will port it: among others the sharded checkpoint layout (A.5b),
+item that will port it: among others ZeRO-3 over a process group (A.4c),
 the monitor's MoE routing records (A.10), the chaos plane (A.13) and the
 lockstep signature that a resume re-verifies (A.14).
 """
@@ -282,14 +291,6 @@ def refuse_unported(config: DeepSpeedConfig, model, mesh: MeshContext) -> None:
             _refuse(f"zero_optimization.stage {zc.stage} under a "
                     "torch.distributed process group (the mesh's all_gather "
                     "and psum_scatter over process groups)", "A.4c")
-        if getattr(model.config, "activation_checkpointing", False):
-            _refuse("GPT2Config(activation_checkpointing=True) at "
-                    f"zero_optimization.stage {zc.stage} (per-layer "
-                    "recompute inside the streamed layer groups)", "A.5b")
-        if config.checkpoint_config.sharded:
-            _refuse(f"checkpoint.sharded at zero_optimization.stage "
-                    f"{zc.stage} (the per-process sharded checkpoint "
-                    "layout, runtime/sharded_checkpoint.py)", "A.5b")
     if offload_on(zc.offload_param):
         raise ValueError(
             "zero_optimization.offload_param runs on ZeroInfinityEngine "
@@ -768,6 +769,11 @@ class DeepSpeedEngine:
             logger.warning("fused_step: falling back to the modular forward/"
                            f"backward/step loop — {reason}")
             return
+        if self._zero3 and self.module.config.activation_checkpointing:
+            raise NotImplementedError(
+                "fused_step with activation checkpointing at ZeRO stage 3 "
+                "(each layer's recompute redraws its dropout inside the "
+                "window) is not ported: ROADMAP.md A.5c")
         cards = {self.mesh.device_of(r) for r in self.local_ranks}
         if self.mesh.is_cuda and (len(cards) > 1
                                   or self.mesh.process_count > 1):
@@ -916,7 +922,8 @@ class DeepSpeedEngine:
         done = set()
         for (lo, hi), state in zip(self._ranges, self.opt_states):
             if (lo, hi) not in done:
-                full[lo:hi] = state[key].detach().cpu().numpy()
+                # one copy from the card into place
+                torch.from_numpy(full[lo:hi]).copy_(state[key].detach())
                 done.add((lo, hi))
         return full
 
@@ -955,12 +962,22 @@ class DeepSpeedEngine:
                                                       self._scheduled),
                 "scaler": scaler}
 
+    def _sharded_checkpoints(self) -> bool:
+        """The checkpoint layout (the JAX engine's choice): the config's
+        `checkpoint.sharded` when set, else sharded exactly when several
+        processes save."""
+        sharded = self.config.checkpoint_config.sharded
+        if sharded is not None:
+            return bool(sharded)
+        return self.mesh.process_count > 1
+
     def _partition_topology(self):
         """The partition topology every checkpoint records (reshard.py)."""
         topo = self.zero_partitioner.topology()
         topo.update({"format_version": reshard.TOPOLOGY_FORMAT_VERSION,
                      "process_count": self.mesh.process_count,
-                     "layout": "consolidated"})
+                     "layout": ("sharded" if self._sharded_checkpoints()
+                                else "consolidated")})
         return topo
 
     @staticmethod
@@ -974,36 +991,31 @@ class DeepSpeedEngine:
                 f"checkpoint tag {tag!r} contains a reserved marker ('.tmp.' "
                 "/ '.old.' name in-flight checkpoint dirs); pick another tag")
 
-    def _refuse_sharded(self):
-        if self.config.checkpoint_config.sharded:
-            _refuse("checkpoint.sharded: true (the per-process sharded "
-                    "checkpoint layout, runtime/sharded_checkpoint.py)",
-                    "A.5b")
-
     def save_checkpoint(self, save_dir, tag=None, client_state=None,
                         save_latest=True, _generators=None):
-        """Write the JAX engine's consolidated layout under
+        """Write the JAX engine's layout (`_sharded_checkpoints`) under
         <save_dir>/<tag>/ (tag default: global_step<N>): the module tree,
         the optimizer and scaler state, and the client state with the
         engine's counters, the LR schedule, the batch triple, the
         data-parallel world, the partition topology and every rank's
-        generator state (TORCH_RNG_KEY).  `latest` always moves to the
-        tag: as in the JAX engine's consolidated layout, `save_latest` is
-        not honoured (ROADMAP.md C).  Under a process world every process
-        calls it: the state is gathered over the group, process 0 writes
-        (the JAX engine's processes all write the same files) and the
-        others wait for it.  With the resilience block on (the JAX
-        engine's): the sentinel's state and the retry counters ride the
-        client state, the files are written under the retry policy, an
-        atomic save stages them with a manifest (in place under a process
-        group, recorded as a degradation, as the JAX engine), and process
-        0 collects old tags by the retention policy.  A save writes no
-        lockstep signature (ROADMAP.md A.14).  Returns the tag's
-        directory."""
+        generator state (TORCH_RNG_KEY).  Under a process world every
+        process calls it.  The consolidated layout: the state is gathered
+        over the group, process 0 writes (the JAX engine's processes all
+        write the same files) and the others wait for it; `latest` always
+        moves to the tag, as in the JAX engine's consolidated layout
+        (ROADMAP.md C).  The sharded layout (`_save_sharded`): each
+        process writes its shard files, then process 0 the client state
+        and `latest` (when `save_latest`).  With the resilience block on
+        (the JAX engine's): the sentinel's state and the retry counters
+        ride the client state, the files are written under the retry
+        policy, an atomic save stages them with a manifest (a consolidated
+        one in place under a process group, recorded as a degradation, as
+        the JAX engine), and process 0 collects old tags by the retention
+        policy.  A save writes no lockstep signature (ROADMAP.md A.14).
+        Returns the tag's directory."""
         if tag is None:
             tag = f"global_step{self.global_steps}"
         self._check_tag(tag)
-        self._refuse_sharded()
         client = dict(client_state or {})
         sched = self.lr_scheduler
         client.update({
@@ -1033,15 +1045,23 @@ class DeepSpeedEngine:
         if self._retry_policy is not None:
             # sealed before this save's own I/O, as in the JAX engine
             client["retry_counters"] = self._retry_policy.snapshot()
-        module_state = {"module": self._module_tree()}
-        optimizer_state = self._engine_state()
         res = self.resilience
         atomic = res.atomic_enabled
+        if self._sharded_checkpoints():
+            path = self._save_sharded(save_dir, tag, client, atomic,
+                                      save_latest)
+            self._last_save_dir = save_dir
+            self._last_good_ckpt = (save_dir, str(tag))
+            log_dist(f"saved checkpoint {path}", ranks=[0])
+            return path
+        module_state = {"module": self._module_tree()}
+        optimizer_state = self._engine_state()
         if atomic and self.mesh.process_group is not None:
             logger.warning(
                 "resilience.atomic_checkpoints is not supported for "
                 "multi-process consolidated checkpoints — saving with the "
-                "legacy in-place layout")
+                "legacy in-place layout (set checkpoint.sharded=true for "
+                "atomic multi-process saves)")
             from .resilience.degradation import record as degrade
             degrade("checkpoint", "atomic", "in_place",
                     "multi-process consolidated layout cannot stage "
@@ -1083,6 +1103,362 @@ class DeepSpeedEngine:
             import torch.distributed as dist
             dist.barrier(group=self.mesh.process_group)
 
+    # -- the sharded layout (runtime/sharded_checkpoint.py) ------------- #
+    def _jax_leaves(self):
+        """The JAX parameter tree's leaves in its flattening order: (the
+        leaf's name, "h.attn_qkvw" or "ln_f.w" or "wte"; its shape, a layer
+        leaf stacked [L, ...]; its tensor-parallel spec, the JAX model's;
+        the port parameters it holds, one a layer in layer order)."""
+        from .zero.partition import PartitionSpec
+        shapes = dict(self._shapes)
+        groups = {}
+        for name, _ in self._shapes:
+            groups.setdefault(self.module.jax_leaf(name), []).append(name)
+        out = []
+        for leaf in sorted(groups, key=lambda n: tuple(n.split("."))):
+            names = groups[leaf]
+            spec = self.module.param_partition_spec(names[0])
+            shape = tuple(shapes[names[0]])
+            if self.module.layer_index(names[0]) is not None:
+                shape, spec = (len(names),) + shape, PartitionSpec(None,
+                                                                  *spec)
+            out.append((leaf, shape, spec, names))
+        return out
+
+    @staticmethod
+    def _jax_tree(values):
+        """The JAX parameter tree's nesting of {leaf name: value}."""
+        tree = {}
+        for leaf, value in values.items():
+            node, parts = tree, leaf.split(".")
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = value
+        return tree
+
+    def _shard_dims(self, optimizer: bool):
+        """{leaf name: the dimension the JAX engine cuts the leaf along
+        over the ZeRO world, None for whole}: the parameters' from stage 3
+        (the persistence threshold's rule, partition.py's param
+        shardings); the optimizer's parameter-shaped leaves' from stage 1,
+        each the spec of the last parameter of its shape with no
+        threshold (opt_state_shardings and `_zspec_force`)."""
+        from .zero.partition import shard_dim, zero_partition_spec
+        part = self.zero_partitioner
+        leaves = self._jax_leaves()
+        if part.stage < (1 if optimizer else 3):
+            return {leaf: None for leaf, _, _, _ in leaves}
+        if not optimizer:
+            return {leaf: shard_dim(zero_partition_spec(
+                shape, part.axis_sizes, part.persistence_threshold, spec))
+                for leaf, shape, spec, _ in leaves}
+        by_shape = {shape: shard_dim(zero_partition_spec(
+            shape, part.axis_sizes, 0, spec))
+            for _, shape, spec, _ in leaves}
+        return {leaf: by_shape[shape] if shape else None
+                for leaf, shape, _, _ in leaves}
+
+    def _rank_of_index(self):
+        """{ZeRO index: position in local_ranks} of this process's ranks."""
+        return {self.mesh.group_index(r, ZERO_AXES): i
+                for i, r in enumerate(self.local_ranks)}
+
+    def _flat_plan(self, optimizer: bool):
+        """sharded_checkpoint.FlatPlan of state laid out as the flat
+        parameter buffer (stages 0-2), cut as `_shard_dims(optimizer)`."""
+        from .sharded_checkpoint import FlatLeaf, FlatPlan
+        offsets = dict(zip(self._segment_names,
+                           [o for o, _ in self._segments]))
+        dims = self._shard_dims(optimizer)
+        return FlatPlan([FlatLeaf(
+            leaf, shape, dims[leaf], tuple(offsets[n] for n in names),
+            self.module.layer_index(names[0]) is not None)
+            for leaf, shape, _, names in self._jax_leaves()], self.world_size)
+
+    def _sharded_pieces(self, buffers, dims):
+        """Stage 3: {leaf name: sharded_checkpoint.Sliced} of the state
+        laid out as the parameters' pieces in `buffers` (every local
+        rank's), with the slices this process writes: each cut leaf
+        (`dims`) at its local ranks' ZeRO indices, each whole leaf from
+        process 0; a leaf is put together from the pieces, one leaf at a
+        time, and cut."""
+        from .sharded_checkpoint import Sliced, cut_region, whole_region
+        host = [b.detach().cpu().numpy() for b in buffers]
+        layout = self._layout
+
+        def whole(name):
+            leaf = layout.by_name[name]
+            pieces = [h[leaf.offset:leaf.offset + leaf.numel].reshape(
+                leaf.piece_shape) for h in host]
+            return (pieces[0] if leaf.dim is None
+                    else np.concatenate(pieces, axis=leaf.dim))
+        out = {}
+        indices = sorted(self._rank_of_index())
+        for leaf, shape, _, names in self._jax_leaves():
+            arr = (np.stack([whole(n) for n in names])
+                   if self.module.layer_index(names[0]) is not None
+                   else whole(names[0]))
+            d = dims[leaf]
+            if d is None:
+                slices = ([(whole_region(shape), arr)]
+                          if _process_rank() == 0 else [])
+            else:
+                slices = []
+                for index in indices:
+                    region = cut_region(shape, d, index, self.world_size)
+                    slices.append((region, np.ascontiguousarray(arr[tuple(
+                        slice(a, b) for a, b in region)])))
+            out[leaf] = Sliced(shape, "float32", slices)
+        return out
+
+    def _exchanged_slices(self, state, plan):
+        """Stages 1-2 under a process group (one rank a process): what
+        this process writes of the optimizer state whose range it holds
+        (`state`), from the processes whose ranges hold it, in one
+        all-to-all over the group: no process gathers state it does not
+        write.  `plan` (a FlatPlan) caches the index lists, so a save's
+        state keys share them."""
+        import torch.distributed as dist
+        ranges = [self.zero_partitioner.owned_range(self.num_params, r)
+                  for r in range(self.world_size)]
+        lo, hi = self._ranges[0]
+
+        def writer(q):
+            return [self.mesh.group_index(q, ZERO_AXES)], q == 0
+        send = [state[torch.from_numpy(plan.indices(*writer(q), lo, hi)
+                                       - lo).to(state.device)]
+                for q in range(self.world_size)]
+        mine = writer(self.local_ranks[0])
+        idx = plan.indices(*mine)
+        owners = [(idx >= a) & (idx < b) for a, b in ranges]
+        recv_sizes = [int(m.sum()) for m in owners]
+        recv = torch.empty(sum(recv_sizes), dtype=state.dtype,
+                           device=state.device)
+        dist.all_to_all_single(recv, torch.cat(send), recv_sizes,
+                               [t.numel() for t in send],
+                               group=self.mesh.process_group)
+        values = np.empty(idx.size, dtype=np.float32)
+        for m, part in zip(owners, recv.cpu().split(recv_sizes)):
+            values[m] = part.numpy()
+        return plan.place(values, *mine)
+
+    def _leaf_keys(self, tree_of):
+        """{mark: checkpoint key} of the tree `tree_of` builds from a
+        {leaf name: mark} map of string marks."""
+        return {mark: key for key, mark in ckpt_mod.leaf_paths(tree_of(
+            lambda f: self._jax_tree({leaf: f(leaf) for leaf, _, _, _
+                                      in self._jax_leaves()}))).items()}
+
+    def _optimizer_keys(self):
+        """{"<state key>:<leaf name>" / "count": checkpoint key} of the
+        optax state tree (`jax_state`)."""
+        keys = [k for k in self.opt_state if k != "count"]
+        return self._leaf_keys(lambda tree: {
+            "optimizer": self.optimizer.jax_state(
+                {k: tree(lambda leaf, k=k: f"{k}:{leaf}") for k in keys},
+                "count", self._scheduled)})
+
+    def _sharded_trees(self):
+        """(model tree, optim tree) of what this process writes in the
+        sharded layout (stage 3: `_sharded_pieces`; else a FlatPlan's
+        slices of the flat buffers); a collective under a process group at
+        stages 1-2.  Under offload the tier's state is a host
+        tree, written whole from process 0, as the JAX engine stores its
+        host numpy state."""
+        from .sharded_checkpoint import Sliced, whole_region
+        proc = _process_rank()
+        if self._offload is not None:
+            master = self._offload.tier.master_params
+            module = {}
+            for leaf, shape, _, _ in self._jax_leaves():
+                node = master
+                for part in leaf.split("."):
+                    node = node[part]
+                module[leaf] = Sliced(shape, "float32", [
+                    (whole_region(shape), np.asarray(node))]
+                    if proc == 0 else [])
+            return ({"module": self._jax_tree(module)},
+                    self._engine_state())
+        keys = [k for k in self.opt_state if k != "count"]
+        if self._zero3:
+            module = self._sharded_pieces(self._flats,
+                                          self._shard_dims(False))
+            dims = self._shard_dims(True)
+            leaves = {key: self._sharded_pieces(
+                [s[key] for s in self.opt_states], dims) for key in keys}
+        else:
+            mine, whole = sorted(self._rank_of_index()), proc == 0
+            module = self._flat_plan(False).take(
+                self._flats[0].detach().cpu().numpy(), mine, whole)
+            plan = self._flat_plan(True)
+            ranged = self.mesh.process_group is not None and \
+                self.zero_partitioner.stage >= 1
+            leaves = {key: (self._exchanged_slices(self.opt_states[0][key],
+                                                   plan) if ranged
+                            else plan.take(self._gathered(key), mine, whole))
+                      for key in keys}
+        count = self.opt_state["count"].detach().cpu().numpy()
+        scaler = LossScaleState(*(t.detach().cpu().numpy()
+                                  for t in self.scaler_state))
+        optimizer = self.optimizer.jax_state(
+            {k: self._jax_tree(v) for k, v in leaves.items()}, count,
+            self._scheduled)
+        return ({"module": self._jax_tree(module)},
+                {"optimizer": optimizer, "scaler": scaler})
+
+    def _save_sharded(self, save_dir, tag, client, atomic, save_latest):
+        """The JAX engine's sharded save (engine.py:2648-2695): an atomic
+        save stages into the deterministic `<tag>.tmp.g<global_steps>`
+        (process 0 sweeps the orphans of crashed saves first, then every
+        process waits at a barrier), every process writes its model and
+        optim shard files, and `finalize_checkpoint` writes the client
+        state, commits and moves `latest`.  Under a process group the
+        finalize, whose barriers every process must reach together, runs
+        once, outside the retry policy."""
+        from . import sharded_checkpoint as sc
+        pg, proc = self.mesh.process_group, _process_rank()
+        tmp_dir = None
+        write_dir = os.path.join(save_dir, str(tag))
+        if atomic:
+            os.makedirs(save_dir, exist_ok=True)
+            tmp_dir = write_dir = os.path.join(
+                save_dir, f"{tag}.tmp.g{self.global_steps}")
+            if proc == 0:
+                cleanup_tmp_dirs(save_dir)
+            if pg is not None:
+                import torch.distributed as dist
+                dist.barrier(group=pg)
+        module, optim = self._sharded_trees()
+
+        def run(fn, what):
+            if self._retry_policy is not None:
+                return self._retry_policy.run(fn, what=what)
+            return fn()
+        run(lambda: sc.save_sharded(write_dir, "model", module, proc),
+            "sharded model save")
+        run(lambda: sc.save_sharded(write_dir, "optim", optim, proc),
+            "sharded optimizer save")
+        if pg is not None:
+            sc.finalize_checkpoint(save_dir, tag, client, save_latest,
+                                   tmp_dir, group=pg)
+        else:
+            run(lambda: sc.finalize_checkpoint(save_dir, tag, client,
+                                               save_latest, tmp_dir),
+                "checkpoint finalize")
+        res = self.resilience
+        if res.gc_enabled and proc == 0:
+            from .resilience.recovery import gc_checkpoints
+            gc_checkpoints(save_dir, res.keep_last_n, res.keep_every,
+                           latest_tag=ckpt_mod.read_latest_tag(save_dir))
+        return os.path.join(save_dir, str(tag))
+
+    def _read_pieces(self, cat, keys, buffers):
+        """Stage 3: each local rank's pieces of every leaf under `keys`
+        ({leaf name: checkpoint key}) read from `cat` into its buffer
+        (`buffers`, one a local rank, laid out as its pieces)."""
+        from .sharded_checkpoint import cut_region
+        layout, mine = self._layout, self._rank_of_index()
+        host = [b.detach().cpu().numpy().copy() for b in buffers]
+        for leaf, _, _, names in self._jax_leaves():
+            key = keys[leaf]
+            if key not in cat.index:
+                continue
+            layer = self.module.layer_index(names[0]) is not None
+            for at, name in enumerate(names):
+                piece = layout.by_name[name]
+                for index, i in mine.items():
+                    region = cut_region(piece.shape, piece.dim, index,
+                                        self.world_size)
+                    if layer:
+                        region = ((at, at + 1),) + region
+                    host[i][piece.offset:piece.offset + piece.numel] = \
+                        cat.read_region(key, region).reshape(-1)
+            cat.release(key)
+        for buf, arr in zip(buffers, host):
+            buf.copy_(torch.from_numpy(arr).to(buf.device))
+
+    def _read_ranges(self, cat, keys, buffers):
+        """Stages 0-2: each local rank's range of the flat buffer (its
+        optimizer state, `buffers`) read from `cat` (FlatPlan.read_ranges)."""
+        host = self._flat_plan(True).read_ranges(cat, keys,
+                                                 sorted(set(self._ranges)))
+        for rng, buf in zip(self._ranges, buffers):
+            buf.copy_(torch.from_numpy(host[rng]).to(buf.device))
+
+    def _load_sharded(self, path, strict, load_optimizer, client):
+        """Load the sharded layout at `path`: every local rank reads the
+        regions its pieces or its range touch, whatever the saved world,
+        stage or process count (the JAX loader's resize on load).  A tag
+        without optim files loads the module only."""
+        from .sharded_checkpoint import _ShardCatalog
+        keys = self._leaf_keys(lambda tree: {"module": tree(lambda x: x)})
+        cat = _ShardCatalog(path, "model")
+        try:
+            missing = [k for k in keys.values() if k not in cat.index]
+            if missing and strict:
+                raise KeyError(f"checkpoint missing {len(missing)} keys, "
+                               f"e.g. {missing[:5]}")
+            if self._zero3:
+                self._read_pieces(cat, keys, self._flats)
+                tree = None
+            else:
+                current = self._module_tree()
+                values = {}
+                for leaf, key in keys.items():
+                    node = current
+                    for part in leaf.split("."):
+                        node = node[part]
+                    values[leaf] = (cat.read(key) if key in cat.index
+                                    else np.asarray(node))
+                    cat.release(key)
+                tree = self._jax_tree(values)
+                self._set_full(self._flats, gpt2_flat_from_tree(
+                    tree, self._named_shapes(), self.module.config,
+                    self._padded_size))
+        finally:
+            cat.close()
+        try:
+            ocat = _ShardCatalog(path, "optim") if load_optimizer else None
+        except FileNotFoundError:
+            ocat = None
+        if ocat is None:
+            if self._offload is not None and tree is not None:
+                self._offload.tier.load_master_params(tree)
+            return
+        try:
+            if self._offload is not None:
+                from .sharded_checkpoint import load_sharded
+                state = load_sharded(path, "optim", self._engine_state())
+                self._offload.tier.load_state_dict(state["optimizer"])
+            else:
+                opt_keys = self._optimizer_keys()
+                for key in self.opt_state:
+                    if key == "count":
+                        continue
+                    leaf_keys = {leaf: opt_keys[f"{key}:{leaf}"]
+                                 for leaf, _, _, _ in self._jax_leaves()}
+                    absent = [k for k in leaf_keys.values()
+                              if k not in ocat.index]
+                    if absent:
+                        raise KeyError(f"checkpoint missing optimizer "
+                                       f"state, e.g. {absent[:5]}")
+                    buffers = [s[key] for s in self.opt_states]
+                    if self._zero3:
+                        self._read_pieces(ocat, leaf_keys, buffers)
+                    else:
+                        self._read_ranges(ocat, leaf_keys, buffers)
+                count = (int(ocat.read(opt_keys["count"]))
+                         if "count" in opt_keys else
+                         client.get("global_steps", 0)
+                         - client.get("skipped_steps", 0))
+                for state in self.opt_states:
+                    state["count"].fill_(count)
+            # in place: a captured fused window reads these tensors
+            for dst, field in zip(self.scaler_state, LossScaleState._fields):
+                dst.copy_(torch.as_tensor(ocat.read(f"['scaler'].{field}")))
+        finally:
+            ocat.close()
+
     def _set_full(self, buffers, full):
         """Copy a full padded fp32 vector into each local rank's range of
         `buffers` (one tensor a rank, covering its range; at stage 3 its
@@ -1103,11 +1479,12 @@ class DeepSpeedEngine:
                         load_optimizer_states=True,
                         load_lr_scheduler_states=True,
                         load_module_only=False):
-        """Load a checkpoint of either package's consolidated layout (tag
-        None: the one `latest` names) at this engine's data-parallel world,
-        whatever the world it was saved at: the topology is checked first
-        (reshard.check_reshard), the module tree goes into every rank's
-        buffer, the optimizer state is cut into this engine's ranges.  The
+        """Load a checkpoint of either package in either layout (tag
+        None: the one `latest` names; the sharded layout where the tag
+        holds `model_index.json`) at this engine's data-parallel world and
+        stage, whatever those it was saved at: the topology is checked
+        first (reshard.check_reshard), then every local rank reads what it
+        holds, its parameters and its optimizer state.  The
         scaler, the LR schedule's state, the counters and (when the saved
         world equals this one) every rank's generator are restored.
         With resilience's verify_on_load the tag is resolved verified
@@ -1131,40 +1508,17 @@ class DeepSpeedEngine:
                     " with resilience.verify_lockstep_on_resume (the "
                     "collective lockstep signature; set it to false to "
                     "resume without the re-verify)", "A.14")
-        if os.path.isfile(os.path.join(load_dir, str(resolved),
-                                       "model_index.json")):
-            _refuse("loading the sharded checkpoint layout", "A.5b")
-        opt_tmpl = (None if load_module_only or not load_optimizer_states
-                    else self._engine_state())
-        module_state, opt_state, client = ckpt_mod.load_checkpoint_state(
-            load_dir, resolved, {"module": self._module_tree()}, opt_tmpl,
-            strict=load_module_strict)
-        shapes, cfg = self._named_shapes(), self.module.config
-        padded = self._padded_size
-        self._set_full(self._flats, gpt2_flat_from_tree(
-            module_state["module"], shapes, cfg, padded))
-        if self._offload is not None and opt_state is not None:
-            self._offload.tier.load_state_dict(opt_state["optimizer"])
-            for dst, v in zip(self.scaler_state, opt_state["scaler"]):
-                dst.copy_(torch.as_tensor(np.array(v)))
-        elif self._offload is not None:
-            # module only: the master takes the loaded weights, or the next
-            # step would put the old ones back (the JAX engine's :2787-2792)
-            self._offload.tier.load_master_params(module_state["module"])
-        elif opt_state is not None:
-            leaves, count = self.optimizer.from_jax_state(
-                opt_state["optimizer"], self._scheduled)
-            if count is None:  # optax's SGD without a schedule keeps none
-                count = (client.get("global_steps", 0)
-                         - client.get("skipped_steps", 0))
-            for key, tree in leaves.items():
-                self._set_full([s[key] for s in self.opt_states],
-                               gpt2_flat_from_tree(tree, shapes, cfg, padded))
-            for state in self.opt_states:
-                state["count"].fill_(int(count))
-            # in place: a captured fused window reads these tensors
-            for dst, v in zip(self.scaler_state, opt_state["scaler"]):
-                dst.copy_(torch.as_tensor(np.array(v)))
+        path = os.path.join(load_dir, str(resolved))
+        from .sharded_checkpoint import has_sharded_layout
+        if has_sharded_layout(path):
+            client = saved_client
+            self._load_sharded(path, load_module_strict,
+                               not load_module_only and load_optimizer_states,
+                               client)
+        else:
+            client = self._load_consolidated(
+                load_dir, resolved, load_module_strict,
+                not load_module_only and load_optimizer_states)
         if load_lr_scheduler_states and self.lr_scheduler is not None \
                 and client.get("lr_scheduler"):
             self.lr_scheduler.load_state_dict(client["lr_scheduler"])
@@ -1186,11 +1540,45 @@ class DeepSpeedEngine:
             self._note_boundary()
         self._zero_grads()
         self._last_loss = self._rank_losses = self._last_overflow = None
-        path = os.path.join(load_dir, str(resolved))
         self._last_save_dir = load_dir
         self._last_good_ckpt = (load_dir, str(resolved))
         log_dist(f"loaded checkpoint {path}", ranks=[0])
         return path, client
+
+    def _load_consolidated(self, load_dir, tag, strict, load_optimizer):
+        """Load the consolidated layout: the module tree into every rank's
+        buffer, the optimizer state cut into this engine's ranges (or the
+        offload tier's state), the scaler.  Returns the client state."""
+        shapes, cfg = self._named_shapes(), self.module.config
+        padded = self._padded_size
+        opt_tmpl = self._engine_state() if load_optimizer else None
+        module_state, opt_state, client = ckpt_mod.load_checkpoint_state(
+            load_dir, tag, {"module": self._module_tree()}, opt_tmpl,
+            strict=strict)
+        self._set_full(self._flats, gpt2_flat_from_tree(
+            module_state["module"], shapes, cfg, padded))
+        if self._offload is not None and opt_state is not None:
+            self._offload.tier.load_state_dict(opt_state["optimizer"])
+        elif self._offload is not None:
+            # module only: the master takes the loaded weights, or the next
+            # step would put the old ones back (the JAX engine's :2787-2792)
+            self._offload.tier.load_master_params(module_state["module"])
+        elif opt_state is not None:
+            leaves, count = self.optimizer.from_jax_state(
+                opt_state["optimizer"], self._scheduled)
+            if count is None:  # optax's SGD without a schedule keeps none
+                count = (client.get("global_steps", 0)
+                         - client.get("skipped_steps", 0))
+            for key, tree in leaves.items():
+                self._set_full([s[key] for s in self.opt_states],
+                               gpt2_flat_from_tree(tree, shapes, cfg, padded))
+            for state in self.opt_states:
+                state["count"].fill_(int(count))
+        if opt_state is not None:
+            # in place: a captured fused window reads these tensors
+            for dst, v in zip(self.scaler_state, opt_state["scaler"]):
+                dst.copy_(torch.as_tensor(np.array(v)))
+        return client
 
     def _resolve_verified_tag(self, load_dir, tag):
         """The manifest-verified tag to load (the JAX engine's): an

@@ -240,15 +240,22 @@ class Stage3Layout:
                           named_shapes) -> np.ndarray:
         """The whole parameters laid out flat in `named_shapes` order from
         every rank's flat buffer (in ZeRO-rank order)."""
-        parts = []
-        for name, _ in named_shapes:
+        total = sum(int(np.prod(shape)) for _, shape in named_shapes)
+        out = np.empty(total, dtype=locals_[0].dtype if len(locals_)
+                       else np.float32)
+        at = 0
+        for name, shape in named_shapes:
             leaf = self.by_name[name]
             pieces = [loc[leaf.offset:leaf.offset + leaf.numel].reshape(
                 leaf.piece_shape) for loc in locals_]
-            whole = (pieces[0] if leaf.dim is None
-                     else np.concatenate(pieces, axis=leaf.dim))
-            parts.append(whole.reshape(-1))
-        return np.concatenate(parts) if parts else np.empty(0, np.float32)
+            n = int(np.prod(shape))
+            dst = out[at:at + n].reshape(shape)
+            if leaf.dim is None:
+                dst[...] = pieces[0]
+            else:  # straight into place
+                np.concatenate(pieces, axis=leaf.dim, out=dst)
+            at += n
+        return out
 
 
 # ---------------------------------------------------------------------- #

@@ -36,6 +36,23 @@ invariant, stage3_streaming.py:43-56).  The three prefetch modes:
   activation_checkpointing `recompute_generator`) and reduce-scattering
   its gradients.
 
+With the model's activation checkpointing (the JAX model hands
+`stream.scan` its `jax.checkpoint`-ed layer body) each layer runs as one
+`_RematLayer` node, which saves the layer's input and its parameters and
+recomputes the layer in the backward.  It is an autograd Function, not a
+non-reentrant `torch.utils.checkpoint`: that one keeps its inputs by
+reference, so a gathered group would stay live through the backward, and
+its own saved-tensor hooks would shadow the stream's.  The Function's
+saved parameters go through the stream's hooks like any saved tensor, so
+in `off` and `unrolled` they are tokens and the recompute reaches them
+through the backward's gather, and the live set keeps the plan's bound.
+In `carried` the backward's recompute of a group runs its layers as
+`_RematLayer`s, so every layer runs three times a step (the forward, the
+group's recompute, the layer's own), as in the JAX program.  Each
+recompute redraws its dropout from the generator state saved before the
+layer's forward (`recompute_generator`), so a rematted step is bitwise
+the same step without recompute.
+
 The wire: a plain gather concatenates the ranks' compute-dtype pieces;
 its transpose promotes each rank's gradient to fp32, sums the ranks in
 rank order and rounds back (`f32_psum_scatter`'s contract).  With the
@@ -276,6 +293,51 @@ class _GatherGroup(torch.autograd.Function):
         return (None, None, None) + tuple(run.stream._scatter(g, per_rank))
 
 
+class _LayerCall:
+    """One layer of a rematted group: the layer module, its parameters'
+    names, the generator its forward draws from, a function giving the
+    generator its recompute draws from, and the rank's device."""
+
+    def __init__(self, stream, layer, j, generator, replay, deterministic):
+        self.stream, self.layer, self.j = stream, layer, j
+        self.generator, self.replay = generator, replay
+        self.deterministic = deterministic
+
+    def run(self, h, params, generator):
+        with self.stream._device(self.j):
+            return functional_call(
+                self.layer, dict(zip(self.stream._layer_names, params)), (h,),
+                {"generator": generator, "deterministic": self.deterministic})
+
+
+class _RematLayer(torch.autograd.Function):
+    """A layer whose activations are not saved: the forward runs it
+    without a graph and saves its input and parameters (through the
+    saved-tensor hooks active around it); the backward runs it again on
+    them, its masks redrawn (`_LayerCall.replay`), and takes the grads of
+    the input and the parameters."""
+
+    @staticmethod
+    def forward(ctx, call, h, *params):
+        ctx.call = call
+        ctx.save_for_backward(h, *params)
+        return call.run(h, params, call.generator)
+
+    @staticmethod
+    def backward(ctx, grad):
+        h, *params = ctx.saved_tensors
+        call, needs = ctx.call, ctx.needs_input_grad[1:]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need)
+                      for t, need in zip([h] + params, needs)]
+            out = call.run(inputs[0], inputs[1:], call.replay())
+            wanted = [t for t in inputs if t.requires_grad]
+            got = iter(torch.autograd.grad(out, wanted, grad,
+                                           allow_unused=True))
+        return (None,) + tuple(next(got) if t.requires_grad else None
+                               for t in inputs)
+
+
 class _CarriedStream(torch.autograd.Function):
     """The carried double-buffer executor (the JAX
     `_build_carried_stream`): inputs are every rank's hidden states, then
@@ -299,10 +361,23 @@ class _CarriedStream(torch.autograd.Function):
                 stream._account(nxt, +1)
             stream._wait(1 + i, run)
             c_ins.append(hs)
-            replays.append([recompute_generator(gen) for gen in generators])
-            hs = [stream._run_group(i, j, h, cur[j], generators[j],
-                                    deterministic)
-                  for j, h in enumerate(hs)]
+            if stream._remat:
+                # two generators a layer at its state: the group's
+                # recompute draws from one, the layer's own from the other
+                group = [[] for _ in generators]
+                replays.append(group)
+                hs = [stream._run_group(
+                    i, j, h, cur[j], generators[j], deterministic,
+                    before_layer=lambda j=j: group[j].append(tuple(
+                        recompute_generator(generators[j])
+                        for _ in range(2))))
+                      for j, h in enumerate(hs)]
+            else:
+                replays.append([recompute_generator(gen)
+                                for gen in generators])
+                hs = [stream._run_group(i, j, h, cur[j], generators[j],
+                                        deterministic)
+                      for j, h in enumerate(hs)]
             stream._account(cur, -1)
             cur = nxt
         ctx.run, ctx.replays, ctx.det = run, replays, deterministic
@@ -334,8 +409,13 @@ class _CarriedStream(torch.autograd.Function):
                     x = c_ins[i][j].detach().requires_grad_(
                         i > 0 or ctx.input_grads[j])
                     fulls = [f.detach().requires_grad_() for f in cur[j]]
-                    out = stream._run_group(i, j, x, fulls,
-                                            ctx.replays[i][j](), ctx.det)
+                    if stream._remat:
+                        out = stream._run_group(i, j, x, fulls, None,
+                                                ctx.det,
+                                                replays=ctx.replays[i][j])
+                    else:
+                        out = stream._run_group(i, j, x, fulls,
+                                                ctx.replays[i][j](), ctx.det)
                     inputs = ([x] if x.requires_grad else []) + fulls
                     got = torch.autograd.grad(out, inputs, g_h[j],
                                               allow_unused=True)
@@ -391,6 +471,9 @@ class Zero3StreamContext:
         self._pass = None
         self._call = None
         self.counts = {"gathers": 0, "scatters": 0}
+        # per-layer recompute (the model's activation checkpointing), set
+        # by each scan
+        self._remat = False
         # gathered bytes held for each local rank, and the most at once
         self.live_bytes = [0] * len(mesh_ctx.local_ranks)
         self.peak_live_bytes = 0
@@ -518,10 +601,12 @@ class Zero3StreamContext:
             return functional_call(self._call, self._pass.nonlayer[index],
                                    (fn,) + args)
 
-    def scan(self, layers, hs, generators, deterministic):
+    def scan(self, layers, hs, generators, deterministic, remat=False):
         """Every local rank's hidden states `hs` through the layer stack
-        in group lockstep, as the plan says; returns them, rank by rank."""
+        in group lockstep, as the plan says; returns them, rank by rank.
+        `remat`: each layer is recomputed in the backward (`_RematLayer`)."""
         self._layers = layers
+        self._remat = bool(remat)
         run = self._pass
         steps = len(self.layer_regions)
         if self.last_plan.mode == "carried":
@@ -559,18 +644,36 @@ class Zero3StreamContext:
                 nxt = gathered(i + 1, False)
         return hs
 
-    def _run_group(self, i, j, h, fulls, generator, deterministic):
+    def _run_group(self, i, j, h, fulls, generator, deterministic,
+                   replays=None, before_layer=None):
         """Layer group i on rank j's hidden states, from its gathered
-        leaves (`fulls`, layer by layer in layout order)."""
+        leaves (`fulls`, layer by layer in layout order).  Under remat
+        with grad enabled each layer is a `_RematLayer`: its forward draws
+        from `generator` and its recompute from `recompute_generator` of
+        it, or both from `replays` (one pair a layer: the carried
+        backward's).  `before_layer()` runs before each layer (the carried
+        forward notes the generator's state there)."""
         names = self._layer_names
         k = len(names)
         g = self.last_plan.layers_per_step
+        remat = self._remat and torch.is_grad_enabled()
         with self._device(j):
             for t in range(g):
-                params = dict(zip(names, fulls[t * k:(t + 1) * k]))
-                h = functional_call(self._layers[i * g + t], params, (h,),
-                                    {"generator": generator,
-                                     "deterministic": deterministic})
+                layer, params = self._layers[i * g + t], fulls[t * k:
+                                                              (t + 1) * k]
+                if before_layer is not None:
+                    before_layer()
+                if not remat:
+                    h = functional_call(layer, dict(zip(names, params)),
+                                        (h,), {"generator": generator,
+                                               "deterministic": deterministic})
+                    continue
+                if replays is None:
+                    gen, replay = generator, recompute_generator(generator)
+                else:
+                    gen, replay = replays[t][0](), replays[t][1]
+                h = _RematLayer.apply(_LayerCall(self, layer, j, gen, replay,
+                                                 deterministic), h, *params)
         return h
 
     # -- the wire --------------------------------------------------------- #

@@ -368,15 +368,33 @@ def test_missing_and_partial_tags_name_the_available_ones(tmp_path):
 
 
 def test_reserved_tags_and_the_sharded_layout_are_refused(tmp_path):
+    """Reserved tags are refused and write nothing.  The sharded layout,
+    refused until ROADMAP.md A.5b ported it, now saves: `checkpoint.sharded:
+    true` at one rank writes the JAX engine's index and shard files and a
+    topology that reads "sharded", and loads back bitwise
+    (tests/test_torch_sharded_checkpoint.py holds it against the JAX
+    engine)."""
     _, tree = _jax_params(False)
     eng = _port_engine(tree, _conf(8))
     for tag in ("a.tmp.b", "a.old.b"):
         with pytest.raises(ValueError, match="reserved marker"):
             eng.save_checkpoint(str(tmp_path), tag=tag)
-    sharded = _port_engine(tree, _conf(8, checkpoint={"sharded": True}))
-    with pytest.raises(NotImplementedError, match="A.5b"):
-        sharded.save_checkpoint(str(tmp_path))
     assert not os.listdir(tmp_path)
+    sharded = _port_engine(tree, _conf(8, checkpoint={"sharded": True}))
+    _steps(sharded, torch.from_numpy(_ids(8, TINY["n_positions"], 3)), 1)
+    path = sharded.save_checkpoint(str(tmp_path))
+    assert sorted(os.listdir(path)) == [
+        "ds_meta.json", "model_index.json", "model_shards_p00000.npz",
+        "optim_index.json", "optim_shards_p00000.npz"]
+    with open(os.path.join(path, "ds_meta.json")) as f:
+        topo = json.load(f)["client_state"]["partition_topology"]
+    assert topo["layout"] == "sharded"
+    other = _port_engine(_jax_params(False, seed=1)[1],
+                         _conf(8, checkpoint={"sharded": True}))
+    other.load_checkpoint(str(tmp_path))
+    assert torch.equal(other._flat, sharded._flat)
+    for key in ("mu", "nu", "count"):
+        assert torch.equal(other.opt_state[key], sharded.opt_state[key])
 
 
 def test_fp16_export_and_consolidation_match_jax(tmp_path):

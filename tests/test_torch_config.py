@@ -89,8 +89,9 @@ TINY = dict(vocab_size=128, n_positions=64, hidden_size=32, num_layers=2,
 
 
 @pytest.mark.parametrize("block,item", [
-    ({"zero_optimization": {"stage": 3}, "checkpoint": {"sharded": True}},
-     "A.5b"),
+    ({"zero_optimization": {"stage": 3, "offload_optimizer":
+                            {"device": "cpu"}}, "mesh": {"data": 2}},
+     "A.7b"),
     ({"zero_optimization": {"stage": 2, "offload_optimizer":
                             {"device": "cpu"}},
       "resilience": {"sentinel": {"enabled": True}}}, "A.7b"),
@@ -135,13 +136,36 @@ def test_unported_config_blocks_are_refused(block, item):
 
 
 def test_zero3_with_activation_checkpointing_is_refused():
-    """Per-layer recompute inside the streamed layer groups is A.5b: the
-    engine refuses GPT2Config(activation_checkpointing=True) at stage 3."""
+    """Refused until ROADMAP.md A.5b ported per-layer recompute inside the
+    streamed layer groups: GPT2Config(activation_checkpointing=True) at
+    stage 3 now initializes, with `checkpoint.sharded` set too, and steps
+    (tests/test_torch_zero3_remat.py holds it against the JAX engine)."""
     dst.reset_mesh_context()
     conf = dict(FLAGSHIP, bf16={"enabled": False},
-                zero_optimization={"stage": 3}, mesh={"data": 2})
+                zero_optimization={"stage": 3}, mesh={"data": 2},
+                checkpoint={"sharded": True})
     model = GPT2Model(GPT2Config(**dict(TINY, activation_checkpointing=True)))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.5b"):
+    eng = dst.initialize(model=model, config=conf, device="cpu")[0]
+    assert eng._zero3 and eng._sharded_checkpoints()
+    ids = torch.zeros(FLAGSHIP["train_micro_batch_size_per_gpu"] * 2,
+                      TINY["n_positions"], dtype=torch.long)
+    loss = eng.forward(ids)
+    eng.backward(loss)
+    eng.step()
+    assert torch.isfinite(loss)
+    dst.reset_mesh_context()
+
+
+def test_zero3_remat_under_fused_step_is_refused():
+    """Stage 3 with activation checkpointing and the fused step, whose
+    window would hold the recompute's dropout redraws, is refused under
+    ROADMAP.md A.5c."""
+    dst.reset_mesh_context()
+    conf = dict(FLAGSHIP, bf16={"enabled": False},
+                zero_optimization={"stage": 3}, mesh={"data": 2},
+                fused_step={"enabled": True})
+    model = GPT2Model(GPT2Config(**dict(TINY, activation_checkpointing=True)))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.5c"):
         dst.initialize(model=model, config=conf, device="cpu")
     dst.reset_mesh_context()
 

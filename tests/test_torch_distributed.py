@@ -16,6 +16,7 @@ every reduction runs in the same order.
 """
 
 import contextlib
+import json
 import os
 import subprocess
 import sys
@@ -99,15 +100,18 @@ def _case_overflow(spec, case, world, rank):
 
 
 def _case_save(spec, case, world, rank):
-    """Steps, a save, and a load into a fresh engine of the same world."""
+    """Steps, a save, and a load into a fresh engine of the same world
+    (each case in a directory of its own)."""
+    save_dir = spec["save_dir"] + case.get("dir_suffix", "")
     eng = _engine(spec, case)
     for b in case["batches"]:
         _step(eng, _rows(b, world, rank))
-    path = eng.save_checkpoint(spec["save_dir"], tag=case["tag"])
+    path = eng.save_checkpoint(save_dir, tag=case["tag"])
     saved = _state(eng)
     other = _engine(spec, case, state_key="other")
-    other.load_checkpoint(spec["save_dir"])
-    return {"path": path, "saved": saved, "reloaded": _state(other)}
+    other.load_checkpoint(save_dir)
+    return {"path": path, "saved": saved, "reloaded": _state(other),
+            "layout": eng._partition_topology()["layout"]}
 
 
 def _case_load(spec, case, world, rank):
@@ -231,8 +235,17 @@ def _cases(world):
                  config=dp._config(world, micro, 2),
                  batches=_global_batches(50, n=1)),
             dict(name="save", kind="save", tag="w2",
-                 config=dp._config(world, micro, 2),
+                 config=dp._config(world, micro, 2,
+                                   checkpoint={"sharded": False}),
                  batches=_global_batches(60, n=2)),
+            dict(name="save_sharded", kind="save", tag="s2",
+                 dir_suffix="_sharded", config=dp._config(
+                     world, micro, 2, resilience={
+                         "enabled": True, "atomic_checkpoints": True}),
+                 batches=_global_batches(61, n=2)),
+            dict(name="save_sharded_stage1", kind="save", tag="s1",
+                 dir_suffix="_sharded1", config=dp._config(world, micro, 1),
+                 batches=_global_batches(62, n=2)),
             dict(name="loader", kind="loader",
                  config=dp._config(world, 3, 2),
                  dataset=_global_batches(70, n=1, rows=20)[0]),
@@ -599,6 +612,77 @@ def test_save_at_two_processes_equals_the_single_controller(runs, tmp_path):
     _assert_state_equal(_sc_state(one), _sc_state(eng), "W = 1 load")
     jeng = _jax_engine(tr._jax_params(False)[1], _conf(1))
     jeng.load_checkpoint(save_dir, tag="w2")
+    _assert_trees_within(jax.tree.map(np.asarray, jeng.params),
+                         _port_params(eng), 0.0)
+
+
+def _shard_entries(tag_dir):
+    """{name: {key: array}} of every process's shard files, and the index
+    files, of a sharded tag."""
+    import glob
+    out = {}
+    for name in ("model", "optim"):
+        entries = {}
+        for path in sorted(glob.glob(os.path.join(
+                tag_dir, f"{name}_shards_p*.npz"))):
+            with np.load(path) as z:
+                for k in z.files:
+                    assert k not in entries, (path, k)
+                    entries[k] = z[k]
+        with open(os.path.join(tag_dir, f"{name}_index.json")) as f:
+            out[name] = (entries, json.load(f))
+    return out
+
+
+@pytest.mark.parametrize("name,stage,tag", [("save_sharded", 2, "s2"),
+                                            ("save_sharded_stage1", 1, "s1")])
+def test_sharded_save_at_two_processes_is_the_single_controllers(
+        runs, tmp_path, name, stage, tag):
+    """ROADMAP.md C.4: with `checkpoint.sharded` unset, a save at W = 2
+    processes takes the JAX engine's sharded layout.  Each process writes
+    its own shard files (`*_shards_p0000{0,1}.npz`; the optimizer's slices
+    come from their owners' ranges in one all-to-all); their union is the
+    single controller's W = 2 sharded save, key for key and bit for bit,
+    with the same index files; the topology reads "layout": "sharded"; the
+    ZeRO-2 case's atomic save stays atomic (staged, committed with a
+    manifest, no staging dir left); both processes reload it bitwise, and
+    the JAX engine loads it."""
+    import jax
+
+    from .test_torch_checkpoint import (_assert_trees_within, _conf,
+                                        _jax_engine, _port_params)
+
+    dp, tr = _helpers()
+    case = runs["cases"][2][name]
+    save_dir = os.path.join(runs["root"], "ckpt2" + case["dir_suffix"])
+    tag_dir = os.path.join(save_dir, tag)
+    for res in runs[2]:
+        out = res[name]
+        assert out["path"] == tag_dir and out["layout"] == "sharded"
+        _assert_state_equal(out["reloaded"], out["saved"], "reload")
+    for proc in (0, 1):
+        for kind in ("model", "optim"):
+            assert os.path.isfile(os.path.join(
+                tag_dir, f"{kind}_shards_p{proc:05d}.npz"))
+    with open(os.path.join(tag_dir, "ds_meta.json")) as f:
+        topo = json.load(f)["client_state"]["partition_topology"]
+    assert topo["layout"] == "sharded" and topo["process_count"] == 2
+    atomic = stage == 2
+    assert os.path.isfile(os.path.join(tag_dir, "manifest.json")) == atomic
+    assert not [d for d in os.listdir(save_dir) if ".tmp." in d]
+    _, eng = _single_controller(dict(case, config=dict(
+        case["config"], checkpoint={"sharded": True})))
+    eng.save_checkpoint(str(tmp_path), tag=tag)
+    got = _shard_entries(tag_dir)
+    want = _shard_entries(os.path.join(str(tmp_path), tag))
+    for kind in ("model", "optim"):
+        assert sorted(got[kind][0]) == sorted(want[kind][0]), kind
+        for key, arr in want[kind][0].items():
+            np.testing.assert_array_equal(got[kind][0][key], arr,
+                                          err_msg=key)
+        assert got[kind][1] == want[kind][1]
+    jeng = _jax_engine(tr._jax_params(False)[1], _conf(1))
+    jeng.load_checkpoint(save_dir, tag=tag)
     _assert_trees_within(jax.tree.map(np.asarray, jeng.params),
                          _port_params(eng), 0.0)
 

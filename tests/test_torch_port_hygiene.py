@@ -121,3 +121,20 @@ def test_host_builders_stay_in_the_port_tree():
         assert lib.parent == (REPO / "build" / "torch_host").resolve()
     text = (PORT / "ops" / "op_builder.py").read_text()
     assert "csrc/adam" not in text and "csrc/aio" not in text
+
+
+# the rest of ZeRO-3 (ROADMAP.md A.5b): the sharded layout, the stream's
+# per-layer recompute, TiledLinear; plain PyTorch, no kernel
+ZERO3_MODULES = ("runtime/sharded_checkpoint.py",
+                 "runtime/zero/stage3_streaming.py",
+                 "runtime/zero/tiling.py")
+
+
+@pytest.mark.parametrize("module", ZERO3_MODULES)
+def test_zero3_module_imports_no_jax(module):
+    path = PORT / module
+    assert path.exists(), module
+    found = [f"{module}:{line} imports {mod}"
+             for line, mod in _imported_modules(path)
+             if _banned(mod) or mod.split(".")[0] == "ml_dtypes"]
+    assert not found, found

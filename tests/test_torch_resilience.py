@@ -102,8 +102,12 @@ def _worker_main(spec_path, rank):
     dst.init_distributed(dist_backend="gloo",
                          init_method="file://" + spec["rendezvous"])
     world = dist.get_world_size()
+    # `checkpoint.sharded` false: the consolidated layout, whose atomic
+    # save degrades under the group; unset: two processes save sharded
     conf = _conf(ROWS // world, resilience=_block(preemption={
-        "enabled": True, "reraise": False, "save_dir": spec["save_dir"]}))
+        "enabled": True, "reraise": False, "save_dir": spec["save_dir"]}),
+        checkpoint={} if spec["sharded"] is None
+        else {"sharded": spec["sharded"]})
     rows = [b[rank * ROWS // world:(rank + 1) * ROWS // world]
             for b in spec["batches"]]
     eng = _engine(conf)
@@ -121,9 +125,21 @@ def _worker_main(spec_path, rank):
     out["saved_state"] = eng._flat[:eng.num_params].clone()
     dist.barrier()
     if rank == 0:
-        # lost (a save under the group is in place, without a manifest to
-        # verify a damaged file against)
-        shutil.rmtree(os.path.join(spec["save_dir"], out["stopped"]))
+        tag_dir = os.path.join(spec["save_dir"], out["stopped"])
+        out["manifest"] = os.path.isfile(os.path.join(tag_dir,
+                                                      "manifest.json"))
+        out["staging_dirs"] = [d for d in os.listdir(spec["save_dir"])
+                               if ".tmp." in d]
+        if out["manifest"]:
+            # damaged: process 1's optimizer shards fail the manifest
+            with open(os.path.join(tag_dir, "optim_shards_p00001.npz"),
+                      "r+b") as f:
+                f.seek(64)
+                f.write(b"\0" * 64)
+        else:
+            # lost (a save under the group is in place, without a manifest
+            # to verify a damaged file against)
+            shutil.rmtree(tag_dir)
     dist.barrier()
     other = _engine(conf, seed=1)
     path, _ = other.load_checkpoint(spec["save_dir"])
@@ -457,17 +473,13 @@ def test_initialize_takes_resilience_and_refuses_monitor_and_chaos():
             _engine(_conf(ROWS, **block), dropout=0.0)
 
 
-def test_two_processes_stop_together_and_agree_on_the_verified_tag(
-        tmp_path):
-    """Two gloo processes (this file as the worker): rank 1 alone requests
-    the stop; both save emergency_step3 at the boundary (the atomic save
-    recorded as degraded to in-place under the group) and stop; with that
-    tag lost, both resume from global_step2, the tag process 0 resolved
-    and broadcast."""
+def _two_workers(tmp_path, sharded):
+    """Run the worker above in two gloo processes (`checkpoint.sharded`
+    set to `sharded`, None: unset); each one's results."""
     spec = os.path.join(str(tmp_path), "spec.pt")
     torch.save({"rendezvous": os.path.join(str(tmp_path), "rdv"),
                 "save_dir": os.path.join(str(tmp_path), "ckpt"),
-                "out_dir": str(tmp_path),
+                "out_dir": str(tmp_path), "sharded": sharded,
                 "batches": _batches(3, seed=11)}, spec)
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("DS_", "OMPI_"))
@@ -501,8 +513,19 @@ def test_two_processes_stop_together_and_agree_on_the_verified_tag(
     if bad:
         with open(os.path.join(str(tmp_path), f"rank{bad[0]}.log")) as f:
             pytest.fail(f"worker {bad[0]} failed:\n{f.read()[-3000:]}")
-    res = [torch.load(os.path.join(str(tmp_path), f"rank{r}.pt"),
-                      weights_only=False) for r in range(2)]
+    return [torch.load(os.path.join(str(tmp_path), f"rank{r}.pt"),
+                       weights_only=False) for r in range(2)]
+
+
+def test_two_processes_stop_together_and_agree_on_the_verified_tag(
+        tmp_path):
+    """Two gloo processes (this file as the worker) saving the consolidated
+    layout (`checkpoint.sharded: false`): rank 1 alone requests
+    the stop; both save emergency_step3 at the boundary (the atomic save
+    recorded as degraded to in-place under the group) and stop; with that
+    tag lost, both resume from global_step2, the tag process 0 resolved
+    and broadcast."""
+    res = _two_workers(tmp_path, False)
     assert [r["stopped"] for r in res] == ["emergency_step3"] * 2
     assert torch.equal(res[0]["saved_state"], res[1]["saved_state"])
     for r in res:
@@ -510,5 +533,23 @@ def test_two_processes_stop_together_and_agree_on_the_verified_tag(
                    and (e["from_tier"], e["to_tier"]) == ("atomic",
                                                           "in_place")
                    for e in r["degradations"])
+    assert [(r["resumed_from"], r["resumed_step"]) for r in res] == \
+        [("global_step2", 2)] * 2
+
+
+def test_two_processes_save_sharded_by_default_and_agree_on_the_verified_tag(
+        tmp_path):
+    """The same two gloo processes with `checkpoint.sharded` unset: every
+    save is sharded, so the emergency save at the boundary stays atomic
+    (its tag holds a manifest, no staging dir is left, nothing degrades);
+    with a shard file of that tag damaged, process 0's verification skips
+    it and both resume from global_step2, the tag it broadcast."""
+    res = _two_workers(tmp_path, None)
+    assert [r["stopped"] for r in res] == ["emergency_step3"] * 2
+    assert torch.equal(res[0]["saved_state"], res[1]["saved_state"])
+    assert res[0]["manifest"] and res[0]["staging_dirs"] == []
+    for r in res:
+        assert not any(e["subsystem"] == "checkpoint"
+                       for e in r["degradations"])
     assert [(r["resumed_from"], r["resumed_step"]) for r in res] == \
         [("global_step2", 2)] * 2
