@@ -3139,15 +3139,20 @@ def _profile_once(fn):
     launch order) of one fn() under torch.profiler, synchronised on both
     sides.  Only device activity is traced (as device_spans): the host's
     ops were most of the trace's parse, and slow the enqueueing they
-    record."""
+    record.  A session can lose the records of its first kernels (a
+    replay's first layer was lost once): it starts with a short spin
+    kernel, waited for and left out, as device_kernel_events does."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         _, wall = timed(fn)
     # a record_function range on the card (the fused transports'
     # "fcm_fused") is an annotation, not a kernel: left out of busy time
     kernels = sorted((e for e in prof.events()
                       if e.device_type == DeviceType.CUDA
+                      and "spin_kernel" not in e.name
                       and not getattr(e, "is_user_annotation", False)),
                      key=lambda e: e.time_range.start)
     ops = {}
@@ -3691,7 +3696,8 @@ def phase_checkpoint_dp(state):
 # phases 18 and 19: one process a card (torch.distributed, NCCL)
 # --------------------------------------------------------------------- #
 MP_TIMEOUT_S = {"train_mp_grads": 600, "train_mp": 900,
-                "train_fused_mp": 600, "monitor_mp": 600}
+                "train_fused_mp": 600, "monitor_mp": 600, "offload_mp": 600,
+                "infinity_mp": 600}
 
 
 @contextlib.contextmanager
@@ -3811,7 +3817,9 @@ def mp_worker(phases, root):
 
 
 def sha256(tensor):
-    return hashlib.sha256(tensor.detach().cpu().numpy().tobytes()).hexdigest()
+    """The digest of a tensor's bytes (any dtype, bf16 included)."""
+    raw = tensor.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+    return hashlib.sha256(raw.numpy().tobytes()).hexdigest()
 
 
 def grad_ranges(engine):
@@ -3991,7 +3999,9 @@ def mp_train_worker(out_dir):
 
 MP_WORKERS = {"train_mp_grads": mp_grads_worker, "train_mp": mp_train_worker,
               "train_fused_mp": lambda out_dir: mp_fused_worker(out_dir),
-              "monitor_mp": lambda out_dir: mp_monitor_worker(out_dir)}
+              "monitor_mp": lambda out_dir: mp_monitor_worker(out_dir),
+              "offload_mp": lambda out_dir: mp_offload_worker(out_dir),
+              "infinity_mp": lambda out_dir: mp_infinity_worker(out_dir)}
 
 
 def phase_train_mp(state):
@@ -6565,20 +6575,30 @@ def phase_checkpoint_sharded(kept):
 
 def phase_train_zero3_fused(state):
     """graphed_vs_eager at stage 3 on one card, gas 2, dropout 0.1, in the
-    `off` and `carried` plans: the graphed window replays every rank's
-    streamed layers and is bitwise the eager one (losses, every rank's
-    pieces and Adam state, the generators)."""
+    `off` and `carried` plans, and the `off` plan with
+    GPT2Config(activation_checkpointing=True) (the window's graph holds
+    each `_RematLayer`'s recompute, its masks redrawn from the window's
+    registered recompute generators; a rank-step launches A 4L + 1 = 49
+    and B 2L = 24): the graphed window replays every rank's streamed
+    layers and is bitwise the eager one (losses, every rank's pieces and
+    Adam state, the generators)."""
     check(torch.cuda.device_count() == 1,
           "train_zero3_fused puts every rank on one card")
     cfg = gpt2_124m_train()
+    remat = replace(cfg, activation_checkpointing=True)
+    rematted = zero3_counts(remat, False)
+    check(rematted["layer_norm_fwd"] == 4 * cfg.num_layers + 1
+          and rematted["flash_attention_fwd"] == 2 * cfg.num_layers,
+          f"a rematted off rank-step's counts {rematted}")
     out, traced, counts = {}, {}, []
-    for carried in (False, True):
-        mode = "carried" if carried else "off"
+    for mode, model, carried in (("off", cfg, False),
+                                 ("carried", cfg, True),
+                                 ("off_remat", remat, False)):
         out[mode] = graphed_vs_eager(
-            cfg, state, dict(zero3_config(cfg, carried),
-                             gradient_accumulation_steps=FUSED_GRADS_GAS),
+            model, state, dict(zero3_config(model, carried),
+                               gradient_accumulation_steps=FUSED_GRADS_GAS),
             FUSED_GRADS_STEPS, f"ZeRO-3 {mode}",
-            rank_step=zero3_counts(cfg, carried))
+            rank_step=zero3_counts(model, carried))
         for k, v in out[mode]["replay_launches_traced"].items():
             traced[k] = traced.get(k, 0) + v
         # the counters the check held: every eager window, then the fused
@@ -6737,30 +6757,17 @@ def run_steps(engine, ids, steps):
     return out
 
 
-def tier_state(engine):
-    """The offload tier's fp32 master, exp_avg and exp_avg_sq by JAX leaf
-    number (either tier), as CPU tensors."""
+def tier_bits(engine):
+    """Host copies of the offload tier's flat buffers (this process's
+    part: master, exp_avg, exp_avg_sq) and its step count."""
     tier = engine.optimizer
-    sd = tier.state_dict()
-    n = len(tier.leaf_map.leaves)
-    if "exp_avg" in sd:
-        params = [torch.as_tensor(np.asarray(tier.leaf_map.tree_leaf(
-            sd["params"], k))) for k in range(n)]
-        return {"param": params,
-                "exp_avg": [sd["exp_avg"][str(k)] for k in range(n)],
-                "exp_avg_sq": [sd["exp_avg_sq"][str(k)] for k in range(n)]}
-    return {kind: [torch.as_tensor(np.asarray(sd[f"leaf{k}_{kind}"]))
-                   for k in range(n)]
-            for kind in ("param", "exp_avg", "exp_avg_sq")}
+    return ({k: v.detach().to("cpu", copy=True)
+             for k, v in tier.local_state().items()}, tier.step_count())
 
 
-def same_bits(a, b):
-    """Whether two tier_state()s (or tensor lists) hold the same bits."""
-    if isinstance(a, dict):
-        return all(same_bits(a[k], b[k]) for k in a)
-    return len(a) == len(b) and all(
-        torch.equal(x.reshape(-1).view(torch.int32),
-                    y.reshape(-1).view(torch.int32)) for x, y in zip(a, b))
+def same_tier(a, b):
+    """Whether two tier_bits() hold the same bits and step count."""
+    return a[1] == b[1] and all(torch.equal(a[0][k], b[0][k]) for k in a[0])
 
 
 def update_errors(tree, ref, start, hidden):
@@ -6866,7 +6873,7 @@ def phase_offload_grads(state):
         nvme_losses = run_steps(nvme, ids, steps)
         check(nvme_losses == losses,
               f"nvme losses {nvme_losses} vs cpu {losses}")
-        check(same_bits(tier_state(nvme), tier_state(cpu)),
+        check(same_tier(tier_bits(nvme), tier_bits(cpu)),
               "the nvme tier's master / moments differ from the cpu tier's")
         check(torch.equal(nvme._flats[0], cpu._flats[0]),
               "the nvme engine's device parameters differ")
@@ -6885,7 +6892,7 @@ def phase_offload_grads(state):
         fresh.load_checkpoint(ckpt, tag="resume")
         resumed = run_steps(fresh, ids, OFFLOAD_RESUMED)
         check(resumed == cont, f"resumed {resumed} vs {cont}")
-        check(same_bits(tier_state(fresh), tier_state(cpu))
+        check(same_tier(tier_bits(fresh), tier_bits(cpu))
               and torch.equal(fresh._flats[0], cpu._flats[0]),
               "the resumed engine's state differs")
         out.update(resumed_losses=resumed, resume_bitwise=True)
@@ -6895,15 +6902,19 @@ def phase_offload_grads(state):
 
 
 def timed_offload(cfg, state, ds_config, warmup, iters, train_summary,
-                  after_step=None):
+                  after_step=None, before_profile=None, after_warmup=None):
     """One offload row timed as phase_train (warmup, then `iters`
     train_batch calls on the host clock; each reads its loss, as the
     host tier synchronises a step anyway): tokens/s beside train's, the
     step split (device ms of a profiled step, the grads' copy to the host,
     the host tier's step, the parameters' copy back), the card's peak GiB
     beside train's, the pinned host bytes, A/B/D/E a step (train's
-    exactly).  `after_step(engine)` runs after each timed step, outside
-    the clock.  Returns the counts, the summary and the engine."""
+    exactly, on every rank of the engine's mesh).  The batch is
+    bench_gpt2's, micro-batch x world rows.  `after_warmup(engine)` runs
+    after the warm-up steps, `after_step(engine)` after each timed step,
+    both outside the clock; `before_profile(engine)` after the timed
+    steps, before the profiled one.  Returns the counts,
+    the summary (every step's loss under "losses") and the engine."""
     gas = ds_config["gradient_accumulation_steps"]
     gc_cuda()
     torch.cuda.reset_peak_memory_stats()
@@ -6911,9 +6922,12 @@ def timed_offload(cfg, state, ds_config, warmup, iters, train_summary,
     engine = train_engine(cfg, state, ds_config)
     check(engine._fused is None and engine._offload is not None,
           "the offload engine runs the modular loop")
-    batches = repeat_batch(bench_ids(cfg, TRAIN_BATCH))
+    batch = ds_config["train_micro_batch_size_per_gpu"] * engine.world_size
+    batches = repeat_batch(bench_ids(cfg, batch))
     reset_launch_counts()
     losses = [engine.train_batch(batches) for _ in range(warmup)]
+    if after_warmup is not None:
+        after_warmup(engine)
     seconds = 0.0
     for _ in range(iters):
         t0 = time.perf_counter()
@@ -6922,22 +6936,26 @@ def timed_offload(cfg, state, ds_config, warmup, iters, train_summary,
         if after_step is not None:
             after_step(engine)
     counts = launch_counts()
-    per_step = {k: gas * v for k, v in step_counts(cfg).items()}
-    check(per_step == {k: gas * v for k, v in
+    ranks = len(engine.local_ranks)
+    per_step = {k: gas * ranks * v for k, v in step_counts(cfg).items()}
+    check(per_step == {k: gas * ranks * v for k, v in
                        train_summary["launches_per_step"].items()},
-          f"a step's launches {per_step}, train's x {gas}")
+          f"a step's launches {per_step}, train's x {gas} x {ranks} ranks")
     check(counts == {k: (warmup + iters) * v for k, v in per_step.items()},
           f"launch counts {counts} over {warmup + iters} steps, a step "
           f"{per_step}")
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
           f"losses {losses}")
     peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    if before_profile is not None:
+        before_profile(engine)
     wall_ms, busy_ms, _, _ = _profile_once(lambda: engine.train_batch(
         batches))
     split = engine.offload_split()
-    rate = iters * gas * TRAIN_BATCH * TRAIN_SEQ / seconds
+    rate = iters * gas * batch * TRAIN_SEQ / seconds
     return counts, {
-        "gas": gas, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+        "losses": losses, "data_parallel_world": engine.world_size,
+        "gas": gas, "batch": [batch, TRAIN_SEQ],
         "tokens_per_s": rate, "train_tokens_per_s":
             train_summary["tokens_per_s"],
         "vs_train": rate / train_summary["tokens_per_s"],
@@ -6963,10 +6981,11 @@ def phase_train_offload(state, train_summary):
         c, out[f"gas{gas}"], engine = timed_offload(
             cfg, state, offload_config(gas), TRAIN_WARMUP, iters,
             train_summary)
+        del out[f"gas{gas}"]["losses"]
         counts.append(c)
         del engine
     gc_cuda()
-    return add_counts(*counts), out
+    return (add_counts(*counts), out["gas1"]["tokens_per_s"]), out
 
 
 def phase_train_offload_nvme(state, train_summary):
@@ -6982,6 +7001,7 @@ def phase_train_offload_nvme(state, train_summary):
             cfg, state, offload_config(device="nvme", nvme_path=swap),
             OFFLOAD_NVME_WARMUP, OFFLOAD_NVME_ITERS, train_summary,
             lambda e: sweeps.append(dict(e.optimizer.last_sweep_stats)))
+        del out["losses"]
         med = lambda f: float(np.median([f(s) for s in sweeps]))  # noqa
         out.update(
             aio_backend=engine.optimizer.aio_backend, swap_fs=fs_type(swap),
@@ -7007,7 +7027,8 @@ def infinity_counts(cfg):
 
 def infinity_run(cfg, state, ds_config, ids, steps):
     """(losses, master tree, engine) of `steps` streamed steps, the launch
-    counters exact and at most two groups on the card."""
+    counters exact (a streamed step's on every rank) and at most two
+    groups on the card."""
     gc_cuda()
     engine = train_engine(cfg, state, ds_config)
     check(type(engine).__name__ == "ZeroInfinityEngine",
@@ -7016,7 +7037,8 @@ def infinity_run(cfg, state, ds_config, ids, steps):
     losses = run_steps(engine, ids, steps)
     torch.cuda.synchronize()
     counts = launch_counts()
-    want = {k: steps * v for k, v in infinity_counts(cfg).items()}
+    ranks = len(engine.local_ranks)
+    want = {k: steps * ranks * v for k, v in infinity_counts(cfg).items()}
     check(counts == want, f"launch counts {counts}, expected {want}")
     check(engine.max_live_param_groups <= 2,
           f"{engine.max_live_param_groups} groups on the card")
@@ -7159,16 +7181,703 @@ def phase_train_infinity(state):
     return counts, out
 
 
+# --------------------------------------------------------------------- #
+# phases 44-48: the rest of the offload tier (the sentinel with the
+# tier, stage 3 with the tier over ranks, ZeRO-Infinity over ranks, and
+# both tiers over processes)
+# --------------------------------------------------------------------- #
+OFFLOAD_Z3_ITERS = 10  # offload_zero3: 3 + 10 steps
+OFFLOAD_Z3_NVME = 6  # offload_zero3: the nvme tier against the cpu's, 2 + 4
+OFFLOAD_Z3_RESUMED = 2
+SENTINEL_HEALTHY = 2  # offload_sentinel: steps before the first NaN
+NORM_REL_TOL = 1e-6  # the sentinel's norm against the host's of its grads
+INF_DP_WARMUP, INF_DP_ITERS = 2, 4  # infinity_dp: 2 + 4 steps
+GRAD_LEAF_TOL = 1e-4  # infinity_dp fp32: a leaf's grads, of its largest
+EXPLAIN_TOL = 0.1  # infinity_dp fp32: a departure Adam's replay explains
+MP_OFFLOAD_STEPS = 2  # offload_mp / infinity_mp: steps in each process
+MP_OFFLOAD_CLIP = 1.0  # offload_mp: gradient clipping (the norm exchanged)
+
+
+def held_bytes_offload(engine):
+    """What a rank holds under offload: on the card its compute-dtype
+    parameters, its grad buffer and its fp32 accumulator (its pieces at
+    stage 3); on the host its share of the tier's master and moments."""
+    mib = lambda *ts: sum(t.numel() * t.element_size()  # noqa: E731
+                          for t in ts if t is not None) / 2 ** 20
+    ranks = len(engine.local_ranks)
+    return {"params_mib": mib(engine._flat),
+            "grad_buffer_mib": mib(engine._flat_grad),
+            "accumulator_mib": mib(engine._acc[0]),
+            "card_mib": mib(engine._flat, engine._flat_grad, engine._acc[0]),
+            "host_tier_mib": 12 * engine.optimizer.leaf_map.size / ranks
+            / 2 ** 20}
+
+
+def held_bytes_stage2_offload(cfg):
+    """held_bytes_offload of bench_offload's stage-2 engine at one rank,
+    from the engine's buffers' sizes (bf16 parameters and grads and the
+    fp32 accumulator of the whole flat buffer; the host tier's three fp32
+    buffers): train_offload's engine, not built again here."""
+    n = cfg.num_params()
+    mib = 2 ** 20
+    return {"params_mib": 2 * n / mib, "grad_buffer_mib": 2 * n / mib,
+            "accumulator_mib": 4 * n / mib, "card_mib": 8 * n / mib,
+            "host_tier_mib": 12 * n / mib}
+
+
+def poison_step(engine, ids):
+    """A forward and backward whose accumulated grads get a NaN, then the
+    step (the sentinel must not let the tier take it)."""
+    loss = engine.forward(ids)
+    engine.backward(loss)
+    buf = engine._acc[0] if engine._acc[0] is not None \
+        else engine._flat_grads[0]
+    buf[5] = float("nan")
+    engine.step()
+    return loss.item()
+
+
+def phase_offload_sentinel(state):
+    """bench.py::bench_offload (stage 2, the host tier) with the
+    training-health sentinel (policy rewind, grad norm on): SENTINEL_HEALTHY
+    steps; a step whose accumulated grads hold a NaN before any save (the
+    rewind has no checkpoint, so it skips): the tier's master, moments and
+    step count and the card's parameters bitwise as before; a save; a
+    healthy step, whose sentinel norm (from the host grads the tier is
+    about to step) is held against the norm this script takes of the same
+    host grads in float64; a NaN step again: the rewind restores the
+    tier and the parameters bitwise to the save's; a healthy step after.
+    At full width and depth."""
+    cfg = gpt2_124m_train()
+    ids = torch.from_numpy(bench_ids(cfg, TRAIN_BATCH))
+    conf = dict(offload_config(), resilience={
+        "enabled": True, "verify_lockstep_on_resume": False,
+        "sentinel": {"enabled": True, "policy": "rewind"}})
+    gc_cuda()
+    engine = train_engine(cfg, state, conf)
+    check(engine.sentinel is not None and engine._offload is not None,
+          "the sentinel with the host tier")
+    out = {"policy": "rewind", "layers": cfg.num_layers}
+    with checkpoint_dir() as ckpt:
+        reset_launch_counts()
+        losses = run_steps(engine, ids, SENTINEL_HEALTHY)
+        before = tier_bits(engine)
+        flat = engine._flat.clone()
+        poison_step(engine, ids)
+        c = engine.sentinel.counters()
+        check(same_tier(tier_bits(engine), before)
+              and torch.equal(engine._flat, flat),
+              "a skipped NaN step moved the tier or the parameters")
+        check(c["steps_skipped"] == 1 and engine.skipped_steps == 1
+              and not np.isfinite(engine._last_grad_norm_host),
+              f"the NaN step: counters {c}, norm "
+              f"{engine._last_grad_norm_host}")
+        engine.save_checkpoint(ckpt, tag="good")
+        saved, flat = tier_bits(engine), engine._flat.clone()
+        seen, norm = [], engine._offload_grad_norm
+
+        def spy():
+            seen.append(engine._tier_flat(
+                engine._offload.host_grads.clone()).double())
+            return norm()
+        engine._offload_grad_norm = spy
+        losses += run_steps(engine, ids, 1)
+        del engine._offload_grad_norm
+        host_norm = float(torch.sqrt((seen[0] * seen[0]).sum())) / (
+            engine.loss_scale * engine.world_size)
+        norm_err = abs(engine._last_grad_norm_host - host_norm) / host_norm
+        check(norm_err <= NORM_REL_TOL and not same_tier(tier_bits(engine),
+                                                         saved),
+              f"the sentinel's norm {engine._last_grad_norm_host} vs the "
+              f"host's {host_norm}")
+        steps_at_save = engine.global_steps - 1
+        poison_step(engine, ids)
+        c = engine.sentinel.counters()
+        check(same_tier(tier_bits(engine), saved)
+              and torch.equal(engine._flat, flat)
+              and engine.global_steps == steps_at_save
+              and c["rewinds"] == 1,
+              f"the rewind: counters {c}, steps {engine.global_steps}")
+        losses += run_steps(engine, ids, 1)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    micro_steps = SENTINEL_HEALTHY + 4
+    want = {k: micro_steps * v for k, v in step_counts(cfg).items()}
+    check(counts == want, f"launch counts {counts}, expected {want}")
+    check(all(np.isfinite(losses)), f"losses {losses}")
+    out.update(losses=losses, skip_bitwise=True, rewind_bitwise=True,
+               sentinel_norm=engine._last_grad_norm_host,
+               norm_checked=host_norm, norm_rel_err=norm_err,
+               counters=engine.sentinel.counters(),
+               launches_per_step=step_counts(cfg))
+    del engine
+    gc_cuda()
+    return counts, out
+
+
+def offload_zero3_config(cfg, device="cpu", nvme_path=None):
+    """train_zero3's `off` engine (zero3_config: 4 ranks of the card, 2 rows
+    each, bench_gpt2's global batch) with bench_offload's offload_optimizer
+    on `device`."""
+    conf = zero3_config(cfg, False)
+    oo = {"device": device}
+    if nvme_path is not None:
+        oo["nvme_path"] = nvme_path
+    return dict(conf, zero_optimization=dict(conf["zero_optimization"],
+                                             offload_optimizer=oo))
+
+
+def phase_offload_zero3(state, train_summary, stage2_tokens_per_s):
+    """bench_offload at stage 3 over ZERO3_WORLD ranks of the card
+    (offload_zero3_config): the device stage-3 engine from the same
+    weights and generators (3 + 10 steps) against the cpu tier's timed
+    run (3 + 10 steps: tokens/s, the step split, the peak) -- all 13
+    losses 2e-2, and each leaf's master update after the 3 warm-up steps
+    (hold_master, whose skipped-step control needs a step to be a large
+    share of the update, as in offload_grads); the nvme tier bitwise
+    the cpu tier after 2 + 4 steps (losses, master and moments, every
+    rank's pieces); a save after the timed steps resumed bitwise in a new
+    engine for 2 steps; what a rank holds against stage-2 offload's."""
+    cfg = gpt2_124m_train()
+    steps = TRAIN_WARMUP + OFFLOAD_Z3_ITERS
+    ids = torch.from_numpy(bench_ids(cfg, ZERO3_MICRO * ZERO3_WORLD))
+    gc_cuda()
+    ref = train_engine(cfg, state, zero3_config(cfg, False))
+    ref_losses = run_steps(ref, ids, TRAIN_WARMUP - 1)
+    short = gpt2_params_to_jax(ref.module_state_dict(), cfg)
+    ref_losses += run_steps(ref, ids, 1)
+    ref_tree = gpt2_params_to_jax(ref.module_state_dict(), cfg)
+    ref_losses += run_steps(ref, ids, OFFLOAD_Z3_ITERS)
+    del ref
+    kept = {}
+
+    def at_nvme_step(engine):
+        if engine.global_steps == OFFLOAD_Z3_NVME:
+            kept["bits"] = tier_bits(engine)
+            kept["flats"] = [f.clone() for f in engine._flats]
+
+    def after_warmup(engine):
+        kept["master"] = engine._module_tree()
+    counts, row, engine = timed_offload(
+        cfg, state, offload_zero3_config(cfg), TRAIN_WARMUP,
+        OFFLOAD_Z3_ITERS, train_summary, after_step=at_nvme_step,
+        after_warmup=after_warmup)
+    check(engine._zero3 and len(engine.local_ranks) == ZERO3_WORLD,
+          f"stage 3 over {engine.local_ranks}")
+    losses = row.pop("losses")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    check(len(ref_losses) == len(losses) == steps,
+          f"{len(ref_losses)} and {len(losses)} losses")
+    check(loss_err <= LOSS_REL_TOL, f"losses {losses} vs {ref_losses}")
+    out = {"world": ZERO3_WORLD, "steps": steps, "timed": row,
+           "losses": losses, "device_engine_losses": ref_losses,
+           "loss_rel_err": loss_err,
+           **hold_master(kept.pop("master"), ref_tree,
+                         gpt2_params_to_jax(state, cfg), short,
+                         cfg.hidden_size, "stage-3 cpu tier"),
+           "held_bytes_rank": held_bytes_offload(engine),
+           "stage2_held_bytes_rank": held_bytes_stage2_offload(cfg),
+           "stage2_offload_tokens_per_s": stage2_tokens_per_s,
+           "vs_stage2_offload": row["tokens_per_s"] / stage2_tokens_per_s}
+    with checkpoint_dir() as ckpt:
+        engine.save_checkpoint(ckpt, tag="resume")
+        cont = run_steps(engine, ids, OFFLOAD_Z3_RESUMED)
+        after = tier_bits(engine)
+        flats = [f.clone() for f in engine._flats]
+        del engine
+        gc_cuda()
+        fresh = train_engine(cfg, state, offload_zero3_config(cfg))
+        fresh.load_checkpoint(ckpt, tag="resume")
+        resumed = run_steps(fresh, ids, OFFLOAD_Z3_RESUMED)
+        check(resumed == cont and same_tier(tier_bits(fresh), after)
+              and all(torch.equal(a, b) for a, b in zip(fresh._flats,
+                                                        flats)),
+              f"resumed {resumed} vs {cont}, or the state differs")
+        out.update(resumed_losses=resumed, resume_bitwise=True)
+        del fresh
+    with checkpoint_dir() as swap:
+        gc_cuda()
+        nvme = train_engine(cfg, state, offload_zero3_config(
+            cfg, "nvme", swap))
+        nvme_losses = run_steps(nvme, ids, OFFLOAD_Z3_NVME)
+        check(nvme_losses == losses[:OFFLOAD_Z3_NVME]
+              and same_tier(tier_bits(nvme), kept["bits"])
+              and all(torch.equal(a, b) for a, b in zip(nvme._flats,
+                                                        kept["flats"])),
+              f"the nvme tier vs the cpu tier after {OFFLOAD_Z3_NVME} "
+              f"steps: losses {nvme_losses} vs {losses[:OFFLOAD_Z3_NVME]}")
+        out.update(nvme_bitwise=True, nvme_steps=OFFLOAD_Z3_NVME,
+                   nvme_sweep=nvme.optimizer.last_sweep_stats)
+        del nvme
+    gc_cuda()
+    return counts, out
+
+
+def master_entry_ratios(out, ref, rtol=1e-5, atol_rel=1e-4):
+    """Leaf by leaf (dotted path: array), each entry's |out - ref| /
+    (rtol |ref| + atol_rel max|ref|): tests/test_torch_infinity.py
+    `_assert_master_close`'s bound, which holds where every entry is at
+    most 1; the key third of attn_qkvb reads 0, left out as there."""
+    from deepspeed_tpu_torch.utils.tree import tree_flatten
+    out_ratios = {}
+    for name, o, r in zip(leaf_paths(ref), tree_flatten(out)[0],
+                          tree_flatten(ref)[0]):
+        o, r = np.asarray(o, np.float64), np.asarray(r, np.float64)
+        ratio = np.abs(o - r) / (rtol * np.abs(r) + atol_rel
+                                 * np.abs(r).max())
+        if name == "h.attn_qkvb":
+            h = r.shape[-1] // 3
+            ratio[..., h:2 * h] = 0.0
+        out_ratios[name] = ratio
+    return out_ratios
+
+
+def leaf_value(tree, dotted):
+    """A nested dict's leaf at a dotted path, as a float64 array."""
+    for key in dotted.split("."):
+        tree = tree[key]
+    return np.asarray(tree, np.float64)
+
+
+class LeafGrads:
+    """A host grad buffer of a leaf map's layout (fp32), read by JAX leaf
+    (dotted path) on demand."""
+
+    def __init__(self, leaf_map, flat):
+        self.leaf_map, self.flat = leaf_map, flat
+        self.index = {".".join(leaf.path): k
+                      for k, leaf in enumerate(leaf_map.leaves)}
+
+    def leaf(self, name):
+        """The leaf as a float64 array of its shape."""
+        return self.leaf_map.gather(self.flat,
+                                    self.index[name]).double().numpy()
+
+    def at(self, name, flat_index):
+        """The leaf's entries at `flat_index` (float64)."""
+        return self.leaf(name).ravel()[flat_index]
+
+
+def leaf_grad_errors(grads, ref, hidden):
+    """Two LeafGrads, leaf by leaf: max|d| / max|ref|, the key third of
+    attn_qkvb left out (update_errors)."""
+    out = {}
+    for name in ref.index:
+        g, r = grads.leaf(name), ref.leaf(name)
+        if name == "h.attn_qkvb":
+            g, r = (np.concatenate([x[..., :hidden], x[..., 2 * hidden:]],
+                                   axis=-1) for x in (g, r))
+        out[name] = float(np.abs(g - r).max() / np.abs(r).max())
+    return out
+
+
+def phase_infinity_dp(state):
+    """bench.py::bench_infinity over DP_WORLD ranks of the card (4 rows a
+    rank, dropout 0.1, parameters and optimizer in files, each rank
+    streaming the groups and its rows, the groups' grads summed over the
+    ranks in rank order), 2 + 4 steps at prefetch depth 2 (the last 4
+    timed) and at depth 0: the two bitwise (losses, master).  Then its
+    model in fp32 (dropout off, the host tiers) on one 16-row global
+    batch, 2 steps, three ways: one rank (the reference), DP_WORLD ranks,
+    and one rank at gas 2 (8 rows a micro-step: the same function summed
+    in another order, the control).  Against the reference: the losses
+    at 1e-5; the first step's host grads leaf by leaf at GRAD_LEAF_TOL of
+    the leaf's largest; each leaf's update (hold_master); and the master
+    entry by entry against tests/test_torch_infinity.py's
+    `_assert_master_close` bound: each entry out of it must be explained
+    by the grads, Adam replayed in float64 from the start over each run's
+    own grads giving the two masters' difference there within EXPLAIN_TOL
+    of it (Adam's normalised step turns a near-zero grad's rounding in
+    another summation order into a share of lr).  The control reads the
+    same bound, so the four ranks' departures stand beside the one
+    rank's own under another order; the worst entries' grads are
+    reported."""
+    from deepspeed_tpu_torch.utils.tree import tree_flatten
+    cfg = gpt2_124m_train()
+    steps = INF_DP_WARMUP + INF_DP_ITERS
+    rows = INF_MICRO * DP_WORLD
+    ids = torch.from_numpy(bench_ids(cfg, rows))
+    out = {"world": DP_WORLD, "rows": rows, "steps": steps,
+           "launches_per_rank_step": infinity_counts(cfg)}
+    runs, counts = {}, []
+    with checkpoint_dir() as swap:
+        for depth in (2, 0):
+            conf = dict(infinity_config(os.path.join(swap, f"d{depth}"),
+                                        depth=depth), mesh={"data": DP_WORLD})
+            gc_cuda()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            losses, _, eng = infinity_run(cfg, state, conf, ids,
+                                          INF_DP_WARMUP)
+            check(eng.world_size == DP_WORLD, f"world {eng.world_size}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses += run_steps(eng, ids, INF_DP_ITERS)
+            seconds = time.perf_counter() - t0
+            counts.append(launch_counts())  # since infinity_run's reset
+            want = {k: steps * DP_WORLD * v
+                    for k, v in infinity_counts(cfg).items()}
+            check(counts[-1] == want,
+                  f"launch counts {counts[-1]}, expected {want}")
+            runs[depth] = (losses, eng.optimizer.master_params)
+            check(eng.max_live_param_groups <= 2
+                  and all(np.isfinite(losses)) and losses[-1] < losses[0],
+                  f"depth {depth}: {eng.max_live_param_groups} groups, "
+                  f"losses {losses}")
+            out[f"depth{depth}"] = {
+                "tokens_per_s": INF_DP_ITERS * rows * TRAIN_SEQ / seconds,
+                "ms_per_step": seconds / INF_DP_ITERS * 1e3,
+                "losses": losses,
+                "max_live_param_groups": eng.max_live_param_groups,
+                "peak_memory_gib": (torch.cuda.max_memory_allocated()
+                                    - base) / 2 ** 30,
+                "pinned_host_bytes": eng.pinned_bytes}
+            del eng
+        m2, m0 = (tree_flatten(runs[d][1])[0] for d in (2, 0))
+        check(runs[2][0] == runs[0][0] and all(
+            np.array_equal(a, b) for a, b in zip(m2, m0)),
+            f"depth 2 vs 0: {runs[2][0]} vs {runs[0][0]}")
+        out["depth_2_vs_0_bitwise"] = True
+        out["fp32_vs_one_rank"] = infinity_dp_fp32(cfg, state, ids, swap,
+                                                   counts)
+    gc_cuda()
+    return add_counts(*counts), out
+
+
+def infinity_dp_fp32(cfg, state, ids, swap, counts):
+    """infinity_dp's fp32 half (its docstring): the summary; each run's
+    launch counts appended to `counts`."""
+    rows = ids.shape[0]
+    fp32 = replace(cfg, bf16=False, embd_dropout=0.0, attn_dropout=0.0,
+                   hidden_dropout=0.0)
+    held = {}
+    for name, world, gas in (("one", 1, 1), ("ranks", DP_WORLD, 1),
+                             ("gas2", 1, 2)):
+        micro = rows // (world * gas)
+        conf = dict(infinity_config(os.path.join(swap, name), "cpu",
+                                    "cpu"),
+                    bf16={"enabled": False},
+                    train_micro_batch_size_per_gpu=micro,
+                    gradient_accumulation_steps=gas,
+                    mesh={"data": world})
+        gc_cuda()
+        eng = train_engine(fp32, state, conf)
+        check(eng.world_size == world, f"world {eng.world_size}")
+        reset_launch_counts()
+        losses, grads, masters = [], [], []
+        for _ in range(INF_DP_WARMUP):
+            parts = []
+            for m in range(gas):
+                loss = eng.forward(ids[m * rows // gas:
+                                       (m + 1) * rows // gas])
+                eng.backward(loss)
+                if m == gas - 1:  # what the tier is about to step
+                    grads.append(LeafGrads(eng._leaf_map,
+                                           eng._host_grads / (gas * world)))
+                eng.step()
+                parts.append(loss.item())
+            losses.append(float(np.mean(parts)))
+            masters.append(eng.optimizer.master_params)
+        torch.cuda.synchronize()
+        counts.append(launch_counts())
+        want = {k: INF_DP_WARMUP * gas * world * v
+                for k, v in infinity_counts(fp32).items()}
+        check(counts[-1] == want,
+              f"{name}: launch counts {counts[-1]}, expected {want}")
+        held[name] = {"losses": losses, "grads": grads,
+                      "masters": masters,
+                      "hyper": eng.optimizer.hyper}
+        del eng
+    ref = held["one"]
+    hyper = ref["hyper"]
+    eps = hyper.eps
+    start = gpt2_params_to_jax(state, fp32)
+    result = {"layers": fp32.num_layers, "rows": rows,
+              "steps": INF_DP_WARMUP, "adam_eps": eps,
+              "grad_leaf_tol": GRAD_LEAF_TOL, "explain_tol": EXPLAIN_TOL}
+    for name in ("ranks", "gas2"):
+        run = held[name]
+        err = max(abs(a - b) / abs(b)
+                  for a, b in zip(run["losses"], ref["losses"]))
+        grad_errs = leaf_grad_errors(run["grads"][0], ref["grads"][0],
+                                     cfg.hidden_size)
+        ratios = master_entry_ratios(run["masters"][-1], ref["masters"][-1])
+        out_of_bound, unexplained, worst = 0, [], []
+        for leaf, ratio in ratios.items():
+            bad = np.flatnonzero(ratio > 1.0)
+            out_of_bound += len(bad)
+            top = np.argpartition(ratio, -3, axis=None)[-3:]
+            worst += [(float(ratio.ravel()[i]), leaf, int(i)) for i in top]
+            if not len(bad):
+                continue
+            # Adam replayed in float64 from each run's own grads: the part
+            # of the departure that the grads' difference explains
+            w0 = leaf_value(start, leaf).ravel()[bad]
+            replayed = (adam_replay(w0, [g.at(leaf, bad)
+                                         for g in run["grads"]], hyper)
+                        - adam_replay(w0, [g.at(leaf, bad)
+                                           for g in ref["grads"]], hyper))
+            actual = (leaf_value(run["masters"][-1], leaf).ravel()[bad]
+                      - leaf_value(ref["masters"][-1], leaf).ravel()[bad])
+            miss = np.abs(replayed - actual) > EXPLAIN_TOL * np.abs(actual)
+            unexplained += [(leaf, int(i)) for i in bad[miss]]
+        worst = [{"leaf": leaf, "flat_index": i, "ratio": ratio,
+                  "master": float(leaf_value(run["masters"][-1], leaf)
+                                  .ravel()[i]),
+                  "reference": float(leaf_value(ref["masters"][-1], leaf)
+                                     .ravel()[i]),
+                  "grads_over_eps": [float(g.at(leaf, [i])[0] / eps)
+                                     for g in run["grads"]],
+                  "reference_grads_over_eps": [float(g.at(leaf, [i])[0]
+                                                     / eps)
+                                               for g in ref["grads"]]}
+                 for ratio, leaf, i in sorted(worst, reverse=True)[:5]]
+        grad_leaf = max(grad_errs, key=grad_errs.get)
+        result[name] = {
+            "world": DP_WORLD if name == "ranks" else 1,
+            "gas": 2 if name == "gas2" else 1,
+            "losses": run["losses"], "one_rank_losses": ref["losses"],
+            "losses_bitwise": run["losses"] == ref["losses"],
+            "loss_rel_err": err, "first_step_grad_rel_err": grad_errs,
+            "worst_first_step_grad_leaf": grad_leaf,
+            "worst_first_step_grad_rel_err": grad_errs[grad_leaf],
+            "master_bound_worst_ratio": worst[0]["ratio"],
+            "master_bound_worst_leaf": worst[0]["leaf"],
+            "entries_out_of_bound": out_of_bound,
+            "out_of_bound_unexplained_by_grads": len(unexplained),
+            "worst_entries": worst}
+        check(err <= 1e-5, f"fp32 {name} vs one rank: losses "
+              f"{run['losses']} vs {ref['losses']}")
+        if name == "ranks":
+            check(grad_errs[grad_leaf] <= GRAD_LEAF_TOL,
+                  f"fp32 over {DP_WORLD} ranks vs one: the first step's "
+                  f"grads by leaf {grad_errs}")
+            check(not unexplained,
+                  f"fp32 over {DP_WORLD} ranks vs one: {len(unexplained)} "
+                  "master entries out of the bound that Adam over the two "
+                  f"runs' grads does not explain, as {unexplained[:10]}")
+            result[name].update(hold_master(
+                run["masters"][-1], ref["masters"][-1], start,
+                ref["masters"][0], cfg.hidden_size, "infinity dp fp32"))
+    return result
+
+
+def adam_replay(w0, grads, hyper):
+    """The host tier's Adam (ops/adam/cpu_adam.py `adam_step_plain`)
+    replayed in float64 from `w0` over each step's grads (arrays of one
+    shape), with the tier's hyper-parameters."""
+    w = np.asarray(w0, np.float64).copy()
+    m, v = np.zeros_like(w), np.zeros_like(w)
+    b1, b2 = hyper.betas
+    wd = hyper.weight_decay
+    for t, g in enumerate(grads, 1):
+        g = np.asarray(g, np.float64)
+        if not hyper.adamw_mode and wd > 0:
+            g = g + wd * w
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g * g
+        denom = np.sqrt(v) / np.sqrt(1 - b2 ** t) + hyper.eps
+        if hyper.adamw_mode and wd > 0:
+            w = w * (1 - hyper.lr * wd)
+        w = w - hyper.lr / (1 - b1 ** t) * m / denom
+    return w
+
+
+def mp_offload_worker(out_dir):
+    """offload_mp in one process: bench_offload's stage-2 host tier over
+    the group (each process its range; gradient clipping, so the norm's
+    partials are exchanged), MP_OFFLOAD_STEPS steps on its rows; the
+    whole tier's and the parameters' digests; a save in the sharded
+    layout (the default under processes)."""
+    cfg = gpt2_124m_train()
+    state = init_state(cfg)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    engine = train_engine(cfg, state, mp_offload_config(world))
+    check(engine.local_ranks == [rank] and engine.mesh.process_count
+          == world, f"the mesh is {engine.mesh}")
+    rows = torch.from_numpy(bench_ids(cfg, TRAIN_BATCH * world)[
+        rank * TRAIN_BATCH:(rank + 1) * TRAIN_BATCH])
+    reset_launch_counts()
+    losses = run_steps(engine, rows, MP_OFFLOAD_STEPS)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    out = {"rank": rank, "world": world, "losses": losses,
+           "launches": counts, **tier_digests(engine),
+           "params_sha256": sha256(engine._flat[:engine.num_params])}
+    engine.save_checkpoint(os.path.join(out_dir, "ckpt"), tag="mp")
+    out["layout"] = engine._partition_topology()["layout"]
+    return out
+
+
+def mp_offload_config(world):
+    return dict(offload_config(), mesh={"data": world},
+                gradient_clipping=MP_OFFLOAD_CLIP)
+
+
+def tier_digests(engine):
+    """sha256 of the offload tier's whole master and moments (the first
+    num_params entries, gathered over the processes: a collective) and
+    its step count."""
+    tier = engine.optimizer
+    n = tier.leaf_map.num_params
+    return {"tier_step": tier.step_count(),
+            "tier_sha256": {k: sha256(engine._tier_flat(v)[:n])
+                            for k, v in tier.local_state().items()}}
+
+
+def mp_against_single_controller(what, results, ref_losses, ref_digests,
+                                 ref_params, loaded_digests):
+    """Every process's losses, tier digests and parameters against the
+    single controller's at W ranks, and the save at W processes loaded at
+    one rank: all bitwise; the launch counters summed over the
+    processes."""
+    world = len(results)
+    for res in results:
+        check(res["losses"] == ref_losses,
+              f"{what}: rank {res['rank']} losses {res['losses']} vs the "
+              f"single controller's {ref_losses}")
+        check(res["tier_sha256"] == ref_digests["tier_sha256"]
+              and res["tier_step"] == ref_digests["tier_step"]
+              == MP_OFFLOAD_STEPS,
+              f"{what}: rank {res['rank']}'s tier differs from the single "
+              "controller's")
+        check(res["params_sha256"] == ref_params,
+              f"{what}: rank {res['rank']}'s parameters differ")
+    check(loaded_digests == ref_digests,
+          f"{what}: the save at {world} process(es) loaded at one rank "
+          "differs")
+    counts = {name: sum(res["launches"][name] for res in results)
+              for name in results[0]["launches"]}
+    return counts, {
+        "world": world, "processes_vs_single_controller_bitwise": True,
+        "loaded_at_one_rank_bitwise": True, "losses": ref_losses,
+        "needs_two_cards": ("the exchange between processes: skipped, "
+                            "one card visible (a one-process group ran)"
+                            if world == 1 else None),
+        "launches_all_processes": counts}
+
+
+def phase_offload_mp(state):
+    """bench_offload's stage-2 host tier (clipping 1.0) in W = every visible
+    card processes, each tier over its range (the finite flag and the
+    norm's partials exchanged), MP_OFFLOAD_STEPS steps, against the single
+    controller at W ranks on the same cards: losses, the whole tier
+    (digests) and the parameters bitwise; the workers' save (sharded at W
+    > 1) loaded by one rank in this process: its tier bitwise.  At W = 1
+    the one-process group runs the same code and the comparison between
+    processes is reported skipped."""
+    cfg = gpt2_124m_train()
+    torch.cuda.empty_cache()
+    with mp_results("offload_mp") as (out_dir, results):
+        world = len(results)
+        gc_cuda()
+        one = train_engine(cfg, state, dict(
+            offload_config(micro=TRAIN_BATCH * world), mesh={"data": 1},
+            gradient_clipping=MP_OFFLOAD_CLIP))
+        one.load_checkpoint(os.path.join(out_dir, "ckpt"), tag="mp")
+        loaded = tier_digests(one)
+        del one
+    gc_cuda()
+    ref = train_engine(cfg, state, mp_offload_config(world))
+    ids = torch.from_numpy(bench_ids(cfg, TRAIN_BATCH * world))
+    ref_losses = run_steps(ref, ids, MP_OFFLOAD_STEPS)
+    digests = tier_digests(ref)
+    params = sha256(ref._flat[:ref.num_params])
+    del ref
+    gc_cuda()
+    counts, out = mp_against_single_controller(
+        "offload_mp", results, ref_losses, digests, params, loaded)
+    out["saved_layout"] = results[0]["layout"]
+    return counts, out
+
+
+def mp_infinity_config(world, swap):
+    """bench_infinity's engine over `world` ranks with the parameters and
+    the optimizer in the host tiers (the file tiers' bits are the host
+    tiers', held in infinity_grads and train_infinity)."""
+    return dict(infinity_config(swap, "cpu", "cpu"), mesh={"data": world})
+
+
+def mp_infinity_worker(out_dir):
+    """infinity_mp in one process: bench_infinity's streaming engine over
+    the group (its 4 rows, its range of the host tier), MP_OFFLOAD_STEPS
+    steps;
+    the whole tier's and the host groups' digests; a save (process 0
+    writes the whole tier)."""
+    cfg = gpt2_124m_train()
+    state = init_state(cfg)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    engine = train_engine(cfg, state, mp_infinity_config(
+        world, os.path.join(out_dir, "swap")))
+    check(engine.local_ranks == [rank], f"the mesh is {engine.mesh}")
+    rows = torch.from_numpy(bench_ids(cfg, INF_MICRO * world)[
+        rank * INF_MICRO:(rank + 1) * INF_MICRO])
+    reset_launch_counts()
+    losses = run_steps(engine, rows, MP_OFFLOAD_STEPS)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    out = {"rank": rank, "world": world, "losses": losses,
+           "launches": counts, **tier_digests(engine),
+           "params_sha256": sha256(engine._host_params)}
+    engine.save_checkpoint(os.path.join(out_dir, "ckpt"), tag="mp")
+    return out
+
+
+def phase_infinity_mp(state):
+    """bench_infinity's streaming engine (mp_infinity_config: the host
+    tiers) in W = every visible card processes, 4 rows each, each tier
+    over its range, MP_OFFLOAD_STEPS steps, against the single controller
+    at W ranks on the same cards: losses, the whole tier and the host
+    groups bitwise; the workers' save loaded by one rank here: its tier
+    bitwise.  At W = 1 the comparison between processes is reported
+    skipped."""
+    cfg = gpt2_124m_train()
+    torch.cuda.empty_cache()
+    with checkpoint_dir() as swap:
+        with mp_results("infinity_mp") as (out_dir, results):
+            world = len(results)
+            gc_cuda()
+            one = train_engine(cfg, state, dict(
+                mp_infinity_config(1, os.path.join(swap, "one")),
+                train_micro_batch_size_per_gpu=INF_MICRO * world))
+            one.load_checkpoint(os.path.join(out_dir, "ckpt"), tag="mp")
+            loaded = tier_digests(one)
+            del one
+        gc_cuda()
+        ref = train_engine(cfg, state, mp_infinity_config(
+            world, os.path.join(swap, "sc")))
+        ids = torch.from_numpy(bench_ids(cfg, INF_MICRO * world))
+        ref_losses = run_steps(ref, ids, MP_OFFLOAD_STEPS)
+        digests = tier_digests(ref)
+        params = sha256(ref._host_params)
+        del ref
+    gc_cuda()
+    return mp_against_single_controller(
+        "infinity_mp", results, ref_losses, digests, params, loaded)
+
+
 def run_offload_phases(state, train_summary, path_counts):
-    """Phases 36-40, their launch counts into the kernel line's map."""
+    """Phases 36-40 and 44-48, their launch counts into the kernel line's
+    map."""
     run_phase("offload_grads", phase_offload_grads, state)
-    path_counts["offload"] = run_phase("train_offload", phase_train_offload,
-                                       state, train_summary)
+    path_counts["offload"], offload_rate = run_phase(
+        "train_offload", phase_train_offload, state, train_summary)
     path_counts["offload_nvme"] = run_phase(
         "train_offload_nvme", phase_train_offload_nvme, state, train_summary)
     run_phase("infinity_grads", phase_infinity_grads, state)
     path_counts["infinity"] = run_phase("train_infinity",
                                         phase_train_infinity, state)
+    path_counts["offload_sentinel"] = run_phase(
+        "offload_sentinel", phase_offload_sentinel, state)
+    path_counts["offload_zero3"] = run_phase(
+        "offload_zero3", phase_offload_zero3, state, train_summary,
+        offload_rate)
+    path_counts["infinity_dp"] = run_phase("infinity_dp", phase_infinity_dp,
+                                           state)
+    path_counts["offload_mp"] = run_phase("offload_mp", phase_offload_mp,
+                                          state)
+    path_counts["infinity_mp"] = run_phase("infinity_mp", phase_infinity_mp,
+                                           state)
 
 
 def last_line():
@@ -7205,10 +7914,12 @@ def main():
     MP_PLANNED[:] = {
         "--mp-only": ["train_mp_grads", "train_mp", "train_fused_mp"],
         "--monitor-only": ["monitor_mp"],
-        "--fused-only": ["train_fused_mp"]}.get(
+        "--fused-only": ["train_fused_mp"],
+        "--offload-only": ["offload_mp", "infinity_mp"]}.get(
             " ".join(sys.argv[1:]),
             [] if sys.argv[1:] else ["train_mp_grads", "train_mp",
-                                     "train_fused_mp", "monitor_mp"])
+                                     "train_fused_mp", "monitor_mp",
+                                     "offload_mp", "infinity_mp"])
     card = run_phase("device", phase_device)
     if sys.argv[1:] == ["--fcm-only"]:
         # only the collective tier, its ranks spread over every visible

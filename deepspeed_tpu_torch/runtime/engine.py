@@ -110,9 +110,11 @@ What it keeps of the JAX engine:
   step as one CUDA graph, captured at the second call and replayed after
   (runtime/fused_step.py); on the CPU the same body runs eagerly.  On
   CUDA the graph takes one process's ranks on one card: a window across
-  cards is refused (A.6c).  A config in `fused_fallback_reason`'s matrix
-  logs its reason once, keeps it on `fused_step_reason` and runs the
-  modular loop.
+  cards is refused (A.6c).  At stage 3 with activation checkpointing the
+  graph holds each `_RematLayer`'s recompute, its redraws on the
+  window's registered recompute generators.  A config in
+  `fused_fallback_reason`'s matrix logs its reason once, keeps it on
+  `fused_step_reason` and runs the modular loop.
 - The `resilience` block (the JAX engine's): atomic saves with a size and
   CRC32 manifest, each under the retry policy (`retry_counters` in the
   client state), retention GC, verified loads that fall back to the
@@ -131,20 +133,31 @@ What it keeps of the JAX engine:
 
 - ZeRO-Offload (`zero_optimization.offload_optimizer`, "cpu" or "nvme";
   the JAX engine's offload branch, engine.py:203-263): every rank's flat
-  buffer holds compute-dtype parameters, and the fp32 master with the
-  Adam moments lives in the host tier (runtime/zero/offload.py) or in
-  files (runtime/swap_tensor/optimizer_swapper.py).  The micro-steps'
-  grads accumulate in fp32 on the card; at the boundary the ranks'
-  reduced grads go to pinned host memory on a copy stream (the host waits
-  for the copy's event), the tier unscales, checks, clips and steps them
-  and writes the new compute-dtype parameters, which go back to every
-  rank on the copy stream (the next step's host work waits for that copy
-  before it rewrites the buffer).  A non-finite grad skips the step and
-  moves the scaler.  Checkpoints hold the tier's state_dict (the JAX
-  tier's layout) and the master as the module tree.  Under a process
-  group, at stage 3 over several ranks, and with the sentinel, the tier
-  is refused naming A.7b; `offload_param` is ZeroInfinityEngine's
-  (runtime/zero/infinity.py), which `initialize` returns for it.
+  buffer holds compute-dtype parameters (at stage 3 its pieces), and the
+  fp32 master with the Adam moments lives in the host tier
+  (runtime/zero/offload.py) or in files
+  (runtime/swap_tensor/optimizer_swapper.py), over this process's part:
+  its ranks' ranges of the flat buffer at stages 0-2 (every range under
+  one controller, one a process under a process group), every local
+  rank's pieces at stage 3.  The micro-steps' grads accumulate in fp32 on
+  the card; at the boundary each rank's reduced grads (its
+  reduce-scattered range, or its pieces) go to pinned host memory on a
+  copy stream (the host waits for the copy's event), the tier unscales,
+  checks, clips and steps them (under processes the finite flag and the
+  norm's partials are exchanged, so every process skips and clips alike)
+  and writes the new compute-dtype parameters, which go back to each
+  rank's part on the copy stream and, at stages 0-2 over several ranks,
+  are all-gathered into every rank's buffer (the next step's host work
+  waits for the copies before it rewrites the buffer).  A non-finite grad
+  skips the step and moves the scaler.  With the sentinel, its grad norm
+  is taken from the host grads the tier is about to step, and a skip
+  never runs the tier (the JAX engine's, engine.py:1583-1585).
+  Checkpoints hold the tier's state_dict (the JAX tier's layout, its
+  leaves whole: under processes gathered from every process's part) and
+  the master as the module tree; a load gives each process its part.
+  Stage 3 under a process group stays refused (A.4c);
+  `offload_param` is ZeroInfinityEngine's (runtime/zero/infinity.py),
+  which `initialize` returns for it.
 
 What is not ported yet is refused by `refuse_unported` with the ROADMAP.md
 item that will port it: among others ZeRO-3 over a process group (A.4c),
@@ -296,19 +309,6 @@ def refuse_unported(config: DeepSpeedConfig, model, mesh: MeshContext) -> None:
             "zero_optimization.offload_param runs on ZeroInfinityEngine "
             "(runtime/zero/infinity.py), which deepspeed_tpu_torch.initialize "
             "dispatches to; DeepSpeedEngine does not stream parameters")
-    if offload_on(zc.offload_optimizer):
-        if mesh.process_group is not None:
-            _refuse("zero_optimization.offload_optimizer under a "
-                    "torch.distributed process group (each process's "
-                    "ranges to its own host tier)", "A.7b")
-        if zc.stage >= 3 and mesh.axis_size("data") > 1:
-            _refuse(f"zero_optimization.offload_optimizer at stage {zc.stage} "
-                    "over several ranks (the host tier over each rank's "
-                    "pieces)", "A.7b")
-        if config.resilience_config.sentinel.enabled:
-            _refuse("resilience.sentinel with zero_optimization."
-                    "offload_optimizer (the sentinel's grad norm from the "
-                    "host tier)", "A.7b")
     if (config.optimizer_name or "").lower() in (ONEBIT_ADAM_OPTIMIZER,
                                                  ONEBIT_LAMB_OPTIMIZER):
         _refuse(f"the {config.optimizer_name} optimizer", "A.8")
@@ -354,16 +354,23 @@ class _MeanOfRanks(torch.autograd.Function):
 
 class _OffloadState:
     """The engine's side of ZeRO-Offload: the host or NVMe tier, the pinned
-    host staging of the grads and of the new compute-dtype parameters, one
+    host staging of the grads and of the new compute-dtype parameters (the
+    tier's layout: this process's ranks' parts one after another), one
     copy stream a card, the events that order the host against the
     copies, and the last step's split."""
 
     def __init__(self):
         self.master = None  # the fp32 master, handed to the tier at build
         self.tier = None
-        self.leaf_map = None
+        self.leaf_map = None  # the whole parameters' map (the JAX layout)
+        self.view = None  # the tier's state as the whole parameters'
+        # each local rank's [lo, hi) in the whole flat buffer (stages 0-2)
+        # and its part's start in the tier's buffers
+        self.chunks = None
+        self.starts = None
         self.host_grads = None
         self.host_out = None
+        self.fetched = None  # (d2h wait s, copies) of grads already fetched
         self.streams: Dict[Any, Any] = {}
         self.h2d_done = []  # events after the last upload's copies
         self.timing: Dict[str, Any] = {}
@@ -560,35 +567,97 @@ class DeepSpeedEngine:
 
     def _init_offload_tier(self):
         """ZeRO-Offload's host tier (offload_optimizer.device "cpu") or
-        NVMe tier ("nvme") over the flat layout, and the pinned host
-        staging of the grads and of the new parameters (the JAX engine's
-        offload branch, engine.py:203-263).  The native libraries must
-        build: a failure raises here."""
+        NVMe tier ("nvme") over this process's part of the parameters (the
+        JAX engine's offload branch, engine.py:203-263): at stages 0-2 its
+        local ranks' ranges of the flat buffer (all of it under one
+        controller), at stage 3 each local rank's pieces; and the pinned
+        host staging of the grads and of the new parameters.  Under a
+        process group the tier exchanges its finite flag and its norm's
+        partials with the other processes' (offload.py
+        `process_exchange`).  The native libraries must build: a failure
+        raises here."""
         from .swap_tensor.utils import aligned_empty
-        from .zero.offload import HostOffloadOptimizer, JaxLeafMap
+        from .zero.offload import (HostOffloadOptimizer, JaxLeafMap,
+                                   TierView, process_exchange)
         off, cfg = self._offload, self.config
         pin = self.mesh.is_cuda
-        size = self._flats[0].numel()
-        off.leaf_map = JaxLeafMap(self._shapes,
-                                  [o for o, _ in self._segments], size)
+        local = self.local_ranks
+        if self._zero3:
+            off.leaf_map = JaxLeafMap(self._shapes)
+            tier_map = off.leaf_map.pieces(self._layout, len(local))
+            off.starts = [i * self._layout.size for i in range(len(local))]
+        else:
+            padded = self._flats[0].numel()
+            off.leaf_map = JaxLeafMap(self._shapes,
+                                      [o for o, _ in self._segments], padded)
+            chunk = padded // self.world_size
+            off.chunks = [(self.mesh.group_index(r, ZERO_AXES) * chunk,
+                           (self.mesh.group_index(r, ZERO_AXES) + 1) * chunk)
+                          for r in local]
+            order = sorted(range(len(local)), key=lambda i: off.chunks[i])
+            tier_map = off.leaf_map.ranged([off.chunks[i] for i in order])
+            off.starts = [0] * len(local)
+            for at, i in enumerate(order):
+                off.starts[i] = at * chunk
+            off.master = torch.cat([off.master[off.chunks[i][0]:
+                                               off.chunks[i][1]]
+                                    for i in order])
+        gather = process_exchange(self.mesh, self.device)
         if cfg.zero_config.offload_optimizer.device == C.OFFLOAD_NVME_DEVICE:
             from .swap_tensor.optimizer_swapper import (
                 create_nvme_offload_optimizer)
             off.tier = create_nvme_offload_optimizer(
-                off.leaf_map, off.master, cfg,
-                gradient_clipping=cfg.gradient_clipping)
+                tier_map, off.master, cfg,
+                gradient_clipping=cfg.gradient_clipping,
+                process=(_process_rank() if self.mesh.process_count > 1
+                         else None), gather=gather)
         else:
             off.tier = HostOffloadOptimizer(
-                off.leaf_map, off.master, cfg.optimizer_name or "adam",
+                tier_map, off.master, cfg.optimizer_name or "adam",
                 cfg.optimizer_params, gradient_clipping=cfg.gradient_clipping,
-                pin=pin)
+                pin=pin, gather=gather)
+        off.view = TierView(off.tier, off.leaf_map, self._tier_flat,
+                            self._tier_part)
         off.master = None
+        size = tier_map.size
         off.host_grads = aligned_empty(4 * size, torch.float32, pin)[:size]
         esize = torch.empty((), dtype=self.compute_dtype).element_size()
         off.host_out = aligned_empty(esize * size, self.compute_dtype,
                                      pin)[:size]
         self.optimizer = off.tier
         self.opt_states, self.opt_state = [], {}
+
+    # -- the tier's state as the whole parameters' (checkpoints) -------- #
+    def _tier_flat(self, part: torch.Tensor) -> torch.Tensor:
+        """The whole flat buffer (the leaf map's layout: stages 0-2 the
+        padded flat buffer, stage 3 the module's order) of a tier buffer
+        (`part`, this process's part); a collective under a process
+        group."""
+        off = self._offload
+        if off.tier.leaf_map.whole:
+            return part
+        if self._zero3:
+            n = self._layout.size
+            return torch.from_numpy(self._layout.whole_from_locals(
+                [part[i * n:(i + 1) * n].numpy()
+                 for i in range(len(self.local_ranks))], self._shapes))
+        from .zero.offload import process_all_gather
+        return process_all_gather(self.mesh, self.device, part)
+
+    def _tier_part(self, whole: torch.Tensor) -> torch.Tensor:
+        """This process's part of a whole flat buffer (`_tier_flat`'s
+        inverse)."""
+        off = self._offload
+        if off.tier.leaf_map.whole:
+            return whole
+        if self._zero3:
+            full = whole.numpy()
+            return torch.cat([torch.from_numpy(self._layout.local_from_whole(
+                full, self._shapes, self.mesh.group_index(r, ZERO_AXES)))
+                for r in self.local_ranks])
+        order = sorted(range(len(off.chunks)), key=lambda i: off.chunks[i])
+        return torch.cat([whole[off.chunks[i][0]:off.chunks[i][1]]
+                          for i in order])
 
     def _init_zero3_stream(self):
         """At stage 3 the stream context (built at any world, so that an hpZ
@@ -630,17 +699,25 @@ class DeepSpeedEngine:
         whole = {name: p.detach() for name, p in self._named_params}
         self._flats, self._flat_grads, self._leaves = [], [], []
         self._regions = []
+        # under offload the ranks hold compute-dtype pieces and the host
+        # tier the fp32 master of every local rank's pieces, rank by rank
+        dtype = (self.compute_dtype if self._offload is not None
+                 else torch.float32)
+        masters = []
         for r in self.local_ranks:
             dev = self.mesh.device_of(r)
             index = self.mesh.group_index(r, ZERO_AXES)
-            flat = torch.zeros(layout.size, dtype=torch.float32, device=dev)
+            master = torch.zeros(layout.size, dtype=torch.float32)
+            for leaf in layout.leaves:
+                master[leaf.offset:leaf.offset + leaf.numel].copy_(
+                    leaf.cut(whole[leaf.name], index).reshape(-1))
+            flat = master.to(device=dev, dtype=dtype)
             grad = torch.zeros_like(flat)
             pieces = {}
             for leaf in layout.leaves:
-                view = flat[leaf.offset:leaf.offset + leaf.numel].view(
-                    leaf.piece_shape)
-                view.copy_(leaf.cut(whole[leaf.name], index))
-                pieces[leaf.name] = view
+                pieces[leaf.name] = flat[leaf.offset:leaf.offset
+                                         + leaf.numel].view(leaf.piece_shape)
+            masters.append(master)
             regions = []
             for lo, hi in spans:
                 region = flat[lo:hi]
@@ -655,6 +732,13 @@ class DeepSpeedEngine:
         self._ranges = [(0, layout.size)] * len(self.local_ranks)
         self._scatter_each_micro = False
         self._acc = [None] * len(self.local_ranks)
+        if self._offload is not None:
+            self._offload.master = torch.cat(masters)
+            if dtype != torch.float32:
+                # the micro-steps' compute-dtype grads accumulate here
+                self._acc = [torch.zeros(layout.size, dtype=torch.float32,
+                                         device=flat.device)
+                             for flat in self._flats]
         self._segments = [(leaf.offset, leaf.numel) for leaf in layout.leaves]
         self._segment_names = [leaf.name for leaf in layout.leaves]
         self._whole_segments = layout.whole_segments()
@@ -769,11 +853,6 @@ class DeepSpeedEngine:
             logger.warning("fused_step: falling back to the modular forward/"
                            f"backward/step loop — {reason}")
             return
-        if self._zero3 and self.module.config.activation_checkpointing:
-            raise NotImplementedError(
-                "fused_step with activation checkpointing at ZeRO stage 3 "
-                "(each layer's recompute redraws its dropout inside the "
-                "window) is not ported: ROADMAP.md A.5c")
         cards = {self.mesh.device_of(r) for r in self.local_ranks}
         if self.mesh.is_cuda and (len(cards) > 1
                                   or self.mesh.process_count > 1):
@@ -885,7 +964,7 @@ class DeepSpeedEngine:
         order (the stages' 0-2 layout, unpadded) from every rank's buffer
         of pieces (or of optimizer state laid out alike)."""
         return self._layout.whole_from_locals(
-            [b.detach().cpu().numpy() for b in buffers], self._shapes)
+            [b.detach().float().cpu().numpy() for b in buffers], self._shapes)
 
     @property
     def _padded_size(self) -> int:
@@ -899,7 +978,7 @@ class DeepSpeedEngine:
         local rank's buffer (every rank holds them whole below stage 3);
         under offload the host tier's fp32 master."""
         if self._offload is not None:
-            return self._offload.tier.master_params
+            return self._offload.view.master()
         flat = (self._whole_flat(self._flats) if self._zero3 else
                 self._flats[0][:self.num_params].detach().cpu().numpy())
         return gpt2_tree_from_flat(flat, self._named_shapes(),
@@ -952,8 +1031,7 @@ class DeepSpeedEngine:
         scaler = LossScaleState(*(t.detach().cpu().numpy()
                                   for t in self.scaler_state))
         if self._offload is not None:
-            return {"optimizer": self._offload.tier.state_dict(),
-                    "scaler": scaler}
+            return {"optimizer": self._offload.view.state(), "scaler": scaler}
         shapes, cfg = self._named_shapes(), self.module.config
         leaves = {key: gpt2_tree_from_flat(self._gathered(key), shapes, cfg)
                   for key in self.opt_state if key != "count"}
@@ -1268,7 +1346,7 @@ class DeepSpeedEngine:
         from .sharded_checkpoint import Sliced, whole_region
         proc = _process_rank()
         if self._offload is not None:
-            master = self._offload.tier.master_params
+            master = self._offload.view.master()
             module = {}
             for leaf, shape, _, _ in self._jax_leaves():
                 node = master
@@ -1398,7 +1476,7 @@ class DeepSpeedEngine:
             if missing and strict:
                 raise KeyError(f"checkpoint missing {len(missing)} keys, "
                                f"e.g. {missing[:5]}")
-            if self._zero3:
+            if self._zero3 and self._offload is None:
                 self._read_pieces(cat, keys, self._flats)
                 tree = None
             else:
@@ -1422,14 +1500,14 @@ class DeepSpeedEngine:
         except FileNotFoundError:
             ocat = None
         if ocat is None:
-            if self._offload is not None and tree is not None:
-                self._offload.tier.load_master_params(tree)
+            if self._offload is not None:
+                self._offload.view.load_master(tree)
             return
         try:
             if self._offload is not None:
                 from .sharded_checkpoint import load_sharded
                 state = load_sharded(path, "optim", self._engine_state())
-                self._offload.tier.load_state_dict(state["optimizer"])
+                self._offload.view.load_state(state["optimizer"])
             else:
                 opt_keys = self._optimizer_keys()
                 for key in self.opt_state:
@@ -1558,11 +1636,11 @@ class DeepSpeedEngine:
         self._set_full(self._flats, gpt2_flat_from_tree(
             module_state["module"], shapes, cfg, padded))
         if self._offload is not None and opt_state is not None:
-            self._offload.tier.load_state_dict(opt_state["optimizer"])
+            self._offload.view.load_state(opt_state["optimizer"])
         elif self._offload is not None:
             # module only: the master takes the loaded weights, or the next
             # step would put the old ones back (the JAX engine's :2787-2792)
-            self._offload.tier.load_master_params(module_state["module"])
+            self._offload.view.load_master(module_state["module"])
         elif opt_state is not None:
             leaves, count = self.optimizer.from_jax_state(
                 opt_state["optimizer"], self._scheduled)
@@ -1660,10 +1738,11 @@ class DeepSpeedEngine:
                     leaves[name].copy_(value)
         if self._offload is not None:
             from ..models.convert import gpt2_params_to_jax
+            current = self.module_state_dict()
             tree = gpt2_params_to_jax(
-                {n: state_dict.get(n, self._leaves[0][n]) for n in names},
+                {n: state_dict.get(n, current[n]) for n in names},
                 self.module.config)
-            self._offload.tier.load_master_params(tree)
+            self._offload.view.load_master(tree)
 
     @torch.no_grad()
     def _gather_parameter(self, name):
@@ -1683,6 +1762,17 @@ class DeepSpeedEngine:
         for r, leaves in zip(self.local_ranks, self._leaves):
             leaves[name].copy_(leaf.cut(value, self.mesh.group_index(
                 r, ZERO_AXES)))
+        if self._offload is not None:
+            # the master takes the edit, or the next step would undo it
+            master = self._offload.view.master_flat().clone()
+            off = 0
+            for n, shape in self._shapes:
+                size = int(np.prod(shape)) if shape else 1
+                if n == name:
+                    master[off:off + size].copy_(
+                        torch.as_tensor(value).reshape(-1))
+                off += size
+            self._offload.view.load_master_flat(master)
 
     def save_fp16_model(self, save_dir, save_filename="model_weights.npz"):
         """The module's weights in fp16, one .npz keyed by the JAX tree's
@@ -2014,7 +2104,9 @@ class DeepSpeedEngine:
 
     def _zero_grads(self):
         """Zero every grad buffer and accumulator (after a step or a
-        load)."""
+        load); under offload the fetched host grads are dropped too."""
+        if self._offload is not None:
+            self._offload.fetched = None
         for i, grad in enumerate(self._flat_grads):
             grad.zero_()
             if self._scatter_each_micro or (self._offload is not None
@@ -2024,52 +2116,79 @@ class DeepSpeedEngine:
                 self._acc[i] = None
 
     def _offload_fetch_grads(self):
-        """The reduced (summed over the ranks, still scaled) fp32 grads in
-        the pinned host buffer: at W ranks each rank's reduce-scattered
-        range, copied on its card's copy stream; the host waits for the
-        copies' events before it reads them."""
+        """The reduced (summed over the ranks, still scaled) fp32 grads of
+        this process's part in the pinned host buffer: at stages 0-2 and W
+        ranks each rank's reduce-scattered range (over the process group:
+        the mesh's all-to-all and ordered sum), at stage 3 each rank's
+        pieces (the streamed gathers' backward reduce-scattered them; the
+        leaves every rank holds whole are summed here), copied on its
+        card's copy stream; the host waits for the copies' events before
+        it reads them.  Notes (host wait s, the copies' events) in
+        `fetched` for the step."""
         off, mesh = self._offload, self.mesh
+        t0 = time.perf_counter()
         full = [grad if acc is None else acc
                 for acc, grad in zip(self._acc, self._flat_grads)]
-        chunk = full[0].numel() // self.world_size
         copies = []
         with mesh.forked():
-            parts = (mesh.reduce_scatter_flat(full, ZERO_AXES)
-                     if self.world_size > 1 else full)
-            for r, part in zip(self.local_ranks, parts):
-                start = mesh.group_index(r, ZERO_AXES) * chunk
+            if self._zero3:
+                if self._whole_segments:
+                    self._sum_whole(full)
+                parts = full
+            else:
+                parts = (mesh.reduce_scatter_flat(full, ZERO_AXES)
+                         if self.world_size > 1 else full)
+            for i, (r, part) in enumerate(zip(self.local_ranks, parts)):
+                at = off.starts[i]
                 with mesh.rank(r):
                     copies.append(off.async_copy(
-                        part, off.host_grads[start:start + part.numel()]))
+                        part, off.host_grads[at:at + part.numel()]))
         for ev in copies:
             if ev is not None:
                 ev[1].synchronize()
-        return copies
+        off.fetched = (time.perf_counter() - t0, copies)
 
     def _offload_upload(self):
         """The new compute-dtype parameters from the pinned host buffer to
-        every rank's buffer, on the copy streams; each card's current
-        stream waits for them, so the next forward reads the new values,
-        while the host goes on (the next step's host Adam waits for these
-        copies before it rewrites the buffer)."""
-        off = self._offload
+        each local rank's part of its buffer (its range, or at stage 3 its
+        pieces), on the copy streams; each card's current stream waits for
+        them, so the next forward reads the new values, while the host
+        goes on (the next step's host Adam waits for these copies before
+        it rewrites the buffer).  At stages 0-2 over several ranks the
+        ranges are then all-gathered into every rank's buffer."""
+        off, mesh = self._offload, self.mesh
         off.h2d_done = []
-        for flat in self._flats:
-            ev = off.async_copy(off.host_out, flat)
+        parts = []
+        for i, flat in enumerate(self._flats):
+            lo, hi = ((0, flat.numel()) if self._zero3 else off.chunks[i])
+            at = off.starts[i]
+            parts.append(flat[lo:hi])
+            ev = off.async_copy(off.host_out[at:at + hi - lo], flat[lo:hi])
             if ev is not None:
                 torch.cuda.current_stream(flat.device).wait_event(ev[1])
                 off.h2d_done.append(ev)
+        if not self._zero3 and self.world_size > 1:
+            with mesh.forked():
+                mesh.all_gather_flat(parts, ZERO_AXES, out=self._flats)
 
-    def _offload_step(self):
+    def _offload_step(self, skip=False):
         """The JAX engine's `_offload_step` (engine.py:2227-2247): the grads
-        to the host, the tier's unscale, finite check, clip and native
-        Adam (or the NVMe sweep) writing the new parameters in the compute
-        dtype, their upload to every rank, the loss scaler's update.  A
-        non-finite grad skips the step.  Returns the overflow flag (a CPU
-        bool tensor)."""
+        to the host (unless the sentinel fetched them), the tier's
+        unscale, finite check, clip and native Adam (or the NVMe sweep)
+        writing the new parameters in the compute dtype, their upload to
+        every rank, the loss scaler's update.  A non-finite grad skips the
+        step.  `skip` (the sentinel's verdict) never runs the tier and
+        leaves the scaler, as the JAX engine's (engine.py:1583-1585).
+        Returns the overflow flag (a CPU bool tensor)."""
         off = self._offload
-        t0 = time.perf_counter()
-        d2h = self._offload_fetch_grads()
+        if skip:
+            off.fetched = None
+            self._zero_grads()
+            return torch.tensor(False)
+        if off.fetched is None:
+            self._offload_fetch_grads()
+        d2h_wait, d2h = off.fetched
+        off.fetched = None
         t1 = time.perf_counter()
         scale_inv = float(self._unscale_inv())
         lr = None
@@ -2084,7 +2203,7 @@ class DeepSpeedEngine:
         if applied:
             self._offload_upload()
         t4 = time.perf_counter()
-        off.timing = {"d2h_wait_s": t1 - t0, "h2d_wait_s": t2 - t1,
+        off.timing = {"d2h_wait_s": d2h_wait, "h2d_wait_s": t2 - t1,
                       "host_adam_s": t3 - t2, "h2d_issue_s": t4 - t3,
                       "d2h_events": d2h,
                       "h2d_events": list(off.h2d_done) if applied else []}
@@ -2092,6 +2211,21 @@ class DeepSpeedEngine:
         self._set_scaler(update_loss_scale(self.scaler_cfg,
                                            self.scaler_state, overflow))
         return overflow
+
+    def _offload_grad_norm(self) -> float:
+        """The sentinel's norm under offload: the host grads just fetched
+        (still scaled, summed over the ranks), each rank's part's squared
+        norm (offload.py `square_sums`), every process's summed in rank
+        order, its root divided by loss_scale x gas x W (the JAX engine
+        divides its device norm of the same grads by loss_scale x gas,
+        engine.py:1955-1960; the port's sum over the W ranks' losses
+        carries the W)."""
+        from .zero.offload import global_grad_norm
+        off = self._offload
+        return global_grad_norm(off.tier.leaf_map, off.host_grads,
+                                off.tier.gather) / (
+            float(self.scaler_state.loss_scale)
+            * self.gradient_accumulation_steps() * self.world_size)
 
     def offload_split(self) -> Dict[str, float]:
         """The last offloaded step's split, in ms: the host's wait for the
@@ -2134,10 +2268,15 @@ class DeepSpeedEngine:
         healthy = prepared = None
         sentinel_skip = False
         if self.sentinel is not None:
-            inv = self._unscale_inv()
-            with self.mesh.forked():
-                prepared = self._unscaled_grads(inv)
-            verdict = self._sentinel_check(prepared[0])
+            if self._offload is not None:
+                # the grads the tier is about to step, fetched once
+                self._offload_fetch_grads()
+            else:
+                inv = self._unscale_inv()
+                with self.mesh.forked():
+                    prepared = self._unscaled_grads(inv)
+            verdict = self._sentinel_check(
+                prepared[0] if prepared is not None else None)
             if verdict == "rewind":
                 # the last good checkpoint is loaded; this window's grads
                 # came from the bad trajectory and are dropped with it
@@ -2156,7 +2295,8 @@ class DeepSpeedEngine:
         if trace_on:
             t0 = time.perf_counter()
         with self._emergency_lock:
-            overflow = (self._offload_step() if self._offload is not None
+            overflow = (self._offload_step(sentinel_skip)
+                        if self._offload is not None
                         else self._step_device(healthy, prepared))
             if trace_on:
                 self.monitor.add_phase("apply_dispatch", t0,
@@ -2511,7 +2651,8 @@ class DeepSpeedEngine:
                 if self._last_loss is not None else float("nan"))
         norm = None
         if s.monitor_grad_norm:
-            norm = self._grad_norm(grads)
+            norm = (self._offload_grad_norm() if self._offload is not None
+                    else self._grad_norm(grads))
             if (self.scaler_cfg.dynamic and np.isfinite(loss)
                     and not np.isfinite(norm)):
                 # an fp16 overflow with a finite loss is the scaler's (it

@@ -8,7 +8,9 @@ The fp32 master and the Adam moments live in files, one a JAX tree leaf
 and kind: `<swap_dir>/leaf<i>_<param|exp_avg|exp_avg_sq>.bin`, raw fp32
 bytes in the leaf's C order, i its number in the JAX order — the JAX
 tier's files, so a swap directory written by either package reads back
-in the other.  A step pipelines over the leaves at depth D
+in the other.  A tier over a part of the leaves (one process's ranges, or
+a process's stage-3 pieces: zero/offload.py `JaxLeafMap`) keeps each
+leaf's part in its file, in a swap directory of its own process.  A step pipelines over the leaves at depth D
 (`offload_optimizer.pipeline_depth`, at least 2):
 
     D-1 reads in flight ; for leaf i: [read leaf i+D-1]
@@ -34,11 +36,9 @@ import torch
 
 from ...ops.adam.cpu_adam import adam_step_buffers, native_lib
 from ...utils.logging import log_dist
-from ..zero.offload import JaxLeafMap, _AdamHyper
+from ..zero.offload import KINDS, Gather, JaxLeafMap, _AdamHyper
 from .aio_handle import AsyncIOHandle, handle_kwargs
 from .utils import aligned_empty
-
-KINDS = ("param", "exp_avg", "exp_avg_sq")
 
 
 class _BufferSet:
@@ -56,18 +56,45 @@ class _BufferSet:
         return self.p[:n], self.m[:n], self.v[:n]
 
 
+def nvme_state_layout(leaf_map: JaxLeafMap, step: int,
+                      buffers: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The JAX NVMe tier's state_dict from flat buffers of a whole map:
+    {"step", "leaf<k>_<kind>": leaf k} (copies)."""
+    sd: Dict[str, Any] = {"step": step}
+    for kind in KINDS:
+        for k in range(len(leaf_map.leaves)):
+            sd[f"leaf{k}_{kind}"] = leaf_map.gather(buffers[kind], k).clone()
+    return sd
+
+
+def nvme_state_buffers(leaf_map: JaxLeafMap, sd: Dict[str, Any]):
+    """(step, flat buffers by kind) of a JAX NVMe tier's state_dict, over a
+    whole map (the padding zero)."""
+    out = {kind: torch.zeros(leaf_map.size, dtype=torch.float32)
+           for kind in KINDS}
+    for kind in KINDS:
+        for k in range(len(leaf_map.leaves)):
+            leaf_map.scatter(out[kind], k, sd[f"leaf{k}_{kind}"])
+    return int(np.asarray(sd["step"])), out
+
+
 class NVMeOffloadOptimizer:
     """Adam / AdamW over file-resident fp32 state; the host tier's
-    engine-facing API (`apply`, `step_count`, `state_dict`, ...)."""
+    engine-facing API (`apply`, `step_count`, `state_dict`,
+    `local_state`, ...)."""
+
+    state_layout = staticmethod(nvme_state_layout)
+    state_buffers = staticmethod(nvme_state_buffers)
 
     def __init__(self, leaf_map: JaxLeafMap, master: torch.Tensor,
                  swap_dir: str, optimizer_name: str = "adam",
                  optimizer_params: Optional[dict] = None,
                  gradient_clipping: float = 0.0, aio_config=None,
-                 pipeline_depth: int = 2):
+                 pipeline_depth: int = 2, gather: Gather = None):
         self.hyper = _AdamHyper(optimizer_name, optimizer_params,
                                 gradient_clipping, "NVMe offload")
         self.leaf_map = leaf_map
+        self.gather = gather
         self.pipeline_depth = max(2, int(pipeline_depth))
         self._step = 0
         self.pinned_bytes = 0
@@ -122,7 +149,7 @@ class NVMeOffloadOptimizer:
         on a non-finite grad; else every leaf read, stepped and written
         back, its new parameters in `out`."""
         h, lm = self.hyper, self.leaf_map
-        if not h.prepare(lm, grads, scale_inv, lr, self._bufs[0].g):
+        if not h.prepare(lm, grads, scale_inv, lr, self.gather):
             return False
         self._step += 1
         stats = {"read_wait_s": 0.0, "write_wait_s": 0.0, "adam_s": 0.0,
@@ -186,12 +213,31 @@ class NVMeOffloadOptimizer:
         """The fp32 master read back from the files, as the JAX tree."""
         return self.leaf_map.tree([t.numpy() for t in self._read_all("param")])
 
-    def state_dict(self) -> Dict[str, Any]:
-        sd: Dict[str, Any] = {"step": self._step}
-        for kind in KINDS:
+    def local_state(self, kinds=KINDS) -> Dict[str, torch.Tensor]:
+        """The flat buffers of `kinds` (the padding zero), read from the
+        files."""
+        out = {}
+        for kind in kinds:
+            flat = torch.zeros(self.leaf_map.size, dtype=torch.float32)
             for k, t in enumerate(self._read_all(kind)):
-                sd[f"leaf{k}_{kind}"] = t
-        return sd
+                self.leaf_map.scatter(flat, k, t)
+            out[kind] = flat
+        return out
+
+    def load_local_state(self, step: Optional[int],
+                         buffers: Dict[str, torch.Tensor]) -> None:
+        """Overwrite the files of the kinds given (and the step count,
+        unless None) from flat buffers."""
+        if step is not None:
+            self._step = int(step)
+        lm = self.leaf_map
+        self._write_all({(k, kind): lm.gather(buf, k).numpy()
+                         for kind, buf in buffers.items()
+                         for k in range(len(lm.leaves))}, list(buffers))
+
+    def state_dict(self) -> Dict[str, Any]:
+        return nvme_state_layout(self.leaf_map, self._step,
+                                 self.local_state())
 
     def _write_all(self, arrays: Dict[str, Any], kinds) -> None:
         held = []
@@ -204,35 +250,31 @@ class NVMeOffloadOptimizer:
                                          async_op=True)
         self.write_handle.wait()
 
-    def load_master_params(self, tree: Dict[str, Any]) -> None:
-        """Overwrite the master files from a JAX tree, moments untouched."""
-        lm = self.leaf_map
-        self._write_all({(k, "param"): lm.tree_leaf(tree, k)
-                         for k in range(len(lm.leaves))}, ("param",))
-
-    def load_state_dict(self, sd: Dict[str, Any]) -> None:
-        self._step = int(np.asarray(sd["step"]))
-        self._write_all({(k, kind): sd[f"leaf{k}_{kind}"]
-                         for k in range(len(self.leaf_map.leaves))
-                         for kind in KINDS}, KINDS)
 
 
-def nvme_swap_dir(nvme_path: Optional[str], kind: str) -> str:
+def nvme_swap_dir(nvme_path: Optional[str], kind: str,
+                  process: Optional[int] = None) -> str:
     """`<nvme_path>/zero_stage_3/<kind>` (the JAX package's paths); without
-    a path, under this process's temporary directory."""
+    a path, under this process's temporary directory; `process` (under
+    several processes) appends `process<p>`, one directory a process."""
     base = nvme_path or os.path.join(tempfile.gettempdir(),
                                      "deepspeed_tpu_torch_nvme")
-    return os.path.join(base, "zero_stage_3", kind)
+    path = os.path.join(base, "zero_stage_3", kind)
+    return path if process is None else os.path.join(path,
+                                                     f"process{process}")
 
 
 def create_nvme_offload_optimizer(leaf_map: JaxLeafMap, master: torch.Tensor,
-                                  config, gradient_clipping: float = 0.0):
+                                  config, gradient_clipping: float = 0.0,
+                                  process: Optional[int] = None,
+                                  gather: Gather = None):
     """The engines' factory for offload_optimizer.device == "nvme"
-    (reference: stage3.py:932 _configure_tensor_swapping)."""
+    (reference: stage3.py:932 _configure_tensor_swapping); `process` and
+    `gather` for a tier over one process's part."""
     oo = config.zero_config.offload_optimizer
     return NVMeOffloadOptimizer(
-        leaf_map, master, nvme_swap_dir(oo.nvme_path, "optimizer"),
+        leaf_map, master, nvme_swap_dir(oo.nvme_path, "optimizer", process),
         optimizer_name=config.optimizer_name or "adam",
         optimizer_params=config.optimizer_params,
         gradient_clipping=gradient_clipping, aio_config=config.aio_config,
-        pipeline_depth=oo.pipeline_depth)
+        pipeline_depth=oo.pipeline_depth, gather=gather)

@@ -32,8 +32,25 @@ the optimizer sweep); 0 reads each group where it is used.  Both give
 the same bits.  `deepspeed_tpu_torch.initialize` dispatches here when
 `zero_optimization.offload_param` (or the legacy cpu_offload_params) is
 set.
+
+Over W data-parallel ranks (the JAX engine takes the data-parallel world
+for its batch, infinity.py:125-127, :328-341) every rank streams the
+groups to its own card (ranks that share a card share one copy) and runs
+its share of the rows: the layer computes and the recompute run rank by
+rank, each rank's dropout drawn from a seed of its own (rank 0's the
+step's seed).  Each group's fp32 grads are summed over the ranks in rank
+order on the card before they go to the host (over a process group the
+mesh's all-gather and the same ordered sum), and the tier steps them
+divided by gas x W, so the loss is the global batch's mean, the mean of
+the W ranks' losses.  One process holds every group's compute-dtype
+bytes; under P processes each process's tier holds its range of the flat
+layout (zero/offload.py `JaxLeafMap.ranged`, the finite flag and the clip
+norm exchanged over the group), and the new ranges are all-gathered into
+every process's host buffer after the sweep.  A checkpoint holds the
+whole tier (process 0 writes it, gathered from every process's range).
 """
 
+import contextlib
 import json
 import os
 import time
@@ -109,7 +126,7 @@ class ZeroInfinityEngine:
     def __init__(self, model=None, config=None, model_parameters=None,
                  optimizer=None, lr_scheduler=None, training_data=None,
                  collate_fn=None, device="cuda", mesh=None):
-        from ..engine import _refuse, resolve_mesh_ctx
+        from ..engine import _check_process_world, resolve_mesh_ctx
         if not hasattr(model, "layerwise_api"):
             raise ValueError(
                 "offload_param requires a model exposing layerwise_api() "
@@ -123,15 +140,15 @@ class ZeroInfinityEngine:
         world = self.mesh.data_parallel_world_size
         self.config = (config if isinstance(config, DeepSpeedConfig)
                        else DeepSpeedConfig(config, world_size=world))
-        if self.mesh.process_group is not None or world > 1:
-            _refuse("zero_optimization.offload_param over several "
-                    "data-parallel ranks or processes (one streaming "
-                    "engine a rank)", "A.7b")
+        _check_process_world(self.mesh)
         if self.config.fp16.enabled:
             raise ValueError(
                 "the streaming engine is bf16/fp32-native; use bf16 instead "
                 "of fp16")
-        self.device = self.mesh.device_of(0)
+        self.world_size = world
+        self.local_ranks = list(self.mesh.local_ranks)
+        self._devices = [self.mesh.device_of(r) for r in self.local_ranks]
+        self.device = self._devices[0]
         self.compute_dtype = (torch.bfloat16 if self.config.bf16.enabled
                               else torch.float32)
         api = model.layerwise_api()
@@ -148,11 +165,18 @@ class ZeroInfinityEngine:
         self._init_layout(params)
 
         # ---- the host / NVMe tiers ------------------------------------ #
-        from .offload import HostOffloadOptimizer, JaxLeafMap
+        from .offload import (HostOffloadOptimizer, JaxLeafMap, TierView,
+                              process_exchange)
         zc = self.config.zero_config
         op, oo = zc.offload_param, zc.offload_optimizer
         pin = self.device.type == "cuda"
-        master = torch.empty(self._size, dtype=torch.float32)
+        procs = self.mesh.process_count
+        # this process's range of the layout (padded to a multiple of P):
+        # under one controller the whole layout
+        chunk = -(-self._size // procs)
+        proc = self.local_ranks[0] // len(self.local_ranks)
+        self._chunk = (proc * chunk, (proc + 1) * chunk)
+        master = torch.zeros(chunk * procs, dtype=torch.float32)
         for name, shape in self._named_shapes:
             s, e = self._name_span[name]
             value = params[name]
@@ -164,8 +188,13 @@ class ZeroInfinityEngine:
         self._host_params = aligned_empty(esize * self._size,
                                           self.compute_dtype,
                                           pin)[:self._size]
-        self._host_params.copy_(master)
-        self._leaf_map = JaxLeafMap(self._named_shapes)
+        self._host_params.copy_(master[:self._size])
+        self._leaf_map = JaxLeafMap(self._named_shapes, None, master.numel())
+        tier_map = self._leaf_map
+        gather = process_exchange(self.mesh, self.device)
+        if procs > 1:
+            tier_map = self._leaf_map.ranged([self._chunk])
+            master = master[self._chunk[0]:self._chunk[1]].clone()
         self._use_nvme_params = op is not None and op.device == "nvme"
         self._prefetch_depth = int(op.prefetch_depth) if op is not None else 0
         self._swapper = None
@@ -174,7 +203,8 @@ class ZeroInfinityEngine:
             from ..swap_tensor.partitioned_param_swapper import (
                 PartitionedParamSwapper)
             self._swapper = PartitionedParamSwapper(
-                nvme_swap_dir(op.nvme_path, "params"),
+                nvme_swap_dir(op.nvme_path, "params",
+                              proc if procs > 1 else None),
                 {g: self._group_tree(g, self._host_params[slice(
                     *self._spans[g])]) for g in self._order},
                 buffer_count=max(2, op.buffer_count),
@@ -188,21 +218,33 @@ class ZeroInfinityEngine:
             from ..swap_tensor.optimizer_swapper import (
                 create_nvme_offload_optimizer)
             self._opt = create_nvme_offload_optimizer(
-                self._leaf_map, master, self.config,
-                gradient_clipping=self.config.gradient_clipping)
+                tier_map, master, self.config,
+                gradient_clipping=self.config.gradient_clipping,
+                process=proc if procs > 1 else None, gather=gather)
         else:
             self._opt = HostOffloadOptimizer(
-                self._leaf_map, master, self.config.optimizer_name or "adam",
+                tier_map, master, self.config.optimizer_name or "adam",
                 self.config.optimizer_params,
-                gradient_clipping=self.config.gradient_clipping, pin=pin)
+                gradient_clipping=self.config.gradient_clipping, pin=pin,
+                gather=gather)
         del master
-        self._host_grads = aligned_empty(4 * self._size, torch.float32,
-                                         pin)[:self._size]
+        self._view = TierView(self._opt, self._leaf_map, self._tier_flat,
+                              self._tier_part)
+        size = tier_map.size
+        self._host_grads = aligned_empty(4 * size, torch.float32,
+                                         pin)[:size]
+        # under processes the sweep writes this process's range here, and
+        # the ranges are all-gathered into _host_params
+        self._host_out = None
+        if procs > 1:
+            self._host_out = aligned_empty(esize * size, self.compute_dtype,
+                                           pin)[:size]
         biggest = max(e - s for s, e in self._spans.values())
         self._grad_staging = aligned_empty(4 * biggest, torch.float32,
                                            pin)[:biggest]
-        self._copy_stream = (torch.cuda.Stream(device=self.device)
-                             if self.device.type == "cuda" else None)
+        self._copy_streams = {
+            dev: torch.cuda.Stream(device=dev) for dev in self._devices
+            if dev.type == "cuda"}
 
         # ---- bookkeeping ------------------------------------------------ #
         self.lr_scheduler = lr_scheduler
@@ -241,8 +283,9 @@ class ZeroInfinityEngine:
             f"{len(self._order)} streamed groups, params_on="
             f"{'nvme' if self._use_nvme_params else 'host'}, optimizer="
             f"{type(self._opt).__name__}, aio_backend={self.aio_backend}, "
-            f"prefetch_depth={self._prefetch_depth}, device={self.device}",
-            ranks=[0])
+            f"prefetch_depth={self._prefetch_depth}, ranks={world} "
+            f"({len(self.local_ranks)} here), devices="
+            f"{sorted({str(d) for d in self._devices})}", ranks=[0])
 
     # ------------------------------------------------------------------ #
     # the flat layout: the groups in streaming order, each group's leaves
@@ -287,13 +330,19 @@ class ZeroInfinityEngine:
         self._swapper.flush_writes()
 
     def _configure_dataloader(self, training_data, collate_fn):
+        """This process's loader (the JAX engine's, infinity.py:328-341):
+        micro-batch x its ranks' rows a batch, strided over the
+        processes."""
         if training_data is None:
             return None
         from ..dataloader import DeepSpeedDataLoader
         return DeepSpeedDataLoader(
             training_data,
-            batch_size=self.config.train_micro_batch_size_per_gpu,
-            collate_fn=collate_fn)
+            batch_size=(self.config.train_micro_batch_size_per_gpu
+                        * len(self.local_ranks)),
+            collate_fn=collate_fn,
+            data_parallel_world_size=self.mesh.process_count,
+            data_parallel_rank=self.local_ranks[0] // len(self.local_ranks))
 
     def _configure_monitor(self):
         """The monitor with the swap lane fed: `swap_stats_fn`, the
@@ -396,34 +445,42 @@ class ZeroInfinityEngine:
         return dev
 
     def _upload(self, g: str, src: torch.Tensor):
-        """Group g's tree on the card from its host bytes (pinned), copied
-        on the copy stream; the compute stream waits for the copy.  A
-        window slot is released only once its copy has landed."""
+        """Group g's tree on each local rank's card from its host bytes
+        (pinned), copied on the card's copy stream, once a card; the
+        card's compute stream waits for the copy.  A window slot is
+        released only once its copies have landed.  Returns one tree a
+        local rank (ranks on one card share it)."""
         s, e = self._spans[g]
         flat = src.reshape(-1).view(self.compute_dtype)
-        if self._copy_stream is None:
-            dev = flat.clone()
-            ev = None
-        else:
-            # allocated on the copy stream, so that the copy need not wait
-            # for the compute still reading the memory of an earlier group;
-            # recorded on the compute stream that uses it
-            cur = torch.cuda.current_stream(self.device)
-            with torch.cuda.stream(self._copy_stream):
-                dev = torch.empty(e - s, dtype=self.compute_dtype,
-                                  device=self.device)
-                dev.copy_(flat, non_blocking=True)
-                ev = torch.cuda.Event()
-                ev.record(self._copy_stream)
-            dev.record_stream(cur)
-            cur.wait_event(ev)
+        trees, events = {}, []
+        for dev in self._devices:
+            if dev in trees:
+                continue
+            stream = self._copy_streams.get(dev)
+            if stream is None:
+                on_dev = flat.clone()
+            else:
+                # allocated on the copy stream, so that the copy need not
+                # wait for the compute still reading the memory of an
+                # earlier group; recorded on the compute stream that uses it
+                cur = torch.cuda.current_stream(dev)
+                with torch.cuda.stream(stream):
+                    on_dev = torch.empty(e - s, dtype=self.compute_dtype,
+                                         device=dev)
+                    on_dev.copy_(flat, non_blocking=True)
+                    ev = torch.cuda.Event()
+                    ev.record(stream)
+                on_dev.record_stream(cur)
+                cur.wait_event(ev)
+                events.append(ev)
+            trees[dev] = self._group_tree(g, on_dev)
         if self._swapper is not None:
-            if ev is not None:
+            for ev in events:
                 ev.synchronize()
             self._swapper.release(g)
-        elif ev is not None:
-            self._uploads.append(ev)
-        return self._group_tree(g, dev)
+        else:
+            self._uploads.extend(events)
+        return [trees[dev] for dev in self._devices]
 
     def _drop(self, ref):
         """Callers rebind: `p = self._drop(p)`."""
@@ -438,10 +495,80 @@ class ZeroInfinityEngine:
             return None
         return int(torch.randint(0, 2 ** 62, (1,), generator=self._seeds))
 
+    def _rank_seeds(self, seed):
+        """Each local rank's dropout seed from the step's: rank 0's is the
+        step's own, rank r's a fixed function of (seed, r)."""
+        if seed is None:
+            return [None] * len(self.local_ranks)
+        return [(seed + r * 0x9E3779B97F4A7C15) % 2 ** 62
+                for r in self.local_ranks]
+
+    def _shard(self, value):
+        """Each local rank's rows of this process's batch: contiguous row
+        blocks in rank order when the ranks divide its rows, else the
+        whole batch to every rank (the training engine's `_shard_batch`)."""
+        n = len(self.local_ranks)
+        if value is None:
+            return [None] * n
+        if value.shape[0] % n:
+            return [value.to(d) for d in self._devices]
+        rows = value.shape[0] // n
+        return [value[i * rows:(i + 1) * rows].to(d)
+                for i, d in enumerate(self._devices)]
+
+    def _on(self, j):
+        """Local rank j's card as the current device (the kernels'
+        wrappers launch on it)."""
+        dev = self._devices[j]
+        if dev.type == "cuda":
+            return torch.cuda.device(dev)
+        return contextlib.nullcontext()
+
+    def _mean_loss(self, losses):
+        """The mean of every rank's loss (gathered over the process group),
+        on the first local rank's card: the global batch's loss."""
+        if self.world_size == 1:
+            return losses[0].detach()
+        if self.mesh.process_group is not None:
+            with self.mesh.forked():
+                stacked = self.mesh.all_gather_flat(
+                    [loss.detach().reshape(1) for loss in losses])[0]
+        else:
+            stacked = torch.stack([loss.detach().to(self.device)
+                                   for loss in losses])
+        return stacked.mean()
+
+    def _rank_sum(self, flats):
+        """One group's fp32 grads summed over every rank in rank order (on
+        the first local rank's card; over a process group the mesh's
+        all-gather and the same ordered sum)."""
+        if self.mesh.process_group is not None:
+            with self.mesh.forked():
+                return self.mesh.all_sum(flats)[0]
+        total = flats[0]
+        if len(flats) > 1:
+            total = total.clone()
+            for f in flats[1:]:
+                total.add_(f.to(total.device))
+        return total
+
+    def _tier_flat(self, part: torch.Tensor) -> torch.Tensor:
+        """The whole padded layout of a buffer of this process's range
+        (every process's range, all-gathered: a collective)."""
+        if self._opt.leaf_map.whole:
+            return part
+        from .offload import process_all_gather
+        return process_all_gather(self.mesh, self.device, part)
+
+    def _tier_part(self, whole: torch.Tensor) -> torch.Tensor:
+        """This process's range of a buffer of the whole layout."""
+        return whole[self._chunk[0]:self._chunk[1]]
+
     # ------------------------------------------------------------------ #
     def forward(self, input_ids, labels=None):
-        """Stream the groups up and return the loss (detached).  The head
-        computes its grads here, so backward() starts from them."""
+        """Stream the groups up and return the loss (detached): the mean
+        of every rank's loss on its rows.  The head computes its grads
+        here, so backward() starts from them."""
         self.tput_timer.start()
         if self.monitor is not None:
             self.monitor.mark_step_start()
@@ -449,10 +576,12 @@ class ZeroInfinityEngine:
         if self._step_t0 is None:
             self._step_t0 = time.perf_counter()
         seed = self._step_seed()
-        ids = torch.as_tensor(np.asarray(input_ids) if not isinstance(
-            input_ids, torch.Tensor) else input_ids).to(self.device)
-        lbl = None if labels is None else torch.as_tensor(labels).to(
-            self.device)
+        seeds = self._rank_seeds(seed)
+        ids = self._shard(torch.as_tensor(np.asarray(input_ids) if not
+                                          isinstance(input_ids, torch.Tensor)
+                                          else input_ids))
+        lbl = self._shard(None if labels is None else torch.as_tensor(labels))
+        ranks = range(len(self.local_ranks))
         L = self.num_layers
         plan = (["embed"] + [f"layer{i}" for i in range(L)]
                 + ["head", "embed"])
@@ -462,75 +591,100 @@ class ZeroInfinityEngine:
             self._fwd_carry = None
         with torch.no_grad():
             embed_g = self._take(st, 0)
-            h = self._embed_fn(embed_g, ids, seed)
-            acts = [h]
+            hs = []
+            for j in ranks:
+                with self._on(j):
+                    hs.append(self._embed_fn(embed_g[j], ids[j], seeds[j]))
+            acts = [[h] for h in hs]
             embed_g = self._drop(embed_g)
             for i in range(L):
                 p = self._take(st, 1 + i, extra=1 if i == L - 1 else 0)
-                h = self._layer_fn(p, h, seed, i)
-                acts.append(h)
+                for j in ranks:
+                    with self._on(j):
+                        hs[j] = self._layer_fn(p[j], hs[j], seeds[j], i)
+                    acts[j].append(hs[j])
                 p = self._drop(p)
         head_g = self._take(st, 1 + L)
         embed_g = self._take(st, 2 + L)
-        with torch.enable_grad():
-            head_leaves, rebuild = tree_flatten(head_g)
-            head_leaves = [t.detach().requires_grad_(True)
-                           for t in head_leaves]
-            wte = embed_g["wte"].detach().requires_grad_(True)
-            hh = h.detach().requires_grad_(True)
-            loss = self._head_loss_fn(rebuild(head_leaves), {"wte": wte},
-                                      hh, ids, lbl)
-            grads = torch.autograd.grad(loss, head_leaves + [wte, hh])
+        losses, pending = [], []
+        for j in ranks:
+            with torch.enable_grad(), self._on(j):
+                head_leaves, rebuild = tree_flatten(head_g[j])
+                head_leaves = [t.detach().requires_grad_(True)
+                               for t in head_leaves]
+                wte = embed_g[j]["wte"].detach().requires_grad_(True)
+                hh = hs[j].detach().requires_grad_(True)
+                loss = self._head_loss_fn(rebuild(head_leaves), {"wte": wte},
+                                          hh, ids[j], lbl[j])
+                grads = torch.autograd.grad(loss, head_leaves + [wte, hh])
+            losses.append(loss)
+            pending.append({"dh": grads[-1], "g_head": list(grads[:-2]),
+                            "g_wte_head": grads[-2]})
         head_g = self._drop(head_g)
         embed_g = self._drop(embed_g)
         if self._prefetch_depth >= 2 and self._swapper is not None:
             # the backward's first group streams in under the head
             self._bwd_carry = self._swap_in(f"layer{L - 1}")
         self._acts = acts
-        self._pending = {"seed": seed, "ids": ids, "dh": grads[-1],
-                         "g_head": list(grads[:-2]), "g_wte_head": grads[-2]}
-        self._last_loss = loss.detach()
+        self._pending = {"seeds": seeds, "ids": ids, "ranks": pending}
+        self._last_loss = self._mean_loss(losses)
         return self._last_loss
 
     __call__ = forward
 
-    def _start_copy(self, g: str, grads: List[torch.Tensor]):
-        """Group g's grads (in its leaves' order) to the host as fp32, on
-        the copy stream: straight into the accumulator in a window's first
+    @staticmethod
+    def _flat32(grads: List[torch.Tensor]) -> torch.Tensor:
+        return torch.cat([t.reshape(-1).float() for t in grads])
+
+    def _start_copy(self, g: str, flat: torch.Tensor):
+        """Group g's grads (fp32, summed over the ranks, in its leaves'
+        order) to the host, this process's range of them, on the copy
+        stream: straight into the accumulator in a window's first
         micro-step, else into the staging buffer, added at `_land`."""
         s, e = self._spans[g]
-        flat = torch.cat([t.reshape(-1).float() for t in grads])
-        dst = (self._host_grads[s:e] if self._grads_fresh
-               else self._grad_staging[:e - s])
-        if self._copy_stream is None:
-            dst.copy_(flat)
+        lo, hi = self._chunk
+        a, b = max(s, lo), min(e, hi)
+        if a >= b:
+            return (g, None, None)
+        src = flat[a - s:b - s]
+        dst = (self._host_grads[a - lo:b - lo] if self._grads_fresh
+               else self._grad_staging[:b - a])
+        stream = self._copy_streams.get(flat.device)
+        if stream is None:
+            dst.copy_(src)
             return (g, flat, None)
-        self._copy_stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(self._copy_stream):
-            dst.copy_(flat, non_blocking=True)
+        stream.wait_stream(torch.cuda.current_stream(flat.device))
+        with torch.cuda.stream(stream):
+            dst.copy_(src, non_blocking=True)
             ev = torch.cuda.Event()
-            ev.record(self._copy_stream)
-        flat.record_stream(self._copy_stream)
+            ev.record(stream)
+        flat.record_stream(stream)
         return (g, flat, ev)
 
     def _land(self, inflight) -> None:
-        g, _, ev = inflight
+        g, flat, ev = inflight
         if ev is not None:
             ev.synchronize()
-        if not self._grads_fresh:
+        if flat is not None and not self._grads_fresh:
             s, e = self._spans[g]
-            self._host_grads[s:e].add_(self._grad_staging[:e - s])
+            lo, hi = self._chunk
+            a, b = max(s, lo), min(e, hi)
+            self._host_grads[a - lo:b - lo].add_(self._grad_staging[:b - a])
 
     def backward(self, loss=None):
-        """Stream the groups down, recompute each layer from its saved
-        input with autograd and backpropagate; each group's grads go to
-        the host fp32 accumulators one group behind the compute."""
+        """Stream the groups down, recompute each layer from each rank's
+        saved input with autograd and backpropagate; each group's grads,
+        summed over the ranks, go to the host fp32 accumulators one group
+        behind the compute."""
         if self._pending is None:
             raise RuntimeError("backward() before forward()")
         pend, acts = self._pending, self._acts
-        seed, ids, dh = pend["seed"], pend["ids"], pend["dh"]
+        seeds, ids, per = pend["seeds"], pend["ids"], pend["ranks"]
+        ranks = range(len(self.local_ranks))
+        dh = [p["dh"] for p in per]
         L = self.num_layers
-        inflight = self._start_copy("head", pend["g_head"])
+        inflight = self._start_copy("head", self._rank_sum(
+            [self._flat32(p["g_head"]) for p in per]))
         plan = [f"layer{i}" for i in reversed(range(L))] + ["embed"]
         st = {"plan": plan, "inflight": {}}
         if self._bwd_carry is not None:  # issued under the head
@@ -538,28 +692,38 @@ class ZeroInfinityEngine:
             self._bwd_carry = None
         for pos, i in enumerate(reversed(range(L))):
             p = self._take(st, pos)
-            with torch.enable_grad():
-                leaves, rebuild = tree_flatten(p)
-                leaves = [t.detach().requires_grad_(True) for t in leaves]
-                x = acts[i].detach().requires_grad_(True)
-                y = self._layer_fn(rebuild(leaves), x, seed, i)
-                grads = torch.autograd.grad(y, leaves + [x], dh)
-            dh = grads[-1]
-            acts[i + 1] = None
+            flats = []
+            for j in ranks:
+                with torch.enable_grad(), self._on(j):
+                    leaves, rebuild = tree_flatten(p[j])
+                    leaves = [t.detach().requires_grad_(True)
+                              for t in leaves]
+                    x = acts[j][i].detach().requires_grad_(True)
+                    y = self._layer_fn(rebuild(leaves), x, seeds[j], i)
+                    grads = torch.autograd.grad(y, leaves + [x], dh[j])
+                dh[j] = grads[-1]
+                acts[j][i + 1] = None
+                flats.append(self._flat32(grads[:-1]))
+            total = self._rank_sum(flats)
             self._land(inflight)
-            inflight = self._start_copy(f"layer{i}", list(grads[:-1]))
+            inflight = self._start_copy(f"layer{i}", total)
             p = self._drop(p)
         embed_g = self._take(st, L)
-        with torch.enable_grad():
-            leaves, rebuild = tree_flatten(embed_g)
-            leaves = [t.detach().requires_grad_(True) for t in leaves]
-            h0 = self._embed_fn(rebuild(leaves), ids, seed)
-            g_embed = dict(zip(self._group_names["embed"],
-                               torch.autograd.grad(h0, leaves, dh)))
-        g_embed["wte"] = g_embed["wte"].float() + pend["g_wte_head"].float()
+        flats = []
+        for j in ranks:
+            with torch.enable_grad(), self._on(j):
+                leaves, rebuild = tree_flatten(embed_g[j])
+                leaves = [t.detach().requires_grad_(True) for t in leaves]
+                h0 = self._embed_fn(rebuild(leaves), ids[j], seeds[j])
+                g_embed = dict(zip(self._group_names["embed"],
+                                   torch.autograd.grad(h0, leaves, dh[j])))
+            g_embed["wte"] = (g_embed["wte"].float()
+                              + per[j]["g_wte_head"].float())
+            flats.append(self._flat32([g_embed[n] for n in
+                                       self._group_names["embed"]]))
+        total = self._rank_sum(flats)
         self._land(inflight)
-        inflight = self._start_copy(
-            "embed", [g_embed[n] for n in self._group_names["embed"]])
+        inflight = self._start_copy("embed", total)
         self._land(inflight)
         embed_g = self._drop(embed_g)
         if self._prefetch_depth >= 2 and self._swapper is not None:
@@ -575,8 +739,10 @@ class ZeroInfinityEngine:
 
     def step(self):
         """The optimizer sweep at the accumulation boundary: the host or
-        NVMe tier steps the master, then the new compute-dtype groups are
-        written (to the host buffer, or to their files)."""
+        NVMe tier steps the master (this process's range of it) from the
+        grads divided by gas x W, then the new compute-dtype groups are
+        written (to the host buffer, all-gathered from every process's
+        range under a process group, or to their files)."""
         if not self.is_gradient_accumulation_boundary():
             return
         if self._grads_fresh:
@@ -588,10 +754,14 @@ class ZeroInfinityEngine:
         for ev in self._uploads:  # copies that still read the host buffer
             ev.synchronize()
         self._uploads = []
-        applied = self._opt.apply(self._host_grads, 1.0 / gas, lr,
-                                  self._host_params)
+        out = self._host_params if self._host_out is None else self._host_out
+        applied = self._opt.apply(self._host_grads,
+                                  1.0 / (gas * self.world_size), lr, out)
         self._grads_fresh = True
         if applied:
+            if self._host_out is not None:
+                self._host_params.copy_(
+                    self._tier_flat(self._host_out)[:self._size])
             if self._swapper is not None:
                 self._write_groups()
             if self.lr_scheduler is not None:
@@ -688,13 +858,16 @@ class ZeroInfinityEngine:
 
     # ------------------------------------------------------------------ #
     def module_state_dict(self):
-        """The fp32 master as the JAX tree (from the optimizer tier)."""
-        return self._opt.master_params
+        """The fp32 master as the JAX tree (from the optimizer tier; under
+        processes gathered from every process's range: a collective)."""
+        return self._view.master()
 
     def save_checkpoint(self, save_dir, tag=None, client_state=None):
         """The JAX streaming engine's checkpoint: the master as the module
         tree, the tier's state_dict as the optimizer, the counters and
-        the dropout seeds' generator state in the client state."""
+        the dropout seeds' generator state in the client state.  Under a
+        process group every process calls it and process 0 writes the
+        whole tier (the JAX engine's host state, engine.py:2678-2683)."""
         from .. import checkpoint as ckpt_mod
         tag = tag or f"global_step{self.global_steps}"
         client = dict(client_state or {})
@@ -702,26 +875,35 @@ class ZeroInfinityEngine:
                        "micro_steps": self.micro_steps,
                        "skipped_steps": self.skipped_steps,
                        TORCH_RNG_KEY: self._seeds.get_state().tolist()})
-        return ckpt_mod.save_checkpoint_state(
-            save_dir, tag, module_state={"module": self.module_state_dict()},
-            optimizer_state={"optimizer": self._opt.state_dict()},
-            client_state=client)
+        module, optimizer = self.module_state_dict(), self._view.state()
+        path = os.path.join(save_dir, str(tag))
+        if self.local_ranks[0] == 0:
+            path = ckpt_mod.save_checkpoint_state(
+                save_dir, tag, module_state={"module": module},
+                optimizer_state={"optimizer": optimizer},
+                client_state=client)
+        if self.mesh.process_group is not None:
+            import torch.distributed as dist
+            dist.barrier(group=self.mesh.process_group)
+        return path
 
     def load_checkpoint(self, load_dir, tag=None):
+        """Load the streaming engine's checkpoint (any process count or
+        world it was saved at): the tier's state, this process's range of
+        it, and the compute-dtype groups from the master."""
         from .. import checkpoint as ckpt_mod
         module_state, opt_state, client = ckpt_mod.load_checkpoint_state(
             load_dir, tag, {"module": self.module_state_dict()},
-            {"optimizer": self._opt.state_dict()})
+            {"optimizer": self._view.state()})
+        full = torch.zeros(self._leaf_map.size, dtype=torch.float32)
+        self._leaf_map.from_tree(module_state["module"], full)
         if opt_state is not None:
-            self._opt.load_state_dict(opt_state["optimizer"])
-        master = module_state["module"]
-        self._opt.load_master_params(master)
+            self._view.load_state(opt_state["optimizer"])
+        self._view.load_master_flat(full)
         for ev in self._uploads:
             ev.synchronize()
         self._uploads = []
-        full = torch.empty(self._size, dtype=torch.float32)
-        self._leaf_map.from_tree(master, full)
-        self._host_params.copy_(full)
+        self._host_params.copy_(full[:self._size])
         if self._swapper is not None:
             self._write_groups()
             self._swapper.drain_write_events()

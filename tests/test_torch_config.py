@@ -89,25 +89,10 @@ TINY = dict(vocab_size=128, n_positions=64, hidden_size=32, num_layers=2,
 
 
 @pytest.mark.parametrize("block,item", [
-    ({"zero_optimization": {"stage": 3, "offload_optimizer":
-                            {"device": "cpu"}}, "mesh": {"data": 2}},
-     "A.7b"),
-    ({"zero_optimization": {"stage": 2, "offload_optimizer":
-                            {"device": "cpu"}},
-      "resilience": {"sentinel": {"enabled": True}}}, "A.7b"),
-    ({"zero_optimization": {"stage": 3, "offload_param":
-                            {"device": "cpu"}}, "mesh": {"data": 2}},
-     "A.7b"),
-    ({"zero_optimization": {"stage": 2, "offload_optimizer":
-                            {"device": "nvme"}},
-      "resilience": {"sentinel": {"enabled": True}}}, "A.7b"),
     ({"monitor": {"enabled": True, "moe": {"enabled": True}}}, "A.10"),
     ({"optimizer": {"type": "OneBitAdam", "params": {"lr": 1e-3}},
       "zero_optimization": {"stage": 2, "low_bandwidth": {"onebit": True}}},
      "A.8"),
-    ({"zero_optimization": {"stage": 3, "offload_optimizer":
-                            {"device": "nvme"}}, "mesh": {"data": 2}},
-     "A.7b"),
     ({"zero_optimization": {"stage": 3}, "mesh": {"expert": 2}}, "A.10"),
     ({"sequence_parallel": {"size": 2}}, "A.9"),
     ({"mesh": {"model": 2}}, "A.9"),
@@ -135,6 +120,49 @@ def test_unported_config_blocks_are_refused(block, item):
     dst.reset_mesh_context()
 
 
+@pytest.mark.parametrize("block", [
+    {"zero_optimization": {"stage": 3, "offload_optimizer":
+                           {"device": "cpu"}}, "mesh": {"data": 2}},
+    {"zero_optimization": {"stage": 2, "offload_optimizer":
+                           {"device": "cpu"}},
+     "resilience": {"sentinel": {"enabled": True}}},
+    {"zero_optimization": {"stage": 3, "offload_param":
+                           {"device": "cpu"}}, "mesh": {"data": 2}},
+    {"zero_optimization": {"stage": 2, "offload_optimizer":
+                           {"device": "nvme"}},
+     "resilience": {"sentinel": {"enabled": True}}},
+    {"zero_optimization": {"stage": 3, "offload_optimizer":
+                           {"device": "nvme"}}, "mesh": {"data": 2}},
+])
+def test_offload_tier_config_blocks_now_run(tmp_path, block):
+    """The five offload-tier cases that left the refusal list with
+    ROADMAP.md A.7b: the tier at stage 3 over two ranks (cpu and nvme),
+    with the sentinel (cpu and nvme), and the streaming engine over two
+    ranks, each initialized and stepped (the swap files under tmp_path;
+    tests/test_torch_offload_dp.py holds them against the JAX engine)."""
+    conf = dict(FLAGSHIP, bf16={"enabled": False})
+    conf.update(block)
+    zo = dict(conf["zero_optimization"])
+    for key in ("offload_optimizer", "offload_param"):
+        if key in zo:
+            zo[key] = dict(zo[key], nvme_path=str(tmp_path))
+    conf["zero_optimization"] = zo
+    world = conf.get("mesh", {}).get("data", 1)
+    dst.reset_mesh_context()
+    model = GPT2Model(GPT2Config(**TINY))
+    model.init_params(torch.Generator().manual_seed(0))
+    eng = dst.initialize(model=model, config=conf, device="cpu")[0]
+    assert eng.world_size == world
+    ids = torch.zeros(FLAGSHIP["train_micro_batch_size_per_gpu"] * world,
+                      TINY["n_positions"], dtype=torch.long)
+    loss = eng.forward(ids)
+    eng.backward(loss)
+    eng.step()
+    assert torch.isfinite(loss) and eng.global_steps == 1
+    assert eng.optimizer.step_count() == 1
+    dst.reset_mesh_context()
+
+
 def test_zero3_with_activation_checkpointing_is_refused():
     """Refused until ROADMAP.md A.5b ported per-layer recompute inside the
     streamed layer groups: GPT2Config(activation_checkpointing=True) at
@@ -157,16 +185,22 @@ def test_zero3_with_activation_checkpointing_is_refused():
 
 
 def test_zero3_remat_under_fused_step_is_refused():
-    """Stage 3 with activation checkpointing and the fused step, whose
-    window would hold the recompute's dropout redraws, is refused under
-    ROADMAP.md A.5c."""
+    """Refused until ROADMAP.md A.5c let the fused step's window hold the
+    stage-3 recompute with its dropout redraws: stage 3 with activation
+    checkpointing and the fused step now initializes and runs its windows
+    (eager on the CPU; tests/test_torch_offload_dp.py holds them bitwise
+    against the modular loop)."""
     dst.reset_mesh_context()
     conf = dict(FLAGSHIP, bf16={"enabled": False},
                 zero_optimization={"stage": 3}, mesh={"data": 2},
                 fused_step={"enabled": True})
     model = GPT2Model(GPT2Config(**dict(TINY, activation_checkpointing=True)))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.5c"):
-        dst.initialize(model=model, config=conf, device="cpu")
+    eng = dst.initialize(model=model, config=conf, device="cpu")[0]
+    assert eng._zero3 and eng._fused is not None
+    ids = torch.zeros(FLAGSHIP["train_micro_batch_size_per_gpu"] * 2,
+                      TINY["n_positions"], dtype=torch.long)
+    loss = eng.train_batch(iter([(ids,)]))
+    assert torch.isfinite(loss) and eng.global_steps == 1
     dst.reset_mesh_context()
 
 

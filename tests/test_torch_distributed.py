@@ -153,9 +153,79 @@ def _case_probe(spec, case, world, rank):
     return out
 
 
+def _tier_flats(eng):
+    """The offload tier's whole flat buffers by kind and its step count
+    (every process's part gathered: every process calls it)."""
+    tier = eng.optimizer
+    return {"step": tier.step_count(),
+            **{k: eng._tier_flat(v).clone()
+               for k, v in tier.local_state().items()}}
+
+
+def _case_offload(spec, case, world, rank):
+    """Steps of the ZeRO-Offload tier (or the streaming engine) over the
+    group: the losses, the whole tier and the device parameters (the
+    streaming engine's compute-dtype host buffer); with `save`, a save of
+    the streaming engine that one process loads."""
+    eng = _engine(spec, case)
+    losses = [_step(eng, _rows(b, world, rank)) for b in case["batches"]]
+    params = (eng._host_params if hasattr(eng, "_host_params")
+              else eng._flat[:eng.num_params])
+    out = {"losses": losses, "tier": _tier_flats(eng),
+           "params": params.clone(), "world_size": eng.world_size}
+    if case.get("save"):
+        out["path"] = eng.save_checkpoint(spec["save_dir"] + case["name"],
+                                          tag="t")
+    return out
+
+
+def _case_offload_overflow(spec, case, world, rank):
+    """A step, then inf in the last process's accumulated grads: every
+    process skips the tier's step."""
+    eng = _engine(spec, case)
+    batch = _rows(case["batches"][0], world, rank)
+    _step(eng, batch)
+    before = _tier_flats(eng)
+    eng.backward(eng.forward(batch))
+    if rank == world - 1:
+        buf = eng._acc[0] if eng._acc[0] is not None else eng._flat_grads[0]
+        buf[5] = float("inf")
+    eng.step()
+    overflow = eng.overflow
+    after = _tier_flats(eng)
+    _step(eng, batch)
+    return {"overflow": overflow,
+            "same": all(torch.equal(before[k], after[k]) if k != "step"
+                        else before[k] == after[k] for k in before),
+            "next_step": eng.optimizer.step_count()}
+
+
+def _case_offload_save(spec, case, world, rank):
+    """Steps of the tier, a save in the sharded layout (the default under
+    processes) and in the consolidated one, each reloaded by a fresh
+    engine of the same world."""
+    out = {}
+    for layout in ("sharded", "consolidated"):
+        eng = _engine(spec, case)
+        eng.config.checkpoint_config.sharded = layout == "sharded"
+        for b in case["batches"]:
+            _step(eng, _rows(b, world, rank))
+        save_dir = spec["save_dir"] + f"_offload_{layout}"
+        path = eng.save_checkpoint(save_dir, tag="t")
+        other = _engine(spec, case, state_key="other")
+        other.load_checkpoint(save_dir)
+        out[layout] = {"path": path, "saved": _tier_flats(eng),
+                       "reloaded": _tier_flats(other),
+                       "layout": eng._partition_topology()["layout"]}
+    return out
+
+
 WORKER_CASES = {"train": _case_train, "overflow": _case_overflow,
                 "save": _case_save, "load": _case_load,
-                "loader": _case_loader, "probe": _case_probe}
+                "loader": _case_loader, "probe": _case_probe,
+                "offload": _case_offload,
+                "offload_overflow": _case_offload_overflow,
+                "offload_save": _case_offload_save}
 
 
 def _worker_main(spec_path, rank):
@@ -209,6 +279,35 @@ LAMB = {"optimizer": {"type": "Lamb", "params": {"lr": 1e-2,
                                                   "weight_decay": 0.01}}}
 
 
+def _offload_config(world, micro, device, clip=0.05):
+    """ZeRO-2 with offload_optimizer on `device` and gradient clipping
+    (the swap directory set by the fixture)."""
+    dp, _ = _helpers()
+    return dp._config(world, micro, 2, gradient_clipping=clip,
+                      zero_optimization={"stage": 2, "offload_optimizer": {
+                          "device": device}})
+
+
+def _infinity_config(world, micro):
+    """ZeRO-Infinity with the parameters on the host and the optimizer in
+    files, gradient clipping on (the swap directories set by the
+    fixture)."""
+    dp, _ = _helpers()
+    return dp._config(world, micro, 3, gradient_clipping=0.05,
+                      zero_optimization={
+                          "stage": 3, "offload_param": {"device": "cpu"},
+                          "offload_optimizer": {"device": "nvme"}})
+
+
+def _with_swap_dir(config, path):
+    """`config` with its offload blocks' nvme_path set to `path`."""
+    zo = dict(config["zero_optimization"])
+    for key in ("offload_optimizer", "offload_param"):
+        if key in zo:
+            zo[key] = dict(zo[key], nvme_path=path)
+    return dict(config, zero_optimization=zo)
+
+
 def _cases(world):
     """The cases a group of `world` processes runs: (name, kind, config
     arguments of test_torch_data_parallel._config, extra)."""
@@ -217,6 +316,12 @@ def _cases(world):
     cases = [dict(name=f"stage{stage}", kind="train",
                   config=dp._config(world, micro, stage),
                   batches=_global_batches(3)) for stage in (0, 1, 2)]
+    cases += [dict(name=f"offload_{device}", kind="offload",
+                   config=_offload_config(world, micro, device),
+                   batches=_global_batches(100)) for device in ("cpu", "nvme")]
+    cases.append(dict(name="infinity", kind="offload", save=world == 2,
+                      config=_infinity_config(world, micro),
+                      batches=_global_batches(110, n=3)))
     if world == 2:
         cases += [
             dict(name="bf16", kind="train", bf16=True,
@@ -250,7 +355,13 @@ def _cases(world):
                  config=dp._config(world, 3, 2),
                  dataset=_global_batches(70, n=1, rows=20)[0]),
             dict(name="probe", kind="probe",
-                 config=dp._config(world, micro, 2))]
+                 config=dp._config(world, micro, 2)),
+            dict(name="offload_overflow", kind="offload_overflow",
+                 config=_offload_config(world, micro, "cpu"),
+                 batches=_global_batches(120, n=1)),
+            dict(name="offload_save", kind="offload_save",
+                 config=_offload_config(world, micro, "cpu"),
+                 batches=_global_batches(130, n=2))]
     else:
         cases.append(dict(name="load", kind="load",
                           config=dp._config(world, micro, 2),
@@ -337,6 +448,9 @@ def runs(tmp_path_factory):
         cases = _cases(world)
         for case in cases:
             case.setdefault("load_dir", w1_dir)
+            if "zero_optimization" in case["config"]:
+                case["config"] = _with_swap_dir(
+                    case["config"], os.path.join(root, f"swap{world}"))
         cases_by_world[world] = {c["name"]: c for c in cases}
         torch.save({"world": world, "model": tr.TINY, "states": states,
                     "cases": cases,
@@ -711,6 +825,112 @@ def test_four_processes_load_a_one_rank_save(runs):
     for rank, res in enumerate(runs[4]):
         _assert_state_equal(res["load"]["loaded"], want, ("load", rank))
         assert res["load"]["losses"] == losses, rank
+
+
+# ---------------------------------------------------------------------- #
+# 3b. the offload tier and the streaming engine over processes
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("world,name", [
+    (2, "offload_cpu"), (2, "offload_nvme"), (2, "infinity"),
+    (4, "offload_cpu"), (4, "offload_nvme"), (4, "infinity")])
+def test_offload_tier_processes_equal_the_single_controller(runs, tmp_path,
+                                                            world, name):
+    """ZeRO-Offload at stage 2 (the host and the NVMe tier, clipping at
+    0.05) and ZeRO-Infinity (parameters on the host, the optimizer in
+    files, clipping at 0.05) in W gloo processes, each process's tier
+    over its range (the finite flag and the norm's partials exchanged):
+    every process's losses, the whole tier (master, moments, step count,
+    gathered over the processes) and the device parameters (the streaming
+    engine's host groups) bitwise the single controller's at W ranks.  A
+    save of the streaming engine at two processes loads at one rank with
+    the same tier."""
+    case = runs["cases"][world][name]
+    config = _with_swap_dir(case["config"], str(tmp_path / "sc"))
+    with _one_thread():
+        losses, eng = _single_controller(dict(case, config=config))
+        want = _tier_flats(eng)
+    params = (eng._host_params if name == "infinity"
+              else eng._flat[:eng.num_params])
+    for rank, res in enumerate(runs[world]):
+        got = res[name]
+        assert got["world_size"] == world
+        assert got["losses"] == losses, (rank, got["losses"], losses)
+        assert got["tier"]["step"] == want["step"] == len(case["batches"])
+        for kind in ("param", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(got["tier"][kind], want[kind]), (rank, kind)
+        assert torch.equal(got["params"], params), rank
+    if case.get("save"):
+        dp, tr = _helpers()
+        one_conf = _with_swap_dir(dict(
+            config, mesh={"data": 1}, train_micro_batch_size_per_gpu=ROWS),
+            str(tmp_path / "one"))
+        with _one_thread():
+            one = dp._port_engine(tr._jax_params(False, seed=1)[1],
+                                  one_conf)
+            one.load_checkpoint(os.path.dirname(runs[world][0][name][
+                "path"]), tag="t")
+            got = _tier_flats(one)
+        n = got["param"].numel()
+        for kind in ("param", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(got[kind], want[kind][:n]), kind
+        assert got["step"] == want["step"]
+
+
+def test_offload_overflow_on_one_process_skips_everywhere(runs):
+    """inf in the last process's accumulated grads under the offload
+    tier: every process reports the overflow and skips its tier's step
+    (master, moments and count bitwise); the next step proceeds."""
+    for res in runs[2]:
+        out = res["offload_overflow"]
+        assert out["overflow"] and out["same"]
+        assert out["next_step"] == 2
+
+
+@pytest.mark.parametrize("layout", ["sharded", "consolidated"])
+def test_offload_save_at_two_processes_loads_at_one_rank_and_in_jax(
+        runs, tmp_path, layout):
+    """The offload tier saved at W = 2 processes (process 0 writes the
+    tier's leaves whole, gathered from both processes' ranges): each
+    process reloads its range bitwise; one rank in one process loads the
+    tier bitwise; the JAX engine with the host tier loads the same master
+    and moments."""
+    import jax
+
+    import deepspeed_tpu as ds
+    from deepspeed_tpu.models import GPT2Config as JaxGPT2Config
+    from deepspeed_tpu.models import GPT2Model as JaxGPT2Model
+    dp, tr = _helpers()
+    for res in runs[2]:
+        out = res["offload_save"][layout]
+        assert out["layout"] == layout
+        for kind in ("param", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(out["reloaded"][kind], out["saved"][kind])
+        assert out["reloaded"]["step"] == out["saved"]["step"] == 2
+    saved = runs[2][0]["offload_save"][layout]["saved"]
+    save_dir = os.path.join(runs["root"], f"ckpt2_offload_{layout}")
+    conf = _offload_config(1, ROWS, "cpu")
+    with _one_thread():
+        one = dp._port_engine(tr._jax_params(False, seed=1)[1], conf)
+        one.load_checkpoint(save_dir, tag="t")
+        got = _tier_flats(one)
+        view = one._offload.view
+        master, state = view.master(), view.state()
+    n = one.num_params
+    for kind in ("param", "exp_avg", "exp_avg_sq"):
+        assert torch.equal(got[kind][:n], saved[kind][:n]), kind
+    ds.reset_mesh_context()
+    model = JaxGPT2Model(JaxGPT2Config(bf16=False, **tr.TINY))
+    jeng = ds.initialize(model=model, config=conf, model_parameters=tr.
+                         _jax_params(False)[1], mesh=ds.initialize_mesh(
+                             data=1, devices=jax.devices()[:1]))[0]
+    jeng.load_checkpoint(save_dir, tag="t")
+    for a, b in zip(jax.tree.leaves(jeng.optimizer.master_params),
+                    jax.tree.leaves(master)):
+        np.testing.assert_array_equal(np.asarray(a), b)
+    jstate = jeng.optimizer.state_dict()
+    for k, v in state["exp_avg"].items():
+        np.testing.assert_array_equal(np.asarray(jstate["exp_avg"][k]), v)
+    ds.reset_mesh_context()
 
 
 # ---------------------------------------------------------------------- #

@@ -147,9 +147,9 @@ def test_trajectory_matches_the_jax_engine(tmp_path, device, gas):
 
 
 def test_nvme_tier_equals_cpu_tier_bitwise(tmp_path):
-    """bf16 with gradient clipping (the global norm summed in the JAX
-    order), 3 steps: the NVMe tier's losses, device parameters, master
-    and moments equal the host tier's bit for bit."""
+    """bf16 with gradient clipping (the global norm's fixed block sums,
+    offload.py `square_sums`), 3 steps: the NVMe tier's losses, device
+    parameters, master and moments equal the host tier's bit for bit."""
     _, tree = _tree(bf16=True)
     ids = _ids()
     runs = {}
@@ -241,9 +241,11 @@ def test_data_parallel_ranks_of_one_process():
 
 
 def test_refusals_and_the_fused_fallback():
-    """A client optimizer is refused as in the JAX engine; under a process
-    group, at stage 3 over several ranks and with the sentinel the tier
-    is refused naming ROADMAP.md A.7b; offload_param is the streaming
+    """A client optimizer is refused as in the JAX engine; the tier at
+    stage 3 under a process group is refused with ZeRO-3 there, naming
+    ROADMAP.md A.4c (under a process group at stages 1-2, at stage 3 over
+    several ranks and with the sentinel the tier runs:
+    tests/test_torch_offload_dp.py); offload_param is the streaming
     engine's; fused_step falls back to the modular loop with its
     reason."""
     from deepspeed_tpu_torch.runtime.optimizers import build_optimizer
@@ -255,22 +257,18 @@ def test_refusals_and_the_fused_fallback():
                        optimizer=build_optimizer("adam", {}))
     model = GPT2Model(GPT2Config(bf16=False, **TINY))
     flat = {a: 1 for a in ("pipe", "data", "expert", "seq", "model")}
-    grouped = types.SimpleNamespace(axis_sizes=flat, process_group=object(),
-                                    axis_size=lambda a: 1)
-    wide = types.SimpleNamespace(axis_sizes=dict(flat, data=2),
-                                 process_group=None,
-                                 axis_size=lambda a: 2 if a == "data" else 1)
-    cases = ((grouped, _conf("cpu")),
-             (wide, dict(_conf("cpu", micro=2), zero_optimization={
-                 "stage": 3, "offload_optimizer": {"device": "cpu"}})),
-             (types.SimpleNamespace(axis_sizes=flat, process_group=None,
-                                    axis_size=lambda a: 1),
-              dict(_conf("cpu"), resilience={"sentinel": {"enabled": True}})))
-    for mesh, conf in cases:
-        world = mesh.axis_size("data")
-        with pytest.raises(NotImplementedError, match="A.7b"):
-            refuse_unported(DeepSpeedConfig(conf, world_size=world), model,
-                            mesh)
+    grouped = types.SimpleNamespace(axis_sizes=dict(flat, data=2),
+                                    process_group=object(),
+                                    axis_size=lambda a: 2 if a == "data"
+                                    else 1)
+    conf = dict(_conf("cpu", micro=2), zero_optimization={
+        "stage": 3, "offload_optimizer": {"device": "cpu"}})
+    with pytest.raises(NotImplementedError, match=r"A\.4c"):
+        refuse_unported(DeepSpeedConfig(conf, world_size=2), model, grouped)
+    for conf in (dict(_conf("cpu", micro=2), zero_optimization={
+            "stage": 2, "offload_optimizer": {"device": "cpu"}}),
+            dict(_conf("cpu"), resilience={"sentinel": {"enabled": True}})):
+        refuse_unported(DeepSpeedConfig(conf, world_size=2), model, grouped)
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
     dst.reset_mesh_context()
     with pytest.raises(ValueError, match="ZeroInfinityEngine"):
